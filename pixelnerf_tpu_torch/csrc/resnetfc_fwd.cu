@@ -3,15 +3,8 @@
 //   resnetfc_fwd_dense   replaces pixelnerf_tpu/ops/resnetfc_pallas.py::_kernel_2d
 //   resnetfc_fwd_gather  replaces pixelnerf_tpu/ops/resnetfc_pallas.py::_kernel_2d_gather
 //
-// Both compute, per point (NS == 1):
-//   x = lin_in(code)
-//   for k < n_blocks:  [x += lin_z_k(z) while k < n_lin_z]
-//                      x += fc_1(relu(fc_0(relu(x))))
-//   out = lin_out(relu(x))
-// with bf16 operands and f32 accumulation: the code, z and every relu output
-// are rounded to bf16 before their product, biases and the residual stream
-// stay f32, and each layer adds its bias to the f32 product before the
-// residual add -- the TPU kernel's numerics contract.  The gather entry point
+// The tower and its numerics contract live in resnetfc_tower.cuh, which the
+// backward's recompute (resnetfc_bwd.cu) shares.  The gather entry point
 // first builds z[i] = sum_{j<4} w[i,j] * table[idx[i,j]] as a real 4-tap
 // read of the (T, C) bf16 table (L2-resident at T*C*2 = 1 MB for sn64), sums
 // in f32 and rounds to bf16 into shared memory.  The TPU kernel builds the
@@ -22,295 +15,41 @@
 // What bounds it: ~6.86 MFLOP per point at sn64 widths (H=512, 5 blocks,
 // 3 latent injections) against ~0.1 KB of point input, so the tower is bound
 // by tensor-core operations, not device memory.  This version keeps to
-// nvcuda::wmma 16x16x16 bf16 products: one CTA of 8 warps per 32-point tile,
-// each warp owning 64 output columns of every layer.  A warp's slice of the
-// f32 residual stream lives in its accumulator fragments; bias, relu and the
-// bf16 rounding are applied per fragment through a small per-warp staging
-// tile, so no layer needs a CTA-wide elementwise pass.  Weights (~7 MB bf16,
-// L2-resident) reach shared memory through a 4-stage per-warp cp.async ring
-// of 16-row slabs in 16-byte coalesced copies; the bf16 operand buffers are
-// row-padded against bank conflicts.  Every CTA still re-reads all weights
-// from L2 for 32 points; larger point tiles with wgmma and TMA are the next
-// step.  The ragged last tile is masked in-kernel.
+// nvcuda::wmma 16x16x16 bf16 products, one CTA of 8 warps per 32-point tile
+// (resnetfc_tower.cuh).  Every CTA still re-reads all weights from L2 for 32
+// points; larger point tiles with wgmma and TMA are the next step.  The
+// ragged last tile is masked in-kernel.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <mma.h>
-#include <stdint.h>
-
-using namespace nvcuda;
-typedef __nv_bfloat16 bf16;
+#include "resnetfc_tower.cuh"
 
 namespace {
 
-constexpr int BM = 32;  // points per CTA: two 16-row wmma tiles
-constexpr int NWARPS = 8;
-constexpr int NTHREADS = NWARPS * 32;
-constexpr int STAGES = 4;  // cp.async ring depth for weight slabs
-constexpr int PAD = 8;     // bf16 elements of row padding (16 bytes)
-// Hidden width: every config in conf/ uses d_hidden 512.  Each warp owns
-// J = HID / (16 * NWARPS) = 4 column tiles of every layer.
-constexpr int HID = 512;
-constexpr int J = HID / (16 * NWARPS);
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
-
-struct TowerParams {
-  const bf16* z;       // (B, C) dense latent; unused by the gather kernel
-  const int* idx;      // (B, taps) int32 tap rows, columns 0..3 used
-  const float* w;      // (B, taps) f32 tap weights
-  const bf16* table;   // (T, C) feature table
-  const float* x;      // (B, d_in) f32 coordinate code
-  const bf16* w_in;    // (kin, H), rows >= d_in are zero
-  const float* b_in;   // (H)
-  const bf16* w_z;     // (n_lin_z, C, H)
-  const float* b_z;    // (n_lin_z, H)
-  const bf16* w_blk;   // (n_blocks, 2, H, H): fc_0, fc_1
-  const float* b_blk;  // (n_blocks, 2, H)
-  const bf16* w_out;   // (H, d_out)
-  const float* b_out;  // (d_out)
-  float* out;          // (d_out, B) when planar, else (B, d_out)
-  int B, d_in, kin, C, T, taps, n_blocks, n_lin_z, d_out, planar;
-};
-
-// Shared-memory layout, in bytes from the base; every offset is a multiple
-// of 128 for the widths the wrapper admits (C and kin multiples of 16).
-struct Layout {
-  int lda, ldz, ldx, sld;  // row strides in elements
-  size_t act, hb, zb, xin, stg, wst, total;
-};
-
-__host__ __device__ inline Layout layout(int C, int kin, int n_lin_z) {
-  Layout L;
-  L.lda = HID + PAD;
-  L.ldz = C + PAD;
-  L.ldx = kin + PAD;
-  L.sld = J * 16 + PAD;
-  L.act = 0;
-  L.hb = L.act + (size_t)BM * L.lda * sizeof(bf16);
-  L.zb = L.hb + (size_t)BM * L.lda * sizeof(bf16);
-  L.xin = L.zb + (n_lin_z > 0 ? (size_t)BM * L.ldz * sizeof(bf16) : 0);
-  L.stg = L.xin + (size_t)BM * L.ldx * sizeof(bf16);
-  L.wst = L.stg + (size_t)NWARPS * 256 * sizeof(float);
-  L.total = L.wst + (size_t)NWARPS * STAGES * 16 * L.sld * sizeof(bf16);
-  return L;
-}
-
-__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
-__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
-
-__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
-  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
-         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
-}
-
-__device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// One 16-row slab of W (rows k..k+15, columns col0..col0+16J) into a warp's
-// staging buffer, as 16-byte copies.
-__device__ __forceinline__ void stage_w(bf16* dst, int sld, const bf16* W, int N, int k, int col0) {
-  constexpr int CPR = J * 2;  // 16-byte chunks per row
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int c = lane; c < 16 * CPR; c += 32) {
-    const int r = c / CPR, q = c - r * CPR;
-    cp_async16(dst + r * sld + q * 8, W + (size_t)(k + r) * N + col0 + q * 8);
-  }
-}
-
-// acc[h][j] = A[16h.., K] @ W[K, col0 + 16j ..] for this warp's J column
-// tiles: A is bf16 in shared memory (row stride lda), W bf16 row-major in
-// global memory, streamed through the warp's STAGES-deep cp.async ring.
-__device__ __forceinline__ void warp_gemm(FragC (&acc)[2][J], const bf16* A, int lda, int K,
-                                          const bf16* W, int N, int col0, bf16* ring, int sld) {
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    wmma::fill_fragment(acc[0][j], 0.0f);
-    wmma::fill_fragment(acc[1][j], 0.0f);
-  }
-  const int nk = K / 16;
-  const int slab = 16 * sld;
-#pragma unroll
-  for (int s = 0; s < STAGES - 1; ++s) {
-    if (s < nk) stage_w(ring + s * slab, sld, W, N, s * 16, col0);
-    cp_async_commit();
-  }
-  for (int ks = 0; ks < nk; ++ks) {
-    cp_async_wait<STAGES - 2>();  // this lane's copies of slab ks have landed
-    __syncwarp();                 // ... and every lane's; slab ks-1 is no longer read
-    const int pre = ks + STAGES - 1;
-    if (pre < nk) stage_w(ring + (pre % STAGES) * slab, sld, W, N, pre * 16, col0);
-    cp_async_commit();
-    const bf16* Bs = ring + (ks % STAGES) * slab;
-    FragA a0, a1;
-    wmma::load_matrix_sync(a0, A + ks * 16, lda);
-    wmma::load_matrix_sync(a1, A + 16 * lda + ks * 16, lda);
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      FragB b;
-      wmma::load_matrix_sync(b, Bs + j * 16, sld);
-      wmma::mma_sync(acc[0][j], a0, b, acc[0][j]);
-      wmma::mma_sync(acc[1][j], a1, b, acc[1][j]);
-    }
-  }
-  cp_async_wait<0>();
-  __syncwarp();
-}
-
-// bias[col..col+16] broadcast over 16 rows, in accumulator layout.
-__device__ __forceinline__ void bias_frag(FragC& b, const float* bias, int col, float* stg) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int e = lane; e < 256; e += 32) stg[e] = bias[col + (e & 15)];
-  __syncwarp();
-  wmma::load_matrix_sync(b, stg, 16, wmma::mem_row_major);
-  __syncwarp();
-}
-
-// dst[16h + r][col + c] = bf16(relu(f)) for one 16x16 fragment.
-__device__ __forceinline__ void emit_relu(bf16* dst, int ld, int h, int col, const FragC& f,
-                                          float* stg) {
-  const int lane = threadIdx.x & 31;
-  wmma::store_matrix_sync(stg, f, 16, wmma::mem_row_major);
-  __syncwarp();
-#pragma unroll
-  for (int e = lane; e < 256; e += 32)
-    dst[(16 * h + (e >> 4)) * ld + col + (e & 15)] = __float2bfloat16_rn(fmaxf(stg[e], 0.0f));
-  __syncwarp();
-}
-
-// x (+)= acc + bias over the warp's fragments; emit bf16(relu(x)) into act.
-__device__ __forceinline__ void residual(FragC (&x)[2][J], const FragC (&acc)[2][J],
-                                         const float* bias, int col0, bool init, bf16* act,
-                                         int lda, bool emit, float* stg) {
-#pragma unroll
-  for (int j = 0; j < J; ++j) {
-    FragC b;
-    bias_frag(b, bias, col0 + 16 * j, stg);
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-#pragma unroll
-      for (int i = 0; i < b.num_elements; ++i) {
-        const float v = acc[h][j].x[i] + b.x[i];
-        x[h][j].x[i] = init ? v : x[h][j].x[i] + v;
-      }
-      if (emit) emit_relu(act, lda, h, col0 + 16 * j, x[h][j], stg);
-    }
-  }
-}
+using namespace rfc;
 
 template <bool GATHER>
 __global__ void __launch_bounds__(NTHREADS, 1) resnetfc_fwd_kernel(const TowerParams p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  constexpr int H = HID;
-  const int C = p.C, kin = p.kin;
-  const Layout L = layout(C, kin, p.n_lin_z);
-  bf16* act = reinterpret_cast<bf16*>(smem_raw + L.act);  // relu(x) operand (BM, H)
-  bf16* hb = reinterpret_cast<bf16*>(smem_raw + L.hb);    // relu(fc_0) operand (BM, H)
-  bf16* zb = reinterpret_cast<bf16*>(smem_raw + L.zb);    // latent (BM, C)
-  bf16* xin = reinterpret_cast<bf16*>(smem_raw + L.xin);  // code (BM, kin)
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  float* stg = reinterpret_cast<float*>(smem_raw + L.stg) + warp * 256;
-  bf16* ring = reinterpret_cast<bf16*>(smem_raw + L.wst) + (size_t)warp * STAGES * 16 * L.sld;
+  const Layout L = layout(p.C, p.kin, p.n_lin_z, false);
+  const Smem s = carve(smem_raw, L);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int row0 = blockIdx.x * BM;
-  const int col0 = warp * J * 16;  // this warp's output columns in every layer
 
-  for (int e = tid; e < BM * kin; e += NTHREADS) {
-    const int r = e / kin, c = e - r * kin, g = row0 + r;
-    const float v = (g < p.B && c < p.d_in) ? p.x[(size_t)g * p.d_in + c] : 0.0f;
-    xin[r * L.ldx + c] = __float2bfloat16_rn(v);
-  }
-  if (p.n_lin_z > 0) {
-    const int nq = C / 8;  // 16-byte chunks of eight channels per row
-    for (int t = tid; t < BM * nq; t += NTHREADS) {
-      const int r = t / nq, q = t - r * nq, g = row0 + r;
-      uint4 packed = make_uint4(0u, 0u, 0u, 0u);
-      if (g < p.B) {
-        if (GATHER) {
-          float acc[8];
-#pragma unroll
-          for (int u = 0; u < 8; ++u) acc[u] = 0.0f;
-#pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int ri = p.idx[(size_t)g * p.taps + j];
-            const float wj = p.w[(size_t)g * p.taps + j];
-            if (ri >= 0 && ri < p.T) {
-              const uint4 v = __ldg(reinterpret_cast<const uint4*>(p.table + (size_t)ri * C) + q);
-              const uint32_t words[4] = {v.x, v.y, v.z, v.w};
-#pragma unroll
-              for (int u = 0; u < 4; ++u) {
-                acc[2 * u] = fmaf(wj, bf16_lo(words[u]), acc[2 * u]);
-                acc[2 * u + 1] = fmaf(wj, bf16_hi(words[u]), acc[2 * u + 1]);
-              }
-            }
-          }
-          packed.x = pack_bf16x2(acc[0], acc[1]);
-          packed.y = pack_bf16x2(acc[2], acc[3]);
-          packed.z = pack_bf16x2(acc[4], acc[5]);
-          packed.w = pack_bf16x2(acc[6], acc[7]);
-        } else {
-          packed = __ldg(reinterpret_cast<const uint4*>(p.z + (size_t)g * C) + q);
-        }
-      }
-      *reinterpret_cast<uint4*>(zb + r * L.ldz + q * 8) = packed;
-    }
-  }
+  load_inputs<GATHER>(p, L, s, row0);
   __syncthreads();
-
   FragC x[2][J], acc[2][J];
-  warp_gemm(acc, xin, L.ldx, kin, p.w_in, H, col0, ring, L.sld);
-  residual(x, acc, p.b_in, col0, true, act, L.lda, p.n_lin_z == 0, stg);
-  __syncthreads();
-
-  for (int k = 0; k < p.n_blocks; ++k) {
-    if (k < p.n_lin_z) {
-      warp_gemm(acc, zb, L.ldz, C, p.w_z + (size_t)k * C * H, H, col0, ring, L.sld);
-      residual(x, acc, p.b_z + (size_t)k * H, col0, false, act, L.lda, true, stg);
-      __syncthreads();  // act complete before fc_0 reads it
-    }
-    const bf16* w0 = p.w_blk + (size_t)(2 * k) * H * H;
-    const float* b0 = p.b_blk + (size_t)(2 * k) * H;
-    warp_gemm(acc, act, L.lda, H, w0, H, col0, ring, L.sld);
-#pragma unroll
-    for (int j = 0; j < J; ++j) {
-      FragC b;
-      bias_frag(b, b0, col0 + 16 * j, stg);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-#pragma unroll
-        for (int i = 0; i < b.num_elements; ++i) acc[h][j].x[i] += b.x[i];
-        emit_relu(hb, L.lda, h, col0 + 16 * j, acc[h][j], stg);
-      }
-    }
-    __syncthreads();  // hb complete before fc_1 reads it
-    warp_gemm(acc, hb, L.lda, H, w0 + (size_t)H * H, H, col0, ring, L.sld);
-    // the next consumer of relu(x) is fc_0 of block k+1 (or lin_out) unless
-    // block k+1 injects the latent first
-    residual(x, acc, b0 + H, col0, false, act, L.lda, k + 1 >= p.n_lin_z, stg);
-    __syncthreads();
-  }
+  tower<false>(p, L, s, x, acc, row0, nullptr, 0);
 
   // lin_out is only d_out (4) wide: one warp per (point, channel) dot product
   for (int pc = warp; pc < BM * p.d_out; pc += NWARPS) {
     const int r = pc / p.d_out, c = pc - r * p.d_out, g = row0 + r;
-    float s = 0.0f;
-    for (int kk = lane; kk < H; kk += 32)
-      s = fmaf(__bfloat162float(act[r * L.lda + kk]),
-               __bfloat162float(p.w_out[(size_t)kk * p.d_out + c]), s);
+    float acc_o = 0.0f;
+    for (int kk = lane; kk < HID; kk += 32)
+      acc_o = fmaf(__bfloat162float(s.act[r * L.lda + kk]),
+                   __bfloat162float(p.w_out[(size_t)kk * p.d_out + c]), acc_o);
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+    for (int off = 16; off > 0; off >>= 1) acc_o += __shfl_xor_sync(0xffffffffu, acc_o, off);
     if (lane == 0 && g < p.B) {
-      const float v = s + p.b_out[c];
+      const float v = acc_o + p.b_out[c];
       if (p.planar)
         p.out[(size_t)c * p.B + g] = v;
       else
@@ -322,7 +61,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) resnetfc_fwd_kernel(const TowerPa
 template <bool GATHER>
 int launch(const TowerParams& p, int H, cudaStream_t stream) {
   if (H != HID) return (int)cudaErrorInvalidValue;
-  const size_t smem = layout(p.C, p.kin, p.n_lin_z).total;
+  const size_t smem = layout(p.C, p.kin, p.n_lin_z, false).total;
   cudaError_t err = cudaFuncSetAttribute(resnetfc_fwd_kernel<GATHER>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -331,38 +70,14 @@ int launch(const TowerParams& p, int H, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-TowerParams tower(const void* x, const void* w_in, const void* b_in, const void* w_z, const void* b_z,
-                  const void* w_blk, const void* b_blk, const void* w_out, const void* b_out,
-                  void* out, int B, int d_in, int kin, int C, int n_blocks, int n_lin_z,
-                  int d_out, int planar) {
-  TowerParams p = {};
-  p.x = static_cast<const float*>(x);
-  p.w_in = static_cast<const bf16*>(w_in);
-  p.b_in = static_cast<const float*>(b_in);
-  p.w_z = static_cast<const bf16*>(w_z);
-  p.b_z = static_cast<const float*>(b_z);
-  p.w_blk = static_cast<const bf16*>(w_blk);
-  p.b_blk = static_cast<const float*>(b_blk);
-  p.w_out = static_cast<const bf16*>(w_out);
-  p.b_out = static_cast<const float*>(b_out);
-  p.out = static_cast<float*>(out);
-  p.B = B;
-  p.d_in = d_in;
-  p.kin = kin;
-  p.C = C;
-  p.n_blocks = n_blocks;
-  p.n_lin_z = n_lin_z;
-  p.d_out = d_out;
-  p.planar = planar;
-  return p;
-}
-
 }  // namespace
 
 extern "C" {
 
 // Bytes of dynamic shared memory one CTA needs at these widths (H = 512).
-size_t resnetfc_fwd_smem_bytes(int C, int kin, int n_lin_z) { return layout(C, kin, n_lin_z).total; }
+size_t resnetfc_fwd_smem_bytes(int C, int kin, int n_lin_z) {
+  return layout(C, kin, n_lin_z, false).total;
+}
 
 const char* resnetfc_fwd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
@@ -371,8 +86,10 @@ int resnetfc_fwd_dense(const void* z, const void* x, const void* w_in, const voi
                        const void* w_out, const void* b_out, void* out, int B, int d_in, int kin,
                        int H, int C, int n_blocks, int n_lin_z, int d_out, int planar,
                        void* stream) {
-  TowerParams p = tower(x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, b_out, out, B, d_in, kin, C,
-                        n_blocks, n_lin_z, d_out, planar);
+  TowerParams p = tower_params(x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, b_out, B, d_in, kin,
+                               C, n_blocks, n_lin_z, d_out);
+  p.out = static_cast<float*>(out);
+  p.planar = planar;
   p.z = static_cast<const bf16*>(z);
   return launch<false>(p, H, static_cast<cudaStream_t>(stream));
 }
@@ -382,8 +99,10 @@ int resnetfc_fwd_gather(const void* idx, const void* w, int taps, const void* ta
                         const void* b_z, const void* w_blk, const void* b_blk, const void* w_out,
                         const void* b_out, void* out, int B, int d_in, int kin, int H, int C,
                         int n_blocks, int n_lin_z, int d_out, int planar, void* stream) {
-  TowerParams p = tower(x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, b_out, out, B, d_in, kin, C,
-                        n_blocks, n_lin_z, d_out, planar);
+  TowerParams p = tower_params(x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, b_out, B, d_in, kin,
+                               C, n_blocks, n_lin_z, d_out);
+  p.out = static_cast<float*>(out);
+  p.planar = planar;
   p.idx = static_cast<const int*>(idx);
   p.w = static_cast<const float*>(w);
   p.table = static_cast<const bf16*>(table);

@@ -11,6 +11,8 @@
 The feature lookup takes one of two routes, chosen as in the JAX package
 (:meth:`PixelNeRFNet._fused_gather_ok`): fused into the field kernel as a
 :class:`~..ops.resnetfc_fused.LatentGather`, or gathered densely first.
+Training builds the model with ``diff_mode=True``, which keeps every field
+input dense so the field stays differentiable on the kernel route.
 """
 
 from __future__ import annotations
@@ -24,7 +26,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config.hocon import ConfigTree
-from ..ops.resnetfc_fused import LatentGather
+from ..ops.resnetfc_fused import LatentGather, supports
 from ..utils.geometry import invert_poses, repeat_interleave
 from .code import PositionalEncoding
 from .encoder import SpatialEncoder
@@ -61,14 +63,21 @@ class PixelNeRFNet(nn.Module):
     :param mlp_impl: "torch" | "cuda" | "auto" -- the ResnetFC ``impl``, and
         whether the fused-gather route is open (the counterparts of the JAX
         package's "xla" | "pallas" | "auto")
+    :param stop_encoder_grad: detach the sampled latents (``--freeze_enc``)
+    :param diff_mode: training construction: no fused gather, so the field's
+        inputs stay dense and differentiable
     """
 
     # 64px-class feature maps (<= 2048 rows) ride the fused-gather route
     FUSED_GATHER_MAX_ROWS = 2048
 
-    def __init__(self, conf: ConfigTree, mlp_impl: str = "torch"):
+    def __init__(self, conf: ConfigTree, mlp_impl: str = "torch",
+                 stop_encoder_grad: bool = False, diff_mode: bool = False):
         super().__init__()
         self.mlp_impl = mlp_impl
+        self.stop_encoder_grad = stop_encoder_grad
+        self.diff_mode = diff_mode
+        self.head_confs = {h: conf[h] for h in ("mlp_coarse", "mlp_fine") if h in conf}
         self.use_encoder = conf.get_bool("use_encoder", True)
         self.use_xyz = conf.get_bool("use_xyz", False)
         assert self.use_encoder or self.use_xyz
@@ -127,11 +136,14 @@ class PixelNeRFNet(nn.Module):
                 mlp.reset_parameters(generator)
 
     # ---------------------------- encode ----------------------------
-    def encode(self, images: torch.Tensor, poses: torch.Tensor, focal, c=None) -> EncodedScene:
+    def encode(self, images: torch.Tensor, poses: torch.Tensor, focal, c=None,
+               train: bool = False) -> EncodedScene:
         """:param images: (SB, NS, H, W, 3) or (NS, H, W, 3), values in [-1, 1]
         :param poses: matching (..., 4, 4) camera-to-world
         :param focal: () | (2,) | (NS,) | (NS, 2) [fx, fy]
         :param c: principal point, same shape options, default image center
+        :param train: run the encoder's BatchNorm on batch statistics and
+            update its running statistics (the JAX ``train=True``)
         """
         if images.ndim == 5:
             num_views_per_obj = images.shape[1]
@@ -142,6 +154,7 @@ class PixelNeRFNet(nn.Module):
         B, H, W = images.shape[0], images.shape[1], images.shape[2]
         dev = images.device
 
+        self.encoder.train(train)
         latents = self.encoder(images)
         w2c = invert_poses(poses)
 
@@ -181,6 +194,8 @@ class PixelNeRFNet(nn.Module):
         """Whether the pixel-aligned lookup rides the fused field kernel."""
         if self.mlp_impl not in ("cuda", "auto"):
             return False
+        if self.diff_mode:  # the fused-gather kernel has no backward
+            return False
         if latents.shape[0] != NS:  # SB == 1: one table set per call
             return False
         if NS > 1:
@@ -191,14 +206,46 @@ class PixelNeRFNet(nn.Module):
             return False
         return NS * latents.shape[1] * latents.shape[2] <= self._fused_gather_cap()
 
+    def field_backward_in_kernel(self, max_nviews: int = 1) -> bool:
+        """True when train steps route the field through the backward kernel
+        (:mod:`..ops.resnetfc_vjp`): dense inputs (``diff_mode``), both heads
+        inside the kernels' envelope, card parameters for ``auto``.  The
+        kernel route saves only its inputs and recomputes in the backward, so
+        the trainer leaves ``remat`` off for it."""
+        if not (self.diff_mode and self.mlp_impl in ("cuda", "auto")):
+            return False
+        if self.mlp_impl == "auto" and next(self.parameters()).device.type != "cuda":
+            return False
+        for sub in self.head_confs.values():
+            mlp_type = sub.get_string("type", "mlp")
+            if mlp_type == "empty":
+                continue
+            if mlp_type != "resnet":
+                return False
+            if not supports(sub.get_float("beta", 0.0), sub.get_bool("use_spade", False),
+                            sub.get_string("combine_type", "average")):
+                return False
+            if max_nviews > 1 and not sub.get_int("combine_layer", 1000) < sub.get_int("n_blocks", 5):
+                return False
+        return True
+
     # ----------------------------- query -----------------------------
+    def forward(self, scene: EncodedScene, xyz: torch.Tensor, viewdirs=None, coarse: bool = True,
+                planar_out: bool = False, compute_dtype=None) -> torch.Tensor:
+        """:meth:`query`, so that ``torch.func.functional_call`` can run the
+        field with substituted (e.g. bf16) parameters."""
+        return self.query(scene, xyz, viewdirs, coarse, planar_out, compute_dtype)
+
     def query(self, scene: EncodedScene, xyz: torch.Tensor, viewdirs: Optional[torch.Tensor] = None,
-              coarse: bool = True, planar_out: bool = False) -> torch.Tensor:
+              coarse: bool = True, planar_out: bool = False, compute_dtype=None) -> torch.Tensor:
         """Predict (r, g, b, sigma) at world points.
 
         :param xyz: (SB, B, 3) world-space points
         :param viewdirs: (SB, B, 3) if use_viewdirs
         :param planar_out: return channel-major (SB, 4, B)
+        :param compute_dtype: cast the field's inputs -- the latent and the
+            *encoded* coordinate code, never the raw coordinates -- to this
+            dtype (the AMP path with bf16 parameters); None keeps f32
         :return: (SB, B, 4) with rgb in [0, 1] and sigma >= 0; (SB, 4, B) when
             ``planar_out``
         """
@@ -245,10 +292,14 @@ class PixelNeRFNet(nn.Module):
             if self._fused_gather_ok(latents, NS):
                 C = latents.shape[-1]
                 table = latents.reshape(-1, C) if NS == 1 else latents.reshape(NS, -1, C)
+                if self.stop_encoder_grad:
+                    table = table.detach()
                 t_idx, t_w = self.encoder.index_taps(latents, uv, scene.image_shape)
                 latent = LatentGather(table, t_idx, t_w)
             else:
                 latent = self.encoder.index(latents, uv, scene.image_shape)
+                if self.stop_encoder_grad:
+                    latent = latent.detach()
 
         is_gather = isinstance(latent, LatentGather)
         if mlp_input is None:
@@ -258,14 +309,18 @@ class PixelNeRFNet(nn.Module):
                 else latent[..., :0]
             )
         flat_x = mlp_input.reshape(-1, mlp_input.shape[-1])
+        if compute_dtype is not None:
+            flat_x = flat_x.to(compute_dtype)
         if is_gather:
             flat_z = LatentGather(
-                latent.table,
+                latent.table if compute_dtype is None else latent.table.to(compute_dtype),
                 latent.idx.reshape(-1, latent.idx.shape[-1]),
                 latent.w.reshape(-1, latent.w.shape[-1]),
             )
         elif latent is not None:
             flat_z = latent.reshape(-1, latent.shape[-1])
+            if compute_dtype is not None:
+                flat_z = flat_z.to(compute_dtype)
         else:
             flat_z = None
         arg = (flat_z, flat_x) if flat_z is not None else flat_x
@@ -300,7 +355,8 @@ class PixelNeRFNet(nn.Module):
 
 
 def make_model(conf, mlp_impl: str = "torch", device=None,
-               generator: Optional[torch.Generator] = None) -> PixelNeRFNet:
+               generator: Optional[torch.Generator] = None, stop_encoder_grad: bool = False,
+               diff_mode: bool = False) -> PixelNeRFNet:
     """Construct the model from the ``model`` conf subtree on ``device``,
     initialised from ``generator`` (a fresh ``torch.Generator`` seeded 0 when
     not given).  Parameters are allocated once, on the target device."""
@@ -311,7 +367,8 @@ def make_model(conf, mlp_impl: str = "torch", device=None,
         raise NotImplementedError(f"Unsupported model type {model_type!r}")
     device = resolve_device(device)
     with torch.device("meta"):
-        net = PixelNeRFNet(conf, mlp_impl=mlp_impl)
+        net = PixelNeRFNet(conf, mlp_impl=mlp_impl, stop_encoder_grad=stop_encoder_grad,
+                           diff_mode=diff_mode)
     net = net.to_empty(device=device)
     net.reset_parameters(generator if generator is not None else torch.Generator().manual_seed(0))
     return net.eval()

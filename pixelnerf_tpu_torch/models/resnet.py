@@ -4,7 +4,8 @@ Module names follow torchvision (``conv1``, ``bn1``, ``layer1.0.conv1``,
 ``layer1.0.downsample.0/1``), so a torchvision state dict loads as it is and
 ``pixelnerf_tpu.utils.torch_convert.convert_resnet`` maps a state dict of this
 module onto the JAX ``ResNetFeatures``.  Convolutions pad symmetrically by
-``k // 2``; BatchNorm uses eps 1e-5 and, in eval mode, its running statistics.
+``k // 2``; BatchNorm uses eps 1e-5 and, in eval mode, its running statistics; in train
+mode it updates them as flax does (:class:`BatchNorm2d`).
 """
 
 from __future__ import annotations
@@ -20,8 +21,26 @@ def _conv(cin: int, cout: int, k: int, stride: int) -> nn.Conv2d:
     return nn.Conv2d(cin, cout, k, stride=stride, padding=k // 2, bias=False)
 
 
+class BatchNorm2d(nn.BatchNorm2d):
+    """BatchNorm as flax runs it: in train mode the batch is normalized with
+    its biased variance (as torch does), and the running variance is updated
+    with that same biased variance (torch's own layer takes the unbiased one).
+    Momentum 0.1 here is flax's 0.9."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
+        with torch.no_grad():
+            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y
+
+
 def _bn(c: int) -> nn.BatchNorm2d:
-    return nn.BatchNorm2d(c, eps=1e-5, momentum=0.1)
+    return BatchNorm2d(c, eps=1e-5, momentum=0.1)
 
 
 class BasicBlock(nn.Module):

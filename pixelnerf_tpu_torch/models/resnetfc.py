@@ -13,7 +13,10 @@ reference torch module: ``lin_in``, ``lin_z.{k}``, ``blocks.{k}.fc_0/fc_1``,
 * ``"torch"``: the plain PyTorch forward below, in the parameters' dtype;
 * ``"cuda"``: the hand-written kernels of :mod:`..ops.resnetfc_fused` (on
   CPU tensors their plain f32 versions run instead); a config outside the
-  kernels' envelope raises;
+  kernels' envelope raises.  Dense inputs go through
+  :class:`..ops.resnetfc_vjp.ResnetFCFunction`, so the same call serves eval
+  and training (its backward is a kernel too); the fused-gather input is
+  eval-only, as in the JAX package, and raises under grad;
 * ``"auto"``: the kernels for CUDA tensors inside the envelope, the plain
   forward otherwise.
 
@@ -31,6 +34,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops import resnetfc_fused as rf
+from ..ops import resnetfc_vjp as rfv
 from ..utils.geometry import combine_interleaved
 
 
@@ -147,22 +151,30 @@ class ResnetFC(nn.Module):
                 # the JAX package runs _kernel_2d_mv(_gather) here; no quiet
                 # plain forward on card tensors in their place
                 raise NotImplementedError(
-                    "multi-view (NS > 1) field kernels are not ported yet "
-                    "(ROADMAP.md, Pallas rows 3-4)"
+                    "multi-view (NS > 1) field kernels, forward and backward, are not "
+                    "ported yet (ROADMAP.md, slice 3: Pallas rows 3-4 and the NS > 1 part "
+                    "of row 5)"
                 )
             return False
         return on_kernels
 
     def tower(self, device: torch.device) -> rf.Tower:
-        """The parameters packed for the kernels, re-packed when a parameter
-        changes (its data pointer or version)."""
-        key = (device,) + tuple((p.data_ptr(), p._version) for p in self.parameters())
+        """The parameters packed for the kernels.  The module's own parameters
+        are packed once and again when one changes (its data pointer or
+        version); substitutes (``torch.func.functional_call``, e.g. the
+        trainer's per-step bf16 copies) are packed on every call, since a new
+        copy can reuse a freed one's address at version 0."""
+        params = dict(self.named_parameters())
+
+        def pack():
+            return rf.pack_tower(params, self.d_in, self.d_latent, self.n_blocks,
+                                 self.n_lin_z, device)
+
+        if not all(isinstance(p, nn.Parameter) for p in params.values()):
+            return pack()
+        key = (device,) + tuple((p.data_ptr(), p._version) for p in params.values())
         if key != self._tower_key:
-            self._tower = rf.pack_tower(
-                dict(self.named_parameters()), self.d_in, self.d_latent,
-                self.n_blocks, self.n_lin_z, device,
-            )
-            self._tower_key = key
+            self._tower, self._tower_key = pack(), key
         return self._tower
 
     def _kernel_forward(self, zx, planar_out: bool):
@@ -175,6 +187,15 @@ class ResnetFC(nn.Module):
         device = x.device
         tower = self.tower(device)
         if isinstance(z, rf.LatentGather):
+            if torch.is_grad_enabled() and (
+                z.table.requires_grad or any(p.requires_grad for p in self.parameters())
+            ):
+                # as in the JAX package, the fused-gather kernel has no
+                # backward; training keeps the latent dense (diff_mode)
+                raise RuntimeError(
+                    "the fused-gather route is eval-only: run it under torch.no_grad(), "
+                    "or build the model with diff_mode=True for training"
+                )
             if z.table.ndim != 2:
                 raise ValueError("single-view fused gather needs a (T, C) table")
             table = z.table if device.type == "cpu" else z.table.to(torch.bfloat16)
@@ -187,7 +208,10 @@ class ResnetFC(nn.Module):
             if z is not None:
                 z = z.reshape(-1, self.d_latent)
                 z = (z.float() if device.type == "cpu" else z.to(torch.bfloat16)).contiguous()
-            out = rf.resnetfc_dense(z, x, tower, self.n_blocks, planar_out)
+            params = dict(self.named_parameters())
+            names = rfv.param_names(self.d_in, self.n_lin_z, self.n_blocks)
+            cfg = (self.d_in, self.n_blocks, self.n_lin_z, planar_out)
+            out = rfv.ResnetFCFunction.apply(tower, cfg, z, x, *[params[n] for n in names])
         return out[None]  # (1, d_out, N) or (1, N, d_out)
 
     def forward(self, zx, combine_inner_dims: Sequence[int] = (1,), planar_out: bool = False):

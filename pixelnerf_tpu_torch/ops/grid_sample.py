@@ -95,12 +95,7 @@ def bilinear_taps(
     return torch.stack(idx_list, dim=-1).to(torch.int32), torch.stack(w_list, dim=-1)
 
 
-def gather_taps(flat: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """Weighted tap gather ``out[b,n] = sum_j w[b,n,j] * flat[b, idx[b,n,j]]``
-    in ``flat``'s dtype (a bf16 table gives a bf16 sample stream).
-
-    :param flat: (B, T, C); idx, w: (B, N, taps) -> (B, N, C)
-    """
+def _gather_taps_plain(flat: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     out = None
     for j in range(idx.shape[-1]):
         ij = idx[..., j].long()
@@ -108,6 +103,42 @@ def gather_taps(flat: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch
         v = v * w[..., j][..., None].to(flat.dtype)
         out = v if out is None else out + v
     return out
+
+
+class _GatherTaps(torch.autograd.Function):
+    """The JAX package's ``gather_taps`` custom VJP: the tap weights get a
+    zero cotangent (uv is a camera projection of data in every recipe), and
+    the table gradient is a scatter-add accumulated in f32, cast to the
+    table's dtype at the end (under AMP a bf16 table would otherwise sum many
+    thousands of contributions per row in bf16)."""
+
+    @staticmethod
+    def forward(ctx, flat, idx, w):
+        ctx.save_for_backward(idx, w)
+        ctx.table = (flat.shape, flat.dtype)
+        return _gather_taps_plain(flat, idx, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        idx, w = ctx.saved_tensors
+        (B, T, C), dtype = ctx.table
+        g = g.float()
+        d_flat = torch.zeros(B * T, C, device=g.device, dtype=torch.float32)
+        base = (torch.arange(B, device=g.device) * T)[:, None]
+        for j in range(idx.shape[-1]):
+            rows = (idx[..., j].long() + base).reshape(-1)
+            d_flat.index_add_(0, rows, (g * w[..., j : j + 1].float()).reshape(-1, C))
+        return d_flat.reshape(B, T, C).to(dtype), None, torch.zeros_like(w)
+
+
+def gather_taps(flat: torch.Tensor, idx: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Weighted tap gather ``out[b,n] = sum_j w[b,n,j] * flat[b, idx[b,n,j]]``
+    in ``flat``'s dtype (a bf16 table gives a bf16 sample stream); its
+    backward is :class:`_GatherTaps`.
+
+    :param flat: (B, T, C); idx, w: (B, N, taps) -> (B, N, C)
+    """
+    return _GatherTaps.apply(flat, idx, w)
 
 
 def resize_nearest(feat: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:

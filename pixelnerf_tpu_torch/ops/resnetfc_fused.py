@@ -8,10 +8,13 @@ Counterpart of ``pixelnerf_tpu/ops/resnetfc_pallas.py`` for NS == 1:
   ``_kernel_2d_gather`` (the bilinear feature lookup fused in as a 4-tap read
   of a bf16 ``(T, C)`` table).
 
-Both live in ``csrc/resnetfc_fwd.cu``, which also notes what bounds them.  The
-source is compiled with ``nvcc`` for ``sm_90a`` into a shared library with a
-plain C interface on first use (a changed source gets a new library name, so it
-rebuilds) and loaded with ``ctypes``.
+Both live in ``csrc/resnetfc_fwd.cu``, which also notes what bounds them; the
+tower itself is in ``csrc/resnetfc_tower.cuh``, which the backward
+(``csrc/resnetfc_bwd.cu``, :mod:`.resnetfc_vjp`) shares.  Each source is
+compiled with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
+interface on first use (a changed source or header gets a new library name, so
+it rebuilds) and loaded with ``ctypes``; :func:`build_all` compiles every
+source at once, one ``nvcc`` each.
 
 Each wrapper runs its kernel's plain PyTorch version only when its tensors lie
 on the CPU, in float32 throughout -- the counterpart of the Pallas kernels'
@@ -34,7 +37,9 @@ from typing import NamedTuple, Optional
 
 import torch
 
-_SRC = Path(__file__).resolve().parent.parent / "csrc" / "resnetfc_fwd.cu"
+CSRC = Path(__file__).resolve().parent.parent / "csrc"
+SOURCES = {"fwd": CSRC / "resnetfc_fwd.cu", "bwd": CSRC / "resnetfc_bwd.cu"}
+HEADERS = (CSRC / "resnetfc_tower.cuh",)
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -194,38 +199,59 @@ def _nvcc() -> str:
 
 
 class Build(NamedTuple):
-    library: Path  # named by the hash of the source and the nvcc flags
+    library: Path  # named by the hash of the source, its header and the nvcc flags
     compiled: bool  # False when a library of this source was already built
     log: str  # nvcc's output (ptxas register and spill lines), kept beside the library
 
 
-def build() -> Build:
-    """Compile ``csrc/resnetfc_fwd.cu`` unless a library of this source and
-    these flags exists already."""
-    src = _SRC.read_bytes()
-    tag = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    lib = BUILD_DIR / f"libresnetfc_fwd-{tag}.so"
-    log = lib.with_suffix(".log")
-    if lib.exists():
-        return Build(lib, False, log.read_text() if log.exists() else "")
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(_SRC)],
-        capture_output=True, text=True,
-    )
-    out = proc.stdout + proc.stderr
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{out}")
-    log.write_text(out)
-    os.replace(tmp, lib)
-    return Build(lib, True, out)
+def _library_path(which: str) -> Path:
+    src = SOURCES[which]
+    blob = src.read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
+    tag = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{src.stem}-{tag}.so"
+
+
+def build_all(which=tuple(SOURCES)) -> dict:
+    """Compile each source in ``which`` that has no library of this source,
+    header and flags yet: one ``nvcc`` per source, all started together.
+    Returns ``{name: Build}``; raises if any ``nvcc`` fails."""
+    builds, running = {}, {}
+    for name in which:
+        lib = _library_path(name)
+        log = lib.with_suffix(".log")
+        if lib.exists():
+            builds[name] = Build(lib, False, log.read_text() if log.exists() else "")
+            continue
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+        proc = subprocess.Popen(
+            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(SOURCES[name])],
+            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        )
+        running[name] = (lib, log, tmp, proc)
+    failed = []
+    for name, (lib, log, tmp, proc) in running.items():
+        out = proc.communicate()[0]
+        if proc.returncode != 0:
+            failed.append(f"{SOURCES[name].name}: nvcc failed ({proc.returncode}):\n{out}")
+            continue
+        log.write_text(out)
+        os.replace(tmp, lib)
+        builds[name] = Build(lib, True, out)
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return builds
+
+
+def build(which: str = "fwd") -> Build:
+    """Compile one source (``fwd`` or ``bwd``) unless its library exists."""
+    return build_all((which,))[which]
 
 
 def _lib() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        lib = ctypes.CDLL(str(build().library))
+        lib = ctypes.CDLL(str(build("fwd").library))
         P, I = ctypes.c_void_p, ctypes.c_int
         tower_args = [P] * 9 + [P] + [I] * 9 + [P]  # weights, out, dims, stream
         lib.resnetfc_fwd_dense.argtypes = [P] + tower_args

@@ -88,11 +88,12 @@ def _eval_model_chunked(model_fn: ModelFn, points, viewdirs, coarse: bool, chunk
 
 def composite(model_fn: ModelFn, rays: torch.Tensor, z_samp: torch.Tensor, cfg: RenderConfig,
               coarse: bool, generator=None, training: bool = False, use_viewdirs: bool = True,
-              noise: Optional[torch.Tensor] = None):
+              noise: Optional[torch.Tensor] = None, noise_scale=None):
     """Alpha-composite rgb/sigma along rays.
 
     :param rays: (SB, B, 8); z_samp: (SB, B, K)
     :param noise: (SB, B, K) sigma noise (training with noise_std > 0), drawn when None
+    :param noise_scale: optional multiplier of the noise (a schedule's anneal)
     :return: (weights (SB, B, K), rgb (SB, B, 3), depth (SB, B))
     """
     SB, B, K = z_samp.shape
@@ -116,7 +117,10 @@ def composite(model_fn: ModelFn, rays: torch.Tensor, z_samp: torch.Tensor, cfg: 
         if noise is None:
             noise = torch.randn(sigmas.shape, generator=generator,
                                 device=generator.device).to(sigmas.device)
-        sigmas = sigmas + noise * cfg.noise_std
+        noise = noise * cfg.noise_std
+        if noise_scale is not None:
+            noise = noise * noise_scale
+        sigmas = sigmas + noise
 
     alphas = 1.0 - torch.exp(-deltas * torch.relu(sigmas))
     alphas_shifted = torch.cat(
@@ -135,8 +139,10 @@ def composite(model_fn: ModelFn, rays: torch.Tensor, z_samp: torch.Tensor, cfg: 
 
 def render_rays(model_fn: ModelFn, rays: torch.Tensor, cfg: RenderConfig, generator=None,
                 draws: Optional[RayDraws] = None, want_weights: bool = False,
-                training: bool = False, use_viewdirs: bool = True) -> Dict[str, dict]:
-    """Full coarse + fine render of ``rays`` (SB, B, 8).
+                training: bool = False, use_viewdirs: bool = True,
+                noise_scale=None) -> Dict[str, dict]:
+    """Full coarse + fine render of ``rays`` (SB, B, 8).  ``noise_scale``
+    multiplies the training sigma noise of both passes.
 
     :return: {"coarse": {rgb, depth[, weights]}, "fine": {...}} ("fine" only
         when cfg.using_fine)
@@ -152,6 +158,7 @@ def render_rays(model_fn: ModelFn, rays: torch.Tensor, cfg: RenderConfig, genera
     weights_c, rgb_c, depth_c = composite(
         model_fn, rays, z_coarse, cfg, coarse=True, generator=generator,
         training=training, use_viewdirs=use_viewdirs, noise=d.noise_coarse,
+        noise_scale=noise_scale,
     )
 
     def pack(weights, rgb, depth):
@@ -180,6 +187,7 @@ def render_rays(model_fn: ModelFn, rays: torch.Tensor, cfg: RenderConfig, genera
         weights_f, rgb_f, depth_f = composite(
             model_fn, rays, z_combine, cfg, coarse=False, generator=generator,
             training=training, use_viewdirs=use_viewdirs, noise=d.noise_fine,
+            noise_scale=noise_scale,
         )
         outputs["fine"] = pack(weights_f, rgb_f, depth_f)
     return outputs

@@ -120,3 +120,39 @@ def combine_interleaved(
     if agg_type == "max":
         return t.amax(dim=1)
     raise NotImplementedError(f"Unsupported combine type {agg_type}")
+
+
+def gen_rays_at_np(poses: np.ndarray, width: int, height: int, focal, z_near: float,
+                   z_far: float, pix: np.ndarray, c=None) -> np.ndarray:
+    """Rays for a sparse set of pixels only, with the per-pixel math of
+    :func:`gen_rays_np`: the training path's ray builder.
+
+    :param pix: (R, 3) int [view, row, col]
+    :return: (R, 8) rays [origin, dir, near, far]
+    """
+    poses = np.asarray(poses, np.float32)
+    fx, fy, cx, cy = _intrinsics_np(focal, c, width, height)
+    v = pix[:, 0]
+    dx = (pix[:, 2].astype(np.float32) - cx) / fx
+    dy = (pix[:, 1].astype(np.float32) - cy) / fy
+    dirs = np.stack([dx, -dy, -np.ones_like(dx)], axis=-1)
+    dirs /= np.linalg.norm(dirs, axis=-1, keepdims=True)
+    world_dirs = np.einsum("rij,rj->ri", poses[v, :3, :3], dirs)
+    centers = poses[v, :3, 3]
+    R = pix.shape[0]
+    nears = np.full((R, 1), z_near, np.float32)
+    fars = np.full((R, 1), z_far, np.float32)
+    return np.concatenate([centers, world_dirs, nears, fars], axis=-1).astype(np.float32)
+
+
+def bbox_sample_np(bboxes: np.ndarray, num_pix: int, rng: np.random.Generator) -> np.ndarray:
+    """Pixel indices drawn inside per-view foreground bboxes.
+
+    :param bboxes: (NV, 4) [cmin, rmin, cmax, rmax]
+    :return: (num_pix, 3) [view, y, x]
+    """
+    image_ids = rng.integers(0, bboxes.shape[0], (num_pix,))
+    pb = bboxes[image_ids]
+    x = (rng.random(num_pix) * (pb[:, 2] + 1 - pb[:, 0]) + pb[:, 0]).astype(np.int64)
+    y = (rng.random(num_pix) * (pb[:, 3] + 1 - pb[:, 1]) + pb[:, 1]).astype(np.int64)
+    return np.stack([image_ids, y, x], axis=-1)

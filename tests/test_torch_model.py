@@ -193,8 +193,9 @@ def test_query_matches_jax(world, jax_query, monkeypatch, impl, jimpl, cap, plan
     assert net._fused_gather_ok(scene.latents, 1) == (impl != "torch" and cap > 0)
     rf.reset_launches()
     for coarse, ref in zip((True, False), refs):
-        out = net.query(scene, torch.from_numpy(world["xyz"]), torch.from_numpy(world["vd"]),
-                        coarse=coarse, planar_out=planar)
+        with torch.no_grad():  # an eval query: the fused-gather route is eval-only
+            out = net.query(scene, torch.from_numpy(world["xyz"]), torch.from_numpy(world["vd"]),
+                            coarse=coarse, planar_out=planar)
         close(out, ref, what=f"coarse={coarse}")
     assert not any(rf.LAUNCHES.values())  # CPU tensors never launch a kernel
 

@@ -80,7 +80,8 @@ def test_plain_towers_match_pallas_interpret(route, planar, combine_layer, d_lat
                                                           jnp.asarray(w)), jnp.asarray(x)), **kw)
         g = rf.LatentGather(torch.from_numpy(table), torch.from_numpy(idx), torch.from_numpy(w))
         out = rf.resnetfc_gather(g.idx, g.w, g.table, X, tower, nb, planar)
-        via_module = port((g, X), combine_inner_dims=(1, B), planar_out=planar)
+        with torch.no_grad():  # the fused-gather route is eval-only
+            via_module = port((g, X), combine_inner_dims=(1, B), planar_out=planar)
     else:
         zz = jnp.asarray(z) if d_latent else None
         ref = rp.resnetfc_pallas(params, (zz, jnp.asarray(x)), **kw)
@@ -148,6 +149,70 @@ def test_multi_view_on_card_raises(impl):
         assert not port._kernel_route((2, 3), torch.device("cpu"))
     _, _, no_mean = _pair(6, 8, 16, 2, 1000, impl=impl)
     assert not no_mean._kernel_route((2, 3), torch.device("cuda"))
+
+
+@pytest.mark.parametrize("combine_layer", [3, 1000])
+def test_kernel_route_trains_like_the_plain_route(combine_layer):
+    """The dense kernel route is differentiable: on the CPU, ``impl="cuda"``
+    (the autograd Function over the kernels' plain versions) gives the
+    parameter, ``z`` and ``x`` gradients of ``impl="torch"`` (autograd of the
+    plain forward), f32, to 1e-5 of max|ref|."""
+    d_in, d_latent, H, nb, B = 42, 32, 64, 5, 70
+    _, _, plain = _pair(d_in, d_latent, H, nb, combine_layer, impl="torch")
+    _, _, kern = _pair(d_in, d_latent, H, nb, combine_layer, impl="cuda")
+    x, z, *_ = _inputs(B, d_in, d_latent, 8)
+    cot = torch.from_numpy(np.random.default_rng(3).normal(size=(1, 4, B)).astype(np.float32))
+    grads = []
+    for m in (plain, kern):
+        Z, X = torch.from_numpy(z).requires_grad_(), torch.from_numpy(x).requires_grad_()
+        out = m((Z, X), combine_inner_dims=(1, B), planar_out=True)
+        assert out.requires_grad
+        (out * cot).sum().backward()
+        grads.append(dict({n: p.grad for n, p in m.named_parameters()}, z=Z.grad, x=X.grad))
+    ref, got = grads
+    assert sorted(ref) == sorted(got)
+    for k, v in ref.items():
+        assert got[k] is not None, k
+        assert (got[k] - v).abs().max().item() <= 1e-5 * v.abs().max().item(), k
+
+
+def test_kernel_route_packs_substituted_parameters():
+    """Parameters substituted through ``torch.func.functional_call`` (the
+    trainer's per-step bf16 copies under AMP) are packed on every call: a
+    new set of weights at the address of the last one, at version 0 (here:
+    fresh tensors over the same numpy buffers), must not reuse its packed
+    tower."""
+    from torch.func import functional_call
+
+    d_in, d_latent, H, nb, B = 42, 32, 64, 3, 20
+    _, _, plain = _pair(d_in, d_latent, H, nb, 2, impl="torch")
+    _, _, kern = _pair(d_in, d_latent, H, nb, 2, impl="cuda")
+    x, z, *_ = _inputs(B, d_in, d_latent, 8)
+    args = ((torch.from_numpy(z), torch.from_numpy(x)),)
+    base = {n: p.detach().numpy().copy() for n, p in kern.named_parameters()}
+    bufs = {n: v.copy() for n, v in base.items()}
+    for scale in (1.0, 0.5, 2.0):
+        for n, v in bufs.items():
+            np.copyto(v, base[n] * scale)
+        sub = {n: torch.from_numpy(v) for n, v in bufs.items()}
+        with torch.no_grad():
+            out = functional_call(kern, sub, args, {"combine_inner_dims": (1, B)})
+            ref = functional_call(plain, sub, args, {"combine_inner_dims": (1, B)})
+        close(out, ref.numpy())
+
+
+def test_fused_gather_route_is_eval_only():
+    """As in the JAX package the fused-gather kernel has no backward: with
+    grad enabled and parameters that require grad it raises, never returning
+    a detached result; under no_grad it runs."""
+    _, _, port = _pair(6, 8, 16, 2, 1, impl="cuda")
+    x, _, table, idx, w = _inputs(5, 6, 8, 4)
+    g = rf.LatentGather(torch.from_numpy(table), torch.from_numpy(idx), torch.from_numpy(w))
+    X = torch.from_numpy(x)
+    with pytest.raises(RuntimeError, match="eval-only"):
+        port((g, X), combine_inner_dims=(1, 5))
+    with torch.no_grad():
+        assert port((g, X), combine_inner_dims=(1, 5)).shape == (1, 5, 4)
 
 
 @pytest.fixture
