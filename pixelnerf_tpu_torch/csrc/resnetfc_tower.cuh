@@ -20,6 +20,24 @@
 // L2-resident) reach shared memory through a 4-stage per-warp cp.async ring of
 // 16-row slabs in 16-byte coalesced copies; the bf16 operand buffers are
 // row-padded against bank conflicts.
+//
+// Multi-view (NS > 1, the ports of _kernel_2d_mv / _kernel_2d_mv_gather): a
+// tile is 32 output points, and each view of them runs lin_in and blocks
+// k < pre (= combine_layer) in turn through the same code; the view mean
+// then feeds the shared blocks k >= pre and lin_out.  The mean is the TPU
+// kernel's sum(xs) * (1 / NS): an f32 sum in view order, then one multiply.
+// The running sum is a second 32 x 512 f32 residual, 64 KB a tile, which fits
+// neither beside the stream in registers (64 a thread each) nor in the
+// ~185 KB of shared memory the tower already takes.  It lives in device
+// memory instead, in a per-CTA slot (`vsum`, 64 KB) that each thread writes
+// and reads back only its own fragment elements of, coalesced; the
+// multi-view kernels are persistent (one CTA per SM walks the tiles), so the
+// slots total 132 x 64 KB = 8.4 MB and stay in the 50 MB L2.
+//
+// Input rows are where the model's query leaves them, object-major: point b
+// of object s, view v is row (s NS + v) B_obj + b, and its output column is
+// s B_obj + b.  The gather's idx/w rows are view-major (SB = 1, the same
+// formula) and view v reads table v.
 
 #pragma once
 
@@ -42,6 +60,9 @@ constexpr int PAD = 8;     // bf16 elements of row padding (16 bytes)
 // J = HID / (16 * NWARPS) = 4 column tiles of every layer.
 constexpr int HID = 512;
 constexpr int J = HID / (16 * NWARPS);
+// f32 words of one CTA's view-sum slot: a thread's 2 x J accumulator
+// fragments of 8 elements each, for every thread (64 KB)
+constexpr int SLOT_FLOATS = 2 * J * 8 * NTHREADS;
 
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
@@ -50,10 +71,10 @@ typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
 struct TowerParams {
   const bf16* z;       // (B, C) dense latent; unused by the gather kernel
-  const int* idx;      // (B, taps) int32 tap rows, columns 0..3 used
-  const float* w;      // (B, taps) f32 tap weights
-  const bf16* table;   // (T, C) feature table
-  const float* x;      // (B, d_in) f32 coordinate code
+  const int* idx;      // (NS B, taps) int32 tap rows, columns 0..3 used
+  const float* w;      // (NS B, taps) f32 tap weights
+  const bf16* table;   // (NS, T, C) feature tables
+  const float* x;      // (NS B, d_in) f32 coordinate code
   const bf16* w_in;    // (kin, H), rows >= d_in are zero
   const float* b_in;   // (H)
   const bf16* w_z;     // (n_lin_z, C, H)
@@ -63,8 +84,19 @@ struct TowerParams {
   const bf16* w_out;   // (H, d_out)
   const float* b_out;  // (d_out)
   float* out;          // (d_out, B) when planar, else (B, d_out)
+  float* vsum;         // (gridDim.x, 64 KB) view-sum slots, multi-view only
   int B, d_in, kin, C, T, taps, n_blocks, n_lin_z, d_out, planar;
+  // views, points per object (B = SB B_obj) and the blocks each view runs on
+  // its own (combine_layer; n_blocks when NS == 1)
+  int NS, B_obj, pre;
 };
+
+// The input row of output point g in view v (object-major rows).
+__device__ __forceinline__ size_t src_row(const TowerParams& p, int g, int v) {
+  if (p.NS == 1) return (size_t)g;
+  const int s = g / p.B_obj;
+  return ((size_t)s * p.NS + v) * p.B_obj + (g - s * p.B_obj);
+}
 
 // Shared-memory layout, in bytes from the base; every offset is a multiple
 // of 128 for the widths the wrappers admit (C and kin multiples of 16).  The
@@ -269,34 +301,37 @@ __device__ __forceinline__ Smem carve(unsigned char* base, const Layout& L) {
   return s;
 }
 
-// The tile's code and latent into shared memory (zeros past B); the gather
-// variant builds z[i] = sum_{j<4} w[i,j] * table[idx[i,j]] as a real 4-tap
-// read of the (T, C) bf16 table, summed in f32 and rounded to bf16.
+// The tile's code and latent of view v into shared memory (zeros past B); the
+// gather variant builds z[i] = sum_{j<4} w[i,j] * table_v[idx[i,j]] as a real
+// 4-tap read of the (T, C) bf16 table of view v, summed in f32 and rounded to
+// bf16.
 template <bool GATHER>
 __device__ __forceinline__ void load_inputs(const TowerParams& p, const Layout& L, const Smem& s,
-                                            int row0) {
+                                            int row0, int view) {
   const int tid = threadIdx.x, C = p.C, kin = p.kin;
   for (int e = tid; e < BM * kin; e += NTHREADS) {
     const int r = e / kin, c = e - r * kin, g = row0 + r;
-    const float v = (g < p.B && c < p.d_in) ? p.x[(size_t)g * p.d_in + c] : 0.0f;
+    const float v = (g < p.B && c < p.d_in) ? p.x[src_row(p, g, view) * p.d_in + c] : 0.0f;
     s.xin[r * L.ldx + c] = __float2bfloat16_rn(v);
   }
   if (p.n_lin_z > 0) {
     const int nq = C / 8;  // 16-byte chunks of eight channels per row
+    const bf16* table = p.table + (size_t)view * p.T * C;
     for (int t = tid; t < BM * nq; t += NTHREADS) {
       const int r = t / nq, q = t - r * nq, g = row0 + r;
       uint4 packed = make_uint4(0u, 0u, 0u, 0u);
       if (g < p.B) {
+        const size_t row = src_row(p, g, view);
         if (GATHER) {
           float acc[8];
 #pragma unroll
           for (int u = 0; u < 8; ++u) acc[u] = 0.0f;
 #pragma unroll
           for (int j = 0; j < 4; ++j) {
-            const int ri = p.idx[(size_t)g * p.taps + j];
-            const float wj = p.w[(size_t)g * p.taps + j];
+            const int ri = p.idx[row * p.taps + j];
+            const float wj = p.w[row * p.taps + j];
             if (ri >= 0 && ri < p.T) {
-              const uint4 v = __ldg(reinterpret_cast<const uint4*>(p.table + (size_t)ri * C) + q);
+              const uint4 v = __ldg(reinterpret_cast<const uint4*>(table + (size_t)ri * C) + q);
               const uint32_t words[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
               for (int u = 0; u < 4; ++u) {
@@ -310,7 +345,7 @@ __device__ __forceinline__ void load_inputs(const TowerParams& p, const Layout& 
           packed.z = pack_bf16x2(acc[4], acc[5]);
           packed.w = pack_bf16x2(acc[6], acc[7]);
         } else {
-          packed = __ldg(reinterpret_cast<const uint4*>(p.z + (size_t)g * C) + q);
+          packed = __ldg(reinterpret_cast<const uint4*>(p.z + row * C) + q);
         }
       }
       *reinterpret_cast<uint4*>(s.zb + r * L.ldz + q * 8) = packed;
@@ -318,29 +353,47 @@ __device__ __forceinline__ void load_inputs(const TowerParams& p, const Layout& 
   }
 }
 
-// The tower through its residual blocks; on return s.act holds
-// t = bf16(relu(x_final)) and x the f32 residual stream.  With STASH, the
-// operands of every block -- r_k = bf16(relu(x)) entering fc_0 and
-// s_k = bf16(relu(fc_0)) entering fc_1 -- are also copied to
-// ws_act[2k] and ws_act[2k + 1], each a (B_pad, H) row-major plane.
-template <bool STASH>
-__device__ __forceinline__ void tower(const TowerParams& p, const Layout& L, const Smem& s,
-                                      FragC (&x)[2][J], FragC (&acc)[2][J], int row0,
-                                      bf16* ws_act, size_t plane) {
-  constexpr int H = HID;
-  const int C = p.C, kin = p.kin;
-  const int col0 = (threadIdx.x >> 5) * J * 16;  // this warp's output columns
-  warp_gemm<false>(acc, s.xin, L.ldx, kin, p.w_in, H, col0, s.ring, L.sld);
-  residual(x, acc, p.b_in, col0, true, s.act, L.lda, p.n_lin_z == 0, s.stg);
-  __syncthreads();
+// Workspace planes of the backward, in units of one (B_pad, H) plane.  A
+// layer below the view mean has NS planes (view v at +v), one above it has
+// one.  Block k's first plane is plane_at(k) (NS == 1: k), so the stashed
+// operands of block k sit at 2 plane_at(k) (r_k) and 2 plane_at(k) +
+// views_at(k) (s_k), and t after all blocks.
+__device__ __forceinline__ int views_at(const TowerParams& p, int k) { return k < p.pre ? p.NS : 1; }
+__device__ __forceinline__ size_t plane_at(const TowerParams& p, int k) {
+  return k < p.pre ? (size_t)p.NS * k : (size_t)p.NS * p.pre + (k - p.pre);
+}
 
-  for (int k = 0; k < p.n_blocks; ++k) {
+// lin_in: x = code W_in + b_in; with emit, also bf16(relu(x)) into s.act
+// (block 0 reads it directly when no latent is injected).
+__device__ __forceinline__ void tower_in(const TowerParams& p, const Layout& L, const Smem& s,
+                                         FragC (&x)[2][J], FragC (&acc)[2][J], bool emit) {
+  const int col0 = (threadIdx.x >> 5) * J * 16;  // this warp's output columns
+  warp_gemm<false>(acc, s.xin, L.ldx, p.kin, p.w_in, HID, col0, s.ring, L.sld);
+  residual(x, acc, p.b_in, col0, true, s.act, L.lda, emit, s.stg);
+  __syncthreads();
+}
+
+// Residual blocks k0 <= k < k1 on the f32 stream x.  After the last one
+// s.act holds bf16(relu(x)) only with emit_end.  With STASH, the operands of
+// every block -- r_k = bf16(relu(x)) entering fc_0 and s_k = bf16(relu(fc_0))
+// entering fc_1 -- are also copied to their workspace planes (view `view`
+// below the mean), each a (B_pad, H) row-major plane of ws_act.
+template <bool STASH>
+__device__ __forceinline__ void tower_blocks(const TowerParams& p, const Layout& L, const Smem& s,
+                                             FragC (&x)[2][J], FragC (&acc)[2][J], int row0,
+                                             int k0, int k1, bool emit_end, bf16* ws_act,
+                                             size_t plane, int view) {
+  constexpr int H = HID;
+  const int C = p.C;
+  const int col0 = (threadIdx.x >> 5) * J * 16;  // this warp's output columns
+  for (int k = k0; k < k1; ++k) {
     if (k < p.n_lin_z) {
       warp_gemm<false>(acc, s.zb, L.ldz, C, p.w_z + (size_t)k * C * H, H, col0, s.ring, L.sld);
       residual(x, acc, p.b_z + (size_t)k * H, col0, false, s.act, L.lda, true, s.stg);
       __syncthreads();  // act complete before fc_0 reads it
     }
-    if (STASH) copy_tile<true>(s.act, L.lda, ws_act + (2 * k) * plane, H, row0);
+    const size_t r_plane = 2 * plane_at(p, k) + (k < p.pre ? view : 0);
+    if (STASH) copy_tile<true>(s.act, L.lda, ws_act + r_plane * plane, H, row0);
     const bf16* w0 = p.w_blk + (size_t)(2 * k) * H * H;
     const float* b0 = p.b_blk + (size_t)(2 * k) * H;
     warp_gemm<false>(acc, s.act, L.lda, H, w0, H, col0, s.ring, L.sld);
@@ -356,13 +409,91 @@ __device__ __forceinline__ void tower(const TowerParams& p, const Layout& L, con
       }
     }
     __syncthreads();  // hb complete before fc_1 reads it
-    if (STASH) copy_tile<true>(s.hb, L.lda, ws_act + (2 * k + 1) * plane, H, row0);
+    if (STASH) copy_tile<true>(s.hb, L.lda, ws_act + (r_plane + views_at(p, k)) * plane, H, row0);
     warp_gemm<false>(acc, s.hb, L.lda, H, w0 + (size_t)H * H, H, col0, s.ring, L.sld);
     // the next consumer of relu(x) is fc_0 of block k+1 (or lin_out) unless
-    // block k+1 injects the latent first
-    residual(x, acc, b0 + H, col0, false, s.act, L.lda, k + 1 >= p.n_lin_z, s.stg);
+    // block k+1 injects the latent first, or the view mean comes next
+    residual(x, acc, b0 + H, col0, false, s.act, L.lda,
+             k + 1 >= p.n_lin_z && (k + 1 < k1 || emit_end), s.stg);
     __syncthreads();
   }
+}
+
+// The single-view tower: on return s.act holds t = bf16(relu(x_final)).
+template <bool STASH>
+__device__ __forceinline__ void tower(const TowerParams& p, const Layout& L, const Smem& s,
+                                      FragC (&x)[2][J], FragC (&acc)[2][J], int row0,
+                                      bf16* ws_act, size_t plane) {
+  tower_in(p, L, s, x, acc, p.n_lin_z == 0);
+  tower_blocks<STASH>(p, L, s, x, acc, row0, 0, p.n_blocks, true, ws_act, plane, 0);
+}
+
+// Element i of fragment (h, j) of this thread, in a CTA's 64 KB slot: each
+// thread touches only its own elements, and neighbouring threads neighbouring
+// words.
+__device__ __forceinline__ float* slot_at(float* slot, int h, int j, int i) {
+  return slot + ((h * J + j) * FragC::num_elements + i) * NTHREADS + threadIdx.x;
+}
+
+// Fold view v's residual x into the view sum held in `slot`: sum = x_0, then
+// sum + x_v in view order; at the last view x becomes sum * (1 / NS), the
+// TPU kernel's sum(xs) * (1.0 / NS).
+__device__ __forceinline__ void fold_view(FragC (&x)[2][J], float* slot, int v, int NS) {
+  static_assert(FragC::num_elements == 8, "SLOT_FLOATS assumes 8 accumulator elements a thread");
+  const float inv = 1.0f / (float)NS;
+#pragma unroll
+  for (int h = 0; h < 2; ++h)
+#pragma unroll
+    for (int j = 0; j < J; ++j)
+#pragma unroll
+      for (int i = 0; i < FragC::num_elements; ++i) {
+        float* a = slot_at(slot, h, j, i);
+        if (v == 0) {
+          *a = x[h][j].x[i];
+        } else {
+          const float sum = *a + x[h][j].x[i];
+          if (v + 1 < NS)
+            *a = sum;
+          else
+            x[h][j].x[i] = sum * inv;
+        }
+      }
+}
+
+// bf16(relu(x)) into s.act over the warp's fragments, for the blocks after
+// the view mean.
+__device__ __forceinline__ void emit_stream(const Layout& L, const Smem& s, const FragC (&x)[2][J]) {
+  const int col0 = (threadIdx.x >> 5) * J * 16;
+#pragma unroll
+  for (int j = 0; j < J; ++j)
+#pragma unroll
+    for (int h = 0; h < 2; ++h) emit_relu(s.act, L.lda, h, col0 + 16 * j, x[h][j], s.stg);
+  __syncthreads();
+}
+
+// The multi-view tower on tile row0 (SB objects x NS views): every view's
+// lin_in and blocks k < pre, folded into the mean, then the shared blocks.
+// On return s.act holds t.  With STASH, also each view's bf16 code and
+// latent (ws_x, ws_z: NS planes of (B_pad, kin) and (B_pad, C)) and every
+// block's operands (tower_blocks).
+template <bool GATHER, bool STASH>
+__device__ __forceinline__ void tower_mv(const TowerParams& p, const Layout& L, const Smem& s,
+                                         FragC (&x)[2][J], FragC (&acc)[2][J], int row0,
+                                         float* slot, bf16* ws_act, bf16* ws_x, bf16* ws_z,
+                                         size_t B_pad) {
+  for (int v = 0; v < p.NS; ++v) {
+    load_inputs<GATHER>(p, L, s, row0, v);
+    __syncthreads();
+    if (STASH) {
+      copy_tile<true>(s.xin, L.ldx, ws_x + (size_t)v * B_pad * p.kin, p.kin, row0);
+      if (p.n_lin_z > 0) copy_tile<true>(s.zb, L.ldz, ws_z + (size_t)v * B_pad * p.C, p.C, row0);
+    }
+    tower_in(p, L, s, x, acc, p.n_lin_z == 0 && p.pre > 0);
+    tower_blocks<STASH>(p, L, s, x, acc, row0, 0, p.pre, false, ws_act, B_pad * HID, v);
+    fold_view(x, slot, v, p.NS);
+  }
+  emit_stream(L, s, x);
+  tower_blocks<STASH>(p, L, s, x, acc, row0, p.pre, p.n_blocks, true, ws_act, B_pad * HID, 0);
 }
 
 inline TowerParams tower_params(const void* x, const void* w_in, const void* b_in, const void* w_z,
@@ -386,6 +517,9 @@ inline TowerParams tower_params(const void* x, const void* w_in, const void* b_i
   p.n_blocks = n_blocks;
   p.n_lin_z = n_lin_z;
   p.d_out = d_out;
+  p.NS = 1;
+  p.B_obj = B;
+  p.pre = n_blocks;
   return p;
 }
 

@@ -1,10 +1,12 @@
-"""sn64 single-view novel-view render on the card.
+"""sn64 novel-view render from one or more source views on the card.
 
 The port's counterpart of ``__graft_entry__.entry()`` and the core of
-``eval/gen_video.py``: the ``conf/exp/sn64.conf`` model at full width, one
-64x64 synthetic sphere as the source view, a ``pose_spherical`` ring of
-frames at radius (z_near + z_far) / 2, the conf's renderer (64 coarse, 16
-importance + 16 depth samples), and :meth:`RenderPipeline.render_simple`.
+``eval/gen_video.py``: the ``conf/exp/sn64.conf`` model at full width, views
+of one 64x64 synthetic sphere as the source views (view 0 by default; more
+with ``--source "0 1 2"``, as ``gen_video -P`` takes them), a
+``pose_spherical`` ring of frames at radius (z_near + z_far) / 2, the conf's
+renderer (64 coarse, 16 importance + 16 depth samples), and
+:meth:`RenderPipeline.render_simple`.
 
 Run it with ``python -m pixelnerf_tpu_torch.entry``.  It runs on ``cuda``
 unless ``--device cpu`` is given.
@@ -15,7 +17,7 @@ from __future__ import annotations
 import argparse
 import time
 from pathlib import Path
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -54,12 +56,14 @@ def build_model(conf: ConfigTree, device, mlp_impl: str = "auto", seed: int = 0,
     return net
 
 
-def source_view(image_size: int = 64, seed: int = 0) -> dict:
-    """View 0 of synthetic sphere object 0 -> images (1, 1, H, W, 3), poses
-    (1, 1, 4, 4), focal, z range."""
-    ds = SyntheticDataset(n_objs=1, n_views=3, image_size=image_size, seed=seed)
+def source_view(image_size: int = 64, seed: int = 0, views: Sequence[int] = (0,)) -> dict:
+    """Views ``views`` of synthetic sphere object 0 (a ring of at least 3) ->
+    images (1, NS, H, W, 3), poses (1, NS, 4, 4), focal, z range."""
+    views = [int(v) for v in views]
+    ds = SyntheticDataset(n_objs=1, n_views=max(3, max(views) + 1), image_size=image_size,
+                          seed=seed)
     s = ds[0]
-    return dict(images=s["images"][None, :1], poses=s["poses"][None, :1], focal=s["focal"],
+    return dict(images=s["images"][None, views], poses=s["poses"][None, views], focal=s["focal"],
                 z_near=ds.z_near, z_far=ds.z_far, lindisp=ds.lindisp,
                 height=ds.height, width=ds.width)
 
@@ -76,32 +80,39 @@ def ring_rays(src: dict, n_frames: int, elevation: float = -10.0) -> np.ndarray:
 
 
 def render_ring(net: PixelNeRFNet, conf: ConfigTree, src: dict, rays: np.ndarray,
-                generator: torch.Generator, ray_batch_size: int = 50000):
-    """Encode the source view once and render ``rays`` -> (rgb (NR, 3), depth (NR,))."""
+                generator: torch.Generator, ray_batch_size: int = 50000,
+                views: Optional[Sequence[int]] = None):
+    """Encode the source views once -- those of ``src`` at the indices
+    ``views``, all of them by default -- and render ``rays`` ->
+    (rgb (NR, 3), depth (NR,))."""
     device = next(net.parameters()).device
+    images, poses = src["images"], src["poses"]
+    if views is not None:
+        images, poses = images[:, list(views)], poses[:, list(views)]
     renderer = NeRFRenderer.from_conf(conf["renderer"], lindisp=src["lindisp"],
                                       eval_batch_size=ray_batch_size)
     if renderer.n_coarse < 64:  # video sampling floor, as gen_video sets it
         renderer.n_coarse, renderer.n_fine = 64, 128
     with torch.no_grad():
-        scene = net.encode(torch.as_tensor(src["images"], device=device),
-                           torch.as_tensor(src["poses"], device=device),
-                           float(src["focal"]))
+        scene = net.encode(torch.as_tensor(images, device=device),
+                           torch.as_tensor(poses, device=device), float(src["focal"]))
         pipe = RenderPipeline(net, renderer)
         return pipe.render_simple(scene, rays, generator, ray_batch_size=ray_batch_size)
 
 
 def entry(n_frames: int = 3, device=None, mlp_impl: str = "auto", seed: int = 0,
           variables: Optional[Mapping] = None, pretrained: Optional[bool] = None,
-          image_size: int = 64, ray_batch_size: int = 50000) -> dict:
-    """Render ``n_frames`` ring views of the sn64 model.
+          image_size: int = 64, ray_batch_size: int = 50000,
+          views: Sequence[int] = (0,)) -> dict:
+    """Render ``n_frames`` ring views of the sn64 model from the source views
+    ``views`` of the synthetic object.
 
     :return: {"frames": (N, H, W, 3) rgb in [0, 1], "depth": (N, H, W)} tensors
     """
     device = resolve_device(device)
     conf = load_conf(pretrained)
     net = build_model(conf, device, mlp_impl, seed, variables)
-    src = source_view(image_size, seed)
+    src = source_view(image_size, seed, views)
     rays = ring_rays(src, n_frames)
     gen = torch.Generator(device=device).manual_seed(seed)
     rgb, depth = render_ring(net, conf, src, rays, gen, ray_batch_size)
@@ -117,6 +128,8 @@ def main(argv=None) -> None:
     ap.add_argument("--impl", default="auto", choices=["auto", "cuda", "torch"])
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--image-size", type=int, default=64)
+    ap.add_argument("--source", "-P", default="0",
+                    help='source view ids, space-separated, e.g. "0 1 2" (as gen_video -P)')
     ap.add_argument("--random-backbone", action="store_true",
                     help="use a seeded random encoder instead of pretrained weights")
     args = ap.parse_args(argv)
@@ -124,14 +137,15 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     out = entry(args.frames, device, args.impl, args.seed,
                 pretrained=False if args.random_backbone else None,
-                image_size=args.image_size)
+                image_size=args.image_size, views=[int(v) for v in args.source.split()])
     if device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     frames = out["frames"]
     n_rays = frames.shape[0] * frames.shape[1] * frames.shape[2]
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"entry OK: frames {tuple(frames.shape)} depth {tuple(out['depth'].shape)} "
+    print(f"entry OK: source views {args.source.split()}, frames {tuple(frames.shape)} "
+          f"depth {tuple(out['depth'].shape)} "
           f"finite {bool(torch.isfinite(frames).all())}; {n_rays} rays in {dt:.3f} s "
           f"including build and encode, on {name}")
 

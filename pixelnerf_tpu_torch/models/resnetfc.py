@@ -20,9 +20,11 @@ reference torch module: ``lin_in``, ``lin_z.{k}``, ``blocks.{k}.fc_0/fc_1``,
 * ``"auto"``: the kernels for CUDA tensors inside the envelope, the plain
   forward otherwise.
 
-A multi-view call (NS > 1) whose tower takes the view mean runs the JAX
-package's multi-view kernels, which are not ported yet: under ``"cuda"``, and
-under ``"auto"`` on CUDA tensors, it raises ``NotImplementedError``.
+A multi-view call (NS > 1) takes the multi-view kernels when the tower takes
+the view mean (``combine_layer < n_blocks``), with ``sb = rows // (NS * B)``
+objects, as the JAX ResnetFC does; without the view mean it stays plain, as
+in JAX.  The multi-view fused gather takes one object and per-view
+``(NS, T, C)`` tables.
 """
 
 from __future__ import annotations
@@ -143,20 +145,9 @@ class ResnetFC(nn.Module):
             return False
         if len(combine_inner_dims) != 2:
             return False
-        on_kernels = self.impl == "cuda" or device.type == "cuda"
-        if combine_inner_dims[0] != 1:
-            if self.combine_layer >= self.n_blocks:
-                return False  # no view mean inside the tower: plain, as in JAX
-            if on_kernels:
-                # the JAX package runs _kernel_2d_mv(_gather) here; no quiet
-                # plain forward on card tensors in their place
-                raise NotImplementedError(
-                    "multi-view (NS > 1) field kernels, forward and backward, are not "
-                    "ported yet (ROADMAP.md, slice 3: Pallas rows 3-4 and the NS > 1 part "
-                    "of row 5)"
-                )
-            return False
-        return on_kernels
+        if combine_inner_dims[0] != 1 and not 0 <= self.combine_layer < self.n_blocks:
+            return False  # no view mean inside the tower: plain, as in JAX
+        return self.impl == "cuda" or device.type == "cuda"
 
     def tower(self, device: torch.device) -> rf.Tower:
         """The parameters packed for the kernels.  The module's own parameters
@@ -177,7 +168,7 @@ class ResnetFC(nn.Module):
             self._tower, self._tower_key = pack(), key
         return self._tower
 
-    def _kernel_forward(self, zx, planar_out: bool):
+    def _kernel_forward(self, zx, combine_inner_dims, planar_out: bool):
         if type(zx) is tuple:
             z, x = zx
         else:
@@ -186,6 +177,8 @@ class ResnetFC(nn.Module):
         x = x.reshape(-1, x.shape[-1]).float().contiguous()
         device = x.device
         tower = self.tower(device)
+        NS, B = combine_inner_dims
+        sb = x.shape[0] // (NS * B)  # outer object superbatch (train: SB objects)
         if isinstance(z, rf.LatentGather):
             if torch.is_grad_enabled() and (
                 z.table.requires_grad or any(p.requires_grad for p in self.parameters())
@@ -196,21 +189,28 @@ class ResnetFC(nn.Module):
                     "the fused-gather route is eval-only: run it under torch.no_grad(), "
                     "or build the model with diff_mode=True for training"
                 )
-            if z.table.ndim != 2:
-                raise ValueError("single-view fused gather needs a (T, C) table")
+            if z.table.ndim != (2 if NS == 1 else 3):
+                raise ValueError(f"the fused gather at NS={NS} needs "
+                                 f"{'a (T, C) table' if NS == 1 else '(NS, T, C) tables'}")
+            if sb != 1:
+                raise ValueError(f"the fused gather takes one object's tables (SB=1), got SB={sb}")
             table = z.table if device.type == "cpu" else z.table.to(torch.bfloat16)
-            out = rf.resnetfc_gather(
-                z.idx.reshape(-1, z.idx.shape[-1]).to(torch.int32).contiguous(),
-                z.w.reshape(-1, z.w.shape[-1]).float().contiguous(),
-                table.contiguous(), x, tower, self.n_blocks, planar_out,
-            )
+            idx = z.idx.reshape(-1, z.idx.shape[-1]).to(torch.int32).contiguous()
+            w = z.w.reshape(-1, z.w.shape[-1]).float().contiguous()
+            if NS == 1:
+                out = rf.resnetfc_gather(idx, w, table.contiguous(), x, tower, self.n_blocks,
+                                         planar_out)
+            else:
+                out = rf.resnetfc_gather_mv(idx, w, table.contiguous(), x, tower, self.n_blocks,
+                                            self.combine_layer, planar_out)
         else:
             if z is not None:
                 z = z.reshape(-1, self.d_latent)
                 z = (z.float() if device.type == "cpu" else z.to(torch.bfloat16)).contiguous()
             params = dict(self.named_parameters())
             names = rfv.param_names(self.d_in, self.n_lin_z, self.n_blocks)
-            cfg = (self.d_in, self.n_blocks, self.n_lin_z, planar_out)
+            cfg = (self.d_in, self.n_blocks, self.n_lin_z, planar_out, NS, sb,
+                   self.combine_layer)
             out = rfv.ResnetFCFunction.apply(tower, cfg, z, x, *[params[n] for n in names])
         return out[None]  # (1, d_out, N) or (1, N, d_out)
 
@@ -224,7 +224,7 @@ class ResnetFC(nn.Module):
         parts = zx if type(zx) is tuple else None
         device = (parts[1] if parts is not None else zx).device
         if self._kernel_route(combine_inner_dims, device):
-            return self._kernel_forward(zx, planar_out)
+            return self._kernel_forward(zx, tuple(combine_inner_dims), planar_out)
 
         dt = self.lin_out.weight.dtype
         if parts is not None:

@@ -1,14 +1,20 @@
-"""Fused single-view ResnetFC forward: hand-written CUDA kernels for Hopper.
+"""Fused ResnetFC forward: hand-written CUDA kernels for Hopper.
 
-Counterpart of ``pixelnerf_tpu/ops/resnetfc_pallas.py`` for NS == 1:
+Counterpart of ``pixelnerf_tpu/ops/resnetfc_pallas.py``:
 
 * :func:`resnetfc_dense` launches ``resnetfc_fwd_dense``, the port of
   ``_kernel_2d`` (dense latent ``z``);
 * :func:`resnetfc_gather` launches ``resnetfc_fwd_gather``, the port of
   ``_kernel_2d_gather`` (the bilinear feature lookup fused in as a 4-tap read
-  of a bf16 ``(T, C)`` table).
+  of a bf16 ``(T, C)`` table);
+* :func:`resnetfc_dense_mv` launches ``resnetfc_fwd_dense_mv``, the port of
+  ``_kernel_2d_mv``: NS > 1 source views, each running lin_in and the blocks
+  below ``combine_layer`` on its own, then their mean through the rest;
+* :func:`resnetfc_gather_mv` launches ``resnetfc_fwd_gather_mv``, the port of
+  ``_kernel_2d_mv_gather``: the same with view v's lookup into table v of an
+  ``(NS, T, C)`` stack.
 
-Both live in ``csrc/resnetfc_fwd.cu``, which also notes what bounds them; the
+All four live in ``csrc/resnetfc_fwd.cu``, which also notes what bounds them; the
 tower itself is in ``csrc/resnetfc_tower.cuh``, which the backward
 (``csrc/resnetfc_bwd.cu``, :mod:`.resnetfc_vjp`) shares.  Each source is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
@@ -16,13 +22,18 @@ interface on first use (a changed source or header gets a new library name, so
 it rebuilds) and loaded with ``ctypes``; :func:`build_all` compiles every
 source at once, one ``nvcc`` each.
 
+Multi-view rows are object-major, as the model's query leaves them: point b
+of object s in view v is row ``(s * NS + v) * B_obj + b``, and its output is
+column ``s * B_obj + b``.  The fused gather takes one object (SB = 1).
+
 Each wrapper runs its kernel's plain PyTorch version only when its tensors lie
 on the CPU, in float32 throughout -- the counterpart of the Pallas kernels'
 interpret mode (``_ct``).  On a CUDA tensor it launches the kernel or raises;
 there is no fallback.  :func:`resnetfc_reference` and
 :func:`gather_reference` with ``compute_dtype=torch.bfloat16`` round at the
-kernel's points (inputs, every relu output and z to bf16, products in f32) and
-are what the on-card checks compare the kernels with.
+kernel's points (inputs, every relu output and z to bf16, products in f32; the
+view mean an f32 sum in view order times 1 / NS) and are what the on-card
+checks compare the kernels with.
 """
 
 from __future__ import annotations
@@ -52,7 +63,8 @@ HIDDEN = 512
 
 # kernel launches per entry point; chip_smoke.py zeroes these around a run to
 # show that the run went through the kernels
-LAUNCHES = {"resnetfc_fwd_dense": 0, "resnetfc_fwd_gather": 0}
+LAUNCHES = {"resnetfc_fwd_dense": 0, "resnetfc_fwd_gather": 0,
+            "resnetfc_fwd_dense_mv": 0, "resnetfc_fwd_gather_mv": 0}
 _LIB: Optional[ctypes.CDLL] = None
 
 
@@ -145,7 +157,12 @@ def pack_tower(params: dict, d_in: int, d_latent: int, n_blocks: int, n_lin_z: i
 
 def gather_reference(idx, w, table, compute_dtype=torch.float32) -> torch.Tensor:
     """Plain 4-tap lookup ``sum_{j<4} w[:, j] * table[idx[:, j]]`` in f32,
-    rounded to ``compute_dtype``.  Out-of-range rows contribute nothing."""
+    rounded to ``compute_dtype``.  Out-of-range rows contribute nothing.  An
+    ``(NS, T, C)`` table takes view-major idx/w: view v's rows read table v."""
+    if table.ndim == 3:
+        NS = table.shape[0]
+        return torch.cat([gather_reference(i, ww, t, compute_dtype)
+                          for i, ww, t in zip(idx.chunk(NS), w.chunk(NS), table)])
     T = table.shape[0]
     tab = table.float()
     z = torch.zeros(idx.shape[0], table.shape[1], device=table.device)
@@ -157,22 +174,51 @@ def gather_reference(idx, w, table, compute_dtype=torch.float32) -> torch.Tensor
     return z.to(compute_dtype).float()
 
 
+def blocks_per_view(n_blocks: int, NS: int, combine_layer: Optional[int]) -> int:
+    """The blocks each view runs on its own, those below the view mean:
+    ``combine_layer`` when NS > 1 (which needs it in [0, n_blocks)), all of
+    them for one view."""
+    if NS == 1:
+        return n_blocks
+    if combine_layer is None or not 0 <= combine_layer < n_blocks:
+        raise ValueError(f"NS={NS} needs 0 <= combine_layer < n_blocks "
+                         f"(combine_layer={combine_layer}, n_blocks={n_blocks})")
+    return combine_layer
+
+
+def view_mean(h: torch.Tensor, NS: int, sb: int) -> torch.Tensor:
+    """The multi-view combine of object-major rows ``(sb * NS * B_obj, H)``
+    -> ``(sb * B_obj, H)``: an f32 sum in view order times 1 / NS, as the TPU
+    kernel takes it (``sum(xs) * (1.0 / NS)``)."""
+    hv = h.reshape(sb, NS, -1, h.shape[-1])
+    acc = hv[:, 0]
+    for v in range(1, NS):
+        acc = acc + hv[:, v]
+    return (acc * (1.0 / NS)).reshape(-1, h.shape[-1])
+
+
 def resnetfc_reference(z, x, tower: Tower, n_blocks: int, planar_out: bool = True,
-                       compute_dtype=torch.float32) -> torch.Tensor:
+                       compute_dtype=torch.float32, NS: int = 1, sb: int = 1,
+                       combine_layer: Optional[int] = None) -> torch.Tensor:
     """Plain tower: ``compute_dtype`` operands, f32 products and biases.
 
-    :param z: (B, C) latent or None when there is no latent injection
-    :param x: (B, d_in) coordinate code
+    :param z: (NS * B, C) latent or None when there is no latent injection
+    :param x: (NS * B, d_in) coordinate code; rows object-major when NS > 1
+    :param NS, sb, combine_layer: views, objects, and the block at which the
+        views' mean replaces them (needed when NS > 1)
     :return: (d_out, B) when ``planar_out`` else (B, d_out), f32
     """
 
     def rnd(t):
         return t.to(compute_dtype).float()
 
+    pre = blocks_per_view(n_blocks, NS, combine_layer)
     n_lin_z = tower.w_z.shape[0]
     h = rnd(x) @ rnd(tower.w_in[: tower.d_in]) + tower.b_in
     zc = rnd(z) if n_lin_z > 0 else None
     for k in range(n_blocks):
+        if NS > 1 and k == pre:
+            h = view_mean(h, NS, sb)
         if k < n_lin_z:
             h = h + (zc @ rnd(tower.w_z[k]) + tower.b_z[k])
         t = rnd(torch.relu(h)) @ rnd(tower.w_blk[k, 0]) + tower.b_blk[k, 0]
@@ -258,6 +304,13 @@ def _lib() -> ctypes.CDLL:
         lib.resnetfc_fwd_dense.restype = I
         lib.resnetfc_fwd_gather.argtypes = [P, P, I, P, I] + tower_args
         lib.resnetfc_fwd_gather.restype = I
+        mv_args = tower_args[:-1] + [I, I, I, P, I] + [P]  # NS, B_obj, pre, vsum, n_ctas
+        lib.resnetfc_fwd_dense_mv.argtypes = [P] + mv_args
+        lib.resnetfc_fwd_dense_mv.restype = I
+        lib.resnetfc_fwd_gather_mv.argtypes = [P, P, I, P, I] + mv_args
+        lib.resnetfc_fwd_gather_mv.restype = I
+        lib.resnetfc_fwd_slot_floats.argtypes = []
+        lib.resnetfc_fwd_slot_floats.restype = I
         lib.resnetfc_fwd_smem_bytes.argtypes = [I, I, I]
         lib.resnetfc_fwd_smem_bytes.restype = ctypes.c_size_t
         lib.resnetfc_fwd_error_string.argtypes = [I]
@@ -277,15 +330,18 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _tower_args(tower: Tower, x: torch.Tensor, n_blocks: int, planar_out: bool):
+def _tower_args(tower: Tower, x: torch.Tensor, n_blocks: int, planar_out: bool,
+                B: Optional[int] = None):
     """Validate the packed weights and the code against each other; return the
-    ctypes argument tail shared by both entry points and the output tensor."""
+    ctypes argument tail shared by the entry points (up to the stream, which
+    the caller appends) and the output tensor for ``B`` points (default: one
+    a row of ``x``)."""
     kin, H = tower.w_in.shape
     n_lin_z, C = tower.w_z.shape[0], tower.w_z.shape[1]
     d_out = tower.w_out.shape[1]
-    B = x.shape[0]
+    B = x.shape[0] if B is None else B
     dev = x.device
-    _check(x, "x", torch.float32, (B, tower.d_in))
+    _check(x, "x", torch.float32, (x.shape[0], tower.d_in))
     if H != HIDDEN or C % 16 or kin % 16:
         raise ValueError(
             f"kernel widths: H must be {HIDDEN} and C, kin multiples of 16 "
@@ -306,14 +362,33 @@ def _tower_args(tower: Tower, x: torch.Tensor, n_blocks: int, planar_out: bool):
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"widths need {smem} B of shared memory per CTA (> {MAX_SMEM_BYTES})")
     out = torch.empty((d_out, B) if planar_out else (B, d_out), device=dev, dtype=torch.float32)
-    stream = torch.cuda.current_stream(dev).cuda_stream
     args = [
         x.data_ptr(), tower.w_in.data_ptr(), tower.b_in.data_ptr(), tower.w_z.data_ptr(),
         tower.b_z.data_ptr(), tower.w_blk.data_ptr(), tower.b_blk.data_ptr(),
         tower.w_out.data_ptr(), tower.b_out.data_ptr(), out.data_ptr(),
-        B, tower.d_in, kin, H, C, n_blocks, n_lin_z, d_out, int(planar_out), stream,
+        B, tower.d_in, kin, H, C, n_blocks, n_lin_z, d_out, int(planar_out),
     ]
     return args, out, C, n_lin_z
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def view_slots(dev) -> torch.Tensor:
+    """The multi-view kernels' view-sum slots: one 64 KB f32 slot per CTA of
+    their persistent grid, one CTA per SM."""
+    n_ctas = torch.cuda.get_device_properties(dev).multi_processor_count
+    return torch.empty((n_ctas, _lib().resnetfc_fwd_slot_floats()), device=dev)
+
+
+def mv_shape(rows: int, NS: int, sb: int, combine_layer: int, n_blocks: int):
+    """Validate a multi-view layout of ``rows`` input rows; return (B, B_obj),
+    the output points and the points of one object."""
+    if NS < 2 or sb < 1 or rows % (NS * sb):
+        raise ValueError(f"{rows} rows are not SB={sb} objects x NS={NS} views")
+    blocks_per_view(n_blocks, NS, combine_layer)
+    return rows // NS, rows // (NS * sb)
 
 
 def _launched(name: str, err: int) -> None:
@@ -337,7 +412,7 @@ def resnetfc_dense(z: Optional[torch.Tensor], x: torch.Tensor, tower: Tower, n_b
         _check(z, "z", torch.bfloat16, (x.shape[0], C))
     if x.shape[0] == 0:
         return out
-    err = _lib().resnetfc_fwd_dense(z.data_ptr() if n_lin_z > 0 else None, *args)
+    err = _lib().resnetfc_fwd_dense(z.data_ptr() if n_lin_z > 0 else None, *args, _stream(x.device))
     _launched("resnetfc_fwd_dense", err)
     return out
 
@@ -363,7 +438,73 @@ def resnetfc_gather(idx: torch.Tensor, w: torch.Tensor, table: torch.Tensor, x: 
     if B == 0:
         return out
     err = _lib().resnetfc_fwd_gather(
-        idx.data_ptr(), w.data_ptr(), taps, table.data_ptr(), table.shape[0], *args
+        idx.data_ptr(), w.data_ptr(), taps, table.data_ptr(), table.shape[0], *args,
+        _stream(x.device),
     )
     _launched("resnetfc_fwd_gather", err)
+    return out
+
+
+def resnetfc_dense_mv(z: Optional[torch.Tensor], x: torch.Tensor, tower: Tower, n_blocks: int,
+                      NS: int, combine_layer: int, sb: int = 1,
+                      planar_out: bool = True) -> torch.Tensor:
+    """Multi-view ResnetFC forward over dense latents ``z (SB*NS*B_obj, C)``
+    (bf16; None when the tower injects no latent) and code ``x`` with the
+    same object-major rows (f32): every view through lin_in and the blocks
+    below ``combine_layer``, their mean through the rest.
+
+    :return: (d_out, SB*B_obj) f32 when ``planar_out`` else (SB*B_obj, d_out)
+    """
+    B, B_obj = mv_shape(x.shape[0], NS, sb, combine_layer, n_blocks)
+    if x.device.type == "cpu":
+        return resnetfc_reference(z, x, tower, n_blocks, planar_out, NS=NS, sb=sb,
+                                  combine_layer=combine_layer)
+    args, out, C, n_lin_z = _tower_args(tower, x, n_blocks, planar_out, B)
+    if n_lin_z > 0:
+        _check(z, "z", torch.bfloat16, (x.shape[0], C))
+    if B == 0:
+        return out
+    slots = view_slots(x.device)
+    err = _lib().resnetfc_fwd_dense_mv(
+        z.data_ptr() if n_lin_z > 0 else None, *args, NS, B_obj, combine_layer,
+        slots.data_ptr(), slots.shape[0], _stream(x.device),
+    )
+    _launched("resnetfc_fwd_dense_mv", err)
+    return out
+
+
+def resnetfc_gather_mv(idx: torch.Tensor, w: torch.Tensor, tables: torch.Tensor, x: torch.Tensor,
+                       tower: Tower, n_blocks: int, combine_layer: int,
+                       planar_out: bool = True) -> torch.Tensor:
+    """Multi-view ResnetFC forward of one object with view v's lookup
+    ``z = sum_{j<4} w[:, j] * tables[v][idx[:, j]]`` fused in: ``tables
+    (NS, T, C)`` bf16, ``idx (NS*B, taps)`` int32 and ``w (NS*B, taps)`` f32
+    view-major, ``x (NS*B, d_in)`` f32 in the same rows.
+
+    :return: (d_out, B) f32 when ``planar_out`` else (B, d_out)
+    """
+    if tables.ndim != 3:
+        raise ValueError(
+            f"the multi-view gather needs (NS, T, C) tables, got {tuple(tables.shape)}")
+    NS = tables.shape[0]
+    B, _ = mv_shape(x.shape[0], NS, 1, combine_layer, n_blocks)
+    if x.device.type == "cpu":
+        z = gather_reference(idx, w, tables)
+        return resnetfc_reference(z, x, tower, n_blocks, planar_out, NS=NS,
+                                  combine_layer=combine_layer)
+    args, out, C, _ = _tower_args(tower, x, n_blocks, planar_out, B)
+    taps = idx.shape[1]
+    if taps < 4:
+        raise ValueError(f"need at least 4 taps, got {taps}")
+    _check(idx, "idx", torch.int32, (x.shape[0], taps))
+    _check(w, "w", torch.float32, (x.shape[0], taps))
+    _check(tables, "tables", torch.bfloat16, (NS, tables.shape[1], C))
+    if B == 0:
+        return out
+    slots = view_slots(x.device)
+    err = _lib().resnetfc_fwd_gather_mv(
+        idx.data_ptr(), w.data_ptr(), taps, tables.data_ptr(), tables.shape[1], *args, NS, B,
+        combine_layer, slots.data_ptr(), slots.shape[0], _stream(x.device),
+    )
+    _launched("resnetfc_fwd_gather_mv", err)
     return out

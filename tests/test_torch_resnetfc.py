@@ -90,7 +90,8 @@ def test_plain_towers_match_pallas_interpret(route, planar, combine_layer, d_lat
         via_module = port((Z, X), combine_inner_dims=(1, B), planar_out=planar)
     close(out, ref[0])
     close(via_module, ref)
-    assert rf.LAUNCHES == {"resnetfc_fwd_dense": 0, "resnetfc_fwd_gather": 0}
+    assert set(rf.LAUNCHES) >= {"resnetfc_fwd_dense", "resnetfc_fwd_gather"}
+    assert not any(rf.LAUNCHES.values())  # CPU tensors: the plain versions
 
 
 @pytest.mark.parametrize(
@@ -123,8 +124,13 @@ def test_reference_init_matches_jax_scheme():
 
 def test_kernel_dispatch():
     _, _, port = _pair(6, 8, 16, 2, 1, impl="cuda")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port(torch.zeros(2 * 3, 14), combine_inner_dims=(2, 3))
+    _, _, plain = _pair(6, 8, 16, 2, 1, impl="torch")
+    zx = torch.from_numpy(np.random.default_rng(5).normal(size=(2 * 3, 14)).astype(np.float32))
+    # NS = 2 with the view mean inside the tower: the multi-view kernel
+    # route, whose plain version runs on CPU tensors
+    out = port(zx, combine_inner_dims=(2, 3))
+    assert out.shape == (1, 3, 4)
+    close(out, plain(zx, combine_inner_dims=(2, 3)).detach().numpy())
     _, _, soft = _pair(6, 8, 16, 2, 1, beta=1.0, impl="cuda")
     with pytest.raises(ValueError, match="beta 0"):
         soft(torch.zeros(3, 14), combine_inner_dims=(1, 3))
@@ -138,17 +144,21 @@ def test_kernel_dispatch():
 
 @pytest.mark.parametrize("impl", ["auto", "cuda"])
 def test_multi_view_on_card_raises(impl):
-    """NS > 1 with the view mean inside the tower is the JAX package's
-    multi-view kernel route: on card tensors it raises rather than running
-    the plain forward in its place.  Without the view mean it is plain, as in
-    the JAX package."""
+    """NS > 1 with the view mean inside the tower (``combine_layer <
+    n_blocks``) is the JAX package's multi-view kernel route: card tensors
+    take the multi-view kernels under ``cuda`` and ``auto`` (no longer the
+    ``NotImplementedError`` this test once pinned), at NS 2 and 3.  Without
+    the view mean it is plain, as in the JAX package."""
     _, _, port = _pair(6, 8, 16, 2, 1, impl=impl)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        port._kernel_route((2, 3), torch.device("cuda"))
-    if impl == "auto":  # CPU tensors take the plain forward under "auto"
-        assert not port._kernel_route((2, 3), torch.device("cpu"))
+    for NS in (2, 3):
+        assert port._kernel_route((NS, 3), torch.device("cuda"))
+        # CPU tensors take the plain forward under "auto", the kernels' plain
+        # versions under "cuda"
+        assert port._kernel_route((NS, 3), torch.device("cpu")) == (impl == "cuda")
     _, _, no_mean = _pair(6, 8, 16, 2, 1000, impl=impl)
     assert not no_mean._kernel_route((2, 3), torch.device("cuda"))
+    _, _, at_end = _pair(6, 8, 16, 2, 2, impl=impl)  # combine_layer == n_blocks
+    assert not at_end._kernel_route((3, 3), torch.device("cuda"))
 
 
 @pytest.mark.parametrize("combine_layer", [3, 1000])
