@@ -15,8 +15,11 @@ one line each:
    the train layout SB 4 x NS 3 x 128 rays x 96), to
    ``max|d| <= 0.015 * max(1, max|ref|)`` and ``corr > 0.999``, with its time
    beside the plain version's, a cuBLAS bf16 chain's and the card's bound;
-   then the bound and cuBLAS-chain time of the TPU kernel not ported yet
-   (row 6 of PERF.md);
+   then the deferred positional code (row 6 of PERF.md) in each forward
+   kernel -- its CODE variant fed the raw (xyz, viewdir) coordinates, at the
+   fine pass's 393,216 points, NS 2 for the multi-view gather and NS 3 for
+   the multi-view dense kernel -- against its plain version at the same bar,
+   and against the same kernel fed the pre-encoded code;
 4. main path: the full-width sn64 model (seeded weights, random encoder)
    renders 64x64 ring frames from one source view on the kernel route; the
    gather kernel must have launched, and frame 0 must agree with the plain
@@ -28,22 +31,33 @@ one line each:
    2048 rows, within the fused-gather cap), the second the multi-view dense
    kernel (3072 rows, over it); frame 0 of each against the plain route to
    >= 40 dB;
-7. backward kernel checks at the train step's shapes (4 x 128 rays x 64 and
+7. deferred-code renders: with ``PIXELNERF_DEFER_CODE=1``, ring frame 0
+   from views (0), (0, 1) and (0, 1, 2) and once on the dense route; each
+   must launch the code variant of the kernel its route takes and not the
+   encoded-input one, and agree with the plain route to >= 40 dB;
+8. backward kernel checks at the train step's shapes (4 x 128 rays x 64 and
    x 96 samples, at -V 1 and at -V 3): the kernels' stashed forward operands
    against the plain recompute, every output (dz, dx, each dW and db) against
    the plain backward walked through the same operands at the bar above, and
    against the fully independent plain backward at ``corr > 0.999``; two
    calls must be bit-identical; times beside the plain version's, the
    autograd backward of the cuBLAS chain and the bound;
-8. train-step parity at -V 1 and at -V 3: one sn64 step on the kernel route
+9. train-step parity at -V 1 and at -V 3: one sn64 step on the kernel route
    (AMP) and one on the plain f32 route from the same weights, batch and
    draws: losses within 1%, ``grad_norm`` within 2%, cosine >= 0.99 between
    each head's and the encoder's gradients;
-9. train path: ``python -m pixelnerf_tpu_torch.train`` in-process on the
+10. train path: ``python -m pixelnerf_tpu_torch.train`` in-process on the
    synthetic data, 12 one-step epochs at -V 1 and 6 at -V 3; the forward
    kernel of the view count and both backward kernels launch twice per step,
    no other forward kernel launches, the losses stay finite and
-   ``pixel_nerf_latest`` is written.
+   ``pixel_nerf_latest`` is written;
+11. eval path: ``python -m pixelnerf_tpu_torch.eval.eval`` in-process with
+    ``PIXELNERF_DEFER_CODE=1`` on a checkpoint of the render phases' model,
+    ``-F synthetic --split test -P "0" --max_objs 2``: the single-view gather
+    kernel's code variant launches, PSNR/SSIM are finite, ``finish.txt``
+    holds 2 lines and the PNGs exist; a second run resumes and renders
+    nothing; one object from ``-P "0 1 2"`` goes through the multi-view
+    dense kernel's code variant.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -139,7 +153,8 @@ def bound(flops: float, nbytes: float):
 
 
 # template arguments of the kernels, for naming ptxas' entry functions
-TEMPLATE_ARGS = {"resnetfc_fwd_kernel": ("GATHER", "MV"), "resnetfc_bwd_data_kernel": ("MV",)}
+TEMPLATE_ARGS = {"resnetfc_fwd_kernel": ("GATHER", "MV", "CODE"),
+                 "resnetfc_bwd_data_kernel": ("MV",)}
 
 
 def ptxas_summary(log: str) -> dict:
@@ -212,8 +227,7 @@ def main() -> None:
     t0 = time.perf_counter()
     builds = rf.build_all()
     log("build: " + json.dumps({
-        "kernels": ["resnetfc_fwd_dense", "resnetfc_fwd_gather", "resnetfc_fwd_dense_mv",
-                    "resnetfc_fwd_gather_mv", "resnetfc_bwd_data", "resnetfc_bwd_weights"],
+        "kernels": list(rf.LAUNCHES) + ["resnetfc_bwd_data", "resnetfc_bwd_weights"],
         "sources": [str(rf.SOURCES[n].relative_to(rf.CSRC.parent.parent)) for n in builds],
         "libraries": [b.library.name for b in builds.values()],
         "compiled": {n: b.compiled for n, b in builds.items()},
@@ -310,8 +324,6 @@ def main() -> None:
                                replaces=replaces, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                bound_by=b_by, library_ms=library_ms)
             del out, ref
-        if K == 96:
-            B96, z96, pts96, vd96 = B, z, pts, vd
 
     # ---- multi-view forward kernel checks at the multi-view paths' shapes ----
     # the NS = 2 render's gather on the encoded tables of views 0 and 1; the
@@ -383,18 +395,95 @@ def main() -> None:
                                bound_by=b_by, library_ms=library_ms)
             del out, ref, z, x, idx, w, xv, pts, vd
 
-    # ---- bound and cuBLAS-chain time of the TPU kernel not ported yet ----
-    # row 6 at the sn64 fine pass, z and the raw coordinates of the
-    # single-view check above
-    with torch.no_grad():
-        b_ms, b_by = bound(B96 * (flops_pt + 2 * 6 * d_in),
-                           B96 * (C * 2 + 6 * 4 + d_out * 4) + w_bytes)
-        lib_ms = cuda_ms(
-            lambda: library_tower(z96, torch.cat([code(pts96), vd96], dim=-1), tw, nb), 3)
-        log(f"not ported: row 6 _x_feat fused code (pixelnerf_tpu/ops/resnetfc_pallas.py:156) at "
-            f"sn64 dense, {B96} points, raw (xyz, viewdir): bound_ms {b_ms:.4f} ({b_by}) "
-            f"library_ms {lib_ms:.4f} (cuBLAS bf16 chain)")
-        del z96, pts96, vd96
+    # ---- row 6: the deferred positional code in each forward kernel ----
+    # every CODE variant at the fine pass (4096 rays x 96 = 393,216 output
+    # points) on the raw (xyz, viewdir) coordinates, against its plain
+    # version (the code in f32, then the bf16 tower) and against the same
+    # kernel fed the pre-encoded code, where only bf16 rounding flips of the
+    # code may differ
+    code_arrays = [torch.from_numpy(a).to(dev) for a in code.flat_arrays(tail=3)]
+    d_raw = code_arrays[0].shape[0]
+    code_records = {}
+    B = RAYS_PER_STEP * 96
+    for name, NS in (("resnetfc_fwd_gather_code", 1), ("resnetfc_fwd_dense_code", 1),
+                     ("resnetfc_fwd_gather_mv_code", 2), ("resnetfc_fwd_dense_mv_code", 3)):
+        rows = NS * B
+        pts = torch.rand(rows, 3, device=dev, generator=gi) * 2 - 1
+        vd = torch.nn.functional.normalize(torch.randn(rows, 3, device=dev, generator=gi), dim=-1)
+        rc = rf.RawCode(torch.cat([pts, vd], dim=-1).contiguous(), *code_arrays)
+        side = int(math.isqrt(T))
+        idx, w = bilinear_taps(torch.rand(rows, 2, device=dev, generator=gi) * 2 - 1, side, side,
+                               pad_taps_to=8)
+        idx, w = idx.contiguous(), w.contiguous()
+        with torch.no_grad():
+            x_enc = rf.materialize_code(rc)  # the plain version's f32 code
+            tabs = table if NS == 1 else tables3[:NS].contiguous()
+            # the bf16 latents the dense kernels read (the gather kernels build
+            # the same from the table)
+            zl = (rf.gather_reference(idx, w, table, torch.bfloat16) if NS == 1
+                  else mv_latent(tabs, idx, w, 1)).to(torch.bfloat16)
+            if name == "resnetfc_fwd_gather_code":
+                kern = lambda x: rf.resnetfc_gather(idx, w, table, x, tw, nb)  # noqa: E731
+            elif name == "resnetfc_fwd_dense_code":
+                kern = lambda x: rf.resnetfc_dense(zl, x, tw, nb)  # noqa: E731
+            elif name == "resnetfc_fwd_gather_mv_code":
+                kern = lambda x: rf.resnetfc_gather_mv(idx, w, tabs, x, tw, nb, cl)  # noqa: E731
+            else:
+                kern = lambda x: rf.resnetfc_dense_mv(zl, x, tw, nb, NS, cl)  # noqa: E731
+            kw = dict(NS=NS, combine_layer=cl) if NS > 1 else {}
+            plain = lambda: rf.resnetfc_reference(zl, rc, tw, nb,  # noqa: E731
+                                                  compute_dtype=torch.bfloat16, **kw)
+            # the yardstick: the code in torch, then rows 1-4's cuBLAS chains
+            # (with the lookup for the gather variants)
+            if name == "resnetfc_fwd_gather_code":
+                library = lambda: library_tower(  # noqa: E731
+                    (table[idx[:, :4].long()] * w[:, :4, None].bfloat16()).sum(1),
+                    rf.materialize_code(rc), tw, nb)
+            elif name == "resnetfc_fwd_dense_code":
+                library = lambda: library_tower(zl, rf.materialize_code(rc), tw, nb)  # noqa: E731
+            elif name == "resnetfc_fwd_gather_mv_code":
+                views = torch.arange(NS, device=dev)[:, None, None]
+                library = lambda: library_tower_mv(  # noqa: E731
+                    (tabs[views, idx[:, :4].reshape(NS, B, 4).long()]
+                     * w[:, :4].reshape(NS, B, 4, 1).bfloat16()).sum(2),
+                    by_view(rf.materialize_code(rc), NS, 1), tw, nb, NS, cl)
+            else:
+                zv = by_view(zl, NS, 1)
+                library = lambda: library_tower_mv(  # noqa: E731
+                    zv, by_view(rf.materialize_code(rc), NS, 1), tw, nb, NS, cl)
+            before = dict(rf.LAUNCHES)
+            out = kern(rc)
+            torch.cuda.synchronize()
+            launched = {k: v - before[k] for k, v in rf.LAUNCHES.items() if v != before[k]}
+            ref = plain()
+            d, bar, corr = agree(out, ref)
+            out_enc = kern(x_enc)
+            d_enc = (out - out_enc).abs().max().item()
+            ok = (d <= bar and corr > 0.999 and bool(torch.isfinite(out).all())
+                  and out.shape == (d_out, B) and launched == {name: 1})
+            ms = cuda_ms(lambda: kern(rc), 5)
+            enc_ms = cuda_ms(lambda: kern(x_enc), 5)
+            plain_ms = cuda_ms(plain, 2)
+            library_ms = cuda_ms(library, 3)
+            f_pt = flops_pt if NS == 1 else flops_mv[NS]
+            gather = "gather" in name
+            in_bytes = (rows * (d_raw * 4 + ((idx.shape[1] + w.shape[1]) * 4 if gather else C * 2))
+                        + (NS * T * C * 2 if gather else 0))
+            b_ms, b_by = bound(B * f_pt + rows * (2 * d_raw * d_in + (8 * C if gather else 0)),
+                               in_bytes + B * d_out * 4 + w_bytes)
+            log(f"kernel check: {name} (row 6, _x_feat in the "
+                f"{name.removesuffix('_code')} kernel) NS={NS} B={B} ({rows} rows, raw d {d_raw} "
+                f"-> code d {d_in}) max|d| {d:.6g} <= bar {bar:.6g}: {d <= bar}, corr {corr:.7f}; "
+                f"vs the same kernel on the pre-encoded code max|d| {d_enc:.6g}; launches "
+                f"{launched}; kernel_ms {ms:.4f} (encoded input {enc_ms:.4f}, ratio "
+                f"{ms / enc_ms:.4f}) plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
+                f"bound_ms {b_ms:.4f} ({b_by})")
+            if not ok:
+                raise SystemExit(f"kernel check failed: {name}")
+            code_records[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                      library_ms=library_ms, max_abs_err=d, encoded_ms=enc_ms,
+                                      encoded_max_abs_err=d_enc, points=B, rows=rows)
+            del out, ref, out_enc, x_enc, zl, rc, idx, w, pts, vd
 
     # ---- main path: full-width sn64 ring render on the kernel route ----
     rays = entry.ring_rays(src, N_FRAMES)
@@ -439,6 +528,7 @@ def main() -> None:
         f"PSNR {p_plain:.3f} dB (need >= 40); plain-route launches {dict(rf.LAUNCHES)}")
     if not p_plain >= 40.0 or any(rf.LAUNCHES.values()):
         raise SystemExit("kernel route disagrees with the plain route")
+    plain_frame0 = {(0,): rgb_p}  # the plain route's frame 0 per source views
 
     # ---- dense route: no fused gather ----
     os.environ["PIXELNERF_FUSED_GATHER_MAX_ROWS"] = "0"
@@ -482,6 +572,7 @@ def main() -> None:
                                      views=views)
         torch.cuda.synchronize()
         plain_launches = dict(rf.LAUNCHES)
+        plain_frame0[views] = rgb_p
         p_mv = psnr(rgb_m[:RAYS_PER_STEP], rgb_p)
         frame_ms = mv_ms[(kname, 64)] + mv_ms[(kname, 96)]
         finite = bool(torch.isfinite(rgb_m).all()) and bool(torch.isfinite(depth_m).all())
@@ -498,6 +589,52 @@ def main() -> None:
                 and fused == (kname == "resnetfc_fwd_gather_mv")):
             raise SystemExit(f"multi-view render from views {views} failed or missed {kname}")
         records[kname]["launches"] = mv_launches[kname]
+
+    # ---- deferred-code renders: PIXELNERF_DEFER_CODE=1 on every forward route ----
+    # frame 0 from views (0), (0, 1), (0, 1, 2) and on the dense route; the
+    # code variant of the route's kernel must launch and the encoded-input one
+    # not, and the frame agree with the plain route (without the deferred
+    # code) to >= 40 dB.  Then frame 0 is timed with the code off and on, in
+    # turns (off, on, on, off).
+    def frame0(views, defer):
+        os.environ["PIXELNERF_DEFER_CODE"] = "1" if defer else "0"
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = entry.render_ring(net, conf, src3, rays[:RAYS_PER_STEP],
+                                   torch.Generator(device=dev).manual_seed(SEED), RAYS_PER_STEP,
+                                   views=views)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    for views, cap, kname in (((0,), None, "resnetfc_fwd_gather"),
+                              ((0,), "0", "resnetfc_fwd_dense"),
+                              ((0, 1), None, "resnetfc_fwd_gather_mv"),
+                              ((0, 1, 2), None, "resnetfc_fwd_dense_mv")):
+        if cap is not None:
+            os.environ["PIXELNERF_FUSED_GATHER_MAX_ROWS"] = cap
+        try:
+            rf.reset_launches()
+            rgb_c, _ = frame0(views, True)
+            defer_launches = dict(rf.LAUNCHES)
+            times = {False: [], True: []}
+            for defer in (False, True, True, False):
+                times[defer].append(frame0(views, defer)[1])
+        finally:
+            os.environ.pop("PIXELNERF_DEFER_CODE", None)
+            os.environ.pop("PIXELNERF_FUSED_GATHER_MAX_ROWS", None)
+        cname = kname + "_code"
+        p_c = psnr(rgb_c, plain_frame0[views])
+        finite = bool(torch.isfinite(rgb_c).all())
+        t_off, t_on = (sum(times[k]) / 2 for k in (False, True))
+        log(f"deferred-code render: PIXELNERF_DEFER_CODE=1, source views {list(views)}"
+            f"{', PIXELNERF_FUSED_GATHER_MAX_ROWS=' + cap if cap else ''}, frame 0: launches "
+            f"{defer_launches}; vs plain route PSNR {p_c:.3f} dB (need >= 40); finite {finite}; "
+            f"frame 0 in {t_on:.4f} s with the deferred code, {t_off:.4f} s without (means of two "
+            f"calls each, in turns)")
+        if not (finite and p_c >= 40.0 and defer_launches[cname] > 0
+                and not any(v for k, v in defer_launches.items() if k != cname)):
+            raise SystemExit(f"deferred-code render from views {views} failed or missed {cname}")
+        code_records[cname]["launches"] = defer_launches[cname]
 
     # ---- backward kernel checks at the train step's shapes, -V 1 and -V 3 ----
     from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
@@ -712,6 +849,72 @@ def main() -> None:
                 records[name]["launches"] = train_launches[name]
             else:
                 records[name][f"ns{nviews}"]["launches"] = train_launches[name]
+
+    # ---- eval path: the eval CLI in-process, through the deferred code ----
+    import types
+
+    from pixelnerf_tpu_torch.eval.eval import main as eval_main
+    from pixelnerf_tpu_torch.train import checkpoints
+
+    os.environ["PIXELNERF_ALLOW_RANDOM_BACKBONE"] = "1"  # no backbone weights on this machine
+    os.environ["PIXELNERF_DEFER_CODE"] = "1"
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = os.path.join(tmp, "ck")
+            checkpoints.save_weights(types.SimpleNamespace(checkpoints_path=ck, name="chip_smoke"),
+                                     net)
+            runs = []
+            for source, n_objs, out_dir in (("0", 2, "eval1"), ("0", 2, "eval1"),
+                                            ("0 1 2", 1, "eval3")):
+                out_dir = os.path.join(tmp, out_dir)
+                argv = ["-n", "chip_smoke", "-c", "conf/exp/sn64.conf", "-F", "synthetic",
+                        "--split", "test", "-P", source, "--max_objs", str(n_objs), "-O", out_dir,
+                        "--checkpoints_path", ck]
+                torch.cuda.synchronize()
+                rf.reset_launches()
+                t0 = time.perf_counter()
+                res = eval_main(argv)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                with open(os.path.join(out_dir, "finish.txt")) as f:
+                    journal = f.read().splitlines()
+                pngs = sorted(os.path.relpath(os.path.join(d, f), out_dir)
+                              for d, _, fs in os.walk(out_dir) for f in fs if f.endswith(".png"))
+                runs.append((source, res, dict(rf.LAUNCHES), journal, pngs, dt))
+    finally:
+        del os.environ["PIXELNERF_ALLOW_RANDOM_BACKBONE"]
+        del os.environ["PIXELNERF_DEFER_CODE"]
+    expect = ("resnetfc_fwd_gather_code", None, "resnetfc_fwd_dense_mv_code")
+    for i, ((source, res, launches, journal, pngs, dt), want) in enumerate(zip(runs, expect)):
+        n_views = ds.n_views - len(source.split())  # target views: all but the sources
+        log(f"eval path{' (resume)' if i == 1 else ''}: python -m pixelnerf_tpu_torch.eval.eval "
+            f"-c conf/exp/sn64.conf -F synthetic --split test -P \"{source}\" with "
+            f"PIXELNERF_DEFER_CODE=1 (random encoder, the render phases' weights): rendered "
+            f"{[(n, round(p_, 4), round(s_, 4)) for n, p_, s_ in res['objects']]}, mean psnr "
+            f"{res['psnr']:.4f} ssim {res['ssim']:.4f} over {res['cnt']}; launches {launches}; "
+            f"finish.txt {journal}; {len(pngs)} PNGs; {dt:.3f} s")
+        if want is None:  # the resume run renders nothing
+            ok = not res["objects"] and not any(launches.values()) and len(journal) == 2
+        else:
+            ok = (len(res["objects"]) == len(journal) == res["cnt"]
+                  and all(math.isfinite(p_) and math.isfinite(s_) for _, p_, s_ in res["objects"])
+                  and len(pngs) == n_views * len(journal) and launches[want] > 0
+                  and not any(v for k, v in launches.items() if k != want))
+        if not ok:
+            raise SystemExit(f"eval path with -P {source!r} failed or did not run through {want}")
+        if want is not None:
+            code_records[want]["eval_launches"] = launches[want]
+
+    # row 6 as one record: the single-view gather variant's numbers (the
+    # 1-view deferred render's kernel) at the top, every variant under
+    # "variants"; launches are the deferred renders' (phase 7)
+    records["resnetfc_fwd_code"] = dict(
+        code_records["resnetfc_fwd_gather_code"], name="resnetfc_fwd_code",
+        route="cuda", source="pixelnerf_tpu_torch/csrc/resnetfc_tower.cuh",
+        replaces="pixelnerf_tpu/ops/resnetfc_pallas.py:156",
+        launches=sum(r["launches"] for r in code_records.values()),
+        max_abs_err=max(r["max_abs_err"] for r in code_records.values()),
+        variants=code_records)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

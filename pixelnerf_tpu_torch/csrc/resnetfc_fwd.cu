@@ -5,6 +5,15 @@
 //   resnetfc_fwd_dense_mv   replaces pixelnerf_tpu/ops/resnetfc_pallas.py::_kernel_2d_mv
 //   resnetfc_fwd_gather_mv  replaces pixelnerf_tpu/ops/resnetfc_pallas.py::_kernel_2d_mv_gather
 //
+// Each takes the deferred positional code's operands (code_w, code_f, code_p,
+// code_m, d_raw): null code_w means x is the encoded code, as before; else x
+// is the raw (rows, d_raw) f32 coordinates and the kernel's CODE variant
+// evaluates the code while loading each tile, the port of
+// resnetfc_pallas.py::_x_feat (fused_code).  The code adds 2 d_raw d_in FLOP
+// and d_in sinf a point (~0.5 KFLOP at sn64) to the tower's ~6.9 MFLOP, and
+// reads 24 raw bytes a point where the encoded code is 168: it does not move
+// the bound.
+//
 // The tower and its numerics contract live in resnetfc_tower.cuh, which the
 // backward's recompute (resnetfc_bwd.cu) shares, and so does the multi-view
 // design (the per-view branches, the view sum in a per-CTA device-memory
@@ -31,7 +40,7 @@ namespace {
 
 using namespace rfc;
 
-template <bool GATHER, bool MV>
+template <bool GATHER, bool MV, bool CODE>
 __global__ void __launch_bounds__(NTHREADS, 1) resnetfc_fwd_kernel(const TowerParams p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const Layout L = layout(p.C, p.kin, p.n_lin_z, false);
@@ -46,9 +55,9 @@ __global__ void __launch_bounds__(NTHREADS, 1) resnetfc_fwd_kernel(const TowerPa
     const int row0 = tile * BM;
     FragC x[2][J], acc[2][J];
     if (MV) {
-      tower_mv<GATHER, false>(p, L, s, x, acc, row0, slot, nullptr, nullptr, nullptr, 0);
+      tower_mv<GATHER, false, CODE>(p, L, s, x, acc, row0, slot, nullptr, nullptr, nullptr, 0);
     } else {
-      load_inputs<GATHER>(p, L, s, row0, 0);
+      load_inputs<GATHER, CODE>(p, L, s, row0, 0);
       __syncthreads();
       tower<false>(p, L, s, x, acc, row0, nullptr, 0);
     }
@@ -74,20 +83,36 @@ __global__ void __launch_bounds__(NTHREADS, 1) resnetfc_fwd_kernel(const TowerPa
   }
 }
 
-template <bool GATHER, bool MV>
-int launch(const TowerParams& p, int H, int n_ctas, cudaStream_t stream) {
-  if (H != HID) return (int)cudaErrorInvalidValue;
-  if (MV && (p.NS < 2 || p.pre < 0 || p.pre >= p.n_blocks || p.n_lin_z > p.pre ||
-             p.B_obj < 1 || p.B % p.B_obj != 0 || p.vsum == nullptr || n_ctas < 1))
-    return (int)cudaErrorInvalidValue;
+template <bool GATHER, bool MV, bool CODE>
+int launch_variant(const TowerParams& p, int n_ctas, cudaStream_t stream) {
   const size_t smem = layout(p.C, p.kin, p.n_lin_z, false).total;
-  cudaError_t err = cudaFuncSetAttribute(resnetfc_fwd_kernel<GATHER, MV>,
+  cudaError_t err = cudaFuncSetAttribute(resnetfc_fwd_kernel<GATHER, MV, CODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (p.B + BM - 1) / BM;
   const int grid = MV && n_ctas < n_tiles ? n_ctas : n_tiles;
-  resnetfc_fwd_kernel<GATHER, MV><<<grid, NTHREADS, smem, stream>>>(p);
+  resnetfc_fwd_kernel<GATHER, MV, CODE><<<grid, NTHREADS, smem, stream>>>(p);
   return (int)cudaGetLastError();
+}
+
+// Validate, attach the code operands (code_w null: x is the encoded code)
+// and launch the matching variant.
+template <bool GATHER, bool MV>
+int launch(TowerParams& p, int H, int n_ctas, const void* code_w, const void* code_f,
+           const void* code_p, const void* code_m, int d_raw, cudaStream_t stream) {
+  if (H != HID) return (int)cudaErrorInvalidValue;
+  if (MV && (p.NS < 2 || p.pre < 0 || p.pre >= p.n_blocks || p.n_lin_z > p.pre ||
+             p.B_obj < 1 || p.B % p.B_obj != 0 || p.vsum == nullptr || n_ctas < 1))
+    return (int)cudaErrorInvalidValue;
+  if (code_w == nullptr) return launch_variant<GATHER, MV, false>(p, n_ctas, stream);
+  if (code_f == nullptr || code_p == nullptr || code_m == nullptr || d_raw < 1)
+    return (int)cudaErrorInvalidValue;
+  p.code_w = static_cast<const float*>(code_w);
+  p.code_f = static_cast<const float*>(code_f);
+  p.code_p = static_cast<const float*>(code_p);
+  p.code_m = static_cast<const float*>(code_m);
+  p.d_raw = d_raw;
+  return launch_variant<GATHER, MV, true>(p, n_ctas, stream);
 }
 
 }  // namespace
@@ -108,20 +133,24 @@ int resnetfc_fwd_dense(const void* z, const void* x, const void* w_in, const voi
                        const void* w_z, const void* b_z, const void* w_blk, const void* b_blk,
                        const void* w_out, const void* b_out, void* out, int B, int d_in, int kin,
                        int H, int C, int n_blocks, int n_lin_z, int d_out, int planar,
-                       void* stream) {
+                       const void* code_w, const void* code_f, const void* code_p,
+                       const void* code_m, int d_raw, void* stream) {
   TowerParams p = tower_params(x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, b_out, B, d_in, kin,
                                C, n_blocks, n_lin_z, d_out);
   p.out = static_cast<float*>(out);
   p.planar = planar;
   p.z = static_cast<const bf16*>(z);
-  return launch<false, false>(p, H, 0, static_cast<cudaStream_t>(stream));
+  return launch<false, false>(p, H, 0, code_w, code_f, code_p, code_m, d_raw,
+                              static_cast<cudaStream_t>(stream));
 }
 
 int resnetfc_fwd_gather(const void* idx, const void* w, int taps, const void* table, int T,
                         const void* x, const void* w_in, const void* b_in, const void* w_z,
                         const void* b_z, const void* w_blk, const void* b_blk, const void* w_out,
                         const void* b_out, void* out, int B, int d_in, int kin, int H, int C,
-                        int n_blocks, int n_lin_z, int d_out, int planar, void* stream) {
+                        int n_blocks, int n_lin_z, int d_out, int planar, const void* code_w,
+                        const void* code_f, const void* code_p, const void* code_m, int d_raw,
+                        void* stream) {
   TowerParams p = tower_params(x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, b_out, B, d_in, kin,
                                C, n_blocks, n_lin_z, d_out);
   p.out = static_cast<float*>(out);
@@ -131,7 +160,8 @@ int resnetfc_fwd_gather(const void* idx, const void* w, int taps, const void* ta
   p.table = static_cast<const bf16*>(table);
   p.T = T;
   p.taps = taps;
-  return launch<true, false>(p, H, 0, static_cast<cudaStream_t>(stream));
+  return launch<true, false>(p, H, 0, code_w, code_f, code_p, code_m, d_raw,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // Multi-view: B = SB B_obj output points, NS views of each as object-major
@@ -141,7 +171,9 @@ int resnetfc_fwd_dense_mv(const void* z, const void* x, const void* w_in, const 
                           const void* w_z, const void* b_z, const void* w_blk, const void* b_blk,
                           const void* w_out, const void* b_out, void* out, int B, int d_in,
                           int kin, int H, int C, int n_blocks, int n_lin_z, int d_out, int planar,
-                          int NS, int B_obj, int pre, void* vsum, int n_ctas, void* stream) {
+                          int NS, int B_obj, int pre, void* vsum, int n_ctas,
+                          const void* code_w, const void* code_f, const void* code_p,
+                          const void* code_m, int d_raw, void* stream) {
   TowerParams p = tower_params(x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, b_out, B, d_in, kin,
                                C, n_blocks, n_lin_z, d_out);
   p.out = static_cast<float*>(out);
@@ -151,7 +183,8 @@ int resnetfc_fwd_dense_mv(const void* z, const void* x, const void* w_in, const 
   p.B_obj = B_obj;
   p.pre = pre;
   p.vsum = static_cast<float*>(vsum);
-  return launch<false, true>(p, H, n_ctas, static_cast<cudaStream_t>(stream));
+  return launch<false, true>(p, H, n_ctas, code_w, code_f, code_p, code_m, d_raw,
+                             static_cast<cudaStream_t>(stream));
 }
 
 // Multi-view fused gather, one object (B_obj = B): idx/w rows view-major,
@@ -161,7 +194,9 @@ int resnetfc_fwd_gather_mv(const void* idx, const void* w, int taps, const void*
                            const void* b_z, const void* w_blk, const void* b_blk,
                            const void* w_out, const void* b_out, void* out, int B, int d_in,
                            int kin, int H, int C, int n_blocks, int n_lin_z, int d_out, int planar,
-                           int NS, int B_obj, int pre, void* vsum, int n_ctas, void* stream) {
+                           int NS, int B_obj, int pre, void* vsum, int n_ctas,
+                          const void* code_w, const void* code_f, const void* code_p,
+                          const void* code_m, int d_raw, void* stream) {
   TowerParams p = tower_params(x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, b_out, B, d_in, kin,
                                C, n_blocks, n_lin_z, d_out);
   p.out = static_cast<float*>(out);
@@ -176,7 +211,8 @@ int resnetfc_fwd_gather_mv(const void* idx, const void* w, int taps, const void*
   p.pre = pre;
   p.vsum = static_cast<float*>(vsum);
   if (B_obj != B) return (int)cudaErrorInvalidValue;
-  return launch<true, true>(p, H, n_ctas, static_cast<cudaStream_t>(stream));
+  return launch<true, true>(p, H, n_ctas, code_w, code_f, code_p, code_m, d_raw,
+                            static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -38,6 +38,19 @@
 // of object s, view v is row (s NS + v) B_obj + b, and its output column is
 // s B_obj + b.  The gather's idx/w rows are view-major (SB = 1, the same
 // formula) and view v reads table v.
+//
+// Deferred positional code (the CODE variant of load_inputs, the port of
+// resnetfc_pallas.py::_x_feat): x holds the raw (rows, d_raw) f32 coordinates
+// and the tile's code is evaluated while it is loaded,
+//   xg[c] = sum_j raw[j] code_w[j, c]   (f32, j in order; not a tensor-core
+//                                        product: its rounding would be
+//                                        amplified by the frequencies)
+//   enc[c] = code_m[c] > 0 ? sinf(xg[c] code_f[c] + code_p[c]) : xg[c]
+// and rounded to bf16 only after the sin.  sinf is the accurate one: the
+// arguments reach ~70 rad, where __sinf's error grows.  The code arrays
+// (~1.7 KB at sn64) are read through the read-only cache.  The instantiations
+// without the code compile as before, which the backward's register budget
+// needs.
 
 #pragma once
 
@@ -74,7 +87,7 @@ struct TowerParams {
   const int* idx;      // (NS B, taps) int32 tap rows, columns 0..3 used
   const float* w;      // (NS B, taps) f32 tap weights
   const bf16* table;   // (NS, T, C) feature tables
-  const float* x;      // (NS B, d_in) f32 coordinate code
+  const float* x;      // (NS B, d_in) f32 coordinate code, or (NS B, d_raw) raw coordinates
   const bf16* w_in;    // (kin, H), rows >= d_in are zero
   const float* b_in;   // (H)
   const bf16* w_z;     // (n_lin_z, C, H)
@@ -89,6 +102,13 @@ struct TowerParams {
   // views, points per object (B = SB B_obj) and the blocks each view runs on
   // its own (combine_layer; n_blocks when NS == 1)
   int NS, B_obj, pre;
+  // the deferred positional code (CODE variant only): x is then the raw
+  // (NS B, d_raw) coordinates
+  const float* code_w;  // (d_raw, d_in) f32 select matrix
+  const float* code_f;  // (d_in) f32 per-column frequency
+  const float* code_p;  // (d_in) f32 per-column phase
+  const float* code_m;  // (d_in) f32, > 0 where the sin applies
+  int d_raw;
 };
 
 // The input row of output point g in view v (object-major rows).
@@ -304,14 +324,27 @@ __device__ __forceinline__ Smem carve(unsigned char* base, const Layout& L) {
 // The tile's code and latent of view v into shared memory (zeros past B); the
 // gather variant builds z[i] = sum_{j<4} w[i,j] * table_v[idx[i,j]] as a real
 // 4-tap read of the (T, C) bf16 table of view v, summed in f32 and rounded to
-// bf16.
-template <bool GATHER>
+// bf16.  The CODE variant evaluates the positional code of the raw
+// coordinates (see the head of this file); a raw row (24 bytes at sn64) is
+// not 16-byte aligned, so it is read with scalar loads.
+template <bool GATHER, bool CODE = false>
 __device__ __forceinline__ void load_inputs(const TowerParams& p, const Layout& L, const Smem& s,
                                             int row0, int view) {
   const int tid = threadIdx.x, C = p.C, kin = p.kin;
   for (int e = tid; e < BM * kin; e += NTHREADS) {
     const int r = e / kin, c = e - r * kin, g = row0 + r;
-    const float v = (g < p.B && c < p.d_in) ? p.x[src_row(p, g, view) * p.d_in + c] : 0.0f;
+    float v;
+    if (CODE) {
+      v = 0.0f;
+      if (g < p.B && c < p.d_in) {
+        const float* raw = p.x + src_row(p, g, view) * p.d_raw;
+        float xg = __ldg(raw) * __ldg(p.code_w + c);
+        for (int j = 1; j < p.d_raw; ++j) xg += __ldg(raw + j) * __ldg(p.code_w + j * p.d_in + c);
+        v = __ldg(p.code_m + c) > 0.0f ? sinf(xg * __ldg(p.code_f + c) + __ldg(p.code_p + c)) : xg;
+      }
+    } else {
+      v = (g < p.B && c < p.d_in) ? p.x[src_row(p, g, view) * p.d_in + c] : 0.0f;
+    }
     s.xin[r * L.ldx + c] = __float2bfloat16_rn(v);
   }
   if (p.n_lin_z > 0) {
@@ -476,13 +509,13 @@ __device__ __forceinline__ void emit_stream(const Layout& L, const Smem& s, cons
 // On return s.act holds t.  With STASH, also each view's bf16 code and
 // latent (ws_x, ws_z: NS planes of (B_pad, kin) and (B_pad, C)) and every
 // block's operands (tower_blocks).
-template <bool GATHER, bool STASH>
+template <bool GATHER, bool STASH, bool CODE = false>
 __device__ __forceinline__ void tower_mv(const TowerParams& p, const Layout& L, const Smem& s,
                                          FragC (&x)[2][J], FragC (&acc)[2][J], int row0,
                                          float* slot, bf16* ws_act, bf16* ws_x, bf16* ws_z,
                                          size_t B_pad) {
   for (int v = 0; v < p.NS; ++v) {
-    load_inputs<GATHER>(p, L, s, row0, v);
+    load_inputs<GATHER, CODE>(p, L, s, row0, v);
     __syncthreads();
     if (STASH) {
       copy_tile<true>(s.xin, L.ldx, ws_x + (size_t)v * B_pad * p.kin, p.kin, row0);

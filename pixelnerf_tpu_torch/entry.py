@@ -84,7 +84,7 @@ def render_ring(net: PixelNeRFNet, conf: ConfigTree, src: dict, rays: np.ndarray
                 views: Optional[Sequence[int]] = None):
     """Encode the source views once -- those of ``src`` at the indices
     ``views``, all of them by default -- and render ``rays`` ->
-    (rgb (NR, 3), depth (NR,))."""
+    (rgb (NR, 3), depth (NR,)) on the model's device."""
     device = next(net.parameters()).device
     images, poses = src["images"], src["poses"]
     if views is not None:
@@ -97,7 +97,10 @@ def render_ring(net: PixelNeRFNet, conf: ConfigTree, src: dict, rays: np.ndarray
         scene = net.encode(torch.as_tensor(images, device=device),
                            torch.as_tensor(poses, device=device), float(src["focal"]))
         pipe = RenderPipeline(net, renderer)
-        return pipe.render_simple(scene, rays, generator, ray_batch_size=ray_batch_size)
+        pieces = pipe.render_simple(scene, rays, generator, ray_batch_size=ray_batch_size,
+                                    as_numpy=False)
+    packed = torch.cat([p for p, _ in pieces])
+    return packed[:, :3], packed[:, 3]
 
 
 def entry(n_frames: int = 3, device=None, mlp_impl: str = "auto", seed: int = 0,

@@ -1,0 +1,269 @@
+"""Quantitative evaluation over a dataset split, on the card:
+
+    python -m pixelnerf_tpu_torch.eval.eval -n <exp> -c conf/exp/<x>.conf -F synthetic \\
+        --split test -P "0" [-O eval_out] [--max_objs N] [--device cpu]
+
+The counterpart of the repository's ``eval/eval.py``, with its flags and
+defaults: per object, the source views of a fixed ``-P`` list or of the
+``-L`` viewlist, a render of every target view (``--eval_view_list`` picks
+them; ``--include_src`` keeps the source views), PSNR and SSIM against the
+ground truth, a PNG per view (and a side-by-side with ``--write_compare``),
+and the ``finish.txt`` journal, one ``name psnr ssim 1`` line per object,
+from which a second run resumes.  Weights come from
+``<checkpoints_path>/<name>/pixel_nerf_latest``; without that file the model
+keeps its seeded init, with the backbone under the pretrained-weights
+contract.  ``--mlp_impl`` takes the JAX names (``auto | pallas | xla``) or
+``auto | cuda | torch``.  ``PIXELNERF_DEFER_CODE=1`` renders through the
+forward kernels' in-register positional code.
+
+Not ported yet (they raise, ROADMAP.md): ``--accel`` other than ``off``,
+``--write_depth`` and ``--scale != 1`` with the ground-truth compare (both
+need OpenCV), and more than one ``--gpu_id``.
+"""
+
+from __future__ import annotations
+
+import os
+import warnings
+
+import numpy as np
+import torch
+
+from ..train.cli import IMPLS
+
+
+def extra_args(parser):
+    parser.add_argument("--split", type=str, default="test", help="Split of data to use")
+    parser.add_argument("--source", "-P", type=str, default="64",
+                        help="Source view(s) for each object; or use -L viewlist")
+    parser.add_argument("--eval_view_list", type=str, default=None, help="Path to eval view list")
+    parser.add_argument("--coarse", action="store_true", help="Coarse network as fine")
+    parser.add_argument("--no_compare_gt", action="store_true",
+                        help="Skip GT comparison and only render images")
+    parser.add_argument("--multicat", action="store_true",
+                        help="Prepend category id to object id (multi-category models)")
+    parser.add_argument("--viewlist", "-L", type=str, default="",
+                        help="Path to source view list e.g. src_dvr.txt; overrides -P")
+    parser.add_argument("--output", "-O", type=str, default="eval", help="Output directory")
+    parser.add_argument("--include_src", action="store_true",
+                        help="Include source views in calculation")
+    parser.add_argument("--scale", type=float, default=1.0, help="Render scale relative to input")
+    parser.add_argument("--write_depth", action="store_true",
+                        help="Write depth image (not ported yet; raises)")
+    parser.add_argument("--write_compare", action="store_true", help="Write GT comparison image")
+    parser.add_argument("--free_pose", action="store_true",
+                        help="Poses may change between objects (regenerate rays per object)")
+    parser.add_argument("--max_objs", type=int, default=0,
+                        help="Evaluate at most this many objects (0 = all)")
+    parser.add_argument("--mlp_impl", type=str, default="auto", choices=tuple(IMPLS),
+                        help="field implementation: 'auto' uses the CUDA kernels on the card and "
+                        "plain torch elsewhere; 'pallas'/'cuda' forces the kernels; 'xla'/'torch' "
+                        "the plain field")
+    parser.add_argument("--accel", type=str, default="off", choices=["off", "rays", "proposal"],
+                        help="occupancy-grid pruning (not ported yet: only 'off' runs)")
+    parser.add_argument("--accel_build", type=str, default="fast", choices=["fast", "full"],
+                        help="grid-build budget of --accel")
+    parser.add_argument("--no_accel_gate", action="store_true",
+                        help="skip the per-object self-gate of --accel")
+    return parser
+
+
+def _read_finished(path: str):
+    """(object names, psnr sum, ssim sum, count) of a finish.txt journal."""
+    with open(path) as f:
+        lines = [x.strip().split() for x in f.readlines()]
+    lines = [x for x in lines if len(x) == 4]
+    return ({x[0] for x in lines}, sum(float(x[1]) for x in lines),
+            sum(float(x[2]) for x in lines), sum(int(x[3]) for x in lines))
+
+
+def main(argv=None) -> dict:
+    """Run the evaluation.  Returns ``{"objects": [(name, psnr, ssim), ...]``
+    for the objects rendered by this call, ``"psnr"``, ``"ssim"``: the running
+    means over the journal, and ``"cnt"``: its object count}."""
+    from ..config.args import parse_args
+    from ..data import get_split_dataset
+    from ..device import resolve_device
+    from ..models.pixelnerf import make_model
+    from ..parallel.pipeline import RenderPipeline
+    from ..render.renderer import NeRFRenderer
+    from ..train import checkpoints
+    from ..utils import geometry, metrics
+    from ..utils.jax_convert import load_pretrained_backbone
+    from ..utils.png import write_png
+
+    args, conf = parse_args(extra_args, argv=argv)
+    args.resume = True
+    if args.coarse and args.accel == "proposal":
+        raise SystemExit("--accel proposal renders only the fine head; "
+                         "it cannot be combined with --coarse")
+    if args.accel != "off":
+        raise NotImplementedError(
+            f"--accel {args.accel}: the occupancy accel is not ported yet (ROADMAP.md, slice 5)")
+    if args.write_depth:
+        raise NotImplementedError(
+            "--write_depth (EXR depth and its colormap need OpenCV): not ported yet "
+            "(ROADMAP.md, slice 4)")
+    if args.scale != 1.0 and not args.no_compare_gt:
+        raise NotImplementedError(
+            "--scale != 1 with the ground-truth compare (an OpenCV resize): not ported yet "
+            "(ROADMAP.md, slice 4); pass --no_compare_gt")
+    device = resolve_device(args.device)
+
+    dset = get_split_dataset(args.dataset_format, args.datadir, want_split=args.split,
+                             training=False)
+    output_dir = args.output.strip()
+    has_output = len(output_dir) > 0
+
+    total_psnr, total_ssim, cnt = 0.0, 0.0, 0
+    finished = set()
+    finish_file = None
+    if has_output:
+        os.makedirs(output_dir, exist_ok=True)
+        finish_path = os.path.join(output_dir, "finish.txt")
+        if os.path.exists(finish_path):
+            finished, total_psnr, total_ssim, cnt = _read_finished(finish_path)
+            if cnt > 0:
+                print("resume psnr", total_psnr / cnt, "ssim", total_ssim / cnt)
+            else:
+                total_psnr = total_ssim = 0.0
+        finish_file = open(finish_path, "a", buffering=1)
+        print("Writing images to", output_dir)
+    try:
+        renderer = NeRFRenderer.from_conf(conf["renderer"], lindisp=dset.lindisp,
+                                          eval_batch_size=args.ray_batch_size)
+        if renderer.n_coarse < 64:
+            renderer.n_coarse = 64
+        if args.coarse:
+            renderer.n_coarse = 64
+            renderer.n_fine = 0  # coarse-only output
+        z_near, z_far = dset.z_near, dset.z_far
+
+        use_source_lut = len(args.viewlist) > 0
+        if use_source_lut:
+            print("Using views from list", args.viewlist)
+            with open(args.viewlist) as f:
+                tmp = [x.strip().split() for x in f.readlines()]
+            source_lut = {x[0] + "/" + x[1]: np.array(list(map(int, x[2:])), dtype=np.int64)
+                          for x in tmp}
+            source = None
+        else:
+            source = np.array(sorted(map(int, args.source.split())), dtype=np.int64)
+
+        NV = dset[0]["images"].shape[0]
+        if args.eval_view_list is not None:
+            with open(args.eval_view_list) as f:
+                eval_views = np.array(list(map(int, f.readline().split())))
+            target_view_mask_init = np.zeros(NV, dtype=bool)
+            target_view_mask_init[eval_views] = True
+        else:
+            target_view_mask_init = np.ones(NV, dtype=bool)
+
+        net = pipeline = None
+        all_rays = novel_view_idxs = src_view_mask = target_view_mask = None
+        total_objs = len(dset)
+        # one generator split per rendered object, as the JAX CLI splits its key
+        master = torch.Generator().manual_seed(0)
+        rendered = []
+
+        for obj_idx in range(total_objs):
+            if args.max_objs > 0 and obj_idx >= args.max_objs:
+                break
+            data = dset[obj_idx]
+            dpath = data["path"]
+            obj_basename = os.path.basename(dpath)
+            cat_name = os.path.basename(os.path.dirname(dpath))
+            obj_name = cat_name + "_" + obj_basename if args.multicat else obj_basename
+            print("OBJECT", obj_idx, "OF", total_objs, "PROGRESS", obj_idx / total_objs * 100.0,
+                  "%", dpath)
+            if has_output and obj_name in finished:
+                print("(skip)")
+                continue
+
+            images = data["images"]  # (NV, H, W, 3)
+            NV, H, W, _ = images.shape
+            if args.scale != 1.0:
+                Ht, Wt = int(H * args.scale), int(W * args.scale)
+                if abs(Ht / args.scale - H) > 1e-10 or abs(Wt / args.scale - W) > 1e-10:
+                    warnings.warn(f"Inexact scaling, please check {args.scale} x ({H},{W})")
+                H, W = Ht, Wt
+            focal = np.asarray(data["focal"], dtype=np.float32)
+            c = data.get("c")
+            poses = data["poses"]
+
+            if all_rays is None or use_source_lut or args.free_pose:
+                if use_source_lut:
+                    source = source_lut[cat_name + "/" + obj_basename]
+                src_view_mask = np.zeros(NV, dtype=bool)
+                src_view_mask[source] = True
+                target_view_mask = target_view_mask_init.copy()
+                if not args.include_src:
+                    target_view_mask &= ~src_view_mask
+                novel_view_idxs = np.nonzero(target_view_mask)[0]
+                all_rays = geometry.gen_rays_np(
+                    poses[target_view_mask], W, H, focal * args.scale, z_near, z_far,
+                    c=np.asarray(c) * args.scale if c is not None else None,
+                ).reshape(-1, 8)
+
+            n_gen_views = len(novel_view_idxs)
+            if net is None:
+                net = make_model(conf["model"], mlp_impl=IMPLS[args.mlp_impl], device=device)
+                if not os.path.exists(checkpoints.checkpoint_path(args)):
+                    load_pretrained_backbone(net, conf["model"])
+                checkpoints.load_weights(args, net)
+                pipeline = RenderPipeline(net, renderer)
+
+            with torch.no_grad():
+                scene = net.encode(
+                    torch.as_tensor(images[src_view_mask][None], device=device),
+                    torch.as_tensor(poses[src_view_mask][None], device=device),
+                    torch.as_tensor(focal, device=device),
+                    c=torch.as_tensor(c, device=device) if c is not None else None)
+            obj_gen = torch.Generator(device=device).manual_seed(
+                int(torch.randint(0, 2**62, (1,), generator=master)))
+            all_rgb, _ = pipeline.render_simple(scene, all_rays, obj_gen,
+                                                ray_batch_size=args.ray_batch_size)
+            all_rgb = np.clip(all_rgb.reshape(n_gen_views, H, W, 3), 0.0, 1.0)
+
+            obj_out_dir = os.path.join(output_dir, obj_name)
+            if has_output:
+                os.makedirs(obj_out_dir, exist_ok=True)
+                for i in range(n_gen_views):
+                    view = int(novel_view_idxs[i])
+                    write_png(os.path.join(obj_out_dir, "{:06}.png".format(view)),
+                              (all_rgb[i] * 255).astype(np.uint8))
+
+            curr_psnr = curr_ssim = 0.0
+            if not args.no_compare_gt:
+                rgb_gt_all = (images * 0.5 + 0.5)[target_view_mask]
+                for view_idx in range(n_gen_views):
+                    curr_ssim += metrics.ssim(all_rgb[view_idx], rgb_gt_all[view_idx],
+                                              data_range=1.0)
+                    curr_psnr += metrics.psnr(all_rgb[view_idx], rgb_gt_all[view_idx])
+                    if args.write_compare and has_output:
+                        out_im = np.hstack((all_rgb[view_idx], rgb_gt_all[view_idx]))
+                        write_png(os.path.join(obj_out_dir, "{:06}_compare.png".format(
+                            int(novel_view_idxs[view_idx]))), (out_im * 255).astype(np.uint8))
+            curr_psnr /= n_gen_views
+            curr_ssim /= n_gen_views
+            total_psnr += curr_psnr
+            total_ssim += curr_ssim
+            cnt += 1
+            rendered.append((obj_name, curr_psnr, curr_ssim))
+            if not args.no_compare_gt:
+                print("curr psnr", curr_psnr, "ssim", curr_ssim, "running psnr", total_psnr / cnt,
+                      "running ssim", total_ssim / cnt)
+            if finish_file is not None:
+                finish_file.write(f"{obj_name} {curr_psnr} {curr_ssim} 1\n")
+    finally:
+        if finish_file is not None:
+            finish_file.close()
+
+    if cnt > 0:
+        print("final psnr", total_psnr / cnt, "ssim", total_ssim / cnt)
+    return {"objects": rendered, "psnr": total_psnr / cnt if cnt else float("nan"),
+            "ssim": total_ssim / cnt if cnt else float("nan"), "cnt": cnt}
+
+
+if __name__ == "__main__":
+    main()

@@ -13,6 +13,12 @@ The feature lookup takes one of two routes, chosen as in the JAX package
 :class:`~..ops.resnetfc_fused.LatentGather`, or gathered densely first.
 Training builds the model with ``diff_mode=True``, which keeps every field
 input dense so the field stays differentiable on the kernel route.
+
+With ``PIXELNERF_DEFER_CODE=1`` (read per call; off by default, as in the
+JAX package) an eval query hands the field the raw coordinates and the flat
+code arrays as a :class:`~..ops.resnetfc_fused.RawCode`: the forward kernels
+evaluate the positional code in-register, and the plain route materializes
+the same math.
 """
 
 from __future__ import annotations
@@ -26,13 +32,19 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config.hocon import ConfigTree
-from ..ops.resnetfc_fused import LatentGather, supports
+from ..ops.resnetfc_fused import LatentGather, RawCode, supports
 from ..utils.geometry import invert_poses, repeat_interleave
 from .code import PositionalEncoding
 from .encoder import SpatialEncoder
 from .resnetfc import ResnetFC
 
 _NOT_PORTED = "not ported yet (ROADMAP.md)"
+
+
+def _defer_code_enabled() -> bool:
+    """Whether query passes the positional code as a deferred RawCode
+    (opt-in via ``PIXELNERF_DEFER_CODE=1``, read on every call)."""
+    return os.environ.get("PIXELNERF_DEFER_CODE", "0") == "1"
 
 
 @dataclasses.dataclass
@@ -260,21 +272,31 @@ class PixelNeRFNet(nn.Module):
 
         mlp_input = None
         if self.d_in > 0:
+            # training keeps the code dense: the deferred code has no backward
+            defer_code = self.use_code and _defer_code_enabled() and not self.diff_mode
             if self.use_xyz:
                 z_feature = xyz_rot if self.normalize_z else xyz_cam
             else:
                 src = xyz_rot if self.normalize_z else xyz_cam
                 z_feature = -src[..., 2:3]
-            if self.use_code and not self.use_code_viewdirs:
+            if self.use_code and not self.use_code_viewdirs and not defer_code:
                 z_feature = self.code(z_feature)
             if self.use_viewdirs:
                 assert viewdirs is not None
                 vd = repeat_interleave(viewdirs.float(), NS)
                 vd = torch.einsum("nij,nbj->nbi", rot, vd)
                 z_feature = torch.cat([z_feature, vd], dim=-1)
-            if self.use_code and self.use_code_viewdirs:
+            if self.use_code and self.use_code_viewdirs and not defer_code:
                 z_feature = self.code(z_feature)
-            mlp_input = z_feature
+            if defer_code:
+                # the raw (~6 column) features and the flat code arrays; a
+                # viewdir tail after the code rides the same select matrix,
+                # so the layout equals [code(x), vd]
+                tail = 3 if (self.use_viewdirs and not self.use_code_viewdirs) else 0
+                mlp_input = RawCode(z_feature, *(torch.from_numpy(a).to(xyz.device)
+                                                 for a in self.code.flat_arrays(tail=tail)))
+            else:
+                mlp_input = z_feature
 
         latent = None
         if self.use_encoder:
@@ -308,9 +330,16 @@ class PixelNeRFNet(nn.Module):
                 if is_gather or latent is None
                 else latent[..., :0]
             )
-        flat_x = mlp_input.reshape(-1, mlp_input.shape[-1])
-        if compute_dtype is not None:
-            flat_x = flat_x.to(compute_dtype)
+        if isinstance(mlp_input, RawCode):
+            # the raw coordinates are never cast: rounding them to bf16 before
+            # the sin is ~0.4 rad of phase at the top frequency.  Under AMP
+            # the marker casts the f32-encoded output instead.
+            flat_x = mlp_input._replace(x=mlp_input.x.reshape(-1, mlp_input.x.shape[-1]),
+                                        cd=compute_dtype)
+        else:
+            flat_x = mlp_input.reshape(-1, mlp_input.shape[-1])
+            if compute_dtype is not None:
+                flat_x = flat_x.to(compute_dtype)
         if is_gather:
             flat_z = LatentGather(
                 latent.table if compute_dtype is None else latent.table.to(compute_dtype),
@@ -323,7 +352,7 @@ class PixelNeRFNet(nn.Module):
                 flat_z = flat_z.to(compute_dtype)
         else:
             flat_z = None
-        arg = (flat_z, flat_x) if flat_z is not None else flat_x
+        arg = (flat_z, flat_x) if flat_z is not None or isinstance(flat_x, RawCode) else flat_x
         mlp = self.mlp_coarse if (coarse or self.mlp_fine is None) else self.mlp_fine
         out = mlp(arg, combine_inner_dims=(NS, B), planar_out=planar_out).float()
 

@@ -15,8 +15,10 @@ reference torch module: ``lin_in``, ``lin_z.{k}``, ``blocks.{k}.fc_0/fc_1``,
   CPU tensors their plain f32 versions run instead); a config outside the
   kernels' envelope raises.  Dense inputs go through
   :class:`..ops.resnetfc_vjp.ResnetFCFunction`, so the same call serves eval
-  and training (its backward is a kernel too); the fused-gather input is
-  eval-only, as in the JAX package, and raises under grad;
+  and training (its backward is a kernel too); the deferred inputs -- a
+  fused-gather latent, a deferred positional code
+  (:class:`~..ops.resnetfc_fused.RawCode`) -- are eval-only, as in the JAX
+  package, and raise under grad;
 * ``"auto"``: the kernels for CUDA tensors inside the envelope, the plain
   forward otherwise.
 
@@ -64,20 +66,6 @@ class ResnetBlockFC(nn.Module):
         dx = self.fc_1(self.act(net))
         x_s = x if self.shortcut is None else self.shortcut(x)
         return x_s + dx
-
-
-def materialize_gather(g: rf.LatentGather) -> torch.Tensor:
-    """Resolve a LatentGather to dense (B, C) features in the table's dtype.
-    A per-view ``(NS, T, C)`` table takes view-major idx/w."""
-    table, idx = g.table, g.idx.long()
-    if table.ndim == 3:
-        NS, T, C = table.shape
-        B = idx.shape[0] // NS
-        offs = (torch.arange(NS, device=idx.device) * T)[:, None, None]
-        idx = (idx.reshape(NS, B, -1) + offs).reshape(NS * B, -1)
-        table = table.reshape(NS * T, C)
-    rows = table[idx.reshape(-1)].reshape(idx.shape + (table.shape[-1],))  # (B, taps, C)
-    return torch.sum(rows * g.w[..., None].to(rows.dtype), dim=-2)
 
 
 class ResnetFC(nn.Module):
@@ -174,21 +162,35 @@ class ResnetFC(nn.Module):
         else:
             z, x = zx[..., : self.d_latent], zx[..., self.d_latent :]
             z = z if self.d_latent > 0 else None
-        x = x.reshape(-1, x.shape[-1]).float().contiguous()
-        device = x.device
+        gather, raw = isinstance(z, rf.LatentGather), isinstance(x, rf.RawCode)
+        if (gather or raw) and torch.is_grad_enabled() and (
+            any(p.requires_grad for p in self.parameters())
+            or (gather and z.table.requires_grad)
+            or (z is not None and not gather and z.requires_grad)
+            or (raw and x.x.requires_grad)
+        ):
+            # as in the JAX package, the fused-gather and deferred-code
+            # kernels have no backward; training keeps the inputs dense
+            # (diff_mode)
+            raise RuntimeError(
+                "the fused-gather and deferred-code routes are eval-only: run them under "
+                "torch.no_grad(), or build the model with diff_mode=True for training"
+            )
+        if raw:
+            if x.w.shape[-1] != self.d_in:
+                raise ValueError(
+                    f"RawCode encodes {x.w.shape[-1]} columns, lin_in takes {self.d_in}")
+            device = x.x.device
+            x = rf.RawCode(x.x.reshape(-1, x.x.shape[-1]).float().contiguous(),
+                           *(t.to(device=device, dtype=torch.float32).contiguous()
+                             for t in (x.w, x.f, x.p, x.m)))
+        else:
+            x = x.reshape(-1, x.shape[-1]).float().contiguous()
+            device = x.device
         tower = self.tower(device)
         NS, B = combine_inner_dims
-        sb = x.shape[0] // (NS * B)  # outer object superbatch (train: SB objects)
-        if isinstance(z, rf.LatentGather):
-            if torch.is_grad_enabled() and (
-                z.table.requires_grad or any(p.requires_grad for p in self.parameters())
-            ):
-                # as in the JAX package, the fused-gather kernel has no
-                # backward; training keeps the latent dense (diff_mode)
-                raise RuntimeError(
-                    "the fused-gather route is eval-only: run it under torch.no_grad(), "
-                    "or build the model with diff_mode=True for training"
-                )
+        sb = rf.coords(x).shape[0] // (NS * B)  # outer object superbatch (train: SB objects)
+        if gather:
             if z.table.ndim != (2 if NS == 1 else 3):
                 raise ValueError(f"the fused gather at NS={NS} needs "
                                  f"{'a (T, C) table' if NS == 1 else '(NS, T, C) tables'}")
@@ -207,6 +209,11 @@ class ResnetFC(nn.Module):
             if z is not None:
                 z = z.reshape(-1, self.d_latent)
                 z = (z.float() if device.type == "cpu" else z.to(torch.bfloat16)).contiguous()
+            if raw:  # eval-only: the forward kernels, no autograd Function
+                if NS == 1:
+                    return rf.resnetfc_dense(z, x, tower, self.n_blocks, planar_out)[None]
+                return rf.resnetfc_dense_mv(z, x, tower, self.n_blocks, NS, self.combine_layer, sb,
+                                            planar_out)[None]
             params = dict(self.named_parameters())
             names = rfv.param_names(self.d_in, self.n_lin_z, self.n_blocks)
             cfg = (self.d_in, self.n_blocks, self.n_lin_z, planar_out, NS, sb,
@@ -217,27 +224,24 @@ class ResnetFC(nn.Module):
     def forward(self, zx, combine_inner_dims: Sequence[int] = (1,), planar_out: bool = False):
         """:param zx: (..., d_latent + d_in), latent first; or a tuple ``(z, x)``
         with ``z`` a dense latent, a :class:`~..ops.resnetfc_fused.LatentGather`
-        or None
+        or None, and ``x`` the coordinate code or a
+        :class:`~..ops.resnetfc_fused.RawCode`
         :param combine_inner_dims: (NS, B) for the multi-view combination
         :param planar_out: return channel-major (..., d_out, N)
         """
         parts = zx if type(zx) is tuple else None
-        device = (parts[1] if parts is not None else zx).device
+        device = (rf.coords(parts[1]) if parts is not None else zx).device
         if self._kernel_route(combine_inner_dims, device):
             return self._kernel_forward(zx, tuple(combine_inner_dims), planar_out)
 
         dt = self.lin_out.weight.dtype
         if parts is not None:
-            z, x = parts
-            if isinstance(z, rf.LatentGather):
-                z = materialize_gather(z)
+            # deferred inputs resolved, one bf16 side making both bf16
+            z, x = rf.materialize_parts(*parts)
         elif self.d_latent > 0:
             z, x = zx[..., : self.d_latent], zx[..., self.d_latent :]
         else:
             z, x = None, zx
-        if z is not None and z.dtype != x.dtype and torch.bfloat16 in (z.dtype, x.dtype):
-            # one bf16 side makes both bf16, as the JAX materialize_parts does
-            z, x = z.to(torch.bfloat16), x.to(torch.bfloat16)
         # inputs promote to the parameters' dtype, as flax Dense promotes them
         z = z.to(dt) if z is not None else None
         x = x.to(dt)

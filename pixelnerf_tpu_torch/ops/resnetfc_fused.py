@@ -14,6 +14,13 @@ Counterpart of ``pixelnerf_tpu/ops/resnetfc_pallas.py``:
   ``_kernel_2d_mv_gather``: the same with view v's lookup into table v of an
   ``(NS, T, C)`` stack.
 
+Each takes its coordinate input ``x`` either encoded (a tensor) or as a
+:class:`RawCode`, the deferred positional code: the kernel's CODE variant
+then evaluates the code of the raw coordinates while it loads each tile, the
+port of ``_x_feat`` (``fused_code``), and the launch counts under the entry
+point's name with ``_code`` appended.  The deferred code is eval-only, as in
+the JAX package: it has no backward.
+
 All four live in ``csrc/resnetfc_fwd.cu``, which also notes what bounds them; the
 tower itself is in ``csrc/resnetfc_tower.cuh``, which the backward
 (``csrc/resnetfc_bwd.cu``, :mod:`.resnetfc_vjp`) shares.  Each source is
@@ -33,7 +40,8 @@ there is no fallback.  :func:`resnetfc_reference` and
 :func:`gather_reference` with ``compute_dtype=torch.bfloat16`` round at the
 kernel's points (inputs, every relu output and z to bf16, products in f32; the
 view mean an f32 sum in view order times 1 / NS) and are what the on-card
-checks compare the kernels with.
+checks compare the kernels with; a :class:`RawCode` is evaluated in f32 there
+and rounded only after the sin, as the kernel does.
 """
 
 from __future__ import annotations
@@ -44,7 +52,7 @@ import os
 import shutil
 import subprocess
 from pathlib import Path
-from typing import NamedTuple, Optional
+from typing import NamedTuple, Optional, Union
 
 import torch
 
@@ -63,8 +71,9 @@ HIDDEN = 512
 
 # kernel launches per entry point; chip_smoke.py zeroes these around a run to
 # show that the run went through the kernels
-LAUNCHES = {"resnetfc_fwd_dense": 0, "resnetfc_fwd_gather": 0,
-            "resnetfc_fwd_dense_mv": 0, "resnetfc_fwd_gather_mv": 0}
+ENTRY_POINTS = ("resnetfc_fwd_dense", "resnetfc_fwd_gather", "resnetfc_fwd_dense_mv",
+                "resnetfc_fwd_gather_mv")
+LAUNCHES = {name + suffix: 0 for suffix in ("", "_code") for name in ENTRY_POINTS}
 _LIB: Optional[ctypes.CDLL] = None
 
 
@@ -80,6 +89,70 @@ class LatentGather(NamedTuple):
     table: torch.Tensor  # (T, C), or (NS, T, C) per-view tables
     idx: torch.Tensor  # (B, taps) int32 flat row indices, columns 0..3 used
     w: torch.Tensor  # (B, taps) f32 weights (0 for padding taps)
+
+
+class RawCode(NamedTuple):
+    """A deferred positional code (same contract as the JAX package's
+    ``RawCode``): the raw per-view coordinate features and the flat code
+    arrays of :meth:`..models.code.PositionalEncoding.flat_arrays`, encoding
+    to ``xg = x @ w; where(m > 0, sin(xg * f + p), xg)``."""
+
+    x: torch.Tensor  # (B, d_raw) raw coordinate features (f32: never rounded before the sin)
+    w: torch.Tensor  # (d_raw, d_code) channel-select matrix
+    f: torch.Tensor  # (d_code,) per-column frequency (1 for passthrough)
+    p: torch.Tensor  # (d_code,) per-column phase
+    m: torch.Tensor  # (d_code,) 1.0 where the sin applies, 0.0 passthrough
+    # the compute dtype under AMP: the bounded encoded output is cast to it
+    cd: Optional[torch.dtype] = None
+
+
+def materialize_code(rc: RawCode) -> torch.Tensor:
+    """Resolve a RawCode to the dense encoded (B, d_code) code.  The select
+    product (an f32 sum over the raw columns in order, as the kernel takes
+    it) and the sin always run in f32; only the result is cast, to ``cd``
+    when given, else to the raw coordinates' dtype."""
+    x, w = rc.x.float(), rc.w.float()
+    xg = x[..., 0:1] * w[0]
+    for j in range(1, w.shape[0]):
+        xg = xg + x[..., j : j + 1] * w[j]
+    enc = torch.sin(xg * rc.f.float() + rc.p.float())
+    out = torch.where(rc.m > 0, enc, xg)
+    return out.to(rc.cd if rc.cd is not None else rc.x.dtype)
+
+
+def materialize_gather(g: LatentGather) -> torch.Tensor:
+    """Resolve a LatentGather to dense (B, C) features in the table's dtype.
+    A per-view ``(NS, T, C)`` table takes view-major idx/w."""
+    table, idx = g.table, g.idx.long()
+    if table.ndim == 3:
+        NS, T, C = table.shape
+        B = idx.shape[0] // NS
+        offs = (torch.arange(NS, device=idx.device) * T)[:, None, None]
+        idx = (idx.reshape(NS, B, -1) + offs).reshape(NS * B, -1)
+        table = table.reshape(NS * T, C)
+    rows = table[idx.reshape(-1)].reshape(idx.shape + (table.shape[-1],))  # (B, taps, C)
+    return torch.sum(rows * g.w[..., None].to(rows.dtype), dim=-2)
+
+
+def materialize_parts(z, x):
+    """Resolve deferred field inputs (a LatentGather latent, a RawCode code)
+    to dense tensors and unify their dtypes the AMP way, as the JAX
+    ``materialize_parts``: one bf16 side makes both bf16 (the code is still
+    evaluated in f32 and only its bounded output is cast)."""
+    if isinstance(x, RawCode):
+        x = materialize_code(x)
+    if isinstance(z, LatentGather):
+        z = materialize_gather(z)
+    if z is not None and z.dtype != x.dtype:
+        dt = torch.bfloat16 if torch.bfloat16 in (z.dtype, x.dtype) else x.dtype
+        z, x = z.to(dt), x.to(dt)
+    return z, x
+
+
+def coords(x) -> torch.Tensor:
+    """The coordinate tensor of a field input: the encoded code itself, or a
+    RawCode's raw coordinates (its rows and device are the input's)."""
+    return x.x if isinstance(x, RawCode) else x
 
 
 class Tower(NamedTuple):
@@ -203,7 +276,8 @@ def resnetfc_reference(z, x, tower: Tower, n_blocks: int, planar_out: bool = Tru
     """Plain tower: ``compute_dtype`` operands, f32 products and biases.
 
     :param z: (NS * B, C) latent or None when there is no latent injection
-    :param x: (NS * B, d_in) coordinate code; rows object-major when NS > 1
+    :param x: (NS * B, d_in) coordinate code, or a RawCode of NS * B rows
+        (evaluated in f32); rows object-major when NS > 1
     :param NS, sb, combine_layer: views, objects, and the block at which the
         views' mean replaces them (needed when NS > 1)
     :return: (d_out, B) when ``planar_out`` else (B, d_out), f32
@@ -214,6 +288,8 @@ def resnetfc_reference(z, x, tower: Tower, n_blocks: int, planar_out: bool = Tru
 
     pre = blocks_per_view(n_blocks, NS, combine_layer)
     n_lin_z = tower.w_z.shape[0]
+    if isinstance(x, RawCode):
+        x = materialize_code(x._replace(cd=torch.float32))
     h = rnd(x) @ rnd(tower.w_in[: tower.d_in]) + tower.b_in
     zc = rnd(z) if n_lin_z > 0 else None
     for k in range(n_blocks):
@@ -299,12 +375,13 @@ def _lib() -> ctypes.CDLL:
     if _LIB is None:
         lib = ctypes.CDLL(str(build("fwd").library))
         P, I = ctypes.c_void_p, ctypes.c_int
-        tower_args = [P] * 9 + [P] + [I] * 9 + [P]  # weights, out, dims, stream
-        lib.resnetfc_fwd_dense.argtypes = [P] + tower_args
+        tower_args = [P] * 9 + [P] + [I] * 9  # x, weights, out, dims
+        code_args = [P] * 4 + [I] + [P]  # code w, f, p, m, d_raw; stream
+        lib.resnetfc_fwd_dense.argtypes = [P] + tower_args + code_args
         lib.resnetfc_fwd_dense.restype = I
-        lib.resnetfc_fwd_gather.argtypes = [P, P, I, P, I] + tower_args
+        lib.resnetfc_fwd_gather.argtypes = [P, P, I, P, I] + tower_args + code_args
         lib.resnetfc_fwd_gather.restype = I
-        mv_args = tower_args[:-1] + [I, I, I, P, I] + [P]  # NS, B_obj, pre, vsum, n_ctas
+        mv_args = tower_args + [I, I, I, P, I] + code_args  # NS, B_obj, pre, vsum, n_ctas
         lib.resnetfc_fwd_dense_mv.argtypes = [P] + mv_args
         lib.resnetfc_fwd_dense_mv.restype = I
         lib.resnetfc_fwd_gather_mv.argtypes = [P, P, I, P, I] + mv_args
@@ -330,18 +407,37 @@ def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _tower_args(tower: Tower, x: torch.Tensor, n_blocks: int, planar_out: bool,
-                B: Optional[int] = None):
-    """Validate the packed weights and the code against each other; return the
-    ctypes argument tail shared by the entry points (up to the stream, which
-    the caller appends) and the output tensor for ``B`` points (default: one
-    a row of ``x``)."""
+def _code_args(x, tower: Tower):
+    """Validate the coordinate input against the packed weights; return the
+    tensor the kernel reads as ``x``, the ctypes code operands (null for an
+    encoded code) and the launch-name suffix of the variant."""
+    if not isinstance(x, RawCode):
+        _check(x, "x", torch.float32, (x.shape[0], tower.d_in))
+        return x, [None] * 4 + [0], ""
+    d_raw = x.x.shape[-1]
+    _check(x.x, "raw code x", torch.float32, (x.x.shape[0], d_raw))
+    _check(x.w, "code w", torch.float32, (d_raw, tower.d_in))
+    for name in ("f", "p", "m"):
+        _check(getattr(x, name), f"code {name}", torch.float32, (tower.d_in,))
+    if d_raw < 1:
+        raise ValueError("a RawCode needs at least one raw column")
+    if any(t.device != x.x.device for t in x[1:5]):
+        raise ValueError(f"code arrays and raw coordinates on different devices")
+    return x.x, [x.w.data_ptr(), x.f.data_ptr(), x.p.data_ptr(), x.m.data_ptr(), d_raw], "_code"
+
+
+def _tower_args(tower: Tower, x, n_blocks: int, planar_out: bool, B: Optional[int] = None):
+    """Validate the packed weights and the coordinate input (encoded, or a
+    RawCode) against each other; return the ctypes argument tail shared by
+    the entry points (up to the multi-view arguments), the code operands and
+    the stream, the output tensor for ``B`` points (default: one a row of
+    ``x``) and the launch-name suffix."""
+    x, code, suffix = _code_args(x, tower)
     kin, H = tower.w_in.shape
     n_lin_z, C = tower.w_z.shape[0], tower.w_z.shape[1]
     d_out = tower.w_out.shape[1]
     B = x.shape[0] if B is None else B
     dev = x.device
-    _check(x, "x", torch.float32, (x.shape[0], tower.d_in))
     if H != HIDDEN or C % 16 or kin % 16:
         raise ValueError(
             f"kernel widths: H must be {HIDDEN} and C, kin multiples of 16 "
@@ -368,7 +464,7 @@ def _tower_args(tower: Tower, x: torch.Tensor, n_blocks: int, planar_out: bool,
         tower.w_out.data_ptr(), tower.b_out.data_ptr(), out.data_ptr(),
         B, tower.d_in, kin, H, C, n_blocks, n_lin_z, d_out, int(planar_out),
     ]
-    return args, out, C, n_lin_z
+    return args, code + [_stream(dev)], out, C, n_lin_z, suffix
 
 
 def _stream(dev) -> int:
@@ -398,88 +494,94 @@ def _launched(name: str, err: int) -> None:
     LAUNCHES[name] += 1
 
 
-def resnetfc_dense(z: Optional[torch.Tensor], x: torch.Tensor, tower: Tower, n_blocks: int,
+Coords = Union[torch.Tensor, RawCode]
+
+
+def resnetfc_dense(z: Optional[torch.Tensor], x: Coords, tower: Tower, n_blocks: int,
                    planar_out: bool = True) -> torch.Tensor:
     """ResnetFC forward over dense latents ``z (B, C)`` (bf16; None when the
-    tower injects no latent) and code ``x (B, d_in)`` (f32).
+    tower injects no latent) and code ``x (B, d_in)`` (f32) or a RawCode of
+    ``B`` rows.
 
     :return: (d_out, B) f32 when ``planar_out`` else (B, d_out)
     """
-    if x.device.type == "cpu":
+    rows = coords(x).shape[0]
+    if coords(x).device.type == "cpu":
         return resnetfc_reference(z, x, tower, n_blocks, planar_out)
-    args, out, C, n_lin_z = _tower_args(tower, x, n_blocks, planar_out)
+    args, tail, out, C, n_lin_z, suffix = _tower_args(tower, x, n_blocks, planar_out)
     if n_lin_z > 0:
-        _check(z, "z", torch.bfloat16, (x.shape[0], C))
-    if x.shape[0] == 0:
+        _check(z, "z", torch.bfloat16, (rows, C))
+    if rows == 0:
         return out
-    err = _lib().resnetfc_fwd_dense(z.data_ptr() if n_lin_z > 0 else None, *args, _stream(x.device))
-    _launched("resnetfc_fwd_dense", err)
+    err = _lib().resnetfc_fwd_dense(z.data_ptr() if n_lin_z > 0 else None, *args, *tail)
+    _launched("resnetfc_fwd_dense" + suffix, err)
     return out
 
 
-def resnetfc_gather(idx: torch.Tensor, w: torch.Tensor, table: torch.Tensor, x: torch.Tensor,
+def resnetfc_gather(idx: torch.Tensor, w: torch.Tensor, table: torch.Tensor, x: Coords,
                     tower: Tower, n_blocks: int, planar_out: bool = True) -> torch.Tensor:
     """ResnetFC forward with the lookup ``z = sum_{j<4} w[:, j] * table[idx[:, j]]``
     fused in: ``idx (B, taps)`` int32, ``w (B, taps)`` f32, ``table (T, C)``
-    bf16, ``x (B, d_in)`` f32.
+    bf16, ``x (B, d_in)`` f32 or a RawCode of ``B`` rows.
 
     :return: (d_out, B) f32 when ``planar_out`` else (B, d_out)
     """
-    if x.device.type == "cpu":
+    rows = coords(x).shape[0]
+    if coords(x).device.type == "cpu":
         z = gather_reference(idx, w, table)
         return resnetfc_reference(z, x, tower, n_blocks, planar_out)
-    args, out, C, _ = _tower_args(tower, x, n_blocks, planar_out)
+    args, tail, out, C, _, suffix = _tower_args(tower, x, n_blocks, planar_out)
     B, taps = idx.shape
     if taps < 4:
         raise ValueError(f"need at least 4 taps, got {taps}")
-    _check(idx, "idx", torch.int32, (x.shape[0], taps))
-    _check(w, "w", torch.float32, (x.shape[0], taps))
+    _check(idx, "idx", torch.int32, (rows, taps))
+    _check(w, "w", torch.float32, (rows, taps))
     _check(table, "table", torch.bfloat16, (table.shape[0], C))
     if B == 0:
         return out
     err = _lib().resnetfc_fwd_gather(
-        idx.data_ptr(), w.data_ptr(), taps, table.data_ptr(), table.shape[0], *args,
-        _stream(x.device),
+        idx.data_ptr(), w.data_ptr(), taps, table.data_ptr(), table.shape[0], *args, *tail,
     )
-    _launched("resnetfc_fwd_gather", err)
+    _launched("resnetfc_fwd_gather" + suffix, err)
     return out
 
 
-def resnetfc_dense_mv(z: Optional[torch.Tensor], x: torch.Tensor, tower: Tower, n_blocks: int,
+def resnetfc_dense_mv(z: Optional[torch.Tensor], x: Coords, tower: Tower, n_blocks: int,
                       NS: int, combine_layer: int, sb: int = 1,
                       planar_out: bool = True) -> torch.Tensor:
     """Multi-view ResnetFC forward over dense latents ``z (SB*NS*B_obj, C)``
     (bf16; None when the tower injects no latent) and code ``x`` with the
-    same object-major rows (f32): every view through lin_in and the blocks
-    below ``combine_layer``, their mean through the rest.
+    same object-major rows (f32, or a RawCode): every view through lin_in and
+    the blocks below ``combine_layer``, their mean through the rest.
 
     :return: (d_out, SB*B_obj) f32 when ``planar_out`` else (SB*B_obj, d_out)
     """
-    B, B_obj = mv_shape(x.shape[0], NS, sb, combine_layer, n_blocks)
-    if x.device.type == "cpu":
+    rows = coords(x).shape[0]
+    B, B_obj = mv_shape(rows, NS, sb, combine_layer, n_blocks)
+    if coords(x).device.type == "cpu":
         return resnetfc_reference(z, x, tower, n_blocks, planar_out, NS=NS, sb=sb,
                                   combine_layer=combine_layer)
-    args, out, C, n_lin_z = _tower_args(tower, x, n_blocks, planar_out, B)
+    args, tail, out, C, n_lin_z, suffix = _tower_args(tower, x, n_blocks, planar_out, B)
     if n_lin_z > 0:
-        _check(z, "z", torch.bfloat16, (x.shape[0], C))
+        _check(z, "z", torch.bfloat16, (rows, C))
     if B == 0:
         return out
-    slots = view_slots(x.device)
+    slots = view_slots(out.device)
     err = _lib().resnetfc_fwd_dense_mv(
         z.data_ptr() if n_lin_z > 0 else None, *args, NS, B_obj, combine_layer,
-        slots.data_ptr(), slots.shape[0], _stream(x.device),
+        slots.data_ptr(), slots.shape[0], *tail,
     )
-    _launched("resnetfc_fwd_dense_mv", err)
+    _launched("resnetfc_fwd_dense_mv" + suffix, err)
     return out
 
 
-def resnetfc_gather_mv(idx: torch.Tensor, w: torch.Tensor, tables: torch.Tensor, x: torch.Tensor,
+def resnetfc_gather_mv(idx: torch.Tensor, w: torch.Tensor, tables: torch.Tensor, x: Coords,
                        tower: Tower, n_blocks: int, combine_layer: int,
                        planar_out: bool = True) -> torch.Tensor:
     """Multi-view ResnetFC forward of one object with view v's lookup
     ``z = sum_{j<4} w[:, j] * tables[v][idx[:, j]]`` fused in: ``tables
     (NS, T, C)`` bf16, ``idx (NS*B, taps)`` int32 and ``w (NS*B, taps)`` f32
-    view-major, ``x (NS*B, d_in)`` f32 in the same rows.
+    view-major, ``x (NS*B, d_in)`` f32 (or a RawCode) in the same rows.
 
     :return: (d_out, B) f32 when ``planar_out`` else (B, d_out)
     """
@@ -487,24 +589,25 @@ def resnetfc_gather_mv(idx: torch.Tensor, w: torch.Tensor, tables: torch.Tensor,
         raise ValueError(
             f"the multi-view gather needs (NS, T, C) tables, got {tuple(tables.shape)}")
     NS = tables.shape[0]
-    B, _ = mv_shape(x.shape[0], NS, 1, combine_layer, n_blocks)
-    if x.device.type == "cpu":
+    rows = coords(x).shape[0]
+    B, _ = mv_shape(rows, NS, 1, combine_layer, n_blocks)
+    if coords(x).device.type == "cpu":
         z = gather_reference(idx, w, tables)
         return resnetfc_reference(z, x, tower, n_blocks, planar_out, NS=NS,
                                   combine_layer=combine_layer)
-    args, out, C, _ = _tower_args(tower, x, n_blocks, planar_out, B)
+    args, tail, out, C, _, suffix = _tower_args(tower, x, n_blocks, planar_out, B)
     taps = idx.shape[1]
     if taps < 4:
         raise ValueError(f"need at least 4 taps, got {taps}")
-    _check(idx, "idx", torch.int32, (x.shape[0], taps))
-    _check(w, "w", torch.float32, (x.shape[0], taps))
+    _check(idx, "idx", torch.int32, (rows, taps))
+    _check(w, "w", torch.float32, (rows, taps))
     _check(tables, "tables", torch.bfloat16, (NS, tables.shape[1], C))
     if B == 0:
         return out
-    slots = view_slots(x.device)
+    slots = view_slots(out.device)
     err = _lib().resnetfc_fwd_gather_mv(
         idx.data_ptr(), w.data_ptr(), taps, tables.data_ptr(), tables.shape[1], *args, NS, B,
-        combine_layer, slots.data_ptr(), slots.shape[0], _stream(x.device),
+        combine_layer, slots.data_ptr(), slots.shape[0], *tail,
     )
-    _launched("resnetfc_fwd_gather_mv", err)
+    _launched("resnetfc_fwd_gather_mv" + suffix, err)
     return out

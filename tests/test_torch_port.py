@@ -1,7 +1,8 @@
-"""The port's boundaries: it imports nothing of JAX or the JAX package, its
-entry points run on the card unless asked for the CPU, ``chip_smoke.py``
-refuses to run without a card, the sn64 entry renders end to end on the CPU,
-and the backbone weights follow the JAX package's contract."""
+"""The port's boundaries: it imports nothing of JAX, the JAX package or the
+repository's root ``eval`` scripts, its entry points run on the card unless
+asked for the CPU, ``chip_smoke.py`` refuses to run without a card, the sn64
+entry renders end to end on the CPU, and the backbone weights follow the JAX
+package's contract."""
 
 import ast
 import os
@@ -20,7 +21,7 @@ from pixelnerf_tpu_torch.utils.jax_convert import load_pretrained_backbone
 
 ROOT = Path(__file__).resolve().parent.parent
 PORT_FILES = sorted((ROOT / "pixelnerf_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
-FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "pixelnerf_tpu"}
+FORBIDDEN = {"jax", "jaxlib", "flax", "optax", "pixelnerf_tpu", "eval"}  # eval: the root scripts
 
 
 def test_port_sources_import_no_jax():
