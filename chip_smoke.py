@@ -7,7 +7,10 @@ one line each:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile every kernel from ``pixelnerf_tpu_torch/csrc``, one
-   ``nvcc`` per source, all at once; ptxas registers and spills per kernel;
+   ``nvcc`` per source, all at once; ptxas registers and spills per kernel,
+   the backward library's ``HGMMA`` / ``UTMALDG`` / ``HMMA`` counts per
+   kernel (``cuobjdump -sass``) and the weights kernel's shared memory; the
+   weights kernel must be a wgmma + TMA kernel with no wmma product;
 3. kernel checks: each forward kernel against its plain PyTorch version at
    the main paths' shapes (one ray chunk x 64 and x 96 samples; the
    single-view kernels on a 1024 x 512 table, the multi-view gather at NS 2
@@ -39,9 +42,13 @@ one line each:
    x 96 samples, at -V 1 and at -V 3): the kernels' stashed forward operands
    against the plain recompute, every output (dz, dx, each dW and db) against
    the plain backward walked through the same operands at the bar above, and
-   against the fully independent plain backward at ``corr > 0.999``; two
-   calls must be bit-identical; times beside the plain version's, the
-   autograd backward of the cuBLAS chain and the bound;
+   against the fully independent plain backward at ``corr > 0.999``; the
+   weights kernel alone against ``bwd_weights_reference`` on its own DataOut
+   at the bar; two calls must be bit-identical; each kernel's time beside
+   its plain version's, its yardstick (the data kernel: the autograd
+   backward of the cuBLAS chain; the weights kernel: one cuBLAS bf16
+   ``A^T G`` per product) and its bound, and the weights kernel's TFLOP/s,
+   its host time a call and its time at 1-24 splits of its point axis;
 9. train-step parity at -V 1 and at -V 3: one sn64 step on the kernel route
    (AMP) and one on the plain f32 route from the same weights, batch and
    draws: losses within 1%, ``grad_norm`` within 2%, cosine >= 0.99 between
@@ -157,19 +164,26 @@ TEMPLATE_ARGS = {"resnetfc_fwd_kernel": ("GATHER", "MV", "CODE"),
                  "resnetfc_bwd_data_kernel": ("MV",)}
 
 
+def kernel_name(mangled: str) -> str:
+    """kernel<args> from a mangled entry name (the anonymous namespace's
+    mangled name holds the file name too)."""
+    k = re.search(r"\d(resnetfc_[a-z_]+_kernel)(I(?:Lb[01]E)+E)?", mangled)
+    base = k.group(1) if k else mangled
+    bools = re.findall(r"Lb([01])E", k.group(2) or "") if k else []
+    args = ",".join(f"{a}={b}" for a, b in zip(TEMPLATE_ARGS.get(base, ()), bools))
+    return f"{base}<{args}>" if args else base
+
+
 def ptxas_summary(log: str) -> dict:
     """{kernel<args>: "N registers, S B spill stores, L B spill loads"} from
-    nvcc's ``-Xptxas -v`` output."""
+    nvcc's ``-Xptxas -v`` output, with any ptxas warning about the kernel."""
     out, name, spill = {}, None, ""
     for ln in log.splitlines():
         m = re.search(r"Compiling entry function '([^']+)'", ln)
         if m:
-            # the anonymous namespace's mangled name holds the file name too
-            k = re.search(r"\d(resnetfc_[a-z_]+_kernel)(I(?:Lb[01]E)+E)?", m.group(1))
-            base = k.group(1) if k else m.group(1)
-            bools = re.findall(r"Lb([01])E", k.group(2) or "") if k else []
-            args = ",".join(f"{a}={b}" for a, b in zip(TEMPLATE_ARGS.get(base, ()), bools))
-            name = f"{base}<{args}>" if args else base
+            name = kernel_name(m.group(1))
+        elif "warning" in ln and name and name in out:
+            out[name] += f"; {ln.strip()}"
         elif "spill stores" in ln:
             spill = ln.strip()
         elif "Used" in ln and "registers" in ln and name:
@@ -179,6 +193,29 @@ def ptxas_summary(log: str) -> dict:
             out[name] = (f"{regs} registers, {st.group(1) if st else '?'} B spill stores, "
                          f"{ld.group(1) if ld else '?'} B spill loads")
             name, spill = None, ""
+    return out
+
+
+def sass_counts(library) -> dict:
+    """{kernel<args>: {"HGMMA": n, "UTMALDG": n, "HMMA": n}}: the warpgroup
+    products, the TMA loads and the warp-level (wmma) products in each
+    kernel's SASS (``cuobjdump -sass`` beside nvcc), or {} without it."""
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+
+    tool = os.path.join(os.path.dirname(rf._nvcc()), "cuobjdump")
+    if not os.path.exists(tool):
+        return {}
+    sass = subprocess.run([tool, "-sass", str(library)], capture_output=True, text=True,
+                          timeout=300, check=True).stdout
+    out, name = {}, None
+    for ln in sass.splitlines():
+        m = re.search(r"Function : (\S+)", ln)
+        if m:
+            name = kernel_name(m.group(1))
+            out[name] = {"HGMMA": 0, "UTMALDG": 0, "HMMA": 0}
+        elif name:
+            for op in out[name]:
+                out[name][op] += bool(re.search(rf"\b{op}\b", ln))
     return out
 
 
@@ -226,6 +263,10 @@ def main() -> None:
     # ---- build ----
     t0 = time.perf_counter()
     builds = rf.build_all()
+    from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
+
+    sass = sass_counts(builds["bwd"].library)
+    w_sass = sass.get("resnetfc_bwd_weights_kernel", {})
     log("build: " + json.dumps({
         "kernels": list(rf.LAUNCHES) + ["resnetfc_bwd_data", "resnetfc_bwd_weights"],
         "sources": [str(rf.SOURCES[n].relative_to(rf.CSRC.parent.parent)) for n in builds],
@@ -233,7 +274,11 @@ def main() -> None:
         "compiled": {n: b.compiled for n, b in builds.items()},
         "seconds": round(time.perf_counter() - t0, 3),
         "ptxas": {n: ptxas_summary(b.log) for n, b in builds.items()},
+        "sass": {"bwd": sass},
+        "resnetfc_bwd_weights_kernel smem bytes": rv._lib().resnetfc_bwd_weights_smem_bytes(),
     }))
+    if not (w_sass.get("HGMMA") and w_sass.get("UTMALDG") and w_sass.get("HMMA") == 0):
+        raise SystemExit(f"resnetfc_bwd_weights_kernel is not a wgmma + TMA kernel: {w_sass}")
 
     # ---- the main path's model: full sn64 width, seeded, every block live ----
     conf = entry.load_conf(pretrained=False)
@@ -637,11 +682,9 @@ def main() -> None:
         code_records[cname]["launches"] = defer_launches[cname]
 
     # ---- backward kernel checks at the train step's shapes, -V 1 and -V 3 ----
-    from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
-
     records.update({"resnetfc_bwd_data": {}, "resnetfc_bwd_weights": {}})
     # the backward's two kernels and the step's dense forward, per (views, pass shape)
-    bwd_ms, fwd_ms = {}, {}
+    bwd_ms, fwd_ms, weights_ms_at = {}, {}, {}
     for NS, K in ((1, 64), (1, 96), (3, 64), (3, 96)):
         sb, B_obj = 4, 128 * K  # -B 4 objects x -R 128 rays x samples
         B = sb * B_obj
@@ -685,13 +728,63 @@ def main() -> None:
                 f"bar {bar1:.6g}, corr {c1:.7f}; vs independent plain max|d| {d2:.6g} "
                 f"(bar {bar2:.6g}), corr {c2:.7f}{'' if fine else '  FAILED'}")
         del same, ind
+        # the weights kernel alone against its plain version on its own DataOut
+        wref = rv.bwd_weights_reference(z, data, tw, nb)
+        for name in ("w_in", "b_in", "w_z", "b_z", "w_blk", "b_blk", "w_out", "b_out"):
+            out = getattr(gr, name).float()
+            d1, bar1, c1 = agree(out, getattr(wref, name))
+            fine = d1 <= bar1 and c1 > 0.999
+            ok = ok and fine
+            err["resnetfc_bwd_weights"] = max(err["resnetfc_bwd_weights"], d1)
+            log(f"  {name}: resnetfc_bwd_weights vs bwd_weights_reference on the same DataOut "
+                f"max|d| {d1:.6g} <= bar {bar1:.6g}, corr {c1:.7f}{'' if fine else '  FAILED'}")
+        del wref
         gr2 = rv.bwd_weights(z, rv.bwd_data(g, z, x, tw, nb, True, **kw), tw, nb)
         identical = all(torch.equal(getattr(gr, n), getattr(gr2, n)) for n in rv.Grads._fields)
         del gr2
         data_ms = cuda_ms(lambda: rv.bwd_data(g, z, x, tw, nb, False, **kw), 5)
         weights_ms = cuda_ms(lambda: rv.bwd_weights(z, data, tw, nb), 5)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(5):  # the wrapper's host time a call (launch included), no sync
+            rv.bwd_weights(z, data, tw, nb)
+        weights_host_ms = (time.perf_counter() - t0) / 5 * 1e3
+        torch.cuda.synchronize()
+        rv._PARAMS.clear()  # once more with the tensor maps encoded anew
+        t0 = time.perf_counter()
+        rv.bwd_weights(z, data, tw, nb)
+        weights_host_new_ms = (time.perf_counter() - t0) * 1e3
+        torch.cuda.synchronize()
+        # the weights kernel at other splits of the point axis than the wrapper's
+        kin, P_max = tw.w_in.shape[0], data.ws_x.shape[0]
+        lim = rv.kernel_limits()
+        chosen = rv.weight_plan(kin, H, C, nb, n_lin_z, NS, data.pre, B, lim)
+        sweep = {}
+        for S in (1, 2, 3, 4, 6, 8, 12, 16, 24):
+            plan = rv.weight_plan(kin, H, C, nb, n_lin_z, NS, data.pre, B, lim,
+                                  pts=-(-P_max // (64 * S)) * 64)
+            ctas = sum(plan.table[6 * i + 4] * rv.weight_tiles(t, H, lim) for i, t in
+                       enumerate(rv.weight_tasks(kin, H, C, nb, n_lin_z, NS, data.pre, B)))
+            ms = cuda_ms(lambda: rv._launch_weights(z, data, plan, kin, H, C, nb, n_lin_z,
+                                                    d_out), 5)
+            sweep[S] = (plan.pts, ctas, ms)
+        log(f"backward check {shape}: resnetfc_bwd_weights by splits of the longest product "
+            f"(points a split, CTAs, ms): {json.dumps(sweep)}; the wrapper's choice "
+            f"{chosen.pts} points (one view's), fastest "
+            f"swept {min(sweep.values(), key=lambda v: v[2])[0]} points")
         plain_ms = cuda_ms(lambda: rv.resnetfc_bwd_reference(g, z, x, tw, nb, False,
                                                               torch.bfloat16, **kw), 2)
+        # each kernel's own plain version: the workspace in plain form, and
+        # the weight products over the kernel's DataOut
+        plain_data_ms = cuda_ms(lambda: rv.workspace_reference(g, z, x, tw, nb, **kw), 2)
+        plain_weights_ms = cuda_ms(lambda: rv.bwd_weights_reference(z, data, tw, nb), 2)
+        # the weights kernel's yardstick: one cuBLAS bf16 A^T G per product
+        # over the same planes (the port never calls it)
+        w_ops = [rv.task_operands(t, z, data)
+                 for t in rv.weight_tasks(tw.w_in.shape[0], H, C, nb, n_lin_z, NS, data.pre, B)]
+        library_weights_ms = cuda_ms(
+            lambda: [torch.matmul(a.t(), gg[: a.shape[0]]) for a, gg in w_ops], 5)
+        del w_ops
         leaves = [t.detach().bfloat16().requires_grad_() for t in tw[:8]]
         with torch.enable_grad():
             if NS == 1:
@@ -712,25 +805,39 @@ def main() -> None:
         b_weights = bound(B * f_pt, ws + rows * C * 2 + 2 * w_bytes)
         b_fn, b_fn_by = bound(B * 3 * f_pt, io_bytes + rows * (C * 2 + d_in * 4) + 2 * w_bytes)
         bwd_ms[(NS, K)] = data_ms + weights_ms
+        weights_ms_at[(NS, K)] = weights_ms
         with torch.no_grad():
             fwd_ms[(NS, K)] = cuda_ms(
                 (lambda: rf.resnetfc_dense(z, x, tw, nb)) if NS == 1
                 else (lambda: rf.resnetfc_dense_mv(z, x, tw, nb, NS, cl, sb)), 5)
+        w_tflops = B * f_pt / weights_ms / 1e9
         log(f"backward check {shape}: bit-identical on a second call {identical}; kernel_ms data "
             f"{data_ms:.4f} + weights {weights_ms:.4f} = {bwd_ms[(NS, K)]:.4f}, plain_ms "
             f"{plain_ms:.4f}, library_ms {library_ms:.4f} (autograd backward of the cuBLAS chain), "
             f"bound_ms {b_fn:.4f} ({b_fn_by}; data {b_data[0]:.4f} {b_data[1]}, weights "
             f"{b_weights[0]:.4f} {b_weights[1]}); workspace {ws / 2**30:.3f} GiB; the forward "
             f"kernel at this shape {fwd_ms[(NS, K)]:.4f} ms")
+        log(f"backward check {shape}: resnetfc_bwd_weights {weights_ms:.4f} ms = {w_tflops:.1f} "
+            f"TFLOP/s, {b_weights[0] / weights_ms:.3f} of its bound ({b_weights[0]:.4f} ms); "
+            f"plain_ms {plain_weights_ms:.4f}; library_ms {library_weights_ms:.4f} (cuBLAS bf16 "
+            f"A^T G per product over the same planes); host {weights_host_ms:.4f} ms a call "
+            f"({weights_host_new_ms:.4f} with its tensor maps encoded anew); "
+            f"resnetfc_bwd_data {data_ms:.4f} ms, "
+            f"plain_ms {plain_data_ms:.4f} (workspace_reference)")
         if not (ok and identical):
             raise SystemExit(f"backward kernel check failed at {shape}")
-        for name, ms, (b_ms, b_by) in (("resnetfc_bwd_data", data_ms, b_data),
-                                       ("resnetfc_bwd_weights", weights_ms, b_weights)):
+        for name, ms, (b_ms, b_by), p_ms, l_ms in (
+                ("resnetfc_bwd_data", data_ms, b_data, plain_data_ms, library_ms),
+                ("resnetfc_bwd_weights", weights_ms, b_weights, plain_weights_ms,
+                 library_weights_ms)):
             rec = records[name]
             rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), err[name])
             if K == 96:  # times at the fine pass's shape; -V 3 beside -V 1
-                t = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                         library_ms=library_ms)
+                t = dict(ms=ms, plain_ms=p_ms, bound_ms=b_ms, bound_by=b_by, library_ms=l_ms,
+                         plain_backward_ms=plain_ms, share_of_bound=b_ms / ms)
+                if name == "resnetfc_bwd_weights":
+                    t.update(tflops=w_tflops, chain_library_ms=library_ms,
+                             host_ms=weights_host_ms)
                 if NS == 1:
                     rec.update(name=name, route="cuda",
                                source="pixelnerf_tpu_torch/csrc/resnetfc_bwd.cu",
@@ -827,6 +934,7 @@ def main() -> None:
         finite = len(trainer.history) == n_steps and all(math.isfinite(v) for v in trainer.history)
         step_ms = 1e3 * sum(trainer.step_seconds[2:]) / max(1, len(trainer.step_seconds[2:]))
         k_bwd = bwd_ms[(nviews, 64)] + bwd_ms[(nviews, 96)]
+        k_w = weights_ms_at[(nviews, 64)] + weights_ms_at[(nviews, 96)]
         k_fwd = fwd_ms[(nviews, 64)] + fwd_ms[(nviews, 96)]
         log(f"train path: python -m pixelnerf_tpu_torch.train -c conf/exp/sn64.conf -F synthetic "
             f"-B 4 -V {nviews} -R 128 --epochs {epochs} (random encoder): {n_steps} steps, remat "
@@ -835,7 +943,8 @@ def main() -> None:
             f"{finite}; pixel_nerf_latest written {wrote}")
         log(f"train path -V {nviews}: {step_ms:.3f} ms per step over steps 3-{n_steps} = "
             f"{n_rays / step_ms * 1e3:.1f} rays/s; backward kernels {k_bwd:.3f} ms per step = "
-            f"{k_bwd / step_ms:.3f} of it, forward kernels {k_fwd:.3f} ms = "
+            f"{k_bwd / step_ms:.3f} of it (resnetfc_bwd_weights {k_w:.3f} ms = "
+            f"{k_w / step_ms:.3f}), forward kernels {k_fwd:.3f} ms = "
             f"{k_fwd / step_ms:.3f}; on {smi}")
         if not (n_steps == epochs and finite and wrote and not trainer.remat
                 and train_launches[fwd] == 2 * n_steps + 2 * n_val

@@ -16,13 +16,14 @@
 //                         layer and the bf16 code (and, multi-view, latent) --
 //                         and writes per-tile f32 column sums for the biases
 //                         and the thin lin_out product.
-//   resnetfc_bwd_weights  dW = A^T . G over the point axis for every weight
-//                         matrix (lin_in, lin_z_k, fc_0/fc_1 of every block),
-//                         128x128 output tiles, the point axis split into f32
-//                         partials that the last CTA of each tile sums in a
-//                         fixed order; and the per-tile bias sums reduced in
-//                         tile order.  Both reductions are deterministic: two
-//                         calls on the same inputs give the same bits.
+//   resnetfc_bwd_weights  the _dot_aTg products of _bwd_kernel
+//                         (resnetfc_vjp.py:156): dW = A^T . G over the point
+//                         axis for every weight matrix (lin_in, lin_z_k,
+//                         fc_0/fc_1 of every block) as one grouped split-K
+//                         GEMM on wgmma fed by TMA (hopper_mma.cuh); and the
+//                         per-tile bias sums reduced in tile order.  Both
+//                         reductions are deterministic: two calls on the same
+//                         inputs give the same bits.
 //
 // Multi-view (resnetfc_vjp.py:305-327): the recompute runs every view's
 // blocks k < pre and folds them into the mean (tower_mv); the walk back runs
@@ -46,16 +47,34 @@
 // operations bound the function.  This design adds ~21 KB of workspace per
 // point and view, written once and read once (~2 GB of traffic at 49,152
 // points and one view, ~0.6 ms at 3.35 TB/s), which stays below the
-// operations bound.  Both kernels use nvcuda::wmma 16x16x16 bf16 products
-// with cp.async staging; wgmma and TMA are later work.
+// operations bound.  The data kernel uses nvcuda::wmma 16x16x16 bf16 products
+// with cp.async staging.
+//
+// The weights kernel on its own is bound by bytes on an H100 SXM: the train
+// step's fine pass reads its workspace once, 1.18 GB at -V 1 and 2.4 GiB at
+// -V 3 (0.35 and 0.82 ms at 3.35 TB/s), against 3.4e11 and 8.1e11 FLOP (0.34
+// and 0.81 ms at 989 TFLOP/s).  Its design: 128 x 256 output tiles, each one
+// m64n256k16 product per consumer warpgroup, both operands MN-major (the
+// planes are (points, width) row-major and the product sums over points)
+// straight from 128-byte-swizzled TMA boxes of 64 points, so no thread
+// touches an operand; a 4-stage full / empty mbarrier ring kept full by one
+// producer thread; the point axis split so that the CTAs fill the SMs in
+// whole waves, numbered split-major so that the CTAs in flight share their A
+// and G strips in L2; ragged edges (B rows of z read in place, kin < 64)
+// come from TMA's zero fill.  The tensor maps and the task table are encoded
+// once per set of operand addresses (resnetfc_bwd_weights_plan) and kept by
+// the wrapper, so a launch costs the host one parameter copy; they travel in
+// the 4 KB of kernel parameters, which hold up to 5 blocks (the wrapper
+// refuses deeper towers).
 
+#include <string.h>
+
+#include "hopper_mma.cuh"
 #include "resnetfc_tower.cuh"
 
 namespace {
 
 using namespace rfc;
-
-typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major> FragAT;
 
 struct BwdParams {
   TowerParams t;   // z, x and the packed weights
@@ -323,141 +342,187 @@ __global__ void __launch_bounds__(NTHREADS, 1) resnetfc_bwd_data_kernel(const Bw
 }
 
 // ---------------------------------------------------------------------------
-// weight gradients: dW[m, n] = sum_p A[p, m] G[p, n]
+// weight gradients: dW[m, n] = sum_p A[p, m] G[p, n], a grouped split-K GEMM
+// on wgmma fed by TMA
 // ---------------------------------------------------------------------------
 
-constexpr int WT = 128;      // output tile, rows and columns
-constexpr int WK = 32;       // points per k-step
-constexpr int WLD = WT + 8;  // shared-memory row stride (elements)
-constexpr int WSTAGES = 3;
-constexpr int MAX_TASKS = 40;
-constexpr size_t W_SMEM = (size_t)2 * WSTAGES * WK * WLD * sizeof(bf16);
+constexpr int WT_M = 128;  // output tile: rows of dW (two warpgroups of 64)
+constexpr int WT_N = 256;  // output tile: columns of dW (one m64n256 product)
+constexpr int WK = 64;     // points per k-step: one TMA box is 64 columns x 64 points
+constexpr int W_STAGES = 4;
+constexpr int W_THREADS = 384;  // warpgroups 0-1 consume, warpgroup 2 produces
+constexpr int W_CONSUMERS = 256;
+constexpr uint32_t W_BOX = WK * 128;            // bytes of one 64 x 64 bf16 box
+constexpr uint32_t W_STAGE_A = 2 * W_BOX;       // A: 64 points x 128 columns
+constexpr uint32_t W_STAGE = W_STAGE_A + 4 * W_BOX;  // + G: 64 points x 256 columns
+constexpr size_t W_SMEM = (size_t)W_STAGES * W_STAGE + 1024;  // + alignment slack
+// The tensor maps and the task table travel in the kernel's parameters, which
+// every CUDA 12 toolkit caps at 4 KB: sn64 (5 blocks) takes 23 maps and 14
+// tasks at both view counts; 6 blocks would take 27 maps.
+constexpr int MAX_MAPS = 24;
+constexpr int MAX_TASKS = 16;
+constexpr int MAX_SPLITS = 24;
 
 struct WTask {
-  const bf16* A;  // (rows, lda) row-major, columns 0..M-1 used
-  const bf16* G;  // (P, N) row-major
-  bf16* out;      // (M, N) row-major
-  // P: points summed over (NS B_pad below the view mean, B_pad above it),
-  // pts: points per split, a multiple of WK
-  int M, lda, rows_valid, tile0, m_tiles, P, pts;
+  size_t out;        // first element of dW (M, N) row-major in the output buffer
+  int a_map, g_map;  // tensor maps of A (P x M) and G (P x N)
+  int M, P;          // dW rows; points summed over
+  int splits;        // the point axis in `pts`-point pieces, the last one shorter
+  int m_tiles, tile0, unit0;  // M tiles; first tile and first (tile, split) slot
 };
 
+// A launch's parameters: the plan (maps, tasks, CTA order), which depends only
+// on the operands' addresses and shapes and is built once per such set by
+// resnetfc_bwd_weights_plan, and the buffers of one call.
 struct WParams {
+  CUtensorMap maps[MAX_MAPS];
   WTask task[MAX_TASKS];
-  int n_tasks, N, splits, n_gemm_ctas;
-  float* partial;  // (tiles, splits, WT * WT)
+  int split_cta0[MAX_SPLITS + 1];  // first GEMM CTA of each split (split-major order)
+  int n_tasks, n_splits, N, pts, tiles, units;
+  bf16* out;       // the weight gradients, one buffer
+  float* partial;  // (units, WT_M * WT_N) f32 per (tile, split), tasks with splits > 1
   int* counters;   // (tiles), zero on entry
   const float* rows;
   int n_row_tiles, R;
   float* rows_out;  // (R, N)
 };
+static_assert(sizeof(WParams) <= 4096, "kernel parameters of every CUDA 12 toolkit");
 
-__global__ void __launch_bounds__(NTHREADS) resnetfc_bwd_weights_kernel(const WParams q) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
+// The GEMM CTAs, split-major (the tiles of split 0 of every task, then split
+// 1, ...), then one bias CTA per row of sums, which the last wave's idle SMs
+// take.  A GEMM CTA runs one (tile, split): warpgroup 2's first thread
+// streams the split's points through a W_STAGES ring with TMA (full / empty
+// mbarriers); warpgroups 0 and 1 each multiply one 64-row half of the A tile
+// by the whole G tile with wgmma m64n256k16, both operands MN-major from
+// 128-byte-swizzled boxes.  A tile of one split writes bf16 directly;
+// otherwise each split writes its f32 partial and the last CTA of the tile
+// sums them in split order.
+__global__ void __launch_bounds__(W_THREADS, 1)
+    resnetfc_bwd_weights_kernel(const __grid_constant__ WParams q) {
+  extern __shared__ unsigned char w_smem_raw[];
+  __shared__ __align__(8) uint64_t full[W_STAGES], empty[W_STAGES];
   __shared__ int last;
   const int tid = threadIdx.x;
-  int bid = blockIdx.x;
-  if (bid >= q.n_gemm_ctas) {  // bias / lin_out rows: sum the tiles in order
-    bid -= q.n_gemm_ctas;
-    const int per_row = q.N / NTHREADS;
-    const int r = bid / per_row, col = (bid - r * per_row) * NTHREADS + tid;
-    float acc = 0.0f;
-    for (int t = 0; t < q.n_row_tiles; ++t) acc += q.rows[((size_t)t * q.R + r) * q.N + col];
-    q.rows_out[(size_t)r * q.N + col] = acc;
+  const int bid = blockIdx.x;
+  if (bid >= q.split_cta0[q.n_splits]) {  // bias / lin_out rows: sum the tiles in order
+    const int r = bid - q.split_cta0[q.n_splits];
+    for (int col = tid; col < q.N; col += W_THREADS) {
+      float acc = 0.0f;
+      for (int t = 0; t < q.n_row_tiles; ++t) acc += q.rows[((size_t)t * q.R + r) * q.N + col];
+      q.rows_out[(size_t)r * q.N + col] = acc;
+    }
     return;
   }
-  const int tile = bid / q.splits, split = bid - tile * q.splits;
-  int ti = 0;
-  while (ti + 1 < q.n_tasks && tile >= q.task[ti + 1].tile0) ++ti;
+  int s = 0;
+  while (s + 1 < q.n_splits && bid >= q.split_cta0[s + 1]) ++s;
+  const int ntn = q.N / WT_N;
+  int local = bid - q.split_cta0[s], ti = 0;
+  for (; ti < q.n_tasks; ++ti) {
+    if (q.task[ti].splits <= s) continue;
+    const int nt = q.task[ti].m_tiles * ntn;
+    if (local < nt) break;
+    local -= nt;
+  }
   const WTask& T = q.task[ti];
-  const int ntn = q.N / WT;
-  const int local = tile - T.tile0, mt = local / ntn, nt = local - mt * ntn;
-  const int m0 = mt * WT, n0 = nt * WT;
-  const int p_begin = split * T.pts;
-  const int p_end = min(T.P, p_begin + T.pts);
-  const int nk = p_end > p_begin ? (p_end - p_begin) / WK : 0;
-  bf16* As = reinterpret_cast<bf16*>(smem_raw);
-  bf16* Gs = As + WSTAGES * WK * WLD;
+  const int mt = local / ntn, m0 = mt * WT_M, n0 = (local - mt * ntn) * WT_N;
+  const int p0 = s * q.pts, p1 = min(T.P, p0 + q.pts);
+  const int nk = (p1 - p0 + WK - 1) / WK;
+  // the ring starts at a 1024-byte boundary (the swizzle atom)
+  const uint32_t raw = hopper::smem_u32(w_smem_raw);
+  unsigned char* ring = w_smem_raw + (((raw + 1023) & ~1023u) - raw);
 
-  auto stage = [&](int slot, int ks) {
-    const int p0 = p_begin + ks * WK;
-    bf16* a = As + slot * WK * WLD;
-    bf16* g = Gs + slot * WK * WLD;
-    for (int c = tid; c < WK * (WT / 8); c += NTHREADS) {
-      const int r = c / (WT / 8), u = c - r * (WT / 8);
-      const int pt = p0 + r, m = m0 + u * 8;
-      const bool ok = pt < T.rows_valid && m < T.M;
-      cp_async16_zfill(a + r * WLD + u * 8, ok ? (const void*)(T.A + (size_t)pt * T.lda + m)
-                                               : (const void*)T.A, ok ? 16 : 0);
-      cp_async16(g + r * WLD + u * 8, T.G + (size_t)pt * q.N + n0 + u * 8);
+  if (tid == 0) {
+    for (int st = 0; st < W_STAGES; ++st) {
+      hopper::mbar_init(&full[st], 1);
+      hopper::mbar_init(&empty[st], W_CONSUMERS);
     }
-  };
+    hopper::mbar_fence_init();
+  }
+  __syncthreads();
 
-  const int warp = tid >> 5, wm = warp >> 2, wn = warp & 3;  // 2 x 4 warps of 64 x 32
-  FragC acc[4][2];
+  const int wg = tid / 128;
+  if (wg == 2) {  // producer
+    hopper::setmaxnreg_dec<40>();
+    if (tid == 2 * 128) {
+      const CUtensorMap* am = &q.maps[T.a_map];
+      const CUtensorMap* gm = &q.maps[T.g_map];
+      for (int i = 0; i < nk; ++i) {
+        const int st = i % W_STAGES;
+        hopper::mbar_wait(&empty[st], ((i / W_STAGES) & 1) ^ 1);
+        hopper::mbar_arrive_expect_tx(&full[st], W_STAGE);
+        unsigned char* a = ring + st * W_STAGE;
+        const int p = p0 + i * WK;
+        hopper::tma_load_2d(a, am, &full[st], m0, p);
+        hopper::tma_load_2d(a + W_BOX, am, &full[st], m0 + 64, p);
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    wmma::fill_fragment(acc[i][0], 0.0f);
-    wmma::fill_fragment(acc[i][1], 0.0f);
-  }
-#pragma unroll
-  for (int sl = 0; sl < WSTAGES - 1; ++sl) {
-    if (sl < nk) stage(sl, sl);
-    cp_async_commit();
-  }
-  for (int ks = 0; ks < nk; ++ks) {
-    cp_async_wait<WSTAGES - 2>();
-    __syncthreads();  // slot ks landed for every thread; slot ks-1 is no longer read
-    const int pre = ks + WSTAGES - 1;
-    if (pre < nk) stage(pre % WSTAGES, pre);
-    cp_async_commit();
-    const bf16* a = As + (ks % WSTAGES) * WK * WLD;
-    const bf16* g = Gs + (ks % WSTAGES) * WK * WLD;
-#pragma unroll
-    for (int kk = 0; kk < WK / 16; ++kk) {
-      FragAT fa[4];
-#pragma unroll
-      for (int i = 0; i < 4; ++i)
-        wmma::load_matrix_sync(fa[i], a + kk * 16 * WLD + wm * 64 + i * 16, WLD);
-#pragma unroll
-      for (int jn = 0; jn < 2; ++jn) {
-        FragB fb;
-        wmma::load_matrix_sync(fb, g + kk * 16 * WLD + wn * 32 + jn * 16, WLD);
-#pragma unroll
-        for (int i = 0; i < 4; ++i) wmma::mma_sync(acc[i][jn], fa[i], fb, acc[i][jn]);
+        for (int j = 0; j < 4; ++j)
+          hopper::tma_load_2d(a + W_STAGE_A + j * W_BOX, gm, &full[st], n0 + 64 * j, p);
       }
     }
-  }
-  cp_async_wait<0>();
-
-  float* part = q.partial + ((size_t)tile * q.splits + split) * WT * WT;
+  } else {  // consumers: rows 64 wg .. 64 wg + 63 of the tile
+    hopper::setmaxnreg_inc<232>();
+    float acc[128];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < nk; ++i) {
+      const int st = i % W_STAGES;
+      hopper::mbar_wait(&full[st], (i / W_STAGES) & 1);
+      const unsigned char* a = ring + st * W_STAGE + wg * W_BOX;
+      const unsigned char* g = ring + st * W_STAGE + W_STAGE_A;
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int jn = 0; jn < 2; ++jn)
-      wmma::store_matrix_sync(part + (size_t)(wm * 64 + i * 16) * WT + wn * 32 + jn * 16,
-                              acc[i][jn], WT, wmma::mem_row_major);
-  __threadfence();
-  __syncthreads();
-  if (tid == 0) last = atomicAdd(q.counters + tile, 1) == q.splits - 1;
-  __syncthreads();
-  if (!last) return;
-  __threadfence();
-  // the last CTA of this tile sums the partials in split order
-  const float* base = q.partial + (size_t)tile * q.splits * WT * WT;
-  for (int e = tid * 4; e < WT * WT; e += NTHREADS * 4) {
-    float4 acc4 = __ldcg(reinterpret_cast<const float4*>(base + e));
-    for (int sp = 1; sp < q.splits; ++sp) {
-      const float4 v = __ldcg(reinterpret_cast<const float4*>(base + (size_t)sp * WT * WT + e));
-      acc4.x += v.x;
-      acc4.y += v.y;
-      acc4.z += v.z;
-      acc4.w += v.w;
+      for (int kk = 0; kk < WK / 16; ++kk)  // 16 points = 16 rows of 128 B
+        hopper::wgmma_m64n256k16<1, 1>(acc, hopper::desc_sw128(a + kk * 2048, W_BOX, 1024),
+                                       hopper::desc_sw128(g + kk * 2048, W_BOX, 1024), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // step i - 1's products have read their stage
+      if (i > 0) hopper::mbar_arrive(&empty[(i - 1) % W_STAGES]);
     }
-    const int r = e / WT, c = e - r * WT;
-    if (m0 + r < T.M) {
-      uint2* o = reinterpret_cast<uint2*>(T.out + (size_t)(m0 + r) * q.N + n0 + c);
-      *o = make_uint2(pack_bf16x2(acc4.x, acc4.y), pack_bf16x2(acc4.z, acc4.w));
+    hopper::wgmma_wait<0>();
+
+    const int tw = tid & 127, r0 = 64 * wg + 16 * (tw >> 5) + ((tw & 31) >> 2);
+    const int c0 = 2 * (tw & 3);
+    if (T.splits == 1) {
+#pragma unroll
+      for (int j = 0; j < 32; ++j)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int r = r0 + 8 * h;
+          if (m0 + r < T.M)
+            *reinterpret_cast<uint32_t*>(q.out + T.out + (size_t)(m0 + r) * q.N + n0 + 8 * j + c0) =
+                pack_bf16x2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+        }
+      return;
+    }
+    const size_t unit = (size_t)T.unit0 + (size_t)local * T.splits;
+    float* part = q.partial + (unit + s) * (WT_M * WT_N);
+#pragma unroll
+    for (int j = 0; j < 32; ++j)
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        *reinterpret_cast<float2*>(part + (r0 + 8 * h) * WT_N + 8 * j + c0) =
+            make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+    __threadfence();
+    hopper::named_barrier(1, W_CONSUMERS);
+    if (tid == 0) last = atomicAdd(q.counters + T.tile0 + local, 1) == T.splits - 1;
+    hopper::named_barrier(1, W_CONSUMERS);
+    if (!last) return;
+    __threadfence();
+    // the last CTA of this tile sums the partials in split order
+    const float* base = q.partial + unit * (WT_M * WT_N);
+    for (int e = tid * 4; e < WT_M * WT_N; e += W_CONSUMERS * 4) {
+      float4 a4 = __ldcg(reinterpret_cast<const float4*>(base + e));
+      for (int sp = 1; sp < T.splits; ++sp) {
+        const float4 v = __ldcg(reinterpret_cast<const float4*>(base + (size_t)sp * WT_M * WT_N + e));
+        a4.x += v.x;
+        a4.y += v.y;
+        a4.z += v.z;
+        a4.w += v.w;
+      }
+      const int r = e / WT_N, c = e - r * WT_N;
+      if (m0 + r < T.M)
+        *reinterpret_cast<uint2*>(q.out + T.out + (size_t)(m0 + r) * q.N + n0 + c) =
+            make_uint2(pack_bf16x2(a4.x, a4.y), pack_bf16x2(a4.z, a4.w));
     }
   }
 }
@@ -477,12 +542,6 @@ size_t resnetfc_bwd_smem_bytes(int C, int kin, int n_lin_z) {
 // Rows of per-tile sums: db_in, db_z[k], db of every block layer, db_out and
 // the d_out rows of dW_out^T.
 int resnetfc_bwd_rows(int n_blocks, int n_lin_z, int d_out) { return n_rows(n_blocks, n_lin_z, d_out); }
-
-// 128 x 128 output tiles of the weight-gradient products.
-int resnetfc_bwd_weight_tiles(int kin, int H, int C, int n_blocks, int n_lin_z) {
-  const int ntn = H / WT;
-  return ((kin + WT - 1) / WT + n_lin_z * ((C + WT - 1) / WT) + 2 * n_blocks * (H / WT)) * ntn;
-}
 
 // Multi-view (NS > 1): B = SB B_obj output points, NS object-major input
 // rows each, the first `pre` blocks per view; ws_z holds NS (B_pad, C) bf16
@@ -539,75 +598,100 @@ int resnetfc_bwd_data(const void* g, const void* z, const void* x, const void* w
   return (int)cudaGetLastError();
 }
 
-// The tasks' point axes: NS B_pad rows for lin_in, lin_z_k and blocks
-// k < pre, B_pad for the rest (NS == 1: B_pad for all).  z is read in place
-// when NS == 1; multi-view reads the tile-ordered bf16 planes ws_z.
-int resnetfc_bwd_weights(const void* z, const void* ws_act, const void* ws_cot, const void* ws_x,
-                         const void* ws_z, const void* rows, void* dw_in, void* dw_z,
-                         void* dw_blk, void* rows_out, void* partial, void* counters, int B,
-                         int kin, int H, int C, int n_blocks, int n_lin_z, int d_out, int NS,
-                         int pre, int splits, void* stream) {
-  const int B_pad = (B + BM - 1) / BM * BM;
-  const int n_tasks = 1 + n_lin_z + 2 * n_blocks;
-  if (NS == 1) pre = n_blocks;
-  if (H != HID || n_tasks > MAX_TASKS || splits < 1 || kin % 8 != 0 || C % 8 != 0 || NS < 1 ||
-      pre < 0 || pre > n_blocks || (NS > 1 && n_lin_z > 0 && ws_z == nullptr))
+// Shared memory of one weight-gradient CTA (the TMA ring).
+size_t resnetfc_bwd_weights_smem_bytes() { return W_SMEM; }
+
+// What the weights kernel fixes, for the wrapper to plan with: out[0..4] =
+// the output tile's rows and columns, the most splits of a product, the most
+// tensor maps and the most tasks of one launch.  Returns the bytes of a plan.
+size_t resnetfc_bwd_weights_limits(int* out) {
+  out[0] = WT_M;
+  out[1] = WT_N;
+  out[2] = MAX_SPLITS;
+  out[3] = MAX_MAPS;
+  out[4] = MAX_TASKS;
+  return sizeof(WParams);
+}
+
+// Fills `plan` (resnetfc_bwd_weights_limits' bytes) for the weight-gradient
+// products of ops/resnetfc_vjp.py::weight_plan: tensor map k reads bases[k]
+// as a (dims[3k] rows, dims[3k+1] columns, row stride dims[3k+2]) bf16
+// matrix; task t is (A map, G map, M, P, splits, first element of its
+// (M, N) bf16 output) at tasks[6t..], summed over `pts`-point pieces of its P
+// points.  A plan holds addresses but no buffer of a call, so a caller keeps
+// it for as long as the operands stay where they are.
+int resnetfc_bwd_weights_plan(void* plan, const void* const* bases, const int* dims, int n_maps,
+                              const int* tasks, int n_tasks, int N, int pts) {
+  if (n_maps < 1 || n_maps > MAX_MAPS || n_tasks < 1 || n_tasks > MAX_TASKS || N % WT_N != 0 ||
+      pts < WK || pts % WK != 0)
     return (int)cudaErrorInvalidValue;
-  const size_t plane = (size_t)B_pad * H;
-  // planes of block k (r_k, gb_k, ...) start at plane_of(k); NP over all blocks
-  auto plane_of = [&](int k) {
-    return k < pre ? (size_t)NS * k : (size_t)NS * pre + (k - pre);
-  };
-  const size_t NP = plane_of(n_blocks);
-  const bf16* act = static_cast<const bf16*>(ws_act);
-  const bf16* cot = static_cast<const bf16*>(ws_cot);
-  const bf16* g_in = cot + 2 * NP * plane;
-  const int P_views = NS * B_pad;
   WParams q = {};
-  int tiles = 0, t = 0;
-  auto add = [&](const bf16* A, int lda, int M, int rows_valid, int P, const bf16* G, bf16* out) {
-    WTask& T = q.task[t++];
-    T.A = A;
-    T.G = G;
-    T.out = out;
-    T.M = M;
-    T.lda = lda;
-    T.rows_valid = rows_valid;
-    T.P = P;
-    T.pts = ((P + splits - 1) / splits + WK - 1) / WK * WK;
+  for (int k = 0; k < n_maps; ++k) {
+    const int err = hopper::encode_bf16_sw128(&q.maps[k], bases[k], dims[3 * k], dims[3 * k + 1],
+                                              dims[3 * k + 2], WK);
+    if (err != 0) return err;
+  }
+  int tiles = 0, units = 0, n_splits = 0;
+  for (int t = 0; t < n_tasks; ++t) {
+    WTask& T = q.task[t];
+    const int* d = tasks + 6 * t;
+    T.a_map = d[0];
+    T.g_map = d[1];
+    T.M = d[2];
+    T.P = d[3];
+    T.splits = d[4];
+    T.out = (size_t)d[5];
+    if (T.a_map < 0 || T.a_map >= n_maps || T.g_map < 0 || T.g_map >= n_maps || T.M < 1 ||
+        T.splits < 1 || T.splits > MAX_SPLITS || (T.splits - 1) * pts >= T.P ||
+        T.P > T.splits * pts || d[5] < 0)
+      return (int)cudaErrorInvalidValue;
+    T.m_tiles = (T.M + WT_M - 1) / WT_M;
     T.tile0 = tiles;
-    T.m_tiles = (M + WT - 1) / WT;
-    tiles += T.m_tiles * (H / WT);
-  };
-  add(static_cast<const bf16*>(ws_x), kin, kin, P_views, P_views, g_in, static_cast<bf16*>(dw_in));
-  for (int k = 0; k < n_lin_z; ++k) {
-    const bf16* A = NS == 1 ? static_cast<const bf16*>(z) : static_cast<const bf16*>(ws_z);
-    add(A, C, C, NS == 1 ? B : P_views, P_views, k == 0 ? g_in : cot + plane_of(k - 1) * plane,
-        static_cast<bf16*>(dw_z) + (size_t)k * C * H);
+    T.unit0 = units;
+    tiles += T.m_tiles * (N / WT_N);
+    if (T.splits > 1) units += T.m_tiles * (N / WT_N) * T.splits;
+    n_splits = T.splits > n_splits ? T.splits : n_splits;
   }
-  for (int k = 0; k < n_blocks; ++k) {
-    const int views = k < pre ? NS : 1;
-    const size_t pk = plane_of(k);
-    bf16* o = static_cast<bf16*>(dw_blk) + (size_t)(2 * k) * H * H;
-    add(act + 2 * pk * plane, H, H, views * B_pad, views * B_pad, cot + (NP + pk) * plane, o);
-    add(act + (2 * pk + views) * plane, H, H, views * B_pad, views * B_pad, cot + pk * plane,
-        o + (size_t)H * H);
+  int ctas = 0;
+  for (int s = 0; s < n_splits; ++s) {
+    q.split_cta0[s] = ctas;
+    for (int t = 0; t < n_tasks; ++t)
+      if (q.task[t].splits > s) ctas += q.task[t].m_tiles * (N / WT_N);
   }
+  q.split_cta0[n_splits] = ctas;
   q.n_tasks = n_tasks;
-  q.N = H;
-  q.splits = splits;
-  q.n_gemm_ctas = tiles * splits;
+  q.n_splits = n_splits;
+  q.N = N;
+  q.pts = pts;
+  q.tiles = tiles;
+  q.units = units;
+  memcpy(plan, &q, sizeof q);
+  return (int)cudaSuccess;
+}
+
+// One launch of a plan: the products into `out` (bf16, at the plan's
+// offsets), and the R rows of per-tile sums in `rows` (n_row_tiles, R, N)
+// summed in tile order into rows_out (R, N).  partial holds one f32 tile per
+// (tile, split) of the tasks with splits > 1 and counters one zeroed int per
+// tile.
+int resnetfc_bwd_weights(const void* plan, void* out, const void* rows, void* rows_out,
+                         int n_row_tiles, int R, void* partial, void* counters, void* stream) {
+  WParams q;
+  memcpy(&q, plan, sizeof q);
+  if (R < 1 || out == nullptr || counters == nullptr || (q.units > 0 && partial == nullptr))
+    return (int)cudaErrorInvalidValue;
+  q.out = static_cast<bf16*>(out);
   q.partial = static_cast<float*>(partial);
   q.counters = static_cast<int*>(counters);
   q.rows = static_cast<const float*>(rows);
-  q.n_row_tiles = B_pad / BM;
-  q.R = n_rows(n_blocks, n_lin_z, d_out);
+  q.n_row_tiles = n_row_tiles;
+  q.R = R;
   q.rows_out = static_cast<float*>(rows_out);
   cudaError_t err = cudaFuncSetAttribute(resnetfc_bwd_weights_kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)W_SMEM);
   if (err != cudaSuccess) return (int)err;
-  const int grid = q.n_gemm_ctas + q.R * (H / NTHREADS);
-  resnetfc_bwd_weights_kernel<<<grid, NTHREADS, W_SMEM, static_cast<cudaStream_t>(stream)>>>(q);
+  const int ctas = q.split_cta0[q.n_splits];
+  resnetfc_bwd_weights_kernel<<<ctas + R, W_THREADS, W_SMEM, static_cast<cudaStream_t>(stream)>>>(q);
   return (int)cudaGetLastError();
 }
 

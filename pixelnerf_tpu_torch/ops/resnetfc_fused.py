@@ -58,7 +58,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"fwd": CSRC / "resnetfc_fwd.cu", "bwd": CSRC / "resnetfc_bwd.cu"}
-HEADERS = (CSRC / "resnetfc_tower.cuh",)
+HEADERS = (CSRC / "resnetfc_tower.cuh", CSRC / "hopper_mma.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",

@@ -19,6 +19,11 @@ NS > 1 views (object-major rows, as in :mod:`.resnetfc_fused`):
   ``resnetfc_bwd_weights`` from ``csrc/resnetfc_bwd.cu`` (which notes what
   bounds them); :func:`resnetfc_bwd` runs both, or the plain backward for CPU
   tensors.  On a CUDA tensor they launch or raise; there is no fallback.
+* :func:`weight_tasks` is the weights kernel's table of products (which
+  planes, how many points), :func:`bwd_weights_reference` its plain version
+  on a :class:`DataOut`, and :func:`workspace_reference` the DataOut that
+  the data kernel leaves, in plain form, so that the weights kernel's plain
+  version runs without a card.
 
 Weight gradients are cast to the packed weights' dtype (bf16 on the card), as
 the TPU kernel casts them, so that both packages take the same step.
@@ -26,7 +31,9 @@ the TPU kernel casts them, so that both packages take the same step.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 from typing import NamedTuple, Optional, Sequence
 
 import torch
@@ -35,10 +42,9 @@ from . import resnetfc_fused as rf
 
 LAUNCHES = {"resnetfc_bwd_data": 0, "resnetfc_bwd_weights": 0}
 _LIB: Optional[ctypes.CDLL] = None
-# points per split of the weight-gradient products' point axis, and at most
-# this many splits (f32 partials summed in split order)
-SPLIT_POINTS = 4096
-MAX_SPLITS = 8
+# launch parameters of the weights kernel kept per operand addresses, newest last
+_PARAMS: "collections.OrderedDict[tuple, ctypes.Array]" = collections.OrderedDict()
+MAX_KEPT_PARAMS = 16
 
 
 def reset_launches() -> None:
@@ -126,7 +132,8 @@ def resnetfc_bwd_reference(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.
                            tower: rf.Tower, n_blocks: int, need_dx: bool = True,
                            compute_dtype=torch.float32,
                            operands: Optional[torch.Tensor] = None, NS: int = 1, sb: int = 1,
-                           combine_layer: Optional[int] = None) -> Grads:
+                           combine_layer: Optional[int] = None,
+                           record: Optional[dict] = None) -> Grads:
     """Plain backward of the tower for the planar cotangent ``g (d_out, B)``:
     recompute the forward (:func:`forward_operands`), then walk it back as
     ``_bwd_kernel`` does: the blocks above the view mean once, then each view
@@ -138,6 +145,10 @@ def resnetfc_bwd_reference(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.
         recomputes sum in different orders, so a few relu masks in a million
         differ between them, and each such flip moves one cotangent element
         by its full size
+    :param record: when given, filled with the f32 cotangents the backward
+        kernel stashes (rounded) for the weight products: ``("gb", k, v)`` at
+        block k's output, ``("dh", k, v)`` after its fc_1, ``("in", v)`` at
+        lin_in's output (v = 0 above the view mean)
     """
 
     def rnd(t):
@@ -173,30 +184,34 @@ def resnetfc_bwd_reference(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.
     dw_in = torch.zeros(tower.w_in.shape, device=x.device)
     db_in = torch.zeros(tower.b_in.shape, device=x.device)
 
-    def block_bwd(k, d, r, s):
+    def block_bwd(k, v, d, r, s):
         gb = rnd(d)
         dw_blk[k, 1] += s.t() @ gb
         db_blk[k, 1] += d.sum(0)
         dh = (gb @ w_blk[k, 1].t()) * (s > 0)
+        if record is not None:
+            record["gb", k, v], record["dh", k, v] = d, dh
         dht = rnd(dh)
         dw_blk[k, 0] += r.t() @ dht
         db_blk[k, 0] += dh.sum(0)
         return d + (dht @ w_blk[k, 0].t()) * (r > 0)
 
     for k in reversed(range(pre, n_blocks)):
-        dxc = block_bwd(k, dxc, *above[k])
+        dxc = block_bwd(k, 0, dxc, *above[k])
     dview = dxc if NS == 1 else dxc * (1.0 / NS)
     dzs, dxs = [], []
     for v in range(NS):
         dv, dz = dview, None
         for k in reversed(range(pre)):
-            dv = block_bwd(k, dv, below[k][0][v], below[k][1][v])
+            dv = block_bwd(k, v, dv, below[k][0][v], below[k][1][v])
             if k < n_lin_z:
                 dvt = rnd(dv)
                 dw_z[k] += zcs[v].t() @ dvt
                 db_z[k] += dv.sum(0)
                 c = dvt @ w_z[k].t()
                 dz = c if dz is None else dz + c
+        if record is not None:
+            record["in", v] = dv
         dvt = rnd(dv)
         dw_in[:d_in] += x_ins[v].t() @ dvt
         db_in += dv.sum(0)
@@ -224,14 +239,18 @@ def _lib() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.resnetfc_bwd_data.argtypes = [P] * 18 + [I] * 12 + [P]
         lib.resnetfc_bwd_data.restype = I
-        lib.resnetfc_bwd_weights.argtypes = [P] * 12 + [I] * 10 + [P]
+        lib.resnetfc_bwd_weights_plan.argtypes = [P, P, P, I, P, I, I, I]
+        lib.resnetfc_bwd_weights_plan.restype = I
+        lib.resnetfc_bwd_weights.argtypes = [P, P, P, P, I, I, P, P, P]
         lib.resnetfc_bwd_weights.restype = I
+        lib.resnetfc_bwd_weights_limits.argtypes = [P]
+        lib.resnetfc_bwd_weights_limits.restype = ctypes.c_size_t
+        lib.resnetfc_bwd_weights_smem_bytes.argtypes = []
+        lib.resnetfc_bwd_weights_smem_bytes.restype = ctypes.c_size_t
         lib.resnetfc_bwd_smem_bytes.argtypes = [I, I, I]
         lib.resnetfc_bwd_smem_bytes.restype = ctypes.c_size_t
         lib.resnetfc_bwd_rows.argtypes = [I, I, I]
         lib.resnetfc_bwd_rows.restype = I
-        lib.resnetfc_bwd_weight_tiles.argtypes = [I] * 5
-        lib.resnetfc_bwd_weight_tiles.restype = I
         lib.resnetfc_bwd_error_string.argtypes = [I]
         lib.resnetfc_bwd_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -267,6 +286,279 @@ def _dims(tower: rf.Tower, n_blocks: int):
     kin, H = tower.w_in.shape
     n_lin_z, C = tower.w_z.shape[0], tower.w_z.shape[1]
     return kin, H, C, n_lin_z, tower.w_out.shape[1]
+
+
+class WTask(NamedTuple):
+    """One weight-gradient product ``dW = A^T G`` of ``resnetfc_bwd_weights``
+    over the first P points of its operands (A's rows past its own are read
+    as zeros)."""
+
+    name: str  # the weight it forms: "lin_in", "lin_z.k" or "blocks.k.fc_i"
+    a: str  # A's array in the DataOut: "ws_x", "ws_z", "ws_act", or "z" read in place
+    a_plane: int  # first plane of ws_act (0 for the others)
+    M: int  # rows of dW: A's columns
+    g_plane: int  # first plane of ws_cot
+    P: int  # points summed over: NS * B_pad below the view mean, B_pad above it
+
+
+def weight_tasks(kin: int, H: int, C: int, n_blocks: int, n_lin_z: int, NS: int, pre: int,
+                 B: int) -> list:
+    """The products of ``resnetfc_bwd_weights`` in launch order: lin_in,
+    lin_z_k, then fc_0 and fc_1 of every block.  Block k's planes (r_k, gb_k,
+    ...) start at ``plane_of(k)``: NS per block below the view mean (view v at
+    +v), one above it; NP = plane_of(n_blocks) planes of one kind in all."""
+    if NS == 1:
+        pre = n_blocks
+    B_pad = -(-B // 32) * 32
+
+    def plane_of(k):
+        return NS * k if k < pre else NS * pre + (k - pre)
+
+    NP = plane_of(n_blocks)
+    P_views = NS * B_pad
+    tasks = [WTask("lin_in", "ws_x", 0, kin, 2 * NP, P_views)]
+    for k in range(n_lin_z):
+        tasks.append(WTask(f"lin_z.{k}", "z" if NS == 1 else "ws_z", 0, C,
+                           2 * NP if k == 0 else plane_of(k - 1), P_views))
+    for k in range(n_blocks):
+        views, pk = (NS if k < pre else 1), plane_of(k)
+        tasks.append(WTask(f"blocks.{k}.fc_0", "ws_act", 2 * pk, H, NP + pk, views * B_pad))
+        tasks.append(WTask(f"blocks.{k}.fc_1", "ws_act", 2 * pk + views, H, pk, views * B_pad))
+    return tasks
+
+
+class KernelLimits(NamedTuple):
+    """What ``resnetfc_bwd_weights_kernel`` fixes (read from its library by
+    :func:`kernel_limits`): its output tile and the most splits, tensor maps
+    and tasks of one launch (the maps and tasks travel in its parameters)."""
+
+    tile_m: int  # rows of dW a CTA forms
+    tile_n: int  # columns of dW a CTA forms
+    max_splits: int
+    max_maps: int
+    max_tasks: int
+
+
+@functools.lru_cache(maxsize=None)
+def _limits_and_bytes():
+    out = (ctypes.c_int * 5)()
+    n = _lib().resnetfc_bwd_weights_limits(out)
+    return KernelLimits(*out), n
+
+
+def kernel_limits() -> KernelLimits:
+    return _limits_and_bytes()[0]
+
+
+def weight_tiles(task: WTask, H: int, limits: KernelLimits) -> int:
+    """Output tiles of one product."""
+    return -(-task.M // limits.tile_m) * (H // limits.tile_n)
+
+
+def task_operands(task: WTask, z: Optional[torch.Tensor], data: DataOut):
+    """(A, G) of one product as views of the DataOut's planes (and of z)."""
+    B_pad = data.ws_x.shape[0] // data.NS
+    n = task.P // B_pad
+    if task.a == "ws_act":
+        a = data.ws_act[task.a_plane : task.a_plane + n].reshape(task.P, -1)
+    else:
+        a = {"ws_x": data.ws_x, "ws_z": data.ws_z, "z": z}[task.a]
+    return a, data.ws_cot[task.g_plane : task.g_plane + n].reshape(task.P, -1)
+
+
+def _check_plane(t: torch.Tensor, what: str) -> None:
+    """TMA reads an array's planes in place: contiguous, with a 16-byte
+    aligned base and rows (a plane starts a multiple of 32 such rows in)."""
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+    if t.data_ptr() % 16 or (t.shape[-1] * t.element_size()) % 16:
+        raise ValueError(f"{what} must start on a 16-byte boundary with rows a multiple of 16 "
+                         f"bytes (address {t.data_ptr():#x}, row {t.shape[-1]} x "
+                         f"{t.element_size()} B)")
+
+
+def split_points(tasks: Sequence[WTask]) -> int:
+    """Points per split of every product's point axis: the shortest
+    product's points, rounded up to a multiple of 64.  So a product splits
+    by view (NS pieces below the view mean, one above it, one at NS = 1):
+    every CTA walks as many points, and a product of one view writes its
+    result with no f32 partials.  The kernel is bound by the card's memory
+    system, not by its SMs, so fewer splits beat whole waves (PERF.md,
+    Findings PR 6: the split sweep of chip_smoke.py)."""
+    return -(-min(t.P for t in tasks) // 64) * 64
+
+
+class WPlan(NamedTuple):
+    """The part of a ``resnetfc_bwd_weights`` launch that depends only on
+    shapes (:func:`weight_plan`)."""
+
+    key: tuple  # the arguments it was made from
+    arrays: tuple  # the operand arrays its maps read, by DataOut name ("z": z in place)
+    maps: tuple  # per tensor map: (array index, first row, rows, columns)
+    table: tuple  # per task: A map, G map, M, P, splits, first element of its output
+    pts: int  # points per split
+    tiles: int  # output tiles
+    units: int  # f32 partial tiles: (tile, split) of the tasks with splits > 1
+
+
+@functools.lru_cache(maxsize=64)
+def weight_plan(kin: int, H: int, C: int, n_blocks: int, n_lin_z: int, NS: int, pre: int, B: int,
+                limits: KernelLimits, pts: Optional[int] = None) -> WPlan:
+    """Tensor maps (one per distinct operand plane), task table and splits
+    (``pts`` points per split, :func:`split_points` unless given) of the
+    weight products at one shape.  Raises ValueError when they do not fit
+    the kernel's parameters (``limits``): past 5 blocks at sn64 widths."""
+    tasks = weight_tasks(kin, H, C, n_blocks, n_lin_z, NS, pre, B)
+    B_pad = -(-B // 32) * 32
+    arrays = ("ws_act", "ws_cot", "ws_x") + (("z" if NS == 1 else "ws_z",) if n_lin_z else ())
+    width = {"ws_act": H, "ws_cot": H, "ws_x": kin, "ws_z": C, "z": C}
+    maps = {}
+
+    def map_of(array, row0, rows):
+        return maps.setdefault((arrays.index(array), row0, rows, width[array]), len(maps))
+
+    if pts is None:
+        pts = split_points(tasks)
+    out0 = {"lin_in": 0}
+    out0.update({f"lin_z.{k}": kin * H + k * C * H for k in range(n_lin_z)})
+    blk0 = kin * H + n_lin_z * C * H
+    out0.update({f"blocks.{k}.fc_{i}": blk0 + (2 * k + i) * H * H
+                 for k in range(n_blocks) for i in (0, 1)})
+    table, tiles, units = [], 0, 0
+    for t in tasks:
+        if t.a == "ws_act":
+            a = map_of("ws_act", t.a_plane * B_pad, t.P)
+        else:  # z in place has B rows, the others NS * B_pad
+            a = map_of(t.a, 0, B if t.a == "z" else t.P)
+        sp = -(-t.P // pts)
+        table += [a, map_of("ws_cot", t.g_plane * B_pad, t.P), t.M, t.P, sp, out0[t.name]]
+        n = weight_tiles(t, H, limits)
+        tiles += n
+        units += n * sp if sp > 1 else 0
+    if len(maps) > limits.max_maps or len(tasks) > limits.max_tasks:
+        raise ValueError(
+            f"resnetfc_bwd_weights takes at most {limits.max_maps} tensor maps and "
+            f"{limits.max_tasks} products in its 4 KB of kernel parameters; a {n_blocks}-block "
+            f"tower at NS = {NS} needs {len(maps)} maps and {len(tasks)} products")
+    if -(-max(t.P for t in tasks) // pts) > limits.max_splits:
+        raise ValueError(f"{pts} points per split give more than {limits.max_splits} splits")
+    key = (kin, H, C, n_blocks, n_lin_z, NS, pre, B, pts)
+    return WPlan(key, arrays, tuple(maps), tuple(table), pts, tiles, units)
+
+
+def _launch_params(plan: WPlan, ptrs: tuple) -> ctypes.Array:
+    """The kernel's parameters for ``plan`` on operands at ``ptrs`` (one
+    address per ``plan.arrays``): its tensor maps encoded once per such set
+    of addresses and kept (the last MAX_KEPT_PARAMS sets)."""
+    key = (plan.key, ptrs)
+    params = _PARAMS.get(key)
+    if params is not None:
+        _PARAMS.move_to_end(key)
+        return params
+    n = len(plan.maps)
+    bases = (ctypes.c_void_p * n)(*(ptrs[a] + 2 * row0 * cols for a, row0, _, cols in plan.maps))
+    dims = (ctypes.c_int * (3 * n))(*(v for _, _, rows, cols in plan.maps
+                                      for v in (rows, cols, cols)))
+    params = ctypes.create_string_buffer(_limits_and_bytes()[1])
+    err = _lib().resnetfc_bwd_weights_plan(
+        params, bases, dims, n, (ctypes.c_int * len(plan.table))(*plan.table),
+        len(plan.table) // 6, plan.key[1], plan.pts)
+    if err != 0:
+        raise RuntimeError(f"resnetfc_bwd_weights plan failed: "
+                           f"{_lib().resnetfc_bwd_error_string(err).decode()} ({err})")
+    _PARAMS[key] = params
+    if len(_PARAMS) > MAX_KEPT_PARAMS:
+        _PARAMS.popitem(last=False)
+    return params
+
+
+def bwd_weights_reference(z: Optional[torch.Tensor], data: DataOut, tower: rf.Tower,
+                          n_blocks: int) -> Grads:
+    """Plain version of ``resnetfc_bwd_weights`` on the same DataOut: per
+    task of :func:`weight_tasks`, the f32 product of its planes over its P
+    points, and the rows of per-tile sums summed in tile order.  Weight
+    gradients stay f32."""
+    kin, H, C, n_lin_z, d_out = _dims(tower, n_blocks)
+    tasks = weight_tasks(kin, H, C, n_blocks, n_lin_z, data.NS, data.pre, data.B)
+    out = {}
+    for t in tasks:
+        a, g = task_operands(t, z, data)
+        out[t.name] = a.float().t() @ g[: a.shape[0]].float()
+    rows_out = data.rows[0].clone()
+    for i in range(1, data.rows.shape[0]):
+        rows_out += data.rows[i]
+    w_z = torch.stack([out[f"lin_z.{k}"] for k in range(n_lin_z)]) if n_lin_z else \
+        torch.zeros((0, C, H), device=rows_out.device)
+    w_blk = torch.stack([torch.stack([out[f"blocks.{k}.fc_{i}"] for i in (0, 1)])
+                         for k in range(n_blocks)])
+    return _weight_grads(data, out["lin_in"], w_z, w_blk, rows_out, n_blocks, n_lin_z, d_out)
+
+
+def workspace_reference(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.Tensor,
+                        tower: rf.Tower, n_blocks: int, NS: int = 1, sb: int = 1,
+                        combine_layer: Optional[int] = None,
+                        compute_dtype=torch.bfloat16) -> DataOut:
+    """The DataOut that ``resnetfc_bwd_data`` leaves, in plain form: r_k, s_k
+    and t from :func:`forward_operands`, the cotangents gb_k, dh_k and g_in
+    of :func:`resnetfc_bwd_reference`, the code and (NS > 1) the latent, each
+    rounded to ``compute_dtype`` in ``(planes, B_pad, width)`` tile order, and
+    the f32 per-32-row-tile column sums (biases, then the d_out rows of
+    dW_out^T).  Rows past B are zero; dx is not formed."""
+    kin, H, C, n_lin_z, d_out = _dims(tower, n_blocks)
+    pre = rf.blocks_per_view(n_blocks, NS, combine_layer)
+    B = g.shape[1]
+    B_pad = -(-B // 32) * 32
+    n_tiles = B_pad // 32
+    dt = compute_dtype
+
+    def pad(t, width=None):  # (B, D) -> (B_pad, width) f32, zero rows and columns
+        return torch.nn.functional.pad(t.float(), (0, (width or t.shape[1]) - t.shape[1],
+                                                   0, B_pad - t.shape[0]))
+
+    def tile_sums(t):  # (B, D) f32 -> (n_tiles, D)
+        return pad(t).reshape(n_tiles, 32, -1).sum(1)
+
+    ops = forward_operands(z, x, tower, n_blocks, dt, NS, sb, combine_layer)
+    cot = {}
+    gr = resnetfc_bwd_reference(g, z, x, tower, n_blocks, False, dt, operands=ops, NS=NS, sb=sb,
+                                combine_layer=combine_layer, record=cot)
+    tasks = weight_tasks(kin, H, C, n_blocks, n_lin_z, NS, pre, B)
+    NP = tasks[0].g_plane // 2
+    planes = [None] * (2 * NP + NS)
+    rows = torch.zeros((n_tiles, 2 + n_lin_z + 2 * n_blocks + d_out, H), device=x.device)
+    for t in tasks[1 + n_lin_z :: 2]:  # fc_0 of every block: gb_k at g_plane - NP, dh_k at g_plane
+        k = int(t.name.split(".")[1])
+        for v in range(t.P // B_pad):
+            planes[t.g_plane - NP + v], planes[t.g_plane + v] = cot["gb", k, v], cot["dh", k, v]
+            s_gb = tile_sums(cot["gb", k, v])
+            rows[:, 1 + n_lin_z + 2 * k + 1] += s_gb
+            if k + 1 < n_lin_z:
+                rows[:, 2 + k] += s_gb
+            rows[:, 1 + n_lin_z + 2 * k] += tile_sums(cot["dh", k, v])
+    for v in range(NS):
+        planes[2 * NP + v] = cot["in", v]
+        s_in = tile_sums(cot["in", v])
+        rows[:, 0] += s_in
+        if n_lin_z > 0:
+            rows[:, 1] += s_in
+    gT = g.t().float()
+    r_out = 1 + n_lin_z + 2 * n_blocks
+    rows[:, r_out, :d_out] = tile_sums(gT)
+    t32 = pad(ops[-1]).reshape(n_tiles, 32, H)
+    rows[:, r_out + 1 :] = torch.einsum("trc,tro->toc", t32,
+                                        pad(gT.to(dt)).reshape(n_tiles, 32, d_out))
+    dz = None
+    if z is not None and n_lin_z > 0:
+        dz = torch.cat([pad(d) for d in split_views(gr.dz, NS, sb)])
+    return DataOut(
+        dz=dz, dx=None,
+        ws_act=torch.stack([pad(o) for o in ops]).to(dt),
+        ws_cot=torch.stack([pad(c.to(dt)) for c in planes]).to(dt),
+        ws_x=torch.cat([pad(xv.to(dt), kin) for xv in split_views(x, NS, sb)]).to(dt),
+        ws_z=(torch.cat([pad(zv.to(dt)) for zv in split_views(z, NS, sb)]).to(dt)
+              if NS > 1 and n_lin_z > 0 else None),
+        rows=rows, B=B, NS=NS, sb=sb, pre=pre,
+    )
 
 
 def bwd_data(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.Tensor, tower: rf.Tower,
@@ -327,45 +619,86 @@ def bwd_data(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.Tensor, tower:
 
 def bwd_weights(z: Optional[torch.Tensor], data: DataOut, tower: rf.Tower,
                 n_blocks: int) -> Grads:
-    """Launch ``resnetfc_bwd_weights`` on what :func:`bwd_data` left: every
-    weight gradient (cast to bf16) and the bias gradients (f32)."""
+    """Every weight gradient (bf16) and the bias gradients (f32) from what
+    :func:`bwd_data` left: ``resnetfc_bwd_weights`` on CUDA tensors,
+    :func:`bwd_weights_reference` (weights cast to bf16) on CPU tensors.
+    Raises on an array whose planes TMA cannot read in place (not
+    contiguous, not 16-byte aligned, rows not a multiple of 16 bytes), and
+    on a tower too deep for the kernel (:func:`weight_plan`)."""
     kin, H, C, n_lin_z, d_out = _dims(tower, n_blocks)
-    dev, B, bf = data.ws_x.device, data.B, torch.bfloat16
-    NS = data.NS
+    dev, B, NS, bf = data.ws_x.device, data.B, data.NS, torch.bfloat16
+    # every product reads whole planes of these arrays (z in place at NS = 1)
+    arrays = {"ws_act": data.ws_act, "ws_cot": data.ws_cot, "ws_x": data.ws_x}
+    if n_lin_z > 0:
+        arrays["z" if NS == 1 else "ws_z"] = z if NS == 1 else data.ws_z
+    for name, t in arrays.items():
+        _check_plane(t, name)
+    if not data.rows.is_contiguous():
+        raise ValueError("rows must be contiguous")
+    if dev.type == "cpu":
+        ref = bwd_weights_reference(z, data, tower, n_blocks)
+        return ref._replace(w_in=ref.w_in.to(bf), w_z=ref.w_z.to(bf), w_blk=ref.w_blk.to(bf),
+                            w_out=ref.w_out.to(bf))
     B_pad = data.ws_x.shape[0] // NS
+    pre = n_blocks if NS == 1 else data.pre
+    NP = NS * pre + n_blocks - pre
+    shapes = {"ws_act": (2 * NP + 1, B_pad, H), "ws_cot": (2 * NP + NS, B_pad, H),
+              "ws_x": (NS * B_pad, kin), "ws_z": (NS * B_pad, C), "z": (B, C)}
+    for name, t in arrays.items():
+        rf._check(t, name, bf, shapes[name])
+    plan = None if B == 0 else weight_plan(kin, H, C, n_blocks, n_lin_z, NS, data.pre, B,
+                                            kernel_limits())
+    return _launch_weights(z, data, plan, kin, H, C, n_blocks, n_lin_z, d_out)
+
+
+def _launch_weights(z: Optional[torch.Tensor], data: DataOut, plan: Optional[WPlan], kin: int,
+                    H: int, C: int, n_blocks: int, n_lin_z: int, d_out: int) -> Grads:
+    """``resnetfc_bwd_weights`` on checked operands, by ``plan`` (None: no
+    points, every gradient zero)."""
+    dev, bf = data.ws_x.device, torch.bfloat16
     lib = _lib()
     R = lib.resnetfc_bwd_rows(n_blocks, n_lin_z, d_out)
-    tiles = lib.resnetfc_bwd_weight_tiles(kin, H, C, n_blocks, n_lin_z)
-    splits = max(1, min(MAX_SPLITS, B_pad // SPLIT_POINTS))
-    w_in = torch.empty((kin, H), device=dev, dtype=bf)
-    w_z = torch.empty((n_lin_z, C, H), device=dev, dtype=bf)
-    w_blk = torch.empty((n_blocks, 2, H, H), device=dev, dtype=bf)
+    # one buffer for every weight gradient, in the plan's order
+    n_in, n_z = kin * H, n_lin_z * C * H
+    out = torch.empty((n_in + n_z + 2 * n_blocks * H * H,), device=dev, dtype=bf)
+    w_in = out[:n_in].view(kin, H)
+    w_z = out[n_in : n_in + n_z].view(n_lin_z, C, H)
+    w_blk = out[n_in + n_z :].view(n_blocks, 2, H, H)
     rows_out = torch.empty((R, H), device=dev)
-    if B > 0:
-        partial = torch.empty((tiles, splits, 128 * 128), device=dev)
-        counters = torch.zeros((tiles,), device=dev, dtype=torch.int32)
+    if plan is not None:
+        ptrs = tuple((z if a == "z" else getattr(data, a)).data_ptr() for a in plan.arrays)
+        params = _launch_params(plan, ptrs)
+        lim = kernel_limits()
+        partial = (torch.empty((plan.units, lim.tile_m * lim.tile_n), device=dev)
+                   if plan.units else None)
+        counters = torch.zeros((plan.tiles,), device=dev, dtype=torch.int32)
         err = lib.resnetfc_bwd_weights(
-            z.data_ptr() if n_lin_z > 0 else None, data.ws_act.data_ptr(), data.ws_cot.data_ptr(),
-            data.ws_x.data_ptr(), None if data.ws_z is None else data.ws_z.data_ptr(),
-            data.rows.data_ptr(), w_in.data_ptr(), w_z.data_ptr(), w_blk.data_ptr(),
-            rows_out.data_ptr(), partial.data_ptr(), counters.data_ptr(),
-            B, kin, H, C, n_blocks, n_lin_z, d_out, NS, data.pre, splits,
-            torch.cuda.current_stream(dev).cuda_stream,
-        )
+            params, out.data_ptr(), data.rows.data_ptr(), rows_out.data_ptr(),
+            data.rows.shape[0], R, None if partial is None else partial.data_ptr(),
+            counters.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
         _launched("resnetfc_bwd_weights", err)
     else:
-        for t in (w_in, w_z, w_blk, rows_out):
-            t.zero_()
+        out.zero_()
+        rows_out.zero_()
+    return _weight_grads(data, w_in, w_z, w_blk, rows_out, n_blocks, n_lin_z, d_out)
+
+
+def _weight_grads(data: DataOut, w_in, w_z, w_blk, rows_out, n_blocks: int, n_lin_z: int,
+                  d_out: int) -> Grads:
+    """Grads from the weight products and the summed rows of per-tile sums."""
+    NS, B, H = data.NS, data.B, w_in.shape[1]
+    B_pad = data.ws_x.shape[0] // NS
     r_out = 1 + n_lin_z + 2 * n_blocks
     dz = None
     if data.dz is not None:
         # tile order, view-major -> z's object-major rows
+        C = data.dz.shape[1]
         dz = data.dz[:B] if NS == 1 else join_views(
             list(data.dz.reshape(NS, B_pad, C)[:, :B]), data.sb)
     return Grads(
         dz=dz, dx=data.dx, w_in=w_in, b_in=rows_out[0], w_z=w_z,
         b_z=rows_out[1 : 1 + n_lin_z], b_blk=rows_out[1 + n_lin_z : r_out].reshape(n_blocks, 2, H),
-        w_blk=w_blk, w_out=rows_out[r_out + 1 : r_out + 1 + d_out].t().to(bf).contiguous(),
+        w_blk=w_blk, w_out=rows_out[r_out + 1 : r_out + 1 + d_out].t().to(w_in.dtype).contiguous(),
         b_out=rows_out[r_out, :d_out],
     )
 
