@@ -9,8 +9,10 @@ one line each:
 2. build: compile every kernel from ``pixelnerf_tpu_torch/csrc``, one
    ``nvcc`` per source, all at once; ptxas registers and spills per kernel,
    the backward library's ``HGMMA`` / ``UTMALDG`` / ``HMMA`` counts per
-   kernel (``cuobjdump -sass``) and the weights kernel's shared memory; the
-   weights kernel must be a wgmma + TMA kernel with no wmma product;
+   kernel (``cuobjdump -sass``) and the weights kernel's shared memory; both
+   backward kernels (the data kernel's two instantiations too) must be wgmma
+   + TMA kernels with no wmma product and no spills; the forward kernels'
+   registers on a line of their own;
 3. kernel checks: each forward kernel against its plain PyTorch version at
    the main paths' shapes (one ray chunk x 64 and x 96 samples; the
    single-view kernels on a 1024 x 512 table, the multi-view gather at NS 2
@@ -39,7 +41,9 @@ one line each:
    must launch the code variant of the kernel its route takes and not the
    encoded-input one, and agree with the plain route to >= 40 dB;
 8. backward kernel checks at the train step's shapes (4 x 128 rays x 64 and
-   x 96 samples, at -V 1 and at -V 3): the kernels' stashed forward operands
+   x 96 samples, at -V 1 and at -V 3) and at a ragged B (2000 points at -V
+   1, 666 at -V 3: the data kernel's last 64-point tile half full, gates
+   only): the kernels' stashed forward operands
    against the plain recompute, every output (dz, dx, each dW and db) against
    the plain backward walked through the same operands at the bar above, and
    against the fully independent plain backward at ``corr > 0.999``; the
@@ -47,8 +51,9 @@ one line each:
    at the bar; two calls must be bit-identical; each kernel's time beside
    its plain version's, its yardstick (the data kernel: the autograd
    backward of the cuBLAS chain; the weights kernel: one cuBLAS bf16
-   ``A^T G`` per product) and its bound, and the weights kernel's TFLOP/s,
-   its host time a call and its time at 1-24 splits of its point axis;
+   ``A^T G`` per product) and its bound, each kernel's TFLOP/s and share of
+   its bound, the weights kernel's host time a call and its time at 1-24
+   splits of its point axis;
 9. train-step parity at -V 1 and at -V 3: one sn64 step on the kernel route
    (AMP) and one on the plain f32 route from the same weights, batch and
    draws: losses within 1%, ``grad_norm`` within 2%, cosine >= 0.99 between
@@ -279,6 +284,21 @@ def main() -> None:
     }))
     if not (w_sass.get("HGMMA") and w_sass.get("UTMALDG") and w_sass.get("HMMA") == 0):
         raise SystemExit(f"resnetfc_bwd_weights_kernel is not a wgmma + TMA kernel: {w_sass}")
+    # the data kernel (both instantiations) is a wgmma kernel fed by TMA, with
+    # no wmma product; neither backward kernel spills
+    bwd_ptxas = ptxas_summary(builds["bwd"].log)
+    for name in ("resnetfc_bwd_data_kernel<MV=0>", "resnetfc_bwd_data_kernel<MV=1>"):
+        d_sass = sass.get(name, {})
+        if not (d_sass.get("HGMMA") and d_sass.get("UTMALDG") and d_sass.get("HMMA") == 0):
+            raise SystemExit(f"{name} is not a wgmma + TMA kernel: {d_sass}")
+    for name, line in bwd_ptxas.items():
+        spills = re.findall(r"(\d+) B spill", line)
+        if len(spills) != 2 or any(int(v) for v in spills):
+            raise SystemExit(f"{name} spills or ptxas gave no spill line: {line}")
+    log("build: forward kernels' registers (the wmma tower, unchanged by the backward's "
+        "redesign): " + json.dumps(ptxas_summary(builds["fwd"].log)))
+    log("build: backward kernels' registers: " + json.dumps(bwd_ptxas) + "; resnetfc_bwd_data "
+        f"shared memory {rv.data_limits().smem} B a CTA, {rv.data_limits()}")
 
     # ---- the main path's model: full sn64 width, seeded, every block live ----
     conf = entry.load_conf(pretrained=False)
@@ -685,8 +705,12 @@ def main() -> None:
     records.update({"resnetfc_bwd_data": {}, "resnetfc_bwd_weights": {}})
     # the backward's two kernels and the step's dense forward, per (views, pass shape)
     bwd_ms, fwd_ms, weights_ms_at = {}, {}, {}
-    for NS, K in ((1, 64), (1, 96), (3, 64), (3, 96)):
-        sb, B_obj = 4, 128 * K  # -B 4 objects x -R 128 rays x samples
+    # the train step's shapes (-B 4 objects x -R 128 rays x samples), and a
+    # ragged B at each view count: B_pad an odd multiple of 32, so the data
+    # kernel's last 64-point tile is half full (gates only, no timing)
+    for NS, K, sb, B_obj in ((1, 64, 4, 128 * 64), (1, 96, 4, 128 * 96), (1, None, 2, 1000),
+                             (3, 64, 4, 128 * 64), (3, 96, 4, 128 * 96), (3, None, 2, 333)):
+        ragged = K is None
         B = sb * B_obj
         rows = NS * B
         kw = dict(NS=NS, sb=sb, combine_layer=cl) if NS > 1 else {}
@@ -705,7 +729,8 @@ def main() -> None:
         d, bar, corr = agree(ops_k, ops_p)
         flips = ((ops_k > 0) != (ops_p > 0)).float().mean().item()
         ok = d <= bar and corr > 0.999 and flips <= 1e-3
-        shape = f"-V {NS}: {sb} x 128 rays x {K} = {B} points"
+        shape = (f"-V {NS}: ragged, {sb} x {B_obj} = {B} points" if ragged
+                 else f"-V {NS}: {sb} x 128 rays x {K} = {B} points")
         shape += f", {rows} rows" if NS > 1 else ""
         log(f"backward check {shape}: stashed forward operands vs plain recompute max|d| {d:.6g} "
             f"<= bar {bar:.6g}, corr {corr:.7f}, relu-mask flips {flips:.3g} (<= 1e-3)")
@@ -742,6 +767,14 @@ def main() -> None:
         gr2 = rv.bwd_weights(z, rv.bwd_data(g, z, x, tw, nb, True, **kw), tw, nb)
         identical = all(torch.equal(getattr(gr, n), getattr(gr2, n)) for n in rv.Grads._fields)
         del gr2
+        if ragged:
+            log(f"backward check {shape}: bit-identical on a second call {identical}")
+            if not (ok and identical):
+                raise SystemExit(f"backward kernel check failed at {shape}")
+            for name, e in err.items():
+                records[name]["max_abs_err"] = max(records[name].get("max_abs_err", 0.0), e)
+            del data, gr, g, x, z, idx, w, pts, vd
+            continue
         data_ms = cuda_ms(lambda: rv.bwd_data(g, z, x, tw, nb, False, **kw), 5)
         weights_ms = cuda_ms(lambda: rv.bwd_weights(z, data, tw, nb), 5)
         torch.cuda.synchronize()
@@ -821,9 +854,20 @@ def main() -> None:
             f"TFLOP/s, {b_weights[0] / weights_ms:.3f} of its bound ({b_weights[0]:.4f} ms); "
             f"plain_ms {plain_weights_ms:.4f}; library_ms {library_weights_ms:.4f} (cuBLAS bf16 "
             f"A^T G per product over the same planes); host {weights_host_ms:.4f} ms a call "
-            f"({weights_host_new_ms:.4f} with its tensor maps encoded anew); "
-            f"resnetfc_bwd_data {data_ms:.4f} ms, "
-            f"plain_ms {plain_data_ms:.4f} (workspace_reference)")
+            f"({weights_host_new_ms:.4f} with its tensor maps encoded anew)")
+        d_tflops = B * 2 * f_pt / data_ms / 1e9  # the recompute and the data gradients
+        # the weight bytes the data kernel streams from L2: every 64-point tile
+        # reads each weight matrix of its products once forward and once back
+        kin = tw.w_in.shape[0]
+        pre_d = data.pre if NS > 1 else nb
+        tile_w = 2 * H * 2 * (NS * (kin / 2 + n_lin_z * C + 2 * pre_d * H) + 2 * (nb - pre_d) * H)
+        n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+        w_tbs = -(-data.ws_x.shape[0] // NS // 64) * tile_w / data_ms / 1e9
+        log(f"backward check {shape}: resnetfc_bwd_data {data_ms:.4f} ms = {d_tflops:.1f} TFLOP/s, "
+            f"{b_data[0] / data_ms:.3f} of its bound ({b_data[0]:.4f} ms, {b_data[1]}); plain_ms "
+            f"{plain_data_ms:.4f} (workspace_reference); library_ms {library_ms:.4f} (autograd "
+            f"backward of the cuBLAS chain); weights streamed from L2 {tile_w / 2**20:.2f} MiB a "
+            f"64-point tile, {w_tbs:.3f} TB/s = {w_tbs * 1e3 / n_sm:.2f} GB/s an SM")
         if not (ok and identical):
             raise SystemExit(f"backward kernel check failed at {shape}")
         for name, ms, (b_ms, b_by), p_ms, l_ms in (
@@ -838,6 +882,9 @@ def main() -> None:
                 if name == "resnetfc_bwd_weights":
                     t.update(tflops=w_tflops, chain_library_ms=library_ms,
                              host_ms=weights_host_ms)
+                else:
+                    t.update(tflops=d_tflops, weight_stream_tb_s=w_tbs, design="64-point tiles on wgmma m64n128k16, "
+                             "weights by TMA through a 3-stage mbarrier ring")
                 if NS == 1:
                     rec.update(name=name, route="cuda",
                                source="pixelnerf_tpu_torch/csrc/resnetfc_bwd.cu",

@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks as PTX inline assembly: mbarriers, 2-D TMA
-// loads, shared-memory matrix descriptors for 128-byte-swizzled bf16 tiles,
-// and warpgroup matrix multiplies (wgmma) with f32 accumulators.
+// loads, shared-memory matrix descriptors for 128-byte-swizzled bf16 tiles
+// (MN-major and K-major), the async-proxy fence, and warpgroup matrix
+// multiplies (wgmma m64n256k16 and m64n128k16) with f32 accumulators.
 //
 // Self-contained (no CUTLASS, no other header of this package), so that any
 // kernel of the port can take it as it is.  The host side builds a TMA
@@ -143,6 +144,59 @@ __device__ __forceinline__ void wgmma_m64n256k16(float (&d)[128], uint64_t desc_
         "+f"(d[104]), "+f"(d[105]), "+f"(d[106]), "+f"(d[107]), "+f"(d[108]), "+f"(d[109]), "+f"(d[110]), "+f"(d[111]),
         "+f"(d[112]), "+f"(d[113]), "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]), "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// The K-major form (transpose bit 0) of a 128-byte-swizzled operand: the K
+// axis runs along the 128-byte rows (64 bf16) and M (or N) down the rows,
+// one 64 x 64 atom per 8 KB, as a TMA box of 64 columns lands or as
+// sw128_offset lays out a tile by hand.  The stride byte offset is the step
+// between 8-row groups (1024 B); the leading byte offset is unused within one
+// atom's K width (set to 16 B); a k16 step advances the start address by 32 B
+// inside the row.  The M / N extent of one product may span several atoms
+// stacked along the rows (e.g. two 64-row boxes, one after the other).
+__device__ __forceinline__ uint64_t desc_kmajor_sw128(const void* p) {
+  return desc_sw128(p, 16, 1024);
+}
+
+// Byte offset of element (r, c) of a row-major bf16 tile of 64-column atoms
+// stored K-major with the 128-byte swizzle: atom c / 64 at 8 KB (64 rows) a
+// step, row r at 128 B, the 16-byte chunk (c % 64) / 8 XOR-permuted by r % 8.
+__device__ __forceinline__ uint32_t sw128_offset(int r, int c) {
+  return (uint32_t)((c >> 6) * 8192 + r * 128 + ((((c & 63) >> 3) ^ (r & 7)) << 4) + (c & 7) * 2);
+}
+
+// Generic-proxy writes to shared memory (st.shared by threads) made visible
+// to the async proxy (wgmma, TMA) that reads them next; follow with a barrier
+// over the threads whose products read them.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// d (64 x 128 f32, 64 a thread) = A (64 x 16) . B (16 x 128) + (scale_d ? d :
+// 0), both operands bf16 in shared memory; TA / TB = 1 for MN-major
+// operands.  Accumulator i of thread t of the warpgroup holds row
+// 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (t % 4) + i % 2.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1, %67, %68;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 

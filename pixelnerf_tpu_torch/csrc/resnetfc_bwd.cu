@@ -3,19 +3,18 @@
 // for one view and for NS > 1 views, as two kernels that together compute
 // what the TPU kernel does:
 //
-//   resnetfc_bwd_data     one CTA per 32-point tile (multi-view: persistent
+//   resnetfc_bwd_data     one CTA per 64-point tile (multi-view: persistent
 //                         CTAs walking the tiles).  Recomputes the forward
-//                         with the forward kernels' own tower code
-//                         (resnetfc_tower.cuh), so the relu masks equal the
-//                         primal's bit for bit, then backpropagates through
-//                         lin_out, the blocks and the injections.  It writes
-//                         dz (and dx when asked) per point, stashes the
-//                         products' operands for the weight gradients in a
-//                         workspace -- the bf16 operands r_k, s_k of every
-//                         block and t of lin_out, the bf16 cotangents of every
-//                         layer and the bf16 code (and, multi-view, latent) --
-//                         and writes per-tile f32 column sums for the biases
-//                         and the thin lin_out product.
+//                         (lin_in, the injections, the blocks; bf16 operands,
+//                         f32 sums), then backpropagates through lin_out, the
+//                         blocks and the injections.  It writes dz (and dx
+//                         when asked) per point, stashes the products'
+//                         operands for the weight gradients in a workspace --
+//                         the bf16 operands r_k, s_k of every block and t of
+//                         lin_out, the bf16 cotangents of every layer and the
+//                         bf16 code (and, multi-view, latent) -- and writes
+//                         f32 column sums per 32 rows for the biases and the
+//                         thin lin_out product.
 //   resnetfc_bwd_weights  the _dot_aTg products of _bwd_kernel
 //                         (resnetfc_vjp.py:156): dW = A^T . G over the point
 //                         axis for every weight matrix (lin_in, lin_z_k,
@@ -47,8 +46,45 @@
 // operations bound the function.  This design adds ~21 KB of workspace per
 // point and view, written once and read once (~2 GB of traffic at 49,152
 // points and one view, ~0.6 ms at 3.35 TB/s), which stays below the
-// operations bound.  The data kernel uses nvcuda::wmma 16x16x16 bf16 products
-// with cp.async staging.
+// operations bound.
+//
+// The data kernel on its own: two thirds of those FLOP (the recompute and
+// the data gradients), a bound of 0.68 ms at -V 1's fine pass on an H100 SXM
+// (989 TFLOP/s).  What held its 32-point wmma predecessor to ~100 TFLOP/s
+// was the weights' trip out of L2:
+// every tile read all of them twice (forward and transposed, ~13.6 MB at
+// sn64) through per-warp cp.async slabs, ~3.2 TB/s of L2 reads, with the
+// products on nvcuda::wmma at the 255-register limit.  This design halves
+// that traffic and moves the products to wgmma:
+// - 64-point tiles, 256 threads: warpgroups 0 and 1 each own 256 of the 512
+//   columns of every layer for all 64 points (its share of the f32 stream
+//   or of its cotangent in 128 registers a thread); thread 0 also keeps the
+//   weight ring fed.  A producer warp would cost registers: a ninth warp
+//   leaves three warps on one SM quarter's 16 K registers, 168 a thread, and
+//   setmaxnreg did not lift ptxas' allocation past the launch bound's 168;
+// - every product is wgmma m64n128k16 pieces: operand A a 64 x 512 bf16 tile
+//   in shared memory (act or hb), K-major with the 128-byte swizzle, written
+//   by the threads from their accumulators and published to the async proxy
+//   (fence.proxy.async + a CTA barrier); operand B 64 x 64 TMA boxes of the
+//   packed row-major weights through a 3-stage, 32 KB full / empty mbarrier
+//   ring: MN-major for x W, and the same boxes K-major for dh W^T, so no
+//   transposed copy of a weight exists;
+// - the tile's work is a program of steps (data_program) that every thread
+//   walks and thread 0 also walks ahead to feed the ring;
+// - the walk back's relu masks, the r_k and s_k planes just stashed, come
+//   back by TMA into the operand tile that the product does not read;
+// - the thin parts stay on the CUDA cores: lin_out's d_out = 4 product and
+//   its column sums, dx (kin <= 128 columns), the per-32-row bias sums
+//   (shuffles within a warp, then the half's second warp adds to the
+//   first's after a warpgroup barrier), dz's f32 read-modify-write in
+//   injection order by the thread that wrote it;
+// - a 64-point tile writes two rows of per-32-row sums, so the DataOut
+//   (B_pad = B rounded up to 32) is the weights kernel's as before; a last
+//   tile half past B_pad reads zeros and writes nothing there;
+// - no atomics: two calls on the same inputs give the same bits.
+// Its recompute sums in another order than the forward kernels' 32-point
+// tower (resnetfc_tower.cuh), so a few relu masks may differ from the
+// primal's; the backward's gates allow <= 1e-3 flips.
 //
 // The weights kernel on its own is bound by bytes on an H100 SXM: the train
 // step's fine pass reads its workspace once, 1.18 GB at -V 1 and 2.4 GiB at
@@ -76,267 +112,776 @@ namespace {
 
 using namespace rfc;
 
+// ---------------------------------------------------------------------------
+// data gradients: 64-point tiles on wgmma, weights fed by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int D_PTS = 64;        // points a tile: one wgmma M
+// two warpgroups and no producer warp: thread 0 also keeps the weight ring
+// fed, so that every thread may hold 255 registers (a ninth warp would leave
+// three warps on one SM quarter's 16 K registers: 168 each)
+constexpr int D_THREADS = 256;
+constexpr int D_HALF = HID / 2;  // columns a warpgroup owns: 256
+constexpr int D_PIECE = 128;           // columns of one product: wgmma m64n128k16
+constexpr int D_BPW = D_PIECE / 64;     // weight boxes a warpgroup a stage: 2
+constexpr int D_NP = D_HALF / D_PIECE;  // pieces a warpgroup: 2
+constexpr int D_ACC = D_PIECE * D_PTS / 128;  // f32 accumulators a thread a piece: 64
+constexpr int D_STREAM = D_NP * D_ACC;        // a thread's share of a 64 x 256 stream: 128
+constexpr int D_STAGES = 3;
+constexpr uint32_t D_BOX = 64 * 128;                   // one TMA box: 64 x 64 bf16
+constexpr uint32_t D_STAGE = 2 * D_BPW * D_BOX;        // 64 of K x the two warpgroups' pieces
+constexpr uint32_t D_TILE = D_PTS * HID * 2;           // a 64 x 512 bf16 operand tile
+constexpr size_t D_SMEM = 2 * D_TILE + (size_t)D_STAGES * D_STAGE + 1024;  // + alignment
+// steps of one tile's program (data_program; sn64: 34 at one view, 86 at
+// three)
+constexpr int D_MAX_STEPS = 256;
+// f32 words of one CTA's view-sum slot (multi-view): every thread's share of
+// the 64 x 512 stream
+constexpr int D_SLOT_FLOATS = D_STREAM * D_THREADS;
+// named barrier 2 + wg: over warpgroup wg
+
 struct BwdParams {
   TowerParams t;   // z, x and the packed weights
+  CUtensorMap m_in, m_z, m_blk;  // w_in (kin, H), w_z (n_lin_z C, H), w_blk (2 n_blocks H, H)
+  CUtensorMap m_act;  // ws_act as ((2 NP + 1) B_pad, H): the relu masks, read back
   const float* g;  // (d_out, B) planar f32 cotangent
-  float* dz;       // (B_pad, C) f32, written when n_lin_z > 0
-  float* dx;       // (B, d_in) f32, or null
+  float* dz;       // (NS B_pad, C) f32, written when n_lin_z > 0
+  float* dx;       // (NS B, d_in) f32, or null
   bf16* ws_act;    // (2 NP + 1, B_pad, H): r_k, s_k, t (NP = plane_at(n_blocks))
   bf16* ws_cot;    // (2 NP + NS, B_pad, H): gb_k, dh_k, g_in
   bf16* ws_x;      // (NS, B_pad, kin) bf16 code
   bf16* ws_z;      // (NS, B_pad, C) bf16 latent, multi-view only
-  float* rows;     // (n_tiles, R, H) per-tile column sums
-  float* vsum;     // (gridDim.x, SLOT_FLOATS), multi-view only
+  float* rows;     // (B_pad / 32, R, H) per-32-row column sums
+  float* vsum;     // (gridDim.x, D_SLOT_FLOATS), multi-view only
   int B_pad, R;
 };
 // rows: 0 db_in | 1 + k db_z[k] | 1 + n_lin_z + 2k + i db of fc_i of block k
 //       | 1 + n_lin_z + 2 n_blocks db_out (first d_out columns) | then d_out
 //       rows of dW_out^T
 
-// dst = bf16(f) over the warp's fragments, and the column sums of the f32 f
-// over the tile's rows into ra (and rb when given), or added to them (`add`:
-// a later view of the same tile).
-__device__ __forceinline__ void emit_cot(const FragC (&f)[2][J], bf16* dst, int ld, int col0,
-                                         float* stg, float* ra, float* rb, bool add) {
-  const int lane = threadIdx.x & 31;
+// Where accumulator i of this thread lies in a 64 x 128 piece: row, and the
+// first of two neighbouring columns (i even; i + 1 is the next column).
+__device__ __forceinline__ int acc_row(int i) {
+  const int t = threadIdx.x & 127;
+  return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int acc_col(int i) { return 8 * (i >> 2) + 2 * (threadIdx.x & 3); }
+
+// Memory accesses are not moved across this point: a loop over the stream
+// fenced every few elements reads only those elements ahead, so that its
+// reads do not all wait in registers beside the stream and the accumulators.
+__device__ __forceinline__ void group_fence() { asm volatile("" ::: "memory"); }
+
+// This warpgroup's first column of piece p.
+__device__ __forceinline__ int piece_col(int p) { return (threadIdx.x >> 7) * D_HALF + p * D_PIECE; }
+
+// Shared-memory writes by the threads made visible to the products that
+// read them next.
+__device__ __forceinline__ void publish() {
+  hopper::fence_proxy_async();
+  __syncthreads();
+}
+
+// Two f32 values as bf16 at (r, c), (r, c + 1) of a swizzled operand tile.
+__device__ __forceinline__ void put2(unsigned char* tile, int r, int c, float a, float b) {
+  *reinterpret_cast<uint32_t*>(tile + hopper::sw128_offset(r, c)) = pack_bf16x2(a, b);
+}
+
+// Both bf16 values at (r, c), (r, c + 1) of a swizzled operand tile are > 0
+// (bits 0 and 1); rows at or past `valid` read as not live.
+__device__ __forceinline__ int live2(const unsigned char* tile, int row, int c, int valid) {
+  if (row >= valid) return 0;
+  const uint32_t v = *reinterpret_cast<const uint32_t*>(tile + hopper::sw128_offset(row, c));
+  return (bf16_lo(v) > 0.0f ? 1 : 0) | (bf16_hi(v) > 0.0f ? 2 : 0);
+}
+
+// Thread 0: the tile's rows of workspace plane `plane` of ws_act (a stashed
+// r_k or s_k) into `tile` by TMA, swizzled as the operand tiles are, on `bar`.
+__device__ __forceinline__ void load_mask(const BwdParams& q, unsigned char* tile, uint64_t* bar,
+                                          size_t plane, int row0) {
+  hopper::mbar_arrive_expect_tx(bar, D_TILE);
 #pragma unroll
-  for (int j = 0; j < J; ++j) {
-    float csum = 0.0f;
+  for (int j = 0; j < HID / 64; ++j)
+    hopper::tma_load_2d(tile + j * D_BOX, &q.m_act, bar, 64 * j, (int)(plane * q.B_pad) + row0);
+}
+
+constexpr int D_MAX_OUT = 4;  // outputs of lin_out the data kernel takes (d_out 4 in every config)
+
+// Column sums over each 32-row half of the tile at row0 of one piece's f32
+// values val(i) (accumulator layout), into rows ra and rb (rb < 0: none) of
+// the per-32-row sums `rows` (half h of the tile at 32-row tile row0 / 32 +
+// h); add: added to what is there (a later view of the same tile).  A half's
+// rows lie in two warps: the first writes its 16 rows' sums, the second adds
+// its own after a barrier over the warpgroup.  A half at or past `valid`
+// rows (past B_pad) is not written.
+template <typename Val>
+__device__ __forceinline__ void half_sums(Val val, int p, float* rows, int row0, int valid, int R,
+                                          int ra, int rb, bool add) {
+  const int halves = valid >> 5;
+  float* rows_t = rows + (size_t)(row0 >> 5) * R * HID;
+  const int t = threadIdx.x & 127, warp = t >> 5, lane = t & 31;
+  const int half = warp >> 1, second = warp & 1;
+  const int wg = threadIdx.x >> 7;
+  // every lane reads (a half past B_pad reads half 0's row and writes nothing),
+  // so that a group's reads go out together
+  const int hs = half < halves ? half : 0;
+  const bool wr = lane < 4 && half < halves;
+  float* da = rows_t + ((size_t)hs * R + ra) * HID + piece_col(p) + 2 * (lane & 3);
+  float* db = rb >= 0 ? rows_t + ((size_t)hs * R + rb) * HID + piece_col(p) + 2 * (lane & 3) : nullptr;
+  for (int pass = 0; pass < 2; ++pass) {
+    if (pass == 1) hopper::named_barrier(2 + wg, 128);
+    if (second != pass) continue;
+    const bool rd = add || pass == 1;
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      wmma::store_matrix_sync(stg, f[h][j], 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32)
-        dst[(16 * h + (e >> 4)) * ld + col0 + 16 * j + (e & 15)] = __float2bfloat16_rn(stg[e]);
-      if (lane < 16)
-        for (int r = 0; r < 16; ++r) csum += stg[r * 16 + lane];
-      __syncwarp();
-    }
-    if (lane < 16) {
-      float* a = ra + col0 + 16 * j + lane;
-      *a = add ? *a + csum : csum;
-      if (rb) {
-        float* b = rb + col0 + 16 * j + lane;
-        *b = add ? *b + csum : csum;
+    for (int j0 = 0; j0 < D_ACC / 4; j0 += 2) {  // two 8-column groups at a time
+      float2 s[2];
+#pragma unroll
+      for (int j = 0; j < 2; ++j) {
+        float a[2];
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          a[e] = val(4 * (j0 + j) + e) + val(4 * (j0 + j) + 2 + e);
+          a[e] += __shfl_xor_sync(0xffffffffu, a[e], 4);
+          a[e] += __shfl_xor_sync(0xffffffffu, a[e], 8);
+          a[e] += __shfl_xor_sync(0xffffffffu, a[e], 16);
+        }
+        s[j] = make_float2(a[0], a[1]);
+      }
+      for (int w = 0; w < 2; ++w) {
+        float* d = w == 0 ? da : db;
+        if (d == nullptr) continue;
+        float2 o[2];
+#pragma unroll
+        for (int j = 0; j < 2; ++j)
+          o[j] = rd ? *reinterpret_cast<const float2*>(d + 8 * (j0 + j)) : make_float2(0.0f, 0.0f);
+        if (wr)
+#pragma unroll
+          for (int j = 0; j < 2; ++j)
+            *reinterpret_cast<float2*>(d + 8 * (j0 + j)) = make_float2(o[j].x + s[j].x, o[j].y + s[j].y);
       }
     }
   }
 }
 
-__device__ __forceinline__ bool live(const bf16* m, int ld, int h, int col, int e) {
-  return __bfloat162float(m[(16 * h + (e >> 4)) * ld + col + (e & 15)]) > 0.0f;
+// A swizzled (64, H) tile into rows row0.. of an (rows, H) row-major global
+// plane, 16 bytes a copy; rows at or past `valid` are not written.
+__device__ __forceinline__ void stash(const unsigned char* tile, bf16* dst, int row0, int valid) {
+  constexpr int NQ = HID / 8;
+#pragma unroll 1
+  for (int e = threadIdx.x; e < valid * NQ; e += D_THREADS) {
+    const int r = e / NQ, c = (e % NQ) * 8;
+    *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * HID + c) =
+        *reinterpret_cast<const uint4*>(tile + hopper::sw128_offset(r, c));
+  }
 }
 
-template <bool MV>
-__global__ void __launch_bounds__(NTHREADS, 1) resnetfc_bwd_data_kernel(const BwdParams q) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
+// The tile's bf16 code of view v into `tile` (zeros past B and past d_in)
+// and its stash ws_x (view v at v B_pad rows).  Reads go out two at a time,
+// from a clamped row, so that they overlap.
+__device__ __forceinline__ void load_code(const BwdParams& q, unsigned char* tile, int row0, int v,
+                                          int valid) {
   const TowerParams& p = q.t;
-  const Layout L = layout(p.C, p.kin, p.n_lin_z, true);
-  const Smem s = carve(smem_raw, L);
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int col0 = warp * J * 16;
-  const int nb = p.n_blocks, nlz = p.n_lin_z, d_out = p.d_out, C = p.C;
-  // one view: every block per view, one plane each (compile-time, so the
-  // single-view kernel keeps the shape it had before the view loop)
+  const int kin = p.kin, n = D_PTS * kin;
+  for (int e0 = threadIdx.x; e0 < n; e0 += 2 * D_THREADS) {
+    float f[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = min(e0 + u * D_THREADS, n - 1), r = e / kin, c = e - r * kin;
+      const int g = min(row0 + r, p.B - 1);
+      f[u] = p.x[src_row(p, g, v) * p.d_in + min(c, p.d_in - 1)];
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = min(e0 + u * D_THREADS, n - 1), r = e / kin, c = e - r * kin;
+      if (e0 + u * D_THREADS >= n) continue;
+      const bf16 b = __float2bfloat16_rn(row0 + r < p.B && c < p.d_in ? f[u] : 0.0f);
+      *reinterpret_cast<bf16*>(tile + hopper::sw128_offset(r, c)) = b;
+      if (r < valid) q.ws_x[((size_t)v * q.B_pad + row0 + r) * kin + c] = b;
+    }
+  }
+}
+
+// The tile's bf16 latent of view v into `tile` (zeros past B); multi-view
+// also stashes it in ws_z.  C = H: 16 chunks of 16 bytes a thread, read two
+// at a time from a clamped row.
+__device__ __forceinline__ void load_latent(const BwdParams& q, unsigned char* tile, int row0, int v,
+                                            int valid) {
+  const TowerParams& p = q.t;
+  constexpr int NQ = HID / 8;
+  for (int e0 = threadIdx.x; e0 < D_PTS * NQ; e0 += 2 * D_THREADS) {
+    uint4 v8[2];
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = e0 + u * D_THREADS, r = e / NQ, c = (e - r * NQ) * 8;
+      const int g = min(row0 + r, p.B - 1);
+      v8[u] = __ldg(reinterpret_cast<const uint4*>(p.z + src_row(p, g, v) * HID + c));
+    }
+#pragma unroll
+    for (int u = 0; u < 2; ++u) {
+      const int e = e0 + u * D_THREADS, r = e / NQ, c = (e - r * NQ) * 8;
+      if (row0 + r >= p.B) v8[u] = make_uint4(0u, 0u, 0u, 0u);
+      *reinterpret_cast<uint4*>(tile + hopper::sw128_offset(r, c)) = v8[u];
+      if (q.ws_z != nullptr && r < valid)
+        *reinterpret_cast<uint4*>(q.ws_z + ((size_t)v * q.B_pad + row0 + r) * HID + c) = v8[u];
+    }
+  }
+}
+
+// The data kernel's program for one tile, the same for every tile: a list of
+// steps that every thread walks in order, and that thread 0 also walks,
+// ahead, to feed the weight ring with the products' boxes.  A step is one
+// product (with what precedes it and its epilogue) or one action between
+// products; each kind's code exists once, so the kernel stays small.
+enum Kind {
+  IN_FWD,  // lin_in of view v: x = code W_in + b_in (aux: emit relu(x))
+  Z_FWD,   // injection k of view v: x += z W_z[k] + b_z[k]
+  B0_FWD,  // fc_0 of block k: s = relu(r_k W0 + b0), r_k = relu(x) stashed
+  B1_FWD,  // fc_1 of block k: x += s_k W1 + b1, s_k stashed (aux: emit relu(x))
+  FOLD,    // view v's x into the view mean (multi-view)
+  T_OUT,   // t stashed; lin_out's sums; the cotangent of t
+  GB,      // gb = bf16(cotangent of block k's output) into act, stashed, summed
+  Z_BWD,   // dz_v (+)= gb W_z[k]^T (aux: the view's first, which writes)
+  B1_BWD,  // dh = gb W1^T [s_k > 0] into hb, summed
+  B0_BWD,  // cotangent += bf16(dh) W0^T [r_k > 0], dh stashed
+  DVIEW,   // view v's walk starts from dview = cotangent / NS (multi-view)
+  G_IN,    // the cotangent of lin_in's output into act, stashed, summed; dx
+};
+__host__ __device__ constexpr int step(int kind, int k, int v, int aux) {
+  return kind | (k << 4) | (v << 12) | (aux << 20);
+}
+__device__ __forceinline__ int step_kind(int s) { return s & 15; }
+__device__ __forceinline__ int step_k(int s) { return (s >> 4) & 255; }
+__device__ __forceinline__ int step_v(int s) { return (s >> 12) & 255; }
+__device__ __forceinline__ int step_aux(int s) { return s >> 20; }
+__device__ __forceinline__ bool is_gemm(int kind) {
+  return kind != FOLD && kind != T_OUT && kind != GB && kind != DVIEW && kind != G_IN;
+}
+
+// The steps of one tile in order; returns their count.  n_lin_z <= pre.
+__host__ __device__ inline int data_program(int* out, int n_blocks, int n_lin_z, int NS, int pre) {
+  int n = 0;
+  auto put = [&](int s) {
+    if (out != nullptr) out[n] = s;
+    ++n;
+  };
+  const bool mv = NS > 1;
+  for (int v = 0; v < NS; ++v) {
+    // block 0 reads relu(x) directly when no latent is injected first
+    put(step(IN_FWD, 0, v, n_lin_z == 0 && pre > 0));
+    for (int k = 0; k < pre; ++k) {
+      if (k < n_lin_z) put(step(Z_FWD, k, v, 0));
+      put(step(B0_FWD, k, v, 0));
+      // the next reader of relu(x) is fc_0 of block k + 1 (or lin_out) unless
+      // block k + 1 injects the latent first, or the view mean comes next
+      put(step(B1_FWD, k, v, k + 1 >= n_lin_z && (k + 1 < pre || !mv)));
+    }
+    if (mv) put(step(FOLD, 0, v, 0));
+  }
+  for (int k = pre; k < n_blocks; ++k) {
+    put(step(B0_FWD, k, 0, 0));
+    put(step(B1_FWD, k, 0, 1));
+  }
+  put(step(T_OUT, 0, 0, 0));
+  for (int k = n_blocks - 1; k >= pre; --k) {
+    put(step(GB, k, 0, 0));
+    put(step(B1_BWD, k, 0, 0));
+    put(step(B0_BWD, k, 0, 0));
+  }
+  for (int v = 0; v < NS; ++v) {
+    if (mv) put(step(DVIEW, 0, v, 0));
+    bool first_z = true;
+    for (int k = pre - 1; k >= 0; --k) {
+      put(step(GB, k, v, 0));
+      if (k + 1 < n_lin_z) {
+        put(step(Z_BWD, k + 1, v, first_z));
+        first_z = false;
+      }
+      put(step(B1_BWD, k, v, 0));
+      put(step(B0_BWD, k, v, 0));
+    }
+    put(step(G_IN, 0, v, 0));
+    if (n_lin_z > 0) put(step(Z_BWD, 0, v, first_z));
+  }
+  return n;
+}
+
+// The weight operand of a product step: map (0 w_in, 1 w_z, 2 w_blk), walk
+// back (B = W^T) or not, first weight row, K.
+struct Gemm {
+  int map, trans, rowbase, K;
+};
+__device__ __forceinline__ Gemm gemm_of(int s, int kin, int C) {
+  const int k = step_k(s);
+  switch (step_kind(s)) {
+    case IN_FWD: return Gemm{0, 0, 0, kin};
+    case Z_FWD: return Gemm{1, 0, k * C, C};
+    case B0_FWD: return Gemm{2, 0, 2 * k * HID, HID};
+    case B1_FWD: return Gemm{2, 0, (2 * k + 1) * HID, HID};
+    case Z_BWD: return Gemm{1, 1, k * C, HID};
+    case B1_BWD: return Gemm{2, 1, (2 * k + 1) * HID, HID};
+    default: return Gemm{2, 1, 2 * k * HID, HID};  // B0_BWD
+  }
+}
+
+// The feeding state of the weight ring, which only thread 0 keeps (in shared
+// memory, so that no other thread holds registers for it): the next stage to
+// load is step g of the program, piece pc, K rows ks * 64.., of this CTA's
+// tile `tile` -- in the order the threads take the stages, tile after tile.
+struct Feed {
+  int g, pc, ks, tile;
+};
+
+// The data kernel's shared state beside its dynamic operand tiles and ring,
+// at fixed addresses so that no thread holds registers for them: the ring's
+// full / empty mbarriers, the relu masks' mbarrier, the tile's program and
+// thread 0's feeding state.
+__shared__ __align__(8) uint64_t d_full[D_STAGES], d_empty[D_STAGES], d_mask_full;
+__shared__ int d_prog[D_MAX_STEPS];
+__shared__ int d_n_steps;
+// the current tile's first row and its rows inside B_pad (64, or 32 at a
+// ragged end), read where used rather than kept in registers
+__shared__ int d_row0, d_valid;
+__shared__ Feed d_feed;
+
+// The weight ring: D_STAGES stages of D_STAGE bytes at `base` with the
+// mbarriers d_full / d_empty; `it` counts the stages the threads have taken.
+struct Ring {
+  unsigned char* base;
+  uint32_t it;
+};
+
+// Thread 0: load the next stage into ring slot `slot`: the weight boxes of
+// piece pc of both warpgroups.  Forward: B = W rows rowbase + k, read
+// MN-major; walk back: B = W^T, the boxes of W rows rowbase + n (the output
+// columns) and columns k, read K-major.
+__device__ __forceinline__ void feed(const BwdParams& q, Ring& rg, int slot) {
+  const int n_tiles = (q.B_pad + D_PTS - 1) / D_PTS;
+  Feed f = d_feed;
+  while (f.tile < n_tiles && !is_gemm(step_kind(d_prog[f.g]))) {
+    if (++f.g == d_n_steps) {
+      f.g = 0;
+      f.tile += gridDim.x;
+    }
+  }
+  if (f.tile < n_tiles) {
+    const Gemm op = gemm_of(d_prog[f.g], q.t.kin, q.t.C);
+    const CUtensorMap* m = op.map == 0 ? &q.m_in : op.map == 1 ? &q.m_z : &q.m_blk;
+    hopper::mbar_arrive_expect_tx(&d_full[slot], D_STAGE);
+    unsigned char* dst = rg.base + slot * D_STAGE;
+#pragma unroll
+    for (int j = 0; j < 2 * D_BPW; ++j) {
+      const int n = (j / D_BPW) * D_HALF + f.pc * D_PIECE + (j % D_BPW) * 64;
+      if (op.trans)
+        hopper::tma_load_2d(dst + j * D_BOX, m, &d_full[slot], f.ks * 64, op.rowbase + n);
+      else
+        hopper::tma_load_2d(dst + j * D_BOX, m, &d_full[slot], n, op.rowbase + f.ks * 64);
+    }
+    if (++f.ks * 64 >= op.K) {
+      f.ks = 0;
+      if (++f.pc == D_NP) {
+        f.pc = 0;
+        if (++f.g == d_n_steps) {
+          f.g = 0;
+          f.tile += gridDim.x;
+        }
+      }
+    }
+  }
+  d_feed = f;
+}
+
+// Stage u is read: every thread arrives on its empty barrier; thread 0 waits
+// until all have and loads stage u + D_STAGES into the slot.
+__device__ __forceinline__ void release(const BwdParams& q, Ring& rg, uint32_t u) {
+  const int slot = u % D_STAGES;
+  hopper::mbar_arrive(&d_empty[slot]);
+  if (threadIdx.x == 0) {
+    hopper::mbar_wait(&d_empty[slot], (u / D_STAGES) & 1);
+    feed(q, rg, slot);
+  }
+}
+
+// For each piece p of this warpgroup's columns, acc = A . B over K (A a
+// swizzled (64, K) tile, B from the ring as `feed` laid it out: MN-major
+// forward, K-major with trans), then epi(p, acc).
+template <int TB, typename Epi>
+__device__ __forceinline__ void gemm(const BwdParams& q, Ring& rg, const unsigned char* A, int K,
+                                     Epi epi) {
+  const int wg = threadIdx.x >> 7;
+  const int nks = (K + 63) / 64;
+#pragma unroll
+  for (int pc = 0; pc < D_NP; ++pc) {
+    float acc[D_ACC];
+#pragma unroll
+    for (int i = 0; i < D_ACC; ++i) acc[i] = 0.0f;
+    for (int ks = 0; ks < nks; ++ks) {
+      const int st = rg.it % D_STAGES;
+      hopper::mbar_wait(&d_full[st], (rg.it / D_STAGES) & 1);
+      const unsigned char* b = rg.base + st * D_STAGE + wg * D_BPW * D_BOX;
+      const int nk = min(4, (K - ks * 64) / 16);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk) {
+        if (kk < nk) {
+          const uint64_t da = hopper::desc_kmajor_sw128(A + ks * 8192 + kk * 32);
+          if (TB)
+            hopper::wgmma_m64n128k16<0, 1>(acc, da, hopper::desc_sw128(b + kk * 2048, D_BOX, 1024), 1);
+          else
+            hopper::wgmma_m64n128k16<0, 0>(acc, da, hopper::desc_kmajor_sw128(b + kk * 32), 1);
+        }
+      }
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // stage ks - 1's products have read it
+      if (ks > 0) release(q, rg, rg.it - 1);
+      ++rg.it;
+    }
+    hopper::wgmma_wait<0>();
+    release(q, rg, rg.it - 1);
+    epi(pc, acc);
+  }
+}
+
+// One CTA of 256 threads walks 64-point tiles (multi-view: persistent CTAs,
+// one per SM).  Warpgroups 0 and 1 each own 256 of the 512 columns of every
+// layer for all 64 points: their share of the f32 residual stream (the
+// recompute) or of its cotangent (the walk back) lives in 128 registers a
+// thread, `sv`.  Operand A of every product is a 64 x 512 bf16 tile in
+// shared memory, K-major with the 128-byte swizzle, written by the threads
+// from their accumulators: `act` (r_k, t or the cotangent) and `hb` (the
+// code, the latent, s_k or dh).  Every product is preceded by a fence of the
+// async proxy and a barrier over both warpgroups, and writes its epilogue into
+// the other tile, so that no tile is rewritten while a product still reads
+// it.  Operand B streams through the weight ring, D_STAGES - 1 stages ahead:
+// thread 0 refills each slot as soon as both warpgroups have read it.
+template <bool MV>
+__global__ void __launch_bounds__(D_THREADS, 1)
+    resnetfc_bwd_data_kernel(const __grid_constant__ BwdParams q) {
+  extern __shared__ unsigned char d_smem_raw[];
+  const TowerParams& p = q.t;
+  const uint32_t raw = hopper::smem_u32(d_smem_raw);
+  unsigned char* act = d_smem_raw + (((raw + 1023) & ~1023u) - raw);
+  unsigned char* hb = act + D_TILE;
+  const int nb = p.n_blocks, nlz = p.n_lin_z, C = p.C, kin = p.kin, d_out = p.d_out;
+  // one view: every block per view, one plane each
   const int pre = MV ? p.pre : nb, NS = MV ? p.NS : 1;
+  const int n_tiles = (q.B_pad + D_PTS - 1) / D_PTS;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < D_STAGES; ++st) {
+      hopper::mbar_init(&d_full[st], 1);
+      hopper::mbar_init(&d_empty[st], D_THREADS);
+    }
+    hopper::mbar_init(&d_mask_full, 1);
+    hopper::mbar_fence_init();
+    d_n_steps = data_program(d_prog, nb, nlz, NS, pre);
+  }
+  __syncthreads();
+  Ring rg{hb + D_TILE, 0u};
+  if (threadIdx.x == 0) {
+    d_feed = Feed{0, 0, 0, (int)blockIdx.x};
+    for (int st = 0; st < D_STAGES; ++st) feed(q, rg, st);
+  }
+
   auto first_plane = [&](int k) -> size_t { return MV ? plane_at(p, k) : (size_t)k; };
-  const size_t plane = (size_t)q.B_pad * HID;
-  const size_t NP = first_plane(nb);  // planes of one kind (r, s, gb or dh) over all blocks
-  const int row_bout = 1 + nlz + 2 * nb;
-  const int n_tiles = q.B_pad / BM;
-  float* slot = MV ? q.vsum + (size_t)blockIdx.x * SLOT_FLOATS : nullptr;
+  const int plane = q.B_pad * HID;  // elements of one workspace plane
+  const int NP = (int)first_plane(nb);  // planes of one kind (r, s, gb or dh) over all blocks
+  const int R = q.R, row_bout = 1 + nlz + 2 * nb;
+
+  float sv[D_STREAM];  // the stream x (recompute), then its cotangent (walk back)
+
+  // bf16(relu(sv)) into act
+  auto emit_relu = [&](int pc) {
+#pragma unroll
+    for (int i = 0; i < D_ACC; i += 2)
+      put2(act, acc_row(i), piece_col(pc) + acc_col(i), fmaxf(sv[pc * D_ACC + i], 0.0f),
+           fmaxf(sv[pc * D_ACC + i + 1], 0.0f));
+  };
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * BM;
-    float* rows = q.rows + (size_t)tile * q.R * HID;
-    FragC dxc[2][J], acc[2][J];
-    if (MV) {
-      tower_mv<false, true>(p, L, s, dxc, acc, row0, slot, q.ws_act, q.ws_x, q.ws_z, q.B_pad);
-    } else {
-      load_inputs<false>(p, L, s, row0, 0);
-      __syncthreads();
-      copy_tile<true>(s.xin, L.ldx, q.ws_x, p.kin, row0);
-      tower<true>(p, L, s, dxc, acc, row0, q.ws_act, plane);  // s.act = t
-    }
-    copy_tile<true>(s.act, L.lda, q.ws_act + 2 * NP * plane, HID, row0);
-
-    // ---- lin_out: dW_out += t^T bf16(g), db_out += sum g, dt = bf16(g) W_out^T ----
-    float* gs = reinterpret_cast<float*>(s.mb);  // (BM, d_out) cotangent tile
-    for (int e = tid; e < BM * d_out; e += NTHREADS) {
-      const int r = e / d_out, c = e - r * d_out, gi = row0 + r;
-      gs[e] = gi < p.B ? q.g[(size_t)c * p.B + gi] : 0.0f;
+    // gb = bf16(sv) into act, the f32 column sums of sv into rows ra (and rb)
+    auto emit_cot = [&](int ra, int rb, bool add) {
+#pragma unroll
+      for (int pc = 0; pc < D_NP; ++pc) {
+#pragma unroll
+        for (int i = 0; i < D_ACC; i += 2)
+          put2(act, acc_row(i), piece_col(pc) + acc_col(i), sv[pc * D_ACC + i],
+               sv[pc * D_ACC + i + 1]);
+        half_sums([&](int i) { return sv[pc * D_ACC + i]; }, pc, q.rows, d_row0, d_valid, R, ra, rb, add);
+      }
+    };
+    __syncthreads();  // the previous tile's last readers of act, hb and the tile's rows are done
+    if (threadIdx.x == 0) {
+      d_row0 = tile * D_PTS;
+      d_valid = min(D_PTS, q.B_pad - tile * D_PTS);  // rows inside B_pad: 64, or 32 at a ragged end
     }
     __syncthreads();
-    for (int c = tid; c < HID; c += NTHREADS) {
-      float sb = 0.0f;
-      if (c < d_out)
-        for (int r = 0; r < BM; ++r) sb += gs[r * d_out + c];
-      rows[(size_t)row_bout * HID + c] = sb;
-      for (int o = 0; o < d_out; ++o) {
-        float sw = 0.0f;
-        for (int r = 0; r < BM; ++r)
-          sw = fmaf(__bfloat162float(s.act[r * L.lda + c]), round_bf16(gs[r * d_out + o]), sw);
-        rows[(size_t)(row_bout + 1 + o) * HID + c] = sw;
-      }
-    }
-  #pragma unroll
-    for (int j = 0; j < J; ++j) {
-  #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        for (int e = lane; e < 256; e += 32) {
-          const int r = 16 * h + (e >> 4), col = col0 + 16 * j + (e & 15);
-          float v = 0.0f;
-          for (int o = 0; o < d_out; ++o)
-            v = fmaf(round_bf16(gs[r * d_out + o]), __bfloat162float(p.w_out[(size_t)col * d_out + o]), v);
-          s.stg[e] = live(s.act, L.lda, h, col0 + 16 * j, e) ? v : 0.0f;
-        }
-        __syncwarp();
-        wmma::load_matrix_sync(dxc[h][j], s.stg, 16, wmma::mem_row_major);
-        __syncwarp();
-      }
-    }
-    __syncthreads();  // t and the g tile are read; s.act and s.mb are rewritten below
 
-    bool dz_started = false;
-    // dz_v (+)= bf16(dv) W_z[kz]^T with bf16(dv) in s.act, summed in f32 in dz
-    // (view v's rows start at v B_pad)
-    auto dz_add = [&](int kz, int v) {
-      warp_gemm<true>(acc, s.act, L.lda, HID, p.w_z + (size_t)kz * C * HID, HID, col0, s.ring, L.sld);
-  #pragma unroll
-      for (int j = 0; j < J; ++j) {
-  #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          float* dst = q.dz + ((size_t)v * q.B_pad + row0 + 16 * h) * C + col0 + 16 * j;
-          if (dz_started) {
-            FragC old;
-            wmma::load_matrix_sync(old, dst, C, wmma::mem_row_major);
-  #pragma unroll
-            for (int i = 0; i < old.num_elements; ++i) acc[h][j].x[i] = old.x[i] + acc[h][j].x[i];
-          }
-          wmma::store_matrix_sync(dst, acc[h][j], C, wmma::mem_row_major);
-        }
-      }
-      dz_started = true;
-    };
-
-    // back through block k (view v below the mean, 0 above it); a later view
-    // adds its bias column sums to the earlier views'
-    auto block_back = [&](int k, int v) {
-      const bool below = k < pre, add = below && v > 0;
-      const size_t pc = first_plane(k) + (below ? v : 0);      // gb_k; dh_k at NP + pc
-      const size_t pa = 2 * first_plane(k) + (below ? v : 0);  // r_k; s_k at pa + views
-      const bf16* w0 = p.w_blk + (size_t)(2 * k) * HID * HID;
-      // gb = bf16(cotangent of block k's output); db of fc_1 sums the f32 one,
-      // and so does db of lin_z_{k+1}, whose output meets the same cotangent
-      emit_cot(dxc, s.act, L.lda, col0, s.stg, rows + (size_t)(1 + nlz + 2 * k + 1) * HID,
-               k + 1 < nlz ? rows + (size_t)(2 + k) * HID : nullptr, add);
-      __syncthreads();
-      copy_tile<true>(s.act, L.lda, q.ws_cot + pc * plane, HID, row0);
-      if (k + 1 < nlz) dz_add(k + 1, v);
-      copy_tile<false>(s.mb, L.lda, q.ws_act + (pa + (below ? NS : 1)) * plane, HID, row0);
-      warp_gemm<true>(acc, s.act, L.lda, HID, w0 + (size_t)HID * HID, HID, col0, s.ring, L.sld);
-      __syncthreads();  // s_k complete
-      // dh = ds [s > 0]: bf16 into hb, f32 column sums for db of fc_0
-      float* row_fc0 = rows + (size_t)(1 + nlz + 2 * k) * HID;
-  #pragma unroll
-      for (int j = 0; j < J; ++j) {
-        float csum = 0.0f;
-  #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          wmma::store_matrix_sync(s.stg, acc[h][j], 16, wmma::mem_row_major);
-          __syncwarp();
-          for (int e = lane; e < 256; e += 32) {
-            const float dh = live(s.mb, L.lda, h, col0 + 16 * j, e) ? s.stg[e] : 0.0f;
-            s.stg[e] = dh;
-            s.hb[(16 * h + (e >> 4)) * L.lda + col0 + 16 * j + (e & 15)] = __float2bfloat16_rn(dh);
-          }
-          __syncwarp();
-          if (lane < 16)
-            for (int r = 0; r < 16; ++r) csum += s.stg[r * 16 + lane];
-          __syncwarp();
-        }
-        if (lane < 16) {
-          float* a = row_fc0 + col0 + 16 * j + lane;
-          *a = add ? *a + csum : csum;
-        }
-      }
-      __syncthreads();  // hb complete; the s_k masks are read
-      copy_tile<true>(s.hb, L.lda, q.ws_cot + (NP + pc) * plane, HID, row0);
-      copy_tile<false>(s.mb, L.lda, q.ws_act + pa * plane, HID, row0);  // r_k
-      warp_gemm<true>(acc, s.hb, L.lda, HID, w0, HID, col0, s.ring, L.sld);  // dr = bf16(dh) W0^T
-      __syncthreads();  // r_k complete
-  #pragma unroll
-      for (int j = 0; j < J; ++j) {
-  #pragma unroll
-        for (int h = 0; h < 2; ++h) {
-          wmma::store_matrix_sync(s.stg, acc[h][j], 16, wmma::mem_row_major);
-          __syncwarp();
-          for (int e = lane; e < 256; e += 32)
-            if (!live(s.mb, L.lda, h, col0 + 16 * j, e)) s.stg[e] = 0.0f;
-          __syncwarp();
-          FragC dr;
-          wmma::load_matrix_sync(dr, s.stg, 16, wmma::mem_row_major);
-          __syncwarp();
-  #pragma unroll
-          for (int i = 0; i < dr.num_elements; ++i) dxc[h][j].x[i] += dr.x[i];
-        }
-      }
-    };
-
-    for (int k = nb - 1; k >= pre; --k) block_back(k, 0);  // above the mean (none when NS == 1)
-    for (int v = 0; v < NS; ++v) {
-      if (MV) {
-        // dview = dxc * (1 / NS) starts every view's walk: kept in the slot
+    for (int si = 0; si < d_n_steps; ++si) {
+      const int s = d_prog[si];
+      const int kind = step_kind(s), k = step_k(s), v = step_v(s), aux = step_aux(s);
+      const bool below = k < pre;
+      // block k's planes: r_k at pa (s_k at pa + views), gb_k at pcot (dh_k at NP + pcot)
+      const int pa = 2 * (int)first_plane(k) + (below ? v : 0);
+      const int pcot = (int)first_plane(k) + (below ? v : 0);
+      const int views = below ? NS : 1;
+      // ---- the actions between products ----
+      if (kind == FOLD) {
+        // the view mean: sum in view order in the slot, then sum * (1 / NS);
+        // after the last view, relu(mean) for the first shared block
         const float inv = 1.0f / (float)NS;
-  #pragma unroll
-        for (int h = 0; h < 2; ++h)
-  #pragma unroll
-          for (int j = 0; j < J; ++j)
-  #pragma unroll
-            for (int i = 0; i < FragC::num_elements; ++i) {
-              float* a = slot_at(slot, h, j, i);
-              if (v == 0) {
-                dxc[h][j].x[i] *= inv;
-                *a = dxc[h][j].x[i];
-              } else {
-                dxc[h][j].x[i] = *a;
+#pragma unroll
+        for (int i = 0; i < D_STREAM; ++i) {
+          float* a = q.vsum + ((size_t)blockIdx.x * D_STREAM + i) * D_THREADS + threadIdx.x;
+          if (v == 0) {
+            *a = sv[i];
+          } else {
+            const float sum = *a + sv[i];
+            if (v + 1 < NS)
+              *a = sum;
+            else
+              sv[i] = sum * inv;
+          }
+          if (i % 16 == 15) group_fence();
+        }
+        if (v + 1 == NS)
+#pragma unroll
+          for (int pc = 0; pc < D_NP; ++pc) emit_relu(pc);
+        continue;
+      }
+      if (kind == T_OUT) {
+        publish();  // act = t
+        stash(act, q.ws_act + (size_t)(2 * NP) * plane, d_row0, d_valid);
+        // lin_out: dW_out^T and db_out as per-32-row sums; cotangent = bf16(g) W_out^T [t > 0]
+        float gb[2][D_MAX_OUT];  // bf16(g) of this thread's two rows (0 past B)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const int gi = d_row0 + acc_row(2 * h);
+#pragma unroll
+          for (int o = 0; o < D_MAX_OUT; ++o) {
+            const float u = q.g[(size_t)min(o, d_out - 1) * p.B + min(gi, p.B - 1)];
+            gb[h][o] = (o < d_out && gi < p.B) ? round_bf16(u) : 0.0f;
+          }
+        }
+#pragma unroll
+        for (int pc = 0; pc < D_NP; ++pc)
+#pragma unroll
+          for (int o = 0; o < D_MAX_OUT; ++o)
+            if (o < d_out)
+              half_sums([&](int i) { return round_bf16(fmaxf(sv[pc * D_ACC + i], 0.0f)) * gb[(i >> 1) & 1][o]; },
+                        pc, q.rows, d_row0, d_valid, R, row_bout + 1 + o, -1, false);
+        float* rows_t = q.rows + (size_t)(d_row0 >> 5) * R * HID;
+        for (int e = threadIdx.x; e < (d_valid >> 5) * HID; e += D_THREADS) {
+          const int h = e / HID, c = e - h * HID;
+          float sb = 0.0f;
+          if (c < d_out)
+#pragma unroll 8
+            for (int r = 0; r < 32; ++r) {
+              const int gi = d_row0 + 32 * h + r;
+              const float u = q.g[(size_t)c * p.B + min(gi, p.B - 1)];
+              sb += gi < p.B ? u : 0.0f;
+            }
+          rows_t[((size_t)h * R + row_bout) * HID + c] = sb;
+        }
+#pragma unroll
+        for (int pc = 0; pc < D_NP; ++pc)
+#pragma unroll
+          for (int j = 0; j < D_ACC / 4; ++j) {
+            // W_out's rows c, c + 1 serve rows r and r + 8 of this thread
+            const int c = piece_col(pc) + acc_col(4 * j);
+            float w[2][D_MAX_OUT];
+#pragma unroll
+            for (int e = 0; e < 2; ++e)
+#pragma unroll
+              for (int o = 0; o < D_MAX_OUT; ++o)
+                w[e][o] = o < d_out ? __bfloat162float(p.w_out[(size_t)(c + e) * d_out + o]) : 0.0f;
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = 4 * j + e;
+              float u = 0.0f;
+#pragma unroll
+              for (int o = 0; o < D_MAX_OUT; ++o) u = fmaf(gb[e >> 1][o], w[e & 1][o], u);
+              sv[pc * D_ACC + i] = sv[pc * D_ACC + i] > 0.0f ? u : 0.0f;
+            }
+            if ((j & 3) == 3) group_fence();
+          }
+        __syncthreads();  // every thread has read t out of act
+        continue;
+      }
+      if (kind == DVIEW) {
+        // dview = cotangent * (1 / NS) starts every view's walk: kept in the slot
+        const float inv = 1.0f / (float)NS;
+#pragma unroll
+        for (int i = 0; i < D_STREAM; ++i) {
+          float* a = q.vsum + ((size_t)blockIdx.x * D_STREAM + i) * D_THREADS + threadIdx.x;
+          if (v == 0) {
+            sv[i] *= inv;
+            *a = sv[i];
+          } else {
+            sv[i] = *a;
+          }
+          if (i % 16 == 15) group_fence();
+        }
+        if (v > 0) __syncthreads();  // the previous view's last readers of act are done
+        continue;
+      }
+      if (kind == GB) {
+        // gb = bf16(cotangent of block k's output); db of fc_1 sums the f32 one,
+        // and so does db of lin_z_{k+1}, whose output meets the same cotangent
+        emit_cot(1 + nlz + 2 * k + 1, k + 1 < nlz ? 2 + k : -1, below && v > 0);
+        publish();
+        // s_k, fc_1's relu mask, into hb while the products before it run
+        if (threadIdx.x == 0) load_mask(q, hb, &d_mask_full, pa + views, d_row0);
+        stash(act, q.ws_cot + (size_t)pcot * plane, d_row0, d_valid);
+        continue;
+      }
+      if (kind == G_IN) {
+        // the cotangent of lin_in's output, which is also lin_z_0's
+        emit_cot(0, nlz > 0 ? 1 : -1, v > 0);
+        publish();
+        stash(act, q.ws_cot + (size_t)(2 * NP + v) * plane, d_row0, d_valid);
+        if (q.dx != nullptr) {
+          // dx = bf16(dv) W_in^T on the CUDA cores: d_in <= 128 columns
+          for (int e = threadIdx.x; e < D_PTS * p.d_in; e += D_THREADS) {
+            const int r = e / p.d_in, c = e - r * p.d_in, gi = d_row0 + r;
+            if (gi >= p.B) continue;
+            const bf16* w = p.w_in + (size_t)c * HID;
+            float acc = 0.0f;
+            for (int h = 0; h < HID; h += 8) {
+              const uint4 a = *reinterpret_cast<const uint4*>(act + hopper::sw128_offset(r, h));
+              const uint4 b = __ldg(reinterpret_cast<const uint4*>(w + h));
+              const uint32_t av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+              for (int u = 0; u < 4; ++u) {
+                acc = fmaf(bf16_lo(av[u]), bf16_lo(bv[u]), acc);
+                acc = fmaf(bf16_hi(av[u]), bf16_hi(bv[u]), acc);
               }
             }
-      }
-      dz_started = false;
-      for (int k = pre - 1; k >= 0; --k) block_back(k, v);
-
-      // the cotangent of lin_in's output, which is also lin_z_0's
-      emit_cot(dxc, s.act, L.lda, col0, s.stg, rows, nlz > 0 ? rows + HID : nullptr, v > 0);
-      __syncthreads();
-      copy_tile<true>(s.act, L.lda, q.ws_cot + (2 * NP + v) * plane, HID, row0);
-      if (nlz > 0) dz_add(0, v);
-      if (q.dx != nullptr && warp < p.kin / 16) {
-        // dx = bf16(dv) W_in^T: one 16-column tile of the code per warp
-        FragC d[2];
-        wmma::fill_fragment(d[0], 0.0f);
-        wmma::fill_fragment(d[1], 0.0f);
-        for (int ks = 0; ks < HID / 16; ++ks) {
-          FragA a0, a1;
-          FragBT b;
-          wmma::load_matrix_sync(a0, s.act + ks * 16, L.lda);
-          wmma::load_matrix_sync(a1, s.act + 16 * L.lda + ks * 16, L.lda);
-          wmma::load_matrix_sync(b, p.w_in + (size_t)(16 * warp) * HID + ks * 16, HID);
-          wmma::mma_sync(d[0], a0, b, d[0]);
-          wmma::mma_sync(d[1], a1, b, d[1]);
-        }
-        for (int h = 0; h < 2; ++h) {
-          wmma::store_matrix_sync(s.stg, d[h], 16, wmma::mem_row_major);
-          __syncwarp();
-          for (int e = lane; e < 256; e += 32) {
-            const int gi = row0 + 16 * h + (e >> 4), c = 16 * warp + (e & 15);
-            if (gi < p.B && c < p.d_in)
-              q.dx[(MV ? src_row(p, gi, v) : (size_t)gi) * p.d_in + c] = s.stg[e];
+            q.dx[(MV ? src_row(p, gi, v) : (size_t)gi) * p.d_in + c] = acc;
           }
-          __syncwarp();
         }
+        continue;
       }
-      __syncthreads();  // s.act (g_in of view v) is read before the next view rewrites it
+
+      // ---- a product: what precedes it, then the product and its epilogue ----
+      const unsigned char* A = act;
+      if (kind == IN_FWD || kind == Z_FWD) {
+        __syncthreads();  // hb's last readers (lin_in or the previous fc_1) are done
+        if (kind == IN_FWD)
+          load_code(q, hb, d_row0, v, d_valid);
+        else
+          load_latent(q, hb, d_row0, v, d_valid);
+        publish();
+        A = hb;
+      } else if (kind == B0_FWD) {
+        publish();  // act = r_k
+        stash(act, q.ws_act + (size_t)pa * plane, d_row0, d_valid);
+      } else if (kind == B1_FWD) {
+        publish();  // hb = s_k
+        stash(hb, q.ws_act + (size_t)(pa + views) * plane, d_row0, d_valid);
+        A = hb;
+      } else if (kind == B0_BWD) {
+        publish();  // hb = dh
+        if (threadIdx.x == 0) load_mask(q, act, &d_mask_full, pa, d_row0);  // r_k, fc_0's relu mask
+        stash(hb, q.ws_cot + (size_t)(NP + pcot) * plane, d_row0, d_valid);
+        A = hb;
+      }
+      const Gemm op = gemm_of(s, kin, C);
+      // one product site per epilogue kind, so that each keeps only its own
+      // temporaries beside the stream and the accumulators
+      if (kind == IN_FWD || kind == Z_FWD || kind == B1_FWD) {
+        // the residual stream: sv (+)= acc + bias; relu(sv) into act for the next product
+        gemm<1>(q, rg, A, op.K, [&](int pc, float(&acc)[D_ACC]) {
+          const int c0 = piece_col(pc);
+          const int kind = step_kind(s), k = step_k(s), aux = step_aux(s);  // from s: fewer live registers
+          const float* bias = kind == IN_FWD  ? p.b_in
+                              : kind == Z_FWD ? p.b_z + (size_t)k * HID
+                                              : p.b_blk + (size_t)(2 * k + 1) * HID;
+#pragma unroll
+          for (int j = 0; j < D_ACC / 4; ++j) {  // one bias pair serves rows r and r + 8
+            const float2 bj = __ldg(reinterpret_cast<const float2*>(bias + c0 + acc_col(4 * j)));
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int i = 4 * j + e;
+              const float u = acc[i] + ((e & 1) ? bj.y : bj.x);
+              sv[pc * D_ACC + i] = kind == IN_FWD ? u : sv[pc * D_ACC + i] + u;
+            }
+            if ((j & 3) == 3) group_fence();
+          }
+          if (kind == Z_FWD || aux) emit_relu(pc);
+        });
+      } else if (kind == B0_FWD) {
+        gemm<1>(q, rg, A, op.K, [&](int pc, float(&acc)[D_ACC]) {
+          const int c0 = piece_col(pc);
+          const int k = step_k(s);
+          const float* bias = p.b_blk + (size_t)(2 * k) * HID;
+#pragma unroll
+          for (int j = 0; j < D_ACC / 4; ++j) {
+            const int c = c0 + acc_col(4 * j);
+            const float2 bj = __ldg(reinterpret_cast<const float2*>(bias + c));
+#pragma unroll
+            for (int h = 0; h < 2; ++h)
+              put2(hb, acc_row(4 * j + 2 * h), c, fmaxf(acc[4 * j + 2 * h] + bj.x, 0.0f),
+                   fmaxf(acc[4 * j + 2 * h + 1] + bj.y, 0.0f));
+            if ((j & 3) == 3) group_fence();
+          }
+        });
+      } else if (kind == Z_BWD) {
+        // summed in f32 in dz in injection order (view v's rows start at
+        // v B_pad); each thread reads back only what it wrote
+        gemm<0>(q, rg, A, op.K, [&](int pc, float(&acc)[D_ACC]) {
+          const int c0 = piece_col(pc);
+          const int v = step_v(s), aux = step_aux(s);
+          float* dzt = q.dz + ((size_t)v * q.B_pad + d_row0) * HID + c0;  // C = H with a latent
+#pragma unroll
+          for (int i0 = 0; i0 < D_ACC; i0 += 4) {  // two pairs at a time, their reads together
+            float2 o[2];
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int i = i0 + 2 * u, r = min(acc_row(i), d_valid - 1);
+              o[u] = aux ? make_float2(0.0f, 0.0f)
+                         : *reinterpret_cast<const float2*>(dzt + r * HID + acc_col(i));
+            }
+#pragma unroll
+            for (int u = 0; u < 2; ++u) {
+              const int i = i0 + 2 * u;
+              if (acc_row(i) < d_valid)
+                *reinterpret_cast<float2*>(dzt + acc_row(i) * HID + acc_col(i)) =
+                    make_float2(o[u].x + acc[i], o[u].y + acc[i + 1]);
+            }
+            group_fence();
+          }
+        });
+      } else if (kind == B1_BWD) {
+        // dh = ds [s > 0]: bf16 into hb over s_k's mask, f32 column sums for
+        // db of fc_0
+        gemm<0>(q, rg, A, op.K, [&](int pc, float(&acc)[D_ACC]) {
+          const int c0 = piece_col(pc);
+          const int k = step_k(s), v = step_v(s);
+          // each block loads two masks, s_k then r_k: s_k completes even phases
+          hopper::mbar_wait(&d_mask_full, 0);
+#pragma unroll
+          for (int i = 0; i < D_ACC; i += 2) {
+            const int m = live2(hb, acc_row(i), c0 + acc_col(i), d_valid);
+            acc[i] = (m & 1) ? acc[i] : 0.0f;
+            acc[i + 1] = (m & 2) ? acc[i + 1] : 0.0f;
+            put2(hb, acc_row(i), c0 + acc_col(i), acc[i], acc[i + 1]);
+          }
+          half_sums([&](int i) { return acc[i]; }, pc, q.rows, d_row0, d_valid, R, 1 + nlz + 2 * k, -1,
+                    k < pre && v > 0);
+        });
+      } else {  // B0_BWD: dr = bf16(dh) W0^T [r > 0] onto the cotangent
+        gemm<0>(q, rg, A, op.K, [&](int pc, float(&acc)[D_ACC]) {
+          const int c0 = piece_col(pc);
+          hopper::mbar_wait(&d_mask_full, 1);  // r_k: the odd phases
+#pragma unroll
+          for (int i = 0; i < D_ACC; i += 2) {
+            const int m = live2(act, acc_row(i), c0 + acc_col(i), d_valid);
+            if (m & 1) sv[pc * D_ACC + i] += acc[i];
+            if (m & 2) sv[pc * D_ACC + i + 1] += acc[i + 1];
+            if (i % 16 == 14) group_fence();
+          }
+        });
+      }
     }
   }
 }
@@ -535,29 +1080,31 @@ extern "C" {
 
 const char* resnetfc_bwd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-size_t resnetfc_bwd_smem_bytes(int C, int kin, int n_lin_z) {
-  return layout(C, kin, n_lin_z, true).total;
-}
-
 // Rows of per-tile sums: db_in, db_z[k], db of every block layer, db_out and
 // the d_out rows of dW_out^T.
 int resnetfc_bwd_rows(int n_blocks, int n_lin_z, int d_out) { return n_rows(n_blocks, n_lin_z, d_out); }
 
 // Multi-view (NS > 1): B = SB B_obj output points, NS object-major input
 // rows each, the first `pre` blocks per view; ws_z holds NS (B_pad, C) bf16
-// latent planes and vsum n_ctas slots of SLOT_FLOATS f32, and the grid is at
-// most n_ctas.  NS == 1 ignores B_obj, pre, ws_z, vsum and n_ctas.
+// latent planes and vsum n_ctas slots of resnetfc_bwd_data_limits' f32 words,
+// and the grid is at most n_ctas.  NS == 1 ignores B_obj, pre, ws_z, vsum and
+// n_ctas.  B_pad is B rounded up to 32 (the workspace's rows); tiles are 64
+// points, the last one half full when B_pad is an odd multiple of 32.
 int resnetfc_bwd_data(const void* g, const void* z, const void* x, const void* w_in,
                       const void* b_in, const void* w_z, const void* b_z, const void* w_blk,
                       const void* b_blk, const void* w_out, void* dz, void* dx, void* ws_act,
                       void* ws_cot, void* ws_x, void* ws_z, void* rows, void* vsum, int B,
                       int d_in, int kin, int H, int C, int n_blocks, int n_lin_z, int d_out,
                       int NS, int B_obj, int pre, int n_ctas, void* stream) {
-  if (H != HID || (n_lin_z > 0 && C != HID) || kin / 16 > NWARPS || n_blocks < 1)
+  if (H != HID || (n_lin_z > 0 && C != HID) || kin < 16 || kin > 128 || kin % 16 != 0 ||
+      d_in > kin || n_blocks < 1 || d_out < 1 || d_out > D_MAX_OUT)
     return (int)cudaErrorInvalidValue;
   const bool mv = NS > 1;
   if (mv && (pre < 0 || pre >= n_blocks || n_lin_z > pre || B_obj < 1 || B % B_obj != 0 ||
              vsum == nullptr || n_ctas < 1 || (n_lin_z > 0 && ws_z == nullptr)))
+    return (int)cudaErrorInvalidValue;
+  if (n_blocks > 255 || NS > 255 ||
+      data_program(nullptr, n_blocks, n_lin_z, mv ? NS : 1, mv ? pre : n_blocks) > D_MAX_STEPS)
     return (int)cudaErrorInvalidValue;
   BwdParams q = {};
   q.t = tower_params(x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, nullptr, B, d_in, kin, C,
@@ -568,34 +1115,59 @@ int resnetfc_bwd_data(const void* g, const void* z, const void* x, const void* w
     q.t.B_obj = B_obj;
     q.t.pre = pre;
   }
+  // the weights and the workspace's stashed operands as TMA boxes of 64 x 64
+  // (rows past kin read as zeros)
+  const int B_pad = (B + 31) / 32 * 32;
+  const int NP = mv ? NS * pre + n_blocks - pre : n_blocks;
+  int err = hopper::encode_bf16_sw128(&q.m_in, w_in, kin, HID, HID, 64);
+  if (err == 0 && n_lin_z > 0)
+    err = hopper::encode_bf16_sw128(&q.m_z, w_z, (uint64_t)n_lin_z * C, HID, HID, 64);
+  if (err == 0)
+    err = hopper::encode_bf16_sw128(&q.m_blk, w_blk, (uint64_t)2 * n_blocks * HID, HID, HID, 64);
+  if (err == 0)
+    err = hopper::encode_bf16_sw128(&q.m_act, ws_act, (uint64_t)(2 * NP + 1) * B_pad, HID, HID, 64);
+  if (err != 0) return err;
   q.g = static_cast<const float*>(g);
   q.dz = static_cast<float*>(dz);
   q.dx = static_cast<float*>(dx);
   q.ws_act = static_cast<bf16*>(ws_act);
   q.ws_cot = static_cast<bf16*>(ws_cot);
   q.ws_x = static_cast<bf16*>(ws_x);
-  q.ws_z = static_cast<bf16*>(ws_z);
+  q.ws_z = mv ? static_cast<bf16*>(ws_z) : nullptr;
   q.rows = static_cast<float*>(rows);
   q.vsum = static_cast<float*>(vsum);
-  const int n_tiles = (B + BM - 1) / BM;
-  q.B_pad = n_tiles * BM;
+  q.B_pad = B_pad;
   q.R = n_rows(n_blocks, n_lin_z, d_out);
-  const size_t smem = layout(C, kin, n_lin_z, true).total;
+  const int n_tiles = (q.B_pad + D_PTS - 1) / D_PTS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
+  cudaError_t e;
   if (mv) {
-    err = cudaFuncSetAttribute(resnetfc_bwd_data_kernel<true>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
+    e = cudaFuncSetAttribute(resnetfc_bwd_data_kernel<true>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)D_SMEM);
+    if (e != cudaSuccess) return (int)e;
     const int grid = n_ctas < n_tiles ? n_ctas : n_tiles;
-    resnetfc_bwd_data_kernel<true><<<grid, NTHREADS, smem, st>>>(q);
+    resnetfc_bwd_data_kernel<true><<<grid, D_THREADS, D_SMEM, st>>>(q);
   } else {
-    err = cudaFuncSetAttribute(resnetfc_bwd_data_kernel<false>,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    resnetfc_bwd_data_kernel<false><<<n_tiles, NTHREADS, smem, st>>>(q);
+    e = cudaFuncSetAttribute(resnetfc_bwd_data_kernel<false>,
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)D_SMEM);
+    if (e != cudaSuccess) return (int)e;
+    resnetfc_bwd_data_kernel<false><<<n_tiles, D_THREADS, D_SMEM, st>>>(q);
   }
   return (int)cudaGetLastError();
+}
+
+// What the data kernel fixes, for the wrapper to plan with: out[0..5] =
+// points a tile, threads a CTA, f32 words of a multi-view slot, weight-ring
+// stages, the most outputs of lin_out, the most steps of a tile.  Returns
+// its shared memory a CTA.
+size_t resnetfc_bwd_data_limits(int* out) {
+  out[0] = D_PTS;
+  out[1] = D_THREADS;
+  out[2] = D_SLOT_FLOATS;
+  out[3] = D_STAGES;
+  out[4] = D_MAX_OUT;
+  out[5] = D_MAX_STEPS;
+  return D_SMEM;
 }
 
 // Shared memory of one weight-gradient CTA (the TMA ring).

@@ -1,8 +1,11 @@
-// The ResnetFC tower on one 32-point tile, shared by the forward kernels
-// (resnetfc_fwd.cu) and the backward's recompute (resnetfc_bwd.cu), so that
-// the recompute IS the forward's arithmetic: the same bf16 roundings, the same
-// f32 sums in the same k-order, hence relu masks equal to the primal's bit for
-// bit.
+// The ResnetFC tower on one 32-point tile, for the forward kernels
+// (resnetfc_fwd.cu).  The backward's recompute (resnetfc_bwd.cu) no longer
+// runs it: it takes only this header's constants, TowerParams, plane_at and
+// src_row, and recomputes on 64-point wgmma tiles whose f32 sums run in
+// another order.  So its relu masks may differ from the primal's in a few
+// elements; the gates allow that (the stashed operands against the plain
+// recompute with <= 1e-3 relu-mask flips, and the train-step parity), and
+// the bit identity returns once the forward moves onto the same tile.
 //
 // Per point (NS == 1):
 //   x = lin_in(code)

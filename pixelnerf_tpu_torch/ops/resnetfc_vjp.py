@@ -247,8 +247,8 @@ def _lib() -> ctypes.CDLL:
         lib.resnetfc_bwd_weights_limits.restype = ctypes.c_size_t
         lib.resnetfc_bwd_weights_smem_bytes.argtypes = []
         lib.resnetfc_bwd_weights_smem_bytes.restype = ctypes.c_size_t
-        lib.resnetfc_bwd_smem_bytes.argtypes = [I, I, I]
-        lib.resnetfc_bwd_smem_bytes.restype = ctypes.c_size_t
+        lib.resnetfc_bwd_data_limits.argtypes = [P]
+        lib.resnetfc_bwd_data_limits.restype = ctypes.c_size_t
         lib.resnetfc_bwd_rows.argtypes = [I, I, I]
         lib.resnetfc_bwd_rows.restype = I
         lib.resnetfc_bwd_error_string.argtypes = [I]
@@ -497,13 +497,15 @@ def bwd_weights_reference(z: Optional[torch.Tensor], data: DataOut, tower: rf.To
 def workspace_reference(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.Tensor,
                         tower: rf.Tower, n_blocks: int, NS: int = 1, sb: int = 1,
                         combine_layer: Optional[int] = None,
-                        compute_dtype=torch.bfloat16) -> DataOut:
+                        compute_dtype=torch.bfloat16, need_dx: bool = False) -> DataOut:
     """The DataOut that ``resnetfc_bwd_data`` leaves, in plain form: r_k, s_k
     and t from :func:`forward_operands`, the cotangents gb_k, dh_k and g_in
     of :func:`resnetfc_bwd_reference`, the code and (NS > 1) the latent, each
     rounded to ``compute_dtype`` in ``(planes, B_pad, width)`` tile order, and
     the f32 per-32-row-tile column sums (biases, then the d_out rows of
-    dW_out^T).  Rows past B are zero; dx is not formed."""
+    dW_out^T).  Rows past B are zero; dx is formed only with ``need_dx``.
+    The per-32-row sums are the contract whatever tile the kernel walks: its
+    64-point tiles write two rows of sums each."""
     kin, H, C, n_lin_z, d_out = _dims(tower, n_blocks)
     pre = rf.blocks_per_view(n_blocks, NS, combine_layer)
     B = g.shape[1]
@@ -520,7 +522,7 @@ def workspace_reference(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.Ten
 
     ops = forward_operands(z, x, tower, n_blocks, dt, NS, sb, combine_layer)
     cot = {}
-    gr = resnetfc_bwd_reference(g, z, x, tower, n_blocks, False, dt, operands=ops, NS=NS, sb=sb,
+    gr = resnetfc_bwd_reference(g, z, x, tower, n_blocks, need_dx, dt, operands=ops, NS=NS, sb=sb,
                                 combine_layer=combine_layer, record=cot)
     tasks = weight_tasks(kin, H, C, n_blocks, n_lin_z, NS, pre, B)
     NP = tasks[0].g_plane // 2
@@ -551,7 +553,7 @@ def workspace_reference(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.Ten
     if z is not None and n_lin_z > 0:
         dz = torch.cat([pad(d) for d in split_views(gr.dz, NS, sb)])
     return DataOut(
-        dz=dz, dx=None,
+        dz=dz, dx=gr.dx,
         ws_act=torch.stack([pad(o) for o in ops]).to(dt),
         ws_cot=torch.stack([pad(c.to(dt)) for c in planes]).to(dt),
         ws_x=torch.cat([pad(xv.to(dt), kin) for xv in split_views(x, NS, sb)]).to(dt),
@@ -561,12 +563,86 @@ def workspace_reference(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.Ten
     )
 
 
+class DataLimits(NamedTuple):
+    """What ``resnetfc_bwd_data_kernel`` fixes (read from its library by
+    :func:`data_limits`)."""
+
+    tile: int  # points a CTA walks at a time (one wgmma M)
+    threads: int  # a CTA: two warpgroups (thread 0 also feeds the weight ring)
+    slot_floats: int  # f32 words of a CTA's multi-view slot (its 64 x 512 stream and dview)
+    stages: int  # weight-ring stages
+    max_out: int  # the most outputs of lin_out
+    max_steps: int  # the most steps of one tile's program
+    smem: int  # dynamic shared memory a CTA
+
+
+@functools.lru_cache(maxsize=None)
+def data_limits() -> DataLimits:
+    out = (ctypes.c_int * 6)()
+    smem = _lib().resnetfc_bwd_data_limits(out)
+    return DataLimits(*out, smem)
+
+
+def data_steps(n_blocks: int, n_lin_z: int, NS: int, pre: int) -> int:
+    """Steps of one ``resnetfc_bwd_data`` tile's program (``data_program``
+    in ``csrc/resnetfc_bwd.cu``): per view lin_in, its injections and its
+    blocks, recomputed (and, NS > 1, folded into the mean); the shared
+    blocks; lin_out; the walk back of every block (its cotangent, fc_1,
+    fc_0), each injection and lin_in (pre = n_blocks when NS == 1).  34 at
+    sn64 and one view, 86 at three."""
+    mv = int(NS > 1)
+    shared = n_blocks - pre
+    return (NS * (1 + n_lin_z + 2 * pre + mv) + 2 * shared + 1 + 3 * shared
+            + NS * (mv + 3 * pre + n_lin_z + 1))
+
+
+def check_data_widths(kin: int, H: int, C: int, n_lin_z: int, n_blocks: int, d_out: int,
+                      limits: DataLimits) -> None:
+    """Raise ValueError on widths ``resnetfc_bwd_data`` does not take: H and,
+    with a latent, C other than 512; kin past 128 or not a multiple of 16; no
+    block; more outputs than ``limits.max_out``; a CTA past the card's shared
+    memory."""
+    if H != rf.HIDDEN or (n_lin_z > 0 and C != rf.HIDDEN):
+        raise ValueError(f"the backward kernel needs d_hidden {rf.HIDDEN}, and d_latent "
+                         f"{rf.HIDDEN} with a latent (H={H}, C={C})")
+    if kin > 128 or kin % 16 or n_blocks < 1:
+        raise ValueError(f"backward kernel widths: kin <= 128, a multiple of 16, and n_blocks >= 1 "
+                         f"(kin={kin}, n_blocks={n_blocks})")
+    if not 1 <= d_out <= limits.max_out:
+        raise ValueError(f"the backward kernel takes 1 to {limits.max_out} outputs (d_out={d_out})")
+    if limits.smem > rf.MAX_SMEM_BYTES:
+        raise ValueError(f"the data kernel needs {limits.smem} B of shared memory per CTA "
+                         f"(> {rf.MAX_SMEM_BYTES})")
+
+
+def data_grid(B: int, NS: int, n_sms: int, limits: DataLimits) -> tuple:
+    """(B_pad, tiles, CTAs) of a ``resnetfc_bwd_data`` launch: the workspace's
+    rows (B rounded up to 32, the weights kernel's and the per-tile sums'
+    unit), the tile-point tiles over them (the last one half full when B_pad
+    is an odd multiple of 32), and the grid: a CTA a tile for one view,
+    persistent CTAs, one an SM at most, for NS > 1 (each holds a slot)."""
+    B_pad = -(-B // 32) * 32
+    tiles = -(-B_pad // limits.tile)
+    return B_pad, tiles, (tiles if NS == 1 else min(tiles, n_sms))
+
+
+def data_slots(dev, limits: DataLimits) -> torch.Tensor:
+    """The data kernel's multi-view slots, one per SM: each CTA keeps its
+    share of the view sum and of dview there (``limits.slot_floats`` f32,
+    128 KB at the 64-point tile; not the forward kernels' 64 KB slots)."""
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return torch.empty((n_sms, limits.slot_floats), device=dev)
+
+
 def bwd_data(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.Tensor, tower: rf.Tower,
              n_blocks: int, need_dx: bool, NS: int = 1, sb: int = 1,
              combine_layer: Optional[int] = None) -> DataOut:
     """Launch ``resnetfc_bwd_data`` for the planar cotangent ``g (d_out, B)``
     (f32), the bf16 latent ``z (NS * B, C)`` (None without injection) and the
-    code ``x (NS * B, d_in)`` (f32), rows object-major when NS > 1."""
+    code ``x (NS * B, d_in)`` (f32), rows object-major when NS > 1; all on
+    the card (its plain version is :func:`workspace_reference`).  Raises on
+    widths the kernel does not take (:func:`check_data_widths`) and on
+    weights TMA cannot read in place."""
     rf._tower_args(tower, x, n_blocks, True)  # validates weights, widths and x
     kin, H, C, n_lin_z, d_out = _dims(tower, n_blocks)
     pre = rf.blocks_per_view(n_blocks, NS, combine_layer)
@@ -575,18 +651,18 @@ def bwd_data(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.Tensor, tower:
     else:
         B = B_obj = x.shape[0]
     dev = x.device
-    if n_lin_z > 0 and C != rf.HIDDEN:
-        raise ValueError(f"the backward kernel needs d_latent {rf.HIDDEN} with a latent (C={C})")
-    if kin // 16 > 8 or n_blocks < 1:
-        raise ValueError(f"backward kernel widths: kin <= 128 and n_blocks >= 1 (kin={kin})")
+    lim = data_limits()
+    check_data_widths(kin, H, C, n_lin_z, n_blocks, d_out, lim)
+    if data_steps(n_blocks, n_lin_z, NS, pre) > lim.max_steps:
+        raise ValueError(f"resnetfc_bwd_data runs at most {lim.max_steps} steps a tile; "
+                         f"{n_blocks} blocks at NS = {NS} need {data_steps(n_blocks, n_lin_z, NS, pre)}")
     rf._check(g, "g", torch.float32, (d_out, B))
     if n_lin_z > 0:
         rf._check(z, "z", torch.bfloat16, (NS * B, C))
+    for name in ("w_in", "w_z", "w_blk"):  # TMA reads the weights in place
+        _check_plane(getattr(tower, name), name)
     lib = _lib()
-    smem = lib.resnetfc_bwd_smem_bytes(C, kin, n_lin_z)
-    if smem > rf.MAX_SMEM_BYTES:
-        raise ValueError(f"widths need {smem} B of shared memory per CTA (> {rf.MAX_SMEM_BYTES})")
-    B_pad = -(-B // 32) * 32
+    B_pad, _, _ = data_grid(B, NS, 1, lim)
     NP = NS * pre + n_blocks - pre
     R = lib.resnetfc_bwd_rows(n_blocks, n_lin_z, d_out)
     bf = torch.bfloat16
@@ -602,7 +678,7 @@ def bwd_data(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.Tensor, tower:
     )
     if B == 0:
         return out
-    slots = rf.view_slots(dev) if NS > 1 else None
+    slots = data_slots(dev, lim) if NS > 1 else None
     ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
     err = lib.resnetfc_bwd_data(
         g.data_ptr(), ptr(z) if n_lin_z > 0 else None, x.data_ptr(),

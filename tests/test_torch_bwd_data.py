@@ -1,0 +1,276 @@
+"""The data half of the port's ResnetFC backward (``ops/resnetfc_vjp.py``:
+``bwd_data``, its plain version ``workspace_reference``, and the launch
+helpers ``data_grid``, ``data_slots``' size and ``check_data_widths``).
+
+``resnetfc_bwd_data`` walks 64-point tiles but keeps the DataOut contract of
+32-row tiles: ``B_pad`` is B rounded up to 32, and ``rows`` holds one row of
+column sums per 32 rows.  So every case here leaves a half-filled 64-point
+tile (B_pad an odd multiple of 32), and some an odd B.
+
+On the CPU the plain workspace, in f32, is held against the JAX package's
+``_bwd_kernel`` through ``resnetfc_pallas_diff`` in interpret mode (as
+``tests/test_torch_train_vjp.py`` runs it): dz and dx, every bias gradient
+and dW_out as the tile sums of ``rows``, and the stashed forward operand t
+through lin_out against the JAX forward's value, each to 5e-4 of
+max(max|ref|, 1e-3), the tolerance of ``tests/test_pallas_vjp.py``.  On the
+card (``cuda``-marked, skipped here) the kernel is held against the same
+plain workspace in bf16.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pixelnerf_tpu.models.resnetfc import ResnetFC as JResnetFC
+from pixelnerf_tpu.ops.resnetfc_vjp import resnetfc_pallas_diff
+from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
+from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
+from pixelnerf_tpu_torch.utils.jax_convert import from_jax_variables
+
+# what resnetfc_bwd_data_kernel fixes, by hand (the library reports it on the
+# card): 64-point tiles, 256 threads, a 128 KB multi-view slot, 3 stages of
+# 32 KB, at most 4 outputs and 256 steps a tile; two 64 KB operand tiles +
+# the ring + 1 KB slack
+LIMITS = rv.DataLimits(tile=64, threads=256, slot_floats=32768, stages=3, max_out=4,
+                       max_steps=256, smem=2 * 65536 + 3 * 32768 + 1024)
+
+CASES = [
+    # NS, sb, B_obj, d_in, d_latent, d_hidden, n_blocks, combine_layer
+    (1, 1, 96, 42, 64, 64, 3, 2),  # B_pad 96: the last 64-point tile half full
+    (1, 1, 151, 39, 0, 32, 2, 1),  # odd B, no latent
+    (2, 1, 80, 42, 32, 64, 3, 2),  # two views, B_pad 96
+    (3, 2, 37, 42, 32, 64, 3, 2),  # three views, two objects, B = 74, B_pad 96
+]
+
+
+def _setup(NS, sb, B_obj, d_in, d_latent, H, nb, cl, seed=0):
+    jm = JResnetFC(d_out=4, n_blocks=nb, d_latent=d_latent, d_hidden=H, combine_layer=cl)
+    params = jm.init(jax.random.PRNGKey(0), jnp.zeros((4, d_latent + d_in)))["params"]
+    rng = np.random.default_rng(seed)
+    # every parameter live: fc_1 and the biases are zero at init
+    params = jax.tree.map(
+        lambda p: (rng.normal(size=p.shape) * (0.05 if p.ndim == 1 else 1.0 / np.sqrt(p.shape[0])))
+        .astype(np.float32), params)
+    rows = sb * NS * B_obj
+    x = rng.normal(size=(rows, d_in)).astype(np.float32)
+    z = rng.normal(size=(rows, d_latent)).astype(np.float32) if d_latent else None
+    cot = rng.normal(size=(1, sb * B_obj, 4)).astype(np.float32)
+    port = ResnetFC(d_in=d_in, d_out=4, n_blocks=nb, d_latent=d_latent, d_hidden=H,
+                    combine_layer=cl, impl="torch")
+    sd = from_jax_variables({"params": {"mlp_coarse": params}})
+    port.load_state_dict({k[len("mlp_coarse."):]: v for k, v in sd.items()})
+    tw = port.tower(torch.device("cpu"))
+    kw = dict(NS=NS, sb=sb, combine_layer=cl) if NS > 1 else {}
+    Z = None if z is None else torch.from_numpy(z)
+    g = torch.from_numpy(cot[0]).t().contiguous()
+    return params, x, z, cot, tw, Z, torch.from_numpy(x), g, kw
+
+
+def _close(b, a, what):
+    a, b = np.asarray(a), np.asarray(b)
+    assert a.shape == b.shape, (what, a.shape, b.shape)
+    np.testing.assert_allclose(b, a, atol=5e-4 * max(np.abs(a).max(), 1e-3), err_msg=what)
+
+
+def _dz_rows(data, C):
+    """dz of the DataOut (view-major, B_pad rows a view) in z's rows."""
+    B_pad = data.ws_x.shape[0] // data.NS
+    parts = list(data.dz.reshape(data.NS, B_pad, C)[:, : data.B])
+    return rv.join_views(parts, data.sb)
+
+
+@pytest.mark.parametrize("NS,sb,B_obj,d_in,d_latent,H,nb,cl", CASES)
+def test_workspace_matches_pallas_interpret(NS, sb, B_obj, d_in, d_latent, H, nb, cl):
+    params, x, z, cot, tw, Z, X, g, kw = _setup(NS, sb, B_obj, d_in, d_latent, H, nb, cl)
+
+    def loss(p, z, x):
+        out = resnetfc_pallas_diff(p, (z, x), NS=NS, d_latent=d_latent, d_in=d_in, n_blocks=nb,
+                                   combine_layer=cl, sb=sb, block_points=128,
+                                   bwd_block_points=128, interpret=True)
+        return jnp.sum(out * cot), out
+
+    zj = None if z is None else jnp.asarray(z)
+    argnums = (0, 2) if z is None else (0, 1, 2)
+    (_, out), grads = jax.value_and_grad(loss, argnums=argnums, has_aux=True)(
+        params, zj, jnp.asarray(x))
+    ref = {k[len("mlp_coarse."):]: v.numpy() for k, v in from_jax_variables(
+        {"params": {"mlp_coarse": jax.tree.map(np.asarray, grads[0])}}).items()}
+    data = rv.workspace_reference(g, Z, X, tw, nb, compute_dtype=torch.float32, need_dx=True, **kw)
+    B = sb * B_obj
+    B_pad = -(-B // 32) * 32
+    assert (B_pad // 32) % 2 == 1  # a half-filled 64-point tile
+    assert data.rows.shape[0] == B_pad // 32
+
+    # the stashed operand t, through lin_out, is the forward's value
+    t = data.ws_act[-1, :B]
+    _close((t @ tw.w_out + tw.b_out).numpy(), np.asarray(out).reshape(B, 4), "t W_out + b_out")
+    # rows: the bias gradients and dW_out, summed over the 32-row tiles
+    s = data.rows.sum(0)
+    n_lin_z = tw.w_z.shape[0]
+    r_out = 1 + n_lin_z + 2 * nb
+    got = {"lin_in.bias": s[0], "lin_out.bias": s[r_out, :4], "lin_out.weight": s[r_out + 1:]}
+    for k in range(n_lin_z):
+        got[f"lin_z.{k}.bias"] = s[1 + k]
+    for k in range(nb):
+        for i in (0, 1):
+            got[f"blocks.{k}.fc_{i}.bias"] = s[1 + n_lin_z + 2 * k + i]
+    for name, v in got.items():
+        _close(v.numpy(), ref[name], name)
+    _close(data.dx.numpy(), grads[-1], "dx")
+    if z is not None:
+        _close(_dz_rows(data, d_latent).numpy(), grads[1], "dz")
+
+
+@pytest.mark.parametrize("NS,sb,B_obj,d_in,d_latent,H,nb,cl", CASES[::2] + [CASES[3]])
+def test_workspace_rows_are_sums_of_32_row_tiles(NS, sb, B_obj, d_in, d_latent, H, nb, cl):
+    """Each bias row of ``rows`` sums its f32 cotangent over one 32-row tile
+    (views summed); rows past B are zero in every plane, and the pad half of
+    the last 64-point tile sums to zero."""
+    _, _, _, _, tw, Z, X, g, kw = _setup(NS, sb, B_obj, d_in, d_latent, H, nb, cl)
+    data = rv.workspace_reference(g, Z, X, tw, nb, compute_dtype=torch.float32, **kw)
+    B = sb * B_obj
+    n_tiles = data.rows.shape[0]
+    n_lin_z = tw.w_z.shape[0]
+    NP = (data.ws_cot.shape[0] - NS) // 2
+    assert not data.ws_act[:, B:].any() and not data.ws_cot[:, B:].any()
+    # fc_1 of the last block: its cotangent is plane NP - 1 of ws_cot (one view above the mean)
+    gb = data.ws_cot[NP - 1].reshape(n_tiles, 32, -1).sum(1)
+    torch.testing.assert_close(data.rows[:, 1 + n_lin_z + 2 * (nb - 1) + 1], gb,
+                               rtol=1e-5, atol=1e-5 * gb.abs().max().item())
+    # db_in: lin_in's cotangent, summed over the views
+    g_in = data.ws_cot[2 * NP:].reshape(NS, n_tiles, 32, -1).sum((0, 2))
+    torch.testing.assert_close(data.rows[:, 0], g_in, rtol=1e-5, atol=1e-5 * g_in.abs().max().item())
+    last = B - 32 * (n_tiles - 1)  # points in the last 32-row tile
+    assert 0 < last <= 32
+    if last < 32:
+        assert not data.ws_x.reshape(NS, -1, data.ws_x.shape[1])[:, B:].any()
+
+
+@pytest.mark.parametrize("NS,sb,B_obj,d_in,d_latent,H,nb,cl", [CASES[0], CASES[3]])
+@pytest.mark.parametrize("need_dx", [False, True])
+def test_workspace_dx_is_the_plain_backwards(NS, sb, B_obj, d_in, d_latent, H, nb, cl, need_dx):
+    """need_dx adds the plain backward's dx (bf16(dv) W_in^T, in x's rows)
+    and changes nothing else; the weights half takes the DataOut as it is."""
+    _, _, _, _, tw, Z, X, g, kw = _setup(NS, sb, B_obj, d_in, d_latent, H, nb, cl)
+    Zb = Z.bfloat16()
+    got = rv.workspace_reference(g, Zb, X, tw, nb, need_dx=need_dx, **kw)
+    base = rv.workspace_reference(g, Zb, X, tw, nb, **kw)
+    for name in ("dz", "ws_act", "ws_cot", "ws_x", "ws_z", "rows"):
+        a, b = getattr(got, name), getattr(base, name)
+        if b is None:
+            assert a is None, name
+            continue
+        torch.testing.assert_close(a, b, rtol=0, atol=0, msg=name)
+    assert base.dx is None and (got.dx is not None) == need_dx
+    if need_dx:
+        ref = rv.resnetfc_bwd_reference(g, Zb, X, tw, nb, True, torch.bfloat16,
+                                        operands=got.ws_act[:, : sb * B_obj].float(), **kw)
+        assert got.dx.shape == X.shape
+        torch.testing.assert_close(got.dx, ref.dx, rtol=0, atol=0)
+    gr = rv.bwd_weights(Zb, got, tw, nb)
+    assert gr.w_blk.shape == tw.w_blk.shape and gr.dx is got.dx
+
+
+@pytest.mark.parametrize("B,NS,n_sms,want", [
+    (4 * 128 * 96, 1, 132, (49152, 768, 768)),  # -V 1 fine pass: a CTA a tile
+    (4 * 128 * 64, 3, 132, (32768, 512, 132)),  # -V 3 coarse: persistent, one CTA an SM
+    (1000, 1, 132, (1024, 16, 16)),
+    (990, 3, 132, (992, 16, 16)),  # B_pad 31 x 32: the last tile half full
+    (33, 1, 132, (64, 1, 1)),
+    (20, 3, 8, (32, 1, 1)),  # one half-filled tile
+])
+def test_data_grid(B, NS, n_sms, want):
+    assert rv.data_grid(B, NS, n_sms, LIMITS) == want
+    B_pad, tiles, _ = want
+    assert B_pad % 32 == 0 and 0 <= tiles * 64 - B_pad < 64
+
+
+def test_data_limits_fit_the_card():
+    """Two 64 KB operand tiles and three 32 KB ring stages fit the 227 KB a
+    CTA may ask for; the multi-view slot holds the 64 x 512 f32 stream, twice
+    the forward kernels' 64 KB slot of 32 points."""
+    rv.check_data_widths(48, 512, 512, 3, 5, 4, LIMITS)
+    assert LIMITS.smem <= rf.MAX_SMEM_BYTES
+    assert LIMITS.slot_floats * 4 == 64 * 512 * 4 == 2 * 65536
+    assert LIMITS.slot_floats == LIMITS.threads * 128  # 128 f32 a thread
+    with pytest.raises(ValueError, match="shared memory"):
+        rv.check_data_widths(48, 512, 512, 3, 5, 4, LIMITS._replace(smem=rf.MAX_SMEM_BYTES + 1))
+
+
+@pytest.mark.parametrize("kin,H,C,n_lin_z,nb,d_out,match", [
+    (48, 256, 512, 3, 5, 4, "d_hidden 512"),
+    (48, 512, 256, 3, 5, 4, "d_latent 512"),
+    (144, 512, 512, 3, 5, 4, "kin <= 128"),
+    (40, 512, 512, 3, 5, 4, "multiple of 16"),
+    (48, 512, 512, 0, 0, 4, "n_blocks >= 1"),
+    (48, 512, 512, 3, 5, 5, "1 to 4 outputs"),
+])
+def test_check_data_widths_refuses(kin, H, C, n_lin_z, nb, d_out, match):
+    with pytest.raises(ValueError, match=match):
+        rv.check_data_widths(kin, H, C, n_lin_z, nb, d_out, LIMITS)
+
+
+@pytest.mark.parametrize("nb,nlz,NS,pre,want", [
+    # lin_in, 3 injections, 10 block layers; lin_out; 5 x (cotangent, fc_1,
+    # fc_0), 3 injections, lin_in's cotangent
+    (5, 3, 1, 5, 14 + 1 + 19),
+    (5, 3, 3, 3, 86),  # -V 3: the views below the mean, blocks 3-4 once
+    (3, 0, 1, 3, 7 + 1 + 10),
+    (5, 0, 2, 0, 2 * 2 + 10 + 1 + 15 + 2 * 2),  # no latent, the mean at lin_in's output
+])
+def test_data_steps(nb, nlz, NS, pre, want):
+    assert rv.data_steps(nb, nlz, NS, pre) == want
+    assert want <= LIMITS.max_steps
+
+
+def test_check_data_widths_takes_any_latent_width_without_a_latent():
+    rv.check_data_widths(128, 512, 96, 0, 2, 1, LIMITS)
+    rv.check_data_widths(16, 512, 512, 3, 5, 4, LIMITS)
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
+    from pixelnerf_tpu_torch.device import resolve_device
+
+    return resolve_device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("NS,B_obj", [(1, 1000), (1, 1008), (3, 333)])
+def test_data_kernel_matches_plain_on_card(cuda_device, NS, B_obj):
+    """sn64 widths, ragged B (B = 2000, 2016 and 666: B_pad an odd multiple
+    of 32 each): the kernel's stashed operands against the plain recompute
+    (relu-mask flips <= 1e-3) and to the bar of tests/test_pallas.py; its
+    cotangent planes, dz, dx and rows, which an independent recompute's mask
+    flips move locally, at corr > 0.999; bit-identical on a second call."""
+    nb, cl, sb = 5, 3, 2
+    _, x, z, _, _, _, _, _, kw = _setup(NS, sb, B_obj, 42, 512, 512, nb, cl)
+    port = ResnetFC(d_in=42, d_out=4, n_blocks=nb, d_latent=512, d_hidden=512, combine_layer=cl,
+                    impl="cuda").to(cuda_device)
+    tw = port.tower(cuda_device)
+    x = torch.from_numpy(x).to(cuda_device)
+    z = torch.from_numpy(z).to(cuda_device).to(torch.bfloat16)
+    B = sb * B_obj
+    g = torch.randn(4, B, device=cuda_device)
+    before = rv.LAUNCHES["resnetfc_bwd_data"]
+    data = rv.bwd_data(g, z, x, tw, nb, True, **kw)
+    torch.cuda.synchronize()
+    assert rv.LAUNCHES["resnetfc_bwd_data"] == before + 1
+    ops_p = rv.forward_operands(z, x, tw, nb, torch.bfloat16, **kw)
+    ops_k = data.ws_act[:, :B].float()
+    assert ((ops_k > 0) != (ops_p > 0)).float().mean().item() <= 1e-3
+    ref = rv.workspace_reference(g, z, x, tw, nb, need_dx=True, **kw)
+    for name in ("ws_act", "ws_cot", "ws_x", "ws_z", "dz", "dx", "rows"):
+        out, r = getattr(data, name).float(), getattr(ref, name).float()
+        assert out.shape == r.shape, name
+        assert (out - r).abs().max().item() <= 0.015 * max(1.0, r.abs().max().item()) or name in (
+            "ws_cot", "dz", "dx", "rows"), name
+        assert torch.corrcoef(torch.stack([out.flatten(), r.flatten()]))[0, 1] > 0.999, name
+    again = rv.bwd_data(g, z, x, tw, nb, True, **kw)
+    assert all(torch.equal(getattr(data, n), getattr(again, n))
+               for n in ("ws_act", "ws_cot", "ws_x", "dz", "dx", "rows"))
