@@ -8,11 +8,12 @@ one line each:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile every kernel from ``pixelnerf_tpu_torch/csrc``, one
    ``nvcc`` per source, all at once; ptxas registers and spills per kernel,
-   the backward library's ``HGMMA`` / ``UTMALDG`` / ``HMMA`` counts per
-   kernel (``cuobjdump -sass``) and the weights kernel's shared memory; both
-   backward kernels (the data kernel's two instantiations too) must be wgmma
-   + TMA kernels with no wmma product and no spills; the forward kernels'
-   registers on a line of their own;
+   each library's ``HGMMA`` / ``UTMALDG`` / ``HMMA`` counts per kernel
+   (``cuobjdump -sass``) and the weights kernel's shared memory; both
+   backward kernels (the data kernel's two instantiations too) and both
+   instantiations of the dense forward must be wgmma + TMA kernels with no
+   wmma product and no spills; the forward kernels' registers on a line of
+   their own;
 3. kernel checks: each forward kernel against its plain PyTorch version at
    the main paths' shapes (one ray chunk x 64 and x 96 samples; the
    single-view kernels on a 1024 x 512 table, the multi-view gather at NS 2
@@ -20,6 +21,10 @@ one line each:
    the train layout SB 4 x NS 3 x 128 rays x 96), to
    ``max|d| <= 0.015 * max(1, max|ref|)`` and ``corr > 0.999``, with its time
    beside the plain version's, a cuBLAS bf16 chain's and the card's bound;
+   the dense forward (both instantiations) also at a ragged B (2000 points)
+   and at the -V 1 train step's fine pass (49,152), bit-identical on a
+   second call, with its TFLOP/s, share of bound and weight stream out of
+   L2;
    then the deferred positional code (row 6 of PERF.md) in each forward
    kernel -- its CODE variant fed the raw (xyz, viewdir) coordinates, at the
    fine pass's 393,216 points, NS 2 for the multi-view gather and NS 3 for
@@ -44,7 +49,9 @@ one line each:
    x 96 samples, at -V 1 and at -V 3) and at a ragged B (2000 points at -V
    1, 666 at -V 3: the data kernel's last 64-point tile half full, gates
    only): the kernels' stashed forward operands
-   against the plain recompute, every output (dz, dx, each dW and db) against
+   against the plain recompute (with their relu-mask flips; at -V 1 also
+   whether the stashed t reproduces the dense forward's output, i.e.
+   whether the recompute sums in the primal's order), every output (dz, dx, each dW and db) against
    the plain backward walked through the same operands at the bar above, and
    against the fully independent plain backward at ``corr > 0.999``; the
    weights kernel alone against ``bwd_weights_reference`` on its own DataOut
@@ -166,6 +173,7 @@ def bound(flops: float, nbytes: float):
 
 # template arguments of the kernels, for naming ptxas' entry functions
 TEMPLATE_ARGS = {"resnetfc_fwd_kernel": ("GATHER", "MV", "CODE"),
+                 "resnetfc_fwd_dense_kernel": ("CODE",),
                  "resnetfc_bwd_data_kernel": ("MV",)}
 
 
@@ -271,6 +279,7 @@ def main() -> None:
     from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
 
     sass = sass_counts(builds["bwd"].library)
+    fwd_sass = sass_counts(builds["fwd"].library)
     w_sass = sass.get("resnetfc_bwd_weights_kernel", {})
     log("build: " + json.dumps({
         "kernels": list(rf.LAUNCHES) + ["resnetfc_bwd_data", "resnetfc_bwd_weights"],
@@ -279,7 +288,7 @@ def main() -> None:
         "compiled": {n: b.compiled for n, b in builds.items()},
         "seconds": round(time.perf_counter() - t0, 3),
         "ptxas": {n: ptxas_summary(b.log) for n, b in builds.items()},
-        "sass": {"bwd": sass},
+        "sass": {"fwd": fwd_sass, "bwd": sass},
         "resnetfc_bwd_weights_kernel smem bytes": rv._lib().resnetfc_bwd_weights_smem_bytes(),
     }))
     if not (w_sass.get("HGMMA") and w_sass.get("UTMALDG") and w_sass.get("HMMA") == 0):
@@ -291,12 +300,19 @@ def main() -> None:
         d_sass = sass.get(name, {})
         if not (d_sass.get("HGMMA") and d_sass.get("UTMALDG") and d_sass.get("HMMA") == 0):
             raise SystemExit(f"{name} is not a wgmma + TMA kernel: {d_sass}")
-    for name, line in bwd_ptxas.items():
+    # so are both instantiations of the dense forward (the 64-point tile)
+    fwd_ptxas = ptxas_summary(builds["fwd"].log)
+    dense_names = ("resnetfc_fwd_dense_kernel<CODE=0>", "resnetfc_fwd_dense_kernel<CODE=1>")
+    for name in dense_names:
+        d_sass = fwd_sass.get(name, {})
+        if not (d_sass.get("HGMMA") and d_sass.get("UTMALDG") and d_sass.get("HMMA") == 0):
+            raise SystemExit(f"{name} is not a wgmma + TMA kernel: {d_sass}")
+    for name, line in [*bwd_ptxas.items(), *((n, fwd_ptxas.get(n, "")) for n in dense_names)]:
         spills = re.findall(r"(\d+) B spill", line)
         if len(spills) != 2 or any(int(v) for v in spills):
             raise SystemExit(f"{name} spills or ptxas gave no spill line: {line}")
-    log("build: forward kernels' registers (the wmma tower, unchanged by the backward's "
-        "redesign): " + json.dumps(ptxas_summary(builds["fwd"].log)))
+    log("build: forward kernels' registers (the dense forward on the 64-point tile, the "
+        "others on the wmma tower): " + json.dumps(fwd_ptxas))
     log("build: backward kernels' registers: " + json.dumps(bwd_ptxas) + "; resnetfc_bwd_data "
         f"shared memory {rv.data_limits().smem} B a CTA, {rv.data_limits()}")
 
@@ -328,6 +344,9 @@ def main() -> None:
     gi = torch.Generator(device=dev).manual_seed(SEED + 2)
     code = PositionalEncoding.from_conf(conf["model.code"], d_in=3)
     records = {"resnetfc_fwd_gather": {}, "resnetfc_fwd_dense": {}}
+    # the weights a 64-point tile of the dense forward streams from L2
+    dense_tile_w = sum(t.numel() * t.element_size() for t in (tw.w_in, tw.w_z, tw.w_blk))
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     gather_ms = {}  # per pass shape, for the kernels' share of a frame
     flops_pt = 2 * H * (d_in + n_lin_z * C + 2 * nb * H + d_out)
     w_bytes = sum(t.numel() * t.element_size() for t in tw[:8])
@@ -341,7 +360,6 @@ def main() -> None:
         idx, w = bilinear_taps(uv, side, side, pad_taps_to=8)
         idx, w = idx.contiguous(), w.contiguous()
         with torch.no_grad():
-            z = rf.gather_reference(idx, w, table, torch.bfloat16).to(torch.bfloat16)
             cases = {
                 "resnetfc_fwd_gather": (
                     lambda: rf.resnetfc_gather(idx, w, table, x, tw, nb),
@@ -353,14 +371,6 @@ def main() -> None:
                     B * (idx.shape[1] * 4 + w.shape[1] * 4 + d_in * 4 + d_out * 4) + T * C * 2,
                     8 * C,  # the 4-tap weighted sum
                     "pixelnerf_tpu/ops/resnetfc_pallas.py:248",
-                ),
-                "resnetfc_fwd_dense": (
-                    lambda: rf.resnetfc_dense(z, x, tw, nb),
-                    lambda: rf.resnetfc_reference(z, x, tw, nb, compute_dtype=torch.bfloat16),
-                    lambda: library_tower(z, x, tw, nb),
-                    B * (C * 2 + d_in * 4 + d_out * 4),
-                    0,
-                    "pixelnerf_tpu/ops/resnetfc_pallas.py:175",
                 ),
             }
             for name, (kern, plain, library, in_bytes, extra_flops, replaces) in cases.items():
@@ -379,8 +389,7 @@ def main() -> None:
                     f"bound_ms {b_ms:.4f} ({b_by})")
                 if not ok:
                     raise SystemExit(f"kernel check failed: {name} at B={B}")
-                if name == "resnetfc_fwd_gather":
-                    gather_ms[K] = ms
+                gather_ms[K] = ms
                 rec = records[name]
                 rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), d)
                 if K == 96:  # times at the fine pass's shape
@@ -389,6 +398,75 @@ def main() -> None:
                                replaces=replaces, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
                                bound_by=b_by, library_ms=library_ms)
             del out, ref
+
+    # ---- the dense forward (row 2, and row 6's dense twin) on the 64-point tile ----
+    # a ragged B (2000 = 31 x 64 + 16), the -V 1 train step's fine pass and
+    # one ray chunk x 64 and x 96 samples, encoded and deferred code: each
+    # against its plain version at the bar, bit-identical on a second call
+    dense_ms = {}  # (variant, B) -> ms
+    code_arrays = [torch.from_numpy(a).to(dev) for a in code.flat_arrays(tail=3)]
+    for B in (2000, 128 * 4 * 96, RAYS_PER_STEP * 64, RAYS_PER_STEP * 96):
+        pts = torch.rand(B, 3, device=dev, generator=gi) * 2 - 1
+        vd = torch.nn.functional.normalize(torch.randn(B, 3, device=dev, generator=gi), dim=-1)
+        x = torch.cat([code(pts), vd], dim=-1).contiguous()
+        idx, w = bilinear_taps(torch.rand(B, 2, device=dev, generator=gi) * 2 - 1, 32, 32,
+                               pad_taps_to=8)
+        with torch.no_grad():
+            z = rf.gather_reference(idx, w, table, torch.bfloat16).to(torch.bfloat16)
+            rc = rf.RawCode(torch.cat([pts, vd], dim=-1).contiguous(), *code_arrays)
+            for variant, xi in (("resnetfc_fwd_dense", x), ("resnetfc_fwd_dense_code", rc)):
+                kern = lambda: rf.resnetfc_dense(z, xi, tw, nb)  # noqa: E731
+                out = kern()
+                torch.cuda.synchronize()
+                ref = rf.resnetfc_reference(z, xi, tw, nb, compute_dtype=torch.bfloat16)
+                d, bar, corr = agree(out, ref)
+                identical = torch.equal(out, kern())
+                ok = d <= bar and corr > 0.999 and bool(torch.isfinite(out).all()) and identical
+                ms = cuda_ms(kern, 5)
+                dense_ms[(variant, B)] = ms
+                line = (f"kernel check: {variant} (64-point tile) B={B} max|d| {d:.6g} <= bar "
+                        f"{bar:.6g}: {d <= bar}, corr {corr:.7f}, bit-identical on a second call "
+                        f"{identical}; kernel_ms {ms:.4f}")
+                if B >= RAYS_PER_STEP * 64 or B == 128 * 4 * 96:
+                    plain_ms = cuda_ms(lambda: rf.resnetfc_reference(
+                        z, xi, tw, nb, compute_dtype=torch.bfloat16), 2)
+                    xl = x if variant == "resnetfc_fwd_dense" else None
+                    library_ms = cuda_ms(lambda: library_tower(
+                        z, xl if xl is not None else rf.materialize_code(rc), tw, nb), 5)
+                    raw_d = rc.x.shape[1]
+                    in_bytes = B * (C * 2 + (d_in * 4 if xl is not None else raw_d * 4))
+                    extra = 0 if xl is not None else B * 2 * raw_d * d_in
+                    b_ms, b_by = bound(B * flops_pt + extra, in_bytes + B * d_out * 4 + w_bytes)
+                    tiles = rf.dense_grid(B, rf.dense_limits())
+                    l2 = tiles * dense_tile_w / ms / 1e9
+                    line += (f", {B * flops_pt / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the "
+                             f"bound ({b_ms:.4f} ms, {b_by}); plain_ms {plain_ms:.4f} library_ms "
+                             f"{library_ms:.4f}; weights streamed from L2 "
+                             f"{dense_tile_w / 2**20:.2f} MiB a 64-point tile, {l2:.3f} TB/s = "
+                             f"{l2 * 1e3 / n_sm:.2f} GB/s an SM")
+                    if variant == "resnetfc_fwd_dense":
+                        rec = records[variant]
+                        if B == RAYS_PER_STEP * 96:  # times at the fine pass's shape
+                            rec.update(name=variant, route="cuda",
+                                       source="pixelnerf_tpu_torch/csrc/resnetfc_fwd.cu",
+                                       replaces="pixelnerf_tpu/ops/resnetfc_pallas.py:175", ms=ms,
+                                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                       library_ms=library_ms, tflops=B * flops_pt / ms / 1e9,
+                                       share_of_bound=b_ms / ms, weight_stream_tb_s=l2,
+                                       design="64-point tiles on wgmma m64n128k16 (tile64.cuh), "
+                                              "weights by TMA through a 3-stage mbarrier ring, "
+                                              "each warpgroup feeding its own half")
+                        elif B == 128 * 4 * 96:
+                            rec["train_fine_pass"] = dict(points=B, ms=ms, plain_ms=plain_ms,
+                                                          bound_ms=b_ms, library_ms=library_ms,
+                                                          weight_stream_tb_s=l2)
+                log(line)
+                if not ok:
+                    raise SystemExit(f"kernel check failed: {variant} at B={B}")
+                if variant == "resnetfc_fwd_dense":
+                    rec = records[variant]
+                    rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), d)
+            del out, ref, z, x, rc, idx, w, pts, vd
 
     # ---- multi-view forward kernel checks at the multi-view paths' shapes ----
     # the NS = 2 render's gather on the encoded tables of views 0 and 1; the
@@ -466,7 +544,6 @@ def main() -> None:
     # version (the code in f32, then the bf16 tower) and against the same
     # kernel fed the pre-encoded code, where only bf16 rounding flips of the
     # code may differ
-    code_arrays = [torch.from_numpy(a).to(dev) for a in code.flat_arrays(tail=3)]
     d_raw = code_arrays[0].shape[0]
     code_records = {}
     B = RAYS_PER_STEP * 96
@@ -604,13 +681,27 @@ def main() -> None:
                                      torch.Generator(device=dev).manual_seed(SEED), RAYS_PER_STEP)
         torch.cuda.synchronize()
         dense_launches = dict(rf.LAUNCHES)
+        t0 = time.perf_counter()
+        entry.render_ring(net, conf, src, rays[:RAYS_PER_STEP],
+                          torch.Generator(device=dev).manual_seed(SEED), RAYS_PER_STEP)
+        torch.cuda.synchronize()
+        dense_frame_s = time.perf_counter() - t0
     finally:
         del os.environ["PIXELNERF_FUSED_GATHER_MAX_ROWS"]
     p_dense = psnr(rgb[:RAYS_PER_STEP], rgb_d)
+    p_dense_plain = psnr(rgb_d, plain_frame0[(0,)])
+    dense_frame_ms = (dense_ms[("resnetfc_fwd_dense", RAYS_PER_STEP * 64)]
+                      + dense_ms[("resnetfc_fwd_dense", RAYS_PER_STEP * 96)])
     log(f"dense route: PIXELNERF_FUSED_GATHER_MAX_ROWS=0, frame 0: launches {dense_launches}; "
-        f"vs gather route PSNR {p_dense:.3f} dB; finite {bool(torch.isfinite(rgb_d).all())}")
-    if dense_launches["resnetfc_fwd_dense"] == 0 or not bool(torch.isfinite(rgb_d).all()):
-        raise SystemExit("dense route did not launch the dense kernel")
+        f"vs plain route PSNR {p_dense_plain:.3f} dB (need >= 40), vs gather route "
+        f"{p_dense:.3f} dB; finite {bool(torch.isfinite(rgb_d).all())}; second call "
+        f"{dense_frame_s:.4f} s = {RAYS_PER_STEP / dense_frame_s:.1f} rays/s (encode + render); "
+        f"dense kernel {dense_frame_ms:.3f} ms per frame = {dense_frame_ms / 1e3 / dense_frame_s:.3f} "
+        f"of it")
+    if (dense_launches["resnetfc_fwd_dense"] == 0 or not bool(torch.isfinite(rgb_d).all())
+            or not p_dense_plain >= 40.0):
+        raise SystemExit("dense route did not launch the dense kernel or disagrees with the plain "
+                         "route")
     records["resnetfc_fwd_dense"]["launches"] = dense_launches["resnetfc_fwd_dense"]
 
     # ---- multi-view render: 2 and 3 source views of the same object ----
@@ -734,6 +825,21 @@ def main() -> None:
         shape += f", {rows} rows" if NS > 1 else ""
         log(f"backward check {shape}: stashed forward operands vs plain recompute max|d| {d:.6g} "
             f"<= bar {bar:.6g}, corr {corr:.7f}, relu-mask flips {flips:.3g} (<= 1e-3)")
+        if NS == 1:
+            # the dense forward shares the data kernel's tile: its output is
+            # lin_out of the stashed t (in f64, up to the f32 rounding of its
+            # own lin_out) if the recompute took the primal's products in the
+            # primal's order; the plain recompute's t, summed otherwise, for scale
+            with torch.no_grad():
+                out_f = rf.resnetfc_dense(z, x, tw, nb).double()
+                wo, bo = tw.w_out.double(), tw.b_out.double()[:, None]
+                d_stash = (out_f - ((data.ws_act[-1, :B].double() @ wo).t() + bo)).abs().max().item()
+                d_plain = (out_f - ((ops_p[-1].double() @ wo).t() + bo)).abs().max().item()
+            log(f"backward check {shape}: the dense forward's output vs lin_out of the stashed t "
+                f"(f64) max|d| {d_stash:.3g}, vs lin_out of the plain recompute's t {d_plain:.3g}: "
+                f"the recompute sums in the primal's order "
+                f"{d_stash <= 1e-5 * max(1.0, out_f.abs().max().item())}")
+            del out_f
         same = rv.resnetfc_bwd_reference(g, z, x, tw, nb, True, torch.bfloat16, operands=ops_k,
                                          **kw)
         ind = rv.resnetfc_bwd_reference(g, z, x, tw, nb, True, torch.bfloat16, **kw)

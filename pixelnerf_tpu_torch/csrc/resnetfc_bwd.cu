@@ -25,13 +25,14 @@
 //                         inputs give the same bits.
 //
 // Multi-view (resnetfc_vjp.py:305-327): the recompute runs every view's
-// blocks k < pre and folds them into the mean (tower_mv); the walk back runs
-// the shared blocks k >= pre once, takes dview = dxc * (1 / NS), and walks
-// each view back through its own stashed operands from that same f32 start.
-// dview is a 32 x 512 f32 tile like the view sum, and is kept in the same
-// per-CTA device-memory slot.  The layers below the mean have NS workspace
-// planes (view v at +v), so their weight products sum over NS B_pad rows --
-// the views are simply more points -- and those above it over B_pad rows.
+// blocks k < pre and folds them into the mean (the FOLD step); the walk back
+// runs the shared blocks k >= pre once, takes dview = dxc * (1 / NS), and
+// walks each view back through its own stashed operands from that same f32
+// start.  The view sum and dview are the 64 x 512 f32 tile's worth of a
+// CTA's stream, kept in a per-CTA device-memory slot.  The layers below the
+// mean have NS workspace planes (view v at +v), so their weight products sum
+// over NS B_pad rows -- the views are simply more points -- and those above
+// it over B_pad rows.
 //
 // Numerics (resnetfc_vjp.py:279-331): each block's weight gradient takes the
 // bf16-rounded cotangent, its bias gradient sums the f32 one; dz accumulates
@@ -82,9 +83,12 @@
 //   (B_pad = B rounded up to 32) is the weights kernel's as before; a last
 //   tile half past B_pad reads zeros and writes nothing there;
 // - no atomics: two calls on the same inputs give the same bits.
-// Its recompute sums in another order than the forward kernels' 32-point
-// tower (resnetfc_tower.cuh), so a few relu masks may differ from the
-// primal's; the backward's gates allow <= 1e-3 flips.
+// The tile, its constants and its step kinds are in tile64.cuh, which the
+// one-view forward (resnetfc_fwd_dense) shares: at NS = 1 the recompute
+// takes the primal's products in the primal's order, bit for bit.  The
+// multi-view forward still runs the 32-point tower (resnetfc_tower.cuh), so
+// at NS > 1 a few relu masks may differ from the primal's; the backward's
+// gates allow <= 1e-3 flips.
 //
 // The weights kernel on its own is bound by bytes on an H100 SXM: the train
 // step's fine pass reads its workspace once, 1.18 GB at -V 1 and 2.4 GiB at
@@ -105,8 +109,7 @@
 
 #include <string.h>
 
-#include "hopper_mma.cuh"
-#include "resnetfc_tower.cuh"
+#include "tile64.cuh"
 
 namespace {
 
@@ -116,29 +119,22 @@ using namespace rfc;
 // data gradients: 64-point tiles on wgmma, weights fed by TMA
 // ---------------------------------------------------------------------------
 
-constexpr int D_PTS = 64;        // points a tile: one wgmma M
-// two warpgroups and no producer warp: thread 0 also keeps the weight ring
-// fed, so that every thread may hold 255 registers (a ninth warp would leave
-// three warps on one SM quarter's 16 K registers: 168 each)
-constexpr int D_THREADS = 256;
-constexpr int D_HALF = HID / 2;  // columns a warpgroup owns: 256
-constexpr int D_PIECE = 128;           // columns of one product: wgmma m64n128k16
-constexpr int D_BPW = D_PIECE / 64;     // weight boxes a warpgroup a stage: 2
-constexpr int D_NP = D_HALF / D_PIECE;  // pieces a warpgroup: 2
-constexpr int D_ACC = D_PIECE * D_PTS / 128;  // f32 accumulators a thread a piece: 64
-constexpr int D_STREAM = D_NP * D_ACC;        // a thread's share of a 64 x 256 stream: 128
-constexpr int D_STAGES = 3;
-constexpr uint32_t D_BOX = 64 * 128;                   // one TMA box: 64 x 64 bf16
-constexpr uint32_t D_STAGE = 2 * D_BPW * D_BOX;        // 64 of K x the two warpgroups' pieces
-constexpr uint32_t D_TILE = D_PTS * HID * 2;           // a 64 x 512 bf16 operand tile
-constexpr size_t D_SMEM = 2 * D_TILE + (size_t)D_STAGES * D_STAGE + 1024;  // + alignment
 // steps of one tile's program (data_program; sn64: 34 at one view, 86 at
 // three)
 constexpr int D_MAX_STEPS = 256;
 // f32 words of one CTA's view-sum slot (multi-view): every thread's share of
 // the 64 x 512 stream
-constexpr int D_SLOT_FLOATS = D_STREAM * D_THREADS;
+constexpr int D_SLOT_FLOATS = TILE_STREAM * TILE_THREADS;
 // named barrier 2 + wg: over warpgroup wg
+
+// Workspace planes, in units of one (B_pad, H) plane.  A layer below the
+// view mean has NS planes (view v at +v), one above it has one.  Block k's
+// first plane is plane_at(k) (NS == 1: k), so the stashed operands of block
+// k sit at 2 plane_at(k) (r_k) and 2 plane_at(k) + NS or 1 (s_k), and t
+// after all blocks.
+__device__ __forceinline__ size_t plane_at(const TowerParams& p, int k) {
+  return k < p.pre ? (size_t)p.NS * k : (size_t)p.NS * p.pre + (k - p.pre);
+}
 
 struct BwdParams {
   TowerParams t;   // z, x and the packed weights
@@ -159,34 +155,6 @@ struct BwdParams {
 //       | 1 + n_lin_z + 2 n_blocks db_out (first d_out columns) | then d_out
 //       rows of dW_out^T
 
-// Where accumulator i of this thread lies in a 64 x 128 piece: row, and the
-// first of two neighbouring columns (i even; i + 1 is the next column).
-__device__ __forceinline__ int acc_row(int i) {
-  const int t = threadIdx.x & 127;
-  return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((i >> 1) & 1);
-}
-__device__ __forceinline__ int acc_col(int i) { return 8 * (i >> 2) + 2 * (threadIdx.x & 3); }
-
-// Memory accesses are not moved across this point: a loop over the stream
-// fenced every few elements reads only those elements ahead, so that its
-// reads do not all wait in registers beside the stream and the accumulators.
-__device__ __forceinline__ void group_fence() { asm volatile("" ::: "memory"); }
-
-// This warpgroup's first column of piece p.
-__device__ __forceinline__ int piece_col(int p) { return (threadIdx.x >> 7) * D_HALF + p * D_PIECE; }
-
-// Shared-memory writes by the threads made visible to the products that
-// read them next.
-__device__ __forceinline__ void publish() {
-  hopper::fence_proxy_async();
-  __syncthreads();
-}
-
-// Two f32 values as bf16 at (r, c), (r, c + 1) of a swizzled operand tile.
-__device__ __forceinline__ void put2(unsigned char* tile, int r, int c, float a, float b) {
-  *reinterpret_cast<uint32_t*>(tile + hopper::sw128_offset(r, c)) = pack_bf16x2(a, b);
-}
-
 // Both bf16 values at (r, c), (r, c + 1) of a swizzled operand tile are > 0
 // (bits 0 and 1); rows at or past `valid` read as not live.
 __device__ __forceinline__ int live2(const unsigned char* tile, int row, int c, int valid) {
@@ -199,13 +167,11 @@ __device__ __forceinline__ int live2(const unsigned char* tile, int row, int c, 
 // r_k or s_k) into `tile` by TMA, swizzled as the operand tiles are, on `bar`.
 __device__ __forceinline__ void load_mask(const BwdParams& q, unsigned char* tile, uint64_t* bar,
                                           size_t plane, int row0) {
-  hopper::mbar_arrive_expect_tx(bar, D_TILE);
+  hopper::mbar_arrive_expect_tx(bar, TILE_BYTES);
 #pragma unroll
   for (int j = 0; j < HID / 64; ++j)
-    hopper::tma_load_2d(tile + j * D_BOX, &q.m_act, bar, 64 * j, (int)(plane * q.B_pad) + row0);
+    hopper::tma_load_2d(tile + j * BOX_BYTES, &q.m_act, bar, 64 * j, (int)(plane * q.B_pad) + row0);
 }
-
-constexpr int D_MAX_OUT = 4;  // outputs of lin_out the data kernel takes (d_out 4 in every config)
 
 // Column sums over each 32-row half of the tile at row0 of one piece's f32
 // values val(i) (accumulator layout), into rows ra and rb (rb < 0: none) of
@@ -233,7 +199,7 @@ __device__ __forceinline__ void half_sums(Val val, int p, float* rows, int row0,
     if (second != pass) continue;
     const bool rd = add || pass == 1;
 #pragma unroll
-    for (int j0 = 0; j0 < D_ACC / 4; j0 += 2) {  // two 8-column groups at a time
+    for (int j0 = 0; j0 < TILE_ACC / 4; j0 += 2) {  // two 8-column groups at a time
       float2 s[2];
 #pragma unroll
       for (int j = 0; j < 2; ++j) {
@@ -268,7 +234,7 @@ __device__ __forceinline__ void half_sums(Val val, int p, float* rows, int row0,
 __device__ __forceinline__ void stash(const unsigned char* tile, bf16* dst, int row0, int valid) {
   constexpr int NQ = HID / 8;
 #pragma unroll 1
-  for (int e = threadIdx.x; e < valid * NQ; e += D_THREADS) {
+  for (int e = threadIdx.x; e < valid * NQ; e += TILE_THREADS) {
     const int r = e / NQ, c = (e % NQ) * 8;
     *reinterpret_cast<uint4*>(dst + (size_t)(row0 + r) * HID + c) =
         *reinterpret_cast<const uint4*>(tile + hopper::sw128_offset(r, c));
@@ -281,19 +247,19 @@ __device__ __forceinline__ void stash(const unsigned char* tile, bf16* dst, int 
 __device__ __forceinline__ void load_code(const BwdParams& q, unsigned char* tile, int row0, int v,
                                           int valid) {
   const TowerParams& p = q.t;
-  const int kin = p.kin, n = D_PTS * kin;
-  for (int e0 = threadIdx.x; e0 < n; e0 += 2 * D_THREADS) {
+  const int kin = p.kin, n = TILE_PTS * kin;
+  for (int e0 = threadIdx.x; e0 < n; e0 += 2 * TILE_THREADS) {
     float f[2];
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      const int e = min(e0 + u * D_THREADS, n - 1), r = e / kin, c = e - r * kin;
+      const int e = min(e0 + u * TILE_THREADS, n - 1), r = e / kin, c = e - r * kin;
       const int g = min(row0 + r, p.B - 1);
       f[u] = p.x[src_row(p, g, v) * p.d_in + min(c, p.d_in - 1)];
     }
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      const int e = min(e0 + u * D_THREADS, n - 1), r = e / kin, c = e - r * kin;
-      if (e0 + u * D_THREADS >= n) continue;
+      const int e = min(e0 + u * TILE_THREADS, n - 1), r = e / kin, c = e - r * kin;
+      if (e0 + u * TILE_THREADS >= n) continue;
       const bf16 b = __float2bfloat16_rn(row0 + r < p.B && c < p.d_in ? f[u] : 0.0f);
       *reinterpret_cast<bf16*>(tile + hopper::sw128_offset(r, c)) = b;
       if (r < valid) q.ws_x[((size_t)v * q.B_pad + row0 + r) * kin + c] = b;
@@ -308,53 +274,23 @@ __device__ __forceinline__ void load_latent(const BwdParams& q, unsigned char* t
                                             int valid) {
   const TowerParams& p = q.t;
   constexpr int NQ = HID / 8;
-  for (int e0 = threadIdx.x; e0 < D_PTS * NQ; e0 += 2 * D_THREADS) {
+  for (int e0 = threadIdx.x; e0 < TILE_PTS * NQ; e0 += 2 * TILE_THREADS) {
     uint4 v8[2];
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      const int e = e0 + u * D_THREADS, r = e / NQ, c = (e - r * NQ) * 8;
+      const int e = e0 + u * TILE_THREADS, r = e / NQ, c = (e - r * NQ) * 8;
       const int g = min(row0 + r, p.B - 1);
       v8[u] = __ldg(reinterpret_cast<const uint4*>(p.z + src_row(p, g, v) * HID + c));
     }
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      const int e = e0 + u * D_THREADS, r = e / NQ, c = (e - r * NQ) * 8;
+      const int e = e0 + u * TILE_THREADS, r = e / NQ, c = (e - r * NQ) * 8;
       if (row0 + r >= p.B) v8[u] = make_uint4(0u, 0u, 0u, 0u);
       *reinterpret_cast<uint4*>(tile + hopper::sw128_offset(r, c)) = v8[u];
       if (q.ws_z != nullptr && r < valid)
         *reinterpret_cast<uint4*>(q.ws_z + ((size_t)v * q.B_pad + row0 + r) * HID + c) = v8[u];
     }
   }
-}
-
-// The data kernel's program for one tile, the same for every tile: a list of
-// steps that every thread walks in order, and that thread 0 also walks,
-// ahead, to feed the weight ring with the products' boxes.  A step is one
-// product (with what precedes it and its epilogue) or one action between
-// products; each kind's code exists once, so the kernel stays small.
-enum Kind {
-  IN_FWD,  // lin_in of view v: x = code W_in + b_in (aux: emit relu(x))
-  Z_FWD,   // injection k of view v: x += z W_z[k] + b_z[k]
-  B0_FWD,  // fc_0 of block k: s = relu(r_k W0 + b0), r_k = relu(x) stashed
-  B1_FWD,  // fc_1 of block k: x += s_k W1 + b1, s_k stashed (aux: emit relu(x))
-  FOLD,    // view v's x into the view mean (multi-view)
-  T_OUT,   // t stashed; lin_out's sums; the cotangent of t
-  GB,      // gb = bf16(cotangent of block k's output) into act, stashed, summed
-  Z_BWD,   // dz_v (+)= gb W_z[k]^T (aux: the view's first, which writes)
-  B1_BWD,  // dh = gb W1^T [s_k > 0] into hb, summed
-  B0_BWD,  // cotangent += bf16(dh) W0^T [r_k > 0], dh stashed
-  DVIEW,   // view v's walk starts from dview = cotangent / NS (multi-view)
-  G_IN,    // the cotangent of lin_in's output into act, stashed, summed; dx
-};
-__host__ __device__ constexpr int step(int kind, int k, int v, int aux) {
-  return kind | (k << 4) | (v << 12) | (aux << 20);
-}
-__device__ __forceinline__ int step_kind(int s) { return s & 15; }
-__device__ __forceinline__ int step_k(int s) { return (s >> 4) & 255; }
-__device__ __forceinline__ int step_v(int s) { return (s >> 12) & 255; }
-__device__ __forceinline__ int step_aux(int s) { return s >> 20; }
-__device__ __forceinline__ bool is_gemm(int kind) {
-  return kind != FOLD && kind != T_OUT && kind != GB && kind != DVIEW && kind != G_IN;
 }
 
 // The steps of one tile in order; returns their count.  n_lin_z <= pre.
@@ -405,24 +341,6 @@ __host__ __device__ inline int data_program(int* out, int n_blocks, int n_lin_z,
   return n;
 }
 
-// The weight operand of a product step: map (0 w_in, 1 w_z, 2 w_blk), walk
-// back (B = W^T) or not, first weight row, K.
-struct Gemm {
-  int map, trans, rowbase, K;
-};
-__device__ __forceinline__ Gemm gemm_of(int s, int kin, int C) {
-  const int k = step_k(s);
-  switch (step_kind(s)) {
-    case IN_FWD: return Gemm{0, 0, 0, kin};
-    case Z_FWD: return Gemm{1, 0, k * C, C};
-    case B0_FWD: return Gemm{2, 0, 2 * k * HID, HID};
-    case B1_FWD: return Gemm{2, 0, (2 * k + 1) * HID, HID};
-    case Z_BWD: return Gemm{1, 1, k * C, HID};
-    case B1_BWD: return Gemm{2, 1, (2 * k + 1) * HID, HID};
-    default: return Gemm{2, 1, 2 * k * HID, HID};  // B0_BWD
-  }
-}
-
 // The feeding state of the weight ring, which only thread 0 keeps (in shared
 // memory, so that no other thread holds registers for it): the next stage to
 // load is step g of the program, piece pc, K rows ks * 64.., of this CTA's
@@ -435,7 +353,7 @@ struct Feed {
 // at fixed addresses so that no thread holds registers for them: the ring's
 // full / empty mbarriers, the relu masks' mbarrier, the tile's program and
 // thread 0's feeding state.
-__shared__ __align__(8) uint64_t d_full[D_STAGES], d_empty[D_STAGES], d_mask_full;
+__shared__ __align__(8) uint64_t d_full[RING_STAGES], d_empty[RING_STAGES], d_mask_full;
 __shared__ int d_prog[D_MAX_STEPS];
 __shared__ int d_n_steps;
 // the current tile's first row and its rows inside B_pad (64, or 32 at a
@@ -443,7 +361,7 @@ __shared__ int d_n_steps;
 __shared__ int d_row0, d_valid;
 __shared__ Feed d_feed;
 
-// The weight ring: D_STAGES stages of D_STAGE bytes at `base` with the
+// The weight ring: RING_STAGES stages of STAGE_BYTES bytes at `base` with the
 // mbarriers d_full / d_empty; `it` counts the stages the threads have taken.
 struct Ring {
   unsigned char* base;
@@ -455,7 +373,7 @@ struct Ring {
 // MN-major; walk back: B = W^T, the boxes of W rows rowbase + n (the output
 // columns) and columns k, read K-major.
 __device__ __forceinline__ void feed(const BwdParams& q, Ring& rg, int slot) {
-  const int n_tiles = (q.B_pad + D_PTS - 1) / D_PTS;
+  const int n_tiles = (q.B_pad + TILE_PTS - 1) / TILE_PTS;
   Feed f = d_feed;
   while (f.tile < n_tiles && !is_gemm(step_kind(d_prog[f.g]))) {
     if (++f.g == d_n_steps) {
@@ -466,19 +384,19 @@ __device__ __forceinline__ void feed(const BwdParams& q, Ring& rg, int slot) {
   if (f.tile < n_tiles) {
     const Gemm op = gemm_of(d_prog[f.g], q.t.kin, q.t.C);
     const CUtensorMap* m = op.map == 0 ? &q.m_in : op.map == 1 ? &q.m_z : &q.m_blk;
-    hopper::mbar_arrive_expect_tx(&d_full[slot], D_STAGE);
-    unsigned char* dst = rg.base + slot * D_STAGE;
+    hopper::mbar_arrive_expect_tx(&d_full[slot], STAGE_BYTES);
+    unsigned char* dst = rg.base + slot * STAGE_BYTES;
 #pragma unroll
-    for (int j = 0; j < 2 * D_BPW; ++j) {
-      const int n = (j / D_BPW) * D_HALF + f.pc * D_PIECE + (j % D_BPW) * 64;
+    for (int j = 0; j < 2 * TILE_BPW; ++j) {
+      const int n = (j / TILE_BPW) * TILE_HALF + f.pc * TILE_PIECE + (j % TILE_BPW) * 64;
       if (op.trans)
-        hopper::tma_load_2d(dst + j * D_BOX, m, &d_full[slot], f.ks * 64, op.rowbase + n);
+        hopper::tma_load_2d(dst + j * BOX_BYTES, m, &d_full[slot], f.ks * 64, op.rowbase + n);
       else
-        hopper::tma_load_2d(dst + j * D_BOX, m, &d_full[slot], n, op.rowbase + f.ks * 64);
+        hopper::tma_load_2d(dst + j * BOX_BYTES, m, &d_full[slot], n, op.rowbase + f.ks * 64);
     }
     if (++f.ks * 64 >= op.K) {
       f.ks = 0;
-      if (++f.pc == D_NP) {
+      if (++f.pc == TILE_NP) {
         f.pc = 0;
         if (++f.g == d_n_steps) {
           f.g = 0;
@@ -491,12 +409,12 @@ __device__ __forceinline__ void feed(const BwdParams& q, Ring& rg, int slot) {
 }
 
 // Stage u is read: every thread arrives on its empty barrier; thread 0 waits
-// until all have and loads stage u + D_STAGES into the slot.
+// until all have and loads stage u + RING_STAGES into the slot.
 __device__ __forceinline__ void release(const BwdParams& q, Ring& rg, uint32_t u) {
-  const int slot = u % D_STAGES;
+  const int slot = u % RING_STAGES;
   hopper::mbar_arrive(&d_empty[slot]);
   if (threadIdx.x == 0) {
-    hopper::mbar_wait(&d_empty[slot], (u / D_STAGES) & 1);
+    hopper::mbar_wait(&d_empty[slot], (u / RING_STAGES) & 1);
     feed(q, rg, slot);
   }
 }
@@ -510,14 +428,14 @@ __device__ __forceinline__ void gemm(const BwdParams& q, Ring& rg, const unsigne
   const int wg = threadIdx.x >> 7;
   const int nks = (K + 63) / 64;
 #pragma unroll
-  for (int pc = 0; pc < D_NP; ++pc) {
-    float acc[D_ACC];
+  for (int pc = 0; pc < TILE_NP; ++pc) {
+    float acc[TILE_ACC];
 #pragma unroll
-    for (int i = 0; i < D_ACC; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < TILE_ACC; ++i) acc[i] = 0.0f;
     for (int ks = 0; ks < nks; ++ks) {
-      const int st = rg.it % D_STAGES;
-      hopper::mbar_wait(&d_full[st], (rg.it / D_STAGES) & 1);
-      const unsigned char* b = rg.base + st * D_STAGE + wg * D_BPW * D_BOX;
+      const int st = rg.it % RING_STAGES;
+      hopper::mbar_wait(&d_full[st], (rg.it / RING_STAGES) & 1);
+      const unsigned char* b = rg.base + st * STAGE_BYTES + wg * TILE_BPW * BOX_BYTES;
       const int nk = min(4, (K - ks * 64) / 16);
       hopper::wgmma_fence();
 #pragma unroll
@@ -525,7 +443,7 @@ __device__ __forceinline__ void gemm(const BwdParams& q, Ring& rg, const unsigne
         if (kk < nk) {
           const uint64_t da = hopper::desc_kmajor_sw128(A + ks * 8192 + kk * 32);
           if (TB)
-            hopper::wgmma_m64n128k16<0, 1>(acc, da, hopper::desc_sw128(b + kk * 2048, D_BOX, 1024), 1);
+            hopper::wgmma_m64n128k16<0, 1>(acc, da, hopper::desc_sw128(b + kk * 2048, BOX_BYTES, 1024), 1);
           else
             hopper::wgmma_m64n128k16<0, 0>(acc, da, hopper::desc_kmajor_sw128(b + kk * 32), 1);
         }
@@ -551,35 +469,35 @@ __device__ __forceinline__ void gemm(const BwdParams& q, Ring& rg, const unsigne
 // code, the latent, s_k or dh).  Every product is preceded by a fence of the
 // async proxy and a barrier over both warpgroups, and writes its epilogue into
 // the other tile, so that no tile is rewritten while a product still reads
-// it.  Operand B streams through the weight ring, D_STAGES - 1 stages ahead:
+// it.  Operand B streams through the weight ring, RING_STAGES - 1 stages ahead:
 // thread 0 refills each slot as soon as both warpgroups have read it.
 template <bool MV>
-__global__ void __launch_bounds__(D_THREADS, 1)
+__global__ void __launch_bounds__(TILE_THREADS, 1)
     resnetfc_bwd_data_kernel(const __grid_constant__ BwdParams q) {
   extern __shared__ unsigned char d_smem_raw[];
   const TowerParams& p = q.t;
   const uint32_t raw = hopper::smem_u32(d_smem_raw);
   unsigned char* act = d_smem_raw + (((raw + 1023) & ~1023u) - raw);
-  unsigned char* hb = act + D_TILE;
+  unsigned char* hb = act + TILE_BYTES;
   const int nb = p.n_blocks, nlz = p.n_lin_z, C = p.C, kin = p.kin, d_out = p.d_out;
   // one view: every block per view, one plane each
   const int pre = MV ? p.pre : nb, NS = MV ? p.NS : 1;
-  const int n_tiles = (q.B_pad + D_PTS - 1) / D_PTS;
+  const int n_tiles = (q.B_pad + TILE_PTS - 1) / TILE_PTS;
 
   if (threadIdx.x == 0) {
-    for (int st = 0; st < D_STAGES; ++st) {
+    for (int st = 0; st < RING_STAGES; ++st) {
       hopper::mbar_init(&d_full[st], 1);
-      hopper::mbar_init(&d_empty[st], D_THREADS);
+      hopper::mbar_init(&d_empty[st], TILE_THREADS);
     }
     hopper::mbar_init(&d_mask_full, 1);
     hopper::mbar_fence_init();
     d_n_steps = data_program(d_prog, nb, nlz, NS, pre);
   }
   __syncthreads();
-  Ring rg{hb + D_TILE, 0u};
+  Ring rg{hb + TILE_BYTES, 0u};
   if (threadIdx.x == 0) {
     d_feed = Feed{0, 0, 0, (int)blockIdx.x};
-    for (int st = 0; st < D_STAGES; ++st) feed(q, rg, st);
+    for (int st = 0; st < RING_STAGES; ++st) feed(q, rg, st);
   }
 
   auto first_plane = [&](int k) -> size_t { return MV ? plane_at(p, k) : (size_t)k; };
@@ -587,32 +505,32 @@ __global__ void __launch_bounds__(D_THREADS, 1)
   const int NP = (int)first_plane(nb);  // planes of one kind (r, s, gb or dh) over all blocks
   const int R = q.R, row_bout = 1 + nlz + 2 * nb;
 
-  float sv[D_STREAM];  // the stream x (recompute), then its cotangent (walk back)
+  float sv[TILE_STREAM];  // the stream x (recompute), then its cotangent (walk back)
 
   // bf16(relu(sv)) into act
   auto emit_relu = [&](int pc) {
 #pragma unroll
-    for (int i = 0; i < D_ACC; i += 2)
-      put2(act, acc_row(i), piece_col(pc) + acc_col(i), fmaxf(sv[pc * D_ACC + i], 0.0f),
-           fmaxf(sv[pc * D_ACC + i + 1], 0.0f));
+    for (int i = 0; i < TILE_ACC; i += 2)
+      put2(act, acc_row(i), piece_col(pc) + acc_col(i), fmaxf(sv[pc * TILE_ACC + i], 0.0f),
+           fmaxf(sv[pc * TILE_ACC + i + 1], 0.0f));
   };
 
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     // gb = bf16(sv) into act, the f32 column sums of sv into rows ra (and rb)
     auto emit_cot = [&](int ra, int rb, bool add) {
 #pragma unroll
-      for (int pc = 0; pc < D_NP; ++pc) {
+      for (int pc = 0; pc < TILE_NP; ++pc) {
 #pragma unroll
-        for (int i = 0; i < D_ACC; i += 2)
-          put2(act, acc_row(i), piece_col(pc) + acc_col(i), sv[pc * D_ACC + i],
-               sv[pc * D_ACC + i + 1]);
-        half_sums([&](int i) { return sv[pc * D_ACC + i]; }, pc, q.rows, d_row0, d_valid, R, ra, rb, add);
+        for (int i = 0; i < TILE_ACC; i += 2)
+          put2(act, acc_row(i), piece_col(pc) + acc_col(i), sv[pc * TILE_ACC + i],
+               sv[pc * TILE_ACC + i + 1]);
+        half_sums([&](int i) { return sv[pc * TILE_ACC + i]; }, pc, q.rows, d_row0, d_valid, R, ra, rb, add);
       }
     };
     __syncthreads();  // the previous tile's last readers of act, hb and the tile's rows are done
     if (threadIdx.x == 0) {
-      d_row0 = tile * D_PTS;
-      d_valid = min(D_PTS, q.B_pad - tile * D_PTS);  // rows inside B_pad: 64, or 32 at a ragged end
+      d_row0 = tile * TILE_PTS;
+      d_valid = min(TILE_PTS, q.B_pad - tile * TILE_PTS);  // rows inside B_pad: 64, or 32 at a ragged end
     }
     __syncthreads();
 
@@ -630,8 +548,8 @@ __global__ void __launch_bounds__(D_THREADS, 1)
         // after the last view, relu(mean) for the first shared block
         const float inv = 1.0f / (float)NS;
 #pragma unroll
-        for (int i = 0; i < D_STREAM; ++i) {
-          float* a = q.vsum + ((size_t)blockIdx.x * D_STREAM + i) * D_THREADS + threadIdx.x;
+        for (int i = 0; i < TILE_STREAM; ++i) {
+          float* a = q.vsum + ((size_t)blockIdx.x * TILE_STREAM + i) * TILE_THREADS + threadIdx.x;
           if (v == 0) {
             *a = sv[i];
           } else {
@@ -645,32 +563,32 @@ __global__ void __launch_bounds__(D_THREADS, 1)
         }
         if (v + 1 == NS)
 #pragma unroll
-          for (int pc = 0; pc < D_NP; ++pc) emit_relu(pc);
+          for (int pc = 0; pc < TILE_NP; ++pc) emit_relu(pc);
         continue;
       }
       if (kind == T_OUT) {
         publish();  // act = t
         stash(act, q.ws_act + (size_t)(2 * NP) * plane, d_row0, d_valid);
         // lin_out: dW_out^T and db_out as per-32-row sums; cotangent = bf16(g) W_out^T [t > 0]
-        float gb[2][D_MAX_OUT];  // bf16(g) of this thread's two rows (0 past B)
+        float gb[2][TILE_MAX_OUT];  // bf16(g) of this thread's two rows (0 past B)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int gi = d_row0 + acc_row(2 * h);
 #pragma unroll
-          for (int o = 0; o < D_MAX_OUT; ++o) {
+          for (int o = 0; o < TILE_MAX_OUT; ++o) {
             const float u = q.g[(size_t)min(o, d_out - 1) * p.B + min(gi, p.B - 1)];
             gb[h][o] = (o < d_out && gi < p.B) ? round_bf16(u) : 0.0f;
           }
         }
 #pragma unroll
-        for (int pc = 0; pc < D_NP; ++pc)
+        for (int pc = 0; pc < TILE_NP; ++pc)
 #pragma unroll
-          for (int o = 0; o < D_MAX_OUT; ++o)
+          for (int o = 0; o < TILE_MAX_OUT; ++o)
             if (o < d_out)
-              half_sums([&](int i) { return round_bf16(fmaxf(sv[pc * D_ACC + i], 0.0f)) * gb[(i >> 1) & 1][o]; },
+              half_sums([&](int i) { return round_bf16(fmaxf(sv[pc * TILE_ACC + i], 0.0f)) * gb[(i >> 1) & 1][o]; },
                         pc, q.rows, d_row0, d_valid, R, row_bout + 1 + o, -1, false);
         float* rows_t = q.rows + (size_t)(d_row0 >> 5) * R * HID;
-        for (int e = threadIdx.x; e < (d_valid >> 5) * HID; e += D_THREADS) {
+        for (int e = threadIdx.x; e < (d_valid >> 5) * HID; e += TILE_THREADS) {
           const int h = e / HID, c = e - h * HID;
           float sb = 0.0f;
           if (c < d_out)
@@ -683,24 +601,24 @@ __global__ void __launch_bounds__(D_THREADS, 1)
           rows_t[((size_t)h * R + row_bout) * HID + c] = sb;
         }
 #pragma unroll
-        for (int pc = 0; pc < D_NP; ++pc)
+        for (int pc = 0; pc < TILE_NP; ++pc)
 #pragma unroll
-          for (int j = 0; j < D_ACC / 4; ++j) {
+          for (int j = 0; j < TILE_ACC / 4; ++j) {
             // W_out's rows c, c + 1 serve rows r and r + 8 of this thread
             const int c = piece_col(pc) + acc_col(4 * j);
-            float w[2][D_MAX_OUT];
+            float w[2][TILE_MAX_OUT];
 #pragma unroll
             for (int e = 0; e < 2; ++e)
 #pragma unroll
-              for (int o = 0; o < D_MAX_OUT; ++o)
+              for (int o = 0; o < TILE_MAX_OUT; ++o)
                 w[e][o] = o < d_out ? __bfloat162float(p.w_out[(size_t)(c + e) * d_out + o]) : 0.0f;
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int i = 4 * j + e;
               float u = 0.0f;
 #pragma unroll
-              for (int o = 0; o < D_MAX_OUT; ++o) u = fmaf(gb[e >> 1][o], w[e & 1][o], u);
-              sv[pc * D_ACC + i] = sv[pc * D_ACC + i] > 0.0f ? u : 0.0f;
+              for (int o = 0; o < TILE_MAX_OUT; ++o) u = fmaf(gb[e >> 1][o], w[e & 1][o], u);
+              sv[pc * TILE_ACC + i] = sv[pc * TILE_ACC + i] > 0.0f ? u : 0.0f;
             }
             if ((j & 3) == 3) group_fence();
           }
@@ -711,8 +629,8 @@ __global__ void __launch_bounds__(D_THREADS, 1)
         // dview = cotangent * (1 / NS) starts every view's walk: kept in the slot
         const float inv = 1.0f / (float)NS;
 #pragma unroll
-        for (int i = 0; i < D_STREAM; ++i) {
-          float* a = q.vsum + ((size_t)blockIdx.x * D_STREAM + i) * D_THREADS + threadIdx.x;
+        for (int i = 0; i < TILE_STREAM; ++i) {
+          float* a = q.vsum + ((size_t)blockIdx.x * TILE_STREAM + i) * TILE_THREADS + threadIdx.x;
           if (v == 0) {
             sv[i] *= inv;
             *a = sv[i];
@@ -741,7 +659,7 @@ __global__ void __launch_bounds__(D_THREADS, 1)
         stash(act, q.ws_cot + (size_t)(2 * NP + v) * plane, d_row0, d_valid);
         if (q.dx != nullptr) {
           // dx = bf16(dv) W_in^T on the CUDA cores: d_in <= 128 columns
-          for (int e = threadIdx.x; e < D_PTS * p.d_in; e += D_THREADS) {
+          for (int e = threadIdx.x; e < TILE_PTS * p.d_in; e += TILE_THREADS) {
             const int r = e / p.d_in, c = e - r * p.d_in, gi = d_row0 + r;
             if (gi >= p.B) continue;
             const bf16* w = p.w_in + (size_t)c * HID;
@@ -790,32 +708,32 @@ __global__ void __launch_bounds__(D_THREADS, 1)
       // temporaries beside the stream and the accumulators
       if (kind == IN_FWD || kind == Z_FWD || kind == B1_FWD) {
         // the residual stream: sv (+)= acc + bias; relu(sv) into act for the next product
-        gemm<1>(q, rg, A, op.K, [&](int pc, float(&acc)[D_ACC]) {
+        gemm<1>(q, rg, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
           const int c0 = piece_col(pc);
           const int kind = step_kind(s), k = step_k(s), aux = step_aux(s);  // from s: fewer live registers
           const float* bias = kind == IN_FWD  ? p.b_in
                               : kind == Z_FWD ? p.b_z + (size_t)k * HID
                                               : p.b_blk + (size_t)(2 * k + 1) * HID;
 #pragma unroll
-          for (int j = 0; j < D_ACC / 4; ++j) {  // one bias pair serves rows r and r + 8
+          for (int j = 0; j < TILE_ACC / 4; ++j) {  // one bias pair serves rows r and r + 8
             const float2 bj = __ldg(reinterpret_cast<const float2*>(bias + c0 + acc_col(4 * j)));
 #pragma unroll
             for (int e = 0; e < 4; ++e) {
               const int i = 4 * j + e;
               const float u = acc[i] + ((e & 1) ? bj.y : bj.x);
-              sv[pc * D_ACC + i] = kind == IN_FWD ? u : sv[pc * D_ACC + i] + u;
+              sv[pc * TILE_ACC + i] = kind == IN_FWD ? u : sv[pc * TILE_ACC + i] + u;
             }
             if ((j & 3) == 3) group_fence();
           }
           if (kind == Z_FWD || aux) emit_relu(pc);
         });
       } else if (kind == B0_FWD) {
-        gemm<1>(q, rg, A, op.K, [&](int pc, float(&acc)[D_ACC]) {
+        gemm<1>(q, rg, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
           const int c0 = piece_col(pc);
           const int k = step_k(s);
           const float* bias = p.b_blk + (size_t)(2 * k) * HID;
 #pragma unroll
-          for (int j = 0; j < D_ACC / 4; ++j) {
+          for (int j = 0; j < TILE_ACC / 4; ++j) {
             const int c = c0 + acc_col(4 * j);
             const float2 bj = __ldg(reinterpret_cast<const float2*>(bias + c));
 #pragma unroll
@@ -828,12 +746,12 @@ __global__ void __launch_bounds__(D_THREADS, 1)
       } else if (kind == Z_BWD) {
         // summed in f32 in dz in injection order (view v's rows start at
         // v B_pad); each thread reads back only what it wrote
-        gemm<0>(q, rg, A, op.K, [&](int pc, float(&acc)[D_ACC]) {
+        gemm<0>(q, rg, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
           const int c0 = piece_col(pc);
           const int v = step_v(s), aux = step_aux(s);
           float* dzt = q.dz + ((size_t)v * q.B_pad + d_row0) * HID + c0;  // C = H with a latent
 #pragma unroll
-          for (int i0 = 0; i0 < D_ACC; i0 += 4) {  // two pairs at a time, their reads together
+          for (int i0 = 0; i0 < TILE_ACC; i0 += 4) {  // two pairs at a time, their reads together
             float2 o[2];
 #pragma unroll
             for (int u = 0; u < 2; ++u) {
@@ -854,13 +772,13 @@ __global__ void __launch_bounds__(D_THREADS, 1)
       } else if (kind == B1_BWD) {
         // dh = ds [s > 0]: bf16 into hb over s_k's mask, f32 column sums for
         // db of fc_0
-        gemm<0>(q, rg, A, op.K, [&](int pc, float(&acc)[D_ACC]) {
+        gemm<0>(q, rg, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
           const int c0 = piece_col(pc);
           const int k = step_k(s), v = step_v(s);
           // each block loads two masks, s_k then r_k: s_k completes even phases
           hopper::mbar_wait(&d_mask_full, 0);
 #pragma unroll
-          for (int i = 0; i < D_ACC; i += 2) {
+          for (int i = 0; i < TILE_ACC; i += 2) {
             const int m = live2(hb, acc_row(i), c0 + acc_col(i), d_valid);
             acc[i] = (m & 1) ? acc[i] : 0.0f;
             acc[i + 1] = (m & 2) ? acc[i + 1] : 0.0f;
@@ -870,14 +788,14 @@ __global__ void __launch_bounds__(D_THREADS, 1)
                     k < pre && v > 0);
         });
       } else {  // B0_BWD: dr = bf16(dh) W0^T [r > 0] onto the cotangent
-        gemm<0>(q, rg, A, op.K, [&](int pc, float(&acc)[D_ACC]) {
+        gemm<0>(q, rg, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
           const int c0 = piece_col(pc);
           hopper::mbar_wait(&d_mask_full, 1);  // r_k: the odd phases
 #pragma unroll
-          for (int i = 0; i < D_ACC; i += 2) {
+          for (int i = 0; i < TILE_ACC; i += 2) {
             const int m = live2(act, acc_row(i), c0 + acc_col(i), d_valid);
-            if (m & 1) sv[pc * D_ACC + i] += acc[i];
-            if (m & 2) sv[pc * D_ACC + i + 1] += acc[i + 1];
+            if (m & 1) sv[pc * TILE_ACC + i] += acc[i];
+            if (m & 2) sv[pc * TILE_ACC + i + 1] += acc[i + 1];
             if (i % 16 == 14) group_fence();
           }
         });
@@ -1097,7 +1015,7 @@ int resnetfc_bwd_data(const void* g, const void* z, const void* x, const void* w
                       int d_in, int kin, int H, int C, int n_blocks, int n_lin_z, int d_out,
                       int NS, int B_obj, int pre, int n_ctas, void* stream) {
   if (H != HID || (n_lin_z > 0 && C != HID) || kin < 16 || kin > 128 || kin % 16 != 0 ||
-      d_in > kin || n_blocks < 1 || d_out < 1 || d_out > D_MAX_OUT)
+      d_in > kin || n_blocks < 1 || d_out < 1 || d_out > TILE_MAX_OUT)
     return (int)cudaErrorInvalidValue;
   const bool mv = NS > 1;
   if (mv && (pre < 0 || pre >= n_blocks || n_lin_z > pre || B_obj < 1 || B % B_obj != 0 ||
@@ -1138,20 +1056,20 @@ int resnetfc_bwd_data(const void* g, const void* z, const void* x, const void* w
   q.vsum = static_cast<float*>(vsum);
   q.B_pad = B_pad;
   q.R = n_rows(n_blocks, n_lin_z, d_out);
-  const int n_tiles = (q.B_pad + D_PTS - 1) / D_PTS;
+  const int n_tiles = (q.B_pad + TILE_PTS - 1) / TILE_PTS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   cudaError_t e;
   if (mv) {
     e = cudaFuncSetAttribute(resnetfc_bwd_data_kernel<true>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)D_SMEM);
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TILE_SMEM);
     if (e != cudaSuccess) return (int)e;
     const int grid = n_ctas < n_tiles ? n_ctas : n_tiles;
-    resnetfc_bwd_data_kernel<true><<<grid, D_THREADS, D_SMEM, st>>>(q);
+    resnetfc_bwd_data_kernel<true><<<grid, TILE_THREADS, TILE_SMEM, st>>>(q);
   } else {
     e = cudaFuncSetAttribute(resnetfc_bwd_data_kernel<false>,
-                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)D_SMEM);
+                             cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TILE_SMEM);
     if (e != cudaSuccess) return (int)e;
-    resnetfc_bwd_data_kernel<false><<<n_tiles, D_THREADS, D_SMEM, st>>>(q);
+    resnetfc_bwd_data_kernel<false><<<n_tiles, TILE_THREADS, TILE_SMEM, st>>>(q);
   }
   return (int)cudaGetLastError();
 }
@@ -1161,13 +1079,13 @@ int resnetfc_bwd_data(const void* g, const void* z, const void* x, const void* w
 // stages, the most outputs of lin_out, the most steps of a tile.  Returns
 // its shared memory a CTA.
 size_t resnetfc_bwd_data_limits(int* out) {
-  out[0] = D_PTS;
-  out[1] = D_THREADS;
+  out[0] = TILE_PTS;
+  out[1] = TILE_THREADS;
   out[2] = D_SLOT_FLOATS;
-  out[3] = D_STAGES;
-  out[4] = D_MAX_OUT;
+  out[3] = RING_STAGES;
+  out[4] = TILE_MAX_OUT;
   out[5] = D_MAX_STEPS;
-  return D_SMEM;
+  return TILE_SMEM;
 }
 
 // Shared memory of one weight-gradient CTA (the TMA ring).

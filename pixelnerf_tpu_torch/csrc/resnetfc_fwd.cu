@@ -14,36 +14,67 @@
 // reads 24 raw bytes a point where the encoded code is 168: it does not move
 // the bound.
 //
-// The tower and its numerics contract live in resnetfc_tower.cuh, which the
-// backward's recompute (resnetfc_bwd.cu) shares, and so does the multi-view
-// design (the per-view branches, the view sum in a per-CTA device-memory
-// slot, the persistent grid).  The gather entry points first build
-// z[i] = sum_{j<4} w[i,j] * table[idx[i,j]] as a real 4-tap read of the (T, C)
-// bf16 table of the point's view (L2-resident at T*C*2 = 1 MB a view for
-// sn64), sum in f32 and round to bf16 into shared memory.  The TPU kernel
-// builds the same lookup as a one-hot matmul and so rounds the tap weights to
-// bf16; here they stay f32, a difference the on-card tolerance covers.  An
-// index outside [0, T) contributes nothing, as a one-hot row would.
-//
-// What bounds it: ~6.86 MFLOP per point at sn64 widths (H=512, 5 blocks,
+// What bounds them: ~6.86 MFLOP per point at sn64 widths (H=512, 5 blocks,
 // 3 latent injections), and NS = 3 views ~16.4 MFLOP per output point,
 // against ~0.1 KB of input per point and view, so the tower is bound by
-// tensor-core operations, not device memory.  This version keeps to
-// nvcuda::wmma 16x16x16 bf16 products, one CTA of 8 warps per 32-point tile
-// (resnetfc_tower.cuh).  Every CTA still re-reads all weights from L2 for 32
-// points (NS times for the per-view blocks); larger point tiles with wgmma
-// and TMA are the next step.  The ragged last tile is masked in-kernel.
+// tensor-core operations, not device memory.  What holds a kernel back is
+// the weights' trip from L2 (~6.9 MB bf16 at sn64) into every SM: a tile of
+// P points reads all of them once, so the traffic is (points / P) x 6.9 MB.
+//
+// resnetfc_fwd_dense (one view) runs on the 64-point wgmma tile of
+// tile64.cuh, which the backward's data kernel shares, so the backward's
+// recompute takes its products in this kernel's order:
+// - one CTA of two warpgroups a 64-point tile, each warpgroup owning 256 of
+//   the 512 columns of the f32 stream in registers; every product is wgmma
+//   m64n128k16 pieces with operand A a 64 x 512 bf16 swizzled tile in shared
+//   memory (the code, the latent, relu(x) or relu(fc_0)) and operand B
+//   64 x 64 TMA boxes of the packed row-major weights (MN-major for x W)
+//   through a 3-stage, 32 KB ring.  Each warpgroup keeps its own half of
+//   every stage (the boxes of its piece) fed: its first thread refills the
+//   half as soon as the warpgroup's four warps have read it (one arrival a
+//   warp), so neither warpgroup waits for the other's.  A tile reads each
+//   weight byte out of L2 once for 64 points, half the traffic of the
+//   32-point tower;
+// - the latent comes by TMA too (rows past B read as zeros), the code by the
+//   threads (encoded: rounded to bf16; CODE: evaluated as below);
+// - lin_out (d_out <= 4) stays on the CUDA cores, a warp a point;
+// - no atomics: two calls on the same inputs give the same bits.
+// The weights' tensor maps are encoded once per set of weight addresses
+// (resnetfc_fwd_dense_plan) and kept by the wrapper; the latent's is encoded
+// per call.  What binds it on an H100 is the weights' stream into each SM
+// (~30 GB/s an SM, ~4 TB/s in all): 96 KB of ring in flight is all the shared
+// memory beside the two operand tiles.  Clusters of two CTAs sharing every
+// weight box by TMA multicast halve the L2 reads but not that stream, and
+// couple the pair's rings: they measured slower, and so did refills that do
+// not wait.
+//
+// The other three entry points keep the 32-point nvcuda::wmma tower of
+// resnetfc_tower.cuh (one CTA of 8 warps per 32-point tile; persistent CTAs
+// and a per-CTA device-memory view-sum slot for the multi-view design).
+// The gather entry points first build z[i] = sum_{j<4} w[i,j] *
+// table[idx[i,j]] as a real 4-tap read of the (T, C) bf16 table of the
+// point's view (L2-resident at T*C*2 = 1 MB a view for sn64), sum in f32 and
+// round to bf16 into shared memory.  The TPU kernel builds the same lookup
+// as a one-hot matmul and so rounds the tap weights to bf16; here they stay
+// f32, a difference the on-card tolerance covers.  An index outside [0, T)
+// contributes nothing, as a one-hot row would.
 
-#include "resnetfc_tower.cuh"
+#include <string.h>
+
+#include "tile64.cuh"
 
 namespace {
 
 using namespace rfc;
 
+// ---------------------------------------------------------------------------
+// the 32-point tower: the fused gather (one view) and the multi-view kernels
+// ---------------------------------------------------------------------------
+
 template <bool GATHER, bool MV, bool CODE>
 __global__ void __launch_bounds__(NTHREADS, 1) resnetfc_fwd_kernel(const TowerParams p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Layout L = layout(p.C, p.kin, p.n_lin_z, false);
+  const Layout L = layout(p.C, p.kin, p.n_lin_z);
   const Smem s = carve(smem_raw, L);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_tiles = (p.B + BM - 1) / BM;
@@ -55,11 +86,11 @@ __global__ void __launch_bounds__(NTHREADS, 1) resnetfc_fwd_kernel(const TowerPa
     const int row0 = tile * BM;
     FragC x[2][J], acc[2][J];
     if (MV) {
-      tower_mv<GATHER, false, CODE>(p, L, s, x, acc, row0, slot, nullptr, nullptr, nullptr, 0);
+      tower_mv<GATHER, CODE>(p, L, s, x, acc, row0, slot);
     } else {
       load_inputs<GATHER, CODE>(p, L, s, row0, 0);
       __syncthreads();
-      tower<false>(p, L, s, x, acc, row0, nullptr, 0);
+      tower(p, L, s, x, acc);
     }
 
     // lin_out is only d_out (4) wide: one warp per (point, channel) dot product
@@ -85,7 +116,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) resnetfc_fwd_kernel(const TowerPa
 
 template <bool GATHER, bool MV, bool CODE>
 int launch_variant(const TowerParams& p, int n_ctas, cudaStream_t stream) {
-  const size_t smem = layout(p.C, p.kin, p.n_lin_z, false).total;
+  const size_t smem = layout(p.C, p.kin, p.n_lin_z).total;
   cudaError_t err = cudaFuncSetAttribute(resnetfc_fwd_kernel<GATHER, MV, CODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -95,8 +126,21 @@ int launch_variant(const TowerParams& p, int n_ctas, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
-// Validate, attach the code operands (code_w null: x is the encoded code)
-// and launch the matching variant.
+// Attach the code operands (code_w null: x is the encoded code); returns
+// whether the CODE variant runs, or -1 for an incomplete set.
+int attach_code(TowerParams& p, const void* code_w, const void* code_f, const void* code_p,
+                const void* code_m, int d_raw) {
+  if (code_w == nullptr) return 0;
+  if (code_f == nullptr || code_p == nullptr || code_m == nullptr || d_raw < 1) return -1;
+  p.code_w = static_cast<const float*>(code_w);
+  p.code_f = static_cast<const float*>(code_f);
+  p.code_p = static_cast<const float*>(code_p);
+  p.code_m = static_cast<const float*>(code_m);
+  p.d_raw = d_raw;
+  return 1;
+}
+
+// Validate, attach the code operands and launch the matching tower variant.
 template <bool GATHER, bool MV>
 int launch(TowerParams& p, int H, int n_ctas, const void* code_w, const void* code_f,
            const void* code_p, const void* code_m, int d_raw, cudaStream_t stream) {
@@ -104,44 +148,424 @@ int launch(TowerParams& p, int H, int n_ctas, const void* code_w, const void* co
   if (MV && (p.NS < 2 || p.pre < 0 || p.pre >= p.n_blocks || p.n_lin_z > p.pre ||
              p.B_obj < 1 || p.B % p.B_obj != 0 || p.vsum == nullptr || n_ctas < 1))
     return (int)cudaErrorInvalidValue;
-  if (code_w == nullptr) return launch_variant<GATHER, MV, false>(p, n_ctas, stream);
-  if (code_f == nullptr || code_p == nullptr || code_m == nullptr || d_raw < 1)
-    return (int)cudaErrorInvalidValue;
-  p.code_w = static_cast<const float*>(code_w);
-  p.code_f = static_cast<const float*>(code_f);
-  p.code_p = static_cast<const float*>(code_p);
-  p.code_m = static_cast<const float*>(code_m);
-  p.d_raw = d_raw;
-  return launch_variant<GATHER, MV, true>(p, n_ctas, stream);
+  const int code = attach_code(p, code_w, code_f, code_p, code_m, d_raw);
+  if (code < 0) return (int)cudaErrorInvalidValue;
+  return code ? launch_variant<GATHER, MV, true>(p, n_ctas, stream)
+              : launch_variant<GATHER, MV, false>(p, n_ctas, stream);
+}
+
+// ---------------------------------------------------------------------------
+// resnetfc_fwd_dense: 64-point wgmma tiles, weights by TMA
+// ---------------------------------------------------------------------------
+
+constexpr int F_MAX_STEPS = 64;  // steps of a tile's program: 1 + n_lin_z + 2 n_blocks (sn64: 14)
+constexpr int F_MAX_K = HID;     // the widest code or latent: one 64 x 512 operand tile
+
+// The weights' tensor maps (64 x 64 boxes of w_in (kin, H), w_z (n_lin_z C,
+// H) and w_blk (2 n_blocks H, H)) and what they were encoded for: built once
+// per set of weight addresses by resnetfc_fwd_dense_plan.
+struct DensePlan {
+  CUtensorMap m_in, m_z, m_blk;
+  const void *w_in, *w_z, *w_blk;
+  int kin, C, n_blocks, n_lin_z;
+};
+
+struct DenseParams {
+  TowerParams t;
+  CUtensorMap m_in, m_z, m_blk;
+  CUtensorMap m_lat;  // z (B, C) in 64 x 64 boxes, rows past B read as zeros
+};
+
+// The tile's program: lin_in, then per block its injection (k < n_lin_z),
+// fc_0 and fc_1 -- the data kernel's recompute at one view (data_program).
+__host__ __device__ inline int dense_program(int* out, int n_blocks, int n_lin_z) {
+  int n = 0;
+  auto put = [&](int s) {
+    if (out != nullptr) out[n] = s;
+    ++n;
+  };
+  // block 0 reads relu(x) directly when no latent is injected first
+  put(step(IN_FWD, 0, 0, n_lin_z == 0));
+  for (int k = 0; k < n_blocks; ++k) {
+    if (k < n_lin_z) put(step(Z_FWD, k, 0, 0));
+    put(step(B0_FWD, k, 0, 0));
+    // the next reader of relu(x) is fc_0 of block k + 1 (or lin_out) unless
+    // block k + 1 injects the latent first
+    put(step(B1_FWD, k, 0, k + 1 >= n_lin_z));
+  }
+  return n;
+}
+
+// A feeding state, which only a warpgroup's first thread keeps (in shared
+// memory, so that no other thread holds registers for it): the next stage is
+// step g, piece pc, K rows ks * 64...
+struct DenseFeed {
+  int g, pc, ks;
+};
+
+// A warpgroup's half of a ring stage: the weight boxes of its piece.
+constexpr uint32_t HALF_BYTES = TILE_BPW * BOX_BYTES;
+
+// Shared state beside the dynamic operand tiles and ring, at fixed addresses:
+// each warpgroup's full / empty mbarriers of its halves of the ring stages
+// (empty: one arrival a warp of the warpgroup) and its feeding state; the
+// latent's mbarrier; the program.
+__shared__ __align__(8) uint64_t f_full[2][RING_STAGES], f_empty[2][RING_STAGES], f_lat_full;
+__shared__ int f_prog[F_MAX_STEPS];
+__shared__ int f_n_steps;
+__shared__ DenseFeed f_feed[2];
+
+// Thread 128 h: warpgroup h's half of the next stage into ring slot `slot`
+// -- the weight boxes of its piece pc, K rows rowbase + ks * 64.. -- on
+// full[h].
+__device__ __forceinline__ void dense_feed(const DenseParams& q, unsigned char* ring, int slot, int h) {
+  DenseFeed f = f_feed[h];
+  if (f.g >= f_n_steps) return;  // the tile's last stage is in
+  const Gemm op = gemm_of(f_prog[f.g], q.t.kin, q.t.C);
+  const CUtensorMap* m = op.map == 0 ? &q.m_in : op.map == 1 ? &q.m_z : &q.m_blk;
+  hopper::mbar_arrive_expect_tx(&f_full[h][slot], HALF_BYTES);
+  unsigned char* dst = ring + slot * STAGE_BYTES + h * HALF_BYTES;
+#pragma unroll
+  for (int b = 0; b < TILE_BPW; ++b)
+    hopper::tma_load_2d(dst + b * BOX_BYTES, m, &f_full[h][slot],
+                        h * TILE_HALF + f.pc * TILE_PIECE + b * 64, op.rowbase + f.ks * 64);
+  if (++f.ks * 64 >= op.K) {
+    f.ks = 0;
+    if (++f.pc == TILE_NP) {
+      f.pc = 0;
+      ++f.g;
+    }
+  }
+  f_feed[h] = f;
+}
+
+// Stage u is read by this warp: it arrives on its warpgroup's empty barrier
+// of the stage; the warpgroup's first thread waits until its four warps have,
+// and loads the warpgroup's half of stage u + RING_STAGES into the slot.  So
+// each warpgroup keeps its own half of the ring fed, and neither waits for
+// the other's warps.
+__device__ __forceinline__ void dense_release(const DenseParams& q, unsigned char* ring, uint32_t u) {
+  const int slot = u % RING_STAGES, h = threadIdx.x >> 7;
+  if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(&f_empty[h][slot]);
+  if ((threadIdx.x & 127) == 0) {
+    hopper::mbar_wait(&f_empty[h][slot], (u / RING_STAGES) & 1);
+    dense_feed(q, ring, slot, h);
+  }
+}
+
+// For each piece of this warpgroup's columns, acc = A . B over K (A a
+// swizzled (64, K) tile, B the ring's MN-major boxes), then epi(piece, acc):
+// the pieces, k16 steps and stages of the data kernel's forward products.
+template <typename Epi>
+__device__ __forceinline__ void dense_gemm(const DenseParams& q, unsigned char* ring, uint32_t& it,
+                                           const unsigned char* A, int K, Epi epi) {
+  const int wg = threadIdx.x >> 7;
+  const int nks = (K + 63) / 64;
+#pragma unroll
+  for (int pc = 0; pc < TILE_NP; ++pc) {
+    float acc[TILE_ACC];
+#pragma unroll
+    for (int i = 0; i < TILE_ACC; ++i) acc[i] = 0.0f;
+    for (int ks = 0; ks < nks; ++ks) {
+      const int st = it % RING_STAGES;
+      hopper::mbar_wait(&f_full[wg][st], (it / RING_STAGES) & 1);
+      const unsigned char* b = ring + st * STAGE_BYTES + wg * HALF_BYTES;
+      const int nk = min(4, (K - ks * 64) / 16);
+      hopper::wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < 4; ++kk)
+        if (kk < nk)
+          hopper::wgmma_m64n128k16<0, 1>(acc, hopper::desc_kmajor_sw128(A + ks * 8192 + kk * 32),
+                                         hopper::desc_sw128(b + kk * 2048, BOX_BYTES, 1024), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // stage ks - 1's products have read it
+      if (ks > 0) dense_release(q, ring, it - 1);
+      ++it;
+    }
+    hopper::wgmma_wait<0>();
+    dense_release(q, ring, it - 1);
+    epi(pc, acc);
+  }
+}
+
+// The tile's code into `tile` (bf16, zeros past B and past d_in): the
+// encoded f32 code rounded, or (CODE) the positional code of the raw
+// coordinates as resnetfc_tower.cuh's load_inputs<CODE> evaluates it.  Reads
+// go out four at a time so that they overlap.
+template <bool CODE>
+__device__ __forceinline__ void dense_code(const TowerParams& p, unsigned char* tile, int row0) {
+  const int kin = p.kin, n = TILE_PTS * kin;
+  for (int e0 = threadIdx.x; e0 < n; e0 += 4 * TILE_THREADS) {
+    float f[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = e0 + u * TILE_THREADS, r = e / kin, c = e - r * kin, g = row0 + r;
+      f[u] = 0.0f;
+      if (e < n && g < p.B && c < p.d_in) {
+        if (CODE) {
+          const float* raw = p.x + (size_t)g * p.d_raw;
+          float xg = __ldg(raw) * __ldg(p.code_w + c);
+          for (int j = 1; j < p.d_raw; ++j) xg += __ldg(raw + j) * __ldg(p.code_w + j * p.d_in + c);
+          f[u] = __ldg(p.code_m + c) > 0.0f ? sinf(xg * __ldg(p.code_f + c) + __ldg(p.code_p + c)) : xg;
+        } else {
+          f[u] = p.x[(size_t)g * p.d_in + c];
+        }
+      }
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = e0 + u * TILE_THREADS, r = e / kin, c = e - r * kin;
+      if (e < n) *reinterpret_cast<bf16*>(tile + hopper::sw128_offset(r, c)) = __float2bfloat16_rn(f[u]);
+    }
+  }
+}
+
+// One CTA of 256 threads per 64-point tile (tile64.cuh's tile).  `sv` holds
+// this thread's share of the f32 residual stream; `act` and `hb` are the two
+// operand tiles (a product reads one and its epilogue writes the other).
+template <bool CODE>
+__global__ void __launch_bounds__(TILE_THREADS, 1)
+    resnetfc_fwd_dense_kernel(const __grid_constant__ DenseParams q) {
+  extern __shared__ unsigned char f_smem_raw[];
+  const TowerParams& p = q.t;
+  const uint32_t raw = hopper::smem_u32(f_smem_raw);
+  unsigned char* act = f_smem_raw + (((raw + 1023) & ~1023u) - raw);
+  unsigned char* hb = act + TILE_BYTES;
+  unsigned char* ring = hb + TILE_BYTES;
+
+  if (threadIdx.x == 0) {
+    for (int h = 0; h < 2; ++h)
+      for (int st = 0; st < RING_STAGES; ++st) {
+        hopper::mbar_init(&f_full[h][st], 1);
+        hopper::mbar_init(&f_empty[h][st], 4);  // the warps of warpgroup h
+      }
+    hopper::mbar_init(&f_lat_full, 1);
+    hopper::mbar_fence_init();
+    f_n_steps = dense_program(f_prog, p.n_blocks, p.n_lin_z);
+    f_feed[0] = f_feed[1] = DenseFeed{0, 0, 0};
+  }
+  __syncthreads();
+  if ((threadIdx.x & 127) == 0)
+    for (int st = 0; st < RING_STAGES; ++st) dense_feed(q, ring, st, threadIdx.x >> 7);
+  // the tile's first row (read where used, not kept in a register)
+  auto row0 = [] { return (int)blockIdx.x * TILE_PTS; };
+  // lin_in's operand, before the stream is live
+  dense_code<CODE>(p, hb, row0());
+  publish();
+
+  uint32_t it = 0;  // stages taken
+  float sv[TILE_STREAM];
+
+  // bf16(relu(sv)) into act
+  auto emit_relu = [&](int pc) {
+#pragma unroll
+    for (int i = 0; i < TILE_ACC; i += 2)
+      put2(act, acc_row(i), piece_col(pc) + acc_col(i), fmaxf(sv[pc * TILE_ACC + i], 0.0f),
+           fmaxf(sv[pc * TILE_ACC + i + 1], 0.0f));
+  };
+
+  for (int si = 0; si < f_n_steps; ++si) {
+    const int s = f_prog[si];
+    const int kind = step_kind(s);
+    const unsigned char* A = act;
+    if (kind == IN_FWD) {
+      A = hb;  // the code, loaded above
+    } else if (kind == Z_FWD) {
+      __syncthreads();  // hb's last readers (lin_in or the previous fc_1) are done
+      if (threadIdx.x == 0) {
+        const int boxes = (p.C + 63) / 64;
+        hopper::mbar_arrive_expect_tx(&f_lat_full, boxes * BOX_BYTES);
+        for (int j = 0; j < boxes; ++j)
+          hopper::tma_load_2d(hb + j * BOX_BYTES, &q.m_lat, &f_lat_full, 64 * j, row0());
+      }
+      hopper::mbar_wait(&f_lat_full, step_k(s) & 1);
+      A = hb;
+    } else {
+      publish();  // act = r_k (fc_0) or hb = s_k (fc_1)
+      if (kind == B1_FWD) A = hb;
+    }
+    const Gemm op = gemm_of(s, p.kin, p.C);
+    // one product site, the epilogue chosen inside: so ptxas keeps the stream
+    // and the accumulators where they are (a site per epilogue kind spilled)
+    dense_gemm(q, ring, it, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
+      if (step_kind(s) == B0_FWD) {
+        const int c0 = piece_col(pc);
+        const float* bias = p.b_blk + (size_t)(2 * step_k(s)) * HID;
+#pragma unroll
+        for (int j = 0; j < TILE_ACC / 4; ++j) {
+          const int c = c0 + acc_col(4 * j);
+          const float2 bj = __ldg(reinterpret_cast<const float2*>(bias + c));
+#pragma unroll
+          for (int h = 0; h < 2; ++h)
+            put2(hb, acc_row(4 * j + 2 * h), c, fmaxf(acc[4 * j + 2 * h] + bj.x, 0.0f),
+                 fmaxf(acc[4 * j + 2 * h + 1] + bj.y, 0.0f));
+          if ((j & 3) == 3) group_fence();
+        }
+      } else {
+        const int c0 = piece_col(pc);
+        const int kind = step_kind(s), k = step_k(s), aux = step_aux(s);  // from s: fewer live registers
+        const float* bias = kind == IN_FWD  ? p.b_in
+                            : kind == Z_FWD ? p.b_z + (size_t)k * HID
+                                            : p.b_blk + (size_t)(2 * k + 1) * HID;
+#pragma unroll
+        for (int j = 0; j < TILE_ACC / 4; ++j) {  // one bias pair serves rows r and r + 8
+          const float2 bj = __ldg(reinterpret_cast<const float2*>(bias + c0 + acc_col(4 * j)));
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int i = 4 * j + e;
+            const float u = acc[i] + ((e & 1) ? bj.y : bj.x);
+            sv[pc * TILE_ACC + i] = kind == IN_FWD ? u : sv[pc * TILE_ACC + i] + u;
+          }
+          if ((j & 3) == 3) group_fence();
+        }
+        if (kind == Z_FWD || aux) emit_relu(pc);
+      }
+    });
+  }
+  __syncthreads();  // act = t = bf16(relu(x)) of the last block
+
+  // lin_out on the CUDA cores: warp w takes points w, w + 8, ..; lane l the
+  // 16 columns 16 l.. of t, summed in order, then across the warp
+  const int lane = threadIdx.x & 31, d_out = p.d_out;
+  float wo[16][TILE_MAX_OUT];
+#pragma unroll
+  for (int i = 0; i < 16; ++i)
+#pragma unroll
+    for (int o = 0; o < TILE_MAX_OUT; ++o)
+      wo[i][o] = o < d_out ? __bfloat162float(p.w_out[(size_t)(16 * lane + i) * d_out + o]) : 0.0f;
+  for (int r = threadIdx.x >> 5; r < TILE_PTS && row0() + r < p.B; r += TILE_THREADS / 32) {
+    float acc[TILE_MAX_OUT] = {};
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const uint4 v = *reinterpret_cast<const uint4*>(act + hopper::sw128_offset(r, 16 * lane + 8 * h));
+      const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int u = 0; u < 4; ++u)
+#pragma unroll
+        for (int o = 0; o < TILE_MAX_OUT; ++o) {
+          acc[o] = fmaf(bf16_lo(words[u]), wo[8 * h + 2 * u][o], acc[o]);
+          acc[o] = fmaf(bf16_hi(words[u]), wo[8 * h + 2 * u + 1][o], acc[o]);
+        }
+    }
+    float mine = 0.0f;  // lane o writes output o
+#pragma unroll
+    for (int o = 0; o < TILE_MAX_OUT; ++o) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) acc[o] += __shfl_xor_sync(0xffffffffu, acc[o], off);
+      if (lane == o) mine = acc[o];
+    }
+    if (lane < d_out) {
+      const int g = row0() + r;
+      const float v = mine + p.b_out[lane];
+      if (p.planar)
+        p.out[(size_t)lane * p.B + g] = v;
+      else
+        p.out[(size_t)g * d_out + lane] = v;
+    }
+  }
+}
+
+template <bool CODE>
+int launch_dense(const DenseParams& q, int tiles, cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(resnetfc_fwd_dense_kernel<CODE>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TILE_SMEM);
+  if (err != cudaSuccess) return (int)err;
+  resnetfc_fwd_dense_kernel<CODE><<<tiles, TILE_THREADS, TILE_SMEM, stream>>>(q);
+  return (int)cudaGetLastError();
+}
+
+bool dense_widths_ok(int kin, int C, int n_blocks, int n_lin_z) {
+  return kin >= 16 && kin <= F_MAX_K && kin % 16 == 0 && n_blocks >= 1 && n_lin_z >= 0 &&
+         n_lin_z <= n_blocks && (n_lin_z == 0 || (C >= 16 && C <= F_MAX_K && C % 16 == 0)) &&
+         dense_program(nullptr, n_blocks, n_lin_z) <= F_MAX_STEPS;
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one CTA needs at these widths (H = 512).
-size_t resnetfc_fwd_smem_bytes(int C, int kin, int n_lin_z) {
-  return layout(C, kin, n_lin_z, false).total;
-}
+// Bytes of dynamic shared memory one tower CTA needs at these widths (H =
+// 512): the fused gather and the multi-view kernels.
+size_t resnetfc_fwd_smem_bytes(int C, int kin, int n_lin_z) { return layout(C, kin, n_lin_z).total; }
 
 const char* resnetfc_fwd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
 // f32 words of one CTA's view-sum slot (the multi-view kernels' vsum).
 int resnetfc_fwd_slot_floats() { return SLOT_FLOATS; }
 
-int resnetfc_fwd_dense(const void* z, const void* x, const void* w_in, const void* b_in,
-                       const void* w_z, const void* b_z, const void* w_blk, const void* b_blk,
-                       const void* w_out, const void* b_out, void* out, int B, int d_in, int kin,
-                       int H, int C, int n_blocks, int n_lin_z, int d_out, int planar,
-                       const void* code_w, const void* code_f, const void* code_p,
+// What the dense kernel fixes, for the wrapper to plan with: out[0..6] =
+// points a tile, threads a CTA, weight-ring stages, the most outputs of
+// lin_out, the most steps of a tile's program, the widest code or latent.  Returns the bytes of a plan; *smem gets the shared memory a CTA.
+size_t resnetfc_fwd_dense_limits(int* out, size_t* smem) {
+  out[0] = TILE_PTS;
+  out[1] = TILE_THREADS;
+  out[2] = RING_STAGES;
+  out[3] = TILE_MAX_OUT;
+  out[4] = F_MAX_STEPS;
+  out[5] = F_MAX_K;
+  *smem = TILE_SMEM;
+  return sizeof(DensePlan);
+}
+
+// Fills `plan` (resnetfc_fwd_dense_limits' bytes) with the tensor maps of
+// the packed weights w_in (kin, 512), w_z (n_lin_z, C, 512) and w_blk
+// (n_blocks, 2, 512, 512), bf16 row-major.  A plan holds addresses but no
+// buffer of a call, so a caller keeps it for as long as the weights stay
+// where they are.
+int resnetfc_fwd_dense_plan(void* plan, const void* w_in, const void* w_z, const void* w_blk,
+                            int kin, int C, int n_blocks, int n_lin_z) {
+  if (!dense_widths_ok(kin, C, n_blocks, n_lin_z)) return (int)cudaErrorInvalidValue;
+  DensePlan d = {};
+  int err = hopper::encode_bf16_sw128(&d.m_in, w_in, kin, HID, HID, 64);
+  if (err == 0 && n_lin_z > 0)
+    err = hopper::encode_bf16_sw128(&d.m_z, w_z, (uint64_t)n_lin_z * C, HID, HID, 64);
+  if (err == 0)
+    err = hopper::encode_bf16_sw128(&d.m_blk, w_blk, (uint64_t)2 * n_blocks * HID, HID, HID, 64);
+  if (err != 0) return err;
+  d.w_in = w_in;
+  d.w_z = n_lin_z > 0 ? w_z : nullptr;
+  d.w_blk = w_blk;
+  d.kin = kin;
+  d.C = C;
+  d.n_blocks = n_blocks;
+  d.n_lin_z = n_lin_z;
+  memcpy(plan, &d, sizeof d);
+  return (int)cudaSuccess;
+}
+
+// One view, dense bf16 latent z (B, C) (null without injection): the plan's
+// weights (which must be the w_in, w_z, w_blk given here) and B >= 1 points.
+int resnetfc_fwd_dense(const void* plan, const void* z, const void* x, const void* w_in,
+                       const void* b_in, const void* w_z, const void* b_z, const void* w_blk,
+                       const void* b_blk, const void* w_out, const void* b_out, void* out, int B,
+                       int d_in, int kin, int H, int C, int n_blocks, int n_lin_z, int d_out,
+                       int planar, const void* code_w, const void* code_f, const void* code_p,
                        const void* code_m, int d_raw, void* stream) {
-  TowerParams p = tower_params(x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, b_out, B, d_in, kin,
-                               C, n_blocks, n_lin_z, d_out);
-  p.out = static_cast<float*>(out);
-  p.planar = planar;
-  p.z = static_cast<const bf16*>(z);
-  return launch<false, false>(p, H, 0, code_w, code_f, code_p, code_m, d_raw,
-                              static_cast<cudaStream_t>(stream));
+  DensePlan d;
+  memcpy(&d, plan, sizeof d);
+  if (H != HID || B < 1 || d_in < 1 || d_in > kin || d_out < 1 || d_out > TILE_MAX_OUT ||
+      !dense_widths_ok(kin, C, n_blocks, n_lin_z) || d.w_in != w_in || d.w_blk != w_blk ||
+      d.w_z != (n_lin_z > 0 ? w_z : nullptr) || d.kin != kin || d.C != C ||
+      d.n_blocks != n_blocks || d.n_lin_z != n_lin_z || (n_lin_z > 0 && z == nullptr))
+    return (int)cudaErrorInvalidValue;
+  DenseParams q = {};
+  q.t = tower_params(x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, b_out, B, d_in, kin, C,
+                     n_blocks, n_lin_z, d_out);
+  q.t.out = static_cast<float*>(out);
+  q.t.planar = planar;
+  q.t.z = static_cast<const bf16*>(z);
+  const int code = attach_code(q.t, code_w, code_f, code_p, code_m, d_raw);
+  if (code < 0) return (int)cudaErrorInvalidValue;
+  q.m_in = d.m_in;
+  q.m_z = d.m_z;
+  q.m_blk = d.m_blk;
+  if (n_lin_z > 0) {
+    const int err = hopper::encode_bf16_sw128(&q.m_lat, z, B, C, C, 64);
+    if (err != 0) return err;
+  }
+  const int tiles = (B + TILE_PTS - 1) / TILE_PTS;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return code ? launch_dense<true>(q, tiles, st) : launch_dense<false>(q, tiles, st);
 }
 
 int resnetfc_fwd_gather(const void* idx, const void* w, int taps, const void* table, int T,

@@ -1,11 +1,8 @@
-// The ResnetFC tower on one 32-point tile, for the forward kernels
-// (resnetfc_fwd.cu).  The backward's recompute (resnetfc_bwd.cu) no longer
-// runs it: it takes only this header's constants, TowerParams, plane_at and
-// src_row, and recomputes on 64-point wgmma tiles whose f32 sums run in
-// another order.  So its relu masks may differ from the primal's in a few
-// elements; the gates allow that (the stashed operands against the plain
-// recompute with <= 1e-3 relu-mask flips, and the train-step parity), and
-// the bit identity returns once the forward moves onto the same tile.
+// The ResnetFC tower on one 32-point tile, for the forward kernels that have
+// not moved onto the 64-point wgmma tile (tile64.cuh) yet: the fused gather
+// (resnetfc_fwd_gather) and the multi-view kernels (resnetfc_fwd_dense_mv,
+// resnetfc_fwd_gather_mv), in resnetfc_fwd.cu.  Its TowerParams, src_row and
+// bf16 helpers also serve the tile kernels.
 //
 // Per point (NS == 1):
 //   x = lin_in(code)
@@ -51,9 +48,7 @@
 //   enc[c] = code_m[c] > 0 ? sinf(xg[c] code_f[c] + code_p[c]) : xg[c]
 // and rounded to bf16 only after the sin.  sinf is the accurate one: the
 // arguments reach ~70 rad, where __sinf's error grows.  The code arrays
-// (~1.7 KB at sn64) are read through the read-only cache.  The instantiations
-// without the code compile as before, which the backward's register budget
-// needs.
+// (~1.7 KB at sn64) are read through the read-only cache.
 
 #pragma once
 
@@ -82,7 +77,6 @@ constexpr int SLOT_FLOATS = 2 * J * 8 * NTHREADS;
 
 typedef wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major> FragA;
 typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
-typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major> FragBT;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
 struct TowerParams {
@@ -122,14 +116,13 @@ __device__ __forceinline__ size_t src_row(const TowerParams& p, int g, int v) {
 }
 
 // Shared-memory layout, in bytes from the base; every offset is a multiple
-// of 128 for the widths the wrappers admit (C and kin multiples of 16).  The
-// backward adds one more (BM, H) bf16 buffer for the relu masks it reloads.
+// of 128 for the widths the wrappers admit (C and kin multiples of 16).
 struct Layout {
   int lda, ldz, ldx, sld;  // row strides in elements
-  size_t act, hb, zb, xin, stg, wst, mb, total;
+  size_t act, hb, zb, xin, stg, wst, total;
 };
 
-__host__ __device__ inline Layout layout(int C, int kin, int n_lin_z, bool bwd) {
+__host__ __device__ inline Layout layout(int C, int kin, int n_lin_z) {
   Layout L;
   L.lda = HID + PAD;
   L.ldz = C + PAD;
@@ -141,8 +134,7 @@ __host__ __device__ inline Layout layout(int C, int kin, int n_lin_z, bool bwd) 
   L.xin = L.zb + (n_lin_z > 0 ? (size_t)BM * L.ldz * sizeof(bf16) : 0);
   L.stg = L.xin + (size_t)BM * L.ldx * sizeof(bf16);
   L.wst = L.stg + (size_t)NWARPS * 256 * sizeof(float);
-  L.mb = L.wst + (size_t)NWARPS * STAGES * 16 * L.sld * sizeof(bf16);
-  L.total = L.mb + (bwd ? (size_t)BM * L.lda * sizeof(bf16) : 0);
+  L.total = L.wst + (size_t)NWARPS * STAGES * 16 * L.sld * sizeof(bf16);
   return L;
 }
 
@@ -158,11 +150,6 @@ __device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
 __device__ __forceinline__ void cp_async16(void* smem, const void* gmem) {
   const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(gmem));
-}
-// 16-byte copy that reads src_bytes (0 or 16) and zero-fills the rest
-__device__ __forceinline__ void cp_async16_zfill(void* smem, const void* gmem, int src_bytes) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(smem);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s), "l"(gmem), "r"(src_bytes));
 }
 __device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
 template <int N>
@@ -182,23 +169,9 @@ __device__ __forceinline__ void stage_w(bf16* dst, int sld, const bf16* W, int N
   }
 }
 
-// The transposed slab: W rows col0..col0+16J (the product's output columns),
-// columns k..k+15, stored [row][16] so that each 16x16 piece is one
-// contiguous 512-byte column-major fragment.
-__device__ __forceinline__ void stage_wt(bf16* dst, const bf16* W, int K, int k, int col0) {
-  const int lane = threadIdx.x & 31;
-#pragma unroll
-  for (int c = lane; c < 16 * J * 2; c += 32) {
-    const int r = c >> 1, q = c & 1;
-    cp_async16(dst + r * 16 + q * 8, W + (size_t)(col0 + r) * K + k + q * 8);
-  }
-}
-
 // acc[h][j] = A[16h.., K] @ W[K, col0 + 16j ..] for this warp's J column
-// tiles (TRANS: A @ W^T with W (N, K) row-major, i.e. W[col0 + 16j.., K]).
-// A is bf16 in shared memory (row stride lda), W bf16 row-major in global
-// memory, streamed through the warp's STAGES-deep cp.async ring.
-template <bool TRANS>
+// tiles.  A is bf16 in shared memory (row stride lda), W bf16 row-major in
+// global memory, streamed through the warp's STAGES-deep cp.async ring.
 __device__ __forceinline__ void warp_gemm(FragC (&acc)[2][J], const bf16* A, int lda, int K,
                                           const bf16* W, int N, int col0, bf16* ring, int sld) {
 #pragma unroll
@@ -207,13 +180,8 @@ __device__ __forceinline__ void warp_gemm(FragC (&acc)[2][J], const bf16* A, int
     wmma::fill_fragment(acc[1][j], 0.0f);
   }
   const int nk = K / 16;
-  const int slab = 16 * sld;  // >= 16 * J * 16, the transposed slab
-  auto stage = [&](int s, int ks) {
-    if (TRANS)
-      stage_wt(ring + s * slab, W, K, ks * 16, col0);
-    else
-      stage_w(ring + s * slab, sld, W, N, ks * 16, col0);
-  };
+  const int slab = 16 * sld;
+  auto stage = [&](int s, int ks) { stage_w(ring + s * slab, sld, W, N, ks * 16, col0); };
 #pragma unroll
   for (int s = 0; s < STAGES - 1; ++s) {
     if (s < nk) stage(s, s);
@@ -231,17 +199,10 @@ __device__ __forceinline__ void warp_gemm(FragC (&acc)[2][J], const bf16* A, int
     wmma::load_matrix_sync(a1, A + 16 * lda + ks * 16, lda);
 #pragma unroll
     for (int j = 0; j < J; ++j) {
-      if (TRANS) {
-        FragBT b;
-        wmma::load_matrix_sync(b, Bs + j * 256, 16);
-        wmma::mma_sync(acc[0][j], a0, b, acc[0][j]);
-        wmma::mma_sync(acc[1][j], a1, b, acc[1][j]);
-      } else {
-        FragB b;
-        wmma::load_matrix_sync(b, Bs + j * 16, sld);
-        wmma::mma_sync(acc[0][j], a0, b, acc[0][j]);
-        wmma::mma_sync(acc[1][j], a1, b, acc[1][j]);
-      }
+      FragB b;
+      wmma::load_matrix_sync(b, Bs + j * 16, sld);
+      wmma::mma_sync(acc[0][j], a0, b, acc[0][j]);
+      wmma::mma_sync(acc[1][j], a1, b, acc[1][j]);
     }
   }
   cp_async_wait<0>();
@@ -290,24 +251,8 @@ __device__ __forceinline__ void residual(FragC (&x)[2][J], const FragC (&acc)[2]
   }
 }
 
-// All CTA threads: a (BM, width) bf16 tile between shared memory (row stride
-// lds) and a global (rows, width) row-major buffer starting at tile row row0.
-template <bool TO_GLOBAL>
-__device__ __forceinline__ void copy_tile(bf16* smem, int lds, bf16* gmem, int width, int row0) {
-  const int nq = width / 8;
-  for (int t = threadIdx.x; t < BM * nq; t += NTHREADS) {
-    const int r = t / nq, q = t - r * nq;
-    uint4* g = reinterpret_cast<uint4*>(gmem + (size_t)(row0 + r) * width) + q;
-    uint4* s = reinterpret_cast<uint4*>(smem + r * lds + q * 8);
-    if (TO_GLOBAL)
-      *g = *s;
-    else
-      *s = *g;
-  }
-}
-
 struct Smem {
-  bf16 *act, *hb, *zb, *xin, *ring, *mb;
+  bf16 *act, *hb, *zb, *xin, *ring;
   float* stg;
 };
 
@@ -320,7 +265,6 @@ __device__ __forceinline__ Smem carve(unsigned char* base, const Layout& L) {
   s.xin = reinterpret_cast<bf16*>(base + L.xin);  // code (BM, kin)
   s.stg = reinterpret_cast<float*>(base + L.stg) + warp * 256;
   s.ring = reinterpret_cast<bf16*>(base + L.wst) + (size_t)warp * STAGES * 16 * L.sld;
-  s.mb = reinterpret_cast<bf16*>(base + L.mb);
   return s;
 }
 
@@ -389,50 +333,33 @@ __device__ __forceinline__ void load_inputs(const TowerParams& p, const Layout& 
   }
 }
 
-// Workspace planes of the backward, in units of one (B_pad, H) plane.  A
-// layer below the view mean has NS planes (view v at +v), one above it has
-// one.  Block k's first plane is plane_at(k) (NS == 1: k), so the stashed
-// operands of block k sit at 2 plane_at(k) (r_k) and 2 plane_at(k) +
-// views_at(k) (s_k), and t after all blocks.
-__device__ __forceinline__ int views_at(const TowerParams& p, int k) { return k < p.pre ? p.NS : 1; }
-__device__ __forceinline__ size_t plane_at(const TowerParams& p, int k) {
-  return k < p.pre ? (size_t)p.NS * k : (size_t)p.NS * p.pre + (k - p.pre);
-}
-
 // lin_in: x = code W_in + b_in; with emit, also bf16(relu(x)) into s.act
 // (block 0 reads it directly when no latent is injected).
 __device__ __forceinline__ void tower_in(const TowerParams& p, const Layout& L, const Smem& s,
                                          FragC (&x)[2][J], FragC (&acc)[2][J], bool emit) {
   const int col0 = (threadIdx.x >> 5) * J * 16;  // this warp's output columns
-  warp_gemm<false>(acc, s.xin, L.ldx, p.kin, p.w_in, HID, col0, s.ring, L.sld);
+  warp_gemm(acc, s.xin, L.ldx, p.kin, p.w_in, HID, col0, s.ring, L.sld);
   residual(x, acc, p.b_in, col0, true, s.act, L.lda, emit, s.stg);
   __syncthreads();
 }
 
 // Residual blocks k0 <= k < k1 on the f32 stream x.  After the last one
-// s.act holds bf16(relu(x)) only with emit_end.  With STASH, the operands of
-// every block -- r_k = bf16(relu(x)) entering fc_0 and s_k = bf16(relu(fc_0))
-// entering fc_1 -- are also copied to their workspace planes (view `view`
-// below the mean), each a (B_pad, H) row-major plane of ws_act.
-template <bool STASH>
+// s.act holds bf16(relu(x)) only with emit_end.
 __device__ __forceinline__ void tower_blocks(const TowerParams& p, const Layout& L, const Smem& s,
-                                             FragC (&x)[2][J], FragC (&acc)[2][J], int row0,
-                                             int k0, int k1, bool emit_end, bf16* ws_act,
-                                             size_t plane, int view) {
+                                             FragC (&x)[2][J], FragC (&acc)[2][J], int k0, int k1,
+                                             bool emit_end) {
   constexpr int H = HID;
   const int C = p.C;
   const int col0 = (threadIdx.x >> 5) * J * 16;  // this warp's output columns
   for (int k = k0; k < k1; ++k) {
     if (k < p.n_lin_z) {
-      warp_gemm<false>(acc, s.zb, L.ldz, C, p.w_z + (size_t)k * C * H, H, col0, s.ring, L.sld);
+      warp_gemm(acc, s.zb, L.ldz, C, p.w_z + (size_t)k * C * H, H, col0, s.ring, L.sld);
       residual(x, acc, p.b_z + (size_t)k * H, col0, false, s.act, L.lda, true, s.stg);
       __syncthreads();  // act complete before fc_0 reads it
     }
-    const size_t r_plane = 2 * plane_at(p, k) + (k < p.pre ? view : 0);
-    if (STASH) copy_tile<true>(s.act, L.lda, ws_act + r_plane * plane, H, row0);
     const bf16* w0 = p.w_blk + (size_t)(2 * k) * H * H;
     const float* b0 = p.b_blk + (size_t)(2 * k) * H;
-    warp_gemm<false>(acc, s.act, L.lda, H, w0, H, col0, s.ring, L.sld);
+    warp_gemm(acc, s.act, L.lda, H, w0, H, col0, s.ring, L.sld);
 #pragma unroll
     for (int j = 0; j < J; ++j) {
       FragC b;
@@ -445,8 +372,7 @@ __device__ __forceinline__ void tower_blocks(const TowerParams& p, const Layout&
       }
     }
     __syncthreads();  // hb complete before fc_1 reads it
-    if (STASH) copy_tile<true>(s.hb, L.lda, ws_act + (r_plane + views_at(p, k)) * plane, H, row0);
-    warp_gemm<false>(acc, s.hb, L.lda, H, w0 + (size_t)H * H, H, col0, s.ring, L.sld);
+    warp_gemm(acc, s.hb, L.lda, H, w0 + (size_t)H * H, H, col0, s.ring, L.sld);
     // the next consumer of relu(x) is fc_0 of block k+1 (or lin_out) unless
     // block k+1 injects the latent first, or the view mean comes next
     residual(x, acc, b0 + H, col0, false, s.act, L.lda,
@@ -456,12 +382,10 @@ __device__ __forceinline__ void tower_blocks(const TowerParams& p, const Layout&
 }
 
 // The single-view tower: on return s.act holds t = bf16(relu(x_final)).
-template <bool STASH>
 __device__ __forceinline__ void tower(const TowerParams& p, const Layout& L, const Smem& s,
-                                      FragC (&x)[2][J], FragC (&acc)[2][J], int row0,
-                                      bf16* ws_act, size_t plane) {
+                                      FragC (&x)[2][J], FragC (&acc)[2][J]) {
   tower_in(p, L, s, x, acc, p.n_lin_z == 0);
-  tower_blocks<STASH>(p, L, s, x, acc, row0, 0, p.n_blocks, true, ws_act, plane, 0);
+  tower_blocks(p, L, s, x, acc, 0, p.n_blocks, true);
 }
 
 // Element i of fragment (h, j) of this thread, in a CTA's 64 KB slot: each
@@ -509,27 +433,20 @@ __device__ __forceinline__ void emit_stream(const Layout& L, const Smem& s, cons
 
 // The multi-view tower on tile row0 (SB objects x NS views): every view's
 // lin_in and blocks k < pre, folded into the mean, then the shared blocks.
-// On return s.act holds t.  With STASH, also each view's bf16 code and
-// latent (ws_x, ws_z: NS planes of (B_pad, kin) and (B_pad, C)) and every
-// block's operands (tower_blocks).
-template <bool GATHER, bool STASH, bool CODE = false>
+// On return s.act holds t.
+template <bool GATHER, bool CODE>
 __device__ __forceinline__ void tower_mv(const TowerParams& p, const Layout& L, const Smem& s,
                                          FragC (&x)[2][J], FragC (&acc)[2][J], int row0,
-                                         float* slot, bf16* ws_act, bf16* ws_x, bf16* ws_z,
-                                         size_t B_pad) {
+                                         float* slot) {
   for (int v = 0; v < p.NS; ++v) {
     load_inputs<GATHER, CODE>(p, L, s, row0, v);
     __syncthreads();
-    if (STASH) {
-      copy_tile<true>(s.xin, L.ldx, ws_x + (size_t)v * B_pad * p.kin, p.kin, row0);
-      if (p.n_lin_z > 0) copy_tile<true>(s.zb, L.ldz, ws_z + (size_t)v * B_pad * p.C, p.C, row0);
-    }
     tower_in(p, L, s, x, acc, p.n_lin_z == 0 && p.pre > 0);
-    tower_blocks<STASH>(p, L, s, x, acc, row0, 0, p.pre, false, ws_act, B_pad * HID, v);
+    tower_blocks(p, L, s, x, acc, 0, p.pre, false);
     fold_view(x, slot, v, p.NS);
   }
   emit_stream(L, s, x);
-  tower_blocks<STASH>(p, L, s, x, acc, row0, p.pre, p.n_blocks, true, ws_act, B_pad * HID, 0);
+  tower_blocks(p, L, s, x, acc, p.pre, p.n_blocks, true);
 }
 
 inline TowerParams tower_params(const void* x, const void* w_in, const void* b_in, const void* w_z,

@@ -1,0 +1,123 @@
+// The 64-point wgmma tile of the ResnetFC kernels for Hopper (sm_90a), which
+// the dense forward (resnetfc_fwd.cu, resnetfc_fwd_dense) and the backward's
+// data kernel (resnetfc_bwd.cu, resnetfc_bwd_data) share:
+// - a tile is 64 points, one wgmma M, walked by 256 threads: warpgroups 0
+//   and 1 each own 256 of the 512 columns of every layer for all 64 points,
+//   their share of the f32 residual stream (or of its cotangent) in 128
+//   registers a thread;
+// - every product is wgmma m64n128k16 pieces, two a warpgroup: operand A a
+//   64 x 512 bf16 tile in shared memory, K-major with the 128-byte swizzle
+//   (hopper::sw128_offset), written by the threads from their accumulators
+//   (put2) and published to the async proxy (publish); operand B 64 x 64 TMA
+//   boxes of the packed row-major weights through a ring of RING_STAGES
+//   stages of 32 KB;
+// - a tile's work is a program of steps (Kind, step) whose products read
+//   their weights as gemm_of says.
+// Both kernels take the products in the same order -- the same pieces, the
+// same k16 steps, each bias added to the f32 product before the residual add
+// -- so at one view the backward's recompute reproduces the forward's f32
+// stream bit for bit.
+#pragma once
+
+#include "hopper_mma.cuh"
+#include "resnetfc_tower.cuh"
+
+namespace rfc {
+
+constexpr int TILE_PTS = 64;        // points a tile: one wgmma M
+// two warpgroups and no producer warp: thread 0 also keeps the weight ring
+// fed, so that every thread may hold 255 registers (a ninth warp would leave
+// three warps on one SM quarter's 16 K registers: 168 each)
+constexpr int TILE_THREADS = 256;
+constexpr int TILE_HALF = HID / 2;  // columns a warpgroup owns: 256
+constexpr int TILE_PIECE = 128;           // columns of one product: wgmma m64n128k16
+constexpr int TILE_BPW = TILE_PIECE / 64;     // weight boxes a warpgroup a stage: 2
+constexpr int TILE_NP = TILE_HALF / TILE_PIECE;  // pieces a warpgroup: 2
+constexpr int TILE_ACC = TILE_PIECE * TILE_PTS / 128;  // f32 accumulators a thread a piece: 64
+constexpr int TILE_STREAM = TILE_NP * TILE_ACC;        // a thread's share of a 64 x 256 stream: 128
+constexpr int RING_STAGES = 3;
+constexpr uint32_t BOX_BYTES = 64 * 128;                   // one TMA box: 64 x 64 bf16
+constexpr uint32_t STAGE_BYTES = 2 * TILE_BPW * BOX_BYTES;        // 64 of K x the two warpgroups' pieces
+constexpr uint32_t TILE_BYTES = TILE_PTS * HID * 2;           // a 64 x 512 bf16 operand tile
+constexpr size_t TILE_SMEM = 2 * TILE_BYTES + (size_t)RING_STAGES * STAGE_BYTES + 1024;  // + alignment
+
+constexpr int TILE_MAX_OUT = 4;  // outputs of lin_out the tile kernels take (d_out 4 in every config)
+
+// Where accumulator i of this thread lies in a 64 x 128 piece: row, and the
+// first of two neighbouring columns (i even; i + 1 is the next column).
+__device__ __forceinline__ int acc_row(int i) {
+  const int t = threadIdx.x & 127;
+  return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((i >> 1) & 1);
+}
+__device__ __forceinline__ int acc_col(int i) { return 8 * (i >> 2) + 2 * (threadIdx.x & 3); }
+
+// Memory accesses are not moved across this point: a loop over the stream
+// fenced every few elements reads only those elements ahead, so that its
+// reads do not all wait in registers beside the stream and the accumulators.
+__device__ __forceinline__ void group_fence() { asm volatile("" ::: "memory"); }
+
+// This warpgroup's first column of piece p.
+__device__ __forceinline__ int piece_col(int p) { return (threadIdx.x >> 7) * TILE_HALF + p * TILE_PIECE; }
+
+// Shared-memory writes by the threads made visible to the products that
+// read them next.
+__device__ __forceinline__ void publish() {
+  hopper::fence_proxy_async();
+  __syncthreads();
+}
+
+// Two f32 values as bf16 at (r, c), (r, c + 1) of a swizzled operand tile.
+__device__ __forceinline__ void put2(unsigned char* tile, int r, int c, float a, float b) {
+  *reinterpret_cast<uint32_t*>(tile + hopper::sw128_offset(r, c)) = pack_bf16x2(a, b);
+}
+
+// A tile's program, the same for every tile: a list of steps that every
+// thread walks in order, and that thread 0 also walks, ahead, to feed the
+// weight ring with the products' boxes.  A step is one product (with what
+// precedes it and its epilogue) or one action between products; each kind's
+// code exists once, so a kernel stays small.  The forward runs the first four
+// kinds; the data kernel all of them.
+enum Kind {
+  IN_FWD,  // lin_in of view v: x = code W_in + b_in (aux: emit relu(x))
+  Z_FWD,   // injection k of view v: x += z W_z[k] + b_z[k]
+  B0_FWD,  // fc_0 of block k: s = relu(r_k W0 + b0), r_k = relu(x) stashed
+  B1_FWD,  // fc_1 of block k: x += s_k W1 + b1, s_k stashed (aux: emit relu(x))
+  FOLD,    // view v's x into the view mean (multi-view)
+  T_OUT,   // t stashed; lin_out's sums; the cotangent of t
+  GB,      // gb = bf16(cotangent of block k's output) into act, stashed, summed
+  Z_BWD,   // dz_v (+)= gb W_z[k]^T (aux: the view's first, which writes)
+  B1_BWD,  // dh = gb W1^T [s_k > 0] into hb, summed
+  B0_BWD,  // cotangent += bf16(dh) W0^T [r_k > 0], dh stashed
+  DVIEW,   // view v's walk starts from dview = cotangent / NS (multi-view)
+  G_IN,    // the cotangent of lin_in's output into act, stashed, summed; dx
+};
+__host__ __device__ constexpr int step(int kind, int k, int v, int aux) {
+  return kind | (k << 4) | (v << 12) | (aux << 20);
+}
+__device__ __forceinline__ int step_kind(int s) { return s & 15; }
+__device__ __forceinline__ int step_k(int s) { return (s >> 4) & 255; }
+__device__ __forceinline__ int step_v(int s) { return (s >> 12) & 255; }
+__device__ __forceinline__ int step_aux(int s) { return s >> 20; }
+__device__ __forceinline__ bool is_gemm(int kind) {
+  return kind != FOLD && kind != T_OUT && kind != GB && kind != DVIEW && kind != G_IN;
+}
+
+// The weight operand of a product step: map (0 w_in, 1 w_z, 2 w_blk), walk
+// back (B = W^T) or not, first weight row, K.
+struct Gemm {
+  int map, trans, rowbase, K;
+};
+__device__ __forceinline__ Gemm gemm_of(int s, int kin, int C) {
+  const int k = step_k(s);
+  switch (step_kind(s)) {
+    case IN_FWD: return Gemm{0, 0, 0, kin};
+    case Z_FWD: return Gemm{1, 0, k * C, C};
+    case B0_FWD: return Gemm{2, 0, 2 * k * HID, HID};
+    case B1_FWD: return Gemm{2, 0, (2 * k + 1) * HID, HID};
+    case Z_BWD: return Gemm{1, 1, k * C, HID};
+    case B1_BWD: return Gemm{2, 1, (2 * k + 1) * HID, HID};
+    default: return Gemm{2, 1, 2 * k * HID, HID};  // B0_BWD
+  }
+}
+
+}  // namespace rfc

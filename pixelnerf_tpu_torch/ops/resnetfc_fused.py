@@ -3,7 +3,9 @@
 Counterpart of ``pixelnerf_tpu/ops/resnetfc_pallas.py``:
 
 * :func:`resnetfc_dense` launches ``resnetfc_fwd_dense``, the port of
-  ``_kernel_2d`` (dense latent ``z``);
+  ``_kernel_2d`` (dense latent ``z``), on 64-point wgmma tiles with the
+  weights by TMA; their tensor maps are encoded once per set of weight
+  addresses (:func:`dense_plan`);
 * :func:`resnetfc_gather` launches ``resnetfc_fwd_gather``, the port of
   ``_kernel_2d_gather`` (the bilinear feature lookup fused in as a 4-tap read
   of a bf16 ``(T, C)`` table);
@@ -21,9 +23,10 @@ port of ``_x_feat`` (``fused_code``), and the launch counts under the entry
 point's name with ``_code`` appended.  The deferred code is eval-only, as in
 the JAX package: it has no backward.
 
-All four live in ``csrc/resnetfc_fwd.cu``, which also notes what bounds them; the
-tower itself is in ``csrc/resnetfc_tower.cuh``, which the backward
-(``csrc/resnetfc_bwd.cu``, :mod:`.resnetfc_vjp`) shares.  Each source is
+All four live in ``csrc/resnetfc_fwd.cu``, which also notes what bounds them.
+The dense kernel's 64-point tile is ``csrc/tile64.cuh``, which the backward's
+data kernel (``csrc/resnetfc_bwd.cu``, :mod:`.resnetfc_vjp`) shares; the
+other three run the 32-point tower of ``csrc/resnetfc_tower.cuh``.  Each source is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
 interface on first use (a changed source or header gets a new library name, so
 it rebuilds) and loaded with ``ctypes``; :func:`build_all` compiles every
@@ -46,7 +49,9 @@ and rounded only after the sin, as the kernel does.
 
 from __future__ import annotations
 
+import collections
 import ctypes
+import functools
 import hashlib
 import os
 import shutil
@@ -58,7 +63,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"fwd": CSRC / "resnetfc_fwd.cu", "bwd": CSRC / "resnetfc_bwd.cu"}
-HEADERS = (CSRC / "resnetfc_tower.cuh", CSRC / "hopper_mma.cuh")
+HEADERS = (CSRC / "resnetfc_tower.cuh", CSRC / "hopper_mma.cuh", CSRC / "tile64.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -75,6 +80,9 @@ ENTRY_POINTS = ("resnetfc_fwd_dense", "resnetfc_fwd_gather", "resnetfc_fwd_dense
                 "resnetfc_fwd_gather_mv")
 LAUNCHES = {name + suffix: 0 for suffix in ("", "_code") for name in ENTRY_POINTS}
 _LIB: Optional[ctypes.CDLL] = None
+# the dense kernel's encoded weight maps per set of weight addresses (dense_plan)
+_PLANS: "collections.OrderedDict" = collections.OrderedDict()
+MAX_KEPT_PLANS = 16
 
 
 def reset_launches() -> None:
@@ -377,8 +385,12 @@ def _lib() -> ctypes.CDLL:
         P, I = ctypes.c_void_p, ctypes.c_int
         tower_args = [P] * 9 + [P] + [I] * 9  # x, weights, out, dims
         code_args = [P] * 4 + [I] + [P]  # code w, f, p, m, d_raw; stream
-        lib.resnetfc_fwd_dense.argtypes = [P] + tower_args + code_args
+        lib.resnetfc_fwd_dense.argtypes = [P, P] + tower_args + code_args  # plan, z
         lib.resnetfc_fwd_dense.restype = I
+        lib.resnetfc_fwd_dense_plan.argtypes = [P, P, P, P, I, I, I, I]
+        lib.resnetfc_fwd_dense_plan.restype = I
+        lib.resnetfc_fwd_dense_limits.argtypes = [P, P]
+        lib.resnetfc_fwd_dense_limits.restype = ctypes.c_size_t
         lib.resnetfc_fwd_gather.argtypes = [P, P, I, P, I] + tower_args + code_args
         lib.resnetfc_fwd_gather.restype = I
         mv_args = tower_args + [I, I, I, P, I] + code_args  # NS, B_obj, pre, vsum, n_ctas
@@ -454,9 +466,6 @@ def _tower_args(tower: Tower, x, n_blocks: int, planar_out: bool, B: Optional[in
     for t in tower[:8]:
         if t.device != dev:
             raise ValueError(f"weights on {t.device}, points on {dev}")
-    smem = _lib().resnetfc_fwd_smem_bytes(C, kin, n_lin_z)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"widths need {smem} B of shared memory per CTA (> {MAX_SMEM_BYTES})")
     out = torch.empty((d_out, B) if planar_out else (B, d_out), device=dev, dtype=torch.float32)
     args = [
         x.data_ptr(), tower.w_in.data_ptr(), tower.b_in.data_ptr(), tower.w_z.data_ptr(),
@@ -469,6 +478,108 @@ def _tower_args(tower: Tower, x, n_blocks: int, planar_out: bool, B: Optional[in
 
 def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _check_tower_smem(C: int, kin: int, n_lin_z: int) -> None:
+    """The 32-point tower's shared memory at these widths fits a CTA (the
+    fused gather and the multi-view kernels)."""
+    smem = _lib().resnetfc_fwd_smem_bytes(C, kin, n_lin_z)
+    if smem > MAX_SMEM_BYTES:
+        raise ValueError(f"widths need {smem} B of shared memory per CTA (> {MAX_SMEM_BYTES})")
+
+
+class DenseLimits(NamedTuple):
+    """What ``resnetfc_fwd_dense_kernel`` fixes (read from its library by
+    :func:`dense_limits`)."""
+
+    tile: int  # points a CTA takes (one wgmma M)
+    threads: int  # a CTA: two warpgroups (thread 0 also feeds the weight ring)
+    stages: int  # weight-ring stages
+    max_out: int  # the most outputs of lin_out
+    max_steps: int  # the most steps of a tile's program
+    max_k: int  # the widest code (kin) or latent (C): one 64 x 512 operand tile
+    smem: int  # dynamic shared memory a CTA
+    plan_bytes: int  # bytes of a plan (the weights' tensor maps)
+
+
+@functools.lru_cache(maxsize=None)
+def dense_limits() -> DenseLimits:
+    out, smem = (ctypes.c_int * 6)(), ctypes.c_size_t()
+    n = _lib().resnetfc_fwd_dense_limits(out, ctypes.byref(smem))
+    return DenseLimits(*out, smem.value, n)
+
+
+def dense_steps(n_blocks: int, n_lin_z: int) -> int:
+    """Steps of one dense tile's program (``dense_program`` in
+    ``csrc/resnetfc_fwd.cu``): lin_in, then per block its injection (the
+    first n_lin_z blocks), fc_0 and fc_1.  14 at sn64."""
+    return 1 + n_lin_z + 2 * n_blocks
+
+
+def dense_grid(B: int, limits: DenseLimits) -> int:
+    """The CTAs of a ``resnetfc_fwd_dense`` launch: one a tile-point tile,
+    the last one ragged (its rows past B read zeros and write nothing)."""
+    return -(-B // limits.tile)
+
+
+def check_dense_widths(kin: int, H: int, C: int, n_lin_z: int, n_blocks: int, d_out: int,
+                       limits: DenseLimits) -> None:
+    """Raise ValueError on widths ``resnetfc_fwd_dense`` does not take: H
+    other than 512; kin, or C with a latent, not a multiple of 16 or past
+    ``limits.max_k``; more injections than blocks; more outputs than
+    ``limits.max_out``; a program past ``limits.max_steps``; a CTA past the
+    card's shared memory."""
+    if H != HIDDEN:
+        raise ValueError(f"the dense kernel needs d_hidden {HIDDEN} (H={H})")
+    for name, v in (("kin", kin),) + ((("C", C),) if n_lin_z > 0 else ()):
+        if v % 16 or not 16 <= v <= limits.max_k:
+            raise ValueError(f"the dense kernel needs {name} a multiple of 16 in "
+                             f"[16, {limits.max_k}] ({name}={v})")
+    if not 0 <= n_lin_z <= n_blocks or n_blocks < 1:
+        raise ValueError(f"the dense kernel needs 0 <= n_lin_z <= n_blocks and a block "
+                         f"(n_lin_z={n_lin_z}, n_blocks={n_blocks})")
+    if not 1 <= d_out <= limits.max_out:
+        raise ValueError(f"the dense kernel takes 1 to {limits.max_out} outputs (d_out={d_out})")
+    if dense_steps(n_blocks, n_lin_z) > limits.max_steps:
+        raise ValueError(f"the dense kernel runs at most {limits.max_steps} steps a tile; "
+                         f"{n_blocks} blocks need {dense_steps(n_blocks, n_lin_z)}")
+    if limits.smem > MAX_SMEM_BYTES:
+        raise ValueError(f"the dense kernel needs {limits.smem} B of shared memory per CTA "
+                         f"(> {MAX_SMEM_BYTES})")
+
+
+def check_tma(t: torch.Tensor, what: str) -> None:
+    """TMA reads a matrix in place: contiguous, with a 16-byte aligned base
+    and rows a multiple of 16 bytes."""
+    if not t.is_contiguous():
+        raise ValueError(f"{what} must be contiguous")
+    if t.data_ptr() % 16 or (t.shape[-1] * t.element_size()) % 16:
+        raise ValueError(f"{what} must start on a 16-byte boundary with rows a multiple of 16 "
+                         f"bytes (address {t.data_ptr():#x}, row {t.shape[-1]} x "
+                         f"{t.element_size()} B)")
+
+
+def dense_plan(tower: Tower, n_blocks: int) -> ctypes.Array:
+    """The dense kernel's plan for these packed weights: their tensor maps,
+    encoded once per set of weight addresses and kept (the last
+    MAX_KEPT_PLANS sets), so that a launch costs the host one parameter
+    copy.  Raises if the encoding fails."""
+    kin, C, n_lin_z = tower.w_in.shape[0], tower.w_z.shape[1], tower.w_z.shape[0]
+    key = (tower.w_in.data_ptr(), tower.w_z.data_ptr(), tower.w_blk.data_ptr(), kin, C,
+           n_blocks, n_lin_z)
+    plan = _PLANS.get(key)
+    if plan is not None:
+        _PLANS.move_to_end(key)
+        return plan
+    plan = ctypes.create_string_buffer(dense_limits().plan_bytes)
+    err = _lib().resnetfc_fwd_dense_plan(plan, *key)
+    if err != 0:
+        raise RuntimeError(f"resnetfc_fwd_dense plan failed: "
+                           f"{_lib().resnetfc_fwd_error_string(err).decode()} ({err})")
+    _PLANS[key] = plan
+    if len(_PLANS) > MAX_KEPT_PLANS:
+        _PLANS.popitem(last=False)
+    return plan
 
 
 def view_slots(dev) -> torch.Tensor:
@@ -501,7 +612,9 @@ def resnetfc_dense(z: Optional[torch.Tensor], x: Coords, tower: Tower, n_blocks:
                    planar_out: bool = True) -> torch.Tensor:
     """ResnetFC forward over dense latents ``z (B, C)`` (bf16; None when the
     tower injects no latent) and code ``x (B, d_in)`` (f32) or a RawCode of
-    ``B`` rows.
+    ``B`` rows.  Raises on widths the kernel does not take
+    (:func:`check_dense_widths`) and on weights or a latent that TMA cannot
+    read in place (:func:`check_tma`).
 
     :return: (d_out, B) f32 when ``planar_out`` else (B, d_out)
     """
@@ -509,11 +622,17 @@ def resnetfc_dense(z: Optional[torch.Tensor], x: Coords, tower: Tower, n_blocks:
     if coords(x).device.type == "cpu":
         return resnetfc_reference(z, x, tower, n_blocks, planar_out)
     args, tail, out, C, n_lin_z, suffix = _tower_args(tower, x, n_blocks, planar_out)
+    check_dense_widths(tower.w_in.shape[0], tower.w_in.shape[1], C, n_lin_z, n_blocks,
+                       tower.w_out.shape[1], dense_limits())
+    for name in ("w_in", "w_z", "w_blk"):
+        check_tma(getattr(tower, name), name)
     if n_lin_z > 0:
         _check(z, "z", torch.bfloat16, (rows, C))
+        check_tma(z, "z")
     if rows == 0:
         return out
-    err = _lib().resnetfc_fwd_dense(z.data_ptr() if n_lin_z > 0 else None, *args, *tail)
+    err = _lib().resnetfc_fwd_dense(dense_plan(tower, n_blocks),
+                                    z.data_ptr() if n_lin_z > 0 else None, *args, *tail)
     _launched("resnetfc_fwd_dense" + suffix, err)
     return out
 
@@ -530,7 +649,8 @@ def resnetfc_gather(idx: torch.Tensor, w: torch.Tensor, table: torch.Tensor, x: 
     if coords(x).device.type == "cpu":
         z = gather_reference(idx, w, table)
         return resnetfc_reference(z, x, tower, n_blocks, planar_out)
-    args, tail, out, C, _, suffix = _tower_args(tower, x, n_blocks, planar_out)
+    args, tail, out, C, n_lin_z, suffix = _tower_args(tower, x, n_blocks, planar_out)
+    _check_tower_smem(C, tower.w_in.shape[0], n_lin_z)
     B, taps = idx.shape
     if taps < 4:
         raise ValueError(f"need at least 4 taps, got {taps}")
@@ -562,6 +682,7 @@ def resnetfc_dense_mv(z: Optional[torch.Tensor], x: Coords, tower: Tower, n_bloc
         return resnetfc_reference(z, x, tower, n_blocks, planar_out, NS=NS, sb=sb,
                                   combine_layer=combine_layer)
     args, tail, out, C, n_lin_z, suffix = _tower_args(tower, x, n_blocks, planar_out, B)
+    _check_tower_smem(C, tower.w_in.shape[0], n_lin_z)
     if n_lin_z > 0:
         _check(z, "z", torch.bfloat16, (rows, C))
     if B == 0:
@@ -595,7 +716,8 @@ def resnetfc_gather_mv(idx: torch.Tensor, w: torch.Tensor, tables: torch.Tensor,
         z = gather_reference(idx, w, tables)
         return resnetfc_reference(z, x, tower, n_blocks, planar_out, NS=NS,
                                   combine_layer=combine_layer)
-    args, tail, out, C, _, suffix = _tower_args(tower, x, n_blocks, planar_out, B)
+    args, tail, out, C, n_lin_z, suffix = _tower_args(tower, x, n_blocks, planar_out, B)
+    _check_tower_smem(C, tower.w_in.shape[0], n_lin_z)
     taps = idx.shape[1]
     if taps < 4:
         raise ValueError(f"need at least 4 taps, got {taps}")

@@ -366,17 +366,6 @@ def task_operands(task: WTask, z: Optional[torch.Tensor], data: DataOut):
     return a, data.ws_cot[task.g_plane : task.g_plane + n].reshape(task.P, -1)
 
 
-def _check_plane(t: torch.Tensor, what: str) -> None:
-    """TMA reads an array's planes in place: contiguous, with a 16-byte
-    aligned base and rows (a plane starts a multiple of 32 such rows in)."""
-    if not t.is_contiguous():
-        raise ValueError(f"{what} must be contiguous")
-    if t.data_ptr() % 16 or (t.shape[-1] * t.element_size()) % 16:
-        raise ValueError(f"{what} must start on a 16-byte boundary with rows a multiple of 16 "
-                         f"bytes (address {t.data_ptr():#x}, row {t.shape[-1]} x "
-                         f"{t.element_size()} B)")
-
-
 def split_points(tasks: Sequence[WTask]) -> int:
     """Points per split of every product's point axis: the shortest
     product's points, rounded up to a multiple of 64.  So a product splits
@@ -660,7 +649,7 @@ def bwd_data(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.Tensor, tower:
     if n_lin_z > 0:
         rf._check(z, "z", torch.bfloat16, (NS * B, C))
     for name in ("w_in", "w_z", "w_blk"):  # TMA reads the weights in place
-        _check_plane(getattr(tower, name), name)
+        rf.check_tma(getattr(tower, name), name)
     lib = _lib()
     B_pad, _, _ = data_grid(B, NS, 1, lim)
     NP = NS * pre + n_blocks - pre
@@ -708,7 +697,7 @@ def bwd_weights(z: Optional[torch.Tensor], data: DataOut, tower: rf.Tower,
     if n_lin_z > 0:
         arrays["z" if NS == 1 else "ws_z"] = z if NS == 1 else data.ws_z
     for name, t in arrays.items():
-        _check_plane(t, name)
+        rf.check_tma(t, name)
     if not data.rows.is_contiguous():
         raise ValueError("rows must be contiguous")
     if dev.type == "cpu":

@@ -1,6 +1,8 @@
-"""Step time of the PyTorch port's train CLI in several checkouts, in turns.
+"""Step time of the PyTorch port's train CLI in several checkouts, in turns,
+or (``--kernels``) the times of its field kernels.
 
     python3 scripts/torch_train_step_ab.py --views 1 --steps 12 --rounds 2 DIR_A DIR_B
+    python3 scripts/torch_train_step_ab.py --kernels --rounds 2 DIR_A DIR_B
 
 Each run is a process of its own, started in one checkout: it builds that
 checkout's kernels, runs ``pixelnerf_tpu_torch.train.main`` (the train CLI,
@@ -10,6 +12,14 @@ checkout's kernels, runs ``pixelnerf_tpu_torch.train.main`` (the train CLI,
 then in reverse (A B B A), so that a drift of the card or of the host falls
 on both alike.  Every run's line is printed as it ends; the last line is one
 JSON object with, per checkout, the mean ms/step over steps 3 on of each run.
+
+With ``--kernels`` a run times, on the sn64 fine head (seeded weights, live
+fc_1) and seeded inputs, the dense forward (``resnetfc_dense``) at a render
+fine pass (4096 rays x 96 = 393,216 points) and at the -V 1 train step's
+fine pass (4 x 128 x 96 = 49,152), and the backward's data kernel
+(``resnetfc_bwd_data``) at -V 1 and -V 3 (SB 4 x NS 3 x 12,288 rows) there:
+CUDA events around 5 calls after one warm-up, ms a call.  The last line
+then holds, per checkout, each kernel's times run by run.
 Needs a CUDA card and the checkouts' kernels to build there.
 """
 
@@ -36,35 +46,98 @@ def child(views: int, steps: int) -> None:
     print(json.dumps({"steps_ms": [1e3 * s for s in trainer.step_seconds]}), flush=True)
 
 
+KERNEL_CASES = ("dense_393216", "dense_49152", "bwd_data_v1_49152", "bwd_data_v3_49152")
+
+
+def child_kernels() -> None:
+    """One kernel run in the checkout of the working directory."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    from pixelnerf_tpu_torch import entry
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
+
+    rf.build_all()
+    dev = torch.device("cuda")
+    net = entry.build_model(entry.load_conf(pretrained=False), dev, mlp_impl="auto", seed=0)
+    g = torch.Generator().manual_seed(1)
+    with torch.no_grad():
+        for blk in net.mlp_fine.blocks:  # fc_1 starts at zero, which would leave fc_0 unused
+            blk.fc_1.weight.copy_(0.02 * torch.randn(blk.fc_1.weight.shape, generator=g))
+    mlp = net.mlp_fine
+    tw, nb, cl = mlp.tower(dev), mlp.n_blocks, mlp.combine_layer
+    gd = torch.Generator(device=dev).manual_seed(2)
+
+    def inputs(rows):
+        z = torch.randn(rows, mlp.d_latent, device=dev, generator=gd).bfloat16()
+        x = torch.randn(rows, mlp.d_in, device=dev, generator=gd)
+        return z, x
+
+    def ms(fn, reps=5):
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(reps):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / reps
+
+    out = {}
+    with torch.no_grad():
+        for B in (393216, 49152):
+            z, x = inputs(B)
+            out[f"dense_{B}"] = ms(lambda: rf.resnetfc_dense(z, x, tw, nb))
+        for NS, sb in ((1, 1), (3, 4)):
+            B = 49152
+            z, x = inputs(NS * B)
+            gc = torch.randn(mlp.d_out, B, device=dev, generator=gd)
+            kw = dict(NS=NS, sb=sb, combine_layer=cl) if NS > 1 else {}
+            out[f"bwd_data_v{NS}_{B}"] = ms(lambda: rv.bwd_data(gc, z, x, tw, nb, False, **kw))
+    print(json.dumps({"kernel_ms": out, "card": torch.cuda.get_device_name(0)}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("checkouts", nargs="*")
     ap.add_argument("--views", type=int, default=1)
     ap.add_argument("--steps", type=int, default=12)
     ap.add_argument("--rounds", type=int, default=2)
+    ap.add_argument("--kernels", action="store_true", help="time the field kernels, not steps")
     ap.add_argument("--timeout", type=float, default=300.0)
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
-        return child(args.views, args.steps)
+        return child_kernels() if args.kernels else child(args.views, args.steps)
     if not args.checkouts:
         ap.error("name at least one checkout")
     dirs = [os.path.abspath(d) for d in args.checkouts]
     order = [d for _ in range(args.rounds) for d in dirs + dirs[::-1]]
     runs = {d: [] for d in dirs}
+    mode = ["--kernels"] if args.kernels else ["--views", str(args.views), "--steps", str(args.steps)]
     for i, d in enumerate(order):
-        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", "--views",
-                              str(args.views), "--steps", str(args.steps)], cwd=d,
+        out = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", *mode], cwd=d,
                              capture_output=True, text=True, timeout=args.timeout)
-        lines = [ln for ln in out.stdout.splitlines() if ln.startswith('{"steps_ms"')]
+        lines = [ln for ln in out.stdout.splitlines()
+                 if ln.startswith('{"kernel_ms"' if args.kernels else '{"steps_ms"')]
         if out.returncode != 0 or not lines:
             sys.stderr.write(out.stdout[-4000:] + out.stderr[-4000:])
             raise SystemExit(f"run {i} in {d} failed ({out.returncode})")
+        if args.kernels:
+            res = json.loads(lines[-1])
+            runs[d].append(res["kernel_ms"])
+            print(f"run {i}: {d}: {json.dumps(res)}", flush=True)
+            continue
         steps = json.loads(lines[-1])["steps_ms"]
         mean = sum(steps[2:]) / len(steps[2:])
         runs[d].append(mean)
         print(f"run {i}: {d} -V {args.views}: {mean:.3f} ms per step over steps 3-{len(steps)}; "
               f"steps {[round(s, 2) for s in steps]}", flush=True)
+    if args.kernels:
+        print(json.dumps({"kernel_ms": {d: {k: [r[k] for r in runs[d]] for k in KERNEL_CASES}
+                                        for d in dirs}}))
+        return
     print(json.dumps({"views": args.views, "steps": args.steps,
                       "ms_per_step": {d: runs[d] for d in dirs}}))
 

@@ -1,0 +1,165 @@
+"""The port's one-view dense forward (row 2 of PERF.md: ``_kernel_2d``):
+``ops/resnetfc_fused.py::resnetfc_dense``, its plain version
+``resnetfc_reference`` and the launch helpers of ``resnetfc_fwd_dense``
+(``dense_grid``, ``dense_steps``, ``check_dense_widths``, ``check_tma``).
+
+``resnetfc_fwd_dense`` walks 64-point tiles; every B here leaves its last
+tile ragged (2000 = 31 x 64 + 16, and 64 k + 32).  On the CPU the wrapper's
+plain version, in f32, is held against the JAX package's ``_kernel_2d``
+through ``resnetfc_pallas`` in interpret mode, with the encoded code and
+with a ``RawCode``, planar and row-major, to 1e-4 of max(1, max|ref|), the
+bar of ``tests/test_torch_multiview.py`` (f32 sums reassociated).  On the
+card (``cuda``-marked, skipped here) the kernel is held against the same
+plain version in bf16 at the bar of ``tests/test_pallas.py``.
+"""
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from pixelnerf_tpu.models.code import PositionalEncoding as JPositionalEncoding
+from pixelnerf_tpu.models.resnetfc import ResnetFC as JResnetFC
+from pixelnerf_tpu.ops import resnetfc_pallas as rp
+from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
+from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+from pixelnerf_tpu_torch.utils.jax_convert import from_jax_variables
+
+# what resnetfc_fwd_dense_kernel fixes, by hand (the library reports it on
+# the card): 64-point tiles, 256 threads, 3 stages of 32 KB, at most 4
+# outputs, 64 steps a tile and a 512-wide code or latent; two 64 KB operand
+# tiles + the ring + 1 KB slack; a plan of three tensor maps
+LIMITS = rf.DenseLimits(tile=64, threads=256, stages=3, max_out=4, max_steps=64, max_k=512,
+                        smem=2 * 65536 + 3 * 32768 + 1024, plan_bytes=448)
+PE = dict(num_freqs=6, d_in=3, freq_factor=1.5, include_input=True)  # sn64's code
+
+
+def _setup(B, d_latent, H, nb, seed=0):
+    """JAX ResnetFC parameters drawn from numpy (every parameter live), the
+    port module holding the same weights, the sn64 code's raw coordinates
+    and flat arrays, the encoded code and a latent."""
+    W, f, p, m = JPositionalEncoding(**PE).flat_arrays(tail=3)
+    d_in = W.shape[1]
+    jm = JResnetFC(d_out=4, n_blocks=nb, d_latent=d_latent, d_hidden=H, combine_layer=nb)
+    params = jm.init(jax.random.PRNGKey(0), jnp.zeros((4, d_latent + d_in)))["params"]
+    rng = np.random.default_rng(seed)
+    params = jax.tree.map(
+        lambda a: (rng.normal(size=a.shape) * (0.05 if a.ndim == 1 else 1.0 / np.sqrt(a.shape[0])))
+        .astype(np.float32), params)
+    port = ResnetFC(d_in=d_in, d_out=4, n_blocks=nb, d_latent=d_latent, d_hidden=H,
+                    combine_layer=nb, impl="cuda")
+    sd = from_jax_variables({"params": {"mlp_coarse": params}})
+    port.load_state_dict({k[len("mlp_coarse."):]: v for k, v in sd.items()})
+    xyz = rng.uniform(-1.4, 1.4, size=(B, 3))
+    vd = rng.normal(size=(B, 3))
+    vd /= np.linalg.norm(vd, axis=-1, keepdims=True)
+    raw = np.concatenate([xyz, vd], axis=-1).astype(np.float32)
+    enc = (raw.astype(np.float64) @ W).astype(np.float32)
+    enc = np.where(m > 0, np.sin(enc * f + p), enc).astype(np.float32)
+    z = rng.normal(size=(B, d_latent)).astype(np.float32)
+    return params, port, raw, (W, f, p, m), enc, z
+
+
+@pytest.mark.parametrize("planar", [True, False])
+@pytest.mark.parametrize("raw_code", [False, True])
+@pytest.mark.parametrize("B", [2000, 160])
+def test_dense_plain_matches_pallas_interpret(B, raw_code, planar):
+    """resnetfc_dense on CPU tensors (its plain version) against
+    resnetfc_pallas (_kernel_2d) in interpret mode, at a ragged last tile."""
+    C, H, nb = 32, 64, 3
+    params, port, raw, code, enc, z = _setup(B, C, H, nb, seed=B + raw_code)
+    if raw_code:
+        jx = rp.RawCode(*(jnp.asarray(a) for a in (raw,) + code))
+        x = rf.RawCode(*(torch.from_numpy(a) for a in (raw,) + code))
+    else:
+        jx, x = jnp.asarray(enc), torch.from_numpy(enc)
+    ref = rp.resnetfc_pallas(params, (jnp.asarray(z), jx), NS=1, d_latent=C, d_in=enc.shape[1],
+                             n_blocks=nb, combine_layer=nb, block_points=512, interpret=True,
+                             planar_out=planar)
+    ref = np.asarray(ref)[0]
+    rf.reset_launches()
+    out = rf.resnetfc_dense(torch.from_numpy(z), x, port.tower(torch.device("cpu")), nb, planar)
+    assert not any(rf.LAUNCHES.values())  # CPU tensors: the plain version, no launch
+    assert tuple(out.shape) == ref.shape == ((4, B) if planar else (B, 4))
+    err = np.abs(out.numpy().astype(np.float64) - ref).max()
+    assert err <= 1e-4 * max(1.0, np.abs(ref).max()), err
+
+
+@pytest.mark.parametrize("B,tiles", [(1, 1), (64, 1), (65, 2), (2000, 32), (49152, 768),
+                                     (393216, 6144)])
+def test_dense_grid_is_one_cta_a_64_point_tile(B, tiles):
+    assert rf.dense_grid(B, LIMITS) == tiles
+
+
+def test_dense_program_is_the_data_kernels_recompute():
+    """A dense tile's steps are those of the data kernel's recompute at one
+    view: lin_in, the injections, fc_0 and fc_1 of every block (14 at sn64)."""
+    from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
+
+    assert rf.dense_steps(5, 3) == 14
+    for nb, nlz in ((1, 0), (2, 1), (5, 3), (6, 6)):
+        # data_steps at NS = 1: the recompute, lin_out, the walk back
+        walk_back = 1 + 3 * nb + nlz + 1
+        assert rf.dense_steps(nb, nlz) == rv.data_steps(nb, nlz, 1, nb) - walk_back
+
+
+def test_check_dense_widths_takes_sn64_and_refuses_the_rest():
+    rf.check_dense_widths(48, 512, 512, 3, 5, 4, LIMITS)  # sn64
+    rf.check_dense_widths(512, 512, 16, 1, 1, 1, LIMITS)
+    rf.check_dense_widths(48, 512, 40, 0, 2, 4, LIMITS)  # no latent: C is not read
+    for args, what in [((48, 256, 512, 3, 5, 4), "d_hidden"),
+                       ((40, 512, 512, 3, 5, 4), "kin"),
+                       ((528, 512, 512, 3, 5, 4), "kin"),
+                       ((48, 512, 520, 3, 5, 4), "C"),
+                       ((48, 512, 40, 3, 5, 4), "C"),
+                       ((48, 512, 512, 6, 5, 4), "n_lin_z"),
+                       ((48, 512, 512, 3, 5, 5), "outputs"),
+                       ((48, 512, 512, 3, 31, 4), "steps")]:
+        with pytest.raises(ValueError, match=what):
+            rf.check_dense_widths(*args, LIMITS)
+
+
+def test_check_tma_refuses_what_tma_cannot_read_in_place():
+    a = torch.zeros(64, 512, dtype=torch.bfloat16)
+    rf.check_tma(a, "a")
+    with pytest.raises(ValueError, match="contiguous"):
+        rf.check_tma(a[:, ::2], "a")
+    with pytest.raises(ValueError, match="16-byte"):
+        rf.check_tma(a.flatten()[1:513].reshape(1, 512), "a")
+    with pytest.raises(ValueError, match="16-byte"):
+        rf.check_tma(torch.zeros(64, 4, dtype=torch.bfloat16), "a")
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card: the hand-written kernels have no CPU mode")
+    from pixelnerf_tpu_torch.device import resolve_device
+
+    return resolve_device("cuda")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("raw_code", [False, True])
+@pytest.mark.parametrize("B", [2000, 160])
+def test_dense_kernel_matches_plain_on_card(cuda_device, B, raw_code):
+    """sn64 widths at a ragged last tile: the kernel against its plain
+    version in bf16 (the bar of tests/test_pallas.py), planar and row-major,
+    one launch each, bit-identical on a second call."""
+    _, port, raw, code, enc, z = _setup(B, 512, 512, 5)
+    port = port.to(cuda_device)
+    tw = port.tower(cuda_device)
+    z = torch.from_numpy(z).to(cuda_device).bfloat16()
+    x = (rf.RawCode(*(torch.from_numpy(a).to(cuda_device) for a in (raw,) + code)) if raw_code
+         else torch.from_numpy(enc).to(cuda_device))
+    name = "resnetfc_fwd_dense" + ("_code" if raw_code else "")
+    for planar in (True, False):
+        before = rf.LAUNCHES[name]
+        out = rf.resnetfc_dense(z, x, tw, 5, planar)
+        torch.cuda.synchronize()
+        assert rf.LAUNCHES[name] == before + 1
+        ref = rf.resnetfc_reference(z, x, tw, 5, planar, compute_dtype=torch.bfloat16)
+        assert (out - ref).abs().max().item() <= 0.015 * max(1.0, ref.abs().max().item())
+        assert torch.corrcoef(torch.stack([out.flatten(), ref.flatten()]))[0, 1] > 0.999
+        assert torch.equal(out, rf.resnetfc_dense(z, x, tw, 5, planar))
