@@ -11,20 +11,22 @@ one line each:
    each library's ``HGMMA`` / ``UTMALDG`` / ``HMMA`` counts per kernel
    (``cuobjdump -sass``) and the weights kernel's shared memory; both
    backward kernels (the data kernel's two instantiations too) and both
-   instantiations of the dense forward must be wgmma + TMA kernels with no
-   wmma product and no spills; the forward kernels' registers on a line of
-   their own;
+   instantiations of the dense forward and of the fused gather must be
+   wgmma + TMA kernels with no wmma product and no spills; the forward
+   kernels' registers on a line of their own;
 3. kernel checks: each forward kernel against its plain PyTorch version at
    the main paths' shapes (one ray chunk x 64 and x 96 samples; the
-   single-view kernels on a 1024 x 512 table, the multi-view gather at NS 2
-   on two encoded source views, the multi-view dense kernel at NS 3 and at
-   the train layout SB 4 x NS 3 x 128 rays x 96), to
-   ``max|d| <= 0.015 * max(1, max|ref|)`` and ``corr > 0.999``, with its time
-   beside the plain version's, a cuBLAS bf16 chain's and the card's bound;
-   the dense forward (both instantiations) also at a ragged B (2000 points)
-   and at the -V 1 train step's fine pass (49,152), bit-identical on a
-   second call, with its TFLOP/s, share of bound and weight stream out of
-   L2;
+   single-view kernels on the encoded source view's 1024 x 512 table, the
+   multi-view gather at NS 2 on two encoded source views, the multi-view
+   dense kernel at NS 3 and at the train layout SB 4 x NS 3 x 128 rays x
+   96), to ``max|d| <= 0.015 * max(1, max|ref|)`` and ``corr > 0.999``, with
+   its time beside the plain version's, a cuBLAS bf16 chain's and the card's
+   bound; the one-view kernels (dense and gather, encoded and deferred code)
+   also at a ragged B (2000 points) and at the -V 1 train step's fine pass
+   (49,152), with taps outside the table, bit-identical on a second call,
+   the gather kernel bit-identical to the dense one on
+   ``gather_reference``'s bf16 latent, with their TFLOP/s, share of bound
+   and stream out of L2 (weights, and the gather's table rows);
    then the deferred positional code (row 6 of PERF.md) in each forward
    kernel -- its CODE variant fed the raw (xyz, viewdir) coordinates, at the
    fine pass's 393,216 points, NS 2 for the multi-view gather and NS 3 for
@@ -35,7 +37,8 @@ one line each:
    gather kernel must have launched, and frame 0 must agree with the plain
    route to >= 40 dB PSNR;
 5. dense route: ``PIXELNERF_FUSED_GATHER_MAX_ROWS=0`` renders frame 0 through
-   the dense kernel, which must have launched;
+   the dense kernel, which must have launched and agree with the plain route
+   to >= 40 dB; frame 0 on the gather and the dense route timed in turns;
 6. multi-view render: the same ring from source views (0, 1) and then
    (0, 1, 2); the first must launch the multi-view gather kernel (NS x T =
    2048 rows, within the fused-gather cap), the second the multi-view dense
@@ -172,8 +175,9 @@ def bound(flops: float, nbytes: float):
 
 
 # template arguments of the kernels, for naming ptxas' entry functions
-TEMPLATE_ARGS = {"resnetfc_fwd_kernel": ("GATHER", "MV", "CODE"),
+TEMPLATE_ARGS = {"resnetfc_fwd_mv_kernel": ("GATHER", "CODE"),
                  "resnetfc_fwd_dense_kernel": ("CODE",),
+                 "resnetfc_fwd_gather_kernel": ("CODE",),
                  "resnetfc_bwd_data_kernel": ("MV",)}
 
 
@@ -300,9 +304,11 @@ def main() -> None:
         d_sass = sass.get(name, {})
         if not (d_sass.get("HGMMA") and d_sass.get("UTMALDG") and d_sass.get("HMMA") == 0):
             raise SystemExit(f"{name} is not a wgmma + TMA kernel: {d_sass}")
-    # so are both instantiations of the dense forward (the 64-point tile)
+    # so are both instantiations of the dense forward and of the fused gather
+    # (the 64-point tile)
     fwd_ptxas = ptxas_summary(builds["fwd"].log)
-    dense_names = ("resnetfc_fwd_dense_kernel<CODE=0>", "resnetfc_fwd_dense_kernel<CODE=1>")
+    dense_names = tuple(f"resnetfc_fwd_{k}_kernel<CODE={c}>" for k in ("dense", "gather")
+                        for c in (0, 1))
     for name in dense_names:
         d_sass = fwd_sass.get(name, {})
         if not (d_sass.get("HGMMA") and d_sass.get("UTMALDG") and d_sass.get("HMMA") == 0):
@@ -311,8 +317,8 @@ def main() -> None:
         spills = re.findall(r"(\d+) B spill", line)
         if len(spills) != 2 or any(int(v) for v in spills):
             raise SystemExit(f"{name} spills or ptxas gave no spill line: {line}")
-    log("build: forward kernels' registers (the dense forward on the 64-point tile, the "
-        "others on the wmma tower): " + json.dumps(fwd_ptxas))
+    log("build: forward kernels' registers (the dense forward and the fused gather on the "
+        "64-point tile, the multi-view kernels on the wmma tower): " + json.dumps(fwd_ptxas))
     log("build: backward kernels' registers: " + json.dumps(bwd_ptxas) + "; resnetfc_bwd_data "
         f"shared memory {rv.data_limits().smem} B a CTA, {rv.data_limits()}")
 
@@ -340,133 +346,123 @@ def main() -> None:
     tables3 = scene3.latents.reshape(3, T, C).to(torch.bfloat16).contiguous()
     cl = mlp.combine_layer
 
-    # ---- kernel checks at the main path's shapes ----
+    # ---- the one-view kernels (rows 1 and 2, and row 6's twins) on the 64-point tile ----
+    # a ragged B (2000 = 31 x 64 + 16), the -V 1 train step's fine pass and
+    # one ray chunk x 64 and x 96 samples (the render's coarse and fine
+    # passes), encoded and deferred code, on the encoded source view's table
+    # with taps outside it in 1 of 16 rows: the dense kernel on the gathered
+    # bf16 latent and the gather kernel on the taps, each against its plain
+    # version at the bar and bit-identical on a second call, the gather kernel
+    # also bit-identical to the dense one
     gi = torch.Generator(device=dev).manual_seed(SEED + 2)
     code = PositionalEncoding.from_conf(conf["model.code"], d_in=3)
+    code_arrays = [torch.from_numpy(a).to(dev) for a in code.flat_arrays(tail=3)]
     records = {"resnetfc_fwd_gather": {}, "resnetfc_fwd_dense": {}}
-    # the weights a 64-point tile of the dense forward streams from L2
-    dense_tile_w = sum(t.numel() * t.element_size() for t in (tw.w_in, tw.w_z, tw.w_blk))
+    # the weights a 64-point tile streams from L2; the gather kernel also
+    # reads 4 table rows a point an injection
+    tile_w = sum(t.numel() * t.element_size() for t in (tw.w_in, tw.w_z, tw.w_blk))
+    tile_rows = n_lin_z * 64 * 4 * C * table.element_size()
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    gather_ms = {}  # per pass shape, for the kernels' share of a frame
+    tile_ms = {}  # (variant, B) -> ms
     flops_pt = 2 * H * (d_in + n_lin_z * C + 2 * nb * H + d_out)
     w_bytes = sum(t.numel() * t.element_size() for t in tw[:8])
-    for K in (64, 96):
-        B = RAYS_PER_STEP * K
-        pts = torch.rand(B, 3, device=dev, generator=gi) * 2 - 1
-        vd = torch.nn.functional.normalize(torch.randn(B, 3, device=dev, generator=gi), dim=-1)
-        x = torch.cat([code(pts), vd], dim=-1).contiguous()
-        uv = torch.rand(B, 2, device=dev, generator=gi) * 2 - 1
-        side = int(math.isqrt(T))
-        idx, w = bilinear_taps(uv, side, side, pad_taps_to=8)
-        idx, w = idx.contiguous(), w.contiguous()
-        with torch.no_grad():
-            cases = {
-                "resnetfc_fwd_gather": (
-                    lambda: rf.resnetfc_gather(idx, w, table, x, tw, nb),
-                    lambda: rf.resnetfc_reference(
-                        rf.gather_reference(idx, w, table, torch.bfloat16), x, tw, nb,
-                        compute_dtype=torch.bfloat16),
-                    lambda: library_tower(
-                        (table[idx[:, :4].long()] * w[:, :4, None].bfloat16()).sum(1), x, tw, nb),
-                    B * (idx.shape[1] * 4 + w.shape[1] * 4 + d_in * 4 + d_out * 4) + T * C * 2,
-                    8 * C,  # the 4-tap weighted sum
-                    "pixelnerf_tpu/ops/resnetfc_pallas.py:248",
-                ),
-            }
-            for name, (kern, plain, library, in_bytes, extra_flops, replaces) in cases.items():
-                out = kern()
-                torch.cuda.synchronize()
-                ref = plain()
-                d, bar, corr = agree(out, ref)
-                ok = d <= bar and corr > 0.999 and bool(torch.isfinite(out).all())
-                ms = cuda_ms(kern, 5)
-                plain_ms = cuda_ms(plain, 3)
-                library_ms = cuda_ms(library, 5)
-                b_ms, b_by = bound(B * (flops_pt + extra_flops), in_bytes + w_bytes)
-                log(f"kernel check: {name} B={B} (chunk {RAYS_PER_STEP} rays x {K}) "
-                    f"max|d| {d:.6g} <= bar {bar:.6g}: {d <= bar}, corr {corr:.7f}; "
-                    f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
-                    f"bound_ms {b_ms:.4f} ({b_by})")
-                if not ok:
-                    raise SystemExit(f"kernel check failed: {name} at B={B}")
-                gather_ms[K] = ms
-                rec = records[name]
-                rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), d)
-                if K == 96:  # times at the fine pass's shape
-                    rec.update(name=name, route="cuda",
-                               source="pixelnerf_tpu_torch/csrc/resnetfc_fwd.cu",
-                               replaces=replaces, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                               bound_by=b_by, library_ms=library_ms)
-            del out, ref
-
-    # ---- the dense forward (row 2, and row 6's dense twin) on the 64-point tile ----
-    # a ragged B (2000 = 31 x 64 + 16), the -V 1 train step's fine pass and
-    # one ray chunk x 64 and x 96 samples, encoded and deferred code: each
-    # against its plain version at the bar, bit-identical on a second call
-    dense_ms = {}  # (variant, B) -> ms
-    code_arrays = [torch.from_numpy(a).to(dev) for a in code.flat_arrays(tail=3)]
+    side = int(math.isqrt(T))
     for B in (2000, 128 * 4 * 96, RAYS_PER_STEP * 64, RAYS_PER_STEP * 96):
         pts = torch.rand(B, 3, device=dev, generator=gi) * 2 - 1
         vd = torch.nn.functional.normalize(torch.randn(B, 3, device=dev, generator=gi), dim=-1)
         x = torch.cat([code(pts), vd], dim=-1).contiguous()
-        idx, w = bilinear_taps(torch.rand(B, 2, device=dev, generator=gi) * 2 - 1, 32, 32,
+        idx, w = bilinear_taps(torch.rand(B, 2, device=dev, generator=gi) * 2 - 1, side, side,
                                pad_taps_to=8)
+        idx[0::32, 0] = -1  # taps outside the table contribute nothing
+        idx[16::32, 3] = T
+        idx, w = idx.contiguous(), w.contiguous()
+        timed = B >= RAYS_PER_STEP * 64 or B == 128 * 4 * 96
         with torch.no_grad():
             z = rf.gather_reference(idx, w, table, torch.bfloat16).to(torch.bfloat16)
             rc = rf.RawCode(torch.cat([pts, vd], dim=-1).contiguous(), *code_arrays)
-            for variant, xi in (("resnetfc_fwd_dense", x), ("resnetfc_fwd_dense_code", rc)):
-                kern = lambda: rf.resnetfc_dense(z, xi, tw, nb)  # noqa: E731
+            dense_out = {}
+            for variant, xi in (("resnetfc_fwd_dense", x), ("resnetfc_fwd_dense_code", rc),
+                                ("resnetfc_fwd_gather", x), ("resnetfc_fwd_gather_code", rc)):
+                gather = variant.startswith("resnetfc_fwd_gather")
+                if gather:
+                    kern = lambda: rf.resnetfc_gather(idx, w, table, xi, tw, nb)  # noqa: E731
+                else:
+                    kern = lambda: rf.resnetfc_dense(z, xi, tw, nb)  # noqa: E731
                 out = kern()
                 torch.cuda.synchronize()
                 ref = rf.resnetfc_reference(z, xi, tw, nb, compute_dtype=torch.bfloat16)
                 d, bar, corr = agree(out, ref)
                 identical = torch.equal(out, kern())
                 ok = d <= bar and corr > 0.999 and bool(torch.isfinite(out).all()) and identical
-                ms = cuda_ms(kern, 5)
-                dense_ms[(variant, B)] = ms
                 line = (f"kernel check: {variant} (64-point tile) B={B} max|d| {d:.6g} <= bar "
                         f"{bar:.6g}: {d <= bar}, corr {corr:.7f}, bit-identical on a second call "
-                        f"{identical}; kernel_ms {ms:.4f}")
-                if B >= RAYS_PER_STEP * 64 or B == 128 * 4 * 96:
-                    plain_ms = cuda_ms(lambda: rf.resnetfc_reference(
-                        z, xi, tw, nb, compute_dtype=torch.bfloat16), 2)
-                    xl = x if variant == "resnetfc_fwd_dense" else None
+                        f"{identical}")
+                twin = variant.replace("gather", "dense")
+                if gather:  # the same tile, program and operand bits as the dense kernel's
+                    same = torch.equal(out, dense_out[twin])
+                    ok = ok and same
+                    line += f", bit-identical to {twin} on gather_reference's bf16 latent {same}"
+                else:
+                    dense_out[variant] = out
+                ms = cuda_ms(kern, 5)
+                tile_ms[(variant, B)] = ms
+                line += f"; kernel_ms {ms:.4f}"
+                if timed:
+                    plain = ((lambda: rf.resnetfc_reference(  # noqa: E731
+                        rf.gather_reference(idx, w, table, torch.bfloat16), xi, tw, nb,
+                        compute_dtype=torch.bfloat16)) if gather
+                        else (lambda: rf.resnetfc_reference(  # noqa: E731
+                            z, xi, tw, nb, compute_dtype=torch.bfloat16)))
+                    plain_ms = cuda_ms(plain, 2)
+                    xl = x if xi is x else None
+                    # (rows outside the table clamped: the yardstick's time, not its value)
+                    zl = ((lambda: (table[idx[:, :4].long().clamp(0, T - 1)]
+                                    * w[:, :4, None].bfloat16()).sum(1))
+                          if gather else (lambda: z))
                     library_ms = cuda_ms(lambda: library_tower(
-                        z, xl if xl is not None else rf.materialize_code(rc), tw, nb), 5)
+                        zl(), xl if xl is not None else rf.materialize_code(rc), tw, nb), 5)
                     raw_d = rc.x.shape[1]
-                    in_bytes = B * (C * 2 + (d_in * 4 if xl is not None else raw_d * 4))
-                    extra = 0 if xl is not None else B * 2 * raw_d * d_in
-                    b_ms, b_by = bound(B * flops_pt + extra, in_bytes + B * d_out * 4 + w_bytes)
+                    x_bytes = B * (d_in * 4 if xl is not None else raw_d * 4)
+                    lat_bytes = (B * (idx.shape[1] + w.shape[1]) * 4 + T * C * 2 if gather
+                                 else B * C * 2)
+                    extra = (0 if xl is not None else B * 2 * raw_d * d_in) + (
+                        B * 8 * C if gather else 0)
+                    b_ms, b_by = bound(B * flops_pt + extra,
+                                       x_bytes + lat_bytes + B * d_out * 4 + w_bytes)
                     tiles = rf.dense_grid(B, rf.dense_limits())
-                    l2 = tiles * dense_tile_w / ms / 1e9
+                    per_tile = tile_w + (tile_rows if gather else 0)
+                    l2 = tiles * per_tile / ms / 1e9
                     line += (f", {B * flops_pt / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the "
                              f"bound ({b_ms:.4f} ms, {b_by}); plain_ms {plain_ms:.4f} library_ms "
-                             f"{library_ms:.4f}; weights streamed from L2 "
-                             f"{dense_tile_w / 2**20:.2f} MiB a 64-point tile, {l2:.3f} TB/s = "
-                             f"{l2 * 1e3 / n_sm:.2f} GB/s an SM")
-                    if variant == "resnetfc_fwd_dense":
+                             f"{library_ms:.4f}; streamed from L2 {per_tile / 2**20:.2f} MiB a "
+                             f"64-point tile (weights {tile_w / 2**20:.2f}"
+                             + (f" + table rows {tile_rows / 2**20:.2f}" if gather else "")
+                             + f"), {l2:.3f} TB/s = {l2 * 1e3 / n_sm:.2f} GB/s an SM")
+                    if variant in records:
                         rec = records[variant]
                         if B == RAYS_PER_STEP * 96:  # times at the fine pass's shape
                             rec.update(name=variant, route="cuda",
                                        source="pixelnerf_tpu_torch/csrc/resnetfc_fwd.cu",
-                                       replaces="pixelnerf_tpu/ops/resnetfc_pallas.py:175", ms=ms,
-                                       plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                                       replaces=("pixelnerf_tpu/ops/resnetfc_pallas.py:248" if gather
+                                                 else "pixelnerf_tpu/ops/resnetfc_pallas.py:175"),
+                                       ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                                        library_ms=library_ms, tflops=B * flops_pt / ms / 1e9,
-                                       share_of_bound=b_ms / ms, weight_stream_tb_s=l2,
+                                       share_of_bound=b_ms / ms, stream_tb_s=l2,
                                        design="64-point tiles on wgmma m64n128k16 (tile64.cuh), "
                                               "weights by TMA through a 3-stage mbarrier ring, "
-                                              "each warpgroup feeding its own half")
-                        elif B == 128 * 4 * 96:
-                            rec["train_fine_pass"] = dict(points=B, ms=ms, plain_ms=plain_ms,
-                                                          bound_ms=b_ms, library_ms=library_ms,
-                                                          weight_stream_tb_s=l2)
+                                              "each warpgroup feeding its own half"
+                                              + ("; the 4-tap lookup built by the threads into "
+                                                 "the latent's operand tile" if gather else ""))
+                        elif B == 128 * 4 * 96 or B == RAYS_PER_STEP * 64:
+                            rec[f"points_{B}"] = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                                                      library_ms=library_ms, stream_tb_s=l2)
                 log(line)
                 if not ok:
                     raise SystemExit(f"kernel check failed: {variant} at B={B}")
-                if variant == "resnetfc_fwd_dense":
+                if variant in records:
                     rec = records[variant]
                     rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), d)
-            del out, ref, z, x, rc, idx, w, pts, vd
+            del out, ref, z, x, rc, idx, w, pts, vd, dense_out
 
     # ---- multi-view forward kernel checks at the multi-view paths' shapes ----
     # the NS = 2 render's gather on the encoded tables of views 0 and 1; the
@@ -654,7 +650,8 @@ def main() -> None:
                       RAYS_PER_STEP)
     torch.cuda.synchronize()
     steady = time.perf_counter() - t0
-    frame_kernel_ms = gather_ms[64] + gather_ms[96]  # coarse + fine pass of one frame
+    frame_kernel_ms = (tile_ms[("resnetfc_fwd_gather", RAYS_PER_STEP * 64)]  # coarse + fine
+                       + tile_ms[("resnetfc_fwd_gather", RAYS_PER_STEP * 96)])
     log(f"main path, second call: {rays.shape[0]} rays in {steady:.4f} s = "
         f"{rays.shape[0] / steady:.1f} rays/s; gather kernel {frame_kernel_ms:.3f} ms per "
         f"frame = {frame_kernel_ms * N_FRAMES / 1e3 / steady:.3f} of the render time")
@@ -673,31 +670,42 @@ def main() -> None:
     plain_frame0 = {(0,): rgb_p}  # the plain route's frame 0 per source views
 
     # ---- dense route: no fused gather ----
-    os.environ["PIXELNERF_FUSED_GATHER_MAX_ROWS"] = "0"
-    try:
-        torch.cuda.synchronize()
-        rf.reset_launches()
-        rgb_d, _ = entry.render_ring(net, conf, src, rays[:RAYS_PER_STEP],
-                                     torch.Generator(device=dev).manual_seed(SEED), RAYS_PER_STEP)
-        torch.cuda.synchronize()
-        dense_launches = dict(rf.LAUNCHES)
-        t0 = time.perf_counter()
-        entry.render_ring(net, conf, src, rays[:RAYS_PER_STEP],
-                          torch.Generator(device=dev).manual_seed(SEED), RAYS_PER_STEP)
-        torch.cuda.synchronize()
-        dense_frame_s = time.perf_counter() - t0
-    finally:
-        del os.environ["PIXELNERF_FUSED_GATHER_MAX_ROWS"]
+    # frame 0 through the dense kernel, then frame 0 on both routes timed in
+    # turns (gather, dense, dense, gather), encode included
+    def frame0_route(dense):
+        if dense:
+            os.environ["PIXELNERF_FUSED_GATHER_MAX_ROWS"] = "0"
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, _ = entry.render_ring(net, conf, src, rays[:RAYS_PER_STEP],
+                                       torch.Generator(device=dev).manual_seed(SEED),
+                                       RAYS_PER_STEP)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+        finally:
+            os.environ.pop("PIXELNERF_FUSED_GATHER_MAX_ROWS", None)
+
+    rf.reset_launches()
+    rgb_d, _ = frame0_route(True)
+    dense_launches = dict(rf.LAUNCHES)
+    route_s = {False: [], True: []}
+    for dense in (False, True, True, False):
+        route_s[dense].append(frame0_route(dense)[1])
+    gather_frame_s, dense_frame_s = (sum(route_s[k]) / 2 for k in (False, True))
     p_dense = psnr(rgb[:RAYS_PER_STEP], rgb_d)
     p_dense_plain = psnr(rgb_d, plain_frame0[(0,)])
-    dense_frame_ms = (dense_ms[("resnetfc_fwd_dense", RAYS_PER_STEP * 64)]
-                      + dense_ms[("resnetfc_fwd_dense", RAYS_PER_STEP * 96)])
+    dense_frame_ms = (tile_ms[("resnetfc_fwd_dense", RAYS_PER_STEP * 64)]
+                      + tile_ms[("resnetfc_fwd_dense", RAYS_PER_STEP * 96)])
     log(f"dense route: PIXELNERF_FUSED_GATHER_MAX_ROWS=0, frame 0: launches {dense_launches}; "
         f"vs plain route PSNR {p_dense_plain:.3f} dB (need >= 40), vs gather route "
-        f"{p_dense:.3f} dB; finite {bool(torch.isfinite(rgb_d).all())}; second call "
-        f"{dense_frame_s:.4f} s = {RAYS_PER_STEP / dense_frame_s:.1f} rays/s (encode + render); "
-        f"dense kernel {dense_frame_ms:.3f} ms per frame = {dense_frame_ms / 1e3 / dense_frame_s:.3f} "
-        f"of it")
+        f"{p_dense:.3f} dB; finite {bool(torch.isfinite(rgb_d).all())}")
+    log(f"render routes, frame 0 (encode + render), means of two calls each in turns (gather, "
+        f"dense, dense, gather): gather route {gather_frame_s:.4f} s = "
+        f"{RAYS_PER_STEP / gather_frame_s:.1f} rays/s, gather kernel {frame_kernel_ms:.3f} ms = "
+        f"{frame_kernel_ms / 1e3 / gather_frame_s:.3f} of it; dense route {dense_frame_s:.4f} s = "
+        f"{RAYS_PER_STEP / dense_frame_s:.1f} rays/s, dense kernel {dense_frame_ms:.3f} ms = "
+        f"{dense_frame_ms / 1e3 / dense_frame_s:.3f} of it; runs {json.dumps(route_s)}")
     if (dense_launches["resnetfc_fwd_dense"] == 0 or not bool(torch.isfinite(rgb_d).all())
             or not p_dense_plain >= 40.0):
         raise SystemExit("dense route did not launch the dense kernel or disagrees with the plain "

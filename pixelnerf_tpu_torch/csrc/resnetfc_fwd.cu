@@ -21,9 +21,10 @@
 // the weights' trip from L2 (~6.9 MB bf16 at sn64) into every SM: a tile of
 // P points reads all of them once, so the traffic is (points / P) x 6.9 MB.
 //
-// resnetfc_fwd_dense (one view) runs on the 64-point wgmma tile of
-// tile64.cuh, which the backward's data kernel shares, so the backward's
-// recompute takes its products in this kernel's order:
+// The one-view entry points (resnetfc_fwd_dense and resnetfc_fwd_gather) run
+// one kernel body on the 64-point wgmma tile of tile64.cuh, which the
+// backward's data kernel shares, so the backward's recompute takes its
+// products in this body's order:
 // - one CTA of two warpgroups a 64-point tile, each warpgroup owning 256 of
 //   the 512 columns of the f32 stream in registers; every product is wgmma
 //   m64n128k16 pieces with operand A a 64 x 512 bf16 swizzled tile in shared
@@ -35,8 +36,12 @@
 //   warp), so neither warpgroup waits for the other's.  A tile reads each
 //   weight byte out of L2 once for 64 points, half the traffic of the
 //   32-point tower;
-// - the latent comes by TMA too (rows past B read as zeros), the code by the
-//   threads (encoded: rounded to bf16; CODE: evaluated as below);
+// - the code comes by the threads (encoded: rounded to bf16; CODE: evaluated
+//   as below); the latent of each injection either by TMA from a dense bf16
+//   z (B, C) (resnetfc_fwd_dense; rows past B read as zeros) or, in the
+//   gather kernel, as the 4-tap lookup z[g] = sum_{j<4} w[g, j] *
+//   table[idx[g, j]] that the threads build straight into the operand tile
+//   (gather_fill);
 // - lin_out (d_out <= 4) stays on the CUDA cores, a warp a point;
 // - no atomics: two calls on the same inputs give the same bits.
 // The weights' tensor maps are encoded once per set of weight addresses
@@ -48,16 +53,20 @@
 // couple the pair's rings: they measured slower, and so did refills that do
 // not wait.
 //
-// The other three entry points keep the 32-point nvcuda::wmma tower of
-// resnetfc_tower.cuh (one CTA of 8 warps per 32-point tile; persistent CTAs
-// and a per-CTA device-memory view-sum slot for the multi-view design).
-// The gather entry points first build z[i] = sum_{j<4} w[i,j] *
-// table[idx[i,j]] as a real 4-tap read of the (T, C) bf16 table of the
-// point's view (L2-resident at T*C*2 = 1 MB a view for sn64), sum in f32 and
-// round to bf16 into shared memory.  The TPU kernel builds the same lookup
-// as a one-hot matmul and so rounds the tap weights to bf16; here they stay
-// f32, a difference the on-card tolerance covers.  An index outside [0, T)
-// contributes nothing, as a one-hot row would.
+// The gather kernel's lookup reads the (T, C) bf16 table (L2-resident: 1 MB
+// at sn64) once an injection, since the two operand tiles and the ring leave
+// no room to keep the latent: 64 points x 4 taps x 1 KB, 0.75 MB a tile at
+// sn64 beside its 6.55 MB of weights.  The TPU kernel builds the lookup as a
+// one-hot matmul and so rounds the tap weights to bf16; here they stay f32,
+// a difference the on-card tolerance covers.  The taps are taken in the
+// plain version's order and rounding (gather_reference: from +0, w_j t_j
+// rounded, then added, j = 0..3), so the gather kernel's output is
+// resnetfc_fwd_dense's on that bf16 latent, bit for bit.
+//
+// The multi-view entry points keep the 32-point nvcuda::wmma tower of
+// resnetfc_tower.cuh (persistent CTAs of 8 warps, a per-CTA device-memory
+// view-sum slot); the multi-view gather builds its latent there with the same
+// 4-tap read, into shared memory.
 
 #include <string.h>
 
@@ -68,30 +77,23 @@ namespace {
 using namespace rfc;
 
 // ---------------------------------------------------------------------------
-// the 32-point tower: the fused gather (one view) and the multi-view kernels
+// the 32-point tower: the multi-view kernels
 // ---------------------------------------------------------------------------
 
-template <bool GATHER, bool MV, bool CODE>
-__global__ void __launch_bounds__(NTHREADS, 1) resnetfc_fwd_kernel(const TowerParams p) {
+// Persistent CTAs walk the 32-point tiles, one view-sum slot each.
+template <bool GATHER, bool CODE>
+__global__ void __launch_bounds__(NTHREADS, 1) resnetfc_fwd_mv_kernel(const TowerParams p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const Layout L = layout(p.C, p.kin, p.n_lin_z);
   const Smem s = carve(smem_raw, L);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int n_tiles = (p.B + BM - 1) / BM;
-  float* slot = MV ? p.vsum + (size_t)blockIdx.x * SLOT_FLOATS : nullptr;
+  float* slot = p.vsum + (size_t)blockIdx.x * SLOT_FLOATS;
 
-  // single view: one tile per CTA; multi-view: persistent CTAs, one view-sum
-  // slot each
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * BM;
     FragC x[2][J], acc[2][J];
-    if (MV) {
-      tower_mv<GATHER, CODE>(p, L, s, x, acc, row0, slot);
-    } else {
-      load_inputs<GATHER, CODE>(p, L, s, row0, 0);
-      __syncthreads();
-      tower(p, L, s, x, acc);
-    }
+    tower_mv<GATHER, CODE>(p, L, s, x, acc, row0, slot);
 
     // lin_out is only d_out (4) wide: one warp per (point, channel) dot product
     for (int pc = warp; pc < BM * p.d_out; pc += NWARPS) {
@@ -114,15 +116,15 @@ __global__ void __launch_bounds__(NTHREADS, 1) resnetfc_fwd_kernel(const TowerPa
   }
 }
 
-template <bool GATHER, bool MV, bool CODE>
-int launch_variant(const TowerParams& p, int n_ctas, cudaStream_t stream) {
+template <bool GATHER, bool CODE>
+int launch_mv_variant(const TowerParams& p, int n_ctas, cudaStream_t stream) {
   const size_t smem = layout(p.C, p.kin, p.n_lin_z).total;
-  cudaError_t err = cudaFuncSetAttribute(resnetfc_fwd_kernel<GATHER, MV, CODE>,
+  cudaError_t err = cudaFuncSetAttribute(resnetfc_fwd_mv_kernel<GATHER, CODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (p.B + BM - 1) / BM;
-  const int grid = MV && n_ctas < n_tiles ? n_ctas : n_tiles;
-  resnetfc_fwd_kernel<GATHER, MV, CODE><<<grid, NTHREADS, smem, stream>>>(p);
+  resnetfc_fwd_mv_kernel<GATHER, CODE><<<n_ctas < n_tiles ? n_ctas : n_tiles, NTHREADS, smem,
+                                          stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -140,22 +142,22 @@ int attach_code(TowerParams& p, const void* code_w, const void* code_f, const vo
   return 1;
 }
 
-// Validate, attach the code operands and launch the matching tower variant.
-template <bool GATHER, bool MV>
-int launch(TowerParams& p, int H, int n_ctas, const void* code_w, const void* code_f,
-           const void* code_p, const void* code_m, int d_raw, cudaStream_t stream) {
-  if (H != HID) return (int)cudaErrorInvalidValue;
-  if (MV && (p.NS < 2 || p.pre < 0 || p.pre >= p.n_blocks || p.n_lin_z > p.pre ||
-             p.B_obj < 1 || p.B % p.B_obj != 0 || p.vsum == nullptr || n_ctas < 1))
+// Validate, attach the code operands and launch the matching multi-view
+// variant.
+template <bool GATHER>
+int launch_mv(TowerParams& p, int H, int n_ctas, const void* code_w, const void* code_f,
+              const void* code_p, const void* code_m, int d_raw, cudaStream_t stream) {
+  if (H != HID || p.NS < 2 || p.pre < 0 || p.pre >= p.n_blocks || p.n_lin_z > p.pre ||
+      p.B_obj < 1 || p.B % p.B_obj != 0 || p.vsum == nullptr || n_ctas < 1)
     return (int)cudaErrorInvalidValue;
   const int code = attach_code(p, code_w, code_f, code_p, code_m, d_raw);
   if (code < 0) return (int)cudaErrorInvalidValue;
-  return code ? launch_variant<GATHER, MV, true>(p, n_ctas, stream)
-              : launch_variant<GATHER, MV, false>(p, n_ctas, stream);
+  return code ? launch_mv_variant<GATHER, true>(p, n_ctas, stream)
+              : launch_mv_variant<GATHER, false>(p, n_ctas, stream);
 }
 
 // ---------------------------------------------------------------------------
-// resnetfc_fwd_dense: 64-point wgmma tiles, weights by TMA
+// resnetfc_fwd_dense and resnetfc_fwd_gather: 64-point wgmma tiles, weights by TMA
 // ---------------------------------------------------------------------------
 
 constexpr int F_MAX_STEPS = 64;  // steps of a tile's program: 1 + n_lin_z + 2 n_blocks (sn64: 14)
@@ -171,9 +173,9 @@ struct DensePlan {
 };
 
 struct DenseParams {
-  TowerParams t;
+  TowerParams t;  // the gather kernel: also idx, w, table, T, taps
   CUtensorMap m_in, m_z, m_blk;
-  CUtensorMap m_lat;  // z (B, C) in 64 x 64 boxes, rows past B read as zeros
+  CUtensorMap m_lat;  // z (B, C) in 64 x 64 boxes, rows past B read as zeros (dense only)
 };
 
 // The tile's program: lin_in, then per block its injection (k < n_lin_z),
@@ -209,7 +211,8 @@ constexpr uint32_t HALF_BYTES = TILE_BPW * BOX_BYTES;
 // Shared state beside the dynamic operand tiles and ring, at fixed addresses:
 // each warpgroup's full / empty mbarriers of its halves of the ring stages
 // (empty: one arrival a warp of the warpgroup) and its feeding state; the
-// latent's mbarrier; the program.
+// latent's mbarrier (the dense kernel's TMA latent; the gather kernel never
+// arms it); the program.
 __shared__ __align__(8) uint64_t f_full[2][RING_STAGES], f_empty[2][RING_STAGES], f_lat_full;
 __shared__ int f_prog[F_MAX_STEPS];
 __shared__ int f_n_steps;
@@ -320,12 +323,75 @@ __device__ __forceinline__ void dense_code(const TowerParams& p, unsigned char* 
   }
 }
 
-// One CTA of 256 threads per 64-point tile (tile64.cuh's tile).  `sv` holds
-// this thread's share of the f32 residual stream; `act` and `hb` are the two
-// operand tiles (a product reads one and its epilogue writes the other).
-template <bool CODE>
-__global__ void __launch_bounds__(TILE_THREADS, 1)
-    resnetfc_fwd_dense_kernel(const __grid_constant__ DenseParams q) {
+// The tile's latent into `tile` (bf16, zeros past B): row r, channels
+// 8q..8q+7 of z[g] = sum_{j<4} w[g, j] * table[idx[g, j]], g = row0 + r, a
+// tap with idx outside [0, T) contributing nothing.  Warp w takes rows w,
+// w + 8, ..; lane l chunks l and l + 32 of a row (C <= 512), so a warp reads
+// a tap's table row whole, 16 bytes a lane, and writes the tile 128 bytes a
+// phase.  Lane 4 i + j reads tap j of the warp's row i once, for the warp to
+// share by shuffles.  Each sum starts from +0 and adds w_j t_j in tap order,
+// the product and the sum each rounded (no contraction into an FMA), as
+// gather_reference sums.  A tap outside [0, T) reads a zero row here and a
+// zero weight on the clamped row there: either product is +-0, which leaves
+// a sum that started from +0 unchanged (the table's values are finite).  So
+// the tile holds gather_reference's bf16 latent bit for bit.
+__device__ __forceinline__ void gather_fill(const TowerParams& p, unsigned char* tile, int row0) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int nq = p.C >> 3;  // 16-byte chunks of a table row
+  const int gl = row0 + warp + 8 * (lane >> 2);
+  int tap = -1;
+  float wt = 0.0f;
+  if (gl < p.B) {
+    tap = __ldg(p.idx + (size_t)gl * p.taps + (lane & 3));
+    wt = __ldg(p.w + (size_t)gl * p.taps + (lane & 3));
+    if (tap < 0 || tap >= p.T) tap = -1;
+  }
+#pragma unroll 1
+  for (int i = 0; i < TILE_PTS / 8; ++i) {
+    uint4 v[2][4];
+    float wj[4];
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const int ri = __shfl_sync(0xffffffffu, tap, 4 * i + j);
+      wj[j] = __shfl_sync(0xffffffffu, wt, 4 * i + j);
+      const uint4* row = reinterpret_cast<const uint4*>(p.table + (size_t)(ri < 0 ? 0 : ri) * p.C);
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        v[h][j] = make_uint4(0u, 0u, 0u, 0u);
+        if (ri >= 0 && lane + 32 * h < nq) v[h][j] = __ldg(row + lane + 32 * h);
+      }
+    }
+    const int r = warp + 8 * i;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = lane + 32 * h;
+      if (q >= nq) continue;
+      float acc[8];
+#pragma unroll
+      for (int u = 0; u < 8; ++u) acc[u] = 0.0f;
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const uint32_t words[4] = {v[h][j].x, v[h][j].y, v[h][j].z, v[h][j].w};
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          acc[2 * u] = __fadd_rn(acc[2 * u], __fmul_rn(wj[j], bf16_lo(words[u])));
+          acc[2 * u + 1] = __fadd_rn(acc[2 * u + 1], __fmul_rn(wj[j], bf16_hi(words[u])));
+        }
+      }
+      *reinterpret_cast<uint4*>(tile + hopper::sw128_offset(r, 8 * q)) =
+          make_uint4(pack_bf16x2(acc[0], acc[1]), pack_bf16x2(acc[2], acc[3]),
+                     pack_bf16x2(acc[4], acc[5]), pack_bf16x2(acc[6], acc[7]));
+    }
+  }
+}
+
+// One CTA of 256 threads per 64-point tile (tile64.cuh's tile): the body of
+// both one-view kernels, which differ only in where each injection's latent
+// comes from (GATHER: gather_fill; else TMA).  `sv` holds this thread's share
+// of the f32 residual stream; `act` and `hb` are the two operand tiles (a
+// product reads one and its epilogue writes the other).
+template <bool GATHER, bool CODE>
+__device__ __forceinline__ void fwd_tile(const DenseParams& q) {
   extern __shared__ unsigned char f_smem_raw[];
   const TowerParams& p = q.t;
   const uint32_t raw = hopper::smem_u32(f_smem_raw);
@@ -372,13 +438,18 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
       A = hb;  // the code, loaded above
     } else if (kind == Z_FWD) {
       __syncthreads();  // hb's last readers (lin_in or the previous fc_1) are done
-      if (threadIdx.x == 0) {
-        const int boxes = (p.C + 63) / 64;
-        hopper::mbar_arrive_expect_tx(&f_lat_full, boxes * BOX_BYTES);
-        for (int j = 0; j < boxes; ++j)
-          hopper::tma_load_2d(hb + j * BOX_BYTES, &q.m_lat, &f_lat_full, 64 * j, row0());
+      if (GATHER) {
+        gather_fill(p, hb, row0());
+        publish();
+      } else {
+        if (threadIdx.x == 0) {
+          const int boxes = (p.C + 63) / 64;
+          hopper::mbar_arrive_expect_tx(&f_lat_full, boxes * BOX_BYTES);
+          for (int j = 0; j < boxes; ++j)
+            hopper::tma_load_2d(hb + j * BOX_BYTES, &q.m_lat, &f_lat_full, 64 * j, row0());
+        }
+        hopper::mbar_wait(&f_lat_full, step_k(s) & 1);
       }
-      hopper::mbar_wait(&f_lat_full, step_k(s) & 1);
       A = hb;
     } else {
       publish();  // act = r_k (fc_0) or hb = s_k (fc_1)
@@ -466,11 +537,26 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
 }
 
 template <bool CODE>
-int launch_dense(const DenseParams& q, int tiles, cudaStream_t stream) {
-  cudaError_t err = cudaFuncSetAttribute(resnetfc_fwd_dense_kernel<CODE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TILE_SMEM);
+__global__ void __launch_bounds__(TILE_THREADS, 1)
+    resnetfc_fwd_dense_kernel(const __grid_constant__ DenseParams q) {
+  fwd_tile<false, CODE>(q);
+}
+
+template <bool CODE>
+__global__ void __launch_bounds__(TILE_THREADS, 1)
+    resnetfc_fwd_gather_kernel(const __grid_constant__ DenseParams q) {
+  fwd_tile<true, CODE>(q);
+}
+
+// One CTA a 64-point tile.
+template <bool GATHER, bool CODE>
+int launch_tile(const DenseParams& q, int B, cudaStream_t stream) {
+  void (*kernel)(const DenseParams) =
+      GATHER ? resnetfc_fwd_gather_kernel<CODE> : resnetfc_fwd_dense_kernel<CODE>;
+  cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)TILE_SMEM);
   if (err != cudaSuccess) return (int)err;
-  resnetfc_fwd_dense_kernel<CODE><<<tiles, TILE_THREADS, TILE_SMEM, stream>>>(q);
+  kernel<<<(B + TILE_PTS - 1) / TILE_PTS, TILE_THREADS, TILE_SMEM, stream>>>(q);
   return (int)cudaGetLastError();
 }
 
@@ -480,12 +566,39 @@ bool dense_widths_ok(int kin, int C, int n_blocks, int n_lin_z) {
          dense_program(nullptr, n_blocks, n_lin_z) <= F_MAX_STEPS;
 }
 
+// The parameters of a one-view tile launch on `plan`'s weights (which must
+// be the w_in, w_z, w_blk given here) and B >= 1 points; returns whether the
+// CODE variant runs, or -1 for widths or operands the tile does not take.
+int tile_params(DenseParams& q, const void* plan, const void* x, const void* w_in,
+                const void* b_in, const void* w_z, const void* b_z, const void* w_blk,
+                const void* b_blk, const void* w_out, const void* b_out, void* out, int B, int d_in,
+                int kin, int H, int C, int n_blocks, int n_lin_z, int d_out, int planar,
+                const void* code_w, const void* code_f, const void* code_p, const void* code_m,
+                int d_raw) {
+  DensePlan d;
+  memcpy(&d, plan, sizeof d);
+  if (H != HID || B < 1 || d_in < 1 || d_in > kin || d_out < 1 || d_out > TILE_MAX_OUT ||
+      !dense_widths_ok(kin, C, n_blocks, n_lin_z) || d.w_in != w_in || d.w_blk != w_blk ||
+      d.w_z != (n_lin_z > 0 ? w_z : nullptr) || d.kin != kin || d.C != C ||
+      d.n_blocks != n_blocks || d.n_lin_z != n_lin_z)
+    return -1;
+  q = DenseParams{};
+  q.t = tower_params(x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, b_out, B, d_in, kin, C,
+                     n_blocks, n_lin_z, d_out);
+  q.t.out = static_cast<float*>(out);
+  q.t.planar = planar;
+  q.m_in = d.m_in;
+  q.m_z = d.m_z;
+  q.m_blk = d.m_blk;
+  return attach_code(q.t, code_w, code_f, code_p, code_m, d_raw);
+}
+
 }  // namespace
 
 extern "C" {
 
 // Bytes of dynamic shared memory one tower CTA needs at these widths (H =
-// 512): the fused gather and the multi-view kernels.
+// 512): the multi-view kernels.
 size_t resnetfc_fwd_smem_bytes(int C, int kin, int n_lin_z) { return layout(C, kin, n_lin_z).total; }
 
 const char* resnetfc_fwd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
@@ -493,9 +606,11 @@ const char* resnetfc_fwd_error_string(int err) { return cudaGetErrorString((cuda
 // f32 words of one CTA's view-sum slot (the multi-view kernels' vsum).
 int resnetfc_fwd_slot_floats() { return SLOT_FLOATS; }
 
-// What the dense kernel fixes, for the wrapper to plan with: out[0..6] =
-// points a tile, threads a CTA, weight-ring stages, the most outputs of
-// lin_out, the most steps of a tile's program, the widest code or latent.  Returns the bytes of a plan; *smem gets the shared memory a CTA.
+// What the one-view tile kernels (dense and gather) fix, for the wrapper to
+// plan with: out[0..6] = points a tile, threads a CTA, weight-ring stages,
+// the most outputs of lin_out, the most steps of a tile's program, the widest
+// code or latent.  Returns the bytes of a plan; *smem gets the shared memory
+// a CTA.
 size_t resnetfc_fwd_dense_limits(int* out, size_t* smem) {
   out[0] = TILE_PTS;
   out[1] = TILE_THREADS;
@@ -541,51 +656,45 @@ int resnetfc_fwd_dense(const void* plan, const void* z, const void* x, const voi
                        int d_in, int kin, int H, int C, int n_blocks, int n_lin_z, int d_out,
                        int planar, const void* code_w, const void* code_f, const void* code_p,
                        const void* code_m, int d_raw, void* stream) {
-  DensePlan d;
-  memcpy(&d, plan, sizeof d);
-  if (H != HID || B < 1 || d_in < 1 || d_in > kin || d_out < 1 || d_out > TILE_MAX_OUT ||
-      !dense_widths_ok(kin, C, n_blocks, n_lin_z) || d.w_in != w_in || d.w_blk != w_blk ||
-      d.w_z != (n_lin_z > 0 ? w_z : nullptr) || d.kin != kin || d.C != C ||
-      d.n_blocks != n_blocks || d.n_lin_z != n_lin_z || (n_lin_z > 0 && z == nullptr))
-    return (int)cudaErrorInvalidValue;
-  DenseParams q = {};
-  q.t = tower_params(x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, b_out, B, d_in, kin, C,
-                     n_blocks, n_lin_z, d_out);
-  q.t.out = static_cast<float*>(out);
-  q.t.planar = planar;
+  DenseParams q;
+  const int code = tile_params(q, plan, x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, b_out, out,
+                               B, d_in, kin, H, C, n_blocks, n_lin_z, d_out, planar, code_w,
+                               code_f, code_p, code_m, d_raw);
+  if (code < 0 || (n_lin_z > 0 && z == nullptr)) return (int)cudaErrorInvalidValue;
   q.t.z = static_cast<const bf16*>(z);
-  const int code = attach_code(q.t, code_w, code_f, code_p, code_m, d_raw);
-  if (code < 0) return (int)cudaErrorInvalidValue;
-  q.m_in = d.m_in;
-  q.m_z = d.m_z;
-  q.m_blk = d.m_blk;
   if (n_lin_z > 0) {
     const int err = hopper::encode_bf16_sw128(&q.m_lat, z, B, C, C, 64);
     if (err != 0) return err;
   }
-  const int tiles = (B + TILE_PTS - 1) / TILE_PTS;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return code ? launch_dense<true>(q, tiles, st) : launch_dense<false>(q, tiles, st);
+  return code ? launch_tile<false, true>(q, B, st) : launch_tile<false, false>(q, B, st);
 }
 
-int resnetfc_fwd_gather(const void* idx, const void* w, int taps, const void* table, int T,
-                        const void* x, const void* w_in, const void* b_in, const void* w_z,
-                        const void* b_z, const void* w_blk, const void* b_blk, const void* w_out,
-                        const void* b_out, void* out, int B, int d_in, int kin, int H, int C,
-                        int n_blocks, int n_lin_z, int d_out, int planar, const void* code_w,
-                        const void* code_f, const void* code_p, const void* code_m, int d_raw,
-                        void* stream) {
-  TowerParams p = tower_params(x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, b_out, B, d_in, kin,
-                               C, n_blocks, n_lin_z, d_out);
-  p.out = static_cast<float*>(out);
-  p.planar = planar;
-  p.idx = static_cast<const int*>(idx);
-  p.w = static_cast<const float*>(w);
-  p.table = static_cast<const bf16*>(table);
-  p.T = T;
-  p.taps = taps;
-  return launch<true, false>(p, H, 0, code_w, code_f, code_p, code_m, d_raw,
-                             static_cast<cudaStream_t>(stream));
+// One view with the lookup z[g] = sum_{j<4} w[g, j] * table[idx[g, j]]
+// fused in: idx (B, taps) int32 and w (B, taps) f32 (taps >= 4, columns 0..3
+// used), table (T, C) bf16 with 16-byte aligned rows; otherwise as
+// resnetfc_fwd_dense.
+int resnetfc_fwd_gather(const void* plan, const void* idx, const void* w, int taps,
+                        const void* table, int T, const void* x, const void* w_in,
+                        const void* b_in, const void* w_z, const void* b_z, const void* w_blk,
+                        const void* b_blk, const void* w_out, const void* b_out, void* out, int B,
+                        int d_in, int kin, int H, int C, int n_blocks, int n_lin_z, int d_out,
+                        int planar, const void* code_w, const void* code_f, const void* code_p,
+                        const void* code_m, int d_raw, void* stream) {
+  DenseParams q;
+  const int code = tile_params(q, plan, x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, b_out, out,
+                               B, d_in, kin, H, C, n_blocks, n_lin_z, d_out, planar, code_w,
+                               code_f, code_p, code_m, d_raw);
+  if (code < 0 || taps < 4 || T < 1 || C % 8 != 0 || idx == nullptr || w == nullptr ||
+      table == nullptr || reinterpret_cast<uintptr_t>(table) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  q.t.idx = static_cast<const int*>(idx);
+  q.t.w = static_cast<const float*>(w);
+  q.t.table = static_cast<const bf16*>(table);
+  q.t.T = T;
+  q.t.taps = taps;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  return code ? launch_tile<true, true>(q, B, st) : launch_tile<true, false>(q, B, st);
 }
 
 // Multi-view: B = SB B_obj output points, NS views of each as object-major
@@ -607,7 +716,7 @@ int resnetfc_fwd_dense_mv(const void* z, const void* x, const void* w_in, const 
   p.B_obj = B_obj;
   p.pre = pre;
   p.vsum = static_cast<float*>(vsum);
-  return launch<false, true>(p, H, n_ctas, code_w, code_f, code_p, code_m, d_raw,
+  return launch_mv<false>(p, H, n_ctas, code_w, code_f, code_p, code_m, d_raw,
                              static_cast<cudaStream_t>(stream));
 }
 
@@ -635,7 +744,7 @@ int resnetfc_fwd_gather_mv(const void* idx, const void* w, int taps, const void*
   p.pre = pre;
   p.vsum = static_cast<float*>(vsum);
   if (B_obj != B) return (int)cudaErrorInvalidValue;
-  return launch<true, true>(p, H, n_ctas, code_w, code_f, code_p, code_m, d_raw,
+  return launch_mv<true>(p, H, n_ctas, code_w, code_f, code_p, code_m, d_raw,
                             static_cast<cudaStream_t>(stream));
 }
 

@@ -1,10 +1,10 @@
 // The ResnetFC tower on one 32-point tile, for the forward kernels that have
-// not moved onto the 64-point wgmma tile (tile64.cuh) yet: the fused gather
-// (resnetfc_fwd_gather) and the multi-view kernels (resnetfc_fwd_dense_mv,
-// resnetfc_fwd_gather_mv), in resnetfc_fwd.cu.  Its TowerParams, src_row and
-// bf16 helpers also serve the tile kernels.
+// not moved onto the 64-point wgmma tile (tile64.cuh) yet: the multi-view
+// kernels (resnetfc_fwd_dense_mv, resnetfc_fwd_gather_mv), in
+// resnetfc_fwd.cu.  Its TowerParams, src_row and bf16 helpers also serve the
+// tile kernels.
 //
-// Per point (NS == 1):
+// Per point (one view; each view below combine_layer at NS > 1):
 //   x = lin_in(code)
 //   for k < n_blocks:  [x += lin_z_k(z) while k < n_lin_z]
 //                      x += fc_1(relu(fc_0(relu(x))))
@@ -80,7 +80,7 @@ typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
 struct TowerParams {
-  const bf16* z;       // (B, C) dense latent; unused by the gather kernel
+  const bf16* z;       // (B, C) dense latent; unused by the gather kernels
   const int* idx;      // (NS B, taps) int32 tap rows, columns 0..3 used
   const float* w;      // (NS B, taps) f32 tap weights
   const bf16* table;   // (NS, T, C) feature tables
@@ -379,13 +379,6 @@ __device__ __forceinline__ void tower_blocks(const TowerParams& p, const Layout&
              k + 1 >= p.n_lin_z && (k + 1 < k1 || emit_end), s.stg);
     __syncthreads();
   }
-}
-
-// The single-view tower: on return s.act holds t = bf16(relu(x_final)).
-__device__ __forceinline__ void tower(const TowerParams& p, const Layout& L, const Smem& s,
-                                      FragC (&x)[2][J], FragC (&acc)[2][J]) {
-  tower_in(p, L, s, x, acc, p.n_lin_z == 0);
-  tower_blocks(p, L, s, x, acc, 0, p.n_blocks, true);
 }
 
 // Element i of fragment (h, j) of this thread, in a CTA's 64 KB slot: each

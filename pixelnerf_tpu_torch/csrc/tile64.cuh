@@ -1,6 +1,7 @@
 // The 64-point wgmma tile of the ResnetFC kernels for Hopper (sm_90a), which
-// the dense forward (resnetfc_fwd.cu, resnetfc_fwd_dense) and the backward's
-// data kernel (resnetfc_bwd.cu, resnetfc_bwd_data) share:
+// the one-view forward kernels (resnetfc_fwd.cu: resnetfc_fwd_dense and the
+// fused gather, resnetfc_fwd_gather) and the backward's data kernel
+// (resnetfc_bwd.cu, resnetfc_bwd_data) share:
 // - a tile is 64 points, one wgmma M, walked by 256 threads: warpgroups 0
 //   and 1 each own 256 of the 512 columns of every layer for all 64 points,
 //   their share of the f32 residual stream (or of its cotangent) in 128

@@ -8,7 +8,8 @@ Counterpart of ``pixelnerf_tpu/ops/resnetfc_pallas.py``:
   addresses (:func:`dense_plan`);
 * :func:`resnetfc_gather` launches ``resnetfc_fwd_gather``, the port of
   ``_kernel_2d_gather`` (the bilinear feature lookup fused in as a 4-tap read
-  of a bf16 ``(T, C)`` table);
+  of a bf16 ``(T, C)`` table), on the same tile and plan as the dense kernel,
+  the lookup built by the threads into the latent's operand tile;
 * :func:`resnetfc_dense_mv` launches ``resnetfc_fwd_dense_mv``, the port of
   ``_kernel_2d_mv``: NS > 1 source views, each running lin_in and the blocks
   below ``combine_layer`` on its own, then their mean through the rest;
@@ -24,9 +25,10 @@ point's name with ``_code`` appended.  The deferred code is eval-only, as in
 the JAX package: it has no backward.
 
 All four live in ``csrc/resnetfc_fwd.cu``, which also notes what bounds them.
-The dense kernel's 64-point tile is ``csrc/tile64.cuh``, which the backward's
-data kernel (``csrc/resnetfc_bwd.cu``, :mod:`.resnetfc_vjp`) shares; the
-other three run the 32-point tower of ``csrc/resnetfc_tower.cuh``.  Each source is
+The one-view kernels' 64-point tile is ``csrc/tile64.cuh``, which the
+backward's data kernel (``csrc/resnetfc_bwd.cu``, :mod:`.resnetfc_vjp`)
+shares; the multi-view kernels run the 32-point tower of
+``csrc/resnetfc_tower.cuh``.  Each source is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
 interface on first use (a changed source or header gets a new library name, so
 it rebuilds) and loaded with ``ctypes``; :func:`build_all` compiles every
@@ -391,7 +393,7 @@ def _lib() -> ctypes.CDLL:
         lib.resnetfc_fwd_dense_plan.restype = I
         lib.resnetfc_fwd_dense_limits.argtypes = [P, P]
         lib.resnetfc_fwd_dense_limits.restype = ctypes.c_size_t
-        lib.resnetfc_fwd_gather.argtypes = [P, P, I, P, I] + tower_args + code_args
+        lib.resnetfc_fwd_gather.argtypes = [P, P, P, I, P, I] + tower_args + code_args  # plan
         lib.resnetfc_fwd_gather.restype = I
         mv_args = tower_args + [I, I, I, P, I] + code_args  # NS, B_obj, pre, vsum, n_ctas
         lib.resnetfc_fwd_dense_mv.argtypes = [P] + mv_args
@@ -482,14 +484,15 @@ def _stream(dev) -> int:
 
 def _check_tower_smem(C: int, kin: int, n_lin_z: int) -> None:
     """The 32-point tower's shared memory at these widths fits a CTA (the
-    fused gather and the multi-view kernels)."""
+    multi-view kernels)."""
     smem = _lib().resnetfc_fwd_smem_bytes(C, kin, n_lin_z)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"widths need {smem} B of shared memory per CTA (> {MAX_SMEM_BYTES})")
 
 
 class DenseLimits(NamedTuple):
-    """What ``resnetfc_fwd_dense_kernel`` fixes (read from its library by
+    """What the one-view tile kernels (``resnetfc_fwd_dense_kernel``,
+    ``resnetfc_fwd_gather_kernel``) fix (read from their library by
     :func:`dense_limits`)."""
 
     tile: int  # points a CTA takes (one wgmma M)
@@ -546,6 +549,38 @@ def check_dense_widths(kin: int, H: int, C: int, n_lin_z: int, n_blocks: int, d_
     if limits.smem > MAX_SMEM_BYTES:
         raise ValueError(f"the dense kernel needs {limits.smem} B of shared memory per CTA "
                          f"(> {MAX_SMEM_BYTES})")
+
+
+def check_tile_tower(tower: Tower, n_blocks: int, limits: DenseLimits) -> None:
+    """Raise ValueError on packed weights the one-view tile kernels do not
+    take: widths (:func:`check_dense_widths`), or weights that TMA cannot
+    read in place (:func:`check_tma`)."""
+    kin, H = tower.w_in.shape
+    check_dense_widths(kin, H, tower.w_z.shape[1], tower.w_z.shape[0], n_blocks,
+                       tower.w_out.shape[1], limits)
+    for name in ("w_in", "w_z", "w_blk"):
+        check_tma(getattr(tower, name), name)
+
+
+def check_gather(idx: torch.Tensor, w: torch.Tensor, table: torch.Tensor, rows: int,
+                 tower: Tower, n_blocks: int, limits: DenseLimits) -> None:
+    """Raise ValueError on what ``resnetfc_fwd_gather`` does not take, on any
+    device: weights the tile does not take (:func:`check_tile_tower`); fewer
+    than 4 taps; idx / w other than ``(rows, taps)``; a table other than
+    ``(T, C)`` or whose rows are not 16-byte aligned (:func:`check_tma`: the
+    lookup reads 16-byte chunks of a row)."""
+    check_tile_tower(tower, n_blocks, limits)
+    C = tower.w_z.shape[1]
+    if idx.ndim != 2 or idx.shape[1] < 4:
+        raise ValueError(f"the gather needs (rows, taps) idx with at least 4 taps, got "
+                         f"{tuple(idx.shape)}")
+    for name, t in (("idx", idx), ("w", w)):
+        if tuple(t.shape) != (rows, idx.shape[1]):
+            raise ValueError(f"{name} must have shape {(rows, idx.shape[1])}, got "
+                             f"{tuple(t.shape)}")
+    if table.ndim != 2 or table.shape[1] != C or table.shape[0] < 1:
+        raise ValueError(f"the gather needs a (T, C={C}) table, got {tuple(table.shape)}")
+    check_tma(table, "table")
 
 
 def check_tma(t: torch.Tensor, what: str) -> None:
@@ -612,9 +647,9 @@ def resnetfc_dense(z: Optional[torch.Tensor], x: Coords, tower: Tower, n_blocks:
                    planar_out: bool = True) -> torch.Tensor:
     """ResnetFC forward over dense latents ``z (B, C)`` (bf16; None when the
     tower injects no latent) and code ``x (B, d_in)`` (f32) or a RawCode of
-    ``B`` rows.  Raises on widths the kernel does not take
-    (:func:`check_dense_widths`) and on weights or a latent that TMA cannot
-    read in place (:func:`check_tma`).
+    ``B`` rows.  Raises on weights the kernel does not take
+    (:func:`check_tile_tower`) and on a latent that TMA cannot read in place
+    (:func:`check_tma`).
 
     :return: (d_out, B) f32 when ``planar_out`` else (B, d_out)
     """
@@ -622,10 +657,7 @@ def resnetfc_dense(z: Optional[torch.Tensor], x: Coords, tower: Tower, n_blocks:
     if coords(x).device.type == "cpu":
         return resnetfc_reference(z, x, tower, n_blocks, planar_out)
     args, tail, out, C, n_lin_z, suffix = _tower_args(tower, x, n_blocks, planar_out)
-    check_dense_widths(tower.w_in.shape[0], tower.w_in.shape[1], C, n_lin_z, n_blocks,
-                       tower.w_out.shape[1], dense_limits())
-    for name in ("w_in", "w_z", "w_blk"):
-        check_tma(getattr(tower, name), name)
+    check_tile_tower(tower, n_blocks, dense_limits())
     if n_lin_z > 0:
         _check(z, "z", torch.bfloat16, (rows, C))
         check_tma(z, "z")
@@ -641,7 +673,8 @@ def resnetfc_gather(idx: torch.Tensor, w: torch.Tensor, table: torch.Tensor, x: 
                     tower: Tower, n_blocks: int, planar_out: bool = True) -> torch.Tensor:
     """ResnetFC forward with the lookup ``z = sum_{j<4} w[:, j] * table[idx[:, j]]``
     fused in: ``idx (B, taps)`` int32, ``w (B, taps)`` f32, ``table (T, C)``
-    bf16, ``x (B, d_in)`` f32 or a RawCode of ``B`` rows.
+    bf16, ``x (B, d_in)`` f32 or a RawCode of ``B`` rows.  Raises on what
+    the kernel does not take (:func:`check_gather`).
 
     :return: (d_out, B) f32 when ``planar_out`` else (B, d_out)
     """
@@ -650,17 +683,15 @@ def resnetfc_gather(idx: torch.Tensor, w: torch.Tensor, table: torch.Tensor, x: 
         z = gather_reference(idx, w, table)
         return resnetfc_reference(z, x, tower, n_blocks, planar_out)
     args, tail, out, C, n_lin_z, suffix = _tower_args(tower, x, n_blocks, planar_out)
-    _check_tower_smem(C, tower.w_in.shape[0], n_lin_z)
-    B, taps = idx.shape
-    if taps < 4:
-        raise ValueError(f"need at least 4 taps, got {taps}")
-    _check(idx, "idx", torch.int32, (rows, taps))
-    _check(w, "w", torch.float32, (rows, taps))
-    _check(table, "table", torch.bfloat16, (table.shape[0], C))
-    if B == 0:
+    _check(idx, "idx", torch.int32, idx.shape)
+    _check(w, "w", torch.float32, w.shape)
+    _check(table, "table", torch.bfloat16, table.shape)
+    check_gather(idx, w, table, rows, tower, n_blocks, dense_limits())
+    if rows == 0:
         return out
     err = _lib().resnetfc_fwd_gather(
-        idx.data_ptr(), w.data_ptr(), taps, table.data_ptr(), table.shape[0], *args, *tail,
+        dense_plan(tower, n_blocks), idx.data_ptr(), w.data_ptr(), idx.shape[1], table.data_ptr(),
+        table.shape[0], *args, *tail,
     )
     _launched("resnetfc_fwd_gather" + suffix, err)
     return out

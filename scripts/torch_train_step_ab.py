@@ -16,9 +16,12 @@ JSON object with, per checkout, the mean ms/step over steps 3 on of each run.
 With ``--kernels`` a run times, on the sn64 fine head (seeded weights, live
 fc_1) and seeded inputs, the dense forward (``resnetfc_dense``) at a render
 fine pass (4096 rays x 96 = 393,216 points) and at the -V 1 train step's
-fine pass (4 x 128 x 96 = 49,152), and the backward's data kernel
-(``resnetfc_bwd_data``) at -V 1 and -V 3 (SB 4 x NS 3 x 12,288 rows) there:
-CUDA events around 5 calls after one warm-up, ms a call.  The last line
+fine pass (4 x 128 x 96 = 49,152), the backward's data kernel
+(``resnetfc_bwd_data``) at -V 1 and -V 3 (SB 4 x NS 3 x 12,288 rows) there,
+and the fused gather (``resnetfc_gather``, 4 bilinear taps padded to 8 into
+a 1024 x 512 bf16 table) at the render's fine and coarse passes (393,216
+and 262,144 points): CUDA events around 5 calls after one warm-up, ms a
+call.  The script is the same for every checkout; only the kernels differ.  The last line
 then holds, per checkout, each kernel's times run by run.
 Needs a CUDA card and the checkouts' kernels to build there.
 """
@@ -46,7 +49,8 @@ def child(views: int, steps: int) -> None:
     print(json.dumps({"steps_ms": [1e3 * s for s in trainer.step_seconds]}), flush=True)
 
 
-KERNEL_CASES = ("dense_393216", "dense_49152", "bwd_data_v1_49152", "bwd_data_v3_49152")
+KERNEL_CASES = ("dense_393216", "dense_49152", "bwd_data_v1_49152", "bwd_data_v3_49152",
+                "gather_393216", "gather_262144")
 
 
 def child_kernels() -> None:
@@ -57,6 +61,7 @@ def child_kernels() -> None:
     from pixelnerf_tpu_torch import entry
     from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
     from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
+    from pixelnerf_tpu_torch.ops.grid_sample import bilinear_taps
 
     rf.build_all()
     dev = torch.device("cuda")
@@ -95,6 +100,12 @@ def child_kernels() -> None:
             gc = torch.randn(mlp.d_out, B, device=dev, generator=gd)
             kw = dict(NS=NS, sb=sb, combine_layer=cl) if NS > 1 else {}
             out[f"bwd_data_v{NS}_{B}"] = ms(lambda: rv.bwd_data(gc, z, x, tw, nb, False, **kw))
+        table = torch.randn(1024, mlp.d_latent, device=dev, generator=gd).bfloat16()
+        for B in (393216, 262144):
+            _, x = inputs(B)
+            uv = torch.rand(B, 2, device=dev, generator=gd) * 2 - 1
+            idx, w = (t.contiguous() for t in bilinear_taps(uv, 32, 32, pad_taps_to=8))
+            out[f"gather_{B}"] = ms(lambda: rf.resnetfc_gather(idx, w, table, x, tw, nb))
     print(json.dumps({"kernel_ms": out, "card": torch.cuda.get_device_name(0)}), flush=True)
 
 
