@@ -11,9 +11,10 @@ one line each:
    each library's ``HGMMA`` / ``UTMALDG`` / ``HMMA`` counts per kernel
    (``cuobjdump -sass``) and the weights kernel's shared memory; both
    backward kernels (the data kernel's two instantiations too) and both
-   instantiations of the dense forward and of the fused gather must be
-   wgmma + TMA kernels with no wmma product and no spills; the forward
-   kernels' registers on a line of their own;
+   instantiations of the dense forward, of the fused gather and of the
+   multi-view dense forward must be wgmma + TMA kernels with no wmma
+   product and no spills; the forward kernels' registers on a line of their
+   own;
 3. kernel checks: each forward kernel against its plain PyTorch version at
    the main paths' shapes (one ray chunk x 64 and x 96 samples; the
    single-view kernels on the encoded source view's 1024 x 512 table, the
@@ -21,7 +22,11 @@ one line each:
    dense kernel at NS 3 and at the train layout SB 4 x NS 3 x 128 rays x
    96), to ``max|d| <= 0.015 * max(1, max|ref|)`` and ``corr > 0.999``, with
    its time beside the plain version's, a cuBLAS bf16 chain's and the card's
-   bound; the one-view kernels (dense and gather, encoded and deferred code)
+   bound; the multi-view dense kernel encoded and with the deferred code at
+   each of its cases and also, gates only, at NS 2 and at a ragged SB 2 x
+   NS 3 x 333 (tiles that straddle two objects), bit-identical on a second
+   call, with its grid and its stream into each SM (weights, latent rows,
+   view-sum slot); the one-view kernels (dense and gather, encoded and deferred code)
    also at a ragged B (2000 points) and at the -V 1 train step's fine pass
    (49,152), with taps outside the table, bit-identical on a second call,
    the gather kernel bit-identical to the dense one on
@@ -42,8 +47,8 @@ one line each:
 6. multi-view render: the same ring from source views (0, 1) and then
    (0, 1, 2); the first must launch the multi-view gather kernel (NS x T =
    2048 rows, within the fused-gather cap), the second the multi-view dense
-   kernel (3072 rows, over it); frame 0 of each against the plain route to
-   >= 40 dB;
+   kernel (3072 rows, over it); frame 0 of each timed alone, and against the
+   plain route to >= 40 dB;
 7. deferred-code renders: with ``PIXELNERF_DEFER_CODE=1``, ring frame 0
    from views (0), (0, 1) and (0, 1, 2) and once on the dense route; each
    must launch the code variant of the kernel its route takes and not the
@@ -52,9 +57,10 @@ one line each:
    x 96 samples, at -V 1 and at -V 3) and at a ragged B (2000 points at -V
    1, 666 at -V 3: the data kernel's last 64-point tile half full, gates
    only): the kernels' stashed forward operands
-   against the plain recompute (with their relu-mask flips; at -V 1 also
-   whether the stashed t reproduces the dense forward's output, i.e.
-   whether the recompute sums in the primal's order), every output (dz, dx, each dW and db) against
+   against the plain recompute (with their relu-mask flips; also whether
+   the stashed t reproduces the dense forward's output at -V 1 and the
+   multi-view dense forward's at -V 3, i.e. whether the recompute sums in
+   the primal's order), every output (dz, dx, each dW and db) against
    the plain backward walked through the same operands at the bar above, and
    against the fully independent plain backward at ``corr > 0.999``; the
    weights kernel alone against ``bwd_weights_reference`` on its own DataOut
@@ -175,9 +181,10 @@ def bound(flops: float, nbytes: float):
 
 
 # template arguments of the kernels, for naming ptxas' entry functions
-TEMPLATE_ARGS = {"resnetfc_fwd_mv_kernel": ("GATHER", "CODE"),
+TEMPLATE_ARGS = {"resnetfc_fwd_gather_mv_kernel": ("CODE",),
                  "resnetfc_fwd_dense_kernel": ("CODE",),
                  "resnetfc_fwd_gather_kernel": ("CODE",),
+                 "resnetfc_fwd_dense_mv_kernel": ("CODE",),
                  "resnetfc_bwd_data_kernel": ("MV",)}
 
 
@@ -304,10 +311,10 @@ def main() -> None:
         d_sass = sass.get(name, {})
         if not (d_sass.get("HGMMA") and d_sass.get("UTMALDG") and d_sass.get("HMMA") == 0):
             raise SystemExit(f"{name} is not a wgmma + TMA kernel: {d_sass}")
-    # so are both instantiations of the dense forward and of the fused gather
-    # (the 64-point tile)
+    # so are both instantiations of the dense forward, of the fused gather and
+    # of the multi-view dense forward (the 64-point tile)
     fwd_ptxas = ptxas_summary(builds["fwd"].log)
-    dense_names = tuple(f"resnetfc_fwd_{k}_kernel<CODE={c}>" for k in ("dense", "gather")
+    dense_names = tuple(f"resnetfc_fwd_{k}_kernel<CODE={c}>" for k in ("dense", "gather", "dense_mv")
                         for c in (0, 1))
     for name in dense_names:
         d_sass = fwd_sass.get(name, {})
@@ -317,8 +324,9 @@ def main() -> None:
         spills = re.findall(r"(\d+) B spill", line)
         if len(spills) != 2 or any(int(v) for v in spills):
             raise SystemExit(f"{name} spills or ptxas gave no spill line: {line}")
-    log("build: forward kernels' registers (the dense forward and the fused gather on the "
-        "64-point tile, the multi-view kernels on the wmma tower): " + json.dumps(fwd_ptxas))
+    log("build: forward kernels' registers (the dense forward, the fused gather and the "
+        "multi-view dense forward on the 64-point tile, the multi-view gather on the wmma "
+        "tower): " + json.dumps(fwd_ptxas))
     log("build: backward kernels' registers: " + json.dumps(bwd_ptxas) + "; resnetfc_bwd_data "
         f"shared memory {rv.data_limits().smem} B a CTA, {rv.data_limits()}")
 
@@ -465,27 +473,36 @@ def main() -> None:
             del out, ref, z, x, rc, idx, w, pts, vd, dense_out
 
     # ---- multi-view forward kernel checks at the multi-view paths' shapes ----
-    # the NS = 2 render's gather on the encoded tables of views 0 and 1; the
-    # NS = 3 render's dense route; the -V 3 train step's layout (SB 4 objects
-    # x NS 3 views x 128 rays x 96 samples)
+    # the NS = 2 render's gather on the encoded tables of views 0 and 1 (row
+    # 4); the multi-view dense kernel (row 3, encoded and CODE at every case)
+    # at the NS = 3 render's dense route, the -V 3 train step's layout (SB 4
+    # objects x NS 3 views x 128 rays x 96 samples), and, gates only, NS = 2
+    # and a ragged SB 2 x NS 3 x 333 (tiles that straddle two objects)
     flops_mv = {NS: 2 * H * (NS * (d_in + cl * (C + 2 * H)) + 2 * (nb - cl) * H + d_out)
                 for NS in (2, 3)}
     records.update({"resnetfc_fwd_gather_mv": {}, "resnetfc_fwd_dense_mv": {}})
     mv_ms = {}  # (kernel, samples) -> ms, for the kernels' share of a frame
     mv_cases = [("resnetfc_fwd_gather_mv", 2, 1, RAYS_PER_STEP, K) for K in (64, 96)]
     mv_cases += [("resnetfc_fwd_dense_mv", 3, 1, RAYS_PER_STEP, K) for K in (64, 96)]
-    mv_cases += [("resnetfc_fwd_dense_mv", 3, 4, 128, 96)]
+    mv_cases += [("resnetfc_fwd_dense_mv", 3, 4, 128, 96), ("resnetfc_fwd_dense_mv", 2, 1,
+                                                            RAYS_PER_STEP, 64),
+                 ("resnetfc_fwd_dense_mv", 3, 2, 333, None)]
+    kin = tw.w_in.shape[0]
     for name, NS, sb, n_rays, K in mv_cases:
-        B = sb * n_rays * K  # output points
+        B = sb * n_rays * (K or 1)  # output points
         rows = NS * B
+        timed = NS == 3 and K is not None
         pts = torch.rand(rows, 3, device=dev, generator=gi) * 2 - 1
         vd = torch.nn.functional.normalize(torch.randn(rows, 3, device=dev, generator=gi), dim=-1)
         x = torch.cat([code(pts), vd], dim=-1).contiguous()
+        rc = rf.RawCode(torch.cat([pts, vd], dim=-1).contiguous(), *code_arrays)
         side = int(math.isqrt(T))
         idx, w = bilinear_taps(torch.rand(rows, 2, device=dev, generator=gi) * 2 - 1, side, side,
                                pad_taps_to=8)
         idx, w = idx.contiguous(), w.contiguous()
         tabs = tables3[:NS].contiguous()
+        shape = (f"NS={NS} SB={sb} x " + (f"{n_rays} rays x {K} = " if K else "B_obj ")
+                 + f"{B} points ({rows} rows)")
         with torch.no_grad():
             z = mv_latent(tabs, idx, w, sb)
             xv = by_view(x, NS, sb)
@@ -495,44 +512,108 @@ def main() -> None:
                 library = lambda: library_tower_mv(  # noqa: E731
                     (tabs[views, idx[:, :4].reshape(NS, B, 4).long()]
                      * w[:, :4].reshape(NS, B, 4, 1).bfloat16()).sum(2), xv, tw, nb, NS, cl)
+                plain = lambda: rf.resnetfc_reference(  # noqa: E731
+                    z, x, tw, nb, compute_dtype=torch.bfloat16, NS=NS, sb=sb, combine_layer=cl)
+                out = kern()
+                torch.cuda.synchronize()
+                ref = plain()
+                d, bar, corr = agree(out, ref)
+                ok = (d <= bar and corr > 0.999 and bool(torch.isfinite(out).all())
+                      and out.shape == (d_out, B))
+                ms = cuda_ms(kern, 5)
+                plain_ms = cuda_ms(plain, 2)
+                library_ms = cuda_ms(library, 3)
                 in_bytes = rows * (idx.shape[1] * 4 + w.shape[1] * 4 + d_in * 4) + NS * T * C * 2
-                extra = NS * 8 * C  # the 4-tap weighted sums
-                replaces = "pixelnerf_tpu/ops/resnetfc_pallas.py:463"
-            else:
-                zv = by_view(z, NS, sb)
-                kern = lambda: rf.resnetfc_dense_mv(z, x, tw, nb, NS, cl, sb)  # noqa: E731
-                library = lambda: library_tower_mv(zv, xv, tw, nb, NS, cl)  # noqa: E731
-                in_bytes = rows * (C * 2 + d_in * 4)
-                extra = 0
-                replaces = "pixelnerf_tpu/ops/resnetfc_pallas.py:399"
-            plain = lambda: rf.resnetfc_reference(  # noqa: E731
-                z, x, tw, nb, compute_dtype=torch.bfloat16, NS=NS, sb=sb, combine_layer=cl)
-            out = kern()
-            torch.cuda.synchronize()
-            ref = plain()
-            d, bar, corr = agree(out, ref)
-            ok = (d <= bar and corr > 0.999 and bool(torch.isfinite(out).all())
-                  and out.shape == (d_out, B))
-            ms = cuda_ms(kern, 5)
-            plain_ms = cuda_ms(plain, 2)
-            library_ms = cuda_ms(library, 3)
-            b_ms, b_by = bound(B * (flops_mv[NS] + extra), in_bytes + B * d_out * 4 + w_bytes)
-            log(f"kernel check: {name} NS={NS} SB={sb} x {n_rays} rays x {K} = {B} points "
-                f"({rows} rows) max|d| {d:.6g} <= bar {bar:.6g}: {d <= bar}, corr {corr:.7f}; "
-                f"kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms {library_ms:.4f} "
-                f"bound_ms {b_ms:.4f} ({b_by}); {B * flops_mv[NS] / ms / 1e9:.1f} TFLOP/s")
-            if not ok:
-                raise SystemExit(f"kernel check failed: {name} NS={NS} SB={sb} at B={B}")
-            rec = records[name]
-            rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), d)
-            if sb == 1:
+                b_ms, b_by = bound(B * (flops_mv[NS] + NS * 8 * C),
+                                   in_bytes + B * d_out * 4 + w_bytes)
+                log(f"kernel check: {name} {shape} max|d| {d:.6g} <= bar {bar:.6g}: {d <= bar}, "
+                    f"corr {corr:.7f}; kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+                    f"{library_ms:.4f} bound_ms {b_ms:.4f} ({b_by}); "
+                    f"{B * flops_mv[NS] / ms / 1e9:.1f} TFLOP/s")
+                if not ok:
+                    raise SystemExit(f"kernel check failed: {name} {shape}")
+                rec = records[name]
+                rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), d)
                 mv_ms[(name, K)] = ms
                 if K == 96:  # times at the render's fine pass
                     rec.update(name=name, route="cuda",
                                source="pixelnerf_tpu_torch/csrc/resnetfc_fwd.cu",
-                               replaces=replaces, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                               bound_by=b_by, library_ms=library_ms)
-            del out, ref, z, x, idx, w, xv, pts, vd
+                               replaces="pixelnerf_tpu/ops/resnetfc_pallas.py:463", ms=ms,
+                               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                               library_ms=library_ms)
+                del out, ref, z, x, rc, idx, w, xv, pts, vd
+                continue
+            # the multi-view dense kernel, encoded and CODE: each against its
+            # plain version at the bar and bit-identical on a second call
+            for variant, xi in ((name, x), (name + "_code", rc)):
+                kern = lambda: rf.resnetfc_dense_mv(z, xi, tw, nb, NS, cl, sb)  # noqa: E731
+                plain = lambda: rf.resnetfc_reference(  # noqa: E731
+                    z, xi, tw, nb, compute_dtype=torch.bfloat16, NS=NS, sb=sb, combine_layer=cl)
+                before = dict(rf.LAUNCHES)
+                out = kern()
+                torch.cuda.synchronize()
+                launched = {k: v - before[k] for k, v in rf.LAUNCHES.items() if v != before[k]}
+                ref = plain()
+                d, bar, corr = agree(out, ref)
+                identical = torch.equal(out, kern())
+                ok = (d <= bar and corr > 0.999 and bool(torch.isfinite(out).all())
+                      and out.shape == (d_out, B) and identical and launched == {variant: 1})
+                line = (f"kernel check: {variant} (64-point tile) {shape} max|d| {d:.6g} <= bar "
+                        f"{bar:.6g}: {d <= bar}, corr {corr:.7f}, bit-identical on a second call "
+                        f"{identical}, launches {launched}")
+                if timed and variant == name:
+                    ms = cuda_ms(kern, 5)
+                    plain_ms = cuda_ms(plain, 2)
+                    zv = by_view(z, NS, sb)
+                    library_ms = cuda_ms(lambda: library_tower_mv(zv, xv, tw, nb, NS, cl), 3)
+                    b_ms, b_by = bound(B * flops_mv[NS],
+                                       rows * (C * 2 + d_in * 4) + B * d_out * 4 + w_bytes)
+                    grid = rf.dense_mv_grid(B, n_sm, rf.dense_limits())
+                    tiles = rf.dense_grid(B, rf.dense_limits())
+                    # what a 64-point tile streams into its SM: the weights (the
+                    # layers below the mean once a view), each view's latent
+                    # rows and the view-sum slot (written, read and written at
+                    # middle views, read)
+                    mb = H * H * 2  # one (512, 512) bf16 block matrix
+                    tw_mv = (NS * (kin * H * 2 + n_lin_z * C * H * 2 + 2 * cl * mb)
+                             + 2 * (nb - cl) * mb)
+                    t_lat = NS * n_lin_z * 64 * C * 2
+                    t_slot = 2 * (NS - 1) * rf.dense_limits().slot_floats * 4
+                    per_tile = tw_mv + t_lat + t_slot
+                    l2 = tiles * per_tile / ms / 1e9
+                    line += (f"; kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
+                             f"{library_ms:.4f} bound_ms {b_ms:.4f} ({b_by}); "
+                             f"{B * flops_mv[NS] / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the "
+                             f"bound; grid {grid} persistent CTAs over {tiles} tiles "
+                             f"({tiles / grid:.2f} rounds); streamed into each SM "
+                             f"{per_tile / 2**20:.2f} MiB a 64-point tile (weights "
+                             f"{tw_mv / 2**20:.2f} + latent {t_lat / 2**20:.3f} + slot "
+                             f"{t_slot / 2**20:.3f}), {l2:.3f} TB/s = {l2 * 1e3 / n_sm:.2f} GB/s "
+                             f"an SM")
+                    rec = records[name]
+                    if sb == 1:
+                        mv_ms[(name, K)] = ms
+                    t = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                             library_ms=library_ms, tflops=B * flops_mv[NS] / ms / 1e9,
+                             share_of_bound=b_ms / ms, stream_tb_s=l2, grid=grid, tiles=tiles)
+                    if sb == 1 and K == 96:  # times at the render's fine pass
+                        rec.update(name=name, route="cuda",
+                                   source="pixelnerf_tpu_torch/csrc/resnetfc_fwd.cu",
+                                   replaces="pixelnerf_tpu/ops/resnetfc_pallas.py:399",
+                                   design="64-point tiles on wgmma m64n128k16 (tile64.cuh), weights "
+                                          "by TMA through a 3-stage mbarrier ring fed per "
+                                          "warpgroup, persistent CTAs with a 128 KB view-sum "
+                                          "slot each", **t)
+                    else:
+                        rec[f"points_{B}_sb{sb}"] = t
+                log(line)
+                if not ok:
+                    raise SystemExit(f"kernel check failed: {variant} {shape}")
+                if variant == name:
+                    rec = records[name]
+                    rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), d)
+                del out, ref
+            del z, x, rc, idx, w, xv, pts, vd
 
     # ---- row 6: the deferred positional code in each forward kernel ----
     # every CODE variant at the fine pass (4096 rays x 96 = 393,216 output
@@ -730,6 +811,15 @@ def main() -> None:
                           RAYS_PER_STEP, views=views)
         torch.cuda.synchronize()
         steady = time.perf_counter() - t0
+        frame0_s = []  # frame 0 alone (encode + render), twice
+        for _ in range(2):
+            t0 = time.perf_counter()
+            entry.render_ring(net, conf, src3, rays[:RAYS_PER_STEP],
+                              torch.Generator(device=dev).manual_seed(SEED), RAYS_PER_STEP,
+                              views=views)
+            torch.cuda.synchronize()
+            frame0_s.append(time.perf_counter() - t0)
+        f0 = sum(frame0_s) / 2
         rf.reset_launches()
         rgb_p, _ = entry.render_ring(plain_net, conf, src3, rays[:RAYS_PER_STEP],
                                      torch.Generator(device=dev).manual_seed(SEED), RAYS_PER_STEP,
@@ -744,7 +834,10 @@ def main() -> None:
             f"fused gather {fused}): launches {mv_launches}; {rays.shape[0]} rays in {dt:.4f} s "
             f"(encode + render, first call), second call {steady:.4f} s = "
             f"{rays.shape[0] / steady:.1f} rays/s; {kname} {frame_ms:.3f} ms per frame = "
-            f"{frame_ms * N_FRAMES / 1e3 / steady:.3f} of the render time; frame 0 vs plain route "
+            f"{frame_ms * N_FRAMES / 1e3 / steady:.3f} of the render time; frame 0 alone "
+            f"{f0:.4f} s (mean of {[round(t_, 4) for t_ in frame0_s]}) = "
+            f"{RAYS_PER_STEP / f0:.1f} rays/s, {kname} {frame_ms / 1e3 / f0:.3f} of it; frame 0 vs "
+            f"plain route "
             f"PSNR {p_mv:.3f} dB (need >= 40); plain-route launches {plain_launches}; "
             f"finite {finite}")
         others = [k for k in mv_launches if k != kname]
@@ -833,21 +926,26 @@ def main() -> None:
         shape += f", {rows} rows" if NS > 1 else ""
         log(f"backward check {shape}: stashed forward operands vs plain recompute max|d| {d:.6g} "
             f"<= bar {bar:.6g}, corr {corr:.7f}, relu-mask flips {flips:.3g} (<= 1e-3)")
-        if NS == 1:
-            # the dense forward shares the data kernel's tile: its output is
-            # lin_out of the stashed t (in f64, up to the f32 rounding of its
-            # own lin_out) if the recompute took the primal's products in the
-            # primal's order; the plain recompute's t, summed otherwise, for scale
-            with torch.no_grad():
-                out_f = rf.resnetfc_dense(z, x, tw, nb).double()
-                wo, bo = tw.w_out.double(), tw.b_out.double()[:, None]
-                d_stash = (out_f - ((data.ws_act[-1, :B].double() @ wo).t() + bo)).abs().max().item()
-                d_plain = (out_f - ((ops_p[-1].double() @ wo).t() + bo)).abs().max().item()
-            log(f"backward check {shape}: the dense forward's output vs lin_out of the stashed t "
-                f"(f64) max|d| {d_stash:.3g}, vs lin_out of the plain recompute's t {d_plain:.3g}: "
-                f"the recompute sums in the primal's order "
-                f"{d_stash <= 1e-5 * max(1.0, out_f.abs().max().item())}")
-            del out_f
+        # the dense forwards share the data kernel's tile and program: their
+        # output is lin_out of the stashed t (in f64, up to the f32 rounding
+        # of its own lin_out) if the recompute took the primal's products
+        # and folds in the primal's order; the plain recompute's t, summed
+        # otherwise, for scale
+        with torch.no_grad():
+            out_f = (rf.resnetfc_dense(z, x, tw, nb) if NS == 1
+                     else rf.resnetfc_dense_mv(z, x, tw, nb, NS, cl, sb)).double()
+            wo, bo = tw.w_out.double(), tw.b_out.double()[:, None]
+            d_stash = (out_f - ((data.ws_act[-1, :B].double() @ wo).t() + bo)).abs().max().item()
+            d_plain = (out_f - ((ops_p[-1].double() @ wo).t() + bo)).abs().max().item()
+        same_order = d_stash <= 1e-5 * max(1.0, out_f.abs().max().item())
+        fwd_name = "resnetfc_fwd_dense" if NS == 1 else "resnetfc_fwd_dense_mv"
+        log(f"backward check {shape}: {fwd_name}'s output vs lin_out of the stashed t "
+            f"(f64) max|d| {d_stash:.3g}, vs lin_out of the plain recompute's t {d_plain:.3g}: "
+            f"the recompute sums in the primal's order {same_order}")
+        if NS > 1:
+            records["resnetfc_fwd_dense_mv"].setdefault("recompute_in_primal_order", {})[
+                f"{sb}x{B_obj}"] = same_order
+        del out_f
         same = rv.resnetfc_bwd_reference(g, z, x, tw, nb, True, torch.bfloat16, operands=ops_k,
                                          **kw)
         ind = rv.resnetfc_bwd_reference(g, z, x, tw, nb, True, torch.bfloat16, **kw)

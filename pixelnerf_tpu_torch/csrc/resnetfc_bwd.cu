@@ -84,11 +84,11 @@
 //   tile half past B_pad reads zeros and writes nothing there;
 // - no atomics: two calls on the same inputs give the same bits.
 // The tile, its constants and its step kinds are in tile64.cuh, which the
-// one-view forward (resnetfc_fwd_dense) shares: at NS = 1 the recompute
-// takes the primal's products in the primal's order, bit for bit.  The
-// multi-view forward still runs the 32-point tower (resnetfc_tower.cuh), so
-// at NS > 1 a few relu masks may differ from the primal's; the backward's
-// gates allow <= 1e-3 flips.
+// dense forwards (resnetfc_fwd_dense, and resnetfc_fwd_dense_mv at NS > 1)
+// share: their programs are this kernel's recompute, so it takes the primal's
+// products in the primal's order and folds the views in its order, bit for
+// bit.  The backward's gates still allow <= 1e-3 relu-mask flips against the
+// plain recompute, whose f32 sums run in another order.
 //
 // The weights kernel on its own is bound by bytes on an H100 SXM: the train
 // step's fine pass reads its workspace once, 1.18 GB at -V 1 and 2.4 GiB at

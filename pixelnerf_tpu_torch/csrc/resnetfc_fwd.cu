@@ -19,12 +19,13 @@
 // against ~0.1 KB of input per point and view, so the tower is bound by
 // tensor-core operations, not device memory.  What holds a kernel back is
 // the weights' trip from L2 (~6.9 MB bf16 at sn64) into every SM: a tile of
-// P points reads all of them once, so the traffic is (points / P) x 6.9 MB.
+// P points reads all of them once, so the traffic is (points / P) x 6.9 MB
+// (at NS views, the layers below the view mean NS times).
 //
-// The one-view entry points (resnetfc_fwd_dense and resnetfc_fwd_gather) run
-// one kernel body on the 64-point wgmma tile of tile64.cuh, which the
-// backward's data kernel shares, so the backward's recompute takes its
-// products in this body's order:
+// resnetfc_fwd_dense, resnetfc_fwd_gather and resnetfc_fwd_dense_mv run one
+// kernel body on the 64-point wgmma tile of tile64.cuh, which the backward's
+// data kernel shares, so the backward's recompute takes its products in this
+// body's order, at one view and at NS views:
 // - one CTA of two warpgroups a 64-point tile, each warpgroup owning 256 of
 //   the 512 columns of the f32 stream in registers; every product is wgmma
 //   m64n128k16 pieces with operand A a 64 x 512 bf16 swizzled tile in shared
@@ -63,10 +64,29 @@
 // rounded, then added, j = 0..3), so the gather kernel's output is
 // resnetfc_fwd_dense's on that bf16 latent, bit for bit.
 //
-// The multi-view entry points keep the 32-point nvcuda::wmma tower of
-// resnetfc_tower.cuh (persistent CTAs of 8 warps, a per-CTA device-memory
-// view-sum slot); the multi-view gather builds its latent there with the same
-// 4-tap read, into shared memory.
+// The multi-view dense kernel (resnetfc_fwd_dense_mv) runs the forward half
+// of the data kernel's multi-view program on the same tile: per view v its
+// lin_in, injections and blocks k < pre, then FOLD into the view sum; then
+// the shared blocks and lin_out.  The mean is the TPU kernel's sum(xs) *
+// (1 / NS): an f32 sum in view order, then one multiply.  Its CTAs are
+// persistent (one an SM at most), each walking its tiles with a 128 KB
+// device-memory slot for the view sum (the 64 x 512 f32 stream, each thread
+// coalesced on its own words; 16.5 MB over 132 SMs, L2-resident beside the
+// weights), and each warpgroup's feeder runs on from the last stage of a
+// tile into the next tile's first, so the ring does not drain between
+// tiles.  Input rows are object-major (resnetfc_tower.cuh, src_row): a tile
+// inside one object reads each view's latent as one TMA box of 64 rows; a
+// tile whose points straddle two objects (or end past B) reads two runs of
+// rows, so the threads load it (~5% slower than TMA on an H100).  A 64-point
+// tile at NS = 3 streams 15.6 MiB of weights at sn64 (the layers below the
+// mean three times), 2.4x the one-view tile's 6.55 MiB; that stream binds it
+// as it binds the one-view kernels (~29 GB/s an SM on an H100), and the nine
+// latent fills from device memory add ~7%.
+//
+// The multi-view gather (resnetfc_fwd_gather_mv) keeps the 32-point
+// nvcuda::wmma tower of resnetfc_tower.cuh (persistent CTAs of 8 warps, a
+// 64 KB per-CTA device-memory view-sum slot), building its latent there with
+// the same 4-tap read, into shared memory.
 
 #include <string.h>
 
@@ -77,12 +97,12 @@ namespace {
 using namespace rfc;
 
 // ---------------------------------------------------------------------------
-// the 32-point tower: the multi-view kernels
+// the 32-point tower: the multi-view gather
 // ---------------------------------------------------------------------------
 
 // Persistent CTAs walk the 32-point tiles, one view-sum slot each.
-template <bool GATHER, bool CODE>
-__global__ void __launch_bounds__(NTHREADS, 1) resnetfc_fwd_mv_kernel(const TowerParams p) {
+template <bool CODE>
+__global__ void __launch_bounds__(NTHREADS, 1) resnetfc_fwd_gather_mv_kernel(const TowerParams p) {
   extern __shared__ __align__(128) unsigned char smem_raw[];
   const Layout L = layout(p.C, p.kin, p.n_lin_z);
   const Smem s = carve(smem_raw, L);
@@ -93,7 +113,7 @@ __global__ void __launch_bounds__(NTHREADS, 1) resnetfc_fwd_mv_kernel(const Towe
   for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
     const int row0 = tile * BM;
     FragC x[2][J], acc[2][J];
-    tower_mv<GATHER, CODE>(p, L, s, x, acc, row0, slot);
+    tower_mv<CODE>(p, L, s, x, acc, row0, slot);
 
     // lin_out is only d_out (4) wide: one warp per (point, channel) dot product
     for (int pc = warp; pc < BM * p.d_out; pc += NWARPS) {
@@ -116,15 +136,15 @@ __global__ void __launch_bounds__(NTHREADS, 1) resnetfc_fwd_mv_kernel(const Towe
   }
 }
 
-template <bool GATHER, bool CODE>
-int launch_mv_variant(const TowerParams& p, int n_ctas, cudaStream_t stream) {
+template <bool CODE>
+int launch_gather_mv(const TowerParams& p, int n_ctas, cudaStream_t stream) {
   const size_t smem = layout(p.C, p.kin, p.n_lin_z).total;
-  cudaError_t err = cudaFuncSetAttribute(resnetfc_fwd_mv_kernel<GATHER, CODE>,
+  cudaError_t err = cudaFuncSetAttribute(resnetfc_fwd_gather_mv_kernel<CODE>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   const int n_tiles = (p.B + BM - 1) / BM;
-  resnetfc_fwd_mv_kernel<GATHER, CODE><<<n_ctas < n_tiles ? n_ctas : n_tiles, NTHREADS, smem,
-                                          stream>>>(p);
+  resnetfc_fwd_gather_mv_kernel<CODE><<<n_ctas < n_tiles ? n_ctas : n_tiles, NTHREADS, smem,
+                                         stream>>>(p);
   return (int)cudaGetLastError();
 }
 
@@ -142,9 +162,7 @@ int attach_code(TowerParams& p, const void* code_w, const void* code_f, const vo
   return 1;
 }
 
-// Validate, attach the code operands and launch the matching multi-view
-// variant.
-template <bool GATHER>
+// Validate, attach the code operands and launch the multi-view gather.
 int launch_mv(TowerParams& p, int H, int n_ctas, const void* code_w, const void* code_f,
               const void* code_p, const void* code_m, int d_raw, cudaStream_t stream) {
   if (H != HID || p.NS < 2 || p.pre < 0 || p.pre >= p.n_blocks || p.n_lin_z > p.pre ||
@@ -152,16 +170,21 @@ int launch_mv(TowerParams& p, int H, int n_ctas, const void* code_w, const void*
     return (int)cudaErrorInvalidValue;
   const int code = attach_code(p, code_w, code_f, code_p, code_m, d_raw);
   if (code < 0) return (int)cudaErrorInvalidValue;
-  return code ? launch_mv_variant<GATHER, true>(p, n_ctas, stream)
-              : launch_mv_variant<GATHER, false>(p, n_ctas, stream);
+  return code ? launch_gather_mv<true>(p, n_ctas, stream) : launch_gather_mv<false>(p, n_ctas, stream);
 }
 
 // ---------------------------------------------------------------------------
-// resnetfc_fwd_dense and resnetfc_fwd_gather: 64-point wgmma tiles, weights by TMA
+// resnetfc_fwd_dense, resnetfc_fwd_gather and resnetfc_fwd_dense_mv: 64-point
+// wgmma tiles, weights by TMA
 // ---------------------------------------------------------------------------
 
-constexpr int F_MAX_STEPS = 64;  // steps of a tile's program: 1 + n_lin_z + 2 n_blocks (sn64: 14)
-constexpr int F_MAX_K = HID;     // the widest code or latent: one 64 x 512 operand tile
+// steps of a tile's program (fwd_program; sn64: 14 at one view, 37 at three,
+// 103 at nine -- the most views the data kernel takes at sn64)
+constexpr int F_MAX_STEPS = 128;
+constexpr int F_MAX_K = HID;  // the widest code or latent: one 64 x 512 operand tile
+// f32 words of a multi-view CTA's view-sum slot: every thread's share of the
+// 64 x 512 stream (128 KB)
+constexpr int F_SLOT_FLOATS = TILE_STREAM * TILE_THREADS;
 
 // The weights' tensor maps (64 x 64 boxes of w_in (kin, H), w_z (n_lin_z C,
 // H) and w_blk (2 n_blocks H, H)) and what they were encoded for: built once
@@ -173,34 +196,48 @@ struct DensePlan {
 };
 
 struct DenseParams {
-  TowerParams t;  // the gather kernel: also idx, w, table, T, taps
+  TowerParams t;  // the gather kernel: also idx, w, table, T, taps; multi-view: NS, B_obj, pre, vsum
   CUtensorMap m_in, m_z, m_blk;
-  CUtensorMap m_lat;  // z (B, C) in 64 x 64 boxes, rows past B read as zeros (dense only)
+  // the dense kernels' z in 64 x 64 boxes: (B, C), rows past B read as zeros;
+  // multi-view (NS B, C), read only by tiles inside one object
+  CUtensorMap m_lat;
 };
 
-// The tile's program: lin_in, then per block its injection (k < n_lin_z),
-// fc_0 and fc_1 -- the data kernel's recompute at one view (data_program).
-__host__ __device__ inline int dense_program(int* out, int n_blocks, int n_lin_z) {
+// The tile's program: per view v (one view: v = 0 and pre = n_blocks) lin_in,
+// then per block k < pre its injection (k < n_lin_z), fc_0 and fc_1, and, at
+// NS > 1, the fold into the view mean; then the shared blocks k >= pre --
+// the forward half of the data kernel's program (data_program), in its order
+// and with its aux flags.
+__host__ __device__ inline int fwd_program(int* out, int n_blocks, int n_lin_z, int NS, int pre) {
   int n = 0;
   auto put = [&](int s) {
     if (out != nullptr) out[n] = s;
     ++n;
   };
-  // block 0 reads relu(x) directly when no latent is injected first
-  put(step(IN_FWD, 0, 0, n_lin_z == 0));
-  for (int k = 0; k < n_blocks; ++k) {
-    if (k < n_lin_z) put(step(Z_FWD, k, 0, 0));
+  const bool mv = NS > 1;
+  for (int v = 0; v < NS; ++v) {
+    // block 0 reads relu(x) directly when no latent is injected first
+    put(step(IN_FWD, 0, v, n_lin_z == 0 && pre > 0));
+    for (int k = 0; k < pre; ++k) {
+      if (k < n_lin_z) put(step(Z_FWD, k, v, 0));
+      put(step(B0_FWD, k, v, 0));
+      // the next reader of relu(x) is fc_0 of block k + 1 (or lin_out) unless
+      // block k + 1 injects the latent first, or the view mean comes next
+      put(step(B1_FWD, k, v, k + 1 >= n_lin_z && (k + 1 < pre || !mv)));
+    }
+    if (mv) put(step(FOLD, 0, v, 0));
+  }
+  for (int k = pre; k < n_blocks; ++k) {
     put(step(B0_FWD, k, 0, 0));
-    // the next reader of relu(x) is fc_0 of block k + 1 (or lin_out) unless
-    // block k + 1 injects the latent first
-    put(step(B1_FWD, k, 0, k + 1 >= n_lin_z));
+    put(step(B1_FWD, k, 0, 1));
   }
   return n;
 }
 
 // A feeding state, which only a warpgroup's first thread keeps (in shared
 // memory, so that no other thread holds registers for it): the next stage is
-// step g, piece pc, K rows ks * 64...
+// step g, piece pc, K rows ks * 64...  Multi-view, g indexes the program's
+// products only (f_gprog) and wraps to the CTA's next tile.
 struct DenseFeed {
   int g, pc, ks;
 };
@@ -211,20 +248,29 @@ constexpr uint32_t HALF_BYTES = TILE_BPW * BOX_BYTES;
 // Shared state beside the dynamic operand tiles and ring, at fixed addresses:
 // each warpgroup's full / empty mbarriers of its halves of the ring stages
 // (empty: one arrival a warp of the warpgroup) and its feeding state; the
-// latent's mbarrier (the dense kernel's TMA latent; the gather kernel never
-// arms it); the program.
+// latent's mbarrier (the dense kernels' TMA latent; the gather kernel never
+// arms it); the program.  Multi-view also: the program's products alone
+// (what the feeders walk: the fold has none), each feeder's tiles still to
+// feed, the current tile's first row and the latents taken by TMA so far
+// (the parity of f_lat_full's next phase), read where used rather than kept
+// in registers.  The feeders' work lies on the products' path (a warpgroup's
+// first thread feeds before it issues its next product), so theirs is kept
+// short: no division, no step to skip (feeders that found their step by a
+// division a stage made the kernel 1.19x slower on an H100).
 __shared__ __align__(8) uint64_t f_full[2][RING_STAGES], f_empty[2][RING_STAGES], f_lat_full;
-__shared__ int f_prog[F_MAX_STEPS];
-__shared__ int f_n_steps;
+__shared__ int f_prog[F_MAX_STEPS], f_gprog[F_MAX_STEPS];
+__shared__ int f_n_steps, f_n_gemms;
 __shared__ DenseFeed f_feed[2];
+__shared__ int f_left[2], f_row0, f_lat_n;
 
 // Thread 128 h: warpgroup h's half of the next stage into ring slot `slot`
 // -- the weight boxes of its piece pc, K rows rowbase + ks * 64.. -- on
 // full[h].
+template <bool MV>
 __device__ __forceinline__ void dense_feed(const DenseParams& q, unsigned char* ring, int slot, int h) {
   DenseFeed f = f_feed[h];
-  if (f.g >= f_n_steps) return;  // the tile's last stage is in
-  const Gemm op = gemm_of(f_prog[f.g], q.t.kin, q.t.C);
+  if (MV ? f_left[h] == 0 : f.g >= f_n_steps) return;  // the CTA's last stage is in
+  const Gemm op = gemm_of(MV ? f_gprog[f.g] : f_prog[f.g], q.t.kin, q.t.C);
   const CUtensorMap* m = op.map == 0 ? &q.m_in : op.map == 1 ? &q.m_z : &q.m_blk;
   hopper::mbar_arrive_expect_tx(&f_full[h][slot], HALF_BYTES);
   unsigned char* dst = ring + slot * STAGE_BYTES + h * HALF_BYTES;
@@ -237,6 +283,10 @@ __device__ __forceinline__ void dense_feed(const DenseParams& q, unsigned char* 
     if (++f.pc == TILE_NP) {
       f.pc = 0;
       ++f.g;
+      if (MV && f.g == f_n_gemms) {  // on into the CTA's next tile
+        f.g = 0;
+        --f_left[h];
+      }
     }
   }
   f_feed[h] = f;
@@ -247,19 +297,20 @@ __device__ __forceinline__ void dense_feed(const DenseParams& q, unsigned char* 
 // and loads the warpgroup's half of stage u + RING_STAGES into the slot.  So
 // each warpgroup keeps its own half of the ring fed, and neither waits for
 // the other's warps.
+template <bool MV>
 __device__ __forceinline__ void dense_release(const DenseParams& q, unsigned char* ring, uint32_t u) {
   const int slot = u % RING_STAGES, h = threadIdx.x >> 7;
   if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(&f_empty[h][slot]);
   if ((threadIdx.x & 127) == 0) {
     hopper::mbar_wait(&f_empty[h][slot], (u / RING_STAGES) & 1);
-    dense_feed(q, ring, slot, h);
+    dense_feed<MV>(q, ring, slot, h);
   }
 }
 
 // For each piece of this warpgroup's columns, acc = A . B over K (A a
 // swizzled (64, K) tile, B the ring's MN-major boxes), then epi(piece, acc):
 // the pieces, k16 steps and stages of the data kernel's forward products.
-template <typename Epi>
+template <bool MV, typename Epi>
 __device__ __forceinline__ void dense_gemm(const DenseParams& q, unsigned char* ring, uint32_t& it,
                                            const unsigned char* A, int K, Epi epi) {
   const int wg = threadIdx.x >> 7;
@@ -282,21 +333,22 @@ __device__ __forceinline__ void dense_gemm(const DenseParams& q, unsigned char* 
                                          hopper::desc_sw128(b + kk * 2048, BOX_BYTES, 1024), 1);
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();  // stage ks - 1's products have read it
-      if (ks > 0) dense_release(q, ring, it - 1);
+      if (ks > 0) dense_release<MV>(q, ring, it - 1);
       ++it;
     }
     hopper::wgmma_wait<0>();
-    dense_release(q, ring, it - 1);
+    dense_release<MV>(q, ring, it - 1);
     epi(pc, acc);
   }
 }
 
 // The tile's code into `tile` (bf16, zeros past B and past d_in): the
 // encoded f32 code rounded, or (CODE) the positional code of the raw
-// coordinates as resnetfc_tower.cuh's load_inputs<CODE> evaluates it.  Reads
-// go out four at a time so that they overlap.
-template <bool CODE>
-__device__ __forceinline__ void dense_code(const TowerParams& p, unsigned char* tile, int row0) {
+// coordinates as resnetfc_tower.cuh's load_inputs<CODE> evaluates it; at NS
+// views (MV), view v's rows.  Reads go out four at a time so that they
+// overlap.
+template <bool CODE, bool MV>
+__device__ __forceinline__ void dense_code(const TowerParams& p, unsigned char* tile, int row0, int v) {
   const int kin = p.kin, n = TILE_PTS * kin;
   for (int e0 = threadIdx.x; e0 < n; e0 += 4 * TILE_THREADS) {
     float f[4];
@@ -305,13 +357,14 @@ __device__ __forceinline__ void dense_code(const TowerParams& p, unsigned char* 
       const int e = e0 + u * TILE_THREADS, r = e / kin, c = e - r * kin, g = row0 + r;
       f[u] = 0.0f;
       if (e < n && g < p.B && c < p.d_in) {
+        const size_t row = MV ? src_row(p, g, v) : (size_t)g;  // the input row of point g
         if (CODE) {
-          const float* raw = p.x + (size_t)g * p.d_raw;
+          const float* raw = p.x + row * p.d_raw;
           float xg = __ldg(raw) * __ldg(p.code_w + c);
           for (int j = 1; j < p.d_raw; ++j) xg += __ldg(raw + j) * __ldg(p.code_w + j * p.d_in + c);
           f[u] = __ldg(p.code_m + c) > 0.0f ? sinf(xg * __ldg(p.code_f + c) + __ldg(p.code_p + c)) : xg;
         } else {
-          f[u] = p.x[(size_t)g * p.d_in + c];
+          f[u] = p.x[row * p.d_in + c];
         }
       }
     }
@@ -319,6 +372,29 @@ __device__ __forceinline__ void dense_code(const TowerParams& p, unsigned char* 
     for (int u = 0; u < 4; ++u) {
       const int e = e0 + u * TILE_THREADS, r = e / kin, c = e - r * kin;
       if (e < n) *reinterpret_cast<bf16*>(tile + hopper::sw128_offset(r, c)) = __float2bfloat16_rn(f[u]);
+    }
+  }
+}
+
+// View v's latent of the tile at row0 into `tile` (bf16, zeros past B) by
+// the threads, for a tile whose points straddle two objects (or end past B):
+// their rows of z are two runs (object-major rows, src_row).  C / 8 chunks of
+// 16 bytes a row, read four at a time so that they overlap.
+__device__ __forceinline__ void view_latent(const TowerParams& p, unsigned char* tile, int row0, int v) {
+  const int nq = p.C >> 3, n = TILE_PTS * nq;
+  for (int e0 = threadIdx.x; e0 < n; e0 += 4 * TILE_THREADS) {
+    uint4 c8[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = e0 + u * TILE_THREADS, r = e / nq, g = row0 + r;
+      c8[u] = make_uint4(0u, 0u, 0u, 0u);
+      if (e < n && g < p.B)
+        c8[u] = __ldg(reinterpret_cast<const uint4*>(p.z + src_row(p, g, v) * p.C) + (e - r * nq));
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = e0 + u * TILE_THREADS, r = e / nq;
+      if (e < n) *reinterpret_cast<uint4*>(tile + hopper::sw128_offset(r, 8 * (e - r * nq))) = c8[u];
     }
   }
 }
@@ -385,41 +461,26 @@ __device__ __forceinline__ void gather_fill(const TowerParams& p, unsigned char*
   }
 }
 
-// One CTA of 256 threads per 64-point tile (tile64.cuh's tile): the body of
-// both one-view kernels, which differ only in where each injection's latent
-// comes from (GATHER: gather_fill; else TMA).  `sv` holds this thread's share
-// of the f32 residual stream; `act` and `hb` are the two operand tiles (a
-// product reads one and its epilogue writes the other).
-template <bool GATHER, bool CODE>
-__device__ __forceinline__ void fwd_tile(const DenseParams& q) {
-  extern __shared__ unsigned char f_smem_raw[];
+// One 64-point tile (tile64.cuh's tile) of 256 threads: the body of the
+// three tile kernels, which differ only in where each injection's latent
+// comes from (GATHER: gather_fill; else TMA, or at NS views (MV) by the
+// threads on a tile that straddles two objects) and in the views (MV: each
+// view's layers below the mean, folded, then the shared blocks).  `sv`
+// holds this thread's share of the f32 residual stream; `act` and `hb` are
+// the two operand tiles (a product reads one and its epilogue writes the
+// other); `it` counts the ring's stages taken.
+template <bool GATHER, bool CODE, bool MV>
+__device__ __forceinline__ void fwd_body(const DenseParams& q, unsigned char* act, unsigned char* hb,
+                                         unsigned char* ring, uint32_t& it) {
   const TowerParams& p = q.t;
-  const uint32_t raw = hopper::smem_u32(f_smem_raw);
-  unsigned char* act = f_smem_raw + (((raw + 1023) & ~1023u) - raw);
-  unsigned char* hb = act + TILE_BYTES;
-  unsigned char* ring = hb + TILE_BYTES;
-
-  if (threadIdx.x == 0) {
-    for (int h = 0; h < 2; ++h)
-      for (int st = 0; st < RING_STAGES; ++st) {
-        hopper::mbar_init(&f_full[h][st], 1);
-        hopper::mbar_init(&f_empty[h][st], 4);  // the warps of warpgroup h
-      }
-    hopper::mbar_init(&f_lat_full, 1);
-    hopper::mbar_fence_init();
-    f_n_steps = dense_program(f_prog, p.n_blocks, p.n_lin_z);
-    f_feed[0] = f_feed[1] = DenseFeed{0, 0, 0};
-  }
-  __syncthreads();
-  if ((threadIdx.x & 127) == 0)
-    for (int st = 0; st < RING_STAGES; ++st) dense_feed(q, ring, st, threadIdx.x >> 7);
   // the tile's first row (read where used, not kept in a register)
-  auto row0 = [] { return (int)blockIdx.x * TILE_PTS; };
-  // lin_in's operand, before the stream is live
-  dense_code<CODE>(p, hb, row0());
-  publish();
+  auto row0 = [] { return MV ? f_row0 : (int)blockIdx.x * TILE_PTS; };
+  if (!MV) {
+    // lin_in's operand, before the stream is live
+    dense_code<CODE, false>(p, hb, row0(), 0);
+    publish();
+  }
 
-  uint32_t it = 0;  // stages taken
   float sv[TILE_STREAM];
 
   // bf16(relu(sv)) into act
@@ -433,22 +494,58 @@ __device__ __forceinline__ void fwd_tile(const DenseParams& q) {
   for (int si = 0; si < f_n_steps; ++si) {
     const int s = f_prog[si];
     const int kind = step_kind(s);
+    if (MV && kind == FOLD) {
+      // the view mean, as the data kernel's FOLD: sum in view order in the
+      // CTA's slot, then sum * (1 / NS); after the last view, relu(mean) for
+      // the first shared block
+      const int v = step_v(s), NS = p.NS;
+      const float inv = 1.0f / (float)NS;
+#pragma unroll
+      for (int i = 0; i < TILE_STREAM; ++i) {
+        float* a = p.vsum + ((size_t)blockIdx.x * TILE_STREAM + i) * TILE_THREADS + threadIdx.x;
+        if (v == 0) {
+          *a = sv[i];
+        } else {
+          const float sum = *a + sv[i];
+          if (v + 1 < NS)
+            *a = sum;
+          else
+            sv[i] = sum * inv;
+        }
+        if (i % 16 == 15) group_fence();
+      }
+      if (v + 1 == NS)
+#pragma unroll
+        for (int pc = 0; pc < TILE_NP; ++pc) emit_relu(pc);
+      continue;
+    }
     const unsigned char* A = act;
     if (kind == IN_FWD) {
-      A = hb;  // the code, loaded above
+      if (MV) {
+        __syncthreads();  // hb's last readers (the previous view's or tile's fc_1) are done
+        dense_code<CODE, true>(p, hb, row0(), step_v(s));
+        publish();
+      }
+      A = hb;  // the code
     } else if (kind == Z_FWD) {
+      const int lat_n = MV ? f_lat_n : 0;  // read before thread 0 counts this latent
       __syncthreads();  // hb's last readers (lin_in or the previous fc_1) are done
       if (GATHER) {
         gather_fill(p, hb, row0());
         publish();
+      } else if (MV && row0() % p.B_obj + TILE_PTS > p.B_obj) {
+        view_latent(p, hb, row0(), step_v(s));  // two runs of rows: by the threads
+        publish();
       } else {
         if (threadIdx.x == 0) {
           const int boxes = (p.C + 63) / 64;
+          const int r = MV ? (int)src_row(p, row0(), step_v(s)) : row0();
           hopper::mbar_arrive_expect_tx(&f_lat_full, boxes * BOX_BYTES);
           for (int j = 0; j < boxes; ++j)
-            hopper::tma_load_2d(hb + j * BOX_BYTES, &q.m_lat, &f_lat_full, 64 * j, row0());
+            hopper::tma_load_2d(hb + j * BOX_BYTES, &q.m_lat, &f_lat_full, 64 * j, r);
+          if (MV) f_lat_n = lat_n + 1;
         }
-        hopper::mbar_wait(&f_lat_full, step_k(s) & 1);
+        hopper::mbar_wait(&f_lat_full, (MV ? lat_n : step_k(s)) & 1);
       }
       A = hb;
     } else {
@@ -458,7 +555,7 @@ __device__ __forceinline__ void fwd_tile(const DenseParams& q) {
     const Gemm op = gemm_of(s, p.kin, p.C);
     // one product site, the epilogue chosen inside: so ptxas keeps the stream
     // and the accumulators where they are (a site per epilogue kind spilled)
-    dense_gemm(q, ring, it, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
+    dense_gemm<MV>(q, ring, it, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
       if (step_kind(s) == B0_FWD) {
         const int c0 = piece_col(pc);
         const float* bias = p.b_blk + (size_t)(2 * step_k(s)) * HID;
@@ -536,39 +633,94 @@ __device__ __forceinline__ void fwd_tile(const DenseParams& q) {
   }
 }
 
+template <bool GATHER, bool CODE, bool MV>
+__device__ __forceinline__ void fwd_tile(const DenseParams& q) {
+  extern __shared__ unsigned char f_smem_raw[];
+  const TowerParams& p = q.t;
+  const uint32_t raw = hopper::smem_u32(f_smem_raw);
+  unsigned char* act = f_smem_raw + (((raw + 1023) & ~1023u) - raw);
+  unsigned char* hb = act + TILE_BYTES;
+  unsigned char* ring = hb + TILE_BYTES;
+  const int n_tiles = (p.B + TILE_PTS - 1) / TILE_PTS;
+
+  if (threadIdx.x == 0) {
+    for (int h = 0; h < 2; ++h)
+      for (int st = 0; st < RING_STAGES; ++st) {
+        hopper::mbar_init(&f_full[h][st], 1);
+        hopper::mbar_init(&f_empty[h][st], 4);  // the warps of warpgroup h
+      }
+    hopper::mbar_init(&f_lat_full, 1);
+    hopper::mbar_fence_init();
+    f_n_steps = fwd_program(f_prog, p.n_blocks, p.n_lin_z, MV ? p.NS : 1, MV ? p.pre : p.n_blocks);
+    if (MV) {
+      f_n_gemms = 0;
+      for (int i = 0; i < f_n_steps; ++i)
+        if (step_kind(f_prog[i]) != FOLD) f_gprog[f_n_gemms++] = f_prog[i];
+      // the CTA's tiles are blockIdx.x, + gridDim.x, ..
+      f_left[0] = f_left[1] = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+      f_lat_n = 0;
+    }
+    f_feed[0] = f_feed[1] = DenseFeed{0, 0, 0};
+  }
+  __syncthreads();
+  if ((threadIdx.x & 127) == 0)
+    for (int st = 0; st < RING_STAGES; ++st) dense_feed<MV>(q, ring, st, threadIdx.x >> 7);
+
+  uint32_t it = 0;  // stages taken
+  if (MV) {
+    // persistent CTAs walk the tiles, each with its view-sum slot; the
+    // feeders run on into the next tile's stages
+    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+      __syncthreads();  // the previous tile's last readers of f_row0 are done
+      if (threadIdx.x == 0) f_row0 = tile * TILE_PTS;
+      __syncthreads();
+      fwd_body<GATHER, CODE, true>(q, act, hb, ring, it);
+    }
+  } else {
+    fwd_body<GATHER, CODE, false>(q, act, hb, ring, it);
+  }
+}
+
 template <bool CODE>
 __global__ void __launch_bounds__(TILE_THREADS, 1)
     resnetfc_fwd_dense_kernel(const __grid_constant__ DenseParams q) {
-  fwd_tile<false, CODE>(q);
+  fwd_tile<false, CODE, false>(q);
 }
 
 template <bool CODE>
 __global__ void __launch_bounds__(TILE_THREADS, 1)
     resnetfc_fwd_gather_kernel(const __grid_constant__ DenseParams q) {
-  fwd_tile<true, CODE>(q);
+  fwd_tile<true, CODE, false>(q);
 }
 
-// One CTA a 64-point tile.
-template <bool GATHER, bool CODE>
-int launch_tile(const DenseParams& q, int B, cudaStream_t stream) {
-  void (*kernel)(const DenseParams) =
-      GATHER ? resnetfc_fwd_gather_kernel<CODE> : resnetfc_fwd_dense_kernel<CODE>;
+template <bool CODE>
+__global__ void __launch_bounds__(TILE_THREADS, 1)
+    resnetfc_fwd_dense_mv_kernel(const __grid_constant__ DenseParams q) {
+  fwd_tile<false, CODE, true>(q);
+}
+
+// A grid of `grid` tile CTAs: one a 64-point tile (one view), or persistent
+// CTAs (multi-view).
+int launch_tile(void (*kernel)(DenseParams), const DenseParams& q, int grid, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)TILE_SMEM);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<(B + TILE_PTS - 1) / TILE_PTS, TILE_THREADS, TILE_SMEM, stream>>>(q);
+  kernel<<<grid, TILE_THREADS, TILE_SMEM, stream>>>(q);
   return (int)cudaGetLastError();
 }
+
+int tiles_of(int B) { return (B + TILE_PTS - 1) / TILE_PTS; }
 
 bool dense_widths_ok(int kin, int C, int n_blocks, int n_lin_z) {
   return kin >= 16 && kin <= F_MAX_K && kin % 16 == 0 && n_blocks >= 1 && n_lin_z >= 0 &&
          n_lin_z <= n_blocks && (n_lin_z == 0 || (C >= 16 && C <= F_MAX_K && C % 16 == 0)) &&
-         dense_program(nullptr, n_blocks, n_lin_z) <= F_MAX_STEPS;
+         fwd_program(nullptr, n_blocks, n_lin_z, 1, n_blocks) <= F_MAX_STEPS;
 }
 
-// The parameters of a one-view tile launch on `plan`'s weights (which must
-// be the w_in, w_z, w_blk given here) and B >= 1 points; returns whether the
-// CODE variant runs, or -1 for widths or operands the tile does not take.
+// The parameters of a tile launch on `plan`'s weights (which must be the
+// w_in, w_z, w_blk given here) and B >= 1 output points, at one view;
+// returns whether the CODE variant runs, or -1 for widths or operands the
+// tile does not take.
 int tile_params(DenseParams& q, const void* plan, const void* x, const void* w_in,
                 const void* b_in, const void* w_z, const void* b_z, const void* w_blk,
                 const void* b_blk, const void* w_out, const void* b_out, void* out, int B, int d_in,
@@ -598,19 +750,19 @@ int tile_params(DenseParams& q, const void* plan, const void* x, const void* w_i
 extern "C" {
 
 // Bytes of dynamic shared memory one tower CTA needs at these widths (H =
-// 512): the multi-view kernels.
+// 512): the multi-view gather.
 size_t resnetfc_fwd_smem_bytes(int C, int kin, int n_lin_z) { return layout(C, kin, n_lin_z).total; }
 
 const char* resnetfc_fwd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// f32 words of one CTA's view-sum slot (the multi-view kernels' vsum).
+// f32 words of one CTA's view-sum slot (the multi-view gather's vsum).
 int resnetfc_fwd_slot_floats() { return SLOT_FLOATS; }
 
-// What the one-view tile kernels (dense and gather) fix, for the wrapper to
-// plan with: out[0..6] = points a tile, threads a CTA, weight-ring stages,
-// the most outputs of lin_out, the most steps of a tile's program, the widest
-// code or latent.  Returns the bytes of a plan; *smem gets the shared memory
-// a CTA.
+// What the tile kernels (dense, gather and multi-view dense) fix, for the
+// wrapper to plan with: out[0..6] = points a tile, threads a CTA, weight-ring
+// stages, the most outputs of lin_out, the most steps of a tile's program,
+// the widest code or latent, the f32 words of a multi-view CTA's view-sum
+// slot.  Returns the bytes of a plan; *smem gets the shared memory a CTA.
 size_t resnetfc_fwd_dense_limits(int* out, size_t* smem) {
   out[0] = TILE_PTS;
   out[1] = TILE_THREADS;
@@ -618,6 +770,7 @@ size_t resnetfc_fwd_dense_limits(int* out, size_t* smem) {
   out[3] = TILE_MAX_OUT;
   out[4] = F_MAX_STEPS;
   out[5] = F_MAX_K;
+  out[6] = F_SLOT_FLOATS;
   *smem = TILE_SMEM;
   return sizeof(DensePlan);
 }
@@ -666,8 +819,8 @@ int resnetfc_fwd_dense(const void* plan, const void* z, const void* x, const voi
     const int err = hopper::encode_bf16_sw128(&q.m_lat, z, B, C, C, 64);
     if (err != 0) return err;
   }
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return code ? launch_tile<false, true>(q, B, st) : launch_tile<false, false>(q, B, st);
+  return launch_tile(code ? resnetfc_fwd_dense_kernel<true> : resnetfc_fwd_dense_kernel<false>, q,
+                     tiles_of(B), static_cast<cudaStream_t>(stream));
 }
 
 // One view with the lookup z[g] = sum_{j<4} w[g, j] * table[idx[g, j]]
@@ -693,31 +846,44 @@ int resnetfc_fwd_gather(const void* plan, const void* idx, const void* w, int ta
   q.t.table = static_cast<const bf16*>(table);
   q.t.T = T;
   q.t.taps = taps;
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  return code ? launch_tile<true, true>(q, B, st) : launch_tile<true, false>(q, B, st);
+  return launch_tile(code ? resnetfc_fwd_gather_kernel<true> : resnetfc_fwd_gather_kernel<false>,
+                     q, tiles_of(B), static_cast<cudaStream_t>(stream));
 }
 
-// Multi-view: B = SB B_obj output points, NS views of each as object-major
-// input rows; the first `pre` blocks run per view, the rest on their mean.
-// vsum holds n_ctas slots of SLOT_FLOATS f32; the grid is at most n_ctas.
-int resnetfc_fwd_dense_mv(const void* z, const void* x, const void* w_in, const void* b_in,
-                          const void* w_z, const void* b_z, const void* w_blk, const void* b_blk,
-                          const void* w_out, const void* b_out, void* out, int B, int d_in,
-                          int kin, int H, int C, int n_blocks, int n_lin_z, int d_out, int planar,
-                          int NS, int B_obj, int pre, void* vsum, int n_ctas,
+// Multi-view, dense bf16 latent z (NS B, C) (null without injection): B =
+// SB B_obj output points, NS views of each as object-major input rows; the
+// first `pre` blocks run per view, the rest on their mean.  The plan's
+// weights as resnetfc_fwd_dense; vsum holds n_ctas slots of
+// resnetfc_fwd_dense_limits' f32 words, and the grid is at most n_ctas
+// persistent CTAs.
+int resnetfc_fwd_dense_mv(const void* plan, const void* z, const void* x, const void* w_in,
+                          const void* b_in, const void* w_z, const void* b_z, const void* w_blk,
+                          const void* b_blk, const void* w_out, const void* b_out, void* out, int B,
+                          int d_in, int kin, int H, int C, int n_blocks, int n_lin_z, int d_out,
+                          int planar, int NS, int B_obj, int pre, void* vsum, int n_ctas,
                           const void* code_w, const void* code_f, const void* code_p,
                           const void* code_m, int d_raw, void* stream) {
-  TowerParams p = tower_params(x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, b_out, B, d_in, kin,
-                               C, n_blocks, n_lin_z, d_out);
-  p.out = static_cast<float*>(out);
-  p.planar = planar;
-  p.z = static_cast<const bf16*>(z);
-  p.NS = NS;
-  p.B_obj = B_obj;
-  p.pre = pre;
-  p.vsum = static_cast<float*>(vsum);
-  return launch_mv<false>(p, H, n_ctas, code_w, code_f, code_p, code_m, d_raw,
-                             static_cast<cudaStream_t>(stream));
+  DenseParams q;
+  const int code = tile_params(q, plan, x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, b_out, out,
+                               B, d_in, kin, H, C, n_blocks, n_lin_z, d_out, planar, code_w,
+                               code_f, code_p, code_m, d_raw);
+  if (code < 0 || NS < 2 || NS > 255 || pre < 0 || pre >= n_blocks || n_lin_z > pre ||
+      B_obj < 1 || B % B_obj != 0 || vsum == nullptr || n_ctas < 1 ||
+      (n_lin_z > 0 && (z == nullptr || reinterpret_cast<uintptr_t>(z) % 16 != 0)) ||
+      fwd_program(nullptr, n_blocks, n_lin_z, NS, pre) > F_MAX_STEPS)
+    return (int)cudaErrorInvalidValue;
+  q.t.z = static_cast<const bf16*>(z);
+  q.t.NS = NS;
+  q.t.B_obj = B_obj;
+  q.t.pre = pre;
+  q.t.vsum = static_cast<float*>(vsum);
+  if (n_lin_z > 0) {
+    const int err = hopper::encode_bf16_sw128(&q.m_lat, z, (uint64_t)NS * B, C, C, 64);
+    if (err != 0) return err;
+  }
+  const int grid = n_ctas < tiles_of(B) ? n_ctas : tiles_of(B);
+  return launch_tile(code ? resnetfc_fwd_dense_mv_kernel<true> : resnetfc_fwd_dense_mv_kernel<false>,
+                     q, grid, static_cast<cudaStream_t>(stream));
 }
 
 // Multi-view fused gather, one object (B_obj = B): idx/w rows view-major,
@@ -728,8 +894,8 @@ int resnetfc_fwd_gather_mv(const void* idx, const void* w, int taps, const void*
                            const void* w_out, const void* b_out, void* out, int B, int d_in,
                            int kin, int H, int C, int n_blocks, int n_lin_z, int d_out, int planar,
                            int NS, int B_obj, int pre, void* vsum, int n_ctas,
-                          const void* code_w, const void* code_f, const void* code_p,
-                          const void* code_m, int d_raw, void* stream) {
+                           const void* code_w, const void* code_f, const void* code_p,
+                           const void* code_m, int d_raw, void* stream) {
   TowerParams p = tower_params(x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, b_out, B, d_in, kin,
                                C, n_blocks, n_lin_z, d_out);
   p.out = static_cast<float*>(out);
@@ -744,8 +910,8 @@ int resnetfc_fwd_gather_mv(const void* idx, const void* w, int taps, const void*
   p.pre = pre;
   p.vsum = static_cast<float*>(vsum);
   if (B_obj != B) return (int)cudaErrorInvalidValue;
-  return launch_mv<true>(p, H, n_ctas, code_w, code_f, code_p, code_m, d_raw,
-                            static_cast<cudaStream_t>(stream));
+  return launch_mv(p, H, n_ctas, code_w, code_f, code_p, code_m, d_raw,
+                   static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -1,8 +1,7 @@
-// The ResnetFC tower on one 32-point tile, for the forward kernels that have
-// not moved onto the 64-point wgmma tile (tile64.cuh) yet: the multi-view
-// kernels (resnetfc_fwd_dense_mv, resnetfc_fwd_gather_mv), in
-// resnetfc_fwd.cu.  Its TowerParams, src_row and bf16 helpers also serve the
-// tile kernels.
+// The ResnetFC tower on one 32-point tile, for the one forward kernel that
+// has not moved onto the 64-point wgmma tile (tile64.cuh) yet: the
+// multi-view gather (resnetfc_fwd_gather_mv, in resnetfc_fwd.cu).  Its
+// TowerParams, src_row and bf16 helpers also serve the tile kernels.
 //
 // Per point (one view; each view below combine_layer at NS > 1):
 //   x = lin_in(code)
@@ -21,18 +20,19 @@
 // 16-row slabs in 16-byte coalesced copies; the bf16 operand buffers are
 // row-padded against bank conflicts.
 //
-// Multi-view (NS > 1, the ports of _kernel_2d_mv / _kernel_2d_mv_gather): a
-// tile is 32 output points, and each view of them runs lin_in and blocks
-// k < pre (= combine_layer) in turn through the same code; the view mean
-// then feeds the shared blocks k >= pre and lin_out.  The mean is the TPU
-// kernel's sum(xs) * (1 / NS): an f32 sum in view order, then one multiply.
-// The running sum is a second 32 x 512 f32 residual, 64 KB a tile, which fits
-// neither beside the stream in registers (64 a thread each) nor in the
-// ~185 KB of shared memory the tower already takes.  It lives in device
-// memory instead, in a per-CTA slot (`vsum`, 64 KB) that each thread writes
-// and reads back only its own fragment elements of, coalesced; the
-// multi-view kernels are persistent (one CTA per SM walks the tiles), so the
-// slots total 132 x 64 KB = 8.4 MB and stay in the 50 MB L2.
+// Multi-view (NS > 1, the port of _kernel_2d_mv_gather): a tile is 32
+// output points, and each view of them runs lin_in and blocks k < pre (=
+// combine_layer) in turn through the same code; the view mean then feeds the
+// shared blocks k >= pre and lin_out.  The mean is the TPU kernel's sum(xs) *
+// (1 / NS): an f32 sum in view order, then one multiply.  The running sum is
+// a second 32 x 512 f32 residual, 64 KB a tile, which fits neither beside the
+// stream in registers (64 a thread each) nor in the ~185 KB of shared memory
+// the tower already takes.  It lives in device memory instead, in a per-CTA
+// slot (`vsum`, 64 KB) that each thread writes and reads back only its own
+// fragment elements of, coalesced; the kernel is persistent (one CTA per SM
+// walks the tiles), so the slots total 132 x 64 KB = 8.4 MB and stay in the
+// 50 MB L2.  The multi-view dense kernel takes the same walk on the 64-point
+// tile (resnetfc_fwd.cu), with 128 KB slots.
 //
 // Input rows are where the model's query leaves them, object-major: point b
 // of object s, view v is row (s NS + v) B_obj + b, and its output column is
@@ -80,7 +80,7 @@ typedef wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major> FragB;
 typedef wmma::fragment<wmma::accumulator, 16, 16, 16, float> FragC;
 
 struct TowerParams {
-  const bf16* z;       // (B, C) dense latent; unused by the gather kernels
+  const bf16* z;       // (NS B, C) dense latent (the tile kernels); unused by the gather kernels
   const int* idx;      // (NS B, taps) int32 tap rows, columns 0..3 used
   const float* w;      // (NS B, taps) f32 tap weights
   const bf16* table;   // (NS, T, C) feature tables
@@ -94,7 +94,7 @@ struct TowerParams {
   const bf16* w_out;   // (H, d_out)
   const float* b_out;  // (d_out)
   float* out;          // (d_out, B) when planar, else (B, d_out)
-  float* vsum;         // (gridDim.x, 64 KB) view-sum slots, multi-view only
+  float* vsum;         // (gridDim.x, slot) view-sum slots, multi-view only
   int B, d_in, kin, C, T, taps, n_blocks, n_lin_z, d_out, planar;
   // views, points per object (B = SB B_obj) and the blocks each view runs on
   // its own (combine_layer; n_blocks when NS == 1)
@@ -268,13 +268,13 @@ __device__ __forceinline__ Smem carve(unsigned char* base, const Layout& L) {
   return s;
 }
 
-// The tile's code and latent of view v into shared memory (zeros past B); the
-// gather variant builds z[i] = sum_{j<4} w[i,j] * table_v[idx[i,j]] as a real
-// 4-tap read of the (T, C) bf16 table of view v, summed in f32 and rounded to
-// bf16.  The CODE variant evaluates the positional code of the raw
-// coordinates (see the head of this file); a raw row (24 bytes at sn64) is
-// not 16-byte aligned, so it is read with scalar loads.
-template <bool GATHER, bool CODE = false>
+// The tile's code and latent of view v into shared memory (zeros past B):
+// the latent z[i] = sum_{j<4} w[i,j] * table_v[idx[i,j]] as a real 4-tap
+// read of the (T, C) bf16 table of view v, summed in f32 and rounded to bf16.
+// The CODE variant evaluates the positional code of the raw coordinates (see
+// the head of this file); a raw row (24 bytes at sn64) is not 16-byte
+// aligned, so it is read with scalar loads.
+template <bool CODE>
 __device__ __forceinline__ void load_inputs(const TowerParams& p, const Layout& L, const Smem& s,
                                             int row0, int view) {
   const int tid = threadIdx.x, C = p.C, kin = p.kin;
@@ -302,31 +302,27 @@ __device__ __forceinline__ void load_inputs(const TowerParams& p, const Layout& 
       uint4 packed = make_uint4(0u, 0u, 0u, 0u);
       if (g < p.B) {
         const size_t row = src_row(p, g, view);
-        if (GATHER) {
-          float acc[8];
+        float acc[8];
 #pragma unroll
-          for (int u = 0; u < 8; ++u) acc[u] = 0.0f;
+        for (int u = 0; u < 8; ++u) acc[u] = 0.0f;
 #pragma unroll
-          for (int j = 0; j < 4; ++j) {
-            const int ri = p.idx[row * p.taps + j];
-            const float wj = p.w[row * p.taps + j];
-            if (ri >= 0 && ri < p.T) {
-              const uint4 v = __ldg(reinterpret_cast<const uint4*>(table + (size_t)ri * C) + q);
-              const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+        for (int j = 0; j < 4; ++j) {
+          const int ri = p.idx[row * p.taps + j];
+          const float wj = p.w[row * p.taps + j];
+          if (ri >= 0 && ri < p.T) {
+            const uint4 v = __ldg(reinterpret_cast<const uint4*>(table + (size_t)ri * C) + q);
+            const uint32_t words[4] = {v.x, v.y, v.z, v.w};
 #pragma unroll
-              for (int u = 0; u < 4; ++u) {
-                acc[2 * u] = fmaf(wj, bf16_lo(words[u]), acc[2 * u]);
-                acc[2 * u + 1] = fmaf(wj, bf16_hi(words[u]), acc[2 * u + 1]);
-              }
+            for (int u = 0; u < 4; ++u) {
+              acc[2 * u] = fmaf(wj, bf16_lo(words[u]), acc[2 * u]);
+              acc[2 * u + 1] = fmaf(wj, bf16_hi(words[u]), acc[2 * u + 1]);
             }
           }
-          packed.x = pack_bf16x2(acc[0], acc[1]);
-          packed.y = pack_bf16x2(acc[2], acc[3]);
-          packed.z = pack_bf16x2(acc[4], acc[5]);
-          packed.w = pack_bf16x2(acc[6], acc[7]);
-        } else {
-          packed = __ldg(reinterpret_cast<const uint4*>(p.z + row * C) + q);
         }
+        packed.x = pack_bf16x2(acc[0], acc[1]);
+        packed.y = pack_bf16x2(acc[2], acc[3]);
+        packed.z = pack_bf16x2(acc[4], acc[5]);
+        packed.w = pack_bf16x2(acc[6], acc[7]);
       }
       *reinterpret_cast<uint4*>(s.zb + r * L.ldz + q * 8) = packed;
     }
@@ -424,15 +420,15 @@ __device__ __forceinline__ void emit_stream(const Layout& L, const Smem& s, cons
   __syncthreads();
 }
 
-// The multi-view tower on tile row0 (SB objects x NS views): every view's
+// The multi-view tower on tile row0 (one object x NS views): every view's
 // lin_in and blocks k < pre, folded into the mean, then the shared blocks.
 // On return s.act holds t.
-template <bool GATHER, bool CODE>
+template <bool CODE>
 __device__ __forceinline__ void tower_mv(const TowerParams& p, const Layout& L, const Smem& s,
                                          FragC (&x)[2][J], FragC (&acc)[2][J], int row0,
                                          float* slot) {
   for (int v = 0; v < p.NS; ++v) {
-    load_inputs<GATHER, CODE>(p, L, s, row0, v);
+    load_inputs<CODE>(p, L, s, row0, v);
     __syncthreads();
     tower_in(p, L, s, x, acc, p.n_lin_z == 0 && p.pre > 0);
     tower_blocks(p, L, s, x, acc, 0, p.pre, false);

@@ -1,7 +1,7 @@
 // The 64-point wgmma tile of the ResnetFC kernels for Hopper (sm_90a), which
-// the one-view forward kernels (resnetfc_fwd.cu: resnetfc_fwd_dense and the
-// fused gather, resnetfc_fwd_gather) and the backward's data kernel
-// (resnetfc_bwd.cu, resnetfc_bwd_data) share:
+// the forward kernels (resnetfc_fwd.cu: resnetfc_fwd_dense, the fused gather
+// resnetfc_fwd_gather and the multi-view resnetfc_fwd_dense_mv) and the
+// backward's data kernel (resnetfc_bwd.cu, resnetfc_bwd_data) share:
 // - a tile is 64 points, one wgmma M, walked by 256 threads: warpgroups 0
 //   and 1 each own 256 of the 512 columns of every layer for all 64 points,
 //   their share of the f32 residual stream (or of its cotangent) in 128
@@ -14,10 +14,11 @@
 //   stages of 32 KB;
 // - a tile's work is a program of steps (Kind, step) whose products read
 //   their weights as gemm_of says.
-// Both kernels take the products in the same order -- the same pieces, the
-// same k16 steps, each bias added to the f32 product before the residual add
-// -- so at one view the backward's recompute reproduces the forward's f32
-// stream bit for bit.
+// The forward and the data kernel take the products in the same order -- the
+// same pieces, the same k16 steps, each bias added to the f32 product before
+// the residual add, the views folded in the same order -- so the backward's
+// recompute reproduces the forward's f32 stream bit for bit, at one view and
+// at NS views.
 #pragma once
 
 #include "hopper_mma.cuh"
@@ -76,7 +77,7 @@ __device__ __forceinline__ void put2(unsigned char* tile, int r, int c, float a,
 // thread walks in order, and that thread 0 also walks, ahead, to feed the
 // weight ring with the products' boxes.  A step is one product (with what
 // precedes it and its epilogue) or one action between products; each kind's
-// code exists once, so a kernel stays small.  The forward runs the first four
+// code exists once, so a kernel stays small.  The forward runs the first five
 // kinds; the data kernel all of them.
 enum Kind {
   IN_FWD,  // lin_in of view v: x = code W_in + b_in (aux: emit relu(x))

@@ -12,7 +12,8 @@ Counterpart of ``pixelnerf_tpu/ops/resnetfc_pallas.py``:
   the lookup built by the threads into the latent's operand tile;
 * :func:`resnetfc_dense_mv` launches ``resnetfc_fwd_dense_mv``, the port of
   ``_kernel_2d_mv``: NS > 1 source views, each running lin_in and the blocks
-  below ``combine_layer`` on its own, then their mean through the rest;
+  below ``combine_layer`` on its own, then their mean through the rest, on
+  the same tile and plan, its CTAs persistent with a view-sum slot each;
 * :func:`resnetfc_gather_mv` launches ``resnetfc_fwd_gather_mv``, the port of
   ``_kernel_2d_mv_gather``: the same with view v's lookup into table v of an
   ``(NS, T, C)`` stack.
@@ -25,10 +26,10 @@ point's name with ``_code`` appended.  The deferred code is eval-only, as in
 the JAX package: it has no backward.
 
 All four live in ``csrc/resnetfc_fwd.cu``, which also notes what bounds them.
-The one-view kernels' 64-point tile is ``csrc/tile64.cuh``, which the
-backward's data kernel (``csrc/resnetfc_bwd.cu``, :mod:`.resnetfc_vjp`)
-shares; the multi-view kernels run the 32-point tower of
-``csrc/resnetfc_tower.cuh``.  Each source is
+The dense, gather and multi-view dense kernels' 64-point tile is
+``csrc/tile64.cuh``, which the backward's data kernel
+(``csrc/resnetfc_bwd.cu``, :mod:`.resnetfc_vjp`) shares; the multi-view
+gather runs the 32-point tower of ``csrc/resnetfc_tower.cuh``.  Each source is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
 interface on first use (a changed source or header gets a new library name, so
 it rebuilds) and loaded with ``ctypes``; :func:`build_all` compiles every
@@ -396,7 +397,7 @@ def _lib() -> ctypes.CDLL:
         lib.resnetfc_fwd_gather.argtypes = [P, P, P, I, P, I] + tower_args + code_args  # plan
         lib.resnetfc_fwd_gather.restype = I
         mv_args = tower_args + [I, I, I, P, I] + code_args  # NS, B_obj, pre, vsum, n_ctas
-        lib.resnetfc_fwd_dense_mv.argtypes = [P] + mv_args
+        lib.resnetfc_fwd_dense_mv.argtypes = [P, P] + mv_args  # plan, z
         lib.resnetfc_fwd_dense_mv.restype = I
         lib.resnetfc_fwd_gather_mv.argtypes = [P, P, I, P, I] + mv_args
         lib.resnetfc_fwd_gather_mv.restype = I
@@ -484,39 +485,44 @@ def _stream(dev) -> int:
 
 def _check_tower_smem(C: int, kin: int, n_lin_z: int) -> None:
     """The 32-point tower's shared memory at these widths fits a CTA (the
-    multi-view kernels)."""
+    multi-view gather)."""
     smem = _lib().resnetfc_fwd_smem_bytes(C, kin, n_lin_z)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(f"widths need {smem} B of shared memory per CTA (> {MAX_SMEM_BYTES})")
 
 
 class DenseLimits(NamedTuple):
-    """What the one-view tile kernels (``resnetfc_fwd_dense_kernel``,
-    ``resnetfc_fwd_gather_kernel``) fix (read from their library by
-    :func:`dense_limits`)."""
+    """What the tile kernels (``resnetfc_fwd_dense_kernel``,
+    ``resnetfc_fwd_gather_kernel``, ``resnetfc_fwd_dense_mv_kernel``) fix
+    (read from their library by :func:`dense_limits`)."""
 
-    tile: int  # points a CTA takes (one wgmma M)
+    tile: int  # points a CTA takes at a time (one wgmma M)
     threads: int  # a CTA: two warpgroups (thread 0 also feeds the weight ring)
     stages: int  # weight-ring stages
     max_out: int  # the most outputs of lin_out
     max_steps: int  # the most steps of a tile's program
     max_k: int  # the widest code (kin) or latent (C): one 64 x 512 operand tile
+    slot_floats: int  # f32 words of a multi-view CTA's view-sum slot (its 64 x 512 stream)
     smem: int  # dynamic shared memory a CTA
     plan_bytes: int  # bytes of a plan (the weights' tensor maps)
 
 
 @functools.lru_cache(maxsize=None)
 def dense_limits() -> DenseLimits:
-    out, smem = (ctypes.c_int * 6)(), ctypes.c_size_t()
+    out, smem = (ctypes.c_int * 7)(), ctypes.c_size_t()
     n = _lib().resnetfc_fwd_dense_limits(out, ctypes.byref(smem))
     return DenseLimits(*out, smem.value, n)
 
 
-def dense_steps(n_blocks: int, n_lin_z: int) -> int:
-    """Steps of one dense tile's program (``dense_program`` in
-    ``csrc/resnetfc_fwd.cu``): lin_in, then per block its injection (the
-    first n_lin_z blocks), fc_0 and fc_1.  14 at sn64."""
-    return 1 + n_lin_z + 2 * n_blocks
+def dense_steps(n_blocks: int, n_lin_z: int, NS: int = 1, pre: Optional[int] = None) -> int:
+    """Steps of one tile's program (``fwd_program`` in
+    ``csrc/resnetfc_fwd.cu``, the data kernel's recompute): per view lin_in,
+    then per block below the mean (``pre``; every block for one view) its
+    injection (the first n_lin_z blocks), fc_0 and fc_1, and at NS > 1 the
+    fold into the view mean; then fc_0 and fc_1 of each shared block.  14 at
+    sn64 and one view, 37 at three."""
+    pre = n_blocks if NS == 1 or pre is None else pre
+    return NS * (1 + n_lin_z + 2 * pre + int(NS > 1)) + 2 * (n_blocks - pre)
 
 
 def dense_grid(B: int, limits: DenseLimits) -> int:
@@ -551,9 +557,16 @@ def check_dense_widths(kin: int, H: int, C: int, n_lin_z: int, n_blocks: int, d_
                          f"(> {MAX_SMEM_BYTES})")
 
 
+def dense_mv_grid(B: int, n_sms: int, limits: DenseLimits) -> int:
+    """The CTAs of a ``resnetfc_fwd_dense_mv`` launch: persistent, one an SM
+    at most (each holds a view-sum slot), walking the tile-point tiles of the
+    B output points."""
+    return min(-(-B // limits.tile), n_sms)
+
+
 def check_tile_tower(tower: Tower, n_blocks: int, limits: DenseLimits) -> None:
-    """Raise ValueError on packed weights the one-view tile kernels do not
-    take: widths (:func:`check_dense_widths`), or weights that TMA cannot
+    """Raise ValueError on packed weights the tile kernels do not take:
+    widths (:func:`check_dense_widths`), or weights that TMA cannot
     read in place (:func:`check_tma`)."""
     kin, H = tower.w_in.shape
     check_dense_widths(kin, H, tower.w_z.shape[1], tower.w_z.shape[0], n_blocks,
@@ -581,6 +594,33 @@ def check_gather(idx: torch.Tensor, w: torch.Tensor, table: torch.Tensor, rows: 
     if table.ndim != 2 or table.shape[1] != C or table.shape[0] < 1:
         raise ValueError(f"the gather needs a (T, C={C}) table, got {tuple(table.shape)}")
     check_tma(table, "table")
+
+
+def check_dense_mv(z: Optional[torch.Tensor], rows: int, NS: int, sb: int, combine_layer: int,
+                   tower: Tower, n_blocks: int, limits: DenseLimits) -> None:
+    """Raise ValueError on what ``resnetfc_fwd_dense_mv`` does not take, on
+    any device: rows that are not SB x NS x B_obj (:func:`mv_shape`, NS >= 2);
+    weights the tile does not take (:func:`check_tile_tower`); more
+    injections than blocks below the mean; a program past
+    ``limits.max_steps`` (too many views); with a latent, z other than bf16
+    ``(rows, C)`` or that TMA cannot read in place (:func:`check_tma`)."""
+    mv_shape(rows, NS, sb, combine_layer, n_blocks)
+    check_tile_tower(tower, n_blocks, limits)
+    n_lin_z, C = tower.w_z.shape[0], tower.w_z.shape[1]
+    if n_lin_z > combine_layer:
+        raise ValueError(f"the multi-view kernel injects the latent only below the view mean "
+                         f"(n_lin_z={n_lin_z}, combine_layer={combine_layer})")
+    steps = dense_steps(n_blocks, n_lin_z, NS, combine_layer)
+    if steps > limits.max_steps:
+        raise ValueError(f"the multi-view kernel runs at most {limits.max_steps} steps a tile; "
+                         f"{n_blocks} blocks at NS={NS} need {steps}")
+    if n_lin_z > 0:
+        if z is None or z.dtype != torch.bfloat16:
+            raise ValueError(f"the multi-view kernel needs a bf16 latent z, got "
+                             f"{None if z is None else z.dtype}")
+        if tuple(z.shape) != (rows, C):
+            raise ValueError(f"z must have shape {(rows, C)}, got {tuple(z.shape)}")
+        check_tma(z, "z")
 
 
 def check_tma(t: torch.Tensor, what: str) -> None:
@@ -618,10 +658,18 @@ def dense_plan(tower: Tower, n_blocks: int) -> ctypes.Array:
 
 
 def view_slots(dev) -> torch.Tensor:
-    """The multi-view kernels' view-sum slots: one 64 KB f32 slot per CTA of
-    their persistent grid, one CTA per SM."""
+    """The multi-view gather's view-sum slots: one 64 KB f32 slot per CTA of
+    its persistent grid, one CTA per SM."""
     n_ctas = torch.cuda.get_device_properties(dev).multi_processor_count
     return torch.empty((n_ctas, _lib().resnetfc_fwd_slot_floats()), device=dev)
+
+
+def dense_mv_slots(dev, limits: DenseLimits) -> torch.Tensor:
+    """The multi-view dense kernel's view-sum slots, one per SM: each
+    persistent CTA keeps its share of the view sum there (``limits.slot_floats``
+    f32, 128 KB at the 64-point tile)."""
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    return torch.empty((n_sms, limits.slot_floats), device=dev)
 
 
 def mv_shape(rows: int, NS: int, sb: int, combine_layer: int, n_blocks: int):
@@ -703,7 +751,8 @@ def resnetfc_dense_mv(z: Optional[torch.Tensor], x: Coords, tower: Tower, n_bloc
     """Multi-view ResnetFC forward over dense latents ``z (SB*NS*B_obj, C)``
     (bf16; None when the tower injects no latent) and code ``x`` with the
     same object-major rows (f32, or a RawCode): every view through lin_in and
-    the blocks below ``combine_layer``, their mean through the rest.
+    the blocks below ``combine_layer``, their mean through the rest.  Raises
+    on what the kernel does not take (:func:`check_dense_mv`).
 
     :return: (d_out, SB*B_obj) f32 when ``planar_out`` else (SB*B_obj, d_out)
     """
@@ -713,15 +762,16 @@ def resnetfc_dense_mv(z: Optional[torch.Tensor], x: Coords, tower: Tower, n_bloc
         return resnetfc_reference(z, x, tower, n_blocks, planar_out, NS=NS, sb=sb,
                                   combine_layer=combine_layer)
     args, tail, out, C, n_lin_z, suffix = _tower_args(tower, x, n_blocks, planar_out, B)
-    _check_tower_smem(C, tower.w_in.shape[0], n_lin_z)
+    limits = dense_limits()
+    check_dense_mv(z, rows, NS, sb, combine_layer, tower, n_blocks, limits)
     if n_lin_z > 0:
         _check(z, "z", torch.bfloat16, (rows, C))
     if B == 0:
         return out
-    slots = view_slots(out.device)
+    slots = dense_mv_slots(out.device, limits)
     err = _lib().resnetfc_fwd_dense_mv(
-        z.data_ptr() if n_lin_z > 0 else None, *args, NS, B_obj, combine_layer,
-        slots.data_ptr(), slots.shape[0], *tail,
+        dense_plan(tower, n_blocks), z.data_ptr() if n_lin_z > 0 else None, *args, NS, B_obj,
+        combine_layer, slots.data_ptr(), slots.shape[0], *tail,
     )
     _launched("resnetfc_fwd_dense_mv" + suffix, err)
     return out

@@ -18,11 +18,14 @@ fc_1) and seeded inputs, the dense forward (``resnetfc_dense``) at a render
 fine pass (4096 rays x 96 = 393,216 points) and at the -V 1 train step's
 fine pass (4 x 128 x 96 = 49,152), the backward's data kernel
 (``resnetfc_bwd_data``) at -V 1 and -V 3 (SB 4 x NS 3 x 12,288 rows) there,
-and the fused gather (``resnetfc_gather``, 4 bilinear taps padded to 8 into
-a 1024 x 512 bf16 table) at the render's fine and coarse passes (393,216
-and 262,144 points): CUDA events around 5 calls after one warm-up, ms a
-call.  The script is the same for every checkout; only the kernels differ.  The last line
-then holds, per checkout, each kernel's times run by run.
+the fused gather (``resnetfc_gather``, 4 bilinear taps padded to 8 into a
+1024 x 512 bf16 table) at the render's fine and coarse passes (393,216 and
+262,144 points), and the multi-view dense forward (``resnetfc_dense_mv``)
+from 3 views at the render's fine pass (393,216 output points) and at the
+-V 3 train step's (SB 4 x 12,288): CUDA events around 5 calls after one
+warm-up, ms a call.  The script is the same for every checkout; only the
+kernels differ.  The last line then holds, per checkout, each kernel's times
+run by run.
 Needs a CUDA card and the checkouts' kernels to build there.
 """
 
@@ -50,7 +53,7 @@ def child(views: int, steps: int) -> None:
 
 
 KERNEL_CASES = ("dense_393216", "dense_49152", "bwd_data_v1_49152", "bwd_data_v3_49152",
-                "gather_393216", "gather_262144")
+                "gather_393216", "gather_262144", "dense_mv_v3_393216", "dense_mv_v3_49152")
 
 
 def child_kernels() -> None:
@@ -106,6 +109,9 @@ def child_kernels() -> None:
             uv = torch.rand(B, 2, device=dev, generator=gd) * 2 - 1
             idx, w = (t.contiguous() for t in bilinear_taps(uv, 32, 32, pad_taps_to=8))
             out[f"gather_{B}"] = ms(lambda: rf.resnetfc_gather(idx, w, table, x, tw, nb))
+        for B, sb in ((393216, 1), (49152, 4)):
+            z, x = inputs(3 * B)
+            out[f"dense_mv_v3_{B}"] = ms(lambda: rf.resnetfc_dense_mv(z, x, tw, nb, 3, cl, sb))
     print(json.dumps({"kernel_ms": out, "card": torch.cuda.get_device_name(0)}), flush=True)
 
 

@@ -28,10 +28,11 @@ from pixelnerf_tpu_torch.utils.jax_convert import from_jax_variables
 
 # what resnetfc_fwd_dense_kernel fixes, by hand (the library reports it on
 # the card): 64-point tiles, 256 threads, 3 stages of 32 KB, at most 4
-# outputs, 64 steps a tile and a 512-wide code or latent; two 64 KB operand
-# tiles + the ring + 1 KB slack; a plan of three tensor maps
-LIMITS = rf.DenseLimits(tile=64, threads=256, stages=3, max_out=4, max_steps=64, max_k=512,
-                        smem=2 * 65536 + 3 * 32768 + 1024, plan_bytes=448)
+# outputs, 128 steps a tile and a 512-wide code or latent; a multi-view
+# slot of 128 f32 a thread; two 64 KB operand tiles + the ring + 1 KB slack;
+# a plan of three tensor maps
+LIMITS = rf.DenseLimits(tile=64, threads=256, stages=3, max_out=4, max_steps=128, max_k=512,
+                        slot_floats=128 * 256, smem=2 * 65536 + 3 * 32768 + 1024, plan_bytes=448)
 PE = dict(num_freqs=6, d_in=3, freq_factor=1.5, include_input=True)  # sn64's code
 
 
@@ -115,7 +116,7 @@ def test_check_dense_widths_takes_sn64_and_refuses_the_rest():
                        ((48, 512, 40, 3, 5, 4), "C"),
                        ((48, 512, 512, 6, 5, 4), "n_lin_z"),
                        ((48, 512, 512, 3, 5, 5), "outputs"),
-                       ((48, 512, 512, 3, 31, 4), "steps")]:
+                       ((48, 512, 512, 3, 63, 4), "steps")]:
         with pytest.raises(ValueError, match=what):
             rf.check_dense_widths(*args, LIMITS)
 

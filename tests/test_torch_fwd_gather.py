@@ -34,8 +34,8 @@ from pixelnerf_tpu_torch.utils.jax_convert import from_jax_variables
 
 # what the one-view tile kernels fix, by hand (the library reports it on the
 # card), as in tests/test_torch_fwd_dense.py
-LIMITS = rf.DenseLimits(tile=64, threads=256, stages=3, max_out=4, max_steps=64, max_k=512,
-                        smem=2 * 65536 + 3 * 32768 + 1024, plan_bytes=448)
+LIMITS = rf.DenseLimits(tile=64, threads=256, stages=3, max_out=4, max_steps=128, max_k=512,
+                        slot_floats=128 * 256, smem=2 * 65536 + 3 * 32768 + 1024, plan_bytes=448)
 PE = dict(num_freqs=6, d_in=3, freq_factor=1.5, include_input=True)  # sn64's code
 TAPS = 8  # sn64 pads the 4 bilinear taps to 8 (ops/grid_sample.py::bilinear_taps)
 
@@ -192,7 +192,7 @@ def test_check_gather_refuses_a_misaligned_table():
     (dict(C=40), "C"),
     (dict(kin=40), "kin"),
     (dict(d_out=5), "outputs"),
-    (dict(nb=31), "steps"),
+    (dict(nb=63), "steps"),
 ])
 def test_check_gather_refuses_widths_the_tile_does_not_take(tower, what):
     tw = _tower(**tower)
