@@ -11,10 +11,10 @@ one line each:
    each library's ``HGMMA`` / ``UTMALDG`` / ``HMMA`` counts per kernel
    (``cuobjdump -sass``) and the weights kernel's shared memory; both
    backward kernels (the data kernel's two instantiations too) and both
-   instantiations of the dense forward, of the fused gather and of the
-   multi-view dense forward must be wgmma + TMA kernels with no wmma
-   product and no spills; the forward kernels' registers on a line of their
-   own;
+   instantiations of each of the four forward kernels must be wgmma + TMA
+   kernels with no wmma product and no spills, and no kernel of the forward
+   library may hold a wmma product; the forward kernels' registers on a
+   line of their own;
 3. kernel checks: each forward kernel against its plain PyTorch version at
    the main paths' shapes (one ray chunk x 64 and x 96 samples; the
    single-view kernels on the encoded source view's 1024 x 512 table, the
@@ -22,11 +22,14 @@ one line each:
    dense kernel at NS 3 and at the train layout SB 4 x NS 3 x 128 rays x
    96), to ``max|d| <= 0.015 * max(1, max|ref|)`` and ``corr > 0.999``, with
    its time beside the plain version's, a cuBLAS bf16 chain's and the card's
-   bound; the multi-view dense kernel encoded and with the deferred code at
-   each of its cases and also, gates only, at NS 2 and at a ragged SB 2 x
-   NS 3 x 333 (tiles that straddle two objects), bit-identical on a second
-   call, with its grid and its stream into each SM (weights, latent rows,
-   view-sum slot); the one-view kernels (dense and gather, encoded and deferred code)
+   bound; both multi-view kernels encoded and with the deferred code at each
+   of their cases, bit-identical on a second call with one launch, with
+   their grid and their stream into each SM (weights, latent or table rows,
+   view-sum slot); the multi-view gather also at a ragged NS 3 x 333 (gates
+   only) and bit for bit the multi-view dense kernel on ``mv_latent``'s
+   latent; the multi-view dense kernel also, gates only, at NS 2, at a
+   ragged SB 2 x NS 3 x 333 (tiles that straddle two objects) and at NS 12
+   and 24 (one view's program walked 12 and 24 times); the one-view kernels (dense and gather, encoded and deferred code)
    also at a ragged B (2000 points) and at the -V 1 train step's fine pass
    (49,152), with taps outside the table, bit-identical on a second call,
    the gather kernel bit-identical to the dense one on
@@ -55,14 +58,16 @@ one line each:
    encoded-input one, and agree with the plain route to >= 40 dB;
 8. backward kernel checks at the train step's shapes (4 x 128 rays x 64 and
    x 96 samples, at -V 1 and at -V 3) and at a ragged B (2000 points at -V
-   1, 666 at -V 3: the data kernel's last 64-point tile half full, gates
-   only): the kernels' stashed forward operands
+   1, 666 at -V 3 and -V 10: the data kernel's last 64-point tile half full)
+   and at -V 25 x 320 points (two views a split of the weights kernel),
+   gates only: the kernels' stashed forward operands
    against the plain recompute (with their relu-mask flips; also whether
    the stashed t reproduces the dense forward's output at -V 1 and the
-   multi-view dense forward's at -V 3, i.e. whether the recompute sums in
-   the primal's order), every output (dz, dx, each dW and db) against
+   multi-view dense forward's at -V 3 and up, i.e. that the recompute sums
+   in the primal's order), every output (dz, dx, each dW and db) against
    the plain backward walked through the same operands at the bar above, and
-   against the fully independent plain backward at ``corr > 0.999``; the
+   (up to -V 3) against the fully independent plain backward at ``corr >
+   0.999``; the
    weights kernel alone against ``bwd_weights_reference`` on its own DataOut
    at the bar; two calls must be bit-identical; each kernel's time beside
    its plain version's, its yardstick (the data kernel: the autograd
@@ -311,22 +316,24 @@ def main() -> None:
         d_sass = sass.get(name, {})
         if not (d_sass.get("HGMMA") and d_sass.get("UTMALDG") and d_sass.get("HMMA") == 0):
             raise SystemExit(f"{name} is not a wgmma + TMA kernel: {d_sass}")
-    # so are both instantiations of the dense forward, of the fused gather and
-    # of the multi-view dense forward (the 64-point tile)
+    # so are both instantiations of every forward kernel (the 64-point tile),
+    # and no kernel of the forward library holds a wmma product
     fwd_ptxas = ptxas_summary(builds["fwd"].log)
-    dense_names = tuple(f"resnetfc_fwd_{k}_kernel<CODE={c}>" for k in ("dense", "gather", "dense_mv")
-                        for c in (0, 1))
+    dense_names = tuple(f"resnetfc_fwd_{k}_kernel<CODE={c}>"
+                        for k in ("dense", "gather", "dense_mv", "gather_mv") for c in (0, 1))
     for name in dense_names:
         d_sass = fwd_sass.get(name, {})
         if not (d_sass.get("HGMMA") and d_sass.get("UTMALDG") and d_sass.get("HMMA") == 0):
             raise SystemExit(f"{name} is not a wgmma + TMA kernel: {d_sass}")
+    if not fwd_sass or any(c.get("HMMA") for c in fwd_sass.values()):
+        raise SystemExit(f"a kernel of the forward library holds a wmma product: {fwd_sass}")
     for name, line in [*bwd_ptxas.items(), *((n, fwd_ptxas.get(n, "")) for n in dense_names)]:
         spills = re.findall(r"(\d+) B spill", line)
         if len(spills) != 2 or any(int(v) for v in spills):
             raise SystemExit(f"{name} spills or ptxas gave no spill line: {line}")
-    log("build: forward kernels' registers (the dense forward, the fused gather and the "
-        "multi-view dense forward on the 64-point tile, the multi-view gather on the wmma "
-        "tower): " + json.dumps(fwd_ptxas))
+    log("build: forward kernels' registers (the dense forward, the fused gather, the "
+        "multi-view dense forward and the multi-view gather, all on the 64-point tile): "
+        + json.dumps(fwd_ptxas))
     log("build: backward kernels' registers: " + json.dumps(bwd_ptxas) + "; resnetfc_bwd_data "
         f"shared memory {rv.data_limits().smem} B a CTA, {rv.data_limits()}")
 
@@ -473,25 +480,35 @@ def main() -> None:
             del out, ref, z, x, rc, idx, w, pts, vd, dense_out
 
     # ---- multi-view forward kernel checks at the multi-view paths' shapes ----
-    # the NS = 2 render's gather on the encoded tables of views 0 and 1 (row
-    # 4); the multi-view dense kernel (row 3, encoded and CODE at every case)
-    # at the NS = 3 render's dense route, the -V 3 train step's layout (SB 4
-    # objects x NS 3 views x 128 rays x 96 samples), and, gates only, NS = 2
-    # and a ragged SB 2 x NS 3 x 333 (tiles that straddle two objects)
-    flops_mv = {NS: 2 * H * (NS * (d_in + cl * (C + 2 * H)) + 2 * (nb - cl) * H + d_out)
-                for NS in (2, 3)}
+    # both multi-view kernels on the 64-point tile, encoded and CODE at every
+    # case, each against its plain version at the bar, bit-identical on a
+    # second call with one launch: the multi-view gather (row 4) at the NS =
+    # 2 render's passes on the encoded tables of views 0 and 1 and at a
+    # ragged NS 3 x 333, bit for bit the multi-view dense kernel on
+    # mv_latent's latent; the multi-view dense kernel (row 3) at the NS = 3
+    # render's dense route, the -V 3 train step's layout (SB 4 objects x NS 3
+    # views x 128 rays x 96 samples), and, gates only, NS = 2, a ragged SB 2
+    # x NS 3 x 333 (tiles that straddle two objects) and NS 12 and 24 (one
+    # view's program walked 12 and 24 times)
+    def flops_mv(NS):
+        return 2 * H * (NS * (d_in + cl * (C + 2 * H)) + 2 * (nb - cl) * H + d_out)
+
     records.update({"resnetfc_fwd_gather_mv": {}, "resnetfc_fwd_dense_mv": {}})
     mv_ms = {}  # (kernel, samples) -> ms, for the kernels' share of a frame
     mv_cases = [("resnetfc_fwd_gather_mv", 2, 1, RAYS_PER_STEP, K) for K in (64, 96)]
+    mv_cases += [("resnetfc_fwd_gather_mv", 3, 1, 333, None)]
     mv_cases += [("resnetfc_fwd_dense_mv", 3, 1, RAYS_PER_STEP, K) for K in (64, 96)]
     mv_cases += [("resnetfc_fwd_dense_mv", 3, 4, 128, 96), ("resnetfc_fwd_dense_mv", 2, 1,
                                                             RAYS_PER_STEP, 64),
-                 ("resnetfc_fwd_dense_mv", 3, 2, 333, None)]
+                 ("resnetfc_fwd_dense_mv", 3, 2, 333, None), ("resnetfc_fwd_dense_mv", 12, 1, 8192, None),
+                 ("resnetfc_fwd_dense_mv", 24, 2, 333, None)]
     kin = tw.w_in.shape[0]
+    mb = H * H * 2  # one (512, 512) bf16 block matrix
     for name, NS, sb, n_rays, K in mv_cases:
         B = sb * n_rays * (K or 1)  # output points
         rows = NS * B
-        timed = NS == 3 and K is not None
+        gather = name == "resnetfc_fwd_gather_mv"
+        timed = K is not None and (gather or NS == 3)
         pts = torch.rand(rows, 3, device=dev, generator=gi) * 2 - 1
         vd = torch.nn.functional.normalize(torch.randn(rows, 3, device=dev, generator=gi), dim=-1)
         x = torch.cat([code(pts), vd], dim=-1).contiguous()
@@ -499,54 +516,24 @@ def main() -> None:
         side = int(math.isqrt(T))
         idx, w = bilinear_taps(torch.rand(rows, 2, device=dev, generator=gi) * 2 - 1, side, side,
                                pad_taps_to=8)
+        if gather:  # taps outside each view's table contribute nothing
+            idx[0::32, 0] = -1
+            idx[16::32, 3] = T
         idx, w = idx.contiguous(), w.contiguous()
-        tabs = tables3[:NS].contiguous()
+        tabs = tables3[torch.arange(NS, device=dev) % 3].contiguous()  # views past 3 repeat them
         shape = (f"NS={NS} SB={sb} x " + (f"{n_rays} rays x {K} = " if K else "B_obj ")
                  + f"{B} points ({rows} rows)")
         with torch.no_grad():
             z = mv_latent(tabs, idx, w, sb)
             xv = by_view(x, NS, sb)
-            if name == "resnetfc_fwd_gather_mv":
-                views = torch.arange(NS, device=dev)[:, None, None]
-                kern = lambda: rf.resnetfc_gather_mv(idx, w, tabs, x, tw, nb, cl)  # noqa: E731
-                library = lambda: library_tower_mv(  # noqa: E731
-                    (tabs[views, idx[:, :4].reshape(NS, B, 4).long()]
-                     * w[:, :4].reshape(NS, B, 4, 1).bfloat16()).sum(2), xv, tw, nb, NS, cl)
-                plain = lambda: rf.resnetfc_reference(  # noqa: E731
-                    z, x, tw, nb, compute_dtype=torch.bfloat16, NS=NS, sb=sb, combine_layer=cl)
-                out = kern()
-                torch.cuda.synchronize()
-                ref = plain()
-                d, bar, corr = agree(out, ref)
-                ok = (d <= bar and corr > 0.999 and bool(torch.isfinite(out).all())
-                      and out.shape == (d_out, B))
-                ms = cuda_ms(kern, 5)
-                plain_ms = cuda_ms(plain, 2)
-                library_ms = cuda_ms(library, 3)
-                in_bytes = rows * (idx.shape[1] * 4 + w.shape[1] * 4 + d_in * 4) + NS * T * C * 2
-                b_ms, b_by = bound(B * (flops_mv[NS] + NS * 8 * C),
-                                   in_bytes + B * d_out * 4 + w_bytes)
-                log(f"kernel check: {name} {shape} max|d| {d:.6g} <= bar {bar:.6g}: {d <= bar}, "
-                    f"corr {corr:.7f}; kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
-                    f"{library_ms:.4f} bound_ms {b_ms:.4f} ({b_by}); "
-                    f"{B * flops_mv[NS] / ms / 1e9:.1f} TFLOP/s")
-                if not ok:
-                    raise SystemExit(f"kernel check failed: {name} {shape}")
-                rec = records[name]
-                rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), d)
-                mv_ms[(name, K)] = ms
-                if K == 96:  # times at the render's fine pass
-                    rec.update(name=name, route="cuda",
-                               source="pixelnerf_tpu_torch/csrc/resnetfc_fwd.cu",
-                               replaces="pixelnerf_tpu/ops/resnetfc_pallas.py:463", ms=ms,
-                               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                               library_ms=library_ms)
-                del out, ref, z, x, rc, idx, w, xv, pts, vd
-                continue
-            # the multi-view dense kernel, encoded and CODE: each against its
-            # plain version at the bar and bit-identical on a second call
+            # each kernel, encoded and CODE: against its plain version at the
+            # bar and bit-identical on a second call; the gather also bit for
+            # bit the dense kernel on the same latent
             for variant, xi in ((name, x), (name + "_code", rc)):
-                kern = lambda: rf.resnetfc_dense_mv(z, xi, tw, nb, NS, cl, sb)  # noqa: E731
+                if gather:
+                    kern = lambda: rf.resnetfc_gather_mv(idx, w, tabs, xi, tw, nb, cl)  # noqa: E731
+                else:
+                    kern = lambda: rf.resnetfc_dense_mv(z, xi, tw, nb, NS, cl, sb)  # noqa: E731
                 plain = lambda: rf.resnetfc_reference(  # noqa: E731
                     z, xi, tw, nb, compute_dtype=torch.bfloat16, NS=NS, sb=sb, combine_layer=cl)
                 before = dict(rf.LAUNCHES)
@@ -561,49 +548,71 @@ def main() -> None:
                 line = (f"kernel check: {variant} (64-point tile) {shape} max|d| {d:.6g} <= bar "
                         f"{bar:.6g}: {d <= bar}, corr {corr:.7f}, bit-identical on a second call "
                         f"{identical}, launches {launched}")
+                if gather:
+                    twin = variant.replace("gather", "dense")
+                    same = torch.equal(out, rf.resnetfc_dense_mv(z, xi, tw, nb, NS, cl, sb))
+                    ok = ok and same
+                    line += f", bit-identical to {twin} on mv_latent's bf16 latent {same}"
                 if timed and variant == name:
                     ms = cuda_ms(kern, 5)
                     plain_ms = cuda_ms(plain, 2)
-                    zv = by_view(z, NS, sb)
-                    library_ms = cuda_ms(lambda: library_tower_mv(zv, xv, tw, nb, NS, cl), 3)
-                    b_ms, b_by = bound(B * flops_mv[NS],
-                                       rows * (C * 2 + d_in * 4) + B * d_out * 4 + w_bytes)
+                    if gather:
+                        views = torch.arange(NS, device=dev)[:, None, None]
+                        # (rows outside the tables clamped: the yardstick's time, not its value)
+                        library = lambda: library_tower_mv(  # noqa: E731
+                            (tabs[views, idx[:, :4].reshape(NS, B, 4).long().clamp(0, T - 1)]
+                             * w[:, :4].reshape(NS, B, 4, 1).bfloat16()).sum(2), xv, tw, nb, NS,
+                            cl)
+                        in_bytes = (rows * (idx.shape[1] * 4 + w.shape[1] * 4 + d_in * 4)
+                                    + NS * T * C * 2)
+                        b_ms, b_by = bound(B * (flops_mv(NS) + NS * 8 * C),
+                                           in_bytes + B * d_out * 4 + w_bytes)
+                    else:
+                        zv = by_view(z, NS, sb)
+                        library = lambda: library_tower_mv(zv, xv, tw, nb, NS, cl)  # noqa: E731
+                        b_ms, b_by = bound(B * flops_mv(NS),
+                                           rows * (C * 2 + d_in * 4) + B * d_out * 4 + w_bytes)
+                    library_ms = cuda_ms(library, 3)
                     grid = rf.dense_mv_grid(B, n_sm, rf.dense_limits())
                     tiles = rf.dense_grid(B, rf.dense_limits())
                     # what a 64-point tile streams into its SM: the weights (the
                     # layers below the mean once a view), each view's latent
-                    # rows and the view-sum slot (written, read and written at
-                    # middle views, read)
-                    mb = H * H * 2  # one (512, 512) bf16 block matrix
+                    # rows (the gather: 4 table rows a point an injection) and
+                    # the view-sum slot (written, read and written at middle
+                    # views, read)
                     tw_mv = (NS * (kin * H * 2 + n_lin_z * C * H * 2 + 2 * cl * mb)
                              + 2 * (nb - cl) * mb)
-                    t_lat = NS * n_lin_z * 64 * C * 2
+                    t_lat = NS * n_lin_z * 64 * C * 2 * (4 if gather else 1)
                     t_slot = 2 * (NS - 1) * rf.dense_limits().slot_floats * 4
                     per_tile = tw_mv + t_lat + t_slot
                     l2 = tiles * per_tile / ms / 1e9
                     line += (f"; kernel_ms {ms:.4f} plain_ms {plain_ms:.4f} library_ms "
                              f"{library_ms:.4f} bound_ms {b_ms:.4f} ({b_by}); "
-                             f"{B * flops_mv[NS] / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the "
+                             f"{B * flops_mv(NS) / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the "
                              f"bound; grid {grid} persistent CTAs over {tiles} tiles "
                              f"({tiles / grid:.2f} rounds); streamed into each SM "
                              f"{per_tile / 2**20:.2f} MiB a 64-point tile (weights "
-                             f"{tw_mv / 2**20:.2f} + latent {t_lat / 2**20:.3f} + slot "
-                             f"{t_slot / 2**20:.3f}), {l2:.3f} TB/s = {l2 * 1e3 / n_sm:.2f} GB/s "
-                             f"an SM")
+                             f"{tw_mv / 2**20:.2f} + {'table rows' if gather else 'latent'} "
+                             f"{t_lat / 2**20:.3f} + slot {t_slot / 2**20:.3f}), {l2:.3f} TB/s "
+                             f"= {l2 * 1e3 / n_sm:.2f} GB/s an SM")
                     rec = records[name]
                     if sb == 1:
                         mv_ms[(name, K)] = ms
                     t = dict(ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                             library_ms=library_ms, tflops=B * flops_mv[NS] / ms / 1e9,
+                             library_ms=library_ms, tflops=B * flops_mv(NS) / ms / 1e9,
                              share_of_bound=b_ms / ms, stream_tb_s=l2, grid=grid, tiles=tiles)
                     if sb == 1 and K == 96:  # times at the render's fine pass
                         rec.update(name=name, route="cuda",
                                    source="pixelnerf_tpu_torch/csrc/resnetfc_fwd.cu",
-                                   replaces="pixelnerf_tpu/ops/resnetfc_pallas.py:399",
+                                   replaces=("pixelnerf_tpu/ops/resnetfc_pallas.py:463" if gather
+                                             else "pixelnerf_tpu/ops/resnetfc_pallas.py:399"),
                                    design="64-point tiles on wgmma m64n128k16 (tile64.cuh), weights "
                                           "by TMA through a 3-stage mbarrier ring fed per "
                                           "warpgroup, persistent CTAs with a 128 KB view-sum "
-                                          "slot each", **t)
+                                          "slot each, one view's steps walked NS times"
+                                          + ("; each view's 4-tap lookup built by the threads "
+                                             "into the latent's operand tile" if gather else ""),
+                                   **t)
                     else:
                         rec[f"points_{B}_sb{sb}"] = t
                 log(line)
@@ -613,7 +622,7 @@ def main() -> None:
                     rec = records[name]
                     rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), d)
                 del out, ref
-            del z, x, rc, idx, w, xv, pts, vd
+            del z, x, rc, idx, w, xv, pts, vd, tabs
 
     # ---- row 6: the deferred positional code in each forward kernel ----
     # every CODE variant at the fine pass (4096 rays x 96 = 393,216 output
@@ -684,7 +693,7 @@ def main() -> None:
             enc_ms = cuda_ms(lambda: kern(x_enc), 5)
             plain_ms = cuda_ms(plain, 2)
             library_ms = cuda_ms(library, 3)
-            f_pt = flops_pt if NS == 1 else flops_mv[NS]
+            f_pt = flops_pt if NS == 1 else flops_mv(NS)
             gather = "gather" in name
             in_bytes = (rows * (d_raw * 4 + ((idx.shape[1] + w.shape[1]) * 4 if gather else C * 2))
                         + (NS * T * C * 2 if gather else 0))
@@ -899,9 +908,18 @@ def main() -> None:
     bwd_ms, fwd_ms, weights_ms_at = {}, {}, {}
     # the train step's shapes (-B 4 objects x -R 128 rays x samples), and a
     # ragged B at each view count: B_pad an odd multiple of 32, so the data
-    # kernel's last 64-point tile is half full (gates only, no timing)
+    # kernel's last 64-point tile is half full (gates only, no timing); and,
+    # gates only, -V 10 (ragged) and -V 25 at small B_obj: the data kernel's
+    # program walked 10 and 25 times, and at -V 25 the weights kernel's
+    # splits of two views each (B_pad 320).
+    # Past -V 3 the kernels are held to their own plain versions (the
+    # backward walked through the kernel's operands, the weights' products
+    # on its DataOut), not to the independent plain backward, whose own bf16
+    # recompute flips enough relu masks at 25 views of 320 points to move a
+    # gradient's corr below 0.999 (0.9987 at 25 x 352 points on an H100)
     for NS, K, sb, B_obj in ((1, 64, 4, 128 * 64), (1, 96, 4, 128 * 96), (1, None, 2, 1000),
-                             (3, 64, 4, 128 * 64), (3, 96, 4, 128 * 96), (3, None, 2, 333)):
+                             (3, 64, 4, 128 * 64), (3, 96, 4, 128 * 96), (3, None, 2, 333),
+                             (10, None, 2, 333), (25, None, 1, 320)):
         ragged = K is None
         B = sb * B_obj
         rows = NS * B
@@ -911,7 +929,8 @@ def main() -> None:
         x = torch.cat([code(pts), vd], dim=-1).contiguous()
         idx, w = bilinear_taps(torch.rand(rows, 2, device=dev, generator=gi) * 2 - 1, 32, 32,
                                pad_taps_to=8)
-        z = mv_latent(tables3[:NS] if NS > 1 else table[None], idx, w, sb)
+        z = mv_latent(tables3[torch.arange(NS, device=dev) % 3] if NS > 1 else table[None], idx,
+                      w, sb)
         g = torch.randn(d_out, B, device=dev, generator=gi)
         data = rv.bwd_data(g, z, x, tw, nb, True, **kw)
         gr = rv.bwd_weights(z, data, tw, nb)
@@ -921,7 +940,8 @@ def main() -> None:
         d, bar, corr = agree(ops_k, ops_p)
         flips = ((ops_k > 0) != (ops_p > 0)).float().mean().item()
         ok = d <= bar and corr > 0.999 and flips <= 1e-3
-        shape = (f"-V {NS}: ragged, {sb} x {B_obj} = {B} points" if ragged
+        shape = (f"-V {NS}: {sb} x {B_obj} = {B} points (gates only"
+                 + (", the last 64-point tile half full)" if (B + 31) // 32 % 2 else ")") if ragged
                  else f"-V {NS}: {sb} x 128 rays x {K} = {B} points")
         shape += f", {rows} rows" if NS > 1 else ""
         log(f"backward check {shape}: stashed forward operands vs plain recompute max|d| {d:.6g} "
@@ -938,6 +958,7 @@ def main() -> None:
             d_stash = (out_f - ((data.ws_act[-1, :B].double() @ wo).t() + bo)).abs().max().item()
             d_plain = (out_f - ((ops_p[-1].double() @ wo).t() + bo)).abs().max().item()
         same_order = d_stash <= 1e-5 * max(1.0, out_f.abs().max().item())
+        ok = ok and same_order
         fwd_name = "resnetfc_fwd_dense" if NS == 1 else "resnetfc_fwd_dense_mv"
         log(f"backward check {shape}: {fwd_name}'s output vs lin_out of the stashed t "
             f"(f64) max|d| {d_stash:.3g}, vs lin_out of the plain recompute's t {d_plain:.3g}: "
@@ -955,7 +976,8 @@ def main() -> None:
             out = getattr(gr, name).float()
             d1, bar1, c1 = agree(out, getattr(same, name))
             d2, bar2, c2 = agree(out, getattr(ind, name))
-            fine = d1 <= bar1 and c1 > 0.999 and c2 > 0.999 and bool(torch.isfinite(out).all())
+            fine = (d1 <= bar1 and c1 > 0.999 and (c2 > 0.999 or NS > 3)
+                    and bool(torch.isfinite(out).all()))
             ok = ok and fine
             # dz and dx come from the data kernel; the weights kernel reduces
             # every weight and bias gradient
@@ -963,7 +985,8 @@ def main() -> None:
             err[owner] = max(err[owner], d1)
             log(f"  {name} {tuple(out.shape)}: vs plain on the same operands max|d| {d1:.6g} <= "
                 f"bar {bar1:.6g}, corr {c1:.7f}; vs independent plain max|d| {d2:.6g} "
-                f"(bar {bar2:.6g}), corr {c2:.7f}{'' if fine else '  FAILED'}")
+                f"(bar {bar2:.6g}), corr {c2:.7f}{' (not gated past -V 3)' if NS > 3 else ''}"
+                f"{'' if fine else '  FAILED'}")
         del same, ind
         # the weights kernel alone against its plain version on its own DataOut
         wref = rv.bwd_weights_reference(z, data, tw, nb)
@@ -980,7 +1003,11 @@ def main() -> None:
         identical = all(torch.equal(getattr(gr, n), getattr(gr2, n)) for n in rv.Grads._fields)
         del gr2
         if ragged:
-            log(f"backward check {shape}: bit-identical on a second call {identical}")
+            plan = rv.weight_plan(tw.w_in.shape[0], H, C, nb, n_lin_z, NS, data.pre, B,
+                                  rv.kernel_limits())
+            log(f"backward check {shape}: bit-identical on a second call {identical}; "
+                f"resnetfc_bwd_weights sums its longest product's {data.ws_x.shape[0]} points "
+                f"in {max(plan.table[4::6])} splits of {plan.pts}")
             if not (ok and identical):
                 raise SystemExit(f"backward kernel check failed at {shape}")
             for name, e in err.items():
@@ -1042,7 +1069,7 @@ def main() -> None:
         library_ms = cuda_ms(
             lambda: torch.autograd.grad(lout, [zl, *leaves], g, retain_graph=True), 5)
         del lout, leaves, zl
-        f_pt = flops_pt if NS == 1 else flops_mv[NS]  # forward FLOP per output point
+        f_pt = flops_pt if NS == 1 else flops_mv(NS)  # forward FLOP per output point
         ws = sum(t.numel() * t.element_size()  # the bf16 workspace, written once, read once
                  for t in (data.ws_act, data.ws_cot, data.ws_x, data.ws_z) if t is not None)
         io_bytes = rows * (C * 2 + d_in * 4) + B * d_out * 4 + w_bytes
@@ -1278,7 +1305,7 @@ def main() -> None:
     # "variants"; launches are the deferred renders' (phase 7)
     records["resnetfc_fwd_code"] = dict(
         code_records["resnetfc_fwd_gather_code"], name="resnetfc_fwd_code",
-        route="cuda", source="pixelnerf_tpu_torch/csrc/resnetfc_tower.cuh",
+        route="cuda", source="pixelnerf_tpu_torch/csrc/resnetfc_fwd.cu",
         replaces="pixelnerf_tpu/ops/resnetfc_pallas.py:156",
         launches=sum(r["launches"] for r in code_records.values()),
         max_abs_err=max(r["max_abs_err"] for r in code_records.values()),

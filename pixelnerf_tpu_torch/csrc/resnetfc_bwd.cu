@@ -119,8 +119,8 @@ using namespace rfc;
 // data gradients: 64-point tiles on wgmma, weights fed by TMA
 // ---------------------------------------------------------------------------
 
-// steps of one tile's program (data_program; sn64: 34 at one view, 86 at
-// three)
+// steps of one tile's stored program (data_program; sn64: 34 at one view, 36
+// at any view count: one view's recompute and walk back, the shared steps)
 constexpr int D_MAX_STEPS = 256;
 // f32 words of one CTA's view-sum slot (multi-view): every thread's share of
 // the 64 x 512 stream
@@ -293,51 +293,52 @@ __device__ __forceinline__ void load_latent(const BwdParams& q, unsigned char* t
   }
 }
 
-// The steps of one tile in order; returns their count.  n_lin_z <= pre.
-__host__ __device__ inline int data_program(int* out, int n_blocks, int n_lin_z, int NS, int pre) {
+// The steps of one tile as stored, in three parts; returns their count.
+// n_lin_z <= pre.  Multi-view (mv), the first and the last part are one
+// view's, and the walk takes each once for every view (tile64.cuh's
+// walk_at): the recompute of lin_in, the injections and the
+// blocks below the mean, ending in FOLD; the shared blocks, T_OUT and their
+// walk back, once; the view's walk back, starting at DVIEW.  One view (pre =
+// n_blocks): the three parts walked once, in order.
+__host__ __device__ inline int data_program(int* out, int n_blocks, int n_lin_z, bool mv, int pre) {
   int n = 0;
   auto put = [&](int s) {
     if (out != nullptr) out[n] = s;
     ++n;
   };
-  const bool mv = NS > 1;
-  for (int v = 0; v < NS; ++v) {
-    // block 0 reads relu(x) directly when no latent is injected first
-    put(step(IN_FWD, 0, v, n_lin_z == 0 && pre > 0));
-    for (int k = 0; k < pre; ++k) {
-      if (k < n_lin_z) put(step(Z_FWD, k, v, 0));
-      put(step(B0_FWD, k, v, 0));
-      // the next reader of relu(x) is fc_0 of block k + 1 (or lin_out) unless
-      // block k + 1 injects the latent first, or the view mean comes next
-      put(step(B1_FWD, k, v, k + 1 >= n_lin_z && (k + 1 < pre || !mv)));
-    }
-    if (mv) put(step(FOLD, 0, v, 0));
+  // block 0 reads relu(x) directly when no latent is injected first
+  put(step(IN_FWD, 0, n_lin_z == 0 && pre > 0));
+  for (int k = 0; k < pre; ++k) {
+    if (k < n_lin_z) put(step(Z_FWD, k, 0));
+    put(step(B0_FWD, k, 0));
+    // the next reader of relu(x) is fc_0 of block k + 1 (or lin_out) unless
+    // block k + 1 injects the latent first, or the view mean comes next
+    put(step(B1_FWD, k, k + 1 >= n_lin_z && (k + 1 < pre || !mv)));
   }
+  if (mv) put(step(FOLD, 0, 0));
   for (int k = pre; k < n_blocks; ++k) {
-    put(step(B0_FWD, k, 0, 0));
-    put(step(B1_FWD, k, 0, 1));
+    put(step(B0_FWD, k, 0));
+    put(step(B1_FWD, k, 1));
   }
-  put(step(T_OUT, 0, 0, 0));
+  put(step(T_OUT, 0, 0));
   for (int k = n_blocks - 1; k >= pre; --k) {
-    put(step(GB, k, 0, 0));
-    put(step(B1_BWD, k, 0, 0));
-    put(step(B0_BWD, k, 0, 0));
+    put(step(GB, k, 0));
+    put(step(B1_BWD, k, 0));
+    put(step(B0_BWD, k, 0));
   }
-  for (int v = 0; v < NS; ++v) {
-    if (mv) put(step(DVIEW, 0, v, 0));
-    bool first_z = true;
-    for (int k = pre - 1; k >= 0; --k) {
-      put(step(GB, k, v, 0));
-      if (k + 1 < n_lin_z) {
-        put(step(Z_BWD, k + 1, v, first_z));
-        first_z = false;
-      }
-      put(step(B1_BWD, k, v, 0));
-      put(step(B0_BWD, k, v, 0));
+  if (mv) put(step(DVIEW, 0, 0));
+  bool first_z = true;
+  for (int k = pre - 1; k >= 0; --k) {
+    put(step(GB, k, 0));
+    if (k + 1 < n_lin_z) {
+      put(step(Z_BWD, k + 1, first_z));
+      first_z = false;
     }
-    put(step(G_IN, 0, v, 0));
-    if (n_lin_z > 0) put(step(Z_BWD, 0, v, first_z));
+    put(step(B1_BWD, k, 0));
+    put(step(B0_BWD, k, 0));
   }
+  put(step(G_IN, 0, 0));
+  if (n_lin_z > 0) put(step(Z_BWD, 0, first_z));
   return n;
 }
 
@@ -345,17 +346,20 @@ __host__ __device__ inline int data_program(int* out, int n_blocks, int n_lin_z,
 // memory, so that no other thread holds registers for it): the next stage to
 // load is step g of the program, piece pc, K rows ks * 64.., of this CTA's
 // tile `tile` -- in the order the threads take the stages, tile after tile.
+// Multi-view, its view is d_feed_v, apart so that the feeder holds it in no
+// register but where it counts.
 struct Feed {
   int g, pc, ks, tile;
 };
 
 // The data kernel's shared state beside its dynamic operand tiles and ring,
 // at fixed addresses so that no thread holds registers for them: the ring's
-// full / empty mbarriers, the relu masks' mbarrier, the tile's program and
-// thread 0's feeding state.
+// full / empty mbarriers, the relu masks' mbarrier, the tile's program (its
+// recompute segment ends at d_seg1, its walk-back segment starts at d_seg3)
+// and thread 0's feeding state.
 __shared__ __align__(8) uint64_t d_full[RING_STAGES], d_empty[RING_STAGES], d_mask_full;
 __shared__ int d_prog[D_MAX_STEPS];
-__shared__ int d_n_steps;
+__shared__ int d_n_steps, d_seg1, d_seg3, d_feed_v, d_bound, d_end;
 // the current tile's first row and its rows inside B_pad (64, or 32 at a
 // ragged end), read where used rather than kept in registers
 __shared__ int d_row0, d_valid;
@@ -368,19 +372,47 @@ struct Ring {
   uint32_t it;
 };
 
-// Thread 0: load the next stage into ring slot `slot`: the weight boxes of
-// piece pc of both warpgroups.  Forward: B = W rows rowbase + k, read
-// MN-major; walk back: B = W^T, the boxes of W rows rowbase + n (the output
-// columns) and columns k, read K-major.
-__device__ __forceinline__ void feed(const BwdParams& q, Ring& rg, int slot) {
-  const int n_tiles = (q.B_pad + TILE_PTS - 1) / TILE_PTS;
-  Feed f = d_feed;
-  while (f.tile < n_tiles && !is_gemm(step_kind(d_prog[f.g]))) {
-    if (++f.g == d_n_steps) {
+// The step after f's in the walk: multi-view, the recompute segment
+// [0, d_seg1) once for each view, the shared steps once, the walk-back
+// segment [d_seg3, d_n_steps) once for each view, then the CTA's next tile.
+// One compare a step, as at one view: d_bound is where the walk next turns.
+template <bool MV>
+__device__ __forceinline__ void next_step(const BwdParams& q, Feed& f) {
+  ++f.g;
+  if (f.g == (MV ? d_bound : d_n_steps)) {
+    if (MV && f.g == d_seg1) {
+      if (++d_feed_v < q.t.NS) {  // the next view's recompute
+        f.g = 0;
+      } else {  // on into the shared steps
+        d_feed_v = 0;
+        d_bound = d_n_steps;
+      }
+    } else if (MV && ++d_feed_v < q.t.NS) {  // the next view's walk back
+      f.g = d_seg3;
+    } else {  // the CTA's next tile
+      if (MV) {
+        d_feed_v = 0;
+        d_bound = d_seg1;
+      }
       f.g = 0;
       f.tile += gridDim.x;
     }
   }
+}
+
+// Thread 0: load the next stage into ring slot `slot`: the weight boxes of
+// piece pc of both warpgroups.  Forward: B = W rows rowbase + k, read
+// MN-major; walk back: B = W^T, the boxes of W rows rowbase + n (the output
+// columns) and columns k, read K-major.  One view, the steps that are not
+// products are skipped before every stage; multi-view, once, at the end of
+// the product before, off the stages' path (skipped before every stage, the
+// data kernel at -V 3 took 6% longer on an H100).
+template <bool MV>
+__device__ __forceinline__ void feed(const BwdParams& q, Ring& rg, int slot) {
+  const int n_tiles = (q.B_pad + TILE_PTS - 1) / TILE_PTS;
+  Feed f = d_feed;
+  if (!MV)
+    while (f.tile < n_tiles && !is_gemm(step_kind(d_prog[f.g]))) next_step<false>(q, f);
   if (f.tile < n_tiles) {
     const Gemm op = gemm_of(d_prog[f.g], q.t.kin, q.t.C);
     const CUtensorMap* m = op.map == 0 ? &q.m_in : op.map == 1 ? &q.m_z : &q.m_blk;
@@ -398,9 +430,11 @@ __device__ __forceinline__ void feed(const BwdParams& q, Ring& rg, int slot) {
       f.ks = 0;
       if (++f.pc == TILE_NP) {
         f.pc = 0;
-        if (++f.g == d_n_steps) {
-          f.g = 0;
-          f.tile += gridDim.x;
+        if (MV) {
+          do next_step<true>(q, f);
+          while (f.tile < n_tiles && !is_gemm(step_kind(d_prog[f.g])));
+        } else {
+          next_step<false>(q, f);
         }
       }
     }
@@ -410,19 +444,20 @@ __device__ __forceinline__ void feed(const BwdParams& q, Ring& rg, int slot) {
 
 // Stage u is read: every thread arrives on its empty barrier; thread 0 waits
 // until all have and loads stage u + RING_STAGES into the slot.
+template <bool MV>
 __device__ __forceinline__ void release(const BwdParams& q, Ring& rg, uint32_t u) {
   const int slot = u % RING_STAGES;
   hopper::mbar_arrive(&d_empty[slot]);
   if (threadIdx.x == 0) {
     hopper::mbar_wait(&d_empty[slot], (u / RING_STAGES) & 1);
-    feed(q, rg, slot);
+    feed<MV>(q, rg, slot);
   }
 }
 
 // For each piece p of this warpgroup's columns, acc = A . B over K (A a
 // swizzled (64, K) tile, B from the ring as `feed` laid it out: MN-major
 // forward, K-major with trans), then epi(p, acc).
-template <int TB, typename Epi>
+template <bool MV, int TB, typename Epi>
 __device__ __forceinline__ void gemm(const BwdParams& q, Ring& rg, const unsigned char* A, int K,
                                      Epi epi) {
   const int wg = threadIdx.x >> 7;
@@ -450,11 +485,11 @@ __device__ __forceinline__ void gemm(const BwdParams& q, Ring& rg, const unsigne
       }
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();  // stage ks - 1's products have read it
-      if (ks > 0) release(q, rg, rg.it - 1);
+      if (ks > 0) release<MV>(q, rg, rg.it - 1);
       ++rg.it;
     }
     hopper::wgmma_wait<0>();
-    release(q, rg, rg.it - 1);
+    release<MV>(q, rg, rg.it - 1);
     epi(pc, acc);
   }
 }
@@ -482,7 +517,6 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
   const int nb = p.n_blocks, nlz = p.n_lin_z, C = p.C, kin = p.kin, d_out = p.d_out;
   // one view: every block per view, one plane each
   const int pre = MV ? p.pre : nb, NS = MV ? p.NS : 1;
-  const int n_tiles = (q.B_pad + TILE_PTS - 1) / TILE_PTS;
 
   if (threadIdx.x == 0) {
     for (int st = 0; st < RING_STAGES; ++st) {
@@ -491,13 +525,21 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
     }
     hopper::mbar_init(&d_mask_full, 1);
     hopper::mbar_fence_init();
-    d_n_steps = data_program(d_prog, nb, nlz, NS, pre);
+    d_n_steps = data_program(d_prog, nb, nlz, MV, pre);
+    d_seg1 = d_seg3 = 0;  // one view: no segment is walked twice
+    for (int i = 0; i < d_n_steps; ++i) {
+      if (step_kind(d_prog[i]) == FOLD) d_seg1 = i + 1;
+      if (step_kind(d_prog[i]) == DVIEW) d_seg3 = i;
+    }
+    d_feed_v = 0;
+    d_bound = d_seg1;
+    d_end = walk_at(d_n_steps, NS - 1);
   }
   __syncthreads();
   Ring rg{hb + TILE_BYTES, 0u};
   if (threadIdx.x == 0) {
     d_feed = Feed{0, 0, 0, (int)blockIdx.x};
-    for (int st = 0; st < RING_STAGES; ++st) feed(q, rg, st);
+    for (int st = 0; st < RING_STAGES; ++st) feed<MV>(q, rg, st);
   }
 
   auto first_plane = [&](int k) -> size_t { return MV ? plane_at(p, k) : (size_t)k; };
@@ -515,7 +557,9 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
            fmaxf(sv[pc * TILE_ACC + i + 1], 0.0f));
   };
 
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+  // the CTA's tiles: the next one from d_row0, so that no register holds the
+  // tile across the steps (at 255 registers the multi-view walk spilled it)
+  for (int tile = blockIdx.x; tile * TILE_PTS < q.B_pad; tile = d_row0 / TILE_PTS + gridDim.x) {
     // gb = bf16(sv) into act, the f32 column sums of sv into rows ra (and rb)
     auto emit_cot = [&](int ra, int rb, bool add) {
 #pragma unroll
@@ -534,9 +578,13 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
     }
     __syncthreads();
 
-    for (int si = 0; si < d_n_steps; ++si) {
-      const int s = d_prog[si];
-      const int kind = step_kind(s), k = step_k(s), v = step_v(s), aux = step_aux(s);
+    // multi-view, the walk takes the recompute segment once for each view
+    // (si holds the view, tile64.cuh's walk_at), the shared steps once, then
+    // the walk-back segment once for each view, to the walk's end, d_end
+    for (int si = 0; si < (MV ? d_end : d_n_steps); ++si) {
+      if (MV && walk_idx(si) == d_n_steps) si = walk_at(d_seg3, walk_view(si) + 1);  // the next view's walk back
+      const int s = d_prog[MV ? walk_idx(si) : si];
+      const int kind = step_kind(s), k = step_k(s), v = MV ? walk_view(si) : 0, aux = step_aux(s);
       const bool below = k < pre;
       // block k's planes: r_k at pa (s_k at pa + views), gb_k at pcot (dh_k at NP + pcot)
       const int pa = 2 * (int)first_plane(k) + (below ? v : 0);
@@ -564,6 +612,8 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
         if (v + 1 == NS)
 #pragma unroll
           for (int pc = 0; pc < TILE_NP; ++pc) emit_relu(pc);
+        // the next view's recompute, or on into the shared steps
+        if (MV) si = v + 1 < NS ? walk_at(0, v + 1) - 1 : walk_idx(si);
         continue;
       }
       if (kind == T_OUT) {
@@ -708,7 +758,7 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
       // temporaries beside the stream and the accumulators
       if (kind == IN_FWD || kind == Z_FWD || kind == B1_FWD) {
         // the residual stream: sv (+)= acc + bias; relu(sv) into act for the next product
-        gemm<1>(q, rg, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
+        gemm<MV, 1>(q, rg, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
           const int c0 = piece_col(pc);
           const int kind = step_kind(s), k = step_k(s), aux = step_aux(s);  // from s: fewer live registers
           const float* bias = kind == IN_FWD  ? p.b_in
@@ -728,7 +778,7 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
           if (kind == Z_FWD || aux) emit_relu(pc);
         });
       } else if (kind == B0_FWD) {
-        gemm<1>(q, rg, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
+        gemm<MV, 1>(q, rg, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
           const int c0 = piece_col(pc);
           const int k = step_k(s);
           const float* bias = p.b_blk + (size_t)(2 * k) * HID;
@@ -746,9 +796,9 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
       } else if (kind == Z_BWD) {
         // summed in f32 in dz in injection order (view v's rows start at
         // v B_pad); each thread reads back only what it wrote
-        gemm<0>(q, rg, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
+        gemm<MV, 0>(q, rg, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
           const int c0 = piece_col(pc);
-          const int v = step_v(s), aux = step_aux(s);
+          const int v = MV ? walk_view(si) : 0, aux = step_aux(s);
           float* dzt = q.dz + ((size_t)v * q.B_pad + d_row0) * HID + c0;  // C = H with a latent
 #pragma unroll
           for (int i0 = 0; i0 < TILE_ACC; i0 += 4) {  // two pairs at a time, their reads together
@@ -772,9 +822,9 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
       } else if (kind == B1_BWD) {
         // dh = ds [s > 0]: bf16 into hb over s_k's mask, f32 column sums for
         // db of fc_0
-        gemm<0>(q, rg, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
+        gemm<MV, 0>(q, rg, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
           const int c0 = piece_col(pc);
-          const int k = step_k(s), v = step_v(s);
+          const int k = step_k(s), v = MV ? walk_view(si) : 0;
           // each block loads two masks, s_k then r_k: s_k completes even phases
           hopper::mbar_wait(&d_mask_full, 0);
 #pragma unroll
@@ -788,7 +838,7 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
                     k < pre && v > 0);
         });
       } else {  // B0_BWD: dr = bf16(dh) W0^T [r > 0] onto the cotangent
-        gemm<0>(q, rg, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
+        gemm<MV, 0>(q, rg, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
           const int c0 = piece_col(pc);
           hopper::mbar_wait(&d_mask_full, 1);  // r_k: the odd phases
 #pragma unroll
@@ -1022,7 +1072,7 @@ int resnetfc_bwd_data(const void* g, const void* z, const void* x, const void* w
              vsum == nullptr || n_ctas < 1 || (n_lin_z > 0 && ws_z == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (n_blocks > 255 || NS > 255 ||
-      data_program(nullptr, n_blocks, n_lin_z, mv ? NS : 1, mv ? pre : n_blocks) > D_MAX_STEPS)
+      data_program(nullptr, n_blocks, n_lin_z, mv, mv ? pre : n_blocks) > D_MAX_STEPS)
     return (int)cudaErrorInvalidValue;
   BwdParams q = {};
   q.t = tower_params(x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, nullptr, B, d_in, kin, C,

@@ -22,10 +22,9 @@
 // P points reads all of them once, so the traffic is (points / P) x 6.9 MB
 // (at NS views, the layers below the view mean NS times).
 //
-// resnetfc_fwd_dense, resnetfc_fwd_gather and resnetfc_fwd_dense_mv run one
-// kernel body on the 64-point wgmma tile of tile64.cuh, which the backward's
-// data kernel shares, so the backward's recompute takes its products in this
-// body's order, at one view and at NS views:
+// The four run one kernel body on the 64-point wgmma tile of tile64.cuh,
+// which the backward's data kernel shares, so the backward's recompute takes
+// its products in this body's order, at one view and at NS views:
 // - one CTA of two warpgroups a 64-point tile, each warpgroup owning 256 of
 //   the 512 columns of the f32 stream in registers; every product is wgmma
 //   m64n128k16 pieces with operand A a 64 x 512 bf16 swizzled tile in shared
@@ -35,12 +34,11 @@
 //   every stage (the boxes of its piece) fed: its first thread refills the
 //   half as soon as the warpgroup's four warps have read it (one arrival a
 //   warp), so neither warpgroup waits for the other's.  A tile reads each
-//   weight byte out of L2 once for 64 points, half the traffic of the
-//   32-point tower;
+//   weight byte out of L2 once for 64 points;
 // - the code comes by the threads (encoded: rounded to bf16; CODE: evaluated
-//   as below); the latent of each injection either by TMA from a dense bf16
-//   z (B, C) (resnetfc_fwd_dense; rows past B read as zeros) or, in the
-//   gather kernel, as the 4-tap lookup z[g] = sum_{j<4} w[g, j] *
+//   as tile64.cuh says); the latent of each injection either by TMA from a
+//   dense bf16 z (B, C) (the dense kernels; rows past B read as zeros) or,
+//   in the gather kernels, as the 4-tap lookup z[g] = sum_{j<4} w[g, j] *
 //   table[idx[g, j]] that the threads build straight into the operand tile
 //   (gather_fill);
 // - lin_out (d_out <= 4) stays on the CUDA cores, a warp a point;
@@ -54,39 +52,37 @@
 // couple the pair's rings: they measured slower, and so did refills that do
 // not wait.
 //
-// The gather kernel's lookup reads the (T, C) bf16 table (L2-resident: 1 MB
+// The gather kernels' lookup reads the (T, C) bf16 table (L2-resident: 1 MB
 // at sn64) once an injection, since the two operand tiles and the ring leave
 // no room to keep the latent: 64 points x 4 taps x 1 KB, 0.75 MB a tile at
 // sn64 beside its 6.55 MB of weights.  The TPU kernel builds the lookup as a
 // one-hot matmul and so rounds the tap weights to bf16; here they stay f32,
 // a difference the on-card tolerance covers.  The taps are taken in the
 // plain version's order and rounding (gather_reference: from +0, w_j t_j
-// rounded, then added, j = 0..3), so the gather kernel's output is
-// resnetfc_fwd_dense's on that bf16 latent, bit for bit.
+// rounded, then added, j = 0..3), so a gather kernel's output is its dense
+// twin's on that bf16 latent, bit for bit.
 //
-// The multi-view dense kernel (resnetfc_fwd_dense_mv) runs the forward half
-// of the data kernel's multi-view program on the same tile: per view v its
-// lin_in, injections and blocks k < pre, then FOLD into the view sum; then
-// the shared blocks and lin_out.  The mean is the TPU kernel's sum(xs) *
-// (1 / NS): an f32 sum in view order, then one multiply.  Its CTAs are
-// persistent (one an SM at most), each walking its tiles with a 128 KB
-// device-memory slot for the view sum (the 64 x 512 f32 stream, each thread
-// coalesced on its own words; 16.5 MB over 132 SMs, L2-resident beside the
-// weights), and each warpgroup's feeder runs on from the last stage of a
-// tile into the next tile's first, so the ring does not drain between
-// tiles.  Input rows are object-major (resnetfc_tower.cuh, src_row): a tile
-// inside one object reads each view's latent as one TMA box of 64 rows; a
-// tile whose points straddle two objects (or end past B) reads two runs of
-// rows, so the threads load it (~5% slower than TMA on an H100).  A 64-point
-// tile at NS = 3 streams 15.6 MiB of weights at sn64 (the layers below the
-// mean three times), 2.4x the one-view tile's 6.55 MiB; that stream binds it
-// as it binds the one-view kernels (~29 GB/s an SM on an H100), and the nine
-// latent fills from device memory add ~7%.
-//
-// The multi-view gather (resnetfc_fwd_gather_mv) keeps the 32-point
-// nvcuda::wmma tower of resnetfc_tower.cuh (persistent CTAs of 8 warps, a
-// 64 KB per-CTA device-memory view-sum slot), building its latent there with
-// the same 4-tap read, into shared memory.
+// The multi-view kernels (resnetfc_fwd_dense_mv, resnetfc_fwd_gather_mv) run
+// the forward half of the data kernel's multi-view program on the same tile:
+// per view v its lin_in, injections and blocks k < pre, then FOLD into the
+// view sum; then the shared blocks and lin_out.  One view's steps are stored
+// once and walked NS times (tile64.cuh), so any view count up to 255 fits
+// the program.  The mean is the TPU kernel's sum(xs) * (1 / NS): an f32 sum
+// in view order, then one multiply.  Their CTAs are persistent (one an SM at
+// most), each walking its tiles with a 128 KB device-memory slot for the
+// view sum (the 64 x 512 f32 stream, each thread coalesced on its own words;
+// 16.5 MB over 132 SMs, L2-resident beside the weights), and each
+// warpgroup's feeder runs on from the last stage of a tile into the next
+// tile's first, so the ring does not drain between tiles.  Input rows are
+// object-major (tile64.cuh, src_row): in the dense kernel a tile inside one
+// object reads each view's latent as one TMA box of 64 rows; a tile whose
+// points straddle two objects (or end past B) reads two runs of rows, so the
+// threads load it (~5% slower than TMA on an H100).  The multi-view gather
+// takes one object (SB = 1) and builds view v's latent from table v with
+// gather_fill.  A 64-point tile at NS views streams the layers below the
+// mean NS times (15.6 MiB of weights at sn64 and NS = 3, 2.4x the one-view
+// tile's 6.55 MiB); that stream binds it as it binds the one-view kernels
+// (~29 GB/s an SM on an H100), and the latent fills add ~7%.
 
 #include <string.h>
 
@@ -95,58 +91,6 @@
 namespace {
 
 using namespace rfc;
-
-// ---------------------------------------------------------------------------
-// the 32-point tower: the multi-view gather
-// ---------------------------------------------------------------------------
-
-// Persistent CTAs walk the 32-point tiles, one view-sum slot each.
-template <bool CODE>
-__global__ void __launch_bounds__(NTHREADS, 1) resnetfc_fwd_gather_mv_kernel(const TowerParams p) {
-  extern __shared__ __align__(128) unsigned char smem_raw[];
-  const Layout L = layout(p.C, p.kin, p.n_lin_z);
-  const Smem s = carve(smem_raw, L);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int n_tiles = (p.B + BM - 1) / BM;
-  float* slot = p.vsum + (size_t)blockIdx.x * SLOT_FLOATS;
-
-  for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
-    const int row0 = tile * BM;
-    FragC x[2][J], acc[2][J];
-    tower_mv<CODE>(p, L, s, x, acc, row0, slot);
-
-    // lin_out is only d_out (4) wide: one warp per (point, channel) dot product
-    for (int pc = warp; pc < BM * p.d_out; pc += NWARPS) {
-      const int r = pc / p.d_out, c = pc - r * p.d_out, g = row0 + r;
-      float acc_o = 0.0f;
-      for (int kk = lane; kk < HID; kk += 32)
-        acc_o = fmaf(__bfloat162float(s.act[r * L.lda + kk]),
-                     __bfloat162float(p.w_out[(size_t)kk * p.d_out + c]), acc_o);
-#pragma unroll
-      for (int off = 16; off > 0; off >>= 1) acc_o += __shfl_xor_sync(0xffffffffu, acc_o, off);
-      if (lane == 0 && g < p.B) {
-        const float v = acc_o + p.b_out[c];
-        if (p.planar)
-          p.out[(size_t)c * p.B + g] = v;
-        else
-          p.out[(size_t)g * p.d_out + c] = v;
-      }
-    }
-    __syncthreads();  // s.act is read before the next tile rewrites it
-  }
-}
-
-template <bool CODE>
-int launch_gather_mv(const TowerParams& p, int n_ctas, cudaStream_t stream) {
-  const size_t smem = layout(p.C, p.kin, p.n_lin_z).total;
-  cudaError_t err = cudaFuncSetAttribute(resnetfc_fwd_gather_mv_kernel<CODE>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int n_tiles = (p.B + BM - 1) / BM;
-  resnetfc_fwd_gather_mv_kernel<CODE><<<n_ctas < n_tiles ? n_ctas : n_tiles, NTHREADS, smem,
-                                         stream>>>(p);
-  return (int)cudaGetLastError();
-}
 
 // Attach the code operands (code_w null: x is the encoded code); returns
 // whether the CODE variant runs, or -1 for an incomplete set.
@@ -162,24 +106,12 @@ int attach_code(TowerParams& p, const void* code_w, const void* code_f, const vo
   return 1;
 }
 
-// Validate, attach the code operands and launch the multi-view gather.
-int launch_mv(TowerParams& p, int H, int n_ctas, const void* code_w, const void* code_f,
-              const void* code_p, const void* code_m, int d_raw, cudaStream_t stream) {
-  if (H != HID || p.NS < 2 || p.pre < 0 || p.pre >= p.n_blocks || p.n_lin_z > p.pre ||
-      p.B_obj < 1 || p.B % p.B_obj != 0 || p.vsum == nullptr || n_ctas < 1)
-    return (int)cudaErrorInvalidValue;
-  const int code = attach_code(p, code_w, code_f, code_p, code_m, d_raw);
-  if (code < 0) return (int)cudaErrorInvalidValue;
-  return code ? launch_gather_mv<true>(p, n_ctas, stream) : launch_gather_mv<false>(p, n_ctas, stream);
-}
-
 // ---------------------------------------------------------------------------
-// resnetfc_fwd_dense, resnetfc_fwd_gather and resnetfc_fwd_dense_mv: 64-point
-// wgmma tiles, weights by TMA
+// the tile kernels: 64-point wgmma tiles, weights by TMA
 // ---------------------------------------------------------------------------
 
-// steps of a tile's program (fwd_program; sn64: 14 at one view, 37 at three,
-// 103 at nine -- the most views the data kernel takes at sn64)
+// steps of a tile's stored program (fwd_program; sn64: 14 at one view, 15 at
+// any view count: one view's segment and the shared blocks)
 constexpr int F_MAX_STEPS = 128;
 constexpr int F_MAX_K = HID;  // the widest code or latent: one 64 x 512 operand tile
 // f32 words of a multi-view CTA's view-sum slot: every thread's share of the
@@ -196,40 +128,38 @@ struct DensePlan {
 };
 
 struct DenseParams {
-  TowerParams t;  // the gather kernel: also idx, w, table, T, taps; multi-view: NS, B_obj, pre, vsum
+  TowerParams t;  // the gather kernels: also idx, w, table, T, taps; multi-view: NS, B_obj, pre, vsum
   CUtensorMap m_in, m_z, m_blk;
   // the dense kernels' z in 64 x 64 boxes: (B, C), rows past B read as zeros;
   // multi-view (NS B, C), read only by tiles inside one object
   CUtensorMap m_lat;
 };
 
-// The tile's program: per view v (one view: v = 0 and pre = n_blocks) lin_in,
-// then per block k < pre its injection (k < n_lin_z), fc_0 and fc_1, and, at
-// NS > 1, the fold into the view mean; then the shared blocks k >= pre --
-// the forward half of the data kernel's program (data_program), in its order
-// and with its aux flags.
-__host__ __device__ inline int fwd_program(int* out, int n_blocks, int n_lin_z, int NS, int pre) {
+// The tile's program as stored: lin_in, then per block k < pre its injection
+// (k < n_lin_z), fc_0 and fc_1, and, multi-view (mv), the fold into the view
+// mean -- one view's segment, which the walk takes NS times (one view: pre =
+// n_blocks) -- then the shared blocks k >= pre.
+// Walked, it is the forward half of the data kernel's program
+// (data_program), in its order and with its aux flags.
+__host__ __device__ inline int fwd_program(int* out, int n_blocks, int n_lin_z, bool mv, int pre) {
   int n = 0;
   auto put = [&](int s) {
     if (out != nullptr) out[n] = s;
     ++n;
   };
-  const bool mv = NS > 1;
-  for (int v = 0; v < NS; ++v) {
-    // block 0 reads relu(x) directly when no latent is injected first
-    put(step(IN_FWD, 0, v, n_lin_z == 0 && pre > 0));
-    for (int k = 0; k < pre; ++k) {
-      if (k < n_lin_z) put(step(Z_FWD, k, v, 0));
-      put(step(B0_FWD, k, v, 0));
-      // the next reader of relu(x) is fc_0 of block k + 1 (or lin_out) unless
-      // block k + 1 injects the latent first, or the view mean comes next
-      put(step(B1_FWD, k, v, k + 1 >= n_lin_z && (k + 1 < pre || !mv)));
-    }
-    if (mv) put(step(FOLD, 0, v, 0));
+  // block 0 reads relu(x) directly when no latent is injected first
+  put(step(IN_FWD, 0, n_lin_z == 0 && pre > 0));
+  for (int k = 0; k < pre; ++k) {
+    if (k < n_lin_z) put(step(Z_FWD, k, 0));
+    put(step(B0_FWD, k, 0));
+    // the next reader of relu(x) is fc_0 of block k + 1 (or lin_out) unless
+    // block k + 1 injects the latent first, or the view mean comes next
+    put(step(B1_FWD, k, k + 1 >= n_lin_z && (k + 1 < pre || !mv)));
   }
+  if (mv) put(step(FOLD, 0, 0));
   for (int k = pre; k < n_blocks; ++k) {
-    put(step(B0_FWD, k, 0, 0));
-    put(step(B1_FWD, k, 0, 1));
+    put(step(B0_FWD, k, 0));
+    put(step(B1_FWD, k, 1));
   }
   return n;
 }
@@ -237,7 +167,9 @@ __host__ __device__ inline int fwd_program(int* out, int n_blocks, int n_lin_z, 
 // A feeding state, which only a warpgroup's first thread keeps (in shared
 // memory, so that no other thread holds registers for it): the next stage is
 // step g, piece pc, K rows ks * 64...  Multi-view, g indexes the program's
-// products only (f_gprog) and wraps to the CTA's next tile.
+// products only (f_gprog), which the feeder walks as the threads walk the
+// program: the view segment's products once for each view, then the shared
+// blocks', then on into the CTA's next tile.
 struct DenseFeed {
   int g, pc, ks;
 };
@@ -248,20 +180,22 @@ constexpr uint32_t HALF_BYTES = TILE_BPW * BOX_BYTES;
 // Shared state beside the dynamic operand tiles and ring, at fixed addresses:
 // each warpgroup's full / empty mbarriers of its halves of the ring stages
 // (empty: one arrival a warp of the warpgroup) and its feeding state; the
-// latent's mbarrier (the dense kernels' TMA latent; the gather kernel never
-// arms it); the program.  Multi-view also: the program's products alone
-// (what the feeders walk: the fold has none), each feeder's tiles still to
-// feed, the current tile's first row and the latents taken by TMA so far
-// (the parity of f_lat_full's next phase), read where used rather than kept
-// in registers.  The feeders' work lies on the products' path (a warpgroup's
-// first thread feeds before it issues its next product), so theirs is kept
-// short: no division, no step to skip (feeders that found their step by a
-// division a stage made the kernel 1.19x slower on an H100).
+// latent's mbarrier (the dense kernels' TMA latent; the gather kernels never
+// arm it); the program.  Multi-view also: the program's products alone
+// (what the feeders walk: the fold has none) and how many of them the view
+// segment holds, each feeder's tiles still to feed and views still to come
+// after its current one, the current tile's first row and the latents taken
+// by TMA so far (the parity of f_lat_full's next phase), read where used
+// rather than kept in registers.  The feeders' work
+// lies on the products' path (a warpgroup's first thread feeds before it
+// issues its next product), so theirs is kept short: no division, no step to
+// skip (feeders that found their step by a division a stage made the kernel
+// 1.19x slower on an H100).
 __shared__ __align__(8) uint64_t f_full[2][RING_STAGES], f_empty[2][RING_STAGES], f_lat_full;
 __shared__ int f_prog[F_MAX_STEPS], f_gprog[F_MAX_STEPS];
-__shared__ int f_n_steps, f_n_gemms;
+__shared__ int f_n_steps, f_n_gemms, f_seg_gemms, f_end;
 __shared__ DenseFeed f_feed[2];
-__shared__ int f_left[2], f_row0, f_lat_n;
+__shared__ int f_left[2], f_vleft[2], f_row0, f_lat_n;
 
 // Thread 128 h: warpgroup h's half of the next stage into ring slot `slot`
 // -- the weight boxes of its piece pc, K rows rowbase + ks * 64.. -- on
@@ -283,9 +217,15 @@ __device__ __forceinline__ void dense_feed(const DenseParams& q, unsigned char* 
     if (++f.pc == TILE_NP) {
       f.pc = 0;
       ++f.g;
-      if (MV && f.g == f_n_gemms) {  // on into the CTA's next tile
-        f.g = 0;
-        --f_left[h];
+      if (MV) {
+        if (f.g == f_seg_gemms && f_vleft[h] > 0) {  // the next view's segment
+          f.g = 0;
+          --f_vleft[h];
+        } else if (f.g == f_n_gemms) {  // on into the CTA's next tile
+          f.g = 0;
+          f_vleft[h] = q.t.NS - 1;
+          --f_left[h];
+        }
       }
     }
   }
@@ -344,8 +284,7 @@ __device__ __forceinline__ void dense_gemm(const DenseParams& q, unsigned char* 
 
 // The tile's code into `tile` (bf16, zeros past B and past d_in): the
 // encoded f32 code rounded, or (CODE) the positional code of the raw
-// coordinates as resnetfc_tower.cuh's load_inputs<CODE> evaluates it; at NS
-// views (MV), view v's rows.  Reads go out four at a time so that they
+// coordinates as tile64.cuh sets out; at NS views (MV), view v's rows.  Reads go out four at a time so that they
 // overlap.
 template <bool CODE, bool MV>
 __device__ __forceinline__ void dense_code(const TowerParams& p, unsigned char* tile, int row0, int v) {
@@ -401,7 +340,9 @@ __device__ __forceinline__ void view_latent(const TowerParams& p, unsigned char*
 
 // The tile's latent into `tile` (bf16, zeros past B): row r, channels
 // 8q..8q+7 of z[g] = sum_{j<4} w[g, j] * table[idx[g, j]], g = row0 + r, a
-// tap with idx outside [0, T) contributing nothing.  Warp w takes rows w,
+// tap with idx outside [0, T) contributing nothing; at NS views (MV), view
+// v's: idx / w row src_row(g, v) into table v (the tap's row v T + idx of
+// the (NS T, C) stack).  Warp w takes rows w,
 // w + 8, ..; lane l chunks l and l + 32 of a row (C <= 512), so a warp reads
 // a tap's table row whole, 16 bytes a lane, and writes the tile 128 bytes a
 // phase.  Lane 4 i + j reads tap j of the warp's row i once, for the warp to
@@ -411,16 +352,19 @@ __device__ __forceinline__ void view_latent(const TowerParams& p, unsigned char*
 // zero weight on the clamped row there: either product is +-0, which leaves
 // a sum that started from +0 unchanged (the table's values are finite).  So
 // the tile holds gather_reference's bf16 latent bit for bit.
-__device__ __forceinline__ void gather_fill(const TowerParams& p, unsigned char* tile, int row0) {
+template <bool MV>
+__device__ __forceinline__ void gather_fill(const TowerParams& p, unsigned char* tile, int row0,
+                                            int v) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nq = p.C >> 3;  // 16-byte chunks of a table row
   const int gl = row0 + warp + 8 * (lane >> 2);
   int tap = -1;
   float wt = 0.0f;
   if (gl < p.B) {
-    tap = __ldg(p.idx + (size_t)gl * p.taps + (lane & 3));
-    wt = __ldg(p.w + (size_t)gl * p.taps + (lane & 3));
-    if (tap < 0 || tap >= p.T) tap = -1;
+    const size_t row = MV ? src_row(p, gl, v) : (size_t)gl;  // point gl's idx / w row
+    tap = __ldg(p.idx + row * p.taps + (lane & 3));
+    wt = __ldg(p.w + row * p.taps + (lane & 3));
+    tap = tap < 0 || tap >= p.T ? -1 : MV ? tap + v * p.T : tap;
   }
 #pragma unroll 1
   for (int i = 0; i < TILE_PTS / 8; ++i) {
@@ -462,7 +406,7 @@ __device__ __forceinline__ void gather_fill(const TowerParams& p, unsigned char*
 }
 
 // One 64-point tile (tile64.cuh's tile) of 256 threads: the body of the
-// three tile kernels, which differ only in where each injection's latent
+// four tile kernels, which differ only in where each injection's latent
 // comes from (GATHER: gather_fill; else TMA, or at NS views (MV) by the
 // threads on a tile that straddles two objects) and in the views (MV: each
 // view's layers below the mean, folded, then the shared blocks).  `sv`
@@ -491,14 +435,17 @@ __device__ __forceinline__ void fwd_body(const DenseParams& q, unsigned char* ac
            fmaxf(sv[pc * TILE_ACC + i + 1], 0.0f));
   };
 
-  for (int si = 0; si < f_n_steps; ++si) {
-    const int s = f_prog[si];
+  // multi-view, the walk takes the view segment once for each view (si holds
+  // the view, tile64.cuh's walk_at), then the shared blocks, which read no
+  // view: the last one's stays in si until the walk's end, f_end
+  for (int si = 0; si < (MV ? f_end : f_n_steps); ++si) {
+    const int s = f_prog[MV ? walk_idx(si) : si];
     const int kind = step_kind(s);
     if (MV && kind == FOLD) {
       // the view mean, as the data kernel's FOLD: sum in view order in the
       // CTA's slot, then sum * (1 / NS); after the last view, relu(mean) for
       // the first shared block
-      const int v = step_v(s), NS = p.NS;
+      const int v = walk_view(si), NS = p.NS;
       const float inv = 1.0f / (float)NS;
 #pragma unroll
       for (int i = 0; i < TILE_STREAM; ++i) {
@@ -517,13 +464,14 @@ __device__ __forceinline__ void fwd_body(const DenseParams& q, unsigned char* ac
       if (v + 1 == NS)
 #pragma unroll
         for (int pc = 0; pc < TILE_NP; ++pc) emit_relu(pc);
+      if (v + 1 < NS) si = walk_at(0, v + 1) - 1;  // the next view's segment
       continue;
     }
     const unsigned char* A = act;
     if (kind == IN_FWD) {
       if (MV) {
         __syncthreads();  // hb's last readers (the previous view's or tile's fc_1) are done
-        dense_code<CODE, true>(p, hb, row0(), step_v(s));
+        dense_code<CODE, true>(p, hb, row0(), walk_view(si));
         publish();
       }
       A = hb;  // the code
@@ -531,15 +479,15 @@ __device__ __forceinline__ void fwd_body(const DenseParams& q, unsigned char* ac
       const int lat_n = MV ? f_lat_n : 0;  // read before thread 0 counts this latent
       __syncthreads();  // hb's last readers (lin_in or the previous fc_1) are done
       if (GATHER) {
-        gather_fill(p, hb, row0());
+        gather_fill<MV>(p, hb, row0(), MV ? walk_view(si) : 0);
         publish();
       } else if (MV && row0() % p.B_obj + TILE_PTS > p.B_obj) {
-        view_latent(p, hb, row0(), step_v(s));  // two runs of rows: by the threads
+        view_latent(p, hb, row0(), walk_view(si));  // two runs of rows: by the threads
         publish();
       } else {
         if (threadIdx.x == 0) {
           const int boxes = (p.C + 63) / 64;
-          const int r = MV ? (int)src_row(p, row0(), step_v(s)) : row0();
+          const int r = MV ? (int)src_row(p, row0(), walk_view(si)) : row0();
           hopper::mbar_arrive_expect_tx(&f_lat_full, boxes * BOX_BYTES);
           for (int j = 0; j < boxes; ++j)
             hopper::tma_load_2d(hb + j * BOX_BYTES, &q.m_lat, &f_lat_full, 64 * j, r);
@@ -651,13 +599,17 @@ __device__ __forceinline__ void fwd_tile(const DenseParams& q) {
       }
     hopper::mbar_init(&f_lat_full, 1);
     hopper::mbar_fence_init();
-    f_n_steps = fwd_program(f_prog, p.n_blocks, p.n_lin_z, MV ? p.NS : 1, MV ? p.pre : p.n_blocks);
+    f_n_steps = fwd_program(f_prog, p.n_blocks, p.n_lin_z, MV, MV ? p.pre : p.n_blocks);
     if (MV) {
       f_n_gemms = 0;
-      for (int i = 0; i < f_n_steps; ++i)
-        if (step_kind(f_prog[i]) != FOLD) f_gprog[f_n_gemms++] = f_prog[i];
+      for (int i = 0; i < f_n_steps; ++i) {
+        if (step_kind(f_prog[i]) == FOLD) f_seg_gemms = f_n_gemms;  // the view segment's products
+        else f_gprog[f_n_gemms++] = f_prog[i];
+      }
       // the CTA's tiles are blockIdx.x, + gridDim.x, ..
       f_left[0] = f_left[1] = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+      f_vleft[0] = f_vleft[1] = p.NS - 1;
+      f_end = walk_at(f_n_steps, p.NS - 1);
       f_lat_n = 0;
     }
     f_feed[0] = f_feed[1] = DenseFeed{0, 0, 0};
@@ -699,6 +651,12 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
   fwd_tile<false, CODE, true>(q);
 }
 
+template <bool CODE>
+__global__ void __launch_bounds__(TILE_THREADS, 1)
+    resnetfc_fwd_gather_mv_kernel(const __grid_constant__ DenseParams q) {
+  fwd_tile<true, CODE, true>(q);
+}
+
 // A grid of `grid` tile CTAs: one a 64-point tile (one view), or persistent
 // CTAs (multi-view).
 int launch_tile(void (*kernel)(DenseParams), const DenseParams& q, int grid, cudaStream_t stream) {
@@ -714,7 +672,7 @@ int tiles_of(int B) { return (B + TILE_PTS - 1) / TILE_PTS; }
 bool dense_widths_ok(int kin, int C, int n_blocks, int n_lin_z) {
   return kin >= 16 && kin <= F_MAX_K && kin % 16 == 0 && n_blocks >= 1 && n_lin_z >= 0 &&
          n_lin_z <= n_blocks && (n_lin_z == 0 || (C >= 16 && C <= F_MAX_K && C % 16 == 0)) &&
-         fwd_program(nullptr, n_blocks, n_lin_z, 1, n_blocks) <= F_MAX_STEPS;
+         fwd_program(nullptr, n_blocks, n_lin_z, false, n_blocks) <= F_MAX_STEPS;
 }
 
 // The parameters of a tile launch on `plan`'s weights (which must be the
@@ -745,24 +703,53 @@ int tile_params(DenseParams& q, const void* plan, const void* x, const void* w_i
   return attach_code(q.t, code_w, code_f, code_p, code_m, d_raw);
 }
 
+// The multi-view part of a tile launch's parameters: NS views (2..255, v's
+// 8 bits of a step) of B = SB B_obj output points, the first `pre` blocks
+// per view with every injection among them, and n_ctas view-sum slots at
+// vsum; false for what the kernels do not take.  The stored program is one
+// view's segment and the shared blocks at any NS.
+bool mv_params(DenseParams& q, int NS, int B_obj, int pre, void* vsum, int n_ctas) {
+  const TowerParams& p = q.t;
+  if (NS < 2 || NS > 255 || pre < 0 || pre >= p.n_blocks || p.n_lin_z > pre || B_obj < 1 ||
+      p.B % B_obj != 0 || vsum == nullptr || n_ctas < 1 ||
+      fwd_program(nullptr, p.n_blocks, p.n_lin_z, true, pre) > F_MAX_STEPS)
+    return false;
+  q.t.NS = NS;
+  q.t.B_obj = B_obj;
+  q.t.pre = pre;
+  q.t.vsum = static_cast<float*>(vsum);
+  return true;
+}
+
+// The lookup's operands of a gather launch: idx (rows, taps) int32 and w
+// (rows, taps) f32 (taps >= 4, columns 0..3 used), T table rows of C bf16
+// each (a table per view, multi-view), 16-byte aligned; false for what the
+// kernels do not take.
+bool gather_params(DenseParams& q, const void* idx, const void* w, int taps, const void* table,
+                   int T) {
+  if (taps < 4 || T < 1 || q.t.C % 8 != 0 || idx == nullptr || w == nullptr ||
+      table == nullptr || reinterpret_cast<uintptr_t>(table) % 16 != 0)
+    return false;
+  q.t.idx = static_cast<const int*>(idx);
+  q.t.w = static_cast<const float*>(w);
+  q.t.table = static_cast<const bf16*>(table);
+  q.t.T = T;
+  q.t.taps = taps;
+  return true;
+}
+
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory one tower CTA needs at these widths (H =
-// 512): the multi-view gather.
-size_t resnetfc_fwd_smem_bytes(int C, int kin, int n_lin_z) { return layout(C, kin, n_lin_z).total; }
-
 const char* resnetfc_fwd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// f32 words of one CTA's view-sum slot (the multi-view gather's vsum).
-int resnetfc_fwd_slot_floats() { return SLOT_FLOATS; }
-
-// What the tile kernels (dense, gather and multi-view dense) fix, for the
-// wrapper to plan with: out[0..6] = points a tile, threads a CTA, weight-ring
-// stages, the most outputs of lin_out, the most steps of a tile's program,
-// the widest code or latent, the f32 words of a multi-view CTA's view-sum
-// slot.  Returns the bytes of a plan; *smem gets the shared memory a CTA.
+// What the tile kernels fix, for the wrapper to plan with: out[0..6] =
+// points a tile, threads a CTA, weight-ring stages, the most outputs of
+// lin_out, the most steps of a tile's stored program (one view's segment and
+// the shared blocks), the widest code or latent, the f32 words of a
+// multi-view CTA's view-sum slot.  Returns the bytes of a plan; *smem gets
+// the shared memory a CTA.
 size_t resnetfc_fwd_dense_limits(int* out, size_t* smem) {
   out[0] = TILE_PTS;
   out[1] = TILE_THREADS;
@@ -838,14 +825,7 @@ int resnetfc_fwd_gather(const void* plan, const void* idx, const void* w, int ta
   const int code = tile_params(q, plan, x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, b_out, out,
                                B, d_in, kin, H, C, n_blocks, n_lin_z, d_out, planar, code_w,
                                code_f, code_p, code_m, d_raw);
-  if (code < 0 || taps < 4 || T < 1 || C % 8 != 0 || idx == nullptr || w == nullptr ||
-      table == nullptr || reinterpret_cast<uintptr_t>(table) % 16 != 0)
-    return (int)cudaErrorInvalidValue;
-  q.t.idx = static_cast<const int*>(idx);
-  q.t.w = static_cast<const float*>(w);
-  q.t.table = static_cast<const bf16*>(table);
-  q.t.T = T;
-  q.t.taps = taps;
+  if (code < 0 || !gather_params(q, idx, w, taps, table, T)) return (int)cudaErrorInvalidValue;
   return launch_tile(code ? resnetfc_fwd_gather_kernel<true> : resnetfc_fwd_gather_kernel<false>,
                      q, tiles_of(B), static_cast<cudaStream_t>(stream));
 }
@@ -867,16 +847,10 @@ int resnetfc_fwd_dense_mv(const void* plan, const void* z, const void* x, const 
   const int code = tile_params(q, plan, x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, b_out, out,
                                B, d_in, kin, H, C, n_blocks, n_lin_z, d_out, planar, code_w,
                                code_f, code_p, code_m, d_raw);
-  if (code < 0 || NS < 2 || NS > 255 || pre < 0 || pre >= n_blocks || n_lin_z > pre ||
-      B_obj < 1 || B % B_obj != 0 || vsum == nullptr || n_ctas < 1 ||
-      (n_lin_z > 0 && (z == nullptr || reinterpret_cast<uintptr_t>(z) % 16 != 0)) ||
-      fwd_program(nullptr, n_blocks, n_lin_z, NS, pre) > F_MAX_STEPS)
+  if (code < 0 || !mv_params(q, NS, B_obj, pre, vsum, n_ctas) ||
+      (n_lin_z > 0 && (z == nullptr || reinterpret_cast<uintptr_t>(z) % 16 != 0)))
     return (int)cudaErrorInvalidValue;
   q.t.z = static_cast<const bf16*>(z);
-  q.t.NS = NS;
-  q.t.B_obj = B_obj;
-  q.t.pre = pre;
-  q.t.vsum = static_cast<float*>(vsum);
   if (n_lin_z > 0) {
     const int err = hopper::encode_bf16_sw128(&q.m_lat, z, (uint64_t)NS * B, C, C, 64);
     if (err != 0) return err;
@@ -886,32 +860,28 @@ int resnetfc_fwd_dense_mv(const void* plan, const void* z, const void* x, const 
                      q, grid, static_cast<cudaStream_t>(stream));
 }
 
-// Multi-view fused gather, one object (B_obj = B): idx/w rows view-major,
-// table (NS, T, C), view v reading table v.
-int resnetfc_fwd_gather_mv(const void* idx, const void* w, int taps, const void* table, int T,
-                           const void* x, const void* w_in, const void* b_in, const void* w_z,
-                           const void* b_z, const void* w_blk, const void* b_blk,
-                           const void* w_out, const void* b_out, void* out, int B, int d_in,
-                           int kin, int H, int C, int n_blocks, int n_lin_z, int d_out, int planar,
-                           int NS, int B_obj, int pre, void* vsum, int n_ctas,
-                           const void* code_w, const void* code_f, const void* code_p,
+// Multi-view with view v's lookup z[g] = sum_{j<4} w[r, j] * table[v][idx[r,
+// j]] fused in, r = v B + g: one object (B_obj = B), idx (NS B, taps) int32
+// and w (NS B, taps) f32 view-major, tables (NS, T, C) bf16 with 16-byte
+// aligned rows; otherwise as resnetfc_fwd_dense_mv.
+int resnetfc_fwd_gather_mv(const void* plan, const void* idx, const void* w, int taps,
+                           const void* table, int T, const void* x, const void* w_in,
+                           const void* b_in, const void* w_z, const void* b_z, const void* w_blk,
+                           const void* b_blk, const void* w_out, const void* b_out, void* out,
+                           int B, int d_in, int kin, int H, int C, int n_blocks, int n_lin_z,
+                           int d_out, int planar, int NS, int B_obj, int pre, void* vsum,
+                           int n_ctas, const void* code_w, const void* code_f, const void* code_p,
                            const void* code_m, int d_raw, void* stream) {
-  TowerParams p = tower_params(x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, b_out, B, d_in, kin,
-                               C, n_blocks, n_lin_z, d_out);
-  p.out = static_cast<float*>(out);
-  p.planar = planar;
-  p.idx = static_cast<const int*>(idx);
-  p.w = static_cast<const float*>(w);
-  p.table = static_cast<const bf16*>(table);
-  p.T = T;
-  p.taps = taps;
-  p.NS = NS;
-  p.B_obj = B_obj;
-  p.pre = pre;
-  p.vsum = static_cast<float*>(vsum);
-  if (B_obj != B) return (int)cudaErrorInvalidValue;
-  return launch_mv(p, H, n_ctas, code_w, code_f, code_p, code_m, d_raw,
-                   static_cast<cudaStream_t>(stream));
+  DenseParams q;
+  const int code = tile_params(q, plan, x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, b_out, out,
+                               B, d_in, kin, H, C, n_blocks, n_lin_z, d_out, planar, code_w,
+                               code_f, code_p, code_m, d_raw);
+  if (code < 0 || B_obj != B || !mv_params(q, NS, B_obj, pre, vsum, n_ctas) ||
+      !gather_params(q, idx, w, taps, table, T))
+    return (int)cudaErrorInvalidValue;
+  const int grid = n_ctas < tiles_of(B) ? n_ctas : tiles_of(B);
+  return launch_tile(code ? resnetfc_fwd_gather_mv_kernel<true> : resnetfc_fwd_gather_mv_kernel<false>,
+                     q, grid, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

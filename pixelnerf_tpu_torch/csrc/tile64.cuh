@@ -1,7 +1,8 @@
 // The 64-point wgmma tile of the ResnetFC kernels for Hopper (sm_90a), which
 // the forward kernels (resnetfc_fwd.cu: resnetfc_fwd_dense, the fused gather
-// resnetfc_fwd_gather and the multi-view resnetfc_fwd_dense_mv) and the
-// backward's data kernel (resnetfc_bwd.cu, resnetfc_bwd_data) share:
+// resnetfc_fwd_gather, and the multi-view resnetfc_fwd_dense_mv and
+// resnetfc_fwd_gather_mv) and the backward's data kernel (resnetfc_bwd.cu,
+// resnetfc_bwd_data) share:
 // - a tile is 64 points, one wgmma M, walked by 256 threads: warpgroups 0
 //   and 1 each own 256 of the 512 columns of every layer for all 64 points,
 //   their share of the f32 residual stream (or of its cotangent) in 128
@@ -13,18 +14,126 @@
 //   boxes of the packed row-major weights through a ring of RING_STAGES
 //   stages of 32 KB;
 // - a tile's work is a program of steps (Kind, step) whose products read
-//   their weights as gemm_of says.
+//   their weights as gemm_of says.  At NS views the steps of one view are
+//   stored once and walked NS times, the walk position carrying the view
+//   (walk_at): so a program's length does not grow with the view count.
 // The forward and the data kernel take the products in the same order -- the
 // same pieces, the same k16 steps, each bias added to the f32 product before
 // the residual add, the views folded in the same order -- so the backward's
 // recompute reproduces the forward's f32 stream bit for bit, at one view and
 // at NS views.
+//
+// Per point (one view; each view below combine_layer at NS > 1):
+//   x = lin_in(code)
+//   for k < n_blocks:  [x += lin_z_k(z) while k < n_lin_z]
+//                      x += fc_1(relu(fc_0(relu(x))))
+// with bf16 operands and f32 accumulation: the code, z and every relu output
+// are rounded to bf16 before their product, biases and the residual stream
+// stay f32, and each layer adds its bias to the f32 product before the
+// residual add.  At NS > 1 the views' mean is the TPU kernel's sum(xs) *
+// (1 / NS): an f32 sum in view order, then one multiply.
+//
+// Input rows are where the model's query leaves them, object-major: point b
+// of object s, view v is row (s NS + v) B_obj + b, and its output column is
+// s B_obj + b (src_row).  The multi-view gather's idx/w rows are view-major
+// (SB = 1, the same formula) and view v reads table v.
+//
+// Deferred positional code (the CODE variants, the port of
+// resnetfc_pallas.py::_x_feat): x holds the raw (rows, d_raw) f32 coordinates
+// and the tile's code is evaluated while it is loaded,
+//   xg[c] = sum_j raw[j] code_w[j, c]   (f32, j in order; not a tensor-core
+//                                        product: its rounding would be
+//                                        amplified by the frequencies)
+//   enc[c] = code_m[c] > 0 ? sinf(xg[c] code_f[c] + code_p[c]) : xg[c]
+// and rounded to bf16 only after the sin.  sinf is the accurate one: the
+// arguments reach ~70 rad, where __sinf's error grows.  The code arrays
+// (~1.7 KB at sn64) are read through the read-only cache.
 #pragma once
 
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
 #include "hopper_mma.cuh"
-#include "resnetfc_tower.cuh"
 
 namespace rfc {
+
+typedef __nv_bfloat16 bf16;
+
+// Hidden width: every config in conf/ uses d_hidden 512.
+constexpr int HID = 512;
+
+struct TowerParams {
+  const bf16* z;       // (NS B, C) dense latent (the dense kernels); unused by the gather kernels
+  const int* idx;      // (NS B, taps) int32 tap rows, columns 0..3 used
+  const float* w;      // (NS B, taps) f32 tap weights
+  const bf16* table;   // (NS, T, C) feature tables
+  const float* x;      // (NS B, d_in) f32 coordinate code, or (NS B, d_raw) raw coordinates
+  const bf16* w_in;    // (kin, H), rows >= d_in are zero
+  const float* b_in;   // (H)
+  const bf16* w_z;     // (n_lin_z, C, H)
+  const float* b_z;    // (n_lin_z, H)
+  const bf16* w_blk;   // (n_blocks, 2, H, H): fc_0, fc_1
+  const float* b_blk;  // (n_blocks, 2, H)
+  const bf16* w_out;   // (H, d_out)
+  const float* b_out;  // (d_out)
+  float* out;          // (d_out, B) when planar, else (B, d_out)
+  float* vsum;         // (gridDim.x, slot) view-sum slots, multi-view only
+  int B, d_in, kin, C, T, taps, n_blocks, n_lin_z, d_out, planar;
+  // views, points per object (B = SB B_obj) and the blocks each view runs on
+  // its own (combine_layer; n_blocks when NS == 1)
+  int NS, B_obj, pre;
+  // the deferred positional code (CODE variant only): x is then the raw
+  // (NS B, d_raw) coordinates
+  const float* code_w;  // (d_raw, d_in) f32 select matrix
+  const float* code_f;  // (d_in) f32 per-column frequency
+  const float* code_p;  // (d_in) f32 per-column phase
+  const float* code_m;  // (d_in) f32, > 0 where the sin applies
+  int d_raw;
+};
+
+// The input row of output point g in view v (object-major rows).
+__device__ __forceinline__ size_t src_row(const TowerParams& p, int g, int v) {
+  if (p.NS == 1) return (size_t)g;
+  const int s = g / p.B_obj;
+  return ((size_t)s * p.NS + v) * p.B_obj + (g - s * p.B_obj);
+}
+
+__device__ __forceinline__ float bf16_lo(uint32_t v) { return __uint_as_float(v << 16); }
+__device__ __forceinline__ float bf16_hi(uint32_t v) { return __uint_as_float(v & 0xffff0000u); }
+__device__ __forceinline__ float round_bf16(float v) { return __bfloat162float(__float2bfloat16_rn(v)); }
+
+__device__ __forceinline__ uint32_t pack_bf16x2(float lo, float hi) {
+  return (uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(lo)) |
+         ((uint32_t)__bfloat16_as_ushort(__float2bfloat16_rn(hi)) << 16);
+}
+
+inline TowerParams tower_params(const void* x, const void* w_in, const void* b_in, const void* w_z,
+                                const void* b_z, const void* w_blk, const void* b_blk,
+                                const void* w_out, const void* b_out, int B, int d_in, int kin,
+                                int C, int n_blocks, int n_lin_z, int d_out) {
+  TowerParams p = {};
+  p.x = static_cast<const float*>(x);
+  p.w_in = static_cast<const bf16*>(w_in);
+  p.b_in = static_cast<const float*>(b_in);
+  p.w_z = static_cast<const bf16*>(w_z);
+  p.b_z = static_cast<const float*>(b_z);
+  p.w_blk = static_cast<const bf16*>(w_blk);
+  p.b_blk = static_cast<const float*>(b_blk);
+  p.w_out = static_cast<const bf16*>(w_out);
+  p.b_out = static_cast<const float*>(b_out);
+  p.B = B;
+  p.d_in = d_in;
+  p.kin = kin;
+  p.C = C;
+  p.n_blocks = n_blocks;
+  p.n_lin_z = n_lin_z;
+  p.d_out = d_out;
+  p.NS = 1;
+  p.B_obj = B;
+  p.pre = n_blocks;
+  return p;
+}
 
 constexpr int TILE_PTS = 64;        // points a tile: one wgmma M
 // two warpgroups and no producer warp: thread 0 also keeps the weight ring
@@ -80,26 +189,33 @@ __device__ __forceinline__ void put2(unsigned char* tile, int r, int c, float a,
 // code exists once, so a kernel stays small.  The forward runs the first five
 // kinds; the data kernel all of them.
 enum Kind {
-  IN_FWD,  // lin_in of view v: x = code W_in + b_in (aux: emit relu(x))
-  Z_FWD,   // injection k of view v: x += z W_z[k] + b_z[k]
+  IN_FWD,  // lin_in of the view: x = code W_in + b_in (aux: emit relu(x))
+  Z_FWD,   // injection k of the view: x += z W_z[k] + b_z[k]
   B0_FWD,  // fc_0 of block k: s = relu(r_k W0 + b0), r_k = relu(x) stashed
   B1_FWD,  // fc_1 of block k: x += s_k W1 + b1, s_k stashed (aux: emit relu(x))
-  FOLD,    // view v's x into the view mean (multi-view)
+  FOLD,    // the view's x into the view mean (multi-view)
   T_OUT,   // t stashed; lin_out's sums; the cotangent of t
   GB,      // gb = bf16(cotangent of block k's output) into act, stashed, summed
   Z_BWD,   // dz_v (+)= gb W_z[k]^T (aux: the view's first, which writes)
   B1_BWD,  // dh = gb W1^T [s_k > 0] into hb, summed
   B0_BWD,  // cotangent += bf16(dh) W0^T [r_k > 0], dh stashed
-  DVIEW,   // view v's walk starts from dview = cotangent / NS (multi-view)
+  DVIEW,   // the view's walk starts from dview = cotangent / NS (multi-view)
   G_IN,    // the cotangent of lin_in's output into act, stashed, summed; dx
 };
-__host__ __device__ constexpr int step(int kind, int k, int v, int aux) {
-  return kind | (k << 4) | (v << 12) | (aux << 20);
+__host__ __device__ constexpr int step(int kind, int k, int aux) {
+  return kind | (k << 4) | (aux << 12);
 }
 __device__ __forceinline__ int step_kind(int s) { return s & 15; }
 __device__ __forceinline__ int step_k(int s) { return (s >> 4) & 255; }
-__device__ __forceinline__ int step_v(int s) { return (s >> 12) & 255; }
-__device__ __forceinline__ int step_aux(int s) { return s >> 20; }
+__device__ __forceinline__ int step_aux(int s) { return s >> 12; }
+// A walk position: the index of a stored step in the low 12 bits and the
+// view above them, so that one register walks a segment of the program once
+// for each view.  The step word itself stays the stored one: its users read
+// the view from the walk.
+constexpr int WALK_IDX = (1 << 12) - 1;
+__device__ __forceinline__ int walk_idx(int si) { return si & WALK_IDX; }
+__device__ __forceinline__ int walk_view(int si) { return si >> 12; }
+__device__ __forceinline__ int walk_at(int i, int v) { return i | (v << 12); }
 __device__ __forceinline__ bool is_gemm(int kind) {
   return kind != FOLD && kind != T_OUT && kind != GB && kind != DVIEW && kind != G_IN;
 }

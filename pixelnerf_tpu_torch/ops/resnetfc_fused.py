@@ -16,7 +16,7 @@ Counterpart of ``pixelnerf_tpu/ops/resnetfc_pallas.py``:
   the same tile and plan, its CTAs persistent with a view-sum slot each;
 * :func:`resnetfc_gather_mv` launches ``resnetfc_fwd_gather_mv``, the port of
   ``_kernel_2d_mv_gather``: the same with view v's lookup into table v of an
-  ``(NS, T, C)`` stack.
+  ``(NS, T, C)`` stack, on the same tile and plan, built as the gather's.
 
 Each takes its coordinate input ``x`` either encoded (a tensor) or as a
 :class:`RawCode`, the deferred positional code: the kernel's CODE variant
@@ -26,10 +26,8 @@ point's name with ``_code`` appended.  The deferred code is eval-only, as in
 the JAX package: it has no backward.
 
 All four live in ``csrc/resnetfc_fwd.cu``, which also notes what bounds them.
-The dense, gather and multi-view dense kernels' 64-point tile is
-``csrc/tile64.cuh``, which the backward's data kernel
-(``csrc/resnetfc_bwd.cu``, :mod:`.resnetfc_vjp`) shares; the multi-view
-gather runs the 32-point tower of ``csrc/resnetfc_tower.cuh``.  Each source is
+Their 64-point tile is ``csrc/tile64.cuh``, which the backward's data kernel
+(``csrc/resnetfc_bwd.cu``, :mod:`.resnetfc_vjp`) shares.  Each source is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
 interface on first use (a changed source or header gets a new library name, so
 it rebuilds) and loaded with ``ctypes``; :func:`build_all` compiles every
@@ -66,7 +64,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = {"fwd": CSRC / "resnetfc_fwd.cu", "bwd": CSRC / "resnetfc_bwd.cu"}
-HEADERS = (CSRC / "resnetfc_tower.cuh", CSRC / "hopper_mma.cuh", CSRC / "tile64.cuh")
+HEADERS = (CSRC / "hopper_mma.cuh", CSRC / "tile64.cuh")
 BUILD_DIR = Path(__file__).resolve().parent.parent / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
@@ -76,6 +74,8 @@ NVCC_FLAGS = (
 MAX_SMEM_BYTES = 232448
 # the one hidden width the kernels are built for (every config in conf/)
 HIDDEN = 512
+# the most views the multi-view kernels take: a step's view is 8 bits
+MAX_VIEWS = 255
 
 # kernel launches per entry point; chip_smoke.py zeroes these around a run to
 # show that the run went through the kernels
@@ -399,12 +399,8 @@ def _lib() -> ctypes.CDLL:
         mv_args = tower_args + [I, I, I, P, I] + code_args  # NS, B_obj, pre, vsum, n_ctas
         lib.resnetfc_fwd_dense_mv.argtypes = [P, P] + mv_args  # plan, z
         lib.resnetfc_fwd_dense_mv.restype = I
-        lib.resnetfc_fwd_gather_mv.argtypes = [P, P, I, P, I] + mv_args
+        lib.resnetfc_fwd_gather_mv.argtypes = [P, P, P, I, P, I] + mv_args  # plan
         lib.resnetfc_fwd_gather_mv.restype = I
-        lib.resnetfc_fwd_slot_floats.argtypes = []
-        lib.resnetfc_fwd_slot_floats.restype = I
-        lib.resnetfc_fwd_smem_bytes.argtypes = [I, I, I]
-        lib.resnetfc_fwd_smem_bytes.restype = ctypes.c_size_t
         lib.resnetfc_fwd_error_string.argtypes = [I]
         lib.resnetfc_fwd_error_string.restype = ctypes.c_char_p
         _LIB = lib
@@ -483,24 +479,17 @@ def _stream(dev) -> int:
     return torch.cuda.current_stream(dev).cuda_stream
 
 
-def _check_tower_smem(C: int, kin: int, n_lin_z: int) -> None:
-    """The 32-point tower's shared memory at these widths fits a CTA (the
-    multi-view gather)."""
-    smem = _lib().resnetfc_fwd_smem_bytes(C, kin, n_lin_z)
-    if smem > MAX_SMEM_BYTES:
-        raise ValueError(f"widths need {smem} B of shared memory per CTA (> {MAX_SMEM_BYTES})")
-
-
 class DenseLimits(NamedTuple):
     """What the tile kernels (``resnetfc_fwd_dense_kernel``,
-    ``resnetfc_fwd_gather_kernel``, ``resnetfc_fwd_dense_mv_kernel``) fix
-    (read from their library by :func:`dense_limits`)."""
+    ``resnetfc_fwd_gather_kernel``, ``resnetfc_fwd_dense_mv_kernel``,
+    ``resnetfc_fwd_gather_mv_kernel``) fix (read from their library by
+    :func:`dense_limits`)."""
 
     tile: int  # points a CTA takes at a time (one wgmma M)
     threads: int  # a CTA: two warpgroups (thread 0 also feeds the weight ring)
     stages: int  # weight-ring stages
     max_out: int  # the most outputs of lin_out
-    max_steps: int  # the most steps of a tile's program
+    max_steps: int  # the most steps of a tile's stored program: one view's segment and the tail
     max_k: int  # the widest code (kin) or latent (C): one 64 x 512 operand tile
     slot_floats: int  # f32 words of a multi-view CTA's view-sum slot (its 64 x 512 stream)
     smem: int  # dynamic shared memory a CTA
@@ -515,14 +504,15 @@ def dense_limits() -> DenseLimits:
 
 
 def dense_steps(n_blocks: int, n_lin_z: int, NS: int = 1, pre: Optional[int] = None) -> int:
-    """Steps of one tile's program (``fwd_program`` in
-    ``csrc/resnetfc_fwd.cu``, the data kernel's recompute): per view lin_in,
-    then per block below the mean (``pre``; every block for one view) its
-    injection (the first n_lin_z blocks), fc_0 and fc_1, and at NS > 1 the
-    fold into the view mean; then fc_0 and fc_1 of each shared block.  14 at
-    sn64 and one view, 37 at three."""
+    """Steps of one tile's stored program (``fwd_program`` in
+    ``csrc/resnetfc_fwd.cu``, the data kernel's recompute): one view's
+    segment -- lin_in, then per block below the mean (``pre``; every block
+    for one view) its injection (the first n_lin_z blocks), fc_0 and fc_1,
+    and at NS > 1 the fold into the view mean -- which the tile walks once
+    for each view; then fc_0 and fc_1 of each shared block.  14 at sn64 and
+    one view, 15 at any view count."""
     pre = n_blocks if NS == 1 or pre is None else pre
-    return NS * (1 + n_lin_z + 2 * pre + int(NS > 1)) + 2 * (n_blocks - pre)
+    return 1 + n_lin_z + 2 * pre + int(NS > 1) + 2 * (n_blocks - pre)
 
 
 def dense_grid(B: int, limits: DenseLimits) -> int:
@@ -583,7 +573,15 @@ def check_gather(idx: torch.Tensor, w: torch.Tensor, table: torch.Tensor, rows: 
     ``(T, C)`` or whose rows are not 16-byte aligned (:func:`check_tma`: the
     lookup reads 16-byte chunks of a row)."""
     check_tile_tower(tower, n_blocks, limits)
+    _check_taps(idx, w, rows)
     C = tower.w_z.shape[1]
+    if table.ndim != 2 or table.shape[1] != C or table.shape[0] < 1:
+        raise ValueError(f"the gather needs a (T, C={C}) table, got {tuple(table.shape)}")
+    check_tma(table, "table")
+
+
+def _check_taps(idx: torch.Tensor, w: torch.Tensor, rows: int) -> None:
+    """The gathers' taps: ``(rows, taps)`` idx and w with at least 4 taps."""
     if idx.ndim != 2 or idx.shape[1] < 4:
         raise ValueError(f"the gather needs (rows, taps) idx with at least 4 taps, got "
                          f"{tuple(idx.shape)}")
@@ -591,29 +589,55 @@ def check_gather(idx: torch.Tensor, w: torch.Tensor, table: torch.Tensor, rows: 
         if tuple(t.shape) != (rows, idx.shape[1]):
             raise ValueError(f"{name} must have shape {(rows, idx.shape[1])}, got "
                              f"{tuple(t.shape)}")
-    if table.ndim != 2 or table.shape[1] != C or table.shape[0] < 1:
-        raise ValueError(f"the gather needs a (T, C={C}) table, got {tuple(table.shape)}")
-    check_tma(table, "table")
+
+
+def check_gather_mv(idx: torch.Tensor, w: torch.Tensor, tables: torch.Tensor, rows: int,
+                    combine_layer: int, tower: Tower, n_blocks: int, limits: DenseLimits) -> None:
+    """Raise ValueError on what ``resnetfc_fwd_gather_mv`` does not take, on
+    any device: tables other than ``(NS, T, C)`` or whose rows are not
+    16-byte aligned (:func:`check_tma`); rows that are not one object's NS
+    views, more than MAX_VIEWS views or weights the tile does not take
+    (:func:`check_mv_tower` at SB = 1); fewer than 4 taps or idx / w other
+    than ``(rows, taps)``, view-major."""
+    C = tower.w_z.shape[1]
+    if tables.ndim != 3 or tables.shape[2] != C or tables.shape[1] < 1:
+        raise ValueError(f"the multi-view gather needs (NS, T, C={C}) tables, got "
+                         f"{tuple(tables.shape)}")
+    check_mv_tower(rows, tables.shape[0], 1, combine_layer, tower, n_blocks, limits)
+    _check_taps(idx, w, rows)
+    check_tma(tables, "tables")
+
+
+def check_mv_tower(rows: int, NS: int, sb: int, combine_layer: int, tower: Tower,
+                   n_blocks: int, limits: DenseLimits) -> None:
+    """Raise ValueError on a multi-view launch the tile kernels do not take,
+    on any device: rows that are not SB x NS x B_obj (:func:`mv_shape`, NS >=
+    2); more than MAX_VIEWS views; weights the tile does not take
+    (:func:`check_tile_tower`); more injections than blocks below the mean;
+    a stored program past ``limits.max_steps`` (one view's segment and the
+    shared blocks: too many blocks; any view count fits)."""
+    mv_shape(rows, NS, sb, combine_layer, n_blocks)
+    if NS > MAX_VIEWS:
+        raise ValueError(f"the multi-view kernels take at most {MAX_VIEWS} views (NS={NS})")
+    check_tile_tower(tower, n_blocks, limits)
+    n_lin_z = tower.w_z.shape[0]
+    if n_lin_z > combine_layer:
+        raise ValueError(f"the multi-view kernels inject the latent only below the view mean "
+                         f"(n_lin_z={n_lin_z}, combine_layer={combine_layer})")
+    steps = dense_steps(n_blocks, n_lin_z, NS, combine_layer)
+    if steps > limits.max_steps:
+        raise ValueError(f"the multi-view kernels store at most {limits.max_steps} steps a tile; "
+                         f"{n_blocks} blocks with the mean at block {combine_layer} need {steps}")
 
 
 def check_dense_mv(z: Optional[torch.Tensor], rows: int, NS: int, sb: int, combine_layer: int,
                    tower: Tower, n_blocks: int, limits: DenseLimits) -> None:
     """Raise ValueError on what ``resnetfc_fwd_dense_mv`` does not take, on
-    any device: rows that are not SB x NS x B_obj (:func:`mv_shape`, NS >= 2);
-    weights the tile does not take (:func:`check_tile_tower`); more
-    injections than blocks below the mean; a program past
-    ``limits.max_steps`` (too many views); with a latent, z other than bf16
-    ``(rows, C)`` or that TMA cannot read in place (:func:`check_tma`)."""
-    mv_shape(rows, NS, sb, combine_layer, n_blocks)
-    check_tile_tower(tower, n_blocks, limits)
+    any device: the layout, views or weights (:func:`check_mv_tower`); with
+    a latent, z other than bf16 ``(rows, C)`` or that TMA cannot read in
+    place (:func:`check_tma`)."""
+    check_mv_tower(rows, NS, sb, combine_layer, tower, n_blocks, limits)
     n_lin_z, C = tower.w_z.shape[0], tower.w_z.shape[1]
-    if n_lin_z > combine_layer:
-        raise ValueError(f"the multi-view kernel injects the latent only below the view mean "
-                         f"(n_lin_z={n_lin_z}, combine_layer={combine_layer})")
-    steps = dense_steps(n_blocks, n_lin_z, NS, combine_layer)
-    if steps > limits.max_steps:
-        raise ValueError(f"the multi-view kernel runs at most {limits.max_steps} steps a tile; "
-                         f"{n_blocks} blocks at NS={NS} need {steps}")
     if n_lin_z > 0:
         if z is None or z.dtype != torch.bfloat16:
             raise ValueError(f"the multi-view kernel needs a bf16 latent z, got "
@@ -657,17 +681,10 @@ def dense_plan(tower: Tower, n_blocks: int) -> ctypes.Array:
     return plan
 
 
-def view_slots(dev) -> torch.Tensor:
-    """The multi-view gather's view-sum slots: one 64 KB f32 slot per CTA of
-    its persistent grid, one CTA per SM."""
-    n_ctas = torch.cuda.get_device_properties(dev).multi_processor_count
-    return torch.empty((n_ctas, _lib().resnetfc_fwd_slot_floats()), device=dev)
-
-
 def dense_mv_slots(dev, limits: DenseLimits) -> torch.Tensor:
-    """The multi-view dense kernel's view-sum slots, one per SM: each
-    persistent CTA keeps its share of the view sum there (``limits.slot_floats``
-    f32, 128 KB at the 64-point tile)."""
+    """The multi-view kernels' view-sum slots, one per SM: each persistent
+    CTA keeps its share of the view sum there (``limits.slot_floats`` f32,
+    128 KB at the 64-point tile)."""
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return torch.empty((n_sms, limits.slot_floats), device=dev)
 
@@ -784,6 +801,7 @@ def resnetfc_gather_mv(idx: torch.Tensor, w: torch.Tensor, tables: torch.Tensor,
     ``z = sum_{j<4} w[:, j] * tables[v][idx[:, j]]`` fused in: ``tables
     (NS, T, C)`` bf16, ``idx (NS*B, taps)`` int32 and ``w (NS*B, taps)`` f32
     view-major, ``x (NS*B, d_in)`` f32 (or a RawCode) in the same rows.
+    Raises on what the kernel does not take (:func:`check_gather_mv`).
 
     :return: (d_out, B) f32 when ``planar_out`` else (B, d_out)
     """
@@ -798,19 +816,17 @@ def resnetfc_gather_mv(idx: torch.Tensor, w: torch.Tensor, tables: torch.Tensor,
         return resnetfc_reference(z, x, tower, n_blocks, planar_out, NS=NS,
                                   combine_layer=combine_layer)
     args, tail, out, C, n_lin_z, suffix = _tower_args(tower, x, n_blocks, planar_out, B)
-    _check_tower_smem(C, tower.w_in.shape[0], n_lin_z)
-    taps = idx.shape[1]
-    if taps < 4:
-        raise ValueError(f"need at least 4 taps, got {taps}")
-    _check(idx, "idx", torch.int32, (rows, taps))
-    _check(w, "w", torch.float32, (rows, taps))
-    _check(tables, "tables", torch.bfloat16, (NS, tables.shape[1], C))
+    _check(idx, "idx", torch.int32, idx.shape)
+    _check(w, "w", torch.float32, w.shape)
+    _check(tables, "tables", torch.bfloat16, tables.shape)
+    limits = dense_limits()
+    check_gather_mv(idx, w, tables, rows, combine_layer, tower, n_blocks, limits)
     if B == 0:
         return out
-    slots = view_slots(out.device)
+    slots = dense_mv_slots(out.device, limits)
     err = _lib().resnetfc_fwd_gather_mv(
-        idx.data_ptr(), w.data_ptr(), taps, tables.data_ptr(), tables.shape[1], *args, NS, B,
-        combine_layer, slots.data_ptr(), slots.shape[0], *tail,
+        dense_plan(tower, n_blocks), idx.data_ptr(), w.data_ptr(), idx.shape[1], tables.data_ptr(),
+        tables.shape[1], *args, NS, B, combine_layer, slots.data_ptr(), slots.shape[0], *tail,
     )
     _launched("resnetfc_fwd_gather_mv" + suffix, err)
     return out

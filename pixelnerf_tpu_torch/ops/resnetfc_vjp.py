@@ -366,15 +366,19 @@ def task_operands(task: WTask, z: Optional[torch.Tensor], data: DataOut):
     return a, data.ws_cot[task.g_plane : task.g_plane + n].reshape(task.P, -1)
 
 
-def split_points(tasks: Sequence[WTask]) -> int:
+def split_points(tasks: Sequence[WTask], max_splits: int) -> int:
     """Points per split of every product's point axis: the shortest
-    product's points, rounded up to a multiple of 64.  So a product splits
-    by view (NS pieces below the view mean, one above it, one at NS = 1):
-    every CTA walks as many points, and a product of one view writes its
-    result with no f32 partials.  The kernel is bound by the card's memory
-    system, not by its SMs, so fewer splits beat whole waves (PERF.md,
-    Findings PR 6: the split sweep of chip_smoke.py)."""
-    return -(-min(t.P for t in tasks) // 64) * 64
+    product's points, rounded up to a multiple of 64, times as many as it
+    takes for the longest product to fit ``max_splits`` splits.  So a
+    product splits by whole views (NS pieces below the view mean, one above
+    it, one at NS = 1; at NS > max_splits, ceil(NS / max_splits) views a
+    piece): every CTA walks as many points, and a product of one view writes
+    its result with no f32 partials.  The kernel is bound by the card's
+    memory system, not by its SMs, so fewer splits beat whole waves
+    (PERF.md, Findings: the split sweep of chip_smoke.py)."""
+    pts = -(-min(t.P for t in tasks) // 64) * 64
+    splits = -(-max(t.P for t in tasks) // pts)
+    return pts * -(-splits // max_splits)
 
 
 class WPlan(NamedTuple):
@@ -407,7 +411,7 @@ def weight_plan(kin: int, H: int, C: int, n_blocks: int, n_lin_z: int, NS: int, 
         return maps.setdefault((arrays.index(array), row0, rows, width[array]), len(maps))
 
     if pts is None:
-        pts = split_points(tasks)
+        pts = split_points(tasks, limits.max_splits)
     out0 = {"lin_in": 0}
     out0.update({f"lin_z.{k}": kin * H + k * C * H for k in range(n_lin_z)})
     blk0 = kin * H + n_lin_z * C * H
@@ -561,7 +565,7 @@ class DataLimits(NamedTuple):
     slot_floats: int  # f32 words of a CTA's multi-view slot (its 64 x 512 stream and dview)
     stages: int  # weight-ring stages
     max_out: int  # the most outputs of lin_out
-    max_steps: int  # the most steps of one tile's program
+    max_steps: int  # the most steps of one tile's stored program (one view's segments)
     smem: int  # dynamic shared memory a CTA
 
 
@@ -573,16 +577,31 @@ def data_limits() -> DataLimits:
 
 
 def data_steps(n_blocks: int, n_lin_z: int, NS: int, pre: int) -> int:
-    """Steps of one ``resnetfc_bwd_data`` tile's program (``data_program``
-    in ``csrc/resnetfc_bwd.cu``): per view lin_in, its injections and its
-    blocks, recomputed (and, NS > 1, folded into the mean); the shared
-    blocks; lin_out; the walk back of every block (its cotangent, fc_1,
-    fc_0), each injection and lin_in (pre = n_blocks when NS == 1).  34 at
-    sn64 and one view, 86 at three."""
+    """Steps of one ``resnetfc_bwd_data`` tile's stored program
+    (``data_program`` in ``csrc/resnetfc_bwd.cu``): one view's recompute of
+    lin_in, its injections and its blocks (and, NS > 1, the fold into the
+    mean), which the tile walks once for each view; the shared blocks,
+    lin_out and the shared blocks' walk back (each block's cotangent, fc_1,
+    fc_0), once; one view's walk back through its blocks, injections and
+    lin_in, walked once for each view (pre = n_blocks when NS == 1).  34 at
+    sn64 and one view, 36 at any view count."""
     mv = int(NS > 1)
     shared = n_blocks - pre
-    return (NS * (1 + n_lin_z + 2 * pre + mv) + 2 * shared + 1 + 3 * shared
-            + NS * (mv + 3 * pre + n_lin_z + 1))
+    return (1 + n_lin_z + 2 * pre + mv) + 2 * shared + 1 + 3 * shared + (mv + 3 * pre + n_lin_z + 1)
+
+
+def check_data_program(n_blocks: int, n_lin_z: int, NS: int, pre: int,
+                       limits: DataLimits) -> None:
+    """Raise ValueError on a view count or a tower whose program
+    ``resnetfc_bwd_data`` does not take: more than MAX_VIEWS views (a step's
+    view is 8 bits), or a stored program (:func:`data_steps`, the same at
+    every view count) past ``limits.max_steps``."""
+    if NS > rf.MAX_VIEWS:
+        raise ValueError(f"resnetfc_bwd_data takes at most {rf.MAX_VIEWS} views (NS = {NS})")
+    steps = data_steps(n_blocks, n_lin_z, NS, pre)
+    if steps > limits.max_steps:
+        raise ValueError(f"resnetfc_bwd_data stores at most {limits.max_steps} steps a tile; "
+                         f"{n_blocks} blocks need {steps}")
 
 
 def check_data_widths(kin: int, H: int, C: int, n_lin_z: int, n_blocks: int, d_out: int,
@@ -642,9 +661,7 @@ def bwd_data(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.Tensor, tower:
     dev = x.device
     lim = data_limits()
     check_data_widths(kin, H, C, n_lin_z, n_blocks, d_out, lim)
-    if data_steps(n_blocks, n_lin_z, NS, pre) > lim.max_steps:
-        raise ValueError(f"resnetfc_bwd_data runs at most {lim.max_steps} steps a tile; "
-                         f"{n_blocks} blocks at NS = {NS} need {data_steps(n_blocks, n_lin_z, NS, pre)}")
+    check_data_program(n_blocks, n_lin_z, NS, pre, lim)
     rf._check(g, "g", torch.float32, (d_out, B))
     if n_lin_z > 0:
         rf._check(z, "z", torch.bfloat16, (NS * B, C))

@@ -20,10 +20,12 @@ fine pass (4 x 128 x 96 = 49,152), the backward's data kernel
 (``resnetfc_bwd_data``) at -V 1 and -V 3 (SB 4 x NS 3 x 12,288 rows) there,
 the fused gather (``resnetfc_gather``, 4 bilinear taps padded to 8 into a
 1024 x 512 bf16 table) at the render's fine and coarse passes (393,216 and
-262,144 points), and the multi-view dense forward (``resnetfc_dense_mv``)
+262,144 points), the multi-view dense forward (``resnetfc_dense_mv``)
 from 3 views at the render's fine pass (393,216 output points) and at the
--V 3 train step's (SB 4 x 12,288): CUDA events around 5 calls after one
-warm-up, ms a call.  The script is the same for every checkout; only the
+-V 3 train step's (SB 4 x 12,288), and the multi-view gather
+(``resnetfc_gather_mv``, two 1024 x 512 bf16 tables) from 2 views at the
+render's fine and coarse passes (393,216 and 262,144 output points): CUDA
+events around 5 calls after one warm-up, ms a call.  The script is the same for every checkout; only the
 kernels differ.  The last line then holds, per checkout, each kernel's times
 run by run.
 Needs a CUDA card and the checkouts' kernels to build there.
@@ -53,7 +55,8 @@ def child(views: int, steps: int) -> None:
 
 
 KERNEL_CASES = ("dense_393216", "dense_49152", "bwd_data_v1_49152", "bwd_data_v3_49152",
-                "gather_393216", "gather_262144", "dense_mv_v3_393216", "dense_mv_v3_49152")
+                "gather_393216", "gather_262144", "dense_mv_v3_393216", "dense_mv_v3_49152",
+                "gather_mv_v2_393216", "gather_mv_v2_262144")
 
 
 def child_kernels() -> None:
@@ -112,6 +115,13 @@ def child_kernels() -> None:
         for B, sb in ((393216, 1), (49152, 4)):
             z, x = inputs(3 * B)
             out[f"dense_mv_v3_{B}"] = ms(lambda: rf.resnetfc_dense_mv(z, x, tw, nb, 3, cl, sb))
+        tables = torch.randn(2, 1024, mlp.d_latent, device=dev, generator=gd).bfloat16()
+        for B in (393216, 262144):
+            _, x = inputs(2 * B)
+            uv = torch.rand(2 * B, 2, device=dev, generator=gd) * 2 - 1
+            idx, w = (t.contiguous() for t in bilinear_taps(uv, 32, 32, pad_taps_to=8))
+            out[f"gather_mv_v2_{B}"] = ms(lambda: rf.resnetfc_gather_mv(idx, w, tables, x, tw, nb,
+                                                                         cl))
     print(json.dumps({"kernel_ms": out, "card": torch.cuda.get_device_name(0)}), flush=True)
 
 

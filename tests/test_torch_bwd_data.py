@@ -1,6 +1,9 @@
 """The data half of the port's ResnetFC backward (``ops/resnetfc_vjp.py``:
 ``bwd_data``, its plain version ``workspace_reference``, and the launch
-helpers ``data_grid``, ``data_slots``' size and ``check_data_widths``).
+helpers ``data_grid``, ``data_slots``' size, ``check_data_widths`` and
+``check_data_program``), and a Python mirror of the kernel's program: one
+view's recompute and walk back stored once each and walked NS times, which
+must walk the same steps as the flat program of every view written out.
 
 ``resnetfc_bwd_data`` walks 64-point tiles but keeps the DataOut contract of
 32-row tiles: ``B_pad`` is B rounded up to 32, and ``rows`` holds one row of
@@ -217,13 +220,159 @@ def test_check_data_widths_refuses(kin, H, C, n_lin_z, nb, d_out, match):
     # lin_in, 3 injections, 10 block layers; lin_out; 5 x (cotangent, fc_1,
     # fc_0), 3 injections, lin_in's cotangent
     (5, 3, 1, 5, 14 + 1 + 19),
-    (5, 3, 3, 3, 86),  # -V 3: the views below the mean, blocks 3-4 once
+    # -V 3: one view's recompute below the mean and its fold (11), blocks 3-4
+    # and lin_out and their walk back (11), one view's walk back (14); the
+    # tile walks the first and the last part once for each view
+    (5, 3, 3, 3, 11 + 11 + 14),
     (3, 0, 1, 3, 7 + 1 + 10),
-    (5, 0, 2, 0, 2 * 2 + 10 + 1 + 15 + 2 * 2),  # no latent, the mean at lin_in's output
+    (5, 0, 2, 0, 2 + 10 + 1 + 15 + 2),  # no latent, the mean at lin_in's output
 ])
 def test_data_steps(nb, nlz, NS, pre, want):
     assert rv.data_steps(nb, nlz, NS, pre) == want
     assert want <= LIMITS.max_steps
+
+
+@pytest.mark.parametrize("NS", [10, 24, 64, 255])
+def test_check_data_program_takes_any_view_count(NS):
+    """-V 10, 24, 64 and 255 at sn64: 36 steps stored at any view count."""
+    rv.check_data_program(5, 3, NS, 3, LIMITS)
+    assert rv.data_steps(5, 3, NS, 3) == 36
+
+
+def test_check_data_program_refuses_views_past_the_step_and_long_towers():
+    with pytest.raises(ValueError, match="at most 255 views"):
+        rv.check_data_program(5, 3, 256, 3, LIMITS)
+    with pytest.raises(ValueError, match="stores at most 35 steps"):
+        rv.check_data_program(5, 3, 3, 3, LIMITS._replace(max_steps=35))
+
+
+# ---- a Python mirror of the data kernel's program and of its two walks ----
+# Kinds and the step word as csrc/tile64.cuh has them.  A walked step is
+# (step word, view); the shared steps are walked at view 0.
+IN_FWD, Z_FWD, B0_FWD, B1_FWD, FOLD, T_OUT, GB, Z_BWD, B1_BWD, B0_BWD, DVIEW, G_IN = range(12)
+NOT_PRODUCTS = (FOLD, T_OUT, GB, DVIEW, G_IN)
+
+
+def _step(kind, k, aux):
+    return kind | (k << 4) | (aux << 12)
+
+
+def _flat_program(nb, nlz, NS, pre):
+    """The flat program: every view's recompute, the shared steps, every
+    view's walk back, written out in turn."""
+    mv, out = NS > 1, []
+    for v in range(NS):
+        out.append((_step(IN_FWD, 0, int(nlz == 0 and pre > 0)), v))
+        for k in range(pre):
+            if k < nlz:
+                out.append((_step(Z_FWD, k, 0), v))
+            out.append((_step(B0_FWD, k, 0), v))
+            out.append((_step(B1_FWD, k, int(k + 1 >= nlz and (k + 1 < pre or not mv))), v))
+        if mv:
+            out.append((_step(FOLD, 0, 0), v))
+    for k in range(pre, nb):
+        out += [(_step(B0_FWD, k, 0), 0), (_step(B1_FWD, k, 1), 0)]
+    out.append((_step(T_OUT, 0, 0), 0))
+    for k in range(nb - 1, pre - 1, -1):
+        out += [(_step(GB, k, 0), 0), (_step(B1_BWD, k, 0), 0), (_step(B0_BWD, k, 0), 0)]
+    for v in range(NS):
+        if mv:
+            out.append((_step(DVIEW, 0, 0), v))
+        first_z = True
+        for k in range(pre - 1, -1, -1):
+            out.append((_step(GB, k, 0), v))
+            if k + 1 < nlz:
+                out.append((_step(Z_BWD, k + 1, int(first_z)), v))
+                first_z = False
+            out += [(_step(B1_BWD, k, 0), v), (_step(B0_BWD, k, 0), v)]
+        out.append((_step(G_IN, 0, 0), v))
+        if nlz > 0:
+            out.append((_step(Z_BWD, 0, int(first_z)), v))
+    return out
+
+
+def _stored_program(nb, nlz, mv, pre):
+    """data_program: one view's recompute, the shared steps, one view's walk
+    back."""
+    return [s for s, v in _flat_program(nb, nlz, 2 if mv else 1, pre) if v == 0]
+
+
+def _segments(prog):
+    """(d_seg1, d_seg3): the end of the recompute segment (after FOLD) and
+    the start of the walk-back segment (DVIEW)."""
+    kinds = [s & 15 for s in prog]
+    return kinds.index(FOLD) + 1, kinds.index(DVIEW)
+
+
+def _body_walk(prog, NS):
+    """The kernel's step loop at NS views (MV): si holds the index in its low
+    12 bits and the view above them; FOLD goes on to the next view's
+    recompute or into the shared steps (view 0); the end of a view's walk
+    back goes on to the next view's, to the walk's end."""
+    _, seg3 = _segments(prog)
+    out, si, end = [], 0, len(prog) | ((NS - 1) << 12)
+    while si < end:
+        if (si & 0xFFF) == len(prog):
+            si = seg3 | (((si >> 12) + 1) << 12)
+        s = prog[si & 0xFFF]
+        out.append((s, si >> 12))
+        if s & 15 == FOLD:
+            v = si >> 12
+            si = ((v + 1) << 12) - 1 if v + 1 < NS else si & 0xFFF
+        si += 1
+    return out
+
+
+def _feeder_walk(prog, NS, tiles):
+    """feed's walk of the products at NS views (MV) over a CTA's tiles:
+    next_step (one compare a step against where the walk next turns), each
+    product's successor skipping what is not a product."""
+    seg1, seg3 = _segments(prog)
+    out, g, v, bound, tile = [], 0, 0, seg1, 0
+
+    def next_step():
+        nonlocal g, v, bound, tile
+        g += 1
+        if g != bound:
+            return
+        if g == seg1:
+            v += 1
+            if v < NS:
+                g = 0
+            else:
+                v, bound = 0, len(prog)
+        else:
+            v += 1
+            if v < NS:
+                g = seg3
+            else:
+                v, bound, g, tile = 0, seg1, 0, tile + 1
+
+    while tile < tiles:
+        out.append(prog[g])
+        next_step()
+        while tile < tiles and prog[g] & 15 in NOT_PRODUCTS:
+            next_step()
+    return out
+
+
+@pytest.mark.parametrize("nb,nlz,pre", [(5, 3, 3), (4, 2, 2), (3, 0, 1), (2, 1, 1), (5, 0, 0)])
+def test_looped_data_program_walks_the_flat_program(nb, nlz, pre):
+    """At NS 2-64 the stored program (data_steps long), walked as the kernel
+    walks it, is the flat program step for step, views included; thread 0's
+    feed walks the flat program's products over two tiles (their weights:
+    gemm_of reads no view).  At NS = 1 the stored program is the one-view
+    program itself."""
+    one = _stored_program(nb, nlz, False, nb)
+    assert one == [s for s, _ in _flat_program(nb, nlz, 1, nb)]
+    assert len(one) == rv.data_steps(nb, nlz, 1, nb)
+    prog = _stored_program(nb, nlz, True, pre)
+    assert len(prog) == rv.data_steps(nb, nlz, 2, pre)
+    for NS in range(2, 65):
+        flat = _flat_program(nb, nlz, NS, pre)
+        assert _body_walk(prog, NS) == flat
+        products = [s for s, _ in flat if s & 15 not in NOT_PRODUCTS]
+        assert _feeder_walk(prog, NS, 2) == products * 2
 
 
 def test_check_data_widths_takes_any_latent_width_without_a_latent():

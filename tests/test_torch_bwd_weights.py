@@ -160,7 +160,7 @@ def test_split_points_fill_the_card_in_whole_pieces(NS, pre, B, pts):
     and 1 above it (254 CTAs); a ragged B_pad (1,024 rows) rounds up, so a
     product of three views takes 3 pieces, the last shorter."""
     tasks = rv.weight_tasks(48, 512, 512, 5, 3, NS, pre, B)
-    got = rv.split_points(tasks)
+    got = rv.split_points(tasks, LIMITS.max_splits)
     assert got == pts
     plan = rv.weight_plan(48, 512, 512, 5, 3, NS, pre, B, LIMITS)
     assert plan.pts == pts
@@ -169,6 +169,29 @@ def test_split_points_fill_the_card_in_whole_pieces(NS, pre, B, pts):
         assert 1 <= s <= NS and (s - 1) * got < t.P <= s * got
         assert plan.table[6 * i + 4] == s
     assert plan.units == sum(rv.weight_tiles(t, 512, LIMITS) * NS for t in tasks if t.P > pts)
+
+
+@pytest.mark.parametrize("NS,B", [(25, 4 * 128 * 96), (64, 4 * 128 * 96), (255, 4 * 128 * 96),
+                                  (26, 2 * 333), (255, 1000)])
+def test_weight_plan_fits_max_splits_at_any_view_count(NS, B):
+    """-V 25, 64 and 255 (sn64, the mean at block 3): the products below the
+    mean sum over NS views of B_pad points, and a split takes as many of the
+    shortest product's pieces (one view's B_pad, rounded up to 64) as it
+    needs for the longest to fit the kernel's 24 splits -- whole views where
+    B_pad is a multiple of 64 -- so no product passes them."""
+    tasks = rv.weight_tasks(48, 512, 512, 5, 3, NS, 3, B)
+    plan = rv.weight_plan(48, 512, 512, 5, 3, NS, 3, B, LIMITS)
+    B_pad = -(-B // 32) * 32
+    piece = -(-B_pad // 64) * 64
+    assert plan.pts == piece * -(-(-(-NS * B_pad // piece)) // LIMITS.max_splits)
+    if B_pad % 64 == 0:
+        assert plan.pts == B_pad * -(-NS // LIMITS.max_splits)
+    for i, t in enumerate(tasks):
+        s = plan.table[6 * i + 4]
+        assert s == -(-t.P // plan.pts) and 1 <= s <= LIMITS.max_splits
+        assert (s - 1) * plan.pts < t.P <= s * plan.pts
+    assert plan.units == sum(rv.weight_tiles(t, 512, LIMITS) * plan.table[6 * i + 4]
+                             for i, t in enumerate(tasks) if plan.table[6 * i + 4] > 1)
 
 
 @pytest.mark.parametrize("NS,pre", [(1, 5), (3, 3)])

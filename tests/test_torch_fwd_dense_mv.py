@@ -1,7 +1,10 @@
 """The port's multi-view dense forward (row 3 of PERF.md: ``_kernel_2d_mv``):
 ``ops/resnetfc_fused.py::resnetfc_dense_mv``, its plain version
 ``resnetfc_reference`` and the launch helpers of ``resnetfc_fwd_dense_mv``
-(``dense_steps`` at NS views, ``dense_mv_grid``, ``check_dense_mv``).
+(``dense_steps`` at NS views, ``dense_mv_grid``, ``check_dense_mv``), and a
+Python mirror of the kernel's program: one view's steps stored once and
+walked NS times, which must walk the same steps as the flat program of
+every view written out.
 
 ``resnetfc_fwd_dense_mv`` walks 64-point tiles of output points on
 persistent CTAs; its input rows are object-major (SB objects x NS views x
@@ -100,11 +103,11 @@ def test_dense_mv_plain_matches_pallas_interpret(NS, sb, B_obj, raw_code, planar
 
 
 def _walk_back(nb, nlz, NS, pre):
-    """The data kernel's steps after its recompute (data_steps): lin_out, the
-    shared blocks' walk back, then each view's (its dview, the blocks below
-    the mean, its injections and lin_in)."""
+    """The data kernel's stored steps after its recompute (data_steps):
+    lin_out, the shared blocks' walk back, then one view's (its dview, the
+    blocks below the mean, its injections and lin_in), walked NS times."""
     mv = int(NS > 1)
-    return 1 + 3 * (nb - pre) + NS * (mv + 3 * pre + nlz + 1)
+    return 1 + 3 * (nb - pre) + (mv + 3 * pre + nlz + 1)
 
 
 @pytest.mark.parametrize("nb,nlz,pre", [(5, 3, 3), (4, 2, 2), (3, 0, 1), (2, 1, 1), (5, 0, 0)])
@@ -120,12 +123,14 @@ def test_dense_mv_program_is_the_data_kernels_recompute(nb, nlz, pre):
 
 
 def test_dense_mv_program_takes_every_view_count_of_the_data_kernel():
-    """At sn64 (5 blocks, 3 injections, the mean at block 3) a tile runs 37
-    steps from 3 views and 103 from 9, the most views whose data-kernel
-    program (236 steps) fits its 256; both fit the forward's 128."""
-    assert rf.dense_steps(5, 3, 3, 3) == 37
-    assert rf.dense_steps(5, 3, 9, 3) == 103 <= LIMITS.max_steps
-    assert rv.data_steps(5, 3, 9, 3) <= 256 < rv.data_steps(5, 3, 10, 3)
+    """At sn64 (5 blocks, 3 injections, the mean at block 3) a tile stores 15
+    steps at every view count (one view's 11, the shared blocks' 4) and the
+    data kernel 36, within the forward's 128 and the data kernel's 256: the
+    stored programs do not grow with the views."""
+    assert rf.dense_steps(5, 3) == 14
+    for NS in (2, 3, 9, 10, 12, 24, 25, 64, 255):
+        assert rf.dense_steps(5, 3, NS, 3) == 15 <= LIMITS.max_steps
+        assert rv.data_steps(5, 3, NS, 3) == 36 <= 256
 
 
 @pytest.mark.parametrize("B,n_sms,grid", [(1, 132, 1), (64, 132, 1), (65, 132, 2), (666, 132, 11),
@@ -134,6 +139,94 @@ def test_dense_mv_program_takes_every_view_count_of_the_data_kernel():
 def test_dense_mv_grid_is_persistent(B, n_sms, grid):
     """min(tiles, SMs): each CTA holds a view-sum slot and walks its tiles."""
     assert rf.dense_mv_grid(B, n_sms, LIMITS) == grid == min(-(-B // 64), n_sms)
+
+
+# ---- a Python mirror of the tile's program and of its two walks ----
+# Kinds and the step word as csrc/tile64.cuh has them; FOLD is the only kind
+# here that is not a product.  A walked step is (step word, view).
+IN_FWD, Z_FWD, B0_FWD, B1_FWD, FOLD = range(5)
+
+
+def _step(kind, k, aux):
+    return kind | (k << 4) | (aux << 12)
+
+
+def _flat_program(nb, nlz, NS, pre):
+    """The flat program: every view's steps written out in turn, then the
+    shared blocks (of no view)."""
+    mv, out = NS > 1, []
+    for v in range(NS):
+        out.append((_step(IN_FWD, 0, int(nlz == 0 and pre > 0)), v))
+        for k in range(pre):
+            if k < nlz:
+                out.append((_step(Z_FWD, k, 0), v))
+            out.append((_step(B0_FWD, k, 0), v))
+            out.append((_step(B1_FWD, k, int(k + 1 >= nlz and (k + 1 < pre or not mv))), v))
+        if mv:
+            out.append((_step(FOLD, 0, 0), v))
+    for k in range(pre, nb):
+        out += [(_step(B0_FWD, k, 0), None), (_step(B1_FWD, k, 1), None)]
+    return out
+
+
+def _stored_program(nb, nlz, mv, pre):
+    """fwd_program: one view's segment, then the shared blocks."""
+    return [s for s, v in _flat_program(nb, nlz, 2 if mv else 1, pre) if v in (0, None)]
+
+
+def _body_walk(prog, NS, pre):
+    """fwd_body's walk at NS views (MV): si holds the index in its low 12 bits
+    and the view above them; FOLD goes on to the next view's segment, or
+    after the last view on into the shared blocks, which read no view (the
+    last one's stays in si) to the walk's end."""
+    out, si, end = [], 0, len(prog) | ((NS - 1) << 12)
+    while si < end:
+        s = prog[si & 0xFFF]
+        shared = s & 15 in (B0_FWD, B1_FWD) and (s >> 4) & 255 >= pre
+        out.append((s, None if shared else si >> 12))
+        if s & 15 == FOLD and (si >> 12) + 1 < NS:
+            si = (((si >> 12) + 1) << 12) - 1
+        si += 1
+    return out
+
+
+def _feeder_walk(prog, NS, tiles):
+    """dense_feed's walk of the products at NS views (MV) over a CTA's tiles:
+    the segment's products once for each view (a compare and a reset of the
+    views left), then the shared blocks', then the next tile."""
+    gprog = [s for s in prog if s & 15 != FOLD]
+    seg = [s & 15 for s in prog].index(FOLD)
+    out, g, vleft, left = [], 0, NS - 1, tiles
+    while left > 0:
+        out.append(gprog[g])
+        g += 1
+        if g == seg and vleft > 0:
+            g, vleft = 0, vleft - 1
+        elif g == len(gprog):
+            g, vleft, left = 0, NS - 1, left - 1
+    return out
+
+
+@pytest.mark.parametrize("nb,nlz,pre", [(5, 3, 3), (4, 2, 2), (3, 0, 1), (2, 1, 1), (5, 0, 0),
+                                        (3, 3, 3)])
+def test_looped_program_walks_the_flat_program(nb, nlz, pre):
+    """At NS 2-64 the stored program (dense_steps long), walked as the body
+    walks it, is the flat program step for step, with the view of every step
+    that reads one; the feeders' walk of its products is the flat program's
+    products over two tiles (their weights: gemm_of reads no view).  At NS =
+    1 the stored program is the one-view program itself."""
+    one = _stored_program(nb, nlz, False, nb)
+    assert one == [s for s, _ in _flat_program(nb, nlz, 1, nb)]
+    assert len(one) == rf.dense_steps(nb, nlz)
+    if pre == nb:
+        return
+    prog = _stored_program(nb, nlz, True, pre)
+    assert len(prog) == rf.dense_steps(nb, nlz, 2, pre)
+    for NS in range(2, 65):
+        flat = _flat_program(nb, nlz, NS, pre)
+        assert _body_walk(prog, NS, pre) == flat
+        products = [s for s, _ in flat if s & 15 != FOLD]
+        assert _feeder_walk(prog, NS, 2) == products * 2
 
 
 def _tower(kin=48, H=512, C=512, n_lin_z=3, nb=5, d_out=4):
@@ -164,11 +257,22 @@ def test_check_dense_mv_refuses_fewer_than_two_views(NS):
         rf.check_dense_mv(_z(300), 300, NS, 1, 3, _tower(), 5, LIMITS)
 
 
+@pytest.mark.parametrize("NS", [12, 24, 64, 255])
+def test_check_dense_mv_takes_any_view_count(NS):
+    """sn64 from 12, 24, 64 and 255 views, SB 1 and 2: the stored program is
+    one view's segment and the shared blocks, 15 steps at any NS."""
+    rf.check_dense_mv(_z(NS * 64), NS * 64, NS, 1, 3, _tower(), 5, LIMITS)
+    rf.check_dense_mv(_z(2 * NS * 3), 2 * NS * 3, NS, 2, 3, _tower(), 5, LIMITS)
+
+
 def test_check_dense_mv_refuses_views_past_the_program():
-    """12 views at sn64 need 136 steps a tile, past the program's 128."""
-    rows = 12 * 64
+    """A step holds its view in 8 bits: 256 views are past the program; and
+    a tower whose stored program is past max_steps is refused at any NS."""
+    rows = 256 * 4
+    with pytest.raises(ValueError, match="at most 255 views"):
+        rf.check_dense_mv(_z(rows), rows, 256, 1, 3, _tower(), 5, LIMITS)
     with pytest.raises(ValueError, match="steps"):
-        rf.check_dense_mv(_z(rows), rows, 12, 1, 3, _tower(), 5, LIMITS)
+        rf.check_dense_mv(_z(2 * 64), 2 * 64, 2, 1, 3, _tower(), 5, LIMITS._replace(max_steps=14))
 
 
 def test_check_dense_mv_refuses_a_latent_it_cannot_read():
