@@ -79,18 +79,37 @@ one line each:
    (AMP) and one on the plain f32 route from the same weights, batch and
    draws: losses within 1%, ``grad_norm`` within 2%, cosine >= 0.99 between
    each head's and the encoder's gradients;
-10. train path: ``python -m pixelnerf_tpu_torch.train`` in-process on the
-   synthetic data, 12 one-step epochs at -V 1 and 6 at -V 3; the forward
-   kernel of the view count and both backward kernels launch twice per step,
-   no other forward kernel launches, the losses stay finite and
-   ``pixel_nerf_latest`` is written;
-11. eval path: ``python -m pixelnerf_tpu_torch.eval.eval`` in-process with
-    ``PIXELNERF_DEFER_CODE=1`` on a checkpoint of the render phases' model,
-    ``-F synthetic --split test -P "0" --max_objs 2``: the single-view gather
-    kernel's code variant launches, PSNR/SSIM are finite, ``finish.txt``
-    holds 2 lines and the PNGs exist; a second run resumes and renders
-    nothing; one object from ``-P "0 1 2"`` goes through the multi-view
-    dense kernel's code variant.
+10. data: the port's writers write an NMR-layout fixture (``-F dvr``: 6
+    objects x 24 views at 64 px, NDC cameras) and a DTU one (``-F dvr_dtu``:
+    4 scans x 49 views at 300 x 400, off-centre principal points that move
+    from view to view, an anisotropic focal, negated world_mats); both are
+    read back through ``get_split_dataset``: every decoded pixel and mask
+    must equal what the writer wrote, the poses the writer's camera ring to
+    1e-5 and the DTU focal and c its intrinsics to 1e-5 relative; the host's
+    ``read_png`` ms per image at both sizes, on the fixtures' files and on
+    a Paeth-filtered copy (the decoder's slow path);
+11. train path: ``python -m pixelnerf_tpu_torch.train`` in-process,
+    ``-c conf/exp/sn64.conf -F dvr`` for 12 one-step epochs at -V 1 with
+    ``--profile_dir`` and ``-c conf/exp/dtu.conf -F dvr_dtu`` for one epoch
+    (32 repeats) at -V 3, both at -B 4 on 4 training objects (the SB 4 of
+    the kernel checks); the forward kernel of the view count and both
+    backward kernels launch twice per step, no other forward kernel
+    launches, the losses stay finite and ``pixel_nerf_latest`` is written;
+    the trace of the -V 1 run must hold steps 3-5 with their field kernels,
+    and each step's wall time is split into the field kernels, other device
+    work and the card idle, with the top device ops and the longest idle
+    gaps beside the host span covering each;
+12. eval path: ``python -m pixelnerf_tpu_torch.eval.eval`` in-process on a
+    checkpoint of the render phases' model, on ``-F dvr`` with
+    ``PIXELNERF_DEFER_CODE=1``: ``-P "0" --max_objs 2`` launches the
+    single-view gather kernel's code variant, PSNR/SSIM are finite,
+    ``finish.txt`` holds 2 lines and the PNGs exist; a second run resumes
+    and renders nothing; one object from ``-P "0 1"`` goes through the
+    multi-view gather's code variant and one from ``-P "0 1 2"`` through the
+    multi-view dense kernel's; then ``-c conf/exp/dtu.conf -F dvr_dtu -P "25
+    22 28" --scale 0.25`` on one scan and 4 target views, with the
+    ground-truth compare, launches the multi-view dense kernel and gives
+    finite PSNR/SSIM.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -116,6 +135,15 @@ FRAME = 64
 N_FRAMES = 3
 RAYS_PER_STEP = FRAME * FRAME  # one frame per render step: frame 0 is step 0
 SEED = 0
+# the data phase's fixtures: the NMR layout of conf/exp/sn64.conf and DTU's
+# own image size, views per scan and camera oddities (conf/exp/dtu.conf)
+NMR_OBJS, NMR_VIEWS = 6, 24
+DTU_SCANS, DTU_VIEWS, DTU_SIZE = 4, 49, (300, 400)
+DTU_KNOBS = dict(offcenter_c=0.05, focal_aniso=1.1, negate_world_mat=True)
+DTU_EVAL_VIEWS = (0, 10, 33, 45)
+# the eval CLI's rays a render call: the dense multi-view route holds
+# rays x 96 samples x views latents of 512 f32 (9.7 GB at 3 views)
+EVAL_RAYS = 16384
 
 
 def log(msg: str) -> None:
@@ -266,6 +294,329 @@ def by_view(a: torch.Tensor, NS: int, sb: int) -> torch.Tensor:
     """Object-major rows (sb * NS * B_obj, D) -> (NS, sb * B_obj, D), the
     cuBLAS chain's layout."""
     return a.reshape(sb, NS, -1, a.shape[-1]).transpose(0, 1).reshape(NS, -1, a.shape[-1])
+
+
+def paeth_png(img):
+    """The PNG file of an (H, W, 3) uint8 image with every row Paeth-filtered
+    (the port's writer writes filter 0 only)."""
+    import struct
+    import zlib
+
+    import numpy as np
+
+    H, W, C = img.shape
+    x = img.reshape(H, W * C).astype(np.int16)
+    a, b, c = (np.zeros_like(x) for _ in range(3))
+    a[:, C:], b[1:], c[1:, C:] = x[:, :-C], x[:-1], x[:-1, :-C]  # left, up, up-left
+    pa, pb, pc = np.abs(b - c), np.abs(a - c), np.abs(a + b - 2 * c)
+    pred = np.where((pa <= pb) & (pa <= pc), a, np.where(pb <= pc, b, c))
+    rows = np.concatenate([np.full((H, 1), 4, np.uint8), ((x - pred) & 255).astype(np.uint8)], 1)
+
+    def chunk(tag, data):
+        return (struct.pack(">I", len(data)) + tag + data
+                + struct.pack(">I", zlib.crc32(tag + data) & 0xFFFFFFFF))
+
+    return (b"\x89PNG\r\n\x1a\n" + chunk(b"IHDR", struct.pack(">IIBBBBB", W, H, 8, 2, 0, 0, 0))
+            + chunk(b"IDAT", zlib.compress(rows.tobytes(), 6)) + chunk(b"IEND", b""))
+
+
+def data_phase(root: str, smi: str):
+    """Write the NMR-layout and DTU fixtures with the port's writers, read
+    them back through ``get_split_dataset`` and hold every decoded pixel,
+    pose and intrinsic against what the writers wrote; time the PNG decode
+    per image.  Returns the two fixture roots."""
+    import numpy as np
+
+    from pixelnerf_tpu_torch.data import get_split_dataset
+    from pixelnerf_tpu_torch.data import synthetic as psynth
+    from pixelnerf_tpu_torch.utils import png
+
+    t0 = time.perf_counter()
+    written = {}  # path -> the uint8 image the writer wrote there
+    write_png = psynth.write_png
+
+    def recording_write(path, img, *args, **kwargs):
+        written[path] = np.array(img)
+        write_png(path, img, *args, **kwargs)
+
+    psynth.write_png = recording_write
+    try:
+        nmr = psynth.write_synthetic_dvr(os.path.join(root, "nmr"), n_objs=NMR_OBJS,
+                                         n_views=NMR_VIEWS, image_size=FRAME, seed=SEED)
+        t_nmr = time.perf_counter() - t0
+        dtu = psynth.write_synthetic_dtu(os.path.join(root, "dtu"), n_scenes=DTU_SCANS,
+                                         n_views=DTU_VIEWS, image_size=DTU_SIZE, seed=SEED,
+                                         **DTU_KNOBS)
+        t_write = time.perf_counter() - t0
+    finally:
+        psynth.write_png = write_png
+
+    def expect_images(paths):
+        return np.stack([(written[p][..., :3].astype(np.float32) / 255.0) * 2.0 - 1.0
+                         for p in paths])
+
+    worst = {"nmr_pose": 0.0, "dtu_pose": 0.0, "dtu_intrinsics": 0.0}
+    n_checked, t_read = 0, {}
+    # each object once: the NMR lists split the objects; every DTU split
+    # falls back to, or lists, every scan
+    for fmt, fx_root, splits in (("dvr", nmr, ("train", "val", "test")), ("dvr_dtu", dtu, ("val",))):
+        sizes = [len(d) for d in get_split_dataset(fmt, fx_root)]
+        if sizes != ([NMR_OBJS - 2, 1, 1] if fmt == "dvr" else [DTU_SCANS] * 3):
+            raise SystemExit(f"data: -F {fmt} splits hold {sizes} objects")
+        n_obj, t_in = 0, 0.0
+        for split in splits:
+            dset = get_split_dataset(fmt, fx_root, want_split=split)
+            for i in range(len(dset)):
+                t1 = time.perf_counter()
+                s = dset[i]
+                t_in += time.perf_counter() - t1
+                n_obj += 1
+                paths = sorted(os.path.join(s["path"], "image", f)
+                               for f in os.listdir(os.path.join(s["path"], "image")))
+                if not np.array_equal(s["images"], expect_images(paths)):
+                    raise SystemExit(f"data: decoded pixels of {s['path']} differ from the written")
+                name = os.path.basename(s["path"])
+                if fmt == "dvr":
+                    ring = psynth._camera_ring(NMR_VIEWS, seed=SEED * 1000 + int(name[3:]))
+                    worst["nmr_pose"] = max(worst["nmr_pose"], float(np.abs(s["poses"] - ring).max()))
+                    ok = (np.ndim(s["focal"]) == 0 and abs(float(s["focal"]) - 0.85 * FRAME) <= 1e-4
+                          and np.allclose(s["c"], [[FRAME / 2, FRAME / 2]], rtol=1e-5))
+                else:
+                    si = int(name[4:]) - 1
+                    ring = psynth._camera_ring(DTU_VIEWS, radius=1.6, seed=SEED * 77 + si)
+                    worst["dtu_pose"] = max(worst["dtu_pose"], float(np.abs(s["poses"] - ring).max()))
+                    with open(os.path.join(s["path"], "meta.json")) as f:
+                        intr = np.asarray(json.load(f)["intrinsics"], np.float64)
+                    focal = np.broadcast_to(np.asarray(s["focal"]).reshape(-1, 2), intr[:, :2].shape)
+                    c = np.broadcast_to(np.asarray(s["c"]).reshape(-1, 2), intr[:, 2:].shape)
+                    rel = max(float(np.abs(focal - intr[:, :2]).max() / np.abs(intr[:, :2]).max()),
+                              float(np.abs(c - intr[:, 2:]).max() / np.abs(intr[:, 2:]).max()))
+                    worst["dtu_intrinsics"] = max(worst["dtu_intrinsics"], rel)
+                    masks = np.stack([written[p.replace("/image/", "/mask/")][..., :1] / 255.0
+                                      for p in paths]).astype(np.float32)
+                    ok = (s["images"].shape == (DTU_VIEWS,) + DTU_SIZE + (3,)
+                          and np.array_equal(s["masks"], masks))
+                if not ok:
+                    raise SystemExit(f"data: {s['path']}: focal / c / masks differ from the written")
+                n_checked += len(paths)
+        t_read[fmt] = t_in / n_obj
+    if max(worst["nmr_pose"], worst["dtu_pose"]) > 1e-5 or worst["dtu_intrinsics"] > 1e-5:
+        raise SystemExit(f"data: poses or intrinsics off the writer's: {worst}")
+
+    # decode ms per image: the fixtures' files (filter 0) and, at both sizes,
+    # the same image with every row Paeth-filtered (the decoder's slow path)
+    decode_ms = {}
+    rng = np.random.default_rng(SEED)
+    for label, files in (("64x64", [p for p in written if p.startswith(nmr)]),
+                         ("300x400", [p for p in written if "/image/" in p and p.startswith(dtu)])):
+        t1 = time.perf_counter()
+        for p in files:
+            png.read_png(p)
+        decode_ms[f"{label} filter 0"] = 1e3 * (time.perf_counter() - t1) / len(files)
+        img = written[files[0]] ^ rng.integers(0, 8, size=written[files[0]].shape, dtype=np.uint8)
+        paeth = os.path.join(root, f"paeth_{label}.png")
+        with open(paeth, "wb") as f:
+            f.write(paeth_png(img))
+        t1 = time.perf_counter()
+        for _ in range(3):
+            back = png.read_png(paeth)
+        decode_ms[f"{label} Paeth"] = 1e3 * (time.perf_counter() - t1) / 3
+        if not np.array_equal(back, img):
+            raise SystemExit(f"data: a Paeth-filtered {label} file does not decode to its pixels")
+    log(f"data: port writers -> {NMR_OBJS} NMR objects x {NMR_VIEWS} views at {FRAME}px "
+        f"(-F dvr) and {DTU_SCANS} DTU scans x {DTU_VIEWS} views at {DTU_SIZE[0]}x{DTU_SIZE[1]} "
+        f"(-F dvr_dtu, {DTU_KNOBS}) in {t_write:.3f} s ({t_nmr:.3f} s NMR); read back through "
+        f"get_split_dataset: {n_checked} images equal to the written pixels, masks equal, worst "
+        f"pose error {json.dumps({k: float(f'{v:.3g}') for k, v in worst.items()})} (<= 1e-5); "
+        f"adapter ms per object {json.dumps({k: round(1e3 * v, 3) for k, v in t_read.items()})}")
+    log(f"data: read_png ms per image (host of {smi}) "
+        f"{json.dumps({k: round(v, 3) for k, v in decode_ms.items()})}")
+    return nmr, dtu
+
+
+def profile_split(path: str, smi: str, step_kernel: str) -> None:
+    """Gate and print the -V 1 train run's trace: each of steps 3-5 holds the
+    step's field kernels (2 launches each), and its wall time splits into
+    the field kernels, other device work and the card idle."""
+    from pixelnerf_tpu_torch.train.profile import split_trace
+
+    sp = split_trace(path)
+    want = {step_kernel: 2, "resnetfc_bwd_data": 2, "resnetfc_bwd_weights": 2}
+    steps = sp["steps"]
+    if sorted(steps) != [3, 4, 5] or any(
+            {k: st["field_launches"].get(k, 0) for k in want} != want for st in steps.values()):
+        raise SystemExit(f"profile: trace {path} lacks steps 3-5 or their field kernels: "
+                         f"{ {n: st['field_launches'] for n, st in steps.items()} }")
+    mean = {k: sum(st[k] for st in steps.values()) / 3
+            for k in ("wall_ms", "field_ms", "other_ms", "idle_ms")}
+    log("profile: -V 1 train steps 3-5 from the trace, ms "
+        + json.dumps({n: {k: round(st[k], 3) for k in ("wall_ms", "field_ms", "other_ms", "idle_ms")}
+                      for n, st in steps.items()})
+        + f"; mean wall {mean['wall_ms']:.3f} = field kernels {mean['field_ms']:.3f} "
+        f"({mean['field_ms'] / mean['wall_ms']:.3f}) + other device work {mean['other_ms']:.3f} "
+        f"({mean['other_ms'] / mean['wall_ms']:.3f}) + card idle {mean['idle_ms']:.3f} "
+        f"({mean['idle_ms'] / mean['wall_ms']:.3f}); on {smi}")
+    phases = {}
+    for st in steps.values():
+        for name, ph in st.get("phases", {}).items():
+            acc = phases.setdefault(name, {"wall_ms": 0.0, "busy_ms": 0.0, "idle_ms": 0.0})
+            for k in acc:
+                acc[k] += ph[k] / 3
+    log("profile: the mean traced step by host phase (forward to the first backward node, the "
+        "autograd nodes, Optimizer.step, the rest), ms "
+        + (json.dumps({k: {kk: round(vv, 3) for kk, vv in v.items()} for k, v in phases.items()})
+           if phases else "not in the trace (no autograd nodes recorded)"))
+    log("profile: top device ops over steps 3-5 (name, ms, launches) "
+        + json.dumps([(n[:90], round(ms, 3), c) for n, ms, c in sp["top_ops"]]))
+    log("profile: longest idle gaps (ms, step, innermost host span covering half of it) "
+        + json.dumps([(round(ms, 3), n, h) for ms, n, h in sp["gaps"]]))
+
+
+def train_eval_paths(nmr_root, dtu_root, net, smi, records, code_records, bwd_ms,
+                     weights_ms_at, fwd_ms, n_rays, step_kernel) -> None:
+    """Phases 10-11: the train CLI on -F dvr (-V 1, traced) and -F dvr_dtu
+    (-V 3), then the eval CLI on -F dvr (1, 2 and 3 source views, deferred
+    code) and on -F dvr_dtu (3 views, --scale 0.25, ground-truth compare)."""
+    import types
+
+    from pixelnerf_tpu_torch.eval.eval import main as eval_main
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
+    from pixelnerf_tpu_torch.train import checkpoints
+    from pixelnerf_tpu_torch.train import main as train_main
+
+    # ---- train path: the train CLI in-process on the file formats ----
+    for nviews, conf_path, fmt, root, epochs in ((1, "conf/exp/sn64.conf", "dvr", nmr_root, 12),
+                                                 (3, "conf/exp/dtu.conf", "dvr_dtu", dtu_root, 1)):
+        fwd = step_kernel[nviews]
+        os.environ["PIXELNERF_ALLOW_RANDOM_BACKBONE"] = "1"  # no backbone weights on this machine
+        try:
+            with tempfile.TemporaryDirectory() as ck:
+                prof = os.path.join(ck, "profile")
+                argv = ["-n", "chip_smoke", "-c", conf_path, "-F", fmt, "-D", root, "-B", "4",
+                        "-V", str(nviews), "-R", "128", "--epochs", str(epochs),
+                        "--checkpoints_path", ck] + (["--profile_dir", prof] if nviews == 1 else [])
+                torch.cuda.synchronize()
+                rf.reset_launches()
+                rv.reset_launches()
+                t0 = time.perf_counter()
+                trainer = train_main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                train_launches = dict(rf.LAUNCHES, **rv.LAUNCHES)
+                wrote = os.path.exists(os.path.join(ck, "chip_smoke", "pixel_nerf_latest"))
+                if nviews == 1:
+                    profile_split(os.path.join(prof, "trace.json"), smi, fwd)
+        finally:
+            del os.environ["PIXELNERF_ALLOW_RANDOM_BACKBONE"]
+        n_steps, n_val = trainer.global_step, len(trainer.test_loader)
+        want_steps = epochs * trainer.num_epoch_repeats * len(trainer.train_loader)
+        finite = len(trainer.history) == n_steps and all(math.isfinite(v) for v in trainer.history)
+        first = 5 if nviews == 1 else 2  # after the traced steps 3-5 at -V 1
+        step_ms = 1e3 * sum(trainer.step_seconds[first:]) / max(1, len(trainer.step_seconds[first:]))
+        traced_ms = 1e3 * sum(trainer.step_seconds[2:5]) / 3
+        k_bwd = bwd_ms[(nviews, 64)] + bwd_ms[(nviews, 96)]
+        k_w = weights_ms_at[(nviews, 64)] + weights_ms_at[(nviews, 96)]
+        k_fwd = fwd_ms[(nviews, 64)] + fwd_ms[(nviews, 96)]
+        images = trainer.train_loader.dataset[0]["images"].shape
+        log(f"train path: python -m pixelnerf_tpu_torch.train -c {conf_path} -F {fmt} -B 4 -V "
+            f"{nviews} -R 128 --epochs {epochs}{' --profile_dir' if nviews == 1 else ''} (random "
+            f"encoder; {len(trainer.train_loader.dataset)} training objects of {images[0]} views "
+            f"at {images[1]}x{images[2]}): {n_steps} steps in {wall:.3f} s, remat {trainer.remat}, "
+            f"launches {train_launches} ({n_val} validation batch(es) add 2 {fwd} launches each); "
+            f"losses {[round(v, 5) for v in trainer.history]} finite {finite}; "
+            f"pixel_nerf_latest written {wrote}")
+        log(f"train path -V {nviews} on -F {fmt}: {step_ms:.3f} ms per step over steps "
+            f"{first + 1}-{n_steps} = {n_rays / step_ms * 1e3:.1f} rays/s"
+            + (f" (steps 3-5, traced: {traced_ms:.3f} ms)" if nviews == 1 else "")
+            + f"; backward kernels {k_bwd:.3f} ms per step = {k_bwd / step_ms:.3f} of it "
+            f"(resnetfc_bwd_weights {k_w:.3f} ms = {k_w / step_ms:.3f}), forward kernels "
+            f"{k_fwd:.3f} ms = {k_fwd / step_ms:.3f}; on {smi}")
+        if not (n_steps == want_steps and finite and wrote and not trainer.remat
+                and len(trainer.train_loader.dataset) == 4  # SB 4, the checks' shape
+                and train_launches[fwd] == 2 * n_steps + 2 * n_val
+                and train_launches["resnetfc_bwd_data"] == 2 * n_steps
+                and train_launches["resnetfc_bwd_weights"] == 2 * n_steps
+                and not any(v for k, v in train_launches.items()
+                            if k.startswith("resnetfc_fwd") and k != fwd)):
+            raise SystemExit(f"train path at -V {nviews} on -F {fmt} failed or did not run "
+                             "through the kernels")
+        for name in ("resnetfc_bwd_data", "resnetfc_bwd_weights"):
+            if nviews == 1:
+                records[name]["launches"] = train_launches[name]
+            else:
+                records[name][f"ns{nviews}"]["launches"] = train_launches[name]
+
+    # ---- eval path: the eval CLI in-process on the file formats ----
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        checkpoints.save_weights(types.SimpleNamespace(checkpoints_path=ck, name="chip_smoke"),
+                                 net)
+        views = os.path.join(tmp, "dtu_views.txt")
+        with open(views, "w") as f:
+            f.write(" ".join(map(str, DTU_EVAL_VIEWS)) + "\n")
+        # (label, conf, -F, datadir, -P, split, objects, out, deferred code, extra, kernel)
+        cases = [
+            ("", "conf/exp/sn64.conf", "dvr", nmr_root, "0", "train", 2, "eval1", True, [],
+             "resnetfc_fwd_gather_code"),
+            (" (resume)", "conf/exp/sn64.conf", "dvr", nmr_root, "0", "train", 2, "eval1", True,
+             [], None),
+            ("", "conf/exp/sn64.conf", "dvr", nmr_root, "0 1", "test", 1, "eval2", True, [],
+             "resnetfc_fwd_gather_mv_code"),
+            ("", "conf/exp/sn64.conf", "dvr", nmr_root, "0 1 2", "test", 1, "eval3", True, [],
+             "resnetfc_fwd_dense_mv_code"),
+            ("", "conf/exp/dtu.conf", "dvr_dtu", dtu_root, "25 22 28", "val", 1, "eval_dtu", False,
+             ["--scale", "0.25", "--eval_view_list", views], "resnetfc_fwd_dense_mv"),
+        ]
+        os.environ["PIXELNERF_ALLOW_RANDOM_BACKBONE"] = "1"  # no backbone weights on this machine
+        try:
+            for label, conf_path, fmt, root, source, split, n_objs, out, defer, extra, want in cases:
+                out_dir = os.path.join(tmp, out)
+                argv = ["-n", "chip_smoke", "-c", conf_path, "-F", fmt, "-D", root, "--split",
+                        split, "-P", source, "--max_objs", str(n_objs), "-O", out_dir,
+                        "--checkpoints_path", ck, "-R", str(EVAL_RAYS)] + extra
+                if defer:
+                    os.environ["PIXELNERF_DEFER_CODE"] = "1"
+                try:
+                    torch.cuda.synchronize()
+                    rf.reset_launches()
+                    t0 = time.perf_counter()
+                    res = eval_main(argv)
+                    torch.cuda.synchronize()
+                    dt = time.perf_counter() - t0
+                finally:
+                    os.environ.pop("PIXELNERF_DEFER_CODE", None)
+                launches = dict(rf.LAUNCHES)
+                with open(os.path.join(out_dir, "finish.txt")) as f:
+                    journal = f.read().splitlines()
+                pngs = sorted(os.path.relpath(os.path.join(d, f_), out_dir)
+                              for d, _, fs in os.walk(out_dir) for f_ in fs if f_.endswith(".png"))
+                n_views = (len(DTU_EVAL_VIEWS) if fmt == "dvr_dtu"
+                           else NMR_VIEWS - len(source.split()))  # target views
+                log(f"eval path{label}: python -m pixelnerf_tpu_torch.eval.eval -c {conf_path} "
+                    f"-F {fmt} --split {split} -P \"{source}\" {' '.join(extra[:2])}"
+                    f"{' with PIXELNERF_DEFER_CODE=1' if defer else ''} (random encoder, the "
+                    f"render phases' weights): rendered "
+                    f"{[(n, round(p_, 4), round(s_, 4)) for n, p_, s_ in res['objects']]}, mean "
+                    f"psnr {res['psnr']:.4f} ssim {res['ssim']:.4f} over {res['cnt']}; launches "
+                    f"{launches}; finish.txt {journal}; {len(pngs)} PNGs; {dt:.3f} s")
+                if want is None:  # the resume run renders nothing
+                    ok = not res["objects"] and not any(launches.values()) and len(journal) == 2
+                else:
+                    ok = (len(res["objects"]) == len(journal) == res["cnt"] == n_objs
+                          and all(math.isfinite(p_) and math.isfinite(s_)
+                                  for _, p_, s_ in res["objects"])
+                          and len(pngs) == n_views * len(journal) and launches[want] > 0
+                          and not any(v for k, v in launches.items() if k != want))
+                if not ok:
+                    raise SystemExit(f"eval path on -F {fmt} with -P {source!r} failed or did not "
+                                     f"run through {want}")
+                if want in code_records:
+                    code_records[want]["eval_launches"] = launches[want]
+                elif want is not None:
+                    records[want]["dtu_eval_launches"] = launches[want]
+        finally:
+            del os.environ["PIXELNERF_ALLOW_RANDOM_BACKBONE"]
 
 
 def main() -> None:
@@ -1197,108 +1548,14 @@ def main() -> None:
         if not ok:
             raise SystemExit(f"train-step parity failed at -V {nviews}")
 
-    # ---- train path: the train CLI in-process, -V 1 and -V 3 ----
-    from pixelnerf_tpu_torch.train import main as train_main
-
-    for nviews, epochs in ((1, 12), (3, 6)):
-        fwd = step_kernel[nviews]
-        os.environ["PIXELNERF_ALLOW_RANDOM_BACKBONE"] = "1"  # no backbone weights on this machine
-        try:
-            with tempfile.TemporaryDirectory() as ck:
-                torch.cuda.synchronize()
-                rf.reset_launches()
-                rv.reset_launches()
-                trainer = train_main(["-n", "chip_smoke", "-c", "conf/exp/sn64.conf", "-F",
-                                      "synthetic", "-B", "4", "-V", str(nviews), "-R", "128",
-                                      "--epochs", str(epochs), "--checkpoints_path", ck])
-                torch.cuda.synchronize()
-                train_launches = dict(rf.LAUNCHES, **rv.LAUNCHES)
-                wrote = os.path.exists(os.path.join(ck, "chip_smoke", "pixel_nerf_latest"))
-        finally:
-            del os.environ["PIXELNERF_ALLOW_RANDOM_BACKBONE"]
-        n_steps, n_val = trainer.global_step, len(trainer.test_loader)
-        finite = len(trainer.history) == n_steps and all(math.isfinite(v) for v in trainer.history)
-        step_ms = 1e3 * sum(trainer.step_seconds[2:]) / max(1, len(trainer.step_seconds[2:]))
-        k_bwd = bwd_ms[(nviews, 64)] + bwd_ms[(nviews, 96)]
-        k_w = weights_ms_at[(nviews, 64)] + weights_ms_at[(nviews, 96)]
-        k_fwd = fwd_ms[(nviews, 64)] + fwd_ms[(nviews, 96)]
-        log(f"train path: python -m pixelnerf_tpu_torch.train -c conf/exp/sn64.conf -F synthetic "
-            f"-B 4 -V {nviews} -R 128 --epochs {epochs} (random encoder): {n_steps} steps, remat "
-            f"{trainer.remat}, launches {train_launches} ({n_val} validation batch(es) add 2 "
-            f"{fwd} launches each); losses {[round(v, 5) for v in trainer.history]} finite "
-            f"{finite}; pixel_nerf_latest written {wrote}")
-        log(f"train path -V {nviews}: {step_ms:.3f} ms per step over steps 3-{n_steps} = "
-            f"{n_rays / step_ms * 1e3:.1f} rays/s; backward kernels {k_bwd:.3f} ms per step = "
-            f"{k_bwd / step_ms:.3f} of it (resnetfc_bwd_weights {k_w:.3f} ms = "
-            f"{k_w / step_ms:.3f}), forward kernels {k_fwd:.3f} ms = "
-            f"{k_fwd / step_ms:.3f}; on {smi}")
-        if not (n_steps == epochs and finite and wrote and not trainer.remat
-                and train_launches[fwd] == 2 * n_steps + 2 * n_val
-                and train_launches["resnetfc_bwd_data"] == 2 * n_steps
-                and train_launches["resnetfc_bwd_weights"] == 2 * n_steps
-                and not any(v for k, v in train_launches.items()
-                            if k.startswith("resnetfc_fwd") and k != fwd)):
-            raise SystemExit(f"train path at -V {nviews} failed or did not run through the kernels")
-        for name in ("resnetfc_bwd_data", "resnetfc_bwd_weights"):
-            if nviews == 1:
-                records[name]["launches"] = train_launches[name]
-            else:
-                records[name][f"ns{nviews}"]["launches"] = train_launches[name]
-
-    # ---- eval path: the eval CLI in-process, through the deferred code ----
-    import types
-
-    from pixelnerf_tpu_torch.eval.eval import main as eval_main
-    from pixelnerf_tpu_torch.train import checkpoints
-
-    os.environ["PIXELNERF_ALLOW_RANDOM_BACKBONE"] = "1"  # no backbone weights on this machine
-    os.environ["PIXELNERF_DEFER_CODE"] = "1"
+    # ---- data: fixtures written by the port's writers, read back by its adapters ----
+    data_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_data_")
     try:
-        with tempfile.TemporaryDirectory() as tmp:
-            ck = os.path.join(tmp, "ck")
-            checkpoints.save_weights(types.SimpleNamespace(checkpoints_path=ck, name="chip_smoke"),
-                                     net)
-            runs = []
-            for source, n_objs, out_dir in (("0", 2, "eval1"), ("0", 2, "eval1"),
-                                            ("0 1 2", 1, "eval3")):
-                out_dir = os.path.join(tmp, out_dir)
-                argv = ["-n", "chip_smoke", "-c", "conf/exp/sn64.conf", "-F", "synthetic",
-                        "--split", "test", "-P", source, "--max_objs", str(n_objs), "-O", out_dir,
-                        "--checkpoints_path", ck]
-                torch.cuda.synchronize()
-                rf.reset_launches()
-                t0 = time.perf_counter()
-                res = eval_main(argv)
-                torch.cuda.synchronize()
-                dt = time.perf_counter() - t0
-                with open(os.path.join(out_dir, "finish.txt")) as f:
-                    journal = f.read().splitlines()
-                pngs = sorted(os.path.relpath(os.path.join(d, f), out_dir)
-                              for d, _, fs in os.walk(out_dir) for f in fs if f.endswith(".png"))
-                runs.append((source, res, dict(rf.LAUNCHES), journal, pngs, dt))
+        nmr_root, dtu_root = data_phase(data_dir.name, smi)
+        train_eval_paths(nmr_root, dtu_root, net, smi, records, code_records, bwd_ms,
+                         weights_ms_at, fwd_ms, n_rays, step_kernel)
     finally:
-        del os.environ["PIXELNERF_ALLOW_RANDOM_BACKBONE"]
-        del os.environ["PIXELNERF_DEFER_CODE"]
-    expect = ("resnetfc_fwd_gather_code", None, "resnetfc_fwd_dense_mv_code")
-    for i, ((source, res, launches, journal, pngs, dt), want) in enumerate(zip(runs, expect)):
-        n_views = ds.n_views - len(source.split())  # target views: all but the sources
-        log(f"eval path{' (resume)' if i == 1 else ''}: python -m pixelnerf_tpu_torch.eval.eval "
-            f"-c conf/exp/sn64.conf -F synthetic --split test -P \"{source}\" with "
-            f"PIXELNERF_DEFER_CODE=1 (random encoder, the render phases' weights): rendered "
-            f"{[(n, round(p_, 4), round(s_, 4)) for n, p_, s_ in res['objects']]}, mean psnr "
-            f"{res['psnr']:.4f} ssim {res['ssim']:.4f} over {res['cnt']}; launches {launches}; "
-            f"finish.txt {journal}; {len(pngs)} PNGs; {dt:.3f} s")
-        if want is None:  # the resume run renders nothing
-            ok = not res["objects"] and not any(launches.values()) and len(journal) == 2
-        else:
-            ok = (len(res["objects"]) == len(journal) == res["cnt"]
-                  and all(math.isfinite(p_) and math.isfinite(s_) for _, p_, s_ in res["objects"])
-                  and len(pngs) == n_views * len(journal) and launches[want] > 0
-                  and not any(v for k, v in launches.items() if k != want))
-        if not ok:
-            raise SystemExit(f"eval path with -P {source!r} failed or did not run through {want}")
-        if want is not None:
-            code_records[want]["eval_launches"] = launches[want]
+        data_dir.cleanup()
 
     # row 6 as one record: the single-view gather variant's numbers (the
     # 1-view deferred render's kernel) at the top, every variant under

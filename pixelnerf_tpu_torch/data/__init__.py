@@ -1,23 +1,50 @@
-"""Datasets and batching.  ``get_split_dataset`` follows the JAX package's
-call contract; the ``synthetic`` format is ported, the file formats are not
-yet (their adapters decode PNG images; ROADMAP.md)."""
+"""Datasets and batching (numpy only).  ``get_split_dataset`` follows the JAX
+package's call contract: no ``want_split`` -> (train, val, test); with
+``want_split`` -> one dataset.  Formats: ``srn | dvr | dvr_gen | dvr_dtu |
+multi_obj`` on disk, plus the in-memory ``synthetic``."""
 
 from .base import BaseDataset
+from .dvr import DVRDataset
 from .loader import DataLoader, collate
-from .synthetic import SyntheticDataset
+from .multi_obj import MultiObjectDataset
+from .srn import SRNDataset
+from .synthetic import (
+    SyntheticDataset,
+    write_synthetic_dtu,
+    write_synthetic_dvr,
+    write_synthetic_multi_obj,
+    write_synthetic_srn,
+)
 
-__all__ = ["BaseDataset", "DataLoader", "SyntheticDataset", "collate", "get_split_dataset"]
-
-_FILE_FORMATS = ("srn", "dvr", "dvr_gen", "dvr_dtu", "multi_obj")
+__all__ = [
+    "BaseDataset",
+    "DVRDataset",
+    "DataLoader",
+    "MultiObjectDataset",
+    "SRNDataset",
+    "SyntheticDataset",
+    "collate",
+    "get_split_dataset",
+    "write_synthetic_dtu",
+    "write_synthetic_dvr",
+    "write_synthetic_multi_obj",
+    "write_synthetic_srn",
+]
 
 
 def _make(fmt: str, datadir: str, split: str, **kwargs):
+    if fmt == "srn":
+        return SRNDataset(datadir, stage=split, **kwargs)
+    if fmt == "dvr":
+        return DVRDataset(datadir, stage=split, **kwargs)
+    if fmt == "dvr_gen":
+        return DVRDataset(datadir, stage=split, list_prefix="gen_", **kwargs)
+    if fmt == "dvr_dtu":
+        return DVRDataset(datadir, stage=split, sub_format="dtu", **kwargs)
+    if fmt == "multi_obj":
+        return MultiObjectDataset(datadir, stage=split, **kwargs)
     if fmt == "synthetic":
         return SyntheticDataset(seed={"train": 0, "val": 1, "test": 2}.get(split, 0), **kwargs)
-    if fmt in _FILE_FORMATS:
-        raise NotImplementedError(
-            f"dataset format {fmt!r}: not ported yet (ROADMAP.md, the file-format adapters)"
-        )
     raise NotImplementedError(f"Unsupported dataset format {fmt!r}")
 
 

@@ -16,9 +16,14 @@ contract.  ``--mlp_impl`` takes the JAX names (``auto | pallas | xla``) or
 ``auto | cuda | torch``.  ``PIXELNERF_DEFER_CODE=1`` renders through the
 forward kernels' in-register positional code.
 
+``--scale`` renders at a multiple of the data's resolution; the
+ground-truth compare then resizes the ground truth to the render by area, as
+``eval/eval.py`` does with OpenCV.  A focal or principal point with a row per
+view (the DVR adapter's (NV, 2) when views differ) gives the encoder the
+source views' rows and each target view's rays its own row.
+
 Not ported yet (they raise, ROADMAP.md): ``--accel`` other than ``off``,
-``--write_depth`` and ``--scale != 1`` with the ground-truth compare (both
-need OpenCV), and more than one ``--gpu_id``.
+``--write_depth`` (its colormap), and more than one ``--gpu_id``.
 """
 
 from __future__ import annotations
@@ -83,6 +88,7 @@ def main(argv=None) -> dict:
     means over the journal, and ``"cnt"``: its object count}."""
     from ..config.args import parse_args
     from ..data import get_split_dataset
+    from ..data.resize import resize_area
     from ..device import resolve_device
     from ..models.pixelnerf import make_model
     from ..parallel.pipeline import RenderPipeline
@@ -104,10 +110,6 @@ def main(argv=None) -> dict:
         raise NotImplementedError(
             "--write_depth (EXR depth and its colormap need OpenCV): not ported yet "
             "(ROADMAP.md, slice 4)")
-    if args.scale != 1.0 and not args.no_compare_gt:
-        raise NotImplementedError(
-            "--scale != 1 with the ground-truth compare (an OpenCV resize): not ported yet "
-            "(ROADMAP.md, slice 4); pass --no_compare_gt")
     device = resolve_device(args.device)
 
     dset = get_split_dataset(args.dataset_format, args.datadir, want_split=args.split,
@@ -201,8 +203,10 @@ def main(argv=None) -> dict:
                     target_view_mask &= ~src_view_mask
                 novel_view_idxs = np.nonzero(target_view_mask)[0]
                 all_rays = geometry.gen_rays_np(
-                    poses[target_view_mask], W, H, focal * args.scale, z_near, z_far,
-                    c=np.asarray(c) * args.scale if c is not None else None,
+                    poses[target_view_mask], W, H,
+                    geometry.view_rows(focal, target_view_mask) * args.scale, z_near, z_far,
+                    c=(geometry.view_rows(c, target_view_mask) * args.scale
+                       if c is not None else None),
                 ).reshape(-1, 8)
 
             n_gen_views = len(novel_view_idxs)
@@ -217,8 +221,9 @@ def main(argv=None) -> dict:
                 scene = net.encode(
                     torch.as_tensor(images[src_view_mask][None], device=device),
                     torch.as_tensor(poses[src_view_mask][None], device=device),
-                    torch.as_tensor(focal, device=device),
-                    c=torch.as_tensor(c, device=device) if c is not None else None)
+                    torch.as_tensor(geometry.view_rows(focal, src_view_mask), device=device),
+                    c=(torch.as_tensor(geometry.view_rows(c, src_view_mask), device=device)
+                       if c is not None else None))
             obj_gen = torch.Generator(device=device).manual_seed(
                 int(torch.randint(0, 2**62, (1,), generator=master)))
             all_rgb, _ = pipeline.render_simple(scene, all_rays, obj_gen,
@@ -236,6 +241,9 @@ def main(argv=None) -> dict:
             curr_psnr = curr_ssim = 0.0
             if not args.no_compare_gt:
                 rgb_gt_all = (images * 0.5 + 0.5)[target_view_mask]
+                if rgb_gt_all.shape[1:3] != all_rgb.shape[1:3]:
+                    # --scale != 1: the ground truth resized to the render
+                    rgb_gt_all = np.stack([resize_area(g, all_rgb.shape[1:3]) for g in rgb_gt_all])
                 for view_idx in range(n_gen_views):
                     curr_ssim += metrics.ssim(all_rgb[view_idx], rgb_gt_all[view_idx],
                                               data_range=1.0)

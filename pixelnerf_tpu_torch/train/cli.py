@@ -4,7 +4,7 @@
 The JAX package's ``train/train.py`` on the card:
 
     python -m pixelnerf_tpu_torch.train -n <exp> -c conf/exp/<x>.conf -F synthetic \\
-        [-B 4] [-V 1] [--epochs N] [-R 128] [--resume] [--device cpu]
+        [-B 4] [-V 1] [--epochs N] [-R 128] [--resume] [--profile_dir D] [--device cpu]
 
 The same flags and defaults; ``--mlp_impl`` takes the JAX names
 ``auto | pallas | xla`` (or ``auto | cuda | torch``), and the model is built
@@ -40,7 +40,8 @@ def extra_args(parser):
     parser.add_argument("--debug_nans", action="store_true", default=None,
                         help="torch.autograd anomaly detection (NaN sanitizer)")
     parser.add_argument("--profile_dir", type=str, default=None,
-                        help="device trace of train steps 3-5 (not ported yet; raises)")
+                        help="write a torch.profiler trace (host and card) of train steps 3-5 "
+                        "to <profile_dir>/trace.json (chrome trace format)")
     parser.add_argument("--mlp_impl", type=str, default="auto", choices=tuple(IMPLS),
                         help="field implementation: 'auto' uses the CUDA kernels (forward and "
                         "backward) on the card and plain torch elsewhere; 'pallas'/'cuda' "
@@ -59,8 +60,6 @@ def main(argv=None):
     from ..utils.jax_convert import load_pretrained_backbone
 
     args, conf = parse_args(extra_args, training=True, default_ray_batch_size=128, argv=argv)
-    if args.profile_dir is not None:
-        raise NotImplementedError("--profile_dir: not ported yet (ROADMAP.md)")
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
         print("NaN debugging enabled (autograd anomaly detection)")

@@ -25,6 +25,7 @@
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import glob
 import math
@@ -63,7 +64,9 @@ def prepare_ray_batch(data: dict, nviews: int, ray_batch_size: int, z_near: floa
         pixels (needs ``data["masks"]``), the rest uniform; 0 disables
     :return: dict with src_images (SB, NS, H, W, 3), src_poses, focal, c,
         rays (SB, R, 8), rgb_gt (SB, R, 3), and mask_gt (SB, R) when the
-        batch has masks
+        batch has masks.  A focal or c with a row per view (SB, NV, 2) gives
+        each ray its view's row and the encoder the source views' rows
+        (SB, NS, 2).
     """
     if "images" not in data:
         return None
@@ -74,7 +77,7 @@ def prepare_ray_batch(data: dict, nviews: int, ray_batch_size: int, z_near: floa
     all_focals = np.asarray(data["focal"])
     all_c = data.get("c")
 
-    src_images, src_poses = [], []
+    src_images, src_poses, src_ords = [], [], []
     all_rays, all_rgb_gt, all_mask_gt = [], [], []
     for obj_idx in range(SB):
         images = all_images[obj_idx]
@@ -104,16 +107,21 @@ def prepare_ray_batch(data: dict, nviews: int, ray_batch_size: int, z_near: floa
         all_rays.append(geometry.gen_rays_at_np(poses, W, H, focal, z_near, z_far, pix, c=c))
         src_images.append(images[image_ord])
         src_poses.append(poses[image_ord])
+        src_ords.append(image_ord)
+
+    def source_rows(x):
+        return np.stack([geometry.view_rows(xo, o) for xo, o in zip(x, src_ords)]).astype(
+            np.float32)
 
     batch = {
         "src_images": np.stack(src_images).astype(np.float32),
         "src_poses": np.stack(src_poses).astype(np.float32),
-        "focal": all_focals.astype(np.float32),
+        "focal": source_rows(all_focals),
         "rays": np.stack(all_rays).astype(np.float32),
         "rgb_gt": np.stack(all_rgb_gt).astype(np.float32),
     }
     if all_c is not None:
-        batch["c"] = np.asarray(all_c, np.float32)
+        batch["c"] = source_rows(all_c)
     if all_mask_gt:
         batch["mask_gt"] = np.stack(all_mask_gt).astype(np.float32)
     return batch
@@ -465,6 +473,11 @@ class Trainer:
         self.remat = bool(remat)
         self.grad_clip = getattr(args, "grad_clip", tc("grad_clip", 0.0))
         self.check_gradients = getattr(args, "check_gradients", tc("check_gradients", False))
+        # --profile_dir: a torch.profiler trace (host and device) of train
+        # steps 3-5, as the JAX trainer traces them; steps 1-2 absorb the
+        # kernels' build and the profiler's warm-up
+        self.profile_dir = getattr(args, "profile_dir", None)
+        self._profiler = None  # open only inside start()
 
         batch_size = getattr(args, "batch_size", tc("batch_size", 4))
         cache_mb = conf["data"].get_float("cache_mb", 4096.0) if "data" in conf else 4096.0
@@ -600,14 +613,40 @@ class Trainer:
             print(">>> Stopped using bbox sampling @ iter", self.global_step)
 
     def _device_train_step(self, batch: dict, draws: Optional[RayDraws] = None):
-        t0 = time.perf_counter()
-        loss_dict = self._train_step(batch, self.generator, draws)
-        if self.device.type == "cuda":
-            torch.cuda.synchronize(self.device)
-        self.step_seconds.append(time.perf_counter() - t0)
+        span = (torch.profiler.record_function(f"train_step_{self._profiler.step_num + 1}")
+                if self._profiler is not None else contextlib.nullcontext())
+        with span:
+            t0 = time.perf_counter()
+            loss_dict = self._train_step(batch, self.generator, draws)
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.step_seconds.append(time.perf_counter() - t0)
         self.history.append(float(loss_dict["t"]))
         self.global_step += 1
+        if self._profiler is not None:
+            self._profiler.step()
         return loss_dict
+
+    def _profile(self):
+        """The ``--profile_dir`` profiler, or a null context: it records
+        steps 3-5 (each step ends synchronized, so step 2's device work
+        cannot bleed in) and writes ``<profile_dir>/trace.json`` after step
+        5, or on leaving the context after fewer steps."""
+        if not self.profile_dir:
+            return contextlib.nullcontext()
+        os.makedirs(self.profile_dir, exist_ok=True)
+        activities = [torch.profiler.ProfilerActivity.CPU]
+        if self.device.type == "cuda":
+            activities.append(torch.profiler.ProfilerActivity.CUDA)
+
+        def write(prof) -> None:
+            path = os.path.join(self.profile_dir, "trace.json")
+            prof.export_chrome_trace(path)
+            print(f"profile: trace of train steps 3-{prof.step_num} written to {path}")
+
+        return torch.profiler.profile(
+            activities=activities, on_trace_ready=write,
+            schedule=torch.profiler.schedule(wait=1, warmup=1, active=3, repeat=1))
 
     def train_step(self, data, draws: Optional[RayDraws] = None) -> Optional[Dict[str, float]]:
         """One step on a collated batch; ``draws`` injects the render's random
@@ -672,16 +711,18 @@ class Trainer:
     def start(self) -> None:
         """Train from ``self.epoch`` to ``num_epochs``, validating and saving
         at their intervals and after the last epoch."""
-        for epoch in range(self.epoch, self.num_epochs):
-            self.epoch = epoch
-            self.train_epoch()
-            is_best = False
-            if (epoch + 1) % self.eval_interval == 0 or epoch == self.num_epochs - 1:
-                val_loss = self.validate()
-                print(f"Epoch {epoch}: val loss {val_loss:.5f}")
-                if val_loss < self.best_val_loss:
-                    self.best_val_loss = val_loss
-                    is_best = True
-            if (epoch + 1) % self.save_interval == 0 or epoch == self.num_epochs - 1:
-                self.save_checkpoint(is_best=is_best)
+        with self._profile() as self._profiler:
+            for epoch in range(self.epoch, self.num_epochs):
+                self.epoch = epoch
+                self.train_epoch()
+                is_best = False
+                if (epoch + 1) % self.eval_interval == 0 or epoch == self.num_epochs - 1:
+                    val_loss = self.validate()
+                    print(f"Epoch {epoch}: val loss {val_loss:.5f}")
+                    if val_loss < self.best_val_loss:
+                        self.best_val_loss = val_loss
+                        is_best = True
+                if (epoch + 1) % self.save_interval == 0 or epoch == self.num_epochs - 1:
+                    self.save_checkpoint(is_best=is_best)
+        self._profiler = None
         self.epoch = self.num_epochs

@@ -14,17 +14,36 @@ import numpy as np
 import torch
 
 
+def _per_view(x) -> bool:
+    """Whether a focal or principal point holds one [x, y] row per view
+    (NV, 2) with NV > 1, as the DVR adapter returns when views differ."""
+    return x is not None and np.ndim(x) == 2 and np.shape(x)[0] > 1
+
+
+def view_rows(x, views):
+    """The rows of ``views`` (an index, list or mask) of a per-view focal or
+    principal point; one shared by every view is returned as it is."""
+    return np.asarray(x)[views] if _per_view(x) else x
+
+
+def _focal_np(focal):
+    """(fx, fy) from a scalar or [fx, fy] focal."""
+    f = np.atleast_1d(np.asarray(focal, np.float32).squeeze())
+    return (f[0], f[0]) if f.size == 1 else (f[0], f[1])
+
+
+def _center_np(c, width: int, height: int):
+    """(cx, cy) from an optional principal point (default: the image center)."""
+    if c is None:
+        return width * 0.5, height * 0.5
+    cc = np.asarray(c, np.float32).reshape(-1)
+    return cc[0], cc[1]
+
+
 def _intrinsics_np(focal, c, width: int, height: int):
     """(fx, fy, cx, cy) from a scalar or [fx, fy] focal and an optional
     principal point (default: the image center)."""
-    f = np.atleast_1d(np.asarray(focal, np.float32).squeeze())
-    fx, fy = (f[0], f[0]) if f.size == 1 else (f[0], f[1])
-    if c is None:
-        cx, cy = width * 0.5, height * 0.5
-    else:
-        cc = np.asarray(c, np.float32).reshape(-1)
-        cx, cy = cc[0], cc[1]
-    return fx, fy, cx, cy
+    return _focal_np(focal) + _center_np(c, width, height)
 
 
 def gen_rays_np(
@@ -40,9 +59,15 @@ def gen_rays_np(
     +y up, looking down -z).
 
     :param poses: (B, 4, 4) camera-to-world
+    :param focal: scalar, [fx, fy], or (B, 2) with one row per view
+    :param c: None (the image center), [cx, cy], or (B, 2) one row per view
     :return: (B, height, width, 8) = [origin(3), direction(3), near, far]
     """
     poses = np.asarray(poses, np.float32)
+    if _per_view(focal) or _per_view(c):
+        return np.concatenate([
+            gen_rays_np(poses[i:i + 1], width, height, view_rows(focal, i), z_near, z_far,
+                        c=view_rows(c, i)) for i in range(poses.shape[0])])
     fx, fy, cx, cy = _intrinsics_np(focal, c, width, height)
     xs = (np.arange(width, dtype=np.float32) - cx) / fx
     ys = (np.arange(height, dtype=np.float32) - cy) / fy
@@ -128,11 +153,14 @@ def gen_rays_at_np(poses: np.ndarray, width: int, height: int, focal, z_near: fl
     :func:`gen_rays_np`: the training path's ray builder.
 
     :param pix: (R, 3) int [view, row, col]
+    :param focal, c: as :func:`gen_rays_np`'s; a row per view is read at
+        each pixel's view
     :return: (R, 8) rays [origin, dir, near, far]
     """
     poses = np.asarray(poses, np.float32)
-    fx, fy, cx, cy = _intrinsics_np(focal, c, width, height)
     v = pix[:, 0]
+    fx, fy = np.asarray(focal, np.float32)[v].T if _per_view(focal) else _focal_np(focal)
+    cx, cy = np.asarray(c, np.float32)[v].T if _per_view(c) else _center_np(c, width, height)
     dx = (pix[:, 2].astype(np.float32) - cx) / fx
     dy = (pix[:, 1].astype(np.float32) - cy) / fy
     dirs = np.stack([dx, -dy, -np.ones_like(dx)], axis=-1)

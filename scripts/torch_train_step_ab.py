@@ -1,8 +1,10 @@
 """Step time of the PyTorch port's train CLI in several checkouts, in turns,
-or (``--kernels``) the times of its field kernels.
+or (``--kernels``) the times of its field kernels, or (``--render``) its
+render's rays/s.
 
     python3 scripts/torch_train_step_ab.py --views 1 --steps 12 --rounds 2 DIR_A DIR_B
     python3 scripts/torch_train_step_ab.py --kernels --rounds 2 DIR_A DIR_B
+    python3 scripts/torch_train_step_ab.py --render --views 1 --rounds 2 DIR_A DIR_B
 
 Each run is a process of its own, started in one checkout: it builds that
 checkout's kernels, runs ``pixelnerf_tpu_torch.train.main`` (the train CLI,
@@ -28,6 +30,10 @@ render's fine and coarse passes (393,216 and 262,144 output points): CUDA
 events around 5 calls after one warm-up, ms a call.  The script is the same for every checkout; only the
 kernels differ.  The last line then holds, per checkout, each kernel's times
 run by run.
+With ``--render`` a run times ``chip_smoke.py``'s 3-frame sn64 ring render
+(12,288 rays, encode included) from ``--views`` source views: the median of
+10 synchronized calls after one warm-up, rays/s; the last line holds, per
+checkout, each run's median.
 Needs a CUDA card and the checkouts' kernels to build there.
 """
 
@@ -37,6 +43,7 @@ import os
 import subprocess
 import sys
 import tempfile
+import time
 
 
 def child(views: int, steps: int) -> None:
@@ -125,6 +132,35 @@ def child_kernels() -> None:
     print(json.dumps({"kernel_ms": out, "card": torch.cuda.get_device_name(0)}), flush=True)
 
 
+def child_render(views: int, reps: int = 10) -> None:
+    """One render run in the checkout of the working directory: the sn64
+    ring of ``chip_smoke.py``'s render phases (3 frames of 64 x 64, seeded
+    weights, random encoder) from ``views`` source views, one warm-up call,
+    then ``reps`` synchronized calls of ``entry.render_ring`` (encode +
+    render) on the host clock."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    from pixelnerf_tpu_torch import entry
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+
+    rf.build_all()
+    dev = torch.device("cuda")
+    conf = entry.load_conf(pretrained=False)
+    net = entry.build_model(conf, dev, mlp_impl="auto", seed=0)
+    src = entry.source_view(64, 0, list(range(views)))
+    rays = entry.ring_rays(src, 3)
+    rates = []
+    for i in range(reps + 1):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        entry.render_ring(net, conf, src, rays, torch.Generator(device=dev).manual_seed(0))
+        torch.cuda.synchronize()
+        if i:
+            rates.append(rays.shape[0] / (time.perf_counter() - t0))
+    print(json.dumps({"rays_per_s": rates, "card": torch.cuda.get_device_name(0)}), flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("checkouts", nargs="*")
@@ -132,22 +168,27 @@ def main() -> None:
     ap.add_argument("--steps", type=int, default=12)
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--kernels", action="store_true", help="time the field kernels, not steps")
+    ap.add_argument("--render", action="store_true",
+                    help="time the 3-frame ring render from --views source views, not steps")
     ap.add_argument("--timeout", type=float, default=300.0)
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
+        if args.render:
+            return child_render(args.views)
         return child_kernels() if args.kernels else child(args.views, args.steps)
     if not args.checkouts:
         ap.error("name at least one checkout")
     dirs = [os.path.abspath(d) for d in args.checkouts]
     order = [d for _ in range(args.rounds) for d in dirs + dirs[::-1]]
     runs = {d: [] for d in dirs}
-    mode = ["--kernels"] if args.kernels else ["--views", str(args.views), "--steps", str(args.steps)]
+    mode = (["--kernels"] if args.kernels else ["--render", "--views", str(args.views)]
+            if args.render else ["--views", str(args.views), "--steps", str(args.steps)])
+    head = '{"kernel_ms"' if args.kernels else '{"rays_per_s"' if args.render else '{"steps_ms"'
     for i, d in enumerate(order):
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", *mode], cwd=d,
                              capture_output=True, text=True, timeout=args.timeout)
-        lines = [ln for ln in out.stdout.splitlines()
-                 if ln.startswith('{"kernel_ms"' if args.kernels else '{"steps_ms"')]
+        lines = [ln for ln in out.stdout.splitlines() if ln.startswith(head)]
         if out.returncode != 0 or not lines:
             sys.stderr.write(out.stdout[-4000:] + out.stderr[-4000:])
             raise SystemExit(f"run {i} in {d} failed ({out.returncode})")
@@ -155,6 +196,12 @@ def main() -> None:
             res = json.loads(lines[-1])
             runs[d].append(res["kernel_ms"])
             print(f"run {i}: {d}: {json.dumps(res)}", flush=True)
+            continue
+        if args.render:
+            rates = sorted(json.loads(lines[-1])["rays_per_s"])
+            runs[d].append(rates[len(rates) // 2])
+            print(f"run {i}: {d} {args.views} view(s): median {rates[len(rates) // 2]:.1f} rays/s "
+                  f"of {[round(r, 1) for r in rates]}", flush=True)
             continue
         steps = json.loads(lines[-1])["steps_ms"]
         mean = sum(steps[2:]) / len(steps[2:])
@@ -164,6 +211,9 @@ def main() -> None:
     if args.kernels:
         print(json.dumps({"kernel_ms": {d: {k: [r[k] for r in runs[d]] for k in KERNEL_CASES}
                                         for d in dirs}}))
+        return
+    if args.render:
+        print(json.dumps({"views": args.views, "median_rays_per_s": {d: runs[d] for d in dirs}}))
         return
     print(json.dumps({"views": args.views, "steps": args.steps,
                       "ms_per_step": {d: runs[d] for d in dirs}}))

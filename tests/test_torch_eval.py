@@ -173,10 +173,88 @@ def test_eval_cli_matches_jax_eval(tmp_path, monkeypatch):
     assert _journal(tmp_path / "port_out") == jp
 
 
+def test_eval_cli_on_dvr_at_half_scale_matches_jax_eval(tmp_path, monkeypatch):
+    """``-F dvr --scale 0.5`` with the ground-truth compare on, on a
+    fixture written by the JAX writer: the same rays (at half the focal and
+    principal point), the same PNG names, and metrics against the ground
+    truth resized by area (the root CLI resizes with OpenCV)."""
+    from pixelnerf_tpu.data import write_synthetic_dvr
+
+    data = write_synthetic_dvr(str(tmp_path / "dvr"), n_objs=3, n_views=3, image_size=32)
+    conf = tmp_path / "tiny.conf"
+    conf.write_text(CONF)
+    (tmp_path / "views.txt").write_text("2\n")
+    net = make_model(hocon.parse_string(CONF)["model"], device="cpu")
+    ck = tmp_path / "ck"
+    checkpoints.save_weights(types.SimpleNamespace(checkpoints_path=str(ck), name="ev"), net)
+
+    def argv(out):
+        return ["-n", "ev", "-c", str(conf), "-F", "dvr", "-D", data, "--checkpoints_path",
+                str(ck), "--split", "test", "-P", "0", "--scale", "0.5", "--eval_view_list",
+                str(tmp_path / "views.txt"), "-O", str(tmp_path / out)]
+
+    jrays, rays = [], []
+    _spy(monkeypatch, JRenderPipeline, 2, jrays)
+    _spy(monkeypatch, RenderPipeline, 1, rays)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(sys, "argv", ["eval/eval.py"] + argv("jax_out"))
+    runpy.run_path(str(ROOT / "eval" / "eval.py"), run_name="__main__")
+    res = eval_main(argv("port_out") + ["--device", "cpu"])
+
+    assert len(rays) == len(jrays) == 1 and rays[0].shape == (16 * 16, 8)
+    np.testing.assert_allclose(rays[0], jrays[0], rtol=1e-6, atol=1e-6)
+    for out in ("jax_out", "port_out"):
+        assert sorted(os.listdir(tmp_path / out / "obj0002")) == ["000002.png"]
+    jj, jp = _journal(tmp_path / "jax_out"), _journal(tmp_path / "port_out")
+    assert len(jj) == len(jp) == 1 and jp[0][0] == jj[0][0] == "obj0002"
+    psnr, ssim = float(jp[0][1]), float(jp[0][2])
+    assert np.isfinite(psnr) and np.isfinite(ssim) and res["cnt"] == 1
+    assert abs(psnr - float(jj[0][1])) <= 0.5 and abs(ssim - float(jj[0][2])) <= 0.02
+
+
+def test_eval_cli_on_per_view_intrinsics(tmp_path, monkeypatch):
+    """``-F dvr_dtu`` on scans whose principal point moves from view to view
+    (an (NV, 2) c): each target view's rays use its own c, as one-view calls
+    of the JAX ray builder do, and the source views' rows reach the encoder.
+    The root CLI fails on such data (ROADMAP.md section 3)."""
+    from pixelnerf_tpu.data import write_synthetic_dtu
+    from pixelnerf_tpu.utils import geometry as jgeometry
+    from pixelnerf_tpu_torch.data import get_split_dataset
+
+    data = write_synthetic_dtu(str(tmp_path / "dtu"), n_scenes=1, n_views=5, image_size=(12, 16),
+                               offcenter_c=0.1, focal_aniso=1.2, negate_world_mat=True, seed=1)
+    sample = get_split_dataset("dvr_dtu", data, want_split="val")[0]
+    assert sample["c"].shape == (5, 2)
+    conf = tmp_path / "tiny.conf"
+    conf.write_text(CONF)
+    net = make_model(hocon.parse_string(CONF)["model"], device="cpu")
+    ck = tmp_path / "ck"
+    checkpoints.save_weights(types.SimpleNamespace(checkpoints_path=str(ck), name="ev"), net)
+    rays, cs = [], []
+    _spy(monkeypatch, RenderPipeline, 1, rays)
+    encode = type(net).encode
+
+    def spy_encode(self, images, poses, focal, c=None, **kw):
+        cs.append(c.numpy())
+        return encode(self, images, poses, focal, c=c, **kw)
+
+    monkeypatch.setattr(type(net), "encode", spy_encode)
+    res = eval_main(["-n", "ev", "-c", str(conf), "-F", "dvr_dtu", "-D", data, "--device", "cpu",
+                     "--checkpoints_path", str(ck), "--split", "val", "-P", "0 3", "-O",
+                     str(tmp_path / "out")])
+    assert res["cnt"] == 1 and np.isfinite(res["psnr"]) and np.isfinite(res["ssim"])
+    np.testing.assert_array_equal(cs[0], sample["c"][[0, 3]])
+    want = np.concatenate([
+        np.asarray(jgeometry.gen_rays_np(sample["poses"][v:v + 1], 16, 12, sample["focal"],
+                                         0.1, 5.0, c=sample["c"][v])).reshape(-1, 8)
+        for v in (1, 2, 4)])
+    np.testing.assert_array_equal(rays[0], want)
+
+
 def test_eval_cli_refuses_what_is_not_ported(tmp_path):
     base = ["-F", "synthetic", "--checkpoints_path", str(tmp_path / "ck"), "--device", "cpu",
             "-c", "conf/exp/sn64.conf", "-O", str(tmp_path / "o")]
     for extra, what in ((["--accel", "rays"], "slice 5"), (["--write_depth"], "OpenCV"),
-                        (["--scale", "0.5"], "no_compare_gt"), (["--gpu_id", "0 1"], "slice 7")):
+                        (["--gpu_id", "0 1"], "slice 7")):
         with pytest.raises(NotImplementedError, match=what):
             eval_main(base + extra)

@@ -241,7 +241,7 @@ def test_prepare_ray_batch_bit_equal_to_jax(path):
 
 def test_data_loader_and_collate_match_jax():
     """Shuffled epoch orders, the collated arrays and the frozen cache; the
-    synthetic splits use seeds 0/1/2; the file formats raise."""
+    synthetic splits use seeds 0/1/2; an unknown format raises."""
     ds, jds = SyntheticDataset(n_objs=5, n_views=3, image_size=12), \
         JSyntheticDataset(n_objs=5, n_views=3, image_size=12)
     loader = DataLoader(ds, batch_size=2, shuffle=True, seed=3, cache_mb=0.01)
@@ -262,5 +262,5 @@ def test_data_loader_and_collate_match_jax():
         one = get_split_dataset("synthetic", "", want_split=split, n_objs=1, image_size=12)
         assert one.seed == seed == jget_split_dataset("synthetic", "", want_split=split).seed
     assert [d.seed for d in get_split_dataset("synthetic", "")] == [0, 1, 2]
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_split_dataset("srn", "/nonexistent")
+    with pytest.raises(NotImplementedError, match="Unsupported dataset format"):
+        get_split_dataset("llff", "/nonexistent")

@@ -31,6 +31,8 @@ import torch
 
 from pixelnerf_tpu.config import hocon as jhocon
 from pixelnerf_tpu.data import SyntheticDataset as JSyntheticDataset
+from pixelnerf_tpu.data import get_split_dataset as jget_split_dataset
+from pixelnerf_tpu.data import synthetic as jsynthetic
 from pixelnerf_tpu.data.loader import collate as jcollate
 from pixelnerf_tpu.models import make_model as jmake_model
 from pixelnerf_tpu.render import NeRFRenderer as JNeRFRenderer
@@ -38,7 +40,7 @@ from pixelnerf_tpu.train import checkpoints as jcheckpoints
 from pixelnerf_tpu.train.trainer import CheckpointManager as JCheckpointManager
 from pixelnerf_tpu.train.trainer import Trainer as JTrainer
 from pixelnerf_tpu_torch.config import hocon
-from pixelnerf_tpu_torch.data import SyntheticDataset
+from pixelnerf_tpu_torch.data import SyntheticDataset, collate, get_split_dataset
 from pixelnerf_tpu_torch.models import make_model
 from pixelnerf_tpu_torch.render import NeRFRenderer, RayDraws
 from pixelnerf_tpu_torch.train import CheckpointManager, Trainer, checkpoints
@@ -126,11 +128,12 @@ def _jax_trainer(setup, tmp):
                     JNeRFRenderer.from_conf(conf["renderer"]), _Args(str(tmp)), conf)
 
 
-def _port_trainer(setup, tmp, impl, **kw):
+def _port_trainer(setup, tmp, impl, ds=None, **kw):
     conf = hocon.parse_string(CONF)
     net = make_model(conf["model"], mlp_impl=impl, device="cpu", diff_mode=True)
     net.load_state_dict(from_jax_variables(setup["variables"]))
-    ds = SyntheticDataset(n_objs=3, n_views=4, image_size=24)
+    if ds is None:
+        ds = SyntheticDataset(n_objs=3, n_views=4, image_size=24)
     return Trainer(net, ds, ds, NeRFRenderer.from_conf(conf["renderer"]), _Args(str(tmp), **kw),
                    conf)
 
@@ -185,6 +188,45 @@ def test_train_steps_match_jax_trainer(setup, tmp_path, monkeypatch, impl):
     for k, v in stats.items():
         if "running" in k:
             torch.testing.assert_close(state[k], v, rtol=1e-4, atol=1e-4, msg=k)
+
+
+@pytest.mark.parametrize("fmt,nviews", [("dvr", "1"), ("dvr_dtu", "3")])
+def test_file_format_steps_match_jax_trainer(setup, tmp_path, monkeypatch, fmt, nviews):
+    """Three kernel-route steps on data read from disk, each trainer through
+    its own package's adapter: ``-F dvr`` (NDC cameras, a scalar focal) at
+    -V 1, and ``-F dvr_dtu`` at -V 3 on non-square 15 x 20 scans with an
+    anisotropic focal, negated world_mats and a rotated scale_mat.  The
+    bars of the synthetic steps: loss rtol 2e-3, grad norm rtol 5e-3."""
+    monkeypatch.setattr(jgs, "_ONEHOT_BWD_MAX_ROWS", 0)  # read when the JAX step is traced
+    root = str(tmp_path / "data")
+    if fmt == "dvr":
+        jsynthetic.write_synthetic_dvr(root, n_objs=4, n_views=4, image_size=24)
+    else:
+        jsynthetic.write_synthetic_dtu(root, n_scenes=2, n_views=4, image_size=(15, 20),
+                                       focal_aniso=1.2, negate_world_mat=True,
+                                       scale_rot_deg=33.0)
+    jds = jget_split_dataset(fmt, root, want_split="train")
+    pds = get_split_dataset(fmt, root, want_split="train")
+    assert len(jds) == len(pds) == 2
+    conf = jhocon.parse_string(CONF)
+    tr_j = JTrainer(jmake_model(conf["model"], mlp_impl="xla"), setup["variables"], jds, jds,
+                    JNeRFRenderer.from_conf(conf["renderer"]),
+                    _Args(str(tmp_path / "j"), nviews=nviews), conf)
+    tr_p = _port_trainer(setup, tmp_path / "p", "cuda", ds=pds, nviews=nviews)
+    assert (tr_p.z_near, tr_p.z_far) == (tr_j.z_near, tr_j.z_far) and not tr_p.remat
+    jdata, pdata = jcollate([jds[0], jds[1]]), collate([pds[0], pds[1]])
+    assert pdata["images"].shape[2:4] == ((24, 24) if fmt == "dvr" else (15, 20))
+    tr_j.rng, tr_p.rng = np.random.default_rng(7), np.random.default_rng(7)
+    tr_j.jrng = jax.random.PRNGKey(3)
+    n_rays = 2 * tr_p.args.ray_batch_size
+    for step in range(3):
+        draws = _jax_draws(tr_j.jrng, n_rays, tr_j.renderer.cfg)
+        ld_j = tr_j.train_step(jdata)
+        ld_p = tr_p.train_step(pdata, draws=draws)
+        assert np.isfinite(ld_p["t"]), ld_p
+        np.testing.assert_allclose(ld_p["t"], ld_j["t"], rtol=2e-3, err_msg=f"step {step}")
+        np.testing.assert_allclose(ld_p["grad_norm"], ld_j["grad_norm"], rtol=5e-3,
+                                   err_msg=f"step {step}")
 
 
 @pytest.mark.parametrize("strategy,kw", [("keep_last", {"keep_last": 2}),
@@ -270,3 +312,32 @@ def test_train_cli_on_cpu(tmp_path):
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_main(base)
+
+
+def test_train_cli_profile_dir(tmp_path):
+    """``--profile_dir D`` on the CPU, on ``-F dvr`` data written by the
+    port's writer: ``D/trace.json`` parses and holds the spans of train steps
+    3-5, each step's split covers its wall time, and no other step span."""
+    from pixelnerf_tpu_torch.data import write_synthetic_dvr
+    from pixelnerf_tpu_torch.train.profile import load_events, split_trace, step_spans
+
+    conf = tmp_path / "tiny.conf"
+    conf.write_text(CONF)
+    data = write_synthetic_dvr(str(tmp_path / "dvr"), n_objs=4, n_views=3, image_size=16)
+    prof = tmp_path / "prof"
+    trainer = train_main(["--device", "cpu", "-F", "dvr", "-D", data, "-c", str(conf), "-n", "p",
+                          "--checkpoints_path", str(tmp_path / "ck"), "--epochs", "3", "-B", "1",
+                          "-R", "8", "--profile_dir", str(prof)])
+    assert trainer.global_step == 6
+    path = prof / "trace.json"
+    assert path.exists()
+    spans = step_spans(load_events(str(path)))
+    assert sorted(spans) == [3, 4, 5]
+    split = split_trace(str(path))
+    for n, st in split["steps"].items():
+        assert st["wall_ms"] > 0 and st["field_ms"] == st["other_ms"] == 0.0  # no card here
+        assert st["idle_ms"] == pytest.approx(st["wall_ms"])
+        phases = st["phases"]
+        assert sorted(phases) == ["backward", "forward", "optimizer", "rest"]
+        assert min(phases[k]["wall_ms"] for k in ("forward", "backward", "optimizer")) > 0
+        assert sum(p["wall_ms"] for p in phases.values()) == pytest.approx(st["wall_ms"])
