@@ -109,7 +109,27 @@ one line each:
     multi-view dense kernel's; then ``-c conf/exp/dtu.conf -F dvr_dtu -P "25
     22 28" --scale 0.25`` on one scan and 4 target views, with the
     ground-truth compare, launches the multi-view dense kernel and gives
-    finite PSNR/SSIM.
+    finite PSNR/SSIM;
+13. accel: the port's trainer quick-trains the full-width sn64 model on
+    ``-F synthetic`` object 0 (``bench.py``'s recipe: 800 cosine steps and
+    200 polish steps at R 1024, one source view, random encoder); its dense
+    render of 16 ring frames (65,536 rays) must hold an object (foreground
+    >= 0.03); ``build_accel`` builds the full grid (96^3 x 4 probe
+    directions x 2 heads) through the gather kernel and sizes the
+    compaction buffers; the gate walks from ``proposal`` at 30 dB and must
+    settle on a rung other than dense; the settled rung and dense are
+    timed in turns (rays/s, field evaluations a ray, host reads of
+    ``n_live`` a frame); ``rays`` mode keeps its live rays' coarse output
+    bit for bit the dense render's and its fine head >= 40 dB, ``samples``
+    >= 40 dB; a 1/64 ray capacity falls back to a render bit for bit the
+    dense one; frame 0 at the settled rung launches the dense kernel under
+    ``PIXELNERF_FUSED_GATHER_MAX_ROWS=0`` and the gather's code variant
+    under ``PIXELNERF_DEFER_CODE=1``; then ``gen_video --accel_mode auto``
+    at ``-P "0"``, ``"0 1"`` and ``"0 1 2"`` (4 frames: a gate trail, PNG
+    frames, the gather, multi-view gather and multi-view dense kernel) and
+    ``eval --accel proposal``
+    beside ``--accel off`` on that object, in-process on a checkpoint of
+    the trained field.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -617,6 +637,374 @@ def train_eval_paths(nmr_root, dtu_root, net, smi, records, code_records, bwd_ms
                     records[want]["dtu_eval_launches"] = launches[want]
         finally:
             del os.environ["PIXELNERF_ALLOW_RANDOM_BACKBONE"]
+
+
+# phase 13: the scene, the quick-train recipe of bench.py and the render
+ACCEL_TRAIN_STEPS, ACCEL_POLISH_STEPS, ACCEL_TRAIN_RAYS = 800, 200, 1024
+ACCEL_FRAMES, ACCEL_CHUNK = 16, 65536
+ACCEL_CLI_FRAMES = 4
+ACCEL_CONF = "conf/exp/sn64.conf"
+
+
+def cosine_lr(peak: float, warmup: int, steps: int, end_frac: float = 0.1):
+    """optax's warmup_cosine_decay_schedule(0, peak, warmup, steps, peak * end_frac)."""
+    def lr(t: int) -> float:
+        if t < warmup:
+            return peak * t / warmup
+        frac = min(max(t - warmup, 0) / max(steps - warmup, 1), 1.0)
+        return peak * (end_frac + (1.0 - end_frac) * 0.5 * (1.0 + math.cos(math.pi * frac)))
+
+    return lr
+
+
+def quick_train(conf, dev, sample, z_near: float, z_far: float):
+    """bench.py's quick-train recipe on the port's trainer: the sn64 model at
+    full width (random encoder) overfit to one synthetic sphere from one
+    source view a step, R 1024 rays, 32 coarse + 8 depth samples, the density
+    bias raised by 1, Adam at a 2e-4 cosine peak (100 warm-up steps, 10% at
+    the end), then a polish at 2e-5 with the mask loss at 0.3.
+    Returns (the trained weights, the losses, seconds a step in each part,
+    the kernels' launches)."""
+    import numpy as np
+
+    from pixelnerf_tpu_torch.models.losses import l2_loss
+    from pixelnerf_tpu_torch.models.pixelnerf import make_model
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
+    from pixelnerf_tpu_torch.render.renderer import RenderConfig
+    from pixelnerf_tpu_torch.train import Optimizer, make_step_fns, prepare_ray_batch
+
+    net = make_model(conf["model"], mlp_impl="auto", device=dev, diff_mode=True,
+                     generator=torch.Generator().manual_seed(SEED))
+    with torch.no_grad():
+        for mlp in (net.mlp_coarse, net.mlp_fine):
+            mlp.lin_out.bias[3] += 1.0  # no dead relu before the object is supervised
+    cfg = RenderConfig(n_coarse=32, n_fine=8, n_fine_depth=8, white_bkgd=True)
+    data = {"images": sample["images"][None], "poses": sample["poses"][None],
+            "focal": np.asarray([sample["focal"]], np.float32)}
+    host_rng = np.random.default_rng(7)
+    gen = torch.Generator(device=dev).manual_seed(2)
+    losses, seconds = [], []
+    rf.reset_launches()
+    rv.reset_launches()
+    for steps, lr, alpha, extra in (
+            (ACCEL_TRAIN_STEPS, cosine_lr(2e-4, 100, ACCEL_TRAIN_STEPS), 0.0, {}),
+            (ACCEL_POLISH_STEPS, lambda t: 2e-5, 0.3, {"masks": sample["masks"][None]})):
+        opt = Optimizer(list(net.parameters()), lr)
+        step, _ = make_step_fns(net, opt, lambda: cfg, 1.0, 1.0, l2_loss, l2_loss,
+                                net.use_viewdirs, remat=not net.field_backward_in_kernel(1),
+                                lambda_alpha_mask=alpha)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            batch = prepare_ray_batch(dict(data, **extra), 1, ACCEL_TRAIN_RAYS, z_near, z_far,
+                                      False, host_rng)
+            losses.append(step({k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+                               gen)["t"])
+        torch.cuda.synchronize()
+        seconds.append((time.perf_counter() - t0) / steps)
+    launches = {k: v for k, v in dict(rf.LAUNCHES, **rv.LAUNCHES).items() if v}
+    return net.state_dict(), [float(v) for v in losses], seconds, launches
+
+
+def accel_phase(conf, dev, smi: str, records: dict) -> None:
+    """Phase 13: the occupancy accel on a quick-trained sn64 field (see the
+    module docstring)."""
+    import dataclasses
+    import types
+
+    import numpy as np
+
+    from pixelnerf_tpu_torch.data.synthetic import SyntheticDataset
+    from pixelnerf_tpu_torch.eval.eval import main as eval_main
+    from pixelnerf_tpu_torch.eval.gen_video import main as gen_video_main
+    from pixelnerf_tpu_torch.models.pixelnerf import make_model
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.parallel.pipeline import RenderPipeline
+    from pixelnerf_tpu_torch.render import renderer as rr
+    from pixelnerf_tpu_torch.render.accel import probe_lookup
+    from pixelnerf_tpu_torch.render.rays import sample_coarse
+    from pixelnerf_tpu_torch.train import checkpoints
+    from pixelnerf_tpu_torch.utils.geometry import gen_rays_np, pose_spherical
+
+    # the object of `-F synthetic --split train -S 0`, which the CLIs read
+    ds = SyntheticDataset(n_objs=1, n_views=8, image_size=FRAME, seed=0)
+    sample = ds[0]
+    state, losses, step_s, train_launches = quick_train(conf, dev, sample, ds.z_near, ds.z_far)
+    log(f"accel phase: quick-train (bench.py's recipe on the port's trainer: sn64 full width, "
+        f"random encoder, -F synthetic object 0 of {ds.n_views} views at {FRAME}px, 1 source "
+        f"view, R {ACCEL_TRAIN_RAYS}, 32 coarse + 8 depth samples, AMP): {ACCEL_TRAIN_STEPS} "
+        f"cosine steps at {1e3 * step_s[0]:.3f} ms a step, {ACCEL_POLISH_STEPS} polish steps at "
+        f"{1e3 * step_s[1]:.3f} ms; loss first {losses[0]:.5f}, end of the cosine "
+        f"{losses[ACCEL_TRAIN_STEPS - 1]:.5f}, last {losses[-1]:.5f}; launches {train_launches}; "
+        f"on {smi}")
+    n_steps = ACCEL_TRAIN_STEPS + ACCEL_POLISH_STEPS
+    if not (all(math.isfinite(v) for v in losses)
+            and train_launches == {k: 2 * n_steps for k in ("resnetfc_fwd_dense",
+                                                            "resnetfc_bwd_data",
+                                                            "resnetfc_bwd_weights")}):
+        raise SystemExit("accel phase: the quick-train diverged or did not run through the "
+                         "kernels")
+    for name in ("resnetfc_fwd_dense", "resnetfc_bwd_data", "resnetfc_bwd_weights"):
+        records[name]["accel_train_launches"] = train_launches[name]
+
+    net = make_model(conf["model"], mlp_impl="auto", device=dev)
+    net.load_state_dict(state)
+    with torch.no_grad():
+        scene = net.encode(torch.as_tensor(sample["images"][None, :1], device=dev),
+                           torch.as_tensor(sample["poses"][None, :1], device=dev),
+                           float(sample["focal"]))
+    poses = np.stack([pose_spherical(a, -15.0, 1.3)
+                      for a in np.linspace(-180, 180, ACCEL_FRAMES + 1)[:-1]])
+    rays = gen_rays_np(poses, FRAME, FRAME, float(sample["focal"]), ds.z_near,
+                       ds.z_far).reshape(-1, 8)
+    NR, frame = rays.shape[0], FRAME * FRAME
+    rays_dev = torch.from_numpy(rays).to(dev)
+    renderer = rr.NeRFRenderer.from_conf(conf["renderer"], eval_batch_size=ACCEL_CHUNK)
+    pipe = RenderPipeline(net, renderer)
+
+    def gen(seed=1):
+        return torch.Generator(device=dev).manual_seed(seed)
+
+    def frames(r=rays_dev, pack="u8", seed=1):
+        torch.cuda.synchronize()
+        rf.reset_launches()
+        rr.reset_accel_counts()
+        pts0 = pipe.field_points
+        t0 = time.perf_counter()
+        pieces = pipe.render_simple(scene, r, gen(seed), ray_batch_size=ACCEL_CHUNK, pack=pack,
+                                    as_numpy=False)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        packed = torch.cat([p[:n] for p, n in pieces])
+        rgb = packed[:, :3].float() / 255.0 if pack == "u8" else packed[:, :3]
+        return (rgb, packed, dt, dict(rf.LAUNCHES), (pipe.field_points - pts0) / r.shape[0],
+                dict(rr.ACCEL_COUNTS))
+
+    # ---- the dense render, and the field's sanity ----
+    rgb_dense, dense_packed, dense_s, dense_launches, dense_evals, _ = frames()
+    fg = float((rgb_dense - 1.0).abs().max(dim=-1).values.gt(0.08).float().mean())
+    field = pipe._field(pipe._table_scene(scene))
+    cfg0 = dataclasses.replace(renderer.cfg, eval_batch_size=0)
+    with torch.no_grad():  # the coarse head's own foreground on frame 0
+        coarse0 = rr.render_rays(field, rays_dev[None, :frame], cfg0, gen(),
+                                 use_viewdirs=net.use_viewdirs)["coarse"]["rgb"][0]
+    fg_coarse = float((coarse0 - 1.0).abs().max(dim=-1).values.gt(0.08).float().mean())
+    log(f"accel phase: dense render of {ACCEL_FRAMES} ring frames ({NR} rays, chunk "
+        f"{min(pipe.device_chunk, ACCEL_CHUNK)}): foreground fraction {fg:.4f} (need >= 0.03; "
+        f"the coarse head's on frame 0 {fg_coarse:.4f}); "
+        f"{dense_evals:.1f} field evaluations a ray; launches {dense_launches}")
+    if not fg >= 0.03 or dense_launches["resnetfc_fwd_gather"] == 0:
+        raise SystemExit("accel phase: the trained field renders no object (or the dense render "
+                         "missed the gather kernel); train more or fix the port")
+
+    # ---- the grid: the full build over the ring's rays ----
+    pipe.set_accel_mode("proposal")
+    torch.cuda.synchronize()
+    rf.reset_launches()
+    calls0 = pipe.field_points
+    grid = pipe.build_accel(scene, rays, ray_batch_size=ACCEL_CHUNK)
+    build_launches = dict(rf.LAUNCHES)
+    st = dict(pipe.accel_stats)
+    log(f"accel phase: build ({st['resolution']}^3 voxels x {st['n_dir_probes']} probe "
+        f"directions x 2 heads = {pipe.field_points - calls0} field evaluations): grid program "
+        f"{st['grid_s']:.4f} s, "
+        f"capacity probe {st['probe_s']:.4f} s; occupancy {st['occupancy']:.4f}; ray live "
+        f"max/mean {st['ray_live_max']:.4f}/{st['ray_live_mean']:.4f}, sample live "
+        f"{st['sample_live']:.4f} -> capacities rays {st['cap_r']} samples {st['cap_c']} fine "
+        f"{st['cap_f']}, chunk {st['chunk']}; launches {build_launches}; on {smi}")
+    if grid is None or pipe.accel is None or build_launches["resnetfc_fwd_gather"] == 0:
+        raise SystemExit("accel phase: the grid was disabled or its build missed the gather "
+                         "kernel")
+
+    # ---- the gate from proposal at 30 dB, on every frame ----
+    t0 = time.perf_counter()
+    label, psnrs = pipe.gate_accel_mode(scene, rays, 1, rgb_dense.cpu().numpy(),
+                                        ray_batch_size=ACCEL_CHUNK, pack="u8")
+    gate_s = time.perf_counter() - t0
+    log(f"accel phase: gate (seed 1, u8 frames, >= 30 dB against dense): "
+        f"{json.dumps({k: round(v, 3) for k, v in psnrs.items()})} -> {label} in {gate_s:.3f} s; "
+        f"settled config: mode {pipe.renderer.base_cfg.accel_mode}, proposal draws "
+        f"{pipe.renderer.base_cfg.accel_proposal_samples}, capacities "
+        f"{pipe.renderer.base_cfg.accel_capacity_rays}/{pipe.renderer.base_cfg.accel_capacity}, "
+        f"chunk {pipe.accel_chunk}")
+    if label == "dense" or pipe.accel is None:
+        raise SystemExit("accel phase: the gate settled on dense on a trained object: the accel "
+                         "was not shown; train more or fix the port")
+    settled_cfg, settled_chunk = pipe.renderer.base_cfg, pipe.accel_chunk
+
+    # ---- rays/s of dense and the settled rung, in turns ----
+    times = {"dense": [], label: []}
+    evals, reads, launches, rgbs = {}, {}, {}, {}
+    for name in ("dense", label, label, "dense"):
+        if name == "dense":
+            pipe.accel = None
+        rgbs[name], _, dt, la, ev, counts = frames()
+        if name == "dense":
+            pipe.accel, pipe.accel_chunk = grid, settled_chunk
+        times[name].append(dt)
+        evals[name], reads[name], launches[name] = ev, counts["n_live_reads"], la
+    rate = {k: NR / (sum(v) / len(v)) for k, v in times.items()}
+    p_settled = psnr(rgbs[label], rgb_dense)
+    log(f"accel phase: render of {NR} rays ({ACCEL_FRAMES} frames), means of two calls each "
+        f"in turns (dense, {label}, {label}, dense): dense {rate['dense']:.1f} rays/s, {label} "
+        f"{rate[label]:.1f} rays/s ({rate[label] / rate['dense']:.3f}x); field evaluations a ray "
+        f"dense {evals['dense']:.2f}, {label} {evals[label]:.2f}; n_live host reads "
+        f"{reads[label]} a render = {reads[label] / ACCEL_FRAMES:.4f} a frame; {label} vs dense "
+        f"PSNR {p_settled:.3f} dB (need >= 30); launches {launches[label]}; runs "
+        f"{json.dumps({k: [round(x, 4) for x in v] for k, v in times.items()})}; on {smi}")
+    if not (p_settled >= 30.0 and launches[label]["resnetfc_fwd_gather"] > 0
+            and not any(v for k, v in launches[label].items() if k != "resnetfc_fwd_gather")):
+        raise SystemExit(f"accel phase: the settled rung {label} disagrees with dense or missed "
+                         "the gather kernel")
+
+    # ---- each mode against dense, same seed ----
+    def heads(sub, accel, cfg):
+        rf.reset_launches()
+        with torch.no_grad():
+            out = rr.render_rays(field, sub, cfg, gen(), use_viewdirs=net.use_viewdirs,
+                                 accel=accel)
+        torch.cuda.synchronize()
+        return out, dict(rf.LAUNCHES)
+
+    checks = {}
+    for mode in ("rays", "samples"):
+        pipe.renderer.base_cfg = dataclasses.replace(settled_cfg, accel_mode=mode)
+        pipe.accel = grid
+        pipe._autoselect_capacity(rays, ray_batch_size=ACCEL_CHUNK)
+        if pipe.accel is None:
+            raise SystemExit(f"accel phase: the capacity probe found nothing to prune in {mode} "
+                             "mode")
+        # the first window of the chunk the probe sized the buffers for
+        sub = rays_dev[None, :pipe.accel_stats["chunk"]]
+        dense_h, _ = heads(sub, None, cfg0)
+        rr.reset_accel_counts()
+        out, la = heads(sub, grid, dataclasses.replace(pipe.renderer.cfg, eval_batch_size=0))
+        c = dict(rr.ACCEL_COUNTS)
+        oc, dc = out["coarse"], dense_h["coarse"]
+        # the rays the grid kept: any sample of the render's coarse draw (the
+        # generator's first) in an occupied voxel; they go through the field
+        # at the dense render's z
+        z = sample_coarse(sub[0], cfg0.n_coarse, gen())
+        pruned = ~probe_lookup(grid, sub[0, :, None, :3] + z[..., None] * sub[0, :, None, 3:6])[
+            0].any(dim=-1)[None]
+        checks[mode] = dict(
+            rays=sub.shape[1], fine_psnr=psnr(out["fine"]["rgb"], dense_h["fine"]["rgb"]),
+            coarse_rgb=(oc["rgb"] - dc["rgb"]).abs().max().item(),
+            coarse_depth=(oc["depth"] - dc["depth"]).abs().max().item(),
+            pruned=int(pruned.sum()), kept_coarse_bit_identical=bool(
+                torch.equal(oc["rgb"][~pruned], dc["rgb"][~pruned])
+                and torch.equal(oc["depth"][~pruned], dc["depth"][~pruned])),
+            counts=c, launches=la["resnetfc_fwd_gather"],
+            capacities=(pipe.renderer.base_cfg.accel_capacity_rays,
+                        pipe.renderer.base_cfg.accel_capacity))
+    pipe.renderer.base_cfg, pipe.accel, pipe.accel_chunk = settled_cfg, grid, settled_chunk
+    log(f"accel phase: modes against dense on the first chunk (one pass each, the same "
+        f"generator seed): {json.dumps(checks)} (rays: the kept rays' coarse rgb and depth bit "
+        f"for bit the dense render's, fine >= 40 dB; the largest coarse |d| beside tests/"
+        f"test_accel.py's bar for the analytic sphere, 2e-3 rgb / 5e-3 depth, which a trained "
+        f"field's sub-threshold density on the pruned rays may pass; samples: fine >= 40 dB)")
+    r_, s_ = checks["rays"], checks["samples"]
+    if not (r_["kept_coarse_bit_identical"] and 0 < r_["pruned"] < r_["rays"]
+            and r_["fine_psnr"] >= 40.0
+            and s_["fine_psnr"] >= 40.0 and r_["counts"]["compacted"] == 1
+            and s_["counts"]["compacted"] >= 1 and r_["launches"] > 0 and s_["launches"] > 0):
+        raise SystemExit("accel phase: rays or samples mode disagrees with dense, or did not "
+                         "compact through the gather kernel")
+
+    # ---- the fallback: a 1/64 ray capacity, bit for bit the dense render ----
+    pipe.renderer.base_cfg = dataclasses.replace(settled_cfg, accel_mode="rays",
+                                                 accel_capacity_rays=1 / 64)
+    pipe.accel_chunk = None  # the dense render's chunks, so the draws line up
+    fb_rgb, fb_packed, _, _, _, fb_counts = frames(pack="f32")
+    pipe.accel = None
+    dn_rgb, dn_packed, _, _, _, _ = frames(pack="f32")
+    pipe.renderer.base_cfg, pipe.accel, pipe.accel_chunk = settled_cfg, grid, settled_chunk
+    identical = torch.equal(fb_packed, dn_packed)
+    log(f"accel phase: fallback (rays, capacity 1/64 of a chunk): {fb_counts}; bit-identical to "
+        f"the dense render {identical}")
+    if not (identical and fb_counts["fallbacks"] == fb_counts["n_live_reads"] > 0):
+        raise SystemExit("accel phase: the over-capacity fallback is not the dense render")
+
+    # ---- the other routes on the settled rung: dense kernel, deferred code ----
+    routes = {}
+    for env, kname in (("PIXELNERF_FUSED_GATHER_MAX_ROWS", "resnetfc_fwd_dense"),
+                       ("PIXELNERF_DEFER_CODE", "resnetfc_fwd_gather_code")):
+        os.environ[env] = "0" if env.endswith("ROWS") else "1"
+        try:
+            rgb_r, _, _, la, _, _ = frames(rays_dev[:frame])
+        finally:
+            del os.environ[env]
+        routes[kname] = (la, psnr(rgb_r, rgb_dense[:frame]))
+        if not (la[kname] > 0 and not any(v for k, v in la.items() if k != kname)):
+            raise SystemExit(f"accel phase: the pruned render under {env} missed {kname}")
+    log(f"accel phase: frame 0 at the settled rung on the dense route and with the deferred "
+        f"code: {json.dumps({k: (v[0][k], round(v[1], 3)) for k, v in routes.items()})} "
+        f"(launches, PSNR against dense)")
+
+    records["resnetfc_fwd_gather"]["accel_launches"] = {
+        "build": build_launches["resnetfc_fwd_gather"],
+        label: launches[label]["resnetfc_fwd_gather"],
+        "rays": checks["rays"]["launches"], "samples": checks["samples"]["launches"]}
+    records["resnetfc_fwd_dense"]["accel_launches"] = routes["resnetfc_fwd_dense"][0][
+        "resnetfc_fwd_dense"]
+
+    # ---- the CLIs, in-process, on this field ----
+    os.environ["PIXELNERF_ALLOW_RANDOM_BACKBONE"] = "1"  # no backbone weights on this machine
+    with tempfile.TemporaryDirectory() as tmp:
+        ck = os.path.join(tmp, "ck")
+        checkpoints.save_weights(types.SimpleNamespace(checkpoints_path=ck, name="accel"), net)
+        base = ["-n", "accel", "-c", ACCEL_CONF, "-F", "synthetic", "--split", "train",
+                "--checkpoints_path", ck, "-R", str(ACCEL_CHUNK)]
+        cli = {}
+        for source, kname in (("0", "resnetfc_fwd_gather"), ("0 1", "resnetfc_fwd_gather_mv"),
+                              ("0 1 2", "resnetfc_fwd_dense_mv")):
+            vis = os.path.join(tmp, "vis" + source.replace(" ", ""))
+            torch.cuda.synchronize()
+            rf.reset_launches()
+            t0 = time.perf_counter()
+            res = gen_video_main(base + ["-S", "0", "-P", source, "--num_views",
+                                         str(ACCEL_CLI_FRAMES), "--visual_path", vis])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            la = dict(rf.LAUNCHES)
+            pngs = sorted(os.listdir(res["frame_dir"]))
+            cli[source] = (res["accel"], la, len(pngs), dt)
+            log(f"accel phase: python -m pixelnerf_tpu_torch.eval.gen_video -F synthetic -S 0 -P "
+                f"\"{source}\" --num_views {ACCEL_CLI_FRAMES} (--accel_mode auto): accel "
+                f"{res['accel']}; {len(pngs)} PNG frames of {res['frames'].shape[1:3]}, video "
+                f"{res['video']}; launches {la}; {dt:.3f} s")
+            if not (isinstance(res["accel"], tuple) and len(pngs) == ACCEL_CLI_FRAMES
+                    and os.path.exists(res["view"]) and la[kname] > 0
+                    and not any(v for k, v in la.items() if k != kname)):
+                raise SystemExit(f"accel phase: gen_video -P {source!r} showed no gate trail, "
+                                 f"wrote no frames or missed {kname}")
+        evals_ = {}
+        for accel in ("off", "proposal"):
+            out = os.path.join(tmp, "eval_" + accel)
+            torch.cuda.synchronize()
+            rf.reset_launches()
+            t0 = time.perf_counter()
+            res = eval_main(base + ["-P", "0", "--max_objs", "1", "-O", out, "--accel", accel])
+            torch.cuda.synchronize()
+            evals_[accel] = (res, dict(rf.LAUNCHES), time.perf_counter() - t0)
+        (off, la_off, t_off), (on, la_on, t_on) = evals_["off"], evals_["proposal"]
+        log(f"accel phase: python -m pixelnerf_tpu_torch.eval.eval -F synthetic --split train -P "
+            f"\"0\" --max_objs 1: --accel off psnr {off['psnr']:.4f} ssim {off['ssim']:.4f} in "
+            f"{t_off:.3f} s; --accel proposal (fast build, gate on the first target view) gate "
+            f"{on['gates']} psnr {on['psnr']:.4f} ssim {on['ssim']:.4f} in {t_on:.3f} s; "
+            f"launches off {la_off}, proposal {la_on}")
+        if not (len(on["gates"]) == 1 and math.isfinite(on["psnr"]) and math.isfinite(on["ssim"])
+                and math.isfinite(off["psnr"]) and la_on["resnetfc_fwd_gather"] > 0):
+            raise SystemExit("accel phase: eval --accel proposal ran no gate or gave no metrics")
+    del os.environ["PIXELNERF_ALLOW_RANDOM_BACKBONE"]
+    records["resnetfc_fwd_gather"]["accel_launches"]["gen_video"] = \
+        cli["0"][1]["resnetfc_fwd_gather"]
+    records["resnetfc_fwd_gather_mv"]["accel_launches"] = {
+        "gen_video": cli["0 1"][1]["resnetfc_fwd_gather_mv"]}
+    records["resnetfc_fwd_dense_mv"]["accel_launches"] = {
+        "gen_video": cli["0 1 2"][1]["resnetfc_fwd_dense_mv"]}
+    return routes["resnetfc_fwd_gather_code"][0]["resnetfc_fwd_gather_code"]
 
 
 def main() -> None:
@@ -1557,6 +1945,9 @@ def main() -> None:
     finally:
         data_dir.cleanup()
 
+    # ---- the occupancy accel on a quick-trained field ----
+    code_accel_launches = accel_phase(conf, dev, smi, records)
+
     # row 6 as one record: the single-view gather variant's numbers (the
     # 1-view deferred render's kernel) at the top, every variant under
     # "variants"; launches are the deferred renders' (phase 7)
@@ -1566,7 +1957,7 @@ def main() -> None:
         replaces="pixelnerf_tpu/ops/resnetfc_pallas.py:156",
         launches=sum(r["launches"] for r in code_records.values()),
         max_abs_err=max(r["max_abs_err"] for r in code_records.values()),
-        variants=code_records)
+        variants=code_records, accel_launches=code_accel_launches)
 
     keys = ("name", "route", "source", "replaces", "launches", "max_abs_err", "ms",
             "plain_ms", "bound_ms", "bound_by", "library_ms")

@@ -1,2 +1,3 @@
 """Evaluation CLIs: ``python -m pixelnerf_tpu_torch.eval.eval`` (per-object
-PSNR/SSIM over a dataset split)."""
+PSNR/SSIM over a dataset split) and ``python -m
+pixelnerf_tpu_torch.eval.gen_video`` (a novel-view video of one object)."""

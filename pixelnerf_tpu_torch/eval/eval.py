@@ -22,8 +22,15 @@ ground-truth compare then resizes the ground truth to the render by area, as
 view (the DVR adapter's (NV, 2) when views differ) gives the encoder the
 source views' rows and each target view's rays its own row.
 
-Not ported yet (they raise, ROADMAP.md): ``--accel`` other than ``off``,
-``--write_depth`` (its colormap), and more than one ``--gpu_id``.
+``--accel rays|proposal`` builds an occupancy grid per object over its
+target views' rays (``--accel_build fast``: 64^3 voxels and one probe
+direction; ``full``: 96^3 and four) and, unless ``--no_accel_gate``, walks
+the quality gate on the first target view (seed 11) before it renders.  On
+a CPU device the accel is ignored, with a warning, unless
+``PIXELNERF_ACCEL_CPU_OK=1``; on the card it always runs when asked.
+
+Not ported yet (they raise, ROADMAP.md): ``--write_depth`` (its colormap)
+and more than one ``--gpu_id``.
 """
 
 from __future__ import annotations
@@ -65,11 +72,16 @@ def extra_args(parser):
                         "plain torch elsewhere; 'pallas'/'cuda' forces the kernels; 'xla'/'torch' "
                         "the plain field")
     parser.add_argument("--accel", type=str, default="off", choices=["off", "rays", "proposal"],
-                        help="occupancy-grid pruning (not ported yet: only 'off' runs)")
+                        help="occupancy-grid pruning: 'rays' skips verified-empty rays, "
+                        "'proposal' also samples the fine pass from the grid in place of the "
+                        "coarse field pass (fine head only); 'off' composites every sample")
     parser.add_argument("--accel_build", type=str, default="fast", choices=["fast", "full"],
-                        help="grid-build budget of --accel")
+                        help="per-object grid-build budget: 'fast' 64^3 voxels under one view "
+                        "direction, 'full' 96^3 under four")
     parser.add_argument("--no_accel_gate", action="store_true",
-                        help="skip the per-object self-gate of --accel")
+                        help="skip the per-object self-gate (the first target view rendered "
+                        "dense and pruned; below 30 dB it walks proposal -> proposal+8 -> "
+                        "proposal+16 -> rays -> dense)")
     return parser
 
 
@@ -85,7 +97,8 @@ def _read_finished(path: str):
 def main(argv=None) -> dict:
     """Run the evaluation.  Returns ``{"objects": [(name, psnr, ssim), ...]``
     for the objects rendered by this call, ``"psnr"``, ``"ssim"``: the running
-    means over the journal, and ``"cnt"``: its object count}."""
+    means over the journal, ``"cnt"``: its object count, and ``"gates"``:
+    ``[(name, settled rung, {rung: PSNR}), ...]`` of the accel gates run}."""
     from ..config.args import parse_args
     from ..data import get_split_dataset
     from ..data.resize import resize_area
@@ -103,14 +116,17 @@ def main(argv=None) -> dict:
     if args.coarse and args.accel == "proposal":
         raise SystemExit("--accel proposal renders only the fine head; "
                          "it cannot be combined with --coarse")
-    if args.accel != "off":
-        raise NotImplementedError(
-            f"--accel {args.accel}: the occupancy accel is not ported yet (ROADMAP.md, slice 5)")
     if args.write_depth:
         raise NotImplementedError(
             "--write_depth (EXR depth and its colormap need OpenCV): not ported yet "
             "(ROADMAP.md, slice 4)")
     device = resolve_device(args.device)
+    use_accel = args.accel != "off"
+    if (use_accel and device.type == "cpu"
+            and os.environ.get("PIXELNERF_ACCEL_CPU_OK", "0") != "1"):
+        print(f"WARNING: --accel {args.accel} ignored on the CPU backend (the grid build is a "
+              "large field-probe pass that only pays off at accelerator rates); evaluating dense")
+        use_accel = False
 
     dset = get_split_dataset(args.dataset_format, args.datadir, want_split=args.split,
                              training=False)
@@ -166,7 +182,7 @@ def main(argv=None) -> dict:
         total_objs = len(dset)
         # one generator split per rendered object, as the JAX CLI splits its key
         master = torch.Generator().manual_seed(0)
-        rendered = []
+        rendered, gates = [], []
 
         for obj_idx in range(total_objs):
             if args.max_objs > 0 and obj_idx >= args.max_objs:
@@ -216,6 +232,8 @@ def main(argv=None) -> dict:
                     load_pretrained_backbone(net, conf["model"])
                 checkpoints.load_weights(args, net)
                 pipeline = RenderPipeline(net, renderer)
+                if use_accel:
+                    pipeline.set_accel_mode(args.accel)
 
             with torch.no_grad():
                 scene = net.encode(
@@ -226,6 +244,18 @@ def main(argv=None) -> dict:
                        if c is not None else None))
             obj_gen = torch.Generator(device=device).manual_seed(
                 int(torch.randint(0, 2**62, (1,), generator=master)))
+            if use_accel:
+                # one grid a object over all its target views
+                pipeline.set_accel_mode(args.accel)
+                pipeline.build_accel(scene, all_rays, ray_batch_size=args.ray_batch_size,
+                                     **(dict(resolution=64, n_dir_probes=1)
+                                        if args.accel_build == "fast" else {}))
+                if not args.no_accel_gate and pipeline.accel is not None:
+                    label, psnrs = pipeline.gate_accel_mode(
+                        scene, all_rays[: H * W], 11, ray_batch_size=args.ray_batch_size)
+                    trail = ", ".join(f"{k} {v:.1f} dB" for k, v in psnrs.items())
+                    print(f"  accel gate: {trail} -> {label}")
+                    gates.append((obj_name, label, psnrs))
             all_rgb, _ = pipeline.render_simple(scene, all_rays, obj_gen,
                                                 ray_batch_size=args.ray_batch_size)
             all_rgb = np.clip(all_rgb.reshape(n_gen_views, H, W, 3), 0.0, 1.0)
@@ -270,7 +300,7 @@ def main(argv=None) -> dict:
     if cnt > 0:
         print("final psnr", total_psnr / cnt, "ssim", total_ssim / cnt)
     return {"objects": rendered, "psnr": total_psnr / cnt if cnt else float("nan"),
-            "ssim": total_ssim / cnt if cnt else float("nan"), "cnt": cnt}
+            "ssim": total_ssim / cnt if cnt else float("nan"), "cnt": cnt, "gates": gates}
 
 
 if __name__ == "__main__":

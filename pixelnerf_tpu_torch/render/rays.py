@@ -44,12 +44,15 @@ def sample_coarse(rays: torch.Tensor, n_coarse: int, generator=None, lindisp: bo
 
 def sample_fine(rays: torch.Tensor, weights: torch.Tensor, n_fine: int, n_coarse: int,
                 generator=None, lindisp: bool = False, u: Optional[torch.Tensor] = None,
-                jitter: Optional[torch.Tensor] = None) -> torch.Tensor:
+                jitter: Optional[torch.Tensor] = None, stratified: bool = False) -> torch.Tensor:
     """Importance samples by inverting the CDF of the coarse weights.
 
     :param weights: (B, Kc) coarse compositing weights (no gradient)
     :param u, jitter: (B, n_fine) uniforms (the CDF level, then the jitter
         inside the chosen bin), drawn in that order when None
+    :param stratified: the CDF levels are one jittered point per 1/n_fine
+        quantile, ``(k + u) / n_fine``, instead of the iid ``u`` (the
+        grid-proposal render's draw); ``u`` is then the raw jitter
     :return: (B, n_fine) z values
     """
     B = rays.shape[0]
@@ -57,6 +60,8 @@ def sample_fine(rays: torch.Tensor, weights: torch.Tensor, n_fine: int, n_coarse
     pdf = weights / torch.sum(weights, dim=-1, keepdim=True)
     cdf = torch.cumsum(pdf, dim=-1)  # (B, Kc): the bin upper edges
     u = _uniform((B, n_fine), generator, rays.device, u)
+    if stratified:
+        u = (torch.arange(n_fine, dtype=torch.float32, device=rays.device)[None] + u) / n_fine
     # count of bins whose upper CDF edge is <= u: searchsorted(side="right"),
     # the index the JAX package's compare-and-sum gives
     inds = torch.searchsorted(cdf.contiguous(), u.contiguous(), right=True).float()

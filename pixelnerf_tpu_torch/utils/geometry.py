@@ -1,5 +1,5 @@
 """Camera / ray geometry: the parts of the JAX package's ``utils/geometry.py``
-that the single-view render needs.
+that the port's render, train and eval paths need.
 
 Tensor functions take and return ``torch`` tensors on the caller's device;
 the host-side constructors (rays, poses) stay numpy, as in the JAX package.
@@ -113,6 +113,20 @@ def pose_spherical(theta: float, phi: float, radius: float) -> np.ndarray:
     c2w = rot_phi(phi / 180.0 * math.pi) @ c2w
     c2w = rot_theta(theta / 180.0 * math.pi) @ c2w
     return _POSE_SPHERICAL_FLIP @ c2w
+
+
+def quat_to_rot(q: np.ndarray) -> np.ndarray:
+    """Unit-normalized quaternions (B, 4) [r, i, j, k] -> rotation matrices
+    (B, 3, 3), float32 (the DTU spline camera path of ``gen_video``)."""
+    q = np.asarray(q, np.float32)
+    q = q / np.linalg.norm(q, axis=1, keepdims=True)
+    qr, qi, qj, qk = q[:, 0], q[:, 1], q[:, 2], q[:, 3]
+    R = np.stack([
+        1 - 2 * (qj**2 + qk**2), 2 * (qj * qi - qk * qr), 2 * (qi * qk + qr * qj),
+        2 * (qj * qi + qk * qr), 1 - 2 * (qi**2 + qk**2), 2 * (qj * qk - qi * qr),
+        2 * (qk * qi - qj * qr), 2 * (qj * qk + qi * qr), 1 - 2 * (qi**2 + qj**2),
+    ], axis=-1)
+    return R.reshape(-1, 3, 3).astype(np.float32)
 
 
 def invert_poses(poses: torch.Tensor) -> torch.Tensor:

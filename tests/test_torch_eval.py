@@ -254,7 +254,185 @@ def test_eval_cli_on_per_view_intrinsics(tmp_path, monkeypatch):
 def test_eval_cli_refuses_what_is_not_ported(tmp_path):
     base = ["-F", "synthetic", "--checkpoints_path", str(tmp_path / "ck"), "--device", "cpu",
             "-c", "conf/exp/sn64.conf", "-O", str(tmp_path / "o")]
-    for extra, what in ((["--accel", "rays"], "slice 5"), (["--write_depth"], "OpenCV"),
-                        (["--gpu_id", "0 1"], "slice 7")):
+    for extra, what in ((["--write_depth"], "OpenCV"), (["--gpu_id", "0 1"], "slice 7")):
         with pytest.raises(NotImplementedError, match=what):
             eval_main(base + extra)
+    with pytest.raises(SystemExit, match="fine head"):
+        eval_main(base + ["--accel", "proposal", "--coarse"])
+
+
+def _object_checkpoint(tmp_path, sigma_bias=-60.0, sigma_scale=20.0):
+    """A checkpoint of the tiny model whose fine head is its coarse head and
+    whose density, relu(20 raw - 60), fills ~1/10 of the object's box: a
+    field the accel prunes and the gate passes at its first rung."""
+    net = make_model(hocon.parse_string(CONF)["model"], device="cpu")
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for mlp in (net.mlp_coarse, net.mlp_fine):
+            for blk in mlp.blocks:
+                blk.fc_1.weight.copy_(0.1 * torch.randn(blk.fc_1.weight.shape, generator=g))
+        net.mlp_fine.load_state_dict(net.mlp_coarse.state_dict())
+        for mlp in (net.mlp_coarse, net.mlp_fine):
+            mlp.lin_out.weight[3] *= sigma_scale
+            mlp.lin_out.bias[3] = sigma_bias
+    ck = tmp_path / "ck"
+    checkpoints.save_weights(types.SimpleNamespace(checkpoints_path=str(ck), name="ev"), net)
+    return ck
+
+
+def _jax_probes(monkeypatch):
+    """The JAX build's probe directions and capacity-probe jitter, and the
+    JAX gate's draws (its key from the gate's seed), in the port."""
+    import jax
+
+    from pixelnerf_tpu_torch.render import accel as taccel
+    from test_torch_accel import jax_jitter, pipeline_draws
+
+    def jdirs(n, generator=None):
+        d = jax.random.normal(jax.random.PRNGKey(0), (max(n, 1), 3))
+        return torch.from_numpy(np.array(d / (jnp.linalg.norm(d, axis=-1, keepdims=True) + 1e-8)))
+
+    monkeypatch.setattr(taccel, "probe_dirs", jdirs)
+    monkeypatch.setattr(RenderPipeline, "probe_jitter", staticmethod(jax_jitter))
+    gate = RenderPipeline.gate_accel_mode
+
+    def jgate(self, scene, rays, seed, *a, **k):
+        return gate(self, scene, rays, seed, *a,
+                    draws=pipeline_draws(jax.random.PRNGKey(seed), self), **k)
+
+    monkeypatch.setattr(RenderPipeline, "gate_accel_mode", jgate)
+
+
+def test_eval_cli_accel_proposal_matches_jax_eval(tmp_path, monkeypatch, capsys):
+    """``--accel proposal`` (the fast build: 64^3 voxels, one probe
+    direction) with the gate on the first target view, on the CPU under
+    ``PIXELNERF_ACCEL_CPU_OK=1``, through both CLIs on one checkpoint: the
+    same grid line and gate trail (JAX's probe directions, jitter and gate
+    draws in the port), metrics within the bar of the dense test; without
+    the variable the port evaluates dense, with the root's warning."""
+    from pixelnerf_tpu.data import write_synthetic_dvr
+
+    data = write_synthetic_dvr(str(tmp_path / "dvr"), n_objs=3, n_views=3, image_size=32)
+    conf = tmp_path / "tiny.conf"
+    conf.write_text(CONF)
+    (tmp_path / "views.txt").write_text("2\n")
+    ck = _object_checkpoint(tmp_path)
+
+    def argv(out):
+        return ["-n", "ev", "-c", str(conf), "-F", "dvr", "-D", data, "--checkpoints_path",
+                str(ck), "--split", "test", "-P", "0", "--scale", "0.5", "--eval_view_list",
+                str(tmp_path / "views.txt"), "-O", str(tmp_path / out), "--accel", "proposal"]
+
+    _jax_probes(monkeypatch)
+    monkeypatch.setenv("PIXELNERF_ACCEL_CPU_OK", "1")
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(sys, "argv", ["eval/eval.py"] + argv("jax_out"))
+    runpy.run_path(str(ROOT / "eval" / "eval.py"), run_name="__main__")
+    jlog = capsys.readouterr()
+    res = eval_main(argv("port_out") + ["--device", "cpu"])
+    log = capsys.readouterr()
+
+    def grid_lines(text):
+        return [ln for ln in text.splitlines() if ln.startswith("accel: occupancy")]
+
+    assert grid_lines(log.err) == grid_lines(jlog.err) and len(grid_lines(log.err)) == 1
+    jtrail = [ln.strip() for ln in jlog.out.splitlines() if "accel gate:" in ln]
+    trail = [ln.strip() for ln in log.out.splitlines() if "accel gate:" in ln]
+    assert trail == jtrail and len(trail) == 1, (trail, jtrail)
+    (name, label, psnrs), = res["gates"]
+    assert label == "proposal" and psnrs["proposal"] >= 30.0
+    jj, jp = _journal(tmp_path / "jax_out"), _journal(tmp_path / "port_out")
+    assert jp[0][0] == jj[0][0] == name == "obj0002"
+    assert abs(float(jp[0][1]) - float(jj[0][1])) <= 0.5
+    assert abs(float(jp[0][2]) - float(jj[0][2])) <= 0.02
+
+    monkeypatch.delenv("PIXELNERF_ACCEL_CPU_OK")
+    dense = eval_main(argv("dense_out") + ["--device", "cpu"])
+    assert "WARNING: --accel proposal ignored on the CPU" in capsys.readouterr().out
+    assert dense["gates"] == [] and dense["cnt"] == 1
+
+
+# ---------------------------------------------------------------------------
+# the gen_video CLI against eval/gen_video.py
+# ---------------------------------------------------------------------------
+
+
+def test_dtu_spline_poses_match_jax():
+    from pixelnerf_tpu_torch.eval.gen_video import dtu_spline_poses
+
+    root = runpy.run_path(str(ROOT / "eval" / "gen_video.py"), run_name="gen_video")
+    for n in (3, 5, 40):
+        got, want = dtu_spline_poses(n), root["dtu_spline_poses"](n)
+        assert got.dtype == np.float32 and got.shape == want.shape
+        np.testing.assert_allclose(got, want, rtol=0, atol=1e-5)
+
+
+@pytest.mark.parametrize("fmt", ["dvr", "dvr_dtu"])
+def test_gen_video_cli_matches_jax_gen_video(tmp_path, monkeypatch, fmt):
+    """``python -m pixelnerf_tpu_torch.eval.gen_video`` on the CPU (dense,
+    as the root CLI renders there) against ``eval/gen_video.py`` on one
+    checkpoint: the ring (``-F dvr``) or DTU spline (``-F dvr_dtu``) rays
+    equal to 1e-5, the frames within one u8 level with JAX's draws fed, one
+    PNG per frame and the source view beside the root's output names."""
+    import jax
+
+    from pixelnerf_tpu.data import write_synthetic_dtu, write_synthetic_dvr
+    from pixelnerf_tpu_torch.eval.gen_video import main as gen_video_main
+    from test_torch_accel import pipeline_draws
+
+    if fmt == "dvr":
+        data = write_synthetic_dvr(str(tmp_path / "d"), n_objs=3, n_views=3, image_size=16)
+        split, frames_arg, n_frames, hw = "test", "3", 3, (16, 16)
+    else:
+        data = write_synthetic_dtu(str(tmp_path / "d"), n_scenes=1, n_views=5,
+                                   image_size=(12, 16), seed=1)
+        split, frames_arg, n_frames, hw = "val", "5", 6, (12, 16)
+    conf = tmp_path / "tiny.conf"
+    conf.write_text(CONF)
+    net = make_model(hocon.parse_string(CONF)["model"], device="cpu")
+    g = torch.Generator().manual_seed(4)
+    with torch.no_grad():
+        for mlp in (net.mlp_coarse, net.mlp_fine):
+            for blk in mlp.blocks:
+                blk.fc_1.weight.copy_(0.1 * torch.randn(blk.fc_1.weight.shape, generator=g))
+    ck = tmp_path / "ck"
+    checkpoints.save_weights(types.SimpleNamespace(checkpoints_path=str(ck), name="gv"), net)
+
+    def argv(vis):
+        return ["-n", "gv", "-c", str(conf), "-F", fmt, "-D", data, "--checkpoints_path",
+                str(ck), "--split", split, "-S", "0", "-P", "0", "--num_views", frames_arg,
+                "--visual_path", str(tmp_path / vis), "-R", "512"]
+
+    jout, out = [], []
+    jrender = JRenderPipeline.render_simple
+    render = RenderPipeline.render_simple
+
+    def jspy(self, variables, scene, rays, rng, **kw):
+        res = jrender(self, variables, scene, rays, rng, **kw)
+        jout.append((np.asarray(rays), res[0]))
+        return res
+
+    def spy(self, scene, rays, generator, **kw):  # the root renders with PRNGKey(1)
+        res = render(self, scene, rays, generator,
+                     draws=pipeline_draws(jax.random.PRNGKey(1), self), **kw)
+        out.append((np.asarray(rays), res[0]))
+        return res
+
+    monkeypatch.setattr(JRenderPipeline, "render_simple", jspy)
+    monkeypatch.setattr(RenderPipeline, "render_simple", spy)
+    monkeypatch.chdir(tmp_path)
+    monkeypatch.setattr(sys, "argv", ["eval/gen_video.py"] + argv("jax_vis"))
+    runpy.run_path(str(ROOT / "eval" / "gen_video.py"), run_name="__main__")
+    res = gen_video_main(argv("port_vis") + ["--device", "cpu"])
+
+    assert len(out) == len(jout) == 1
+    np.testing.assert_allclose(out[0][0], jout[0][0], rtol=0, atol=1e-5)
+    assert res["frames"].shape == (n_frames,) + hw + (3,) and res["accel"] is None
+    want = (np.clip(jout[0][1].reshape(-1, *hw, 3), 0, 1) * 255).astype(np.uint8)
+    assert np.abs(res["frames"].astype(int) - want.astype(int)).max() <= 1
+    name = "video" + ("t" if split == "test" else "v") + "0000_v000"
+    jfiles = sorted(os.listdir(tmp_path / "jax_vis" / "gv"))
+    files = sorted(os.listdir(tmp_path / "port_vis" / "gv"))
+    assert name + "_view.jpg" in jfiles and name + "_view.png" in files
+    assert sorted(os.listdir(res["frame_dir"])) == [f"{i:04}.png" for i in range(n_frames)]
+    assert res["video"] is not None and os.path.basename(res["video"]) in jfiles
