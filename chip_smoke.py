@@ -111,25 +111,33 @@ one line each:
     ground-truth compare, launches the multi-view dense kernel and gives
     finite PSNR/SSIM;
 13. accel: the port's trainer quick-trains the full-width sn64 model on
-    ``-F synthetic`` object 0 (``bench.py``'s recipe: 800 cosine steps and
-    200 polish steps at R 1024, one source view, random encoder); its dense
+    ``-F synthetic`` object 0 (``bench.py``'s recipe at a 1e-4 cosine peak:
+    800 cosine steps and 200 polish steps at R 1024, one source view,
+    random encoder; torch's deterministic algorithms on, so the run repeats
+    bit for bit); its dense
     render of 16 ring frames (65,536 rays) must hold an object (foreground
     >= 0.03); ``build_accel`` builds the full grid (96^3 x 4 probe
     directions x 2 heads) through the gather kernel and sizes the
     compaction buffers; the gate walks from ``proposal`` at 30 dB and must
     settle on a rung other than dense; the settled rung and dense are
     timed in turns (rays/s, field evaluations a ray, host reads of
-    ``n_live`` a frame); ``rays`` mode keeps its live rays' coarse output
-    bit for bit the dense render's and its fine head >= 40 dB, ``samples``
-    >= 40 dB; a 1/64 ray capacity falls back to a render bit for bit the
-    dense one; frame 0 at the settled rung launches the dense kernel under
+    ``n_live`` a frame), and the settled rung on the plain route (f32
+    torch field, the same grid and draws) must agree with it to >= 40 dB;
+    ``rays`` mode keeps its live rays' coarse output bit for bit the dense
+    render's, its pruned rays' coarse |d| within the build's bound
+    (n_coarse x eps_alpha in rgb, times z_far in depth) and its fine head
+    >= 40 dB, ``samples`` >= 40 dB; a 1/64 ray capacity falls back to a
+    render bit for bit the dense one; frame 0 at the settled rung launches the dense kernel under
     ``PIXELNERF_FUSED_GATHER_MAX_ROWS=0`` and the gather's code variant
     under ``PIXELNERF_DEFER_CODE=1``; then ``gen_video --accel_mode auto``
     at ``-P "0"``, ``"0 1"`` and ``"0 1 2"`` (4 frames: a gate trail, PNG
     frames, the gather, multi-view gather and multi-view dense kernel) and
     ``eval --accel proposal``
     beside ``--accel off`` on that object, in-process on a checkpoint of
-    the trained field.
+    the trained field; last, the first call of every forward kernel at
+    every point count those paths made (the build's chunks, the dense and
+    compacted passes, the CLIs' passes) is replayed: bit for bit the
+    path's own output, and against its plain version at the bar of 3.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -641,9 +649,82 @@ def train_eval_paths(nmr_root, dtu_root, net, smi, records, code_records, bwd_ms
 
 # phase 13: the scene, the quick-train recipe of bench.py and the render
 ACCEL_TRAIN_STEPS, ACCEL_POLISH_STEPS, ACCEL_TRAIN_RAYS = 800, 200, 1024
+# the cosine's peak lr: bench.py's 2e-4 left a dead head (an all-white
+# render) in 2 of 4 seeds on an H100, 1e-4 in none
+# (scripts/torch_accel_quicktrain.py); no sigma noise (bench.py's
+# BENCH_TRAIN_NOISE at 1 left both heads dead in 4 of 4)
+ACCEL_TRAIN_LR, ACCEL_TRAIN_NOISE = 1e-4, 0.0
 ACCEL_FRAMES, ACCEL_CHUNK = 16, 65536
 ACCEL_CLI_FRAMES = 4
+ACCEL_EPS_ALPHA = 1e-3  # the build's alpha a coarse step below which a voxel is empty
 ACCEL_CONF = "conf/exp/sn64.conf"
+
+
+class ForwardCalls:
+    """While installed, keeps the arguments and output of the first call of
+    each forward wrapper of ``resnetfc_fused`` at each (variant, head, point
+    count), so that the calls a path made can be replayed afterwards against
+    their plain versions (:meth:`check`).  The wrappers still run and count
+    their launches as before."""
+
+    WRAPPERS = ("resnetfc_gather", "resnetfc_gather_mv", "resnetfc_dense", "resnetfc_dense_mv")
+
+    def __init__(self, rf):
+        self.rf, self.calls, self._orig = rf, {}, {}
+
+    def __enter__(self):
+        import inspect
+
+        for name in self.WRAPPERS:
+            fn = self._orig[name] = getattr(self.rf, name)
+            setattr(self.rf, name, self._recorder(name, fn, inspect.signature(fn)))
+        return self
+
+    def __exit__(self, *exc):
+        for name, fn in self._orig.items():
+            setattr(self.rf, name, fn)
+
+    def _recorder(self, name, fn, sig):
+        def call(*args, **kwargs):
+            out = fn(*args, **kwargs)
+            a = sig.bind(*args, **kwargs)
+            a.apply_defaults()
+            a = a.arguments
+            code = isinstance(a["x"], self.rf.RawCode)
+            variant = "resnetfc_fwd_" + name[len("resnetfc_"):] + ("_code" if code else "")
+            key = (variant, a["tower"].w_in.data_ptr(), self.rf.coords(a["x"]).shape[0])
+            self.calls.setdefault(key, (fn, a, out))
+            return out
+
+        return call
+
+    def check(self):
+        """Each kept call again, and its plain version on the same inputs ->
+        [(variant, rows, max|d|, bar, corr, bit for bit the path's output, ok)]."""
+        rf, bf = self.rf, torch.bfloat16
+        rows = []
+        with torch.no_grad():
+            for (variant, _, n), (fn, a, out) in self.calls.items():
+                again = fn(**a)
+                if "gather" in variant:
+                    z = rf.gather_reference(a["idx"], a["w"],
+                                            a["table"] if "table" in a else a["tables"], bf)
+                else:
+                    z = a["z"]
+                mv = {}
+                if variant.startswith("resnetfc_fwd_gather_mv"):
+                    mv = dict(NS=a["tables"].shape[0], combine_layer=a["combine_layer"])
+                elif variant.startswith("resnetfc_fwd_dense_mv"):
+                    mv = dict(NS=a["NS"], sb=a["sb"], combine_layer=a["combine_layer"])
+                ref = rf.resnetfc_reference(z, a["x"], a["tower"], a["n_blocks"], a["planar_out"],
+                                            compute_dtype=bf, **mv)
+                torch.cuda.synchronize()
+                d, bar, corr = agree(again, ref)
+                same = torch.equal(again, out)
+                rows.append((variant, n, d, bar, corr, same, d <= bar and corr > 0.999 and same
+                             and bool(torch.isfinite(again).all())))
+                del again, ref, z
+        return rows
 
 
 def cosine_lr(peak: float, warmup: int, steps: int, end_frac: float = 0.1):
@@ -657,14 +738,26 @@ def cosine_lr(peak: float, warmup: int, steps: int, end_frac: float = 0.1):
     return lr
 
 
-def quick_train(conf, dev, sample, z_near: float, z_far: float):
-    """bench.py's quick-train recipe on the port's trainer: the sn64 model at
-    full width (random encoder) overfit to one synthetic sphere from one
-    source view a step, R 1024 rays, 32 coarse + 8 depth samples, the density
-    bias raised by 1, Adam at a 2e-4 cosine peak (100 warm-up steps, 10% at
-    the end), then a polish at 2e-5 with the mask loss at 0.3.
+def quick_train(conf, dev, sample, z_near: float, z_far: float, seed: int = SEED,
+                steps=(ACCEL_TRAIN_STEPS, ACCEL_POLISH_STEPS), deterministic: bool = True,
+                lr_peak: float = ACCEL_TRAIN_LR, noise0: float = ACCEL_TRAIN_NOISE):
+    """bench.py's quick-train recipe on the port's trainer, at its own peak
+    lr: the sn64 model at full width (random encoder) overfit to one
+    synthetic sphere from one source view a step, R 1024 rays, 32 coarse +
+    8 depth samples, the density bias raised by 1, Adam at an ``lr_peak``
+    cosine peak (100 warm-up steps, 10% at the end), then a polish at 2e-5
+    with the mask loss at 0.3.  With ``noise0`` > 0, bench.py's sigma-noise
+    option: noise of std ``noise0`` on the density, annealed linearly to 0
+    over the first 60% of the cosine steps.  ``seed`` draws the weights (the ray
+    batches and the render's draws follow it); ``steps`` are (cosine,
+    polish) steps.  With ``deterministic`` torch's deterministic algorithms
+    are on (warnings only) for the run, so that the torch ops that sum with
+    atomics by default sum in a fixed order and the run repeats bit for bit
+    (the port's kernels use no atomics in their sums).
     Returns (the trained weights, the losses, seconds a step in each part,
-    the kernels' launches)."""
+    the kernels' launches, the ops that warned of no deterministic version)."""
+    import warnings
+
     import numpy as np
 
     from pixelnerf_tpu_torch.models.losses import l2_loss
@@ -675,78 +768,66 @@ def quick_train(conf, dev, sample, z_near: float, z_far: float):
     from pixelnerf_tpu_torch.train import Optimizer, make_step_fns, prepare_ray_batch
 
     net = make_model(conf["model"], mlp_impl="auto", device=dev, diff_mode=True,
-                     generator=torch.Generator().manual_seed(SEED))
+                     generator=torch.Generator().manual_seed(seed))
     with torch.no_grad():
         for mlp in (net.mlp_coarse, net.mlp_fine):
             mlp.lin_out.bias[3] += 1.0  # no dead relu before the object is supervised
-    cfg = RenderConfig(n_coarse=32, n_fine=8, n_fine_depth=8, white_bkgd=True)
+    cfg = RenderConfig(n_coarse=32, n_fine=8, n_fine_depth=8, white_bkgd=True,
+                       noise_std=1.0 if noise0 > 0 else 0.0)
+    ramp = max(int(0.6 * ACCEL_TRAIN_STEPS), 1)
     data = {"images": sample["images"][None], "poses": sample["poses"][None],
             "focal": np.asarray([sample["focal"]], np.float32)}
-    host_rng = np.random.default_rng(7)
-    gen = torch.Generator(device=dev).manual_seed(2)
+    host_rng = np.random.default_rng(7 + seed - SEED)
+    gen = torch.Generator(device=dev).manual_seed(2 + seed - SEED)
     losses, seconds = [], []
     rf.reset_launches()
     rv.reset_launches()
-    for steps, lr, alpha, extra in (
-            (ACCEL_TRAIN_STEPS, cosine_lr(2e-4, 100, ACCEL_TRAIN_STEPS), 0.0, {}),
-            (ACCEL_POLISH_STEPS, lambda t: 2e-5, 0.3, {"masks": sample["masks"][None]})):
-        opt = Optimizer(list(net.parameters()), lr)
-        step, _ = make_step_fns(net, opt, lambda: cfg, 1.0, 1.0, l2_loss, l2_loss,
-                                net.use_viewdirs, remat=not net.field_backward_in_kernel(1),
-                                lambda_alpha_mask=alpha)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        for _ in range(steps):
-            batch = prepare_ray_batch(dict(data, **extra), 1, ACCEL_TRAIN_RAYS, z_near, z_far,
-                                      False, host_rng)
-            losses.append(step({k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
-                               gen)["t"])
-        torch.cuda.synchronize()
-        seconds.append((time.perf_counter() - t0) / steps)
+    was = (torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled(),
+           torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark)
+    torch.use_deterministic_algorithms(deterministic, warn_only=True)
+    torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = deterministic, False
+    try:
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("default")
+            for n_steps, lr, alpha, extra, noise in (
+                    (steps[0], cosine_lr(lr_peak, 100, ACCEL_TRAIN_STEPS), 0.0, {},
+                     lambda t: noise0 * min(max(1.0 - t / ramp, 0.0), 1.0)),
+                    (steps[1], lambda t: 2e-5, 0.3, {"masks": sample["masks"][None]},
+                     lambda t: 0.0)):
+                opt = Optimizer(list(net.parameters()), lr)
+                step, _ = make_step_fns(net, opt, lambda: cfg, 1.0, 1.0, l2_loss, l2_loss,
+                                        net.use_viewdirs,
+                                        remat=not net.field_backward_in_kernel(1),
+                                        lambda_alpha_mask=alpha)
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                for t in range(n_steps):
+                    batch = prepare_ray_batch(dict(data, **extra), 1, ACCEL_TRAIN_RAYS, z_near,
+                                              z_far, False, host_rng)
+                    losses.append(step({k: torch.from_numpy(v).to(dev) for k, v in batch.items()},
+                                       gen, noise_scale=noise(t))["t"])
+                torch.cuda.synchronize()
+                seconds.append((time.perf_counter() - t0) / max(n_steps, 1))
+    finally:
+        torch.use_deterministic_algorithms(was[0], warn_only=was[1])
+        torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = was[2], was[3]
+    nondet = sorted({str(w.message).split(".")[0][:120] for w in caught
+                     if "determinis" in str(w.message)})
     launches = {k: v for k, v in dict(rf.LAUNCHES, **rv.LAUNCHES).items() if v}
-    return net.state_dict(), [float(v) for v in losses], seconds, launches
+    return net.state_dict(), [float(v) for v in losses], seconds, launches, nondet
 
 
-def accel_phase(conf, dev, smi: str, records: dict) -> None:
-    """Phase 13: the occupancy accel on a quick-trained sn64 field (see the
-    module docstring)."""
-    import dataclasses
-    import types
-
+def accel_ring(conf, dev, state, sample, ds):
+    """The trained field on the kernel route, its source view encoded, the
+    rays of ``ACCEL_FRAMES`` ring frames (numpy) and a pipeline rendering
+    them in chunks of up to ``ACCEL_CHUNK``."""
     import numpy as np
 
-    from pixelnerf_tpu_torch.data.synthetic import SyntheticDataset
-    from pixelnerf_tpu_torch.eval.eval import main as eval_main
-    from pixelnerf_tpu_torch.eval.gen_video import main as gen_video_main
     from pixelnerf_tpu_torch.models.pixelnerf import make_model
-    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
     from pixelnerf_tpu_torch.parallel.pipeline import RenderPipeline
-    from pixelnerf_tpu_torch.render import renderer as rr
-    from pixelnerf_tpu_torch.render.accel import probe_lookup
-    from pixelnerf_tpu_torch.render.rays import sample_coarse
-    from pixelnerf_tpu_torch.train import checkpoints
+    from pixelnerf_tpu_torch.render.renderer import NeRFRenderer
     from pixelnerf_tpu_torch.utils.geometry import gen_rays_np, pose_spherical
-
-    # the object of `-F synthetic --split train -S 0`, which the CLIs read
-    ds = SyntheticDataset(n_objs=1, n_views=8, image_size=FRAME, seed=0)
-    sample = ds[0]
-    state, losses, step_s, train_launches = quick_train(conf, dev, sample, ds.z_near, ds.z_far)
-    log(f"accel phase: quick-train (bench.py's recipe on the port's trainer: sn64 full width, "
-        f"random encoder, -F synthetic object 0 of {ds.n_views} views at {FRAME}px, 1 source "
-        f"view, R {ACCEL_TRAIN_RAYS}, 32 coarse + 8 depth samples, AMP): {ACCEL_TRAIN_STEPS} "
-        f"cosine steps at {1e3 * step_s[0]:.3f} ms a step, {ACCEL_POLISH_STEPS} polish steps at "
-        f"{1e3 * step_s[1]:.3f} ms; loss first {losses[0]:.5f}, end of the cosine "
-        f"{losses[ACCEL_TRAIN_STEPS - 1]:.5f}, last {losses[-1]:.5f}; launches {train_launches}; "
-        f"on {smi}")
-    n_steps = ACCEL_TRAIN_STEPS + ACCEL_POLISH_STEPS
-    if not (all(math.isfinite(v) for v in losses)
-            and train_launches == {k: 2 * n_steps for k in ("resnetfc_fwd_dense",
-                                                            "resnetfc_bwd_data",
-                                                            "resnetfc_bwd_weights")}):
-        raise SystemExit("accel phase: the quick-train diverged or did not run through the "
-                         "kernels")
-    for name in ("resnetfc_fwd_dense", "resnetfc_bwd_data", "resnetfc_bwd_weights"):
-        records[name]["accel_train_launches"] = train_launches[name]
 
     net = make_model(conf["model"], mlp_impl="auto", device=dev)
     net.load_state_dict(state)
@@ -758,246 +839,366 @@ def accel_phase(conf, dev, smi: str, records: dict) -> None:
                       for a in np.linspace(-180, 180, ACCEL_FRAMES + 1)[:-1]])
     rays = gen_rays_np(poses, FRAME, FRAME, float(sample["focal"]), ds.z_near,
                        ds.z_far).reshape(-1, 8)
-    NR, frame = rays.shape[0], FRAME * FRAME
-    rays_dev = torch.from_numpy(rays).to(dev)
-    renderer = rr.NeRFRenderer.from_conf(conf["renderer"], eval_batch_size=ACCEL_CHUNK)
-    pipe = RenderPipeline(net, renderer)
+    pipe = RenderPipeline(net, NeRFRenderer.from_conf(conf["renderer"],
+                                                      eval_batch_size=ACCEL_CHUNK))
+    return net, scene, rays, pipe
 
-    def gen(seed=1):
-        return torch.Generator(device=dev).manual_seed(seed)
 
-    def frames(r=rays_dev, pack="u8", seed=1):
-        torch.cuda.synchronize()
-        rf.reset_launches()
-        rr.reset_accel_counts()
-        pts0 = pipe.field_points
-        t0 = time.perf_counter()
-        pieces = pipe.render_simple(scene, r, gen(seed), ray_batch_size=ACCEL_CHUNK, pack=pack,
-                                    as_numpy=False)
-        torch.cuda.synchronize()
-        dt = time.perf_counter() - t0
-        packed = torch.cat([p[:n] for p, n in pieces])
-        rgb = packed[:, :3].float() / 255.0 if pack == "u8" else packed[:, :3]
-        return (rgb, packed, dt, dict(rf.LAUNCHES), (pipe.field_points - pts0) / r.shape[0],
-                dict(rr.ACCEL_COUNTS))
+def foreground(rgb: torch.Tensor) -> float:
+    """The share of pixels off the white background by more than 0.08."""
+    return float((rgb - 1.0).abs().max(dim=-1).values.gt(0.08).float().mean())
 
-    # ---- the dense render, and the field's sanity ----
-    rgb_dense, dense_packed, dense_s, dense_launches, dense_evals, _ = frames()
-    fg = float((rgb_dense - 1.0).abs().max(dim=-1).values.gt(0.08).float().mean())
-    field = pipe._field(pipe._table_scene(scene))
-    cfg0 = dataclasses.replace(renderer.cfg, eval_batch_size=0)
-    with torch.no_grad():  # the coarse head's own foreground on frame 0
-        coarse0 = rr.render_rays(field, rays_dev[None, :frame], cfg0, gen(),
-                                 use_viewdirs=net.use_viewdirs)["coarse"]["rgb"][0]
-    fg_coarse = float((coarse0 - 1.0).abs().max(dim=-1).values.gt(0.08).float().mean())
-    log(f"accel phase: dense render of {ACCEL_FRAMES} ring frames ({NR} rays, chunk "
-        f"{min(pipe.device_chunk, ACCEL_CHUNK)}): foreground fraction {fg:.4f} (need >= 0.03; "
-        f"the coarse head's on frame 0 {fg_coarse:.4f}); "
-        f"{dense_evals:.1f} field evaluations a ray; launches {dense_launches}")
-    if not fg >= 0.03 or dense_launches["resnetfc_fwd_gather"] == 0:
-        raise SystemExit("accel phase: the trained field renders no object (or the dense render "
-                         "missed the gather kernel); train more or fix the port")
 
-    # ---- the grid: the full build over the ring's rays ----
-    pipe.set_accel_mode("proposal")
-    torch.cuda.synchronize()
-    rf.reset_launches()
-    calls0 = pipe.field_points
-    grid = pipe.build_accel(scene, rays, ray_batch_size=ACCEL_CHUNK)
-    build_launches = dict(rf.LAUNCHES)
-    st = dict(pipe.accel_stats)
-    log(f"accel phase: build ({st['resolution']}^3 voxels x {st['n_dir_probes']} probe "
-        f"directions x 2 heads = {pipe.field_points - calls0} field evaluations): grid program "
-        f"{st['grid_s']:.4f} s, "
-        f"capacity probe {st['probe_s']:.4f} s; occupancy {st['occupancy']:.4f}; ray live "
-        f"max/mean {st['ray_live_max']:.4f}/{st['ray_live_mean']:.4f}, sample live "
-        f"{st['sample_live']:.4f} -> capacities rays {st['cap_r']} samples {st['cap_c']} fine "
-        f"{st['cap_f']}, chunk {st['chunk']}; launches {build_launches}; on {smi}")
-    if grid is None or pipe.accel is None or build_launches["resnetfc_fwd_gather"] == 0:
-        raise SystemExit("accel phase: the grid was disabled or its build missed the gather "
-                         "kernel")
+@torch.no_grad()
+def coarse_foreground(pipe, scene, rays: torch.Tensor, generator) -> float:
+    """The coarse head's own foreground, dense, on ``rays``."""
+    import dataclasses
 
-    # ---- the gate from proposal at 30 dB, on every frame ----
-    t0 = time.perf_counter()
-    label, psnrs = pipe.gate_accel_mode(scene, rays, 1, rgb_dense.cpu().numpy(),
-                                        ray_batch_size=ACCEL_CHUNK, pack="u8")
-    gate_s = time.perf_counter() - t0
-    log(f"accel phase: gate (seed 1, u8 frames, >= 30 dB against dense): "
-        f"{json.dumps({k: round(v, 3) for k, v in psnrs.items()})} -> {label} in {gate_s:.3f} s; "
-        f"settled config: mode {pipe.renderer.base_cfg.accel_mode}, proposal draws "
-        f"{pipe.renderer.base_cfg.accel_proposal_samples}, capacities "
-        f"{pipe.renderer.base_cfg.accel_capacity_rays}/{pipe.renderer.base_cfg.accel_capacity}, "
-        f"chunk {pipe.accel_chunk}")
-    if label == "dense" or pipe.accel is None:
-        raise SystemExit("accel phase: the gate settled on dense on a trained object: the accel "
-                         "was not shown; train more or fix the port")
-    settled_cfg, settled_chunk = pipe.renderer.base_cfg, pipe.accel_chunk
+    from pixelnerf_tpu_torch.render.renderer import render_rays
 
-    # ---- rays/s of dense and the settled rung, in turns ----
-    times = {"dense": [], label: []}
-    evals, reads, launches, rgbs = {}, {}, {}, {}
-    for name in ("dense", label, label, "dense"):
-        if name == "dense":
-            pipe.accel = None
-        rgbs[name], _, dt, la, ev, counts = frames()
-        if name == "dense":
-            pipe.accel, pipe.accel_chunk = grid, settled_chunk
-        times[name].append(dt)
-        evals[name], reads[name], launches[name] = ev, counts["n_live_reads"], la
-    rate = {k: NR / (sum(v) / len(v)) for k, v in times.items()}
-    p_settled = psnr(rgbs[label], rgb_dense)
-    log(f"accel phase: render of {NR} rays ({ACCEL_FRAMES} frames), means of two calls each "
-        f"in turns (dense, {label}, {label}, dense): dense {rate['dense']:.1f} rays/s, {label} "
-        f"{rate[label]:.1f} rays/s ({rate[label] / rate['dense']:.3f}x); field evaluations a ray "
-        f"dense {evals['dense']:.2f}, {label} {evals[label]:.2f}; n_live host reads "
-        f"{reads[label]} a render = {reads[label] / ACCEL_FRAMES:.4f} a frame; {label} vs dense "
-        f"PSNR {p_settled:.3f} dB (need >= 30); launches {launches[label]}; runs "
-        f"{json.dumps({k: [round(x, 4) for x in v] for k, v in times.items()})}; on {smi}")
-    if not (p_settled >= 30.0 and launches[label]["resnetfc_fwd_gather"] > 0
-            and not any(v for k, v in launches[label].items() if k != "resnetfc_fwd_gather")):
-        raise SystemExit(f"accel phase: the settled rung {label} disagrees with dense or missed "
-                         "the gather kernel")
+    cfg = dataclasses.replace(pipe.renderer.cfg, eval_batch_size=0)
+    out = render_rays(pipe._field(pipe._table_scene(scene)), rays[None], cfg, generator,
+                      use_viewdirs=pipe.use_viewdirs)
+    return foreground(out["coarse"]["rgb"][0])
 
-    # ---- each mode against dense, same seed ----
-    def heads(sub, accel, cfg):
-        rf.reset_launches()
-        with torch.no_grad():
-            out = rr.render_rays(field, sub, cfg, gen(), use_viewdirs=net.use_viewdirs,
-                                 accel=accel)
-        torch.cuda.synchronize()
-        return out, dict(rf.LAUNCHES)
 
-    checks = {}
-    for mode in ("rays", "samples"):
-        pipe.renderer.base_cfg = dataclasses.replace(settled_cfg, accel_mode=mode)
-        pipe.accel = grid
-        pipe._autoselect_capacity(rays, ray_batch_size=ACCEL_CHUNK)
-        if pipe.accel is None:
-            raise SystemExit(f"accel phase: the capacity probe found nothing to prune in {mode} "
-                             "mode")
-        # the first window of the chunk the probe sized the buffers for
-        sub = rays_dev[None, :pipe.accel_stats["chunk"]]
-        dense_h, _ = heads(sub, None, cfg0)
-        rr.reset_accel_counts()
-        out, la = heads(sub, grid, dataclasses.replace(pipe.renderer.cfg, eval_batch_size=0))
-        c = dict(rr.ACCEL_COUNTS)
-        oc, dc = out["coarse"], dense_h["coarse"]
-        # the rays the grid kept: any sample of the render's coarse draw (the
-        # generator's first) in an occupied voxel; they go through the field
-        # at the dense render's z
-        z = sample_coarse(sub[0], cfg0.n_coarse, gen())
-        pruned = ~probe_lookup(grid, sub[0, :, None, :3] + z[..., None] * sub[0, :, None, 3:6])[
-            0].any(dim=-1)[None]
-        checks[mode] = dict(
-            rays=sub.shape[1], fine_psnr=psnr(out["fine"]["rgb"], dense_h["fine"]["rgb"]),
-            coarse_rgb=(oc["rgb"] - dc["rgb"]).abs().max().item(),
-            coarse_depth=(oc["depth"] - dc["depth"]).abs().max().item(),
-            pruned=int(pruned.sum()), kept_coarse_bit_identical=bool(
-                torch.equal(oc["rgb"][~pruned], dc["rgb"][~pruned])
-                and torch.equal(oc["depth"][~pruned], dc["depth"][~pruned])),
-            counts=c, launches=la["resnetfc_fwd_gather"],
-            capacities=(pipe.renderer.base_cfg.accel_capacity_rays,
-                        pipe.renderer.base_cfg.accel_capacity))
-    pipe.renderer.base_cfg, pipe.accel, pipe.accel_chunk = settled_cfg, grid, settled_chunk
-    log(f"accel phase: modes against dense on the first chunk (one pass each, the same "
-        f"generator seed): {json.dumps(checks)} (rays: the kept rays' coarse rgb and depth bit "
-        f"for bit the dense render's, fine >= 40 dB; the largest coarse |d| beside tests/"
-        f"test_accel.py's bar for the analytic sphere, 2e-3 rgb / 5e-3 depth, which a trained "
-        f"field's sub-threshold density on the pruned rays may pass; samples: fine >= 40 dB)")
-    r_, s_ = checks["rays"], checks["samples"]
-    if not (r_["kept_coarse_bit_identical"] and 0 < r_["pruned"] < r_["rays"]
-            and r_["fine_psnr"] >= 40.0
-            and s_["fine_psnr"] >= 40.0 and r_["counts"]["compacted"] == 1
-            and s_["counts"]["compacted"] >= 1 and r_["launches"] > 0 and s_["launches"] > 0):
-        raise SystemExit("accel phase: rays or samples mode disagrees with dense, or did not "
-                         "compact through the gather kernel")
+def accel_phase(conf, dev, smi: str, records: dict, code_records: dict) -> None:
+    """Phase 13: the occupancy accel on a quick-trained sn64 field (see the
+    module docstring)."""
+    import dataclasses
+    import types
 
-    # ---- the fallback: a 1/64 ray capacity, bit for bit the dense render ----
-    pipe.renderer.base_cfg = dataclasses.replace(settled_cfg, accel_mode="rays",
-                                                 accel_capacity_rays=1 / 64)
-    pipe.accel_chunk = None  # the dense render's chunks, so the draws line up
-    fb_rgb, fb_packed, _, _, _, fb_counts = frames(pack="f32")
-    pipe.accel = None
-    dn_rgb, dn_packed, _, _, _, _ = frames(pack="f32")
-    pipe.renderer.base_cfg, pipe.accel, pipe.accel_chunk = settled_cfg, grid, settled_chunk
-    identical = torch.equal(fb_packed, dn_packed)
-    log(f"accel phase: fallback (rays, capacity 1/64 of a chunk): {fb_counts}; bit-identical to "
-        f"the dense render {identical}")
-    if not (identical and fb_counts["fallbacks"] == fb_counts["n_live_reads"] > 0):
-        raise SystemExit("accel phase: the over-capacity fallback is not the dense render")
+    from pixelnerf_tpu_torch.data.synthetic import SyntheticDataset
+    from pixelnerf_tpu_torch.eval.eval import main as eval_main
+    from pixelnerf_tpu_torch.eval.gen_video import main as gen_video_main
+    from pixelnerf_tpu_torch.models.pixelnerf import make_model
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.parallel.pipeline import RenderPipeline
+    from pixelnerf_tpu_torch.render import renderer as rr
+    from pixelnerf_tpu_torch.render.accel import probe_lookup
+    from pixelnerf_tpu_torch.render.rays import sample_coarse
+    from pixelnerf_tpu_torch.train import checkpoints
 
-    # ---- the other routes on the settled rung: dense kernel, deferred code ----
-    routes = {}
-    for env, kname in (("PIXELNERF_FUSED_GATHER_MAX_ROWS", "resnetfc_fwd_dense"),
-                       ("PIXELNERF_DEFER_CODE", "resnetfc_fwd_gather_code")):
-        os.environ[env] = "0" if env.endswith("ROWS") else "1"
-        try:
-            rgb_r, _, _, la, _, _ = frames(rays_dev[:frame])
-        finally:
-            del os.environ[env]
-        routes[kname] = (la, psnr(rgb_r, rgb_dense[:frame]))
-        if not (la[kname] > 0 and not any(v for k, v in la.items() if k != kname)):
-            raise SystemExit(f"accel phase: the pruned render under {env} missed {kname}")
-    log(f"accel phase: frame 0 at the settled rung on the dense route and with the deferred "
-        f"code: {json.dumps({k: (v[0][k], round(v[1], 3)) for k, v in routes.items()})} "
-        f"(launches, PSNR against dense)")
+    # the object of `-F synthetic --split train -S 0`, which the CLIs read
+    ds = SyntheticDataset(n_objs=1, n_views=8, image_size=FRAME, seed=0)
+    sample = ds[0]
+    state, losses, step_s, train_launches, nondet = quick_train(conf, dev, sample, ds.z_near,
+                                                                ds.z_far)
+    log(f"accel phase: quick-train (bench.py's recipe on the port's trainer at a cosine peak "
+        f"lr of {ACCEL_TRAIN_LR:g}: sn64 full width, random encoder, -F synthetic object 0 of "
+        f"{ds.n_views} views at {FRAME}px, 1 source view, R {ACCEL_TRAIN_RAYS}, 32 coarse + 8 "
+        f"depth samples, AMP, deterministic algorithms): {ACCEL_TRAIN_STEPS} cosine steps at "
+        f"{1e3 * step_s[0]:.3f} ms a step, {ACCEL_POLISH_STEPS} polish steps at {1e3 * step_s[1]:.3f} ms; loss first "
+        f"{losses[0]:.5f}, end of the cosine {losses[ACCEL_TRAIN_STEPS - 1]:.5f}, last "
+        f"{losses[-1]:.5f}; launches {train_launches}; ops with no deterministic version "
+        f"{nondet}; on {smi}")
+    n_steps = ACCEL_TRAIN_STEPS + ACCEL_POLISH_STEPS
+    if not (all(math.isfinite(v) for v in losses)
+            and train_launches == {k: 2 * n_steps for k in ("resnetfc_fwd_dense",
+                                                            "resnetfc_bwd_data",
+                                                            "resnetfc_bwd_weights")}):
+        raise SystemExit("accel phase: the quick-train diverged or did not run through the "
+                         "kernels")
+    for name in ("resnetfc_fwd_dense", "resnetfc_bwd_data", "resnetfc_bwd_weights"):
+        records[name]["accel_train_launches"] = train_launches[name]
 
-    records["resnetfc_fwd_gather"]["accel_launches"] = {
-        "build": build_launches["resnetfc_fwd_gather"],
-        label: launches[label]["resnetfc_fwd_gather"],
-        "rays": checks["rays"]["launches"], "samples": checks["samples"]["launches"]}
-    records["resnetfc_fwd_dense"]["accel_launches"] = routes["resnetfc_fwd_dense"][0][
-        "resnetfc_fwd_dense"]
+    # every forward kernel call of the accel paths, kept for the plain check at the end
+    with ForwardCalls(rf) as calls:
+        net, scene, rays, pipe = accel_ring(conf, dev, state, sample, ds)
+        renderer = pipe.renderer
+        NR, frame = rays.shape[0], FRAME * FRAME
+        rays_dev = torch.from_numpy(rays).to(dev)
 
-    # ---- the CLIs, in-process, on this field ----
-    os.environ["PIXELNERF_ALLOW_RANDOM_BACKBONE"] = "1"  # no backbone weights on this machine
-    with tempfile.TemporaryDirectory() as tmp:
-        ck = os.path.join(tmp, "ck")
-        checkpoints.save_weights(types.SimpleNamespace(checkpoints_path=ck, name="accel"), net)
-        base = ["-n", "accel", "-c", ACCEL_CONF, "-F", "synthetic", "--split", "train",
-                "--checkpoints_path", ck, "-R", str(ACCEL_CHUNK)]
-        cli = {}
-        for source, kname in (("0", "resnetfc_fwd_gather"), ("0 1", "resnetfc_fwd_gather_mv"),
-                              ("0 1 2", "resnetfc_fwd_dense_mv")):
-            vis = os.path.join(tmp, "vis" + source.replace(" ", ""))
+        def gen(seed=1):
+            return torch.Generator(device=dev).manual_seed(seed)
+
+        def frames(r=rays_dev, pack="u8", seed=1):
             torch.cuda.synchronize()
             rf.reset_launches()
+            rr.reset_accel_counts()
+            pts0 = pipe.field_points
             t0 = time.perf_counter()
-            res = gen_video_main(base + ["-S", "0", "-P", source, "--num_views",
-                                         str(ACCEL_CLI_FRAMES), "--visual_path", vis])
+            pieces = pipe.render_simple(scene, r, gen(seed), ray_batch_size=ACCEL_CHUNK, pack=pack,
+                                        as_numpy=False)
             torch.cuda.synchronize()
             dt = time.perf_counter() - t0
-            la = dict(rf.LAUNCHES)
-            pngs = sorted(os.listdir(res["frame_dir"]))
-            cli[source] = (res["accel"], la, len(pngs), dt)
-            log(f"accel phase: python -m pixelnerf_tpu_torch.eval.gen_video -F synthetic -S 0 -P "
-                f"\"{source}\" --num_views {ACCEL_CLI_FRAMES} (--accel_mode auto): accel "
-                f"{res['accel']}; {len(pngs)} PNG frames of {res['frames'].shape[1:3]}, video "
-                f"{res['video']}; launches {la}; {dt:.3f} s")
-            if not (isinstance(res["accel"], tuple) and len(pngs) == ACCEL_CLI_FRAMES
-                    and os.path.exists(res["view"]) and la[kname] > 0
-                    and not any(v for k, v in la.items() if k != kname)):
-                raise SystemExit(f"accel phase: gen_video -P {source!r} showed no gate trail, "
-                                 f"wrote no frames or missed {kname}")
-        evals_ = {}
-        for accel in ("off", "proposal"):
-            out = os.path.join(tmp, "eval_" + accel)
-            torch.cuda.synchronize()
+            packed = torch.cat([p[:n] for p, n in pieces])
+            rgb = packed[:, :3].float() / 255.0 if pack == "u8" else packed[:, :3]
+            return (rgb, packed, dt, dict(rf.LAUNCHES), (pipe.field_points - pts0) / r.shape[0],
+                    dict(rr.ACCEL_COUNTS))
+
+        # ---- the dense render, and the field's sanity ----
+        rgb_dense, dense_packed, dense_s, dense_launches, dense_evals, _ = frames()
+        fg = foreground(rgb_dense)
+        field = pipe._field(pipe._table_scene(scene))
+        cfg0 = dataclasses.replace(renderer.cfg, eval_batch_size=0)
+        fg_coarse = coarse_foreground(pipe, scene, rays_dev[:frame], gen())
+        log(f"accel phase: dense render of {ACCEL_FRAMES} ring frames ({NR} rays, chunk "
+            f"{min(pipe.device_chunk, ACCEL_CHUNK)}): foreground fraction {fg:.4f} (need >= 0.03; "
+            f"the coarse head's on frame 0 {fg_coarse:.4f}); "
+            f"{dense_evals:.1f} field evaluations a ray; launches {dense_launches}")
+        if not fg >= 0.03 or dense_launches["resnetfc_fwd_gather"] == 0:
+            raise SystemExit("accel phase: the trained field renders no object (or the dense render "
+                             "missed the gather kernel); train more or fix the port")
+
+        # ---- the grid: the full build over the ring's rays ----
+        pipe.set_accel_mode("proposal")
+        torch.cuda.synchronize()
+        rf.reset_launches()
+        calls0 = pipe.field_points
+        grid = pipe.build_accel(scene, rays, eps_alpha=ACCEL_EPS_ALPHA, ray_batch_size=ACCEL_CHUNK)
+        build_launches = dict(rf.LAUNCHES)
+        st = dict(pipe.accel_stats)
+        log(f"accel phase: build ({st['resolution']}^3 voxels x {st['n_dir_probes']} probe "
+            f"directions x 2 heads = {pipe.field_points - calls0} field evaluations): grid program "
+            f"{st['grid_s']:.4f} s, "
+            f"capacity probe {st['probe_s']:.4f} s; occupancy {st['occupancy']:.4f}; ray live "
+            f"max/mean {st['ray_live_max']:.4f}/{st['ray_live_mean']:.4f}, sample live "
+            f"{st['sample_live']:.4f} -> capacities rays {st['cap_r']} samples {st['cap_c']} fine "
+            f"{st['cap_f']}, chunk {st['chunk']}; launches {build_launches}; on {smi}")
+        if grid is None or pipe.accel is None or build_launches["resnetfc_fwd_gather"] == 0:
+            raise SystemExit("accel phase: the grid was disabled or its build missed the gather "
+                             "kernel")
+
+        # ---- the gate from proposal at 30 dB, on every frame ----
+        t0 = time.perf_counter()
+        label, psnrs = pipe.gate_accel_mode(scene, rays, 1, rgb_dense.cpu().numpy(),
+                                            ray_batch_size=ACCEL_CHUNK, pack="u8")
+        gate_s = time.perf_counter() - t0
+        log(f"accel phase: gate (seed 1, u8 frames, >= 30 dB against dense): "
+            f"{json.dumps({k: round(v, 3) for k, v in psnrs.items()})} -> {label} in {gate_s:.3f} s; "
+            f"settled config: mode {pipe.renderer.base_cfg.accel_mode}, proposal draws "
+            f"{pipe.renderer.base_cfg.accel_proposal_samples}, capacities "
+            f"{pipe.renderer.base_cfg.accel_capacity_rays}/{pipe.renderer.base_cfg.accel_capacity}, "
+            f"chunk {pipe.accel_chunk}")
+        if label == "dense" or pipe.accel is None:
+            raise SystemExit("accel phase: the gate settled on dense on a trained object: the accel "
+                             "was not shown; train more or fix the port")
+        settled_cfg, settled_chunk = pipe.renderer.base_cfg, pipe.accel_chunk
+
+        # ---- rays/s of dense and the settled rung, in turns ----
+        times = {"dense": [], label: []}
+        evals, reads, launches, rgbs, acc_counts = {}, {}, {}, {}, {}
+        for name in ("dense", label, label, "dense"):
+            if name == "dense":
+                pipe.accel = None
+            rgbs[name], _, dt, la, ev, acc_counts[name] = frames()
+            if name == "dense":
+                pipe.accel, pipe.accel_chunk = grid, settled_chunk
+            times[name].append(dt)
+            evals[name], reads[name], launches[name] = ev, acc_counts[name]["n_live_reads"], la
+        rate = {k: NR / (sum(v) / len(v)) for k, v in times.items()}
+        p_settled = psnr(rgbs[label], rgb_dense)
+        log(f"accel phase: render of {NR} rays ({ACCEL_FRAMES} frames), means of two calls each "
+            f"in turns (dense, {label}, {label}, dense): dense {rate['dense']:.1f} rays/s, {label} "
+            f"{rate[label]:.1f} rays/s ({rate[label] / rate['dense']:.3f}x); field evaluations a ray "
+            f"dense {evals['dense']:.2f}, {label} {evals[label]:.2f}; n_live host reads "
+            f"{reads[label]} a render = {reads[label] / ACCEL_FRAMES:.4f} a frame; {label} vs dense "
+            f"PSNR {p_settled:.3f} dB (need >= 30); launches {launches[label]}; runs "
+            f"{json.dumps({k: [round(x, 4) for x in v] for k, v in times.items()})}; on {smi}")
+        if not (p_settled >= 30.0 and launches[label]["resnetfc_fwd_gather"] > 0
+                and not any(v for k, v in launches[label].items() if k != "resnetfc_fwd_gather")):
+            raise SystemExit(f"accel phase: the settled rung {label} disagrees with dense or missed "
+                             "the gather kernel")
+
+        # ---- the settled rung on the plain route: same weights, grid, chunk and draws ----
+        plain_net = make_model(conf["model"], mlp_impl="torch", device=dev)
+        plain_net.load_state_dict(state)
+        with torch.no_grad():
+            plain_scene = plain_net.encode(torch.as_tensor(sample["images"][None, :1], device=dev),
+                                           torch.as_tensor(sample["poses"][None, :1], device=dev),
+                                           float(sample["focal"]))
+        plain_pipe = RenderPipeline(plain_net, rr.NeRFRenderer.from_conf(
+            conf["renderer"], eval_batch_size=ACCEL_CHUNK))
+        plain_pipe.renderer.base_cfg = settled_cfg
+        plain_pipe.accel, plain_pipe.accel_chunk = grid, settled_chunk
+        rf.reset_launches()
+        rr.reset_accel_counts()
+        plain_pieces = plain_pipe.render_simple(plain_scene, rays_dev, gen(), pack="u8",
+                                                ray_batch_size=ACCEL_CHUNK, as_numpy=False)
+        torch.cuda.synchronize()
+        plain_counts, plain_launches = dict(rr.ACCEL_COUNTS), dict(rf.LAUNCHES)
+        rgb_plain = torch.cat([p[:n] for p, n in plain_pieces])[:, :3].float() / 255.0
+        p_plain = psnr(rgbs[label], rgb_plain)
+        log(f"accel phase: {label} on the plain route (f32 torch field, the same weights, grid, "
+            f"chunk and generator seed): kernel route vs plain route PSNR {p_plain:.3f} dB (need "
+            f">= 40); plain route {plain_counts}, launches {plain_launches}; kernel route "
+            f"{acc_counts[label]}")
+        if not (p_plain >= 40.0 and plain_counts == acc_counts[label] and not any(plain_launches.values())):
+            raise SystemExit(f"accel phase: the settled rung {label} on the kernel route disagrees "
+                             "with the plain route")
+        del plain_pieces, rgb_plain, plain_scene, plain_pipe, plain_net
+
+        # ---- each mode against dense, same seed ----
+        def heads(sub, accel, cfg):
             rf.reset_launches()
-            t0 = time.perf_counter()
-            res = eval_main(base + ["-P", "0", "--max_objs", "1", "-O", out, "--accel", accel])
+            with torch.no_grad():
+                out = rr.render_rays(field, sub, cfg, gen(), use_viewdirs=net.use_viewdirs,
+                                     accel=accel)
             torch.cuda.synchronize()
-            evals_[accel] = (res, dict(rf.LAUNCHES), time.perf_counter() - t0)
-        (off, la_off, t_off), (on, la_on, t_on) = evals_["off"], evals_["proposal"]
-        log(f"accel phase: python -m pixelnerf_tpu_torch.eval.eval -F synthetic --split train -P "
-            f"\"0\" --max_objs 1: --accel off psnr {off['psnr']:.4f} ssim {off['ssim']:.4f} in "
-            f"{t_off:.3f} s; --accel proposal (fast build, gate on the first target view) gate "
-            f"{on['gates']} psnr {on['psnr']:.4f} ssim {on['ssim']:.4f} in {t_on:.3f} s; "
-            f"launches off {la_off}, proposal {la_on}")
-        if not (len(on["gates"]) == 1 and math.isfinite(on["psnr"]) and math.isfinite(on["ssim"])
-                and math.isfinite(off["psnr"]) and la_on["resnetfc_fwd_gather"] > 0):
-            raise SystemExit("accel phase: eval --accel proposal ran no gate or gave no metrics")
+            return out, dict(rf.LAUNCHES)
+
+        # a pruned ray's samples each lie below the build's sigma threshold,
+        # eps_alpha over the mean coarse step, so its dense opacity is under
+        # n_coarse * eps_alpha, which bounds its coarse |d rgb| (colours in
+        # [0, 1]) and, times z_far, its |d depth|; a ray through the object
+        # differs by ~1
+        pruned_rgb_max = cfg0.n_coarse * ACCEL_EPS_ALPHA
+        pruned_depth_max = pruned_rgb_max * ds.z_far
+        checks = {}
+        for mode in ("rays", "samples"):
+            pipe.renderer.base_cfg = dataclasses.replace(settled_cfg, accel_mode=mode)
+            pipe.accel = grid
+            pipe._autoselect_capacity(rays, ray_batch_size=ACCEL_CHUNK)
+            if pipe.accel is None:
+                raise SystemExit(f"accel phase: the capacity probe found nothing to prune in {mode} "
+                                 "mode")
+            # the first window of the chunk the probe sized the buffers for
+            sub = rays_dev[None, :pipe.accel_stats["chunk"]]
+            dense_h, _ = heads(sub, None, cfg0)
+            rr.reset_accel_counts()
+            out, la = heads(sub, grid, dataclasses.replace(pipe.renderer.cfg, eval_batch_size=0))
+            c = dict(rr.ACCEL_COUNTS)
+            oc, dc = out["coarse"], dense_h["coarse"]
+            # the rays the grid kept: any sample of the render's coarse draw (the
+            # generator's first) in an occupied voxel; they go through the field
+            # at the dense render's z
+            z = sample_coarse(sub[0], cfg0.n_coarse, gen())
+            pruned = ~probe_lookup(grid, sub[0, :, None, :3] + z[..., None] * sub[0, :, None, 3:6])[
+                0].any(dim=-1)[None]
+            checks[mode] = dict(
+                rays=sub.shape[1], fine_psnr=psnr(out["fine"]["rgb"], dense_h["fine"]["rgb"]),
+                pruned_coarse_rgb=(oc["rgb"] - dc["rgb"])[pruned].abs().max().item()
+                if pruned.any() else 0.0,
+                pruned_coarse_depth=(oc["depth"] - dc["depth"])[pruned].abs().max().item()
+                if pruned.any() else 0.0,
+                pruned=int(pruned.sum()), kept_coarse_bit_identical=bool(
+                    torch.equal(oc["rgb"][~pruned], dc["rgb"][~pruned])
+                    and torch.equal(oc["depth"][~pruned], dc["depth"][~pruned])),
+                counts=c, launches=la["resnetfc_fwd_gather"],
+                capacities=(pipe.renderer.base_cfg.accel_capacity_rays,
+                            pipe.renderer.base_cfg.accel_capacity))
+        pipe.renderer.base_cfg, pipe.accel, pipe.accel_chunk = settled_cfg, grid, settled_chunk
+        log(f"accel phase: modes against dense on the first chunk (one pass each, the same "
+            f"generator seed): {json.dumps(checks)} (rays: the kept rays' coarse rgb and depth bit "
+            f"for bit the dense render's, the pruned rays' coarse |d| within the build's bound "
+            f"n_coarse x eps_alpha = {pruned_rgb_max:.4g} rgb, x z_far = {pruned_depth_max:.4g} "
+            f"depth, fine >= 40 dB; samples: fine >= 40 dB)")
+        r_, s_ = checks["rays"], checks["samples"]
+        if not (r_["kept_coarse_bit_identical"] and 0 < r_["pruned"] < r_["rays"]
+                and r_["pruned_coarse_rgb"] <= pruned_rgb_max
+                and r_["pruned_coarse_depth"] <= pruned_depth_max
+                and r_["fine_psnr"] >= 40.0
+                and s_["fine_psnr"] >= 40.0 and r_["counts"]["compacted"] == 1
+                and s_["counts"]["compacted"] >= 1 and r_["launches"] > 0 and s_["launches"] > 0):
+            raise SystemExit("accel phase: rays or samples mode disagrees with dense, or did not "
+                             "compact through the gather kernel")
+
+        # ---- the fallback: a 1/64 ray capacity, bit for bit the dense render ----
+        pipe.renderer.base_cfg = dataclasses.replace(settled_cfg, accel_mode="rays",
+                                                     accel_capacity_rays=1 / 64)
+        pipe.accel_chunk = None  # the dense render's chunks, so the draws line up
+        fb_rgb, fb_packed, _, _, _, fb_counts = frames(pack="f32")
+        pipe.accel = None
+        dn_rgb, dn_packed, _, _, _, _ = frames(pack="f32")
+        pipe.renderer.base_cfg, pipe.accel, pipe.accel_chunk = settled_cfg, grid, settled_chunk
+        identical = torch.equal(fb_packed, dn_packed)
+        log(f"accel phase: fallback (rays, capacity 1/64 of a chunk): {fb_counts}; bit-identical to "
+            f"the dense render {identical}")
+        if not (identical and fb_counts["fallbacks"] == fb_counts["n_live_reads"] > 0):
+            raise SystemExit("accel phase: the over-capacity fallback is not the dense render")
+
+        # ---- the other routes on the settled rung: dense kernel, deferred code ----
+        routes = {}
+        for env, kname in (("PIXELNERF_FUSED_GATHER_MAX_ROWS", "resnetfc_fwd_dense"),
+                           ("PIXELNERF_DEFER_CODE", "resnetfc_fwd_gather_code")):
+            os.environ[env] = "0" if env.endswith("ROWS") else "1"
+            try:
+                rgb_r, _, _, la, _, _ = frames(rays_dev[:frame])
+            finally:
+                del os.environ[env]
+            routes[kname] = (la, psnr(rgb_r, rgb_dense[:frame]))
+            if not (la[kname] > 0 and not any(v for k, v in la.items() if k != kname)):
+                raise SystemExit(f"accel phase: the pruned render under {env} missed {kname}")
+        log(f"accel phase: frame 0 at the settled rung on the dense route and with the deferred "
+            f"code: {json.dumps({k: (v[0][k], round(v[1], 3)) for k, v in routes.items()})} "
+            f"(launches, PSNR against dense)")
+
+        records["resnetfc_fwd_gather"]["accel_launches"] = {
+            "build": build_launches["resnetfc_fwd_gather"],
+            label: launches[label]["resnetfc_fwd_gather"],
+            "rays": checks["rays"]["launches"], "samples": checks["samples"]["launches"]}
+        records["resnetfc_fwd_dense"]["accel_launches"] = routes["resnetfc_fwd_dense"][0][
+            "resnetfc_fwd_dense"]
+
+        # ---- the CLIs, in-process, on this field ----
+        os.environ["PIXELNERF_ALLOW_RANDOM_BACKBONE"] = "1"  # no backbone weights on this machine
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = os.path.join(tmp, "ck")
+            checkpoints.save_weights(types.SimpleNamespace(checkpoints_path=ck, name="accel"), net)
+            base = ["-n", "accel", "-c", ACCEL_CONF, "-F", "synthetic", "--split", "train",
+                    "--checkpoints_path", ck, "-R", str(ACCEL_CHUNK)]
+            cli = {}
+            for source, kname in (("0", "resnetfc_fwd_gather"), ("0 1", "resnetfc_fwd_gather_mv"),
+                                  ("0 1 2", "resnetfc_fwd_dense_mv")):
+                vis = os.path.join(tmp, "vis" + source.replace(" ", ""))
+                torch.cuda.synchronize()
+                rf.reset_launches()
+                t0 = time.perf_counter()
+                res = gen_video_main(base + ["-S", "0", "-P", source, "--num_views",
+                                             str(ACCEL_CLI_FRAMES), "--visual_path", vis])
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                la = dict(rf.LAUNCHES)
+                pngs = sorted(os.listdir(res["frame_dir"]))
+                cli[source] = (res["accel"], la, len(pngs), dt)
+                log(f"accel phase: python -m pixelnerf_tpu_torch.eval.gen_video -F synthetic -S 0 -P "
+                    f"\"{source}\" --num_views {ACCEL_CLI_FRAMES} (--accel_mode auto): accel "
+                    f"{res['accel']}; {len(pngs)} PNG frames of {res['frames'].shape[1:3]}, video "
+                    f"{res['video']}; launches {la}; {dt:.3f} s")
+                if not (isinstance(res["accel"], tuple) and len(pngs) == ACCEL_CLI_FRAMES
+                        and os.path.exists(res["view"]) and la[kname] > 0
+                        and not any(v for k, v in la.items() if k != kname)):
+                    raise SystemExit(f"accel phase: gen_video -P {source!r} showed no gate trail, "
+                                     f"wrote no frames or missed {kname}")
+            evals_ = {}
+            for accel in ("off", "proposal"):
+                out = os.path.join(tmp, "eval_" + accel)
+                torch.cuda.synchronize()
+                rf.reset_launches()
+                t0 = time.perf_counter()
+                res = eval_main(base + ["-P", "0", "--max_objs", "1", "-O", out, "--accel", accel])
+                torch.cuda.synchronize()
+                evals_[accel] = (res, dict(rf.LAUNCHES), time.perf_counter() - t0)
+            (off, la_off, t_off), (on, la_on, t_on) = evals_["off"], evals_["proposal"]
+            log(f"accel phase: python -m pixelnerf_tpu_torch.eval.eval -F synthetic --split train -P "
+                f"\"0\" --max_objs 1: --accel off psnr {off['psnr']:.4f} ssim {off['ssim']:.4f} in "
+                f"{t_off:.3f} s; --accel proposal (fast build, gate on the first target view) gate "
+                f"{on['gates']} psnr {on['psnr']:.4f} ssim {on['ssim']:.4f} in {t_on:.3f} s; "
+                f"launches off {la_off}, proposal {la_on}")
+            if not (len(on["gates"]) == 1 and math.isfinite(on["psnr"]) and math.isfinite(on["ssim"])
+                    and math.isfinite(off["psnr"]) and la_on["resnetfc_fwd_gather"] > 0):
+                raise SystemExit("accel phase: eval --accel proposal ran no gate or gave no metrics")
     del os.environ["PIXELNERF_ALLOW_RANDOM_BACKBONE"]
+
+    # ---- every forward kernel call of the paths above against its plain version ----
+    # the first call of each kernel variant, head and point count (the
+    # build's chunks, the dense render's passes, the compacted buffers of
+    # every rung and mode, the routes' frame 0, gen_video's and eval's
+    # passes), replayed: bit for bit the path's own output, and within the
+    # kernel checks' bar of the plain version on the same inputs
+    rows = calls.check()
+    log("accel phase: the paths' kernel calls against their plain versions (max|d| <= 0.015 x "
+        "max(1, max|ref|), corr > 0.999, bit for bit the path's output): " + json.dumps(
+            [dict(kernel=v, points=n, max_abs_err=float(f"{d:.6g}"), bar=float(f"{b:.6g}"),
+                  corr=round(c, 7), same=same, ok=ok) for v, n, d, b, c, same, ok in rows]))
+    if not rows or not all(r[-1] for r in rows):
+        raise SystemExit("accel phase: a kernel disagrees with its plain version at a shape of the "
+                         "accel paths")
+    for v, _, d, *_ in rows:
+        rec = records[v] if v in records else code_records[v]
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), d)
+    del calls
     records["resnetfc_fwd_gather"]["accel_launches"]["gen_video"] = \
         cli["0"][1]["resnetfc_fwd_gather"]
     records["resnetfc_fwd_gather_mv"]["accel_launches"] = {
@@ -1946,7 +2147,7 @@ def main() -> None:
         data_dir.cleanup()
 
     # ---- the occupancy accel on a quick-trained field ----
-    code_accel_launches = accel_phase(conf, dev, smi, records)
+    code_accel_launches = accel_phase(conf, dev, smi, records, code_records)
 
     # row 6 as one record: the single-view gather variant's numbers (the
     # 1-view deferred render's kernel) at the top, every variant under

@@ -113,9 +113,6 @@ class RenderPipeline:
     accel_chunk_max: int = 65536
     accel_chunk: Optional[int] = None  # set by _autoselect_capacity
     accel: Optional[OccupancyGrid] = None
-    # (chunk index, rays, kc, draws) -> (draws, rays, kc) uniforms of the
-    # capacity probe; None draws them from a generator seeded 0
-    probe_jitter: Optional[Callable] = None
     # the last build's and capacity probe's numbers (replaced, never mutated)
     accel_stats: dict = {}
 
@@ -154,7 +151,8 @@ class RenderPipeline:
     def build_accel(self, scene: EncodedScene, rays, resolution: int = 96,
                     eps_alpha: float = 1e-3, dilate: int = 1, n_dir_probes: int = 4,
                     ray_batch_size: Optional[int] = None,
-                    dirs: Optional[torch.Tensor] = None) -> Optional[OccupancyGrid]:
+                    dirs: Optional[torch.Tensor] = None,
+                    jitter: Optional[Callable] = None) -> Optional[OccupancyGrid]:
         """Build the scene's occupancy grid over the box of ``rays`` (the
         union of every ray later rendered) and prune subsequent renders.
         ``PIXELNERF_ACCEL=0`` disables it.  Returns the grid, or None.
@@ -163,6 +161,8 @@ class RenderPipeline:
             capacity windows match their chunk
         :param dirs: (n_dir_probes, 3) probe directions (drawn from a
             generator seeded 0 when None)
+        :param jitter: the capacity probe's draws, for this build and the
+            gate's re-selections (:meth:`_autoselect_capacity`)
         """
         if os.environ.get("PIXELNERF_ACCEL", "1") == "0":
             self.accel = None
@@ -189,7 +189,8 @@ class RenderPipeline:
         # kept for the gate: a re-selection sees the rays the build sized for
         self._build_rays_np = rays_np
         self._build_ray_batch_size = ray_batch_size
-        self._autoselect_capacity(rays_np, ray_batch_size=ray_batch_size)
+        self._build_jitter = jitter
+        self._autoselect_capacity(rays_np, ray_batch_size=ray_batch_size, jitter=jitter)
         t2 = time.perf_counter()
         self.accel_stats = dict(self.accel_stats, grid_s=t1 - t0, probe_s=t2 - t1,
                                 resolution=resolution, n_dir_probes=n_dir_probes,
@@ -199,7 +200,8 @@ class RenderPipeline:
         return self.accel
 
     def _autoselect_capacity(self, rays_np: np.ndarray, n_jitter_draws: int = 3,
-                             ray_batch_size: Optional[int] = None) -> None:
+                             ray_batch_size: Optional[int] = None,
+                             jitter: Optional[Callable] = None) -> None:
         """Size the compaction buffers and the ray chunk from the live
         fractions of ``rays_np`` against the grid.
 
@@ -213,6 +215,10 @@ class RenderPipeline:
         point evaluations stay within ``point_budget``.  A mode with nothing
         to prune (its key capacity >= 0.95: the ray capacity in "rays", the
         sample capacity otherwise) disables the grid.
+
+        :param jitter: ``(chunk index, rays, kc, draws) -> (draws, rays, kc)``
+            uniforms of the probe's stratified ladders; None draws them from
+            a generator seeded 0
         """
         cfg = self.renderer.cfg
         # the z ladder the render probes
@@ -227,9 +233,8 @@ class RenderPipeline:
         samp_live = np.zeros(D, np.float64)
         for i, s in enumerate(range(0, N, 65536)):
             sub = torch.from_numpy(rays_np[s:s + 65536]).to(dev)
-            jitter = (None if self.probe_jitter is None
-                      else self.probe_jitter(i, sub.shape[0], kc, D - 1))
-            live, counts = _capacity_probe(self.accel, sub, kc, D, jitter=jitter, generator=gen)
+            u = None if jitter is None else jitter(i, sub.shape[0], kc, D - 1)
+            live, counts = _capacity_probe(self.accel, sub, kc, D, jitter=u, generator=gen)
             ray_live[:, s:s + 65536] = live.cpu().numpy()
             samp_live += counts.cpu().numpy().astype(np.float64)
         fc = float((samp_live / (N * kc)).max())
@@ -334,7 +339,8 @@ class RenderPipeline:
             rays_np = getattr(self, "_build_rays_np", None)
             if rays_np is not None:
                 self._autoselect_capacity(
-                    rays_np, ray_batch_size=getattr(self, "_build_ray_batch_size", None))
+                    rays_np, ray_batch_size=getattr(self, "_build_ray_batch_size", None),
+                    jitter=getattr(self, "_build_jitter", None))
 
         def denser_proposal(extra):
             def setup():

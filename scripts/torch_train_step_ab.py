@@ -5,6 +5,7 @@ render's rays/s.
     python3 scripts/torch_train_step_ab.py --views 1 --steps 12 --rounds 2 DIR_A DIR_B
     python3 scripts/torch_train_step_ab.py --kernels --rounds 2 DIR_A DIR_B
     python3 scripts/torch_train_step_ab.py --render --views 1 --rounds 2 DIR_A DIR_B
+    python3 scripts/torch_train_step_ab.py --frame0 --rounds 2 DIR_A DIR_B
 
 Each run is a process of its own, started in one checkout: it builds that
 checkout's kernels, runs ``pixelnerf_tpu_torch.train.main`` (the train CLI,
@@ -34,6 +35,13 @@ With ``--render`` a run times ``chip_smoke.py``'s 3-frame sn64 ring render
 (12,288 rays, encode included) from ``--views`` source views: the median of
 10 synchronized calls after one warm-up, rays/s; the last line holds, per
 checkout, each run's median.
+With ``--frame0`` a run times ring frame 0 alone (encode + render, 4096
+rays a step) as ``chip_smoke.py``'s render phases do, on every route of
+``FRAME0_ROUTES`` taken in turns within each of 10 rounds after one
+warm-up round: the gather and the dense route from one view, the deferred
+code from one view, on the dense route and from two views, and the
+multi-view gather from two views; the last line holds, per checkout, each
+route's median rays/s run by run.
 Needs a CUDA card and the checkouts' kernels to build there.
 """
 
@@ -161,6 +169,54 @@ def child_render(views: int, reps: int = 10) -> None:
     print(json.dumps({"rays_per_s": rates, "card": torch.cuda.get_device_name(0)}), flush=True)
 
 
+# route -> (source views, environment)
+FRAME0_ROUTES = {
+    "v1_gather": ((0,), {}),
+    "v1_dense": ((0,), {"PIXELNERF_FUSED_GATHER_MAX_ROWS": "0"}),
+    "v1_code": ((0,), {"PIXELNERF_DEFER_CODE": "1"}),
+    "v1_dense_code": ((0,), {"PIXELNERF_FUSED_GATHER_MAX_ROWS": "0", "PIXELNERF_DEFER_CODE": "1"}),
+    "v2_gather_mv": ((0, 1), {}),
+    "v2_code": ((0, 1), {"PIXELNERF_DEFER_CODE": "1"}),
+}
+
+
+def child_frame0(reps: int = 10) -> None:
+    """One frame-0 run in the checkout of the working directory: every
+    route of ``FRAME0_ROUTES`` in turns, one warm-up round, then ``reps``
+    rounds of synchronized calls of ``entry.render_ring`` on frame 0."""
+    sys.path.insert(0, os.getcwd())
+    import torch
+
+    from pixelnerf_tpu_torch import entry
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+
+    rf.build_all()
+    dev = torch.device("cuda")
+    conf = entry.load_conf(pretrained=False)
+    net = entry.build_model(conf, dev, mlp_impl="auto", seed=0)
+    src = entry.source_view(64, 0, [0, 1])
+    rays = entry.ring_rays(src, 3)[:64 * 64]
+    rates = {k: [] for k in FRAME0_ROUTES}
+    for i in range(reps + 1):
+        for name, (views, env) in FRAME0_ROUTES.items():
+            os.environ.update(env)
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                entry.render_ring(net, conf, src, rays,
+                                  torch.Generator(device=dev).manual_seed(0), 64 * 64,
+                                  views=views)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            finally:
+                for k in env:
+                    del os.environ[k]
+            if i:
+                rates[name].append(rays.shape[0] / dt)
+    print(json.dumps({"frame0_rays_per_s": rates, "card": torch.cuda.get_device_name(0)}),
+          flush=True)
+
+
 def main() -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("checkouts", nargs="*")
@@ -170,12 +226,16 @@ def main() -> None:
     ap.add_argument("--kernels", action="store_true", help="time the field kernels, not steps")
     ap.add_argument("--render", action="store_true",
                     help="time the 3-frame ring render from --views source views, not steps")
+    ap.add_argument("--frame0", action="store_true",
+                    help="time ring frame 0 on each render route, not steps")
     ap.add_argument("--timeout", type=float, default=300.0)
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
     if args.child:
         if args.render:
             return child_render(args.views)
+        if args.frame0:
+            return child_frame0()
         return child_kernels() if args.kernels else child(args.views, args.steps)
     if not args.checkouts:
         ap.error("name at least one checkout")
@@ -183,8 +243,10 @@ def main() -> None:
     order = [d for _ in range(args.rounds) for d in dirs + dirs[::-1]]
     runs = {d: [] for d in dirs}
     mode = (["--kernels"] if args.kernels else ["--render", "--views", str(args.views)]
-            if args.render else ["--views", str(args.views), "--steps", str(args.steps)])
-    head = '{"kernel_ms"' if args.kernels else '{"rays_per_s"' if args.render else '{"steps_ms"'
+            if args.render else ["--frame0"] if args.frame0
+            else ["--views", str(args.views), "--steps", str(args.steps)])
+    head = ('{"kernel_ms"' if args.kernels else '{"rays_per_s"' if args.render
+            else '{"frame0_rays_per_s"' if args.frame0 else '{"steps_ms"')
     for i, d in enumerate(order):
         out = subprocess.run([sys.executable, os.path.abspath(__file__), "--child", *mode], cwd=d,
                              capture_output=True, text=True, timeout=args.timeout)
@@ -196,6 +258,12 @@ def main() -> None:
             res = json.loads(lines[-1])
             runs[d].append(res["kernel_ms"])
             print(f"run {i}: {d}: {json.dumps(res)}", flush=True)
+            continue
+        if args.frame0:
+            res = json.loads(lines[-1])["frame0_rays_per_s"]
+            med = {k: sorted(v)[len(v) // 2] for k, v in res.items()}
+            runs[d].append(med)
+            print(f"run {i}: {d}: frame 0 medians (rays/s) {json.dumps(med)}", flush=True)
             continue
         if args.render:
             rates = sorted(json.loads(lines[-1])["rays_per_s"])
@@ -211,6 +279,10 @@ def main() -> None:
     if args.kernels:
         print(json.dumps({"kernel_ms": {d: {k: [r[k] for r in runs[d]] for k in KERNEL_CASES}
                                         for d in dirs}}))
+        return
+    if args.frame0:
+        print(json.dumps({"frame0_median_rays_per_s": {
+            d: {k: [r[k] for r in runs[d]] for k in FRAME0_ROUTES} for d in dirs}}))
         return
     if args.render:
         print(json.dumps({"views": args.views, "median_rays_per_s": {d: runs[d] for d in dirs}}))

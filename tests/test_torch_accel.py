@@ -414,7 +414,6 @@ def _pipes(cfg, grid, budget=None):
         p.device_chunk, p.accel_chunk = 8192, None
         if budget is not None:
             p.point_budget = budget
-    tp.probe_jitter = jax_jitter
     return jp, tp
 
 
@@ -464,7 +463,7 @@ def test_capacity_selection_matches_jax(case):
                                  white_bkgd=True, accel_mode=mode, accel_proposal_samples=5)
     jp, tp = _pipes(cfg, grid, budget)
     jp._autoselect_capacity(rays, ray_batch_size=hint)
-    tp._autoselect_capacity(rays, ray_batch_size=hint)
+    tp._autoselect_capacity(rays, ray_batch_size=hint, jitter=jax_jitter)
     _same_selection(jp, tp)
     assert (tp.accel is not None, tp.accel_chunk) == (kept, chunk)
     if case == "whole":
@@ -589,12 +588,11 @@ def test_pipeline_build_gate_and_render_match_jax(monkeypatch):
                                  accel_probe_samples=16)
     jp = jpipeline.RenderPipeline(jnet, jrenderer.NeRFRenderer(cfg))
     tp = tpipeline.RenderPipeline(net, trenderer.NeRFRenderer(tcfg(cfg)))
-    tp.probe_jitter = jax_jitter
     build = dict(resolution=16, n_dir_probes=2, ray_batch_size=256)
     jgrid = jp.build_accel(variables, jscene, rays, **build)
     dirs = jax.random.normal(jax.random.PRNGKey(0), (2, 3))
     dirs = t(dirs / (jnp.linalg.norm(dirs, axis=-1, keepdims=True) + 1e-8))
-    grid = tp.build_accel(scene, rays, dirs=dirs, **build)
+    grid = tp.build_accel(scene, rays, dirs=dirs, jitter=jax_jitter, **build)
     np.testing.assert_array_equal(grid.occ.numpy(), np.asarray(jgrid.occ))
     close(grid.sig, jgrid.sig, what="sig")
     assert 0.05 < tp.accel_stats["occupancy"] < 0.5

@@ -293,8 +293,12 @@ def _jax_probes(monkeypatch):
         return torch.from_numpy(np.array(d / (jnp.linalg.norm(d, axis=-1, keepdims=True) + 1e-8)))
 
     monkeypatch.setattr(taccel, "probe_dirs", jdirs)
-    monkeypatch.setattr(RenderPipeline, "probe_jitter", staticmethod(jax_jitter))
-    gate = RenderPipeline.gate_accel_mode
+    build, gate = RenderPipeline.build_accel, RenderPipeline.gate_accel_mode
+
+    def jbuild(self, *a, **k):
+        return build(self, *a, jitter=jax_jitter, **k)
+
+    monkeypatch.setattr(RenderPipeline, "build_accel", jbuild)
 
     def jgate(self, scene, rays, seed, *a, **k):
         return gate(self, scene, rays, seed, *a,
