@@ -137,7 +137,28 @@ one line each:
     the trained field; last, the first call of every forward kernel at
     every point count those paths made (the build's chunks, the dense and
     compacted passes, the CLIs' passes) is replayed: bit for bit the
-    path's own output, and against its plain version at the bar of 3.
+    path's own output, and against its plain version at the bar of 3;
+14. multiscale: ``conf/exp/sn64_multiscale.conf`` at full width (ResNet34,
+    4 stages, no first pool, the adaptive gate, attention fusion with CBAM
+    to 512 at dropout 0.1, ResnetFC 512 x 5 on both heads; seeded, random
+    encoder): encode ms per source view (the trunk alone, and with the gate
+    and the fusion, beside sn64's) and the fused map's shape; ring frame 0
+    from views (0) (the gather kernel), (0) under
+    ``PIXELNERF_FUSED_GATHER_MAX_ROWS=0`` (the dense kernel), (0, 1) (the
+    multi-view gather) and (0, 1, 2) (the multi-view dense kernel), each
+    also with ``PIXELNERF_DEFER_CODE=1`` (its code variant), each >= 40 dB
+    against the plain route and timed in turns beside sn64 on the same
+    route; the raw pyramid (``use_smart_fusion = false``) on the dense
+    kernel, not the gather, >= 40 dB; the train-step parity of 9 at -V 1
+    and -V 3 with the fusion's dropout on (one generator seed on both
+    routes, so the masks are equal), the encoder, the gate and the fusion
+    each at cosine >= 0.99; ``python -m pixelnerf_tpu_torch.train -c
+    conf/exp/sn64_multiscale.conf -F dvr`` on the NMR fixture for 12 steps
+    at -V 1 (ms a step beside 11's sn64 step) and 3 at -V 3, rows 2 / 3, 5a
+    and 5b launching twice a step; ``eval -P "0"`` and ``gen_video`` (4
+    frames, ``--accel_mode auto``) on its checkpoint through the gather
+    kernel; last, every first forward-kernel call of those renders and CLIs,
+    replayed against its plain version at the bar of 3.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -233,6 +254,7 @@ def library_tower_mv(z, x, tw, n_blocks, NS, combine_layer):
 
 
 def cosine(a: torch.Tensor, b: torch.Tensor) -> float:
+    a, b = a.double(), b.double()  # f32 sums over ~1e7 elements read past 1
     return (torch.dot(a, b) / (a.norm() * b.norm() + 1e-30)).item()
 
 
@@ -462,10 +484,11 @@ def data_phase(root: str, smi: str):
     return nmr, dtu
 
 
-def profile_split(path: str, smi: str, step_kernel: str) -> None:
+def profile_split(path: str, smi: str, step_kernel: str, label: str = "profile") -> None:
     """Gate and print the -V 1 train run's trace: each of steps 3-5 holds the
     step's field kernels (2 launches each), and its wall time splits into
-    the field kernels, other device work and the card idle."""
+    the field kernels, other device work and the card idle.  Each line
+    starts with ``label``."""
     from pixelnerf_tpu_torch.train.profile import split_trace
 
     sp = split_trace(path)
@@ -473,11 +496,11 @@ def profile_split(path: str, smi: str, step_kernel: str) -> None:
     steps = sp["steps"]
     if sorted(steps) != [3, 4, 5] or any(
             {k: st["field_launches"].get(k, 0) for k in want} != want for st in steps.values()):
-        raise SystemExit(f"profile: trace {path} lacks steps 3-5 or their field kernels: "
+        raise SystemExit(f"{label}: trace {path} lacks steps 3-5 or their field kernels: "
                          f"{ {n: st['field_launches'] for n, st in steps.items()} }")
     mean = {k: sum(st[k] for st in steps.values()) / 3
             for k in ("wall_ms", "field_ms", "other_ms", "idle_ms")}
-    log("profile: -V 1 train steps 3-5 from the trace, ms "
+    log(f"{label}: -V 1 train steps 3-5 from the trace, ms "
         + json.dumps({n: {k: round(st[k], 3) for k in ("wall_ms", "field_ms", "other_ms", "idle_ms")}
                       for n, st in steps.items()})
         + f"; mean wall {mean['wall_ms']:.3f} = field kernels {mean['field_ms']:.3f} "
@@ -490,21 +513,22 @@ def profile_split(path: str, smi: str, step_kernel: str) -> None:
             acc = phases.setdefault(name, {"wall_ms": 0.0, "busy_ms": 0.0, "idle_ms": 0.0})
             for k in acc:
                 acc[k] += ph[k] / 3
-    log("profile: the mean traced step by host phase (forward to the first backward node, the "
+    log(f"{label}: the mean traced step by host phase (forward to the first backward node, the "
         "autograd nodes, Optimizer.step, the rest), ms "
         + (json.dumps({k: {kk: round(vv, 3) for kk, vv in v.items()} for k, v in phases.items()})
            if phases else "not in the trace (no autograd nodes recorded)"))
-    log("profile: top device ops over steps 3-5 (name, ms, launches) "
+    log(f"{label}: top device ops over steps 3-5 (name, ms, launches) "
         + json.dumps([(n[:90], round(ms, 3), c) for n, ms, c in sp["top_ops"]]))
-    log("profile: longest idle gaps (ms, step, innermost host span covering half of it) "
+    log(f"{label}: longest idle gaps (ms, step, innermost host span covering half of it) "
         + json.dumps([(round(ms, 3), n, h) for ms, n, h in sp["gaps"]]))
 
 
 def train_eval_paths(nmr_root, dtu_root, net, smi, records, code_records, bwd_ms,
-                     weights_ms_at, fwd_ms, n_rays, step_kernel) -> None:
+                     weights_ms_at, fwd_ms, n_rays, step_kernel) -> dict:
     """Phases 10-11: the train CLI on -F dvr (-V 1, traced) and -F dvr_dtu
     (-V 3), then the eval CLI on -F dvr (1, 2 and 3 source views, deferred
-    code) and on -F dvr_dtu (3 views, --scale 0.25, ground-truth compare)."""
+    code) and on -F dvr_dtu (3 views, --scale 0.25, ground-truth compare).
+    Returns the train CLI's ms a step, by view count."""
     import types
 
     from pixelnerf_tpu_torch.eval.eval import main as eval_main
@@ -514,6 +538,7 @@ def train_eval_paths(nmr_root, dtu_root, net, smi, records, code_records, bwd_ms
     from pixelnerf_tpu_torch.train import main as train_main
 
     # ---- train path: the train CLI in-process on the file formats ----
+    step_ms_at = {}
     for nviews, conf_path, fmt, root, epochs in ((1, "conf/exp/sn64.conf", "dvr", nmr_root, 12),
                                                  (3, "conf/exp/dtu.conf", "dvr_dtu", dtu_root, 1)):
         fwd = step_kernel[nviews]
@@ -543,6 +568,7 @@ def train_eval_paths(nmr_root, dtu_root, net, smi, records, code_records, bwd_ms
         first = 5 if nviews == 1 else 2  # after the traced steps 3-5 at -V 1
         step_ms = 1e3 * sum(trainer.step_seconds[first:]) / max(1, len(trainer.step_seconds[first:]))
         traced_ms = 1e3 * sum(trainer.step_seconds[2:5]) / 3
+        step_ms_at[nviews] = step_ms
         k_bwd = bwd_ms[(nviews, 64)] + bwd_ms[(nviews, 96)]
         k_w = weights_ms_at[(nviews, 64)] + weights_ms_at[(nviews, 96)]
         k_fwd = fwd_ms[(nviews, 64)] + fwd_ms[(nviews, 96)]
@@ -645,6 +671,7 @@ def train_eval_paths(nmr_root, dtu_root, net, smi, records, code_records, bwd_ms
                     records[want]["dtu_eval_launches"] = launches[want]
         finally:
             del os.environ["PIXELNERF_ALLOW_RANDOM_BACKBONE"]
+    return step_ms_at
 
 
 # phase 13: the scene, the quick-train recipe of bench.py and the render
@@ -1206,6 +1233,331 @@ def accel_phase(conf, dev, smi: str, records: dict, code_records: dict) -> None:
     records["resnetfc_fwd_dense_mv"]["accel_launches"] = {
         "gen_video": cli["0 1 2"][1]["resnetfc_fwd_dense_mv"]}
     return routes["resnetfc_fwd_gather_code"][0]["resnetfc_fwd_gather_code"]
+
+
+# phase 14: the fork's multi-scale recipe through render, train and the CLIs
+MS_CONF = "conf/exp/sn64_multiscale.conf"
+MS_TRAIN = ((1, 12), (3, 3))  # (-V, one-step epochs) of the train CLI on -F dvr
+MS_CLI_FRAMES = 4
+
+
+def _env(pairs: dict):
+    """Set environment variables until the returned function is called."""
+    saved = {k: os.environ.get(k) for k in pairs}
+    os.environ.update(pairs)
+
+    def restore():
+        for k, v in saved.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+    return restore
+
+
+def multiscale_phase(conf, net, src3, rays, dev, smi, records, code_records, nmr_root,
+                     sn64_step_ms) -> None:
+    """Phase 14: ``conf/exp/sn64_multiscale.conf`` at full width (see the
+    module docstring)."""
+    import types
+
+    import numpy as np
+
+    from pixelnerf_tpu_torch import entry
+    from pixelnerf_tpu_torch.data import collate, get_split_dataset
+    from pixelnerf_tpu_torch.eval.eval import main as eval_main
+    from pixelnerf_tpu_torch.eval.gen_video import main as gen_video_main
+    from pixelnerf_tpu_torch.models.losses import l2_loss
+    from pixelnerf_tpu_torch.models.pixelnerf import make_model
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
+    from pixelnerf_tpu_torch.render.renderer import NeRFRenderer, RayDraws
+    from pixelnerf_tpu_torch.train import Optimizer, make_step_fns, prepare_ray_batch
+    from pixelnerf_tpu_torch.train import main as train_main
+
+    t_phase = time.perf_counter()
+    ms_conf = entry.load_conf(pretrained=False, path=MS_CONF)
+    raw_conf = entry.load_conf(pretrained=False, path=MS_CONF)
+    raw_conf.put("model.use_smart_fusion", False)  # the raw pyramid, gated
+    models = {}
+    for name, c in (("ms", ms_conf), ("raw", raw_conf)):
+        for impl in ("auto", "torch"):
+            models[name, impl] = entry.build_model(c, dev, mlp_impl=impl, seed=SEED)
+    g = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():  # every block live, as the render phases' model
+        for mlp in (models["ms", "auto"].mlp_coarse, models["ms", "auto"].mlp_fine):
+            for blk in mlp.blocks:
+                blk.fc_1.weight.copy_(0.02 * torch.randn(blk.fc_1.weight.shape, generator=g))
+    state = models["ms", "auto"].state_dict()
+    models["ms", "torch"].load_state_dict(state)
+    for impl in ("auto", "torch"):
+        models["raw", impl].load_state_dict(
+            {k: v for k, v in state.items() if not k.startswith("feature_fusion.")})
+    ms = models["ms", "auto"]
+    log(f"multiscale: {MS_CONF} full width (ResNet34 4 stages, no first pool, use_multi_scale; "
+        f"adaptive gate; attention fusion with CBAM to 512, dropout "
+        f"{ms.feature_fusion.dropout}; ResnetFC {ms.mlp_fine.d_hidden} x {ms.mlp_fine.n_blocks} "
+        f"on both heads), seeded, random encoder, fc_1 ~ N(0, 0.02^2); "
+        f"{sum(p.numel() for p in ms.parameters())} parameters (fusion "
+        f"{sum(p.numel() for p in ms.feature_fusion.parameters())}, gate "
+        f"{sum(p.numel() for p in ms.adaptive_sampler.parameters())})")
+
+    # ---- encode: ms per source view, the trunk alone and with gate + fusion ----
+    enc = {}
+    with torch.no_grad():
+        for nv in (1, 3):
+            images = torch.as_tensor(src3["images"][:, :nv], device=dev)
+            poses = torch.as_tensor(src3["poses"][:, :nv], device=dev)
+            flat = images.reshape((-1,) + tuple(images.shape[2:]))
+            focal = float(src3["focal"])
+            enc[nv] = dict(
+                sn64=cuda_ms(lambda: net.encode(images, poses, focal), 10) / nv,
+                trunk=cuda_ms(lambda: ms.encoder(flat), 10) / nv,
+                full=cuda_ms(lambda: ms.encode(images, poses, focal), 10) / nv)
+        fused = ms.encode(torch.as_tensor(src3["images"][:, :1], device=dev),
+                          torch.as_tensor(src3["poses"][:, :1], device=dev),
+                          float(src3["focal"])).latents
+        pyramid = models["raw", "auto"].encode(
+            torch.as_tensor(src3["images"][:, :1], device=dev),
+            torch.as_tensor(src3["poses"][:, :1], device=dev), float(src3["focal"])).latents
+    log(f"multiscale: encode ms per source view (CUDA events, means of 10): "
+        + json.dumps({f"{nv} view(s)": {k: round(v, 4) for k, v in e.items()}
+                      for nv, e in enc.items()})
+        + f" (sn64: trunk + upsample + concat; trunk: the multi-scale trunk alone; full: trunk, "
+        f"gate and fusion); fused map {tuple(fused.shape)}, raw pyramid "
+        f"{[tuple(t.shape) for t in pyramid]}")
+    if tuple(fused.shape) != (1, FRAME // 2, FRAME // 2, 512) or not isinstance(pyramid, tuple):
+        raise SystemExit("multiscale: the encoder did not give the 32 x 32 x 512 fused map")
+
+    def frame0(model, c, views, env):
+        restore = _env(env)
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, _ = entry.render_ring(model, c, src3, rays[:RAYS_PER_STEP],
+                                       torch.Generator(device=dev).manual_seed(SEED),
+                                       RAYS_PER_STEP, views=views)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+        finally:
+            restore()
+
+    def launched(model, c, views, env):
+        rf.reset_launches()
+        out, _ = frame0(model, c, views, env)
+        return out, {k: v for k, v in rf.LAUNCHES.items() if v}
+
+    cap0 = {"PIXELNERF_FUSED_GATHER_MAX_ROWS": "0"}
+    code = {"PIXELNERF_DEFER_CODE": "1"}
+    routes = (("1 view, fused gather", (0,), {}, "resnetfc_fwd_gather"),
+              ("1 view, dense", (0,), cap0, "resnetfc_fwd_dense"),
+              ("2 views", (0, 1), {}, "resnetfc_fwd_gather_mv"),
+              ("3 views", (0, 1, 2), {}, "resnetfc_fwd_dense_mv"))
+    ms_launches, turns = {}, {}  # kernel -> {path: launches}; route -> rays/s
+    calls = ForwardCalls(rf)  # the renders' and the CLIs' kernel calls, not training's
+    with calls:
+        # ---- ring frame 0 on every route, against the plain route ----
+        for label, views, env, kname in routes:
+            ref, _ = frame0(models["ms", "torch"], ms_conf, views, env)
+            ok = True
+            line = []
+            for variant, extra in ((kname, {}), (kname + "_code", code)):
+                out, la = launched(ms, ms_conf, views, {**env, **extra})
+                p = psnr(out, ref)
+                ok = ok and p >= 40.0 and set(la) == {variant} and bool(torch.isfinite(out).all())
+                ms_launches.setdefault(variant, {})[f"frame 0, {label}"] = la.get(variant, 0)
+                line.append(f"{variant} launches {la}, vs plain {p:.3f} dB")
+            times = {"sn64": [], "multiscale": []}
+            for which in ("sn64", "multiscale", "multiscale", "sn64"):
+                model, c = (net, conf) if which == "sn64" else (ms, ms_conf)
+                times[which].append(frame0(model, c, views, env)[1])
+            t_sn, t_ms = (sum(times[k]) / 2 for k in ("sn64", "multiscale"))
+            turns[label] = (RAYS_PER_STEP / t_sn, RAYS_PER_STEP / t_ms)
+            log(f"multiscale render: {label} (source views {list(views)}"
+                f"{', PIXELNERF_FUSED_GATHER_MAX_ROWS=0' if env else ''}), frame 0: "
+                + "; ".join(line) + f" (need >= 40 dB); frame 0 in turns (sn64, multiscale, "
+                f"multiscale, sn64; encode included): sn64 {t_sn:.4f} s = "
+                f"{RAYS_PER_STEP / t_sn:.1f} rays/s, multiscale {t_ms:.4f} s = "
+                f"{RAYS_PER_STEP / t_ms:.1f} rays/s ({t_ms / t_sn:.4f}x sn64's time); on {smi}")
+            if not ok:
+                raise SystemExit(f"multiscale render {label} failed, disagrees with the plain "
+                                 f"route or missed {kname}")
+
+        # ---- the raw pyramid (fusion off): the dense route ----
+        raw = models["raw", "auto"]
+        ref, _ = frame0(models["raw", "torch"], raw_conf, (0,), {})
+        out, la = launched(raw, raw_conf, (0,), {})
+        p = psnr(out, ref)
+        fused_ok = raw._fused_gather_ok(pyramid, 1)
+        log(f"multiscale render: raw pyramid (use_smart_fusion = false; four maps, 512 channels "
+            f"in all), frame 0 from view 0: fused gather {fused_ok}; launches {la}; vs plain "
+            f"{p:.3f} dB (need >= 40)")
+        if fused_ok or set(la) != {"resnetfc_fwd_dense"} or not p >= 40.0:
+            raise SystemExit("multiscale: the raw pyramid did not take the dense route or "
+                             "disagrees with the plain route")
+        ms_launches["resnetfc_fwd_dense"]["frame 0, raw pyramid"] = la["resnetfc_fwd_dense"]
+
+    # ---- train-step parity, -V 1 and -V 3, dropout on ----
+    ds = get_split_dataset("synthetic", "", want_split="train")
+    rcfg = NeRFRenderer.from_conf(ms_conf["renderer"], lindisp=ds.lindisp).cfg
+    n_rays, n_imp = 4 * 128, rcfg.n_fine - rcfg.n_fine_depth
+    step_kernel = {1: "resnetfc_fwd_dense", 3: "resnetfc_fwd_dense_mv"}
+    for nviews in (1, 3):
+        batch_np = prepare_ray_batch(collate([ds[i] for i in range(len(ds))]), nviews, 128,
+                                     ds.z_near, ds.z_far, True, np.random.default_rng(SEED))
+        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+        gd = torch.Generator(device=dev).manual_seed(SEED + 3)
+        draws = RayDraws(
+            coarse=torch.rand(n_rays, rcfg.n_coarse, device=dev, generator=gd),
+            fine_u=torch.rand(n_rays, n_imp, device=dev, generator=gd),
+            fine_jitter=torch.rand(n_rays, n_imp, device=dev, generator=gd),
+            depth=torch.randn(n_rays, rcfg.n_fine_depth, device=dev, generator=gd))
+        steps = {}
+        for route, impl, amp in (("kernel", "auto", True), ("plain", "torch", False)):
+            tnet = make_model(ms_conf["model"], mlp_impl=impl, device=dev, diff_mode=True)
+            tnet.load_state_dict(state)
+            opt = Optimizer(list(tnet.parameters()), lambda t: 1e-4)
+            train_step, _ = make_step_fns(tnet, opt, lambda: rcfg, 1.0, 1.0, l2_loss, l2_loss,
+                                          tnet.use_viewdirs, amp=amp,
+                                          remat=not tnet.field_backward_in_kernel(nviews))
+            rf.reset_launches()
+            rv.reset_launches()
+            # the same dropout masks on both routes: one seed, drawn first
+            ld = {k: float(v) for k, v in train_step(
+                batch, torch.Generator(device=dev).manual_seed(SEED + 5), draws).items()}
+            torch.cuda.synchronize()
+            groups = {}
+            for n, prm in tnet.named_parameters():
+                groups.setdefault(n.split(".")[0], []).append(
+                    prm.grad.detach().float().flatten())
+            steps[route] = (ld, {k: torch.cat(v) for k, v in groups.items()},
+                            {k: v for k, v in dict(rf.LAUNCHES, **rv.LAUNCHES).items() if v})
+            del tnet, opt
+        (lk, gk, nk), (lp, gp, np_) = steps["kernel"], steps["plain"]
+        cos = {k: cosine(gk[k], gp[k]) for k in gp}
+        d_loss = abs(lk["t"] - lp["t"]) / abs(lp["t"])
+        d_norm = abs(lk["grad_norm"] - lp["grad_norm"]) / lp["grad_norm"]
+        fwd = step_kernel[nviews]
+        ok = (d_loss <= 0.01 and d_norm <= 0.02 and min(cos.values()) >= 0.99
+              and nk == {fwd: 2, "resnetfc_bwd_data": 2, "resnetfc_bwd_weights": 2}
+              and not np_)
+        log(f"multiscale train-step parity -V {nviews} (fusion dropout "
+            f"{ms.feature_fusion.dropout}, one generator seed on both routes): loss kernel "
+            f"{lk['t']:.6f} plain {lp['t']:.6f} (rel {d_loss:.3g} <= 0.01); grad_norm "
+            f"{lk['grad_norm']:.6f} vs {lp['grad_norm']:.6f} (rel {d_norm:.3g} <= 0.02); "
+            f"gradient cosine {json.dumps({k: round(v, 6) for k, v in cos.items()})} "
+            f"(>= 0.99); kernel-route launches {nk}; plain-route launches {np_}")
+        if not ok:
+            raise SystemExit(f"multiscale train-step parity failed at -V {nviews}")
+
+    # ---- the train CLI on -F dvr, then eval and gen_video on its checkpoint ----
+    restore = _env({"PIXELNERF_ALLOW_RANDOM_BACKBONE": "1"})  # no backbone weights here
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = os.path.join(tmp, "ck")
+            for nviews, epochs in MS_TRAIN:
+                fwd = step_kernel[nviews]
+                prof = os.path.join(tmp, "profile")
+                argv = ["-n", f"ms_v{nviews}", "-c", MS_CONF, "-F", "dvr", "-D", nmr_root,
+                        "-B", "4", "-V", str(nviews), "-R", "128", "--epochs", str(epochs),
+                        "--checkpoints_path", ck] + (["--profile_dir", prof] if nviews == 1
+                                                     else [])
+                torch.cuda.synchronize()
+                rf.reset_launches()
+                rv.reset_launches()
+                t0 = time.perf_counter()
+                trainer = train_main(argv)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                la = {k: v for k, v in dict(rf.LAUNCHES, **rv.LAUNCHES).items() if v}
+                n_steps = trainer.global_step
+                if nviews == 1:
+                    profile_split(os.path.join(prof, "trace.json"), smi, fwd,
+                                  label="multiscale profile")
+                first = 5 if nviews == 1 else 2  # after the traced steps 3-5 at -V 1
+                step_ms = 1e3 * sum(trainer.step_seconds[first:]) / max(
+                    1, len(trainer.step_seconds[first:]))
+                finite = (len(trainer.history) == n_steps and n_steps > 0
+                          and all(math.isfinite(v) for v in trainer.history))
+                wrote = os.path.exists(os.path.join(ck, f"ms_v{nviews}", "pixel_nerf_latest"))
+                beside = (f" (phase 11's sn64 -V 1 step on -F dvr: {sn64_step_ms[1]:.3f} ms)"
+                          if nviews == 1 else "")
+                log(f"multiscale train path: python -m pixelnerf_tpu_torch.train -c {MS_CONF} "
+                    f"-F dvr -B 4 -V {nviews} -R 128 --epochs {epochs}: {n_steps} steps in "
+                    f"{wall:.3f} s, {step_ms:.3f} ms a step over steps {first + 1}-{n_steps}"
+                    f"{beside}; "
+                    f"remat {trainer.remat}; launches {la}; losses "
+                    f"{[round(v, 5) for v in trainer.history]} finite {finite}; "
+                    f"pixel_nerf_latest written {wrote}; on {smi}")
+                if not (finite and wrote and not trainer.remat
+                        and la.get(fwd, 0) >= 2 * n_steps
+                        and la.get("resnetfc_bwd_data") == 2 * n_steps
+                        and la.get("resnetfc_bwd_weights") == 2 * n_steps
+                        and not any(k.startswith("resnetfc_fwd") and k != fwd for k in la)):
+                    raise SystemExit(f"multiscale train path at -V {nviews} failed or did "
+                                     "not run through the kernels")
+                for k, v in la.items():
+                    ms_launches.setdefault(k, {})[f"train CLI -V {nviews}"] = v
+            base = ["-n", "ms_v1", "-c", MS_CONF, "-F", "dvr", "-D", nmr_root,
+                    "--checkpoints_path", ck, "-R", str(EVAL_RAYS)]
+            rf.reset_launches()
+            t0 = time.perf_counter()
+            with calls:
+                res = eval_main(base + ["--split", "test", "-P", "0", "--max_objs", "1",
+                                        "-O", os.path.join(tmp, "eval")])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            la = {k: v for k, v in rf.LAUNCHES.items() if v}
+            log(f"multiscale eval path: python -m pixelnerf_tpu_torch.eval.eval -c {MS_CONF} "
+                f"-F dvr --split test -P \"0\" --max_objs 1 (the -V 1 checkpoint): "
+                f"{[(n, round(p_, 4), round(s_, 4)) for n, p_, s_ in res['objects']]}; "
+                f"launches {la}; {dt:.3f} s")
+            if not (len(res["objects"]) == 1 and set(la) == {"resnetfc_fwd_gather"}
+                    and all(math.isfinite(p_) and math.isfinite(s_)
+                            for _, p_, s_ in res["objects"])):
+                raise SystemExit("multiscale eval failed or missed the gather kernel")
+            ms_launches["resnetfc_fwd_gather"]["eval -P 0"] = la["resnetfc_fwd_gather"]
+            rf.reset_launches()
+            t0 = time.perf_counter()
+            with calls:
+                res = gen_video_main(base + ["--split", "test", "-S", "0", "-P", "0",
+                                             "--num_views", str(MS_CLI_FRAMES),
+                                             "--visual_path", os.path.join(tmp, "vis")])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            la = {k: v for k, v in rf.LAUNCHES.items() if v}
+            pngs = sorted(os.listdir(res["frame_dir"]))
+            log(f"multiscale gen_video: python -m pixelnerf_tpu_torch.eval.gen_video -c "
+                f"{MS_CONF} -F dvr -S 0 -P \"0\" --num_views {MS_CLI_FRAMES} (--accel_mode "
+                f"auto): accel {res['accel']}; {len(pngs)} PNG frames of "
+                f"{res['frames'].shape[1:3]}; launches {la}; {dt:.3f} s")
+            if not (len(pngs) == MS_CLI_FRAMES and la.get("resnetfc_fwd_gather", 0) > 0
+                    and set(la) <= {"resnetfc_fwd_gather"}):
+                raise SystemExit("multiscale gen_video wrote no frames or missed the gather "
+                                 "kernel")
+            ms_launches["resnetfc_fwd_gather"]["gen_video -P 0"] = la["resnetfc_fwd_gather"]
+    finally:
+        restore()
+
+    # ---- every forward kernel call of the renders and CLIs above, replayed ----
+    rows = calls.check()
+    log("multiscale: the paths' kernel calls against their plain versions (max|d| <= 0.015 x "
+        "max(1, max|ref|), corr > 0.999, bit for bit the path's output): " + json.dumps(
+            [dict(kernel=v, points=n, max_abs_err=float(f"{d:.6g}"), bar=float(f"{b:.6g}"),
+                  corr=round(c, 7), same=same, ok=ok) for v, n, d, b, c, same, ok in rows]))
+    if not rows or not all(r[-1] for r in rows):
+        raise SystemExit("multiscale: a kernel disagrees with its plain version at a shape of "
+                         "the multi-scale paths")
+    for v, _, d, *_ in rows:
+        rec = records[v] if v in records else code_records[v]
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), d)
+    del calls
+    for name, by_path in ms_launches.items():
+        (records[name] if name in records else code_records[name])["multiscale_launches"] = by_path
+    log(f"multiscale: phase done in {time.perf_counter() - t_phase:.1f} s; frame 0 rays/s in "
+        f"turns (sn64, multiscale): "
+        + json.dumps({k: [round(a, 1), round(b, 1)] for k, (a, b) in turns.items()}))
 
 
 def main() -> None:
@@ -2141,13 +2493,17 @@ def main() -> None:
     data_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_data_")
     try:
         nmr_root, dtu_root = data_phase(data_dir.name, smi)
-        train_eval_paths(nmr_root, dtu_root, net, smi, records, code_records, bwd_ms,
-                         weights_ms_at, fwd_ms, n_rays, step_kernel)
+        sn64_step_ms = train_eval_paths(nmr_root, dtu_root, net, smi, records, code_records,
+                                        bwd_ms, weights_ms_at, fwd_ms, n_rays, step_kernel)
+
+        # ---- the occupancy accel on a quick-trained field ----
+        code_accel_launches = accel_phase(conf, dev, smi, records, code_records)
+
+        # ---- the multi-scale recipe (reads the NMR fixture) ----
+        multiscale_phase(conf, net, src3, rays, dev, smi, records, code_records, nmr_root,
+                         sn64_step_ms)
     finally:
         data_dir.cleanup()
-
-    # ---- the occupancy accel on a quick-trained field ----
-    code_accel_launches = accel_phase(conf, dev, smi, records, code_records)
 
     # row 6 as one record: the single-view gather variant's numbers (the
     # 1-view deferred render's kernel) at the top, every variant under

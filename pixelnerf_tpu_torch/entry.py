@@ -1,7 +1,8 @@
 """sn64 novel-view render from one or more source views on the card.
 
 The port's counterpart of ``__graft_entry__.entry()`` and the core of
-``eval/gen_video.py``: the ``conf/exp/sn64.conf`` model at full width, views
+``eval/gen_video.py``: the ``conf/exp/sn64.conf`` model at full width (or
+another recipe's, ``-c conf/exp/sn64_multiscale.conf``), views
 of one 64x64 synthetic sphere as the source views (view 0 by default; more
 with ``--source "0 1 2"``, as ``gen_video -P`` takes them), a
 ``pose_spherical`` ring of frames at radius (z_near + z_far) / 2, the conf's
@@ -34,10 +35,10 @@ from .utils.jax_convert import from_jax_variables, load_pretrained_backbone
 SN64_CONF = Path(__file__).resolve().parent.parent / "conf" / "exp" / "sn64.conf"
 
 
-def load_conf(pretrained: Optional[bool] = None) -> ConfigTree:
-    """The sn64 conf, resolved against this file; ``pretrained`` overrides
-    ``model.encoder.pretrained``."""
-    conf = parse_file(str(SN64_CONF))
+def load_conf(pretrained: Optional[bool] = None, path=SN64_CONF) -> ConfigTree:
+    """The conf at ``path`` (sn64's, resolved against this file, by default);
+    ``pretrained`` overrides ``model.encoder.pretrained``."""
+    conf = parse_file(str(path))
     if pretrained is not None:
         conf.put("model.encoder.pretrained", bool(pretrained))
     return conf
@@ -106,14 +107,14 @@ def render_ring(net: PixelNeRFNet, conf: ConfigTree, src: dict, rays: np.ndarray
 def entry(n_frames: int = 3, device=None, mlp_impl: str = "auto", seed: int = 0,
           variables: Optional[Mapping] = None, pretrained: Optional[bool] = None,
           image_size: int = 64, ray_batch_size: int = 50000,
-          views: Sequence[int] = (0,)) -> dict:
-    """Render ``n_frames`` ring views of the sn64 model from the source views
-    ``views`` of the synthetic object.
+          views: Sequence[int] = (0,), conf_path=SN64_CONF) -> dict:
+    """Render ``n_frames`` ring views of the model of ``conf_path`` (sn64's
+    by default) from the source views ``views`` of the synthetic object.
 
     :return: {"frames": (N, H, W, 3) rgb in [0, 1], "depth": (N, H, W)} tensors
     """
     device = resolve_device(device)
-    conf = load_conf(pretrained)
+    conf = load_conf(pretrained, conf_path)
     net = build_model(conf, device, mlp_impl, seed, variables)
     src = source_view(image_size, seed, views)
     rays = ring_rays(src, n_frames)
@@ -127,6 +128,8 @@ def entry(n_frames: int = 3, device=None, mlp_impl: str = "auto", seed: int = 0,
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=3)
+    ap.add_argument("--conf", "-c", default=str(SN64_CONF),
+                    help="model recipe, e.g. conf/exp/sn64_multiscale.conf (default sn64)")
     ap.add_argument("--device", default=None, help="cuda (default) or cpu")
     ap.add_argument("--impl", default="auto", choices=["auto", "cuda", "torch"])
     ap.add_argument("--seed", type=int, default=0)
@@ -140,15 +143,16 @@ def main(argv=None) -> None:
     t0 = time.perf_counter()
     out = entry(args.frames, device, args.impl, args.seed,
                 pretrained=False if args.random_backbone else None,
-                image_size=args.image_size, views=[int(v) for v in args.source.split()])
+                image_size=args.image_size, views=[int(v) for v in args.source.split()],
+                conf_path=args.conf)
     if device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     frames = out["frames"]
     n_rays = frames.shape[0] * frames.shape[1] * frames.shape[2]
     name = torch.cuda.get_device_name(device) if device.type == "cuda" else "cpu"
-    print(f"entry OK: source views {args.source.split()}, frames {tuple(frames.shape)} "
-          f"depth {tuple(out['depth'].shape)} "
+    print(f"entry OK: {Path(args.conf).name}, source views {args.source.split()}, frames "
+          f"{tuple(frames.shape)} depth {tuple(out['depth'].shape)} "
           f"finite {bool(torch.isfinite(frames).all())}; {n_rays} rays in {dt:.3f} s "
           f"including build and encode, on {name}")
 

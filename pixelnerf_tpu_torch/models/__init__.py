@@ -1,5 +1,18 @@
+from .attention import (
+    CBAM,
+    ChannelAttention,
+    CrossViewAttention,
+    MultiViewAttention,
+    SpatialAttention,
+)
 from .code import PositionalEncoding
 from .encoder import SpatialEncoder
+from .fusion import (
+    AdaptiveFeatureSampler,
+    MultiScaleFusionModule,
+    SmartFeatureFusion,
+    create_feature_fusion,
+)
 from .pixelnerf import EncodedScene, PixelNeRFNet, make_model
 from .resnetfc import ResnetBlockFC, ResnetFC
 
@@ -11,4 +24,13 @@ __all__ = [
     "make_model",
     "ResnetBlockFC",
     "ResnetFC",
+    "CBAM",
+    "ChannelAttention",
+    "CrossViewAttention",
+    "MultiViewAttention",
+    "SpatialAttention",
+    "AdaptiveFeatureSampler",
+    "MultiScaleFusionModule",
+    "SmartFeatureFusion",
+    "create_feature_fusion",
 ]

@@ -1,7 +1,9 @@
 """Spatial (pixel-aligned) image encoder on a ResNet trunk.
 
 Images and feature maps are NHWC at this module's surface, as in the JAX
-package; the trunk runs NCHW inside.  Two uv normalizations:
+package; the trunk runs NCHW inside.  ``use_multi_scale`` returns the
+per-stage maps (finest first) for the fusion stack; otherwise they are
+upsampled to the stage-0 resolution and concatenated.  Two uv normalizations:
 
 * ``index_normalize="image"`` (default): uv pixel coordinates are normalized
   against the input image extent, ``g = u * (W_l / W_img) * 2/(W_l - 1) - 1``;
@@ -11,7 +13,7 @@ package; the trunk runs NCHW inside.  Two uv normalizations:
 
 from __future__ import annotations
 
-from typing import Tuple
+from typing import List, Sequence, Tuple, Union
 
 import torch
 from torch import nn
@@ -26,9 +28,9 @@ from . import resnet
 
 
 class SpatialEncoder(nn.Module):
-    """2D pixel-aligned feature extractor: the per-stage maps upsampled to the
-    stage-0 resolution and channel-concatenated (512 channels for
-    resnet34 / num_layers=4)."""
+    """2D pixel-aligned feature extractor: the per-stage maps, or (single
+    scale) those maps upsampled to the stage-0 resolution and
+    channel-concatenated (512 channels for resnet34 / num_layers=4)."""
 
     def __init__(
         self,
@@ -43,8 +45,6 @@ class SpatialEncoder(nn.Module):
         index_normalize: str = "image",
     ):
         super().__init__()
-        if use_multi_scale:
-            raise NotImplementedError("multi-scale encoder: not ported yet (ROADMAP.md)")
         if index_interp != "bilinear":
             raise NotImplementedError(
                 f"index_interp {index_interp!r}: only bilinear is ported (ROADMAP.md)"
@@ -62,14 +62,23 @@ class SpatialEncoder(nn.Module):
         self.model = resnet.ResNetFeatures(backbone, num_layers, use_first_pool)
 
     @property
-    def latent_size(self) -> int:
-        return sum(resnet.stage_channels(self.backbone)[: self.num_layers])
+    def latent_sizes(self) -> List[int]:
+        return list(resnet.stage_channels(self.backbone)[: self.num_layers])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        """:param x: (B, H, W, 3) images in [-1, 1] -> (B, H0, W0, sum C_i)"""
+    @property
+    def latent_size(self) -> Union[int, List[int]]:
+        """Multi-scale: the per-scale channels; else the unified map's total."""
+        return self.latent_sizes if self.use_multi_scale else sum(self.latent_sizes)
+
+    def forward(self, x: torch.Tensor):
+        """:param x: (B, H, W, 3) images in [-1, 1]
+        :return: [(B, H_i, W_i, C_i), ...] if multi-scale, else (B, H0, W0, sum C_i)
+        """
         if self.feature_scale != 1.0:
             x = x * self.feature_scale
         feats = [f.permute(0, 2, 3, 1) for f in self.model(x.permute(0, 3, 1, 2))]
+        if self.use_multi_scale:
+            return feats
         h0, w0 = feats[0].shape[1], feats[0].shape[2]
         up = (
             resize_bilinear_align_corners
@@ -90,22 +99,27 @@ class SpatialEncoder(nn.Module):
             gy = uv[..., 1] * (h_l / h_img) * (2.0 / max(h_l - 1, 1)) - 1.0
         return torch.stack([gx, gy], dim=-1)
 
-    def index(self, latents: torch.Tensor, uv: torch.Tensor,
+    def index(self, latents: Union[torch.Tensor, Sequence[torch.Tensor]], uv: torch.Tensor,
               image_shape: Tuple[float, float]) -> torch.Tensor:
         """Sample pixel-aligned features at image-space points.
 
-        :param latents: (B, H_l, W_l, C) map from ``forward``
+        :param latents: the output of ``forward``: one (B, H_l, W_l, C) map or
+            a list of per-scale maps, each normalized by its own (H_l, W_l)
         :param uv: (B, N, 2) points in input-image pixel coordinates
         :param image_shape: (W_img, H_img) of the encoded images
-        :return: (B, N, C)
+        :return: (B, N, sum C) -- the per-scale samples concatenated
         """
-        h_l, w_l = latents.shape[1], latents.shape[2]
-        t_idx, t_w = bilinear_taps(
-            self._grid(latents, uv, image_shape), h_l, w_l,
-            align_corners=True, padding_mode=self.index_padding,
-        )
-        flat = latents.reshape(latents.shape[0], h_l * w_l, -1)
-        return gather_taps(flat, t_idx, t_w)
+        if torch.is_tensor(latents):
+            latents = [latents]
+        samples = []
+        for lat in latents:
+            h_l, w_l = lat.shape[1], lat.shape[2]
+            t_idx, t_w = bilinear_taps(
+                self._grid(lat, uv, image_shape), h_l, w_l,
+                align_corners=True, padding_mode=self.index_padding,
+            )
+            samples.append(gather_taps(lat.reshape(lat.shape[0], h_l * w_l, -1), t_idx, t_w))
+        return samples[0] if len(samples) == 1 else torch.cat(samples, dim=-1)
 
     def index_taps(self, lat: torch.Tensor, uv: torch.Tensor,
                    image_shape: Tuple[float, float]):

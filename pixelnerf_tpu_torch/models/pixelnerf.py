@@ -1,6 +1,8 @@
 """PixelNeRF network: encode source views, query the conditioned field.
 
-* ``encode``: ResNet feature map per source view; poses inverted to
+* ``encode``: ResNet feature map per source view -- or, multi-scale, the
+  per-stage pyramid, optionally gated by the adaptive sampler and fused
+  into one 512-channel map (``use_smart_fusion``); poses inverted to
   world->camera; focal y negated; principal point defaults to the image
   center.  Returns an :class:`EncodedScene` that ``query`` takes explicitly.
 * ``query``: world points into each source camera's frame, positional code
@@ -10,9 +12,10 @@
 
 The feature lookup takes one of two routes, chosen as in the JAX package
 (:meth:`PixelNeRFNet._fused_gather_ok`): fused into the field kernel as a
-:class:`~..ops.resnetfc_fused.LatentGather`, or gathered densely first.
-Training builds the model with ``diff_mode=True``, which keeps every field
-input dense so the field stays differentiable on the kernel route.
+:class:`~..ops.resnetfc_fused.LatentGather`, or gathered densely first (a
+raw multi-scale pyramid always is).  Training builds the model with
+``diff_mode=True``, which keeps every field input dense so the field stays
+differentiable on the kernel route.
 
 With ``PIXELNERF_DEFER_CODE=1`` (read per call; off by default, as in the
 JAX package) an eval query hands the field the raw coordinates and the flat
@@ -25,7 +28,7 @@ from __future__ import annotations
 
 import dataclasses
 import os
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -36,6 +39,7 @@ from ..ops.resnetfc_fused import LatentGather, RawCode, supports
 from ..utils.geometry import invert_poses, repeat_interleave
 from .code import PositionalEncoding
 from .encoder import SpatialEncoder
+from .fusion import AdaptiveFeatureSampler, SmartFeatureFusion, reset_fusion_parameters
 from .resnetfc import ResnetFC
 
 _NOT_PORTED = "not ported yet (ROADMAP.md)"
@@ -47,17 +51,31 @@ def _defer_code_enabled() -> bool:
     return os.environ.get("PIXELNERF_DEFER_CODE", "0") == "1"
 
 
+Latents = Union[torch.Tensor, Tuple[torch.Tensor, ...]]
+
+
 @dataclasses.dataclass
 class EncodedScene:
     """Everything ``query`` needs about the conditioned source views.
     Shapes use B = SB * NS (object superbatch x source views, flattened)."""
 
-    latents: torch.Tensor  # (B, H_l, W_l, C)
+    latents: Latents  # (B, H_l, W_l, C) map, or a tuple of per-scale maps
     poses: torch.Tensor  # (B, 3, 4) world -> camera
     focal: torch.Tensor  # (B, 2) [fx, -fy] in pixels
     c: torch.Tensor  # (B, 2) principal point in pixels
     image_shape: Tuple[int, int] = (0, 0)  # (W, H)
     num_views_per_obj: int = 1
+
+    @property
+    def device(self) -> torch.device:
+        return self.poses.device
+
+    def cast(self, dtype: torch.dtype) -> "EncodedScene":
+        """The scene with every latent map (the one map, or each map of a raw
+        pyramid) in ``dtype``."""
+        lat = self.latents
+        lat = tuple(t.to(dtype) for t in lat) if isinstance(lat, tuple) else lat.to(dtype)
+        return dataclasses.replace(self, latents=lat)
 
 
 def _make_mlp(conf: ConfigTree, d_in: int, d_latent: int, allow_empty=False, impl="torch"):
@@ -99,8 +117,6 @@ class PixelNeRFNet(nn.Module):
         self.use_viewdirs = conf.get_bool("use_viewdirs", False)
         if conf.get_bool("use_global_encoder", False):
             raise NotImplementedError(f"global encoder: {_NOT_PORTED}")
-        if conf.get_bool("use_smart_fusion", False) or conf.get_bool("use_adaptive_sampling", False):
-            raise NotImplementedError(f"feature fusion / adaptive sampling: {_NOT_PORTED}")
         self.sigma_activation = conf.get_string("sigma_activation", "relu")
         if self.sigma_activation not in ("relu", "softplus", "softplus_floor"):
             raise NotImplementedError(f"Unsupported sigma_activation {self.sigma_activation!r}")
@@ -109,7 +125,25 @@ class PixelNeRFNet(nn.Module):
         if enc_type != "spatial":
             raise NotImplementedError(f"encoder type {enc_type!r}: {_NOT_PORTED}")
         self.encoder = SpatialEncoder.from_conf(conf["encoder"])
-        self.latent_size = self.encoder.latent_size
+
+        # the fork's multi-scale fusion: the adaptive gate on the raw
+        # pyramid, then the fusion into one 512-channel map
+        self.is_multi_scale = self.encoder.use_multi_scale
+        self.use_smart_fusion = conf.get_bool("use_smart_fusion", False) and self.is_multi_scale
+        self.use_adaptive_sampling = (conf.get_bool("use_adaptive_sampling", False)
+                                      and self.is_multi_scale)
+        layer_dims = self.encoder.latent_sizes
+        self.feature_fusion = self.adaptive_sampler = None
+        if self.use_smart_fusion:
+            self.feature_fusion = SmartFeatureFusion(
+                layer_dims, output_dim=512,
+                use_attention=conf.get_string("fusion_type", "attention") == "attention",
+                dropout=conf.get_float("fusion_dropout", 0.0),
+                num_heads=conf.get_int("fusion_heads", 8), use_cbam=conf.get_bool("use_cbam", True))
+        if self.use_adaptive_sampling:
+            self.adaptive_sampler = AdaptiveFeatureSampler(
+                layer_dims[-1], conf.get_float("quality_threshold", 0.3), layer_dims=layer_dims)
+        self.latent_size = 512 if self.use_smart_fusion else sum(layer_dims)
 
         d_latent = self.latent_size if self.use_encoder else 0
         d_in = 3 if self.use_xyz else 1
@@ -130,7 +164,8 @@ class PixelNeRFNet(nn.Module):
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded init: kaiming fan-out normal convs (torchvision's init),
-        unit / zero BatchNorm, and the ResnetFC reference init."""
+        unit / zero BatchNorm, the fusion stack's LeCun-normal init, and the
+        ResnetFC reference init."""
         with torch.no_grad():
             for m in self.encoder.modules():
                 if isinstance(m, nn.Conv2d):
@@ -143,19 +178,25 @@ class PixelNeRFNet(nn.Module):
                     m.running_mean.zero_()
                     m.running_var.fill_(1.0)
                     m.num_batches_tracked.zero_()
+        for stage in (self.adaptive_sampler, self.feature_fusion):
+            if stage is not None:
+                reset_fusion_parameters(stage, generator)
         for mlp in (self.mlp_coarse, self.mlp_fine):
             if mlp is not None:
                 mlp.reset_parameters(generator)
 
     # ---------------------------- encode ----------------------------
     def encode(self, images: torch.Tensor, poses: torch.Tensor, focal, c=None,
-               train: bool = False) -> EncodedScene:
+               train: bool = False, generator: Optional[torch.Generator] = None) -> EncodedScene:
         """:param images: (SB, NS, H, W, 3) or (NS, H, W, 3), values in [-1, 1]
         :param poses: matching (..., 4, 4) camera-to-world
         :param focal: () | (2,) | (NS,) | (NS, 2) [fx, fy]
         :param c: principal point, same shape options, default image center
-        :param train: run the encoder's BatchNorm on batch statistics and
-            update its running statistics (the JAX ``train=True``)
+        :param train: run the encoder's and the fusion's BatchNorm on batch
+            statistics and update their running statistics, and the fusion's
+            dropout (the JAX ``train=True``)
+        :param generator: the fusion dropout's draws (train mode with
+            ``fusion_dropout`` > 0; on the images' device)
         """
         if images.ndim == 5:
             num_views_per_obj = images.shape[1]
@@ -166,8 +207,16 @@ class PixelNeRFNet(nn.Module):
         B, H, W = images.shape[0], images.shape[1], images.shape[2]
         dev = images.device
 
-        self.encoder.train(train)
+        for stage in (self.encoder, self.adaptive_sampler, self.feature_fusion):
+            if stage is not None:
+                stage.train(train)
         latents = self.encoder(images)
+        if self.use_adaptive_sampling:
+            latents = self.adaptive_sampler(latents)
+        if self.use_smart_fusion:
+            latents = self.feature_fusion(latents, generator=generator)
+        if isinstance(latents, list):
+            latents = tuple(latents)
         w2c = invert_poses(poses)
 
         def norm_intrinsic(x):
@@ -202,11 +251,15 @@ class PixelNeRFNet(nn.Module):
         return int(os.environ.get("PIXELNERF_FUSED_GATHER_MAX_ROWS",
                                   PixelNeRFNet.FUSED_GATHER_MAX_ROWS))
 
-    def _fused_gather_ok(self, latents: torch.Tensor, NS: int) -> bool:
+    def _fused_gather_ok(self, latents: Latents, NS: int) -> bool:
         """Whether the pixel-aligned lookup rides the fused field kernel."""
         if self.mlp_impl not in ("cuda", "auto"):
             return False
         if self.diff_mode:  # the fused-gather kernel has no backward
+            return False
+        if isinstance(latents, (list, tuple)):
+            # a raw pyramid: per-scale tables of mixed resolutions, dense.
+            # Fused, the pyramid is one map and qualifies as single-scale.
             return False
         if latents.shape[0] != NS:  # SB == 1: one table set per call
             return False

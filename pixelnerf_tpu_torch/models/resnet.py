@@ -32,7 +32,8 @@ class BatchNorm2d(nn.BatchNorm2d):
             return super().forward(x)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
-            var, mean = torch.var_mean(x.float(), dim=(0, 2, 3), unbiased=False)
+            stats_dtype = torch.promote_types(x.dtype, torch.float32)  # bf16 -> f32; f64 stays
+            var, mean = torch.var_mean(x.to(stats_dtype), dim=(0, 2, 3), unbiased=False)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
             self.num_batches_tracked.add_(1)

@@ -166,6 +166,33 @@ def _align_corners_interp_matrix(out_n: int, in_n: int) -> np.ndarray:
     return M
 
 
+def _linear_resize_matrix(out_n: int, in_n: int) -> np.ndarray:
+    """(out_n, in_n) weights of ``jax.image.resize(method="linear")`` along
+    one axis: a triangle kernel at half-pixel centres, widened by in / out
+    when downsampling (JAX antialiases), each row normalized."""
+    inv = in_n / out_n
+    sample = (np.arange(out_n, dtype=np.float64) + 0.5) * inv - 0.5
+    x = np.abs(sample[:, None] - np.arange(in_n, dtype=np.float64)[None, :]) / max(inv, 1.0)
+    w = np.maximum(0.0, 1.0 - x)
+    total = w.sum(axis=1, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(np.float32).eps,
+                 w / np.where(total != 0, total, 1.0), 0.0)
+    inside = (sample >= -0.5) & (sample <= in_n - 0.5)
+    return np.where(inside[:, None], w, 0.0).astype(np.float32)
+
+
+def resize_bilinear(feat: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
+    """Bilinear resize with half-pixel centres, as ``jax.image.resize(method=
+    "linear")``: ``F.interpolate(align_corners=False)`` when upsampling, and
+    antialiased (a triangle filter as wide as the ratio) when downsampling.
+    The fusion modules unify their scales with it.  feat: (B, H, W, C)."""
+    B, H, W, C = feat.shape
+    R = torch.from_numpy(_linear_resize_matrix(out_h, H)).to(feat.device, feat.dtype)
+    Cm = torch.from_numpy(_linear_resize_matrix(out_w, W)).to(feat.device, feat.dtype)
+    out = torch.einsum("hH,bHWc->bhWc", R, feat)
+    return torch.einsum("wW,bhWc->bhwc", Cm, out)
+
+
 def resize_bilinear_align_corners(feat: torch.Tensor, out_h: int, out_w: int) -> torch.Tensor:
     """Bilinear resize with align_corners=True (= ``F.interpolate``
     ``align_corners=True``), in the separable form of two small

@@ -128,13 +128,13 @@ class RenderPipeline:
 
     def _kernel_mlp(self, scene: EncodedScene) -> bool:
         impl = self.net.mlp_impl
-        return impl == "cuda" or (impl == "auto" and scene.latents.device.type == "cuda")
+        return impl == "cuda" or (impl == "auto" and scene.device.type == "cuda")
 
     def _table_scene(self, scene: EncodedScene) -> EncodedScene:
         if self._kernel_mlp(scene):
             # the kernels read bf16 features; storing the table in bf16 halves
             # its reads without changing the kernels' numerics
-            return dataclasses.replace(scene, latents=scene.latents.to(torch.bfloat16))
+            return scene.cast(torch.bfloat16)
         return scene
 
     def _field(self, scene: EncodedScene):
@@ -174,7 +174,7 @@ class RenderPipeline:
         # a conservative alpha threshold at the coarse step
         delta = float(np.mean(rays_np[:, 7] - rays_np[:, 6])) / max(self.renderer.cfg.n_coarse, 1)
         thresh = float(np.float32(eps_alpha / max(delta, 1e-6)))
-        device = scene.latents.device
+        device = scene.device
         sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
         sync()
         t0 = time.perf_counter()
@@ -320,7 +320,7 @@ class RenderPipeline:
             self.renderer.base_cfg = dataclasses.replace(
                 self.renderer.base_cfg, accel_proposal_samples=self._gate_pristine_samples)
         base_cfg = self.renderer.base_cfg
-        device = scene.latents.device if scene is not None else torch.device("cpu")
+        device = scene.device if scene is not None else torch.device("cpu")
 
         def render():
             return self.render_simple(scene, gate_rays,
@@ -401,7 +401,7 @@ class RenderPipeline:
         """
         if pack not in ("f32", "u8"):
             raise ValueError(f"pack must be 'f32' or 'u8', got {pack!r}")
-        device = scene.latents.device
+        device = scene.device
         rays = torch.as_tensor(np.asarray(rays) if not torch.is_tensor(rays) else rays,
                                dtype=torch.float32).to(device)
         scene = self._table_scene(scene)

@@ -4,10 +4,11 @@
   on the host with numpy (bbox-guided until ``no_bbox_step``, or a
   mask-guided foreground fraction) -- bit-equal to the JAX function for the
   same ``np.random.Generator``;
-* :func:`make_step_fns`: the train and eval steps.  The encoder runs in train
-  mode (batch statistics); with AMP the field sees bf16 copies of the f32
-  parameters and a bf16 latent map, and the gradients reach the f32 masters
-  through the casts.  On the plain route the copies go in through
+* :func:`make_step_fns`: the train and eval steps.  The encoder and the
+  fusion stack run in train mode (batch statistics; the fusion's dropout
+  drawn from the step's generator); with AMP the field sees bf16 copies of
+  the f32 parameters and bf16 latent maps, and the gradients reach the f32
+  masters through the casts.  On the plain route the copies go in through
   ``torch.func.functional_call``; on the kernel route the field's autograd
   Function packs them for the kernels.  ``grad_norm`` is the global norm of
   the raw gradients;
@@ -239,11 +240,11 @@ def make_step_fns(net: PixelNeRFNet, optimizer: Optimizer, render_cfg: Callable[
                      noise_scale=None):
         cfg = dataclasses.replace(render_cfg(), eval_batch_size=0)
         scene = net.encode(batch["src_images"], batch["src_poses"], batch["focal"],
-                           c=batch.get("c"), train=training)
+                           c=batch.get("c"), train=training, generator=generator)
         if amp:
             fparams = {n: p.to(torch.bfloat16) for n, p in net.named_parameters()
                        if n.startswith(FIELD_HEADS)}
-            scene_f = dataclasses.replace(scene, latents=scene.latents.to(torch.bfloat16))
+            scene_f = scene.cast(torch.bfloat16)
             field_dtype = torch.bfloat16
         else:
             fparams, scene_f, field_dtype = None, scene, None

@@ -8,6 +8,13 @@
 * ``lin_z_k`` -> ``lin_z.k``, ``blocks_k/fc_0`` -> ``blocks.k.fc_0``,
   ``layer1_0/conv1`` -> ``layer1.0.conv1``, ``downsample_conv`` / ``downsample_bn``
   -> ``downsample.0`` / ``downsample.1``
+* ``feature_fusion``: the inverse of ``convert_pixelnerf``'s ``_FUSION_RULES``
+  onto the reference names (``proj_i`` -> ``projections.i.0``, ``proj_bn_i``
+  -> ``projections.i.1``, ``channel_attn`` -> ``channel_attention.1``, ...),
+  a Dense kernel (I, O) of a 1 x 1 convolution -> (O, I, 1, 1)
+* ``adaptive_sampler``: ``quality_fc1_i`` / ``quality_fc2_i`` ->
+  ``quality_fc1.i`` / ``quality_fc2.i`` (Linear layers; the reference
+  converter has no rule for them)
 """
 
 from __future__ import annotations
@@ -21,8 +28,32 @@ import numpy as np
 import torch
 
 _LAYER = re.compile(r"^layer(\d+)_(\d+)$")
-_INDEXED = re.compile(r"^(lin_z|scale_z|blocks)_(\d+)$")
+_INDEXED = re.compile(r"^(lin_z|scale_z|blocks|quality_fc1|quality_fc2)_(\d+)$")
 _RENAMED = {"downsample_conv": "downsample.0", "downsample_bn": "downsample.1"}
+# the fusion stack's flax modules (under ``feature_fusion``, "/"-joined) ->
+# (reference module, whether a flax Dense kernel there is a 1 x 1 convolution)
+_FUSION = [
+    (re.compile(r"^proj_(\d+)$"), r"projections.\1.0", True),
+    (re.compile(r"^proj_bn_(\d+)$"), r"projections.\1.1", False),
+    (re.compile(r"^channel_attn$"), "channel_attention.1", True),
+    (re.compile(r"^spatial_attn$"), "spatial_attention.0", False),
+    (re.compile(r"^fusion_conv$"), "fusion.0", False),
+    (re.compile(r"^fusion_bn$"), "fusion.1", False),
+    (re.compile(r"^cbam/channel_attn/fc1$"), "cbam.channel_attn.fc.0", True),
+    (re.compile(r"^cbam/channel_attn/fc2$"), "cbam.channel_attn.fc.2", True),
+    (re.compile(r"^cbam/spatial_attn/conv$"), "cbam.spatial_attn.conv", False),
+    (re.compile(r"^enhancement$"), "enhancement.0", True),
+]
+
+
+def _fusion_path(path):
+    """('cbam', 'channel_attn', 'fc1') -> ('cbam.channel_attn.fc.0', True)"""
+    flat = "/".join(path)
+    for rx, name, conv1x1 in _FUSION:
+        m = rx.match(flat)
+        if m:
+            return m.expand(name), conv1x1
+    raise ValueError(f"unknown feature_fusion module {flat!r}")
 
 
 def _module_path(path) -> str:
@@ -49,7 +80,7 @@ def _leaves(tree: Mapping, path=()):
             yield path + (k,), np.asarray(v)
 
 
-_TOP = ("encoder", "mlp_coarse", "mlp_fine")
+_TOP = ("encoder", "mlp_coarse", "mlp_fine", "feature_fusion", "adaptive_sampler")
 
 
 def from_jax_variables(variables_np: Mapping) -> Dict[str, torch.Tensor]:
@@ -62,14 +93,20 @@ def from_jax_variables(variables_np: Mapping) -> Dict[str, torch.Tensor]:
                 raise NotImplementedError(
                     f"JAX variables under {path[0]!r}: not ported yet (ROADMAP.md)"
                 )
-            mod, leaf = _module_path(path[:-1]), path[-1]
+            leaf, conv1x1 = path[-1], False
+            if path[0] == "feature_fusion":
+                mod, conv1x1 = _fusion_path(path[1:-1])
+                mod = "feature_fusion." + mod
+            else:
+                mod = _module_path(path[:-1])
             if coll == "batch_stats":
                 name = {"mean": "running_mean", "var": "running_var"}[leaf]
                 sd[f"{mod}.{name}"] = torch.from_numpy(value.copy())
                 sd.setdefault(f"{mod}.num_batches_tracked", torch.tensor(0, dtype=torch.long))
             elif leaf == "kernel":
                 perm = (3, 2, 0, 1) if value.ndim == 4 else (1, 0)
-                sd[f"{mod}.weight"] = torch.from_numpy(np.ascontiguousarray(value.transpose(perm)))
+                w = np.array(value.transpose(perm), order="C")
+                sd[f"{mod}.weight"] = torch.from_numpy(w[:, :, None, None] if conv1x1 else w)
             elif leaf == "scale":
                 sd[f"{mod}.weight"] = torch.from_numpy(value.copy())
             elif leaf == "bias":
