@@ -133,8 +133,11 @@ one line each:
     at ``-P "0"``, ``"0 1"`` and ``"0 1 2"`` (4 frames: a gate trail, PNG
     frames, the gather, multi-view gather and multi-view dense kernel) and
     ``eval --accel proposal``
-    beside ``--accel off`` on that object, in-process on a checkpoint of
-    the trained field; last, the first call of every forward kernel at
+    beside ``--accel off --write_depth`` on that object, in-process on a
+    checkpoint of the trained field (each target view's ``_depth.npy``
+    finite, at most 1, in [0, 1] where a dense render of the same views is
+    opaque, >= 0.99, and its ``_depth_norm.png`` the HOT colormap of it);
+    last, the first call of every forward kernel at
     every point count those paths made (the build's chunks, the dense and
     compacted passes, the CLIs' passes) is replayed: bit for bit the
     path's own output, and against its plain version at the bar of 3;
@@ -158,6 +161,30 @@ one line each:
     and 5b launching twice a step; ``eval -P "0"`` and ``gen_video`` (4
     frames, ``--accel_mode auto``) on its checkpoint through the gather
     kernel; last, every first forward-kernel call of those renders and CLIs,
+    replayed against its plain version at the bar of 3;
+15. eval CLIs, in-process on the fixtures of 10, each with its wall
+    seconds, rays/s, peak memory and launches on a line of its own:
+    ``python -m pixelnerf_tpu_torch.eval.eval_approx`` on ``-F dvr`` (4
+    objects, ``--batch_size 4``) from ``-P "0"`` and ``-P "0 1"`` with
+    ``PIXELNERF_DEFER_CODE=1`` (the gather kernels' code variants; finite
+    metrics, no target view among the sources); ``.eval_real`` at
+    ``conf/exp/srn.conf``'s width (first pool on) on a 300 x 400 RGBA
+    ``*_normalize.png`` (the DTU fixture's first view), shrunk to 256 x 341
+    by the Pillow-style resize (``--size 256``), a 64 x 86 x 512 map: a
+    5504-row table over the fused-gather cap, so the dense kernel's code
+    variant, 24 frames of 128 x 128 with ``--accel_mode off`` and ``auto``
+    on the render phases'
+    weights with each head's density shifted to leave 1/32 of frame 0's
+    points occupied (the grid must be kept and the gate run); ``eval -c
+    conf/exp/dtu.conf -F dvr_dtu -P "25 22 28" --scale 1`` on one scan's 4
+    target views of 300 x 400 (the multi-view dense kernel; finite metrics
+    and the journal of 12's quarter-size run); ``eval -F dvr --multicat
+    --write_depth`` on one NMR object (23 ``_depth.npy`` and
+    ``_depth_norm.png``, the PNG the HOT colormap of the ``.npy``, depth at
+    most 1); ``.calc_metrics`` over both eval outputs with seeded LPIPS
+    weights in the ``lpips`` package's layout (map and reduce, finite
+    metrics), and LPIPS's ms a batch of 32 at 64 x 64 and a 300 x 400
+    pair; after each CLI, its first forward-kernel call at each point count
     replayed against its plain version at the bar of 3.
 
 The line before the last is the kernels' JSON record; the last line is
@@ -889,6 +916,46 @@ def coarse_foreground(pipe, scene, rays: torch.Tensor, generator) -> float:
     return foreground(out["coarse"]["rgb"][0])
 
 
+@torch.no_grad()
+def opacity(pipe, scene, rays: torch.Tensor, generator) -> torch.Tensor:
+    """The fine head's accumulated opacity a ray, dense, on ``rays``."""
+    import dataclasses
+
+    from pixelnerf_tpu_torch.render.renderer import render_rays
+
+    cfg = dataclasses.replace(pipe.renderer.cfg, eval_batch_size=0)
+    out = render_rays(pipe._field(pipe._table_scene(scene)), rays[None], cfg, generator,
+                      want_weights=True, use_viewdirs=pipe.use_viewdirs)
+    return out["fine"]["weights"][0].sum(-1)
+
+
+def depth_on_foreground(out_dir: str, opaque) -> dict:
+    """``eval --write_depth``'s files in ``out_dir`` for target views 1, 2,
+    ...: each ``_depth.npy`` finite, at most 1 (a depth is at most z_far)
+    and in [0, 1] where ``opaque`` (views, H, W) holds (where the field is
+    opaque, the depth lies in [z_near, z_far]), and its ``_depth_norm.png``
+    the HOT colormap of it."""
+    import numpy as np
+
+    from pixelnerf_tpu_torch.utils.metrics import cmap
+    from pixelnerf_tpu_torch.utils.png import read_png
+
+    lo, hi, n_fg, files_ok = math.inf, -math.inf, 0, True
+    for i, fg in enumerate(opaque):
+        base = os.path.join(out_dir, f"{i + 1:06}")
+        if not (os.path.exists(base + "_depth.npy") and os.path.exists(base + "_depth_norm.png")):
+            return {"views": len(opaque), "missing": base, "ok": False}
+        d = np.load(base + "_depth.npy")
+        if fg.any():
+            lo, hi = min(lo, float(d[fg].min())), max(hi, float(d[fg].max()))
+        n_fg += int(fg.sum())
+        files_ok = files_ok and bool(np.isfinite(d).all() and d.max() <= 1.0 + 1e-6 and np.array_equal(
+            read_png(base + "_depth_norm.png"), cmap(d)))
+    return {"views": len(opaque), "opaque_pixels": n_fg, "depth_where_opaque": [lo, hi],
+            "finite_and_png_is_cmap_of_npy": files_ok,
+            "ok": files_ok and n_fg > 0 and 0.0 <= lo and hi <= 1.0}
+
+
 def accel_phase(conf, dev, smi: str, records: dict, code_records: dict) -> None:
     """Phase 13: the occupancy accel on a quick-trained sn64 field (see the
     module docstring)."""
@@ -905,6 +972,7 @@ def accel_phase(conf, dev, smi: str, records: dict, code_records: dict) -> None:
     from pixelnerf_tpu_torch.render.accel import probe_lookup
     from pixelnerf_tpu_torch.render.rays import sample_coarse
     from pixelnerf_tpu_torch.train import checkpoints
+    from pixelnerf_tpu_torch.utils import geometry
 
     # the object of `-F synthetic --split train -S 0`, which the CLIs read
     ds = SyntheticDataset(n_objs=1, n_views=8, image_size=FRAME, seed=0)
@@ -1194,18 +1262,30 @@ def accel_phase(conf, dev, smi: str, records: dict, code_records: dict) -> None:
                 torch.cuda.synchronize()
                 rf.reset_launches()
                 t0 = time.perf_counter()
-                res = eval_main(base + ["-P", "0", "--max_objs", "1", "-O", out, "--accel", accel])
+                res = eval_main(base + ["-P", "0", "--max_objs", "1", "-O", out, "--accel", accel]
+                                + (["--write_depth"] if accel == "off" else []))
                 torch.cuda.synchronize()
                 evals_[accel] = (res, dict(rf.LAUNCHES), time.perf_counter() - t0)
+            # where the field is opaque (>= 0.99) on the eval's target views 1-7
+            views = torch.from_numpy(geometry.gen_rays_np(
+                sample["poses"][1:], FRAME, FRAME, sample["focal"], ds.z_near, ds.z_far)).to(dev)
+            opaque = opacity(pipe, scene, views.reshape(-1, 8), gen()).reshape(-1, FRAME, FRAME)
+            depth_fg = depth_on_foreground(os.path.join(tmp, "eval_off", "0"),
+                                           (opaque >= 0.99).cpu().numpy())
             (off, la_off, t_off), (on, la_on, t_on) = evals_["off"], evals_["proposal"]
             log(f"accel phase: python -m pixelnerf_tpu_torch.eval.eval -F synthetic --split train -P "
                 f"\"0\" --max_objs 1: --accel off psnr {off['psnr']:.4f} ssim {off['ssim']:.4f} in "
                 f"{t_off:.3f} s; --accel proposal (fast build, gate on the first target view) gate "
                 f"{on['gates']} psnr {on['psnr']:.4f} ssim {on['ssim']:.4f} in {t_on:.3f} s; "
                 f"launches off {la_off}, proposal {la_on}")
+            log(f"accel phase: eval --accel off --write_depth (the depth where a dense render of "
+                f"the same views has opacity >= 0.99): {depth_fg}")
             if not (len(on["gates"]) == 1 and math.isfinite(on["psnr"]) and math.isfinite(on["ssim"])
                     and math.isfinite(off["psnr"]) and la_on["resnetfc_fwd_gather"] > 0):
                 raise SystemExit("accel phase: eval --accel proposal ran no gate or gave no metrics")
+            if not depth_fg["ok"]:
+                raise SystemExit("accel phase: eval --write_depth wrote no depth or a depth out of "
+                                 "[0, 1] where the field is opaque")
     del os.environ["PIXELNERF_ALLOW_RANDOM_BACKBONE"]
 
     # ---- every forward kernel call of the paths above against its plain version ----
@@ -1558,6 +1638,263 @@ def multiscale_phase(conf, net, src3, rays, dev, smi, records, code_records, nmr
     log(f"multiscale: phase done in {time.perf_counter() - t_phase:.1f} s; frame 0 rays/s in "
         f"turns (sn64, multiscale): "
         + json.dumps({k: [round(a, 1), round(b, 1)] for k, (a, b) in turns.items()}))
+
+
+# phase 15: the remaining eval CLIs at full width on the fixtures
+REAL_CONF = "conf/exp/srn.conf"  # ResNet34 with its first pool: the map is a quarter of the input
+REAL_VIEWS, REAL_SIZE = 24, 128  # eval_real's default frames: 24 of 128 x 128
+# the input's shorter side: 256 gives a 64 x 86 x 512 map, 5504 rows, over
+# the fused-gather cap (the default 128 gives 32 x 43, 1376 rows, under it)
+REAL_INPUT = 256
+REAL_KEEP = 1 / 32  # the shaped field's occupied share of frame 0's points
+LPIPS_SEED = 3
+
+
+@torch.no_grad()
+def shape_density(net, scene, rays: torch.Tensor, keep: float, n_samples: int = 64) -> dict:
+    """Shift each head's density (``lin_out``'s sigma bias) so that ``keep``
+    of the evenly spaced points along ``rays`` are occupied: a seeded field
+    with an object's empty space, which the occupancy grid can prune.
+    Returns each head's threshold on the raw density.  (Steepening the
+    density too, by scaling the sigma row, put the bf16 kernels' output
+    past the per-kernel bar: the row's scale multiplies their input
+    rounding, and the shift shrinks the range the bar is relative to.)"""
+    t = torch.linspace(0.0, 1.0, n_samples, device=rays.device)
+    z = rays[:, 6:7] + (rays[:, 7:8] - rays[:, 6:7]) * t
+    pts = (rays[:, None, :3] + z[..., None] * rays[:, None, 3:6]).reshape(-1, 3)
+    dirs = rays[:, None, 3:6].expand(-1, n_samples, -1).reshape(-1, 3)
+    thresh = {}
+    for name, head, coarse in (("coarse", net.mlp_coarse, True), ("fine", net.mlp_fine, False)):
+        b = head.lin_out.bias
+        b[3] += 1e3  # every raw density through the relu
+        raw = torch.cat([net.query(scene, p[None], d[None], coarse=coarse)[0, :, 3]
+                         for p, d in zip(pts.split(1 << 18), dirs.split(1 << 18))]) - 1e3
+        thresh[name] = float(torch.quantile(raw, 1.0 - keep))
+        b[3] -= 1e3 + thresh[name]
+    return thresh
+
+
+def eval_cli_phase(net, dev, smi: str, records: dict, code_records: dict, nmr_root: str,
+                   dtu_root: str) -> None:
+    """Phase 15: ``eval_approx``, ``eval_real``, the DTU eval at full size,
+    ``eval --write_depth`` and ``calc_metrics`` with LPIPS (see the module
+    docstring)."""
+    import types
+
+    import numpy as np
+
+    from pixelnerf_tpu_torch import entry
+    from pixelnerf_tpu_torch.eval import calc_metrics
+    from pixelnerf_tpu_torch.eval import eval_real as er
+    from pixelnerf_tpu_torch.eval.eval import main as eval_main
+    from pixelnerf_tpu_torch.eval.eval_approx import main as approx_main
+    from pixelnerf_tpu_torch.eval.lpips import lpips_fn, seeded_state
+    from pixelnerf_tpu_torch.models.pixelnerf import make_model
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.train import checkpoints
+    from pixelnerf_tpu_torch.utils.metrics import cmap
+    from pixelnerf_tpu_torch.utils.png import read_png, write_png
+
+    t_phase = time.perf_counter()
+    by_kernel = {}  # kernel variant -> {run: launches}
+    replay = []  # (run, variant, points, max|d|, bar, corr, bit for bit, ok)
+    restore = _env({"PIXELNERF_ALLOW_RANDOM_BACKBONE": "1"})  # no backbone weights here
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_eval_")
+    try:
+        ck = os.path.join(tmp.name, "ck")
+        checkpoints.save_weights(types.SimpleNamespace(checkpoints_path=ck, name="chip_smoke"),
+                                 net)
+
+        def run(label, main_fn, argv, n_rays, defer, want):
+            """One CLI in-process; its wall seconds, rays/s and peak memory
+            on a line of their own; then the first forward-kernel call at
+            each point count it made, replayed (one run's calls held at a
+            time: the dense routes' latents take GBs)."""
+            env = _env({"PIXELNERF_DEFER_CODE": "1"} if defer else {})
+            calls = ForwardCalls(rf)
+            try:
+                torch.cuda.synchronize()
+                torch.cuda.reset_peak_memory_stats()
+                rf.reset_launches()
+                t0 = time.perf_counter()
+                with calls:
+                    res = main_fn(argv)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            finally:
+                env()
+            la = {k: v for k, v in rf.LAUNCHES.items() if v}
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            log(f"eval CLIs: {label}: {dt:.3f} s wall, {n_rays} rays = {n_rays / dt:.1f} rays/s; "
+                f"peak memory {peak:.2f} GiB; launches {la}; on {smi}")
+            if not (la.get(want, 0) > 0 and set(la) <= {want}):
+                raise SystemExit(f"eval CLIs: {label} did not run through {want} alone: {la}")
+            by_kernel.setdefault(want, {})[label] = la[want]
+            replay.extend((label,) + row for row in calls.check())
+            return res, dt
+
+        # ---- eval_approx on the NMR fixture: one random target view an object ----
+        for source, want in (("0", "resnetfc_fwd_gather_code"),
+                             ("0 1", "resnetfc_fwd_gather_mv_code")):
+            res, _ = run(f"eval_approx -P \"{source}\"", approx_main,
+                         ["-n", "chip_smoke", "-c", "conf/exp/sn64.conf", "-F", "dvr", "-D",
+                          nmr_root, "--split", "train", "-P", source, "--batch_size", "4",
+                          "--checkpoints_path", ck, "-R", str(EVAL_RAYS)],
+                         (NMR_OBJS - 2) * FRAME * FRAME, True, want)
+            log(f"eval CLIs: eval_approx -P \"{source}\" --batch_size 4 on -F dvr train "
+                f"(objects, source views, target view, psnr, ssim): "
+                + json.dumps([(os.path.basename(o[0]), o[1], o[2], round(o[3], 4), round(o[4], 4))
+                              for o in res["objects"]]) + f"; final psnr {res['psnr']:.4f} ssim "
+                f"{res['ssim']:.4f}")
+            if not (res["cnt"] == NMR_OBJS - 2 and all(
+                    o[2] not in o[1] and math.isfinite(o[3]) and math.isfinite(o[4])
+                    for o in res["objects"])):
+                raise SystemExit(f"eval CLIs: eval_approx -P {source!r} gave no metrics or "
+                                 "rendered a source view")
+
+        # ---- eval_real at srn.conf's width: a non-square RGBA input, shrunk ----
+        inp = os.path.join(tmp.name, "real_in")
+        os.makedirs(inp)
+        photo = read_png(os.path.join(dtu_root, "scan1", "image", "000000.png"))[..., :3]
+        rgba = np.concatenate([photo, np.full(photo.shape[:2] + (1,), 255, np.uint8)], -1)
+        write_png(os.path.join(inp, "scan1_normalize.png"), rgba)
+        real_conf = entry.load_conf(pretrained=False, path=REAL_CONF)
+        shaped = make_model(real_conf["model"], mlp_impl="torch", device=dev)
+        shaped.load_state_dict(net.state_dict())
+        image = er.encoder_input(os.path.join(inp, "scan1_normalize.png"), REAL_INPUT)
+        focal, radius, z_near, z_far = 131.25, 1.3, 0.8, 1.8  # eval_real's defaults
+        cam = np.eye(4, dtype=np.float32)
+        cam[2, 3] = radius
+        with torch.no_grad():
+            scene = shaped.encode(
+                torch.as_tensor(image.astype(np.float32) / 255.0 * 2.0 - 1.0, device=dev)[None, None],
+                torch.as_tensor(cam, device=dev)[None, None], focal)
+        rays0 = torch.from_numpy(er.spherical_rays(1, 0.0, radius, REAL_SIZE, REAL_SIZE, focal,
+                                                   z_near, z_far)).to(dev)
+        thresh = shape_density(shaped, scene, rays0, REAL_KEEP)
+        checkpoints.save_weights(types.SimpleNamespace(checkpoints_path=ck, name="srn_car"),
+                                 shaped)
+        log(f"eval CLIs: eval_real's field: the render phases' weights under {REAL_CONF} (first "
+            f"pool on: the {image.shape[0]} x {image.shape[1]} input, from {photo.shape[0]} x "
+            f"{photo.shape[1]} by the Pillow-style bilinear shrink, gives a "
+            f"{scene.latents.shape[-3]} x {scene.latents.shape[-2]} x {scene.latents.shape[-1]} "
+            f"map, a {scene.latents.shape[-3] * scene.latents.shape[-2]}-row table), each head's "
+            f"density shifted to leave {REAL_KEEP:g} of frame 0's points occupied (raw "
+            f"thresholds {json.dumps(thresh)})")
+        del shaped, scene
+        n_real = REAL_VIEWS * REAL_SIZE * REAL_SIZE
+        real = {}
+        for mode in ("off", "auto"):
+            out = os.path.join(tmp.name, "real_out_" + mode)
+            res, dt = run(f"eval_real --accel_mode {mode}", er.main,
+                          ["-c", REAL_CONF, "--checkpoints_path", ck, "-I", inp, "-O", out,
+                           "--size", str(REAL_INPUT), "--out_size", str(REAL_SIZE), "--num_views",
+                           str(REAL_VIEWS), "--accel_mode", mode, "--no_vid"], n_real, True,
+                          "resnetfc_fwd_dense_code")
+            (r,) = res["inputs"]
+            frames = sorted(os.listdir(r["frame_dir"]))
+            real[mode] = r
+            log(f"eval CLIs: eval_real --accel_mode {mode} (-c {REAL_CONF} --size {REAL_INPUT}, "
+                f"{REAL_VIEWS} frames of {REAL_SIZE} x {REAL_SIZE}): encoder input {r['encoder_input'].shape}, accel "
+                f"{r['accel']}, {len(frames)} PNG frames, foreground "
+                f"{foreground(torch.from_numpy(r['frames']).float() / 255.0):.4f}")
+            if not (len(frames) == REAL_VIEWS and r["frames"].shape == (REAL_VIEWS, REAL_SIZE,
+                                                                         REAL_SIZE, 3)
+                    and r["encoder_input"].shape == image.shape):
+                raise SystemExit(f"eval CLIs: eval_real --accel_mode {mode} wrote no frames")
+        if real["auto"]["accel"] is None or real["auto"]["accel"][1] is None:
+            raise SystemExit("eval CLIs: eval_real --accel_mode auto built no grid or ran no gate")
+        d = np.abs(real["auto"]["frames"].astype(int) - real["off"]["frames"].astype(int))
+        log(f"eval CLIs: eval_real auto against off, the same frames: max |d| {d.max()} u8 "
+            f"levels, mean {d.mean():.4f} (each from its own draws)")
+
+        # ---- eval: the DTU scan at full size, and --write_depth on an NMR object ----
+        views = os.path.join(tmp.name, "dtu_views.txt")
+        with open(views, "w") as f:
+            f.write(" ".join(map(str, DTU_EVAL_VIEWS)) + "\n")
+        evals = {}
+        for label, argv, n_rays, want in (
+                ("eval -F dvr_dtu --scale 1", ["-c", "conf/exp/dtu.conf", "-F", "dvr_dtu", "-D",
+                                               dtu_root, "--split", "val", "-P", "25 22 28",
+                                               "--scale", "1", "--eval_view_list", views],
+                 len(DTU_EVAL_VIEWS) * DTU_SIZE[0] * DTU_SIZE[1], "resnetfc_fwd_dense_mv"),
+                ("eval -F dvr --write_depth", ["-c", "conf/exp/sn64.conf", "-F", "dvr", "-D",
+                                               nmr_root, "--split", "test", "-P", "0",
+                                               "--multicat", "--write_depth"],
+                 (NMR_VIEWS - 1) * FRAME * FRAME, "resnetfc_fwd_gather")):
+            out = os.path.join(tmp.name, "eval_" + argv[3])
+            res, dt = run(label, eval_main, ["-n", "chip_smoke", "--checkpoints_path", ck,
+                                             "--max_objs", "1", "-O", out, "-R", str(EVAL_RAYS)]
+                          + argv, n_rays, False, want)
+            with open(os.path.join(out, "finish.txt")) as f:
+                journal = [ln.split() for ln in f.read().splitlines()]
+            evals[argv[3]] = (res, out)
+            log(f"eval CLIs: {label}: {res['objects']}; finish.txt {journal}")
+            if not (len(journal) == 1 and len(journal[0]) == 4 and journal[0][3] == "1"
+                    and all(math.isfinite(float(v)) for v in journal[0][1:3])
+                    and res["cnt"] == 1):
+                raise SystemExit(f"eval CLIs: {label} gave no finite metrics or no journal")
+        res, out = evals["dvr"]
+        obj_dir = os.path.join(out, res["objects"][0][0])
+        depth_views = sorted(f_[:6] for f_ in os.listdir(obj_dir) if f_.endswith("_depth.npy"))
+        worst = max(float(np.load(os.path.join(obj_dir, v + "_depth.npy")).max())
+                    for v in depth_views)
+        png_ok = all(np.array_equal(read_png(os.path.join(obj_dir, v + "_depth_norm.png")),
+                                    cmap(np.load(os.path.join(obj_dir, v + "_depth.npy"))))
+                     for v in depth_views)
+        log(f"eval CLIs: --write_depth: {len(depth_views)} views with _depth.npy and "
+            f"_depth_norm.png, the PNG the HOT map of the .npy {png_ok}, max normalized depth "
+            f"{worst:.6f} (<= 1: a depth is at most z_far)")
+        if not (len(depth_views) == NMR_VIEWS - 1 and png_ok and worst <= 1.0 + 1e-6):
+            raise SystemExit("eval CLIs: --write_depth wrote a wrong or missing depth")
+
+        # ---- calc_metrics with LPIPS over both eval outputs, and LPIPS's time ----
+        weights = os.path.join(tmp.name, "lpips_vgg.pth")
+        torch.save(seeded_state(LPIPS_SEED), weights)
+        for fmt, root, out, extra in (("dvr", nmr_root, evals["dvr"][1], ["--multicat", "-P", "0"]),
+                                      ("dvr_dtu", dtu_root, evals["dvr_dtu"][1],
+                                       ["-P", "25 22 28", "--dtu_sort"])):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = calc_metrics.main(["-D", root, "-F", fmt, "-O", out, "--lpips_weights", weights]
+                                    + extra)
+            dt = time.perf_counter() - t0
+            log(f"eval CLIs: calc_metrics -F {fmt} {' '.join(extra)} (seeded LPIPS weights): "
+                f"{dt:.3f} s; map {[(os.path.basename(d_), v, n) for d_, v, n in res['objects']]}; "
+                f"all_metrics.txt {res['all_metrics']!r}")
+            if not (len(res["objects"]) == 1 and all(math.isfinite(v) for v in
+                                                     res["objects"][0][1].values())
+                    and res["all_metrics"] and "nan" not in res["all_metrics"]):
+                raise SystemExit(f"eval CLIs: calc_metrics -F {fmt} gave no finite metrics")
+        lp = lpips_fn(weights, device=dev).model
+        gl = torch.Generator(device=dev).manual_seed(LPIPS_SEED)
+        lpips_ms = {}
+        with torch.no_grad():
+            for label, shape in (("a batch of 32 at 64 x 64", (32, FRAME, FRAME, 3)),
+                                 ("a pair at 300 x 400", (1,) + DTU_SIZE + (3,))):
+                a = torch.rand(shape, device=dev, generator=gl) * 2 - 1
+                b = (a + 0.1 * torch.randn(shape, device=dev, generator=gl)).clamp(-1, 1)
+                lpips_ms[label] = cuda_ms(lambda: lp(a, b), 5)
+        log("eval CLIs: LPIPS (VGG16, cuDNN convolutions in float32) ms: "
+            + json.dumps({k: round(v, 3) for k, v in lpips_ms.items()}) + f"; on {smi}")
+    finally:
+        restore()
+        tmp.cleanup()
+
+    # ---- every forward kernel call of those CLIs, replayed run by run ----
+    log("eval CLIs: the CLIs' kernel calls against their plain versions (max|d| <= 0.015 x "
+        "max(1, max|ref|), corr > 0.999, bit for bit the path's output): " + json.dumps(
+            [dict(run=r, kernel=v, points=n, max_abs_err=float(f"{d:.6g}"), bar=float(f"{b:.6g}"),
+                  corr=round(c, 7), same=same, ok=ok) for r, v, n, d, b, c, same, ok in replay]))
+    if not replay or not all(r[-1] for r in replay):
+        raise SystemExit("eval CLIs: a kernel disagrees with its plain version at a shape of the "
+                         "eval CLIs")
+    for _, v, _, d, *_ in replay:
+        rec = records[v] if v in records else code_records[v]
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), d)
+    for name, by_run in by_kernel.items():
+        (records[name] if name in records else code_records[name])["eval_cli_launches"] = by_run
+    log(f"eval CLIs: phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -2502,6 +2839,9 @@ def main() -> None:
         # ---- the multi-scale recipe (reads the NMR fixture) ----
         multiscale_phase(conf, net, src3, rays, dev, smi, records, code_records, nmr_root,
                          sn64_step_ms)
+
+        # ---- the remaining eval CLIs on the fixtures ----
+        eval_cli_phase(net, dev, smi, records, code_records, nmr_root, dtu_root)
     finally:
         data_dir.cleanup()
 

@@ -11,7 +11,11 @@ output's (H, W).  ``INTER_AREA`` is two different maps:
   last input edge it crosses: at an integer factor that weight is 0 and the
   map replicates pixels, as nearest does.
 
-Both are separable: a weight matrix for the rows and one for the columns."""
+Both are separable: a weight matrix for the rows and one for the columns.
+
+``resize_bilinear_pil`` is Pillow's ``Image.resize(..., BILINEAR)`` on
+uint8 RGB, bit for bit: its triangle filter, its fixed-point weights and
+its u8 rounding after each of its two passes."""
 
 from __future__ import annotations
 
@@ -102,3 +106,57 @@ def resize_nearest(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
     iy = np.minimum(np.floor(np.arange(Ho) * (1.0 / (Ho / H))).astype(np.int64), H - 1)
     ix = np.minimum(np.floor(np.arange(Wo) * (1.0 / (Wo / W))).astype(np.int64), W - 1)
     return img[iy][:, ix].copy()
+
+
+# Pillow's fixed-point resampling of 8-bit images: each coefficient is
+# scaled by 2^22 and rounded, sums start at half a unit, results clip to u8
+_PIL_PRECISION_BITS = 22
+
+
+@functools.lru_cache(maxsize=64)
+def _pil_bilinear_coeffs(n_in: int, n_out: int) -> np.ndarray:
+    """(n_out, n_in) int64 fixed-point weights of Pillow's BILINEAR filter:
+    a triangle whose support widens by the ratio when shrinking, over the
+    input pixels that Pillow's rounded bounds admit, renormalized a pixel."""
+    scale = n_in / n_out
+    filterscale = max(scale, 1.0)
+    support = filterscale  # the triangle's support is 1
+    w = np.zeros((n_out, n_in), np.int64)
+    for d in range(n_out):
+        center = (d + 0.5) * scale
+        lo = max(int(center - support + 0.5), 0)
+        hi = min(int(center + support + 0.5), n_in)
+        x = np.arange(lo, hi, dtype=np.float64)
+        k = np.maximum(0.0, 1.0 - np.abs((x - center + 0.5) / filterscale))
+        if k.sum() != 0.0:
+            k = k / k.sum()
+        w[d, lo:hi] = np.floor(0.5 + k * (1 << _PIL_PRECISION_BITS)).astype(np.int64)
+    w.flags.writeable = False
+    return w
+
+
+def _pil_pass(img: np.ndarray, w: np.ndarray, axis: int) -> np.ndarray:
+    """One separable pass along ``axis`` of an int64 (H, W, C) image, rounded
+    and clipped to u8 as Pillow does between and after its passes."""
+    out = np.moveaxis(np.tensordot(w, img, axes=(1, axis)), 0, axis)
+    return np.clip((out + (1 << (_PIL_PRECISION_BITS - 1))) >> _PIL_PRECISION_BITS, 0, 255)
+
+
+def resize_bilinear_pil(img: np.ndarray, size: Tuple[int, int]) -> np.ndarray:
+    """``PIL.Image.fromarray(img).resize((size[1], size[0]), Image.BILINEAR)``
+    on a uint8 (H, W, 3) RGB image -> uint8 (size[0], size[1], 3): the
+    horizontal pass first, each pass in Pillow's fixed point."""
+    img = np.asarray(img)
+    if img.dtype != np.uint8 or img.ndim != 3 or 0 in img.shape[:2]:
+        raise ValueError(f"resize_bilinear_pil takes an (H, W, C) uint8 image, got {img.dtype} "
+                         f"{img.shape}")
+    Ho, Wo = int(size[0]), int(size[1])
+    if Ho <= 0 or Wo <= 0:
+        raise ValueError(f"resize to a size with no pixels: {size}")
+    H, W = img.shape[:2]
+    out = img.astype(np.int64)
+    if Wo != W:
+        out = _pil_pass(out, _pil_bilinear_coeffs(W, Wo), 1)
+    if Ho != H:
+        out = _pil_pass(out, _pil_bilinear_coeffs(H, Ho), 0)
+    return out.astype(np.uint8)

@@ -29,8 +29,11 @@ the quality gate on the first target view (seed 11) before it renders.  On
 a CPU device the accel is ignored, with a warning, unless
 ``PIXELNERF_ACCEL_CPU_OK=1``; on the card it always runs when asked.
 
-Not ported yet (they raise, ROADMAP.md): ``--write_depth`` (its colormap)
-and more than one ``--gpu_id``.
+``--write_depth`` writes each view's depth, normalized as ``(d - z_near) /
+(z_far - z_near)``, as ``<view>_depth.npy`` (what the root CLI writes when
+its OpenCV has no EXR) and as ``<view>_depth_norm.png`` in the HOT colormap.
+
+Not ported yet (it raises, ROADMAP.md): more than one ``--gpu_id``.
 """
 
 from __future__ import annotations
@@ -61,7 +64,7 @@ def extra_args(parser):
                         help="Include source views in calculation")
     parser.add_argument("--scale", type=float, default=1.0, help="Render scale relative to input")
     parser.add_argument("--write_depth", action="store_true",
-                        help="Write depth image (not ported yet; raises)")
+                        help="Write depth image (.npy and a HOT-colormap PNG)")
     parser.add_argument("--write_compare", action="store_true", help="Write GT comparison image")
     parser.add_argument("--free_pose", action="store_true",
                         help="Poses may change between objects (regenerate rays per object)")
@@ -116,10 +119,6 @@ def main(argv=None) -> dict:
     if args.coarse and args.accel == "proposal":
         raise SystemExit("--accel proposal renders only the fine head; "
                          "it cannot be combined with --coarse")
-    if args.write_depth:
-        raise NotImplementedError(
-            "--write_depth (EXR depth and its colormap need OpenCV): not ported yet "
-            "(ROADMAP.md, slice 4)")
     device = resolve_device(args.device)
     use_accel = args.accel != "off"
     if (use_accel and device.type == "cpu"
@@ -256,8 +255,9 @@ def main(argv=None) -> dict:
                     trail = ", ".join(f"{k} {v:.1f} dB" for k, v in psnrs.items())
                     print(f"  accel gate: {trail} -> {label}")
                     gates.append((obj_name, label, psnrs))
-            all_rgb, _ = pipeline.render_simple(scene, all_rays, obj_gen,
-                                                ray_batch_size=args.ray_batch_size)
+            all_rgb, all_depth = pipeline.render_simple(scene, all_rays, obj_gen,
+                                                        ray_batch_size=args.ray_batch_size)
+            all_depth = ((all_depth - z_near) / (z_far - z_near)).reshape(n_gen_views, H, W)
             all_rgb = np.clip(all_rgb.reshape(n_gen_views, H, W, 3), 0.0, 1.0)
 
             obj_out_dir = os.path.join(output_dir, obj_name)
@@ -267,6 +267,10 @@ def main(argv=None) -> dict:
                     view = int(novel_view_idxs[i])
                     write_png(os.path.join(obj_out_dir, "{:06}.png".format(view)),
                               (all_rgb[i] * 255).astype(np.uint8))
+                    if args.write_depth:
+                        base = os.path.join(obj_out_dir, "{:06}".format(view))
+                        np.save(base + "_depth.npy", all_depth[i])
+                        write_png(base + "_depth_norm.png", metrics.cmap(all_depth[i]))
 
             curr_psnr = curr_ssim = 0.0
             if not args.no_compare_gt:

@@ -93,6 +93,25 @@ def dtu_spline_poses(num_views: int) -> np.ndarray:
     return poses
 
 
+def write_video(stem: str, frames: np.ndarray, fps: int, gif: bool = False):
+    """``stem.mp4`` (``stem.gif`` when asked or without ffmpeg) of (F, H, W,
+    3) uint8 frames through ``imageio``; None when ``imageio`` is not
+    installed."""
+    try:
+        import imageio.v2 as imageio
+    except ImportError:
+        print("imageio is not installed: the frames are the output")
+        return None
+    if not gif:
+        try:
+            imageio.mimwrite(stem + ".mp4", frames, fps=fps, quality=8)
+            return stem + ".mp4"
+        except Exception as e:  # no ffmpeg -> a gif
+            warnings.warn(f"mp4 write failed ({e}); writing gif instead")
+    imageio.mimwrite(stem + ".gif", frames, duration=1000.0 / fps)
+    return stem + ".gif"
+
+
 def main(argv=None) -> dict:
     """Render the video.  Returns ``{"frames": (F, H, W, 3) uint8,
     "frame_dir", "view", "video" (None without imageio), "accel": None |
@@ -214,19 +233,7 @@ def main(argv=None) -> dict:
     view_path = os.path.join(out_dir, "video" + vid_name + "_view.png")
     write_png(view_path, np.hstack(list(((images[src_view] * 0.5 + 0.5) * 255).astype(np.uint8))))
 
-    vid_path = os.path.join(out_dir, "video" + vid_name + ".mp4")
-    try:
-        import imageio.v2 as imageio
-    except ImportError:
-        print("imageio is not installed: the frames are the output")
-        vid_path = None
-    else:
-        try:
-            imageio.mimwrite(vid_path, frames_u8, fps=args.fps, quality=8)
-        except Exception as e:  # no ffmpeg -> a gif
-            warnings.warn(f"mp4 write failed ({e}); writing gif instead")
-            vid_path = vid_path[:-4] + ".gif"
-            imageio.mimwrite(vid_path, frames_u8, duration=1000.0 / args.fps)
+    vid_path = write_video(os.path.join(out_dir, "video" + vid_name), frames_u8, args.fps)
     print("Wrote to", vid_path or frame_dir, "view:", view_path)
     return {"frames": frames_u8, "frame_dir": frame_dir, "view": view_path, "video": vid_path,
             "accel": accel}

@@ -115,6 +115,17 @@ def pose_spherical(theta: float, phi: float, radius: float) -> np.ndarray:
     return _POSE_SPHERICAL_FLIP @ c2w
 
 
+def coord_from_blender(dtype=np.float32) -> np.ndarray:
+    """Blender -> standard (x right, y up, z out) coordinate transform, 4x4."""
+    return np.array([[1, 0, 0, 0], [0, 0, 1, 0], [0, -1, 0, 0], [0, 0, 0, 1]], dtype=dtype)
+
+
+def coord_to_blender(dtype=np.float32) -> np.ndarray:
+    """Standard -> Blender coordinate transform, 4x4 (the inverse of
+    :func:`coord_from_blender`)."""
+    return np.array([[1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]], dtype=dtype)
+
+
 def quat_to_rot(q: np.ndarray) -> np.ndarray:
     """Unit-normalized quaternions (B, 4) [r, i, j, k] -> rotation matrices
     (B, 3, 3), float32 (the DTU spline camera path of ``gen_video``)."""

@@ -3,7 +3,8 @@
 PSNR matches the reference ``util.psnr``.  SSIM follows
 ``skimage.metrics.structural_similarity``'s defaults (7x7 uniform window,
 K1 = 0.01, K2 = 0.03, sample covariance), averaged over channels, which is
-what the eval CLI reports.
+what the eval CLI reports.  ``cmap`` is OpenCV's HOT colormap as a numpy
+table.
 """
 
 from __future__ import annotations
@@ -62,7 +63,40 @@ def image_float_to_uint8(img: np.ndarray) -> np.ndarray:
     return ((img - vmin) / (vmax - vmin) * 255.0).astype(np.uint8)
 
 
-def cmap(img: np.ndarray, color_map: Optional[int] = None) -> np.ndarray:
-    """The HOT colormap of a float image: needs OpenCV, which the card's
-    machine does not have."""
-    raise NotImplementedError("cmap (the OpenCV colormap): not ported yet (ROADMAP.md, slice 4)")
+def _hot_table() -> np.ndarray:
+    """OpenCV's ``COLORMAP_HOT`` as a (256, 3) uint8 RGB table, built as
+    OpenCV builds it: 64 control points at ``linspace(0, 1, 64)`` (red
+    ``2.5x``, green ``2.5x - 1``, blue ``5x - 4``, each clipped to [0, 1]),
+    linearly interpolated in float32 to 256 levels and rounded half to
+    even after the scale by 255."""
+    def linspace(n):  # OpenCV's float32 x0 + i * step
+        return np.arange(n, dtype=np.float32) * np.float32(np.float32(1.0) / np.float32(n - 1))
+
+    X, xi = linspace(64), linspace(256)
+    x = np.arange(64, dtype=np.float64) / 63
+    ctrl = np.clip(np.stack([2.5 * x, 2.5 * x - 1, 5 * x - 4], axis=1), 0, 1).astype(np.float32)
+    hi = np.clip(np.searchsorted(X, xi, side="left"), 1, 63)
+    lo = hi - 1
+    y0, y1 = ctrl[lo], ctrl[hi]
+    num = ((xi - X[lo])[:, None] * (y1 - y0)).astype(np.float32)
+    out = y0 + num / (X[hi] - X[lo])[:, None]
+    return np.clip(np.rint(out * np.float32(255.0)), 0, 255).astype(np.uint8)
+
+
+HOT = _hot_table()
+HOT.flags.writeable = False
+
+
+def cmap(img: np.ndarray) -> np.ndarray:
+    """The HOT colormap of a float image -> (H, W, 3) uint8 RGB: what
+    ``cv2.applyColorMap(image_float_to_uint8(img), cv2.COLORMAP_HOT)`` gives,
+    with its channels flipped to RGB (for depth images).  A 3-channel image
+    is first taken to gray as OpenCV takes BGR to gray (15-bit fixed point,
+    channel 0 as blue)."""
+    u8 = image_float_to_uint8(img)
+    if u8.ndim == 3 and u8.shape[-1] == 3:
+        b, g, r = (u8[..., i].astype(np.int64) for i in range(3))
+        u8 = (b * 3735 + g * 19235 + r * 9798 + (1 << 14)) >> 15
+    elif u8.ndim == 3 and u8.shape[-1] == 1:
+        u8 = u8[..., 0]
+    return HOT[u8]

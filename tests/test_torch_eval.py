@@ -46,8 +46,11 @@ def test_psnr_ssim_match_jax(shape):
     assert metrics.psnr(a, a) == float("inf") and abs(metrics.ssim(a, a) - 1.0) <= 1e-6
     u = metrics.image_float_to_uint8(b)
     np.testing.assert_array_equal(u, jmetrics.image_float_to_uint8(b))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        metrics.cmap(b)
+    try:
+        import cv2  # noqa: F401  (the JAX cmap is OpenCV's)
+    except ImportError:
+        return
+    np.testing.assert_array_equal(metrics.cmap(b), jmetrics.cmap(b))
 
 
 def test_wire_formats_match_jax():
@@ -254,9 +257,8 @@ def test_eval_cli_on_per_view_intrinsics(tmp_path, monkeypatch):
 def test_eval_cli_refuses_what_is_not_ported(tmp_path):
     base = ["-F", "synthetic", "--checkpoints_path", str(tmp_path / "ck"), "--device", "cpu",
             "-c", "conf/exp/sn64.conf", "-O", str(tmp_path / "o")]
-    for extra, what in ((["--write_depth"], "OpenCV"), (["--gpu_id", "0 1"], "slice 7")):
-        with pytest.raises(NotImplementedError, match=what):
-            eval_main(base + extra)
+    with pytest.raises(NotImplementedError, match="slice 7"):
+        eval_main(base + ["--gpu_id", "0 1"])
     with pytest.raises(SystemExit, match="fine head"):
         eval_main(base + ["--accel", "proposal", "--coarse"])
 
