@@ -185,7 +185,26 @@ one line each:
     weights in the ``lpips`` package's layout (map and reduce, finite
     metrics), and LPIPS's ms a batch of 32 at 64 x 64 and a 300 x 400
     pair; after each CLI, its first forward-kernel call at each point count
-    replayed against its plain version at the bar of 3.
+    replayed against its plain version at the bar of 3;
+16. options: the route rule's Python mirrors of the kernels' limits against
+    what the libraries report; the fork's remaining model options built in
+    code from ``conf/exp/sn64.conf`` (seeded, random encoders): the global
+    encoder (ResNet34 of 5 stages, its 128-wide code before the 512-wide
+    pixel latent: C = 640) renders ring frame 0 from view 0 on the dense
+    kernel and from views (0, 1, 2) on the multi-view dense kernel, each
+    also with ``PIXELNERF_DEFER_CODE=1`` on its code variant; the ConvEncoder
+    (C = 128, a 4096-row map) and the nearest lookup from view 0 on the
+    dense kernel; ImplicitNet heads (5 x 512) and a d_hidden 256 tower on
+    the plain route with no launch, and the
+    narrow tower refused under ``impl='cuda'``; every render >= 40 dB against
+    the plain route and its kernel calls replayed against their plain
+    versions at the bar of 3; the dense and multi-view dense kernels and
+    their code variants at C = 640 (393,216 output points from 1 and 3
+    views) against their plain versions, timed in turns beside C = 512, with
+    their plain, cuBLAS and bound times; three ``-V 1`` train CLI steps with
+    the global encoder on the NMR fixture, on the plain field route (the
+    backward kernels take C = 512 only): no launch, finite losses, the
+    global encoder trained.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1897,6 +1916,256 @@ def eval_cli_phase(net, dev, smi: str, records: dict, code_records: dict, nmr_ro
     log(f"eval CLIs: phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 16: the fork's remaining model options at sn64's widths
+OPT_TRAIN_STEPS = 3  # -V 1 train CLI steps with the global encoder (the plain field route)
+
+
+def option_confs(base):
+    """sn64's conf (``base``, a parsed ``conf/exp/sn64.conf``) with each of
+    the fork's remaining options, built in code: the global encoder
+    (ResNet34, its code 128 before the 512-wide pixel latent: C = 640), the
+    ConvEncoder (C = 128), the nearest lookup, ImplicitNet heads (5 x 512,
+    the views' mean at layer 3), and a narrow tower (d_hidden 256, outside
+    the kernels' widths)."""
+    import copy
+
+    out = {}
+    for what in ("global", "conv", "nearest", "mlp", "narrow"):
+        c = copy.deepcopy(base)
+        if what == "global":
+            c.put("model.use_global_encoder", True)
+            c.put("model.global_encoder.pretrained", False)
+        elif what == "conv":
+            c.put("model.encoder.type", "conv")
+        elif what == "nearest":
+            c.put("model.encoder.index_interp", "nearest")
+        elif what == "mlp":
+            for head in ("mlp_coarse", "mlp_fine"):
+                c.put(f"model.{head}.type", "mlp")
+                c.put(f"model.{head}.dims", [512] * 5)
+                c.put(f"model.{head}.combine_layer", 3)
+        else:
+            for head in ("mlp_coarse", "mlp_fine"):
+                c.put(f"model.{head}.d_hidden", 256)
+        out[what] = c
+    return out
+
+
+def options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_root) -> None:
+    """Phase 16: the global encoder, the ConvEncoder, the nearest lookup,
+    ImplicitNet and a narrow tower at sn64's widths (see the module
+    docstring)."""
+    from pixelnerf_tpu_torch import entry
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
+    from pixelnerf_tpu_torch.train import main as train_main
+
+    t_phase = time.perf_counter()
+    mirrors = {"dense": (rf.dense_limits(), rf.TILE_LIMITS),
+               "data": (rv.data_limits(), rv.DATA_LIMITS),
+               "weights": (rv.kernel_limits(), rv.WEIGHT_LIMITS)}
+    log("options: the route rule's mirrors of the kernels' limits against the libraries' "
+        + json.dumps({k: [list(a), a == b] for k, (a, b) in mirrors.items()}))
+    if any(a != b for a, b in mirrors.values()):
+        raise SystemExit("options: a Python mirror of the kernels' limits is not the library's")
+    confs = option_confs(conf)
+    models = {}
+    g = torch.Generator().manual_seed(SEED + 1)
+    for what, c in confs.items():
+        for impl in ("auto", "torch"):
+            models[what, impl] = entry.build_model(c, dev, mlp_impl=impl, seed=SEED)
+        with torch.no_grad():
+            for mlp in (models[what, "auto"].mlp_coarse, models[what, "auto"].mlp_fine):
+                for blk in getattr(mlp, "blocks", ()):  # every block live
+                    blk.fc_1.weight.copy_(0.02 * torch.randn(blk.fc_1.weight.shape, generator=g))
+        models[what, "torch"].load_state_dict(models[what, "auto"].state_dict())
+    gl = models["global", "auto"]
+    log(f"options: from conf/exp/sn64.conf: global encoder (ResNet34, 5 stages, first pool, "
+        f"code {gl.global_encoder.latent_size}: C = {gl.d_latent}; "
+        f"{sum(p.numel() for p in gl.global_encoder.parameters())} parameters), ConvEncoder (C = "
+        f"{models['conv', 'auto'].d_latent}, {sum(p.numel() for p in models['conv', 'auto'].encoder.parameters())} "
+        f"parameters), nearest lookup, ImplicitNet heads (5 x 512), d_hidden 256; seeded, random "
+        f"encoders, ResnetFC fc_1 ~ N(0, 0.02^2)")
+
+    def frame0(model, c, s, views, env):
+        restore = _env(env)
+        try:
+            rf.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, _ = entry.render_ring(model, c, s, rays[:RAYS_PER_STEP],
+                                       torch.Generator(device=dev).manual_seed(SEED),
+                                       RAYS_PER_STEP, views=views)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0, {k: v for k, v in rf.LAUNCHES.items() if v}
+        finally:
+            restore()
+
+    code = {"PIXELNERF_DEFER_CODE": "1"}
+    # (option, source, views, env, the kernel its render must launch, or None: plain)
+    renders = [("global", src, (0,), {}, "resnetfc_fwd_dense"),
+               ("global", src, (0,), code, "resnetfc_fwd_dense_code"),
+               ("global", src3, (0, 1, 2), {}, "resnetfc_fwd_dense_mv"),
+               ("global", src3, (0, 1, 2), code, "resnetfc_fwd_dense_mv_code"),
+               ("conv", src, (0,), {}, "resnetfc_fwd_dense"),
+               ("nearest", src, (0,), {}, "resnetfc_fwd_dense"),
+               ("mlp", src, (0,), {}, None),
+               ("narrow", src, (0,), {}, None)]
+    opt_launches = {}
+    calls = ForwardCalls(rf)
+    with calls:
+        for what, s, views, env, kname in renders:
+            c = confs[what]
+            ref, _, la_ref = frame0(models[what, "torch"], c, s, views, env)
+            frame0(models[what, "auto"], c, s, views, env)  # warm: cuDNN's choice
+            out, sec, la = frame0(models[what, "auto"], c, s, views, env)
+            p = psnr(out, ref)
+            want = {kname} if kname else set()
+            ok = (set(la) == want and not la_ref and bool(torch.isfinite(out).all())
+                  and p >= 40.0)
+            label = f"{what}, views {list(views)}" + (", deferred code" if env else "")
+            if kname:
+                opt_launches.setdefault(kname, {})[f"frame 0, {label}"] = la[kname]
+            log(f"options render: {label}: frame 0 {sec:.4f} s = {RAYS_PER_STEP / sec:.1f} rays/s "
+                f"(encode included); launches {la} (want {sorted(want)}); vs the plain route "
+                f"{p:.3f} dB (need >= 40{'' if kname else '; both plain'}); on {smi}")
+            if not ok:
+                raise SystemExit(f"options render {label} failed, missed {kname} or disagrees "
+                                 "with the plain route")
+    rows = calls.check()
+    log("options: the renders' kernel calls against their plain versions (max|d| <= 0.015 x "
+        "max(1, max|ref|), corr > 0.999, bit for bit the render's output): " + json.dumps(
+            [dict(kernel=v, points=n, max_abs_err=float(f"{d:.6g}"), bar=float(f"{b:.6g}"),
+                  corr=round(cr, 7), same=same, ok=ok) for v, n, d, b, cr, same, ok in rows]))
+    if not rows or not all(r[-1] for r in rows):
+        raise SystemExit("options: a kernel disagrees with its plain version")
+    del calls
+
+    # the narrow tower under cuda: the route refuses it rather than launching
+    narrow = models["narrow", "auto"].mlp_fine
+    narrow.impl = "cuda"
+    try:
+        narrow._kernel_route((1, 64), dev)
+        refused = None
+    except ValueError as e:
+        refused = str(e)
+    finally:
+        narrow.impl = "auto"
+    log(f"options: the d_hidden 256 tower under impl='cuda' raises: {refused!r}")
+    if refused is None:
+        raise SystemExit("options: impl='cuda' took a tower outside the kernels' widths")
+
+    # ---- rows 2, 3 and 6 at C = 640 beside C = 512, in turns ----
+    tw640 = gl.mlp_fine.tower(dev)
+    tw512 = models["nearest", "auto"].mlp_fine.tower(dev)  # sn64's tower, C = 512
+    H, nb, cl, d_out = 512, gl.mlp_fine.n_blocks, gl.mlp_fine.combine_layer, 4
+    d_in = tw640.d_in
+    gi = torch.Generator(device=dev).manual_seed(SEED + 16)
+    W, f, ph, m = gl.code.flat_arrays(tail=3)
+    code_arrays = tuple(torch.from_numpy(a).to(dev) for a in (W, f, ph, m))
+    for NS, B in ((1, RAYS_PER_STEP * 96), (3, RAYS_PER_STEP * 96)):
+        rows_in = NS * B
+        raw = torch.cat([torch.rand(rows_in, 3, device=dev, generator=gi) * 2.8 - 1.4,
+                         torch.nn.functional.normalize(
+                             torch.randn(rows_in, 3, device=dev, generator=gi), dim=-1)], -1)
+        rc = rf.RawCode(raw, *code_arrays)
+        x = rf.materialize_code(rc._replace(cd=torch.float32)).contiguous()
+        z640 = torch.rand(rows_in, 640, device=dev, generator=gi).bfloat16()
+        z512 = z640[:, 128:].contiguous()
+        name = "resnetfc_fwd_dense" if NS == 1 else "resnetfc_fwd_dense_mv"
+        for variant, xin in ((name, x), (name + "_code", rc)):
+            def run(z, tw, xin=xin):
+                if NS == 1:
+                    return rf.resnetfc_dense(z, xin, tw, nb)
+                return rf.resnetfc_dense_mv(z, xin, tw, nb, NS, cl)
+
+            with torch.no_grad():
+                out = run(z640, tw640)
+                ref = rf.resnetfc_reference(z640, xin, tw640, nb, compute_dtype=torch.bfloat16,
+                                            NS=NS, combine_layer=cl)
+                torch.cuda.synchronize()
+                d, bar, corr = agree(out, ref)
+                same = torch.equal(out, run(z640, tw640))
+                del ref
+                t = {640: [], 512: []}
+                for C in (512, 640, 640, 512):
+                    t[C].append(cuda_ms(lambda: run(z640 if C == 640 else z512,
+                                                    tw640 if C == 640 else tw512), 5))
+                ms640, ms512 = (sum(t[C]) / 2 for C in (640, 512))
+                plain_ms = cuda_ms(lambda: rf.resnetfc_reference(
+                    z640, xin, tw640, nb, compute_dtype=torch.bfloat16, NS=NS,
+                    combine_layer=cl), 2)
+                xl = xin if not isinstance(xin, rf.RawCode) else x
+                if NS == 1:
+                    library_ms = cuda_ms(lambda: library_tower(z640, xl, tw640, nb), 5)
+                else:
+                    zv, xv = by_view(z640, NS, 1), by_view(xl, NS, 1)
+                    library_ms = cuda_ms(lambda: library_tower_mv(zv, xv, tw640, nb, NS, cl), 5)
+                    del zv, xv
+            flops = 2 * H * B * (NS * (d_in + cl * (640 + 2 * H)) + 2 * (nb - cl) * H + d_out)
+            w_bytes = sum(tt.numel() * tt.element_size() for tt in tw640[:8])
+            in_bytes = rows_in * (640 * 2 + (6 if variant.endswith("_code") else d_in) * 4)
+            b_ms, b_by = bound(flops, in_bytes + B * d_out * 4 + w_bytes)
+            ok = d <= bar and corr > 0.999 and same
+            log(f"options kernel check: {variant} at C = 640 (the global encoder's code + "
+                f"sn64's latent), {B} output points from {NS} view(s): max|d| {d:.6g} (bar "
+                f"{bar:.6g}), corr {corr:.7f}, bit-identical second call {same}; in turns "
+                f"(C 512, 640, 640, 512) {ms640:.4f} ms at C = 640 beside {ms512:.4f} at C = 512 "
+                f"({ms640 / ms512:.4f}x), {flops / ms640 / 1e9:.1f} TFLOP/s; plain_ms "
+                f"{plain_ms:.4f}; library_ms {library_ms:.4f} (cuBLAS bf16 chain); bound_ms "
+                f"{b_ms:.4f} ({b_by}); on {smi}")
+            if not ok:
+                raise SystemExit(f"options: {variant} at C = 640 disagrees with its plain "
+                                 "version")
+            rec = records[variant] if variant in records else code_records[variant]
+            rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), d)
+            rec["c640"] = dict(points=B, views=NS, ms=ms640, c512_ms_in_turns=ms512,
+                               plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                               library_ms=library_ms, max_abs_err=d, corr=corr)
+        del raw, rc, x, z640, z512
+
+    # ---- three -V 1 train CLI steps with the global encoder: the plain field route ----
+    restore = _env({"PIXELNERF_ALLOW_RANDOM_BACKBONE": "1"})  # no backbone weights here
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cpath = os.path.join(tmp, "global.conf")  # sn64's conf with the global encoder on
+            with open(cpath, "w") as fh:
+                fh.write(f'include required("{os.path.abspath("conf/exp/sn64.conf")}")\n'
+                         "model { use_global_encoder = true }\n")
+            rf.reset_launches()
+            rv.reset_launches()
+            t0 = time.perf_counter()
+            trainer = train_main(
+                ["-n", "opt_global", "-c", cpath, "-F", "dvr", "-D", nmr_root, "-B", "4", "-V",
+                 "1", "-R", "128", "--epochs", str(OPT_TRAIN_STEPS), "--checkpoints_path",
+                 os.path.join(tmp, "ck")])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            la = {k: v for k, v in dict(rf.LAUNCHES, **rv.LAUNCHES).items() if v}
+            n_steps = trainer.global_step
+            finite = n_steps == OPT_TRAIN_STEPS and all(math.isfinite(v) for v in trainer.history)
+            gfc = trainer.net.global_encoder.fc.weight.grad
+            moved = gfc is not None and float(gfc.abs().sum()) > 0.0
+            log(f"options train path: python -m pixelnerf_tpu_torch.train -c conf/exp/sn64.conf "
+                f"+ use_global_encoder -F dvr -B 4 -V 1 -R 128: {n_steps} steps in {wall:.3f} s, "
+                f"{1e3 * sum(trainer.step_seconds[1:]) / max(1, n_steps - 1):.3f} ms a step after "
+                f"the first; remat {trainer.remat}; launches {la} (no backward kernel: they "
+                f"take C = 512 only, so the train steps' field is plain; its validation step runs "
+                f"no grad, on the dense kernel); losses {[round(v, 5) for v in trainer.history]}; "
+                f"the global encoder trained {moved}; on {smi}")
+            if not (finite and moved and trainer.remat and set(la) <= {"resnetfc_fwd_dense"}):
+                raise SystemExit("options: the global encoder's train steps failed or left the "
+                                 "plain field route")
+    finally:
+        restore()
+    if la:
+        opt_launches.setdefault("resnetfc_fwd_dense", {})["train CLI validation"] = la[
+            "resnetfc_fwd_dense"]
+    for name, by_path in opt_launches.items():
+        (records[name] if name in records else code_records[name])["options_launches"] = by_path
+    log(f"options: phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card", file=sys.stderr)
@@ -2842,6 +3111,9 @@ def main() -> None:
 
         # ---- the remaining eval CLIs on the fixtures ----
         eval_cli_phase(net, dev, smi, records, code_records, nmr_root, dtu_root)
+
+        # ---- the fork's remaining model options (reads the NMR fixture) ----
+        options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_root)
     finally:
         data_dir.cleanup()
 

@@ -41,6 +41,12 @@
 //   in the gather kernels, as the 4-tap lookup z[g] = sum_{j<4} w[g, j] *
 //   table[idx[g, j]] that the threads build straight into the operand tile
 //   (gather_fill);
+// - a dense latent wider than one operand tile (512 < C <= 1024: the global
+//   encoder's code before the pixel latent, 640 at sn64) is injected in
+//   pieces of at most 512 columns, each a step of the stored program whose
+//   product adds to the f32 stream (the bias with the first piece), as the
+//   TPU kernel's one K = C product is split; at C <= 512 the program and
+//   its bits are those of one piece.  The gather kernels keep C <= 512;
 // - lin_out (d_out <= 4) stays on the CUDA cores, a warp a point;
 // - no atomics: two calls on the same inputs give the same bits.
 // The weights' tensor maps are encoded once per set of weight addresses
@@ -113,7 +119,11 @@ int attach_code(TowerParams& p, const void* code_w, const void* code_f, const vo
 // steps of a tile's stored program (fwd_program; sn64: 14 at one view, 15 at
 // any view count: one view's segment and the shared blocks)
 constexpr int F_MAX_STEPS = 128;
-constexpr int F_MAX_K = HID;  // the widest code or latent: one 64 x 512 operand tile
+constexpr int F_MAX_K = HID;  // the widest code, and a latent's widest piece: one 64 x 512 operand tile
+// the widest latent: an injection of a latent wider than one operand tile
+// runs as pieces of at most HID columns (latent_pieces), each a step of its
+// own that adds its product to the f32 stream
+constexpr int F_MAX_C = 2 * HID;
 // f32 words of a multi-view CTA's view-sum slot: every thread's share of the
 // 64 x 512 stream (128 KB)
 constexpr int F_SLOT_FLOATS = TILE_STREAM * TILE_THREADS;
@@ -135,13 +145,20 @@ struct DenseParams {
   CUtensorMap m_lat;
 };
 
+// The pieces of HID columns an injection of a C-wide latent takes (1 up to
+// C = 512; 0 without a latent).
+__host__ __device__ inline int latent_pieces(int C) { return (C + HID - 1) / HID; }
+
 // The tile's program as stored: lin_in, then per block k < pre its injection
-// (k < n_lin_z), fc_0 and fc_1, and, multi-view (mv), the fold into the view
-// mean -- one view's segment, which the walk takes NS times (one view: pre =
-// n_blocks) -- then the shared blocks k >= pre.
+// (k < n_lin_z; one Z_FWD step a piece of the latent, aux the piece), fc_0
+// and fc_1, and, multi-view (mv), the fold into the view mean -- one view's
+// segment, which the walk takes NS times (one view: pre = n_blocks) -- then
+// the shared blocks k >= pre.
 // Walked, it is the forward half of the data kernel's program
-// (data_program), in its order and with its aux flags.
-__host__ __device__ inline int fwd_program(int* out, int n_blocks, int n_lin_z, bool mv, int pre) {
+// (data_program), in its order and with its aux flags, when the latent is one
+// piece (C <= 512: the data kernel takes only C = 512).
+__host__ __device__ inline int fwd_program(int* out, int n_blocks, int n_lin_z, bool mv, int pre,
+                                           int pieces) {
   int n = 0;
   auto put = [&](int s) {
     if (out != nullptr) out[n] = s;
@@ -150,7 +167,8 @@ __host__ __device__ inline int fwd_program(int* out, int n_blocks, int n_lin_z, 
   // block 0 reads relu(x) directly when no latent is injected first
   put(step(IN_FWD, 0, n_lin_z == 0 && pre > 0));
   for (int k = 0; k < pre; ++k) {
-    if (k < n_lin_z) put(step(Z_FWD, k, 0));
+    if (k < n_lin_z)
+      for (int j = 0; j < pieces; ++j) put(step(Z_FWD, k, j));
     put(step(B0_FWD, k, 0));
     // the next reader of relu(x) is fc_0 of block k + 1 (or lin_out) unless
     // block k + 1 injects the latent first, or the view mean comes next
@@ -162,6 +180,20 @@ __host__ __device__ inline int fwd_program(int* out, int n_blocks, int n_lin_z, 
     put(step(B1_FWD, k, 1));
   }
   return n;
+}
+
+// The weight operand of a forward product step: tile64.cuh's gemm_of, but in
+// the dense kernels (WIDE) an injection's piece j (aux) reads rows j HID.. of
+// W_z[k], at most HID of them.  The gather kernels' latent is one piece, and
+// they decode as the data kernel does (the decoding costs the multi-view
+// gather's CODE twin a spill).
+template <bool WIDE>
+__device__ __forceinline__ Gemm fwd_gemm_of(int s, int kin, int C) {
+  if (WIDE && step_kind(s) == Z_FWD) {
+    const int off = step_aux(s) * HID;
+    return Gemm{1, 0, step_k(s) * C + off, min(HID, C - off)};
+  }
+  return gemm_of(s, kin, C);
 }
 
 // A feeding state, which only a warpgroup's first thread keeps (in shared
@@ -200,11 +232,11 @@ __shared__ int f_left[2], f_vleft[2], f_row0, f_lat_n;
 // Thread 128 h: warpgroup h's half of the next stage into ring slot `slot`
 // -- the weight boxes of its piece pc, K rows rowbase + ks * 64.. -- on
 // full[h].
-template <bool MV>
+template <bool MV, bool WIDE>
 __device__ __forceinline__ void dense_feed(const DenseParams& q, unsigned char* ring, int slot, int h) {
   DenseFeed f = f_feed[h];
   if (MV ? f_left[h] == 0 : f.g >= f_n_steps) return;  // the CTA's last stage is in
-  const Gemm op = gemm_of(MV ? f_gprog[f.g] : f_prog[f.g], q.t.kin, q.t.C);
+  const Gemm op = fwd_gemm_of<WIDE>(MV ? f_gprog[f.g] : f_prog[f.g], q.t.kin, q.t.C);
   const CUtensorMap* m = op.map == 0 ? &q.m_in : op.map == 1 ? &q.m_z : &q.m_blk;
   hopper::mbar_arrive_expect_tx(&f_full[h][slot], HALF_BYTES);
   unsigned char* dst = ring + slot * STAGE_BYTES + h * HALF_BYTES;
@@ -237,20 +269,20 @@ __device__ __forceinline__ void dense_feed(const DenseParams& q, unsigned char* 
 // and loads the warpgroup's half of stage u + RING_STAGES into the slot.  So
 // each warpgroup keeps its own half of the ring fed, and neither waits for
 // the other's warps.
-template <bool MV>
+template <bool MV, bool WIDE>
 __device__ __forceinline__ void dense_release(const DenseParams& q, unsigned char* ring, uint32_t u) {
   const int slot = u % RING_STAGES, h = threadIdx.x >> 7;
   if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(&f_empty[h][slot]);
   if ((threadIdx.x & 127) == 0) {
     hopper::mbar_wait(&f_empty[h][slot], (u / RING_STAGES) & 1);
-    dense_feed<MV>(q, ring, slot, h);
+    dense_feed<MV, WIDE>(q, ring, slot, h);
   }
 }
 
 // For each piece of this warpgroup's columns, acc = A . B over K (A a
 // swizzled (64, K) tile, B the ring's MN-major boxes), then epi(piece, acc):
 // the pieces, k16 steps and stages of the data kernel's forward products.
-template <bool MV, typename Epi>
+template <bool MV, bool WIDE, typename Epi>
 __device__ __forceinline__ void dense_gemm(const DenseParams& q, unsigned char* ring, uint32_t& it,
                                            const unsigned char* A, int K, Epi epi) {
   const int wg = threadIdx.x >> 7;
@@ -273,11 +305,11 @@ __device__ __forceinline__ void dense_gemm(const DenseParams& q, unsigned char* 
                                          hopper::desc_sw128(b + kk * 2048, BOX_BYTES, 1024), 1);
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();  // stage ks - 1's products have read it
-      if (ks > 0) dense_release<MV>(q, ring, it - 1);
+      if (ks > 0) dense_release<MV, WIDE>(q, ring, it - 1);
       ++it;
     }
     hopper::wgmma_wait<0>();
-    dense_release<MV>(q, ring, it - 1);
+    dense_release<MV, WIDE>(q, ring, it - 1);
     epi(pc, acc);
   }
 }
@@ -317,10 +349,12 @@ __device__ __forceinline__ void dense_code(const TowerParams& p, unsigned char* 
 
 // View v's latent of the tile at row0 into `tile` (bf16, zeros past B) by
 // the threads, for a tile whose points straddle two objects (or end past B):
-// their rows of z are two runs (object-major rows, src_row).  C / 8 chunks of
-// 16 bytes a row, read four at a time so that they overlap.
-__device__ __forceinline__ void view_latent(const TowerParams& p, unsigned char* tile, int row0, int v) {
-  const int nq = p.C >> 3, n = TILE_PTS * nq;
+// their rows of z are two runs (object-major rows, src_row).  The piece's kp
+// columns from column off: kp / 8 chunks of 16 bytes a row, read four at a
+// time so that they overlap.
+__device__ __forceinline__ void view_latent(const TowerParams& p, unsigned char* tile, int row0, int v,
+                                            int off, int kp) {
+  const int nq = kp >> 3, n = TILE_PTS * nq;
   for (int e0 = threadIdx.x; e0 < n; e0 += 4 * TILE_THREADS) {
     uint4 c8[4];
 #pragma unroll
@@ -328,7 +362,7 @@ __device__ __forceinline__ void view_latent(const TowerParams& p, unsigned char*
       const int e = e0 + u * TILE_THREADS, r = e / nq, g = row0 + r;
       c8[u] = make_uint4(0u, 0u, 0u, 0u);
       if (e < n && g < p.B)
-        c8[u] = __ldg(reinterpret_cast<const uint4*>(p.z + src_row(p, g, v) * p.C) + (e - r * nq));
+        c8[u] = __ldg(reinterpret_cast<const uint4*>(p.z + src_row(p, g, v) * p.C + off) + (e - r * nq));
     }
 #pragma unroll
     for (int u = 0; u < 4; ++u) {
@@ -477,33 +511,37 @@ __device__ __forceinline__ void fwd_body(const DenseParams& q, unsigned char* ac
       A = hb;  // the code
     } else if (kind == Z_FWD) {
       const int lat_n = MV ? f_lat_n : 0;  // read before thread 0 counts this latent
-      __syncthreads();  // hb's last readers (lin_in or the previous fc_1) are done
+      // the piece's columns: off.. (aux the piece; all C at C <= 512)
+      const int off = step_aux(s) * HID, kp = min(HID, p.C - off);
+      __syncthreads();  // hb's last readers (lin_in, the previous fc_1 or piece) are done
       if (GATHER) {
         gather_fill<MV>(p, hb, row0(), MV ? walk_view(si) : 0);
         publish();
       } else if (MV && row0() % p.B_obj + TILE_PTS > p.B_obj) {
-        view_latent(p, hb, row0(), walk_view(si));  // two runs of rows: by the threads
+        view_latent(p, hb, row0(), walk_view(si), off, kp);  // two runs of rows: by the threads
         publish();
       } else {
         if (threadIdx.x == 0) {
-          const int boxes = (p.C + 63) / 64;
+          const int boxes = (kp + 63) / 64;
           const int r = MV ? (int)src_row(p, row0(), walk_view(si)) : row0();
           hopper::mbar_arrive_expect_tx(&f_lat_full, boxes * BOX_BYTES);
           for (int j = 0; j < boxes; ++j)
-            hopper::tma_load_2d(hb + j * BOX_BYTES, &q.m_lat, &f_lat_full, 64 * j, r);
+            hopper::tma_load_2d(hb + j * BOX_BYTES, &q.m_lat, &f_lat_full, off + 64 * j, r);
           if (MV) f_lat_n = lat_n + 1;
         }
-        hopper::mbar_wait(&f_lat_full, (MV ? lat_n : step_k(s)) & 1);
+        // one view: the latents taken so far are k pieces a block, then aux
+        hopper::mbar_wait(&f_lat_full,
+                          (MV ? lat_n : step_k(s) * latent_pieces(p.C) + step_aux(s)) & 1);
       }
       A = hb;
     } else {
       publish();  // act = r_k (fc_0) or hb = s_k (fc_1)
       if (kind == B1_FWD) A = hb;
     }
-    const Gemm op = gemm_of(s, p.kin, p.C);
+    const Gemm op = fwd_gemm_of<!GATHER>(s, p.kin, p.C);
     // one product site, the epilogue chosen inside: so ptxas keeps the stream
     // and the accumulators where they are (a site per epilogue kind spilled)
-    dense_gemm<MV>(q, ring, it, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
+    dense_gemm<MV, !GATHER>(q, ring, it, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
       if (step_kind(s) == B0_FWD) {
         const int c0 = piece_col(pc);
         const float* bias = p.b_blk + (size_t)(2 * step_k(s)) * HID;
@@ -523,9 +561,12 @@ __device__ __forceinline__ void fwd_body(const DenseParams& q, unsigned char* ac
         const float* bias = kind == IN_FWD  ? p.b_in
                             : kind == Z_FWD ? p.b_z + (size_t)k * HID
                                             : p.b_blk + (size_t)(2 * k + 1) * HID;
+        // an injection's bias comes with its first piece only
+        const bool biased = GATHER || kind != Z_FWD || aux == 0;
 #pragma unroll
         for (int j = 0; j < TILE_ACC / 4; ++j) {  // one bias pair serves rows r and r + 8
-          const float2 bj = __ldg(reinterpret_cast<const float2*>(bias + c0 + acc_col(4 * j)));
+          float2 bj = make_float2(0.0f, 0.0f);
+          if (biased) bj = __ldg(reinterpret_cast<const float2*>(bias + c0 + acc_col(4 * j)));
 #pragma unroll
           for (int e = 0; e < 4; ++e) {
             const int i = 4 * j + e;
@@ -599,7 +640,8 @@ __device__ __forceinline__ void fwd_tile(const DenseParams& q) {
       }
     hopper::mbar_init(&f_lat_full, 1);
     hopper::mbar_fence_init();
-    f_n_steps = fwd_program(f_prog, p.n_blocks, p.n_lin_z, MV, MV ? p.pre : p.n_blocks);
+    f_n_steps = fwd_program(f_prog, p.n_blocks, p.n_lin_z, MV, MV ? p.pre : p.n_blocks,
+                            GATHER ? 1 : latent_pieces(p.C));
     if (MV) {
       f_n_gemms = 0;
       for (int i = 0; i < f_n_steps; ++i) {
@@ -616,7 +658,7 @@ __device__ __forceinline__ void fwd_tile(const DenseParams& q) {
   }
   __syncthreads();
   if ((threadIdx.x & 127) == 0)
-    for (int st = 0; st < RING_STAGES; ++st) dense_feed<MV>(q, ring, st, threadIdx.x >> 7);
+    for (int st = 0; st < RING_STAGES; ++st) dense_feed<MV, !GATHER>(q, ring, st, threadIdx.x >> 7);
 
   uint32_t it = 0;  // stages taken
   if (MV) {
@@ -671,8 +713,8 @@ int tiles_of(int B) { return (B + TILE_PTS - 1) / TILE_PTS; }
 
 bool dense_widths_ok(int kin, int C, int n_blocks, int n_lin_z) {
   return kin >= 16 && kin <= F_MAX_K && kin % 16 == 0 && n_blocks >= 1 && n_lin_z >= 0 &&
-         n_lin_z <= n_blocks && (n_lin_z == 0 || (C >= 16 && C <= F_MAX_K && C % 16 == 0)) &&
-         fwd_program(nullptr, n_blocks, n_lin_z, false, n_blocks) <= F_MAX_STEPS;
+         n_lin_z <= n_blocks && (n_lin_z == 0 || (C >= 16 && C <= F_MAX_C && C % 16 == 0)) &&
+         fwd_program(nullptr, n_blocks, n_lin_z, false, n_blocks, latent_pieces(C)) <= F_MAX_STEPS;
 }
 
 // The parameters of a tile launch on `plan`'s weights (which must be the
@@ -712,7 +754,7 @@ bool mv_params(DenseParams& q, int NS, int B_obj, int pre, void* vsum, int n_cta
   const TowerParams& p = q.t;
   if (NS < 2 || NS > 255 || pre < 0 || pre >= p.n_blocks || p.n_lin_z > pre || B_obj < 1 ||
       p.B % B_obj != 0 || vsum == nullptr || n_ctas < 1 ||
-      fwd_program(nullptr, p.n_blocks, p.n_lin_z, true, pre) > F_MAX_STEPS)
+      fwd_program(nullptr, p.n_blocks, p.n_lin_z, true, pre, latent_pieces(p.C)) > F_MAX_STEPS)
     return false;
   q.t.NS = NS;
   q.t.B_obj = B_obj;
@@ -727,7 +769,8 @@ bool mv_params(DenseParams& q, int NS, int B_obj, int pre, void* vsum, int n_cta
 // kernels do not take.
 bool gather_params(DenseParams& q, const void* idx, const void* w, int taps, const void* table,
                    int T) {
-  if (taps < 4 || T < 1 || q.t.C % 8 != 0 || idx == nullptr || w == nullptr ||
+  // the lookup builds the whole latent into one operand tile: C <= HID
+  if (taps < 4 || T < 1 || q.t.C % 8 != 0 || q.t.C > HID || idx == nullptr || w == nullptr ||
       table == nullptr || reinterpret_cast<uintptr_t>(table) % 16 != 0)
     return false;
   q.t.idx = static_cast<const int*>(idx);
@@ -747,9 +790,9 @@ const char* resnetfc_fwd_error_string(int err) { return cudaGetErrorString((cuda
 // What the tile kernels fix, for the wrapper to plan with: out[0..6] =
 // points a tile, threads a CTA, weight-ring stages, the most outputs of
 // lin_out, the most steps of a tile's stored program (one view's segment and
-// the shared blocks), the widest code or latent, the f32 words of a
-// multi-view CTA's view-sum slot.  Returns the bytes of a plan; *smem gets
-// the shared memory a CTA.
+// the shared blocks), the widest code (and latent piece), the f32 words of
+// a multi-view CTA's view-sum slot, the widest latent of the dense kernels.
+// Returns the bytes of a plan; *smem gets the shared memory a CTA.
 size_t resnetfc_fwd_dense_limits(int* out, size_t* smem) {
   out[0] = TILE_PTS;
   out[1] = TILE_THREADS;
@@ -758,6 +801,7 @@ size_t resnetfc_fwd_dense_limits(int* out, size_t* smem) {
   out[4] = F_MAX_STEPS;
   out[5] = F_MAX_K;
   out[6] = F_SLOT_FLOATS;
+  out[7] = F_MAX_C;
   *smem = TILE_SMEM;
   return sizeof(DensePlan);
 }

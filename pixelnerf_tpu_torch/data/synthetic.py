@@ -225,14 +225,16 @@ def write_synthetic_dvr(
     n_objs: int = 3,
     n_views: int = 8,
     image_size: int = 64,
-    focal: float = None,
+    focal=None,
     category: str = "02958343",
     seed: int = 0,
 ) -> str:
     """Write a DVR-format (NMR-style) dataset with softras_* split lists and
-    NDC-normalized cameras.npz projections."""
+    NDC-normalized cameras.npz projections.  ``focal``: one for every object
+    (default 0.85 * image_size), or a sequence of one an object."""
     if focal is None:
         focal = 0.85 * image_size
+    focals = list(focal) if np.ndim(focal) else [focal] * n_objs
     cat_dir = os.path.join(out_dir, category)
     os.makedirs(cat_dir, exist_ok=True)
     rng = np.random.default_rng(seed)
@@ -247,6 +249,7 @@ def write_synthetic_dvr(
         params = _object_params(rng)
         poses = _camera_ring(n_views, seed=seed * 1000 + oi)
         cams = {}
+        focal = focals[oi]
         for vi in range(n_views):
             img = render_sphere_image(poses[vi], W, H, focal, **params)
             _save_png(os.path.join(img_dir, f"{vi:04d}.png"), img)

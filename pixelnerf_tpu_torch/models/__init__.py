@@ -6,19 +6,24 @@ from .attention import (
     SpatialAttention,
 )
 from .code import PositionalEncoding
-from .encoder import SpatialEncoder
+from .custom_encoder import ConvEncoder
+from .encoder import GlobalEncoder, SpatialEncoder
 from .fusion import (
     AdaptiveFeatureSampler,
     MultiScaleFusionModule,
     SmartFeatureFusion,
     create_feature_fusion,
 )
+from .mlp import ImplicitNet
 from .pixelnerf import EncodedScene, PixelNeRFNet, make_model
 from .resnetfc import ResnetBlockFC, ResnetFC
 
 __all__ = [
     "PositionalEncoding",
     "SpatialEncoder",
+    "GlobalEncoder",
+    "ConvEncoder",
+    "ImplicitNet",
     "EncodedScene",
     "PixelNeRFNet",
     "make_model",

@@ -1,9 +1,11 @@
-"""Spatial (pixel-aligned) image encoder on a ResNet trunk.
+"""Spatial (pixel-aligned) and global image encoders on a ResNet trunk.
 
 Images and feature maps are NHWC at this module's surface, as in the JAX
 package; the trunk runs NCHW inside.  ``use_multi_scale`` returns the
 per-stage maps (finest first) for the fusion stack; otherwise they are
-upsampled to the stage-0 resolution and concatenated.  Two uv normalizations:
+upsampled to the stage-0 resolution and concatenated.  The lookup is
+bilinear (4 taps) or ``index_interp = "nearest"`` (``grid_sample``, which
+never rides the fused gather).  Two uv normalizations:
 
 * ``index_normalize="image"`` (default): uv pixel coordinates are normalized
   against the input image extent, ``g = u * (W_l / W_img) * 2/(W_l - 1) - 1``;
@@ -21,6 +23,7 @@ from torch import nn
 from ..ops.grid_sample import (
     bilinear_taps,
     gather_taps,
+    grid_sample,
     resize_bilinear_align_corners,
     resize_nearest,
 )
@@ -45,10 +48,8 @@ class SpatialEncoder(nn.Module):
         index_normalize: str = "image",
     ):
         super().__init__()
-        if index_interp != "bilinear":
-            raise NotImplementedError(
-                f"index_interp {index_interp!r}: only bilinear is ported (ROADMAP.md)"
-            )
+        if index_interp not in ("bilinear", "nearest"):
+            raise NotImplementedError(f"index_interp {index_interp!r}")
         if upsample_interp not in ("bilinear", "nearest"):
             raise NotImplementedError(f"upsample_interp {upsample_interp!r}")
         self.backbone = backbone
@@ -114,6 +115,11 @@ class SpatialEncoder(nn.Module):
         samples = []
         for lat in latents:
             h_l, w_l = lat.shape[1], lat.shape[2]
+            if self.index_interp != "bilinear":
+                samples.append(grid_sample(lat, self._grid(lat, uv, image_shape), align_corners=True,
+                                           padding_mode=self.index_padding,
+                                           mode=self.index_interp))
+                continue
             t_idx, t_w = bilinear_taps(
                 self._grid(lat, uv, image_shape), h_l, w_l,
                 align_corners=True, padding_mode=self.index_padding,
@@ -147,3 +153,30 @@ class SpatialEncoder(nn.Module):
             use_multi_scale=conf.get_bool("use_multi_scale", False),
             index_normalize=conf.get_string("index_normalize", "image"),
         )
+
+
+class GlobalEncoder(nn.Module):
+    """Global image code: a ResNet trunk of all five stages (first pool on),
+    the spatial mean of its last map, then the ``fc`` Linear when that width
+    is not ``latent_size`` (the JAX ``GlobalEncoder``).
+
+    :return from forward: (B, latent_size)
+    """
+
+    def __init__(self, backbone: str = "resnet34", latent_size: int = 128):
+        super().__init__()
+        self.backbone = backbone
+        self.latent_size = latent_size
+        self.model = resnet.ResNetFeatures(backbone, num_layers=5, use_first_pool=True)
+        width = resnet.stage_channels(backbone)[-1]
+        self.fc = nn.Linear(width, latent_size) if width != latent_size else None
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        """:param x: (B, H, W, 3) images in [-1, 1]"""
+        pooled = self.model(x.permute(0, 3, 1, 2))[-1].mean(dim=(2, 3))
+        return pooled if self.fc is None else self.fc(pooled)
+
+    @classmethod
+    def from_conf(cls, conf) -> "GlobalEncoder":
+        return cls(backbone=conf.get_string("backbone", "resnet34"),
+                   latent_size=conf.get_int("latent_size", 128))

@@ -2,18 +2,22 @@
 
 * ``encode``: ResNet feature map per source view -- or, multi-scale, the
   per-stage pyramid, optionally gated by the adaptive sampler and fused
-  into one 512-channel map (``use_smart_fusion``); poses inverted to
-  world->camera; focal y negated; principal point defaults to the image
-  center.  Returns an :class:`EncodedScene` that ``query`` takes explicitly.
+  into one 512-channel map (``use_smart_fusion``); or the ConvEncoder's map
+  (``encoder.type = conv``); and, with ``use_global_encoder``, each view's
+  global code; poses inverted to world->camera; focal y negated; principal
+  point defaults to the image center.  Returns an :class:`EncodedScene`
+  that ``query`` takes explicitly.
 * ``query``: world points into each source camera's frame, positional code
   of xyz with the raw viewdirs appended after it, perspective projection
-  ``uv = -xy/z * [fx, -fy] + c``, pixel-aligned features, ResnetFC, then
-  ``sigmoid(rgb)`` and the configured density activation.
+  ``uv = -xy/z * [fx, -fy] + c``, pixel-aligned features (bilinear or
+  nearest) after the view's global code, the field MLP (ResnetFC or
+  ImplicitNet), then ``sigmoid(rgb)`` and the configured density activation.
 
 The feature lookup takes one of two routes, chosen as in the JAX package
 (:meth:`PixelNeRFNet._fused_gather_ok`): fused into the field kernel as a
 :class:`~..ops.resnetfc_fused.LatentGather`, or gathered densely first (a
-raw multi-scale pyramid always is).  Training builds the model with
+raw multi-scale pyramid, a global code, a nearest lookup and the
+ConvEncoder always are).  Training builds the model with
 ``diff_mode=True``, which keeps every field input dense so the field stays
 differentiable on the kernel route.
 
@@ -38,11 +42,11 @@ from ..config.hocon import ConfigTree
 from ..ops.resnetfc_fused import LatentGather, RawCode, supports
 from ..utils.geometry import invert_poses, repeat_interleave
 from .code import PositionalEncoding
-from .encoder import SpatialEncoder
+from .custom_encoder import ConvEncoder
+from .encoder import GlobalEncoder, SpatialEncoder
 from .fusion import AdaptiveFeatureSampler, SmartFeatureFusion, reset_fusion_parameters
+from .mlp import ImplicitNet
 from .resnetfc import ResnetFC
-
-_NOT_PORTED = "not ported yet (ROADMAP.md)"
 
 
 def _defer_code_enabled() -> bool:
@@ -65,6 +69,7 @@ class EncodedScene:
     c: torch.Tensor  # (B, 2) principal point in pixels
     image_shape: Tuple[int, int] = (0, 0)  # (W, H)
     num_views_per_obj: int = 1
+    global_latent: Optional[torch.Tensor] = None  # (B, C_g) with use_global_encoder; stays f32
 
     @property
     def device(self) -> torch.device:
@@ -80,11 +85,13 @@ class EncodedScene:
 
 def _make_mlp(conf: ConfigTree, d_in: int, d_latent: int, allow_empty=False, impl="torch"):
     mlp_type = conf.get_string("type", "mlp")
+    if mlp_type == "mlp":
+        return ImplicitNet.from_conf(conf, d_in + d_latent)
     if mlp_type == "resnet":
         return ResnetFC.from_conf(conf, d_in=d_in, d_latent=d_latent, impl=impl)
     if mlp_type == "empty" and allow_empty:
         return None
-    raise NotImplementedError(f"MLP type {mlp_type!r}: {_NOT_PORTED}")
+    raise NotImplementedError(f"Unsupported MLP type {mlp_type!r}")
 
 
 class PixelNeRFNet(nn.Module):
@@ -107,7 +114,6 @@ class PixelNeRFNet(nn.Module):
         self.mlp_impl = mlp_impl
         self.stop_encoder_grad = stop_encoder_grad
         self.diff_mode = diff_mode
-        self.head_confs = {h: conf[h] for h in ("mlp_coarse", "mlp_fine") if h in conf}
         self.use_encoder = conf.get_bool("use_encoder", True)
         self.use_xyz = conf.get_bool("use_xyz", False)
         assert self.use_encoder or self.use_xyz
@@ -115,16 +121,18 @@ class PixelNeRFNet(nn.Module):
         self.use_code = conf.get_bool("use_code", False)
         self.use_code_viewdirs = conf.get_bool("use_code_viewdirs", True)
         self.use_viewdirs = conf.get_bool("use_viewdirs", False)
-        if conf.get_bool("use_global_encoder", False):
-            raise NotImplementedError(f"global encoder: {_NOT_PORTED}")
+        self.use_global_encoder = conf.get_bool("use_global_encoder", False)
         self.sigma_activation = conf.get_string("sigma_activation", "relu")
         if self.sigma_activation not in ("relu", "softplus", "softplus_floor"):
             raise NotImplementedError(f"Unsupported sigma_activation {self.sigma_activation!r}")
 
         enc_type = conf.get_string("encoder.type", "spatial")
-        if enc_type != "spatial":
-            raise NotImplementedError(f"encoder type {enc_type!r}: {_NOT_PORTED}")
-        self.encoder = SpatialEncoder.from_conf(conf["encoder"])
+        if enc_type == "spatial":
+            self.encoder = SpatialEncoder.from_conf(conf["encoder"])
+        elif enc_type == "conv":
+            self.encoder = ConvEncoder.from_conf(conf["encoder"])
+        else:
+            raise NotImplementedError(f"Unsupported encoder type {enc_type!r}")
 
         # the fork's multi-scale fusion: the adaptive gate on the raw
         # pyramid, then the fusion into one 512-channel map
@@ -155,6 +163,12 @@ class PixelNeRFNet(nn.Module):
             d_in = self.code.d_out
         if self.use_viewdirs and not self.use_code_viewdirs:
             d_in += 3
+        # the global code comes before the pixel latent in every query
+        self.global_encoder = None
+        if self.use_global_encoder:
+            self.global_encoder = GlobalEncoder.from_conf(
+                conf["global_encoder"] if "global_encoder" in conf else ConfigTree())
+            d_latent += self.global_encoder.latent_size
         self.d_in, self.d_latent, self.d_out = d_in, d_latent, 4
 
         self.mlp_coarse = _make_mlp(conf["mlp_coarse"], d_in, d_latent, impl=mlp_impl)
@@ -164,10 +178,15 @@ class PixelNeRFNet(nn.Module):
 
     def reset_parameters(self, generator: torch.Generator) -> None:
         """Seeded init: kaiming fan-out normal convs (torchvision's init),
-        unit / zero BatchNorm, the fusion stack's LeCun-normal init, and the
-        ResnetFC reference init."""
+        unit / zero BatchNorm, the global encoder's ``fc`` and the fusion
+        stack LeCun-normal, flax's init of the ConvEncoder, and the ResnetFC
+        reference init or ImplicitNet's geometric init."""
+        if isinstance(self.encoder, ConvEncoder):
+            self.encoder.reset_parameters(generator)
+        trunks = [m for m in (self.encoder, self.global_encoder)
+                  if isinstance(m, (SpatialEncoder, GlobalEncoder))]
         with torch.no_grad():
-            for m in self.encoder.modules():
+            for m in (m for t in trunks for m in t.modules()):
                 if isinstance(m, nn.Conv2d):
                     fan_out = m.weight.shape[0] * m.weight.shape[2] * m.weight.shape[3]
                     m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
@@ -178,6 +197,10 @@ class PixelNeRFNet(nn.Module):
                     m.running_mean.zero_()
                     m.running_var.fill_(1.0)
                     m.num_batches_tracked.zero_()
+                elif isinstance(m, nn.Linear):
+                    m.weight.copy_(torch.randn(m.weight.shape, generator=generator)
+                                   * (1.0 / m.weight.shape[1]) ** 0.5)
+                    m.bias.zero_()
         for stage in (self.adaptive_sampler, self.feature_fusion):
             if stage is not None:
                 reset_fusion_parameters(stage, generator)
@@ -207,7 +230,8 @@ class PixelNeRFNet(nn.Module):
         B, H, W = images.shape[0], images.shape[1], images.shape[2]
         dev = images.device
 
-        for stage in (self.encoder, self.adaptive_sampler, self.feature_fusion):
+        for stage in (self.encoder, self.global_encoder, self.adaptive_sampler,
+                      self.feature_fusion):
             if stage is not None:
                 stage.train(train)
         latents = self.encoder(images)
@@ -242,6 +266,7 @@ class PixelNeRFNet(nn.Module):
         return EncodedScene(
             latents=latents, poses=w2c, focal=focal, c=c,
             image_shape=(W, H), num_views_per_obj=num_views_per_obj,
+            global_latent=self.global_encoder(images) if self.use_global_encoder else None,
         )
 
     # ----------------------------- route -----------------------------
@@ -261,12 +286,21 @@ class PixelNeRFNet(nn.Module):
             # a raw pyramid: per-scale tables of mixed resolutions, dense.
             # Fused, the pyramid is one map and qualifies as single-scale.
             return False
+        if self.use_global_encoder:  # the field's latent is [g, pixel latent]
+            return False
+        if not isinstance(self.encoder, SpatialEncoder):
+            # the ConvEncoder has no index_taps (the JAX rule does not look
+            # at the encoder type and raises there: ROADMAP.md, reference gaps)
+            return False
         if latents.shape[0] != NS:  # SB == 1: one table set per call
             return False
-        if NS > 1:
-            for mlp in (self.mlp_coarse, self.mlp_fine):
-                if mlp is not None and not (0 <= mlp.combine_layer < mlp.n_blocks):
-                    return False
+        for mlp in (self.mlp_coarse, self.mlp_fine):
+            if mlp is None:
+                continue
+            if not isinstance(mlp, ResnetFC):  # the lookup is a ResnetFC kernel's input
+                return False
+            if NS > 1 and not (0 <= mlp.combine_layer < mlp.n_blocks):
+                return False
         if self.encoder.index_interp != "bilinear":
             return False
         return NS * latents.shape[1] * latents.shape[2] <= self._fused_gather_cap()
@@ -274,24 +308,28 @@ class PixelNeRFNet(nn.Module):
     def field_backward_in_kernel(self, max_nviews: int = 1) -> bool:
         """True when train steps route the field through the backward kernel
         (:mod:`..ops.resnetfc_vjp`): dense inputs (``diff_mode``), both heads
-        inside the kernels' envelope, card parameters for ``auto``.  The
-        kernel route saves only its inputs and recomputes in the backward, so
-        the trainer leaves ``remat`` off for it."""
+        ResnetFC inside the kernels' envelope (config and, for ``auto``, the
+        backward's widths), card parameters for ``auto``.  The kernel route
+        saves only its inputs and recomputes in the backward, so the trainer
+        leaves ``remat`` off for it."""
         if not (self.diff_mode and self.mlp_impl in ("cuda", "auto")):
             return False
         if self.mlp_impl == "auto" and next(self.parameters()).device.type != "cuda":
             return False
-        for sub in self.head_confs.values():
-            mlp_type = sub.get_string("type", "mlp")
-            if mlp_type == "empty":
+        for mlp in (self.mlp_coarse, self.mlp_fine):
+            if mlp is None:
                 continue
-            if mlp_type != "resnet":
+            if not isinstance(mlp, ResnetFC):
                 return False
-            if not supports(sub.get_float("beta", 0.0), sub.get_bool("use_spade", False),
-                            sub.get_string("combine_type", "average")):
+            if not supports(mlp.beta, mlp.use_spade, mlp.combine_type):
                 return False
-            if max_nviews > 1 and not sub.get_int("combine_layer", 1000) < sub.get_int("n_blocks", 5):
+            if max_nviews > 1 and not mlp.combine_layer < mlp.n_blocks:
                 return False
+            if self.mlp_impl == "auto":
+                try:
+                    mlp.check_kernel_widths(max_nviews, grad=True)
+                except ValueError:
+                    return False
         return True
 
     # ----------------------------- query -----------------------------
@@ -375,6 +413,11 @@ class PixelNeRFNet(nn.Module):
                 latent = self.encoder.index(latents, uv, scene.image_shape)
                 if self.stop_encoder_grad:
                     latent = latent.detach()
+        if self.use_global_encoder:
+            # the view's global code before its pixel latent (lin_z's rows
+            # follow that order); --freeze_enc leaves it trained, as in JAX
+            g = scene.global_latent[:, None].expand(-1, B, -1)
+            latent = g if latent is None else torch.cat([g.to(latent.dtype), latent], dim=-1)
 
         is_gather = isinstance(latent, LatentGather)
         if mlp_input is None:

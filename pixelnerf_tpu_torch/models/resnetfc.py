@@ -22,6 +22,15 @@ reference torch module: ``lin_in``, ``lin_z.{k}``, ``blocks.{k}.fc_0/fc_1``,
 * ``"auto"``: the kernels for CUDA tensors inside the envelope, the plain
   forward otherwise.
 
+The envelope is the config (:func:`~..ops.resnetfc_fused.supports`) and the
+widths every kernel of the call takes (:meth:`ResnetFC.check_kernel_widths`):
+the forward's, and under grad the backward's too.  It is read from the
+kernels' limits as mirrored in Python (``TILE_LIMITS``, ``DATA_LIMITS``,
+``WEIGHT_LIMITS``), so that the rule never builds or loads the library.  A
+tower outside it takes the plain route under ``auto`` -- as the JAX package
+falls back to XLA outside ``supports`` -- and raises under ``cuda`` on a CUDA
+tensor.
+
 A multi-view call (NS > 1) takes the multi-view kernels when the tower takes
 the view mean (``combine_layer < n_blocks``), with ``sb = rows // (NS * B)``
 objects, as the JAX ResnetFC does; without the view mean it stays plain, as
@@ -120,7 +129,38 @@ class ResnetFC(nn.Module):
                     p.copy_(torch.randn(p.shape, generator=generator) * std)
 
     # ------------------------------------------------------------------
-    def _kernel_route(self, combine_inner_dims, device: torch.device) -> bool:
+    def check_kernel_widths(self, NS: int = 1, grad: bool = False) -> None:
+        """Raise ValueError on widths a kernel of this call does not take:
+        the forward's at NS views (H = 512; kin and C multiples of 16, kin
+        <= 512, C <= 1024; the stored program's steps); under ``grad`` also
+        the backward's (the data kernel's widths and program, the weights
+        kernel's plan: C = 512 with a latent, kin <= 128, at most 5 blocks
+        at sn64 widths).  Reads only the Python mirrors of the limits."""
+        kin = max(-(-self.d_in // 16) * 16, 16)
+        C = self.d_latent if self.n_lin_z > 0 else 0
+        lim = rf.TILE_LIMITS
+        rf.check_dense_widths(kin, self.d_hidden, C, self.n_lin_z, self.n_blocks, self.d_out, lim)
+        pre = self.n_blocks
+        if NS > 1:
+            pre = rf.blocks_per_view(self.n_blocks, NS, self.combine_layer)
+            if NS > rf.MAX_VIEWS or self.n_lin_z > pre:
+                raise ValueError(f"the multi-view kernels take at most {rf.MAX_VIEWS} views and "
+                                 f"inject the latent below the view mean (NS={NS}, "
+                                 f"n_lin_z={self.n_lin_z}, combine_layer={self.combine_layer})")
+            if rf.dense_steps(self.n_blocks, self.n_lin_z, NS, pre, C) > lim.max_steps:
+                raise ValueError(f"the multi-view kernels store at most {lim.max_steps} steps")
+        if grad:
+            rfv.check_data_widths(kin, self.d_hidden, C, self.n_lin_z, self.n_blocks, self.d_out,
+                                  rfv.DATA_LIMITS)
+            rfv.check_data_program(self.n_blocks, self.n_lin_z, NS, pre, rfv.DATA_LIMITS)
+            rfv.weight_plan(kin, self.d_hidden, C, self.n_blocks, self.n_lin_z, NS, pre, 64,
+                            rfv.WEIGHT_LIMITS)
+
+    def _kernel_route(self, combine_inner_dims, device: torch.device, grad: bool = False) -> bool:
+        """Whether this call takes the kernels (on the CPU, their plain
+        versions): under ``auto`` a CUDA tensor inside the envelope, under
+        ``cuda`` always -- raising, on a CUDA tensor, for a tower outside
+        it.  ``grad``: the call will be differentiated."""
         if self.impl == "torch":
             return False
         if not rf.supports(self.beta, self.use_spade, self.combine_type):
@@ -133,9 +173,18 @@ class ResnetFC(nn.Module):
             return False
         if len(combine_inner_dims) != 2:
             return False
-        if combine_inner_dims[0] != 1 and not 0 <= self.combine_layer < self.n_blocks:
+        NS = combine_inner_dims[0]
+        if NS != 1 and not 0 <= self.combine_layer < self.n_blocks:
             return False  # no view mean inside the tower: plain, as in JAX
-        return self.impl == "cuda" or device.type == "cuda"
+        if device.type != "cuda":
+            return self.impl == "cuda"  # the kernels' plain versions take any width
+        try:
+            self.check_kernel_widths(NS, grad)
+        except ValueError:
+            if self.impl == "cuda":
+                raise
+            return False
+        return True
 
     def tower(self, device: torch.device) -> rf.Tower:
         """The parameters packed for the kernels.  The module's own parameters
@@ -231,7 +280,11 @@ class ResnetFC(nn.Module):
         """
         parts = zx if type(zx) is tuple else None
         device = (rf.coords(parts[1]) if parts is not None else zx).device
-        if self._kernel_route(combine_inner_dims, device):
+        grad = torch.is_grad_enabled() and (
+            any(p.requires_grad for p in self.parameters())
+            or any(torch.is_tensor(t) and t.requires_grad
+                   for t in ((parts[0], rf.coords(parts[1])) if parts is not None else (zx,))))
+        if self._kernel_route(combine_inner_dims, device, grad):
             return self._kernel_forward(zx, tuple(combine_inner_dims), planar_out)
 
         dt = self.lin_out.weight.dtype

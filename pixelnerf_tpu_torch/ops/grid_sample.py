@@ -1,8 +1,11 @@
-"""Pixel-aligned feature sampling: bilinear taps, the plain 4-tap gather and
-the resizes the encoder uses.  Feature maps are NHWC, as in the JAX package.
+"""Pixel-aligned feature sampling: ``grid_sample``, bilinear taps, the plain
+4-tap gather and the resizes the encoder uses.  Feature maps are NHWC, as in
+the JAX package.
 
 Semantics follow ``torch.nn.functional.grid_sample`` with
-``align_corners=True`` and padding border / zeros / reflection.
+``align_corners=True`` and padding border / zeros / reflection, except at
+exact .5 coordinates in nearest mode, where the JAX package's rounding (half
+to even, ``jnp.round``) decides.
 """
 
 from __future__ import annotations
@@ -27,6 +30,74 @@ def _reflect(x: torch.Tensor, lo: float, hi: float) -> torch.Tensor:
     return hi - torch.abs(x - span)
 
 
+def _sanitized_pixels(uv: torch.Tensor, H: int, W: int, align_corners: bool,
+                      padding_mode: str):
+    """[-1, 1] points -> pixel coordinates, non-finite values replaced, then
+    reflected (``reflection``) or clamped just outside the valid range
+    (border / zeros: keeps their semantics, and floor() exact for huge
+    coordinates)."""
+    x = _unnormalize(uv[..., 0].float(), W, align_corners)
+    y = _unnormalize(uv[..., 1].float(), H, align_corners)
+    # points projected from near a source camera's z=0 plane give uv -> inf
+    x = torch.nan_to_num(x, nan=-2.0, posinf=1e7, neginf=-1e7)
+    y = torch.nan_to_num(y, nan=-2.0, posinf=1e7, neginf=-1e7)
+    if padding_mode == "reflection":
+        return _reflect(x, 0.0, float(W - 1)), _reflect(y, 0.0, float(H - 1))
+    return torch.clamp(x, -2.0, W + 1.0), torch.clamp(y, -2.0, H + 1.0)
+
+
+def grid_sample(feat: torch.Tensor, uv: torch.Tensor, align_corners: bool = True,
+                padding_mode: str = "border", mode: str = "bilinear") -> torch.Tensor:
+    """Sample ``feat`` at normalized points ``uv`` (the JAX ``grid_sample``).
+
+    :param feat: (B, H, W, C) feature maps
+    :param uv: (B, N, 2) points in [-1, 1], uv[..., 0] = x, uv[..., 1] = y
+    :param padding_mode: 'border' | 'zeros' | 'reflection'
+    :param mode: 'bilinear' | 'nearest' (ties at .5 rounded half to even)
+    :return: (B, N, C) in ``feat``'s dtype
+    """
+    B, H, W, C = feat.shape
+    x, y = _sanitized_pixels(uv, H, W, align_corners, padding_mode)
+    flat = feat.reshape(B, H * W, C)
+
+    def gather(ix, iy):
+        idx = (iy * W + ix).long()
+        return torch.gather(flat, 1, idx[..., None].expand(-1, -1, C))
+
+    if mode == "nearest":
+        ix = torch.round(x).clamp(0, W - 1).to(torch.int32)
+        iy = torch.round(y).clamp(0, H - 1).to(torch.int32)
+        out = gather(ix, iy)
+        if padding_mode == "zeros":
+            valid = (x >= -0.5) & (x <= W - 0.5) & (y >= -0.5) & (y <= H - 0.5)
+            out = out * valid[..., None].to(out.dtype)
+        return out
+    if mode != "bilinear":
+        raise NotImplementedError(f"grid_sample mode {mode!r}")
+
+    x0f, y0f = torch.floor(x), torch.floor(y)
+    wx, wy = (x - x0f)[..., None], (y - y0f)[..., None]
+    x0, y0 = x0f.to(torch.int32), y0f.to(torch.int32)
+    x1, y1 = x0 + 1, y0 + 1
+    x0c, x1c = x0.clamp(0, W - 1), x1.clamp(0, W - 1)
+    y0c, y1c = y0.clamp(0, H - 1), y1.clamp(0, H - 1)
+    v00, v01 = gather(x0c, y0c), gather(x1c, y0c)
+    v10, v11 = gather(x0c, y1c), gather(x1c, y1c)
+    if padding_mode == "zeros":
+        def inside(i, n):
+            return ((i >= 0) & (i <= n - 1)).float()
+
+        v00 = v00 * (inside(x0, W) * inside(y0, H))[..., None]
+        v01 = v01 * (inside(x1, W) * inside(y0, H))[..., None]
+        v10 = v10 * (inside(x0, W) * inside(y1, H))[..., None]
+        v11 = v11 * (inside(x1, W) * inside(y1, H))[..., None]
+    # the lerp promotes to f32 (the weights are f32); the result takes the
+    # features' dtype, so a bf16 map gives a bf16 sample stream
+    top = v00 * (1 - wx) + v01 * wx
+    bot = v10 * (1 - wx) + v11 * wx
+    return (top * (1 - wy) + bot * wy).to(feat.dtype)
+
+
 def bilinear_taps(
     uv: torch.Tensor,
     height: int,
@@ -43,20 +114,7 @@ def bilinear_taps(
     :return: (idx (..., 4 or pad_taps_to) int32, w (..., same) f32)
     """
     H, W = height, width
-    x = _unnormalize(uv[..., 0].float(), W, align_corners)
-    y = _unnormalize(uv[..., 1].float(), H, align_corners)
-    # points projected from near a source camera's z=0 plane give uv -> inf
-    x = torch.nan_to_num(x, nan=-2.0, posinf=1e7, neginf=-1e7)
-    y = torch.nan_to_num(y, nan=-2.0, posinf=1e7, neginf=-1e7)
-
-    if padding_mode == "reflection":
-        x = _reflect(x, 0.0, float(W - 1))
-        y = _reflect(y, 0.0, float(H - 1))
-    else:
-        # clamp just outside the valid range: keeps border-clamp and
-        # zeros-mask semantics, and floor()/wx exact for huge coordinates
-        x = torch.clamp(x, -2.0, W + 1.0)
-        y = torch.clamp(y, -2.0, H + 1.0)
+    x, y = _sanitized_pixels(uv, H, W, align_corners, padding_mode)
 
     x0f = torch.floor(x)
     y0f = torch.floor(y)

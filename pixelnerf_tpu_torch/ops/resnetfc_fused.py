@@ -18,6 +18,12 @@ Counterpart of ``pixelnerf_tpu/ops/resnetfc_pallas.py``:
   ``_kernel_2d_mv_gather``: the same with view v's lookup into table v of an
   ``(NS, T, C)`` stack, on the same tile and plan, built as the gather's.
 
+The dense kernels take a latent up to ``max_c`` = 1024 columns wide (the
+global encoder's code before the pixel latent), each injection of a latent
+past 512 columns in pieces of 512 (:func:`latent_pieces`); the gathers take
+512 at most.  :data:`TILE_LIMITS` mirrors the library's limits for the route
+rule, which must not build it.
+
 Each takes its coordinate input ``x`` either encoded (a tensor) or as a
 :class:`RawCode`, the deferred positional code: the kernel's CODE variant
 then evaluates the code of the raw coordinates while it loads each tile, the
@@ -307,7 +313,11 @@ def resnetfc_reference(z, x, tower: Tower, n_blocks: int, planar_out: bool = Tru
         if NS > 1 and k == pre:
             h = view_mean(h, NS, sb)
         if k < n_lin_z:
-            h = h + (zc @ rnd(tower.w_z[k]) + tower.b_z[k])
+            # a latent past HIDDEN columns in the kernels' pieces, the bias
+            # with the first
+            for j in range(0, zc.shape[1], HIDDEN):
+                t = zc[:, j : j + HIDDEN] @ rnd(tower.w_z[k, j : j + HIDDEN])
+                h = h + (t + tower.b_z[k] if j == 0 else t)
         t = rnd(torch.relu(h)) @ rnd(tower.w_blk[k, 0]) + tower.b_blk[k, 0]
         h = h + (rnd(torch.relu(t)) @ rnd(tower.w_blk[k, 1]) + tower.b_blk[k, 1])
     res = rnd(torch.relu(h)) @ rnd(tower.w_out)
@@ -490,29 +500,49 @@ class DenseLimits(NamedTuple):
     stages: int  # weight-ring stages
     max_out: int  # the most outputs of lin_out
     max_steps: int  # the most steps of a tile's stored program: one view's segment and the tail
-    max_k: int  # the widest code (kin) or latent (C): one 64 x 512 operand tile
+    max_k: int  # the widest code (kin), and a latent's widest piece: one 64 x 512 operand tile
     slot_floats: int  # f32 words of a multi-view CTA's view-sum slot (its 64 x 512 stream)
     smem: int  # dynamic shared memory a CTA
     plan_bytes: int  # bytes of a plan (the weights' tensor maps)
+    # the widest latent (C) of the dense kernels: an injection past max_k
+    # columns runs as pieces of max_k (latent_pieces); the gathers take max_k
+    max_c: int = 2 * HIDDEN
+
+
+# What the library reports (dense_limits), mirrored so that the route rule
+# (models/resnetfc.py) can test a tower's widths without building or loading
+# the library; chip_smoke.py and a cuda-marked test hold the two equal.
+TILE_LIMITS = DenseLimits(tile=64, threads=256, stages=3, max_out=4, max_steps=128, max_k=512,
+                          slot_floats=128 * 256, smem=2 * 65536 + 3 * 32768 + 1024,
+                          plan_bytes=448, max_c=1024)
 
 
 @functools.lru_cache(maxsize=None)
 def dense_limits() -> DenseLimits:
-    out, smem = (ctypes.c_int * 7)(), ctypes.c_size_t()
+    out, smem = (ctypes.c_int * 8)(), ctypes.c_size_t()
     n = _lib().resnetfc_fwd_dense_limits(out, ctypes.byref(smem))
-    return DenseLimits(*out, smem.value, n)
+    return DenseLimits(*out[:7], smem.value, n, out[7])
 
 
-def dense_steps(n_blocks: int, n_lin_z: int, NS: int = 1, pre: Optional[int] = None) -> int:
+def latent_pieces(C: int) -> int:
+    """The steps an injection of a C-wide latent takes in the tile kernels:
+    pieces of at most HIDDEN columns (``latent_pieces`` in
+    ``csrc/resnetfc_fwd.cu``); 1 up to C = 512."""
+    return max(1, -(-C // HIDDEN))
+
+
+def dense_steps(n_blocks: int, n_lin_z: int, NS: int = 1, pre: Optional[int] = None,
+                C: int = HIDDEN) -> int:
     """Steps of one tile's stored program (``fwd_program`` in
     ``csrc/resnetfc_fwd.cu``, the data kernel's recompute): one view's
     segment -- lin_in, then per block below the mean (``pre``; every block
-    for one view) its injection (the first n_lin_z blocks), fc_0 and fc_1,
-    and at NS > 1 the fold into the view mean -- which the tile walks once
-    for each view; then fc_0 and fc_1 of each shared block.  14 at sn64 and
-    one view, 15 at any view count."""
+    for one view) its injection (the first n_lin_z blocks; one step a
+    :func:`latent_pieces` of the C-wide latent), fc_0 and fc_1, and at NS > 1
+    the fold into the view mean -- which the tile walks once for each view;
+    then fc_0 and fc_1 of each shared block.  14 at sn64 and one view, 15 at
+    any view count; 17 at one view with the global encoder's C = 640."""
     pre = n_blocks if NS == 1 or pre is None else pre
-    return 1 + n_lin_z + 2 * pre + int(NS > 1) + 2 * (n_blocks - pre)
+    return 1 + n_lin_z * latent_pieces(C) + 2 * pre + int(NS > 1) + 2 * (n_blocks - pre)
 
 
 def dense_grid(B: int, limits: DenseLimits) -> int:
@@ -524,24 +554,26 @@ def dense_grid(B: int, limits: DenseLimits) -> int:
 def check_dense_widths(kin: int, H: int, C: int, n_lin_z: int, n_blocks: int, d_out: int,
                        limits: DenseLimits) -> None:
     """Raise ValueError on widths ``resnetfc_fwd_dense`` does not take: H
-    other than 512; kin, or C with a latent, not a multiple of 16 or past
-    ``limits.max_k``; more injections than blocks; more outputs than
-    ``limits.max_out``; a program past ``limits.max_steps``; a CTA past the
-    card's shared memory."""
+    other than 512; kin not a multiple of 16 or past ``limits.max_k``; with
+    a latent, C not a multiple of 16 or past ``limits.max_c``; more
+    injections than blocks; more outputs than ``limits.max_out``; a program
+    past ``limits.max_steps``; a CTA past the card's shared memory."""
     if H != HIDDEN:
         raise ValueError(f"the dense kernel needs d_hidden {HIDDEN} (H={H})")
-    for name, v in (("kin", kin),) + ((("C", C),) if n_lin_z > 0 else ()):
-        if v % 16 or not 16 <= v <= limits.max_k:
+    for name, v, top in (("kin", kin, limits.max_k),) + (
+            (("C", C, limits.max_c),) if n_lin_z > 0 else ()):
+        if v % 16 or not 16 <= v <= top:
             raise ValueError(f"the dense kernel needs {name} a multiple of 16 in "
-                             f"[16, {limits.max_k}] ({name}={v})")
+                             f"[16, {top}] ({name}={v})")
     if not 0 <= n_lin_z <= n_blocks or n_blocks < 1:
         raise ValueError(f"the dense kernel needs 0 <= n_lin_z <= n_blocks and a block "
                          f"(n_lin_z={n_lin_z}, n_blocks={n_blocks})")
     if not 1 <= d_out <= limits.max_out:
         raise ValueError(f"the dense kernel takes 1 to {limits.max_out} outputs (d_out={d_out})")
-    if dense_steps(n_blocks, n_lin_z) > limits.max_steps:
+    steps = dense_steps(n_blocks, n_lin_z, C=C)
+    if steps > limits.max_steps:
         raise ValueError(f"the dense kernel runs at most {limits.max_steps} steps a tile; "
-                         f"{n_blocks} blocks need {dense_steps(n_blocks, n_lin_z)}")
+                         f"{n_blocks} blocks need {steps}")
     if limits.smem > MAX_SMEM_BYTES:
         raise ValueError(f"the dense kernel needs {limits.smem} B of shared memory per CTA "
                          f"(> {MAX_SMEM_BYTES})")
@@ -575,9 +607,17 @@ def check_gather(idx: torch.Tensor, w: torch.Tensor, table: torch.Tensor, rows: 
     check_tile_tower(tower, n_blocks, limits)
     _check_taps(idx, w, rows)
     C = tower.w_z.shape[1]
+    _check_gather_width(C, limits)
     if table.ndim != 2 or table.shape[1] != C or table.shape[0] < 1:
         raise ValueError(f"the gather needs a (T, C={C}) table, got {tuple(table.shape)}")
     check_tma(table, "table")
+
+
+def _check_gather_width(C: int, limits: DenseLimits) -> None:
+    """The gathers build the whole latent into one operand tile: C <= max_k."""
+    if C > limits.max_k:
+        raise ValueError(f"the gather kernels take a latent of at most {limits.max_k} "
+                         f"columns (C={C})")
 
 
 def _check_taps(idx: torch.Tensor, w: torch.Tensor, rows: int) -> None:
@@ -604,6 +644,7 @@ def check_gather_mv(idx: torch.Tensor, w: torch.Tensor, tables: torch.Tensor, ro
         raise ValueError(f"the multi-view gather needs (NS, T, C={C}) tables, got "
                          f"{tuple(tables.shape)}")
     check_mv_tower(rows, tables.shape[0], 1, combine_layer, tower, n_blocks, limits)
+    _check_gather_width(C, limits)
     _check_taps(idx, w, rows)
     check_tma(tables, "tables")
 
@@ -624,7 +665,7 @@ def check_mv_tower(rows: int, NS: int, sb: int, combine_layer: int, tower: Tower
     if n_lin_z > combine_layer:
         raise ValueError(f"the multi-view kernels inject the latent only below the view mean "
                          f"(n_lin_z={n_lin_z}, combine_layer={combine_layer})")
-    steps = dense_steps(n_blocks, n_lin_z, NS, combine_layer)
+    steps = dense_steps(n_blocks, n_lin_z, NS, combine_layer, tower.w_z.shape[1])
     if steps > limits.max_steps:
         raise ValueError(f"the multi-view kernels store at most {limits.max_steps} steps a tile; "
                          f"{n_blocks} blocks with the mean at block {combine_layer} need {steps}")

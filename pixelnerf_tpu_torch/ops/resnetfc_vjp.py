@@ -339,6 +339,12 @@ class KernelLimits(NamedTuple):
     max_tasks: int
 
 
+# What the library reports (kernel_limits), mirrored for the route rule
+# (models/resnetfc.py), which must not build the library; chip_smoke.py and a
+# cuda-marked test hold the two equal.
+WEIGHT_LIMITS = KernelLimits(tile_m=128, tile_n=256, max_splits=24, max_maps=24, max_tasks=16)
+
+
 @functools.lru_cache(maxsize=None)
 def _limits_and_bytes():
     out = (ctypes.c_int * 5)()
@@ -567,6 +573,11 @@ class DataLimits(NamedTuple):
     max_out: int  # the most outputs of lin_out
     max_steps: int  # the most steps of one tile's stored program (one view's segments)
     smem: int  # dynamic shared memory a CTA
+
+
+# What the library reports (data_limits), mirrored as WEIGHT_LIMITS is.
+DATA_LIMITS = DataLimits(tile=64, threads=256, slot_floats=128 * 256, stages=3, max_out=4,
+                         max_steps=256, smem=2 * 65536 + 3 * 32768 + 1024)
 
 
 @functools.lru_cache(maxsize=None)

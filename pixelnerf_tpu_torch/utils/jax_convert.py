@@ -15,6 +15,13 @@
 * ``adaptive_sampler``: ``quality_fc1_i`` / ``quality_fc2_i`` ->
   ``quality_fc1.i`` / ``quality_fc2.i`` (Linear layers; the reference
   converter has no rule for them)
+* ``global_encoder``: its trunk as the encoder's, and ``fc``
+* the ConvEncoder's ``conv_in`` / ``conv{i}`` / ``conv_mid`` / ``deconv{i}``
+  / ``deconv_last`` kernels by the conv rule (the port keeps transposed
+  convolutions in the Conv2d layout too, :mod:`..models.custom_encoder`),
+  its GroupNorm ``scale`` / ``bias`` as weight / bias (the reference
+  converter has no rule for them)
+* ImplicitNet's ``lin{i}`` as they are
 """
 
 from __future__ import annotations
@@ -80,7 +87,8 @@ def _leaves(tree: Mapping, path=()):
             yield path + (k,), np.asarray(v)
 
 
-_TOP = ("encoder", "mlp_coarse", "mlp_fine", "feature_fusion", "adaptive_sampler")
+_TOP = ("encoder", "global_encoder", "mlp_coarse", "mlp_fine", "feature_fusion",
+        "adaptive_sampler")
 
 
 def from_jax_variables(variables_np: Mapping) -> Dict[str, torch.Tensor]:
@@ -130,27 +138,41 @@ def backbone_state_dict(weights_path: Optional[str] = None) -> Optional[dict]:
 
 
 def load_pretrained_backbone(net: torch.nn.Module, model_conf) -> int:
-    """Load the spatial encoder's trunk from pretrained weights when the conf
-    asks for it (``encoder.pretrained``, default true).  Returns the number of
-    tensors loaded.  Without a weights file this fails, unless
+    """Load the ResNet trunks from pretrained weights where the conf asks for
+    them: the spatial encoder's (``encoder.pretrained``, default true; a
+    ConvEncoder has none) and, with ``use_global_encoder``, the global
+    encoder's (``global_encoder.pretrained``, default true), each from its
+    ``pretrained_path`` or ``$PIXELNERF_BACKBONE_WEIGHTS``.  Returns the
+    number of tensors loaded.  Without a weights file this fails, unless
     ``PIXELNERF_ALLOW_RANDOM_BACKBONE=1`` keeps the random trunk."""
+    targets = []
     enc = model_conf["encoder"]
-    if not enc.get_bool("pretrained", True):
-        return 0
-    sd = backbone_state_dict(enc.get_string("pretrained_path", None))
-    if sd is None:
-        if os.environ.get("PIXELNERF_ALLOW_RANDOM_BACKBONE") == "1":
-            warnings.warn("encoder keeps RANDOM initialization (PIXELNERF_ALLOW_RANDOM_BACKBONE=1)")
-            return 0
-        raise RuntimeError(
-            "encoder is configured pretrained=true but no backbone weights were "
-            "given (no encoder.pretrained_path, no $PIXELNERF_BACKBONE_WEIGHTS). "
-            "Provide a torchvision-layout state dict, or set "
-            "PIXELNERF_ALLOW_RANDOM_BACKBONE=1 to keep a random encoder."
-        )
-    target = net.encoder.model.state_dict()
-    keep = {k: v for k, v in sd.items() if k in target and tuple(v.shape) == tuple(target[k].shape)}
-    if not keep:
-        raise RuntimeError("backbone weights matched 0 encoder tensors")
-    net.encoder.model.load_state_dict(keep, strict=False)
-    return len(keep)
+    if enc.get_string("type", "spatial") == "spatial" and enc.get_bool("pretrained", True):
+        targets.append(("encoder", net.encoder.model, enc.get_string("pretrained_path", None)))
+    if model_conf.get_bool("use_global_encoder", False):
+        ge = model_conf["global_encoder"] if "global_encoder" in model_conf else None
+        if ge is None or ge.get_bool("pretrained", True):
+            path = ge.get_string("pretrained_path", None) if ge is not None else None
+            targets.append(("global_encoder", net.global_encoder.model, path))
+    n = 0
+    for name, trunk, path in targets:
+        sd = backbone_state_dict(path)
+        if sd is None:
+            if os.environ.get("PIXELNERF_ALLOW_RANDOM_BACKBONE") == "1":
+                warnings.warn(f"{name} keeps RANDOM initialization "
+                              "(PIXELNERF_ALLOW_RANDOM_BACKBONE=1)")
+                continue
+            raise RuntimeError(
+                f"{name} is configured pretrained=true but no backbone weights were "
+                f"given (no {name}.pretrained_path, no $PIXELNERF_BACKBONE_WEIGHTS). "
+                "Provide a torchvision-layout state dict, or set "
+                "PIXELNERF_ALLOW_RANDOM_BACKBONE=1 to keep a random encoder."
+            )
+        target = trunk.state_dict()
+        keep = {k: v for k, v in sd.items()
+                if k in target and tuple(v.shape) == tuple(target[k].shape)}
+        if not keep:
+            raise RuntimeError(f"backbone weights matched 0 {name} tensors")
+        trunk.load_state_dict(keep, strict=False)
+        n += len(keep)
+    return n

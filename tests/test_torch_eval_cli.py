@@ -436,3 +436,50 @@ def test_calc_metrics_without_lpips_weights(tmp_path, monkeypatch, capsys):
     assert res["all_metrics"].startswith(" psnr: ") and res["all_metrics"].endswith("lpips: nan")
     assert calc_metrics.main(argv)["objects"] == []
     assert len(calc_metrics.main(argv + ["--overwrite"])["objects"]) == 1
+
+
+def test_eval_approx_gives_each_object_its_focal(tmp_path, monkeypatch, capsys):
+    """Objects of one batch with their own focal (the port's DVR writer,
+    ``focal`` per object): the port's ``eval_approx --batch_size 3`` against
+    the root CLI at ``--batch_size 1``, where each object is a batch of its
+    own and so rendered with its own focal (at a larger batch the root CLI
+    takes the first object's: ROADMAP.md, reference gaps).  Two views an
+    object and ``-P "0"``, so both CLIs target view 1 whatever their
+    batches; JAX's draws fed: the same rays within 1e-5, frames within one
+    u8 level, the final PSNR within 1e-3 dB and SSIM within 1e-4."""
+    from pixelnerf_tpu_torch.data import get_split_dataset, write_synthetic_dvr
+    from pixelnerf_tpu_torch.eval.eval_approx import main as approx_main
+
+    focals = [10.0, 14.5, 12.0, 16.0, 11.0, 13.0]
+    data = write_synthetic_dvr(str(tmp_path / "dvr"), n_objs=6, n_views=2, image_size=16,
+                               focal=focals)
+    dset = get_split_dataset("dvr", data, want_split="train", training=False)
+    got_f = [float(np.asarray(dset[i]["focal"]).reshape(-1)[0]) for i in range(len(dset))]
+    np.testing.assert_allclose(got_f, focals[:4], rtol=1e-6)  # 4 train objects, own focals
+    conf, ck = _checkpoint(tmp_path)
+
+    def args(batch):
+        return ["-n", "ev", "-c", str(conf), "-F", "dvr", "-D", data, "--checkpoints_path",
+                str(ck), "--split", "train", "-P", "0", "--batch_size", batch, "-R", "100"]
+
+    jcalls, calls = _fed_renders(monkeypatch)
+    monkeypatch.chdir(tmp_path)
+    _run_root(monkeypatch, "eval/eval_approx.py", args("1"))
+    jout = capsys.readouterr().out
+    res = approx_main(args("3") + ["--device", "cpu"])
+    out = capsys.readouterr().out
+    assert len(calls) == len(jcalls) == res["cnt"] == 4
+    assert [o[2] for o in res["objects"]] == [1] * 4
+    for i, ((rays, rgb, _), (jrays, _, jrgb, _)) in enumerate(zip(calls, jcalls)):
+        own = geometry.gen_rays_np(dset[i]["poses"][1:2], 16, 16, got_f[i], dset.z_near,
+                                   dset.z_far).reshape(-1, 8)
+        np.testing.assert_allclose(rays, own, rtol=0, atol=1e-5)  # the object's own focal
+        np.testing.assert_allclose(rays, jrays, rtol=0, atol=1e-5)
+        assert np.abs(rgb - jrgb).max() <= 1 / 255
+
+    def final(text):
+        ln = [ln for ln in text.splitlines() if ln.startswith("final psnr")][0]
+        return [float(v) for v in re.findall(r"[-\d.e]+(?=\s|$)", ln)]
+
+    (p, s), (jp, js) = final(out), final(jout)
+    assert abs(p - jp) <= 1e-3 and abs(s - js) <= 1e-4

@@ -139,7 +139,18 @@ def test_kernel_dispatch():
     assert not auto._kernel_route((1, 3), torch.device("cpu"))
     _, _, auto = _pair(6, 8, 16, 2, 1, impl="auto")
     assert not auto._kernel_route((1, 3), torch.device("cpu"))
-    assert auto._kernel_route((1, 3), torch.device("cuda"))
+    # a 16-wide tower is outside the kernels' widths: plain on the card too
+    # (the route rule's envelope, tests/test_torch_wide_latent.py); a 512-wide
+    # one takes the kernels there
+    assert not auto._kernel_route((1, 3), torch.device("cuda"))
+    assert _wide(impl="auto")._kernel_route((1, 3), torch.device("cuda"))
+
+
+def _wide(**kw):
+    """A tower at the kernels' hidden width (512), on the meta device."""
+    with torch.device("meta"):
+        return ResnetFC(d_in=6, d_out=4, n_blocks=2, d_latent=16, d_hidden=512, combine_layer=1,
+                        **kw)
 
 
 @pytest.mark.parametrize("impl", ["auto", "cuda"])
@@ -148,10 +159,17 @@ def test_multi_view_on_card_raises(impl):
     n_blocks``) is the JAX package's multi-view kernel route: card tensors
     take the multi-view kernels under ``cuda`` and ``auto`` (no longer the
     ``NotImplementedError`` this test once pinned), at NS 2 and 3.  Without
-    the view mean it is plain, as in the JAX package."""
+    the view mean it is plain, as in the JAX package.  A tower outside the
+    kernels' widths (16 wide) is plain on the card under ``auto`` and raises
+    under ``cuda``."""
     _, _, port = _pair(6, 8, 16, 2, 1, impl=impl)
     for NS in (2, 3):
-        assert port._kernel_route((NS, 3), torch.device("cuda"))
+        assert _wide(impl=impl)._kernel_route((NS, 3), torch.device("cuda"))
+        if impl == "auto":
+            assert not port._kernel_route((NS, 3), torch.device("cuda"))
+        else:
+            with pytest.raises(ValueError, match="d_hidden"):
+                port._kernel_route((NS, 3), torch.device("cuda"))
         # CPU tensors take the plain forward under "auto", the kernels' plain
         # versions under "cuda"
         assert port._kernel_route((NS, 3), torch.device("cpu")) == (impl == "cuda")
