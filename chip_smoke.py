@@ -201,10 +201,20 @@ one line each:
     versions at the bar of 3; the dense and multi-view dense kernels and
     their code variants at C = 640 (393,216 output points from 1 and 3
     views) against their plain versions, timed in turns beside C = 512, with
-    their plain, cuBLAS and bound times; three ``-V 1`` train CLI steps with
-    the global encoder on the NMR fixture, on the plain field route (the
-    backward kernels take C = 512 only): no launch, finite losses, the
-    global encoder trained.
+    their plain, cuBLAS and bound times; the backward kernels (rows 5a / 5b)
+    at C = 128, 640 and 1024 from 1 and 3 views, at a ragged B and at the
+    train step's fine pass (4 x 12,288 points), against their plain
+    versions, bit-identical second calls, and timed at the train
+    step's fine pass in turns beside C = 512 (-V 1: 640 and 128; -V 3: 640)
+    with their plain, library and bound times; three train CLI steps each
+    (``OPT_TRAIN``) with the global encoder at ``-V 1`` on the NMR fixture
+    and ``-V 3`` on the DTU one, and with the ConvEncoder at ``-V 1``: remat
+    off, the forward kernel and both backward kernels twice a step, finite
+    losses, the encoder trained, ms a step; and each of those three
+    configurations' train step on the kernel route against the plain f32
+    step at the guards of 9 (cosine per head and per encoder, the global
+    encoder included; weights where both heads' sigma is live, and no
+    module with a zero gradient on both routes).
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -239,6 +249,8 @@ DTU_EVAL_VIEWS = (0, 10, 33, 45)
 # the eval CLI's rays a render call: the dense multi-view route holds
 # rays x 96 samples x views latents of 512 f32 (9.7 GB at 3 views)
 EVAL_RAYS = 16384
+# the forward kernel a train step at that view count runs
+STEP_KERNEL = {1: "resnetfc_fwd_dense", 3: "resnetfc_fwd_dense_mv"}
 
 
 def log(msg: str) -> None:
@@ -569,8 +581,85 @@ def profile_split(path: str, smi: str, step_kernel: str, label: str = "profile")
         + json.dumps([(round(ms, 3), n, h) for ms, n, h in sp["gaps"]]))
 
 
+def step_parity(conf, state, nviews: int, dev, label: str, note: str = "") -> dict:
+    """One train step on the kernel route (AMP) and one on the plain f32
+    route, both from ``state``, on one ``prepare_ray_batch`` batch of -F
+    synthetic (B 4, V ``nviews``, R 128) with shared draws and one generator
+    seed (so the same dropout masks): the guards of PERF.md section 2 (loss
+    within 1%, ``grad_norm`` within 2%, gradient cosine >= 0.99 for each
+    top-level module: each head and each encoder), the kernel route
+    launching its forward kernel (the dense one at one view, the multi-view
+    one past it), ``resnetfc_bwd_data`` and ``resnetfc_bwd_weights`` twice
+    each and nothing else, the plain route nothing.  A module whose gradient
+    is exactly zero on both routes (a head that no sample reaches: every
+    sigma at or below zero) fails: its kernels would be compared on
+    nothing.  Logs one line, exits on a failure, returns the kernel route's
+    launches."""
+    import numpy as np
+
+    from pixelnerf_tpu_torch.data import collate, get_split_dataset
+    from pixelnerf_tpu_torch.models.losses import l2_loss
+    from pixelnerf_tpu_torch.models.pixelnerf import make_model
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
+    from pixelnerf_tpu_torch.render.renderer import NeRFRenderer, RayDraws
+    from pixelnerf_tpu_torch.train import Optimizer, make_step_fns, prepare_ray_batch
+
+    ds = get_split_dataset("synthetic", "", want_split="train")
+    rcfg = NeRFRenderer.from_conf(conf["renderer"], lindisp=ds.lindisp).cfg
+    n_rays, n_imp = 4 * 128, rcfg.n_fine - rcfg.n_fine_depth
+    batch_np = prepare_ray_batch(collate([ds[i] for i in range(len(ds))]), nviews, 128,
+                                 ds.z_near, ds.z_far, True, np.random.default_rng(SEED))
+    batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
+    gd = torch.Generator(device=dev).manual_seed(SEED + 3)
+    draws = RayDraws(
+        coarse=torch.rand(n_rays, rcfg.n_coarse, device=dev, generator=gd),
+        fine_u=torch.rand(n_rays, n_imp, device=dev, generator=gd),
+        fine_jitter=torch.rand(n_rays, n_imp, device=dev, generator=gd),
+        depth=torch.randn(n_rays, rcfg.n_fine_depth, device=dev, generator=gd))
+    steps = {}
+    for route, impl, amp in (("kernel", "auto", True), ("plain", "torch", False)):
+        tnet = make_model(conf["model"], mlp_impl=impl, device=dev, diff_mode=True)
+        tnet.load_state_dict(state)
+        opt = Optimizer(list(tnet.parameters()), lambda t: 1e-4)
+        train_step, _ = make_step_fns(tnet, opt, lambda: rcfg, 1.0, 1.0, l2_loss, l2_loss,
+                                      tnet.use_viewdirs, amp=amp,
+                                      remat=not tnet.field_backward_in_kernel(nviews))
+        rf.reset_launches()
+        rv.reset_launches()
+        ld = {k: float(v) for k, v in train_step(
+            batch, torch.Generator(device=dev).manual_seed(SEED + 5), draws).items()}
+        torch.cuda.synchronize()
+        groups = {}
+        for n, prm in tnet.named_parameters():
+            groups.setdefault(n.split(".")[0], []).append(prm.grad.detach().float().flatten())
+        steps[route] = (ld, {k: torch.cat(v) for k, v in groups.items()},
+                        {k: v for k, v in dict(rf.LAUNCHES, **rv.LAUNCHES).items() if v})
+        del tnet, opt
+    (lk, gk, nk), (lp, gp, np_) = steps["kernel"], steps["plain"]
+    cos = {k: cosine(gk[k], gp[k]) for k in gp}
+    dead = sorted(k for k in gp if not gk[k].any() and not gp[k].any())
+    d_loss = abs(lk["t"] - lp["t"]) / abs(lp["t"])
+    d_norm = abs(lk["grad_norm"] - lp["grad_norm"]) / lp["grad_norm"]
+    fwd = STEP_KERNEL[nviews]
+    ok = (d_loss <= 0.01 and d_norm <= 0.02 and not dead and all(v >= 0.99 for v in cos.values())
+          and nk == {fwd: 2, "resnetfc_bwd_data": 2, "resnetfc_bwd_weights": 2} and not np_)
+    norms = {k: [float(f"{gk[k].norm().item():.6g}"), float(f"{gp[k].norm().item():.6g}")]
+             for k in gp}
+    log(f"{label + ' ' if label else ''}train-step parity -V {nviews}{note}: loss kernel "
+        f"{lk['t']:.6f} plain {lp['t']:.6f} (rel {d_loss:.3g} <= 0.01); grad_norm "
+        f"{lk['grad_norm']:.6f} vs {lp['grad_norm']:.6f} (rel {d_norm:.3g} <= 0.02); gradient "
+        f"cosine {json.dumps({k: round(v, 6) for k, v in cos.items()})} (>= 0.99); zero on "
+        f"both routes (must be none): {dead}; gradient norms "
+        f"[kernel, plain] {json.dumps(norms)}; kernel-route launches {nk}; plain-route "
+        f"launches {np_}")
+    if not ok:
+        raise SystemExit(f"{label + ' ' if label else ''}train-step parity failed at -V {nviews}")
+    return nk
+
+
 def train_eval_paths(nmr_root, dtu_root, net, smi, records, code_records, bwd_ms,
-                     weights_ms_at, fwd_ms, n_rays, step_kernel) -> dict:
+                     weights_ms_at, fwd_ms, n_rays) -> dict:
     """Phases 10-11: the train CLI on -F dvr (-V 1, traced) and -F dvr_dtu
     (-V 3), then the eval CLI on -F dvr (1, 2 and 3 source views, deferred
     code) and on -F dvr_dtu (3 views, --scale 0.25, ground-truth compare).
@@ -587,7 +676,7 @@ def train_eval_paths(nmr_root, dtu_root, net, smi, records, code_records, bwd_ms
     step_ms_at = {}
     for nviews, conf_path, fmt, root, epochs in ((1, "conf/exp/sn64.conf", "dvr", nmr_root, 12),
                                                  (3, "conf/exp/dtu.conf", "dvr_dtu", dtu_root, 1)):
-        fwd = step_kernel[nviews]
+        fwd = STEP_KERNEL[nviews]
         os.environ["PIXELNERF_ALLOW_RANDOM_BACKBONE"] = "1"  # no backbone weights on this machine
         try:
             with tempfile.TemporaryDirectory() as ck:
@@ -1359,20 +1448,11 @@ def multiscale_phase(conf, net, src3, rays, dev, smi, records, code_records, nmr
                      sn64_step_ms) -> None:
     """Phase 14: ``conf/exp/sn64_multiscale.conf`` at full width (see the
     module docstring)."""
-    import types
-
-    import numpy as np
-
     from pixelnerf_tpu_torch import entry
-    from pixelnerf_tpu_torch.data import collate, get_split_dataset
     from pixelnerf_tpu_torch.eval.eval import main as eval_main
     from pixelnerf_tpu_torch.eval.gen_video import main as gen_video_main
-    from pixelnerf_tpu_torch.models.losses import l2_loss
-    from pixelnerf_tpu_torch.models.pixelnerf import make_model
     from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
     from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
-    from pixelnerf_tpu_torch.render.renderer import NeRFRenderer, RayDraws
-    from pixelnerf_tpu_torch.train import Optimizer, make_step_fns, prepare_ray_batch
     from pixelnerf_tpu_torch.train import main as train_main
 
     t_phase = time.perf_counter()
@@ -1498,57 +1578,10 @@ def multiscale_phase(conf, net, src3, rays, dev, smi, records, code_records, nmr
         ms_launches["resnetfc_fwd_dense"]["frame 0, raw pyramid"] = la["resnetfc_fwd_dense"]
 
     # ---- train-step parity, -V 1 and -V 3, dropout on ----
-    ds = get_split_dataset("synthetic", "", want_split="train")
-    rcfg = NeRFRenderer.from_conf(ms_conf["renderer"], lindisp=ds.lindisp).cfg
-    n_rays, n_imp = 4 * 128, rcfg.n_fine - rcfg.n_fine_depth
-    step_kernel = {1: "resnetfc_fwd_dense", 3: "resnetfc_fwd_dense_mv"}
     for nviews in (1, 3):
-        batch_np = prepare_ray_batch(collate([ds[i] for i in range(len(ds))]), nviews, 128,
-                                     ds.z_near, ds.z_far, True, np.random.default_rng(SEED))
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
-        gd = torch.Generator(device=dev).manual_seed(SEED + 3)
-        draws = RayDraws(
-            coarse=torch.rand(n_rays, rcfg.n_coarse, device=dev, generator=gd),
-            fine_u=torch.rand(n_rays, n_imp, device=dev, generator=gd),
-            fine_jitter=torch.rand(n_rays, n_imp, device=dev, generator=gd),
-            depth=torch.randn(n_rays, rcfg.n_fine_depth, device=dev, generator=gd))
-        steps = {}
-        for route, impl, amp in (("kernel", "auto", True), ("plain", "torch", False)):
-            tnet = make_model(ms_conf["model"], mlp_impl=impl, device=dev, diff_mode=True)
-            tnet.load_state_dict(state)
-            opt = Optimizer(list(tnet.parameters()), lambda t: 1e-4)
-            train_step, _ = make_step_fns(tnet, opt, lambda: rcfg, 1.0, 1.0, l2_loss, l2_loss,
-                                          tnet.use_viewdirs, amp=amp,
-                                          remat=not tnet.field_backward_in_kernel(nviews))
-            rf.reset_launches()
-            rv.reset_launches()
-            # the same dropout masks on both routes: one seed, drawn first
-            ld = {k: float(v) for k, v in train_step(
-                batch, torch.Generator(device=dev).manual_seed(SEED + 5), draws).items()}
-            torch.cuda.synchronize()
-            groups = {}
-            for n, prm in tnet.named_parameters():
-                groups.setdefault(n.split(".")[0], []).append(
-                    prm.grad.detach().float().flatten())
-            steps[route] = (ld, {k: torch.cat(v) for k, v in groups.items()},
-                            {k: v for k, v in dict(rf.LAUNCHES, **rv.LAUNCHES).items() if v})
-            del tnet, opt
-        (lk, gk, nk), (lp, gp, np_) = steps["kernel"], steps["plain"]
-        cos = {k: cosine(gk[k], gp[k]) for k in gp}
-        d_loss = abs(lk["t"] - lp["t"]) / abs(lp["t"])
-        d_norm = abs(lk["grad_norm"] - lp["grad_norm"]) / lp["grad_norm"]
-        fwd = step_kernel[nviews]
-        ok = (d_loss <= 0.01 and d_norm <= 0.02 and min(cos.values()) >= 0.99
-              and nk == {fwd: 2, "resnetfc_bwd_data": 2, "resnetfc_bwd_weights": 2}
-              and not np_)
-        log(f"multiscale train-step parity -V {nviews} (fusion dropout "
-            f"{ms.feature_fusion.dropout}, one generator seed on both routes): loss kernel "
-            f"{lk['t']:.6f} plain {lp['t']:.6f} (rel {d_loss:.3g} <= 0.01); grad_norm "
-            f"{lk['grad_norm']:.6f} vs {lp['grad_norm']:.6f} (rel {d_norm:.3g} <= 0.02); "
-            f"gradient cosine {json.dumps({k: round(v, 6) for k, v in cos.items()})} "
-            f"(>= 0.99); kernel-route launches {nk}; plain-route launches {np_}")
-        if not ok:
-            raise SystemExit(f"multiscale train-step parity failed at -V {nviews}")
+        step_parity(ms_conf, state, nviews, dev, "multiscale",
+                    f" (fusion dropout {ms.feature_fusion.dropout}, one generator seed on both "
+                    "routes)")
 
     # ---- the train CLI on -F dvr, then eval and gen_video on its checkpoint ----
     restore = _env({"PIXELNERF_ALLOW_RANDOM_BACKBONE": "1"})  # no backbone weights here
@@ -1556,7 +1589,7 @@ def multiscale_phase(conf, net, src3, rays, dev, smi, records, code_records, nmr
         with tempfile.TemporaryDirectory() as tmp:
             ck = os.path.join(tmp, "ck")
             for nviews, epochs in MS_TRAIN:
-                fwd = step_kernel[nviews]
+                fwd = STEP_KERNEL[nviews]
                 prof = os.path.join(tmp, "profile")
                 argv = ["-n", f"ms_v{nviews}", "-c", MS_CONF, "-F", "dvr", "-D", nmr_root,
                         "-B", "4", "-V", str(nviews), "-R", "128", "--epochs", str(epochs),
@@ -1917,7 +1950,12 @@ def eval_cli_phase(net, dev, smi: str, records: dict, code_records: dict, nmr_ro
 
 
 # phase 16: the fork's remaining model options at sn64's widths
-OPT_TRAIN_STEPS = 3  # -V 1 train CLI steps with the global encoder (the plain field route)
+OPT_TRAIN_STEPS = 3  # train CLI steps of each option's run (one step an epoch)
+# the options' train CLI runs: (option, -V, -F); each runs the backward kernels
+OPT_TRAIN = (("global", 1, "dvr"), ("global", 3, "dvr_dtu"), ("conv", 1, "dvr"))
+# rows 5a / 5b at latent widths other than sn64's: the ConvEncoder's, the
+# global encoder's and the widest
+WIDE_BWD_C = (128, 640, 1024)
 
 
 def option_confs(base):
@@ -1951,7 +1989,211 @@ def option_confs(base):
     return out
 
 
-def options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_root) -> None:
+def live_state(conf, dev) -> dict:
+    """The weights of an option's train-step parity: ``conf`` seeded at
+    SEED + 1, every ResnetFC block's fc_1 ~ N(0, 0.02^2) (seeded SEED + 2)
+    and each head's sigma bias raised by 1, as the accel trainer's heads
+    are, so that both heads' sigma is positive at some of the parity batch's
+    points in each option's run (the render weights, seeded SEED, give the
+    global encoder's fine head sigma <= 0 at every point of the -V 3 batch:
+    a zero gradient on both routes)."""
+    from pixelnerf_tpu_torch import entry
+
+    net = entry.build_model(conf, dev, seed=SEED + 1)
+    g = torch.Generator().manual_seed(SEED + 2)
+    with torch.no_grad():
+        for mlp in (net.mlp_coarse, net.mlp_fine):
+            for blk in mlp.blocks:
+                blk.fc_1.weight.copy_(0.02 * torch.randn(blk.fc_1.weight.shape, generator=g))
+            mlp.lin_out.bias[3] += 1.0
+    return net.state_dict()
+
+
+def bwd_tower(C: int, d_in: int, dev, seed: int):
+    """sn64's fine tower (5 blocks x 512, the latent in blocks 0-2, the views'
+    mean at block 3) at latent width C, seeded (biases ~ N(0, 0.05^2),
+    weights ~ N(0, 1 / fan_in)): the module and its packed weights."""
+    from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
+
+    g = torch.Generator().manual_seed(seed)
+    m = ResnetFC(d_in=d_in, d_out=4, n_blocks=5, d_latent=C, d_hidden=512, combine_layer=3,
+                 impl="cuda")
+    with torch.no_grad():
+        for name, prm in m.named_parameters():
+            std = 0.05 if name.endswith("bias") else prm.shape[1] ** -0.5
+            prm.copy_(torch.randn(prm.shape, generator=g) * std)
+    m = m.to(dev)
+    return m, m.tower(dev)
+
+
+def wide_backward_phase(conf, dev, smi, records) -> None:
+    """Phase 16's rows 5a / 5b at latent widths other than 512: at each C of
+    WIDE_BWD_C from 1 view (2000 points) and from 3 (SB 2 x 333), the last
+    64-point tile half full, and at the train step's fine pass (SB 4 x
+    12,288 points from 1 and from 3 views: a persistent CTA walks several
+    tiles, the ring feed carrying pieces from tile to tile), the data
+    kernel's stashed operands against the
+    plain recompute, the dense forward's output against lin_out of the
+    stashed t (the recompute in the primal's order), every gradient against
+    the plain backward walked through the kernel's own operands and against
+    the independent plain backward, the weights kernel against
+    ``bwd_weights_reference`` on its own DataOut, a launch each and
+    bit-identical second calls; then both kernels timed at the train step's
+    fine pass (-V 1: 49,152 points at C = 512, 640 and 128 in turns; -V 3:
+    49,152 output points at C = 512 and 640 in turns) with their plain,
+    library and bound times."""
+    from pixelnerf_tpu_torch.models.code import PositionalEncoding
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
+
+    nb, cl, H, d_out = 5, 3, 512, 4
+    code = PositionalEncoding.from_conf(conf["model.code"], d_in=3)
+    d_in = code.d_out + 3
+    gi = torch.Generator(device=dev).manual_seed(SEED + 17)
+    towers = {C: bwd_tower(C, d_in, dev, SEED + C) for C in (512,) + WIDE_BWD_C}
+    names = ("resnetfc_bwd_data", "resnetfc_bwd_weights")
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def inputs(C, NS, sb, B_obj):
+        rows, B = NS * sb * B_obj, sb * B_obj
+        pts = torch.rand(rows, 3, device=dev, generator=gi) * 2 - 1
+        vd = torch.nn.functional.normalize(torch.randn(rows, 3, device=dev, generator=gi), dim=-1)
+        x = torch.cat([code(pts), vd], dim=-1).contiguous()
+        z = (torch.randn(rows, C, device=dev, generator=gi) * 0.5).bfloat16()
+        return x, z, torch.randn(d_out, B, device=dev, generator=gi)
+
+    # ---- gates: C = 128, 640, 1024 from 1 and 3 views, ragged B and the
+    # train step's fine pass ----
+    for C in WIDE_BWD_C:
+        tw = towers[C][1]
+        for NS, sb, B_obj in ((1, 2, 1000), (3, 2, 333), (1, 4, 128 * 96), (3, 4, 128 * 96)):
+            kw = dict(NS=NS, sb=sb, combine_layer=cl) if NS > 1 else {}
+            x, z, g = inputs(C, NS, sb, B_obj)
+            B = sb * B_obj
+            grid = rv.data_grid(B, NS, n_sms, rv.DATA_LIMITS)
+            rv.reset_launches()
+            data = rv.bwd_data(g, z, x, tw, nb, True, **kw)
+            gr = rv.bwd_weights(z, data, tw, nb)
+            torch.cuda.synchronize()
+            one_each = rv.LAUNCHES == {n: 1 for n in names}
+            ops_k = data.ws_act[:, :B].float()
+            ops_p = rv.forward_operands(z, x, tw, nb, torch.bfloat16, **kw)
+            d, bar, corr = agree(ops_k, ops_p)
+            flips = ((ops_k > 0) != (ops_p > 0)).float().mean().item()
+            with torch.no_grad():
+                out_f = (rf.resnetfc_dense(z, x, tw, nb) if NS == 1
+                         else rf.resnetfc_dense_mv(z, x, tw, nb, NS, cl, sb)).double()
+                lin = (data.ws_act[-1, :B].double() @ tw.w_out.double()).t() + tw.b_out.double()[:, None]
+                same_order = (out_f - lin).abs().max().item() <= 1e-5 * max(1.0, out_f.abs().max().item())
+            ok = one_each and d <= bar and corr > 0.999 and flips <= 1e-3 and same_order
+            same = rv.resnetfc_bwd_reference(g, z, x, tw, nb, True, torch.bfloat16, operands=ops_k,
+                                             **kw)
+            ind = rv.resnetfc_bwd_reference(g, z, x, tw, nb, True, torch.bfloat16, **kw)
+            wref = rv.bwd_weights_reference(z, data, tw, nb)
+            err, worst = {n: 0.0 for n in names}, {}
+            for name in rv.Grads._fields:
+                out = getattr(gr, name).float()
+                d1, bar1, c1 = agree(out, getattr(same, name))
+                _, _, c2 = agree(out, getattr(ind, name))
+                fine = d1 <= bar1 and c1 > 0.999 and c2 > 0.999 and bool(torch.isfinite(out).all())
+                owner = names[0] if name in ("dz", "dx") else names[1]
+                if owner == names[1]:  # the weights kernel alone, on its own DataOut
+                    d3, bar3, c3 = agree(out, getattr(wref, name))
+                    fine = fine and d3 <= bar3 and c3 > 0.999
+                    d1 = max(d1, d3)
+                ok = ok and fine
+                err[owner] = max(err[owner], d1)
+                worst[name] = [float(f"{d1 / bar1:.4g}"), round(c1, 7), round(c2, 7)]
+            del same, ind, wref, ops_k, ops_p, out_f
+            gr2 = rv.bwd_weights(z, rv.bwd_data(g, z, x, tw, nb, True, **kw), tw, nb)
+            identical = all(torch.equal(getattr(gr, n), getattr(gr2, n)) for n in rv.Grads._fields)
+            ok = ok and identical
+            log(f"wide backward check C = {C} (sn64's tower), -V {NS}: {sb} x {B_obj} = {B} "
+                f"points{f', {NS * B} rows' if NS > 1 else ''} ("
+                + ("the last 64-point tile half full" if B % 64 else "the train step's fine pass")
+                + f", {grid[1]} tiles on {grid[2]} CTAs): one launch each {one_each}; stashed "
+                f"operands vs plain recompute max|d| {d:.6g} <= {bar:.6g}, corr {corr:.7f}, "
+                f"relu-mask flips {flips:.3g} (<= 1e-3); "
+                f"the dense forward is lin_out of the stashed t {same_order}; per gradient "
+                f"[max|d| / bar vs plain on the kernel's operands (the weights: also vs "
+                f"bwd_weights_reference on its DataOut), corr, corr vs the independent plain "
+                f"backward] {json.dumps(worst)}; bit-identical second calls {identical}; "
+                f"{data.ws_x.shape[0] // NS} rows a view, "
+                f"{rv.data_steps(nb, 3, NS, cl if NS > 1 else nb, C)} stored steps")
+            if not ok:
+                raise SystemExit(f"wide backward check failed at C = {C}, -V {NS}, {B} points")
+            for n in names:
+                records[n]["max_abs_err"] = max(records[n].get("max_abs_err", 0.0), err[n])
+            del data, gr, gr2, x, z, g
+
+    # ---- times at the train step's fine pass, C in turns beside 512 ----
+    w_bytes = {C: sum(t.numel() * t.element_size() for t in tw[:8])
+               for C, (_, tw) in towers.items()}
+    for NS, widths in ((1, (512, 640, 128)), (3, (512, 640))):
+        sb, B_obj = 4, 128 * 96
+        kw = dict(NS=NS, sb=sb, combine_layer=cl) if NS > 1 else {}
+        B, rows = sb * B_obj, NS * sb * B_obj
+        pre = nb if NS == 1 else cl
+        case = {}
+        for C in widths:
+            x, z, g = inputs(C, NS, sb, B_obj)
+            tw = towers[C][1]
+            data = rv.bwd_data(g, z, x, tw, nb, False, **kw)
+            case[C] = (x, z, g, tw, data)
+        t = {C: {n: [] for n in names} for C in widths}
+        for C in widths + widths[::-1]:  # in turns
+            x, z, g, tw, data = case[C]
+            t[C][names[0]].append(cuda_ms(lambda: rv.bwd_data(g, z, x, tw, nb, False, **kw), 5))
+            t[C][names[1]].append(cuda_ms(lambda: rv.bwd_weights(z, data, tw, nb), 5))
+        ms = {C: {n: sum(v) / len(v) for n, v in t[C].items()} for C in widths}
+        for C in widths[1:]:
+            x, z, g, tw, data = case[C]
+            plain = {names[0]: cuda_ms(lambda: rv.workspace_reference(g, z, x, tw, nb, **kw), 2),
+                     names[1]: cuda_ms(lambda: rv.bwd_weights_reference(z, data, tw, nb), 2)}
+            w_ops = [rv.task_operands(tk, z, data)
+                     for tk in rv.weight_tasks(tw.w_in.shape[0], H, C, nb, 3, NS, data.pre, B)]
+            lib = {names[1]: cuda_ms(lambda: [torch.matmul(a.t(), gg[: a.shape[0]])
+                                              for a, gg in w_ops], 5)}
+            del w_ops
+            leaves = [tt.detach().bfloat16().requires_grad_() for tt in tw[:8]]
+            with torch.enable_grad():
+                if NS == 1:
+                    zl = z.detach().requires_grad_()
+                    lout = library_tower(zl, x, rf.Tower(*leaves, tw.d_in), nb)
+                else:
+                    zl = by_view(z, NS, sb).detach().requires_grad_()
+                    lout = library_tower_mv(zl, by_view(x, NS, sb), rf.Tower(*leaves, tw.d_in),
+                                            nb, NS, cl)
+            lib[names[0]] = cuda_ms(
+                lambda: torch.autograd.grad(lout, [zl, *leaves], g, retain_graph=True), 5)
+            del lout, leaves, zl
+            # forward FLOP per output point, the bf16 workspace (written once, read once)
+            f_pt = 2 * H * (NS * (d_in + 3 * C + 2 * pre * H) + 2 * (nb - pre) * H + d_out)
+            ws = sum(tt.numel() * tt.element_size()
+                     for tt in (data.ws_act, data.ws_cot, data.ws_x, data.ws_z) if tt is not None)
+            io = rows * (C * 2 + d_in * 4) + B * d_out * 4 + w_bytes[C]
+            bounds = {names[0]: bound(B * 2 * f_pt, io + ws + rows * (C * 4 + d_in * 4)),
+                      names[1]: bound(B * f_pt, ws + rows * C * 2 + 2 * w_bytes[C])}
+            for n in names:
+                b_ms, b_by = bounds[n]
+                log(f"wide backward time: {n} at C = {C}, -V {NS}, {B} output points"
+                    f"{f' ({rows} rows)' if NS > 1 else ''}: in turns {ms[C][n]:.4f} ms beside "
+                    f"{ms[512][n]:.4f} at C = 512 ({ms[C][n] / ms[512][n]:.4f}x)"
+                    + (f", {ms[128][n]:.4f} at C = 128" if C == 640 and 128 in ms else "")
+                    + f"; {B * (2 if n == names[0] else 1) * f_pt / ms[C][n] / 1e9:.1f} TFLOP/s; "
+                    f"plain_ms {plain[n]:.4f}; library_ms {lib[n]:.4f} ("
+                    + ("autograd backward of the cuBLAS chain" if n == names[0]
+                       else "cuBLAS bf16 A^T G a product")
+                    + f"); bound_ms {b_ms:.4f} ({b_by}); {b_ms / ms[C][n]:.3f} of the bound; "
+                    f"on {smi}")
+                records[n][f"c{C}" + ("" if NS == 1 else f"_ns{NS}")] = dict(
+                    points=B, views=NS, ms=ms[C][n], c512_ms_in_turns=ms[512][n],
+                    plain_ms=plain[n], library_ms=lib[n], bound_ms=b_ms, bound_by=b_by)
+        del case
+
+
+def options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_root,
+                  dtu_root) -> None:
     """Phase 16: the global encoder, the ConvEncoder, the nearest lookup,
     ImplicitNet and a narrow tower at sn64's widths (see the module
     docstring)."""
@@ -2124,43 +2366,59 @@ def options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_ro
                                library_ms=library_ms, max_abs_err=d, corr=corr)
         del raw, rc, x, z640, z512
 
-    # ---- three -V 1 train CLI steps with the global encoder: the plain field route ----
+    # ---- rows 5a / 5b at C = 128, 640 and 1024 ----
+    wide_backward_phase(conf, dev, smi, records)
+
+    # ---- the options' train CLIs on the backward kernels, and their step parity ----
     restore = _env({"PIXELNERF_ALLOW_RANDOM_BACKBONE": "1"})  # no backbone weights here
     try:
-        with tempfile.TemporaryDirectory() as tmp:
-            cpath = os.path.join(tmp, "global.conf")  # sn64's conf with the global encoder on
-            with open(cpath, "w") as fh:
-                fh.write(f'include required("{os.path.abspath("conf/exp/sn64.conf")}")\n'
-                         "model { use_global_encoder = true }\n")
-            rf.reset_launches()
-            rv.reset_launches()
-            t0 = time.perf_counter()
-            trainer = train_main(
-                ["-n", "opt_global", "-c", cpath, "-F", "dvr", "-D", nmr_root, "-B", "4", "-V",
-                 "1", "-R", "128", "--epochs", str(OPT_TRAIN_STEPS), "--checkpoints_path",
-                 os.path.join(tmp, "ck")])
-            torch.cuda.synchronize()
-            wall = time.perf_counter() - t0
+        for what, nviews, fmt in OPT_TRAIN:
+            fwd = STEP_KERNEL[nviews]
+            with tempfile.TemporaryDirectory() as tmp:
+                # sn64's conf with the option on, as a conf file includes it
+                cpath = os.path.join(tmp, f"{what}.conf")
+                with open(cpath, "w") as fh:
+                    fh.write(f'include required("{os.path.abspath("conf/exp/sn64.conf")}")\n'
+                             + ("model { use_global_encoder = true }\n" if what == "global"
+                                else "model { encoder { type = conv } }\n"))
+                rf.reset_launches()
+                rv.reset_launches()
+                t0 = time.perf_counter()
+                trainer = train_main(
+                    ["-n", f"opt_{what}", "-c", cpath, "-F", fmt, "-D",
+                     nmr_root if fmt == "dvr" else dtu_root, "-B", "4", "-V", str(nviews), "-R",
+                     "128", "--epochs", str(OPT_TRAIN_STEPS), "--checkpoints_path",
+                     os.path.join(tmp, "ck")])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
             la = {k: v for k, v in dict(rf.LAUNCHES, **rv.LAUNCHES).items() if v}
             n_steps = trainer.global_step
             finite = n_steps == OPT_TRAIN_STEPS and all(math.isfinite(v) for v in trainer.history)
-            gfc = trainer.net.global_encoder.fc.weight.grad
-            moved = gfc is not None and float(gfc.abs().sum()) > 0.0
-            log(f"options train path: python -m pixelnerf_tpu_torch.train -c conf/exp/sn64.conf "
-                f"+ use_global_encoder -F dvr -B 4 -V 1 -R 128: {n_steps} steps in {wall:.3f} s, "
-                f"{1e3 * sum(trainer.step_seconds[1:]) / max(1, n_steps - 1):.3f} ms a step after "
-                f"the first; remat {trainer.remat}; launches {la} (no backward kernel: they "
-                f"take C = 512 only, so the train steps' field is plain; its validation step runs "
-                f"no grad, on the dense kernel); losses {[round(v, 5) for v in trainer.history]}; "
-                f"the global encoder trained {moved}; on {smi}")
-            if not (finite and moved and trainer.remat and set(la) <= {"resnetfc_fwd_dense"}):
-                raise SystemExit("options: the global encoder's train steps failed or left the "
-                                 "plain field route")
+            enc = trainer.net.global_encoder if what == "global" else trainer.net.encoder
+            moved = any(p_.grad is not None and float(p_.grad.abs().sum()) > 0.0
+                        for p_ in enc.parameters())
+            step_ms = 1e3 * sum(trainer.step_seconds[1:]) / max(1, n_steps - 1)
+            C = trainer.net.mlp_fine.d_latent
+            ok = (finite and moved and not trainer.remat and set(la) == {fwd, *rv.LAUNCHES}
+                  and la["resnetfc_bwd_data"] == la["resnetfc_bwd_weights"] == 2 * n_steps
+                  and la[fwd] >= 2 * n_steps and la[fwd] % 2 == 0)
+            label = f"{what} -V {nviews} on -F {fmt}"
+            log(f"options train path: python -m pixelnerf_tpu_torch.train -c conf/exp/sn64.conf + "
+                f"{'use_global_encoder' if what == 'global' else 'encoder.type = conv'} -F {fmt} "
+                f"-B 4 -V {nviews} -R 128 (C = {C}): {n_steps} steps in {wall:.3f} s, "
+                f"{step_ms:.3f} ms a step after the first; remat {trainer.remat}; launches {la} "
+                f"(want {fwd} and both backward kernels twice a step, {fwd} twice more a "
+                f"validation batch); losses {[round(v, 5) for v in trainer.history]}; the "
+                f"{'global encoder' if what == 'global' else 'ConvEncoder'} trained {moved}; "
+                f"on {smi}")
+            if not ok:
+                raise SystemExit(f"options: the {label} train steps failed or left the kernels")
+            for name in (fwd, *rv.LAUNCHES):
+                opt_launches.setdefault(name, {})[f"train CLI, {label}"] = la[name]
+            step_parity(confs[what], live_state(confs[what], dev), nviews, dev,
+                        f"options {what} (C = {C})")
     finally:
         restore()
-    if la:
-        opt_launches.setdefault("resnetfc_fwd_dense", {})["train CLI validation"] = la[
-            "resnetfc_fwd_dense"]
     for name, by_path in opt_launches.items():
         (records[name] if name in records else code_records[name])["options_launches"] = by_path
     log(f"options: phase done in {time.perf_counter() - t_phase:.1f} s")
@@ -3031,76 +3289,23 @@ def main() -> None:
         del data, gr, g, x, z, idx, w, pts, vd
 
     # ---- train-step parity: kernel route (AMP) vs plain f32 route, -V 1 and -V 3 ----
-    import numpy as np
-
-    from pixelnerf_tpu_torch.data import collate, get_split_dataset
-    from pixelnerf_tpu_torch.models.losses import l2_loss
-    from pixelnerf_tpu_torch.models.pixelnerf import make_model
-    from pixelnerf_tpu_torch.render.renderer import NeRFRenderer, RayDraws
-    from pixelnerf_tpu_torch.train import Optimizer, make_step_fns, prepare_ray_batch
+    from pixelnerf_tpu_torch.data import get_split_dataset
 
     ds = get_split_dataset("synthetic", "", want_split="train")
-    rcfg = NeRFRenderer.from_conf(conf["renderer"], lindisp=ds.lindisp).cfg
-    n_rays, n_imp = 4 * 128, rcfg.n_fine - rcfg.n_fine_depth
-    # the forward kernel a step of each view count runs
-    step_kernel = {1: "resnetfc_fwd_dense", 3: "resnetfc_fwd_dense_mv"}
+    n_rays = 4 * 128
     for nviews in (1, 3):
-        batch_np = prepare_ray_batch(collate([ds[i] for i in range(len(ds))]), nviews, 128,
-                                     ds.z_near, ds.z_far, True, np.random.default_rng(SEED))
-        batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
-        gd = torch.Generator(device=dev).manual_seed(SEED + 3)
-        draws = RayDraws(
-            coarse=torch.rand(n_rays, rcfg.n_coarse, device=dev, generator=gd),
-            fine_u=torch.rand(n_rays, n_imp, device=dev, generator=gd),
-            fine_jitter=torch.rand(n_rays, n_imp, device=dev, generator=gd),
-            depth=torch.randn(n_rays, rcfg.n_fine_depth, device=dev, generator=gd),
-        )
         log(f"train-step parity: sn64 full width, the weights of the render phases (seeded, "
             f"random encoder, live fc_1), -F synthetic {len(ds)} objects x {ds.n_views} views at "
             f"{ds.image_size}px, one prepare_ray_batch batch at B 4, V {nviews}, R 128, shared "
             f"draws")
-        steps = {}
-        for route, impl, amp in (("kernel", "auto", True), ("plain", "torch", False)):
-            tnet = make_model(conf["model"], mlp_impl=impl, device=dev, diff_mode=True)
-            tnet.load_state_dict(net.state_dict())
-            opt = Optimizer(list(tnet.parameters()), lambda t: 1e-4)
-            train_step, _ = make_step_fns(tnet, opt, lambda: rcfg, 1.0, 1.0, l2_loss, l2_loss,
-                                          tnet.use_viewdirs, amp=amp,
-                                          remat=not tnet.field_backward_in_kernel(nviews))
-            rf.reset_launches()
-            rv.reset_launches()
-            ld = {k: float(v) for k, v in train_step(batch, gd, draws).items()}
-            torch.cuda.synchronize()
-            groups = {}
-            for n, prm in tnet.named_parameters():
-                groups.setdefault(n.split(".")[0], []).append(prm.grad.detach().float().flatten())
-            steps[route] = (ld, {k: torch.cat(v) for k, v in groups.items()},
-                            dict(rf.LAUNCHES, **rv.LAUNCHES))
-            del tnet, opt
-        (lk, gk, nk), (lp, gp, np_) = steps["kernel"], steps["plain"]
-        cos = {k: cosine(gk[k], gp[k]) for k in gp}
-        d_loss = abs(lk["t"] - lp["t"]) / abs(lp["t"])
-        d_norm = abs(lk["grad_norm"] - lp["grad_norm"]) / lp["grad_norm"]
-        fwd = step_kernel[nviews]
-        ok = (d_loss <= 0.01 and d_norm <= 0.02 and min(cos.values()) >= 0.99
-              and nk[fwd] == 2 and nk["resnetfc_bwd_data"] == 2
-              and nk["resnetfc_bwd_weights"] == 2
-              and not any(v for k, v in nk.items() if k.startswith("resnetfc_fwd") and k != fwd)
-              and not any(np_.values()))
-        log(f"train-step parity -V {nviews}: loss kernel {lk['t']:.6f} plain {lp['t']:.6f} (rel "
-            f"{d_loss:.3g} <= 0.01); grad_norm {lk['grad_norm']:.6f} vs {lp['grad_norm']:.6f} "
-            f"(rel {d_norm:.3g} <= 0.02); gradient cosine "
-            f"{json.dumps({k: round(v, 6) for k, v in cos.items()})} (>= 0.99); kernel-route "
-            f"launches {nk}; plain-route launches {np_}")
-        if not ok:
-            raise SystemExit(f"train-step parity failed at -V {nviews}")
+        step_parity(conf, net.state_dict(), nviews, dev, "")
 
     # ---- data: fixtures written by the port's writers, read back by its adapters ----
     data_dir = tempfile.TemporaryDirectory(prefix="chip_smoke_data_")
     try:
         nmr_root, dtu_root = data_phase(data_dir.name, smi)
         sn64_step_ms = train_eval_paths(nmr_root, dtu_root, net, smi, records, code_records,
-                                        bwd_ms, weights_ms_at, fwd_ms, n_rays, step_kernel)
+                                        bwd_ms, weights_ms_at, fwd_ms, n_rays)
 
         # ---- the occupancy accel on a quick-trained field ----
         code_accel_launches = accel_phase(conf, dev, smi, records, code_records)
@@ -3113,7 +3318,8 @@ def main() -> None:
         eval_cli_phase(net, dev, smi, records, code_records, nmr_root, dtu_root)
 
         # ---- the fork's remaining model options (reads the NMR fixture) ----
-        options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_root)
+        options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_root,
+                      dtu_root)
     finally:
         data_dir.cleanup()
 

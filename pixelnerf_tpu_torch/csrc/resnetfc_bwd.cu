@@ -82,7 +82,19 @@
 // - a 64-point tile writes two rows of per-32-row sums, so the DataOut
 //   (B_pad = B rounded up to 32) is the weights kernel's as before; a last
 //   tile half past B_pad reads zeros and writes nothing there;
-// - no atomics: two calls on the same inputs give the same bits.
+// - no atomics: two calls on the same inputs give the same bits;
+// - a latent of any width the forward takes (16 <= C <= 1024, a multiple of
+//   16: the ConvEncoder's 128, the global encoder's 640) in the forward's
+//   pieces (tile64.cuh, latent_pieces): the recompute injects each piece of
+//   at most 512 columns as a step of its own (its rows of W_z as K, the bias
+//   with the first), and the walk back forms dz one 512-column piece a step
+//   (its rows of W_z as the product's columns) into a (NS B_pad, 512) f32
+//   plane of its own, which the wrapper joins into dz's C columns: so each
+//   piece's epilogue is the one-piece epilogue (no column test, constant
+//   row stride: a stride-C epilogue spilled the multi-view kernel's
+//   registers).  Columns at or past C are computed from whatever W_z rows
+//   TMA reads there (zeros past the array) into the plane's unused part.
+//   At C <= 512 the program and the arithmetic are those of one piece.
 // The tile, its constants and its step kinds are in tile64.cuh, which the
 // dense forwards (resnetfc_fwd_dense, and resnetfc_fwd_dense_mv at NS > 1)
 // share: their programs are this kernel's recompute, so it takes the primal's
@@ -120,7 +132,8 @@ using namespace rfc;
 // ---------------------------------------------------------------------------
 
 // steps of one tile's stored program (data_program; sn64: 34 at one view, 36
-// at any view count: one view's recompute and walk back, the shared steps)
+// at any view count: one view's recompute and walk back, the shared steps;
+// two more an injection at 512 < C <= 1024)
 constexpr int D_MAX_STEPS = 256;
 // f32 words of one CTA's view-sum slot (multi-view): every thread's share of
 // the 64 x 512 stream
@@ -141,7 +154,7 @@ struct BwdParams {
   CUtensorMap m_in, m_z, m_blk;  // w_in (kin, H), w_z (n_lin_z C, H), w_blk (2 n_blocks H, H)
   CUtensorMap m_act;  // ws_act as ((2 NP + 1) B_pad, H): the relu masks, read back
   const float* g;  // (d_out, B) planar f32 cotangent
-  float* dz;       // (NS B_pad, C) f32, written when n_lin_z > 0
+  float* dz;       // (latent_pieces(C), NS B_pad, H) f32: dz's columns 512 j.. in plane j, written when n_lin_z > 0
   float* dx;       // (NS B, d_in) f32, or null
   bf16* ws_act;    // (2 NP + 1, B_pad, H): r_k, s_k, t (NP = plane_at(n_blocks))
   bf16* ws_cot;    // (2 NP + NS, B_pad, H): gb_k, dh_k, g_in
@@ -267,28 +280,33 @@ __device__ __forceinline__ void load_code(const BwdParams& q, unsigned char* til
   }
 }
 
-// The tile's bf16 latent of view v into `tile` (zeros past B); multi-view
-// also stashes it in ws_z.  C = H: 16 chunks of 16 bytes a thread, read two
+// The piece of the tile's bf16 latent of view v at column `off` (at most HID
+// columns) into `tile` (zeros past B); multi-view also stashes it in ws_z,
+// rows of stride C as z's.  Thread t takes the piece's 16-byte chunk t % 64
+// of rows t / 64, + 4, ... (threads past the piece's chunks none), two rows
 // at a time from a clamped row.
 __device__ __forceinline__ void load_latent(const BwdParams& q, unsigned char* tile, int row0, int v,
-                                            int valid) {
+                                            int valid, int off) {
   const TowerParams& p = q.t;
-  constexpr int NQ = HID / 8;
-  for (int e0 = threadIdx.x; e0 < TILE_PTS * NQ; e0 += 2 * TILE_THREADS) {
+  const int c = (threadIdx.x & 63) * 8;
+  if (c >= min(HID, p.C - off)) return;
+  // the stash's first row, kept in one pointer (recomputed per row, the
+  // multi-view kernel spilled); used only where ws_z is set
+  bf16* wz = q.ws_z + ((size_t)v * q.B_pad + row0) * p.C + off + c;
+  for (int r0 = threadIdx.x >> 6; r0 < TILE_PTS; r0 += 8) {
     uint4 v8[2];
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      const int e = e0 + u * TILE_THREADS, r = e / NQ, c = (e - r * NQ) * 8;
-      const int g = min(row0 + r, p.B - 1);
-      v8[u] = __ldg(reinterpret_cast<const uint4*>(p.z + src_row(p, g, v) * HID + c));
+      const int g = min(row0 + r0 + 4 * u, p.B - 1);
+      v8[u] = __ldg(reinterpret_cast<const uint4*>(p.z + src_row(p, g, v) * p.C + off + c));
     }
 #pragma unroll
     for (int u = 0; u < 2; ++u) {
-      const int e = e0 + u * TILE_THREADS, r = e / NQ, c = (e - r * NQ) * 8;
+      const int r = r0 + 4 * u;
       if (row0 + r >= p.B) v8[u] = make_uint4(0u, 0u, 0u, 0u);
       *reinterpret_cast<uint4*>(tile + hopper::sw128_offset(r, c)) = v8[u];
       if (q.ws_z != nullptr && r < valid)
-        *reinterpret_cast<uint4*>(q.ws_z + ((size_t)v * q.B_pad + row0 + r) * HID + c) = v8[u];
+        *reinterpret_cast<uint4*>(wz + (size_t)r * p.C) = v8[u];
     }
   }
 }
@@ -299,8 +317,11 @@ __device__ __forceinline__ void load_latent(const BwdParams& q, unsigned char* t
 // walk_at): the recompute of lin_in, the injections and the
 // blocks below the mean, ending in FOLD; the shared blocks, T_OUT and their
 // walk back, once; the view's walk back, starting at DVIEW.  One view (pre =
-// n_blocks): the three parts walked once, in order.
-__host__ __device__ inline int data_program(int* out, int n_blocks, int n_lin_z, bool mv, int pre) {
+// n_blocks): the three parts walked once, in order.  Each injection is
+// `pieces` steps each way (latent_pieces(C)): Z_FWD with the piece in aux,
+// Z_BWD with it in aux >> 1.
+__host__ __device__ inline int data_program(int* out, int n_blocks, int n_lin_z, bool mv, int pre,
+                                            int pieces) {
   int n = 0;
   auto put = [&](int s) {
     if (out != nullptr) out[n] = s;
@@ -309,7 +330,8 @@ __host__ __device__ inline int data_program(int* out, int n_blocks, int n_lin_z,
   // block 0 reads relu(x) directly when no latent is injected first
   put(step(IN_FWD, 0, n_lin_z == 0 && pre > 0));
   for (int k = 0; k < pre; ++k) {
-    if (k < n_lin_z) put(step(Z_FWD, k, 0));
+    if (k < n_lin_z)
+      for (int j = 0; j < pieces; ++j) put(step(Z_FWD, k, j));
     put(step(B0_FWD, k, 0));
     // the next reader of relu(x) is fc_0 of block k + 1 (or lin_out) unless
     // block k + 1 injects the latent first, or the view mean comes next
@@ -331,14 +353,15 @@ __host__ __device__ inline int data_program(int* out, int n_blocks, int n_lin_z,
   for (int k = pre - 1; k >= 0; --k) {
     put(step(GB, k, 0));
     if (k + 1 < n_lin_z) {
-      put(step(Z_BWD, k + 1, first_z));
+      for (int j = 0; j < pieces; ++j) put(step(Z_BWD, k + 1, (first_z ? 1 : 0) | (j << 1)));
       first_z = false;
     }
     put(step(B1_BWD, k, 0));
     put(step(B0_BWD, k, 0));
   }
   put(step(G_IN, 0, 0));
-  if (n_lin_z > 0) put(step(Z_BWD, 0, first_z));
+  if (n_lin_z > 0)
+    for (int j = 0; j < pieces; ++j) put(step(Z_BWD, 0, (first_z ? 1 : 0) | (j << 1)));
   return n;
 }
 
@@ -364,6 +387,9 @@ __shared__ int d_n_steps, d_seg1, d_seg3, d_feed_v, d_bound, d_end;
 // ragged end), read where used rather than kept in registers
 __shared__ int d_row0, d_valid;
 __shared__ Feed d_feed;
+
+// Zeros: the bias of an injection's later pieces.
+__device__ float d_zero_bias[HID];
 
 // The weight ring: RING_STAGES stages of STAGE_BYTES bytes at `base` with the
 // mbarriers d_full / d_empty; `it` counts the stages the threads have taken.
@@ -414,7 +440,7 @@ __device__ __forceinline__ void feed(const BwdParams& q, Ring& rg, int slot) {
   if (!MV)
     while (f.tile < n_tiles && !is_gemm(step_kind(d_prog[f.g]))) next_step<false>(q, f);
   if (f.tile < n_tiles) {
-    const Gemm op = gemm_of(d_prog[f.g], q.t.kin, q.t.C);
+    const Gemm op = piece_gemm_of<true>(d_prog[f.g], q.t.kin, q.t.C);
     const CUtensorMap* m = op.map == 0 ? &q.m_in : op.map == 1 ? &q.m_z : &q.m_blk;
     hopper::mbar_arrive_expect_tx(&d_full[slot], STAGE_BYTES);
     unsigned char* dst = rg.base + slot * STAGE_BYTES;
@@ -525,7 +551,7 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
     }
     hopper::mbar_init(&d_mask_full, 1);
     hopper::mbar_fence_init();
-    d_n_steps = data_program(d_prog, nb, nlz, MV, pre);
+    d_n_steps = data_program(d_prog, nb, nlz, MV, pre, latent_pieces(C));
     d_seg1 = d_seg3 = 0;  // one view: no segment is walked twice
     for (int i = 0; i < d_n_steps; ++i) {
       if (step_kind(d_prog[i]) == FOLD) d_seg1 = i + 1;
@@ -737,7 +763,7 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
         if (kind == IN_FWD)
           load_code(q, hb, d_row0, v, d_valid);
         else
-          load_latent(q, hb, d_row0, v, d_valid);
+          load_latent(q, hb, d_row0, v, d_valid, aux * HID);  // the piece's columns
         publish();
         A = hb;
       } else if (kind == B0_FWD) {
@@ -753,7 +779,7 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
         stash(hb, q.ws_cot + (size_t)(NP + pcot) * plane, d_row0, d_valid);
         A = hb;
       }
-      const Gemm op = gemm_of(s, kin, C);
+      const Gemm op = piece_gemm_of<true>(s, kin, C);
       // one product site per epilogue kind, so that each keeps only its own
       // temporaries beside the stream and the accumulators
       if (kind == IN_FWD || kind == Z_FWD || kind == B1_FWD) {
@@ -761,8 +787,10 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
         gemm<MV, 1>(q, rg, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
           const int c0 = piece_col(pc);
           const int kind = step_kind(s), k = step_k(s), aux = step_aux(s);  // from s: fewer live registers
+          // an injection's bias comes with its first piece only: the later
+          // pieces add zeros, as the forward's do
           const float* bias = kind == IN_FWD  ? p.b_in
-                              : kind == Z_FWD ? p.b_z + (size_t)k * HID
+                              : kind == Z_FWD ? (aux ? d_zero_bias : p.b_z + (size_t)k * HID)
                                               : p.b_blk + (size_t)(2 * k + 1) * HID;
 #pragma unroll
           for (int j = 0; j < TILE_ACC / 4; ++j) {  // one bias pair serves rows r and r + 8
@@ -794,20 +822,23 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
           }
         });
       } else if (kind == Z_BWD) {
-        // summed in f32 in dz in injection order (view v's rows start at
-        // v B_pad); each thread reads back only what it wrote
+        // summed in f32 in dz in injection order; each thread reads back only
+        // what it wrote.  dz's columns 512 j.. are plane j (aux >> 1) of
+        // (NS B_pad, H) rows, view v's at v B_pad, so that every piece is a
+        // whole 512-column product written as at C = 512; its columns at or
+        // past C land in the plane's unused part
         gemm<MV, 0>(q, rg, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
           const int c0 = piece_col(pc);
           const int v = MV ? walk_view(si) : 0, aux = step_aux(s);
-          float* dzt = q.dz + ((size_t)v * q.B_pad + d_row0) * HID + c0;  // C = H with a latent
+          float* dzt = q.dz + ((size_t)((aux >> 1) * NS + v) * q.B_pad + d_row0) * HID + c0;
 #pragma unroll
           for (int i0 = 0; i0 < TILE_ACC; i0 += 4) {  // two pairs at a time, their reads together
             float2 o[2];
 #pragma unroll
             for (int u = 0; u < 2; ++u) {
               const int i = i0 + 2 * u, r = min(acc_row(i), d_valid - 1);
-              o[u] = aux ? make_float2(0.0f, 0.0f)
-                         : *reinterpret_cast<const float2*>(dzt + r * HID + acc_col(i));
+              o[u] = (aux & 1) ? make_float2(0.0f, 0.0f)
+                               : *reinterpret_cast<const float2*>(dzt + r * HID + acc_col(i));
             }
 #pragma unroll
             for (int u = 0; u < 2; ++u) {
@@ -1064,15 +1095,17 @@ int resnetfc_bwd_data(const void* g, const void* z, const void* x, const void* w
                       void* ws_cot, void* ws_x, void* ws_z, void* rows, void* vsum, int B,
                       int d_in, int kin, int H, int C, int n_blocks, int n_lin_z, int d_out,
                       int NS, int B_obj, int pre, int n_ctas, void* stream) {
-  if (H != HID || (n_lin_z > 0 && C != HID) || kin < 16 || kin > 128 || kin % 16 != 0 ||
-      d_in > kin || n_blocks < 1 || d_out < 1 || d_out > TILE_MAX_OUT)
+  if (H != HID || (n_lin_z > 0 && (C < 16 || C > MAX_C || C % 16 != 0)) || kin < 16 ||
+      kin > 128 || kin % 16 != 0 || d_in > kin || n_blocks < 1 || d_out < 1 ||
+      d_out > TILE_MAX_OUT)
     return (int)cudaErrorInvalidValue;
   const bool mv = NS > 1;
   if (mv && (pre < 0 || pre >= n_blocks || n_lin_z > pre || B_obj < 1 || B % B_obj != 0 ||
              vsum == nullptr || n_ctas < 1 || (n_lin_z > 0 && ws_z == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (n_blocks > 255 || NS > 255 ||
-      data_program(nullptr, n_blocks, n_lin_z, mv, mv ? pre : n_blocks) > D_MAX_STEPS)
+      data_program(nullptr, n_blocks, n_lin_z, mv, mv ? pre : n_blocks, latent_pieces(C)) >
+          D_MAX_STEPS)
     return (int)cudaErrorInvalidValue;
   BwdParams q = {};
   q.t = tower_params(x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, nullptr, B, d_in, kin, C,
@@ -1124,10 +1157,10 @@ int resnetfc_bwd_data(const void* g, const void* z, const void* x, const void* w
   return (int)cudaGetLastError();
 }
 
-// What the data kernel fixes, for the wrapper to plan with: out[0..5] =
+// What the data kernel fixes, for the wrapper to plan with: out[0..6] =
 // points a tile, threads a CTA, f32 words of a multi-view slot, weight-ring
-// stages, the most outputs of lin_out, the most steps of a tile.  Returns
-// its shared memory a CTA.
+// stages, the most outputs of lin_out, the most steps of a tile, the widest
+// latent.  Returns its shared memory a CTA.
 size_t resnetfc_bwd_data_limits(int* out) {
   out[0] = TILE_PTS;
   out[1] = TILE_THREADS;
@@ -1135,6 +1168,7 @@ size_t resnetfc_bwd_data_limits(int* out) {
   out[3] = RING_STAGES;
   out[4] = TILE_MAX_OUT;
   out[5] = D_MAX_STEPS;
+  out[6] = MAX_C;
   return TILE_SMEM;
 }
 

@@ -120,10 +120,8 @@ int attach_code(TowerParams& p, const void* code_w, const void* code_f, const vo
 // any view count: one view's segment and the shared blocks)
 constexpr int F_MAX_STEPS = 128;
 constexpr int F_MAX_K = HID;  // the widest code, and a latent's widest piece: one 64 x 512 operand tile
-// the widest latent: an injection of a latent wider than one operand tile
-// runs as pieces of at most HID columns (latent_pieces), each a step of its
-// own that adds its product to the f32 stream
-constexpr int F_MAX_C = 2 * HID;
+// the widest latent (tile64.cuh's MAX_C, in pieces of at most HID columns)
+constexpr int F_MAX_C = MAX_C;
 // f32 words of a multi-view CTA's view-sum slot: every thread's share of the
 // 64 x 512 stream (128 KB)
 constexpr int F_SLOT_FLOATS = TILE_STREAM * TILE_THREADS;
@@ -145,18 +143,13 @@ struct DenseParams {
   CUtensorMap m_lat;
 };
 
-// The pieces of HID columns an injection of a C-wide latent takes (1 up to
-// C = 512; 0 without a latent).
-__host__ __device__ inline int latent_pieces(int C) { return (C + HID - 1) / HID; }
-
 // The tile's program as stored: lin_in, then per block k < pre its injection
 // (k < n_lin_z; one Z_FWD step a piece of the latent, aux the piece), fc_0
 // and fc_1, and, multi-view (mv), the fold into the view mean -- one view's
 // segment, which the walk takes NS times (one view: pre = n_blocks) -- then
 // the shared blocks k >= pre.
 // Walked, it is the forward half of the data kernel's program
-// (data_program), in its order and with its aux flags, when the latent is one
-// piece (C <= 512: the data kernel takes only C = 512).
+// (data_program), in its order and with its aux flags, at any latent width.
 __host__ __device__ inline int fwd_program(int* out, int n_blocks, int n_lin_z, bool mv, int pre,
                                            int pieces) {
   int n = 0;
@@ -182,18 +175,13 @@ __host__ __device__ inline int fwd_program(int* out, int n_blocks, int n_lin_z, 
   return n;
 }
 
-// The weight operand of a forward product step: tile64.cuh's gemm_of, but in
-// the dense kernels (WIDE) an injection's piece j (aux) reads rows j HID.. of
-// W_z[k], at most HID of them.  The gather kernels' latent is one piece, and
-// they decode as the data kernel does (the decoding costs the multi-view
-// gather's CODE twin a spill).
+// The weight operand of a forward product step: the dense kernels (WIDE)
+// decode the latent's pieces (tile64.cuh's piece_gemm_of); the gather kernels'
+// latent is one piece, and they take gemm_of (the decoding costs the
+// multi-view gather's CODE twin a spill).
 template <bool WIDE>
 __device__ __forceinline__ Gemm fwd_gemm_of(int s, int kin, int C) {
-  if (WIDE && step_kind(s) == Z_FWD) {
-    const int off = step_aux(s) * HID;
-    return Gemm{1, 0, step_k(s) * C + off, min(HID, C - off)};
-  }
-  return gemm_of(s, kin, C);
+  return WIDE ? piece_gemm_of<false>(s, kin, C) : gemm_of(s, kin, C);
 }
 
 // A feeding state, which only a warpgroup's first thread keeps (in shared

@@ -62,6 +62,15 @@ typedef __nv_bfloat16 bf16;
 
 // Hidden width: every config in conf/ uses d_hidden 512.
 constexpr int HID = 512;
+// The widest latent: an injection of a latent wider than one operand tile
+// runs as pieces of at most HID columns (latent_pieces), each a step of its
+// own -- in the recompute a product that adds to the f32 stream, in the walk
+// back a product that writes its own columns of dz.
+constexpr int MAX_C = 2 * HID;
+
+// The pieces of HID columns an injection of a C-wide latent takes (1 up to
+// C = 512; 0 without a latent).
+__host__ __device__ inline int latent_pieces(int C) { return (C + HID - 1) / HID; }
 
 struct TowerParams {
   const bf16* z;       // (NS B, C) dense latent (the dense kernels); unused by the gather kernels
@@ -190,13 +199,13 @@ __device__ __forceinline__ void put2(unsigned char* tile, int r, int c, float a,
 // kinds; the data kernel all of them.
 enum Kind {
   IN_FWD,  // lin_in of the view: x = code W_in + b_in (aux: emit relu(x))
-  Z_FWD,   // injection k of the view: x += z W_z[k] + b_z[k]
+  Z_FWD,   // injection k of the view: x += z W_z[k] + b_z[k] (aux: the latent's piece, the bias with piece 0)
   B0_FWD,  // fc_0 of block k: s = relu(r_k W0 + b0), r_k = relu(x) stashed
   B1_FWD,  // fc_1 of block k: x += s_k W1 + b1, s_k stashed (aux: emit relu(x))
   FOLD,    // the view's x into the view mean (multi-view)
   T_OUT,   // t stashed; lin_out's sums; the cotangent of t
   GB,      // gb = bf16(cotangent of block k's output) into act, stashed, summed
-  Z_BWD,   // dz_v (+)= gb W_z[k]^T (aux: the view's first, which writes)
+  Z_BWD,   // dz_v (+)= gb W_z[k]^T (aux bit 0: the view's first, which writes; aux >> 1: dz's piece)
   B1_BWD,  // dh = gb W1^T [s_k > 0] into hb, summed
   B0_BWD,  // cotangent += bf16(dh) W0^T [r_k > 0], dh stashed
   DVIEW,   // the view's walk starts from dview = cotangent / NS (multi-view)
@@ -236,6 +245,24 @@ __device__ __forceinline__ Gemm gemm_of(int s, int kin, int C) {
     case B1_BWD: return Gemm{2, 1, (2 * k + 1) * HID, HID};
     default: return Gemm{2, 1, 2 * k * HID, HID};  // B0_BWD
   }
+}
+
+// The weight operand of a product step with the latent in pieces: gemm_of,
+// but an injection's piece j reads rows j HID.. of W_z[k]: the recompute's
+// (Z_FWD, aux j) at most HID of them as K, and in the data kernel (WALK_BACK)
+// the walk back's (Z_BWD, aux >> 1 = j) as the product's columns.  The dense
+// forwards and the data kernel call it; not gemm_of, which every tile kernel
+// inlines (a decode there spilled one).  The gather kernels' latent is one
+// piece, and they call gemm_of.
+template <bool WALK_BACK>
+__device__ __forceinline__ Gemm piece_gemm_of(int s, int kin, int C) {
+  const int kind = step_kind(s);
+  if (kind == Z_FWD) {
+    const int off = step_aux(s) * HID;
+    return Gemm{1, 0, step_k(s) * C + off, min(HID, C - off)};
+  }
+  if (WALK_BACK && kind == Z_BWD) return Gemm{1, 1, step_k(s) * C + (step_aux(s) >> 1) * HID, HID};
+  return gemm_of(s, kin, C);
 }
 
 }  // namespace rfc

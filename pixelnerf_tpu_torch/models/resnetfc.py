@@ -134,8 +134,9 @@ class ResnetFC(nn.Module):
         the forward's at NS views (H = 512; kin and C multiples of 16, kin
         <= 512, C <= 1024; the stored program's steps); under ``grad`` also
         the backward's (the data kernel's widths and program, the weights
-        kernel's plan: C = 512 with a latent, kin <= 128, at most 5 blocks
-        at sn64 widths).  Reads only the Python mirrors of the limits."""
+        kernel's plan: C <= 1024 as the forward's, kin <= 128, at most 5
+        blocks at sn64 widths).  Reads only the Python mirrors of the
+        limits."""
         kin = max(-(-self.d_in // 16) * 16, 16)
         C = self.d_latent if self.n_lin_z > 0 else 0
         lim = rf.TILE_LIMITS
@@ -152,7 +153,7 @@ class ResnetFC(nn.Module):
         if grad:
             rfv.check_data_widths(kin, self.d_hidden, C, self.n_lin_z, self.n_blocks, self.d_out,
                                   rfv.DATA_LIMITS)
-            rfv.check_data_program(self.n_blocks, self.n_lin_z, NS, pre, rfv.DATA_LIMITS)
+            rfv.check_data_program(self.n_blocks, self.n_lin_z, NS, pre, rfv.DATA_LIMITS, C)
             rfv.weight_plan(kin, self.d_hidden, C, self.n_blocks, self.n_lin_z, NS, pre, 64,
                             rfv.WEIGHT_LIMITS)
 

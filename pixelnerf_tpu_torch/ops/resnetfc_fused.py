@@ -525,9 +525,9 @@ def dense_limits() -> DenseLimits:
 
 
 def latent_pieces(C: int) -> int:
-    """The steps an injection of a C-wide latent takes in the tile kernels:
-    pieces of at most HIDDEN columns (``latent_pieces`` in
-    ``csrc/resnetfc_fwd.cu``); 1 up to C = 512."""
+    """The steps an injection of a C-wide latent takes in the tile kernels,
+    each way in the data kernel: pieces of at most HIDDEN columns
+    (``latent_pieces`` in ``csrc/tile64.cuh``); 1 up to C = 512."""
     return max(1, -(-C // HIDDEN))
 
 

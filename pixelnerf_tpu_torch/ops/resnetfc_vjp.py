@@ -572,44 +572,48 @@ class DataLimits(NamedTuple):
     stages: int  # weight-ring stages
     max_out: int  # the most outputs of lin_out
     max_steps: int  # the most steps of one tile's stored program (one view's segments)
+    max_c: int  # the widest latent (injected in pieces of at most 512 columns)
     smem: int  # dynamic shared memory a CTA
 
 
 # What the library reports (data_limits), mirrored as WEIGHT_LIMITS is.
 DATA_LIMITS = DataLimits(tile=64, threads=256, slot_floats=128 * 256, stages=3, max_out=4,
-                         max_steps=256, smem=2 * 65536 + 3 * 32768 + 1024)
+                         max_steps=256, max_c=1024, smem=2 * 65536 + 3 * 32768 + 1024)
 
 
 @functools.lru_cache(maxsize=None)
 def data_limits() -> DataLimits:
-    out = (ctypes.c_int * 6)()
+    out = (ctypes.c_int * 7)()
     smem = _lib().resnetfc_bwd_data_limits(out)
     return DataLimits(*out, smem)
 
 
-def data_steps(n_blocks: int, n_lin_z: int, NS: int, pre: int) -> int:
+def data_steps(n_blocks: int, n_lin_z: int, NS: int, pre: int, C: int) -> int:
     """Steps of one ``resnetfc_bwd_data`` tile's stored program
     (``data_program`` in ``csrc/resnetfc_bwd.cu``): one view's recompute of
     lin_in, its injections and its blocks (and, NS > 1, the fold into the
     mean), which the tile walks once for each view; the shared blocks,
     lin_out and the shared blocks' walk back (each block's cotangent, fc_1,
     fc_0), once; one view's walk back through its blocks, injections and
-    lin_in, walked once for each view (pre = n_blocks when NS == 1).  34 at
-    sn64 and one view, 36 at any view count."""
+    lin_in, walked once for each view (pre = n_blocks when NS == 1).  Each
+    injection is one step each way a :func:`~.resnetfc_fused.latent_pieces`
+    of the C-wide latent.  34 at sn64 and one view, 36 at any view count; 40
+    and 42 with the global encoder's C = 640."""
     mv = int(NS > 1)
     shared = n_blocks - pre
-    return (1 + n_lin_z + 2 * pre + mv) + 2 * shared + 1 + 3 * shared + (mv + 3 * pre + n_lin_z + 1)
+    zs = n_lin_z * rf.latent_pieces(C)
+    return (1 + zs + 2 * pre + mv) + 2 * shared + 1 + 3 * shared + (mv + 3 * pre + zs + 1)
 
 
-def check_data_program(n_blocks: int, n_lin_z: int, NS: int, pre: int,
-                       limits: DataLimits) -> None:
+def check_data_program(n_blocks: int, n_lin_z: int, NS: int, pre: int, limits: DataLimits,
+                       C: int) -> None:
     """Raise ValueError on a view count or a tower whose program
     ``resnetfc_bwd_data`` does not take: more than MAX_VIEWS views (a step's
     view is 8 bits), or a stored program (:func:`data_steps`, the same at
     every view count) past ``limits.max_steps``."""
     if NS > rf.MAX_VIEWS:
         raise ValueError(f"resnetfc_bwd_data takes at most {rf.MAX_VIEWS} views (NS = {NS})")
-    steps = data_steps(n_blocks, n_lin_z, NS, pre)
+    steps = data_steps(n_blocks, n_lin_z, NS, pre, C)
     if steps > limits.max_steps:
         raise ValueError(f"resnetfc_bwd_data stores at most {limits.max_steps} steps a tile; "
                          f"{n_blocks} blocks need {steps}")
@@ -617,13 +621,16 @@ def check_data_program(n_blocks: int, n_lin_z: int, NS: int, pre: int,
 
 def check_data_widths(kin: int, H: int, C: int, n_lin_z: int, n_blocks: int, d_out: int,
                       limits: DataLimits) -> None:
-    """Raise ValueError on widths ``resnetfc_bwd_data`` does not take: H and,
-    with a latent, C other than 512; kin past 128 or not a multiple of 16; no
-    block; more outputs than ``limits.max_out``; a CTA past the card's shared
-    memory."""
-    if H != rf.HIDDEN or (n_lin_z > 0 and C != rf.HIDDEN):
-        raise ValueError(f"the backward kernel needs d_hidden {rf.HIDDEN}, and d_latent "
-                         f"{rf.HIDDEN} with a latent (H={H}, C={C})")
+    """Raise ValueError on widths ``resnetfc_bwd_data`` does not take: H other
+    than 512; with a latent, C not a multiple of 16 in [16, ``limits.max_c``]
+    (the forward's envelope: pieces of at most 512 columns); kin past 128 or
+    not a multiple of 16; no block; more outputs than ``limits.max_out``; a
+    CTA past the card's shared memory."""
+    if H != rf.HIDDEN:
+        raise ValueError(f"the backward kernel needs d_hidden {rf.HIDDEN} (H={H})")
+    if n_lin_z > 0 and (C % 16 or not 16 <= C <= limits.max_c):
+        raise ValueError(f"the backward kernel needs d_latent a multiple of 16 in "
+                         f"[16, {limits.max_c}] with a latent (C={C})")
     if kin > 128 or kin % 16 or n_blocks < 1:
         raise ValueError(f"backward kernel widths: kin <= 128, a multiple of 16, and n_blocks >= 1 "
                          f"(kin={kin}, n_blocks={n_blocks})")
@@ -672,7 +679,7 @@ def bwd_data(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.Tensor, tower:
     dev = x.device
     lim = data_limits()
     check_data_widths(kin, H, C, n_lin_z, n_blocks, d_out, lim)
-    check_data_program(n_blocks, n_lin_z, NS, pre, lim)
+    check_data_program(n_blocks, n_lin_z, NS, pre, lim, C)
     rf._check(g, "g", torch.float32, (d_out, B))
     if n_lin_z > 0:
         rf._check(z, "z", torch.bfloat16, (NS * B, C))
@@ -683,8 +690,11 @@ def bwd_data(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.Tensor, tower:
     NP = NS * pre + n_blocks - pre
     R = lib.resnetfc_bwd_rows(n_blocks, n_lin_z, d_out)
     bf = torch.bfloat16
+    # the kernel writes dz's columns 512 j.. into plane j (latent_pieces)
+    dz_planes = (torch.empty((rf.latent_pieces(C), NS * B_pad, H), device=dev)
+                 if n_lin_z > 0 else None)
     out = DataOut(
-        dz=torch.empty((NS * B_pad, C), device=dev) if n_lin_z > 0 else None,
+        dz=None,  # joined from dz_planes once they are written
         dx=torch.empty((NS * B, tower.d_in), device=dev) if need_dx else None,
         ws_act=torch.empty((2 * NP + 1, B_pad, H), device=dev, dtype=bf),
         ws_cot=torch.empty((2 * NP + NS, B_pad, H), device=dev, dtype=bf),
@@ -693,21 +703,29 @@ def bwd_data(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.Tensor, tower:
         rows=torch.empty((B_pad // 32, R, H), device=dev),
         B=B, NS=NS, sb=sb, pre=pre,
     )
-    if B == 0:
-        return out
-    slots = data_slots(dev, lim) if NS > 1 else None
-    ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
-    err = lib.resnetfc_bwd_data(
-        g.data_ptr(), ptr(z) if n_lin_z > 0 else None, x.data_ptr(),
-        tower.w_in.data_ptr(), tower.b_in.data_ptr(), tower.w_z.data_ptr(), tower.b_z.data_ptr(),
-        tower.w_blk.data_ptr(), tower.b_blk.data_ptr(), tower.w_out.data_ptr(),
-        ptr(out.dz), ptr(out.dx), out.ws_act.data_ptr(), out.ws_cot.data_ptr(),
-        out.ws_x.data_ptr(), ptr(out.ws_z), out.rows.data_ptr(), ptr(slots),
-        B, tower.d_in, kin, H, C, n_blocks, n_lin_z, d_out, NS, B_obj, pre,
-        0 if slots is None else slots.shape[0], torch.cuda.current_stream(dev).cuda_stream,
-    )
-    _launched("resnetfc_bwd_data", err)
-    return out
+    if B > 0:
+        slots = data_slots(dev, lim) if NS > 1 else None
+        ptr = lambda t: None if t is None else t.data_ptr()  # noqa: E731
+        err = lib.resnetfc_bwd_data(
+            g.data_ptr(), ptr(z) if n_lin_z > 0 else None, x.data_ptr(),
+            tower.w_in.data_ptr(), tower.b_in.data_ptr(), tower.w_z.data_ptr(),
+            tower.b_z.data_ptr(), tower.w_blk.data_ptr(), tower.b_blk.data_ptr(),
+            tower.w_out.data_ptr(), ptr(dz_planes), ptr(out.dx), out.ws_act.data_ptr(),
+            out.ws_cot.data_ptr(), out.ws_x.data_ptr(), ptr(out.ws_z), out.rows.data_ptr(),
+            ptr(slots), B, tower.d_in, kin, H, C, n_blocks, n_lin_z, d_out, NS, B_obj, pre,
+            0 if slots is None else slots.shape[0], torch.cuda.current_stream(dev).cuda_stream,
+        )
+        _launched("resnetfc_bwd_data", err)
+    return out if dz_planes is None else out._replace(dz=_join_planes(dz_planes, C))
+
+
+def _join_planes(planes: torch.Tensor, C: int) -> torch.Tensor:
+    """dz ``(rows, C)`` from the data kernel's ``(pieces, rows, 512)`` planes
+    (columns 512 j.. in plane j): a view of the one plane at C <= 512, the
+    planes side by side otherwise."""
+    if planes.shape[0] == 1:
+        return planes[0, :, :C]
+    return torch.cat(list(planes), dim=1)[:, :C]
 
 
 def bwd_weights(z: Optional[torch.Tensor], data: DataOut, tower: rf.Tower,

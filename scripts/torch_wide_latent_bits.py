@@ -1,5 +1,5 @@
-"""Whether the PyTorch port's dense forward kernels give the same bits in
-several checkouts, at sn64's latent width (C = 512).
+"""Whether the PyTorch port's dense forward kernels and its backward kernels
+give the same bits in several checkouts, at sn64's latent width (C = 512).
 
     python3 scripts/torch_wide_latent_bits.py DIR_A DIR_B
 
@@ -8,8 +8,13 @@ builds that checkout's forward kernels and runs ``resnetfc_dense`` and
 ``resnetfc_dense_mv`` (encoded code and the deferred code, ``RawCode``) on
 the sn64 tower (5 blocks x 512, 3 injections, seeded weights) and seeded
 inputs at 2000, 160 and 49,152 points from one view and at NS 2 x 4096, NS
-3 x 2000, SB 2 x NS 3 x 333 and SB 4 x NS 3 x 1536 rows, and prints one
-JSON line of each output's SHA-256 (the first 16 hex digits).  The script is
+3 x 2000, SB 2 x NS 3 x 333 and SB 4 x NS 3 x 1536 rows; runs
+``resnetfc_bwd_data`` and ``resnetfc_bwd_weights`` (``bwd_data`` with dx,
+then ``bwd_weights``) on the same tower at 2000 and 49,152 points from one
+view and at SB 2 x NS 3 x 333 and SB 4 x NS 3 x 1536 rows with a seeded
+cotangent; and prints one JSON line of each output's SHA-256 (the first 16
+hex digits): the forwards' outputs, and of the backward the stashed
+workspace, the per-32-row sums, dz, dx and every gradient.  The script is
 the same for every checkout; only the kernels differ.  It prints the
 hashes of each checkout and exits 1 unless they are all equal.  Needs one
 CUDA card.
@@ -31,9 +36,10 @@ def child() -> dict:
     from pixelnerf_tpu_torch.models.code import PositionalEncoding
     from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
     from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
 
     dev = torch.device("cuda")
-    rf.build_all(("fwd",))
+    rf.build_all(("fwd", "bwd"))
     g = torch.Generator().manual_seed(0)
     W, f, p, m = PositionalEncoding(num_freqs=6, d_in=3, freq_factor=1.5,
                                     include_input=True).flat_arrays(tail=3)
@@ -62,8 +68,31 @@ def child() -> dict:
                      else rf.resnetfc_dense_mv(z, x, tw, 5, NS, 3, sb, True))
             torch.cuda.synchronize()
             key = f"NS {NS} SB {sb} x {B} {label}"
-            out[key] = hashlib.sha256(y.cpu().numpy().tobytes()).hexdigest()[:16]
+            out[key] = digest(y)
+        if (NS, sb, B) not in BWD_SHAPES:
+            continue
+        kw = dict(NS=NS, sb=sb, combine_layer=3) if NS > 1 else {}
+        g = torch.randn(4, sb * B, generator=gi).to(dev)
+        data = rv.bwd_data(g, z, enc, tw, 5, True, **kw)
+        gr = rv.bwd_weights(z, data, tw, 5)
+        torch.cuda.synchronize()
+        for name in ("ws_act", "ws_cot", "ws_x", "ws_z", "rows"):
+            if getattr(data, name) is not None:
+                out[f"NS {NS} SB {sb} x {B} backward {name}"] = digest(getattr(data, name))
+        for name in rv.Grads._fields:
+            out[f"NS {NS} SB {sb} x {B} backward {name}"] = digest(getattr(gr, name))
     return out
+
+
+# the shapes at which the backward kernels' outputs are hashed too
+BWD_SHAPES = ((1, 1, 2000), (1, 1, 49152), (3, 2, 333), (3, 4, 1536))
+
+
+def digest(t) -> str:
+    """The first 16 hex digits of the SHA-256 of a tensor's bytes."""
+    import torch
+
+    return hashlib.sha256(t.contiguous().view(torch.uint8).cpu().numpy().tobytes()).hexdigest()[:16]
 
 
 def main() -> None:

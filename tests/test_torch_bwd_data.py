@@ -35,10 +35,10 @@ from pixelnerf_tpu_torch.utils.jax_convert import from_jax_variables
 
 # what resnetfc_bwd_data_kernel fixes, by hand (the library reports it on the
 # card): 64-point tiles, 256 threads, a 128 KB multi-view slot, 3 stages of
-# 32 KB, at most 4 outputs and 256 steps a tile; two 64 KB operand tiles +
-# the ring + 1 KB slack
+# 32 KB, at most 4 outputs and 256 steps a tile, a latent up to 1024 wide;
+# two 64 KB operand tiles + the ring + 1 KB slack
 LIMITS = rv.DataLimits(tile=64, threads=256, slot_floats=32768, stages=3, max_out=4,
-                       max_steps=256, smem=2 * 65536 + 3 * 32768 + 1024)
+                       max_steps=256, max_c=1024, smem=2 * 65536 + 3 * 32768 + 1024)
 
 CASES = [
     # NS, sb, B_obj, d_in, d_latent, d_hidden, n_blocks, combine_layer
@@ -46,6 +46,15 @@ CASES = [
     (1, 1, 151, 39, 0, 32, 2, 1),  # odd B, no latent
     (2, 1, 80, 42, 32, 64, 3, 2),  # two views, B_pad 96
     (3, 2, 37, 42, 32, 64, 3, 2),  # three views, two objects, B = 74, B_pad 96
+]
+# sn64's tower (H 512, 5 blocks, the latent in blocks 0-2, the mean at block
+# 3) at the latent widths past 512 and below it that the kernels take in
+# pieces: the global encoder's 128 + 512 = 640 (two pieces an injection) and
+# the ConvEncoder's 128 (one piece of K = 128); B_pad an odd multiple of 32
+WIDE_CASES = [
+    (1, 1, 96, 42, 640, 512, 5, 3),
+    (3, 2, 48, 42, 640, 512, 5, 3),
+    (1, 1, 160, 42, 128, 512, 5, 3),
 ]
 
 
@@ -85,7 +94,7 @@ def _dz_rows(data, C):
     return rv.join_views(parts, data.sb)
 
 
-@pytest.mark.parametrize("NS,sb,B_obj,d_in,d_latent,H,nb,cl", CASES)
+@pytest.mark.parametrize("NS,sb,B_obj,d_in,d_latent,H,nb,cl", CASES + WIDE_CASES)
 def test_workspace_matches_pallas_interpret(NS, sb, B_obj, d_in, d_latent, H, nb, cl):
     params, x, z, cot, tw, Z, X, g, kw = _setup(NS, sb, B_obj, d_in, d_latent, H, nb, cl)
 
@@ -205,7 +214,7 @@ def test_data_limits_fit_the_card():
 
 @pytest.mark.parametrize("kin,H,C,n_lin_z,nb,d_out,match", [
     (48, 256, 512, 3, 5, 4, "d_hidden 512"),
-    (48, 512, 256, 3, 5, 4, "d_latent 512"),
+    (48, 512, 1040, 3, 5, 4, "d_latent a multiple of 16 in \\[16, 1024\\]"),
     (144, 512, 512, 3, 5, 4, "kin <= 128"),
     (40, 512, 512, 3, 5, 4, "multiple of 16"),
     (48, 512, 512, 0, 0, 4, "n_blocks >= 1"),
@@ -216,34 +225,39 @@ def test_check_data_widths_refuses(kin, H, C, n_lin_z, nb, d_out, match):
         rv.check_data_widths(kin, H, C, n_lin_z, nb, d_out, LIMITS)
 
 
-@pytest.mark.parametrize("nb,nlz,NS,pre,want", [
+@pytest.mark.parametrize("nb,nlz,NS,pre,C,want", [
     # lin_in, 3 injections, 10 block layers; lin_out; 5 x (cotangent, fc_1,
     # fc_0), 3 injections, lin_in's cotangent
-    (5, 3, 1, 5, 14 + 1 + 19),
+    (5, 3, 1, 5, 512, 14 + 1 + 19),
     # -V 3: one view's recompute below the mean and its fold (11), blocks 3-4
     # and lin_out and their walk back (11), one view's walk back (14); the
     # tile walks the first and the last part once for each view
-    (5, 3, 3, 3, 11 + 11 + 14),
-    (3, 0, 1, 3, 7 + 1 + 10),
-    (5, 0, 2, 0, 2 + 10 + 1 + 15 + 2),  # no latent, the mean at lin_in's output
+    (5, 3, 3, 3, 512, 11 + 11 + 14),
+    (3, 0, 1, 3, 512, 7 + 1 + 10),
+    (5, 0, 2, 0, 512, 2 + 10 + 1 + 15 + 2),  # no latent, the mean at lin_in's output
+    # the global encoder's C = 640: two pieces an injection each way
+    (5, 3, 1, 5, 640, 17 + 1 + 22),
+    (5, 3, 3, 3, 640, 14 + 11 + 17),
+    (5, 3, 1, 5, 1024, 40),
+    (5, 3, 1, 5, 128, 34),  # the ConvEncoder's C = 128: one piece
 ])
-def test_data_steps(nb, nlz, NS, pre, want):
-    assert rv.data_steps(nb, nlz, NS, pre) == want
+def test_data_steps(nb, nlz, NS, pre, C, want):
+    assert rv.data_steps(nb, nlz, NS, pre, C) == want
     assert want <= LIMITS.max_steps
 
 
 @pytest.mark.parametrize("NS", [10, 24, 64, 255])
 def test_check_data_program_takes_any_view_count(NS):
     """-V 10, 24, 64 and 255 at sn64: 36 steps stored at any view count."""
-    rv.check_data_program(5, 3, NS, 3, LIMITS)
-    assert rv.data_steps(5, 3, NS, 3) == 36
+    rv.check_data_program(5, 3, NS, 3, LIMITS, 512)
+    assert rv.data_steps(5, 3, NS, 3, 512) == 36
 
 
 def test_check_data_program_refuses_views_past_the_step_and_long_towers():
     with pytest.raises(ValueError, match="at most 255 views"):
-        rv.check_data_program(5, 3, 256, 3, LIMITS)
+        rv.check_data_program(5, 3, 256, 3, LIMITS, 512)
     with pytest.raises(ValueError, match="stores at most 35 steps"):
-        rv.check_data_program(5, 3, 3, 3, LIMITS._replace(max_steps=35))
+        rv.check_data_program(5, 3, 3, 3, LIMITS._replace(max_steps=35), 512)
 
 
 # ---- a Python mirror of the data kernel's program and of its two walks ----
@@ -257,15 +271,16 @@ def _step(kind, k, aux):
     return kind | (k << 4) | (aux << 12)
 
 
-def _flat_program(nb, nlz, NS, pre):
+def _flat_program(nb, nlz, NS, pre, pieces=1):
     """The flat program: every view's recompute, the shared steps, every
-    view's walk back, written out in turn."""
+    view's walk back, written out in turn; each injection ``pieces`` steps
+    each way (Z_FWD's aux the piece, Z_BWD's piece above its first bit)."""
     mv, out = NS > 1, []
     for v in range(NS):
         out.append((_step(IN_FWD, 0, int(nlz == 0 and pre > 0)), v))
         for k in range(pre):
             if k < nlz:
-                out.append((_step(Z_FWD, k, 0), v))
+                out += [(_step(Z_FWD, k, j), v) for j in range(pieces)]
             out.append((_step(B0_FWD, k, 0), v))
             out.append((_step(B1_FWD, k, int(k + 1 >= nlz and (k + 1 < pre or not mv))), v))
         if mv:
@@ -282,19 +297,19 @@ def _flat_program(nb, nlz, NS, pre):
         for k in range(pre - 1, -1, -1):
             out.append((_step(GB, k, 0), v))
             if k + 1 < nlz:
-                out.append((_step(Z_BWD, k + 1, int(first_z)), v))
+                out += [(_step(Z_BWD, k + 1, int(first_z) | j << 1), v) for j in range(pieces)]
                 first_z = False
             out += [(_step(B1_BWD, k, 0), v), (_step(B0_BWD, k, 0), v)]
         out.append((_step(G_IN, 0, 0), v))
         if nlz > 0:
-            out.append((_step(Z_BWD, 0, int(first_z)), v))
+            out += [(_step(Z_BWD, 0, int(first_z) | j << 1), v) for j in range(pieces)]
     return out
 
 
-def _stored_program(nb, nlz, mv, pre):
+def _stored_program(nb, nlz, mv, pre, pieces=1):
     """data_program: one view's recompute, the shared steps, one view's walk
     back."""
-    return [s for s, v in _flat_program(nb, nlz, 2 if mv else 1, pre) if v == 0]
+    return [s for s, v in _flat_program(nb, nlz, 2 if mv else 1, pre, pieces) if v == 0]
 
 
 def _segments(prog):
@@ -356,20 +371,24 @@ def _feeder_walk(prog, NS, tiles):
     return out
 
 
-@pytest.mark.parametrize("nb,nlz,pre", [(5, 3, 3), (4, 2, 2), (3, 0, 1), (2, 1, 1), (5, 0, 0)])
-def test_looped_data_program_walks_the_flat_program(nb, nlz, pre):
+@pytest.mark.parametrize("nb,nlz,pre,C", [(5, 3, 3, 512), (4, 2, 2, 512), (3, 0, 1, 512),
+                                          (2, 1, 1, 512), (5, 0, 0, 512), (5, 3, 3, 640),
+                                          (2, 1, 1, 1024)])
+def test_looped_data_program_walks_the_flat_program(nb, nlz, pre, C):
     """At NS 2-64 the stored program (data_steps long), walked as the kernel
     walks it, is the flat program step for step, views included; thread 0's
     feed walks the flat program's products over two tiles (their weights:
-    gemm_of reads no view).  At NS = 1 the stored program is the one-view
-    program itself."""
-    one = _stored_program(nb, nlz, False, nb)
-    assert one == [s for s, _ in _flat_program(nb, nlz, 1, nb)]
-    assert len(one) == rv.data_steps(nb, nlz, 1, nb)
-    prog = _stored_program(nb, nlz, True, pre)
-    assert len(prog) == rv.data_steps(nb, nlz, 2, pre)
+    piece_gemm_of reads no view).  At NS = 1 the stored program is the
+    one-view program itself.  A latent past 512 columns walks two pieces an
+    injection each way."""
+    pieces = rf.latent_pieces(C)
+    one = _stored_program(nb, nlz, False, nb, pieces)
+    assert one == [s for s, _ in _flat_program(nb, nlz, 1, nb, pieces)]
+    assert len(one) == rv.data_steps(nb, nlz, 1, nb, C)
+    prog = _stored_program(nb, nlz, True, pre, pieces)
+    assert len(prog) == rv.data_steps(nb, nlz, 2, pre, C)
     for NS in range(2, 65):
-        flat = _flat_program(nb, nlz, NS, pre)
+        flat = _flat_program(nb, nlz, NS, pre, pieces)
         assert _body_walk(prog, NS) == flat
         products = [s for s, _ in flat if s & 15 not in NOT_PRODUCTS]
         assert _feeder_walk(prog, NS, 2) == products * 2
@@ -378,6 +397,17 @@ def test_looped_data_program_walks_the_flat_program(nb, nlz, pre):
 def test_check_data_widths_takes_any_latent_width_without_a_latent():
     rv.check_data_widths(128, 512, 96, 0, 2, 1, LIMITS)
     rv.check_data_widths(16, 512, 512, 3, 5, 4, LIMITS)
+    rv.check_data_widths(48, 512, 24, 0, 5, 4, LIMITS)
+
+
+@pytest.mark.parametrize("C", [16, 128, 512, 528, 640, 1024])
+def test_check_data_widths_takes_the_forwards_latent_widths(C):
+    """With a latent, C a multiple of 16 up to the forward's 1024: the
+    ConvEncoder's 128 (one piece of K = 128), sn64's 512, the global
+    encoder's 640 (two pieces), the widest; at sn64 the program fits."""
+    rv.check_data_widths(48, 512, C, 3, 5, 4, LIMITS)
+    for NS, pre in ((1, 5), (3, 3), (255, 3)):
+        rv.check_data_program(5, 3, NS, pre, LIMITS, C)
 
 
 @pytest.fixture

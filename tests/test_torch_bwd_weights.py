@@ -42,6 +42,14 @@ CASES = [
     (1, 1, 100, 39, 0, 64, 3, 1),  # no latent, kin 48 < 128
     (2, 1, 40, 42, 32, 64, 3, 0),  # the mean right after lin_in: only lin_in and lin_z per view
 ]
+# sn64's tower (H 512, 5 blocks, the latent in blocks 0-2, the mean at block
+# 3) at the global encoder's C = 640 (z in place, and ws_z from three views)
+# and the ConvEncoder's C = 128: lin_z's products of M = C
+WIDE_CASES = [
+    (1, 1, 96, 42, 640, 512, 5, 3),
+    (3, 2, 48, 42, 640, 512, 5, 3),
+    (1, 1, 160, 42, 128, 512, 5, 3),
+]
 
 
 def _setup(NS, sb, B_obj, d_in, d_latent, H, nb, cl, seed=0):
@@ -87,8 +95,11 @@ def test_weights_reference_matches_plain_backward(NS, sb, B_obj, d_in, d_latent,
 
 
 @pytest.mark.parametrize("NS,sb,B_obj,d_in,d_latent,H,nb,cl",
-                         [CASES[0], (3, 1, 40, 42, 32, 64, 4, 2)])
+                         [CASES[0], (3, 1, 40, 42, 32, 64, 4, 2)] + WIDE_CASES)
 def test_weights_reference_matches_pallas_interpret(NS, sb, B_obj, d_in, d_latent, H, nb, cl):
+    """The weights kernel's plain version on the f32 plain workspace, and the
+    plain backward itself, against the JAX ``_bwd_kernel``: every weight and
+    bias gradient (and, from the plain backward, dz and dx)."""
     params, x, z, cot, tw, Z, X, g, kw = _setup(NS, sb, B_obj, d_in, d_latent, H, nb, cl, seed=1)
 
     def loss(p, z, x):
@@ -97,25 +108,59 @@ def test_weights_reference_matches_pallas_interpret(NS, sb, B_obj, d_in, d_laten
                                    bwd_block_points=128, interpret=True)
         return jnp.sum(out * cot)
 
-    g_ref = jax.grad(loss)(params, jnp.asarray(z), jnp.asarray(x))
+    g_ref, dz_ref, dx_ref = jax.grad(loss, argnums=(0, 1, 2))(params, jnp.asarray(z),
+                                                                 jnp.asarray(x))
     ref = {k[len("mlp_coarse."):]: v.numpy() for k, v in from_jax_variables(
         {"params": {"mlp_coarse": jax.tree.map(np.asarray, g_ref)}}).items()}
     gr = rv.bwd_weights_reference(Z, rv.workspace_reference(g, Z, X, tw, nb,
                                                             compute_dtype=torch.float32, **kw),
                                   tw, nb)
-    got = {"lin_in.weight": gr.w_in[:d_in].t(), "lin_in.bias": gr.b_in,
-           "lin_out.weight": gr.w_out.t(), "lin_out.bias": gr.b_out}
-    for k in range(gr.w_z.shape[0]):
-        got[f"lin_z.{k}.weight"], got[f"lin_z.{k}.bias"] = gr.w_z[k].t(), gr.b_z[k]
-    for k in range(nb):
-        for i in (0, 1):
-            got[f"blocks.{k}.fc_{i}.weight"] = gr.w_blk[k, i].t()
-            got[f"blocks.{k}.fc_{i}.bias"] = gr.b_blk[k, i]
-    assert sorted(got) == sorted(ref)
-    for k, a in ref.items():
-        b = got[k].detach().numpy()
-        assert a.shape == b.shape, k
-        np.testing.assert_allclose(b, a, atol=5e-4 * max(np.abs(a).max(), 1e-3), err_msg=k)
+    plain = rv.resnetfc_bwd_reference(g, Z, X, tw, nb, True, **kw)
+
+    def named(gr):
+        got = {"lin_in.weight": gr.w_in[:d_in].t(), "lin_in.bias": gr.b_in,
+               "lin_out.weight": gr.w_out.t(), "lin_out.bias": gr.b_out}
+        for k in range(gr.w_z.shape[0]):
+            got[f"lin_z.{k}.weight"], got[f"lin_z.{k}.bias"] = gr.w_z[k].t(), gr.b_z[k]
+        for k in range(nb):
+            for i in (0, 1):
+                got[f"blocks.{k}.fc_{i}.weight"] = gr.w_blk[k, i].t()
+                got[f"blocks.{k}.fc_{i}.bias"] = gr.b_blk[k, i]
+        return got
+
+    weights = sorted(ref)
+    ref.update(dz=np.asarray(dz_ref), dx=np.asarray(dx_ref))
+    for what, got in (("bwd_weights_reference", named(gr)),
+                      ("resnetfc_bwd_reference", dict(named(plain), dz=plain.dz, dx=plain.dx))):
+        assert sorted(got) == sorted(weights + (["dz", "dx"] if "dz" in got else []))
+        for k, b in got.items():
+            a, b = ref[k], b.detach().numpy()
+            assert a.shape == b.shape, (what, k)
+            np.testing.assert_allclose(b, a, atol=5e-4 * max(np.abs(a).max(), 1e-3),
+                                       err_msg=f"{what}: {k}")
+
+
+@pytest.mark.parametrize("C", [128, 640, 1024])
+@pytest.mark.parametrize("NS,pre", [(1, 5), (3, 3)])
+def test_weight_plan_at_other_latent_widths(C, NS, pre):
+    """lin_z's products at the ConvEncoder's 128, the global encoder's 640
+    and the widest 1024 stay one task each, of M = C (ceil(C / 128) x 2
+    output tiles): the table keeps its 14 products and 23 maps, the latent's
+    map (z in place, or ws_z) is C wide, and the outputs lie one after
+    another in the buffer, lin_z's C x 512 each."""
+    B = 4 * 128 * 96
+    tasks = rv.weight_tasks(48, 512, C, 5, 3, NS, pre, B)
+    plan = rv.weight_plan(48, 512, C, 5, 3, NS, pre, B, LIMITS)
+    assert len(tasks) == 14 and len(plan.maps) == 23 and len(plan.table) == 6 * 14
+    assert [t.M for t in tasks[1:4]] == [C] * 3
+    assert [rv.weight_tiles(t, 512, LIMITS) for t in tasks[1:4]] == [-(-C // 128) * 2] * 3
+    assert plan.tiles == 2 + 3 * -(-C // 128) * 2 + 10 * 8
+    latent = plan.arrays.index("z" if NS == 1 else "ws_z")
+    for i in (1, 2, 3):
+        a = plan.maps[plan.table[6 * i]]
+        assert a == (latent, 0, B if NS == 1 else NS * B, C)
+    offsets = [plan.table[6 * i + 5] for i in range(14)]
+    assert offsets == [sum(t.M * 512 for t in tasks[:i]) for i in range(14)]
 
 
 def test_task_table_at_sn64_widths():

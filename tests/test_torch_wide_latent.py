@@ -12,6 +12,9 @@ envelope, on the CPU.
 * ``ResnetFC._kernel_route`` sends a tower outside the kernels' envelope to
   the plain route under ``auto`` and raises under ``cuda``, reading only the
   Python mirrors of the kernels' limits (no library is built or loaded).
+  Under grad the backward kernels take the forward's latent widths (16 to
+  1024, a multiple of 16): the global encoder's 640 and the ConvEncoder's
+  128 train on the kernels; 1040 and 24 stay plain.
 * The steepened field of the eval CLIs' replay (its sigma row x 50, shifted
   to leave 1/32 of the points occupied) read past the per-kernel bar on the
   card: the JAX kernel's own bf16 arithmetic reads alike on it.
@@ -157,9 +160,9 @@ CUDA = torch.device("cuda")  # only compared by type: nothing is allocated on it
     (dict(d_hidden=256), 3, False),
     (dict(d_in=144), 1, True),  # kin 144 > 128: the data kernel's code
     (dict(n_blocks=6), 1, True),  # the weights kernel's plan: 5 blocks at most
-    (dict(d_latent=WIDE), 1, True),  # the data kernel takes C = 512 only
-    (dict(d_latent=WIDE), 3, True),
-    (dict(d_latent=128), 1, True),  # the ConvEncoder's latent
+    (dict(d_latent=1040), 1, True),  # past the kernels' 1024, under grad
+    (dict(d_latent=1040), 3, True),
+    (dict(d_latent=24), 1, True),  # not a multiple of 16
     (dict(d_latent=1040), 1, False),  # past the forward's 1024
 ])
 def test_route_sends_towers_outside_the_envelope_to_the_plain_route(kw, NS, grad):
@@ -183,22 +186,61 @@ def test_route_sends_towers_outside_the_envelope_to_the_plain_route(kw, NS, grad
     (dict(d_latent=WIDE), 3, False),
     (dict(d_latent=1024, n_blocks=3, combine_layer=2), 2, False),
     (dict(d_latent=128), 1, False),  # the ConvEncoder's eval
+    (dict(d_latent=WIDE), 1, True),  # the global encoder's train step: the backward in pieces
+    (dict(d_latent=WIDE), 3, True),
+    (dict(d_latent=128), 1, True),  # the ConvEncoder's train step
+    (dict(d_latent=1024), 1, True),
 ])
 def test_route_takes_the_kernels_inside_the_envelope(kw, NS, grad):
+    """Decided from the Python mirrors as well: no library built or loaded."""
     t = _tower(**kw)
     assert t._kernel_route((NS, 64), CUDA, grad) is True
     assert t._kernel_route((NS, 64), torch.device("cpu"), grad) is False  # auto on the CPU
+    assert rf._LIB is None and rv._LIB is None
+
+
+@pytest.mark.parametrize("option,want", [("global", True), ("conv", True), ("narrow", False)])
+def test_option_train_steps_take_the_backward_kernels(monkeypatch, option, want):
+    """sn64's conf with the global encoder (C = 640) or the ConvEncoder (C =
+    128), built in code as ``chip_smoke.py``'s ``option_confs`` builds it:
+    under ``auto`` with card parameters ``field_backward_in_kernel`` holds
+    at -V 1 and -V 3, so the trainer's remat default, which follows it and
+    not the conf, is off; a d_hidden 256 tower stays plain.  The card is
+    faked: the rule reads only the parameters' device, and no library is
+    built or loaded."""
+    from types import SimpleNamespace
+
+    from pixelnerf_tpu_torch import entry
+    from pixelnerf_tpu_torch.models import make_model
+
+    conf = entry.load_conf(pretrained=False)
+    if option == "global":
+        conf.put("model.use_global_encoder", True)
+        conf.put("model.global_encoder.pretrained", False)
+    elif option == "conv":
+        conf.put("model.encoder.type", "conv")
+    else:
+        for head in ("mlp_coarse", "mlp_fine"):
+            conf.put(f"model.{head}.d_hidden", 256)
+    net = make_model(conf["model"], mlp_impl="auto", device="cpu", diff_mode=True)
+    assert net.mlp_fine.d_latent == {"global": WIDE, "conv": 128, "narrow": 512}[option]
+    assert not net.field_backward_in_kernel(1)  # auto on CPU parameters: the plain field
+    monkeypatch.setattr(net, "parameters", lambda: iter([SimpleNamespace(device=CUDA)]))
+    assert [net.field_backward_in_kernel(nv) for nv in (1, 3)] == [want, want]
+    assert rf._LIB is None and rv._LIB is None
 
 
 def test_mirrored_limits_are_the_kernels_limits_by_hand():
     """The mirrors the route reads, by hand from the sources' constants: the
     64-point tile, 256 threads, 3 ring stages of 32 KB, 4 outputs, 128
     stored steps, a 512-wide code, a 1024-wide latent, two 64 KB operand
-    tiles (the data kernel: 256 steps); the weights kernel's 128 x 256
-    tile, 24 splits, 24 tensor maps and 16 products.  ``chip_smoke.py``
-    holds them equal to what the libraries report."""
+    tiles (the data kernel: 256 steps, the same 1024-wide latent); the
+    weights kernel's 128 x 256 tile, 24 splits, 24 tensor maps and 16
+    products.  ``chip_smoke.py`` holds them equal to what the libraries
+    report."""
     assert rf.TILE_LIMITS == rf.DenseLimits(64, 256, 3, 4, 128, 512, 32768, 230400, 448, 1024)
-    assert rv.DATA_LIMITS == rv.DataLimits(64, 256, 32768, 3, 4, 256, 230400)
+    assert rv.DATA_LIMITS == rv.DataLimits(64, 256, 32768, 3, 4, 256, 1024, 230400)
+    assert rv.DATA_LIMITS.max_c == rf.TILE_LIMITS.max_c
     assert rv.WEIGHT_LIMITS == rv.KernelLimits(128, 256, 24, 24, 16)
     assert rf.TILE_LIMITS.smem <= rf.MAX_SMEM_BYTES
 

@@ -1,7 +1,8 @@
 """On the card only (``cuda``-marked; skipped without one): the dense
-forwards at a 640-wide latent against their plain versions, and the Python
-mirrors of the kernels' limits that the route rule reads against what the
-libraries report.  No JAX here: this file runs where the card is.
+forwards at a 640-wide latent and the backward kernels (rows 5a / 5b) at
+latent widths 128, 640 and 1024 against their plain versions, and the
+Python mirrors of the kernels' limits that the route rule reads against
+what the libraries report.  No JAX here: this file runs where the card is.
 ``chip_smoke.py`` makes the same checks at sn64's full widths."""
 
 import pytest
@@ -72,3 +73,56 @@ def test_wide_latent_kernels_match_plain_on_card(cuda_device, NS, sb, B_obj, raw
     assert (out - ref).abs().max().item() <= 0.015 * max(1.0, ref.abs().max().item())
     assert torch.corrcoef(torch.stack([out.flatten(), ref.flatten()]))[0, 1] > 0.999
     assert torch.equal(out, run())
+
+
+def _agree(out, ref):
+    """The bar of tests/test_pallas.py: max|d| <= 0.015 max(1, max|ref|), corr > 0.999."""
+    out, ref = out.float(), ref.float()
+    return ((out - ref).abs().max().item() <= 0.015 * max(1.0, ref.abs().max().item())
+            and torch.corrcoef(torch.stack([out.flatten(), ref.flatten()]))[0, 1].item() > 0.999)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("C", [128, 640, 1024])
+@pytest.mark.parametrize("NS,sb,B_obj", [(1, 2, 1000), (3, 2, 333)])
+def test_backward_kernels_at_other_latent_widths_match_plain_on_card(cuda_device, C, NS, sb,
+                                                                    B_obj):
+    """sn64's tower at C = 128 (the ConvEncoder), 640 (the global encoder) and
+    1024, B_pad an odd multiple of 32 (the last 64-point tile half full):
+    the data kernel's stashed operands against the plain recompute (relu-mask
+    flips <= 1e-3), every gradient against the plain backward walked through
+    those operands, the weights kernel against ``bwd_weights_reference`` on
+    its own DataOut, at the bar of tests/test_pallas.py; a launch each, and
+    bit-identical second calls."""
+    g = torch.Generator().manual_seed(C + NS)
+    d_in = 42
+    port = ResnetFC(d_in=d_in, d_out=4, n_blocks=5, d_latent=C, d_hidden=512, combine_layer=3,
+                    impl="cuda")
+    with torch.no_grad():
+        for name, prm in port.named_parameters():
+            std = 0.05 if name.endswith("bias") else prm.shape[1] ** -0.5
+            prm.copy_(torch.randn(prm.shape, generator=g) * std)
+    tw = port.to(cuda_device).tower(cuda_device)
+    rows, B = NS * sb * B_obj, sb * B_obj
+    x = torch.randn(rows, d_in, generator=g).to(cuda_device)
+    z = (torch.randn(rows, C, generator=g) * 0.5).to(cuda_device).bfloat16()
+    cot = torch.randn(4, B, generator=g).to(cuda_device)
+    kw = dict(NS=NS, sb=sb, combine_layer=3) if NS > 1 else {}
+    rv.reset_launches()
+    data = rv.bwd_data(cot, z, x, tw, 5, True, **kw)
+    gr = rv.bwd_weights(z, data, tw, 5)
+    torch.cuda.synchronize()
+    assert rv.LAUNCHES == {"resnetfc_bwd_data": 1, "resnetfc_bwd_weights": 1}
+    assert data.dz.shape == (NS * -(-B // 32) * 32, C)
+    ops_k = data.ws_act[:, :B].float()
+    ops_p = rv.forward_operands(z, x, tw, 5, torch.bfloat16, **kw)
+    assert ((ops_k > 0) != (ops_p > 0)).float().mean().item() <= 1e-3
+    assert _agree(ops_k, ops_p)
+    ref = rv.resnetfc_bwd_reference(cot, z, x, tw, 5, True, torch.bfloat16, operands=ops_k, **kw)
+    wref = rv.bwd_weights_reference(z, data, tw, 5)
+    for name in rv.Grads._fields:
+        assert _agree(getattr(gr, name), getattr(ref, name)), name
+        if name not in ("dz", "dx"):
+            assert _agree(getattr(gr, name), getattr(wref, name)), name
+    again = rv.bwd_weights(z, rv.bwd_data(cot, z, x, tw, 5, True, **kw), tw, 5)
+    assert all(torch.equal(getattr(gr, n), getattr(again, n)) for n in rv.Grads._fields)
