@@ -7,14 +7,15 @@ one line each:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile every kernel from ``pixelnerf_tpu_torch/csrc``, one
-   ``nvcc`` per source, all at once; ptxas registers and spills per kernel,
-   each library's ``HGMMA`` / ``UTMALDG`` / ``HMMA`` counts per kernel
-   (``cuobjdump -sass``) and the weights kernel's shared memory; both
-   backward kernels (the data kernel's two instantiations too) and both
-   instantiations of each of the four forward kernels must be wgmma + TMA
-   kernels with no wmma product and no spills, and no kernel of the forward
-   library may hold a wmma product; the forward kernels' registers on a
-   line of their own;
+   ``nvcc`` per library, all at once: the backward, and the forward at
+   each hidden width (128, 256, 512; ``-DRFC_HID``); ptxas registers and
+   spills per kernel, each library's ``HGMMA`` / ``UTMALDG`` / ``HMMA``
+   counts per kernel (``cuobjdump -sass``) and the weights kernel's shared
+   memory; both backward kernels (the data kernel's two instantiations too)
+   and both instantiations of each of the four forward kernels in every
+   width's library must be wgmma + TMA kernels with no wmma product and no
+   spills, and no kernel of a forward library may hold a wmma product; each
+   width's forward registers on a line of their own;
 3. kernel checks: each forward kernel against its plain PyTorch version at
    the main paths' shapes (one ray chunk x 64 and x 96 samples; the
    single-view kernels on the encoded source view's 1024 x 512 table, the
@@ -194,9 +195,10 @@ one line each:
     kernel and from views (0, 1, 2) on the multi-view dense kernel, each
     also with ``PIXELNERF_DEFER_CODE=1`` on its code variant; the ConvEncoder
     (C = 128, a 4096-row map) and the nearest lookup from view 0 on the
-    dense kernel; ImplicitNet heads (5 x 512) and a d_hidden 256 tower on
-    the plain route with no launch, and the
-    narrow tower refused under ``impl='cuda'``; every render >= 40 dB against
+    dense kernel; ImplicitNet heads (5 x 512) on the plain route with no
+    launch, a d_hidden 256 tower on the dense kernel (its 256-wide library,
+    under ``PIXELNERF_FUSED_GATHER_MAX_ROWS=0``), and a d_hidden 384 tower
+    refused under ``impl='cuda'``; every render >= 40 dB against
     the plain route and its kernel calls replayed against their plain
     versions at the bar of 3; the dense and multi-view dense kernels and
     their code variants at C = 640 (393,216 output points from 1 and 3
@@ -214,7 +216,26 @@ one line each:
     configurations' train step on the kernel route against the plain f32
     step at the guards of 9 (cosine per head and per encoder, the global
     encoder included; weights where both heads' sigma is live, and no
-    module with a zero gradient on both routes).
+    module with a zero gradient on both routes);
+17. narrow: ``conf/exp/sn64.conf`` with both heads' d_hidden 256, then 128,
+    built in code (seeded as 16 seeds, random encoder): ring frame 0 from
+    views (0) (the fused gather), (0) under
+    ``PIXELNERF_FUSED_GATHER_MAX_ROWS=0`` (the dense kernel), (0, 1) (the
+    multi-view gather) and (0, 1, 2) (the multi-view dense kernel), each
+    also with ``PIXELNERF_DEFER_CODE=1`` (its CODE twin), each launching
+    its kernel from the width's library and >= 40 dB against the plain f32
+    route on the same draws, its kernel calls replayed against their plain
+    versions, then timed in turns beside sn64's d_hidden 512 model (rays/s);
+    every forward kernel and twin at the fine pass (4096 rays x 96 = 393,216
+    output points; NS 2 for the multi-view gather, NS 3 for the multi-view
+    dense kernel) and at a ragged B (2000; NS 3 x 333; SB 2 x NS 3 x 333)
+    against its plain version at the bar of 3, one launch, bit-identical
+    second calls, and at the fine pass timed in turns beside d_hidden 512
+    on the same inputs with its plain, cuBLAS and bound times; ``python -m
+    pixelnerf_tpu_torch.eval.eval -F dvr -P "0"`` and ``-P "0 1 2"`` at
+    d_hidden 256 with ``PIXELNERF_DEFER_CODE=1`` on the NMR fixture (a conf
+    file including sn64's, a checkpoint of the phase's weights), launching
+    the gather's and the multi-view dense kernel's CODE twins.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1963,8 +1984,8 @@ def option_confs(base):
     the fork's remaining options, built in code: the global encoder
     (ResNet34, its code 128 before the 512-wide pixel latent: C = 640), the
     ConvEncoder (C = 128), the nearest lookup, ImplicitNet heads (5 x 512,
-    the views' mean at layer 3), and a narrow tower (d_hidden 256, outside
-    the kernels' widths)."""
+    the views' mean at layer 3), and a narrow tower (d_hidden 256: the
+    forward kernels' 256-wide library; plain under grad)."""
     import copy
 
     out = {}
@@ -2203,7 +2224,8 @@ def options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_ro
     from pixelnerf_tpu_torch.train import main as train_main
 
     t_phase = time.perf_counter()
-    mirrors = {"dense": (rf.dense_limits(), rf.TILE_LIMITS),
+    mirrors = {**{f"dense (d_hidden {H})": (rf.dense_limits(H), rf.TILE_LIMITS[H])
+                  for H in rf.HIDDEN},
                "data": (rv.data_limits(), rv.DATA_LIMITS),
                "weights": (rv.kernel_limits(), rv.WEIGHT_LIMITS)}
     log("options: the route rule's mirrors of the kernels' limits against the libraries' "
@@ -2244,6 +2266,7 @@ def options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_ro
             restore()
 
     code = {"PIXELNERF_DEFER_CODE": "1"}
+    dense = {"PIXELNERF_FUSED_GATHER_MAX_ROWS": "0"}
     # (option, source, views, env, the kernel its render must launch, or None: plain)
     renders = [("global", src, (0,), {}, "resnetfc_fwd_dense"),
                ("global", src, (0,), code, "resnetfc_fwd_dense_code"),
@@ -2252,7 +2275,7 @@ def options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_ro
                ("conv", src, (0,), {}, "resnetfc_fwd_dense"),
                ("nearest", src, (0,), {}, "resnetfc_fwd_dense"),
                ("mlp", src, (0,), {}, None),
-               ("narrow", src, (0,), {}, None)]
+               ("narrow", src, (0,), dense, "resnetfc_fwd_dense")]
     opt_launches = {}
     calls = ForwardCalls(rf)
     with calls:
@@ -2265,7 +2288,9 @@ def options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_ro
             want = {kname} if kname else set()
             ok = (set(la) == want and not la_ref and bool(torch.isfinite(out).all())
                   and p >= 40.0)
-            label = f"{what}, views {list(views)}" + (", deferred code" if env else "")
+            label = f"{what}, views {list(views)}" + {
+                "PIXELNERF_DEFER_CODE": ", deferred code",
+                "PIXELNERF_FUSED_GATHER_MAX_ROWS": ", dense route"}.get(next(iter(env), ""), "")
             if kname:
                 opt_launches.setdefault(kname, {})[f"frame 0, {label}"] = la[kname]
             log(f"options render: {label}: frame 0 {sec:.4f} s = {RAYS_PER_STEP / sec:.1f} rays/s "
@@ -2283,19 +2308,21 @@ def options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_ro
         raise SystemExit("options: a kernel disagrees with its plain version")
     del calls
 
-    # the narrow tower under cuda: the route refuses it rather than launching
-    narrow = models["narrow", "auto"].mlp_fine
-    narrow.impl = "cuda"
+    # a tower of a width no library is built for, under cuda: the route
+    # refuses it rather than launching
+    from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
+
+    odd = ResnetFC(d_in=42, d_out=4, n_blocks=5, d_latent=512, d_hidden=384, combine_layer=3,
+                   impl="cuda").to(dev)
     try:
-        narrow._kernel_route((1, 64), dev)
+        odd._kernel_route((1, 64), dev)
         refused = None
     except ValueError as e:
         refused = str(e)
-    finally:
-        narrow.impl = "auto"
-    log(f"options: the d_hidden 256 tower under impl='cuda' raises: {refused!r}")
+    log(f"options: a d_hidden 384 tower under impl='cuda' raises: {refused!r}")
     if refused is None:
         raise SystemExit("options: impl='cuda' took a tower outside the kernels' widths")
+    del odd
 
     # ---- rows 2, 3 and 6 at C = 640 beside C = 512, in turns ----
     tw640 = gl.mlp_fine.tower(dev)
@@ -2424,6 +2451,300 @@ def options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_ro
     log(f"options: phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 17: narrow towers (d_hidden 256 and 128) on the forward kernels
+NARROW_H = (256, 128)
+# the eval CLI's runs at d_hidden 256 with the deferred code: (-P, the
+# kernel each launches: the gather's CODE twin, row 3's)
+NARROW_EVAL = (("0", "resnetfc_fwd_gather_code"), ("0 1 2", "resnetfc_fwd_dense_mv_code"))
+
+
+def narrow_conf(base, H: int):
+    """sn64's conf (``base``) with both heads' d_hidden set to H, built in code
+    as ``option_confs`` builds its confs: sn64's other widths (5 blocks,
+    latent C = 512 in blocks 0-2, the views' mean at block 3, the 6-frequency
+    code, d_out 4)."""
+    import copy
+
+    c = copy.deepcopy(base)
+    for head in ("mlp_coarse", "mlp_fine"):
+        c.put(f"model.{head}.d_hidden", H)
+    return c
+
+
+def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nmr_root) -> None:
+    """Phase 17: sn64's conf at d_hidden 256 and 128 on the forward kernels'
+    narrow libraries (see the module docstring); ``net`` is the render
+    phases' sn64 model (d_hidden 512), timed beside them in turns."""
+    import types
+
+    from pixelnerf_tpu_torch import entry
+    from pixelnerf_tpu_torch.eval.eval import main as eval_main
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.ops.grid_sample import bilinear_taps
+    from pixelnerf_tpu_torch.train import checkpoints
+
+    t_phase = time.perf_counter()
+    rays = rays[:RAYS_PER_STEP]  # ring frame 0, as the other phases render it
+    code = {"PIXELNERF_DEFER_CODE": "1"}
+    dense = {"PIXELNERF_FUSED_GATHER_MAX_ROWS": "0"}
+    # (source, views, env, the kernel its render must launch): the fused
+    # gather (NS 1), the dense route, the multi-view gather (NS 2) and the
+    # multi-view dense kernel (NS 3), then each with the deferred code
+    routes = [(src, (0,), {}, "resnetfc_fwd_gather"), (src, (0,), dense, "resnetfc_fwd_dense"),
+              (src3, (0, 1), {}, "resnetfc_fwd_gather_mv"),
+              (src3, (0, 1, 2), {}, "resnetfc_fwd_dense_mv")]
+    routes += [(s, v, dict(e, **code), k + "_code") for s, v, e, k in routes]
+
+    def frame0(model, c, s, views, env):
+        restore = _env(env)
+        try:
+            rf.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, _ = entry.render_ring(model, c, s, rays,
+                                       torch.Generator(device=dev).manual_seed(SEED),
+                                       RAYS_PER_STEP, views=views)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0, {k: v for k, v in rf.LAUNCHES.items() if v}
+        finally:
+            restore()
+
+    def label_of(views, env):
+        return (f"views {list(views)}" + (", dense route" if dense.keys() & env.keys() else "")
+                + (", deferred code" if code.keys() & env.keys() else ""))
+
+    # ---- frame 0 on every route at each width, against the plain route ----
+    confs, models, narrow_launches = {}, {}, {}
+    calls = ForwardCalls(rf)
+    with calls:
+        for H in NARROW_H:
+            c = confs[H] = narrow_conf(conf, H)
+            for impl in ("auto", "torch"):
+                models[H, impl] = entry.build_model(c, dev, mlp_impl=impl, seed=SEED)
+            g = torch.Generator().manual_seed(SEED + 1)
+            with torch.no_grad():  # every block live, as the render phases' model
+                for mlp in (models[H, "auto"].mlp_coarse, models[H, "auto"].mlp_fine):
+                    for blk in mlp.blocks:
+                        blk.fc_1.weight.copy_(0.02 * torch.randn(blk.fc_1.weight.shape,
+                                                                 generator=g))
+            models[H, "torch"].load_state_dict(models[H, "auto"].state_dict())
+            for s, views, env, kname in routes:
+                ref, _, la_ref = frame0(models[H, "torch"], c, s, views, env)
+                out, _, la = frame0(models[H, "auto"], c, s, views, env)
+                p = psnr(out, ref)
+                ok = (set(la) == {kname} and not la_ref and bool(torch.isfinite(out).all())
+                      and p >= 40.0)
+                label = label_of(views, env)
+                narrow_launches.setdefault(kname, {})[f"d_hidden {H}, frame 0, {label}"] = la.get(
+                    kname, 0)
+                log(f"narrow render: d_hidden {H}, {label}: launches {la} (want {kname}); vs the "
+                    f"plain f32 route {p:.3f} dB (need >= 40); on {smi}")
+                if not ok:
+                    raise SystemExit(f"narrow render at d_hidden {H}, {label} missed {kname} or "
+                                     "disagrees with the plain route")
+    rows = calls.check()
+    log("narrow: the renders' kernel calls against their plain versions (max|d| <= 0.015 x "
+        "max(1, max|ref|), corr > 0.999, bit for bit the render's output): " + json.dumps(
+            [dict(kernel=v, points=n, max_abs_err=float(f"{d:.6g}"), bar=float(f"{b:.6g}"),
+                  corr=round(cr, 7), same=same, ok=ok) for v, n, d, b, cr, same, ok in rows]))
+    if not rows or not all(r[-1] for r in rows):
+        raise SystemExit("narrow: a kernel disagrees with its plain version")
+    del calls
+
+    # ---- frame 0 rays/s beside d_hidden 512, in turns (512, H, H, 512) ----
+    for H in NARROW_H:
+        for s, views, env, kname in routes:
+            t = {512: [], H: []}
+            for h in (512, H, H, 512):
+                model, c = (net, conf) if h == 512 else (models[H, "auto"], confs[H])
+                t[h].append(frame0(model, c, s, views, env)[1])
+            s512, sH = (sum(t[h]) / 2 for h in (512, H))
+            log(f"narrow render: d_hidden {H}, {label_of(views, env)}: frame 0 (encode "
+                f"included) {sH:.4f} s = {RAYS_PER_STEP / sH:.1f} rays/s beside d_hidden 512's "
+                f"{s512:.4f} s = {RAYS_PER_STEP / s512:.1f} rays/s in turns ({s512 / sH:.3f}x); "
+                f"runs {json.dumps({str(k): v for k, v in t.items()})}; on {smi}")
+
+    # ---- every forward kernel and twin: the fine pass and a ragged B ----
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    gi = torch.Generator(device=dev).manual_seed(SEED + 17)
+    tw512 = net.mlp_fine.tower(dev)
+    for H in NARROW_H:
+        m = models[H, "auto"]
+        tw = m.mlp_fine.tower(dev)
+        nb, cl, C, d_in, d_out = m.mlp_fine.n_blocks, m.mlp_fine.combine_layer, m.d_latent, \
+            tw.d_in, tw.w_out.shape[1]
+        n_lin_z = tw.w_z.shape[0]
+        w_bytes = sum(t.numel() * t.element_size() for t in tw[:8])
+        code_arrays = tuple(torch.from_numpy(a).to(dev) for a in m.code.flat_arrays(tail=3))
+        with torch.no_grad():
+            scene3 = m.encode(torch.as_tensor(src3["images"], device=dev),
+                              torch.as_tensor(src3["poses"], device=dev), float(src3["focal"]))
+        tables3 = scene3.latents.reshape(3, -1, C).to(torch.bfloat16).contiguous()
+        T = tables3.shape[1]
+        side = int(math.isqrt(T))
+        lim = rf.dense_limits(H)
+
+        def flops_mv(NS):  # a point of NS views (one view: every block per view)
+            return 2 * H * (NS * (d_in + n_lin_z * C + 2 * cl * H) + 2 * (nb - cl) * H + d_out)
+
+        fine = RAYS_PER_STEP * 96
+        for kind, NS, sb, B in (("gather", 1, 1, fine), ("gather", 1, 1, 2000),
+                                ("dense", 1, 1, fine), ("dense", 1, 1, 2000),
+                                ("gather_mv", 2, 1, fine), ("gather_mv", 3, 1, 333),
+                                ("dense_mv", 3, 1, fine), ("dense_mv", 3, 2, 333)):
+            name = "resnetfc_fwd_" + kind
+            rows = NS * sb * B if NS > 1 else B
+            B_out = sb * B
+            gather = kind.startswith("gather")
+            pts = torch.rand(rows, 3, device=dev, generator=gi) * 2 - 1
+            vd = torch.nn.functional.normalize(torch.randn(rows, 3, device=dev, generator=gi),
+                                               dim=-1)
+            rc = rf.RawCode(torch.cat([pts, vd], dim=-1).contiguous(), *code_arrays)
+            x = rf.materialize_code(rc._replace(cd=torch.float32)).contiguous()
+            idx, w = bilinear_taps(torch.rand(rows, 2, device=dev, generator=gi) * 2 - 1, side,
+                                   side, pad_taps_to=8)
+            idx[0::32, 0] = -1  # taps outside the table contribute nothing
+            idx[16::32, 3] = T
+            idx, w = idx.contiguous(), w.contiguous()
+            tabs = tables3[:NS].contiguous()
+            timed = B == fine
+            with torch.no_grad():
+                z = (mv_latent(tabs, idx, w, sb) if NS > 1
+                     else rf.gather_reference(idx, w, tabs[0], torch.bfloat16).to(torch.bfloat16))
+                for variant, xi in ((name, x), (name + "_code", rc)):
+                    def kern(t=tw, xi=xi):
+                        if kind == "gather":
+                            return rf.resnetfc_gather(idx, w, tabs[0], xi, t, nb)
+                        if kind == "dense":
+                            return rf.resnetfc_dense(z, xi, t, nb)
+                        if kind == "gather_mv":
+                            return rf.resnetfc_gather_mv(idx, w, tabs, xi, t, nb, cl)
+                        return rf.resnetfc_dense_mv(z, xi, t, nb, NS, cl, sb)
+
+                    def plain(xi=xi):
+                        return rf.resnetfc_reference(
+                            z, xi, tw, nb, compute_dtype=torch.bfloat16, NS=NS, sb=sb,
+                            combine_layer=cl if NS > 1 else None)
+
+                    before = dict(rf.LAUNCHES)
+                    out = kern()
+                    torch.cuda.synchronize()
+                    launched = {k: v - before[k] for k, v in rf.LAUNCHES.items() if v != before[k]}
+                    ref = plain()
+                    d, bar, corr = agree(out, ref)
+                    identical = torch.equal(out, kern())
+                    ok = (d <= bar and corr > 0.999 and bool(torch.isfinite(out).all())
+                          and out.shape == (d_out, B_out) and identical
+                          and launched == {variant: 1})
+                    shape = (f"NS {NS}" + (f" x SB {sb}" if sb > 1 else "")
+                             + f" x {B} = {B_out} output points")
+                    line = (f"narrow kernel check: {variant} at d_hidden {H}, {shape}: max|d| "
+                            f"{d:.6g} (bar {bar:.6g}), corr {corr:.7f}, bit-identical second "
+                            f"call {identical}, launches {launched}")
+                    del ref
+                    rec = records[variant] if variant in records else code_records[variant]
+                    rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), d)
+                    if timed:
+                        t = {512: [], H: []}
+                        for h in (512, H, H, 512):
+                            t[h].append(cuda_ms(lambda: kern(tw512 if h == 512 else tw), 3))
+                        ms, ms512 = (sum(t[h]) / 2 for h in (H, 512))
+                        plain_ms = cuda_ms(plain, 2)
+                        xl = rf.materialize_code(rc) if xi is rc else x
+                        if NS == 1:
+                            zl = ((lambda: (tabs[0][idx[:, :4].long().clamp(0, T - 1)]
+                                            * w[:, :4, None].bfloat16()).sum(1))
+                                  if gather else (lambda: z))
+                            library_ms = cuda_ms(lambda: library_tower(zl(), xl, tw, nb), 3)
+                        else:
+                            xv = by_view(xl, NS, sb)
+                            if gather:
+                                views = torch.arange(NS, device=dev)[:, None, None]
+                                zl = lambda: (tabs[views, idx[:, :4].reshape(NS, B, 4).long()  # noqa: E731
+                                                   .clamp(0, T - 1)]
+                                              * w[:, :4].reshape(NS, B, 4, 1).bfloat16()).sum(2)
+                            else:
+                                zv = by_view(z, NS, sb)
+                                zl = lambda: zv  # noqa: E731
+                            library_ms = cuda_ms(
+                                lambda: library_tower_mv(zl(), xv, tw, nb, NS, cl), 3)
+                        raw_d = rc.x.shape[1]
+                        coded = xi is rc
+                        x_bytes = rows * (raw_d if coded else d_in) * 4
+                        lat_bytes = (rows * (idx.shape[1] + w.shape[1]) * 4 + NS * T * C * 2
+                                     if gather else rows * C * 2)
+                        extra = (rows * 2 * raw_d * d_in if coded else 0) + (
+                            rows * 8 * C if gather else 0)
+                        flops = B_out * flops_mv(NS)
+                        b_ms, b_by = bound(flops + extra,
+                                           x_bytes + lat_bytes + B_out * d_out * 4 + w_bytes)
+                        grid = (rf.dense_mv_grid(B_out, n_sm, lim) if NS > 1
+                                else rf.dense_grid(B_out, lim))
+                        line += (f"; in turns (d_hidden 512, {H}, {H}, 512) {ms:.4f} ms beside "
+                                 f"d_hidden 512's {ms512:.4f} ({ms / ms512:.4f}x), "
+                                 f"{flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the bound; "
+                                 f"plain_ms {plain_ms:.4f}; library_ms {library_ms:.4f} (cuBLAS "
+                                 f"bf16 chain{', the lookup in torch' if gather else ''}); "
+                                 f"bound_ms {b_ms:.4f} ({b_by}); grid {grid}")
+                        rec.setdefault("narrow", {})[f"h{H}"] = dict(
+                            ms=ms, h512_ms_in_turns=ms512, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=library_ms, tflops=flops / ms / 1e9,
+                            share_of_bound=b_ms / ms, points=B_out, views=NS, max_abs_err=d,
+                            corr=corr)
+                    log(line + f"; on {smi}")
+                    if not ok:
+                        raise SystemExit(f"narrow: {variant} at d_hidden {H}, {shape} disagrees "
+                                         "with its plain version or missed its launch")
+                    del out
+            del z, x, rc, idx, w, pts, vd, tabs
+        del scene3, tables3
+
+    # ---- the eval CLI at d_hidden 256, deferred code, on the NMR fixture ----
+    H = NARROW_H[0]
+    restore = _env({"PIXELNERF_ALLOW_RANDOM_BACKBONE": "1", **code})  # no backbone weights here
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = os.path.join(tmp, "ck")
+            checkpoints.save_weights(types.SimpleNamespace(checkpoints_path=ck, name="narrow"),
+                                     models[H, "auto"])
+            cpath = os.path.join(tmp, "narrow.conf")
+            with open(cpath, "w") as fh:  # sn64's conf with the narrow heads, as a file says it
+                fh.write(f'include required("{os.path.abspath("conf/exp/sn64.conf")}")\n'
+                         f"model {{ mlp_coarse {{ d_hidden = {H} }}\n"
+                         f"        mlp_fine {{ d_hidden = {H} }} }}\n")
+            for source, want in NARROW_EVAL:
+                out_dir = os.path.join(tmp, "eval" + source.replace(" ", ""))
+                argv = ["-n", "narrow", "-c", cpath, "-F", "dvr", "-D", nmr_root, "--split",
+                        "test", "-P", source, "--max_objs", "1", "-O", out_dir,
+                        "--checkpoints_path", ck, "-R", str(EVAL_RAYS)]
+                torch.cuda.synchronize()
+                rf.reset_launches()
+                t0 = time.perf_counter()
+                res = eval_main(argv)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                la = {k: v for k, v in rf.LAUNCHES.items() if v}
+                n_rays = (NMR_VIEWS - len(source.split())) * FRAME * FRAME
+                ok = (res["cnt"] == 1 and len(res["objects"]) == 1
+                      and all(math.isfinite(v) for _, p_, s_ in res["objects"] for v in (p_, s_))
+                      and set(la) == {want})
+                log(f"narrow eval: python -m pixelnerf_tpu_torch.eval.eval -c conf/exp/sn64.conf "
+                    f"+ d_hidden {H} -F dvr --split test -P \"{source}\" with "
+                    f"PIXELNERF_DEFER_CODE=1: {[(n, round(p_, 4), round(s_, 4)) for n, p_, s_ in res['objects']]}; "
+                    f"launches {la} (want {want}); {dt:.3f} s wall, {n_rays} rays = "
+                    f"{n_rays / dt:.1f} rays/s (model build and load included); on {smi}")
+                if not ok:
+                    raise SystemExit(f"narrow eval -P {source!r} failed or did not run through "
+                                     f"{want}")
+                narrow_launches.setdefault(want, {})[f"d_hidden {H}, eval -P \"{source}\""] = la[want]
+    finally:
+        restore()
+    for name, by_path in narrow_launches.items():
+        (records[name] if name in records else code_records[name])["narrow_launches"] = by_path
+    del models
+    log(f"narrow: phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card", file=sys.stderr)
@@ -2445,51 +2766,60 @@ def main() -> None:
     log(f"device: {card} | torch {torch.__version__} cuda {torch.version.cuda} "
         f"| {torch.cuda.device_count()} visible")
 
-    # ---- build ----
+    # ---- build: the backward, and the forward at each hidden width ----
     t0 = time.perf_counter()
-    builds = rf.build_all()
+    builds = rf.build_all()  # one nvcc a library, all at once
     from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
 
-    sass = sass_counts(builds["bwd"].library)
-    fwd_sass = sass_counts(builds["fwd"].library)
+    sass = sass_counts(builds["bwd", 512].library)
+    fwd_sass_at = {H: sass_counts(builds["fwd", H].library) for H in rf.HIDDEN}
     w_sass = sass.get("resnetfc_bwd_weights_kernel", {})
+    label = {k: f"{k[0]} (d_hidden {k[1]})" for k in builds}
     log("build: " + json.dumps({
         "kernels": list(rf.LAUNCHES) + ["resnetfc_bwd_data", "resnetfc_bwd_weights"],
-        "sources": [str(rf.SOURCES[n].relative_to(rf.CSRC.parent.parent)) for n in builds],
-        "libraries": [b.library.name for b in builds.values()],
-        "compiled": {n: b.compiled for n, b in builds.items()},
+        "sources": sorted({str(rf.SOURCES[n].relative_to(rf.CSRC.parent.parent))
+                           for n, _ in builds}),
+        "libraries": {label[k]: b.library.name for k, b in builds.items()},
+        "compiled": {label[k]: b.compiled for k, b in builds.items()},
         "seconds": round(time.perf_counter() - t0, 3),
-        "ptxas": {n: ptxas_summary(b.log) for n, b in builds.items()},
-        "sass": {"fwd": fwd_sass, "bwd": sass},
+        "ptxas": {label[k]: ptxas_summary(b.log) for k, b in builds.items()},
+        "sass": {"bwd": sass, **{f"fwd (d_hidden {H})": c for H, c in fwd_sass_at.items()}},
         "resnetfc_bwd_weights_kernel smem bytes": rv._lib().resnetfc_bwd_weights_smem_bytes(),
     }))
     if not (w_sass.get("HGMMA") and w_sass.get("UTMALDG") and w_sass.get("HMMA") == 0):
         raise SystemExit(f"resnetfc_bwd_weights_kernel is not a wgmma + TMA kernel: {w_sass}")
     # the data kernel (both instantiations) is a wgmma kernel fed by TMA, with
     # no wmma product; neither backward kernel spills
-    bwd_ptxas = ptxas_summary(builds["bwd"].log)
+    bwd_ptxas = ptxas_summary(builds["bwd", 512].log)
     for name in ("resnetfc_bwd_data_kernel<MV=0>", "resnetfc_bwd_data_kernel<MV=1>"):
         d_sass = sass.get(name, {})
         if not (d_sass.get("HGMMA") and d_sass.get("UTMALDG") and d_sass.get("HMMA") == 0):
             raise SystemExit(f"{name} is not a wgmma + TMA kernel: {d_sass}")
-    # so are both instantiations of every forward kernel (the 64-point tile),
-    # and no kernel of the forward library holds a wmma product
-    fwd_ptxas = ptxas_summary(builds["fwd"].log)
+    # so are both instantiations of every forward kernel (the 64-point tile)
+    # in each width's library, and no kernel of a forward library holds a
+    # wmma product
+    fwd_ptxas_at = {H: ptxas_summary(builds["fwd", H].log) for H in rf.HIDDEN}
     dense_names = tuple(f"resnetfc_fwd_{k}_kernel<CODE={c}>"
                         for k in ("dense", "gather", "dense_mv", "gather_mv") for c in (0, 1))
-    for name in dense_names:
-        d_sass = fwd_sass.get(name, {})
-        if not (d_sass.get("HGMMA") and d_sass.get("UTMALDG") and d_sass.get("HMMA") == 0):
-            raise SystemExit(f"{name} is not a wgmma + TMA kernel: {d_sass}")
-    if not fwd_sass or any(c.get("HMMA") for c in fwd_sass.values()):
-        raise SystemExit(f"a kernel of the forward library holds a wmma product: {fwd_sass}")
-    for name, line in [*bwd_ptxas.items(), *((n, fwd_ptxas.get(n, "")) for n in dense_names)]:
+    checked = list(bwd_ptxas.items())
+    for H, fs in fwd_sass_at.items():
+        for name in dense_names:
+            d_sass = fs.get(name, {})
+            if not (d_sass.get("HGMMA") and d_sass.get("UTMALDG") and d_sass.get("HMMA") == 0):
+                raise SystemExit(f"{name} at d_hidden {H} is not a wgmma + TMA kernel: {d_sass}")
+        if not fs or any(c.get("HMMA") for c in fs.values()):
+            raise SystemExit(f"a kernel of the d_hidden {H} forward library holds a wmma "
+                             f"product: {fs}")
+        checked += [(f"{n} at d_hidden {H}", fwd_ptxas_at[H].get(n, "")) for n in dense_names]
+    for name, line in checked:
         spills = re.findall(r"(\d+) B spill", line)
         if len(spills) != 2 or any(int(v) for v in spills):
             raise SystemExit(f"{name} spills or ptxas gave no spill line: {line}")
-    log("build: forward kernels' registers (the dense forward, the fused gather, the "
-        "multi-view dense forward and the multi-view gather, all on the 64-point tile): "
-        + json.dumps(fwd_ptxas))
+    for H in rf.HIDDEN:
+        log(f"build: forward kernels' registers at d_hidden {H} (the dense forward, the fused "
+            f"gather, the multi-view dense forward and the multi-view gather, all on the "
+            f"64-point tile; library {builds['fwd', H].library.name}): "
+            + json.dumps(fwd_ptxas_at[H]))
     log("build: backward kernels' registers: " + json.dumps(bwd_ptxas) + "; resnetfc_bwd_data "
         f"shared memory {rv.data_limits().smem} B a CTA, {rv.data_limits()}")
 
@@ -3320,6 +3650,9 @@ def main() -> None:
         # ---- the fork's remaining model options (reads the NMR fixture) ----
         options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_root,
                       dtu_root)
+
+        # ---- narrow towers on the forward kernels (reads the NMR fixture) ----
+        narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nmr_root)
     finally:
         data_dir.cleanup()
 

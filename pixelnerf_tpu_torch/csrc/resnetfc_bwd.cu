@@ -127,6 +127,10 @@ namespace {
 
 using namespace rfc;
 
+// The backward is built at sn64's tower width only: its workspace planes,
+// its rows of sums and its dz pieces are HID (= TILE_K) columns wide.
+static_assert(HID == 512 && HID == TILE_K, "the backward kernels are built at d_hidden 512");
+
 // ---------------------------------------------------------------------------
 // data gradients: 64-point tiles on wgmma, weights fed by TMA
 // ---------------------------------------------------------------------------

@@ -25,16 +25,17 @@
 // The four run one kernel body on the 64-point wgmma tile of tile64.cuh,
 // which the backward's data kernel shares, so the backward's recompute takes
 // its products in this body's order, at one view and at NS views:
-// - one CTA of two warpgroups a 64-point tile, each warpgroup owning 256 of
-//   the 512 columns of the f32 stream in registers; every product is wgmma
-//   m64n128k16 pieces with operand A a 64 x 512 bf16 swizzled tile in shared
-//   memory (the code, the latent, relu(x) or relu(fc_0)) and operand B
-//   64 x 64 TMA boxes of the packed row-major weights (MN-major for x W)
-//   through a 3-stage, 32 KB ring.  Each warpgroup keeps its own half of
-//   every stage (the boxes of its piece) fed: its first thread refills the
-//   half as soon as the warpgroup's four warps have read it (one arrival a
-//   warp), so neither warpgroup waits for the other's.  A tile reads each
-//   weight byte out of L2 once for 64 points;
+// - one CTA of two warpgroups a 64-point tile, each warpgroup owning half of
+//   the tower's HID columns of the f32 stream in registers (256 of 512 at
+//   sn64); every product is wgmma pieces (m64n128k16; m64n64k16 at HID 128)
+//   with operand A a 64 x 512 bf16 swizzled tile in shared memory (the code,
+//   the latent, relu(x) or relu(fc_0)) and operand B 64 x 64 TMA boxes of
+//   the packed row-major weights (MN-major for x W) through a ring of 96 KB
+//   (3 stages of 32 KB; 6 of 16 KB at HID 128).  Each warpgroup keeps its
+//   own half of every stage (the boxes of its piece) fed: its first thread
+//   refills the half as soon as the warpgroup's four warps have read it (one
+//   arrival a warp), so neither warpgroup waits for the other's.  A tile
+//   reads each weight byte out of L2 once for 64 points;
 // - the code comes by the threads (encoded: rounded to bf16; CODE: evaluated
 //   as tile64.cuh says); the latent of each injection either by TMA from a
 //   dense bf16 z (B, C) (the dense kernels; rows past B read as zeros) or,
@@ -49,6 +50,12 @@
 //   its bits are those of one piece.  The gather kernels keep C <= 512;
 // - lin_out (d_out <= 4) stays on the CUDA cores, a warp a point;
 // - no atomics: two calls on the same inputs give the same bits.
+// - the tower's width HID is the library's (-DRFC_HID: 128, 256 or 512, one
+//   library each); the operand tiles keep their 512 columns at every width,
+//   so the code, a latent piece and the gathers' C <= 512 do not shrink with
+//   it.  A narrower tower streams fewer weight bytes a tile (0.31x at 256,
+//   0.11x at 128 at sn64's other widths) and runs its products on fewer
+//   columns, the same tile and ring otherwise.
 // The weights' tensor maps are encoded once per set of weight addresses
 // (resnetfc_fwd_dense_plan) and kept by the wrapper; the latent's is encoded
 // per call.  What binds it on an H100 is the weights' stream into each SM
@@ -75,9 +82,9 @@
 // once and walked NS times (tile64.cuh), so any view count up to 255 fits
 // the program.  The mean is the TPU kernel's sum(xs) * (1 / NS): an f32 sum
 // in view order, then one multiply.  Their CTAs are persistent (one an SM at
-// most), each walking its tiles with a 128 KB device-memory slot for the
-// view sum (the 64 x 512 f32 stream, each thread coalesced on its own words;
-// 16.5 MB over 132 SMs, L2-resident beside the weights), and each
+// most), each walking its tiles with a device-memory slot for the view sum
+// (the 64 x HID f32 stream, each thread coalesced on its own words; 128 KB,
+// 16.5 MB over 132 SMs at HID 512, L2-resident beside the weights), and each
 // warpgroup's feeder runs on from the last stage of a tile into the next
 // tile's first, so the ring does not drain between tiles.  Input rows are
 // object-major (tile64.cuh, src_row): in the dense kernel a tile inside one
@@ -119,12 +126,16 @@ int attach_code(TowerParams& p, const void* code_w, const void* code_f, const vo
 // steps of a tile's stored program (fwd_program; sn64: 14 at one view, 15 at
 // any view count: one view's segment and the shared blocks)
 constexpr int F_MAX_STEPS = 128;
-constexpr int F_MAX_K = HID;  // the widest code, and a latent's widest piece: one 64 x 512 operand tile
-// the widest latent (tile64.cuh's MAX_C, in pieces of at most HID columns)
+constexpr int F_MAX_K = TILE_K;  // the widest code, and a latent's widest piece: one 64 x 512 operand tile
+// the widest latent (tile64.cuh's MAX_C, in pieces of at most TILE_K columns)
 constexpr int F_MAX_C = MAX_C;
 // f32 words of a multi-view CTA's view-sum slot: every thread's share of the
-// 64 x 512 stream (128 KB)
+// 64 x HID stream (128 KB at HID 512)
 constexpr int F_SLOT_FLOATS = TILE_STREAM * TILE_THREADS;
+// lin_out: the columns of t a lane sums (16 at HID 512), read 8 at a time
+// (16 bytes; 4 at HID 128)
+constexpr int OUT_COLS = HID / 32;
+constexpr int OUT_VEC = OUT_COLS < 8 ? OUT_COLS : 8;
 
 // The weights' tensor maps (64 x 64 boxes of w_in (kin, H), w_z (n_lin_z C,
 // H) and w_blk (2 n_blocks H, H)) and what they were encoded for: built once
@@ -289,8 +300,8 @@ __device__ __forceinline__ void dense_gemm(const DenseParams& q, unsigned char* 
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         if (kk < nk)
-          hopper::wgmma_m64n128k16<0, 1>(acc, hopper::desc_kmajor_sw128(A + ks * 8192 + kk * 32),
-                                         hopper::desc_sw128(b + kk * 2048, BOX_BYTES, 1024), 1);
+          wgmma_piece<0, 1>(acc, hopper::desc_kmajor_sw128(A + ks * 8192 + kk * 32),
+                            hopper::desc_sw128(b + kk * 2048, BOX_BYTES, 1024), 1);
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();  // stage ks - 1's products have read it
       if (ks > 0) dense_release<MV, WIDE>(q, ring, it - 1);
@@ -500,7 +511,7 @@ __device__ __forceinline__ void fwd_body(const DenseParams& q, unsigned char* ac
     } else if (kind == Z_FWD) {
       const int lat_n = MV ? f_lat_n : 0;  // read before thread 0 counts this latent
       // the piece's columns: off.. (aux the piece; all C at C <= 512)
-      const int off = step_aux(s) * HID, kp = min(HID, p.C - off);
+      const int off = step_aux(s) * TILE_K, kp = min(TILE_K, p.C - off);
       __syncthreads();  // hb's last readers (lin_in, the previous fc_1 or piece) are done
       if (GATHER) {
         gather_fill<MV>(p, hb, row0(), MV ? walk_view(si) : 0);
@@ -570,26 +581,34 @@ __device__ __forceinline__ void fwd_body(const DenseParams& q, unsigned char* ac
   __syncthreads();  // act = t = bf16(relu(x)) of the last block
 
   // lin_out on the CUDA cores: warp w takes points w, w + 8, ..; lane l the
-  // 16 columns 16 l.. of t, summed in order, then across the warp
+  // OUT_COLS columns OUT_COLS l.. of t, summed in order, then across the warp
   const int lane = threadIdx.x & 31, d_out = p.d_out;
-  float wo[16][TILE_MAX_OUT];
+  float wo[OUT_COLS][TILE_MAX_OUT];
 #pragma unroll
-  for (int i = 0; i < 16; ++i)
+  for (int i = 0; i < OUT_COLS; ++i)
 #pragma unroll
     for (int o = 0; o < TILE_MAX_OUT; ++o)
-      wo[i][o] = o < d_out ? __bfloat162float(p.w_out[(size_t)(16 * lane + i) * d_out + o]) : 0.0f;
+      wo[i][o] =
+          o < d_out ? __bfloat162float(p.w_out[(size_t)(OUT_COLS * lane + i) * d_out + o]) : 0.0f;
   for (int r = threadIdx.x >> 5; r < TILE_PTS && row0() + r < p.B; r += TILE_THREADS / 32) {
     float acc[TILE_MAX_OUT] = {};
 #pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      const uint4 v = *reinterpret_cast<const uint4*>(act + hopper::sw128_offset(r, 16 * lane + 8 * h));
-      const uint32_t words[4] = {v.x, v.y, v.z, v.w};
+    for (int h = 0; h < OUT_COLS / OUT_VEC; ++h) {
+      const unsigned char* a = act + hopper::sw128_offset(r, OUT_COLS * lane + OUT_VEC * h);
+      uint32_t words[4];
+      if (OUT_VEC == 8) {
+        const uint4 v = *reinterpret_cast<const uint4*>(a);
+        words[0] = v.x, words[1] = v.y, words[2] = v.z, words[3] = v.w;
+      } else {
+        const uint2 v = *reinterpret_cast<const uint2*>(a);
+        words[0] = v.x, words[1] = v.y;
+      }
 #pragma unroll
-      for (int u = 0; u < 4; ++u)
+      for (int u = 0; u < OUT_VEC / 2; ++u)
 #pragma unroll
         for (int o = 0; o < TILE_MAX_OUT; ++o) {
-          acc[o] = fmaf(bf16_lo(words[u]), wo[8 * h + 2 * u][o], acc[o]);
-          acc[o] = fmaf(bf16_hi(words[u]), wo[8 * h + 2 * u + 1][o], acc[o]);
+          acc[o] = fmaf(bf16_lo(words[u]), wo[OUT_VEC * h + 2 * u][o], acc[o]);
+          acc[o] = fmaf(bf16_hi(words[u]), wo[OUT_VEC * h + 2 * u + 1][o], acc[o]);
         }
     }
     float mine = 0.0f;  // lane o writes output o
@@ -757,8 +776,8 @@ bool mv_params(DenseParams& q, int NS, int B_obj, int pre, void* vsum, int n_cta
 // kernels do not take.
 bool gather_params(DenseParams& q, const void* idx, const void* w, int taps, const void* table,
                    int T) {
-  // the lookup builds the whole latent into one operand tile: C <= HID
-  if (taps < 4 || T < 1 || q.t.C % 8 != 0 || q.t.C > HID || idx == nullptr || w == nullptr ||
+  // the lookup builds the whole latent into one operand tile: C <= TILE_K
+  if (taps < 4 || T < 1 || q.t.C % 8 != 0 || q.t.C > TILE_K || idx == nullptr || w == nullptr ||
       table == nullptr || reinterpret_cast<uintptr_t>(table) % 16 != 0)
     return false;
   q.t.idx = static_cast<const int*>(idx);
@@ -775,11 +794,12 @@ extern "C" {
 
 const char* resnetfc_fwd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// What the tile kernels fix, for the wrapper to plan with: out[0..6] =
+// What the tile kernels fix, for the wrapper to plan with: out[0..8] =
 // points a tile, threads a CTA, weight-ring stages, the most outputs of
 // lin_out, the most steps of a tile's stored program (one view's segment and
 // the shared blocks), the widest code (and latent piece), the f32 words of
-// a multi-view CTA's view-sum slot, the widest latent of the dense kernels.
+// a multi-view CTA's view-sum slot, the widest latent of the dense kernels,
+// the tower's width this library is built for.
 // Returns the bytes of a plan; *smem gets the shared memory a CTA.
 size_t resnetfc_fwd_dense_limits(int* out, size_t* smem) {
   out[0] = TILE_PTS;
@@ -790,15 +810,16 @@ size_t resnetfc_fwd_dense_limits(int* out, size_t* smem) {
   out[5] = F_MAX_K;
   out[6] = F_SLOT_FLOATS;
   out[7] = F_MAX_C;
+  out[8] = HID;
   *smem = TILE_SMEM;
   return sizeof(DensePlan);
 }
 
 // Fills `plan` (resnetfc_fwd_dense_limits' bytes) with the tensor maps of
-// the packed weights w_in (kin, 512), w_z (n_lin_z, C, 512) and w_blk
-// (n_blocks, 2, 512, 512), bf16 row-major.  A plan holds addresses but no
-// buffer of a call, so a caller keeps it for as long as the weights stay
-// where they are.
+// the packed weights w_in (kin, H), w_z (n_lin_z, C, H) and w_blk
+// (n_blocks, 2, H, H), bf16 row-major, H the library's HID.  A plan holds
+// addresses but no buffer of a call, so a caller keeps it for as long as the
+// weights stay where they are.
 int resnetfc_fwd_dense_plan(void* plan, const void* w_in, const void* w_z, const void* w_blk,
                             int kin, int C, int n_blocks, int n_lin_z) {
   if (!dense_widths_ok(kin, C, n_blocks, n_lin_z)) return (int)cudaErrorInvalidValue;

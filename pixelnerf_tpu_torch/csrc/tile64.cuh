@@ -4,15 +4,16 @@
 // resnetfc_fwd_gather_mv) and the backward's data kernel (resnetfc_bwd.cu,
 // resnetfc_bwd_data) share:
 // - a tile is 64 points, one wgmma M, walked by 256 threads: warpgroups 0
-//   and 1 each own 256 of the 512 columns of every layer for all 64 points,
-//   their share of the f32 residual stream (or of its cotangent) in 128
-//   registers a thread;
-// - every product is wgmma m64n128k16 pieces, two a warpgroup: operand A a
+//   and 1 each own half of the HID columns of every layer for all 64 points
+//   (256 of 512 at sn64), their share of the f32 residual stream (or of its
+//   cotangent) in HID / 4 registers a thread;
+// - every product is wgmma pieces of TILE_PIECE columns (m64n128k16, two a
+//   warpgroup at HID 512, one at 256; m64n64k16, one at 128): operand A a
 //   64 x 512 bf16 tile in shared memory, K-major with the 128-byte swizzle
 //   (hopper::sw128_offset), written by the threads from their accumulators
 //   (put2) and published to the async proxy (publish); operand B 64 x 64 TMA
 //   boxes of the packed row-major weights through a ring of RING_STAGES
-//   stages of 32 KB;
+//   stages, 96 KB in all at every width;
 // - a tile's work is a program of steps (Kind, step) whose products read
 //   their weights as gemm_of says.  At NS views the steps of one view are
 //   stored once and walked NS times, the walk position carrying the view
@@ -60,17 +61,28 @@ namespace rfc {
 
 typedef __nv_bfloat16 bf16;
 
-// Hidden width: every config in conf/ uses d_hidden 512.
-constexpr int HID = 512;
+// The tower's width (d_hidden): the N of every product, the f32 stream, the
+// bias strides and the weights' rows.  One library is built for each width,
+// with -DRFC_HID=<width>; every config in conf/ uses 512, ResnetFC's default
+// is 128.
+#ifndef RFC_HID
+#define RFC_HID 512
+#endif
+constexpr int HID = RFC_HID;
+static_assert(HID == 128 || HID == 256 || HID == 512, "the tile takes d_hidden 128, 256 or 512");
+// The operand tile's K capacity, the same at every HID: the widest code, and
+// the widest piece of a latent (so sn64's C = 512 latent is one piece at any
+// tower width).
+constexpr int TILE_K = 512;
 // The widest latent: an injection of a latent wider than one operand tile
-// runs as pieces of at most HID columns (latent_pieces), each a step of its
-// own -- in the recompute a product that adds to the f32 stream, in the walk
-// back a product that writes its own columns of dz.
-constexpr int MAX_C = 2 * HID;
+// runs as pieces of at most TILE_K columns (latent_pieces), each a step of
+// its own -- in the recompute a product that adds to the f32 stream, in the
+// walk back a product that writes its own columns of dz.
+constexpr int MAX_C = 2 * TILE_K;
 
-// The pieces of HID columns an injection of a C-wide latent takes (1 up to
-// C = 512; 0 without a latent).
-__host__ __device__ inline int latent_pieces(int C) { return (C + HID - 1) / HID; }
+// The pieces of TILE_K columns an injection of a C-wide latent takes (1 up
+// to C = 512; 0 without a latent).
+__host__ __device__ inline int latent_pieces(int C) { return (C + TILE_K - 1) / TILE_K; }
 
 struct TowerParams {
   const bf16* z;       // (NS B, C) dense latent (the dense kernels); unused by the gather kernels
@@ -149,22 +161,37 @@ constexpr int TILE_PTS = 64;        // points a tile: one wgmma M
 // fed, so that every thread may hold 255 registers (a ninth warp would leave
 // three warps on one SM quarter's 16 K registers: 168 each)
 constexpr int TILE_THREADS = 256;
+// (the numbers at HID 512; at 256 one piece a warpgroup, at 128 one piece
+// of 64 columns, wgmma m64n64k16, and a ring of 6 stages of 16 KB)
 constexpr int TILE_HALF = HID / 2;  // columns a warpgroup owns: 256
-constexpr int TILE_PIECE = 128;           // columns of one product: wgmma m64n128k16
+constexpr int TILE_PIECE = TILE_HALF < 128 ? TILE_HALF : 128;  // columns of one product: 128
 constexpr int TILE_BPW = TILE_PIECE / 64;     // weight boxes a warpgroup a stage: 2
 constexpr int TILE_NP = TILE_HALF / TILE_PIECE;  // pieces a warpgroup: 2
 constexpr int TILE_ACC = TILE_PIECE * TILE_PTS / 128;  // f32 accumulators a thread a piece: 64
-constexpr int TILE_STREAM = TILE_NP * TILE_ACC;        // a thread's share of a 64 x 256 stream: 128
-constexpr int RING_STAGES = 3;
+constexpr int TILE_STREAM = TILE_NP * TILE_ACC;        // a thread's share of a 64 x HID stream: 128
 constexpr uint32_t BOX_BYTES = 64 * 128;                   // one TMA box: 64 x 64 bf16
 constexpr uint32_t STAGE_BYTES = 2 * TILE_BPW * BOX_BYTES;        // 64 of K x the two warpgroups' pieces
-constexpr uint32_t TILE_BYTES = TILE_PTS * HID * 2;           // a 64 x 512 bf16 operand tile
+// 96 KB of weights in flight at every width: 3 stages, 6 at HID 128
+constexpr int RING_STAGES = 3 * 32768 / STAGE_BYTES;
+constexpr uint32_t TILE_BYTES = TILE_PTS * TILE_K * 2;        // a 64 x 512 bf16 operand tile
 constexpr size_t TILE_SMEM = 2 * TILE_BYTES + (size_t)RING_STAGES * STAGE_BYTES + 1024;  // + alignment
 
 constexpr int TILE_MAX_OUT = 4;  // outputs of lin_out the tile kernels take (d_out 4 in every config)
 
-// Where accumulator i of this thread lies in a 64 x 128 piece: row, and the
-// first of two neighbouring columns (i even; i + 1 is the next column).
+// One k16 step of a piece's product: wgmma m64n128k16 at 64 accumulators a
+// thread, m64n64k16 at 32 (HID 128).
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_piece(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
+  hopper::wgmma_m64n128k16<TA, TB>(d, a, b, scale_d);
+}
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_piece(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
+  hopper::wgmma_m64n64k16<TA, TB>(d, a, b, scale_d);
+}
+
+// Where accumulator i of this thread lies in a 64 x TILE_PIECE piece: row,
+// and the first of two neighbouring columns (i even; i + 1 is the next
+// column).
 __device__ __forceinline__ int acc_row(int i) {
   const int t = threadIdx.x & 127;
   return 16 * (t >> 5) + ((t & 31) >> 2) + 8 * ((i >> 1) & 1);
@@ -248,20 +275,21 @@ __device__ __forceinline__ Gemm gemm_of(int s, int kin, int C) {
 }
 
 // The weight operand of a product step with the latent in pieces: gemm_of,
-// but an injection's piece j reads rows j HID.. of W_z[k]: the recompute's
-// (Z_FWD, aux j) at most HID of them as K, and in the data kernel (WALK_BACK)
-// the walk back's (Z_BWD, aux >> 1 = j) as the product's columns.  The dense
-// forwards and the data kernel call it; not gemm_of, which every tile kernel
-// inlines (a decode there spilled one).  The gather kernels' latent is one
-// piece, and they call gemm_of.
+// but an injection's piece j reads rows j TILE_K.. of W_z[k]: the
+// recompute's (Z_FWD, aux j) at most TILE_K of them as K, and in the data
+// kernel (WALK_BACK) the walk back's (Z_BWD, aux >> 1 = j) as the product's
+// columns.  The dense forwards and the data kernel call it; not gemm_of,
+// which every tile kernel inlines (a decode there spilled one).  The gather
+// kernels' latent is one piece, and they call gemm_of.
 template <bool WALK_BACK>
 __device__ __forceinline__ Gemm piece_gemm_of(int s, int kin, int C) {
   const int kind = step_kind(s);
   if (kind == Z_FWD) {
-    const int off = step_aux(s) * HID;
-    return Gemm{1, 0, step_k(s) * C + off, min(HID, C - off)};
+    const int off = step_aux(s) * TILE_K;
+    return Gemm{1, 0, step_k(s) * C + off, min(TILE_K, C - off)};
   }
-  if (WALK_BACK && kind == Z_BWD) return Gemm{1, 1, step_k(s) * C + (step_aux(s) >> 1) * HID, HID};
+  if (WALK_BACK && kind == Z_BWD)
+    return Gemm{1, 1, step_k(s) * C + (step_aux(s) >> 1) * TILE_K, HID};
   return gemm_of(s, kin, C);
 }
 

@@ -131,15 +131,15 @@ class ResnetFC(nn.Module):
     # ------------------------------------------------------------------
     def check_kernel_widths(self, NS: int = 1, grad: bool = False) -> None:
         """Raise ValueError on widths a kernel of this call does not take:
-        the forward's at NS views (H = 512; kin and C multiples of 16, kin
-        <= 512, C <= 1024; the stored program's steps); under ``grad`` also
-        the backward's (the data kernel's widths and program, the weights
-        kernel's plan: C <= 1024 as the forward's, kin <= 128, at most 5
-        blocks at sn64 widths).  Reads only the Python mirrors of the
-        limits."""
+        the forward's at NS views (H = 128, 256 or 512, a library each; kin
+        and C multiples of 16, kin <= 512, C <= 1024; the stored program's
+        steps); under ``grad`` also the backward's (H = 512; the data
+        kernel's widths and program, the weights kernel's plan: C <= 1024 as
+        the forward's, kin <= 128, at most 5 blocks at sn64 widths).  Reads
+        only the Python mirrors of the limits."""
         kin = max(-(-self.d_in // 16) * 16, 16)
         C = self.d_latent if self.n_lin_z > 0 else 0
-        lim = rf.TILE_LIMITS
+        lim = rf.tile_limits(self.d_hidden)
         rf.check_dense_widths(kin, self.d_hidden, C, self.n_lin_z, self.n_blocks, self.d_out, lim)
         pre = self.n_blocks
         if NS > 1:

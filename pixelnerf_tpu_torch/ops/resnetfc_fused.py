@@ -20,9 +20,12 @@ Counterpart of ``pixelnerf_tpu/ops/resnetfc_pallas.py``:
 
 The dense kernels take a latent up to ``max_c`` = 1024 columns wide (the
 global encoder's code before the pixel latent), each injection of a latent
-past 512 columns in pieces of 512 (:func:`latent_pieces`); the gathers take
-512 at most.  :data:`TILE_LIMITS` mirrors the library's limits for the route
-rule, which must not build it.
+past 512 columns in pieces of :data:`TILE_K` = 512 (:func:`latent_pieces`);
+the gathers take 512 at most.  The tower's width is a compile-time constant
+of the tile: one library is built for each width in :data:`HIDDEN` (128,
+256, 512; ``-DRFC_HID``), and each launch takes the library of its tower's
+width, ``w_in.shape[1]``.  :data:`TILE_LIMITS` mirrors each library's limits
+for the route rule, which must not build it.
 
 Each takes its coordinate input ``x`` either encoded (a tensor) or as a
 :class:`RawCode`, the deferred positional code: the kernel's CODE variant
@@ -35,9 +38,9 @@ All four live in ``csrc/resnetfc_fwd.cu``, which also notes what bounds them.
 Their 64-point tile is ``csrc/tile64.cuh``, which the backward's data kernel
 (``csrc/resnetfc_bwd.cu``, :mod:`.resnetfc_vjp`) shares.  Each source is
 compiled with ``nvcc`` for ``sm_90a`` into a shared library with a plain C
-interface on first use (a changed source or header gets a new library name, so
-it rebuilds) and loaded with ``ctypes``; :func:`build_all` compiles every
-source at once, one ``nvcc`` each.
+interface on first use (a changed source, header or flag gets a new library
+name, so it rebuilds) and loaded with ``ctypes``; :func:`build_all` compiles
+every source at every width at once, one ``nvcc`` each.
 
 Multi-view rows are object-major, as the model's query leaves them: point b
 of object s in view v is row ``(s * NS + v) * B_obj + b``, and its output is
@@ -78,8 +81,12 @@ NVCC_FLAGS = (
 )
 # what one CTA may ask for on Hopper (227 KB of the SM's 256 KB)
 MAX_SMEM_BYTES = 232448
-# the one hidden width the kernels are built for (every config in conf/)
-HIDDEN = 512
+# the hidden widths the forward kernels are built for, one library each
+# (every config in conf/ uses 512; ResnetFC's default is 128)
+HIDDEN = (128, 256, 512)
+# the operand tile's K capacity at every width: the widest code, and the
+# widest piece of a latent (``TILE_K`` in ``csrc/tile64.cuh``)
+TILE_K = 512
 # the most views the multi-view kernels take: a step's view is 8 bits
 MAX_VIEWS = 255
 
@@ -88,7 +95,8 @@ MAX_VIEWS = 255
 ENTRY_POINTS = ("resnetfc_fwd_dense", "resnetfc_fwd_gather", "resnetfc_fwd_dense_mv",
                 "resnetfc_fwd_gather_mv")
 LAUNCHES = {name + suffix: 0 for suffix in ("", "_code") for name in ENTRY_POINTS}
-_LIB: Optional[ctypes.CDLL] = None
+# the loaded forward libraries by hidden width
+_LIBS: dict = {}
 # the dense kernel's encoded weight maps per set of weight addresses (dense_plan)
 _PLANS: "collections.OrderedDict" = collections.OrderedDict()
 MAX_KEPT_PLANS = 16
@@ -313,10 +321,10 @@ def resnetfc_reference(z, x, tower: Tower, n_blocks: int, planar_out: bool = Tru
         if NS > 1 and k == pre:
             h = view_mean(h, NS, sb)
         if k < n_lin_z:
-            # a latent past HIDDEN columns in the kernels' pieces, the bias
+            # a latent past TILE_K columns in the kernels' pieces, the bias
             # with the first
-            for j in range(0, zc.shape[1], HIDDEN):
-                t = zc[:, j : j + HIDDEN] @ rnd(tower.w_z[k, j : j + HIDDEN])
+            for j in range(0, zc.shape[1], TILE_K):
+                t = zc[:, j : j + TILE_K] @ rnd(tower.w_z[k, j : j + TILE_K])
                 h = h + (t + tower.b_z[k] if j == 0 else t)
         t = rnd(torch.relu(h)) @ rnd(tower.w_blk[k, 0]) + tower.b_blk[k, 0]
         h = h + (rnd(torch.relu(t)) @ rnd(tower.w_blk[k, 1]) + tower.b_blk[k, 1])
@@ -347,54 +355,66 @@ class Build(NamedTuple):
     log: str  # nvcc's output (ptxas register and spill lines), kept beside the library
 
 
-def _library_path(which: str) -> Path:
+def _flags(which: str, H: int) -> tuple:
+    """nvcc's flags for source ``which`` at hidden width ``H``: the forward
+    source takes the width as ``-DRFC_HID``; the backward is built at 512
+    only."""
+    return NVCC_FLAGS if which == "bwd" else NVCC_FLAGS + (f"-DRFC_HID={H}",)
+
+
+def _library_path(which: str, H: int) -> Path:
     src = SOURCES[which]
     blob = src.read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
-    tag = hashlib.sha256(blob + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    tag = hashlib.sha256(blob + " ".join(_flags(which, H)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}-{tag}.so"
 
 
-def build_all(which=tuple(SOURCES)) -> dict:
-    """Compile each source in ``which`` that has no library of this source,
-    header and flags yet: one ``nvcc`` per source, all started together.
-    Returns ``{name: Build}``; raises if any ``nvcc`` fails."""
+def build_all(which=tuple(SOURCES), widths=HIDDEN) -> dict:
+    """Compile each source in ``which`` -- the forward at every width in
+    ``widths``, the backward at 512 -- that has no library of this source,
+    header and flags yet: one ``nvcc`` per library, all started together.
+    Returns ``{(name, H): Build}``; raises if any ``nvcc`` fails."""
     builds, running = {}, {}
     for name in which:
-        lib = _library_path(name)
-        log = lib.with_suffix(".log")
-        if lib.exists():
-            builds[name] = Build(lib, False, log.read_text() if log.exists() else "")
-            continue
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = lib.with_suffix(f".{os.getpid()}.tmp")
-        proc = subprocess.Popen(
-            [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp), str(SOURCES[name])],
-            stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
-        )
-        running[name] = (lib, log, tmp, proc)
+        for H in (widths if name == "fwd" else (512,)):
+            lib = _library_path(name, H)
+            log = lib.with_suffix(".log")
+            if lib.exists():
+                builds[name, H] = Build(lib, False, log.read_text() if log.exists() else "")
+                continue
+            BUILD_DIR.mkdir(parents=True, exist_ok=True)
+            tmp = lib.with_suffix(f".{os.getpid()}.tmp")
+            proc = subprocess.Popen(
+                [_nvcc(), *_flags(name, H), "-I", str(CSRC), "-o", str(tmp), str(SOURCES[name])],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+            )
+            running[name, H] = (lib, log, tmp, proc)
     failed = []
-    for name, (lib, log, tmp, proc) in running.items():
+    for (name, H), (lib, log, tmp, proc) in running.items():
         out = proc.communicate()[0]
         if proc.returncode != 0:
-            failed.append(f"{SOURCES[name].name}: nvcc failed ({proc.returncode}):\n{out}")
+            failed.append(f"{SOURCES[name].name} at d_hidden {H}: nvcc failed "
+                          f"({proc.returncode}):\n{out}")
             continue
         log.write_text(out)
         os.replace(tmp, lib)
-        builds[name] = Build(lib, True, out)
+        builds[name, H] = Build(lib, True, out)
     if failed:
         raise RuntimeError("\n".join(failed))
     return builds
 
 
-def build(which: str = "fwd") -> Build:
-    """Compile one source (``fwd`` or ``bwd``) unless its library exists."""
-    return build_all((which,))[which]
+def build(which: str = "fwd", H: int = 512) -> Build:
+    """Compile one source (``fwd`` at width ``H``, or ``bwd``) unless its
+    library exists."""
+    return build_all((which,), (H,))[which, H]
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(build("fwd").library))
+def _lib(H: int) -> ctypes.CDLL:
+    """The forward library built for hidden width ``H``, built and loaded
+    at first use."""
+    if H not in _LIBS:
+        lib = ctypes.CDLL(str(build("fwd", H).library))
         P, I = ctypes.c_void_p, ctypes.c_int
         tower_args = [P] * 9 + [P] + [I] * 9  # x, weights, out, dims
         code_args = [P] * 4 + [I] + [P]  # code w, f, p, m, d_raw; stream
@@ -413,8 +433,8 @@ def _lib() -> ctypes.CDLL:
         lib.resnetfc_fwd_gather_mv.restype = I
         lib.resnetfc_fwd_error_string.argtypes = [I]
         lib.resnetfc_fwd_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        _LIBS[H] = lib
+    return _LIBS[H]
 
 
 def _check(t: torch.Tensor, name: str, dtype, shape) -> None:
@@ -459,9 +479,9 @@ def _tower_args(tower: Tower, x, n_blocks: int, planar_out: bool, B: Optional[in
     d_out = tower.w_out.shape[1]
     B = x.shape[0] if B is None else B
     dev = x.device
-    if H != HIDDEN or C % 16 or kin % 16:
+    if H not in HIDDEN or C % 16 or kin % 16:
         raise ValueError(
-            f"kernel widths: H must be {HIDDEN} and C, kin multiples of 16 "
+            f"kernel widths: H must be one of {HIDDEN} and C, kin multiples of 16 "
             f"(H={H}, C={C}, kin={kin})"
         )
     _check(tower.w_in, "w_in", torch.bfloat16, (kin, H))
@@ -501,38 +521,61 @@ class DenseLimits(NamedTuple):
     max_out: int  # the most outputs of lin_out
     max_steps: int  # the most steps of a tile's stored program: one view's segment and the tail
     max_k: int  # the widest code (kin), and a latent's widest piece: one 64 x 512 operand tile
-    slot_floats: int  # f32 words of a multi-view CTA's view-sum slot (its 64 x 512 stream)
+    slot_floats: int  # f32 words of a multi-view CTA's view-sum slot (its 64 x H stream)
     smem: int  # dynamic shared memory a CTA
     plan_bytes: int  # bytes of a plan (the weights' tensor maps)
     # the widest latent (C) of the dense kernels: an injection past max_k
     # columns runs as pieces of max_k (latent_pieces); the gathers take max_k
-    max_c: int = 2 * HIDDEN
+    max_c: int = 2 * TILE_K
+    hidden: int = 512  # the tower's width H the library is built for
 
 
-# What the library reports (dense_limits), mirrored so that the route rule
-# (models/resnetfc.py) can test a tower's widths without building or loading
-# the library; chip_smoke.py and a cuda-marked test hold the two equal.
-TILE_LIMITS = DenseLimits(tile=64, threads=256, stages=3, max_out=4, max_steps=128, max_k=512,
-                          slot_floats=128 * 256, smem=2 * 65536 + 3 * 32768 + 1024,
-                          plan_bytes=448, max_c=1024)
+def _mirror(H: int) -> DenseLimits:
+    """The limits of the library built at width H, from the tile's constants
+    (``csrc/tile64.cuh``): each warpgroup owns H / 2 columns in pieces of at
+    most 128, so a thread's share of the stream (the view-sum slot) is H / 4
+    f32; 96 KB of weight ring at every width (3 stages of 32 KB, 6 of 16 KB at
+    H = 128); two 64 KB operand tiles."""
+    stage = 2 * (min(H // 2, 128) // 64) * 8192
+    return DenseLimits(tile=64, threads=256, stages=3 * 32768 // stage, max_out=4, max_steps=128,
+                       max_k=TILE_K, slot_floats=H // 4 * 256,
+                       smem=2 * 65536 + 3 * 32768 + 1024, plan_bytes=448, max_c=2 * TILE_K,
+                       hidden=H)
+
+
+# What each width's library reports (dense_limits), mirrored so that the
+# route rule (models/resnetfc.py) can test a tower's widths without building
+# or loading a library; chip_smoke.py and a cuda-marked test hold the two
+# equal.
+TILE_LIMITS = {H: _mirror(H) for H in HIDDEN}
+
+
+def tile_limits(H: int) -> DenseLimits:
+    """The mirrored limits of the library of width H; raises ValueError for
+    a width no library is built for."""
+    if H not in TILE_LIMITS:
+        raise ValueError(f"the tile kernels take d_hidden {HIDDEN} (H={H})")
+    return TILE_LIMITS[H]
 
 
 @functools.lru_cache(maxsize=None)
-def dense_limits() -> DenseLimits:
-    out, smem = (ctypes.c_int * 8)(), ctypes.c_size_t()
-    n = _lib().resnetfc_fwd_dense_limits(out, ctypes.byref(smem))
-    return DenseLimits(*out[:7], smem.value, n, out[7])
+def dense_limits(H: int = 512) -> DenseLimits:
+    """What the library of width H reports."""
+    out, smem = (ctypes.c_int * 9)(), ctypes.c_size_t()
+    n = _lib(H).resnetfc_fwd_dense_limits(out, ctypes.byref(smem))
+    return DenseLimits(*out[:7], smem.value, n, out[7], out[8])
 
 
 def latent_pieces(C: int) -> int:
     """The steps an injection of a C-wide latent takes in the tile kernels,
-    each way in the data kernel: pieces of at most HIDDEN columns
-    (``latent_pieces`` in ``csrc/tile64.cuh``); 1 up to C = 512."""
-    return max(1, -(-C // HIDDEN))
+    each way in the data kernel: pieces of at most TILE_K columns
+    (``latent_pieces`` in ``csrc/tile64.cuh``); 1 up to C = 512 at every
+    tower width."""
+    return max(1, -(-C // TILE_K))
 
 
 def dense_steps(n_blocks: int, n_lin_z: int, NS: int = 1, pre: Optional[int] = None,
-                C: int = HIDDEN) -> int:
+                C: int = TILE_K) -> int:
     """Steps of one tile's stored program (``fwd_program`` in
     ``csrc/resnetfc_fwd.cu``, the data kernel's recompute): one view's
     segment -- lin_in, then per block below the mean (``pre``; every block
@@ -554,12 +597,14 @@ def dense_grid(B: int, limits: DenseLimits) -> int:
 def check_dense_widths(kin: int, H: int, C: int, n_lin_z: int, n_blocks: int, d_out: int,
                        limits: DenseLimits) -> None:
     """Raise ValueError on widths ``resnetfc_fwd_dense`` does not take: H
-    other than 512; kin not a multiple of 16 or past ``limits.max_k``; with
+    other than the library's (``limits.hidden``: 128, 256 or 512, one
+    library each); kin not a multiple of 16 or past ``limits.max_k``; with
     a latent, C not a multiple of 16 or past ``limits.max_c``; more
     injections than blocks; more outputs than ``limits.max_out``; a program
     past ``limits.max_steps``; a CTA past the card's shared memory."""
-    if H != HIDDEN:
-        raise ValueError(f"the dense kernel needs d_hidden {HIDDEN} (H={H})")
+    if H != limits.hidden:
+        raise ValueError(f"the dense kernel of this library needs d_hidden {limits.hidden}, "
+                         f"one library each of {HIDDEN} (H={H})")
     for name, v, top in (("kin", kin, limits.max_k),) + (
             (("C", C, limits.max_c),) if n_lin_z > 0 else ()):
         if v % 16 or not 16 <= v <= top:
@@ -704,18 +749,19 @@ def dense_plan(tower: Tower, n_blocks: int) -> ctypes.Array:
     encoded once per set of weight addresses and kept (the last
     MAX_KEPT_PLANS sets), so that a launch costs the host one parameter
     copy.  Raises if the encoding fails."""
-    kin, C, n_lin_z = tower.w_in.shape[0], tower.w_z.shape[1], tower.w_z.shape[0]
-    key = (tower.w_in.data_ptr(), tower.w_z.data_ptr(), tower.w_blk.data_ptr(), kin, C,
-           n_blocks, n_lin_z)
+    (kin, H), C, n_lin_z = tower.w_in.shape, tower.w_z.shape[1], tower.w_z.shape[0]
+    args = (tower.w_in.data_ptr(), tower.w_z.data_ptr(), tower.w_blk.data_ptr(), kin, C,
+            n_blocks, n_lin_z)
+    key = args + (H,)
     plan = _PLANS.get(key)
     if plan is not None:
         _PLANS.move_to_end(key)
         return plan
-    plan = ctypes.create_string_buffer(dense_limits().plan_bytes)
-    err = _lib().resnetfc_fwd_dense_plan(plan, *key)
+    plan = ctypes.create_string_buffer(dense_limits(H).plan_bytes)
+    err = _lib(H).resnetfc_fwd_dense_plan(plan, *args)
     if err != 0:
         raise RuntimeError(f"resnetfc_fwd_dense plan failed: "
-                           f"{_lib().resnetfc_fwd_error_string(err).decode()} ({err})")
+                           f"{_lib(H).resnetfc_fwd_error_string(err).decode()} ({err})")
     _PLANS[key] = plan
     if len(_PLANS) > MAX_KEPT_PLANS:
         _PLANS.popitem(last=False)
@@ -725,7 +771,7 @@ def dense_plan(tower: Tower, n_blocks: int) -> ctypes.Array:
 def dense_mv_slots(dev, limits: DenseLimits) -> torch.Tensor:
     """The multi-view kernels' view-sum slots, one per SM: each persistent
     CTA keeps its share of the view sum there (``limits.slot_floats`` f32,
-    128 KB at the 64-point tile)."""
+    a 64 x H f32 stream: 128 KB at H = 512)."""
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return torch.empty((n_sms, limits.slot_floats), device=dev)
 
@@ -739,9 +785,9 @@ def mv_shape(rows: int, NS: int, sb: int, combine_layer: int, n_blocks: int):
     return rows // NS, rows // (NS * sb)
 
 
-def _launched(name: str, err: int) -> None:
+def _launched(name: str, err: int, H: int) -> None:
     if err != 0:
-        msg = _lib().resnetfc_fwd_error_string(err).decode()
+        msg = _lib(H).resnetfc_fwd_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: {msg} ({err})")
     LAUNCHES[name] += 1
 
@@ -763,15 +809,16 @@ def resnetfc_dense(z: Optional[torch.Tensor], x: Coords, tower: Tower, n_blocks:
     if coords(x).device.type == "cpu":
         return resnetfc_reference(z, x, tower, n_blocks, planar_out)
     args, tail, out, C, n_lin_z, suffix = _tower_args(tower, x, n_blocks, planar_out)
-    check_tile_tower(tower, n_blocks, dense_limits())
+    H = tower.w_in.shape[1]
+    check_tile_tower(tower, n_blocks, dense_limits(H))
     if n_lin_z > 0:
         _check(z, "z", torch.bfloat16, (rows, C))
         check_tma(z, "z")
     if rows == 0:
         return out
-    err = _lib().resnetfc_fwd_dense(dense_plan(tower, n_blocks),
-                                    z.data_ptr() if n_lin_z > 0 else None, *args, *tail)
-    _launched("resnetfc_fwd_dense" + suffix, err)
+    err = _lib(H).resnetfc_fwd_dense(dense_plan(tower, n_blocks),
+                                     z.data_ptr() if n_lin_z > 0 else None, *args, *tail)
+    _launched("resnetfc_fwd_dense" + suffix, err, H)
     return out
 
 
@@ -792,14 +839,15 @@ def resnetfc_gather(idx: torch.Tensor, w: torch.Tensor, table: torch.Tensor, x: 
     _check(idx, "idx", torch.int32, idx.shape)
     _check(w, "w", torch.float32, w.shape)
     _check(table, "table", torch.bfloat16, table.shape)
-    check_gather(idx, w, table, rows, tower, n_blocks, dense_limits())
+    H = tower.w_in.shape[1]
+    check_gather(idx, w, table, rows, tower, n_blocks, dense_limits(H))
     if rows == 0:
         return out
-    err = _lib().resnetfc_fwd_gather(
+    err = _lib(H).resnetfc_fwd_gather(
         dense_plan(tower, n_blocks), idx.data_ptr(), w.data_ptr(), idx.shape[1], table.data_ptr(),
         table.shape[0], *args, *tail,
     )
-    _launched("resnetfc_fwd_gather" + suffix, err)
+    _launched("resnetfc_fwd_gather" + suffix, err, H)
     return out
 
 
@@ -820,18 +868,19 @@ def resnetfc_dense_mv(z: Optional[torch.Tensor], x: Coords, tower: Tower, n_bloc
         return resnetfc_reference(z, x, tower, n_blocks, planar_out, NS=NS, sb=sb,
                                   combine_layer=combine_layer)
     args, tail, out, C, n_lin_z, suffix = _tower_args(tower, x, n_blocks, planar_out, B)
-    limits = dense_limits()
+    H = tower.w_in.shape[1]
+    limits = dense_limits(H)
     check_dense_mv(z, rows, NS, sb, combine_layer, tower, n_blocks, limits)
     if n_lin_z > 0:
         _check(z, "z", torch.bfloat16, (rows, C))
     if B == 0:
         return out
     slots = dense_mv_slots(out.device, limits)
-    err = _lib().resnetfc_fwd_dense_mv(
+    err = _lib(H).resnetfc_fwd_dense_mv(
         dense_plan(tower, n_blocks), z.data_ptr() if n_lin_z > 0 else None, *args, NS, B_obj,
         combine_layer, slots.data_ptr(), slots.shape[0], *tail,
     )
-    _launched("resnetfc_fwd_dense_mv" + suffix, err)
+    _launched("resnetfc_fwd_dense_mv" + suffix, err, H)
     return out
 
 
@@ -860,14 +909,15 @@ def resnetfc_gather_mv(idx: torch.Tensor, w: torch.Tensor, tables: torch.Tensor,
     _check(idx, "idx", torch.int32, idx.shape)
     _check(w, "w", torch.float32, w.shape)
     _check(tables, "tables", torch.bfloat16, tables.shape)
-    limits = dense_limits()
+    H = tower.w_in.shape[1]
+    limits = dense_limits(H)
     check_gather_mv(idx, w, tables, rows, combine_layer, tower, n_blocks, limits)
     if B == 0:
         return out
     slots = dense_mv_slots(out.device, limits)
-    err = _lib().resnetfc_fwd_gather_mv(
+    err = _lib(H).resnetfc_fwd_gather_mv(
         dense_plan(tower, n_blocks), idx.data_ptr(), w.data_ptr(), idx.shape[1], tables.data_ptr(),
         tables.shape[1], *args, NS, B, combine_layer, slots.data_ptr(), slots.shape[0], *tail,
     )
-    _launched("resnetfc_fwd_gather_mv" + suffix, err)
+    _launched("resnetfc_fwd_gather_mv" + suffix, err, H)
     return out

@@ -622,12 +622,12 @@ def check_data_program(n_blocks: int, n_lin_z: int, NS: int, pre: int, limits: D
 def check_data_widths(kin: int, H: int, C: int, n_lin_z: int, n_blocks: int, d_out: int,
                       limits: DataLimits) -> None:
     """Raise ValueError on widths ``resnetfc_bwd_data`` does not take: H other
-    than 512; with a latent, C not a multiple of 16 in [16, ``limits.max_c``]
+    than 512 (the backward is built at sn64's width only); with a latent, C not a multiple of 16 in [16, ``limits.max_c``]
     (the forward's envelope: pieces of at most 512 columns); kin past 128 or
     not a multiple of 16; no block; more outputs than ``limits.max_out``; a
     CTA past the card's shared memory."""
-    if H != rf.HIDDEN:
-        raise ValueError(f"the backward kernel needs d_hidden {rf.HIDDEN} (H={H})")
+    if H != 512:
+        raise ValueError(f"the backward kernel needs d_hidden 512 (H={H})")
     if n_lin_z > 0 and (C % 16 or not 16 <= C <= limits.max_c):
         raise ValueError(f"the backward kernel needs d_latent a multiple of 16 in "
                          f"[16, {limits.max_c}] with a latent (C={C})")

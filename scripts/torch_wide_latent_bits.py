@@ -1,14 +1,16 @@
-"""Whether the PyTorch port's dense forward kernels and its backward kernels
-give the same bits in several checkouts, at sn64's latent width (C = 512).
+"""Whether the PyTorch port's forward kernels and its backward kernels give
+the same bits in several checkouts, at sn64's widths (d_hidden 512, C = 512).
 
     python3 scripts/torch_wide_latent_bits.py DIR_A DIR_B
 
 Each checkout runs in a process of its own, started in that checkout: it
-builds that checkout's forward kernels and runs ``resnetfc_dense`` and
+builds that checkout's kernels and runs ``resnetfc_dense`` and
 ``resnetfc_dense_mv`` (encoded code and the deferred code, ``RawCode``) on
 the sn64 tower (5 blocks x 512, 3 injections, seeded weights) and seeded
 inputs at 2000, 160 and 49,152 points from one view and at NS 2 x 4096, NS
-3 x 2000, SB 2 x NS 3 x 333 and SB 4 x NS 3 x 1536 rows; runs
+3 x 2000, SB 2 x NS 3 x 333 and SB 4 x NS 3 x 1536 rows, and the fused
+gathers ``resnetfc_gather`` / ``resnetfc_gather_mv`` (both codes) on seeded
+(NS, 1024, 512) tables with taps outside them at the one-object shapes; runs
 ``resnetfc_bwd_data`` and ``resnetfc_bwd_weights`` (``bwd_data`` with dx,
 then ``bwd_weights``) on the same tower at 2000 and 49,152 points from one
 view and at SB 2 x NS 3 x 333 and SB 4 x NS 3 x 1536 rows with a seeded
@@ -62,13 +64,23 @@ def child() -> dict:
         rc = rf.RawCode(raw, *code)
         enc = rf.materialize_code(rc._replace(cd=torch.float32)).contiguous()
         z = (torch.randn(rows, 512, generator=gi) * 0.5).to(dev).bfloat16().contiguous()
+        tables = (torch.randn(NS, 1024, 512, generator=gi) * 0.5).to(dev).bfloat16()
+        idx = torch.randint(-1, 1025, (rows, 8), generator=gi).int().to(dev)
+        w = torch.rand(rows, 8, generator=gi).to(dev)
+        w[:, 4:] = 0.0
         for label, x in (("encoded", enc), ("code", rc)):
             with torch.no_grad():
                 y = (rf.resnetfc_dense(z, x, tw, 5, True) if NS == 1
                      else rf.resnetfc_dense_mv(z, x, tw, 5, NS, 3, sb, True))
+                yg = None
+                if sb == 1:  # the fused gathers take one object
+                    yg = (rf.resnetfc_gather(idx, w, tables[0].contiguous(), x, tw, 5, True)
+                          if NS == 1 else rf.resnetfc_gather_mv(idx, w, tables, x, tw, 5, 3, True))
             torch.cuda.synchronize()
             key = f"NS {NS} SB {sb} x {B} {label}"
             out[key] = digest(y)
+            if yg is not None:
+                out[key + " gather"] = digest(yg)
         if (NS, sb, B) not in BWD_SHAPES:
             continue
         kw = dict(NS=NS, sb=sb, combine_layer=3) if NS > 1 else {}

@@ -1,7 +1,9 @@
 """The port's one-view dense forward (row 2 of PERF.md: ``_kernel_2d``):
 ``ops/resnetfc_fused.py::resnetfc_dense``, its plain version
 ``resnetfc_reference`` and the launch helpers of ``resnetfc_fwd_dense``
-(``dense_grid``, ``dense_steps``, ``check_dense_widths``, ``check_tma``).
+(``dense_grid``, ``dense_steps``, ``check_dense_widths``, ``check_tma``),
+at sn64's d_hidden 512 and at the narrow widths 128 and 256 that the kernels
+also take (one library a width).
 
 ``resnetfc_fwd_dense`` walks 64-point tiles; every B here leaves its last
 tile ragged (2000 = 31 x 64 + 16, and 64 k + 32).  On the CPU the wrapper's
@@ -34,22 +36,30 @@ from pixelnerf_tpu_torch.utils.jax_convert import from_jax_variables
 LIMITS = rf.DenseLimits(tile=64, threads=256, stages=3, max_out=4, max_steps=128, max_k=512,
                         slot_floats=128 * 256, smem=2 * 65536 + 3 * 32768 + 1024, plan_bytes=448)
 PE = dict(num_freqs=6, d_in=3, freq_factor=1.5, include_input=True)  # sn64's code
+# the narrow towers' shapes: tests/test_pallas.py's own (d_in 10, C 64, 3
+# blocks, the latent in blocks 0-1) and sn64's other widths (the code's 42
+# columns, C 512, 5 blocks, the latent in blocks 0-2)
+NARROW = {"small": dict(d_in=10, C=64, nb=3, cl=2), "sn64": dict(d_in=None, C=512, nb=5, cl=3)}
 
 
-def _setup(B, d_latent, H, nb, seed=0):
+def _setup(B, d_latent, H, nb, seed=0, cl=None, d_in=None):
     """JAX ResnetFC parameters drawn from numpy (every parameter live), the
     port module holding the same weights, the sn64 code's raw coordinates
-    and flat arrays, the encoded code and a latent."""
+    and flat arrays, the encoded code (or, given ``d_in``, a normal (B,
+    d_in) code in its place) and a latent; the latent in the first ``cl``
+    blocks (default all)."""
     W, f, p, m = JPositionalEncoding(**PE).flat_arrays(tail=3)
-    d_in = W.shape[1]
-    jm = JResnetFC(d_out=4, n_blocks=nb, d_latent=d_latent, d_hidden=H, combine_layer=nb)
+    d_code = W.shape[1]
+    d_in = d_code if d_in is None else d_in
+    cl = nb if cl is None else cl
+    jm = JResnetFC(d_out=4, n_blocks=nb, d_latent=d_latent, d_hidden=H, combine_layer=cl)
     params = jm.init(jax.random.PRNGKey(0), jnp.zeros((4, d_latent + d_in)))["params"]
     rng = np.random.default_rng(seed)
     params = jax.tree.map(
         lambda a: (rng.normal(size=a.shape) * (0.05 if a.ndim == 1 else 1.0 / np.sqrt(a.shape[0])))
         .astype(np.float32), params)
     port = ResnetFC(d_in=d_in, d_out=4, n_blocks=nb, d_latent=d_latent, d_hidden=H,
-                    combine_layer=nb, impl="cuda")
+                    combine_layer=cl, impl="cuda")
     sd = from_jax_variables({"params": {"mlp_coarse": params}})
     port.load_state_dict({k[len("mlp_coarse."):]: v for k, v in sd.items()})
     xyz = rng.uniform(-1.4, 1.4, size=(B, 3))
@@ -58,6 +68,8 @@ def _setup(B, d_latent, H, nb, seed=0):
     raw = np.concatenate([xyz, vd], axis=-1).astype(np.float32)
     enc = (raw.astype(np.float64) @ W).astype(np.float32)
     enc = np.where(m > 0, np.sin(enc * f + p), enc).astype(np.float32)
+    if d_in != d_code:
+        enc = rng.normal(size=(B, d_in)).astype(np.float32)
     z = rng.normal(size=(B, d_latent)).astype(np.float32)
     return params, port, raw, (W, f, p, m), enc, z
 
@@ -85,6 +97,54 @@ def test_dense_plain_matches_pallas_interpret(B, raw_code, planar):
     assert tuple(out.shape) == ref.shape == ((4, B) if planar else (B, 4))
     err = np.abs(out.numpy().astype(np.float64) - ref).max()
     assert err <= 1e-4 * max(1.0, np.abs(ref).max()), err
+
+
+@pytest.mark.parametrize("H", [128, 256])
+@pytest.mark.parametrize("shape,B,raw_code,planar", [("small", 150, False, True),
+                                                     ("sn64", 160, False, False),
+                                                     ("sn64", 160, True, True)])
+def test_dense_plain_at_narrow_widths_matches_pallas_interpret(H, shape, B, raw_code, planar):
+    """The narrow towers the kernels take (d_hidden 128 and 256): the plain
+    version against ``_kernel_2d`` in interpret mode at tests/test_pallas.py's
+    small shape and at sn64's other widths, the last tile ragged, weights
+    carried by ``from_jax_variables``."""
+    d_in, C, nb, cl = NARROW[shape].values()
+    params, port, raw, code, enc, z = _setup(B, C, H, nb, seed=H + B + raw_code, cl=cl, d_in=d_in)
+    if raw_code:
+        jx = rp.RawCode(*(jnp.asarray(a) for a in (raw,) + code))
+        x = rf.RawCode(*(torch.from_numpy(a) for a in (raw,) + code))
+    else:
+        jx, x = jnp.asarray(enc), torch.from_numpy(enc)
+    ref = rp.resnetfc_pallas(params, (jnp.asarray(z), jx), NS=1, d_latent=C, d_in=enc.shape[1],
+                             n_blocks=nb, combine_layer=cl, block_points=512, interpret=True,
+                             planar_out=planar)
+    ref = np.asarray(ref)[0]
+    tw = port.tower(torch.device("cpu"))
+    assert tuple(tw.w_blk.shape) == (nb, 2, H, H) and tw.w_z.shape[0] == cl
+    rf.reset_launches()
+    out = rf.resnetfc_dense(torch.from_numpy(z), x, tw, nb, planar)
+    assert not any(rf.LAUNCHES.values())
+    assert tuple(out.shape) == ref.shape == ((4, B) if planar else (B, 4))
+    err = np.abs(out.numpy().astype(np.float64) - ref).max()
+    assert err <= 1e-4 * max(1.0, np.abs(ref).max()), err
+
+
+@pytest.mark.parametrize("H", rf.HIDDEN)
+def test_sn64_latent_is_one_piece_at_every_width(H):
+    """The latent's pieces follow the operand tile's 512-column capacity,
+    not the tower's width: sn64's C = 512 is one piece (14 steps at one view,
+    15 at any view count) at d_hidden 128, 256 and 512 alike, 1024 two; each
+    width's limits take its own H and refuse the others'."""
+    lim = LIMITS._replace(stages={128: 6}.get(H, 3), slot_floats=H // 4 * 256, hidden=H)
+    assert rf.latent_pieces(512) == 1 and rf.latent_pieces(1024) == 2
+    assert rf.dense_steps(5, 3, C=512) == 14 and rf.dense_steps(5, 3, 3, 3, C=512) == 15
+    rf.check_dense_widths(48, H, 512, 3, 5, 4, lim)  # sn64's other widths
+    rf.check_dense_widths(48, H, 1024, 3, 5, 4, lim)
+    rf.check_dense_widths(512, H, 16, 1, 1, 1, lim)  # the widest code: one operand tile
+    rf._check_gather_width(512, lim)
+    for other in (64, 384, 1024) + tuple(h for h in rf.HIDDEN if h != H):
+        with pytest.raises(ValueError, match="d_hidden"):
+            rf.check_dense_widths(48, other, 512, 3, 5, 4, lim)
 
 
 @pytest.mark.parametrize("B,tiles", [(1, 1), (64, 1), (65, 2), (2000, 32), (49152, 768),

@@ -4,7 +4,8 @@
 (``dense_steps`` at NS views, ``dense_mv_grid``, ``check_dense_mv``), and a
 Python mirror of the kernel's program: one view's steps stored once and
 walked NS times, which must walk the same steps as the flat program of
-every view written out.
+every view written out; the plain version also at the narrow widths
+d_hidden 128 and 256 (one library a width).
 
 ``resnetfc_fwd_dense_mv`` walks 64-point tiles of output points on
 persistent CTAs; its input rows are object-major (SB objects x NS views x
@@ -38,14 +39,18 @@ from pixelnerf_tpu_torch.utils.jax_convert import from_jax_variables
 LIMITS = rf.DenseLimits(tile=64, threads=256, stages=3, max_out=4, max_steps=128, max_k=512,
                         slot_floats=128 * 256, smem=2 * 65536 + 3 * 32768 + 1024, plan_bytes=448)
 PE = dict(num_freqs=6, d_in=3, freq_factor=1.5, include_input=True)  # sn64's code
+# the narrow towers' shapes, as in tests/test_torch_fwd_dense.py
+NARROW = {"small": dict(d_in=10, C=64, nb=3, cl=2), "sn64": dict(d_in=None, C=512, nb=5, cl=3)}
 
 
-def _setup(rows, d_latent, H, nb, cl, seed=0):
+def _setup(rows, d_latent, H, nb, cl, seed=0, d_in=None):
     """JAX ResnetFC parameters drawn from numpy (every parameter live), the
     port module holding the same weights, the sn64 code's raw coordinates
-    and flat arrays, the encoded code and a latent, for ``rows`` input rows."""
+    and flat arrays, the encoded code (or, given ``d_in``, a normal (rows,
+    d_in) code in its place) and a latent, for ``rows`` input rows."""
     W, f, p, m = JPositionalEncoding(**PE).flat_arrays(tail=3)
-    d_in = W.shape[1]
+    d_code = W.shape[1]
+    d_in = d_code if d_in is None else d_in
     jm = JResnetFC(d_out=4, n_blocks=nb, d_latent=d_latent, d_hidden=H, combine_layer=cl)
     params = jm.init(jax.random.PRNGKey(0), jnp.zeros((4, d_latent + d_in)))["params"]
     rng = np.random.default_rng(seed)
@@ -62,6 +67,8 @@ def _setup(rows, d_latent, H, nb, cl, seed=0):
     raw = np.concatenate([xyz, vd], axis=-1).astype(np.float32)
     enc = (raw.astype(np.float64) @ W).astype(np.float32)
     enc = np.where(m > 0, np.sin(enc * f + p), enc).astype(np.float32)
+    if d_in != d_code:
+        enc = rng.normal(size=(rows, d_in)).astype(np.float32)
     z = rng.normal(size=(rows, d_latent)).astype(np.float32)
     return params, port, raw, (W, f, p, m), enc, z
 
@@ -96,6 +103,44 @@ def test_dense_mv_plain_matches_pallas_interpret(NS, sb, B_obj, raw_code, planar
     out = rf.resnetfc_dense_mv(torch.from_numpy(z), x, port.tower(torch.device("cpu")), nb, NS, cl,
                                sb, planar)
     assert not any(rf.LAUNCHES.values())  # CPU tensors: the plain version, no launch
+    B = sb * B_obj
+    assert tuple(out.shape) == ref.shape == ((4, B) if planar else (B, 4))
+    err = np.abs(out.numpy().astype(np.float64) - ref).max()
+    assert err <= 1e-4 * max(1.0, np.abs(ref).max()), err
+
+
+@pytest.mark.parametrize("H", [128, 256])
+@pytest.mark.parametrize("shape,NS,sb,B_obj,raw_code,planar", [
+    ("small", 2, 1, 75, False, True),
+    ("sn64", 2, 1, 160, True, False),
+    ("sn64", 3, 2, 80, False, True),
+    ("sn64", 3, 2, 80, True, False),
+])
+def test_dense_mv_plain_at_narrow_widths_matches_pallas_interpret(H, shape, NS, sb, B_obj,
+                                                                  raw_code, planar):
+    """The narrow towers the kernels take (d_hidden 128 and 256): the plain
+    version against ``_kernel_2d_mv`` in interpret mode at
+    tests/test_pallas.py's small shape and at sn64's other widths, NS 2 and
+    NS 3 x SB 2 (tiles straddling objects, a ragged last tile): the view
+    mean over an H-wide stream."""
+    d_in, C, nb, cl = NARROW[shape].values()
+    rows = sb * NS * B_obj
+    params, port, raw, code, enc, z = _setup(rows, C, H, nb, cl, seed=H + rows + raw_code,
+                                             d_in=d_in)
+    if raw_code:
+        jx = rp.RawCode(*(jnp.asarray(a) for a in (raw,) + code))
+        x = rf.RawCode(*(torch.from_numpy(a) for a in (raw,) + code))
+    else:
+        jx, x = jnp.asarray(enc), torch.from_numpy(enc)
+    ref = rp.resnetfc_pallas(params, (jnp.asarray(z), jx), NS=NS, d_latent=C, d_in=enc.shape[1],
+                             n_blocks=nb, combine_layer=cl, sb=sb, block_points=128,
+                             interpret=True, planar_out=planar)
+    ref = np.asarray(ref)[0]
+    tw = port.tower(torch.device("cpu"))
+    assert tw.w_in.shape[1] == H
+    rf.reset_launches()
+    out = rf.resnetfc_dense_mv(torch.from_numpy(z), x, tw, nb, NS, cl, sb, planar)
+    assert not any(rf.LAUNCHES.values())
     B = sb * B_obj
     assert tuple(out.shape) == ref.shape == ((4, B) if planar else (B, 4))
     err = np.abs(out.numpy().astype(np.float64) - ref).max()

@@ -1,7 +1,8 @@
 """The port's one-view fused-gather forward (row 1 of PERF.md:
 ``_kernel_2d_gather``): ``ops/resnetfc_fused.py::resnetfc_gather``, its plain
 version (``gather_reference`` then ``resnetfc_reference``) and the checks of
-``resnetfc_fwd_gather`` (``check_gather``).
+``resnetfc_fwd_gather`` (``check_gather``), at sn64's d_hidden 512 and at
+the narrow widths 128 and 256 (one library a width).
 
 ``resnetfc_fwd_gather`` walks the dense kernel's 64-point tiles; every B here
 leaves its last tile ragged (2000 = 31 x 64 + 16, and 160 = 2 x 64 + 32),
@@ -38,6 +39,8 @@ LIMITS = rf.DenseLimits(tile=64, threads=256, stages=3, max_out=4, max_steps=128
                         slot_floats=128 * 256, smem=2 * 65536 + 3 * 32768 + 1024, plan_bytes=448)
 PE = dict(num_freqs=6, d_in=3, freq_factor=1.5, include_input=True)  # sn64's code
 TAPS = 8  # sn64 pads the 4 bilinear taps to 8 (ops/grid_sample.py::bilinear_taps)
+# the narrow towers' shapes, as in tests/test_torch_fwd_dense.py
+NARROW = {"small": dict(d_in=10, C=64, nb=3, cl=2), "sn64": dict(d_in=None, C=512, nb=5, cl=3)}
 
 
 def _taps(rng, B, T):
@@ -51,12 +54,14 @@ def _taps(rng, B, T):
     return idx, w
 
 
-def _setup(B, C, H, nb, combine_layer, T, seed=0):
+def _setup(B, C, H, nb, combine_layer, T, seed=0, d_in=None):
     """JAX ResnetFC parameters drawn from numpy (every parameter live), the
     port module holding the same weights, the sn64 code's raw coordinates and
-    flat arrays, the encoded code, a (T, C) table and its taps."""
+    flat arrays, the encoded code (or, given ``d_in``, a normal (B, d_in)
+    code in its place), a (T, C) table and its taps."""
     W, f, p, m = JPositionalEncoding(**PE).flat_arrays(tail=3)
-    d_in = W.shape[1]
+    d_code = W.shape[1]
+    d_in = d_code if d_in is None else d_in
     jm = JResnetFC(d_out=4, n_blocks=nb, d_latent=C, d_hidden=H, combine_layer=combine_layer)
     params = jm.init(jax.random.PRNGKey(0), jnp.zeros((4, C + d_in)))["params"]
     rng = np.random.default_rng(seed)
@@ -73,6 +78,8 @@ def _setup(B, C, H, nb, combine_layer, T, seed=0):
     raw = np.concatenate([xyz, vd], axis=-1).astype(np.float32)
     enc = (raw.astype(np.float64) @ W).astype(np.float32)
     enc = np.where(m > 0, np.sin(enc * f + p), enc).astype(np.float32)
+    if d_in != d_code:
+        enc = rng.normal(size=(B, d_in)).astype(np.float32)
     table = rng.normal(size=(T, C)).astype(np.float32)
     idx, w = _taps(rng, B, T)
     return params, port, raw, (W, f, p, m), enc, table, idx, w
@@ -102,6 +109,42 @@ def test_gather_plain_matches_pallas_interpret(B, raw_code, planar):
     out = rf.resnetfc_gather(torch.from_numpy(idx), torch.from_numpy(w), torch.from_numpy(table),
                              x, port.tower(torch.device("cpu")), nb, planar)
     assert not any(rf.LAUNCHES.values())  # CPU tensors: the plain version, no launch
+    assert tuple(out.shape) == ref.shape == ((4, B) if planar else (B, 4))
+    err = np.abs(out.numpy().astype(np.float64) - ref).max()
+    assert err <= 1e-4 * max(1.0, np.abs(ref).max()), err
+
+
+@pytest.mark.parametrize("H", [128, 256])
+@pytest.mark.parametrize("shape,B,raw_code,planar", [("small", 150, False, True),
+                                                     ("sn64", 160, False, False),
+                                                     ("sn64", 160, True, True)])
+def test_gather_plain_at_narrow_widths_matches_pallas_interpret(H, shape, B, raw_code, planar):
+    """The narrow towers the kernels take (d_hidden 128 and 256): the plain
+    version against ``_kernel_2d_gather`` in interpret mode at
+    tests/test_pallas.py's small shape and at sn64's other widths (a 512-wide
+    table: one operand tile at every width), the last tile ragged, taps
+    outside the table."""
+    d_in, C, nb, cl = NARROW[shape].values()
+    T = 64
+    params, port, raw, code, enc, table, idx, w = _setup(B, C, H, nb, cl, T,
+                                                         seed=H + B + raw_code, d_in=d_in)
+    assert ((idx[:, :4] < 0) | (idx[:, :4] >= T)).any()
+    if raw_code:
+        jx = rp.RawCode(*(jnp.asarray(a) for a in (raw,) + code))
+        x = rf.RawCode(*(torch.from_numpy(a) for a in (raw,) + code))
+    else:
+        jx, x = jnp.asarray(enc), torch.from_numpy(enc)
+    jz = rp.LatentGather(jnp.asarray(table), jnp.asarray(idx), jnp.asarray(w))
+    ref = rp.resnetfc_pallas(params, (jz, jx), NS=1, d_latent=C, d_in=enc.shape[1], n_blocks=nb,
+                             combine_layer=cl, block_points=512, interpret=True,
+                             planar_out=planar)
+    ref = np.asarray(ref)[0]
+    tw = port.tower(torch.device("cpu"))
+    assert tw.w_in.shape[1] == H
+    rf.reset_launches()
+    out = rf.resnetfc_gather(torch.from_numpy(idx), torch.from_numpy(w), torch.from_numpy(table),
+                             x, tw, nb, planar)
+    assert not any(rf.LAUNCHES.values())
     assert tuple(out.shape) == ref.shape == ((4, B) if planar else (B, 4))
     err = np.abs(out.numpy().astype(np.float64) - ref).max()
     assert err <= 1e-4 * max(1.0, np.abs(ref).max()), err

@@ -2,7 +2,8 @@
 ``_kernel_2d_mv_gather``): ``ops/resnetfc_fused.py::resnetfc_gather_mv``, its
 plain version (``gather_reference`` on the ``(NS, T, C)`` tables, then
 ``resnetfc_reference`` at NS views) and the checks of
-``resnetfc_fwd_gather_mv`` (``check_gather_mv``).
+``resnetfc_fwd_gather_mv`` (``check_gather_mv``), at sn64's d_hidden 512 and
+at the narrow widths 128 and 256 (one library a width).
 
 ``resnetfc_fwd_gather_mv`` walks 64-point tiles of one object's output
 points on persistent CTAs, view v's lookup reading idx / w rows ``v B + g``
@@ -41,6 +42,8 @@ LIMITS = rf.DenseLimits(tile=64, threads=256, stages=3, max_out=4, max_steps=128
                         slot_floats=128 * 256, smem=2 * 65536 + 3 * 32768 + 1024, plan_bytes=448)
 PE = dict(num_freqs=6, d_in=3, freq_factor=1.5, include_input=True)  # sn64's code
 TAPS = 8  # sn64 pads the 4 bilinear taps to 8 (ops/grid_sample.py::bilinear_taps)
+# the narrow towers' shapes, as in tests/test_torch_fwd_dense.py
+NARROW = {"small": dict(d_in=10, C=64, nb=3, cl=2), "sn64": dict(d_in=None, C=512, nb=5, cl=3)}
 
 
 def _taps(rng, rows, T):
@@ -54,13 +57,15 @@ def _taps(rng, rows, T):
     return idx, w
 
 
-def _setup(NS, B, C, H, nb, cl, T, seed=0):
+def _setup(NS, B, C, H, nb, cl, T, seed=0, d_in=None):
     """JAX ResnetFC parameters drawn from numpy (every parameter live), the
     port module holding the same weights, NS views of B points: the sn64
-    code's raw coordinates and flat arrays, the encoded code, (NS, T, C)
-    tables and view-major taps."""
+    code's raw coordinates and flat arrays, the encoded code (or, given
+    ``d_in``, a normal (NS B, d_in) code in its place), (NS, T, C) tables and
+    view-major taps."""
     W, f, p, m = JPositionalEncoding(**PE).flat_arrays(tail=3)
-    d_in = W.shape[1]
+    d_code = W.shape[1]
+    d_in = d_code if d_in is None else d_in
     jm = JResnetFC(d_out=4, n_blocks=nb, d_latent=C, d_hidden=H, combine_layer=cl)
     params = jm.init(jax.random.PRNGKey(0), jnp.zeros((4, C + d_in)))["params"]
     rng = np.random.default_rng(seed)
@@ -78,6 +83,8 @@ def _setup(NS, B, C, H, nb, cl, T, seed=0):
     raw = np.concatenate([xyz, vd], axis=-1).astype(np.float32)
     enc = (raw.astype(np.float64) @ W).astype(np.float32)
     enc = np.where(m > 0, np.sin(enc * f + p), enc).astype(np.float32)
+    if d_in != d_code:
+        enc = rng.normal(size=(rows, d_in)).astype(np.float32)
     tables = rng.normal(size=(NS, T, C)).astype(np.float32)
     idx, w = _taps(rng, rows, T)
     return params, port, raw, (W, f, p, m), enc, tables, idx, w
@@ -116,6 +123,45 @@ def test_gather_mv_plain_matches_pallas_interpret(NS, B, raw_code, planar):
                                 torch.from_numpy(tables), x, port.tower(torch.device("cpu")), nb,
                                 cl, planar)
     assert not any(rf.LAUNCHES.values())  # CPU tensors: the plain version, no launch
+    assert tuple(out.shape) == ref.shape == ((4, B) if planar else (B, 4))
+    err = np.abs(out.numpy().astype(np.float64) - ref).max()
+    assert err <= 1e-4 * max(1.0, np.abs(ref).max()), err
+
+
+@pytest.mark.parametrize("H", [128, 256])
+@pytest.mark.parametrize("shape,NS,B,raw_code,planar", [
+    ("small", 2, 150, False, True),
+    ("sn64", 2, 160, True, False),
+    ("sn64", 3, 160, False, True),
+    ("sn64", 3, 160, True, False),
+])
+def test_gather_mv_plain_at_narrow_widths_matches_pallas_interpret(H, shape, NS, B, raw_code,
+                                                                   planar):
+    """The narrow towers the kernels take (d_hidden 128 and 256): the plain
+    version against ``_kernel_2d_mv_gather`` in interpret mode at
+    tests/test_pallas.py's small shape and at sn64's other widths (512-wide
+    tables), NS 2 and 3, a ragged last tile, taps outside each view's table."""
+    d_in, C, nb, cl = NARROW[shape].values()
+    T = 64
+    params, port, raw, code, enc, tables, idx, w = _setup(NS, B, C, H, nb, cl, T,
+                                                          seed=H + NS * B + raw_code, d_in=d_in)
+    assert ((idx[:, :4] < 0) | (idx[:, :4] >= T)).any()
+    if raw_code:
+        jx = rp.RawCode(*(jnp.asarray(a) for a in (raw,) + code))
+        x = rf.RawCode(*(torch.from_numpy(a) for a in (raw,) + code))
+    else:
+        jx, x = jnp.asarray(enc), torch.from_numpy(enc)
+    jz = rp.LatentGather(jnp.asarray(tables), jnp.asarray(idx), jnp.asarray(w))
+    ref = rp.resnetfc_pallas(params, (jz, jx), NS=NS, d_latent=C, d_in=enc.shape[1], n_blocks=nb,
+                             combine_layer=cl, block_points=512, interpret=True,
+                             planar_out=planar)
+    ref = np.asarray(ref)[0]
+    tw = port.tower(torch.device("cpu"))
+    assert tw.w_in.shape[1] == H
+    rf.reset_launches()
+    out = rf.resnetfc_gather_mv(torch.from_numpy(idx), torch.from_numpy(w),
+                                torch.from_numpy(tables), x, tw, nb, cl, planar)
+    assert not any(rf.LAUNCHES.values())
     assert tuple(out.shape) == ref.shape == ((4, B) if planar else (B, 4))
     err = np.abs(out.numpy().astype(np.float64) - ref).max()
     assert err <= 1e-4 * max(1.0, np.abs(ref).max()), err

@@ -14,7 +14,10 @@ envelope, on the CPU.
   Python mirrors of the kernels' limits (no library is built or loaded).
   Under grad the backward kernels take the forward's latent widths (16 to
   1024, a multiple of 16): the global encoder's 640 and the ConvEncoder's
-  128 train on the kernels; 1040 and 24 stay plain.
+  128 train on the kernels; 1040 and 24 stay plain.  The forward kernels
+  take d_hidden 128, 256 and 512 (a library each): narrow towers render on
+  them, and stay plain under grad (the backward is built at 512); 64 and
+  384 stay plain.
 * The steepened field of the eval CLIs' replay (its sigma row x 50, shifted
   to leave 1/32 of the points occupied) read past the per-kernel bar on the
   card: the JAX kernel's own bf16 arithmetic reads alike on it.
@@ -125,7 +128,7 @@ def test_dense_steps_and_widths_count_the_latent_pieces():
     program: sn64 (5 blocks, 3 injections) is 14 steps at C = 512, 17 at 640
     and at 1024, and 18 from NS = 2 up; ``check_dense_widths`` takes C to
     1024 and refuses 1040, and the gathers keep C <= 512."""
-    lim = rf.TILE_LIMITS
+    lim = rf.TILE_LIMITS[512]
     assert [rf.latent_pieces(c) for c in (16, 512, 528, 640, 1024)] == [1, 1, 2, 2, 2]
     assert rf.dense_steps(5, 3, C=512) == rf.dense_steps(5, 3) == 14
     assert rf.dense_steps(5, 3, C=640) == rf.dense_steps(5, 3, C=1024) == 17
@@ -156,8 +159,9 @@ CUDA = torch.device("cuda")  # only compared by type: nothing is allocated on it
 
 
 @pytest.mark.parametrize("kw,NS,grad", [
-    (dict(d_hidden=128), 1, False),
-    (dict(d_hidden=256), 3, False),
+    (dict(d_hidden=384), 1, False),  # no library of that width
+    (dict(d_hidden=64), 3, False),  # a warpgroup's 32 columns: below one TMA box
+    (dict(d_hidden=256), 1, True),  # the narrow forward, but the backward is built at 512
     (dict(d_in=144), 1, True),  # kin 144 > 128: the data kernel's code
     (dict(n_blocks=6), 1, True),  # the weights kernel's plan: 5 blocks at most
     (dict(d_latent=1040), 1, True),  # past the kernels' 1024, under grad
@@ -169,14 +173,14 @@ def test_route_sends_towers_outside_the_envelope_to_the_plain_route(kw, NS, grad
     """Under ``auto`` on a CUDA device a tower the kernels do not take is
     routed plain -- decided from the Python mirrors, with no library built
     (none can be here) -- and under ``cuda`` it raises."""
-    assert rf._LIB is None and not rf.dense_limits.cache_info().currsize
+    assert not rf._LIBS and not rf.dense_limits.cache_info().currsize
     t = _tower(**kw)
     assert t._kernel_route((NS, 64), CUDA, grad) is False
     t.impl = "cuda"
     with pytest.raises(ValueError):
         t._kernel_route((NS, 64), CUDA, grad)
     assert t._kernel_route((NS, 64), torch.device("cpu"), grad) is True  # plain versions
-    assert rf._LIB is None and rv._LIB is None
+    assert not rf._LIBS and rv._LIB is None
 
 
 @pytest.mark.parametrize("kw,NS,grad", [
@@ -190,13 +194,17 @@ def test_route_sends_towers_outside_the_envelope_to_the_plain_route(kw, NS, grad
     (dict(d_latent=WIDE), 3, True),
     (dict(d_latent=128), 1, True),  # the ConvEncoder's train step
     (dict(d_latent=1024), 1, True),
+    (dict(d_hidden=128), 1, False),  # the narrow towers' forward: a library each
+    (dict(d_hidden=256), 3, False),
+    (dict(d_hidden=128), 2, False),
+    (dict(d_hidden=256), 1, False),
 ])
 def test_route_takes_the_kernels_inside_the_envelope(kw, NS, grad):
     """Decided from the Python mirrors as well: no library built or loaded."""
     t = _tower(**kw)
     assert t._kernel_route((NS, 64), CUDA, grad) is True
     assert t._kernel_route((NS, 64), torch.device("cpu"), grad) is False  # auto on the CPU
-    assert rf._LIB is None and rv._LIB is None
+    assert not rf._LIBS and rv._LIB is None
 
 
 @pytest.mark.parametrize("option,want", [("global", True), ("conv", True), ("narrow", False)])
@@ -227,7 +235,7 @@ def test_option_train_steps_take_the_backward_kernels(monkeypatch, option, want)
     assert not net.field_backward_in_kernel(1)  # auto on CPU parameters: the plain field
     monkeypatch.setattr(net, "parameters", lambda: iter([SimpleNamespace(device=CUDA)]))
     assert [net.field_backward_in_kernel(nv) for nv in (1, 3)] == [want, want]
-    assert rf._LIB is None and rv._LIB is None
+    assert not rf._LIBS and rv._LIB is None
 
 
 def test_mirrored_limits_are_the_kernels_limits_by_hand():
@@ -236,13 +244,26 @@ def test_mirrored_limits_are_the_kernels_limits_by_hand():
     stored steps, a 512-wide code, a 1024-wide latent, two 64 KB operand
     tiles (the data kernel: 256 steps, the same 1024-wide latent); the
     weights kernel's 128 x 256 tile, 24 splits, 24 tensor maps and 16
-    products.  ``chip_smoke.py`` holds them equal to what the libraries
-    report."""
-    assert rf.TILE_LIMITS == rf.DenseLimits(64, 256, 3, 4, 128, 512, 32768, 230400, 448, 1024)
+    products.  The narrow libraries keep the operand tiles, the code's and
+    the latent's widths and the 96 KB ring (6 stages of 16 KB at d_hidden
+    128, where a warpgroup's piece is one 64-column box), and a view-sum
+    slot of the H-wide stream (H / 4 f32 a thread).  ``chip_smoke.py`` holds
+    them equal to what the libraries report."""
+    assert rf.TILE_LIMITS == {
+        128: rf.DenseLimits(64, 256, 6, 4, 128, 512, 8192, 230400, 448, 1024, 128),
+        256: rf.DenseLimits(64, 256, 3, 4, 128, 512, 16384, 230400, 448, 1024, 256),
+        512: rf.DenseLimits(64, 256, 3, 4, 128, 512, 32768, 230400, 448, 1024, 512),
+    }
+    assert tuple(rf.TILE_LIMITS) == rf.HIDDEN
     assert rv.DATA_LIMITS == rv.DataLimits(64, 256, 32768, 3, 4, 256, 1024, 230400)
-    assert rv.DATA_LIMITS.max_c == rf.TILE_LIMITS.max_c
+    assert rv.DATA_LIMITS.max_c == rf.TILE_LIMITS[512].max_c
     assert rv.WEIGHT_LIMITS == rv.KernelLimits(128, 256, 24, 24, 16)
-    assert rf.TILE_LIMITS.smem <= rf.MAX_SMEM_BYTES
+    for H, lim in rf.TILE_LIMITS.items():
+        assert lim.smem <= rf.MAX_SMEM_BYTES and lim.hidden == H
+        assert rf.tile_limits(H) is lim
+    for H in (64, 384, 1024):
+        with pytest.raises(ValueError, match="d_hidden"):
+            rf.tile_limits(H)
 
 
 # ----------------------------------------------------------------------------

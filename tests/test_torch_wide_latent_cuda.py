@@ -1,9 +1,11 @@
 """On the card only (``cuda``-marked; skipped without one): the dense
-forwards at a 640-wide latent and the backward kernels (rows 5a / 5b) at
-latent widths 128, 640 and 1024 against their plain versions, and the
-Python mirrors of the kernels' limits that the route rule reads against
-what the libraries report.  No JAX here: this file runs where the card is.
-``chip_smoke.py`` makes the same checks at sn64's full widths."""
+forwards at a 640-wide latent, the backward kernels (rows 5a / 5b) at
+latent widths 128, 640 and 1024, and the four forward kernels with their
+CODE twins (rows 1-4, 6) at d_hidden 128 and 256 against their plain
+versions, and the Python mirrors of the kernels' limits that the route rule
+reads against what each library reports.  No JAX here: this file runs where
+the card is.  ``chip_smoke.py`` makes the same checks at sn64's full
+widths."""
 
 import pytest
 import torch
@@ -25,7 +27,8 @@ def cuda_device():
 
 @pytest.mark.cuda
 def test_mirrored_limits_are_the_libraries(cuda_device):
-    assert rf.dense_limits() == rf.TILE_LIMITS
+    for H in rf.HIDDEN:
+        assert rf.dense_limits(H) == rf.TILE_LIMITS[H]
     assert rv.data_limits() == rv.DATA_LIMITS
     assert rv.kernel_limits() == rv.WEIGHT_LIMITS
 
@@ -126,3 +129,63 @@ def test_backward_kernels_at_other_latent_widths_match_plain_on_card(cuda_device
             assert _agree(getattr(gr, name), getattr(wref, name)), name
     again = rv.bwd_weights(z, rv.bwd_data(cot, z, x, tw, 5, True, **kw), tw, 5)
     assert all(torch.equal(getattr(gr, n), getattr(again, n)) for n in rv.Grads._fields)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("raw_code", [False, True])
+@pytest.mark.parametrize("kind", ["dense", "gather"])
+@pytest.mark.parametrize("NS,sb,B_obj", [(1, 1, 2000), (1, 1, 160), (3, 2, 333), (2, 1, 1000)])
+@pytest.mark.parametrize("H", [128, 256])
+def test_narrow_forward_kernels_match_plain_on_card(cuda_device, H, NS, sb, B_obj, kind,
+                                                    raw_code):
+    """sn64's other widths at d_hidden 128 and 256 (C = 512 one piece, 5
+    blocks, the views' mean at block 3): the dense kernel or the fused gather
+    (NS 1), the multi-view dense kernel or gather (the gather at SB 1), each
+    encoded and as its CODE twin, against its plain version in bf16 at the
+    bar of tests/test_pallas.py, one launch of the width's library,
+    bit-identical on a second call."""
+    if kind == "gather" and sb > 1:
+        pytest.skip("the multi-view gather takes one object")
+    g = torch.Generator().manual_seed(H + NS * 1000 + B_obj)
+    W, f, p, m = PositionalEncoding(num_freqs=6, d_in=3, freq_factor=1.5,
+                                    include_input=True).flat_arrays(tail=3)
+    port = ResnetFC(d_in=W.shape[1], d_out=4, n_blocks=5, d_latent=512, d_hidden=H,
+                    combine_layer=3, impl="cuda")
+    with torch.no_grad():
+        for name, prm in port.named_parameters():
+            std = 0.05 if name.endswith("bias") else prm.shape[1] ** -0.5
+            prm.copy_(torch.randn(prm.shape, generator=g) * std)
+    tw = port.to(cuda_device).tower(cuda_device)
+    rows, T = NS * sb * B_obj, 1024
+    raw = torch.cat([torch.rand(rows, 3, generator=g) * 2.8 - 1.4,
+                     torch.nn.functional.normalize(torch.randn(rows, 3, generator=g), dim=-1)],
+                    -1).to(cuda_device)
+    code = rf.RawCode(raw, *(torch.from_numpy(a).to(cuda_device) for a in (W, f, p, m)))
+    x = code if raw_code else rf.materialize_code(code._replace(cd=torch.float32)).contiguous()
+    tables = (torch.randn(NS, T, 512, generator=g) * 0.5).to(cuda_device).bfloat16()
+    idx = torch.randint(-1, T + 1, (rows, 8), generator=g).int().to(cuda_device)
+    w = torch.rand(rows, 8, generator=g).to(cuda_device)
+    w[:, 4:] = 0.0
+    if kind == "dense":
+        z = (torch.randn(rows, 512, generator=g) * 0.5).to(cuda_device).bfloat16()
+    else:
+        z = rf.gather_reference(idx, w, tables if NS > 1 else tables[0], torch.bfloat16)
+
+    def run():
+        if kind == "dense":
+            if NS == 1:
+                return rf.resnetfc_dense(z, x, tw, 5, True)
+            return rf.resnetfc_dense_mv(z, x, tw, 5, NS, 3, sb, True)
+        if NS == 1:
+            return rf.resnetfc_gather(idx, w, tables[0].contiguous(), x, tw, 5, True)
+        return rf.resnetfc_gather_mv(idx, w, tables, x, tw, 5, 3, True)
+
+    name = f"resnetfc_fwd_{kind}{'_mv' if NS > 1 else ''}{'_code' if raw_code else ''}"
+    before = rf.LAUNCHES[name]
+    out = run()
+    torch.cuda.synchronize()
+    assert rf.LAUNCHES[name] == before + 1
+    ref = rf.resnetfc_reference(z, x, tw, 5, True, compute_dtype=torch.bfloat16, NS=NS, sb=sb,
+                                combine_layer=3)
+    assert _agree(out, ref)
+    assert torch.equal(out, run())
