@@ -7,15 +7,16 @@ one line each:
 
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile every kernel from ``pixelnerf_tpu_torch/csrc``, one
-   ``nvcc`` per library, all at once: the backward, and the forward at
-   each hidden width (128, 256, 512; ``-DRFC_HID``); ptxas registers and
-   spills per kernel, each library's ``HGMMA`` / ``UTMALDG`` / ``HMMA``
-   counts per kernel (``cuobjdump -sass``) and the weights kernel's shared
-   memory; both backward kernels (the data kernel's two instantiations too)
-   and both instantiations of each of the four forward kernels in every
-   width's library must be wgmma + TMA kernels with no wmma product and no
-   spills, and no kernel of a forward library may hold a wmma product; each
-   width's forward registers on a line of their own;
+   ``nvcc`` per library, all at once: the forward and the backward at each
+   hidden width (128, 256, 512; ``-DRFC_HID``), six libraries; ptxas
+   registers and spills per kernel, each library's ``HGMMA`` / ``UTMALDG``
+   / ``HMMA`` counts per kernel (``cuobjdump -sass``) and each weights
+   kernel's shared memory; both backward kernels (the data kernel's two
+   instantiations too) and both instantiations of each of the four forward
+   kernels in every width's library must be wgmma + TMA kernels with no
+   wmma product and no spills, and no kernel of a forward library may hold
+   a wmma product; each width's forward and backward registers on lines of
+   their own;
 3. kernel checks: each forward kernel against its plain PyTorch version at
    the main paths' shapes (one ray chunk x 64 and x 96 samples; the
    single-view kernels on the encoded source view's 1024 x 512 table, the
@@ -235,7 +236,25 @@ one line each:
     pixelnerf_tpu_torch.eval.eval -F dvr -P "0"`` and ``-P "0 1 2"`` at
     d_hidden 256 with ``PIXELNERF_DEFER_CODE=1`` on the NMR fixture (a conf
     file including sn64's, a checkpoint of the phase's weights), launching
-    the gather's and the multi-view dense kernel's CODE twins.
+    the gather's and the multi-view dense kernel's CODE twins;
+18. narrow backward: rows 5a / 5b at d_hidden 256 and 128 (sn64's tower,
+    C = 512, seeded) from 1 and 3 views at a ragged B (SB 2 x 1000, SB 2 x
+    NS 3 x 333) and at the train step's fine pass (SB 4 x 12,288 from 1 and
+    3 views), and at d_hidden 128 also at C = 640 and 128 on the ragged
+    shapes, each against its plain version as 16 gates the wide latents
+    (``backward_gate``: the bar and corr > 0.999, relu-mask flips <= 1e-3,
+    one launch of the width's library each, bit-identical second calls);
+    both kernels at the fine pass from 1 and 3 views timed in turns beside
+    d_hidden 512 on the same inputs (512, 256, 128, 128, 256, 512), with
+    their plain, library and bound times, and the weights kernel on its
+    SM-filled splits and the whole-view splits in turns (filled, whole,
+    whole, filled, twice); ``python -m pixelnerf_tpu_torch.train``
+    with both heads at d_hidden 256 (a conf file including sn64's) for 3
+    steps at -V 1 on the NMR fixture and at -V 3 on the DTU one: remat off,
+    the forward kernel and both backward kernels twice a step; each width's
+    train step at -V 1 against the plain f32 step (the guards of 9); and
+    d_hidden 64 and 384 towers under grad, plain under ``auto`` and refused
+    under ``impl='cuda'``.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1985,7 +2004,7 @@ def option_confs(base):
     (ResNet34, its code 128 before the 512-wide pixel latent: C = 640), the
     ConvEncoder (C = 128), the nearest lookup, ImplicitNet heads (5 x 512,
     the views' mean at layer 3), and a narrow tower (d_hidden 256: the
-    forward kernels' 256-wide library; plain under grad)."""
+    kernels' 256-wide libraries)."""
     import copy
 
     out = {}
@@ -2030,14 +2049,15 @@ def live_state(conf, dev) -> dict:
     return net.state_dict()
 
 
-def bwd_tower(C: int, d_in: int, dev, seed: int):
-    """sn64's fine tower (5 blocks x 512, the latent in blocks 0-2, the views'
-    mean at block 3) at latent width C, seeded (biases ~ N(0, 0.05^2),
-    weights ~ N(0, 1 / fan_in)): the module and its packed weights."""
+def bwd_tower(C: int, d_in: int, dev, seed: int, H: int = 512):
+    """sn64's fine tower (5 blocks x H, 512 by default, the latent in blocks
+    0-2, the views' mean at block 3) at latent width C, seeded (biases ~ N(0,
+    0.05^2), weights ~ N(0, 1 / fan_in)): the module and its packed
+    weights."""
     from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
 
     g = torch.Generator().manual_seed(seed)
-    m = ResnetFC(d_in=d_in, d_out=4, n_blocks=5, d_latent=C, d_hidden=512, combine_layer=3,
+    m = ResnetFC(d_in=d_in, d_out=4, n_blocks=5, d_latent=C, d_hidden=H, combine_layer=3,
                  impl="cuda")
     with torch.no_grad():
         for name, prm in m.named_parameters():
@@ -2045,6 +2065,155 @@ def bwd_tower(C: int, d_in: int, dev, seed: int):
             prm.copy_(torch.randn(prm.shape, generator=g) * std)
     m = m.to(dev)
     return m, m.tower(dev)
+
+
+def bwd_inputs(code, gen, C: int, NS: int, sb: int, B_obj: int):
+    """Seeded inputs of the backward kernels at one shape (``gen`` on the
+    card): the code ``code`` of points in [-1, 1]^3 and unit view
+    directions, a bf16 latent ~ N(0, 0.5^2) of C columns (NS sb B_obj rows,
+    object-major) and an f32 cotangent (4, sb B_obj)."""
+    dev = gen.device
+    rows, B = NS * sb * B_obj, sb * B_obj
+    pts = torch.rand(rows, 3, device=dev, generator=gen) * 2 - 1
+    vd = torch.nn.functional.normalize(torch.randn(rows, 3, device=dev, generator=gen), dim=-1)
+    x = torch.cat([code(pts), vd], dim=-1).contiguous()
+    z = (torch.randn(rows, C, device=dev, generator=gen) * 0.5).bfloat16()
+    return x, z, torch.randn(4, B, device=dev, generator=gen)
+
+
+def backward_gate(tw, x, z, g, NS: int, sb: int, n_sms: int, records: dict, label: str) -> None:
+    """Rows 5a / 5b of sn64's tower ``tw`` (5 blocks, the latent in blocks
+    0-2, the views' mean at block 3; any width H and latent C the kernels
+    take) at one shape, from the code ``x``, the bf16 latent ``z`` and the
+    cotangent ``g``: the data kernel's stashed operands against the plain
+    recompute (the bar, relu-mask flips <= 1e-3), the dense forward's output
+    against lin_out of the stashed t (the recompute in the primal's order),
+    every gradient against the plain backward walked through the kernel's
+    own operands (the bar and corr > 0.999) and against the independent
+    plain backward (corr > 0.999), the weights kernel against
+    ``bwd_weights_reference`` on its own DataOut, one launch each and
+    bit-identical second calls.  Logs one line (``label``), exits on a
+    failure and keeps each kernel's largest max|d| in ``records``."""
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
+
+    nb, cl = 5, 3
+    H, C = tw.w_in.shape[1], tw.w_z.shape[1]
+    names = ("resnetfc_bwd_data", "resnetfc_bwd_weights")
+    kw = dict(NS=NS, sb=sb, combine_layer=cl) if NS > 1 else {}
+    B = g.shape[1]
+    grid = rv.data_grid(B, NS, n_sms, rv.DATA_LIMITS[H])
+    rv.reset_launches()
+    data = rv.bwd_data(g, z, x, tw, nb, True, **kw)
+    gr = rv.bwd_weights(z, data, tw, nb)
+    torch.cuda.synchronize()
+    one_each = rv.LAUNCHES == {n: 1 for n in names}
+    ops_k = data.ws_act[:, :B].float()
+    ops_p = rv.forward_operands(z, x, tw, nb, torch.bfloat16, **kw)
+    d, bar, corr = agree(ops_k, ops_p)
+    flips = ((ops_k > 0) != (ops_p > 0)).float().mean().item()
+    with torch.no_grad():
+        out_f = (rf.resnetfc_dense(z, x, tw, nb) if NS == 1
+                 else rf.resnetfc_dense_mv(z, x, tw, nb, NS, cl, sb)).double()
+        lin = (data.ws_act[-1, :B].double() @ tw.w_out.double()).t() + tw.b_out.double()[:, None]
+        same_order = (out_f - lin).abs().max().item() <= 1e-5 * max(1.0, out_f.abs().max().item())
+    ok = one_each and d <= bar and corr > 0.999 and flips <= 1e-3 and same_order
+    same = rv.resnetfc_bwd_reference(g, z, x, tw, nb, True, torch.bfloat16, operands=ops_k, **kw)
+    ind = rv.resnetfc_bwd_reference(g, z, x, tw, nb, True, torch.bfloat16, **kw)
+    wref = rv.bwd_weights_reference(z, data, tw, nb)
+    err, worst = {n: 0.0 for n in names}, {}
+    for name in rv.Grads._fields:
+        out = getattr(gr, name).float()
+        d1, bar1, c1 = agree(out, getattr(same, name))
+        _, _, c2 = agree(out, getattr(ind, name))
+        fine = d1 <= bar1 and c1 > 0.999 and c2 > 0.999 and bool(torch.isfinite(out).all())
+        owner = names[0] if name in ("dz", "dx") else names[1]
+        if owner == names[1]:  # the weights kernel alone, on its own DataOut
+            d3, bar3, c3 = agree(out, getattr(wref, name))
+            fine = fine and d3 <= bar3 and c3 > 0.999
+            d1 = max(d1, d3)
+        ok = ok and fine
+        err[owner] = max(err[owner], d1)
+        worst[name] = [float(f"{d1 / bar1:.4g}"), round(c1, 7), round(c2, 7)]
+    del same, ind, wref, ops_k, ops_p, out_f
+    gr2 = rv.bwd_weights(z, rv.bwd_data(g, z, x, tw, nb, True, **kw), tw, nb)
+    identical = all(torch.equal(getattr(gr, n), getattr(gr2, n)) for n in rv.Grads._fields)
+    ok = ok and identical
+    plan = rv.weight_plan(tw.w_in.shape[0], H, C, nb, 3, NS, data.pre, B, rv.kernel_limits(H),
+                          n_sms)
+    log(f"{label}, -V {NS}: {sb} x {B // sb} = {B} "
+        f"points{f', {NS * B} rows' if NS > 1 else ''} ("
+        + ("the last 64-point tile half full" if B % 64 else "the train step's fine pass")
+        + f", {grid[1]} tiles on {grid[2]} CTAs): one launch each {one_each}; stashed "
+        f"operands vs plain recompute max|d| {d:.6g} <= {bar:.6g}, corr {corr:.7f}, "
+        f"relu-mask flips {flips:.3g} (<= 1e-3); "
+        f"the dense forward is lin_out of the stashed t {same_order}; per gradient "
+        f"[max|d| / bar vs plain on the kernel's operands (the weights: also vs "
+        f"bwd_weights_reference on its DataOut), corr, corr vs the independent plain "
+        f"backward] {json.dumps(worst)}; bit-identical second calls {identical}; "
+        f"{data.ws_x.shape[0] // NS} rows a view, "
+        f"{rv.data_steps(nb, 3, NS, cl if NS > 1 else nb, C, H)} stored steps, "
+        f"{rv.dz_pieces(C, H)} dz steps an injection; the weights kernel's {plan.tiles} "
+        f"output tiles in {max(plan.table[4::6])} splits of {plan.pts} points")
+    if not ok:
+        raise SystemExit(f"{label} failed at -V {NS}, {B} points")
+    for n in names:
+        records[n]["max_abs_err"] = max(records[n].get("max_abs_err", 0.0), err[n])
+
+
+def backward_yardsticks(tw, x, z, g, data, NS: int, sb: int):
+    """What rows 5a / 5b of sn64's tower ``tw`` (5 blocks, the latent in
+    blocks 0-2, the views' mean at block 3) are timed against at one shape,
+    ``data`` the data kernel's DataOut on these inputs: each kernel's plain
+    version (``workspace_reference``; ``bwd_weights_reference`` on
+    ``data``), its library call (the autograd backward of the cuBLAS bf16
+    chain; one cuBLAS ``A^T G`` a product, over the same planes), never
+    called by the port, and its bound (the data kernel: the recompute and
+    the data gradients, two forwards' FLOP, against its inputs, the bf16
+    workspace written once and dz, dx written; the weights kernel: one
+    forward's FLOP against the workspace read once, z too at one view (from
+    several it reads the workspace's ws_z), and the weight gradients
+    written).  Returns ({kernel: plain ms}, {kernel: library
+    ms}, {kernel: (bound ms, what bounds it)}, {kernel: FLOP})."""
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
+
+    names = ("resnetfc_bwd_data", "resnetfc_bwd_weights")
+    nb, cl = tw.w_blk.shape[0], 3
+    (kin, H), (n_lin_z, C) = tw.w_in.shape, tw.w_z.shape[:2]
+    d_in, d_out = tw.d_in, tw.w_out.shape[1]
+    kw = dict(NS=NS, sb=sb, combine_layer=cl) if NS > 1 else {}
+    B, rows = g.shape[1], x.shape[0]
+    pre = nb if NS == 1 else cl
+    plain = {names[0]: cuda_ms(lambda: rv.workspace_reference(g, z, x, tw, nb, **kw), 2),
+             names[1]: cuda_ms(lambda: rv.bwd_weights_reference(z, data, tw, nb), 2)}
+    w_ops = [rv.task_operands(tk, z, data)
+             for tk in rv.weight_tasks(kin, H, C, nb, n_lin_z, NS, data.pre, B)]
+    lib = {names[1]: cuda_ms(lambda: [torch.matmul(a.t(), gg[: a.shape[0]]) for a, gg in w_ops],
+                             5)}
+    del w_ops
+    leaves = [tt.detach().bfloat16().requires_grad_() for tt in tw[:8]]
+    with torch.enable_grad():
+        if NS == 1:
+            zl = z.detach().requires_grad_()
+            lout = library_tower(zl, x, rf.Tower(*leaves, d_in), nb)
+        else:
+            zl = by_view(z, NS, sb).detach().requires_grad_()
+            lout = library_tower_mv(zl, by_view(x, NS, sb), rf.Tower(*leaves, d_in), nb, NS, cl)
+    lib[names[0]] = cuda_ms(lambda: torch.autograd.grad(lout, [zl, *leaves], g, retain_graph=True),
+                            5)
+    del lout, leaves, zl
+    # forward FLOP per output point, the bf16 workspace (written once, read once)
+    f_pt = 2 * H * (NS * (d_in + n_lin_z * C + 2 * pre * H) + 2 * (nb - pre) * H + d_out)
+    ws = sum(tt.numel() * tt.element_size()
+             for tt in (data.ws_act, data.ws_cot, data.ws_x, data.ws_z) if tt is not None)
+    w_bytes = sum(tt.numel() * tt.element_size() for tt in tw[:8])
+    io = rows * (C * 2 + d_in * 4) + B * d_out * 4 + w_bytes
+    z_read = rows * C * 2 if data.ws_z is None else 0  # z in place at NS = 1, else ws_z
+    flops = {names[0]: B * 2 * f_pt, names[1]: B * f_pt}
+    bounds = {names[0]: bound(flops[names[0]], io + ws + rows * (C * 4 + d_in * 4)),
+              names[1]: bound(flops[names[1]], ws + z_read + 2 * w_bytes)}
+    return plain, lib, bounds, flops
 
 
 def wide_backward_phase(conf, dev, smi, records) -> None:
@@ -2064,10 +2233,9 @@ def wide_backward_phase(conf, dev, smi, records) -> None:
     49,152 output points at C = 512 and 640 in turns) with their plain,
     library and bound times."""
     from pixelnerf_tpu_torch.models.code import PositionalEncoding
-    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
     from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
 
-    nb, cl, H, d_out = 5, 3, 512, 4
+    nb, cl = 5, 3
     code = PositionalEncoding.from_conf(conf["model.code"], d_in=3)
     d_in = code.d_out + 3
     gi = torch.Generator(device=dev).manual_seed(SEED + 17)
@@ -2076,85 +2244,22 @@ def wide_backward_phase(conf, dev, smi, records) -> None:
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
 
     def inputs(C, NS, sb, B_obj):
-        rows, B = NS * sb * B_obj, sb * B_obj
-        pts = torch.rand(rows, 3, device=dev, generator=gi) * 2 - 1
-        vd = torch.nn.functional.normalize(torch.randn(rows, 3, device=dev, generator=gi), dim=-1)
-        x = torch.cat([code(pts), vd], dim=-1).contiguous()
-        z = (torch.randn(rows, C, device=dev, generator=gi) * 0.5).bfloat16()
-        return x, z, torch.randn(d_out, B, device=dev, generator=gi)
+        return bwd_inputs(code, gi, C, NS, sb, B_obj)
 
     # ---- gates: C = 128, 640, 1024 from 1 and 3 views, ragged B and the
     # train step's fine pass ----
     for C in WIDE_BWD_C:
-        tw = towers[C][1]
         for NS, sb, B_obj in ((1, 2, 1000), (3, 2, 333), (1, 4, 128 * 96), (3, 4, 128 * 96)):
-            kw = dict(NS=NS, sb=sb, combine_layer=cl) if NS > 1 else {}
             x, z, g = inputs(C, NS, sb, B_obj)
-            B = sb * B_obj
-            grid = rv.data_grid(B, NS, n_sms, rv.DATA_LIMITS)
-            rv.reset_launches()
-            data = rv.bwd_data(g, z, x, tw, nb, True, **kw)
-            gr = rv.bwd_weights(z, data, tw, nb)
-            torch.cuda.synchronize()
-            one_each = rv.LAUNCHES == {n: 1 for n in names}
-            ops_k = data.ws_act[:, :B].float()
-            ops_p = rv.forward_operands(z, x, tw, nb, torch.bfloat16, **kw)
-            d, bar, corr = agree(ops_k, ops_p)
-            flips = ((ops_k > 0) != (ops_p > 0)).float().mean().item()
-            with torch.no_grad():
-                out_f = (rf.resnetfc_dense(z, x, tw, nb) if NS == 1
-                         else rf.resnetfc_dense_mv(z, x, tw, nb, NS, cl, sb)).double()
-                lin = (data.ws_act[-1, :B].double() @ tw.w_out.double()).t() + tw.b_out.double()[:, None]
-                same_order = (out_f - lin).abs().max().item() <= 1e-5 * max(1.0, out_f.abs().max().item())
-            ok = one_each and d <= bar and corr > 0.999 and flips <= 1e-3 and same_order
-            same = rv.resnetfc_bwd_reference(g, z, x, tw, nb, True, torch.bfloat16, operands=ops_k,
-                                             **kw)
-            ind = rv.resnetfc_bwd_reference(g, z, x, tw, nb, True, torch.bfloat16, **kw)
-            wref = rv.bwd_weights_reference(z, data, tw, nb)
-            err, worst = {n: 0.0 for n in names}, {}
-            for name in rv.Grads._fields:
-                out = getattr(gr, name).float()
-                d1, bar1, c1 = agree(out, getattr(same, name))
-                _, _, c2 = agree(out, getattr(ind, name))
-                fine = d1 <= bar1 and c1 > 0.999 and c2 > 0.999 and bool(torch.isfinite(out).all())
-                owner = names[0] if name in ("dz", "dx") else names[1]
-                if owner == names[1]:  # the weights kernel alone, on its own DataOut
-                    d3, bar3, c3 = agree(out, getattr(wref, name))
-                    fine = fine and d3 <= bar3 and c3 > 0.999
-                    d1 = max(d1, d3)
-                ok = ok and fine
-                err[owner] = max(err[owner], d1)
-                worst[name] = [float(f"{d1 / bar1:.4g}"), round(c1, 7), round(c2, 7)]
-            del same, ind, wref, ops_k, ops_p, out_f
-            gr2 = rv.bwd_weights(z, rv.bwd_data(g, z, x, tw, nb, True, **kw), tw, nb)
-            identical = all(torch.equal(getattr(gr, n), getattr(gr2, n)) for n in rv.Grads._fields)
-            ok = ok and identical
-            log(f"wide backward check C = {C} (sn64's tower), -V {NS}: {sb} x {B_obj} = {B} "
-                f"points{f', {NS * B} rows' if NS > 1 else ''} ("
-                + ("the last 64-point tile half full" if B % 64 else "the train step's fine pass")
-                + f", {grid[1]} tiles on {grid[2]} CTAs): one launch each {one_each}; stashed "
-                f"operands vs plain recompute max|d| {d:.6g} <= {bar:.6g}, corr {corr:.7f}, "
-                f"relu-mask flips {flips:.3g} (<= 1e-3); "
-                f"the dense forward is lin_out of the stashed t {same_order}; per gradient "
-                f"[max|d| / bar vs plain on the kernel's operands (the weights: also vs "
-                f"bwd_weights_reference on its DataOut), corr, corr vs the independent plain "
-                f"backward] {json.dumps(worst)}; bit-identical second calls {identical}; "
-                f"{data.ws_x.shape[0] // NS} rows a view, "
-                f"{rv.data_steps(nb, 3, NS, cl if NS > 1 else nb, C)} stored steps")
-            if not ok:
-                raise SystemExit(f"wide backward check failed at C = {C}, -V {NS}, {B} points")
-            for n in names:
-                records[n]["max_abs_err"] = max(records[n].get("max_abs_err", 0.0), err[n])
-            del data, gr, gr2, x, z, g
+            backward_gate(towers[C][1], x, z, g, NS, sb, n_sms, records,
+                          f"wide backward check C = {C} (sn64's tower)")
+            del x, z, g
 
     # ---- times at the train step's fine pass, C in turns beside 512 ----
-    w_bytes = {C: sum(t.numel() * t.element_size() for t in tw[:8])
-               for C, (_, tw) in towers.items()}
     for NS, widths in ((1, (512, 640, 128)), (3, (512, 640))):
         sb, B_obj = 4, 128 * 96
         kw = dict(NS=NS, sb=sb, combine_layer=cl) if NS > 1 else {}
         B, rows = sb * B_obj, NS * sb * B_obj
-        pre = nb if NS == 1 else cl
         case = {}
         for C in widths:
             x, z, g = inputs(C, NS, sb, B_obj)
@@ -2169,39 +2274,14 @@ def wide_backward_phase(conf, dev, smi, records) -> None:
         ms = {C: {n: sum(v) / len(v) for n, v in t[C].items()} for C in widths}
         for C in widths[1:]:
             x, z, g, tw, data = case[C]
-            plain = {names[0]: cuda_ms(lambda: rv.workspace_reference(g, z, x, tw, nb, **kw), 2),
-                     names[1]: cuda_ms(lambda: rv.bwd_weights_reference(z, data, tw, nb), 2)}
-            w_ops = [rv.task_operands(tk, z, data)
-                     for tk in rv.weight_tasks(tw.w_in.shape[0], H, C, nb, 3, NS, data.pre, B)]
-            lib = {names[1]: cuda_ms(lambda: [torch.matmul(a.t(), gg[: a.shape[0]])
-                                              for a, gg in w_ops], 5)}
-            del w_ops
-            leaves = [tt.detach().bfloat16().requires_grad_() for tt in tw[:8]]
-            with torch.enable_grad():
-                if NS == 1:
-                    zl = z.detach().requires_grad_()
-                    lout = library_tower(zl, x, rf.Tower(*leaves, tw.d_in), nb)
-                else:
-                    zl = by_view(z, NS, sb).detach().requires_grad_()
-                    lout = library_tower_mv(zl, by_view(x, NS, sb), rf.Tower(*leaves, tw.d_in),
-                                            nb, NS, cl)
-            lib[names[0]] = cuda_ms(
-                lambda: torch.autograd.grad(lout, [zl, *leaves], g, retain_graph=True), 5)
-            del lout, leaves, zl
-            # forward FLOP per output point, the bf16 workspace (written once, read once)
-            f_pt = 2 * H * (NS * (d_in + 3 * C + 2 * pre * H) + 2 * (nb - pre) * H + d_out)
-            ws = sum(tt.numel() * tt.element_size()
-                     for tt in (data.ws_act, data.ws_cot, data.ws_x, data.ws_z) if tt is not None)
-            io = rows * (C * 2 + d_in * 4) + B * d_out * 4 + w_bytes[C]
-            bounds = {names[0]: bound(B * 2 * f_pt, io + ws + rows * (C * 4 + d_in * 4)),
-                      names[1]: bound(B * f_pt, ws + rows * C * 2 + 2 * w_bytes[C])}
+            plain, lib, bounds, flops = backward_yardsticks(tw, x, z, g, data, NS, sb)
             for n in names:
                 b_ms, b_by = bounds[n]
                 log(f"wide backward time: {n} at C = {C}, -V {NS}, {B} output points"
                     f"{f' ({rows} rows)' if NS > 1 else ''}: in turns {ms[C][n]:.4f} ms beside "
                     f"{ms[512][n]:.4f} at C = 512 ({ms[C][n] / ms[512][n]:.4f}x)"
                     + (f", {ms[128][n]:.4f} at C = 128" if C == 640 and 128 in ms else "")
-                    + f"; {B * (2 if n == names[0] else 1) * f_pt / ms[C][n] / 1e9:.1f} TFLOP/s; "
+                    + f"; {flops[n] / ms[C][n] / 1e9:.1f} TFLOP/s; "
                     f"plain_ms {plain[n]:.4f}; library_ms {lib[n]:.4f} ("
                     + ("autograd backward of the cuBLAS chain" if n == names[0]
                        else "cuBLAS bf16 A^T G a product")
@@ -2226,8 +2306,10 @@ def options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_ro
     t_phase = time.perf_counter()
     mirrors = {**{f"dense (d_hidden {H})": (rf.dense_limits(H), rf.TILE_LIMITS[H])
                   for H in rf.HIDDEN},
-               "data": (rv.data_limits(), rv.DATA_LIMITS),
-               "weights": (rv.kernel_limits(), rv.WEIGHT_LIMITS)}
+               **{f"data (d_hidden {H})": (rv.data_limits(H), rv.DATA_LIMITS[H])
+                  for H in rf.HIDDEN},
+               **{f"weights (d_hidden {H})": (rv.kernel_limits(H), rv.WEIGHT_LIMITS[H])
+                  for H in rf.HIDDEN}}
     log("options: the route rule's mirrors of the kernels' limits against the libraries' "
         + json.dumps({k: [list(a), a == b] for k, (a, b) in mirrors.items()}))
     if any(a != b for a, b in mirrors.values()):
@@ -2745,6 +2827,191 @@ def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nm
     log(f"narrow: phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 18: rows 5a / 5b at the narrow widths (d_hidden 256 and 128)
+# the gates' shapes (NS, SB, B_obj): a ragged B from 1 and 3 views (the last
+# 64-point tile half full) and the train step's fine pass (4 x 12,288)
+NARROW_BWD_SHAPES = ((1, 2, 1000), (3, 2, 333), (1, 4, 128 * 96), (3, 4, 128 * 96))
+# the latent widths past sn64's that d_hidden 128 is also gated at, on the
+# ragged shapes: the global encoder's 640 (2 pieces, 5 dz steps an
+# injection) and the ConvEncoder's 128
+NARROW_BWD_C = (640, 128)
+# the train CLI's runs at d_hidden 256: (-V, -F)
+NARROW_TRAIN = ((1, "dvr"), (3, "dvr_dtu"))
+NARROW_TRAIN_STEPS = 3
+
+
+def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
+    """Phase 18: rows 5a / 5b on the narrow libraries (see the module
+    docstring): the gates at d_hidden 256 and 128, the kernels' times at the
+    train step's fine pass in turns beside d_hidden 512, the train CLI at
+    d_hidden 256 on the backward kernels, each width's train step against
+    the plain f32 step, and the widths outside the envelope kept plain."""
+    from pixelnerf_tpu_torch.models.code import PositionalEncoding
+    from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
+    from pixelnerf_tpu_torch.train import main as train_main
+
+    t_phase = time.perf_counter()
+    nb, cl, d_out = 5, 3, 4
+    code = PositionalEncoding.from_conf(conf["model.code"], d_in=3)
+    d_in = code.d_out + 3
+    gi = torch.Generator(device=dev).manual_seed(SEED + 18)
+    names = ("resnetfc_bwd_data", "resnetfc_bwd_weights")
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    towers = {(H, C): bwd_tower(C, d_in, dev, SEED + 18 + H + C, H)[1]
+              for H in (512,) + NARROW_H for C in (512,) + (NARROW_BWD_C if H == 128 else ())}
+
+    # ---- gates: C = 512 at each narrow width from 1 and 3 views, ragged B
+    # and the train step's fine pass; C = 640 and 128 at d_hidden 128 ----
+    for (H, C), tw in towers.items():
+        if H == 512:
+            continue
+        for NS, sb, B_obj in NARROW_BWD_SHAPES[: 4 if C == 512 else 2]:
+            x, z, g = bwd_inputs(code, gi, C, NS, sb, B_obj)
+            backward_gate(tw, x, z, g, NS, sb, n_sms, records,
+                          f"narrow backward check d_hidden {H}, C = {C} (sn64's depth)")
+            del x, z, g
+
+    # ---- times at the train step's fine pass, d_hidden in turns beside 512 ----
+    widths = (512,) + NARROW_H
+    for NS in (1, 3):
+        sb, B_obj = 4, 128 * 96
+        kw = dict(NS=NS, sb=sb, combine_layer=cl) if NS > 1 else {}
+        B, rows = sb * B_obj, NS * sb * B_obj
+        x, z, g = bwd_inputs(code, gi, 512, NS, sb, B_obj)  # the same inputs at every width
+        data = {H: rv.bwd_data(g, z, x, towers[H, 512], nb, False, **kw) for H in widths}
+        t = {H: {n: [] for n in names} for H in widths}
+        for H in widths + widths[::-1]:  # in turns
+            tw, dH = towers[H, 512], data[H]
+            t[H][names[0]].append(cuda_ms(lambda: rv.bwd_data(g, z, x, tw, nb, False, **kw), 5))
+            t[H][names[1]].append(cuda_ms(lambda: rv.bwd_weights(z, dH, tw, nb), 5))
+        ms = {H: {n: sum(v) / len(v) for n, v in t[H].items()} for H in widths}
+        for H in NARROW_H:
+            tw, dH = towers[H, 512], data[H]
+            kin = tw.w_in.shape[0]
+            plain, lib, bounds, flops = backward_yardsticks(tw, x, z, g, dH, NS, sb)
+            # the weights kernel on the SM-filled splits and on the whole-view
+            # splits (the split rule's choice before narrow towers), in turns
+            # through the same launch
+            lim = rv.kernel_limits(H)
+            tasks = rv.weight_tasks(kin, H, 512, nb, 3, NS, dH.pre, B)
+            plans = {"filled": rv.weight_plan(kin, H, 512, nb, 3, NS, dH.pre, B, lim, n_sms),
+                     "whole": rv.weight_plan(kin, H, 512, nb, 3, NS, dH.pre, B, lim, n_sms,
+                                             pts=rv.split_points(tasks, lim.max_splits))}
+            split_ms = {k: [] for k in plans}
+            for k in ("filled", "whole", "whole", "filled") * 2:
+                split_ms[k].append(cuda_ms(lambda: rv._launch_weights(
+                    z, dH, plans[k], kin, H, 512, nb, 3, d_out), 5))
+            split_ms = {k: sum(v) / len(v) for k, v in split_ms.items()}
+            filled, whole = plans["filled"], plans["whole"]
+            for n in names:
+                b_ms, b_by = bounds[n]
+                extra = ""
+                if n == names[1]:
+                    ctas = sum(sp * rv.weight_tiles(tk, H, lim)
+                               for sp, tk in zip(filled.table[4::6], tasks))
+                    extra = (f"; {filled.tiles} output tiles in splits of {filled.pts} points "
+                             f"({ctas} CTAs on {n_sms} SMs); in turns {split_ms['filled']:.4f} "
+                             f"ms on these splits, {split_ms['whole']:.4f} on the whole-view "
+                             f"splits of {whole.pts} points "
+                             f"({split_ms['whole'] / split_ms['filled']:.3f}x)")
+                log(f"narrow backward time: {n} at d_hidden {H}, C = 512, -V {NS}, {B} output "
+                    f"points{f' ({rows} rows)' if NS > 1 else ''}: in turns {ms[H][n]:.4f} ms "
+                    f"beside {ms[512][n]:.4f} at d_hidden 512 ({ms[H][n] / ms[512][n]:.4f}x)"
+                    + (f", {ms[128][n]:.4f} at d_hidden 128" if H == 256 else "")
+                    + f"; {flops[n] / ms[H][n] / 1e9:.1f} TFLOP/s; "
+                    f"plain_ms {plain[n]:.4f}; library_ms {lib[n]:.4f} ("
+                    + ("autograd backward of the cuBLAS chain" if n == names[0]
+                       else "cuBLAS bf16 A^T G a product")
+                    + f"); bound_ms {b_ms:.4f} ({b_by}); {b_ms / ms[H][n]:.3f} of the bound"
+                    + extra + f"; on {smi}")
+                rec = dict(points=B, views=NS, ms=ms[H][n], h512_ms_in_turns=ms[512][n],
+                           plain_ms=plain[n], library_ms=lib[n], bound_ms=b_ms, bound_by=b_by,
+                           tflops=flops[n] / ms[H][n] / 1e9,
+                           share_of_bound=b_ms / ms[H][n])
+                if n == names[1]:
+                    rec.update(pts=filled.pts, whole_view_pts=whole.pts,
+                               filled_ms_in_turns=split_ms["filled"],
+                               whole_view_ms_in_turns=split_ms["whole"])
+                records[n].setdefault("narrow", {})[f"h{H}" + ("" if NS == 1 else f"_ns{NS}")] = rec
+        del data, x, z, g
+
+    # ---- the train CLI at d_hidden 256 on the backward kernels ----
+    H = NARROW_H[0]
+    narrow_launches = {}
+    restore = _env({"PIXELNERF_ALLOW_RANDOM_BACKBONE": "1"})  # no backbone weights here
+    try:
+        for nviews, fmt in NARROW_TRAIN:
+            fwd = STEP_KERNEL[nviews]
+            with tempfile.TemporaryDirectory() as tmp:
+                cpath = os.path.join(tmp, "narrow.conf")
+                with open(cpath, "w") as fh:  # sn64's conf with the narrow heads, as a file says it
+                    fh.write(f'include required("{os.path.abspath("conf/exp/sn64.conf")}")\n'
+                             f"model {{ mlp_coarse {{ d_hidden = {H} }}\n"
+                             f"        mlp_fine {{ d_hidden = {H} }} }}\n")
+                rf.reset_launches()
+                rv.reset_launches()
+                t0 = time.perf_counter()
+                trainer = train_main(
+                    ["-n", f"narrow_v{nviews}", "-c", cpath, "-F", fmt, "-D",
+                     nmr_root if fmt == "dvr" else dtu_root, "-B", "4", "-V", str(nviews), "-R",
+                     "128", "--epochs", str(NARROW_TRAIN_STEPS), "--checkpoints_path",
+                     os.path.join(tmp, "ck")])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            la = {k: v for k, v in dict(rf.LAUNCHES, **rv.LAUNCHES).items() if v}
+            n_steps = trainer.global_step
+            widths_ok = all(m.d_hidden == H for m in (trainer.net.mlp_coarse, trainer.net.mlp_fine))
+            finite = (n_steps == NARROW_TRAIN_STEPS
+                      and all(math.isfinite(v) for v in trainer.history))
+            step_ms = 1e3 * sum(trainer.step_seconds[1:]) / max(1, n_steps - 1)
+            ok = (finite and widths_ok and not trainer.remat and set(la) == {fwd, *names}
+                  and la["resnetfc_bwd_data"] == la["resnetfc_bwd_weights"] == 2 * n_steps
+                  and la[fwd] >= 2 * n_steps and la[fwd] % 2 == 0)
+            label = f"d_hidden {H} -V {nviews} on -F {fmt}"
+            log(f"narrow train path: python -m pixelnerf_tpu_torch.train -c conf/exp/sn64.conf + "
+                f"d_hidden {H} -F {fmt} -B 4 -V {nviews} -R 128: {n_steps} steps in {wall:.3f} "
+                f"s, {step_ms:.3f} ms a step after the first; remat {trainer.remat}; launches "
+                f"{la} (want {fwd} and both backward kernels twice a step, {fwd} twice more a "
+                f"validation batch); losses {[round(v, 5) for v in trainer.history]}; on {smi}")
+            if not ok:
+                raise SystemExit(f"narrow: the {label} train steps failed or left the kernels")
+            for name in (fwd, *names):
+                narrow_launches.setdefault(name, {})[f"train CLI, {label}"] = la[name]
+            del trainer
+    finally:
+        restore()
+    for name in names:
+        records[name]["narrow_launches"] = narrow_launches[name]
+    for name in (STEP_KERNEL[1], STEP_KERNEL[3]):
+        records[name].setdefault("narrow_launches", {}).update(narrow_launches[name])
+
+    # ---- each width's train step against the plain f32 step ----
+    for H in NARROW_H:
+        c = narrow_conf(conf, H)
+        step_parity(c, live_state(c, dev), 1, dev, f"narrow d_hidden {H}")
+
+    # ---- widths outside the envelope stay plain under grad ----
+    for H in (64, 384):
+        odd = ResnetFC(d_in=d_in, d_out=4, n_blocks=nb, d_latent=512, d_hidden=H,
+                       combine_layer=cl, impl="auto").to(dev)
+        plain = odd._kernel_route((1, 64), dev, grad=True) is False
+        odd.impl = "cuda"
+        try:
+            odd._kernel_route((1, 64), dev, grad=True)
+            refused = None
+        except ValueError as e:
+            refused = str(e)
+        log(f"narrow: a d_hidden {H} tower under grad: plain under auto {plain}; impl='cuda' "
+            f"raises {refused!r}")
+        if not plain or refused is None:
+            raise SystemExit(f"narrow: a d_hidden {H} tower took the kernels under grad")
+        del odd
+    del towers
+    log(f"narrow backward: phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card", file=sys.stderr)
@@ -2771,9 +3038,8 @@ def main() -> None:
     builds = rf.build_all()  # one nvcc a library, all at once
     from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
 
-    sass = sass_counts(builds["bwd", 512].library)
+    bwd_sass_at = {H: sass_counts(builds["bwd", H].library) for H in rf.HIDDEN}
     fwd_sass_at = {H: sass_counts(builds["fwd", H].library) for H in rf.HIDDEN}
-    w_sass = sass.get("resnetfc_bwd_weights_kernel", {})
     label = {k: f"{k[0]} (d_hidden {k[1]})" for k in builds}
     log("build: " + json.dumps({
         "kernels": list(rf.LAUNCHES) + ["resnetfc_bwd_data", "resnetfc_bwd_weights"],
@@ -2783,25 +3049,28 @@ def main() -> None:
         "compiled": {label[k]: b.compiled for k, b in builds.items()},
         "seconds": round(time.perf_counter() - t0, 3),
         "ptxas": {label[k]: ptxas_summary(b.log) for k, b in builds.items()},
-        "sass": {"bwd": sass, **{f"fwd (d_hidden {H})": c for H, c in fwd_sass_at.items()}},
-        "resnetfc_bwd_weights_kernel smem bytes": rv._lib().resnetfc_bwd_weights_smem_bytes(),
+        "sass": {**{f"bwd (d_hidden {H})": c for H, c in bwd_sass_at.items()},
+                 **{f"fwd (d_hidden {H})": c for H, c in fwd_sass_at.items()}},
+        "resnetfc_bwd_weights_kernel smem bytes": {
+            H: rv._lib(H).resnetfc_bwd_weights_smem_bytes() for H in rf.HIDDEN},
     }))
-    if not (w_sass.get("HGMMA") and w_sass.get("UTMALDG") and w_sass.get("HMMA") == 0):
-        raise SystemExit(f"resnetfc_bwd_weights_kernel is not a wgmma + TMA kernel: {w_sass}")
-    # the data kernel (both instantiations) is a wgmma kernel fed by TMA, with
-    # no wmma product; neither backward kernel spills
-    bwd_ptxas = ptxas_summary(builds["bwd", 512].log)
-    for name in ("resnetfc_bwd_data_kernel<MV=0>", "resnetfc_bwd_data_kernel<MV=1>"):
-        d_sass = sass.get(name, {})
-        if not (d_sass.get("HGMMA") and d_sass.get("UTMALDG") and d_sass.get("HMMA") == 0):
-            raise SystemExit(f"{name} is not a wgmma + TMA kernel: {d_sass}")
+    # in each width's backward library, the weights kernel and the data kernel
+    # (both instantiations) are wgmma kernels fed by TMA, with no wmma product
+    bwd_ptxas_at = {H: ptxas_summary(builds["bwd", H].log) for H in rf.HIDDEN}
+    checked = []
+    for H, bs in bwd_sass_at.items():
+        for name in ("resnetfc_bwd_weights_kernel", "resnetfc_bwd_data_kernel<MV=0>",
+                     "resnetfc_bwd_data_kernel<MV=1>"):
+            d_sass = bs.get(name, {})
+            if not (d_sass.get("HGMMA") and d_sass.get("UTMALDG") and d_sass.get("HMMA") == 0):
+                raise SystemExit(f"{name} at d_hidden {H} is not a wgmma + TMA kernel: {d_sass}")
+            checked.append((f"{name} at d_hidden {H}", bwd_ptxas_at[H].get(name, "")))
     # so are both instantiations of every forward kernel (the 64-point tile)
     # in each width's library, and no kernel of a forward library holds a
-    # wmma product
+    # wmma product; no kernel of any library spills
     fwd_ptxas_at = {H: ptxas_summary(builds["fwd", H].log) for H in rf.HIDDEN}
     dense_names = tuple(f"resnetfc_fwd_{k}_kernel<CODE={c}>"
                         for k in ("dense", "gather", "dense_mv", "gather_mv") for c in (0, 1))
-    checked = list(bwd_ptxas.items())
     for H, fs in fwd_sass_at.items():
         for name in dense_names:
             d_sass = fs.get(name, {})
@@ -2820,8 +3089,11 @@ def main() -> None:
             f"gather, the multi-view dense forward and the multi-view gather, all on the "
             f"64-point tile; library {builds['fwd', H].library.name}): "
             + json.dumps(fwd_ptxas_at[H]))
-    log("build: backward kernels' registers: " + json.dumps(bwd_ptxas) + "; resnetfc_bwd_data "
-        f"shared memory {rv.data_limits().smem} B a CTA, {rv.data_limits()}")
+    for H in rf.HIDDEN:
+        log(f"build: backward kernels' registers at d_hidden {H} (library "
+            f"{builds['bwd', H].library.name}): " + json.dumps(bwd_ptxas_at[H])
+            + f"; SASS {json.dumps(bwd_sass_at[H])}; resnetfc_bwd_data shared memory "
+            f"{rv.data_limits(H).smem} B a CTA, {rv.data_limits(H)}")
 
     # ---- the main path's model: full sn64 width, seeded, every block live ----
     conf = entry.load_conf(pretrained=False)
@@ -3490,7 +3762,7 @@ def main() -> None:
         del gr2
         if ragged:
             plan = rv.weight_plan(tw.w_in.shape[0], H, C, nb, n_lin_z, NS, data.pre, B,
-                                  rv.kernel_limits())
+                                  rv.kernel_limits(H), n_sm)
             log(f"backward check {shape}: bit-identical on a second call {identical}; "
                 f"resnetfc_bwd_weights sums its longest product's {data.ws_x.shape[0]} points "
                 f"in {max(plan.table[4::6])} splits of {plan.pts}")
@@ -3515,11 +3787,11 @@ def main() -> None:
         torch.cuda.synchronize()
         # the weights kernel at other splits of the point axis than the wrapper's
         kin, P_max = tw.w_in.shape[0], data.ws_x.shape[0]
-        lim = rv.kernel_limits()
-        chosen = rv.weight_plan(kin, H, C, nb, n_lin_z, NS, data.pre, B, lim)
+        lim = rv.kernel_limits(H)
+        chosen = rv.weight_plan(kin, H, C, nb, n_lin_z, NS, data.pre, B, lim, n_sm)
         sweep = {}
         for S in (1, 2, 3, 4, 6, 8, 12, 16, 24):
-            plan = rv.weight_plan(kin, H, C, nb, n_lin_z, NS, data.pre, B, lim,
+            plan = rv.weight_plan(kin, H, C, nb, n_lin_z, NS, data.pre, B, lim, n_sm,
                                   pts=-(-P_max // (64 * S)) * 64)
             ctas = sum(plan.table[6 * i + 4] * rv.weight_tiles(t, H, lim) for i, t in
                        enumerate(rv.weight_tasks(kin, H, C, nb, n_lin_z, NS, data.pre, B)))
@@ -3560,7 +3832,8 @@ def main() -> None:
                  for t in (data.ws_act, data.ws_cot, data.ws_x, data.ws_z) if t is not None)
         io_bytes = rows * (C * 2 + d_in * 4) + B * d_out * 4 + w_bytes
         b_data = bound(B * 2 * f_pt, io_bytes + ws + rows * (C * 4 + d_in * 4))
-        b_weights = bound(B * f_pt, ws + rows * C * 2 + 2 * w_bytes)
+        z_read = rows * C * 2 if data.ws_z is None else 0  # z in place at NS = 1, else ws_z
+        b_weights = bound(B * f_pt, ws + z_read + 2 * w_bytes)
         b_fn, b_fn_by = bound(B * 3 * f_pt, io_bytes + rows * (C * 2 + d_in * 4) + 2 * w_bytes)
         bwd_ms[(NS, K)] = data_ms + weights_ms
         weights_ms_at[(NS, K)] = weights_ms
@@ -3653,6 +3926,9 @@ def main() -> None:
 
         # ---- narrow towers on the forward kernels (reads the NMR fixture) ----
         narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nmr_root)
+
+        # ---- narrow towers on the backward kernels (reads both fixtures) ----
+        narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root)
     finally:
         data_dir.cleanup()
 

@@ -28,7 +28,7 @@
 // blocks k < pre and folds them into the mean (the FOLD step); the walk back
 // runs the shared blocks k >= pre once, takes dview = dxc * (1 / NS), and
 // walks each view back through its own stashed operands from that same f32
-// start.  The view sum and dview are the 64 x 512 f32 tile's worth of a
+// start.  The view sum and dview are the 64 x HID f32 tile's worth of a
 // CTA's stream, kept in a per-CTA device-memory slot.  The layers below the
 // mean have NS workspace planes (view v at +v), so their weight products sum
 // over NS B_pad rows -- the views are simply more points -- and those above
@@ -57,19 +57,23 @@
 // sn64) through per-warp cp.async slabs, ~3.2 TB/s of L2 reads, with the
 // products on nvcuda::wmma at the 255-register limit.  This design halves
 // that traffic and moves the products to wgmma:
-// - 64-point tiles, 256 threads: warpgroups 0 and 1 each own 256 of the 512
-//   columns of every layer for all 64 points (its share of the f32 stream
-//   or of its cotangent in 128 registers a thread); thread 0 also keeps the
-//   weight ring fed.  A producer warp would cost registers: a ninth warp
-//   leaves three warps on one SM quarter's 16 K registers, 168 a thread, and
-//   setmaxnreg did not lift ptxas' allocation past the launch bound's 168;
-// - every product is wgmma m64n128k16 pieces: operand A a 64 x 512 bf16 tile
+// - 64-point tiles, 256 threads: warpgroups 0 and 1 each own half of the
+//   HID columns of every layer for all 64 points (its share of the f32
+//   stream or of its cotangent in HID / 4 registers a thread: 128 at sn64's
+//   512); thread 0 also keeps the weight ring fed.  HID is the library's
+//   tower width (-DRFC_HID: 128, 256 or 512, one library each, as the
+//   forward's; the numbers here are 512's).  A producer warp would cost
+//   registers: a ninth warp leaves three warps on one SM quarter's 16 K
+//   registers, 168 a thread, and setmaxnreg did not lift ptxas' allocation
+//   past the launch bound's 168;
+// - every product is the tile's wgmma pieces (m64n128k16; m64n64k16 at
+//   HID 128): operand A a 64 x 512 bf16 tile
 //   in shared memory (act or hb), K-major with the 128-byte swizzle, written
 //   by the threads from their accumulators and published to the async proxy
 //   (fence.proxy.async + a CTA barrier); operand B 64 x 64 TMA boxes of the
-//   packed row-major weights through a 3-stage, 32 KB full / empty mbarrier
-//   ring: MN-major for x W, and the same boxes K-major for dh W^T, so no
-//   transposed copy of a weight exists;
+//   packed row-major weights through a 96 KB full / empty mbarrier ring (3
+//   stages of 32 KB; 6 of 16 KB at HID 128): MN-major for x W, and the same
+//   boxes K-major for dh W^T, so no transposed copy of a weight exists;
 // - the tile's work is a program of steps (data_program) that every thread
 //   walks and thread 0 also walks ahead to feed the ring;
 // - the walk back's relu masks, the r_k and s_k planes just stashed, come
@@ -87,14 +91,15 @@
 //   16: the ConvEncoder's 128, the global encoder's 640) in the forward's
 //   pieces (tile64.cuh, latent_pieces): the recompute injects each piece of
 //   at most 512 columns as a step of its own (its rows of W_z as K, the bias
-//   with the first), and the walk back forms dz one 512-column piece a step
-//   (its rows of W_z as the product's columns) into a (NS B_pad, 512) f32
-//   plane of its own, which the wrapper joins into dz's C columns: so each
-//   piece's epilogue is the one-piece epilogue (no column test, constant
-//   row stride: a stride-C epilogue spilled the multi-view kernel's
-//   registers).  Columns at or past C are computed from whatever W_z rows
-//   TMA reads there (zeros past the array) into the plane's unused part.
-//   At C <= 512 the program and the arithmetic are those of one piece.
+//   with the first), and the walk back forms dz HID columns a step
+//   (dz_pieces: its rows of W_z as the product's HID columns) into a
+//   (NS B_pad, HID) f32 plane of its own, which the wrapper joins into dz's
+//   C columns: so each step's epilogue is the one-piece epilogue (no column
+//   test, constant row stride: a stride-C epilogue spilled the multi-view
+//   kernel's registers).  Columns at or past C are computed from whatever
+//   W_z rows TMA reads there (zeros past the array) into the plane's unused
+//   part.  At HID 512 and C <= 512 the program and the arithmetic are those
+//   of one piece; at HID 128, C = 512 takes 4 walk-back steps an injection.
 // The tile, its constants and its step kinds are in tile64.cuh, which the
 // dense forwards (resnetfc_fwd_dense, and resnetfc_fwd_dense_mv at NS > 1)
 // share: their programs are this kernel's recompute, so it takes the primal's
@@ -105,8 +110,9 @@
 // The weights kernel on its own is bound by bytes on an H100 SXM: the train
 // step's fine pass reads its workspace once, 1.18 GB at -V 1 and 2.4 GiB at
 // -V 3 (0.35 and 0.82 ms at 3.35 TB/s), against 3.4e11 and 8.1e11 FLOP (0.34
-// and 0.81 ms at 989 TFLOP/s).  Its design: 128 x 256 output tiles, each one
-// m64n256k16 product per consumer warpgroup, both operands MN-major (the
+// and 0.81 ms at 989 TFLOP/s).  Its design: 128 x WT_N output tiles (WT_N =
+// min(256, HID)), each one m64n256k16 product per consumer warpgroup
+// (m64n128k16 at HID 128), both operands MN-major (the
 // planes are (points, width) row-major and the product sums over points)
 // straight from 128-byte-swizzled TMA boxes of 64 points, so no thread
 // touches an operand; a 4-stage full / empty mbarrier ring kept full by one
@@ -127,9 +133,10 @@ namespace {
 
 using namespace rfc;
 
-// The backward is built at sn64's tower width only: its workspace planes,
-// its rows of sums and its dz pieces are HID (= TILE_K) columns wide.
-static_assert(HID == 512 && HID == TILE_K, "the backward kernels are built at d_hidden 512");
+// The tower's width is the tile's HID, one library a width (tile64.cuh):
+// the workspace planes, the rows of sums, the view-sum slot and each dz
+// plane are HID columns wide; the operand tiles keep TILE_K columns (the
+// code, a latent's piece).
 
 // ---------------------------------------------------------------------------
 // data gradients: 64-point tiles on wgmma, weights fed by TMA
@@ -137,10 +144,11 @@ static_assert(HID == 512 && HID == TILE_K, "the backward kernels are built at d_
 
 // steps of one tile's stored program (data_program; sn64: 34 at one view, 36
 // at any view count: one view's recompute and walk back, the shared steps;
-// two more an injection at 512 < C <= 1024)
+// two more an injection at 512 < C <= 1024; three more an injection at HID
+// 128, one at HID 256, C = 512)
 constexpr int D_MAX_STEPS = 256;
 // f32 words of one CTA's view-sum slot (multi-view): every thread's share of
-// the 64 x 512 stream
+// the 64 x HID stream
 constexpr int D_SLOT_FLOATS = TILE_STREAM * TILE_THREADS;
 // named barrier 2 + wg: over warpgroup wg
 
@@ -158,7 +166,7 @@ struct BwdParams {
   CUtensorMap m_in, m_z, m_blk;  // w_in (kin, H), w_z (n_lin_z C, H), w_blk (2 n_blocks H, H)
   CUtensorMap m_act;  // ws_act as ((2 NP + 1) B_pad, H): the relu masks, read back
   const float* g;  // (d_out, B) planar f32 cotangent
-  float* dz;       // (latent_pieces(C), NS B_pad, H) f32: dz's columns 512 j.. in plane j, written when n_lin_z > 0
+  float* dz;       // (dz_pieces(C), NS B_pad, H) f32: dz's columns H j.. in plane j, written when n_lin_z > 0
   float* dx;       // (NS B, d_in) f32, or null
   bf16* ws_act;    // (2 NP + 1, B_pad, H): r_k, s_k, t (NP = plane_at(n_blocks))
   bf16* ws_cot;    // (2 NP + NS, B_pad, H): gb_k, dh_k, g_in
@@ -181,10 +189,11 @@ __device__ __forceinline__ int live2(const unsigned char* tile, int row, int c, 
 }
 
 // Thread 0: the tile's rows of workspace plane `plane` of ws_act (a stashed
-// r_k or s_k) into `tile` by TMA, swizzled as the operand tiles are, on `bar`.
+// r_k or s_k) into `tile` by TMA, swizzled as the operand tiles are, on `bar`:
+// HID / 64 boxes, the tile's first HID columns.
 __device__ __forceinline__ void load_mask(const BwdParams& q, unsigned char* tile, uint64_t* bar,
                                           size_t plane, int row0) {
-  hopper::mbar_arrive_expect_tx(bar, TILE_BYTES);
+  hopper::mbar_arrive_expect_tx(bar, HID / 64 * BOX_BYTES);
 #pragma unroll
   for (int j = 0; j < HID / 64; ++j)
     hopper::tma_load_2d(tile + j * BOX_BYTES, &q.m_act, bar, 64 * j, (int)(plane * q.B_pad) + row0);
@@ -284,8 +293,8 @@ __device__ __forceinline__ void load_code(const BwdParams& q, unsigned char* til
   }
 }
 
-// The piece of the tile's bf16 latent of view v at column `off` (at most HID
-// columns) into `tile` (zeros past B); multi-view also stashes it in ws_z,
+// The piece of the tile's bf16 latent of view v at column `off` (at most
+// TILE_K columns) into `tile` (zeros past B); multi-view also stashes it in ws_z,
 // rows of stride C as z's.  Thread t takes the piece's 16-byte chunk t % 64
 // of rows t / 64, + 4, ... (threads past the piece's chunks none), two rows
 // at a time from a clamped row.
@@ -293,7 +302,7 @@ __device__ __forceinline__ void load_latent(const BwdParams& q, unsigned char* t
                                             int valid, int off) {
   const TowerParams& p = q.t;
   const int c = (threadIdx.x & 63) * 8;
-  if (c >= min(HID, p.C - off)) return;
+  if (c >= min(TILE_K, p.C - off)) return;
   // the stash's first row, kept in one pointer (recomputed per row, the
   // multi-view kernel spilled); used only where ws_z is set
   bf16* wz = q.ws_z + ((size_t)v * q.B_pad + row0) * p.C + off + c;
@@ -322,10 +331,11 @@ __device__ __forceinline__ void load_latent(const BwdParams& q, unsigned char* t
 // blocks below the mean, ending in FOLD; the shared blocks, T_OUT and their
 // walk back, once; the view's walk back, starting at DVIEW.  One view (pre =
 // n_blocks): the three parts walked once, in order.  Each injection is
-// `pieces` steps each way (latent_pieces(C)): Z_FWD with the piece in aux,
-// Z_BWD with it in aux >> 1.
+// `pieces` steps in the recompute (latent_pieces(C)), Z_FWD with the piece
+// in aux, and `dz_steps` in the walk back (dz_pieces(C)), Z_BWD with the
+// step in aux >> 1.
 __host__ __device__ inline int data_program(int* out, int n_blocks, int n_lin_z, bool mv, int pre,
-                                            int pieces) {
+                                            int pieces, int dz_steps) {
   int n = 0;
   auto put = [&](int s) {
     if (out != nullptr) out[n] = s;
@@ -357,7 +367,7 @@ __host__ __device__ inline int data_program(int* out, int n_blocks, int n_lin_z,
   for (int k = pre - 1; k >= 0; --k) {
     put(step(GB, k, 0));
     if (k + 1 < n_lin_z) {
-      for (int j = 0; j < pieces; ++j) put(step(Z_BWD, k + 1, (first_z ? 1 : 0) | (j << 1)));
+      for (int j = 0; j < dz_steps; ++j) put(step(Z_BWD, k + 1, (first_z ? 1 : 0) | (j << 1)));
       first_z = false;
     }
     put(step(B1_BWD, k, 0));
@@ -365,7 +375,7 @@ __host__ __device__ inline int data_program(int* out, int n_blocks, int n_lin_z,
   }
   put(step(G_IN, 0, 0));
   if (n_lin_z > 0)
-    for (int j = 0; j < pieces; ++j) put(step(Z_BWD, 0, (first_z ? 1 : 0) | (j << 1)));
+    for (int j = 0; j < dz_steps; ++j) put(step(Z_BWD, 0, (first_z ? 1 : 0) | (j << 1)));
   return n;
 }
 
@@ -508,9 +518,9 @@ __device__ __forceinline__ void gemm(const BwdParams& q, Ring& rg, const unsigne
         if (kk < nk) {
           const uint64_t da = hopper::desc_kmajor_sw128(A + ks * 8192 + kk * 32);
           if (TB)
-            hopper::wgmma_m64n128k16<0, 1>(acc, da, hopper::desc_sw128(b + kk * 2048, BOX_BYTES, 1024), 1);
+            wgmma_piece<0, 1>(acc, da, hopper::desc_sw128(b + kk * 2048, BOX_BYTES, 1024), 1);
           else
-            hopper::wgmma_m64n128k16<0, 0>(acc, da, hopper::desc_kmajor_sw128(b + kk * 32), 1);
+            wgmma_piece<0, 0>(acc, da, hopper::desc_kmajor_sw128(b + kk * 32), 1);
         }
       }
       hopper::wgmma_commit();
@@ -525,10 +535,10 @@ __device__ __forceinline__ void gemm(const BwdParams& q, Ring& rg, const unsigne
 }
 
 // One CTA of 256 threads walks 64-point tiles (multi-view: persistent CTAs,
-// one per SM).  Warpgroups 0 and 1 each own 256 of the 512 columns of every
+// one per SM).  Warpgroups 0 and 1 each own half of the HID columns of every
 // layer for all 64 points: their share of the f32 residual stream (the
-// recompute) or of its cotangent (the walk back) lives in 128 registers a
-// thread, `sv`.  Operand A of every product is a 64 x 512 bf16 tile in
+// recompute) or of its cotangent (the walk back) lives in HID / 4 registers
+// a thread, `sv`.  Operand A of every product is a 64 x 512 bf16 tile in
 // shared memory, K-major with the 128-byte swizzle, written by the threads
 // from their accumulators: `act` (r_k, t or the cotangent) and `hb` (the
 // code, the latent, s_k or dh).  Every product is preceded by a fence of the
@@ -555,7 +565,7 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
     }
     hopper::mbar_init(&d_mask_full, 1);
     hopper::mbar_fence_init();
-    d_n_steps = data_program(d_prog, nb, nlz, MV, pre, latent_pieces(C));
+    d_n_steps = data_program(d_prog, nb, nlz, MV, pre, latent_pieces(C), dz_pieces(C));
     d_seg1 = d_seg3 = 0;  // one view: no segment is walked twice
     for (int i = 0; i < d_n_steps; ++i) {
       if (step_kind(d_prog[i]) == FOLD) d_seg1 = i + 1;
@@ -767,7 +777,7 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
         if (kind == IN_FWD)
           load_code(q, hb, d_row0, v, d_valid);
         else
-          load_latent(q, hb, d_row0, v, d_valid, aux * HID);  // the piece's columns
+          load_latent(q, hb, d_row0, v, d_valid, aux * TILE_K);  // the piece's columns
         publish();
         A = hb;
       } else if (kind == B0_FWD) {
@@ -827,9 +837,9 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
         });
       } else if (kind == Z_BWD) {
         // summed in f32 in dz in injection order; each thread reads back only
-        // what it wrote.  dz's columns 512 j.. are plane j (aux >> 1) of
-        // (NS B_pad, H) rows, view v's at v B_pad, so that every piece is a
-        // whole 512-column product written as at C = 512; its columns at or
+        // what it wrote.  dz's columns HID j.. are plane j (aux >> 1) of
+        // (NS B_pad, HID) rows, view v's at v B_pad, so that every step is a
+        // whole HID-column product written as at C = HID; its columns at or
         // past C land in the plane's unused part
         gemm<MV, 0>(q, rg, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
           const int c0 = piece_col(pc);
@@ -895,14 +905,17 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
 // ---------------------------------------------------------------------------
 
 constexpr int WT_M = 128;  // output tile: rows of dW (two warpgroups of 64)
-constexpr int WT_N = 256;  // output tile: columns of dW (one m64n256 product)
+// output tile: columns of dW, one m64n256 product (m64n128 at HID 128: the
+// blocks' dW is HID x HID)
+constexpr int WT_N = HID < 256 ? HID : 256;
 constexpr int WK = 64;     // points per k-step: one TMA box is 64 columns x 64 points
 constexpr int W_STAGES = 4;
 constexpr int W_THREADS = 384;  // warpgroups 0-1 consume, warpgroup 2 produces
 constexpr int W_CONSUMERS = 256;
 constexpr uint32_t W_BOX = WK * 128;            // bytes of one 64 x 64 bf16 box
 constexpr uint32_t W_STAGE_A = 2 * W_BOX;       // A: 64 points x 128 columns
-constexpr uint32_t W_STAGE = W_STAGE_A + 4 * W_BOX;  // + G: 64 points x 256 columns
+constexpr int W_G_BOXES = WT_N / 64;            // G: 64 points x WT_N columns
+constexpr uint32_t W_STAGE = W_STAGE_A + W_G_BOXES * W_BOX;
 constexpr size_t W_SMEM = (size_t)W_STAGES * W_STAGE + 1024;  // + alignment slack
 // The tensor maps and the task table travel in the kernel's parameters, which
 // every CUDA 12 toolkit caps at 4 KB: sn64 (5 blocks) takes 23 maps and 14
@@ -941,10 +954,20 @@ static_assert(sizeof(WParams) <= 4096, "kernel parameters of every CUDA 12 toolk
 // take.  A GEMM CTA runs one (tile, split): warpgroup 2's first thread
 // streams the split's points through a W_STAGES ring with TMA (full / empty
 // mbarriers); warpgroups 0 and 1 each multiply one 64-row half of the A tile
-// by the whole G tile with wgmma m64n256k16, both operands MN-major from
+// by the whole G tile with wgmma m64n256k16 (m64n128k16 at WT_N 128), both
+// operands MN-major from
 // 128-byte-swizzled boxes.  A tile of one split writes bf16 directly;
 // otherwise each split writes its f32 partial and the last CTA of the tile
 // sums them in split order.
+// One k16 step of a consumer's product: m64n256k16 at 128 accumulators a
+// thread, m64n128k16 at 64 (WT_N 128); both operands MN-major.
+__device__ __forceinline__ void wt_mma(float (&d)[128], uint64_t a, uint64_t b) {
+  hopper::wgmma_m64n256k16<1, 1>(d, a, b, 1);
+}
+__device__ __forceinline__ void wt_mma(float (&d)[64], uint64_t a, uint64_t b) {
+  hopper::wgmma_m64n128k16<1, 1>(d, a, b, 1);
+}
+
 __global__ void __launch_bounds__(W_THREADS, 1)
     resnetfc_bwd_weights_kernel(const __grid_constant__ WParams q) {
   extern __shared__ unsigned char w_smem_raw[];
@@ -1003,15 +1026,15 @@ __global__ void __launch_bounds__(W_THREADS, 1)
         hopper::tma_load_2d(a, am, &full[st], m0, p);
         hopper::tma_load_2d(a + W_BOX, am, &full[st], m0 + 64, p);
 #pragma unroll
-        for (int j = 0; j < 4; ++j)
+        for (int j = 0; j < W_G_BOXES; ++j)
           hopper::tma_load_2d(a + W_STAGE_A + j * W_BOX, gm, &full[st], n0 + 64 * j, p);
       }
     }
   } else {  // consumers: rows 64 wg .. 64 wg + 63 of the tile
     hopper::setmaxnreg_inc<232>();
-    float acc[128];
+    float acc[WT_N / 2];
 #pragma unroll
-    for (int i = 0; i < 128; ++i) acc[i] = 0.0f;
+    for (int i = 0; i < WT_N / 2; ++i) acc[i] = 0.0f;
     for (int i = 0; i < nk; ++i) {
       const int st = i % W_STAGES;
       hopper::mbar_wait(&full[st], (i / W_STAGES) & 1);
@@ -1020,8 +1043,8 @@ __global__ void __launch_bounds__(W_THREADS, 1)
       hopper::wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < WK / 16; ++kk)  // 16 points = 16 rows of 128 B
-        hopper::wgmma_m64n256k16<1, 1>(acc, hopper::desc_sw128(a + kk * 2048, W_BOX, 1024),
-                                       hopper::desc_sw128(g + kk * 2048, W_BOX, 1024), 1);
+        wt_mma(acc, hopper::desc_sw128(a + kk * 2048, W_BOX, 1024),
+               hopper::desc_sw128(g + kk * 2048, W_BOX, 1024));
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();  // step i - 1's products have read their stage
       if (i > 0) hopper::mbar_arrive(&empty[(i - 1) % W_STAGES]);
@@ -1032,7 +1055,7 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     const int c0 = 2 * (tw & 3);
     if (T.splits == 1) {
 #pragma unroll
-      for (int j = 0; j < 32; ++j)
+      for (int j = 0; j < WT_N / 8; ++j)
 #pragma unroll
         for (int h = 0; h < 2; ++h) {
           const int r = r0 + 8 * h;
@@ -1045,7 +1068,7 @@ __global__ void __launch_bounds__(W_THREADS, 1)
     const size_t unit = (size_t)T.unit0 + (size_t)local * T.splits;
     float* part = q.partial + (unit + s) * (WT_M * WT_N);
 #pragma unroll
-    for (int j = 0; j < 32; ++j)
+    for (int j = 0; j < WT_N / 8; ++j)
 #pragma unroll
       for (int h = 0; h < 2; ++h)
         *reinterpret_cast<float2*>(part + (r0 + 8 * h) * WT_N + 8 * j + c0) =
@@ -1108,8 +1131,8 @@ int resnetfc_bwd_data(const void* g, const void* z, const void* x, const void* w
              vsum == nullptr || n_ctas < 1 || (n_lin_z > 0 && ws_z == nullptr)))
     return (int)cudaErrorInvalidValue;
   if (n_blocks > 255 || NS > 255 ||
-      data_program(nullptr, n_blocks, n_lin_z, mv, mv ? pre : n_blocks, latent_pieces(C)) >
-          D_MAX_STEPS)
+      data_program(nullptr, n_blocks, n_lin_z, mv, mv ? pre : n_blocks, latent_pieces(C),
+                   dz_pieces(C)) > D_MAX_STEPS)
     return (int)cudaErrorInvalidValue;
   BwdParams q = {};
   q.t = tower_params(x, w_in, b_in, w_z, b_z, w_blk, b_blk, w_out, nullptr, B, d_in, kin, C,
@@ -1161,10 +1184,10 @@ int resnetfc_bwd_data(const void* g, const void* z, const void* x, const void* w
   return (int)cudaGetLastError();
 }
 
-// What the data kernel fixes, for the wrapper to plan with: out[0..6] =
+// What the data kernel fixes, for the wrapper to plan with: out[0..7] =
 // points a tile, threads a CTA, f32 words of a multi-view slot, weight-ring
 // stages, the most outputs of lin_out, the most steps of a tile, the widest
-// latent.  Returns its shared memory a CTA.
+// latent, the tower width HID.  Returns its shared memory a CTA.
 size_t resnetfc_bwd_data_limits(int* out) {
   out[0] = TILE_PTS;
   out[1] = TILE_THREADS;
@@ -1173,6 +1196,7 @@ size_t resnetfc_bwd_data_limits(int* out) {
   out[4] = TILE_MAX_OUT;
   out[5] = D_MAX_STEPS;
   out[6] = MAX_C;
+  out[7] = HID;
   return TILE_SMEM;
 }
 

@@ -83,6 +83,11 @@ constexpr int MAX_C = 2 * TILE_K;
 // The pieces of TILE_K columns an injection of a C-wide latent takes (1 up
 // to C = 512; 0 without a latent).
 __host__ __device__ inline int latent_pieces(int C) { return (C + TILE_K - 1) / TILE_K; }
+// The steps of HID dz columns the data kernel's walk back takes for an
+// injection of a C-wide latent: a product's N is the tower's HID columns (a
+// warpgroup's half in its pieces), so each step forms HID columns of dz
+// (latent_pieces(C) at HID 512; 4 at C = 512 and HID 128).
+__host__ __device__ inline int dz_pieces(int C) { return (C + HID - 1) / HID; }
 
 struct TowerParams {
   const bf16* z;       // (NS B, C) dense latent (the dense kernels); unused by the gather kernels
@@ -232,7 +237,7 @@ enum Kind {
   FOLD,    // the view's x into the view mean (multi-view)
   T_OUT,   // t stashed; lin_out's sums; the cotangent of t
   GB,      // gb = bf16(cotangent of block k's output) into act, stashed, summed
-  Z_BWD,   // dz_v (+)= gb W_z[k]^T (aux bit 0: the view's first, which writes; aux >> 1: dz's piece)
+  Z_BWD,   // dz_v (+)= gb W_z[k]^T (aux bit 0: the view's first, which writes; aux >> 1: dz's HID-column step)
   B1_BWD,  // dh = gb W1^T [s_k > 0] into hb, summed
   B0_BWD,  // cotangent += bf16(dh) W0^T [r_k > 0], dh stashed
   DVIEW,   // the view's walk starts from dview = cotangent / NS (multi-view)
@@ -275,10 +280,10 @@ __device__ __forceinline__ Gemm gemm_of(int s, int kin, int C) {
 }
 
 // The weight operand of a product step with the latent in pieces: gemm_of,
-// but an injection's piece j reads rows j TILE_K.. of W_z[k]: the
-// recompute's (Z_FWD, aux j) at most TILE_K of them as K, and in the data
-// kernel (WALK_BACK) the walk back's (Z_BWD, aux >> 1 = j) as the product's
-// columns.  The dense forwards and the data kernel call it; not gemm_of,
+// but the recompute's piece j (Z_FWD, aux j) reads rows j TILE_K.. of
+// W_z[k], at most TILE_K of them as K, and in the data kernel (WALK_BACK)
+// the walk back's step j (Z_BWD, aux >> 1 = j; dz_pieces) rows j HID.. as
+// the product's HID columns.  The dense forwards and the data kernel call it; not gemm_of,
 // which every tile kernel inlines (a decode there spilled one).  The gather
 // kernels' latent is one piece, and they call gemm_of.
 template <bool WALK_BACK>
@@ -289,7 +294,7 @@ __device__ __forceinline__ Gemm piece_gemm_of(int s, int kin, int C) {
     return Gemm{1, 0, step_k(s) * C + off, min(TILE_K, C - off)};
   }
   if (WALK_BACK && kind == Z_BWD)
-    return Gemm{1, 1, step_k(s) * C + (step_aux(s) >> 1) * TILE_K, HID};
+    return Gemm{1, 1, step_k(s) * C + (step_aux(s) >> 1) * HID, HID};
   return gemm_of(s, kin, C);
 }
 

@@ -133,10 +133,11 @@ class ResnetFC(nn.Module):
         """Raise ValueError on widths a kernel of this call does not take:
         the forward's at NS views (H = 128, 256 or 512, a library each; kin
         and C multiples of 16, kin <= 512, C <= 1024; the stored program's
-        steps); under ``grad`` also the backward's (H = 512; the data
-        kernel's widths and program, the weights kernel's plan: C <= 1024 as
-        the forward's, kin <= 128, at most 5 blocks at sn64 widths).  Reads
-        only the Python mirrors of the limits."""
+        steps); under ``grad`` also the backward's (the same widths H, a
+        library each; the data kernel's widths and program, the weights
+        kernel's plan: C <= 1024 as the forward's, kin <= 128, at most 5
+        blocks at sn64 widths).  Reads only the Python mirrors of the
+        width's limits."""
         kin = max(-(-self.d_in // 16) * 16, 16)
         C = self.d_latent if self.n_lin_z > 0 else 0
         lim = rf.tile_limits(self.d_hidden)
@@ -151,11 +152,14 @@ class ResnetFC(nn.Module):
             if rf.dense_steps(self.n_blocks, self.n_lin_z, NS, pre, C) > lim.max_steps:
                 raise ValueError(f"the multi-view kernels store at most {lim.max_steps} steps")
         if grad:
+            dlim = rfv.DATA_LIMITS[self.d_hidden]
             rfv.check_data_widths(kin, self.d_hidden, C, self.n_lin_z, self.n_blocks, self.d_out,
-                                  rfv.DATA_LIMITS)
-            rfv.check_data_program(self.n_blocks, self.n_lin_z, NS, pre, rfv.DATA_LIMITS, C)
+                                  dlim)
+            rfv.check_data_program(self.n_blocks, self.n_lin_z, NS, pre, dlim, C)
+            # the maps and products do not depend on the split; 64 points
+            # split by whole views on any card (an H100's 132 SMs here)
             rfv.weight_plan(kin, self.d_hidden, C, self.n_blocks, self.n_lin_z, NS, pre, 64,
-                            rfv.WEIGHT_LIMITS)
+                            rfv.WEIGHT_LIMITS[self.d_hidden], 132)
 
     def _kernel_route(self, combine_inner_dims, device: torch.device, grad: bool = False) -> bool:
         """Whether this call takes the kernels (on the CPU, their plain

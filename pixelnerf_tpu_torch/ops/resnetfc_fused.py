@@ -24,8 +24,9 @@ past 512 columns in pieces of :data:`TILE_K` = 512 (:func:`latent_pieces`);
 the gathers take 512 at most.  The tower's width is a compile-time constant
 of the tile: one library is built for each width in :data:`HIDDEN` (128,
 256, 512; ``-DRFC_HID``), and each launch takes the library of its tower's
-width, ``w_in.shape[1]``.  :data:`TILE_LIMITS` mirrors each library's limits
-for the route rule, which must not build it.
+width, ``w_in.shape[1]`` -- the backward's too (:mod:`.resnetfc_vjp`).
+:data:`TILE_LIMITS` mirrors each library's limits for the route rule, which
+must not build it.
 
 Each takes its coordinate input ``x`` either encoded (a tensor) or as a
 :class:`RawCode`, the deferred positional code: the kernel's CODE variant
@@ -81,8 +82,8 @@ NVCC_FLAGS = (
 )
 # what one CTA may ask for on Hopper (227 KB of the SM's 256 KB)
 MAX_SMEM_BYTES = 232448
-# the hidden widths the forward kernels are built for, one library each
-# (every config in conf/ uses 512; ResnetFC's default is 128)
+# the hidden widths the kernels are built for, one forward and one backward
+# library each (every config in conf/ uses 512; ResnetFC's default is 128)
 HIDDEN = (128, 256, 512)
 # the operand tile's K capacity at every width: the widest code, and the
 # widest piece of a latent (``TILE_K`` in ``csrc/tile64.cuh``)
@@ -355,28 +356,27 @@ class Build(NamedTuple):
     log: str  # nvcc's output (ptxas register and spill lines), kept beside the library
 
 
-def _flags(which: str, H: int) -> tuple:
-    """nvcc's flags for source ``which`` at hidden width ``H``: the forward
-    source takes the width as ``-DRFC_HID``; the backward is built at 512
-    only."""
-    return NVCC_FLAGS if which == "bwd" else NVCC_FLAGS + (f"-DRFC_HID={H}",)
+def _flags(H: int) -> tuple:
+    """nvcc's flags at hidden width ``H``: each source takes the width as
+    ``-DRFC_HID``."""
+    return NVCC_FLAGS + (f"-DRFC_HID={H}",)
 
 
 def _library_path(which: str, H: int) -> Path:
     src = SOURCES[which]
     blob = src.read_bytes() + b"".join(h.read_bytes() for h in HEADERS)
-    tag = hashlib.sha256(blob + " ".join(_flags(which, H)).encode()).hexdigest()[:16]
+    tag = hashlib.sha256(blob + " ".join(_flags(H)).encode()).hexdigest()[:16]
     return BUILD_DIR / f"lib{src.stem}-{tag}.so"
 
 
 def build_all(which=tuple(SOURCES), widths=HIDDEN) -> dict:
-    """Compile each source in ``which`` -- the forward at every width in
-    ``widths``, the backward at 512 -- that has no library of this source,
-    header and flags yet: one ``nvcc`` per library, all started together.
-    Returns ``{(name, H): Build}``; raises if any ``nvcc`` fails."""
+    """Compile each source in ``which`` at every width in ``widths`` that has
+    no library of this source, header and flags yet: one ``nvcc`` per
+    library, all started together.  Returns ``{(name, H): Build}``; raises
+    if any ``nvcc`` fails."""
     builds, running = {}, {}
     for name in which:
-        for H in (widths if name == "fwd" else (512,)):
+        for H in widths:
             lib = _library_path(name, H)
             log = lib.with_suffix(".log")
             if lib.exists():
@@ -385,7 +385,7 @@ def build_all(which=tuple(SOURCES), widths=HIDDEN) -> dict:
             BUILD_DIR.mkdir(parents=True, exist_ok=True)
             tmp = lib.with_suffix(f".{os.getpid()}.tmp")
             proc = subprocess.Popen(
-                [_nvcc(), *_flags(name, H), "-I", str(CSRC), "-o", str(tmp), str(SOURCES[name])],
+                [_nvcc(), *_flags(H), "-I", str(CSRC), "-o", str(tmp), str(SOURCES[name])],
                 stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
             )
             running[name, H] = (lib, log, tmp, proc)
@@ -405,7 +405,7 @@ def build_all(which=tuple(SOURCES), widths=HIDDEN) -> dict:
 
 
 def build(which: str = "fwd", H: int = 512) -> Build:
-    """Compile one source (``fwd`` at width ``H``, or ``bwd``) unless its
+    """Compile one source (``fwd`` or ``bwd``) at width ``H`` unless its
     library exists."""
     return build_all((which,), (H,))[which, H]
 

@@ -19,6 +19,11 @@ NS > 1 views (object-major rows, as in :mod:`.resnetfc_fused`):
   ``resnetfc_bwd_weights`` from ``csrc/resnetfc_bwd.cu`` (which notes what
   bounds them); :func:`resnetfc_bwd` runs both, or the plain backward for CPU
   tensors.  On a CUDA tensor they launch or raise; there is no fallback.
+  As the forward's, the backward's library is built once for each tower
+  width of :data:`~.resnetfc_fused.HIDDEN` (128, 256, 512; ``-DRFC_HID``),
+  and a launch takes the library of ``tower.w_in.shape[1]`` (:func:`_lib`);
+  :data:`DATA_LIMITS` and :data:`WEIGHT_LIMITS` mirror each library's
+  limits for the route rule.
 * :func:`weight_tasks` is the weights kernel's table of products (which
   planes, how many points), :func:`bwd_weights_reference` its plain version
   on a :class:`DataOut`, and :func:`workspace_reference` the DataOut that
@@ -41,7 +46,8 @@ import torch
 from . import resnetfc_fused as rf
 
 LAUNCHES = {"resnetfc_bwd_data": 0, "resnetfc_bwd_weights": 0}
-_LIB: Optional[ctypes.CDLL] = None
+# the loaded backward libraries by hidden width
+_LIBS: dict = {}
 # launch parameters of the weights kernel kept per operand addresses, newest last
 _PARAMS: "collections.OrderedDict[tuple, ctypes.Array]" = collections.OrderedDict()
 MAX_KEPT_PARAMS = 16
@@ -232,10 +238,11 @@ def resnetfc_bwd_reference(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.
 # ----------------------------------------------------------------------------
 
 
-def _lib() -> ctypes.CDLL:
-    global _LIB
-    if _LIB is None:
-        lib = ctypes.CDLL(str(rf.build("bwd").library))
+def _lib(H: int) -> ctypes.CDLL:
+    """The backward library built for hidden width ``H``, built and loaded
+    at first use."""
+    if H not in _LIBS:
+        lib = ctypes.CDLL(str(rf.build("bwd", H).library))
         P, I = ctypes.c_void_p, ctypes.c_int
         lib.resnetfc_bwd_data.argtypes = [P] * 18 + [I] * 12 + [P]
         lib.resnetfc_bwd_data.restype = I
@@ -253,13 +260,13 @@ def _lib() -> ctypes.CDLL:
         lib.resnetfc_bwd_rows.restype = I
         lib.resnetfc_bwd_error_string.argtypes = [I]
         lib.resnetfc_bwd_error_string.restype = ctypes.c_char_p
-        _LIB = lib
-    return _LIB
+        _LIBS[H] = lib
+    return _LIBS[H]
 
 
-def _launched(name: str, err: int) -> None:
+def _launched(name: str, err: int, H: int) -> None:
     if err != 0:
-        msg = _lib().resnetfc_bwd_error_string(err).decode()
+        msg = _lib(H).resnetfc_bwd_error_string(err).decode()
         raise RuntimeError(f"{name} launch failed: {msg} ({err})")
     LAUNCHES[name] += 1
 
@@ -339,21 +346,24 @@ class KernelLimits(NamedTuple):
     max_tasks: int
 
 
-# What the library reports (kernel_limits), mirrored for the route rule
-# (models/resnetfc.py), which must not build the library; chip_smoke.py and a
-# cuda-marked test hold the two equal.
-WEIGHT_LIMITS = KernelLimits(tile_m=128, tile_n=256, max_splits=24, max_maps=24, max_tasks=16)
+# What each width's library reports (kernel_limits), mirrored for the route
+# rule (models/resnetfc.py), which must not build the library; chip_smoke.py
+# and a cuda-marked test hold the two equal.  The output tile's N is
+# min(256, H): the blocks' dW is H x H.
+WEIGHT_LIMITS = {H: KernelLimits(tile_m=128, tile_n=min(256, H), max_splits=24, max_maps=24,
+                                 max_tasks=16) for H in rf.HIDDEN}
 
 
 @functools.lru_cache(maxsize=None)
-def _limits_and_bytes():
+def _limits_and_bytes(H: int):
     out = (ctypes.c_int * 5)()
-    n = _lib().resnetfc_bwd_weights_limits(out)
+    n = _lib(H).resnetfc_bwd_weights_limits(out)
     return KernelLimits(*out), n
 
 
-def kernel_limits() -> KernelLimits:
-    return _limits_and_bytes()[0]
+def kernel_limits(H: int) -> KernelLimits:
+    """What the weights kernel of width H's library reports."""
+    return _limits_and_bytes(H)[0]
 
 
 def weight_tiles(task: WTask, H: int, limits: KernelLimits) -> int:
@@ -387,6 +397,31 @@ def split_points(tasks: Sequence[WTask], max_splits: int) -> int:
     return pts * -(-splits // max_splits)
 
 
+def fill_points(tasks: Sequence[WTask], H: int, limits: KernelLimits, n_sms: int) -> int:
+    """Points per split on a card of ``n_sms`` SMs: :func:`split_points`,
+    unless its CTAs would leave more than half the SMs idle -- a narrow
+    tower's few output tiles (23 at d_hidden 128 and -V 1 against sn64's
+    106) -- and then the most pieces of it (each a multiple of 64 points)
+    whose CTAs still fit one wave and ``limits.max_splits``; at sn64's widths
+    the CTAs already fill more than half the card and nothing changes."""
+    pts = split_points(tasks, limits.max_splits)
+    tiles = [weight_tiles(t, H, limits) for t in tasks]
+    longest = max(t.P for t in tasks)
+
+    def ctas(p):
+        return sum(n * -(-t.P // p) for t, n in zip(tasks, tiles))
+
+    if 2 * ctas(pts) > n_sms:
+        return pts
+    best = pts
+    for m in range(2, pts // 64 + 1):
+        p = -(-pts // (64 * m)) * 64
+        if ctas(p) > n_sms or -(-longest // p) > limits.max_splits:
+            break
+        best = p
+    return best
+
+
 class WPlan(NamedTuple):
     """The part of a ``resnetfc_bwd_weights`` launch that depends only on
     shapes (:func:`weight_plan`)."""
@@ -402,11 +437,12 @@ class WPlan(NamedTuple):
 
 @functools.lru_cache(maxsize=64)
 def weight_plan(kin: int, H: int, C: int, n_blocks: int, n_lin_z: int, NS: int, pre: int, B: int,
-                limits: KernelLimits, pts: Optional[int] = None) -> WPlan:
+                limits: KernelLimits, n_sms: int, pts: Optional[int] = None) -> WPlan:
     """Tensor maps (one per distinct operand plane), task table and splits
-    (``pts`` points per split, :func:`split_points` unless given) of the
-    weight products at one shape.  Raises ValueError when they do not fit
-    the kernel's parameters (``limits``): past 5 blocks at sn64 widths."""
+    (``pts`` points per split, :func:`fill_points` on ``n_sms`` SMs unless
+    given) of the weight products at one shape; ``limits`` are the library
+    of width H's (its output tile).  Raises ValueError when they do not fit
+    the kernel's parameters: past 5 blocks at sn64 widths."""
     tasks = weight_tasks(kin, H, C, n_blocks, n_lin_z, NS, pre, B)
     B_pad = -(-B // 32) * 32
     arrays = ("ws_act", "ws_cot", "ws_x") + (("z" if NS == 1 else "ws_z",) if n_lin_z else ())
@@ -417,7 +453,7 @@ def weight_plan(kin: int, H: int, C: int, n_blocks: int, n_lin_z: int, NS: int, 
         return maps.setdefault((arrays.index(array), row0, rows, width[array]), len(maps))
 
     if pts is None:
-        pts = split_points(tasks, limits.max_splits)
+        pts = fill_points(tasks, H, limits, n_sms)
     out0 = {"lin_in": 0}
     out0.update({f"lin_z.{k}": kin * H + k * C * H for k in range(n_lin_z)})
     blk0 = kin * H + n_lin_z * C * H
@@ -458,13 +494,14 @@ def _launch_params(plan: WPlan, ptrs: tuple) -> ctypes.Array:
     bases = (ctypes.c_void_p * n)(*(ptrs[a] + 2 * row0 * cols for a, row0, _, cols in plan.maps))
     dims = (ctypes.c_int * (3 * n))(*(v for _, _, rows, cols in plan.maps
                                       for v in (rows, cols, cols)))
-    params = ctypes.create_string_buffer(_limits_and_bytes()[1])
-    err = _lib().resnetfc_bwd_weights_plan(
+    H = plan.key[1]
+    params = ctypes.create_string_buffer(_limits_and_bytes(H)[1])
+    err = _lib(H).resnetfc_bwd_weights_plan(
         params, bases, dims, n, (ctypes.c_int * len(plan.table))(*plan.table),
-        len(plan.table) // 6, plan.key[1], plan.pts)
+        len(plan.table) // 6, H, plan.pts)
     if err != 0:
         raise RuntimeError(f"resnetfc_bwd_weights plan failed: "
-                           f"{_lib().resnetfc_bwd_error_string(err).decode()} ({err})")
+                           f"{_lib(H).resnetfc_bwd_error_string(err).decode()} ({err})")
     _PARAMS[key] = params
     if len(_PARAMS) > MAX_KEPT_PARAMS:
         _PARAMS.popitem(last=False)
@@ -568,27 +605,48 @@ class DataLimits(NamedTuple):
 
     tile: int  # points a CTA walks at a time (one wgmma M)
     threads: int  # a CTA: two warpgroups (thread 0 also feeds the weight ring)
-    slot_floats: int  # f32 words of a CTA's multi-view slot (its 64 x 512 stream and dview)
+    slot_floats: int  # f32 words of a CTA's multi-view slot (its 64 x H stream and dview)
     stages: int  # weight-ring stages
     max_out: int  # the most outputs of lin_out
     max_steps: int  # the most steps of one tile's stored program (one view's segments)
     max_c: int  # the widest latent (injected in pieces of at most 512 columns)
     smem: int  # dynamic shared memory a CTA
+    hidden: int  # the tower's width H the library is built for
 
 
-# What the library reports (data_limits), mirrored as WEIGHT_LIMITS is.
-DATA_LIMITS = DataLimits(tile=64, threads=256, slot_floats=128 * 256, stages=3, max_out=4,
-                         max_steps=256, max_c=1024, smem=2 * 65536 + 3 * 32768 + 1024)
+def _data_mirror(H: int) -> DataLimits:
+    """The data kernel's limits in the library of width H, from the tile's
+    constants (``csrc/tile64.cuh``), as :func:`~.resnetfc_fused._mirror`
+    reads the forward's: a thread's share of the 64 x H stream is H / 4 f32
+    (the slot), 96 KB of weight ring (3 stages of 32 KB, 6 of 16 KB at H =
+    128), two 64 KB operand tiles."""
+    lim = rf.TILE_LIMITS[H]
+    return DataLimits(tile=64, threads=256, slot_floats=lim.slot_floats, stages=lim.stages,
+                      max_out=4, max_steps=256, max_c=1024, smem=2 * 65536 + 3 * 32768 + 1024,
+                      hidden=H)
+
+
+# What each width's library reports (data_limits), mirrored as WEIGHT_LIMITS is.
+DATA_LIMITS = {H: _data_mirror(H) for H in rf.HIDDEN}
 
 
 @functools.lru_cache(maxsize=None)
-def data_limits() -> DataLimits:
-    out = (ctypes.c_int * 7)()
-    smem = _lib().resnetfc_bwd_data_limits(out)
-    return DataLimits(*out, smem)
+def data_limits(H: int) -> DataLimits:
+    """What the data kernel of width H's library reports."""
+    out = (ctypes.c_int * 8)()
+    smem = _lib(H).resnetfc_bwd_data_limits(out)
+    return DataLimits(*out[:7], smem, out[7])
 
 
-def data_steps(n_blocks: int, n_lin_z: int, NS: int, pre: int, C: int) -> int:
+def dz_pieces(C: int, H: int) -> int:
+    """The walk-back steps an injection of a C-wide latent takes in the data
+    kernel (``dz_pieces`` in ``csrc/tile64.cuh``): each forms H columns of
+    dz into a plane of its own; :func:`~.resnetfc_fused.latent_pieces` at
+    H = 512."""
+    return max(1, -(-C // H))
+
+
+def data_steps(n_blocks: int, n_lin_z: int, NS: int, pre: int, C: int, H: int) -> int:
     """Steps of one ``resnetfc_bwd_data`` tile's stored program
     (``data_program`` in ``csrc/resnetfc_bwd.cu``): one view's recompute of
     lin_in, its injections and its blocks (and, NS > 1, the fold into the
@@ -596,13 +654,16 @@ def data_steps(n_blocks: int, n_lin_z: int, NS: int, pre: int, C: int) -> int:
     lin_out and the shared blocks' walk back (each block's cotangent, fc_1,
     fc_0), once; one view's walk back through its blocks, injections and
     lin_in, walked once for each view (pre = n_blocks when NS == 1).  Each
-    injection is one step each way a :func:`~.resnetfc_fused.latent_pieces`
-    of the C-wide latent.  34 at sn64 and one view, 36 at any view count; 40
-    and 42 with the global encoder's C = 640."""
+    injection is one recompute step a :func:`~.resnetfc_fused.latent_pieces`
+    of the C-wide latent and one walk-back step a :func:`dz_pieces` (H dz
+    columns a step).  34 at sn64 and one view, 36 at any view count; 40 and
+    42 with the global encoder's C = 640; 37 / 43 at H = 256 / 128 and one
+    view."""
     mv = int(NS > 1)
     shared = n_blocks - pre
     zs = n_lin_z * rf.latent_pieces(C)
-    return (1 + zs + 2 * pre + mv) + 2 * shared + 1 + 3 * shared + (mv + 3 * pre + zs + 1)
+    zb = n_lin_z * dz_pieces(C, H)
+    return (1 + zs + 2 * pre + mv) + 2 * shared + 1 + 3 * shared + (mv + 3 * pre + zb + 1)
 
 
 def check_data_program(n_blocks: int, n_lin_z: int, NS: int, pre: int, limits: DataLimits,
@@ -610,10 +671,10 @@ def check_data_program(n_blocks: int, n_lin_z: int, NS: int, pre: int, limits: D
     """Raise ValueError on a view count or a tower whose program
     ``resnetfc_bwd_data`` does not take: more than MAX_VIEWS views (a step's
     view is 8 bits), or a stored program (:func:`data_steps`, the same at
-    every view count) past ``limits.max_steps``."""
+    every view count; at the width of ``limits``) past ``limits.max_steps``."""
     if NS > rf.MAX_VIEWS:
         raise ValueError(f"resnetfc_bwd_data takes at most {rf.MAX_VIEWS} views (NS = {NS})")
-    steps = data_steps(n_blocks, n_lin_z, NS, pre, C)
+    steps = data_steps(n_blocks, n_lin_z, NS, pre, C, limits.hidden)
     if steps > limits.max_steps:
         raise ValueError(f"resnetfc_bwd_data stores at most {limits.max_steps} steps a tile; "
                          f"{n_blocks} blocks need {steps}")
@@ -622,12 +683,14 @@ def check_data_program(n_blocks: int, n_lin_z: int, NS: int, pre: int, limits: D
 def check_data_widths(kin: int, H: int, C: int, n_lin_z: int, n_blocks: int, d_out: int,
                       limits: DataLimits) -> None:
     """Raise ValueError on widths ``resnetfc_bwd_data`` does not take: H other
-    than 512 (the backward is built at sn64's width only); with a latent, C not a multiple of 16 in [16, ``limits.max_c``]
+    than the library's (``limits.hidden``: 128, 256 or 512, one library
+    each); with a latent, C not a multiple of 16 in [16, ``limits.max_c``]
     (the forward's envelope: pieces of at most 512 columns); kin past 128 or
     not a multiple of 16; no block; more outputs than ``limits.max_out``; a
     CTA past the card's shared memory."""
-    if H != 512:
-        raise ValueError(f"the backward kernel needs d_hidden 512 (H={H})")
+    if H != limits.hidden:
+        raise ValueError(f"the backward kernel of this library needs d_hidden {limits.hidden}, "
+                         f"one library each of {rf.HIDDEN} (H={H})")
     if n_lin_z > 0 and (C % 16 or not 16 <= C <= limits.max_c):
         raise ValueError(f"the backward kernel needs d_latent a multiple of 16 in "
                          f"[16, {limits.max_c}] with a latent (C={C})")
@@ -677,7 +740,7 @@ def bwd_data(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.Tensor, tower:
     else:
         B = B_obj = x.shape[0]
     dev = x.device
-    lim = data_limits()
+    lim = data_limits(H)
     check_data_widths(kin, H, C, n_lin_z, n_blocks, d_out, lim)
     check_data_program(n_blocks, n_lin_z, NS, pre, lim, C)
     rf._check(g, "g", torch.float32, (d_out, B))
@@ -685,13 +748,13 @@ def bwd_data(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.Tensor, tower:
         rf._check(z, "z", torch.bfloat16, (NS * B, C))
     for name in ("w_in", "w_z", "w_blk"):  # TMA reads the weights in place
         rf.check_tma(getattr(tower, name), name)
-    lib = _lib()
+    lib = _lib(H)
     B_pad, _, _ = data_grid(B, NS, 1, lim)
     NP = NS * pre + n_blocks - pre
     R = lib.resnetfc_bwd_rows(n_blocks, n_lin_z, d_out)
     bf = torch.bfloat16
-    # the kernel writes dz's columns 512 j.. into plane j (latent_pieces)
-    dz_planes = (torch.empty((rf.latent_pieces(C), NS * B_pad, H), device=dev)
+    # the kernel writes dz's columns H j.. into plane j (dz_pieces)
+    dz_planes = (torch.empty((dz_pieces(C, H), NS * B_pad, H), device=dev)
                  if n_lin_z > 0 else None)
     out = DataOut(
         dz=None,  # joined from dz_planes once they are written
@@ -715,13 +778,13 @@ def bwd_data(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.Tensor, tower:
             ptr(slots), B, tower.d_in, kin, H, C, n_blocks, n_lin_z, d_out, NS, B_obj, pre,
             0 if slots is None else slots.shape[0], torch.cuda.current_stream(dev).cuda_stream,
         )
-        _launched("resnetfc_bwd_data", err)
+        _launched("resnetfc_bwd_data", err, H)
     return out if dz_planes is None else out._replace(dz=_join_planes(dz_planes, C))
 
 
 def _join_planes(planes: torch.Tensor, C: int) -> torch.Tensor:
-    """dz ``(rows, C)`` from the data kernel's ``(pieces, rows, 512)`` planes
-    (columns 512 j.. in plane j): a view of the one plane at C <= 512, the
+    """dz ``(rows, C)`` from the data kernel's ``(dz_pieces, rows, H)`` planes
+    (columns H j.. in plane j): a view of the one plane at C <= H, the
     planes side by side otherwise."""
     if planes.shape[0] == 1:
         return planes[0, :, :C]
@@ -757,8 +820,9 @@ def bwd_weights(z: Optional[torch.Tensor], data: DataOut, tower: rf.Tower,
               "ws_x": (NS * B_pad, kin), "ws_z": (NS * B_pad, C), "z": (B, C)}
     for name, t in arrays.items():
         rf._check(t, name, bf, shapes[name])
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     plan = None if B == 0 else weight_plan(kin, H, C, n_blocks, n_lin_z, NS, data.pre, B,
-                                            kernel_limits())
+                                            kernel_limits(H), n_sms)
     return _launch_weights(z, data, plan, kin, H, C, n_blocks, n_lin_z, d_out)
 
 
@@ -767,7 +831,7 @@ def _launch_weights(z: Optional[torch.Tensor], data: DataOut, plan: Optional[WPl
     """``resnetfc_bwd_weights`` on checked operands, by ``plan`` (None: no
     points, every gradient zero)."""
     dev, bf = data.ws_x.device, torch.bfloat16
-    lib = _lib()
+    lib = _lib(H)
     R = lib.resnetfc_bwd_rows(n_blocks, n_lin_z, d_out)
     # one buffer for every weight gradient, in the plan's order
     n_in, n_z = kin * H, n_lin_z * C * H
@@ -779,7 +843,7 @@ def _launch_weights(z: Optional[torch.Tensor], data: DataOut, plan: Optional[WPl
     if plan is not None:
         ptrs = tuple((z if a == "z" else getattr(data, a)).data_ptr() for a in plan.arrays)
         params = _launch_params(plan, ptrs)
-        lim = kernel_limits()
+        lim = kernel_limits(H)
         partial = (torch.empty((plan.units, lim.tile_m * lim.tile_n), device=dev)
                    if plan.units else None)
         counters = torch.zeros((plan.tiles,), device=dev, dtype=torch.int32)
@@ -787,7 +851,7 @@ def _launch_weights(z: Optional[torch.Tensor], data: DataOut, plan: Optional[WPl
             params, out.data_ptr(), data.rows.data_ptr(), rows_out.data_ptr(),
             data.rows.shape[0], R, None if partial is None else partial.data_ptr(),
             counters.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
-        _launched("resnetfc_bwd_weights", err)
+        _launched("resnetfc_bwd_weights", err, H)
     else:
         out.zero_()
         rows_out.zero_()

@@ -42,6 +42,10 @@ warm-up round: the gather and the dense route from one view, the deferred
 code from one view, on the dense route and from two views, and the
 multi-view gather from two views; the last line holds, per checkout, each
 route's median rays/s run by run.
+With ``--model TEXT`` every run reads sn64's conf with TEXT (HOCON) added
+to its ``model`` block, e.g. ``--model 'use_global_encoder = true'`` for the
+global encoder's train step or ``--model 'mlp_coarse { d_hidden = 256 },
+mlp_fine { d_hidden = 256 }'`` for a narrow tower's frame 0.
 Needs a CUDA card and the checkouts' kernels to build there.
 """
 
@@ -54,7 +58,19 @@ import tempfile
 import time
 
 
-def child(views: int, steps: int) -> None:
+def conf_path(model: str, tmp: str) -> str:
+    """The working directory's ``conf/exp/sn64.conf``, or with ``model``
+    (HOCON) added to its model block, a conf in ``tmp`` that includes it."""
+    if not model:
+        return "conf/exp/sn64.conf"
+    path = os.path.join(tmp, "ab.conf")
+    with open(path, "w") as fh:
+        fh.write(f'include required("{os.path.abspath("conf/exp/sn64.conf")}")\n'
+                 f"model {{ {model} }}\n")
+    return path
+
+
+def child(views: int, steps: int, model: str) -> None:
     """One run in the checkout of the working directory."""
     sys.path.insert(0, os.getcwd())
     os.environ["PIXELNERF_ALLOW_RANDOM_BACKBONE"] = "1"  # no backbone weights needed
@@ -63,8 +79,8 @@ def child(views: int, steps: int) -> None:
 
     rf.build_all()
     with tempfile.TemporaryDirectory() as ck:
-        trainer = train_main(["-n", "ab", "-c", "conf/exp/sn64.conf", "-F", "synthetic", "-B", "4",
-                              "-V", str(views), "-R", "128", "--epochs", str(steps),
+        trainer = train_main(["-n", "ab", "-c", conf_path(model, ck), "-F", "synthetic", "-B",
+                              "4", "-V", str(views), "-R", "128", "--epochs", str(steps),
                               "--checkpoints_path", ck])
     print(json.dumps({"steps_ms": [1e3 * s for s in trainer.step_seconds]}), flush=True)
 
@@ -180,7 +196,7 @@ FRAME0_ROUTES = {
 }
 
 
-def child_frame0(reps: int = 10) -> None:
+def child_frame0(model: str, reps: int = 10) -> None:
     """One frame-0 run in the checkout of the working directory: every
     route of ``FRAME0_ROUTES`` in turns, one warm-up round, then ``reps``
     rounds of synchronized calls of ``entry.render_ring`` on frame 0."""
@@ -192,7 +208,8 @@ def child_frame0(reps: int = 10) -> None:
 
     rf.build_all()
     dev = torch.device("cuda")
-    conf = entry.load_conf(pretrained=False)
+    with tempfile.TemporaryDirectory() as tmp:
+        conf = entry.load_conf(pretrained=False, path=conf_path(model, tmp))
     net = entry.build_model(conf, dev, mlp_impl="auto", seed=0)
     src = entry.source_view(64, 0, [0, 1])
     rays = entry.ring_rays(src, 3)[:64 * 64]
@@ -228,6 +245,8 @@ def main() -> None:
                     help="time the 3-frame ring render from --views source views, not steps")
     ap.add_argument("--frame0", action="store_true",
                     help="time ring frame 0 on each render route, not steps")
+    ap.add_argument("--model", default="",
+                    help="HOCON added to sn64.conf's model block (train steps and --frame0)")
     ap.add_argument("--timeout", type=float, default=300.0)
     ap.add_argument("--child", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args()
@@ -235,16 +254,16 @@ def main() -> None:
         if args.render:
             return child_render(args.views)
         if args.frame0:
-            return child_frame0()
-        return child_kernels() if args.kernels else child(args.views, args.steps)
+            return child_frame0(args.model)
+        return child_kernels() if args.kernels else child(args.views, args.steps, args.model)
     if not args.checkouts:
         ap.error("name at least one checkout")
     dirs = [os.path.abspath(d) for d in args.checkouts]
     order = [d for _ in range(args.rounds) for d in dirs + dirs[::-1]]
     runs = {d: [] for d in dirs}
     mode = (["--kernels"] if args.kernels else ["--render", "--views", str(args.views)]
-            if args.render else ["--frame0"] if args.frame0
-            else ["--views", str(args.views), "--steps", str(args.steps)])
+            if args.render else ["--frame0", "--model", args.model] if args.frame0
+            else ["--views", str(args.views), "--steps", str(args.steps), "--model", args.model])
     head = ('{"kernel_ms"' if args.kernels else '{"rays_per_s"' if args.render
             else '{"frame0_rays_per_s"' if args.frame0 else '{"steps_ms"')
     for i, d in enumerate(order):
@@ -281,13 +300,13 @@ def main() -> None:
                                         for d in dirs}}))
         return
     if args.frame0:
-        print(json.dumps({"frame0_median_rays_per_s": {
+        print(json.dumps({"model": args.model, "frame0_median_rays_per_s": {
             d: {k: [r[k] for r in runs[d]] for k in FRAME0_ROUTES} for d in dirs}}))
         return
     if args.render:
         print(json.dumps({"views": args.views, "median_rays_per_s": {d: runs[d] for d in dirs}}))
         return
-    print(json.dumps({"views": args.views, "steps": args.steps,
+    print(json.dumps({"views": args.views, "steps": args.steps, "model": args.model,
                       "ms_per_step": {d: runs[d] for d in dirs}}))
 
 

@@ -38,7 +38,13 @@ from pixelnerf_tpu_torch.utils.jax_convert import from_jax_variables
 # 32 KB, at most 4 outputs and 256 steps a tile, a latent up to 1024 wide;
 # two 64 KB operand tiles + the ring + 1 KB slack
 LIMITS = rv.DataLimits(tile=64, threads=256, slot_floats=32768, stages=3, max_out=4,
-                       max_steps=256, max_c=1024, smem=2 * 65536 + 3 * 32768 + 1024)
+                       max_steps=256, max_c=1024, smem=2 * 65536 + 3 * 32768 + 1024,
+                       hidden=512)
+# the narrow libraries' (d_hidden 256 and 128): a slot of the 64 x H stream
+# (H / 4 f32 a thread), the same 96 KB ring in 3 stages of 32 KB or 6 of 16 KB
+LIMITS_AT = {512: LIMITS,
+             256: LIMITS._replace(slot_floats=16384, hidden=256),
+             128: LIMITS._replace(slot_floats=8192, stages=6, hidden=128)}
 
 CASES = [
     # NS, sb, B_obj, d_in, d_latent, d_hidden, n_blocks, combine_layer
@@ -55,6 +61,16 @@ WIDE_CASES = [
     (1, 1, 96, 42, 640, 512, 5, 3),
     (3, 2, 48, 42, 640, 512, 5, 3),
     (1, 1, 160, 42, 128, 512, 5, 3),
+]
+# sn64's depth at the narrow widths, d_hidden 256 and 128 (each a library of
+# its own): C = 512 (one piece, 2 or 4 dz steps an injection) and 640, from 1
+# and 3 views, a ragged B (150) and a small batch (SB 1 x 20: one
+# half-filled tile)
+NARROW_CASES = [
+    (1, 1, 96, 42, 512, 256, 5, 3),
+    (3, 2, 48, 42, 640, 256, 5, 3),
+    (1, 1, 150, 42, 640, 128, 5, 3),
+    (3, 1, 20, 42, 512, 128, 5, 3),
 ]
 
 
@@ -94,7 +110,7 @@ def _dz_rows(data, C):
     return rv.join_views(parts, data.sb)
 
 
-@pytest.mark.parametrize("NS,sb,B_obj,d_in,d_latent,H,nb,cl", CASES + WIDE_CASES)
+@pytest.mark.parametrize("NS,sb,B_obj,d_in,d_latent,H,nb,cl", CASES + WIDE_CASES + NARROW_CASES)
 def test_workspace_matches_pallas_interpret(NS, sb, B_obj, d_in, d_latent, H, nb, cl):
     params, x, z, cot, tw, Z, X, g, kw = _setup(NS, sb, B_obj, d_in, d_latent, H, nb, cl)
 
@@ -200,20 +216,25 @@ def test_data_grid(B, NS, n_sms, want):
     assert B_pad % 32 == 0 and 0 <= tiles * 64 - B_pad < 64
 
 
-def test_data_limits_fit_the_card():
-    """Two 64 KB operand tiles and three 32 KB ring stages fit the 227 KB a
-    CTA may ask for; the multi-view slot holds the 64 x 512 f32 stream, twice
-    the forward kernels' 64 KB slot of 32 points."""
-    rv.check_data_widths(48, 512, 512, 3, 5, 4, LIMITS)
-    assert LIMITS.smem <= rf.MAX_SMEM_BYTES
-    assert LIMITS.slot_floats * 4 == 64 * 512 * 4 == 2 * 65536
-    assert LIMITS.slot_floats == LIMITS.threads * 128  # 128 f32 a thread
+@pytest.mark.parametrize("H", [512, 256, 128])
+def test_data_limits_fit_the_card(H):
+    """Two 64 KB operand tiles and 96 KB of ring stages fit the 227 KB a
+    CTA may ask for at every width; the multi-view slot holds the 64 x H
+    f32 stream (at 512 twice the forward kernels' old 64 KB slot of 32
+    points); the mirrors are these."""
+    lim = LIMITS_AT[H]
+    assert rv.DATA_LIMITS[H] == lim
+    rv.check_data_widths(48, H, 512, 3, 5, 4, lim)
+    assert lim.smem <= rf.MAX_SMEM_BYTES
+    assert lim.slot_floats * 4 == 64 * H * 4
+    assert lim.slot_floats == lim.threads * H // 4  # H / 4 f32 a thread
     with pytest.raises(ValueError, match="shared memory"):
-        rv.check_data_widths(48, 512, 512, 3, 5, 4, LIMITS._replace(smem=rf.MAX_SMEM_BYTES + 1))
+        rv.check_data_widths(48, H, 512, 3, 5, 4, lim._replace(smem=rf.MAX_SMEM_BYTES + 1))
 
 
 @pytest.mark.parametrize("kin,H,C,n_lin_z,nb,d_out,match", [
-    (48, 256, 512, 3, 5, 4, "d_hidden 512"),
+    (48, 384, 512, 3, 5, 4, "d_hidden 512, one library each of \\(128, 256, 512\\)"),
+    (48, 256, 512, 3, 5, 4, "this library needs d_hidden 512"),  # another width's library
     (48, 512, 1040, 3, 5, 4, "d_latent a multiple of 16 in \\[16, 1024\\]"),
     (144, 512, 512, 3, 5, 4, "kin <= 128"),
     (40, 512, 512, 3, 5, 4, "multiple of 16"),
@@ -242,7 +263,7 @@ def test_check_data_widths_refuses(kin, H, C, n_lin_z, nb, d_out, match):
     (5, 3, 1, 5, 128, 34),  # the ConvEncoder's C = 128: one piece
 ])
 def test_data_steps(nb, nlz, NS, pre, C, want):
-    assert rv.data_steps(nb, nlz, NS, pre, C) == want
+    assert rv.data_steps(nb, nlz, NS, pre, C, 512) == want
     assert want <= LIMITS.max_steps
 
 
@@ -250,7 +271,7 @@ def test_data_steps(nb, nlz, NS, pre, C, want):
 def test_check_data_program_takes_any_view_count(NS):
     """-V 10, 24, 64 and 255 at sn64: 36 steps stored at any view count."""
     rv.check_data_program(5, 3, NS, 3, LIMITS, 512)
-    assert rv.data_steps(5, 3, NS, 3, 512) == 36
+    assert rv.data_steps(5, 3, NS, 3, 512, 512) == 36
 
 
 def test_check_data_program_refuses_views_past_the_step_and_long_towers():
@@ -271,10 +292,12 @@ def _step(kind, k, aux):
     return kind | (k << 4) | (aux << 12)
 
 
-def _flat_program(nb, nlz, NS, pre, pieces=1):
+def _flat_program(nb, nlz, NS, pre, pieces=1, dz_steps=None):
     """The flat program: every view's recompute, the shared steps, every
     view's walk back, written out in turn; each injection ``pieces`` steps
-    each way (Z_FWD's aux the piece, Z_BWD's piece above its first bit)."""
+    in the recompute (Z_FWD's aux the piece) and ``dz_steps`` (default
+    ``pieces``) in the walk back (Z_BWD's step above its first bit)."""
+    dz_steps = pieces if dz_steps is None else dz_steps
     mv, out = NS > 1, []
     for v in range(NS):
         out.append((_step(IN_FWD, 0, int(nlz == 0 and pre > 0)), v))
@@ -297,19 +320,19 @@ def _flat_program(nb, nlz, NS, pre, pieces=1):
         for k in range(pre - 1, -1, -1):
             out.append((_step(GB, k, 0), v))
             if k + 1 < nlz:
-                out += [(_step(Z_BWD, k + 1, int(first_z) | j << 1), v) for j in range(pieces)]
+                out += [(_step(Z_BWD, k + 1, int(first_z) | j << 1), v) for j in range(dz_steps)]
                 first_z = False
             out += [(_step(B1_BWD, k, 0), v), (_step(B0_BWD, k, 0), v)]
         out.append((_step(G_IN, 0, 0), v))
         if nlz > 0:
-            out += [(_step(Z_BWD, 0, int(first_z) | j << 1), v) for j in range(pieces)]
+            out += [(_step(Z_BWD, 0, int(first_z) | j << 1), v) for j in range(dz_steps)]
     return out
 
 
-def _stored_program(nb, nlz, mv, pre, pieces=1):
+def _stored_program(nb, nlz, mv, pre, pieces=1, dz_steps=None):
     """data_program: one view's recompute, the shared steps, one view's walk
     back."""
-    return [s for s, v in _flat_program(nb, nlz, 2 if mv else 1, pre, pieces) if v == 0]
+    return [s for s, v in _flat_program(nb, nlz, 2 if mv else 1, pre, pieces, dz_steps) if v == 0]
 
 
 def _segments(prog):
@@ -371,24 +394,27 @@ def _feeder_walk(prog, NS, tiles):
     return out
 
 
-@pytest.mark.parametrize("nb,nlz,pre,C", [(5, 3, 3, 512), (4, 2, 2, 512), (3, 0, 1, 512),
-                                          (2, 1, 1, 512), (5, 0, 0, 512), (5, 3, 3, 640),
-                                          (2, 1, 1, 1024)])
-def test_looped_data_program_walks_the_flat_program(nb, nlz, pre, C):
+@pytest.mark.parametrize("nb,nlz,pre,C,H", [(5, 3, 3, 512, 512), (4, 2, 2, 512, 512),
+                                            (3, 0, 1, 512, 512), (2, 1, 1, 512, 512),
+                                            (5, 0, 0, 512, 512), (5, 3, 3, 640, 512),
+                                            (2, 1, 1, 1024, 512), (5, 3, 3, 512, 256),
+                                            (5, 3, 3, 640, 128), (2, 1, 1, 1024, 128)])
+def test_looped_data_program_walks_the_flat_program(nb, nlz, pre, C, H):
     """At NS 2-64 the stored program (data_steps long), walked as the kernel
     walks it, is the flat program step for step, views included; thread 0's
     feed walks the flat program's products over two tiles (their weights:
     piece_gemm_of reads no view).  At NS = 1 the stored program is the
     one-view program itself.  A latent past 512 columns walks two pieces an
-    injection each way."""
-    pieces = rf.latent_pieces(C)
-    one = _stored_program(nb, nlz, False, nb, pieces)
-    assert one == [s for s, _ in _flat_program(nb, nlz, 1, nb, pieces)]
-    assert len(one) == rv.data_steps(nb, nlz, 1, nb, C)
-    prog = _stored_program(nb, nlz, True, pre, pieces)
-    assert len(prog) == rv.data_steps(nb, nlz, 2, pre, C)
+    injection in the recompute, and the walk back takes one step per H
+    columns of dz (dz_pieces: 5 at C = 640 and d_hidden 128)."""
+    pieces, dz_steps = rf.latent_pieces(C), rv.dz_pieces(C, H)
+    one = _stored_program(nb, nlz, False, nb, pieces, dz_steps)
+    assert one == [s for s, _ in _flat_program(nb, nlz, 1, nb, pieces, dz_steps)]
+    assert len(one) == rv.data_steps(nb, nlz, 1, nb, C, H)
+    prog = _stored_program(nb, nlz, True, pre, pieces, dz_steps)
+    assert len(prog) == rv.data_steps(nb, nlz, 2, pre, C, H)
     for NS in range(2, 65):
-        flat = _flat_program(nb, nlz, NS, pre, pieces)
+        flat = _flat_program(nb, nlz, NS, pre, pieces, dz_steps)
         assert _body_walk(prog, NS) == flat
         products = [s for s, _ in flat if s & 15 not in NOT_PRODUCTS]
         assert _feeder_walk(prog, NS, 2) == products * 2
@@ -400,14 +426,17 @@ def test_check_data_widths_takes_any_latent_width_without_a_latent():
     rv.check_data_widths(48, 512, 24, 0, 5, 4, LIMITS)
 
 
+@pytest.mark.parametrize("H", [512, 256, 128])
 @pytest.mark.parametrize("C", [16, 128, 512, 528, 640, 1024])
-def test_check_data_widths_takes_the_forwards_latent_widths(C):
+def test_check_data_widths_takes_the_forwards_latent_widths(C, H):
     """With a latent, C a multiple of 16 up to the forward's 1024: the
     ConvEncoder's 128 (one piece of K = 128), sn64's 512, the global
-    encoder's 640 (two pieces), the widest; at sn64 the program fits."""
-    rv.check_data_widths(48, 512, C, 3, 5, 4, LIMITS)
+    encoder's 640 (two pieces), the widest; at sn64's depth the program
+    fits at every tower width (at d_hidden 128 and C = 1024, 8 dz steps an
+    injection)."""
+    rv.check_data_widths(48, H, C, 3, 5, 4, LIMITS_AT[H])
     for NS, pre in ((1, 5), (3, 3), (255, 3)):
-        rv.check_data_program(5, 3, NS, pre, LIMITS, C)
+        rv.check_data_program(5, 3, NS, pre, LIMITS_AT[H], C)
 
 
 @pytest.fixture
@@ -420,16 +449,18 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("H", [512, 256, 128])
 @pytest.mark.parametrize("NS,B_obj", [(1, 1000), (1, 1008), (3, 333)])
-def test_data_kernel_matches_plain_on_card(cuda_device, NS, B_obj):
-    """sn64 widths, ragged B (B = 2000, 2016 and 666: B_pad an odd multiple
+def test_data_kernel_matches_plain_on_card(cuda_device, NS, B_obj, H):
+    """sn64 widths (and the narrow towers' d_hidden 256 and 128, a library
+    each), ragged B (B = 2000, 2016 and 666: B_pad an odd multiple
     of 32 each): the kernel's stashed operands against the plain recompute
     (relu-mask flips <= 1e-3) and to the bar of tests/test_pallas.py; its
     cotangent planes, dz, dx and rows, which an independent recompute's mask
     flips move locally, at corr > 0.999; bit-identical on a second call."""
     nb, cl, sb = 5, 3, 2
-    _, x, z, _, _, _, _, _, kw = _setup(NS, sb, B_obj, 42, 512, 512, nb, cl)
-    port = ResnetFC(d_in=42, d_out=4, n_blocks=nb, d_latent=512, d_hidden=512, combine_layer=cl,
+    _, x, z, _, _, _, _, _, kw = _setup(NS, sb, B_obj, 42, 512, H, nb, cl)
+    port = ResnetFC(d_in=42, d_out=4, n_blocks=nb, d_latent=512, d_hidden=H, combine_layer=cl,
                     impl="cuda").to(cuda_device)
     tw = port.tower(cuda_device)
     x = torch.from_numpy(x).to(cuda_device)

@@ -14,7 +14,8 @@ Its weight and bias gradients are held against
 * the JAX package's ``_bwd_kernel`` through ``resnetfc_pallas_diff`` in
   interpret mode (as ``tests/test_torch_train_vjp.py`` runs it), with an f32
   workspace: 5e-4 of max(max|ref|, 1e-3), the tolerance of
-  ``tests/test_pallas_vjp.py``.
+  ``tests/test_pallas_vjp.py``; a point whose relu input lies within f32
+  rounding of 0 gets a zero cotangent on both sides.
 """
 
 import jax
@@ -26,6 +27,7 @@ import torch
 from pixelnerf_tpu.models.resnetfc import ResnetFC as JResnetFC
 from pixelnerf_tpu.ops.resnetfc_vjp import resnetfc_pallas_diff
 from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
+from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
 from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
 from pixelnerf_tpu_torch.utils.jax_convert import from_jax_variables
 
@@ -34,6 +36,7 @@ WEIGHT_FIELDS = ("w_in", "b_in", "w_z", "b_z", "w_blk", "b_blk", "w_out", "b_out
 # the card): 128 x 256 output tiles; at most 24 splits, 24 tensor maps and 16
 # products a launch
 LIMITS = rv.KernelLimits(tile_m=128, tile_n=256, max_splits=24, max_maps=24, max_tasks=16)
+N_SMS = 132  # an H100 SXM's SMs
 
 CASES = [
     # NS, sb, B_obj, d_in, d_latent, d_hidden, n_blocks, combine_layer
@@ -49,6 +52,15 @@ WIDE_CASES = [
     (1, 1, 96, 42, 640, 512, 5, 3),
     (3, 2, 48, 42, 640, 512, 5, 3),
     (1, 1, 160, 42, 128, 512, 5, 3),
+]
+# sn64's depth at the narrow widths, d_hidden 256 and 128 (the weights
+# kernel's tile 128 x 256 and 128 x 128): C = 512 and 640, from 1 and 3
+# views, a ragged B (150) and a small batch (SB 1 x 20)
+NARROW_CASES = [
+    (1, 1, 150, 42, 512, 256, 5, 3),
+    (3, 2, 48, 42, 640, 256, 5, 3),
+    (1, 1, 96, 42, 640, 128, 5, 3),
+    (3, 1, 20, 42, 512, 128, 5, 3),
 ]
 
 
@@ -74,7 +86,35 @@ def _setup(NS, sb, B_obj, d_in, d_latent, H, nb, cl, seed=0):
     return params, x, z, cot, tw, Z, torch.from_numpy(x), torch.from_numpy(cot[0]).t().contiguous(), kw
 
 
-@pytest.mark.parametrize("NS,sb,B_obj,d_in,d_latent,H,nb,cl", CASES)
+def _relu_edge_points(tw, Z, X, nb, NS, sb, cl, tol=1e-6):
+    """The output points that have a relu input within ``tol`` of 0 in an
+    f64 forward of the tower: a few f32 roundings of the sums that form it
+    (eps 6e-8 of terms of magnitude ~1-10), so two f32 forwards may put it on
+    either side of the relu, which moves the point's whole gradient."""
+    n_lin_z = tw.w_z.shape[0]
+    pre = rf.blocks_per_view(nb, NS, cl)
+    w = {k: getattr(tw, k).double() for k in ("w_in", "b_in", "w_z", "b_z", "w_blk", "b_blk")}
+    hs = [xv.double() @ w["w_in"][: tw.d_in] + w["b_in"] for xv in rv.split_views(X, NS, sb)]
+    zs = rv.split_views(Z.double(), NS, sb) if n_lin_z else None
+    near = torch.zeros(hs[0].shape[0], dtype=torch.bool)
+
+    def block(k, h, zc):
+        nonlocal near
+        if k < n_lin_z:
+            h = h + zc @ w["w_z"][k] + w["b_z"][k]
+        a = torch.relu(h) @ w["w_blk"][k, 0] + w["b_blk"][k, 0]
+        near = near | (h.abs() < tol).any(1) | (a.abs() < tol).any(1)
+        return h + torch.relu(a) @ w["w_blk"][k, 1] + w["b_blk"][k, 1]
+
+    for k in range(pre):
+        hs = [block(k, hs[v], zs[v] if zs else None) for v in range(NS)]
+    h = hs[0] if NS == 1 else rf.view_mean(rv.join_views(hs, sb), NS, sb)
+    for k in range(pre, nb):
+        h = block(k, h, None)
+    return near | (h.abs() < tol).any(1)
+
+
+@pytest.mark.parametrize("NS,sb,B_obj,d_in,d_latent,H,nb,cl", CASES + NARROW_CASES[::3])
 def test_weights_reference_matches_plain_backward(NS, sb, B_obj, d_in, d_latent, H, nb, cl):
     _, _, _, _, tw, Z, X, g, kw = _setup(NS, sb, B_obj, d_in, d_latent, H, nb, cl)
     Z = None if Z is None else Z.bfloat16()  # the kernel route's latent, read in place at NS = 1
@@ -95,12 +135,19 @@ def test_weights_reference_matches_plain_backward(NS, sb, B_obj, d_in, d_latent,
 
 
 @pytest.mark.parametrize("NS,sb,B_obj,d_in,d_latent,H,nb,cl",
-                         [CASES[0], (3, 1, 40, 42, 32, 64, 4, 2)] + WIDE_CASES)
+                         [CASES[0], (3, 1, 40, 42, 32, 64, 4, 2)] + WIDE_CASES + NARROW_CASES)
 def test_weights_reference_matches_pallas_interpret(NS, sb, B_obj, d_in, d_latent, H, nb, cl):
     """The weights kernel's plain version on the f32 plain workspace, and the
     plain backward itself, against the JAX ``_bwd_kernel``: every weight and
-    bias gradient (and, from the plain backward, dz and dx)."""
+    bias gradient (and, from the plain backward, dz and dx).  A point with a
+    relu input within rounding of 0 (:func:`_relu_edge_points`; at most one a
+    case here) gets a zero cotangent on both sides, as the card's gates count
+    relu flips apart."""
     params, x, z, cot, tw, Z, X, g, kw = _setup(NS, sb, B_obj, d_in, d_latent, H, nb, cl, seed=1)
+    edge = _relu_edge_points(tw, Z, X, nb, NS, sb, cl)
+    assert int(edge.sum()) <= max(1, 0.02 * edge.numel())
+    cot[0, edge.numpy()] = 0.0
+    g = torch.from_numpy(cot[0]).t().contiguous()
 
     def loss(p, z, x):
         out = resnetfc_pallas_diff(p, (z, x), NS=NS, d_latent=d_latent, d_in=d_in, n_blocks=nb,
@@ -150,7 +197,7 @@ def test_weight_plan_at_other_latent_widths(C, NS, pre):
     another in the buffer, lin_z's C x 512 each."""
     B = 4 * 128 * 96
     tasks = rv.weight_tasks(48, 512, C, 5, 3, NS, pre, B)
-    plan = rv.weight_plan(48, 512, C, 5, 3, NS, pre, B, LIMITS)
+    plan = rv.weight_plan(48, 512, C, 5, 3, NS, pre, B, LIMITS, N_SMS)
     assert len(tasks) == 14 and len(plan.maps) == 23 and len(plan.table) == 6 * 14
     assert [t.M for t in tasks[1:4]] == [C] * 3
     assert [rv.weight_tiles(t, 512, LIMITS) for t in tasks[1:4]] == [-(-C // 128) * 2] * 3
@@ -207,7 +254,7 @@ def test_split_points_fill_the_card_in_whole_pieces(NS, pre, B, pts):
     tasks = rv.weight_tasks(48, 512, 512, 5, 3, NS, pre, B)
     got = rv.split_points(tasks, LIMITS.max_splits)
     assert got == pts
-    plan = rv.weight_plan(48, 512, 512, 5, 3, NS, pre, B, LIMITS)
+    plan = rv.weight_plan(48, 512, 512, 5, 3, NS, pre, B, LIMITS, N_SMS)
     assert plan.pts == pts
     for i, t in enumerate(tasks):
         s = -(-t.P // got)
@@ -225,7 +272,7 @@ def test_weight_plan_fits_max_splits_at_any_view_count(NS, B):
     needs for the longest to fit the kernel's 24 splits -- whole views where
     B_pad is a multiple of 64 -- so no product passes them."""
     tasks = rv.weight_tasks(48, 512, 512, 5, 3, NS, 3, B)
-    plan = rv.weight_plan(48, 512, 512, 5, 3, NS, 3, B, LIMITS)
+    plan = rv.weight_plan(48, 512, 512, 5, 3, NS, 3, B, LIMITS, N_SMS)
     B_pad = -(-B // 32) * 32
     piece = -(-B_pad // 64) * 64
     assert plan.pts == piece * -(-(-(-NS * B_pad // piece)) // LIMITS.max_splits)
@@ -245,7 +292,7 @@ def test_weight_plan_at_sn64_widths(NS, pre):
     operand plane (23: lin_in's and lin_z_0's cotangent is one plane), the
     products written one after another into one bf16 buffer, 106 tiles."""
     B = 4 * 128 * 96
-    plan = rv.weight_plan(48, 512, 512, 5, 3, NS, pre, B, LIMITS)
+    plan = rv.weight_plan(48, 512, 512, 5, 3, NS, pre, B, LIMITS, N_SMS)
     tasks = rv.weight_tasks(48, 512, 512, 5, 3, NS, pre, B)
     assert plan.arrays == ("ws_act", "ws_cot", "ws_x", "z" if NS == 1 else "ws_z")
     assert len(plan.maps) == 23 and len(plan.table) == 6 * 14
@@ -267,9 +314,10 @@ def test_weight_plan_refuses_a_tower_past_the_kernel_limits(NS, pre):
     """Six blocks need 27 tensor maps, more than the kernel's parameters
     hold: the plan says so, naming the limit, before any launch."""
     with pytest.raises(ValueError, match="at most 24 tensor maps and 16 products.*27 maps"):
-        rv.weight_plan(48, 512, 512, 6, 3, NS, pre, 1000, LIMITS)
+        rv.weight_plan(48, 512, 512, 6, 3, NS, pre, 1000, LIMITS, N_SMS)
     # five blocks fit at every view count
-    assert len(rv.weight_plan(48, 512, 512, 5, 3, NS, min(pre, 4), 1000, LIMITS).maps) == 23
+    assert len(rv.weight_plan(48, 512, 512, 5, 3, NS, min(pre, 4), 1000, LIMITS,
+                              N_SMS).maps) == 23
 
 
 def test_bwd_weights_raises_on_planes_tma_cannot_read():
@@ -315,14 +363,16 @@ def cuda_device():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("H", [512, 256, 128])
 @pytest.mark.parametrize("NS,B_obj", [(1, 1000), (3, 333)])
-def test_weights_kernel_matches_plain_on_card(cuda_device, NS, B_obj):
-    """sn64 widths, ragged B: the weights kernel against its plain version on
+def test_weights_kernel_matches_plain_on_card(cuda_device, NS, B_obj, H):
+    """sn64 widths (and the narrow towers' d_hidden 256 and 128, a library
+    each), ragged B: the weights kernel against its plain version on
     the data kernel's own DataOut, to the bar of tests/test_pallas.py, and
     bit-identical on a second call."""
     nb, cl, sb = 5, 3, 2
-    _, x, z, _, _, _, _, _, kw = _setup(NS, sb, B_obj, 42, 512, 512, nb, cl)
-    port = ResnetFC(d_in=42, d_out=4, n_blocks=nb, d_latent=512, d_hidden=512, combine_layer=cl,
+    _, x, z, _, _, _, _, _, kw = _setup(NS, sb, B_obj, 42, 512, H, nb, cl)
+    port = ResnetFC(d_in=42, d_out=4, n_blocks=nb, d_latent=512, d_hidden=H, combine_layer=cl,
                     impl="cuda").to(cuda_device)
     tw = port.tower(cuda_device)
     x = torch.from_numpy(x).to(cuda_device)

@@ -162,7 +162,7 @@ def test_dense_program_is_the_data_kernels_recompute():
     for nb, nlz in ((1, 0), (2, 1), (5, 3), (6, 6)):
         # data_steps at NS = 1: the recompute, lin_out, the walk back
         walk_back = 1 + 3 * nb + nlz + 1
-        assert rf.dense_steps(nb, nlz) == rv.data_steps(nb, nlz, 1, nb, 512) - walk_back
+        assert rf.dense_steps(nb, nlz) == rv.data_steps(nb, nlz, 1, nb, 512, 512) - walk_back
 
 
 def test_check_dense_widths_takes_sn64_and_refuses_the_rest():

@@ -161,9 +161,10 @@ def test_dense_mv_program_is_the_data_kernels_recompute(nb, nlz, pre):
     per view lin_in, the injections and blocks below the mean and the fold,
     then the shared blocks; at NS = 1 the one-view program."""
     assert rf.dense_steps(nb, nlz, 1, pre) == rf.dense_steps(nb, nlz)
-    assert rf.dense_steps(nb, nlz) == rv.data_steps(nb, nlz, 1, nb, 512) - _walk_back(nb, nlz, 1, nb)
+    walk_back = _walk_back(nb, nlz, 1, nb)
+    assert rf.dense_steps(nb, nlz) == rv.data_steps(nb, nlz, 1, nb, 512, 512) - walk_back
     for NS in range(2, 10):
-        want = rv.data_steps(nb, nlz, NS, pre, 512) - _walk_back(nb, nlz, NS, pre)
+        want = rv.data_steps(nb, nlz, NS, pre, 512, 512) - _walk_back(nb, nlz, NS, pre)
         assert rf.dense_steps(nb, nlz, NS, pre) == want
 
 
@@ -175,7 +176,7 @@ def test_dense_mv_program_takes_every_view_count_of_the_data_kernel():
     assert rf.dense_steps(5, 3) == 14
     for NS in (2, 3, 9, 10, 12, 24, 25, 64, 255):
         assert rf.dense_steps(5, 3, NS, 3) == 15 <= LIMITS.max_steps
-        assert rv.data_steps(5, 3, NS, 3, 512) == 36 <= 256
+        assert rv.data_steps(5, 3, NS, 3, 512, 512) == 36 <= 256
 
 
 @pytest.mark.parametrize("B,n_sms,grid", [(1, 132, 1), (64, 132, 1), (65, 132, 2), (666, 132, 11),

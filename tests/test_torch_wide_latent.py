@@ -14,10 +14,9 @@ envelope, on the CPU.
   Python mirrors of the kernels' limits (no library is built or loaded).
   Under grad the backward kernels take the forward's latent widths (16 to
   1024, a multiple of 16): the global encoder's 640 and the ConvEncoder's
-  128 train on the kernels; 1040 and 24 stay plain.  The forward kernels
-  take d_hidden 128, 256 and 512 (a library each): narrow towers render on
-  them, and stay plain under grad (the backward is built at 512); 64 and
-  384 stay plain.
+  128 train on the kernels; 1040 and 24 stay plain.  The forward and the
+  backward kernels take d_hidden 128, 256 and 512 (a library each of
+  each): narrow towers render and train on them; 64 and 384 stay plain.
 * The steepened field of the eval CLIs' replay (its sigma row x 50, shifted
   to leave 1/32 of the points occupied) read past the per-kernel bar on the
   card: the JAX kernel's own bf16 arithmetic reads alike on it.
@@ -161,7 +160,8 @@ CUDA = torch.device("cuda")  # only compared by type: nothing is allocated on it
 @pytest.mark.parametrize("kw,NS,grad", [
     (dict(d_hidden=384), 1, False),  # no library of that width
     (dict(d_hidden=64), 3, False),  # a warpgroup's 32 columns: below one TMA box
-    (dict(d_hidden=256), 1, True),  # the narrow forward, but the backward is built at 512
+    (dict(d_hidden=64), 1, True),  # no library of that width, under grad
+    (dict(d_hidden=384), 3, True),
     (dict(d_in=144), 1, True),  # kin 144 > 128: the data kernel's code
     (dict(n_blocks=6), 1, True),  # the weights kernel's plan: 5 blocks at most
     (dict(d_latent=1040), 1, True),  # past the kernels' 1024, under grad
@@ -180,7 +180,7 @@ def test_route_sends_towers_outside_the_envelope_to_the_plain_route(kw, NS, grad
     with pytest.raises(ValueError):
         t._kernel_route((NS, 64), CUDA, grad)
     assert t._kernel_route((NS, 64), torch.device("cpu"), grad) is True  # plain versions
-    assert not rf._LIBS and rv._LIB is None
+    assert not rf._LIBS and not rv._LIBS
 
 
 @pytest.mark.parametrize("kw,NS,grad", [
@@ -198,24 +198,31 @@ def test_route_sends_towers_outside_the_envelope_to_the_plain_route(kw, NS, grad
     (dict(d_hidden=256), 3, False),
     (dict(d_hidden=128), 2, False),
     (dict(d_hidden=256), 1, False),
+    (dict(d_hidden=256), 1, True),  # the narrow towers' train steps: a backward library each
+    (dict(d_hidden=256), 3, True),
+    (dict(d_hidden=128), 1, True),
+    (dict(d_hidden=128), 3, True),
+    (dict(d_hidden=128, d_latent=WIDE), 1, True),  # 640 at 128: 2 pieces, 5 dz steps a way
 ])
 def test_route_takes_the_kernels_inside_the_envelope(kw, NS, grad):
     """Decided from the Python mirrors as well: no library built or loaded."""
     t = _tower(**kw)
     assert t._kernel_route((NS, 64), CUDA, grad) is True
     assert t._kernel_route((NS, 64), torch.device("cpu"), grad) is False  # auto on the CPU
-    assert not rf._LIBS and rv._LIB is None
+    assert not rf._LIBS and not rv._LIBS
 
 
-@pytest.mark.parametrize("option,want", [("global", True), ("conv", True), ("narrow", False)])
+@pytest.mark.parametrize("option,want", [("global", True), ("conv", True), ("narrow", True),
+                                         ("narrow128", True), ("narrow64", False)])
 def test_option_train_steps_take_the_backward_kernels(monkeypatch, option, want):
     """sn64's conf with the global encoder (C = 640) or the ConvEncoder (C =
-    128), built in code as ``chip_smoke.py``'s ``option_confs`` builds it:
-    under ``auto`` with card parameters ``field_backward_in_kernel`` holds
-    at -V 1 and -V 3, so the trainer's remat default, which follows it and
-    not the conf, is off; a d_hidden 256 tower stays plain.  The card is
-    faked: the rule reads only the parameters' device, and no library is
-    built or loaded."""
+    128), built in code as ``chip_smoke.py``'s ``option_confs`` builds it,
+    or with both heads at d_hidden 256 or 128 (``narrow_conf``): under
+    ``auto`` with card parameters ``field_backward_in_kernel`` holds at -V 1
+    and -V 3, so the trainer's remat default, which follows it and not the
+    conf, is off; a d_hidden 64 tower stays plain.  The card is faked: the
+    rule reads only the parameters' device, and no library is built or
+    loaded."""
     from types import SimpleNamespace
 
     from pixelnerf_tpu_torch import entry
@@ -229,13 +236,13 @@ def test_option_train_steps_take_the_backward_kernels(monkeypatch, option, want)
         conf.put("model.encoder.type", "conv")
     else:
         for head in ("mlp_coarse", "mlp_fine"):
-            conf.put(f"model.{head}.d_hidden", 256)
+            conf.put(f"model.{head}.d_hidden", int(option[6:] or 256))
     net = make_model(conf["model"], mlp_impl="auto", device="cpu", diff_mode=True)
-    assert net.mlp_fine.d_latent == {"global": WIDE, "conv": 128, "narrow": 512}[option]
+    assert net.mlp_fine.d_latent == {"global": WIDE, "conv": 128}.get(option, 512)
     assert not net.field_backward_in_kernel(1)  # auto on CPU parameters: the plain field
     monkeypatch.setattr(net, "parameters", lambda: iter([SimpleNamespace(device=CUDA)]))
     assert [net.field_backward_in_kernel(nv) for nv in (1, 3)] == [want, want]
-    assert not rf._LIBS and rv._LIB is None
+    assert not rf._LIBS and not rv._LIBS
 
 
 def test_mirrored_limits_are_the_kernels_limits_by_hand():
@@ -247,20 +254,32 @@ def test_mirrored_limits_are_the_kernels_limits_by_hand():
     products.  The narrow libraries keep the operand tiles, the code's and
     the latent's widths and the 96 KB ring (6 stages of 16 KB at d_hidden
     128, where a warpgroup's piece is one 64-column box), and a view-sum
-    slot of the H-wide stream (H / 4 f32 a thread).  ``chip_smoke.py`` holds
-    them equal to what the libraries report."""
+    slot of the H-wide stream (H / 4 f32 a thread), the data kernel's as the
+    forward's: 32768 / 16384 / 8192 f32 at 512 / 256 / 128; the weights
+    kernel's tile is 128 x min(256, H).  ``chip_smoke.py`` holds them equal
+    to what the libraries report."""
     assert rf.TILE_LIMITS == {
         128: rf.DenseLimits(64, 256, 6, 4, 128, 512, 8192, 230400, 448, 1024, 128),
         256: rf.DenseLimits(64, 256, 3, 4, 128, 512, 16384, 230400, 448, 1024, 256),
         512: rf.DenseLimits(64, 256, 3, 4, 128, 512, 32768, 230400, 448, 1024, 512),
     }
     assert tuple(rf.TILE_LIMITS) == rf.HIDDEN
-    assert rv.DATA_LIMITS == rv.DataLimits(64, 256, 32768, 3, 4, 256, 1024, 230400)
-    assert rv.DATA_LIMITS.max_c == rf.TILE_LIMITS[512].max_c
-    assert rv.WEIGHT_LIMITS == rv.KernelLimits(128, 256, 24, 24, 16)
+    assert rv.DATA_LIMITS == {
+        128: rv.DataLimits(64, 256, 8192, 6, 4, 256, 1024, 230400, 128),
+        256: rv.DataLimits(64, 256, 16384, 3, 4, 256, 1024, 230400, 256),
+        512: rv.DataLimits(64, 256, 32768, 3, 4, 256, 1024, 230400, 512),
+    }
+    assert rv.WEIGHT_LIMITS == {128: rv.KernelLimits(128, 128, 24, 24, 16),
+                                256: rv.KernelLimits(128, 256, 24, 24, 16),
+                                512: rv.KernelLimits(128, 256, 24, 24, 16)}
+    assert tuple(rv.DATA_LIMITS) == tuple(rv.WEIGHT_LIMITS) == rf.HIDDEN
     for H, lim in rf.TILE_LIMITS.items():
         assert lim.smem <= rf.MAX_SMEM_BYTES and lim.hidden == H
         assert rf.tile_limits(H) is lim
+        dlim = rv.DATA_LIMITS[H]
+        assert dlim.max_c == lim.max_c and dlim.hidden == H and dlim.smem <= rf.MAX_SMEM_BYTES
+        assert dlim.slot_floats == dlim.threads * H // 4  # a thread's share of the 64 x H stream
+        assert dlim.stages * 2 * (min(H // 2, 128) // 64) * 8192 == 3 * 32768  # a 96 KB ring
     for H in (64, 384, 1024):
         with pytest.raises(ValueError, match="d_hidden"):
             rf.tile_limits(H)

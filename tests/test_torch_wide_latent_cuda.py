@@ -29,8 +29,8 @@ def cuda_device():
 def test_mirrored_limits_are_the_libraries(cuda_device):
     for H in rf.HIDDEN:
         assert rf.dense_limits(H) == rf.TILE_LIMITS[H]
-    assert rv.data_limits() == rv.DATA_LIMITS
-    assert rv.kernel_limits() == rv.WEIGHT_LIMITS
+        assert rv.data_limits(H) == rv.DATA_LIMITS[H]
+        assert rv.kernel_limits(H) == rv.WEIGHT_LIMITS[H]
 
 
 @pytest.mark.cuda
