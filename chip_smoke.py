@@ -160,7 +160,9 @@ one line each:
     each at cosine >= 0.99; ``python -m pixelnerf_tpu_torch.train -c
     conf/exp/sn64_multiscale.conf -F dvr`` on the NMR fixture for 12 steps
     at -V 1 (ms a step beside 11's sn64 step) and 3 at -V 3, rows 2 / 3, 5a
-    and 5b launching twice a step; ``eval -P "0"`` and ``gen_video`` (4
+    and 5b launching twice a step (the recipe's ``vis_interval = 10`` draws
+    a vis after the tenth epoch at -V 1: its launches are counted apart and
+    its kernel calls replayed at the bar of 3); ``eval -P "0"`` and ``gen_video`` (4
     frames, ``--accel_mode auto``) on its checkpoint through the gather
     kernel; last, every first forward-kernel call of those renders and CLIs,
     replayed against its plain version at the bar of 3;
@@ -254,7 +256,25 @@ one line each:
     the forward kernel and both backward kernels twice a step; each width's
     train step at -V 1 against the plain f32 step (the guards of 9); and
     d_hidden 64 and 384 towers under grad, plain under ``auto`` and refused
-    under ``impl='cuda'``.
+    under ``impl='cuda'``;
+19. visuals: ``python -m pixelnerf_tpu_torch.train --fixed_test`` with a
+    conf file that includes a shipped one and sets ``train { vis_interval =
+    1 }``: ``conf/exp/sn64.conf`` on the NMR fixture at -V 1 for 2 epochs,
+    ``conf/exp/dtu.conf`` on the DTU one at -V 3 for 1 epoch (32 steps; a
+    full 300 x 400 target), and the first again with
+    ``PIXELNERF_DEFER_CODE=1``; each ``<epoch>_vis.png`` must exist and
+    ``read_png`` give back the ``vis_step`` grid bit for bit, a (2 H, 5 W,
+    3) uint8 grid; each vis render must launch its row's kernel and no other
+    forward kernel (the fused gather at sn64: a 1024-row table; the dense
+    forward at DTU, past the 2048-row cap; the gather's CODE twin under the
+    deferred code), the last vis's fine rgb must agree with the plain f32
+    route on the same weights and draws to >= 40 dB, and the vis renders'
+    kernel calls, replayed, must meet the bar of 3; with ``tensorboardX``
+    importable an event file must exist under ``--logs_path`` (else the
+    line says so); each vis render's ms and rays/s; then
+    ``DiagnosticTool`` on the sn64 net with the run's weights
+    (``check_model_output`` must hold and launch the fused gather), and
+    ``warp_image`` of a 300 x 400 DTU view timed.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -1493,7 +1513,7 @@ def multiscale_phase(conf, net, src3, rays, dev, smi, records, code_records, nmr
     from pixelnerf_tpu_torch.eval.gen_video import main as gen_video_main
     from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
     from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
-    from pixelnerf_tpu_torch.train import main as train_main
+    from pixelnerf_tpu_torch.train import cli, main as train_main
 
     t_phase = time.perf_counter()
     ms_conf = entry.load_conf(pretrained=False, path=MS_CONF)
@@ -1639,10 +1659,27 @@ def multiscale_phase(conf, net, src3, rays, dev, smi, records, code_records, nmr
                 rf.reset_launches()
                 rv.reset_launches()
                 t0 = time.perf_counter()
-                trainer = train_main(argv)
+                with VisRecorder(cli, rf) as vis:  # the recipe's vis_interval is 10
+                    trainer = train_main(argv)
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
-                la = {k: v for k, v in dict(rf.LAUNCHES, **rv.LAUNCHES).items() if v}
+                vis_la = {}
+                for r in vis.renders:
+                    for k, v in r["launches"].items():
+                        vis_la[k] = vis_la.get(k, 0) + v
+                # the train steps' and validations' launches; the vis's apart
+                la = {k: v - vis_la.get(k, 0) for k, v in dict(rf.LAUNCHES, **rv.LAUNCHES).items()
+                      if v - vis_la.get(k, 0)}
+                vis_ok = (len(vis.renders) == epochs // trainer.vis_interval
+                          and all(row[-1] for r in vis.renders for row in r["replay"]))
+                log(f"multiscale train path -V {nviews}: {len(vis.renders)} vis render(s) "
+                    f"(vis_interval {trainer.vis_interval}), launches {vis_la}, "
+                    f"{[round(r['s'] * 1e3, 3) for r in vis.renders]} ms; replayed calls "
+                    f"within the bar {vis_ok}")
+                if not vis_ok:
+                    raise SystemExit(f"multiscale train path at -V {nviews}: the vis failed")
+                for k, v in vis_la.items():
+                    ms_launches.setdefault(k, {})[f"train CLI -V {nviews}, vis"] = v
                 n_steps = trainer.global_step
                 if nviews == 1:
                     profile_split(os.path.join(prof, "trace.json"), smi, fwd,
@@ -3012,6 +3049,194 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
     log(f"narrow backward: phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 19: the train CLI's visuals.  (label, conf, -F, -V, epochs, deferred
+# code, the forward kernel the vis render must take)
+VIS_RUNS = (("sn64", "conf/exp/sn64.conf", "dvr", 1, 2, False, "resnetfc_fwd_gather"),
+            ("dtu", "conf/exp/dtu.conf", "dvr_dtu", 3, 1, False, "resnetfc_fwd_dense"),
+            ("sn64, deferred code", "conf/exp/sn64.conf", "dvr", 1, 2, True,
+             "resnetfc_fwd_gather_code"))
+
+
+class VisRecorder:
+    """While installed, wraps the train CLI's ``vis_render`` and
+    ``PixelNeRFTrainer.vis_step``: each vis render is timed (synchronized),
+    its forward-kernel launches counted, its kernel calls replayed against
+    their plain versions right after it (:class:`ForwardCalls`, before the
+    next train step moves the weights), its arguments and output kept; each
+    vis step's grid and PSNR are kept."""
+
+    def __init__(self, cli, rf):
+        self.cli, self.rf, self.renders, self.steps = cli, rf, [], []
+
+    def __enter__(self):
+        cli, rf = self.cli, self.rf
+        self._render, self._step = cli.vis_render, cli.PixelNeRFTrainer.vis_step
+
+        def render(*args, **kwargs):
+            torch.cuda.synchronize()
+            before = dict(rf.LAUNCHES)
+            with ForwardCalls(rf) as calls:
+                t0 = time.perf_counter()
+                out = self._render(*args, **kwargs)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+            after = dict(rf.LAUNCHES)
+            launches = {k: v - before.get(k, 0) for k, v in after.items()
+                        if v - before.get(k, 0)}
+            replay = calls.check()
+            rf.LAUNCHES.update(after)  # the replay's launches do not count
+            self.renders.append(dict(args=args, kwargs=kwargs, out=out, s=dt, replay=replay,
+                                     launches=launches))
+            return out
+
+        def step(trainer, data):
+            res = self._step(trainer, data)
+            self.steps.append(res)
+            return res
+
+        cli.vis_render, cli.PixelNeRFTrainer.vis_step = render, step
+        return self
+
+    def __exit__(self, *exc):
+        self.cli.vis_render, self.cli.PixelNeRFTrainer.vis_step = self._render, self._step
+
+
+def visuals_phase(dev, smi, records, code_records, nmr_root, dtu_root) -> None:
+    """Phase 19: the train CLI's visuals (see the module docstring)."""
+    import glob
+
+    from pixelnerf_tpu_torch.data import get_split_dataset
+    from pixelnerf_tpu_torch.models import make_model
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.train import cli, main as train_main
+    from pixelnerf_tpu_torch.train.diagnostic import DiagnosticTool
+    from pixelnerf_tpu_torch.utils.png import read_png
+    from pixelnerf_tpu_torch.utils.warping import warp_image
+
+    t_phase = time.perf_counter()
+    try:
+        import tensorboardX  # noqa: F401
+        have_tb = True
+    except Exception:
+        have_tb = False
+    last_trainer = None
+    for label, conf_path, fmt, nviews, epochs, defer, want in VIS_RUNS:
+        env = {"PIXELNERF_ALLOW_RANDOM_BACKBONE": "1"}  # no backbone weights here
+        if defer:
+            env["PIXELNERF_DEFER_CODE"] = "1"
+        restore = _env(env)
+        try:
+            with tempfile.TemporaryDirectory() as tmp, VisRecorder(cli, rf) as rec:
+                cpath = os.path.join(tmp, "vis.conf")
+                with open(cpath, "w") as fh:  # the shipped conf, a vis every epoch
+                    fh.write(f'include required("{os.path.abspath(conf_path)}")\n'
+                             "train { vis_interval = 1 }\n")
+                name = "vis"
+                root = nmr_root if fmt == "dvr" else dtu_root
+                t0 = time.perf_counter()
+                trainer = train_main(
+                    ["-n", name, "-c", cpath, "-F", fmt, "-D", root, "-B", "4", "-V",
+                     str(nviews), "-R", "128", "--epochs", str(epochs), "--fixed_test",
+                     "--checkpoints_path", os.path.join(tmp, "ck"), "--visual_path",
+                     os.path.join(tmp, "vis"), "--logs_path", os.path.join(tmp, "logs")])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                pngs = {e: os.path.join(tmp, "vis", name, f"{e:04d}_vis.png")
+                        for e in range(epochs)}
+                read = {e: read_png(p) if os.path.exists(p) else None for e, p in pngs.items()}
+                events = glob.glob(os.path.join(tmp, "logs", name, "events.out.tfevents*"))
+                # the last vis again on the plain f32 route: same weights and draws
+                last = rec.renders[-1]
+                plain = make_model(trainer.conf["model"], mlp_impl="torch", device=dev)
+                plain.load_state_dict(trainer.net.state_dict())
+                rf.reset_launches()
+                out_plain = rec._render(plain, *last["args"][1:], **last["kwargs"])
+                plain_launches = {k: v for k, v in rf.LAUNCHES.items() if v}
+                del plain
+        finally:
+            restore()
+        H, W = trainer.test_loader.dataset[0]["images"].shape[1:3]
+        n_rays = H * W
+        fine = lambda o: torch.from_numpy(o["fine"]["rgb"])  # noqa: E731
+        p_plain = psnr(fine(last["out"]), fine(out_plain))
+        replay = [row for r in rec.renders for row in r["replay"]]
+        grids_ok = (len(rec.steps) == epochs == len(rec.renders)
+                    and all(read[e] is not None and read[e].dtype.name == "uint8"
+                            and read[e].shape == (2 * H, 5 * W, 3)
+                            and read[e].tobytes() == rec.steps[e][0].tobytes()
+                            for e in range(epochs)))
+        launches_ok = all(set(r["launches"]) == {want} for r in rec.renders)
+        for i, r in enumerate(rec.renders):
+            log(f"visuals ({label}): vis render {i} (epoch {i}, -F {fmt}, one source view, a "
+                f"{H} x {W} target from -R 128 x 16 = 2048-ray chunks): {r['s'] * 1e3:.3f} ms "
+                f"= {n_rays / r['s']:.1f} rays/s (encode included); launches {r['launches']} "
+                f"(want {want} only); psnr {rec.steps[i][1]:.4f} dB; on {smi}")
+        log(f"visuals ({label}): python -m pixelnerf_tpu_torch.train -c {conf_path} + "
+            f"vis_interval 1 -F {fmt} -B 4 -V {nviews} -R 128 --epochs {epochs} --fixed_test"
+            f"{' with PIXELNERF_DEFER_CODE=1' if defer else ''}: {trainer.global_step} steps, "
+            f"{wall:.3f} s; PNGs {[os.path.basename(p) for e, p in pngs.items() if read[e] is not None]} "
+            f"{[None if g is None else g.shape for g in read.values()]} equal to the grids "
+            f"{grids_ok}; TensorBoard {'event files ' + str(len(events)) if have_tb else 'tensorboardX does not import here: no writer'}; "
+            f"last vis's fine rgb vs the plain f32 route (same weights and draws) "
+            f"{p_plain:.3f} dB (need >= 40), plain-route launches {plain_launches}; replayed "
+            f"kernel calls {[(v, n, f'{d:.3g}', f'{b:.3g}', f'{c:.6f}', same, ok) for v, n, d, b, c, same, ok in replay]}")
+        if not (grids_ok and launches_ok and p_plain >= 40.0 and not plain_launches
+                and replay and all(row[-1] for row in replay)
+                and (events or not have_tb)):
+            raise SystemExit(f"visuals ({label}): the vis failed, missed {want} or disagrees "
+                             "with the plain route")
+        rec_ = code_records[want] if want in code_records else records[want]
+        rec_.setdefault("vis_launches", {})[label] = sum(r["launches"][want] for r in rec.renders)
+        rec_.setdefault("vis_render_ms", {})[label] = [round(r["s"] * 1e3, 3) for r in rec.renders]
+        if fmt == "dvr" and not defer:
+            last_trainer = trainer
+        del rec, out_plain
+
+    # ---- DiagnosticTool on the sn64 net: the output check on the gather kernel ----
+    ds = get_split_dataset("dvr", nmr_root, want_split="train")
+    sample = ds[0]
+    diag_net = make_model(last_trainer.conf["model"], mlp_impl="auto", device=dev)
+    diag_net.load_state_dict(last_trainer.net.state_dict())
+    with tempfile.TemporaryDirectory() as tmp:
+        tool = DiagnosticTool(save_dir=tmp)
+        data_ok = tool.check_data_range(ds, num_samples=2)
+        arch_ok = tool.check_model_architecture(diag_net)
+        rf.reset_launches()
+        out_ok = tool.check_model_output(diag_net, sample)
+        torch.cuda.synchronize()
+    diag_launches = {k: v for k, v in rf.LAUNCHES.items() if v}
+    log(f"visuals: DiagnosticTool on the sn64 net (the visuals run's trained weights, eval "
+        f"routes): check_data_range {data_ok}, check_model_architecture {arch_ok}, "
+        f"check_model_output {out_ok}; launches {diag_launches} (want resnetfc_fwd_gather)")
+    if not (out_ok and arch_ok and data_ok and set(diag_launches) == {"resnetfc_fwd_gather"}):
+        raise SystemExit("visuals: DiagnosticTool's checks failed or missed the gather kernel")
+    records["resnetfc_fwd_gather"]["diagnostic_launches"] = diag_launches["resnetfc_fwd_gather"]
+    del diag_net
+
+    # ---- warp_image on one 300 x 400 DTU view ----
+    dtu_val = get_split_dataset("dvr_dtu", dtu_root, want_split="val")
+    dtu = dtu_val[0]
+    img = torch.from_numpy(dtu["images"][:1] * 0.5 + 0.5).to(dev).contiguous()
+    P = torch.from_numpy(dtu["poses"][:2]).to(dev, torch.float64)
+    focal = torch.as_tensor(dtu["focal"], dtype=torch.float32).reshape(-1, 2)[0]
+    c = torch.as_tensor(dtu["c"], dtype=torch.float32).reshape(-1, 2)[0]
+    K = torch.tensor([[[focal[0], 0.0, c[0]], [0.0, focal[1], c[1]], [0.0, 0.0, 1.0]]],
+                     device=dev)
+    flip = torch.diag(torch.tensor([1.0, -1.0, -1.0, 1.0], dtype=torch.float64, device=dev))
+    # OpenGL camera-to-world poses -> view 0's CV camera to view 1's
+    rel = (flip @ torch.linalg.inv(P[1]) @ P[0] @ flip).float()[None]
+    depth = torch.full((1,) + DTU_SIZE, 0.5 * (dtu_val.z_near + dtu_val.z_far), device=dev)
+    warped, valid = warp_image(img, depth, K, rel)
+    ms = cuda_ms(lambda: warp_image(img, depth, K, rel), 5)
+    ok = bool(torch.isfinite(warped).all()) and warped.shape == img.shape and 0 < valid.mean() <= 1
+    log(f"visuals: warp_image of DTU view 0 ({DTU_SIZE[0]} x {DTU_SIZE[1]}, a plane at mid "
+        f"depth) into view 1: {ms:.3f} ms a call (mean of 5 after a warm-up), valid share "
+        f"{valid.mean().item():.4f}, finite {ok}; on {smi}")
+    if not ok:
+        raise SystemExit("visuals: warp_image failed")
+    log(f"visuals: phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card", file=sys.stderr)
@@ -3929,6 +4154,9 @@ def main() -> None:
 
         # ---- narrow towers on the backward kernels (reads both fixtures) ----
         narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root)
+
+        # ---- the train CLI's visuals and the utilities (reads both fixtures) ----
+        visuals_phase(dev, smi, records, code_records, nmr_root, dtu_root)
     finally:
         data_dir.cleanup()
 

@@ -30,6 +30,7 @@ the same math.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import os
 from typing import Optional, Tuple, Union
@@ -304,6 +305,17 @@ class PixelNeRFNet(nn.Module):
         if self.encoder.index_interp != "bilinear":
             return False
         return NS * latents.shape[1] * latents.shape[2] <= self._fused_gather_cap()
+
+    @contextlib.contextmanager
+    def eval_routes(self):
+        """Within: a ``diff_mode`` model takes the eval-only routes (the
+        fused gather, the deferred code) as an eval model does; for renders
+        under ``torch.no_grad()``, such as the trainer's visuals."""
+        diff_mode, self.diff_mode = self.diff_mode, False
+        try:
+            yield self
+        finally:
+            self.diff_mode = diff_mode
 
     def field_backward_in_kernel(self, max_nviews: int = 1) -> bool:
         """True when train steps route the field through the backward kernel

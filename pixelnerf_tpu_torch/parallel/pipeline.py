@@ -1,5 +1,6 @@
 """Single-device render of many rays: rays in chunks of ``device_chunk``,
-the fine (else coarse) rgb and depth out in the JAX package's wire formats,
+every head's rgb, depth and weights (``render``), or the fine (else coarse)
+rgb and depth in the JAX package's wire formats (``render_simple``),
 and the per-scene occupancy accel (``build_accel``: the grid, the capacity
 probe that sizes the compaction buffers and the ray chunk, and the quality
 gate that settles the pruning mode).  The JAX ``RenderPipeline`` without its
@@ -378,6 +379,58 @@ class RenderPipeline:
         self.accel_chunk = None
         return "dense", psnrs
 
+    def _chunks(self, scene: EncodedScene, rays, generator: torch.Generator, ray_batch_size: int,
+                draws: Optional[Callable[[int, int], RayDraws]], want_weights: bool = False,
+                pad: bool = False):
+        """Render ``rays`` a chunk at a time -> yields (``render_rays``
+        output of the chunk, its true row count).  A short last chunk is
+        padded with its last ray under a grid (the capacity windows assume
+        it) or with ``pad``."""
+        device = scene.device
+        rays = torch.as_tensor(np.asarray(rays) if not torch.is_tensor(rays) else rays,
+                               dtype=torch.float32).to(device)
+        scene = self._table_scene(scene)
+        # ray chunks already bound memory: no inner point chunking
+        cfg = dataclasses.replace(self.renderer.cfg, eval_batch_size=0)
+        dc = self.device_chunk
+        if self.accel is not None and self.accel_chunk:
+            dc = max(dc, self.accel_chunk)
+        chunk = max(1, min(dc, ray_batch_size, rays.shape[0]))
+        field = self._field(scene)
+        for i, start in enumerate(range(0, rays.shape[0], chunk)):
+            part = rays[start:start + chunk]
+            n = part.shape[0]
+            if (pad or self.accel is not None) and n < chunk:
+                part = torch.cat([part, part[-1:].expand(chunk - n, 8)])
+            yield render_rays(field, part[None], cfg, generator,
+                              draws=None if draws is None else draws(i, part.shape[0]),
+                              want_weights=want_weights, use_viewdirs=self.use_viewdirs,
+                              accel=self.accel), n
+
+    @torch.no_grad()
+    def render(self, scene: EncodedScene, rays, generator: torch.Generator,
+               ray_batch_size: int = 50000, want_weights: bool = False,
+               draws: Optional[Callable[[int, int], RayDraws]] = None) -> dict:
+        """Render any number of rays of one scene, every head.
+
+        Each chunk's output comes to the host as soon as it is rendered, so
+        the card holds one chunk's weights at a time; the last chunk is
+        padded with its last ray, as the JAX pipeline pads it.
+
+        :param rays: (NR, 8) rays, numpy or tensor
+        :param ray_batch_size: upper bound on the rays per step
+        :param want_weights: add each head's compositing weights (NR, K)
+        :param draws: as :meth:`render_simple`'s
+        :return: {"coarse": {"rgb", "depth"[, "weights"]}[, "fine": {...}]}
+            float32 numpy arrays of NR rows
+        """
+        pieces = [{h: {k: v[0, :n].cpu().numpy() for k, v in head.items()}
+                   for h, head in out.items()}
+                  for out, n in self._chunks(scene, rays, generator, ray_batch_size, draws,
+                                             want_weights=want_weights, pad=True)]
+        return {h: {k: np.concatenate([p[h][k] for p in pieces]) for k in head}
+                for h, head in pieces[0].items()}
+
     @torch.no_grad()
     def render_simple(self, scene: EncodedScene, rays, generator: torch.Generator,
                       ray_batch_size: int = 50000, as_numpy: bool = True, pack: str = "f32",
@@ -401,27 +454,7 @@ class RenderPipeline:
         """
         if pack not in ("f32", "u8"):
             raise ValueError(f"pack must be 'f32' or 'u8', got {pack!r}")
-        device = scene.device
-        rays = torch.as_tensor(np.asarray(rays) if not torch.is_tensor(rays) else rays,
-                               dtype=torch.float32).to(device)
-        scene = self._table_scene(scene)
-        # ray chunks already bound memory: no inner point chunking
-        cfg = dataclasses.replace(self.renderer.cfg, eval_batch_size=0)
-        dc = self.device_chunk
-        if self.accel is not None and self.accel_chunk:
-            dc = max(dc, self.accel_chunk)
-        chunk = max(1, min(dc, ray_batch_size, rays.shape[0]))
-        field = self._field(scene)
-        pieces = []
-        for i, start in enumerate(range(0, rays.shape[0], chunk)):
-            part = rays[start:start + chunk]
-            n = part.shape[0]
-            if self.accel is not None and n < chunk:
-                part = torch.cat([part, part[-1:].expand(chunk - n, 8)])
-            out = render_rays(field, part[None], cfg, generator,
-                              draws=None if draws is None else draws(i, part.shape[0]),
-                              use_viewdirs=self.use_viewdirs, accel=self.accel)
-            head = out["fine"] if cfg.using_fine else out["coarse"]
-            packed = pack_simple(head["rgb"][0], head["depth"][0], pack)
-            pieces.append((packed, n))
+        head = "fine" if self.renderer.cfg.using_fine else "coarse"
+        pieces = [(pack_simple(out[head]["rgb"][0], out[head]["depth"][0], pack), n)
+                  for out, n in self._chunks(scene, rays, generator, ray_batch_size, draws)]
         return unpack_simple(pieces) if as_numpy else pieces

@@ -12,13 +12,23 @@ with ``diff_mode=True`` so the field's inputs stay dense and its backward is
 the hand-written kernel on the card.  The encoder follows the backbone
 contract of ``utils.jax_convert.load_pretrained_backbone``.  At the end the
 weights are written to ``pixel_nerf_latest``.
+
+Every ``train.vis_interval`` epochs :class:`PixelNeRFTrainer` renders one
+held-out view of the first test batch from one source view (``--fixed_test``:
+source 0, target 1) and writes the root CLI's grid, one row per head:
+``[source | ground truth | depth | rgb | alpha]``.
 """
 
 from __future__ import annotations
 
 import os
 
+import numpy as np
 import torch
+
+from ..parallel.pipeline import RenderPipeline
+from ..utils import geometry, metrics
+from .trainer import Trainer
 
 IMPLS = {"auto": "auto", "pallas": "cuda", "xla": "torch", "cuda": "cuda", "torch": "torch"}
 
@@ -49,6 +59,77 @@ def extra_args(parser):
     return parser
 
 
+def vis_render(net, renderer, images: np.ndarray, poses: np.ndarray, focal, c, src_view,
+               target: int, z_near: float, z_far: float, seed: int, ray_batch_size: int,
+               draws=None) -> dict:
+    """Render view ``target`` of one object from its views ``src_view``:
+    ``RenderPipeline.render`` with weights, a generator seeded ``seed``
+    (``draws`` in its place).  Under ``torch.no_grad`` the model takes its
+    eval routes (the fused gather, the deferred code), also when built for
+    training.
+
+    :param images: (NV, H, W, 3) in [-1, 1]; ``poses`` (NV, 4, 4)
+    :param focal, c: shared, or one row per view (NV, 2)
+    """
+    dev = next(net.parameters()).device
+    H, W = images.shape[1:3]
+
+    def put(a):
+        return torch.from_numpy(np.ascontiguousarray(a, np.float32)).to(dev)
+
+    def rows(x, views):
+        return None if x is None else geometry.view_rows(x, views)
+
+    rays = geometry.gen_rays_np(poses[target:target + 1], W, H, rows(focal, [target]), z_near,
+                                z_far, c=rows(c, [target])).reshape(-1, 8)
+    with torch.no_grad(), net.eval_routes():
+        scene = net.encode(put(images[src_view][None]), put(poses[src_view][None]),
+                           put(rows(focal, src_view)),
+                           c=None if c is None else put(rows(c, src_view)))
+        return RenderPipeline(net, renderer).render(
+            scene, rays, torch.Generator(device=dev).manual_seed(seed),
+            ray_batch_size=ray_batch_size, want_weights=True, draws=draws)
+
+
+def vis_grid(out: dict, images: np.ndarray, src_view, target: int):
+    """The root CLI's vis grid: a row ``[src | gt | cmap(depth) | rgb |
+    cmap(alpha)]`` a head -> (uint8 (heads * H, 5 * W, 3), PSNR of the last
+    head's rgb against the target)."""
+    H, W = images.shape[1:3]
+    gt = images[target] * 0.5 + 0.5
+    src = images[src_view[0]] * 0.5 + 0.5
+
+    def row(head):
+        rgb = np.clip(head["rgb"].reshape(H, W, 3), 0, 1)
+        depth = metrics.cmap(head["depth"].reshape(H, W)).astype(np.float32) / 255.0
+        alpha = metrics.cmap(head["weights"].reshape(H, W, -1).sum(-1)).astype(np.float32) / 255.0
+        return np.hstack([src, gt, depth, rgb, alpha]), rgb
+
+    rows = [row(out["coarse"])] + ([row(out["fine"])] if "fine" in out else [])
+    grid = np.vstack([r[0] for r in rows])
+    return (grid * 255).astype(np.uint8), metrics.psnr(rows[-1][1], gt)
+
+
+class PixelNeRFTrainer(Trainer):
+    """The train CLI's trainer: :class:`Trainer` with the vis grid."""
+
+    def vis_step(self, data):
+        """The grid of the batch's first object: source view 0 and target 1
+        under ``--fixed_test``, else the ends of a permutation drawn from the
+        trainer's rng."""
+        images, poses = data["images"][0], data["poses"][0]
+        c = data.get("c")
+        if getattr(self.args, "fixed_test", False):
+            src_view, target = np.array([0]), min(1, images.shape[0] - 1)
+        else:
+            perm = self.rng.permutation(images.shape[0])
+            src_view, target = perm[:1], int(perm[-1])
+        out = vis_render(self.net, self.renderer, images, poses, np.asarray(data["focal"][0]),
+                         None if c is None else np.asarray(c[0]), src_view, target, self.z_near,
+                         self.z_far, int(self.global_step), self.args.ray_batch_size * 16)
+        return vis_grid(out, images, src_view, target)
+
+
 def main(argv=None):
     from ..config.args import parse_args
     from ..data import get_split_dataset
@@ -56,7 +137,6 @@ def main(argv=None):
     from ..models.pixelnerf import make_model
     from ..render.renderer import NeRFRenderer
     from . import checkpoints
-    from .trainer import Trainer
     from ..utils.jax_convert import load_pretrained_backbone
 
     args, conf = parse_args(extra_args, training=True, default_ray_batch_size=128, argv=argv)
@@ -85,7 +165,7 @@ def main(argv=None):
         load_pretrained_backbone(net, conf["model"])
     checkpoints.load_weights(args, net, opt_init=True)
 
-    trainer = Trainer(net, dset, val_dset, renderer, args, conf)
+    trainer = PixelNeRFTrainer(net, dset, val_dset, renderer, args, conf)
     trainer.start()
     checkpoints.save_weights(args, net)
     return trainer

@@ -21,7 +21,11 @@
   epoch + 1, ``best.ckpt`` and the keep_last / milestone / keep_all
   retention, as ``torch.save`` payloads of tensors and plain Python;
 * :class:`Trainer`: the epoch loop with host-side prefetch, the bbox flip,
-  the renderer's sample schedule, validation, saving and resume.
+  the renderer's sample schedule, validation, saving and resume; every
+  ``vis_interval`` epochs the ``vis_step`` hook's image grid, written to
+  ``<visual_path>/<name>/<epoch>_vis.png``; and, when ``tensorboardX``
+  imports, the JAX trainer's TensorBoard tags under ``<logs_path>/<name>``
+  (``train/<loss>``, ``train/lr``, ``val/loss``, ``vis``, ``vis/psnr``).
 """
 
 from __future__ import annotations
@@ -33,7 +37,7 @@ import math
 import os
 import re
 import time
-from typing import Callable, Dict, List, Optional
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -45,6 +49,7 @@ from ..models.losses import get_alpha_loss, get_rgb_loss, l2_loss
 from ..models.pixelnerf import PixelNeRFNet
 from ..render.renderer import NeRFRenderer, RayDraws, RenderConfig, render_rays
 from ..utils import geometry
+from ..utils.png import write_png
 
 FIELD_HEADS = ("mlp_coarse.", "mlp_fine.")
 
@@ -438,7 +443,8 @@ class CheckpointManager:
 
 class Trainer:
     """Epoch trainer.  ``net`` holds the initial weights on its device; the
-    train and eval steps run there.  Subclass hooks: ``post_batch``."""
+    train and eval steps run there.  Subclass hooks: ``post_batch``,
+    ``vis_step``."""
 
     def __init__(self, net: PixelNeRFNet, train_dataset, test_dataset, renderer: NeRFRenderer,
                  args, conf):
@@ -458,6 +464,7 @@ class Trainer:
 
         self.print_interval = tc("print_interval", 2)
         self.save_interval = tc("save_interval", 50)
+        self.vis_interval = tc("vis_interval", 100)
         self.eval_interval = tc("eval_interval", 50)
         self.num_epoch_repeats = tc("num_epoch_repeats", 1)
         self.num_epochs = args.epochs
@@ -545,6 +552,15 @@ class Trainer:
             self.ckpt_dir, strategy=tc("ckpt_strategy", "keep_last"),
             keep_last=tc("keep_last", 20), milestone_interval=tc("milestone_interval", 50),
         )
+        self.visual_path = os.path.join(args.visual_path, args.name)
+        os.makedirs(self.visual_path, exist_ok=True)
+        self.writer = None
+        try:
+            from tensorboardX import SummaryWriter
+
+            self.writer = SummaryWriter(os.path.join(args.logs_path, args.name))
+        except Exception as e:
+            print(f"TensorBoard writer unavailable: {e}")
         self.rng = np.random.default_rng(getattr(args, "seed", 1234))
         # the render's draws; seeded as the JAX Trainer's default key is
         self.generator = torch.Generator(device=self.device).manual_seed(7)
@@ -669,6 +685,11 @@ class Trainer:
     def post_batch(self, epoch: int, batch_idx: int) -> None:
         self.renderer.sched_step(1)
 
+    def vis_step(self, data) -> Optional[Tuple[np.ndarray, float]]:
+        """(uint8 (H, W, 3) image grid, PSNR) of a test batch; None writes
+        nothing (the train CLI's ``PixelNeRFTrainer`` renders one)."""
+        return None
+
     # -------------------- loops --------------------
     def current_lr(self) -> float:
         return self.optimizer.lr()
@@ -694,7 +715,12 @@ class Trainer:
                 n_batches += 1
                 last = loss_dict
                 if self.global_step % self.print_interval == 0:
-                    items = " ".join(f"{k}:{float(v):.5f}" for k, v in loss_dict.items())
+                    floats = {k: float(v) for k, v in loss_dict.items()}
+                    if self.writer is not None:
+                        for k, v in floats.items():
+                            self.writer.add_scalar(f"train/{k}", v, self.global_step)
+                        self.writer.add_scalar("train/lr", self.current_lr(), self.global_step)
+                    items = " ".join(f"{k}:{v:.5f}" for k, v in floats.items())
                     s_it = (time.time() - t_start) / max(n_batches, 1)
                     print(f"E{self.epoch} B{batch_idx} {items} lr:{self.current_lr():.2e} "
                           f"{s_it:.2f}s/it")
@@ -707,7 +733,30 @@ class Trainer:
             ld = self.eval_step(data)
             if ld is not None:
                 losses.append(ld["t"])
-        return float(np.mean(losses)) if losses else float("inf")
+        val_loss = float(np.mean(losses)) if losses else float("inf")
+        if self.writer is not None:
+            self.writer.add_scalar("val/loss", val_loss, self.global_step)
+        return val_loss
+
+    def write_vis(self, epoch: int) -> None:
+        """The ``vis_step`` grid of the first test batch to
+        ``<epoch>_vis.png`` and TensorBoard.  Unlike the JAX trainer, a vis
+        that raises stops the run: a kernel that fails to launch is not
+        hidden."""
+        data = next(iter(self.test_loader), None)
+        if data is None:
+            print("vis: the test set is empty; no visuals written")
+            return
+        vis = self.vis_step(data)
+        if vis is None:
+            return
+        vis_img, vis_psnr = vis
+        path = os.path.join(self.visual_path, f"{epoch:04d}_vis.png")
+        write_png(path, np.ascontiguousarray(vis_img))
+        if self.writer is not None:
+            self.writer.add_image("vis", vis_img.transpose(2, 0, 1), self.global_step)
+            self.writer.add_scalar("vis/psnr", vis_psnr, self.global_step)
+        print(f"Wrote vis to {path} (psnr {vis_psnr:.2f})")
 
     def start(self) -> None:
         """Train from ``self.epoch`` to ``num_epochs``, validating and saving
@@ -725,5 +774,9 @@ class Trainer:
                         is_best = True
                 if (epoch + 1) % self.save_interval == 0 or epoch == self.num_epochs - 1:
                     self.save_checkpoint(is_best=is_best)
+                if (epoch + 1) % self.vis_interval == 0:
+                    self.write_vis(epoch)
         self._profiler = None
+        if self.writer is not None:
+            self.writer.flush()
         self.epoch = self.num_epochs

@@ -1,14 +1,16 @@
-"""Camera / ray geometry: the parts of the JAX package's ``utils/geometry.py``
-that the port's render, train and eval paths need.
+"""Camera / ray geometry: the port of the JAX package's ``utils/geometry.py``.
 
 Tensor functions take and return ``torch`` tensors on the caller's device;
-the host-side constructors (rays, poses) stay numpy, as in the JAX package.
+the host-side constructors (``*_np`` rays and samplers, poses) stay numpy,
+as in the JAX package.  The 3x3 contractions are written as f32 products
+and sums, so that no TF32 matmul can round them on the card.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Sequence
+import warnings
+from typing import Sequence, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +46,114 @@ def _intrinsics_np(focal, c, width: int, height: int):
     """(fx, fy, cx, cy) from a scalar or [fx, fy] focal and an optional
     principal point (default: the image center)."""
     return _focal_np(focal) + _center_np(c, width, height)
+
+
+def _as_f32(x, device=None) -> torch.Tensor:
+    if not torch.is_tensor(x):
+        x = torch.from_numpy(np.asarray(x, np.float32))
+    return x.to(device=device, dtype=torch.float32)
+
+
+def _focal_to_2d(f: torch.Tensor) -> torch.Tensor:
+    """A scalar or [fx, fy] focal -> (2,) [fx, fy]."""
+    f = f.reshape(-1)
+    return torch.cat([f, f]) if f.shape[0] == 1 else f[:2]
+
+
+def _rotate(m: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """``m @ v`` over the last axis in f32 products and sums:
+    m (..., 3, 3), v (..., 3) broadcast against each other."""
+    return (m * v[..., None, :]).sum(-1)
+
+
+def unproj_map(width: int, height: int, f, c=None, device=None) -> torch.Tensor:
+    """Per-pixel unit camera-ray directions of an OpenGL camera (+x right,
+    +y up, looking down -z): ``normalize([(x - cx)/fx, -(y - cy)/fy, -1])``.
+
+    :param f: focal, scalar or [fx, fy]
+    :param c: principal point, None (the image center) or [cx, cy]
+    :return: (height, width, 3) f32 on ``f``'s device (or ``device``)
+    """
+    f2 = _focal_to_2d(_as_f32(f, device))
+    dev = f2.device
+    if c is None:
+        c = torch.tensor([width * 0.5, height * 0.5], dtype=torch.float32, device=dev)
+    else:
+        c = _as_f32(c, dev).reshape(-1)[:2]
+    xs = (torch.arange(width, dtype=torch.float32, device=dev) - c[0]) / f2[0]
+    ys = (torch.arange(height, dtype=torch.float32, device=dev) - c[1]) / f2[1]
+    Y, X = torch.meshgrid(ys, xs, indexing="ij")  # (H, W)
+    unproj = torch.stack([X, -Y, -torch.ones_like(X)], dim=-1)
+    return unproj / torch.linalg.norm(unproj, dim=-1, keepdim=True)
+
+
+def gen_rays(poses, width: int, height: int, focal, z_near: float, z_far: float, c=None,
+             ndc: bool = False) -> torch.Tensor:
+    """Camera rays for every pixel of every view, on the poses' device: the
+    tensor twin of :func:`gen_rays_np`, with the forward-facing NDC branch.
+
+    :param poses: (B, 4, 4) camera-to-world
+    :param ndc: map the rays to NDC space (near 0, far 1; other values warn)
+    :return: (B, height, width, 8) = [origin(3), direction(3), near, far]
+    """
+    poses = _as_f32(poses)
+    dev = poses.device
+    B = poses.shape[0]
+    cam_unproj = unproj_map(width, height, _as_f32(focal, dev).squeeze(), c=c)
+    cam_raydir = _rotate(poses[:, None, None, :3, :3], cam_unproj[None])
+    cam_centers = poses[:, None, None, :3, 3].expand(B, height, width, 3)
+    if ndc:
+        if not (z_near == 0 and z_far == 1):
+            warnings.warn("dataset z near and z_far not compatible with NDC, "
+                          "setting them to 0, 1 NOW")
+        z_near, z_far = 0.0, 1.0
+        cam_centers, cam_raydir = ndc_rays(width, height, focal, 1.0, cam_centers, cam_raydir)
+    nears = torch.full((B, height, width, 1), z_near, dtype=torch.float32, device=dev)
+    fars = torch.full((B, height, width, 1), z_far, dtype=torch.float32, device=dev)
+    return torch.cat([cam_centers, cam_raydir, nears, fars], dim=-1)
+
+
+def ndc_rays(width: int, height: int, focal, near: float, rays_o: torch.Tensor,
+             rays_d: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Shift ray origins to the near plane and map them to NDC space (the
+    NeRF forward-facing transform).  A focal of [fx, fy] gives x fx, y fy."""
+    f = _as_f32(focal, rays_o.device).reshape(-1)
+    fx, fy = f[0], f[-1]
+    t = -(near + rays_o[..., 2]) / rays_d[..., 2]
+    rays_o = rays_o + t[..., None] * rays_d
+    ox, oy, oz = rays_o[..., 0], rays_o[..., 1], rays_o[..., 2]
+    dx, dy, dz = rays_d[..., 0], rays_d[..., 1], rays_d[..., 2]
+    sx, sy = -1.0 / (width / (2.0 * fx)), -1.0 / (height / (2.0 * fy))
+    o = torch.stack([sx * ox / oz, sy * oy / oz, 1.0 + 2.0 * near / oz], -1)
+    d = torch.stack([sx * (dx / dz - ox / oz), sy * (dy / dz - oy / oz), -2.0 * near / oz], -1)
+    return o, d
+
+
+def batched_index_select_nd(t: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
+    """Index dim 1 of a batched tensor: t (B, n, ...), inds (B, k) -> (B, k, ...)."""
+    idx = inds.reshape(tuple(inds.shape) + (1,) * (t.ndim - 2))
+    return torch.gather(t, 1, idx.expand(tuple(inds.shape) + tuple(t.shape[2:])))
+
+
+def batched_index_select_nd_last(t: torch.Tensor, inds: torch.Tensor) -> torch.Tensor:
+    """Index the last dim: t (..., n, m), inds (..., k) -> (..., n, k)."""
+    return torch.gather(t, -1, inds[..., None, :].expand(tuple(t.shape[:-1]) + (inds.shape[-1],)))
+
+
+def masked_sample_np(masks: np.ndarray, num_pix: int, prop_inside: float,
+                     rng: np.random.Generator, thresh: float = 0.5) -> np.ndarray:
+    """Pixel indices with a target in/out-of-mask proportion.
+
+    :param masks: (NV, H, W[, 1])
+    :return: (num_pix, 3) [view, y, x]
+    """
+    m = masks[..., 0] if masks.ndim == 4 else masks
+    num_inside = int(num_pix * prop_inside + 0.5)
+    inside = np.argwhere(m >= thresh)
+    outside = np.argwhere(m < thresh)
+    pix_inside = inside[rng.integers(0, len(inside), num_inside)]
+    pix_outside = outside[rng.integers(0, len(outside), num_pix - num_inside)]
+    return np.concatenate([pix_inside, pix_outside], axis=0)
 
 
 def gen_rays_np(
@@ -126,6 +236,22 @@ def coord_to_blender(dtype=np.float32) -> np.ndarray:
     return np.array([[1, 0, 0, 0], [0, 0, -1, 0], [0, 1, 0, 0], [0, 0, 0, 1]], dtype=dtype)
 
 
+def look_at(origin: np.ndarray, target: np.ndarray,
+            world_up: np.ndarray = np.array([0, 1.0, 0], dtype=np.float32)) -> np.ndarray:
+    """4x4 camera-to-world of a camera at ``origin`` looking at ``target``."""
+    back = np.asarray(origin, np.float32) - np.asarray(target, np.float32)
+    back = back / np.linalg.norm(back)
+    right = np.cross(world_up, back)
+    right = right / np.linalg.norm(right)
+    up = np.cross(back, right)
+    m = np.eye(4, dtype=np.float32)
+    m[:3, 0] = right
+    m[:3, 1] = up
+    m[:3, 2] = back
+    m[:3, 3] = origin
+    return m
+
+
 def quat_to_rot(q: np.ndarray) -> np.ndarray:
     """Unit-normalized quaternions (B, 4) [r, i, j, k] -> rotation matrices
     (B, 3, 3), float32 (the DTU spline camera path of ``gen_video``)."""
@@ -138,6 +264,16 @@ def quat_to_rot(q: np.ndarray) -> np.ndarray:
         2 * (qk * qi - qj * qr), 2 * (qj * qk + qi * qr), 1 - 2 * (qi**2 + qj**2),
     ], axis=-1)
     return R.reshape(-1, 3, 3).astype(np.float32)
+
+
+def rot_to_quat(R: torch.Tensor) -> torch.Tensor:
+    """Rotation matrices (B, 3, 3) -> quaternions (B, 4) [r, i, j, k]."""
+    R = _as_f32(R)
+    qr = torch.sqrt(1.0 + R[:, 0, 0] + R[:, 1, 1] + R[:, 2, 2]) / 2
+    qi = (R[:, 2, 1] - R[:, 1, 2]) / (4 * qr)
+    qj = (R[:, 0, 2] - R[:, 2, 0]) / (4 * qr)
+    qk = (R[:, 1, 0] - R[:, 0, 1]) / (4 * qr)
+    return torch.stack([qr, qi, qj, qk], dim=-1)
 
 
 def invert_poses(poses: torch.Tensor) -> torch.Tensor:
@@ -209,3 +345,8 @@ def bbox_sample_np(bboxes: np.ndarray, num_pix: int, rng: np.random.Generator) -
     x = (rng.random(num_pix) * (pb[:, 2] + 1 - pb[:, 0]) + pb[:, 0]).astype(np.int64)
     y = (rng.random(num_pix) * (pb[:, 3] + 1 - pb[:, 1]) + pb[:, 1]).astype(np.int64)
     return np.stack([image_ids, y, x], axis=-1)
+
+
+def homogeneous(points: torch.Tensor) -> torch.Tensor:
+    """Append 1 to the last dim."""
+    return torch.cat([points, points.new_ones(tuple(points.shape[:-1]) + (1,))], dim=-1)

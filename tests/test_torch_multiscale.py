@@ -498,7 +498,9 @@ def test_train_cli_and_gen_video_on_a_multiscale_conf(tmp_path):
                                  f'include required("{default}")'))
     ck = str(tmp_path / "ck")
     trainer = train_main(["--device", "cpu", "-F", "synthetic", "-c", str(path), "-n", "ms",
-                          "--checkpoints_path", ck, "--epochs", "1", "-B", "2", "-R", "8"])
+                          "--checkpoints_path", ck, "--epochs", "1", "-B", "2", "-R", "8",
+                          "--visual_path", str(tmp_path / "vis"), "--logs_path",
+                          str(tmp_path / "logs")])
     assert trainer.global_step > 0 and all(np.isfinite(trainer.history))
     assert trainer.net.feature_fusion.dropout == 0.1
     assert os.path.exists(os.path.join(ck, "ms", "pixel_nerf_latest"))

@@ -327,7 +327,8 @@ def test_train_cli_profile_dir(tmp_path):
     prof = tmp_path / "prof"
     trainer = train_main(["--device", "cpu", "-F", "dvr", "-D", data, "-c", str(conf), "-n", "p",
                           "--checkpoints_path", str(tmp_path / "ck"), "--epochs", "3", "-B", "1",
-                          "-R", "8", "--profile_dir", str(prof)])
+                          "-R", "8", "--profile_dir", str(prof), "--visual_path",
+                          str(tmp_path / "vis"), "--logs_path", str(tmp_path / "logs")])
     assert trainer.global_step == 6
     path = prof / "trace.json"
     assert path.exists()
