@@ -274,7 +274,34 @@ one line each:
     line says so); each vis render's ms and rays/s; then
     ``DiagnosticTool`` on the sn64 net with the run's weights
     (``check_model_output`` must hold and launch the fused gather), and
-    ``warp_image`` of a 300 x 400 DTU view timed.
+    ``warp_image`` of a 300 x 400 DTU view timed;
+20. multi-device (``multichip_phase``; the libraries of 2 are built before
+    any rank starts, and the ranks load them): ``entry.dryrun_multichip(4,
+    "cuda")``, four ranks sharing card 0 over gloo on a data 2 x rays 2
+    mesh, sn64 at full width on the kernel route, torch's deterministic
+    algorithms on: step 1 against one process at the JAX dry run's bars,
+    the resumed run bit for bit the unbroken one, the eval leg at the JAX
+    bars (the step-2 and per-module gradient norms printed); then one
+    launch of two ranks on card 0 (``--gpu_id "0 0"``) that asks gloo
+    which collectives take CUDA tensors as they are, times the port's
+    gradient mean and one BatchNorm statistic's sum, and runs ``python -m
+    pixelnerf_tpu_torch.train`` (sn64 on the NMR fixture, -B 4, -V 1, 3
+    epochs of one step, ``vis_interval = 2``: rank 0's vis between steps;
+    at ``--lr`` 1e-4 and 1e-6), ``eval -P "0"`` and ``gen_video`` on a
+    field with 1/32 of its points occupied (the accel kept, its gate run)
+    with ``PIXELNERF_DEFER_CODE=1`` in the ranks, each against the same CLI
+    on one rank in this process: step 1 within rel 1e-4 (loss) and 1e-3
+    (``grad_norm``), every step's loss within 1e-3 (later steps'
+    ``grad_norm`` printed: Adam's first updates carry the ranks' bf16
+    rounding), PSNR within 1e-3 dB and SSIM within 1e-4, each PNG and video
+    frame within one u8 level, the same accel rung; every rank must launch
+    each kernel of its path (the dense forward and both backward kernels in
+    training, the fused gather in eval, its CODE twin in the video), and
+    every kernel call a rank made is replayed against its plain version at
+    the bar of 3 (``ops.replay``); each leg's wall seconds and peak memory
+    per rank, the step ms at 1 and 2 ranks; last the root smoke tools'
+    twins (``tools.training_smoke`` on sn64, ``tools.memory_smoke`` on the
+    NMR fixture, ``tools.check_config``) once each.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -282,6 +309,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import glob
 import json
 import math
 import os
@@ -3237,6 +3265,254 @@ def visuals_phase(dev, smi, records, code_records, nmr_root, dtu_root) -> None:
     log(f"visuals: phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
+# phase 20's kernels of each path, and its bars against one rank
+MC_WANT = {"dryrun train": ("resnetfc_fwd_dense", "resnetfc_bwd_data", "resnetfc_bwd_weights"),
+           "dryrun resume": ("resnetfc_fwd_dense", "resnetfc_bwd_data", "resnetfc_bwd_weights"),
+           "dryrun eval": ("resnetfc_fwd_gather",),
+           "train_0": ("resnetfc_fwd_dense", "resnetfc_bwd_data", "resnetfc_bwd_weights"),
+           "train_1": ("resnetfc_fwd_dense", "resnetfc_bwd_data", "resnetfc_bwd_weights"),
+           "eval": ("resnetfc_fwd_gather",),
+           "gen_video": ("resnetfc_fwd_gather_code",)}
+# the train CLI's step parity, two ranks against one: step 1 (no update yet:
+# the sharding alone) at the dry run's step-1 bars, every later step's loss
+# at the JAX dry run's step-2 bar; later steps' grad_norm is printed, since
+# Adam's first updates, lr * sign(g), carry the ranks' bf16 rounding (at
+# --lr 1e-4, the recipe's, and at 1e-6, where they move the weights 100x
+# less)
+MC_LRS, MC_STEP1_BARS, MC_LOSS_REL = (1e-4, 1e-6), (1e-4, 1e-3), 1e-3
+# the share of a test view's points the gen_video field keeps occupied
+MC_KEEP = 1 / 32
+# the phase's conf, device and rank ids (two ranks sharing card 0)
+MC_CONF, MC_DEVICE, MC_IDS = "conf/exp/sn64.conf", "cuda", (0, 0)
+
+
+def shaped_checkpoint(trainer, nmr_root: str, ck: str) -> float:
+    """The trainer's weights with each head's density shifted
+    (``shape_density``) so that ``MC_KEEP`` of the points along the NMR test
+    object's view 1 rays are occupied, saved as the ``mcv`` checkpoint
+    under ``ck``: a field with empty space, so gen_video's grid is kept and
+    its gate runs.  Returns ``MC_KEEP``."""
+    import types
+
+    import numpy as np
+
+    from pixelnerf_tpu_torch.data import get_split_dataset
+    from pixelnerf_tpu_torch.models import make_model
+    from pixelnerf_tpu_torch.train import checkpoints
+    from pixelnerf_tpu_torch.utils.geometry import gen_rays_np
+
+    dev = next(trainer.net.parameters()).device
+    shaped = make_model(trainer.conf["model"], mlp_impl="torch", device=dev)
+    shaped.load_state_dict(trainer.net.state_dict())
+    ds = get_split_dataset("dvr", nmr_root, want_split="test", training=False)
+    d = ds[0]
+    H, W = d["images"].shape[1:3]
+    focal = np.asarray(d["focal"], np.float32)
+    with torch.no_grad():
+        scene = shaped.encode(torch.as_tensor(d["images"][None, :1], device=dev),
+                              torch.as_tensor(d["poses"][None, :1], device=dev),
+                              torch.as_tensor(focal, device=dev))
+        rays = torch.from_numpy(gen_rays_np(d["poses"][1:2], W, H, focal, ds.z_near,
+                                            ds.z_far).reshape(-1, 8)).to(dev)
+        shape_density(shaped, scene, rays, MC_KEEP)
+    checkpoints.save_weights(types.SimpleNamespace(checkpoints_path=ck, name="mcv"), shaped)
+    return MC_KEEP
+
+
+def multichip_phase(smi, records, code_records, nmr_root) -> None:
+    """Phase 20: several ranks on the card (see the module docstring)."""
+    import numpy as np
+
+    from pixelnerf_tpu_torch import entry
+    from pixelnerf_tpu_torch.eval import eval as eval_cli
+    from pixelnerf_tpu_torch.eval import gen_video
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
+    from pixelnerf_tpu_torch.parallel import dryrun, launch
+    from pixelnerf_tpu_torch.tools import check_config, memory_smoke, training_smoke
+    from pixelnerf_tpu_torch.train import main as train_main
+    from pixelnerf_tpu_torch.utils.png import read_png
+
+    t_phase = time.perf_counter()
+    torch.cuda.empty_cache()  # the ranks' contexts share the card with this process
+    by_path = {}  # kernel -> {path: launches summed over the ranks}
+
+    def record(name: str):
+        return records[name] if name in records else code_records.get(name)
+
+    def take(path: str, res: dict) -> None:
+        """Every rank launched each kernel of ``path``; every call a rank
+        kept met the bar when replayed."""
+        ranks = res["rank_launches"]
+        missing = [k for k in MC_WANT[path] if not all(r.get(k, 0) for r in ranks)]
+        bad = [row for rows in res["rank_replay"] for row in rows if not row["ok"]]
+        n_rows = sum(len(rows) for rows in res["rank_replay"])
+        for k in set().union(*ranks):
+            by_path.setdefault(k, {})[path] = sum(r.get(k, 0) for r in ranks)
+        worst = max((row["max_abs_err"] / row["bar"] for rows in res["rank_replay"]
+                     for row in rows), default=0.0)
+        log(f"multichip {path}: {len(ranks)} ranks, launches per rank {json.dumps(ranks)}; "
+            f"{n_rows} kernel calls replayed in the ranks (worst max|d| / bar {worst:.4g}), "
+            f"wall s per rank {[round(w, 3) for w in res['rank_wall_s']]}, peak MB per rank "
+            f"{[round(m, 1) for m in res['rank_peak_mb']]}")
+        if missing or bad or not n_rows:
+            raise SystemExit(f"multichip {path}: kernels not launched in every rank {missing}, "
+                             f"replays off the bar {bad}, {n_rows} replayed")
+        for row in (row for rows in res["rank_replay"] for row in rows):
+            rec = record(row["kernel"])
+            if rec is not None:
+                rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), row["max_abs_err"])
+
+    # ---- the dry run: 4 ranks on card 0, data 2 x rays 2 ----
+    t0 = time.perf_counter()
+    mc = entry.dryrun_multichip(4, MC_DEVICE, replay=True)
+    log(f"multichip dryrun: 4 ranks sharing card 0 over gloo, mesh data {mc['mesh'][0]} x rays "
+        f"{mc['mesh'][1]}, sn64 full width on the kernel route; train rel delta loss "
+        f"{mc['train'][0]:.3g} grad_norm {mc['train'][1]:.3g}, resume (step 2) rel delta loss "
+        f"{mc['resume'][0]:.3g} grad_norm {mc['resume'][1]:.3g}, bit for bit the unbroken "
+        f"sharded run {mc['exact']}, one process twice bit for bit {mc['repeat']}; eval max|d| "
+        f"rgb {mc['eval'][0]:.3g} depth {mc['eval'][1]:.3g}; {time.perf_counter() - t0:.1f} s "
+        f"wall | {smi}")
+    log("multichip dryrun: each step's gradient norm by module, sharded "
+        + json.dumps(mc["sharded"]["train"]["module_grad_norms"]) + ", one process "
+        + json.dumps(mc["single"]["single"]["module_grad_norms"]) + ", again "
+        + json.dumps(mc["single"]["single_again"]["module_grad_norms"]))
+    for path, leg in (("dryrun train", "train"), ("dryrun resume", "resume"),
+                      ("dryrun eval", "eval")):
+        take(path, mc["sharded"][leg])
+
+    # ---- the CLIs on two ranks sharing card 0, each against one rank ----
+    restore = _env({"PIXELNERF_ALLOW_RANDOM_BACKBONE": "1"})  # no backbone weights here
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            cpath = os.path.join(tmp, "mc.conf")
+            with open(cpath, "w") as fh:  # sn64, a line every step, rank 0's vis after epoch 2
+                fh.write(f'include required("{os.path.abspath(MC_CONF)}")\n'
+                         "train { print_interval = 1\n vis_interval = 2 }\n")
+            paths = ["-c", cpath, "-F", "dvr", "-D", nmr_root,
+                     "--checkpoints_path", os.path.join(tmp, "ck"),
+                     "--logs_path", os.path.join(tmp, "logs")]
+            ids2 = " ".join(map(str, MC_IDS))
+
+            def train_argv(name, ids, lr):
+                return ["-n", name, "--gpu_id", ids, "-B", "4", "-V", "1", "-R", "128",
+                        "--epochs", "3", "--lr", str(lr),
+                        "--visual_path", os.path.join(tmp, "vis")] + paths
+
+            def eval_argv(out, ids):
+                return ["-n", "mc1", "--gpu_id", ids, "--split", "test", "-P", "0",
+                        "--max_objs", "1", "-O", os.path.join(tmp, out)] + paths
+
+            def video_argv(out, ids):
+                return ["-n", "mcv", "--gpu_id", ids, "--split", "test", "-S", "0", "-P", "0",
+                        "--num_views", "4", "--visual_path", os.path.join(tmp, out)] + paths
+
+            one = {}
+            for k, lr in enumerate(MC_LRS):
+                t0 = time.perf_counter()
+                one[k] = train_main(train_argv("mc1" if k == 0 else f"mc1_{k}", "0", lr))
+                one[f"{k}_s"] = time.perf_counter() - t0
+            n_floats = sum(p.numel() for p in one[0].net.parameters())
+            vis_keep = shaped_checkpoint(one[0], nmr_root, os.path.join(tmp, "ck"))
+            t0 = time.perf_counter()
+            two = launch.spawn(dryrun.run_legs, MC_IDS, MC_DEVICE, dict(
+                device=MC_DEVICE, workdir=tmp, replay=True, legs=[
+                    dict(kind="collectives", name="collectives", floats=n_floats)] + [
+                    dict(kind="cli", name=f"train_{k}", cli="train.cli",
+                         argv=train_argv(f"mc2_{k}", ids2, lr))
+                    for k, lr in enumerate(MC_LRS)] + [
+                    dict(kind="cli", name="eval", cli="eval.eval", argv=eval_argv("ev2", ids2)),
+                    dict(kind="cli", name="gen_video", cli="eval.gen_video",
+                         argv=video_argv("gv2", ids2), env={"PIXELNERF_DEFER_CODE": "1"})]))
+            two_s = time.perf_counter() - t0
+            rf.reset_launches()
+            ev1 = eval_cli.main(eval_argv("ev1", "0"))
+            defer = _env({"PIXELNERF_DEFER_CODE": "1"})
+            try:
+                gv1 = gen_video.main(video_argv("gv1", "0"))
+            finally:
+                defer()
+            one_render_launches = {k: v for k, v in rf.LAUNCHES.items() if v}
+            pngs = sorted(os.path.relpath(p, os.path.join(tmp, "ev1")) for p in glob.glob(
+                os.path.join(tmp, "ev1", "**", "*.png"), recursive=True))
+            png_diff = max(int(np.abs(read_png(os.path.join(tmp, "ev1", p)).astype(np.int16)
+                                      - read_png(os.path.join(tmp, "ev2", p))).max())
+                           for p in pngs)
+    finally:
+        restore()
+    coll = {k: v for k, v in two["collectives"].items() if not k.startswith("rank_")}
+    log(f"multichip gloo: {json.dumps(coll)} (True: gloo takes a CUDA tensor as it is; the "
+        f"launch module stages every gloo collective of a CUDA tensor through host memory; "
+        f"gradient_mean_ms: {n_floats} floats, sn64's parameters | {smi})")
+
+    def steps_of(tr1, t2):
+        steps = list(zip(tr1.history, tr1.grad_norms, t2["losses"], t2["grad_norms"]))
+        rel = [(abs(l2 - l1) / abs(l1), abs(g2 - g1) / abs(g1)) for l1, g1, l2, g2 in steps]
+        return steps, rel
+
+    for k, lr in enumerate(MC_LRS):
+        tr1, t2 = one[k], two[f"train_{k}"]
+        steps, rel = steps_of(tr1, t2)
+        ms1 = 1e3 * float(np.median(tr1.step_seconds[1:]))
+        ms2 = 1e3 * float(np.median(t2["step_s"][1:]))
+        log(f"multichip train CLI, --lr {lr:g}: sn64 -F dvr -B 4 -V 1 -R 128, 3 steps, data 2 x "
+            f"rays 1 on two ranks sharing card 0 against one rank: (loss, grad_norm) one rank "
+            f"{[(round(a, 6), round(b, 5)) for a, b, _, _ in steps]}, two ranks "
+            f"{[(round(c, 6), round(d, 5)) for _, _, c, d in steps]}, rel delta "
+            f"{[(float(f'{a:.3g}'), float(f'{b:.3g}')) for a, b in rel]} (bars: step 1 "
+            f"{MC_STEP1_BARS}, later losses {MC_LOSS_REL}, later grad_norm printed); ms a step "
+            f"(median of steps 2-3) one rank {ms1:.2f}, two ranks {ms2:.2f} ({ms2 / ms1:.2f}x: "
+            f"two contexts taking turns on one card and every collective through host memory, "
+            f"not a speed-up) | {smi}")
+        if (len(steps) != 3 or rel[0][0] > MC_STEP1_BARS[0] or rel[0][1] > MC_STEP1_BARS[1]
+                or any(a > MC_LOSS_REL for a, _ in rel)):
+            raise SystemExit("multichip train CLI: two ranks part from one rank")
+        take(f"train_{k}", t2)
+
+    e1, e2 = ev1["objects"], two["eval"]["result"]["objects"]
+    d_psnr = max(abs(a[1] - b[1]) for a, b in zip(e1, e2))
+    d_ssim = max(abs(a[2] - b[2]) for a, b in zip(e1, e2))
+    log(f"multichip eval CLI: -P 0 on the NMR test object, two ranks against one: objects "
+        f"{[(n, round(p, 4), round(q, 5)) for n, p, q in e2]}, max |d PSNR| {d_psnr:.3g} dB, "
+        f"|d SSIM| {d_ssim:.3g}, {len(pngs)} PNGs within {png_diff} u8 level(s)")
+    if len(e1) != len(e2) or not e1 or d_psnr > 1e-3 or d_ssim > 1e-4 or png_diff > 1:
+        raise SystemExit("multichip eval CLI: two ranks part from one rank")
+    take("eval", two["eval"])
+
+    f1, f2 = gv1["frames"], two["gen_video"]["result"]["frames"]
+    f_diff = int(np.abs(f1.astype(np.int16) - f2).max())
+    a1, a2 = gv1["accel"], two["gen_video"]["result"]["accel"]
+    log(f"multichip gen_video: 4 frames of the field with {vis_keep:g} of a test view's points "
+        f"occupied, the occupancy accel (one rank: {a1}; two ranks: {a2}), "
+        f"PIXELNERF_DEFER_CODE=1, frames within {f_diff} u8 level(s); one rank's render "
+        f"launches {one_render_launches}")
+    if f1.shape != f2.shape or f_diff > 1 or a1 != a2 or a1 is None:
+        raise SystemExit("multichip gen_video: two ranks part from one rank")
+    take("gen_video", two["gen_video"])
+    peak = {leg: [round(m, 1) for m in two[leg]["rank_peak_mb"]]
+            for leg in ("train_0", "eval", "gen_video")}
+    log(f"multichip CLIs: one launch of 2 ranks (the collectives, 2 train runs, eval, "
+        f"gen_video) {two_s:.1f} s wall; one rank's first train run {one['0_s']:.1f} s; peak MB "
+        f"per rank {json.dumps(peak)}")
+
+    # ---- the root smoke tools' twins ----
+    t0 = time.perf_counter()
+    rcs = (training_smoke.main(["-c", MC_CONF, "--steps", "3", "--device", MC_DEVICE]),
+           memory_smoke.main(["-F", "dvr", "-D", nmr_root, "--iters", "8"]),
+           check_config.main([MC_CONF]))
+    log(f"multichip tools: training_smoke, memory_smoke, check_config exit codes {rcs}, "
+        f"{time.perf_counter() - t0:.1f} s")
+    if any(rcs):
+        raise SystemExit(f"a root smoke tool's twin failed: {rcs}")
+
+    for name, paths in by_path.items():
+        rec = record(name)
+        if rec is not None:
+            rec["multichip_launches"] = paths
+    log(f"multichip: launches by path, summed over the ranks {json.dumps(by_path)}; phase "
+        f"{time.perf_counter() - t_phase:.1f} s")
+
+
 def main() -> None:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card", file=sys.stderr)
@@ -4157,6 +4433,9 @@ def main() -> None:
 
         # ---- the train CLI's visuals and the utilities (reads both fixtures) ----
         visuals_phase(dev, smi, records, code_records, nmr_root, dtu_root)
+
+        # ---- several ranks on the card (reads the NMR fixture) ----
+        multichip_phase(smi, records, code_records, nmr_root)
     finally:
         data_dir.cleanup()
 

@@ -2,8 +2,13 @@
 (the reference CLI surface), the ``expconf.conf`` lookup of conf and data
 directory by experiment name, and ``--device``.
 
-``--gpu_id`` with one id picks ``cuda:<id>``; more than one id asks for a
-multi-device run, which is not ported yet (ROADMAP.md, slice 7) and raises.
+``--gpu_id`` with one id picks ``cuda:<id>``; several ids ask for one rank
+each (``parallel.launch``), rank ``k`` on ``cuda:<ids[k]>``; an id given
+twice puts two ranks on one card.  An id past the card count is dropped with
+a warning, as the JAX CLI drops devices it does not have.  With ``--device
+cpu`` the ids only count the ranks.  ``args.spawn_ranks`` is set when the
+caller should start the ranks (several ids, and this process in no group
+yet and not started by ``torchrun``).
 """
 
 from __future__ import annotations
@@ -11,6 +16,9 @@ from __future__ import annotations
 import argparse
 import os
 
+import torch
+
+from ..parallel import launch
 from . import hocon
 
 PROJECT_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
@@ -87,13 +95,21 @@ def parse_args(
         args.dataset_format = conf.get_string("data.format", default_data_format)
 
     args.gpu_id = list(map(int, args.gpu_id.split()))
-    if len(args.gpu_id) > 1:
-        raise NotImplementedError(
-            f"--gpu_id {' '.join(map(str, args.gpu_id))}: multi-device runs are not ported yet "
-            "(ROADMAP.md, slice 7)"
-        )
+    on_cards = args.device is None or torch.device(args.device).type == "cuda"
+    n_req = len(args.gpu_id)
+    if on_cards and n_req > 1:
+        kept = [i for i in args.gpu_id if i < torch.cuda.device_count()] or args.gpu_id[:1]
+        if len(kept) < n_req:
+            print(f"WARNING: --gpu_id requests {n_req} devices, only {len(kept)} available; "
+                  f"using {len(kept)}")
+            args.gpu_id = kept
+    in_group = len(args.gpu_id) > 1 and launch.join_torchrun(args.gpu_id,
+                                                              "cuda" if on_cards else "cpu")
+    args.spawn_ranks = len(args.gpu_id) > 1 and not in_group
     if args.device is None:
-        args.device = f"cuda:{args.gpu_id[0]}"
+        args.device = f"cuda:{args.gpu_id[launch.rank()]}"
+    if args.spawn_ranks:
+        return args, conf
 
     print("EXPERIMENT NAME:", args.name)
     if training:

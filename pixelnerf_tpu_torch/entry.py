@@ -10,12 +10,15 @@ renderer (64 coarse, 16 importance + 16 depth samples), and
 :meth:`RenderPipeline.render_simple`.
 
 Run it with ``python -m pixelnerf_tpu_torch.entry``.  It runs on ``cuda``
-unless ``--device cpu`` is given.
+unless ``--device cpu`` is given.  ``python -m pixelnerf_tpu_torch.entry
+multichip [N]`` runs :func:`dryrun_multichip` over N ranks (default 4) on
+card 0 (or on the CPU with ``--device cpu``).
 """
 
 from __future__ import annotations
 
 import argparse
+import os
 import time
 from pathlib import Path
 from typing import Mapping, Optional, Sequence
@@ -125,7 +128,120 @@ def entry(n_frames: int = 3, device=None, mlp_impl: str = "auto", seed: int = 0,
             "depth": depth.reshape(n_frames, H, W)}
 
 
+def dryrun_multichip(n_devices: int = 4, device: str = "cuda", workdir: Optional[str] = None,
+                     replay: bool = False) -> dict:
+    """The JAX package's multichip dry run over ``n_devices`` ranks
+    (``parallel.launch``; on the card they share card 0 over gloo), each leg
+    held against one unsharded process with the same weights and draws,
+    torch's deterministic algorithms on in both:
+
+    * train: two steps over a ("data", "rays") mesh of data n/2 x rays 2 on
+      sn64 at full width (16 px views, the dry run's 6 + 4 + 2 samples,
+      AMP on the card), ``lambda_alpha_mask`` 0.1 so that ``mask_gt`` is
+      sharded, and the lin_out density bias raised by 1 (else the first
+      step can leave sigma dead and the second step's gradient zero); step
+      1 at the JAX dry run's bars (loss 1e-4 and grad_norm 1e-3 relative);
+    * resume: a sharded step, save, restore into a new Trainer on every
+      rank, step 2: bit for bit the sharded run that did not stop (steps
+      and weights), and its step 2 against two unsharded steps at the JAX
+      bars (loss 1e-3 relative; grad_norm 1e-3 + 1% of it, held where the
+      step is f32 throughout: on the card Adam's first step, lr * sign(g),
+      carries the bf16 rounding of each rank's weight gradients, so it is
+      printed there);
+    * eval: ``render_simple`` of 64 n rays over a 1-D mesh of n, against
+      one process (rgb 1e-5, depth 1e-4).
+
+    Prints the JAX wording's ``dryrun_multichip ... OK`` lines and raises
+    when a leg misses.  ``workdir``: where the checkpoints go (a temporary
+    directory by default); ``replay``: keep and replay every rank's kernel
+    calls (:mod:`.ops.replay`).  Returns the deltas and both runs'
+    results."""
+    import contextlib
+    import tempfile
+
+    from .parallel import dryrun, launch
+
+    rays_par = 2 if n_devices % 2 == 0 and n_devices > 1 else 1
+    data_par = n_devices // rays_par
+    conf = load_conf(pretrained=False)
+    for key, value in (("n_coarse", 6), ("n_fine", 4), ("n_fine_depth", 2), ("white_bkgd", True)):
+        conf.put("renderer." + key, value)
+    conf.put("loss.lambda_alpha_mask", 0.1)
+    src = source_view(image_size=16, views=(0, 1))
+    NR = 64 * n_devices
+    rays = gen_rays_np(src["poses"][0, 1:2], 16, 16, float(src["focal"]), 0.8, 1.8)
+    rays = rays.reshape(-1, 8)[:NR].astype(np.float32)
+    while rays.shape[0] < NR:  # more than 4 ranks: the view's rays again
+        rays = np.concatenate([rays, rays])[:NR]
+    SB, R = data_par, 16 * rays_par
+    train = dict(kind="train", objs=list(range(SB)), R=R, seed=0, steps=2, state=True)
+    render = dict(kind="render", name="eval", images=src["images"][:, :1],
+                  poses=src["poses"][:, :1], focal=src["focal"], rays=rays, R=NR,
+                  device_chunk=NR, seed=7)
+    if workdir is not None:
+        os.makedirs(workdir, exist_ok=True)
+    with (tempfile.TemporaryDirectory() if workdir is None
+          else contextlib.nullcontext(workdir)) as wd:
+        spec = dict(conf=conf, impl="auto", device=device, init={"seed": 0, "sigma_bias": 1.0},
+                    dataset=dict(n_objs=8, n_views=3, image_size=16), workdir=wd,
+                    args={"use_amp": device != "cpu"}, deterministic=True)
+        ids = list(range(n_devices)) if device == "cpu" else [0] * n_devices
+        sharded = launch.spawn(dryrun.run_legs, ids, device, dict(spec, replay=replay, legs=[
+            dict(train, name="train", data=data_par),
+            dict(train, name="resume", data=data_par, resume_at=1),
+            dict(render, sharded=True)]))
+        single = dryrun.run_legs(dict(spec, legs=[
+            dict(train, name="single"), dict(train, name="single_again"), render]))
+
+    def rel(a, b):
+        return abs(a - b) / max(abs(b), 1e-12)
+
+    s1, u1 = sharded["train"]["steps"][0], single["single"]["steps"][0]
+    if "am" not in s1:
+        raise RuntimeError(f"the mask loss did not run: {sorted(s1)}")
+    dloss, dg = rel(s1["t"], u1["t"]), rel(s1["grad_norm"], u1["grad_norm"])
+    if not (np.isfinite(s1["t"]) and dloss < 1e-4 and dg < 1e-3):
+        raise RuntimeError(f"dryrun_multichip train: {s1} against {u1}")
+    print(f"dryrun_multichip train OK: mesh {{'data': {data_par}, 'rays': {rays_par}}}, "
+          f"SB={SB}, R={R}, loss={s1['t']:.6f} (single-device {u1['t']:.6f}, rel delta "
+          f"{dloss:.2e}), grad_norm={s1['grad_norm']:.5f} (single-device "
+          f"{u1['grad_norm']:.5f}, rel delta {dg:.2e})")
+
+    res, cont = sharded["resume"], sharded["train"]
+    exact = res["steps"] == cont["steps"] and all(
+        np.array_equal(res["state"][k], v) for k, v in cont["state"].items())
+    repeat = single["single"]["steps"] == single["single_again"]["steps"]
+    s2, u2 = res["steps"][1], single["single"]["steps"][1]
+    dl2, dg2 = rel(s2["t"], u2["t"]), rel(s2["grad_norm"], u2["grad_norm"])
+    f32 = device == "cpu"
+    if not (exact and dl2 < 1e-3 and u2["grad_norm"] > 1e-6
+            and (not f32 or dg2 * abs(u2["grad_norm"]) < 1e-3 + 0.01 * abs(u2["grad_norm"]))):
+        raise RuntimeError(f"dryrun_multichip resume: bit for bit the unbroken sharded run "
+                           f"{exact}; {s2} against {u2}")
+    print(f"dryrun_multichip resume OK: sharded save->restore->step2 bit for bit the unbroken "
+          f"sharded run {exact} (one process twice: {repeat}), loss={s2['t']:.6f} (unsharded "
+          f"2-step {u2['t']:.6f}, rel delta {dl2:.2e}), grad_norm={s2['grad_norm']:.5f} "
+          f"(unsharded {u2['grad_norm']:.5f}, rel delta {dg2:.2e}"
+          f"{'' if f32 else '; bf16 weight gradients through an Adam step, printed'})")
+    ev, eu = sharded["eval"], single["eval"]
+    drgb = float(np.abs(ev["rgb"] - eu["rgb"]).max())
+    ddep = float(np.abs(ev["depth"] - eu["depth"]).max())
+    if not (np.isfinite(ev["rgb"]).all() and drgb < 1e-5 and ddep < 1e-4):
+        raise RuntimeError(f"dryrun_multichip eval: rgb {drgb}, depth {ddep}")
+    print(f"dryrun_multichip eval OK: {NR} rays over 1-D mesh of {n_devices}, max |sharded - "
+          f"single| rgb {drgb:.2e}, depth {ddep:.2e}")
+    return dict(train=(dloss, dg), resume=(dl2, dg2), eval=(drgb, ddep), exact=exact,
+                repeat=repeat, sharded=sharded, single=single, mesh=(data_par, rays_par))
+
+
 def main(argv=None) -> None:
+    import sys
+
+    argv = sys.argv[1:] if argv is None else list(argv)
+    if argv[:1] == ["multichip"]:
+        n = int(argv[1]) if len(argv) > 1 and not argv[1].startswith("-") else 4
+        dryrun_multichip(n, "cpu" if "--device" in argv and "cpu" in argv else "cuda")
+        return
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--frames", type=int, default=3)
     ap.add_argument("--conf", "-c", default=str(SN64_CONF),

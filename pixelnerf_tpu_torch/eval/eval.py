@@ -33,12 +33,16 @@ a CPU device the accel is ignored, with a warning, unless
 (z_far - z_near)``, as ``<view>_depth.npy`` (what the root CLI writes when
 its OpenCV has no EXR) and as ``<view>_depth_norm.png`` in the HOT colormap.
 
-Not ported yet (it raises, ROADMAP.md): more than one ``--gpu_id``.
+Several ``--gpu_id``s render on one rank each (``parallel.launch``; a
+repeated id shares a card): every chunk of rays is split over a ray mesh of
+the ranks, every rank computes the metrics, and rank 0 alone writes the
+images and the journal.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import warnings
 
 import numpy as np
@@ -107,6 +111,8 @@ def main(argv=None) -> dict:
     from ..data.resize import resize_area
     from ..device import resolve_device
     from ..models.pixelnerf import make_model
+    from ..parallel import launch
+    from ..parallel.mesh import make_ray_mesh
     from ..parallel.pipeline import RenderPipeline
     from ..render.renderer import NeRFRenderer
     from ..train import checkpoints
@@ -114,11 +120,14 @@ def main(argv=None) -> dict:
     from ..utils.jax_convert import load_pretrained_backbone
     from ..utils.png import write_png
 
+    argv = sys.argv[1:] if argv is None else list(argv)
     args, conf = parse_args(extra_args, argv=argv)
-    args.resume = True
     if args.coarse and args.accel == "proposal":
         raise SystemExit("--accel proposal renders only the fine head; "
                          "it cannot be combined with --coarse")
+    if args.spawn_ranks:
+        return launch.spawn(main, args.gpu_id, torch.device(args.device).type, argv)
+    args.resume = True
     device = resolve_device(args.device)
     use_accel = args.accel != "off"
     if (use_accel and device.type == "cpu"
@@ -130,7 +139,9 @@ def main(argv=None) -> dict:
     dset = get_split_dataset(args.dataset_format, args.datadir, want_split=args.split,
                              training=False)
     output_dir = args.output.strip()
+    # every rank reads the journal; rank 0 alone writes
     has_output = len(output_dir) > 0
+    writes = has_output and launch.is_main()
 
     total_psnr, total_ssim, cnt = 0.0, 0.0, 0
     finished = set()
@@ -144,7 +155,9 @@ def main(argv=None) -> dict:
                 print("resume psnr", total_psnr / cnt, "ssim", total_ssim / cnt)
             else:
                 total_psnr = total_ssim = 0.0
-        finish_file = open(finish_path, "a", buffering=1)
+        launch.barrier()  # every rank has read the journal before rank 0 appends
+        if writes:
+            finish_file = open(finish_path, "a", buffering=1)
         print("Writing images to", output_dir)
     try:
         renderer = NeRFRenderer.from_conf(conf["renderer"], lindisp=dset.lindisp,
@@ -230,7 +243,9 @@ def main(argv=None) -> dict:
                 if not os.path.exists(checkpoints.checkpoint_path(args)):
                     load_pretrained_backbone(net, conf["model"])
                 checkpoints.load_weights(args, net)
-                pipeline = RenderPipeline(net, renderer)
+                n_ranks = launch.world_size()
+                pipeline = RenderPipeline(net, renderer,
+                                          mesh=make_ray_mesh(n_ranks) if n_ranks > 1 else None)
                 if use_accel:
                     pipeline.set_accel_mode(args.accel)
 
@@ -261,7 +276,7 @@ def main(argv=None) -> dict:
             all_rgb = np.clip(all_rgb.reshape(n_gen_views, H, W, 3), 0.0, 1.0)
 
             obj_out_dir = os.path.join(output_dir, obj_name)
-            if has_output:
+            if writes:
                 os.makedirs(obj_out_dir, exist_ok=True)
                 for i in range(n_gen_views):
                     view = int(novel_view_idxs[i])
@@ -282,7 +297,7 @@ def main(argv=None) -> dict:
                     curr_ssim += metrics.ssim(all_rgb[view_idx], rgb_gt_all[view_idx],
                                               data_range=1.0)
                     curr_psnr += metrics.psnr(all_rgb[view_idx], rgb_gt_all[view_idx])
-                    if args.write_compare and has_output:
+                    if args.write_compare and writes:
                         out_im = np.hstack((all_rgb[view_idx], rgb_gt_all[view_idx]))
                         write_png(os.path.join(obj_out_dir, "{:06}_compare.png".format(
                             int(novel_view_idxs[view_idx]))), (out_im * 255).astype(np.uint8))

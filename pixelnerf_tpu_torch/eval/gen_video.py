@@ -18,11 +18,16 @@ Writes ``<visual_path>/<name>/video<t|v>NNNN_vNNN...``: each frame as a PNG
 under ``..._frames/``, the source views side by side as ``..._view.png``
 (the port's PNG writer), and the ``.mp4`` (or a ``.gif`` without ffmpeg)
 only when ``imageio`` imports.
+
+Several ``--gpu_id``s render on one rank each (``parallel.launch``; a
+repeated id shares a card): every chunk of rays is split over a ray mesh of
+the ranks, and rank 0 writes the files.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import warnings
 
 import numpy as np
@@ -120,6 +125,8 @@ def main(argv=None) -> dict:
     from ..data import get_split_dataset
     from ..device import resolve_device
     from ..models.pixelnerf import make_model
+    from ..parallel import launch
+    from ..parallel.mesh import make_ray_mesh
     from ..parallel.pipeline import RenderPipeline
     from ..render.renderer import NeRFRenderer
     from ..train import checkpoints
@@ -127,7 +134,10 @@ def main(argv=None) -> dict:
     from ..utils.jax_convert import load_pretrained_backbone
     from ..utils.png import write_png
 
+    argv = sys.argv[1:] if argv is None else list(argv)
     args, conf = parse_args(extra_args, argv=argv)
+    if args.spawn_ranks:
+        return launch.spawn(main, args.gpu_id, torch.device(args.device).type, argv)
     args.resume = True
     device = resolve_device(args.device)
 
@@ -150,7 +160,7 @@ def main(argv=None) -> dict:
     source = np.array(list(map(int, args.source.split())), dtype=np.int64)
     assert not (source >= NV).any()
     if len(source) == 1 and source[0] == -1:
-        src_view = np.random.default_rng().integers(0, NV, (1,))
+        src_view = launch.broadcast_object(np.random.default_rng().integers(0, NV, (1,)))
     else:
         src_view = source
 
@@ -195,7 +205,8 @@ def main(argv=None) -> dict:
             torch.as_tensor(geometry.view_rows(focal, src_view), device=device),
             c=(torch.as_tensor(geometry.view_rows(c, src_view), device=device)
                if c is not None else None))
-    pipeline = RenderPipeline(net, renderer)
+    n_ranks = launch.world_size()
+    pipeline = RenderPipeline(net, renderer, mesh=make_ray_mesh(n_ranks) if n_ranks > 1 else None)
 
     # one grid over every frame's rays; the CPU renders dense (the build is
     # a large field-probe pass that only pays off at the card's rates)
@@ -227,14 +238,17 @@ def main(argv=None) -> dict:
     vid_name += "_v" + "_".join("{:03}".format(int(x)) for x in src_view)
     out_dir = os.path.join(args.visual_path, args.name)
     frame_dir = os.path.join(out_dir, "video" + vid_name + "_frames")
-    os.makedirs(frame_dir, exist_ok=True)
-    for i, frame in enumerate(frames_u8):
-        write_png(os.path.join(frame_dir, "{:04}.png".format(i)), frame)
     view_path = os.path.join(out_dir, "video" + vid_name + "_view.png")
-    write_png(view_path, np.hstack(list(((images[src_view] * 0.5 + 0.5) * 255).astype(np.uint8))))
-
-    vid_path = write_video(os.path.join(out_dir, "video" + vid_name), frames_u8, args.fps)
-    print("Wrote to", vid_path or frame_dir, "view:", view_path)
+    vid_path = None
+    if launch.is_main():
+        os.makedirs(frame_dir, exist_ok=True)
+        for i, frame in enumerate(frames_u8):
+            write_png(os.path.join(frame_dir, "{:04}.png".format(i)), frame)
+        write_png(view_path,
+                  np.hstack(list(((images[src_view] * 0.5 + 0.5) * 255).astype(np.uint8))))
+        vid_path = write_video(os.path.join(out_dir, "video" + vid_name), frames_u8, args.fps)
+        print("Wrote to", vid_path or frame_dir, "view:", view_path)
+    launch.barrier()
     return {"frames": frames_u8, "frame_dir": frame_dir, "view": view_path, "video": vid_path,
             "accel": accel}
 

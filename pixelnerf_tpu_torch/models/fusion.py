@@ -38,9 +38,13 @@ from .resnet import BatchNorm2d
 
 
 def dropout(x: torch.Tensor, rate: float, training: bool,
-            generator: Optional[torch.Generator]) -> torch.Tensor:
+            generator: Optional[torch.Generator], shard=None) -> torch.Tensor:
     """flax's ``nn.Dropout``: keep with probability 1 - rate and scale the
-    kept values by 1 / (1 - rate); the identity outside training."""
+    kept values by 1 / (1 - rate); the identity outside training.
+
+    :param shard: a data-parallel rank's share of the batch
+        (``parallel.mesh.DataShard``): the mask is drawn for the whole batch
+        and this rank keeps its rows, so the draws are one device's"""
     if not training or rate <= 0.0:
         return x
     if rate >= 1.0:
@@ -48,7 +52,13 @@ def dropout(x: torch.Tensor, rate: float, training: bool,
     if generator is None:
         raise ValueError("dropout in train mode draws from an explicit torch.Generator: "
                          "pass generator=")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) < 1.0 - rate
+    if shard is not None and shard.count > 1:
+        n = x.shape[0]
+        u = torch.rand((n * shard.count,) + tuple(x.shape[1:]), generator=generator,
+                       device=x.device)[shard.index * n:(shard.index + 1) * n]
+    else:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    keep = u < 1.0 - rate
     return torch.where(keep, x / (1.0 - rate), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -59,6 +69,8 @@ def _bn(c: int) -> BatchNorm2d:
 class SmartFeatureFusion(nn.Module):
     """:param layer_dims: channels of each scale, finest first
     :param num_heads: taken and unused, as in the JAX module"""
+
+    data_shard = None  # a data-parallel rank's share (``dropout``'s ``shard``)
 
     def __init__(self, layer_dims: Sequence[int], output_dim: int = 512,
                  use_attention: bool = True, dropout: float = 0.0, num_heads: int = 8,
@@ -90,7 +102,7 @@ class SmartFeatureFusion(nn.Module):
         projected = []
         for proj, feat in zip(self.projections, features):
             y = F.relu(nchw(proj[1], dense_1x1(proj[0], feat)))
-            y = dropout(y, self.dropout, self.training, generator)
+            y = dropout(y, self.dropout, self.training, generator, self.data_shard)
             if y.shape[1:3] != (th, tw):
                 y = resize_bilinear(y, th, tw)
             projected.append(y)
@@ -106,7 +118,7 @@ class SmartFeatureFusion(nn.Module):
                                dim=-1)
 
         fused = F.relu(nchw(self.fusion[1], nchw(self.fusion[0], concat)))
-        fused = dropout(fused, self.dropout, self.training, generator)
+        fused = dropout(fused, self.dropout, self.training, generator, self.data_shard)
         if self.use_cbam:
             fused = self.cbam(fused)
         return F.relu(dense_1x1(self.enhancement[0], fused)).contiguous()

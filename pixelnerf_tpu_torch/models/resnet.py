@@ -25,17 +25,42 @@ class BatchNorm2d(nn.BatchNorm2d):
     """BatchNorm as flax runs it: in train mode the batch is normalized with
     its biased variance (as torch does), and the running variance is updated
     with that same biased variance (torch's own layer takes the unbiased one).
-    Momentum 0.1 here is flax's 0.9."""
+    Momentum 0.1 here is flax's 0.9.
+
+    ``data_shard`` (set by a data-parallel train step,
+    ``parallel.mesh.set_data_shard``) splits the batch over ranks: the mean
+    and the biased variance are then the whole batch's, averaged over the
+    data group by a differentiable all-reduce, and so are the running
+    statistics.  Without one, or with one share, the layer is unchanged."""
+
+    data_shard = None
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not self.training:
             return super().forward(x)
+        shard = self.data_shard
+        if shard is not None and shard.count > 1:
+            return self._synced(x, shard)
         y = F.batch_norm(x, None, None, self.weight, self.bias, True, 0.0, self.eps)
         with torch.no_grad():
             stats_dtype = torch.promote_types(x.dtype, torch.float32)  # bf16 -> f32; f64 stays
             var, mean = torch.var_mean(x.to(stats_dtype), dim=(0, 2, 3), unbiased=False)
             self.running_mean.lerp_(mean, self.momentum)
             self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return y
+
+    def _synced(self, x: torch.Tensor, shard) -> torch.Tensor:
+        """Train mode on the data group's whole batch (equal shares)."""
+        dims = (0, 2, 3)
+        mean = shard.mean(x.mean(dim=dims))
+        xc = x - mean[None, :, None, None]
+        var = shard.mean((xc * xc).mean(dim=dims))
+        y = xc * torch.rsqrt(var + self.eps)[None, :, None, None]
+        y = y * self.weight[None, :, None, None] + self.bias[None, :, None, None]
+        with torch.no_grad():
+            self.running_mean.lerp_(mean.float(), self.momentum)
+            self.running_var.lerp_(var.float(), self.momentum)
             self.num_batches_tracked.add_(1)
         return y
 

@@ -1,10 +1,18 @@
-"""Single-device render of many rays: rays in chunks of ``device_chunk``,
-every head's rgb, depth and weights (``render``), or the fine (else coarse)
-rgb and depth in the JAX package's wire formats (``render_simple``),
-and the per-scene occupancy accel (``build_accel``: the grid, the capacity
-probe that sizes the compaction buffers and the ray chunk, and the quality
-gate that settles the pruning mode).  The JAX ``RenderPipeline`` without its
-mesh, which is not ported yet."""
+"""Render of many rays: rays in chunks of ``device_chunk``, every head's
+rgb, depth and weights (``render``), or the fine (else coarse) rgb and depth
+in the JAX package's wire formats (``render_simple``), and the per-scene
+occupancy accel (``build_accel``: the grid, the capacity probe that sizes
+the compaction buffers and the ray chunk, and the quality gate that settles
+the pruning mode).  The JAX ``RenderPipeline``.
+
+With a ray mesh of several ranks (``parallel.mesh.make_ray_mesh``) each
+chunk is rounded up to a multiple of the rank count and every rank renders
+a contiguous share of it from the whole chunk's draws
+(``render.renderer.RowSplit``); the shares are gathered on every rank, so
+each holds the one-device result and the callers run alike on all of them.
+The grid build, the capacity probe and the gate run identically on every
+rank (the same field, draws and renders); the build checks that the grids
+agree."""
 
 from __future__ import annotations
 
@@ -25,7 +33,9 @@ from ..render.accel import (
     occupancy_fraction,
     occupancy_lookup,
 )
-from ..render.renderer import ACCEL_MODES, NeRFRenderer, RayDraws, render_rays
+from ..render.renderer import ACCEL_MODES, NeRFRenderer, RayDraws, RowSplit, render_rays
+from . import launch
+from .mesh import Mesh
 
 
 def unpack_simple(pieces):
@@ -117,10 +127,20 @@ class RenderPipeline:
     # the last build's and capacity probe's numbers (replaced, never mutated)
     accel_stats: dict = {}
 
-    def __init__(self, net: PixelNeRFNet, renderer: NeRFRenderer, device_chunk: int = 8192):
-        """:param device_chunk: rays rendered per step (bounds activation memory)"""
+    def __init__(self, net: PixelNeRFNet, renderer: NeRFRenderer, mesh: Optional[Mesh] = None,
+                 device_chunk: int = 8192):
+        """:param mesh: a ray mesh: render each chunk split over its ranks
+        :param device_chunk: rays rendered per step (bounds activation memory)"""
         self.net = net
         self.renderer = renderer
+        self.mesh = mesh
+        self.split = None
+        if mesh is not None and mesh.size > 1:
+            group = mesh.group(mesh.axis_names[-1])
+            self.split = RowSplit(
+                world=mesh.size, rank=mesh.rank,
+                gather=lambda t: launch.all_gather_rows(t, group),
+                total=lambda t: launch.all_reduce_sum_(t.clone(), group))
         self.device_chunk = device_chunk
         self.use_viewdirs = net.use_viewdirs
         self.accel = None  # the per-scene grid (build_accel)
@@ -187,6 +207,8 @@ class RenderPipeline:
         sync()
         t1 = time.perf_counter()
         grid = self.accel
+        if self.split is not None:
+            launch.check_replicas([grid.occ], "the occupancy grid")
         # kept for the gate: a re-selection sees the rays the build sized for
         self._build_rays_np = rays_np
         self._build_ray_batch_size = ray_batch_size
@@ -396,6 +418,9 @@ class RenderPipeline:
         if self.accel is not None and self.accel_chunk:
             dc = max(dc, self.accel_chunk)
         chunk = max(1, min(dc, ray_batch_size, rays.shape[0]))
+        if self.split is not None:
+            n = self.split.world
+            chunk = max(-(-chunk // n) * n, n)
         field = self._field(scene)
         for i, start in enumerate(range(0, rays.shape[0], chunk)):
             part = rays[start:start + chunk]
@@ -405,7 +430,7 @@ class RenderPipeline:
             yield render_rays(field, part[None], cfg, generator,
                               draws=None if draws is None else draws(i, part.shape[0]),
                               want_weights=want_weights, use_viewdirs=self.use_viewdirs,
-                              accel=self.accel), n
+                              accel=self.accel, split=self.split), n
 
     @torch.no_grad()
     def render(self, scene: EncodedScene, rays, generator: torch.Generator,

@@ -19,7 +19,16 @@ Random draws come from a ``torch.Generator`` in the order the JAX
 (u, then jitter), depth noise, fine sigma noise.  The ray-compacted render
 draws its coarse z (the probe ladder) first, then the fine draws of the
 branch it takes, shaped by the capacity when it compacts.  Any of them can
-be passed in through :class:`RayDraws` instead.
+be passed in through :class:`RayDraws` instead, and :func:`complete_draws`
+makes them all up front, in that order.
+
+With a :class:`RowSplit` (several ranks, eval at SB 1) each rank renders a
+contiguous share of the rays from the whole pass's draws and the shares are
+gathered, so the result is the one-device render.  Every rank probes the
+whole pass against a grid, so the capacity, the fallback and the compacted
+row of each ray are decided as one device decides them; under ``"samples"``
+the live-point count that picks compaction or fallback is summed over the
+ranks.
 """
 
 from __future__ import annotations
@@ -143,6 +152,70 @@ class RayDraws:
     compacted: Optional["RayDraws"] = None
 
 
+@dataclasses.dataclass(frozen=True)
+class RowSplit:
+    """This rank's share of a render's rays: rank ``rank`` of ``world``
+    renders rows ``[rank * per, (rank + 1) * per)`` of the pass padded to
+    ``world * per`` rows.  ``gather`` joins every rank's tensor along dim 0
+    in rank order; ``total`` sums a tensor over the ranks."""
+
+    world: int
+    rank: int
+    gather: Callable[[torch.Tensor], torch.Tensor]
+    total: Callable[[torch.Tensor], torch.Tensor]
+
+
+def complete_draws(cfg: RenderConfig, SB: int, B: int, generator, given: Optional[RayDraws],
+                   training: bool = False, proposal: bool = False,
+                   z_given: bool = False) -> RayDraws:
+    """Every draw :func:`render_rays` makes for (SB, B) rays without a
+    ray-compacted pass, in its order and shapes: the fields of ``given``
+    kept, the rest drawn from ``generator``.  ``z_given``: the coarse z is
+    passed in (no coarse draw); ``proposal``: the grid-proposal render's
+    draws."""
+    d = dataclasses.replace(given) if given is not None else RayDraws()
+    N = SB * B
+
+    def draw(cur, shape, normal=False):
+        if cur is not None:
+            return cur
+        fn = torch.randn if normal else torch.rand
+        return fn(shape, generator=generator, device=generator.device)
+
+    n_draw = (cfg.accel_probe_samples or cfg.n_coarse) if proposal else cfg.n_coarse
+    noise = training and cfg.noise_std > 0.0
+    if not z_given:
+        d.coarse = draw(d.coarse, (N, n_draw))
+    if noise and not proposal:
+        d.noise_coarse = draw(d.noise_coarse, (SB, B, n_draw), normal=True)
+    if cfg.using_fine:
+        n_imp = cfg.accel_proposal_samples if proposal else cfg.n_fine - cfg.n_fine_depth
+        n_depth = (cfg.accel_depth_samples
+                   if proposal and cfg.accel_depth_samples is not None else cfg.n_fine_depth)
+        if n_imp > 0:
+            d.fine_u = draw(d.fine_u, (N, n_imp))
+            d.fine_jitter = draw(d.fine_jitter, (N, n_imp))
+        if n_depth > 0:
+            d.depth = draw(d.depth, (N, n_depth), normal=True)
+        if noise:
+            k_fine = (0 if proposal else n_draw) + max(n_imp, 0) + max(n_depth, 0)
+            d.noise_fine = draw(d.noise_fine, (SB, B, k_fine), normal=True)
+    return d
+
+
+def draw_rows(d: RayDraws, SB: int, B: int, obj: slice, ray: slice) -> RayDraws:
+    """The draws of objects ``obj`` and their rays ``ray`` of (SB, B) rays."""
+    def take(x):
+        if x is None:
+            return None
+        if x.shape[0] == SB * B and x.ndim == 2:
+            return x.reshape(SB, B, -1)[obj, ray].reshape(-1, x.shape[-1])
+        return x[obj, ray]
+
+    return RayDraws(**{f.name: take(getattr(d, f.name)) for f in dataclasses.fields(d)
+                       if f.name != "compacted"})
+
+
 def _eval_model_chunked(model_fn: ModelFn, points, viewdirs, coarse: bool, chunk: int):
     """The field at P points per object, ``chunk`` points at a time."""
     SB, P, _ = points.shape
@@ -161,20 +234,33 @@ def _round_up(x: int, m: int) -> int:
 
 
 def _eval_model_masked(model_fn: ModelFn, points, viewdirs, coarse: bool, mask: torch.Tensor,
-                       capacity: int):
+                       cap_frac: float, live_total=None):
     """The field at the points of ``mask`` (1, P) only, through a buffer of
-    ``capacity`` points (padded with the last point; its outputs dropped);
-    pruned points read rgb = sigma = 0.  More live points than the capacity
-    evaluate every point instead."""
+    ``max(round_up(cap_frac * P, 512), 512)`` points (padded with the last
+    point; its outputs dropped); pruned points read rgb = sigma = 0.  More
+    live points than the capacity evaluate every point instead.
+
+    :param live_total: ``mask -> (live points, points)`` of the whole pass
+        when this call holds one rank's share of it; the share's live
+        points are then evaluated as they are, without a buffer"""
     SB, P, _ = points.shape
     assert SB == 1, "masked compaction takes one object (the eval path)"
     idx = torch.nonzero(mask[0]).squeeze(1)  # the host read of the live count
     ACCEL_COUNTS["n_live_reads"] += 1
     n_act = idx.numel()
-    if n_act > capacity:
+    n_tot, p_tot = (n_act, P) if live_total is None else live_total(mask)
+    capacity = max(_round_up(int(cap_frac * p_tot), 512), 512)
+    if n_tot > capacity:
         ACCEL_COUNTS["fallbacks"] += 1
         return model_fn(points, viewdirs, coarse)
     ACCEL_COUNTS["compacted"] += 1
+    if live_total is not None:
+        if not n_act:
+            return points.new_zeros((1, 4, P))
+        out = model_fn(points[:, idx], None if viewdirs is None else viewdirs[:, idx], coarse)
+        full = out.new_zeros((1, out.shape[1], P))
+        full[0, :, idx] = out[0]
+        return full
     src = F.pad(idx, (0, capacity - n_act), value=P - 1)
     out = model_fn(points[:, src], None if viewdirs is None else viewdirs[:, src], coarse)
     full = out.new_zeros((1, out.shape[1], P))
@@ -185,7 +271,7 @@ def _eval_model_masked(model_fn: ModelFn, points, viewdirs, coarse: bool, mask: 
 def composite(model_fn: ModelFn, rays: torch.Tensor, z_samp: torch.Tensor, cfg: RenderConfig,
               coarse: bool, generator=None, training: bool = False, use_viewdirs: bool = True,
               noise: Optional[torch.Tensor] = None, noise_scale=None,
-              point_mask: Optional[torch.Tensor] = None):
+              point_mask: Optional[torch.Tensor] = None, live_total=None):
     """Alpha-composite rgb/sigma along rays.
 
     :param rays: (SB, B, 8); z_samp: (SB, B, K)
@@ -193,6 +279,7 @@ def composite(model_fn: ModelFn, rays: torch.Tensor, z_samp: torch.Tensor, cfg: 
     :param noise_scale: optional multiplier of the noise (a schedule's anneal)
     :param point_mask: (SB, B, K) live samples (occupancy pruning, eval at
         SB 1 only): the rest read zero weight
+    :param live_total: as :func:`_eval_model_masked`'s
     :return: (weights (SB, B, K), rgb (SB, B, 3), depth (SB, B))
     """
     SB, B, K = z_samp.shape
@@ -208,9 +295,8 @@ def composite(model_fn: ModelFn, rays: torch.Tensor, z_samp: torch.Tensor, cfg: 
 
     if point_mask is not None and SB == 1 and not training:
         cap_frac = cfg.accel_capacity if coarse else (cfg.accel_capacity_fine or cfg.accel_capacity)
-        capacity = max(_round_up(int(cap_frac * B * K), 512), 512)
         out = _eval_model_masked(model_fn, points, viewdirs, coarse,
-                                 point_mask.reshape(SB, B * K), capacity)
+                                 point_mask.reshape(SB, B * K), cap_frac, live_total)
     else:
         chunk = cfg.eval_batch_size if not training else 0
         out = _eval_model_chunked(model_fn, points, viewdirs, coarse, chunk)
@@ -249,7 +335,8 @@ def _sample_points(rays: torch.Tensor, z_samp: torch.Tensor) -> torch.Tensor:
 
 def _render_rays_ray_compacted(model_fn: ModelFn, rays: torch.Tensor, cfg: RenderConfig,
                                generator, d: RayDraws, want_weights: bool, use_viewdirs: bool,
-                               accel: OccupancyGrid, proposal: bool) -> Dict[str, dict]:
+                               accel: OccupancyGrid, proposal: bool,
+                               split: Optional[RowSplit] = None) -> Dict[str, dict]:
     """Ray-level pruning: rays whose every coarse sample lies in verified-
     empty space render to background without touching the field.
 
@@ -261,13 +348,15 @@ def _render_rays_ray_compacted(model_fn: ModelFn, rays: torch.Tensor, cfg: Rende
     shaped by the capacity (``d.compacted``).  Otherwise the whole pass
     renders dense from the same coarse z, so it equals a plain dense render
     on the same draws bit for bit.  With ``proposal`` both branches sample
-    the grid proposal and forward the probe results.
+    the grid proposal and forward the probe results.  Under ``split`` every
+    rank takes these decisions on the whole pass and the branch's render is
+    split.
     """
     _, B, _ = rays.shape
     capacity = min(max(_round_up(int(cfg.accel_capacity_rays * B), 256), 256), B)
     inner_accel = accel if proposal else None
     kw = dict(want_weights=want_weights, use_viewdirs=use_viewdirs, accel=inner_accel,
-              proposal=proposal)
+              proposal=proposal, split=split)
     if capacity >= B:
         return render_rays(model_fn, rays, cfg, generator, d, **kw)
 
@@ -312,7 +401,8 @@ def render_rays(model_fn: ModelFn, rays: torch.Tensor, cfg: RenderConfig, genera
                 noise_scale=None, accel: Optional[OccupancyGrid] = None,
                 proposal: bool = False, z_coarse: Optional[torch.Tensor] = None,
                 probe_mask: Optional[torch.Tensor] = None,
-                probe_sig: Optional[torch.Tensor] = None) -> Dict[str, dict]:
+                probe_sig: Optional[torch.Tensor] = None, split: Optional[RowSplit] = None,
+                live_total=None) -> Dict[str, dict]:
     """Full coarse + fine render of ``rays`` (SB, B, 8).  ``noise_scale``
     multiplies the training sigma noise of both passes.
 
@@ -322,6 +412,9 @@ def render_rays(model_fn: ModelFn, rays: torch.Tensor, cfg: RenderConfig, genera
         render under ``accel_mode="proposal"``)
     :param z_coarse: (SB, B, Kc) a coarse draw made already, with the probe
         results ``probe_mask`` / ``probe_sig`` at it under ``proposal``
+    :param split: render this rank's share of the rays (SB 1) and gather
+        the shares (:class:`RowSplit`)
+    :param live_total: set by the split render on each share
     :return: {"coarse": {rgb, depth[, weights]}, "fine": {...}} ("fine" only
         when cfg.using_fine)
     """
@@ -332,7 +425,11 @@ def render_rays(model_fn: ModelFn, rays: torch.Tensor, cfg: RenderConfig, genera
     if use_accel and not proposal and cfg.accel_mode in ("rays", "proposal"):
         return _render_rays_ray_compacted(
             model_fn, rays, cfg, generator, d, want_weights, use_viewdirs, accel,
-            proposal=cfg.accel_mode == "proposal" and cfg.using_fine)
+            proposal=cfg.accel_mode == "proposal" and cfg.using_fine, split=split)
+    if split is not None and split.world > 1:
+        return _render_split(model_fn, rays, cfg, generator, d, split, want_weights, training,
+                             use_viewdirs, noise_scale, accel, proposal, z_coarse, probe_mask,
+                             probe_sig)
     samples_mode = use_accel and not proposal  # accel_mode == "samples"
     flat_rays = rays.reshape(SB * B, 8)
 
@@ -379,7 +476,7 @@ def render_rays(model_fn: ModelFn, rays: torch.Tensor, cfg: RenderConfig, genera
         weights_c, rgb_c, depth_c = composite(
             model_fn, rays, z_coarse, cfg, coarse=True, generator=generator,
             training=training, use_viewdirs=use_viewdirs, noise=d.noise_coarse,
-            noise_scale=noise_scale, point_mask=mask_c,
+            noise_scale=noise_scale, point_mask=mask_c, live_total=live_total,
         )
 
     def pack(weights, rgb, depth):
@@ -426,10 +523,54 @@ def render_rays(model_fn: ModelFn, rays: torch.Tensor, cfg: RenderConfig, genera
         weights_f, rgb_f, depth_f = composite(
             model_fn, rays, z_combine, cfg, coarse=False, generator=generator,
             training=training, use_viewdirs=use_viewdirs, noise=d.noise_fine,
-            noise_scale=noise_scale, point_mask=mask_f,
+            noise_scale=noise_scale, point_mask=mask_f, live_total=live_total,
         )
         outputs["fine"] = pack(weights_f, rgb_f, depth_f)
     return outputs
+
+
+def _render_split(model_fn: ModelFn, rays: torch.Tensor, cfg: RenderConfig, generator,
+                  d: RayDraws, split: RowSplit, want_weights: bool, training: bool,
+                  use_viewdirs: bool, noise_scale, accel, proposal: bool, z_coarse, probe_mask,
+                  probe_sig) -> Dict[str, dict]:
+    """:func:`render_rays` of one object's B rays as rank ``split.rank`` of
+    ``split.world``: the pass's draws made whole (:func:`complete_draws`),
+    the rows padded with the last ray to a multiple of the ranks, this
+    rank's share rendered, and the shares gathered."""
+    SB, B, _ = rays.shape
+    assert SB == 1, "the split render takes one object (the eval path)"
+    d = complete_draws(cfg, 1, B, generator, d, training=training, proposal=proposal,
+                       z_given=z_coarse is not None)
+    per = -(-B // split.world)
+    lo = split.rank * per
+    n_valid = min(max(B - lo, 0), per)
+
+    def share(x, rows_dim):
+        """Rows [lo, lo + per) of ``x`` padded with its last row."""
+        if x is None:
+            return None
+        x = x.movedim(rows_dim, 0)
+        pad = per * split.world - x.shape[0]
+        if pad:
+            x = torch.cat([x, x[-1:].expand((pad,) + tuple(x.shape[1:]))])
+        return x[lo:lo + per].movedim(0, rows_dim)
+
+    mine = RayDraws(**{f.name: share(getattr(d, f.name), 0 if getattr(d, f.name) is None
+                                     or getattr(d, f.name).ndim == 2 else 1)
+                       for f in dataclasses.fields(d) if f.name != "compacted"})
+
+    def live_total(mask: torch.Tensor):
+        """(live points, points) of the whole pass from this share's mask
+        (1, per * K), its padded rows left out."""
+        k = mask.shape[1] // per
+        n = mask[:, :n_valid * k].sum().reshape(1).to(torch.int64)
+        return int(split.total(n)), B * k
+
+    out = render_rays(model_fn, share(rays, 1), cfg, generator, mine, want_weights, training,
+                      use_viewdirs, noise_scale, accel, proposal, share(z_coarse, 1),
+                      share(probe_mask, 1), share(probe_sig, 1), live_total=live_total)
+    return {h: {k: split.gather(v[0])[:B][None] for k, v in head.items()}
+            for h, head in out.items()}
 
 
 class NeRFRenderer:

@@ -17,15 +17,24 @@ Every ``train.vis_interval`` epochs :class:`PixelNeRFTrainer` renders one
 held-out view of the first test batch from one source view (``--fixed_test``:
 source 0, target 1) and writes the root CLI's grid, one row per head:
 ``[source | ground truth | depth | rgb | alpha]``.
+
+Several ``--gpu_id``s train on one rank each (``parallel.launch``; a
+repeated id shares a card) over the root CLI's mesh: data = gcd(ranks,
+``-B``) ranks split the object batch, rays = ranks / data split each
+object's rays, and ``-R`` is rounded up to a multiple of rays.
 """
 
 from __future__ import annotations
 
+import math
 import os
+import sys
 
 import numpy as np
 import torch
 
+from ..parallel import launch
+from ..parallel.mesh import make_train_mesh
 from ..parallel.pipeline import RenderPipeline
 from ..utils import geometry, metrics
 from .trainer import Trainer
@@ -130,6 +139,22 @@ class PixelNeRFTrainer(Trainer):
         return vis_grid(out, images, src_view, target)
 
 
+def mesh_choice(n_dev: int, batch_size: int, ray_batch_size: int, platform: str):
+    """The root CLI's training mesh over ``n_dev`` ranks: the object batch
+    over data = gcd(n_dev, ``-B``) ranks, each object's rays over the rays =
+    n_dev / data left, ``-R`` rounded up to a multiple of rays -> (data,
+    ``-R``, the lines the CLI prints)."""
+    dp = math.gcd(n_dev, batch_size)
+    rp = n_dev // dp
+    lines = []
+    if ray_batch_size % rp != 0:
+        ray_batch_size = -(-ray_batch_size // rp) * rp
+        lines.append(f"NOTE: ray_batch_size rounded up to {ray_batch_size} "
+                     f"(multiple of rays axis {rp})")
+    lines.append(f"Training mesh: data={dp} x rays={rp} over {n_dev} {platform} device(s)")
+    return dp, ray_batch_size, lines
+
+
 def main(argv=None):
     from ..config.args import parse_args
     from ..data import get_split_dataset
@@ -139,7 +164,11 @@ def main(argv=None):
     from . import checkpoints
     from ..utils.jax_convert import load_pretrained_backbone
 
+    argv = sys.argv[1:] if argv is None else list(argv)
     args, conf = parse_args(extra_args, training=True, default_ray_batch_size=128, argv=argv)
+    if args.spawn_ranks:
+        launch.spawn(_main_in_rank, args.gpu_id, torch.device(args.device).type, argv)
+        return None
     if args.debug_nans:
         torch.autograd.set_detect_anomaly(True)
         print("NaN debugging enabled (autograd anomaly detection)")
@@ -165,8 +194,26 @@ def main(argv=None):
         load_pretrained_backbone(net, conf["model"])
     checkpoints.load_weights(args, net, opt_init=True)
 
-    trainer = PixelNeRFTrainer(net, dset, val_dset, renderer, args, conf)
+    mesh = None
+    n_dev = launch.world_size()
+    if n_dev > 1:
+        dp, args.ray_batch_size, lines = mesh_choice(n_dev, args.batch_size,
+                                                     args.ray_batch_size, device.type)
+        print("\n".join(lines))
+        mesh = make_train_mesh(n_dev, data_parallel=dp)
+
+    trainer = PixelNeRFTrainer(net, dset, val_dset, renderer, args, conf, mesh=mesh)
     trainer.start()
-    checkpoints.save_weights(args, net)
+    if launch.is_main():
+        checkpoints.save_weights(args, net)
+    launch.barrier()
     return trainer
+
+
+def _main_in_rank(argv) -> None:
+    """One rank of a several-id run (``launch.spawn``'s target); its event
+    writer is closed before the process ends."""
+    trainer = main(argv)
+    if trainer.writer is not None:
+        trainer.writer.close()
 

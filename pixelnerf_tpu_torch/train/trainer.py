@@ -12,6 +12,13 @@
   ``torch.func.functional_call``; on the kernel route the field's autograd
   Function packs them for the kernels.  ``grad_norm`` is the global norm of
   the raw gradients;
+* with a ``("data", "rays")`` mesh (``Trainer(..., mesh=)``) each rank
+  steps on its slice of the batch (``parallel.mesh.shard_batch``) with its
+  rows of the whole batch's draws; its loss is the mean over its slice, the
+  gradients and the reported losses are averaged over the ranks before the
+  norm and Adam, so the replicas take the same step; train-mode BatchNorm
+  and the fusion's dropout see the whole object batch
+  (``parallel.mesh.DataShard``);
 * :class:`Optimizer`: Adam with optax's conventions -- update ``t`` (from 0)
   uses ``schedule(t)``, weight decay is added to the gradient before Adam,
   global-norm clipping only with ``check_gradients`` and ``grad_clip > 0``,
@@ -47,7 +54,16 @@ from torch.utils.checkpoint import checkpoint
 from ..data.loader import DataLoader
 from ..models.losses import get_alpha_loss, get_rgb_loss, l2_loss
 from ..models.pixelnerf import PixelNeRFNet
-from ..render.renderer import NeRFRenderer, RayDraws, RenderConfig, render_rays
+from ..parallel import launch
+from ..parallel.mesh import DataShard, Mesh, axis_slice, set_data_shard, shard_batch
+from ..render.renderer import (
+    NeRFRenderer,
+    RayDraws,
+    RenderConfig,
+    complete_draws,
+    draw_rows,
+    render_rays,
+)
 from ..utils import geometry
 from ..utils.png import write_png
 
@@ -229,23 +245,29 @@ class Optimizer:
 def make_step_fns(net: PixelNeRFNet, optimizer: Optimizer, render_cfg: Callable[[], RenderConfig],
                   lambda_coarse: float, lambda_fine: float, rgb_coarse_crit: Callable,
                   rgb_fine_crit: Callable, use_viewdirs: bool, amp: bool = True, remat: bool = True,
-                  alpha_crit=None, lambda_alpha_mask: float = 0.0):
+                  alpha_crit=None, lambda_alpha_mask: float = 0.0,
+                  reduce_mean: Optional[Callable[[List[torch.Tensor]], List[torch.Tensor]]] = None):
     """Build ``(train_step, eval_step)``.
 
     Both take ``(batch, generator, draws=None)``, a batch of device tensors
     from :func:`prepare_ray_batch`, and return a dict of scalar tensors;
     ``train_step`` also takes ``noise_scale`` and updates the parameters and
-    the encoder's running statistics.  ``render_cfg`` is read at each call (the
-    renderer's sample schedule), and so is the alpha prior's epoch gate.
-    ``remat`` recomputes the plain field in the backward
-    (``torch.utils.checkpoint``)."""
+    the encoder's running statistics.  ``draws`` may also be a function
+    ``(generator, cfg) -> RayDraws``, called after the encoder has made its
+    draws.  ``render_cfg`` is read at each call (the renderer's sample
+    schedule), and so is the alpha prior's epoch gate.  ``remat`` recomputes
+    the plain field in the backward (``torch.utils.checkpoint``).
+    ``reduce_mean`` (a data-parallel run) averages the gradients and the
+    losses over the ranks before the norm and the update."""
     params = list(net.parameters())
+    reduce_mean = reduce_mean or (lambda ts: ts)
 
-    def compute_loss(batch: dict, generator, draws: Optional[RayDraws], training: bool,
-                     noise_scale=None):
+    def compute_loss(batch: dict, generator, draws, training: bool, noise_scale=None):
         cfg = dataclasses.replace(render_cfg(), eval_batch_size=0)
         scene = net.encode(batch["src_images"], batch["src_poses"], batch["focal"],
                            c=batch.get("c"), train=training, generator=generator)
+        if callable(draws):
+            draws = draws(generator, cfg)
         if amp:
             fparams = {n: p.to(torch.bfloat16) for n, p in net.named_parameters()
                        if n.startswith(FIELD_HEADS)}
@@ -306,16 +328,20 @@ def make_step_fns(net: PixelNeRFNet, optimizer: Optimizer, render_cfg: Callable[
         # a parameter the loss does not reach (a frozen encoder) has a zero
         # gradient, as in JAX: it still counts in the norm and in Adam's state
         grads = [p.grad if p.grad is not None else torch.zeros_like(p) for p in params]
+        grads = reduce_mean(grads)
         gnorm = torch.sqrt(sum(torch.sum(g.float() ** 2) for g in grads))
         with torch.no_grad():
             optimizer.step(grads)
-        loss_dict = {k: v.detach() for k, v in loss_dict.items()}
+        loss_dict = _reduced({k: v.detach() for k, v in loss_dict.items()})
         loss_dict["grad_norm"] = gnorm
         return loss_dict
 
+    def _reduced(loss_dict: dict) -> dict:
+        return dict(zip(loss_dict, reduce_mean(list(loss_dict.values()))))
+
     def eval_step(batch: dict, generator, draws: Optional[RayDraws] = None):
         with torch.no_grad():
-            return compute_loss(batch, generator, draws, False)[1]
+            return _reduced(compute_loss(batch, generator, draws, False)[1])
 
     return train_step, eval_step
 
@@ -444,11 +470,19 @@ class CheckpointManager:
 class Trainer:
     """Epoch trainer.  ``net`` holds the initial weights on its device; the
     train and eval steps run there.  Subclass hooks: ``post_batch``,
-    ``vis_step``."""
+    ``vis_step``.
+
+    With ``mesh`` (a ``("data", "rays")`` mesh over the ranks of a process
+    group) every rank loads the same batches with the same host generator,
+    starts from rank 0's weights and steps on its slice; rank 0 alone writes
+    checkpoints, visuals and TensorBoard events, and every rank checks after
+    a resume that the replicas agree."""
 
     def __init__(self, net: PixelNeRFNet, train_dataset, test_dataset, renderer: NeRFRenderer,
-                 args, conf):
+                 args, conf, mesh: Optional[Mesh] = None):
         self.net = net
+        self.mesh = mesh
+        self.is_main = launch.is_main()
         self.renderer = renderer
         self.args = args
         self.conf = conf
@@ -541,7 +575,14 @@ class Trainer:
             net, self.optimizer, lambda: self.renderer.cfg, self.lambda_coarse, self.lambda_fine,
             crit_c, crit_f, self.use_viewdirs, amp=self.use_amp, remat=self.remat,
             alpha_crit=self.alpha_crit, lambda_alpha_mask=self.lambda_alpha_mask,
+            reduce_mean=launch.all_reduce_mean if mesh is not None else None,
         )
+        self._data_shard = None
+        if mesh is not None:
+            launch.broadcast_params(net)
+            if mesh.shape["data"] > 1:
+                self._data_shard = DataShard(group=mesh.group("data"))
+            set_data_shard(net, self._data_shard)
 
         # --- bookkeeping ---
         self.epoch = 0
@@ -553,14 +594,15 @@ class Trainer:
             keep_last=tc("keep_last", 20), milestone_interval=tc("milestone_interval", 50),
         )
         self.visual_path = os.path.join(args.visual_path, args.name)
-        os.makedirs(self.visual_path, exist_ok=True)
         self.writer = None
-        try:
-            from tensorboardX import SummaryWriter
+        if self.is_main:
+            os.makedirs(self.visual_path, exist_ok=True)
+            try:
+                from tensorboardX import SummaryWriter
 
-            self.writer = SummaryWriter(os.path.join(args.logs_path, args.name))
-        except Exception as e:
-            print(f"TensorBoard writer unavailable: {e}")
+                self.writer = SummaryWriter(os.path.join(args.logs_path, args.name))
+            except Exception as e:
+                print(f"TensorBoard writer unavailable: {e}")
         self.rng = np.random.default_rng(getattr(args, "seed", 1234))
         # the render's draws; seeded as the JAX Trainer's default key is
         self.generator = torch.Generator(device=self.device).manual_seed(7)
@@ -569,6 +611,7 @@ class Trainer:
         self.nviews: List[int] = [int(x) for x in str(getattr(args, "nviews", "1")).split()]
         self.step_seconds: List[float] = []  # host time of each train step, synchronized
         self.history: List[float] = []  # total loss of each train step
+        self.grad_norms: List[float] = []  # gradient norm of each train step
 
         if getattr(args, "resume", False):
             self.load_checkpoint()
@@ -585,9 +628,12 @@ class Trainer:
         }
 
     def save_checkpoint(self, is_best: bool = False) -> None:
-        self.ckpt_manager.save(self._payload(), self.epoch, is_best=is_best)
-        print(f"Saved checkpoint epoch {self.epoch} "
-              f"({self.ckpt_manager.disk_usage_mb():.1f} MB on disk)")
+        """Rank 0 writes; the other ranks wait for it."""
+        if self.is_main:
+            self.ckpt_manager.save(self._payload(), self.epoch, is_best=is_best)
+            print(f"Saved checkpoint epoch {self.epoch} "
+                  f"({self.ckpt_manager.disk_usage_mb():.1f} MB on disk)")
+        launch.barrier()
 
     def load_checkpoint(self) -> bool:
         payload = self.ckpt_manager.load_latest()
@@ -607,6 +653,8 @@ class Trainer:
             print(f"WARNING: checkpoint global_step {self.global_step} inconsistent with epoch "
                   f"{self.epoch} (expected ~{expected}); auto-correcting")
             self.global_step = expected
+        if self.mesh is not None:
+            launch.check_replicas(list(self.net.state_dict().values()), "the resumed weights")
         print(f"Resumed from epoch {self.epoch}, step {self.global_step}")
         return True
 
@@ -629,9 +677,29 @@ class Trainer:
             self.use_bbox = False
             print(">>> Stopped using bbox sampling @ iter", self.global_step)
 
+    def _shard(self, batch: dict, draws: Optional[RayDraws], training: bool):
+        """This rank's slice of a whole batch, and its draws as a function
+        that makes the whole batch's draws (after the encoder's) and takes
+        this rank's rows; the data shard set for the encoder."""
+        SB, B = batch["rays"].shape[:2]
+        obj, ray = axis_slice(SB, self.mesh, "data"), axis_slice(B, self.mesh, "rays")
+        if self._data_shard is not None:
+            split = obj != slice(None)
+            self._data_shard.count = self.mesh.shape["data"] if split else 1
+            self._data_shard.index = self.mesh.coords["data"] if split else 0
+        local = {k: v.contiguous() for k, v in shard_batch(self.mesh, batch).items()}
+
+        def mine(generator, cfg: RenderConfig) -> RayDraws:
+            full = complete_draws(cfg, SB, B, generator, draws, training=training)
+            return draw_rows(full, SB, B, obj, ray)
+
+        return local, mine
+
     def _device_train_step(self, batch: dict, draws: Optional[RayDraws] = None):
         span = (torch.profiler.record_function(f"train_step_{self._profiler.step_num + 1}")
                 if self._profiler is not None else contextlib.nullcontext())
+        if self.mesh is not None:
+            batch, draws = self._shard(batch, draws, training=True)
         with span:
             t0 = time.perf_counter()
             loss_dict = self._train_step(batch, self.generator, draws)
@@ -639,6 +707,7 @@ class Trainer:
                 torch.cuda.synchronize(self.device)
             self.step_seconds.append(time.perf_counter() - t0)
         self.history.append(float(loss_dict["t"]))
+        self.grad_norms.append(float(loss_dict["grad_norm"]))
         self.global_step += 1
         if self._profiler is not None:
             self._profiler.step()
@@ -679,7 +748,10 @@ class Trainer:
         batch = self._prep(data, is_train=False)
         if batch is None:
             return None
-        loss_dict = self._eval_step(self._to_device(batch), self.generator, draws)
+        batch = self._to_device(batch)
+        if self.mesh is not None:
+            batch, draws = self._shard(batch, draws, training=False)
+        loss_dict = self._eval_step(batch, self.generator, draws)
         return {k: float(v) for k, v in loss_dict.items()}
 
     def post_batch(self, epoch: int, batch_idx: int) -> None:
@@ -742,7 +814,17 @@ class Trainer:
         """The ``vis_step`` grid of the first test batch to
         ``<epoch>_vis.png`` and TensorBoard.  Unlike the JAX trainer, a vis
         that raises stops the run: a kernel that fails to launch is not
-        hidden."""
+        hidden.  Under a mesh rank 0 alone renders it, and then hands its
+        host generator's state to the other ranks, so that every rank keeps
+        drawing the same batches."""
+        if self.mesh is not None:
+            if self.is_main:
+                self._write_vis(epoch)
+            self.rng.bit_generator.state = launch.broadcast_object(self.rng.bit_generator.state)
+            return
+        self._write_vis(epoch)
+
+    def _write_vis(self, epoch: int) -> None:
         data = next(iter(self.test_loader), None)
         if data is None:
             print("vis: the test set is empty; no visuals written")
@@ -761,7 +843,7 @@ class Trainer:
     def start(self) -> None:
         """Train from ``self.epoch`` to ``num_epochs``, validating and saving
         at their intervals and after the last epoch."""
-        with self._profile() as self._profiler:
+        with (self._profile() if self.is_main else contextlib.nullcontext()) as self._profiler:
             for epoch in range(self.epoch, self.num_epochs):
                 self.epoch = epoch
                 self.train_epoch()

@@ -255,12 +255,14 @@ def test_eval_cli_on_per_view_intrinsics(tmp_path, monkeypatch):
 
 
 def test_eval_cli_refuses_what_is_not_ported(tmp_path):
+    """What the eval CLI refuses, on one rank and, before it starts them,
+    on several (a ``--gpu_id`` list runs one rank an id:
+    ``tests/test_torch_sharded_cli.py``)."""
     base = ["-F", "synthetic", "--checkpoints_path", str(tmp_path / "ck"), "--device", "cpu",
             "-c", "conf/exp/sn64.conf", "-O", str(tmp_path / "o")]
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        eval_main(base + ["--gpu_id", "0 1"])
-    with pytest.raises(SystemExit, match="fine head"):
-        eval_main(base + ["--accel", "proposal", "--coarse"])
+    for ids in ("0", "0 1"):
+        with pytest.raises(SystemExit, match="fine head"):
+            eval_main(base + ["--gpu_id", ids, "--accel", "proposal", "--coarse"])
 
 
 def _object_checkpoint(tmp_path, sigma_bias=-60.0, sigma_scale=20.0):

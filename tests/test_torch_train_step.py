@@ -294,7 +294,8 @@ def test_pixel_nerf_latest_loads_in_jax(setup, tmp_path):
 def test_train_cli_on_cpu(tmp_path):
     """``python -m pixelnerf_tpu_torch.train --device cpu`` on a tiny conf for
     one epoch writes its checkpoints; without ``--device`` it asks for the
-    card; more than one ``--gpu_id`` raises."""
+    card; two ``--gpu_id``s train on two ranks, rank 0 writing the
+    checkpoints (their parity: ``tests/test_torch_sharded_cli.py``)."""
     conf = tmp_path / "tiny.conf"
     conf.write_text(CONF)
     env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
@@ -307,8 +308,11 @@ def test_train_cli_on_cpu(tmp_path):
     for name in ("pixel_nerf_latest", "latest.ckpt", "epoch_0000.ckpt"):
         assert (tmp_path / "ck" / "cli" / name).exists(), name
     base = ["-F", "synthetic", "-c", str(conf), "--checkpoints_path", str(tmp_path / "ck2")]
-    with pytest.raises(NotImplementedError, match="slice 7"):
-        train_main(base + ["--gpu_id", "0 1", "--device", "cpu"])
+    assert train_main(base + ["--gpu_id", "0 1", "--device", "cpu", "-n", "two", "--epochs", "1",
+                              "-B", "2", "-R", "8", "--visual_path", str(tmp_path / "vis"),
+                              "--logs_path", str(tmp_path / "logs")]) is None
+    for name in ("pixel_nerf_latest", "latest.ckpt", "epoch_0000.ckpt"):
+        assert (tmp_path / "ck2" / "two" / name).exists(), name
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="no CUDA device"):
             train_main(base)
