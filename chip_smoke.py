@@ -280,10 +280,13 @@ one line each:
     "cuda")``, four ranks sharing card 0 over gloo on a data 2 x rays 2
     mesh, sn64 at full width on the kernel route, torch's deterministic
     algorithms on: step 1 against one process at the JAX dry run's bars,
-    the resumed run bit for bit the unbroken one, the eval leg at the JAX
-    bars (the step-2 and per-module gradient norms printed); then one
-    launch of two ranks on card 0 (``--gpu_id "0 0"``) that asks gloo
-    which collectives take CUDA tensors as they are, times the port's
+    the resumed run bit for bit the unbroken one, its step 2 against one
+    process resuming the same checkpoint at step 1's bars, the eval leg at
+    the JAX bars (step 2 against two unsharded steps, the per-module
+    gradient norms and the share of weights more than lr/2 apart
+    printed); then one launch of two ranks on card 0 (``--gpu_id "0 0"``)
+    that checks that gloo takes CUDA tensors as they are for each
+    collective of ``parallel.launch`` and gives the right values, times the port's
     gradient mean and one BatchNorm statistic's sum, and runs ``python -m
     pixelnerf_tpu_torch.train`` (sn64 on the NMR fixture, -B 4, -V 1, 3
     epochs of one step, ``vis_interval = 2``: rank 0's vis between steps;
@@ -362,12 +365,19 @@ def psnr(a: torch.Tensor, b: torch.Tensor) -> float:
     return float("inf") if mse == 0 else 10.0 * math.log10(1.0 / mse)
 
 
-def agree(out: torch.Tensor, ref: torch.Tensor):
-    """(max |d|, bar, corr) with the Pallas tests' bar (tests/test_pallas.py)."""
-    d = (out - ref).abs().max().item()
-    bar = 0.015 * max(1.0, ref.abs().max().item())
-    corr = torch.corrcoef(torch.stack([out.flatten(), ref.flatten()]))[0, 1].item()
-    return d, bar, corr
+def replayed(rows, what: str, records=None, code_records=None) -> None:
+    """Logs the kernel calls of ``what`` replayed against their plain
+    versions (``KernelCalls.check`` rows) and exits unless each met the bar;
+    with ``records``, keeps each kernel's largest |d|."""
+    log(f"{what}: the kernel calls against their plain versions (max|d| <= 0.015 x "
+        "max(1, max|ref|), corr > 0.999, bit for bit the path's output): " + json.dumps(
+            [dict(r, max_abs_err=float(f"{r['max_abs_err']:.6g}"), bar=float(f"{r['bar']:.6g}"),
+                  corr=round(r["corr"], 7)) for r in rows]))
+    if not rows or not all(r["ok"] for r in rows):
+        raise SystemExit(f"{what}: a kernel disagrees with its plain version")
+    for r in rows if records is not None else ():
+        rec = records[r["kernel"]] if r["kernel"] in records else code_records[r["kernel"]]
+        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), r["max_abs_err"])
 
 
 def library_tower(z, x, tw, n_blocks):
@@ -910,73 +920,6 @@ ACCEL_EPS_ALPHA = 1e-3  # the build's alpha a coarse step below which a voxel is
 ACCEL_CONF = "conf/exp/sn64.conf"
 
 
-class ForwardCalls:
-    """While installed, keeps the arguments and output of the first call of
-    each forward wrapper of ``resnetfc_fused`` at each (variant, head, point
-    count), so that the calls a path made can be replayed afterwards against
-    their plain versions (:meth:`check`).  The wrappers still run and count
-    their launches as before."""
-
-    WRAPPERS = ("resnetfc_gather", "resnetfc_gather_mv", "resnetfc_dense", "resnetfc_dense_mv")
-
-    def __init__(self, rf):
-        self.rf, self.calls, self._orig = rf, {}, {}
-
-    def __enter__(self):
-        import inspect
-
-        for name in self.WRAPPERS:
-            fn = self._orig[name] = getattr(self.rf, name)
-            setattr(self.rf, name, self._recorder(name, fn, inspect.signature(fn)))
-        return self
-
-    def __exit__(self, *exc):
-        for name, fn in self._orig.items():
-            setattr(self.rf, name, fn)
-
-    def _recorder(self, name, fn, sig):
-        def call(*args, **kwargs):
-            out = fn(*args, **kwargs)
-            a = sig.bind(*args, **kwargs)
-            a.apply_defaults()
-            a = a.arguments
-            code = isinstance(a["x"], self.rf.RawCode)
-            variant = "resnetfc_fwd_" + name[len("resnetfc_"):] + ("_code" if code else "")
-            key = (variant, a["tower"].w_in.data_ptr(), self.rf.coords(a["x"]).shape[0])
-            self.calls.setdefault(key, (fn, a, out))
-            return out
-
-        return call
-
-    def check(self):
-        """Each kept call again, and its plain version on the same inputs ->
-        [(variant, rows, max|d|, bar, corr, bit for bit the path's output, ok)]."""
-        rf, bf = self.rf, torch.bfloat16
-        rows = []
-        with torch.no_grad():
-            for (variant, _, n), (fn, a, out) in self.calls.items():
-                again = fn(**a)
-                if "gather" in variant:
-                    z = rf.gather_reference(a["idx"], a["w"],
-                                            a["table"] if "table" in a else a["tables"], bf)
-                else:
-                    z = a["z"]
-                mv = {}
-                if variant.startswith("resnetfc_fwd_gather_mv"):
-                    mv = dict(NS=a["tables"].shape[0], combine_layer=a["combine_layer"])
-                elif variant.startswith("resnetfc_fwd_dense_mv"):
-                    mv = dict(NS=a["NS"], sb=a["sb"], combine_layer=a["combine_layer"])
-                ref = rf.resnetfc_reference(z, a["x"], a["tower"], a["n_blocks"], a["planar_out"],
-                                            compute_dtype=bf, **mv)
-                torch.cuda.synchronize()
-                d, bar, corr = agree(again, ref)
-                same = torch.equal(again, out)
-                rows.append((variant, n, d, bar, corr, same, d <= bar and corr > 0.999 and same
-                             and bool(torch.isfinite(again).all())))
-                del again, ref, z
-        return rows
-
-
 def cosine_lr(peak: float, warmup: int, steps: int, end_frac: float = 0.1):
     """optax's warmup_cosine_decay_schedule(0, peak, warmup, steps, peak * end_frac)."""
     def lr(t: int) -> float:
@@ -1163,6 +1106,7 @@ def accel_phase(conf, dev, smi: str, records: dict, code_records: dict) -> None:
     from pixelnerf_tpu_torch.eval.gen_video import main as gen_video_main
     from pixelnerf_tpu_torch.models.pixelnerf import make_model
     from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.ops.replay import KernelCalls
     from pixelnerf_tpu_torch.parallel.pipeline import RenderPipeline
     from pixelnerf_tpu_torch.render import renderer as rr
     from pixelnerf_tpu_torch.render.accel import probe_lookup
@@ -1194,7 +1138,7 @@ def accel_phase(conf, dev, smi: str, records: dict, code_records: dict) -> None:
         records[name]["accel_train_launches"] = train_launches[name]
 
     # every forward kernel call of the accel paths, kept for the plain check at the end
-    with ForwardCalls(rf) as calls:
+    with KernelCalls() as calls:
         net, scene, rays, pipe = accel_ring(conf, dev, state, sample, ds)
         renderer = pipe.renderer
         NR, frame = rays.shape[0], FRAME * FRAME
@@ -1490,17 +1434,7 @@ def accel_phase(conf, dev, smi: str, records: dict, code_records: dict) -> None:
     # every rung and mode, the routes' frame 0, gen_video's and eval's
     # passes), replayed: bit for bit the path's own output, and within the
     # kernel checks' bar of the plain version on the same inputs
-    rows = calls.check()
-    log("accel phase: the paths' kernel calls against their plain versions (max|d| <= 0.015 x "
-        "max(1, max|ref|), corr > 0.999, bit for bit the path's output): " + json.dumps(
-            [dict(kernel=v, points=n, max_abs_err=float(f"{d:.6g}"), bar=float(f"{b:.6g}"),
-                  corr=round(c, 7), same=same, ok=ok) for v, n, d, b, c, same, ok in rows]))
-    if not rows or not all(r[-1] for r in rows):
-        raise SystemExit("accel phase: a kernel disagrees with its plain version at a shape of the "
-                         "accel paths")
-    for v, _, d, *_ in rows:
-        rec = records[v] if v in records else code_records[v]
-        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), d)
+    replayed(calls.check(), "accel phase", records, code_records)
     del calls
     records["resnetfc_fwd_gather"]["accel_launches"]["gen_video"] = \
         cli["0"][1]["resnetfc_fwd_gather"]
@@ -1541,6 +1475,7 @@ def multiscale_phase(conf, net, src3, rays, dev, smi, records, code_records, nmr
     from pixelnerf_tpu_torch.eval.gen_video import main as gen_video_main
     from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
     from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
+    from pixelnerf_tpu_torch.ops.replay import KernelCalls
     from pixelnerf_tpu_torch.train import cli, main as train_main
 
     t_phase = time.perf_counter()
@@ -1622,7 +1557,7 @@ def multiscale_phase(conf, net, src3, rays, dev, smi, records, code_records, nmr
               ("2 views", (0, 1), {}, "resnetfc_fwd_gather_mv"),
               ("3 views", (0, 1, 2), {}, "resnetfc_fwd_dense_mv"))
     ms_launches, turns = {}, {}  # kernel -> {path: launches}; route -> rays/s
-    calls = ForwardCalls(rf)  # the renders' and the CLIs' kernel calls, not training's
+    calls = KernelCalls()  # the renders' and the CLIs' kernel calls, not training's
     with calls:
         # ---- ring frame 0 on every route, against the plain route ----
         for label, views, env, kname in routes:
@@ -1699,7 +1634,7 @@ def multiscale_phase(conf, net, src3, rays, dev, smi, records, code_records, nmr
                 la = {k: v - vis_la.get(k, 0) for k, v in dict(rf.LAUNCHES, **rv.LAUNCHES).items()
                       if v - vis_la.get(k, 0)}
                 vis_ok = (len(vis.renders) == epochs // trainer.vis_interval
-                          and all(row[-1] for r in vis.renders for row in r["replay"]))
+                          and all(row["ok"] for r in vis.renders for row in r["replay"]))
                 log(f"multiscale train path -V {nviews}: {len(vis.renders)} vis render(s) "
                     f"(vis_interval {trainer.vis_interval}), launches {vis_la}, "
                     f"{[round(r['s'] * 1e3, 3) for r in vis.renders]} ms; replayed calls "
@@ -1778,17 +1713,7 @@ def multiscale_phase(conf, net, src3, rays, dev, smi, records, code_records, nmr
         restore()
 
     # ---- every forward kernel call of the renders and CLIs above, replayed ----
-    rows = calls.check()
-    log("multiscale: the paths' kernel calls against their plain versions (max|d| <= 0.015 x "
-        "max(1, max|ref|), corr > 0.999, bit for bit the path's output): " + json.dumps(
-            [dict(kernel=v, points=n, max_abs_err=float(f"{d:.6g}"), bar=float(f"{b:.6g}"),
-                  corr=round(c, 7), same=same, ok=ok) for v, n, d, b, c, same, ok in rows]))
-    if not rows or not all(r[-1] for r in rows):
-        raise SystemExit("multiscale: a kernel disagrees with its plain version at a shape of "
-                         "the multi-scale paths")
-    for v, _, d, *_ in rows:
-        rec = records[v] if v in records else code_records[v]
-        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), d)
+    replayed(calls.check(), "multiscale", records, code_records)
     del calls
     for name, by_path in ms_launches.items():
         (records[name] if name in records else code_records[name])["multiscale_launches"] = by_path
@@ -1848,13 +1773,14 @@ def eval_cli_phase(net, dev, smi: str, records: dict, code_records: dict, nmr_ro
     from pixelnerf_tpu_torch.eval.lpips import lpips_fn, seeded_state
     from pixelnerf_tpu_torch.models.pixelnerf import make_model
     from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.ops.replay import KernelCalls
     from pixelnerf_tpu_torch.train import checkpoints
     from pixelnerf_tpu_torch.utils.metrics import cmap
     from pixelnerf_tpu_torch.utils.png import read_png, write_png
 
     t_phase = time.perf_counter()
     by_kernel = {}  # kernel variant -> {run: launches}
-    replay = []  # (run, variant, points, max|d|, bar, corr, bit for bit, ok)
+    replay = []  # KernelCalls.check rows, each with its run
     restore = _env({"PIXELNERF_ALLOW_RANDOM_BACKBONE": "1"})  # no backbone weights here
     tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_eval_")
     try:
@@ -1868,7 +1794,7 @@ def eval_cli_phase(net, dev, smi: str, records: dict, code_records: dict, nmr_ro
             each point count it made, replayed (one run's calls held at a
             time: the dense routes' latents take GBs)."""
             env = _env({"PIXELNERF_DEFER_CODE": "1"} if defer else {})
-            calls = ForwardCalls(rf)
+            calls = KernelCalls()
             try:
                 torch.cuda.synchronize()
                 torch.cuda.reset_peak_memory_stats()
@@ -1887,7 +1813,7 @@ def eval_cli_phase(net, dev, smi: str, records: dict, code_records: dict, nmr_ro
             if not (la.get(want, 0) > 0 and set(la) <= {want}):
                 raise SystemExit(f"eval CLIs: {label} did not run through {want} alone: {la}")
             by_kernel.setdefault(want, {})[label] = la[want]
-            replay.extend((label,) + row for row in calls.check())
+            replay.extend(dict(row, run=label) for row in calls.check())
             return res, dt
 
         # ---- eval_approx on the NMR fixture: one random target view an object ----
@@ -2039,16 +1965,7 @@ def eval_cli_phase(net, dev, smi: str, records: dict, code_records: dict, nmr_ro
         tmp.cleanup()
 
     # ---- every forward kernel call of those CLIs, replayed run by run ----
-    log("eval CLIs: the CLIs' kernel calls against their plain versions (max|d| <= 0.015 x "
-        "max(1, max|ref|), corr > 0.999, bit for bit the path's output): " + json.dumps(
-            [dict(run=r, kernel=v, points=n, max_abs_err=float(f"{d:.6g}"), bar=float(f"{b:.6g}"),
-                  corr=round(c, 7), same=same, ok=ok) for r, v, n, d, b, c, same, ok in replay]))
-    if not replay or not all(r[-1] for r in replay):
-        raise SystemExit("eval CLIs: a kernel disagrees with its plain version at a shape of the "
-                         "eval CLIs")
-    for _, v, _, d, *_ in replay:
-        rec = records[v] if v in records else code_records[v]
-        rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), d)
+    replayed(replay, "eval CLIs", records, code_records)
     for name, by_run in by_kernel.items():
         (records[name] if name in records else code_records[name])["eval_cli_launches"] = by_run
     log(f"eval CLIs: phase done in {time.perf_counter() - t_phase:.1f} s")
@@ -2161,6 +2078,7 @@ def backward_gate(tw, x, z, g, NS: int, sb: int, n_sms: int, records: dict, labe
     failure and keeps each kernel's largest max|d| in ``records``."""
     from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
     from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
+    from pixelnerf_tpu_torch.ops.replay import agree
 
     nb, cl = 5, 3
     H, C = tw.w_in.shape[1], tw.w_z.shape[1]
@@ -2366,6 +2284,7 @@ def options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_ro
     from pixelnerf_tpu_torch import entry
     from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
     from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
+    from pixelnerf_tpu_torch.ops.replay import KernelCalls, agree
     from pixelnerf_tpu_torch.train import main as train_main
 
     t_phase = time.perf_counter()
@@ -2424,7 +2343,7 @@ def options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_ro
                ("mlp", src, (0,), {}, None),
                ("narrow", src, (0,), dense, "resnetfc_fwd_dense")]
     opt_launches = {}
-    calls = ForwardCalls(rf)
+    calls = KernelCalls()
     with calls:
         for what, s, views, env, kname in renders:
             c = confs[what]
@@ -2446,13 +2365,7 @@ def options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_ro
             if not ok:
                 raise SystemExit(f"options render {label} failed, missed {kname} or disagrees "
                                  "with the plain route")
-    rows = calls.check()
-    log("options: the renders' kernel calls against their plain versions (max|d| <= 0.015 x "
-        "max(1, max|ref|), corr > 0.999, bit for bit the render's output): " + json.dumps(
-            [dict(kernel=v, points=n, max_abs_err=float(f"{d:.6g}"), bar=float(f"{b:.6g}"),
-                  corr=round(cr, 7), same=same, ok=ok) for v, n, d, b, cr, same, ok in rows]))
-    if not rows or not all(r[-1] for r in rows):
-        raise SystemExit("options: a kernel disagrees with its plain version")
+    replayed(calls.check(), "options")
     del calls
 
     # a tower of a width no library is built for, under cuda: the route
@@ -2628,6 +2541,7 @@ def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nm
     from pixelnerf_tpu_torch.eval.eval import main as eval_main
     from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
     from pixelnerf_tpu_torch.ops.grid_sample import bilinear_taps
+    from pixelnerf_tpu_torch.ops.replay import KernelCalls, agree
     from pixelnerf_tpu_torch.train import checkpoints
 
     t_phase = time.perf_counter()
@@ -2662,7 +2576,7 @@ def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nm
 
     # ---- frame 0 on every route at each width, against the plain route ----
     confs, models, narrow_launches = {}, {}, {}
-    calls = ForwardCalls(rf)
+    calls = KernelCalls()
     with calls:
         for H in NARROW_H:
             c = confs[H] = narrow_conf(conf, H)
@@ -2689,13 +2603,7 @@ def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nm
                 if not ok:
                     raise SystemExit(f"narrow render at d_hidden {H}, {label} missed {kname} or "
                                      "disagrees with the plain route")
-    rows = calls.check()
-    log("narrow: the renders' kernel calls against their plain versions (max|d| <= 0.015 x "
-        "max(1, max|ref|), corr > 0.999, bit for bit the render's output): " + json.dumps(
-            [dict(kernel=v, points=n, max_abs_err=float(f"{d:.6g}"), bar=float(f"{b:.6g}"),
-                  corr=round(cr, 7), same=same, ok=ok) for v, n, d, b, cr, same, ok in rows]))
-    if not rows or not all(r[-1] for r in rows):
-        raise SystemExit("narrow: a kernel disagrees with its plain version")
+    replayed(calls.check(), "narrow")
     del calls
 
     # ---- frame 0 rays/s beside d_hidden 512, in turns (512, H, H, 512) ----
@@ -3089,7 +2997,7 @@ class VisRecorder:
     """While installed, wraps the train CLI's ``vis_render`` and
     ``PixelNeRFTrainer.vis_step``: each vis render is timed (synchronized),
     its forward-kernel launches counted, its kernel calls replayed against
-    their plain versions right after it (:class:`ForwardCalls`, before the
+    their plain versions right after it (``KernelCalls``, before the
     next train step moves the weights), its arguments and output kept; each
     vis step's grid and PSNR are kept."""
 
@@ -3097,13 +3005,15 @@ class VisRecorder:
         self.cli, self.rf, self.renders, self.steps = cli, rf, [], []
 
     def __enter__(self):
+        from pixelnerf_tpu_torch.ops.replay import KernelCalls
+
         cli, rf = self.cli, self.rf
         self._render, self._step = cli.vis_render, cli.PixelNeRFTrainer.vis_step
 
         def render(*args, **kwargs):
             torch.cuda.synchronize()
             before = dict(rf.LAUNCHES)
-            with ForwardCalls(rf) as calls:
+            with KernelCalls() as calls:
                 t0 = time.perf_counter()
                 out = self._render(*args, **kwargs)
                 torch.cuda.synchronize()
@@ -3188,6 +3098,8 @@ def visuals_phase(dev, smi, records, code_records, nmr_root, dtu_root) -> None:
         fine = lambda o: torch.from_numpy(o["fine"]["rgb"])  # noqa: E731
         p_plain = psnr(fine(last["out"]), fine(out_plain))
         replay = [row for r in rec.renders for row in r["replay"]]
+        replay_txt = [(r["kernel"], r["points"], f"{r['max_abs_err']:.3g}", f"{r['bar']:.3g}",
+                       f"{r['corr']:.6f}", r["identical"], r["ok"]) for r in replay]
         grids_ok = (len(rec.steps) == epochs == len(rec.renders)
                     and all(read[e] is not None and read[e].dtype.name == "uint8"
                             and read[e].shape == (2 * H, 5 * W, 3)
@@ -3207,9 +3119,9 @@ def visuals_phase(dev, smi, records, code_records, nmr_root, dtu_root) -> None:
             f"{grids_ok}; TensorBoard {'event files ' + str(len(events)) if have_tb else 'tensorboardX does not import here: no writer'}; "
             f"last vis's fine rgb vs the plain f32 route (same weights and draws) "
             f"{p_plain:.3f} dB (need >= 40), plain-route launches {plain_launches}; replayed "
-            f"kernel calls {[(v, n, f'{d:.3g}', f'{b:.3g}', f'{c:.6f}', same, ok) for v, n, d, b, c, same, ok in replay]}")
+            f"kernel calls {replay_txt}")
         if not (grids_ok and launches_ok and p_plain >= 40.0 and not plain_launches
-                and replay and all(row[-1] for row in replay)
+                and replay and all(row["ok"] for row in replay)
                 and (events or not have_tb)):
             raise SystemExit(f"visuals ({label}): the vis failed, missed {want} or disagrees "
                              "with the plain route")
@@ -3368,9 +3280,13 @@ def multichip_phase(smi, records, code_records, nmr_root) -> None:
     mc = entry.dryrun_multichip(4, MC_DEVICE, replay=True)
     log(f"multichip dryrun: 4 ranks sharing card 0 over gloo, mesh data {mc['mesh'][0]} x rays "
         f"{mc['mesh'][1]}, sn64 full width on the kernel route; train rel delta loss "
-        f"{mc['train'][0]:.3g} grad_norm {mc['train'][1]:.3g}, resume (step 2) rel delta loss "
-        f"{mc['resume'][0]:.3g} grad_norm {mc['resume'][1]:.3g}, bit for bit the unbroken "
-        f"sharded run {mc['exact']}, one process twice bit for bit {mc['repeat']}; eval max|d| "
+        f"{mc['train'][0]:.3g} grad_norm {mc['train'][1]:.3g}, resume (step 2) rel delta against "
+        f"one process from the same checkpoint loss {mc['resume_control'][0]:.3g} grad_norm "
+        f"{mc['resume_control'][1]:.3g}, against two unsharded steps loss "
+        f"{mc['resume'][0]:.3g} grad_norm {mc['resume'][1]:.3g} (weights after 2 steps: "
+        f"{mc['drift'][0]} of {mc['drift'][1]} more than lr/2 from one process's), bit for bit "
+        f"the unbroken sharded run {mc['exact']}, one process twice bit for bit {mc['repeat']}; "
+        f"eval max|d| "
         f"rgb {mc['eval'][0]:.3g} depth {mc['eval'][1]:.3g}; {time.perf_counter() - t0:.1f} s "
         f"wall | {smi}")
     log("multichip dryrun: each step's gradient norm by module, sharded "
@@ -3416,7 +3332,7 @@ def multichip_phase(smi, records, code_records, nmr_root) -> None:
             vis_keep = shaped_checkpoint(one[0], nmr_root, os.path.join(tmp, "ck"))
             t0 = time.perf_counter()
             two = launch.spawn(dryrun.run_legs, MC_IDS, MC_DEVICE, dict(
-                device=MC_DEVICE, workdir=tmp, replay=True, legs=[
+                device=MC_DEVICE, replay=True, legs=[
                     dict(kind="collectives", name="collectives", floats=n_floats)] + [
                     dict(kind="cli", name=f"train_{k}", cli="train.cli",
                          argv=train_argv(f"mc2_{k}", ids2, lr))
@@ -3441,9 +3357,11 @@ def multichip_phase(smi, records, code_records, nmr_root) -> None:
     finally:
         restore()
     coll = {k: v for k, v in two["collectives"].items() if not k.startswith("rank_")}
-    log(f"multichip gloo: {json.dumps(coll)} (True: gloo takes a CUDA tensor as it is; the "
-        f"launch module stages every gloo collective of a CUDA tensor through host memory; "
+    log(f"multichip gloo: {json.dumps(coll)} (True: gloo takes a CUDA tensor as it is and gives "
+        f"the right values; the launch module hands every collective its tensors as they are; "
         f"gradient_mean_ms: {n_floats} floats, sn64's parameters | {smi})")
+    if not all(coll[k] is True for k in ("all_reduce", "broadcast", "all_gather")):
+        raise SystemExit("multichip gloo: a collective refused a CUDA tensor or gave wrong values")
 
     def steps_of(tr1, t2):
         steps = list(zip(tr1.history, tr1.grad_norms, t2["losses"], t2["grad_norms"]))
@@ -3462,8 +3380,8 @@ def multichip_phase(smi, records, code_records, nmr_root) -> None:
             f"{[(float(f'{a:.3g}'), float(f'{b:.3g}')) for a, b in rel]} (bars: step 1 "
             f"{MC_STEP1_BARS}, later losses {MC_LOSS_REL}, later grad_norm printed); ms a step "
             f"(median of steps 2-3) one rank {ms1:.2f}, two ranks {ms2:.2f} ({ms2 / ms1:.2f}x: "
-            f"two contexts taking turns on one card and every collective through host memory, "
-            f"not a speed-up) | {smi}")
+            f"two contexts taking turns on one card and the gradient mean over gloo, not a "
+            f"speed-up) | {smi}")
         if (len(steps) != 3 or rel[0][0] > MC_STEP1_BARS[0] or rel[0][1] > MC_STEP1_BARS[1]
                 or any(a > MC_LOSS_REL for a, _ in rel)):
             raise SystemExit("multichip train CLI: two ranks part from one rank")
@@ -3522,6 +3440,7 @@ def main() -> None:
     from pixelnerf_tpu_torch.models.code import PositionalEncoding
     from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
     from pixelnerf_tpu_torch.ops.grid_sample import bilinear_taps
+    from pixelnerf_tpu_torch.ops.replay import agree
 
     t_start = time.perf_counter()
     dev = resolve_device("cuda")

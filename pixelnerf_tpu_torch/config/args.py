@@ -18,7 +18,6 @@ import os
 
 import torch
 
-from ..parallel import launch
 from . import hocon
 
 PROJECT_ROOT = os.path.abspath(os.path.join(os.path.dirname(__file__), "..", ".."))
@@ -103,6 +102,9 @@ def parse_args(
             print(f"WARNING: --gpu_id requests {n_req} devices, only {len(kept)} available; "
                   f"using {len(kept)}")
             args.gpu_id = kept
+    # imported here: the parallel package imports the models, which import this module
+    from ..parallel import launch
+
     in_group = len(args.gpu_id) > 1 and launch.join_torchrun(args.gpu_id,
                                                               "cuda" if on_cards else "cpu")
     args.spawn_ranks = len(args.gpu_id) > 1 and not in_group

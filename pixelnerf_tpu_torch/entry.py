@@ -18,7 +18,6 @@ card 0 (or on the CPU with ``--device cpu``).
 from __future__ import annotations
 
 import argparse
-import os
 import time
 from pathlib import Path
 from typing import Mapping, Optional, Sequence
@@ -128,8 +127,7 @@ def entry(n_frames: int = 3, device=None, mlp_impl: str = "auto", seed: int = 0,
             "depth": depth.reshape(n_frames, H, W)}
 
 
-def dryrun_multichip(n_devices: int = 4, device: str = "cuda", workdir: Optional[str] = None,
-                     replay: bool = False) -> dict:
+def dryrun_multichip(n_devices: int = 4, device: str = "cuda", replay: bool = False) -> dict:
     """The JAX package's multichip dry run over ``n_devices`` ranks
     (``parallel.launch``; on the card they share card 0 over gloo), each leg
     held against one unsharded process with the same weights and draws,
@@ -143,20 +141,20 @@ def dryrun_multichip(n_devices: int = 4, device: str = "cuda", workdir: Optional
       1 at the JAX dry run's bars (loss 1e-4 and grad_norm 1e-3 relative);
     * resume: a sharded step, save, restore into a new Trainer on every
       rank, step 2: bit for bit the sharded run that did not stop (steps
-      and weights), and its step 2 against two unsharded steps at the JAX
-      bars (loss 1e-3 relative; grad_norm 1e-3 + 1% of it, held where the
-      step is f32 throughout: on the card Adam's first step, lr * sign(g),
-      carries the bf16 rounding of each rank's weight gradients, so it is
-      printed there);
+      and weights); its step 2 against one process that restores the same
+      checkpoint and takes step 2 at step 1's bars; and against two
+      unsharded steps at the JAX bars (loss 1e-3 relative; grad_norm
+      1e-3 + 1% of it, held where the step is f32 throughout: on the card
+      Adam's first step, about lr * sign(g), carries the bf16 rounding of
+      each rank's weight gradients, so two runs' weights part there and
+      that grad_norm is printed, with the share of the weights that part);
     * eval: ``render_simple`` of 64 n rays over a 1-D mesh of n, against
       one process (rgb 1e-5, depth 1e-4).
 
     Prints the JAX wording's ``dryrun_multichip ... OK`` lines and raises
-    when a leg misses.  ``workdir``: where the checkpoints go (a temporary
-    directory by default); ``replay``: keep and replay every rank's kernel
+    when a leg misses.  ``replay``: keep and replay every rank's kernel
     calls (:mod:`.ops.replay`).  Returns the deltas and both runs'
     results."""
-    import contextlib
     import tempfile
 
     from .parallel import dryrun, launch
@@ -178,20 +176,20 @@ def dryrun_multichip(n_devices: int = 4, device: str = "cuda", workdir: Optional
     render = dict(kind="render", name="eval", images=src["images"][:, :1],
                   poses=src["poses"][:, :1], focal=src["focal"], rays=rays, R=NR,
                   device_chunk=NR, seed=7)
-    if workdir is not None:
-        os.makedirs(workdir, exist_ok=True)
-    with (tempfile.TemporaryDirectory() if workdir is None
-          else contextlib.nullcontext(workdir)) as wd:
+    lr = 1e-4
+    with tempfile.TemporaryDirectory() as wd:
         spec = dict(conf=conf, impl="auto", device=device, init={"seed": 0, "sigma_bias": 1.0},
                     dataset=dict(n_objs=8, n_views=3, image_size=16), workdir=wd,
-                    args={"use_amp": device != "cpu"}, deterministic=True)
+                    args={"use_amp": device != "cpu", "lr": lr}, deterministic=True)
         ids = list(range(n_devices)) if device == "cpu" else [0] * n_devices
         sharded = launch.spawn(dryrun.run_legs, ids, device, dict(spec, replay=replay, legs=[
             dict(train, name="train", data=data_par),
             dict(train, name="resume", data=data_par, resume_at=1),
             dict(render, sharded=True)]))
         single = dryrun.run_legs(dict(spec, legs=[
-            dict(train, name="single"), dict(train, name="single_again"), render]))
+            dict(train, name="single"), dict(train, name="single_again"),
+            dict(train, name="single_resume", resume_at=1, restore_from="resume", state=False),
+            render]))
 
     def rel(a, b):
         return abs(a - b) / max(abs(b), 1e-12)
@@ -213,16 +211,23 @@ def dryrun_multichip(n_devices: int = 4, device: str = "cuda", workdir: Optional
     repeat = single["single"]["steps"] == single["single_again"]["steps"]
     s2, u2 = res["steps"][1], single["single"]["steps"][1]
     dl2, dg2 = rel(s2["t"], u2["t"]), rel(s2["grad_norm"], u2["grad_norm"])
+    r2 = single["single_resume"]["steps"][1]
+    dlr, dgr = rel(s2["t"], r2["t"]), rel(s2["grad_norm"], r2["grad_norm"])
+    drifted, total = _drift(sharded["train"]["state"], single["single"]["state"], 0.5 * lr)
     f32 = device == "cpu"
-    if not (exact and dl2 < 1e-3 and u2["grad_norm"] > 1e-6
+    if not (exact and dlr < 1e-4 and dgr < 1e-3 and dl2 < 1e-3 and u2["grad_norm"] > 1e-6
             and (not f32 or dg2 * abs(u2["grad_norm"]) < 1e-3 + 0.01 * abs(u2["grad_norm"]))):
         raise RuntimeError(f"dryrun_multichip resume: bit for bit the unbroken sharded run "
-                           f"{exact}; {s2} against {u2}")
+                           f"{exact}; {s2} against {r2} from the same checkpoint and {u2} "
+                           f"unbroken")
     print(f"dryrun_multichip resume OK: sharded save->restore->step2 bit for bit the unbroken "
           f"sharded run {exact} (one process twice: {repeat}), loss={s2['t']:.6f} (unsharded "
+          f"step2 from the same checkpoint {r2['t']:.6f}, rel delta {dlr:.2e}; unsharded "
           f"2-step {u2['t']:.6f}, rel delta {dl2:.2e}), grad_norm={s2['grad_norm']:.5f} "
-          f"(unsharded {u2['grad_norm']:.5f}, rel delta {dg2:.2e}"
-          f"{'' if f32 else '; bf16 weight gradients through an Adam step, printed'})")
+          f"(from the same checkpoint {r2['grad_norm']:.5f}, rel delta {dgr:.2e}; unsharded "
+          f"2-step {u2['grad_norm']:.5f}, rel delta {dg2:.2e}"
+          f"{'' if f32 else ', printed'}); weights after 2 steps: {drifted} of {total} "
+          f"({drifted / total:.2e}) more than lr/2 from one process's")
     ev, eu = sharded["eval"], single["eval"]
     drgb = float(np.abs(ev["rgb"] - eu["rgb"]).max())
     ddep = float(np.abs(ev["depth"] - eu["depth"]).max())
@@ -230,8 +235,20 @@ def dryrun_multichip(n_devices: int = 4, device: str = "cuda", workdir: Optional
         raise RuntimeError(f"dryrun_multichip eval: rgb {drgb}, depth {ddep}")
     print(f"dryrun_multichip eval OK: {NR} rays over 1-D mesh of {n_devices}, max |sharded - "
           f"single| rgb {drgb:.2e}, depth {ddep:.2e}")
-    return dict(train=(dloss, dg), resume=(dl2, dg2), eval=(drgb, ddep), exact=exact,
+    return dict(train=(dloss, dg), resume=(dl2, dg2), resume_control=(dlr, dgr),
+                drift=(drifted, total), eval=(drgb, ddep), exact=exact,
                 repeat=repeat, sharded=sharded, single=single, mesh=(data_par, rays_par))
+
+
+def _drift(got: Mapping, ref: Mapping, tol: float):
+    """(count, total) of the floating weights of ``got`` more than ``tol``
+    from ``ref``'s; BatchNorm's running statistics left out."""
+    drifted = total = 0
+    for k, v in ref.items():
+        if "running" not in k and np.issubdtype(v.dtype, np.floating):
+            drifted += int((np.abs(got[k] - v) > tol).sum())
+            total += v.size
+    return drifted, total
 
 
 def main(argv=None) -> None:

@@ -1,8 +1,9 @@
 """The kernel calls a run made, replayed against their plain versions.
 
 While a :class:`KernelCalls` is installed in a process, the first call of
-each kernel wrapper at each (kernel, hidden width, point count) is kept with
-copies of its inputs and of its output: the four forward wrappers of
+each kernel wrapper at each (kernel, hidden width, point count; for a
+forward wrapper also the tower, so each head of a model is kept) is kept
+with copies of its inputs and of its output: the four forward wrappers of
 :mod:`.resnetfc_fused` (rows 1-4, their ``_code`` twins row 6) and the two
 backward kernels of :mod:`.resnetfc_vjp` (``bwd_data`` row 5a,
 ``bwd_weights`` row 5b).  The wrappers still launch and count as before.
@@ -89,7 +90,8 @@ class KernelCalls:
             return ("resnetfc_bwd_data", a["tower"].w_in.shape[1], a["g"].shape[1], a["NS"])
         code = isinstance(a["x"], rf.RawCode)
         variant = "resnetfc_fwd_" + name[len("resnetfc_"):] + ("_code" if code else "")
-        return (variant, a["tower"].w_in.shape[1], rf.coords(a["x"]).shape[0], 0)
+        return (variant, a["tower"].w_in.shape[1], rf.coords(a["x"]).shape[0],
+                a["tower"].w_in.data_ptr())
 
     def _recorder(self, name, fn, sig):
         def call(*args, **kwargs):
@@ -114,7 +116,7 @@ class KernelCalls:
         -> ``[{kernel, H, points, max_abs_err, bar, corr, identical, ok}]``."""
         rows = []
         with torch.no_grad():
-            for (kernel, H, n, NS), (fn, a, out) in self.calls.items():
+            for (kernel, H, n, _), (fn, a, out) in self.calls.items():
                 if kernel == "resnetfc_bwd_data":
                     rows.append(self._check_data(kernel, H, n, fn, a, out))
                 elif kernel == "resnetfc_bwd_weights":

@@ -6,8 +6,8 @@ them by name.
 :func:`run_legs` takes a spec (a dict of plain values and numpy arrays):
 
 * ``conf``: HOCON text or a ``ConfigTree``; ``impl``: the field route;
-  ``device``: "cpu" or "cuda" (this rank's card); ``workdir``: where
-  checkpoints and the results go; ``deterministic``: torch's deterministic
+  ``device``: "cpu" or "cuda" (this rank's card); ``workdir``: where a
+  train leg's checkpoints, visuals and logs go; ``deterministic``: torch's deterministic
   algorithms on (warn only);
 * ``state``: a state dict of numpy arrays, or ``init``: ``{"seed", "sigma_bias"}``
   (a seeded init, the lin_out density biases raised by ``sigma_bias``);
@@ -18,7 +18,9 @@ them by name.
     ``objs`` (``data``: the data axis of a ``("data", "rays")`` mesh over
     every rank, None for no mesh; ``draws``: one dict of render draws a
     step or None; ``resume_at``: save, then continue from a new Trainer
-    that resumes the checkpoint before that step);
+    that resumes the checkpoint before that step; ``restore_from``: at
+    ``resume_at``, resume leg ``restore_from``'s checkpoint instead, saving
+    nothing);
   - ``render``: ``RenderPipeline.render`` (``method`` "render") or
     ``render_simple`` (``pack``) of ``rays`` from the source views
     ``images`` / ``poses`` / ``focal``, on a ray mesh over every rank when
@@ -37,16 +39,15 @@ them by name.
 
 Every leg's kernel launches are counted from 0 in each rank; with
 ``replay`` each rank also keeps its kernel calls and replays them against
-their plain versions right after the leg (:mod:`..ops.replay`).  Rank 0
-writes ``{leg name: result}`` to ``<workdir>/<spec["out"]>`` when ``out``
-is given, and returns it; results hold numpy arrays and plain values, and
-every rank's wall seconds, peak device memory, launches and replay rows.
+their plain versions right after the leg (:mod:`..ops.replay`).  Each rank
+returns ``{leg name: result}`` (``spawn`` hands back rank 0's); results hold
+numpy arrays and plain values, and every rank's wall seconds, peak device
+memory, launches and replay rows.
 """
 
 from __future__ import annotations
 
 import os
-import pickle
 import time
 import types
 
@@ -126,9 +127,11 @@ def _train(spec, leg, device) -> dict:
     steps, module_norms = [], []
     for i in range(leg["steps"]):
         if leg.get("resume_at") == i:
-            tr.save_checkpoint()
+            if "restore_from" not in leg:
+                tr.save_checkpoint()
             rng, gen = tr.rng.bit_generator.state, tr.generator.get_state()
-            tr = _trainer(spec, leg, conf, ds, device, mesh, resume=True)
+            tr = _trainer(spec, dict(leg, name=leg.get("restore_from", leg["name"])), conf, ds,
+                          device, mesh, resume=True)
             tr.rng.bit_generator.state = rng
             tr.generator.set_state(gen)
         steps.append(tr.train_step(data, draws=_draws(draws[i])))
@@ -230,27 +233,47 @@ def _cli(spec, leg, device) -> dict:
 
 def _collectives(spec, leg, device) -> dict:
     """For all_reduce, broadcast and all_gather: True when the backend takes
-    a tensor on ``device`` as it is, else its error's first line."""
+    a tensor on ``device`` as it is and gives the right values, False when
+    it gives wrong ones, else its error's first line."""
     import torch.distributed as dist
 
-    t = torch.arange(4.0, device=device)
-    calls = {"all_reduce": lambda: dist.all_reduce(t.clone()),
-             "broadcast": lambda: dist.broadcast(t.clone(), 0),
-             "all_gather": lambda: dist.all_gather(
-                 [torch.empty_like(t) for _ in range(launch.world_size())], t)}
+    r, n = launch.rank(), launch.world_size()
+    t = torch.arange(4.0, device=device) + r
+    ranks = torch.arange(n, dtype=torch.float32, device=device)[:, None]
+    want = {"all_reduce": (torch.arange(4.0, device=device) * n + ranks.sum()),
+            "broadcast": torch.arange(4.0, device=device),
+            "all_gather": torch.arange(4.0, device=device) + ranks}
+
+    def all_reduce():
+        x = t.clone()
+        dist.all_reduce(x)
+        return x
+
+    def broadcast():
+        x = t.clone()
+        dist.broadcast(x, 0)
+        return x
+
+    def all_gather():
+        parts = [torch.empty_like(t) for _ in range(n)]
+        dist.all_gather(parts, t)
+        return torch.stack(parts)
+
+    calls = {"all_reduce": all_reduce, "broadcast": broadcast, "all_gather": all_gather}
     out = {"backend": dist.get_backend()}
     for name, call in calls.items():
         try:
-            call()
-            out[name] = True
+            got = call()
         except RuntimeError as e:  # the measurement: the backend refused the tensor
             out[name] = str(e).strip().splitlines()[0]
+            continue
+        out[name] = bool(got.device == t.device and torch.equal(got, want[name]))
     # the port's transport: a train step's gradient mean (``floats``) and one
     # BatchNorm statistic's sum (512 floats), host clock around synchronized calls
-    for key, n, reps in (("gradient_mean_ms", leg.get("floats", 0), 5),
-                         ("batchnorm_sum_ms", 512, 50)):
-        if n:
-            t = torch.ones(int(n), device=device)
+    for key, floats, reps in (("gradient_mean_ms", leg.get("floats", 0), 5),
+                              ("batchnorm_sum_ms", 512, 50)):
+        if floats:
+            t = torch.ones(int(floats), device=device)
             launch.all_reduce_mean([t])
             _sync(device)
             t0 = time.perf_counter()
@@ -292,9 +315,6 @@ def run_legs(spec: dict) -> dict:
     finally:
         torch.use_deterministic_algorithms(was[0], warn_only=was[1])
         torch.backends.cudnn.deterministic, torch.backends.cudnn.benchmark = was[2], was[3]
-    if launch.is_main() and spec.get("out"):
-        with open(os.path.join(spec["workdir"], spec["out"]), "wb") as f:
-            pickle.dump(results, f)
     return results
 
 

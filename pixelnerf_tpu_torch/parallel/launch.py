@@ -12,10 +12,10 @@ several devices, where the JAX package runs one program over a device mesh.
   joins through ``env://`` instead (:func:`join_torchrun`).
 * Collectives: :func:`all_reduce_mean`, :func:`all_gather_rows`,
   :func:`broadcast_params`, :func:`broadcast_object`,
-  :func:`gather_objects` and :class:`AllReduceSum` (differentiable).  Under gloo a CUDA tensor goes
-  through host memory on every call: a fixed transport, chosen by the
-  backend and never by a failure.  Outside a group, or in a group of one,
-  each is the identity.
+  :func:`gather_objects` and :class:`AllReduceSum` (differentiable).  Each
+  hands its tensors to ``torch.distributed`` as they are, on either backend:
+  gloo takes CUDA tensors for all_reduce, broadcast and all_gather.  Outside
+  a group, or in a group of one, each is the identity.
 
 Rank 0 alone prints (the others' standard output goes to ``os.devnull``)
 and writes files; the other ranks wait at :func:`barrier`.
@@ -23,7 +23,6 @@ and writes files; the other ranks wait at :func:`barrier`.
 
 from __future__ import annotations
 
-import contextlib
 import datetime
 import os
 import pickle
@@ -148,28 +147,10 @@ def _group_size(group) -> int:
     return dist.get_world_size(group) if in_group() else 1
 
 
-def _through_host(t: torch.Tensor) -> bool:
-    """gloo's transport for a CUDA tensor is host memory."""
-    return t.is_cuda and dist.get_backend() == "gloo"
-
-
-@contextlib.contextmanager
-def _staged(t: torch.Tensor):
-    """The tensor a collective works on: ``t`` itself, or its host copy that
-    is copied back into ``t`` afterwards."""
-    if not _through_host(t):
-        yield t
-        return
-    host = t.detach().cpu()
-    yield host
-    t.copy_(host)
-
-
 def all_reduce_sum_(t: torch.Tensor, group=None) -> torch.Tensor:
     """Sum ``t`` over ``group`` in place; returns ``t``."""
     if _group_size(group) > 1:
-        with _staged(t) as buf:
-            dist.all_reduce(buf, group=group)
+        dist.all_reduce(t, group=group)
     return t
 
 
@@ -195,19 +176,14 @@ def all_gather_rows(t: torch.Tensor, group=None) -> torch.Tensor:
     if n == 1:
         return t
     src = t.detach().contiguous()
-    host = _through_host(src)
-    if host:
-        src = src.cpu()
     parts = [torch.empty_like(src) for _ in range(n)]
     dist.all_gather(parts, src, group=group)
-    out = torch.cat(parts)
-    return out.to(t.device) if host else out
+    return torch.cat(parts)
 
 
 def broadcast_(t: torch.Tensor, src: int = 0, group=None) -> torch.Tensor:
     if _group_size(group) > 1:
-        with _staged(t) as buf:
-            dist.broadcast(buf, src, group=group)
+        dist.broadcast(t, src, group=group)
     return t
 
 

@@ -4,8 +4,8 @@ it against the JAX package's mesh step.
 
 Every rank body is ``pixelnerf_tpu_torch.parallel.dryrun.run_legs``, started
 by ``parallel.launch.spawn`` (the one-rank reference runs in the test's
-process); each rank runs one thread and imports no JAX, and rank 0 writes
-its results to a file under ``tmp_path`` that the test reads.  The weights are the JAX variables of ``test_torch_train_step`` (a
+process); each rank runs one thread and imports no JAX, and ``spawn`` hands
+rank 0's results back to the test.  The weights are the JAX variables of ``test_torch_train_step`` (a
 live ``fc_1``), the batch two objects of its synthetic set at R 24, and
 every step's render draws are the JAX trainer's (``_jax_draws``), so one
 rank and the JAX trainer see the same random numbers as the sharded ranks.
@@ -21,9 +21,6 @@ The plain field without AMP (f32) keeps the bars tight:
 * a sharded save -> restore -> step against 2 unsharded steps at the
   sharded steps' bars.
 """
-
-import os
-import pickle
 
 import jax
 import numpy as np
@@ -81,18 +78,16 @@ def jax_mesh_steps(setup, workdir):  # noqa: F811
 def spec(setup, workdir, legs):  # noqa: F811
     state = {k: v.numpy() for k, v in from_jax_variables(setup["variables"]).items()}
     return dict(conf=CONF, impl="torch", device="cpu", workdir=str(workdir), state=state,
-                dataset=dict(n_objs=3, n_views=4, image_size=24), legs=legs, out="results.pkl",
+                dataset=dict(n_objs=3, n_views=4, image_size=24), legs=legs,
                 args={"lr": _Args("").lr})
 
 
 def run(n, spec_):
-    """``spec_``'s legs over ``n`` ranks; one rank runs in this process."""
+    """``spec_``'s legs over ``n`` ranks (rank 0's results); one rank runs
+    in this process."""
     if n == 1:
-        dryrun.run_legs(spec_)
-    else:
-        launch.spawn(dryrun.run_legs, list(range(n)), "cpu", spec_)
-    with open(os.path.join(spec_["workdir"], spec_["out"]), "rb") as f:
-        return pickle.load(f)
+        return dryrun.run_legs(spec_)
+    return launch.spawn(dryrun.run_legs, list(range(n)), "cpu", spec_)
 
 
 def train_leg(name, draws, **kw):

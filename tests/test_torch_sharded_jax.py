@@ -38,16 +38,20 @@ def test_every_rank_ends_on_the_same_loss_keys(both):
         assert sorted(s) == sorted(j)
 
 
-def test_dryrun_multichip_on_four_cpu_ranks(capsys, tmp_path):
+def test_dryrun_multichip_on_four_cpu_ranks(capsys):
     """``entry.dryrun_multichip(4, "cpu")``: sn64 at full width over data 2 x
     rays 2, its three legs within the JAX dry run's bars (it raises
-    otherwise), printed in the JAX wording."""
+    otherwise), printed in the JAX wording; the resumed step 2 against one
+    process from the same checkpoint at step 1's bars, and fewer than 1e-3
+    of the weights more than lr/2 from one process's after 2 steps."""
     from pixelnerf_tpu_torch import entry
 
-    res = entry.dryrun_multichip(4, "cpu", workdir=str(tmp_path))
+    res = entry.dryrun_multichip(4, "cpu")
     out = capsys.readouterr().out
     for leg in ("train", "resume", "eval"):
         assert f"dryrun_multichip {leg} OK" in out
     assert "mesh {'data': 2, 'rays': 2}, SB=2, R=32" in out
     assert res["mesh"] == (2, 2) and len(res["sharded"]["train"]["rank_wall_s"]) == 4
     assert res["train"][0] < 1e-4 and res["train"][1] < 1e-3
+    assert res["resume_control"][0] < 1e-4 and res["resume_control"][1] < 1e-3
+    assert res["drift"][0] < 1e-3 * res["drift"][1]

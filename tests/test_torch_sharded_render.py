@@ -1,8 +1,8 @@
 """The ray-sharded render (``RenderPipeline(mesh=make_ray_mesh())``) over 2
 ranks against one rank and the JAX package's single-device render, on the
 CPU (gloo).  Rank bodies: ``parallel.dryrun.run_legs`` (the one-rank
-reference in the test's process); results come back through a file under
-``tmp_path``.
+reference in the test's process); ``spawn`` hands rank 0's results back
+to the test.
 
 The model is ``test_torch_train_step``'s (its JAX variables, a live
 ``fc_1``), the rays two 24 x 24 views of its synthetic object 0 (1152
@@ -16,8 +16,6 @@ a half-occupied 8^3 grid, ``proposal``, ray capacity 0.75, at its R 128,
 where a chunk is below the 256-ray capacity floor and renders whole, and at
 R 1024, where it compacts), JAX's draws fed to the port."""
 
-import os
-import pickle
 import types
 
 import jax
@@ -108,7 +106,7 @@ def jax_renders(setup, world):  # noqa: F811
 
 
 @pytest.fixture(scope="module")
-def runs(setup, world, tmp_path_factory):  # noqa: F811
+def runs(setup, world):  # noqa: F811
     """The legs on one rank (this process) and on 2 ranks."""
     src, grid = world["src"], world["grid"]
     n_rays = src["rays"].shape[0]
@@ -137,15 +135,10 @@ def runs(setup, world, tmp_path_factory):  # noqa: F811
     state = {k: v.numpy() for k, v in from_jax_variables(setup["variables"]).items()}
     out = {}
     for n in (1, 2):
-        wd = tmp_path_factory.mktemp(f"render{n}")
-        spec = dict(conf=CONF, impl="torch", device="cpu", workdir=str(wd), state=state,
-                    out="results.pkl", legs=[dict(leg, sharded=n > 1) for leg in legs])
-        if n == 1:
-            dryrun.run_legs(spec)
-        else:
-            launch.spawn(dryrun.run_legs, [0, 1], "cpu", spec)
-        with open(os.path.join(wd, "results.pkl"), "rb") as f:
-            out[n] = pickle.load(f)
+        spec = dict(conf=CONF, impl="torch", device="cpu", state=state,
+                    legs=[dict(leg, sharded=n > 1) for leg in legs])
+        out[n] = (dryrun.run_legs(spec) if n == 1
+                  else launch.spawn(dryrun.run_legs, [0, 1], "cpu", spec))
     return out
 
 
