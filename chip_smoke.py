@@ -221,7 +221,9 @@ one line each:
     encoder included; weights where both heads' sigma is live, and no
     module with a zero gradient on both routes);
 17. narrow: ``conf/exp/sn64.conf`` with both heads' d_hidden 256, then 128,
-    built in code (seeded as 16 seeds, random encoder): ring frame 0 from
+    then 64 (each width its own library: at 64 a warpgroup's 32 columns on
+    wgmma m64n32k16 from 64 x 32 weight boxes), built in code (seeded as 16
+    seeds, random encoder): ring frame 0 from
     views (0) (the fused gather), (0) under
     ``PIXELNERF_FUSED_GATHER_MAX_ROWS=0`` (the dense kernel), (0, 1) (the
     multi-view gather) and (0, 1, 2) (the multi-view dense kernel), each
@@ -239,7 +241,7 @@ one line each:
     d_hidden 256 with ``PIXELNERF_DEFER_CODE=1`` on the NMR fixture (a conf
     file including sn64's, a checkpoint of the phase's weights), launching
     the gather's and the multi-view dense kernel's CODE twins;
-18. narrow backward: rows 5a / 5b at d_hidden 256 and 128 (sn64's tower,
+18. narrow backward: rows 5a / 5b at d_hidden 256, 128 and 64 (sn64's tower,
     C = 512, seeded) from 1 and 3 views at a ragged B (SB 2 x 1000, SB 2 x
     NS 3 x 333) and at the train step's fine pass (SB 4 x 12,288 from 1 and
     3 views), and at d_hidden 128 also at C = 640 and 128 on the ragged
@@ -247,16 +249,16 @@ one line each:
     (``backward_gate``: the bar and corr > 0.999, relu-mask flips <= 1e-3,
     one launch of the width's library each, bit-identical second calls);
     both kernels at the fine pass from 1 and 3 views timed in turns beside
-    d_hidden 512 on the same inputs (512, 256, 128, 128, 256, 512), with
-    their plain, library and bound times, and the weights kernel on its
-    SM-filled splits and the whole-view splits in turns (filled, whole,
+    d_hidden 512 on the same inputs (512, 256, 128, 64, 64, 128, 256, 512),
+    with their plain, library and bound times, and the weights kernel on
+    its SM-filled splits and the whole-view splits in turns (filled, whole,
     whole, filled, twice); ``python -m pixelnerf_tpu_torch.train``
-    with both heads at d_hidden 256 (a conf file including sn64's) for 3
-    steps at -V 1 on the NMR fixture and at -V 3 on the DTU one: remat off,
-    the forward kernel and both backward kernels twice a step; each width's
-    train step at -V 1 against the plain f32 step (the guards of 9); and
-    d_hidden 64 and 384 towers under grad, plain under ``auto`` and refused
-    under ``impl='cuda'``;
+    with both heads at d_hidden 256, then 64 (a conf file including sn64's)
+    for 3 steps each at -V 1 on the NMR fixture and at -V 3 on the DTU one:
+    remat off, the forward kernel and both backward kernels twice a step;
+    each width's train step at -V 1 against the plain f32 step (the guards
+    of 9); and d_hidden 192 and 384 towers, which no library is built for,
+    under grad, plain under ``auto`` and refused under ``impl='cuda'``;
 19. visuals: ``python -m pixelnerf_tpu_torch.train --fixed_test`` with a
     conf file that includes a shipped one and sets ``train { vis_interval =
     1 }``: ``conf/exp/sn64.conf`` on the NMR fixture at -V 1 for 2 epochs,
@@ -313,6 +315,7 @@ The line before the last is the kernels' JSON record; the last line is
 from __future__ import annotations
 
 import glob
+import itertools
 import json
 import math
 import os
@@ -2511,8 +2514,8 @@ def options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_ro
     log(f"options: phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
-# phase 17: narrow towers (d_hidden 256 and 128) on the forward kernels
-NARROW_H = (256, 128)
+# phase 17: narrow towers (d_hidden 256, 128 and 64) on the forward kernels
+NARROW_H = (256, 128, 64)
 # the eval CLI's runs at d_hidden 256 with the deferred code: (-P, the
 # kernel each launches: the gather's CODE twin, row 3's)
 NARROW_EVAL = (("0", "resnetfc_fwd_gather_code"), ("0 1 2", "resnetfc_fwd_dense_mv_code"))
@@ -2532,9 +2535,9 @@ def narrow_conf(base, H: int):
 
 
 def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nmr_root) -> None:
-    """Phase 17: sn64's conf at d_hidden 256 and 128 on the forward kernels'
-    narrow libraries (see the module docstring); ``net`` is the render
-    phases' sn64 model (d_hidden 512), timed beside them in turns."""
+    """Phase 17: sn64's conf at d_hidden 256, 128 and 64 on the forward
+    kernels' narrow libraries (see the module docstring); ``net`` is the
+    render phases' sn64 model (d_hidden 512), timed beside them in turns."""
     import types
 
     from pixelnerf_tpu_torch import entry
@@ -2800,7 +2803,7 @@ def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nm
     log(f"narrow: phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
-# phase 18: rows 5a / 5b at the narrow widths (d_hidden 256 and 128)
+# phase 18: rows 5a / 5b at the narrow widths (d_hidden 256, 128 and 64)
 # the gates' shapes (NS, SB, B_obj): a ragged B from 1 and 3 views (the last
 # 64-point tile half full) and the train step's fine pass (4 x 12,288)
 NARROW_BWD_SHAPES = ((1, 2, 1000), (3, 2, 333), (1, 4, 128 * 96), (3, 4, 128 * 96))
@@ -2808,17 +2811,19 @@ NARROW_BWD_SHAPES = ((1, 2, 1000), (3, 2, 333), (1, 4, 128 * 96), (3, 4, 128 * 9
 # ragged shapes: the global encoder's 640 (2 pieces, 5 dz steps an
 # injection) and the ConvEncoder's 128
 NARROW_BWD_C = (640, 128)
-# the train CLI's runs at d_hidden 256: (-V, -F)
+# the train CLI's runs at d_hidden 256 and 64: (-V, -F)
+NARROW_TRAIN_H = (256, 64)
 NARROW_TRAIN = ((1, "dvr"), (3, "dvr_dtu"))
 NARROW_TRAIN_STEPS = 3
 
 
 def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
     """Phase 18: rows 5a / 5b on the narrow libraries (see the module
-    docstring): the gates at d_hidden 256 and 128, the kernels' times at the
-    train step's fine pass in turns beside d_hidden 512, the train CLI at
-    d_hidden 256 on the backward kernels, each width's train step against
-    the plain f32 step, and the widths outside the envelope kept plain."""
+    docstring): the gates at d_hidden 256, 128 and 64, the kernels' times at
+    the train step's fine pass in turns beside d_hidden 512, the train CLI
+    at d_hidden 256 and 64 on the backward kernels, each width's train step
+    against the plain f32 step, and the widths outside the envelope kept
+    plain."""
     from pixelnerf_tpu_torch.models.code import PositionalEncoding
     from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
     from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
@@ -2910,12 +2915,11 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
                 records[n].setdefault("narrow", {})[f"h{H}" + ("" if NS == 1 else f"_ns{NS}")] = rec
         del data, x, z, g
 
-    # ---- the train CLI at d_hidden 256 on the backward kernels ----
-    H = NARROW_H[0]
+    # ---- the train CLI at d_hidden 256 and 64 on the backward kernels ----
     narrow_launches = {}
     restore = _env({"PIXELNERF_ALLOW_RANDOM_BACKBONE": "1"})  # no backbone weights here
     try:
-        for nviews, fmt in NARROW_TRAIN:
+        for H, (nviews, fmt) in itertools.product(NARROW_TRAIN_H, NARROW_TRAIN):
             fwd = STEP_KERNEL[nviews]
             with tempfile.TemporaryDirectory() as tmp:
                 cpath = os.path.join(tmp, "narrow.conf")
@@ -2927,7 +2931,7 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
                 rv.reset_launches()
                 t0 = time.perf_counter()
                 trainer = train_main(
-                    ["-n", f"narrow_v{nviews}", "-c", cpath, "-F", fmt, "-D",
+                    ["-n", f"narrow{H}_v{nviews}", "-c", cpath, "-F", fmt, "-D",
                      nmr_root if fmt == "dvr" else dtu_root, "-B", "4", "-V", str(nviews), "-R",
                      "128", "--epochs", str(NARROW_TRAIN_STEPS), "--checkpoints_path",
                      os.path.join(tmp, "ck")])
@@ -2966,7 +2970,7 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
         step_parity(c, live_state(c, dev), 1, dev, f"narrow d_hidden {H}")
 
     # ---- widths outside the envelope stay plain under grad ----
-    for H in (64, 384):
+    for H in (192, 384):
         odd = ResnetFC(d_in=d_in, d_out=4, n_blocks=nb, d_latent=512, d_hidden=H,
                        combine_layer=cl, impl="auto").to(dev)
         plain = odd._kernel_route((1, 64), dev, grad=True) is False

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) building blocks as PTX inline assembly: mbarriers, 2-D TMA
 // loads, shared-memory matrix descriptors for 128-byte-swizzled bf16 tiles
-// (MN-major and K-major), the async-proxy fence, and warpgroup matrix
-// multiplies (wgmma m64n256k16, m64n128k16 and m64n64k16) with f32
-// accumulators.
+// (MN-major and K-major) and 64-byte-swizzled ones (MN-major), the
+// async-proxy fence, and warpgroup matrix multiplies (wgmma m64n256k16,
+// m64n128k16, m64n64k16 and m64n32k16) with f32 accumulators.
 //
 // Self-contained (no CUTLASS, no other header of this package), so that any
 // kernel of the port can take it as it is.  The host side builds a TMA
@@ -22,7 +22,14 @@
 //   stride byte offset is the step between 8-row groups along K (1024 B)
 //   and its leading byte offset the step between 64-element atoms along
 //   M/N (the distance between two boxes).  A k16 step advances the start
-//   address by 16 rows (2048 B).
+//   address by 16 rows (2048 B);
+// - a TMA box of 32 bf16 columns (64 B) x R rows, loaded with
+//   CU_TENSOR_MAP_SWIZZLE_64B, lands as R rows of 64 B, the 16-byte chunks
+//   of row r XOR-permuted by (r / 2) % 4; the pattern repeats every 512 B,
+//   so such a box starts at a 512-byte-aligned address.  Read MN-major, one
+//   swizzle atom is 32 elements of M/N x 8 of K: the stride byte offset is
+//   the step between 8-row groups along K (512 B), and a k16 step advances
+//   the start address by 16 rows (1024 B).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: no driver function is linked
@@ -96,6 +103,15 @@ __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo_bytes
   const uint64_t a = smem_u32(p);
   return ((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32) | (1ull << 62);
+}
+
+// descriptor of a 64-byte-swizzled operand tile at `p` (512-byte aligned up
+// to the k16 offset), byte offsets as in the notes above
+__device__ __forceinline__ uint64_t desc_sw64(const void* p, uint32_t lbo_bytes,
+                                              uint32_t sbo_bytes) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32) | (2ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -222,6 +238,24 @@ __device__ __forceinline__ void wgmma_m64n64k16(float (&d)[32], uint64_t desc_a,
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// d (64 x 32 f32, 16 a thread) = A (64 x 16) . B (16 x 32) + (scale_d ? d :
+// 0), both operands bf16 in shared memory; TA / TB = 1 for MN-major
+// operands.  Accumulator i of thread t of the warpgroup holds row
+// 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (t % 4) + i % 2.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15"
+      "}, %16, %17, p, 1, 1, %19, %20;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 // ---- warp specialisation ----
 
 template <int N>
@@ -265,24 +299,32 @@ inline EncodeTiledFn encode_tiled_fn() {
 }
 
 // A row-major bf16 matrix (rows x cols, row stride ld elements) read in
-// boxes of box_rows x 64 columns with the 128-byte swizzle; rows and
+// boxes of box_rows x box_cols columns, box_cols 64 (a 128-byte row, the
+// 128-byte swizzle) or 32 (a 64-byte row, the 64-byte swizzle); rows and
 // columns past the extent read as zeros.  base must be 16-byte aligned and
 // ld a multiple of 8.  Returns a cudaError_t.
-inline int encode_bf16_sw128(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
-                             uint64_t ld, uint32_t box_rows) {
+inline int encode_bf16(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                       uint64_t ld, uint32_t box_rows, uint32_t box_cols) {
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
-  if ((reinterpret_cast<uintptr_t>(base) & 15) != 0 || ld % 8 != 0 || rows == 0 || cols == 0)
+  if ((reinterpret_cast<uintptr_t>(base) & 15) != 0 || ld % 8 != 0 || rows == 0 || cols == 0 ||
+      (box_cols != 64 && box_cols != 32))
     return (int)cudaErrorInvalidValue;
   const cuuint64_t dims[2] = {cols, rows};
   const cuuint64_t strides[1] = {ld * 2};
-  const cuuint32_t box[2] = {64, box_rows};
+  const cuuint32_t box[2] = {box_cols, box_rows};
   const cuuint32_t estr[2] = {1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
                         strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-                        CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
+                        box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
+}
+
+// The same in boxes of box_rows x 64 columns with the 128-byte swizzle.
+inline int encode_bf16_sw128(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
+                             uint64_t ld, uint32_t box_rows) {
+  return encode_bf16(map, base, rows, cols, ld, box_rows, 64);
 }
 
 }  // namespace hopper

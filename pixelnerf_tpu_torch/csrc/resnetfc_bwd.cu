@@ -61,19 +61,22 @@
 //   HID columns of every layer for all 64 points (its share of the f32
 //   stream or of its cotangent in HID / 4 registers a thread: 128 at sn64's
 //   512); thread 0 also keeps the weight ring fed.  HID is the library's
-//   tower width (-DRFC_HID: 128, 256 or 512, one library each, as the
+//   tower width (-DRFC_HID: 64, 128, 256 or 512, one library each, as the
 //   forward's; the numbers here are 512's).  A producer warp would cost
 //   registers: a ninth warp leaves three warps on one SM quarter's 16 K
 //   registers, 168 a thread, and setmaxnreg did not lift ptxas' allocation
 //   past the launch bound's 168;
 // - every product is the tile's wgmma pieces (m64n128k16; m64n64k16 at
-//   HID 128): operand A a 64 x 512 bf16 tile
+//   HID 128, m64n32k16 at 64): operand A a 64 x 512 bf16 tile
 //   in shared memory (act or hb), K-major with the 128-byte swizzle, written
 //   by the threads from their accumulators and published to the async proxy
 //   (fence.proxy.async + a CTA barrier); operand B 64 x 64 TMA boxes of the
 //   packed row-major weights through a 96 KB full / empty mbarrier ring (3
-//   stages of 32 KB; 6 of 16 KB at HID 128): MN-major for x W, and the same
-//   boxes K-major for dh W^T, so no transposed copy of a weight exists;
+//   stages of 32 KB; 6 of 16 KB at HID 128, 12 of 8 KB at 64): MN-major for
+//   x W, and the same boxes K-major for dh W^T, so no transposed copy of a
+//   weight exists.  At HID 64 a warpgroup's piece is 32 columns: x W reads
+//   64 x 32 boxes (64-byte swizzle), dh W^T 32 x 64 boxes of W's rows, each
+//   through a tensor map of its own (m_zt, m_blkt);
 // - the tile's work is a program of steps (data_program) that every thread
 //   walks and thread 0 also walks ahead to feed the ring;
 // - the walk back's relu masks, the r_k and s_k planes just stashed, come
@@ -99,7 +102,8 @@
 //   kernel's registers).  Columns at or past C are computed from whatever
 //   W_z rows TMA reads there (zeros past the array) into the plane's unused
 //   part.  At HID 512 and C <= 512 the program and the arithmetic are those
-//   of one piece; at HID 128, C = 512 takes 4 walk-back steps an injection.
+//   of one piece; at HID 128, C = 512 takes 4 walk-back steps an injection,
+//   8 at HID 64.
 // The tile, its constants and its step kinds are in tile64.cuh, which the
 // dense forwards (resnetfc_fwd_dense, and resnetfc_fwd_dense_mv at NS > 1)
 // share: their programs are this kernel's recompute, so it takes the primal's
@@ -144,8 +148,8 @@ using namespace rfc;
 
 // steps of one tile's stored program (data_program; sn64: 34 at one view, 36
 // at any view count: one view's recompute and walk back, the shared steps;
-// two more an injection at 512 < C <= 1024; three more an injection at HID
-// 128, one at HID 256, C = 512)
+// two more an injection at 512 < C <= 1024; seven more an injection at HID
+// 64, three at HID 128, one at HID 256, C = 512)
 constexpr int D_MAX_STEPS = 256;
 // f32 words of one CTA's view-sum slot (multi-view): every thread's share of
 // the 64 x HID stream
@@ -164,6 +168,7 @@ __device__ __forceinline__ size_t plane_at(const TowerParams& p, int k) {
 struct BwdParams {
   TowerParams t;   // z, x and the packed weights
   CUtensorMap m_in, m_z, m_blk;  // w_in (kin, H), w_z (n_lin_z C, H), w_blk (2 n_blocks H, H)
+  CUtensorMap m_zt, m_blkt;  // w_z and w_blk as the walk back reads them (encode_weights)
   CUtensorMap m_act;  // ws_act as ((2 NP + 1) B_pad, H): the relu masks, read back
   const float* g;  // (d_out, B) planar f32 cotangent
   float* dz;       // (dz_pieces(C), NS B_pad, H) f32: dz's columns H j.. in plane j, written when n_lin_z > 0
@@ -456,15 +461,17 @@ __device__ __forceinline__ void feed(const BwdParams& q, Ring& rg, int slot) {
   if (f.tile < n_tiles) {
     const Gemm op = piece_gemm_of<true>(d_prog[f.g], q.t.kin, q.t.C);
     const CUtensorMap* m = op.map == 0 ? &q.m_in : op.map == 1 ? &q.m_z : &q.m_blk;
+    // at HID 64 the walk back reads 32 x 64 boxes, through maps of their own
+    if (W_BOX_COLS < 64 && op.trans) m = op.map == 1 ? &q.m_zt : &q.m_blkt;
     hopper::mbar_arrive_expect_tx(&d_full[slot], STAGE_BYTES);
     unsigned char* dst = rg.base + slot * STAGE_BYTES;
 #pragma unroll
     for (int j = 0; j < 2 * TILE_BPW; ++j) {
-      const int n = (j / TILE_BPW) * TILE_HALF + f.pc * TILE_PIECE + (j % TILE_BPW) * 64;
+      const int n = (j / TILE_BPW) * TILE_HALF + f.pc * TILE_PIECE + (j % TILE_BPW) * W_BOX_COLS;
       if (op.trans)
-        hopper::tma_load_2d(dst + j * BOX_BYTES, m, &d_full[slot], f.ks * 64, op.rowbase + n);
+        hopper::tma_load_2d(dst + j * W_BOX_BYTES, m, &d_full[slot], f.ks * 64, op.rowbase + n);
       else
-        hopper::tma_load_2d(dst + j * BOX_BYTES, m, &d_full[slot], n, op.rowbase + f.ks * 64);
+        hopper::tma_load_2d(dst + j * W_BOX_BYTES, m, &d_full[slot], n, op.rowbase + f.ks * 64);
     }
     if (++f.ks * 64 >= op.K) {
       f.ks = 0;
@@ -510,7 +517,7 @@ __device__ __forceinline__ void gemm(const BwdParams& q, Ring& rg, const unsigne
     for (int ks = 0; ks < nks; ++ks) {
       const int st = rg.it % RING_STAGES;
       hopper::mbar_wait(&d_full[st], (rg.it / RING_STAGES) & 1);
-      const unsigned char* b = rg.base + st * STAGE_BYTES + wg * TILE_BPW * BOX_BYTES;
+      const unsigned char* b = rg.base + st * STAGE_BYTES + wg * TILE_BPW * W_BOX_BYTES;
       const int nk = min(4, (K - ks * 64) / 16);
       hopper::wgmma_fence();
 #pragma unroll
@@ -518,7 +525,7 @@ __device__ __forceinline__ void gemm(const BwdParams& q, Ring& rg, const unsigne
         if (kk < nk) {
           const uint64_t da = hopper::desc_kmajor_sw128(A + ks * 8192 + kk * 32);
           if (TB)
-            wgmma_piece<0, 1>(acc, da, hopper::desc_sw128(b + kk * 2048, BOX_BYTES, 1024), 1);
+            wgmma_piece<0, 1>(acc, da, w_desc(b, kk), 1);
           else
             wgmma_piece<0, 0>(acc, da, hopper::desc_kmajor_sw128(b + kk * 32), 1);
         }
@@ -905,8 +912,8 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
 // ---------------------------------------------------------------------------
 
 constexpr int WT_M = 128;  // output tile: rows of dW (two warpgroups of 64)
-// output tile: columns of dW, one m64n256 product (m64n128 at HID 128: the
-// blocks' dW is HID x HID)
+// output tile: columns of dW, one m64n256 product (m64n128 at HID 128,
+// m64n64 at 64: the blocks' dW is HID x HID)
 constexpr int WT_N = HID < 256 ? HID : 256;
 constexpr int WK = 64;     // points per k-step: one TMA box is 64 columns x 64 points
 constexpr int W_STAGES = 4;
@@ -954,18 +961,23 @@ static_assert(sizeof(WParams) <= 4096, "kernel parameters of every CUDA 12 toolk
 // take.  A GEMM CTA runs one (tile, split): warpgroup 2's first thread
 // streams the split's points through a W_STAGES ring with TMA (full / empty
 // mbarriers); warpgroups 0 and 1 each multiply one 64-row half of the A tile
-// by the whole G tile with wgmma m64n256k16 (m64n128k16 at WT_N 128), both
+// by the whole G tile with wgmma m64n256k16 (m64n128k16 at WT_N 128,
+// m64n64k16 at 64), both
 // operands MN-major from
 // 128-byte-swizzled boxes.  A tile of one split writes bf16 directly;
 // otherwise each split writes its f32 partial and the last CTA of the tile
 // sums them in split order.
 // One k16 step of a consumer's product: m64n256k16 at 128 accumulators a
-// thread, m64n128k16 at 64 (WT_N 128); both operands MN-major.
+// thread, m64n128k16 at 64 (WT_N 128), m64n64k16 at 32 (WT_N 64); both
+// operands MN-major.
 __device__ __forceinline__ void wt_mma(float (&d)[128], uint64_t a, uint64_t b) {
   hopper::wgmma_m64n256k16<1, 1>(d, a, b, 1);
 }
 __device__ __forceinline__ void wt_mma(float (&d)[64], uint64_t a, uint64_t b) {
   hopper::wgmma_m64n128k16<1, 1>(d, a, b, 1);
+}
+__device__ __forceinline__ void wt_mma(float (&d)[32], uint64_t a, uint64_t b) {
+  hopper::wgmma_m64n64k16<1, 1>(d, a, b, 1);
 }
 
 __global__ void __launch_bounds__(W_THREADS, 1)
@@ -1143,15 +1155,17 @@ int resnetfc_bwd_data(const void* g, const void* z, const void* x, const void* w
     q.t.B_obj = B_obj;
     q.t.pre = pre;
   }
-  // the weights and the workspace's stashed operands as TMA boxes of 64 x 64
-  // (rows past kin read as zeros)
+  // the weights in the boxes the products read (tile64.cuh's encode_weights;
+  // rows past kin read as zeros) and the workspace's stashed operands as TMA
+  // boxes of 64 x 64
   const int B_pad = (B + 31) / 32 * 32;
   const int NP = mv ? NS * pre + n_blocks - pre : n_blocks;
-  int err = hopper::encode_bf16_sw128(&q.m_in, w_in, kin, HID, HID, 64);
-  if (err == 0 && n_lin_z > 0)
-    err = hopper::encode_bf16_sw128(&q.m_z, w_z, (uint64_t)n_lin_z * C, HID, HID, 64);
-  if (err == 0)
-    err = hopper::encode_bf16_sw128(&q.m_blk, w_blk, (uint64_t)2 * n_blocks * HID, HID, HID, 64);
+  const uint64_t z_rows = (uint64_t)n_lin_z * C, blk_rows = (uint64_t)2 * n_blocks * HID;
+  int err = encode_weights(&q.m_in, w_in, kin, false);
+  if (err == 0 && n_lin_z > 0) err = encode_weights(&q.m_z, w_z, z_rows, false);
+  if (err == 0 && n_lin_z > 0) err = encode_weights(&q.m_zt, w_z, z_rows, true);
+  if (err == 0) err = encode_weights(&q.m_blk, w_blk, blk_rows, false);
+  if (err == 0) err = encode_weights(&q.m_blkt, w_blk, blk_rows, true);
   if (err == 0)
     err = hopper::encode_bf16_sw128(&q.m_act, ws_act, (uint64_t)(2 * NP + 1) * B_pad, HID, HID, 64);
   if (err != 0) return err;

@@ -27,11 +27,13 @@
 // its products in this body's order, at one view and at NS views:
 // - one CTA of two warpgroups a 64-point tile, each warpgroup owning half of
 //   the tower's HID columns of the f32 stream in registers (256 of 512 at
-//   sn64); every product is wgmma pieces (m64n128k16; m64n64k16 at HID 128)
-//   with operand A a 64 x 512 bf16 swizzled tile in shared memory (the code,
-//   the latent, relu(x) or relu(fc_0)) and operand B 64 x 64 TMA boxes of
-//   the packed row-major weights (MN-major for x W) through a ring of 96 KB
-//   (3 stages of 32 KB; 6 of 16 KB at HID 128).  Each warpgroup keeps its
+//   sn64); every product is wgmma pieces (m64n128k16; m64n64k16 at HID 128,
+//   m64n32k16 at 64) with operand A a 64 x 512 bf16 swizzled tile in shared
+//   memory (the code, the latent, relu(x) or relu(fc_0)) and operand B 64 x
+//   64 TMA boxes of the packed row-major weights (MN-major for x W; at HID 64
+//   each warpgroup's own 64 x 32 box, 64-byte swizzled) through a ring of
+//   96 KB (3 stages of 32 KB; 6 of 16 KB at HID 128, 12 of 8 KB at 64).
+//   Each warpgroup keeps its
 //   own half of every stage (the boxes of its piece) fed: its first thread
 //   refills the half as soon as the warpgroup's four warps have read it (one
 //   arrival a warp), so neither warpgroup waits for the other's.  A tile
@@ -50,12 +52,15 @@
 //   its bits are those of one piece.  The gather kernels keep C <= 512;
 // - lin_out (d_out <= 4) stays on the CUDA cores, a warp a point;
 // - no atomics: two calls on the same inputs give the same bits.
-// - the tower's width HID is the library's (-DRFC_HID: 128, 256 or 512, one
-//   library each); the operand tiles keep their 512 columns at every width,
-//   so the code, a latent piece and the gathers' C <= 512 do not shrink with
-//   it.  A narrower tower streams fewer weight bytes a tile (0.31x at 256,
-//   0.11x at 128 at sn64's other widths) and runs its products on fewer
-//   columns, the same tile and ring otherwise.
+// - the tower's width HID is the library's (-DRFC_HID: 64, 128, 256 or 512,
+//   one library each); the operand tiles keep their 512 columns at every
+//   width, so the code, a latent piece and the gathers' C <= 512 do not
+//   shrink with it.  A narrower tower streams fewer weight bytes a tile
+//   (0.31x at 256, 0.11x at 128, 0.04x at 64 at sn64's other widths) and runs
+//   its products on fewer columns, the same tile and ring otherwise.  At 64
+//   the FLOP no longer bound the dense kernels: a point's 1 KB of bf16
+//   latent (3 injections read 512 columns each) weighs more than its ~0.29
+//   MFLOP at the card's ratio of ~295 FLOP a byte.
 // The weights' tensor maps are encoded once per set of weight addresses
 // (resnetfc_fwd_dense_plan) and kept by the wrapper; the latent's is encoded
 // per call.  What binds it on an H100 is the weights' stream into each SM
@@ -133,13 +138,14 @@ constexpr int F_MAX_C = MAX_C;
 // 64 x HID stream (128 KB at HID 512)
 constexpr int F_SLOT_FLOATS = TILE_STREAM * TILE_THREADS;
 // lin_out: the columns of t a lane sums (16 at HID 512), read 8 at a time
-// (16 bytes; 4 at HID 128)
+// (16 bytes; 4 at HID 128, 2 at 64)
 constexpr int OUT_COLS = HID / 32;
 constexpr int OUT_VEC = OUT_COLS < 8 ? OUT_COLS : 8;
 
-// The weights' tensor maps (64 x 64 boxes of w_in (kin, H), w_z (n_lin_z C,
-// H) and w_blk (2 n_blocks H, H)) and what they were encoded for: built once
-// per set of weight addresses by resnetfc_fwd_dense_plan.
+// The weights' tensor maps (the boxes of tile64.cuh's encode_weights of w_in
+// (kin, H), w_z (n_lin_z C, H) and w_blk (2 n_blocks H, H)) and what they
+// were encoded for: built once per set of weight addresses by
+// resnetfc_fwd_dense_plan.
 struct DensePlan {
   CUtensorMap m_in, m_z, m_blk;
   const void *w_in, *w_z, *w_blk;
@@ -206,7 +212,7 @@ struct DenseFeed {
 };
 
 // A warpgroup's half of a ring stage: the weight boxes of its piece.
-constexpr uint32_t HALF_BYTES = TILE_BPW * BOX_BYTES;
+constexpr uint32_t HALF_BYTES = TILE_BPW * W_BOX_BYTES;
 
 // Shared state beside the dynamic operand tiles and ring, at fixed addresses:
 // each warpgroup's full / empty mbarriers of its halves of the ring stages
@@ -241,8 +247,8 @@ __device__ __forceinline__ void dense_feed(const DenseParams& q, unsigned char* 
   unsigned char* dst = ring + slot * STAGE_BYTES + h * HALF_BYTES;
 #pragma unroll
   for (int b = 0; b < TILE_BPW; ++b)
-    hopper::tma_load_2d(dst + b * BOX_BYTES, m, &f_full[h][slot],
-                        h * TILE_HALF + f.pc * TILE_PIECE + b * 64, op.rowbase + f.ks * 64);
+    hopper::tma_load_2d(dst + b * W_BOX_BYTES, m, &f_full[h][slot],
+                        h * TILE_HALF + f.pc * TILE_PIECE + b * W_BOX_COLS, op.rowbase + f.ks * 64);
   if (++f.ks * 64 >= op.K) {
     f.ks = 0;
     if (++f.pc == TILE_NP) {
@@ -300,8 +306,7 @@ __device__ __forceinline__ void dense_gemm(const DenseParams& q, unsigned char* 
 #pragma unroll
       for (int kk = 0; kk < 4; ++kk)
         if (kk < nk)
-          wgmma_piece<0, 1>(acc, hopper::desc_kmajor_sw128(A + ks * 8192 + kk * 32),
-                            hopper::desc_sw128(b + kk * 2048, BOX_BYTES, 1024), 1);
+          wgmma_piece<0, 1>(acc, hopper::desc_kmajor_sw128(A + ks * 8192 + kk * 32), w_desc(b, kk), 1);
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();  // stage ks - 1's products have read it
       if (ks > 0) dense_release<MV, WIDE>(q, ring, it - 1);
@@ -599,9 +604,11 @@ __device__ __forceinline__ void fwd_body(const DenseParams& q, unsigned char* ac
       if (OUT_VEC == 8) {
         const uint4 v = *reinterpret_cast<const uint4*>(a);
         words[0] = v.x, words[1] = v.y, words[2] = v.z, words[3] = v.w;
-      } else {
+      } else if (OUT_VEC == 4) {
         const uint2 v = *reinterpret_cast<const uint2*>(a);
         words[0] = v.x, words[1] = v.y;
+      } else {
+        words[0] = *reinterpret_cast<const uint32_t*>(a);
       }
 #pragma unroll
       for (int u = 0; u < OUT_VEC / 2; ++u)
@@ -817,18 +824,17 @@ size_t resnetfc_fwd_dense_limits(int* out, size_t* smem) {
 
 // Fills `plan` (resnetfc_fwd_dense_limits' bytes) with the tensor maps of
 // the packed weights w_in (kin, H), w_z (n_lin_z, C, H) and w_blk
-// (n_blocks, 2, H, H), bf16 row-major, H the library's HID.  A plan holds
+// (n_blocks, 2, H, H), bf16 row-major, H the library's HID, in the boxes
+// the products read (tile64.cuh's encode_weights).  A plan holds
 // addresses but no buffer of a call, so a caller keeps it for as long as the
 // weights stay where they are.
 int resnetfc_fwd_dense_plan(void* plan, const void* w_in, const void* w_z, const void* w_blk,
                             int kin, int C, int n_blocks, int n_lin_z) {
   if (!dense_widths_ok(kin, C, n_blocks, n_lin_z)) return (int)cudaErrorInvalidValue;
   DensePlan d = {};
-  int err = hopper::encode_bf16_sw128(&d.m_in, w_in, kin, HID, HID, 64);
-  if (err == 0 && n_lin_z > 0)
-    err = hopper::encode_bf16_sw128(&d.m_z, w_z, (uint64_t)n_lin_z * C, HID, HID, 64);
-  if (err == 0)
-    err = hopper::encode_bf16_sw128(&d.m_blk, w_blk, (uint64_t)2 * n_blocks * HID, HID, HID, 64);
+  int err = encode_weights(&d.m_in, w_in, kin, false);
+  if (err == 0 && n_lin_z > 0) err = encode_weights(&d.m_z, w_z, (uint64_t)n_lin_z * C, false);
+  if (err == 0) err = encode_weights(&d.m_blk, w_blk, (uint64_t)2 * n_blocks * HID, false);
   if (err != 0) return err;
   d.w_in = w_in;
   d.w_z = n_lin_z > 0 ? w_z : nullptr;

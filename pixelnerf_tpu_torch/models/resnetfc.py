@@ -131,7 +131,7 @@ class ResnetFC(nn.Module):
     # ------------------------------------------------------------------
     def check_kernel_widths(self, NS: int = 1, grad: bool = False) -> None:
         """Raise ValueError on widths a kernel of this call does not take:
-        the forward's at NS views (H = 128, 256 or 512, a library each; kin
+        the forward's at NS views (H = 64, 128, 256 or 512, a library each; kin
         and C multiples of 16, kin <= 512, C <= 1024; the stored program's
         steps); under ``grad`` also the backward's (the same widths H, a
         library each; the data kernel's widths and program, the weights

@@ -20,7 +20,7 @@ NS > 1 views (object-major rows, as in :mod:`.resnetfc_fused`):
   bounds them); :func:`resnetfc_bwd` runs both, or the plain backward for CPU
   tensors.  On a CUDA tensor they launch or raise; there is no fallback.
   As the forward's, the backward's library is built once for each tower
-  width of :data:`~.resnetfc_fused.HIDDEN` (128, 256, 512; ``-DRFC_HID``),
+  width of :data:`~.resnetfc_fused.HIDDEN` (64, 128, 256, 512; ``-DRFC_HID``),
   and a launch takes the library of ``tower.w_in.shape[1]`` (:func:`_lib`);
   :data:`DATA_LIMITS` and :data:`WEIGHT_LIMITS` mirror each library's
   limits for the route rule.
@@ -619,7 +619,7 @@ def _data_mirror(H: int) -> DataLimits:
     constants (``csrc/tile64.cuh``), as :func:`~.resnetfc_fused._mirror`
     reads the forward's: a thread's share of the 64 x H stream is H / 4 f32
     (the slot), 96 KB of weight ring (3 stages of 32 KB, 6 of 16 KB at H =
-    128), two 64 KB operand tiles."""
+    128, 12 of 8 KB at 64), two 64 KB operand tiles."""
     lim = rf.TILE_LIMITS[H]
     return DataLimits(tile=64, threads=256, slot_floats=lim.slot_floats, stages=lim.stages,
                       max_out=4, max_steps=256, max_c=1024, smem=2 * 65536 + 3 * 32768 + 1024,
@@ -657,8 +657,8 @@ def data_steps(n_blocks: int, n_lin_z: int, NS: int, pre: int, C: int, H: int) -
     injection is one recompute step a :func:`~.resnetfc_fused.latent_pieces`
     of the C-wide latent and one walk-back step a :func:`dz_pieces` (H dz
     columns a step).  34 at sn64 and one view, 36 at any view count; 40 and
-    42 with the global encoder's C = 640; 37 / 43 at H = 256 / 128 and one
-    view."""
+    42 with the global encoder's C = 640; 37 / 43 / 55 at H = 256 / 128 / 64
+    and one view."""
     mv = int(NS > 1)
     shared = n_blocks - pre
     zs = n_lin_z * rf.latent_pieces(C)
@@ -683,7 +683,7 @@ def check_data_program(n_blocks: int, n_lin_z: int, NS: int, pre: int, limits: D
 def check_data_widths(kin: int, H: int, C: int, n_lin_z: int, n_blocks: int, d_out: int,
                       limits: DataLimits) -> None:
     """Raise ValueError on widths ``resnetfc_bwd_data`` does not take: H other
-    than the library's (``limits.hidden``: 128, 256 or 512, one library
+    than the library's (``limits.hidden``: 64, 128, 256 or 512, one library
     each); with a latent, C not a multiple of 16 in [16, ``limits.max_c``]
     (the forward's envelope: pieces of at most 512 columns); kin past 128 or
     not a multiple of 16; no block; more outputs than ``limits.max_out``; a

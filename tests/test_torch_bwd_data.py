@@ -40,11 +40,13 @@ from pixelnerf_tpu_torch.utils.jax_convert import from_jax_variables
 LIMITS = rv.DataLimits(tile=64, threads=256, slot_floats=32768, stages=3, max_out=4,
                        max_steps=256, max_c=1024, smem=2 * 65536 + 3 * 32768 + 1024,
                        hidden=512)
-# the narrow libraries' (d_hidden 256 and 128): a slot of the 64 x H stream
-# (H / 4 f32 a thread), the same 96 KB ring in 3 stages of 32 KB or 6 of 16 KB
+# the narrow libraries' (d_hidden 256, 128 and 64): a slot of the 64 x H
+# stream (H / 4 f32 a thread), the same 96 KB ring in 3 stages of 32 KB, 6 of
+# 16 KB or 12 of 8 KB
 LIMITS_AT = {512: LIMITS,
              256: LIMITS._replace(slot_floats=16384, hidden=256),
-             128: LIMITS._replace(slot_floats=8192, stages=6, hidden=128)}
+             128: LIMITS._replace(slot_floats=8192, stages=6, hidden=128),
+             64: LIMITS._replace(slot_floats=4096, stages=12, hidden=64)}
 
 CASES = [
     # NS, sb, B_obj, d_in, d_latent, d_hidden, n_blocks, combine_layer
@@ -62,15 +64,17 @@ WIDE_CASES = [
     (3, 2, 48, 42, 640, 512, 5, 3),
     (1, 1, 160, 42, 128, 512, 5, 3),
 ]
-# sn64's depth at the narrow widths, d_hidden 256 and 128 (each a library of
-# its own): C = 512 (one piece, 2 or 4 dz steps an injection) and 640, from 1
-# and 3 views, a ragged B (150) and a small batch (SB 1 x 20: one
-# half-filled tile)
+# sn64's depth at the narrow widths, d_hidden 256, 128 and 64 (each a
+# library of its own): C = 512 (one piece, 2, 4 or 8 dz steps an injection)
+# and 640, from 1 and 3 views, a ragged B (150) and a small batch (SB 1 x 20:
+# one half-filled tile)
 NARROW_CASES = [
     (1, 1, 96, 42, 512, 256, 5, 3),
     (3, 2, 48, 42, 640, 256, 5, 3),
     (1, 1, 150, 42, 640, 128, 5, 3),
     (3, 1, 20, 42, 512, 128, 5, 3),
+    (1, 1, 150, 42, 512, 64, 5, 3),
+    (3, 2, 48, 42, 512, 64, 5, 3),
 ]
 
 
@@ -216,7 +220,7 @@ def test_data_grid(B, NS, n_sms, want):
     assert B_pad % 32 == 0 and 0 <= tiles * 64 - B_pad < 64
 
 
-@pytest.mark.parametrize("H", [512, 256, 128])
+@pytest.mark.parametrize("H", [512, 256, 128, 64])
 def test_data_limits_fit_the_card(H):
     """Two 64 KB operand tiles and 96 KB of ring stages fit the 227 KB a
     CTA may ask for at every width; the multi-view slot holds the 64 x H
@@ -233,7 +237,7 @@ def test_data_limits_fit_the_card(H):
 
 
 @pytest.mark.parametrize("kin,H,C,n_lin_z,nb,d_out,match", [
-    (48, 384, 512, 3, 5, 4, "d_hidden 512, one library each of \\(128, 256, 512\\)"),
+    (48, 384, 512, 3, 5, 4, "d_hidden 512, one library each of \\(64, 128, 256, 512\\)"),
     (48, 256, 512, 3, 5, 4, "this library needs d_hidden 512"),  # another width's library
     (48, 512, 1040, 3, 5, 4, "d_latent a multiple of 16 in \\[16, 1024\\]"),
     (144, 512, 512, 3, 5, 4, "kin <= 128"),
@@ -398,7 +402,8 @@ def _feeder_walk(prog, NS, tiles):
                                             (3, 0, 1, 512, 512), (2, 1, 1, 512, 512),
                                             (5, 0, 0, 512, 512), (5, 3, 3, 640, 512),
                                             (2, 1, 1, 1024, 512), (5, 3, 3, 512, 256),
-                                            (5, 3, 3, 640, 128), (2, 1, 1, 1024, 128)])
+                                            (5, 3, 3, 640, 128), (2, 1, 1, 1024, 128),
+                                            (5, 3, 3, 512, 64)])
 def test_looped_data_program_walks_the_flat_program(nb, nlz, pre, C, H):
     """At NS 2-64 the stored program (data_steps long), walked as the kernel
     walks it, is the flat program step for step, views included; thread 0's
@@ -426,14 +431,14 @@ def test_check_data_widths_takes_any_latent_width_without_a_latent():
     rv.check_data_widths(48, 512, 24, 0, 5, 4, LIMITS)
 
 
-@pytest.mark.parametrize("H", [512, 256, 128])
+@pytest.mark.parametrize("H", [512, 256, 128, 64])
 @pytest.mark.parametrize("C", [16, 128, 512, 528, 640, 1024])
 def test_check_data_widths_takes_the_forwards_latent_widths(C, H):
     """With a latent, C a multiple of 16 up to the forward's 1024: the
     ConvEncoder's 128 (one piece of K = 128), sn64's 512, the global
     encoder's 640 (two pieces), the widest; at sn64's depth the program
     fits at every tower width (at d_hidden 128 and C = 1024, 8 dz steps an
-    injection)."""
+    injection; 16 at d_hidden 64)."""
     rv.check_data_widths(48, H, C, 3, 5, 4, LIMITS_AT[H])
     for NS, pre in ((1, 5), (3, 3), (255, 3)):
         rv.check_data_program(5, 3, NS, pre, LIMITS_AT[H], C)
@@ -449,11 +454,11 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", [512, 256, 128])
+@pytest.mark.parametrize("H", [512, 256, 128, 64])
 @pytest.mark.parametrize("NS,B_obj", [(1, 1000), (1, 1008), (3, 333)])
 def test_data_kernel_matches_plain_on_card(cuda_device, NS, B_obj, H):
-    """sn64 widths (and the narrow towers' d_hidden 256 and 128, a library
-    each), ragged B (B = 2000, 2016 and 666: B_pad an odd multiple
+    """sn64 widths (and the narrow towers' d_hidden 256, 128 and 64, a
+    library each), ragged B (B = 2000, 2016 and 666: B_pad an odd multiple
     of 32 each): the kernel's stashed operands against the plain recompute
     (relu-mask flips <= 1e-3) and to the bar of tests/test_pallas.py; its
     cotangent planes, dz, dx and rows, which an independent recompute's mask

@@ -53,14 +53,16 @@ WIDE_CASES = [
     (3, 2, 48, 42, 640, 512, 5, 3),
     (1, 1, 160, 42, 128, 512, 5, 3),
 ]
-# sn64's depth at the narrow widths, d_hidden 256 and 128 (the weights
-# kernel's tile 128 x 256 and 128 x 128): C = 512 and 640, from 1 and 3
-# views, a ragged B (150) and a small batch (SB 1 x 20)
+# sn64's depth at the narrow widths, d_hidden 256, 128 and 64 (the weights
+# kernel's tile 128 x 256, 128 x 128 and 128 x 64): C = 512 and 640, from 1
+# and 3 views, a ragged B (150) and a small batch (SB 1 x 20)
 NARROW_CASES = [
     (1, 1, 150, 42, 512, 256, 5, 3),
     (3, 2, 48, 42, 640, 256, 5, 3),
     (1, 1, 96, 42, 640, 128, 5, 3),
     (3, 1, 20, 42, 512, 128, 5, 3),
+    (1, 1, 150, 42, 512, 64, 5, 3),
+    (3, 2, 48, 42, 512, 64, 5, 3),
 ]
 
 
@@ -363,11 +365,11 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", [512, 256, 128])
+@pytest.mark.parametrize("H", [512, 256, 128, 64])
 @pytest.mark.parametrize("NS,B_obj", [(1, 1000), (3, 333)])
 def test_weights_kernel_matches_plain_on_card(cuda_device, NS, B_obj, H):
-    """sn64 widths (and the narrow towers' d_hidden 256 and 128, a library
-    each), ragged B: the weights kernel against its plain version on
+    """sn64 widths (and the narrow towers' d_hidden 256, 128 and 64, a
+    library each), ragged B: the weights kernel against its plain version on
     the data kernel's own DataOut, to the bar of tests/test_pallas.py, and
     bit-identical on a second call."""
     nb, cl, sb = 5, 3, 2

@@ -2,7 +2,7 @@
 ``ops/resnetfc_fused.py::resnetfc_dense``, its plain version
 ``resnetfc_reference`` and the launch helpers of ``resnetfc_fwd_dense``
 (``dense_grid``, ``dense_steps``, ``check_dense_widths``, ``check_tma``),
-at sn64's d_hidden 512 and at the narrow widths 128 and 256 that the kernels
+at sn64's d_hidden 512 and at the narrow widths 64, 128 and 256 that the kernels
 also take (one library a width).
 
 ``resnetfc_fwd_dense`` walks 64-point tiles; every B here leaves its last
@@ -99,12 +99,12 @@ def test_dense_plain_matches_pallas_interpret(B, raw_code, planar):
     assert err <= 1e-4 * max(1.0, np.abs(ref).max()), err
 
 
-@pytest.mark.parametrize("H", [128, 256])
+@pytest.mark.parametrize("H", [h for h in rf.HIDDEN if h < 512])
 @pytest.mark.parametrize("shape,B,raw_code,planar", [("small", 150, False, True),
                                                      ("sn64", 160, False, False),
                                                      ("sn64", 160, True, True)])
 def test_dense_plain_at_narrow_widths_matches_pallas_interpret(H, shape, B, raw_code, planar):
-    """The narrow towers the kernels take (d_hidden 128 and 256): the plain
+    """The narrow towers the kernels take (d_hidden 64, 128 and 256): the plain
     version against ``_kernel_2d`` in interpret mode at tests/test_pallas.py's
     small shape and at sn64's other widths, the last tile ragged, weights
     carried by ``from_jax_variables``."""
@@ -133,16 +133,17 @@ def test_dense_plain_at_narrow_widths_matches_pallas_interpret(H, shape, B, raw_
 def test_sn64_latent_is_one_piece_at_every_width(H):
     """The latent's pieces follow the operand tile's 512-column capacity,
     not the tower's width: sn64's C = 512 is one piece (14 steps at one view,
-    15 at any view count) at d_hidden 128, 256 and 512 alike, 1024 two; each
-    width's limits take its own H and refuse the others'."""
-    lim = LIMITS._replace(stages={128: 6}.get(H, 3), slot_floats=H // 4 * 256, hidden=H)
+    15 at any view count) at d_hidden 64, 128, 256 and 512 alike, 1024 two;
+    each width's limits take its own H and refuse the others' (and 192, 384
+    and 1024, which no library is built for)."""
+    lim = LIMITS._replace(stages={64: 12, 128: 6}.get(H, 3), slot_floats=H // 4 * 256, hidden=H)
     assert rf.latent_pieces(512) == 1 and rf.latent_pieces(1024) == 2
     assert rf.dense_steps(5, 3, C=512) == 14 and rf.dense_steps(5, 3, 3, 3, C=512) == 15
     rf.check_dense_widths(48, H, 512, 3, 5, 4, lim)  # sn64's other widths
     rf.check_dense_widths(48, H, 1024, 3, 5, 4, lim)
     rf.check_dense_widths(512, H, 16, 1, 1, 1, lim)  # the widest code: one operand tile
     rf._check_gather_width(512, lim)
-    for other in (64, 384, 1024) + tuple(h for h in rf.HIDDEN if h != H):
+    for other in (192, 384, 1024) + tuple(h for h in rf.HIDDEN if h != H):
         with pytest.raises(ValueError, match="d_hidden"):
             rf.check_dense_widths(48, other, 512, 3, 5, 4, lim)
 

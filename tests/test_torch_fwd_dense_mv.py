@@ -5,7 +5,7 @@
 Python mirror of the kernel's program: one view's steps stored once and
 walked NS times, which must walk the same steps as the flat program of
 every view written out; the plain version also at the narrow widths
-d_hidden 128 and 256 (one library a width).
+d_hidden 64, 128 and 256 (one library a width).
 
 ``resnetfc_fwd_dense_mv`` walks 64-point tiles of output points on
 persistent CTAs; its input rows are object-major (SB objects x NS views x
@@ -109,7 +109,7 @@ def test_dense_mv_plain_matches_pallas_interpret(NS, sb, B_obj, raw_code, planar
     assert err <= 1e-4 * max(1.0, np.abs(ref).max()), err
 
 
-@pytest.mark.parametrize("H", [128, 256])
+@pytest.mark.parametrize("H", [h for h in rf.HIDDEN if h < 512])
 @pytest.mark.parametrize("shape,NS,sb,B_obj,raw_code,planar", [
     ("small", 2, 1, 75, False, True),
     ("sn64", 2, 1, 160, True, False),
@@ -118,7 +118,7 @@ def test_dense_mv_plain_matches_pallas_interpret(NS, sb, B_obj, raw_code, planar
 ])
 def test_dense_mv_plain_at_narrow_widths_matches_pallas_interpret(H, shape, NS, sb, B_obj,
                                                                   raw_code, planar):
-    """The narrow towers the kernels take (d_hidden 128 and 256): the plain
+    """The narrow towers the kernels take (d_hidden 64, 128 and 256): the plain
     version against ``_kernel_2d_mv`` in interpret mode at
     tests/test_pallas.py's small shape and at sn64's other widths, NS 2 and
     NS 3 x SB 2 (tiles straddling objects, a ragged last tile): the view

@@ -2,7 +2,7 @@
 ``_kernel_2d_gather``): ``ops/resnetfc_fused.py::resnetfc_gather``, its plain
 version (``gather_reference`` then ``resnetfc_reference``) and the checks of
 ``resnetfc_fwd_gather`` (``check_gather``), at sn64's d_hidden 512 and at
-the narrow widths 128 and 256 (one library a width).
+the narrow widths 64, 128 and 256 (one library a width).
 
 ``resnetfc_fwd_gather`` walks the dense kernel's 64-point tiles; every B here
 leaves its last tile ragged (2000 = 31 x 64 + 16, and 160 = 2 x 64 + 32),
@@ -114,12 +114,12 @@ def test_gather_plain_matches_pallas_interpret(B, raw_code, planar):
     assert err <= 1e-4 * max(1.0, np.abs(ref).max()), err
 
 
-@pytest.mark.parametrize("H", [128, 256])
+@pytest.mark.parametrize("H", [h for h in rf.HIDDEN if h < 512])
 @pytest.mark.parametrize("shape,B,raw_code,planar", [("small", 150, False, True),
                                                      ("sn64", 160, False, False),
                                                      ("sn64", 160, True, True)])
 def test_gather_plain_at_narrow_widths_matches_pallas_interpret(H, shape, B, raw_code, planar):
-    """The narrow towers the kernels take (d_hidden 128 and 256): the plain
+    """The narrow towers the kernels take (d_hidden 64, 128 and 256): the plain
     version against ``_kernel_2d_gather`` in interpret mode at
     tests/test_pallas.py's small shape and at sn64's other widths (a 512-wide
     table: one operand tile at every width), the last tile ragged, taps

@@ -3,7 +3,7 @@
 plain version (``gather_reference`` on the ``(NS, T, C)`` tables, then
 ``resnetfc_reference`` at NS views) and the checks of
 ``resnetfc_fwd_gather_mv`` (``check_gather_mv``), at sn64's d_hidden 512 and
-at the narrow widths 128 and 256 (one library a width).
+at the narrow widths 64, 128 and 256 (one library a width).
 
 ``resnetfc_fwd_gather_mv`` walks 64-point tiles of one object's output
 points on persistent CTAs, view v's lookup reading idx / w rows ``v B + g``
@@ -128,7 +128,7 @@ def test_gather_mv_plain_matches_pallas_interpret(NS, B, raw_code, planar):
     assert err <= 1e-4 * max(1.0, np.abs(ref).max()), err
 
 
-@pytest.mark.parametrize("H", [128, 256])
+@pytest.mark.parametrize("H", [h for h in rf.HIDDEN if h < 512])
 @pytest.mark.parametrize("shape,NS,B,raw_code,planar", [
     ("small", 2, 150, False, True),
     ("sn64", 2, 160, True, False),
@@ -137,7 +137,7 @@ def test_gather_mv_plain_matches_pallas_interpret(NS, B, raw_code, planar):
 ])
 def test_gather_mv_plain_at_narrow_widths_matches_pallas_interpret(H, shape, NS, B, raw_code,
                                                                    planar):
-    """The narrow towers the kernels take (d_hidden 128 and 256): the plain
+    """The narrow towers the kernels take (d_hidden 64, 128 and 256): the plain
     version against ``_kernel_2d_mv_gather`` in interpret mode at
     tests/test_pallas.py's small shape and at sn64's other widths (512-wide
     tables), NS 2 and 3, a ragged last tile, taps outside each view's table."""

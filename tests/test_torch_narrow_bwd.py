@@ -1,18 +1,20 @@
 """The port's ResnetFC backward (rows 5a / 5b of PERF.md) at the narrow
-tower widths, d_hidden 256 and 128, on the CPU.
+tower widths, d_hidden 256, 128 and 64, on the CPU.
 
 The backward is built once per tower width, as the forward is: its data
 kernel's walk back forms dz H columns a step (``dz_pieces``: 2 steps an
-injection of sn64's C = 512 at 256, 4 at 128), each into an (NS B_pad, H)
-plane that ``_join_planes`` joins; its weights kernel's output tile is 128
-x min(256, H), so a narrow tower has few output tiles (33 at 256, 23 at 128
-against sn64's 106 at the -V 1 fine pass), and ``fill_points`` splits the
-point axis past ``split_points``' whole views to fill the card's SMs in one
-wave.
+injection of sn64's C = 512 at 256, 4 at 128, 8 at 64), each into an (NS
+B_pad, H) plane that ``_join_planes`` joins; its weights kernel's output
+tile is 128 x min(256, H), so a narrow tower has few output tiles (33 at
+256, 23 at 128 and at 64 against sn64's 106 at the -V 1 fine pass), and
+``fill_points`` splits the point axis past ``split_points``' whole views to
+fill the card's SMs in one wave.
 
 * The slice as a whole: sn64's depth (5 blocks, the latent in blocks 0-2,
-  the views' mean at block 3) at d_hidden 256 and 128, C = 512 and 640,
-  from 1 and 3 views, through the port's ``ResnetFC(impl="cuda")`` on CPU
+  the views' mean at block 3) at d_hidden 256, 128 and 64, C = 512 and 640,
+  from 1 and 3 views, and the JAX package's own d_hidden 64 case of
+  ``tests/test_pallas_vjp.py`` (C = 96, 4 blocks, the latent in all four),
+  through the port's ``ResnetFC(impl="cuda")`` on CPU
   tensors (its autograd Function, whose backward is the plain transcription
   of ``_bwd_kernel``), against the JAX ``resnetfc_pallas_diff`` in
   interpret mode (as ``tests/test_pallas_vjp.py`` runs it): the value to
@@ -43,11 +45,11 @@ FINE = 4 * 128 * 96  # the train step's fine pass: SB 4 x 128 rays x 96 samples
 N_SMS = 132  # an H100 SXM's SMs
 
 
-def _setup(NS, sb, B_obj, d_in, C, H, seed=0):
-    """sn64's depth at width H: JAX parameters drawn from numpy (every
-    parameter live), the port module holding them (impl="cuda": on CPU
-    tensors its kernels' plain versions), seeded inputs and cotangent."""
-    nb, cl = 5, 3
+def _setup(NS, sb, B_obj, d_in, C, H, seed=0, nb=5, cl=3):
+    """sn64's depth at width H (or ``nb`` blocks, the latent below ``cl``):
+    JAX parameters drawn from numpy (every parameter live), the port module
+    holding them (impl="cuda": on CPU tensors its kernels' plain versions),
+    seeded inputs and cotangent."""
     jm = JResnetFC(d_out=4, n_blocks=nb, d_latent=C, d_hidden=H, combine_layer=cl)
     params = jm.init(jax.random.PRNGKey(0), jnp.zeros((4, C + d_in)))["params"]
     rng = np.random.default_rng(seed)
@@ -72,23 +74,27 @@ def _close(b, a, what):
                                err_msg=f"grad mismatch at {what}")
 
 
-@pytest.mark.parametrize("NS,sb,B_obj,C,H", [
-    (1, 1, 150, 512, 256),  # B ragged against the 64-point tile and the 128-point block
-    (3, 2, 48, 512, 256),  # the -V 3 train layout: SB 2 x 3 views
-    (1, 1, 96, 640, 128),  # the global encoder's latent: 2 pieces, 5 dz steps an injection
-    (3, 1, 20, 512, 128),  # a small batch: one half-filled tile
+@pytest.mark.parametrize("NS,sb,B_obj,C,H,nb,cl", [
+    (1, 1, 150, 512, 256, 5, 3),  # B ragged against the 64-point tile and the 128-point block
+    (3, 2, 48, 512, 256, 5, 3),  # the -V 3 train layout: SB 2 x 3 views
+    (1, 1, 96, 640, 128, 5, 3),  # the global encoder's latent: 2 pieces, 5 dz steps an injection
+    (3, 1, 20, 512, 128, 5, 3),  # a small batch: one half-filled tile
+    # tests/test_pallas_vjp.py's own d_hidden 64 case: C = 96 (6 dz steps of
+    # 64 columns, the last past C), the latent in all 4 blocks
+    (1, 1, 64, 96, 64, 4, 4),
+    (3, 2, 48, 512, 64, 5, 3),  # sn64's depth at 64 from 3 views: 8 dz steps an injection
 ])
 def test_narrow_function_value_and_grads_match_pallas_interpret(monkeypatch, NS, sb, B_obj, C,
-                                                                H):
+                                                                H, nb, cl):
     """The narrow tower's train-step field through the port's kernel route
     (the autograd Function and its backward, ``resnetfc_bwd``) against the
     JAX kernels: the value, every parameter's gradient, dz and dx."""
     d_in = 42
-    params, x, z, cot, port = _setup(NS, sb, B_obj, d_in, C, H)
+    params, x, z, cot, port = _setup(NS, sb, B_obj, d_in, C, H, nb=nb, cl=cl)
 
     def loss(p, z, x):
-        out = resnetfc_pallas_diff(p, (z, x), NS=NS, d_latent=C, d_in=d_in, n_blocks=5,
-                                   combine_layer=3, sb=sb, block_points=128,
+        out = resnetfc_pallas_diff(p, (z, x), NS=NS, d_latent=C, d_in=d_in, n_blocks=nb,
+                                   combine_layer=cl, sb=sb, block_points=128,
                                    bwd_block_points=128, interpret=True)
         return jnp.sum(out * cot)
 
@@ -117,7 +123,8 @@ def test_narrow_function_value_and_grads_match_pallas_interpret(monkeypatch, NS,
 
 
 @pytest.mark.parametrize("H,C", [(512, 512), (512, 640), (256, 512), (256, 640), (128, 128),
-                                 (128, 512), (128, 640), (128, 1024), (256, 16)])
+                                 (128, 512), (128, 640), (128, 1024), (256, 16), (64, 512),
+                                 (64, 96), (64, 640)])
 def test_dz_steps_joined_are_the_latents_gradient(H, C):
     """The walk back's Z_BWD steps as the kernel takes them: step j of
     injection k reads the rows k C + j H .. + H of the flat (n_lin_z C, H)
@@ -148,10 +155,10 @@ def test_dz_steps_joined_are_the_latents_gradient(H, C):
 
 @pytest.mark.parametrize("H,C,NS,pre,want", [
     # sn64 at -V 1: 34 steps at 512; each injection's walk back takes
-    # dz_pieces(512, H) steps (1, 2, 4), 3 injections
-    (512, 512, 1, 5, 34), (256, 512, 1, 5, 37), (128, 512, 1, 5, 43),
+    # dz_pieces(512, H) steps (1, 2, 4, 8), 3 injections
+    (512, 512, 1, 5, 34), (256, 512, 1, 5, 37), (128, 512, 1, 5, 43), (64, 512, 1, 5, 55),
     # -V 3: one view's segments; the walk back's view segment holds the steps
-    (512, 512, 3, 3, 36), (256, 512, 3, 3, 39), (128, 512, 3, 3, 45),
+    (512, 512, 3, 3, 36), (256, 512, 3, 3, 39), (128, 512, 3, 3, 45), (64, 512, 3, 3, 57),
     # the global encoder's C = 640: 2 recompute pieces, 3 / 5 dz steps
     (256, 640, 1, 5, 17 + 1 + 25), (128, 640, 1, 5, 17 + 1 + 31),
     # the ConvEncoder's C = 128: one step each way at every width
@@ -166,20 +173,21 @@ def test_data_steps_with_the_split_dz_steps(H, C, NS, pre, want):
 
 
 @pytest.mark.parametrize("H,want", [(512, [2] + [8] * 13), (256, [1] + [4] * 3 + [2] * 10),
-                                    (128, [1] + [4] * 3 + [1] * 10)])
+                                    (128, [1] + [4] * 3 + [1] * 10),
+                                    (64, [1] + [4] * 3 + [1] * 10)])
 @pytest.mark.parametrize("NS,pre", [(1, 5), (3, 3)])
 def test_weight_plan_at_narrow_widths(H, want, NS, pre):
-    """sn64's 14 products at d_hidden 256 and 128: lin_in (M = 48), lin_z
+    """sn64's 14 products at d_hidden 256, 128 and 64: lin_in (M = 48), lin_z
     (M = C = 512) and the blocks (M = H), on 128 x min(256, H) tiles: 106
     tiles at 512, 33 at 256 (lin_in 1, lin_z 3 x 4, blocks 10 x 2), 23 at
-    128 (lin_in 1, lin_z 3 x 4, blocks 10 x 1); the outputs lie one after
+    128 and at 64 (lin_in 1, lin_z 3 x 4, blocks 10 x 1); the outputs lie one after
     another, lin_z's 512 x H and the blocks' H x H each; 23 tensor maps."""
     lim = rv.WEIGHT_LIMITS[H]
     assert lim.tile_n == min(256, H)
     tasks = rv.weight_tasks(48, H, 512, 5, 3, NS, pre, FINE)
     assert [rv.weight_tiles(t, H, lim) for t in tasks] == want
     plan = rv.weight_plan(48, H, 512, 5, 3, NS, pre, FINE, lim, N_SMS)
-    assert plan.tiles == sum(want) == {512: 106, 256: 33, 128: 23}[H]
+    assert plan.tiles == sum(want) == {512: 106, 256: 33, 128: 23, 64: 23}[H]
     assert len(plan.maps) == 23 and len(plan.table) == 6 * 14
     assert [t.M for t in tasks] == [48] + [512] * 3 + [H] * 10
     offsets = [plan.table[6 * i + 5] for i in range(14)]
@@ -196,6 +204,8 @@ def test_weight_plan_at_narrow_widths(H, want, NS, pre):
     (256, 3, 3, FINE, 83),  # 166 at half the points: past one wave
     (128, 1, 5, 9856, 115),  # 23 tiles x 5 splits (6 would take 138 CTAs)
     (128, 3, 3, FINE // 2, 122),  # 6 splits below the mean, 2 above
+    (64, 1, 5, 9856, 115),  # 64's 23 tiles split as 128's
+    (64, 3, 3, FINE // 2, 122),
 ])
 def test_split_points_fill_the_card_at_narrow_widths(H, NS, pre, pts, ctas):
     """On an H100's 132 SMs: a launch that would leave more than half the
@@ -217,7 +227,7 @@ def test_split_points_fill_the_card_at_narrow_widths(H, NS, pre, pts, ctas):
     assert plan.units == sum(n * s for n, s in zip(tiles, splits) if s > 1)
 
 
-@pytest.mark.parametrize("H", [256, 128])
+@pytest.mark.parametrize("H", [256, 128, 64])
 @pytest.mark.parametrize("NS,B", [(1, 2000), (1, 40), (3, 666), (25, FINE), (255, 1000)])
 def test_split_points_stay_within_the_kernels_limits(H, NS, B):
     """At a ragged B, a tiny B, and -V 25 / -V 255, the narrow plans keep

@@ -15,8 +15,8 @@ envelope, on the CPU.
   Under grad the backward kernels take the forward's latent widths (16 to
   1024, a multiple of 16): the global encoder's 640 and the ConvEncoder's
   128 train on the kernels; 1040 and 24 stay plain.  The forward and the
-  backward kernels take d_hidden 128, 256 and 512 (a library each of
-  each): narrow towers render and train on them; 64 and 384 stay plain.
+  backward kernels take d_hidden 64, 128, 256 and 512 (a library each of
+  each): narrow towers render and train on them; 192 and 384 stay plain.
 * The steepened field of the eval CLIs' replay (its sigma row x 50, shifted
   to leave 1/32 of the points occupied) read past the per-kernel bar on the
   card: the JAX kernel's own bf16 arithmetic reads alike on it.
@@ -159,8 +159,8 @@ CUDA = torch.device("cuda")  # only compared by type: nothing is allocated on it
 
 @pytest.mark.parametrize("kw,NS,grad", [
     (dict(d_hidden=384), 1, False),  # no library of that width
-    (dict(d_hidden=64), 3, False),  # a warpgroup's 32 columns: below one TMA box
-    (dict(d_hidden=64), 1, True),  # no library of that width, under grad
+    (dict(d_hidden=192), 3, False),  # no library of that width either
+    (dict(d_hidden=192), 1, True),  # no library of that width, under grad
     (dict(d_hidden=384), 3, True),
     (dict(d_in=144), 1, True),  # kin 144 > 128: the data kernel's code
     (dict(n_blocks=6), 1, True),  # the weights kernel's plan: 5 blocks at most
@@ -203,6 +203,10 @@ def test_route_sends_towers_outside_the_envelope_to_the_plain_route(kw, NS, grad
     (dict(d_hidden=128), 1, True),
     (dict(d_hidden=128), 3, True),
     (dict(d_hidden=128, d_latent=WIDE), 1, True),  # 640 at 128: 2 pieces, 5 dz steps a way
+    (dict(d_hidden=64), 1, False),  # d_hidden 64's forward: its own library
+    (dict(d_hidden=64), 3, False),
+    (dict(d_hidden=64), 1, True),  # and its backward, 8 dz steps an injection
+    (dict(d_hidden=64), 3, True),
 ])
 def test_route_takes_the_kernels_inside_the_envelope(kw, NS, grad):
     """Decided from the Python mirrors as well: no library built or loaded."""
@@ -213,14 +217,16 @@ def test_route_takes_the_kernels_inside_the_envelope(kw, NS, grad):
 
 
 @pytest.mark.parametrize("option,want", [("global", True), ("conv", True), ("narrow", True),
-                                         ("narrow128", True), ("narrow64", False)])
+                                         ("narrow128", True), ("narrow64", True),
+                                         ("narrow192", False)])
 def test_option_train_steps_take_the_backward_kernels(monkeypatch, option, want):
     """sn64's conf with the global encoder (C = 640) or the ConvEncoder (C =
     128), built in code as ``chip_smoke.py``'s ``option_confs`` builds it,
-    or with both heads at d_hidden 256 or 128 (``narrow_conf``): under
+    or with both heads at d_hidden 256, 128 or 64 (``narrow_conf``): under
     ``auto`` with card parameters ``field_backward_in_kernel`` holds at -V 1
     and -V 3, so the trainer's remat default, which follows it and not the
-    conf, is off; a d_hidden 64 tower stays plain.  The card is faked: the
+    conf, is off; a d_hidden 192 tower, which no library is built for,
+    stays plain.  The card is faked: the
     rule reads only the parameters' device, and no library is built or
     loaded."""
     from types import SimpleNamespace
@@ -253,23 +259,27 @@ def test_mirrored_limits_are_the_kernels_limits_by_hand():
     weights kernel's 128 x 256 tile, 24 splits, 24 tensor maps and 16
     products.  The narrow libraries keep the operand tiles, the code's and
     the latent's widths and the 96 KB ring (6 stages of 16 KB at d_hidden
-    128, where a warpgroup's piece is one 64-column box), and a view-sum
-    slot of the H-wide stream (H / 4 f32 a thread), the data kernel's as the
-    forward's: 32768 / 16384 / 8192 f32 at 512 / 256 / 128; the weights
-    kernel's tile is 128 x min(256, H).  ``chip_smoke.py`` holds them equal
+    128, where a warpgroup's piece is one 64-column box; 12 of 8 KB at 64,
+    where it is one 64 x 32 box), and a view-sum slot of the H-wide stream
+    (H / 4 f32 a thread), the data kernel's as the forward's: 32768 / 16384
+    / 8192 / 4096 f32 at 512 / 256 / 128 / 64; the weights kernel's tile is
+    128 x min(256, H).  ``chip_smoke.py`` holds them equal
     to what the libraries report."""
     assert rf.TILE_LIMITS == {
+        64: rf.DenseLimits(64, 256, 12, 4, 128, 512, 4096, 230400, 448, 1024, 64),
         128: rf.DenseLimits(64, 256, 6, 4, 128, 512, 8192, 230400, 448, 1024, 128),
         256: rf.DenseLimits(64, 256, 3, 4, 128, 512, 16384, 230400, 448, 1024, 256),
         512: rf.DenseLimits(64, 256, 3, 4, 128, 512, 32768, 230400, 448, 1024, 512),
     }
     assert tuple(rf.TILE_LIMITS) == rf.HIDDEN
     assert rv.DATA_LIMITS == {
+        64: rv.DataLimits(64, 256, 4096, 12, 4, 256, 1024, 230400, 64),
         128: rv.DataLimits(64, 256, 8192, 6, 4, 256, 1024, 230400, 128),
         256: rv.DataLimits(64, 256, 16384, 3, 4, 256, 1024, 230400, 256),
         512: rv.DataLimits(64, 256, 32768, 3, 4, 256, 1024, 230400, 512),
     }
-    assert rv.WEIGHT_LIMITS == {128: rv.KernelLimits(128, 128, 24, 24, 16),
+    assert rv.WEIGHT_LIMITS == {64: rv.KernelLimits(128, 64, 24, 24, 16),
+                                128: rv.KernelLimits(128, 128, 24, 24, 16),
                                 256: rv.KernelLimits(128, 256, 24, 24, 16),
                                 512: rv.KernelLimits(128, 256, 24, 24, 16)}
     assert tuple(rv.DATA_LIMITS) == tuple(rv.WEIGHT_LIMITS) == rf.HIDDEN
@@ -279,8 +289,11 @@ def test_mirrored_limits_are_the_kernels_limits_by_hand():
         dlim = rv.DATA_LIMITS[H]
         assert dlim.max_c == lim.max_c and dlim.hidden == H and dlim.smem <= rf.MAX_SMEM_BYTES
         assert dlim.slot_floats == dlim.threads * H // 4  # a thread's share of the 64 x H stream
-        assert dlim.stages * 2 * (min(H // 2, 128) // 64) * 8192 == 3 * 32768  # a 96 KB ring
-    for H in (64, 384, 1024):
+        # a 96 KB ring: stages of 32 KB (two warpgroups x two or one 8 KB box),
+        # 16 KB (x one 8 KB box) or 8 KB (x one 64 x 32 box of 4 KB)
+        stage = {64: 2 * 4096, 128: 2 * 8192}.get(H, 4 * 8192)
+        assert rf.ring_stage_bytes(H) == stage and dlim.stages * stage == 3 * 32768
+    for H in (192, 384, 1024):
         with pytest.raises(ValueError, match="d_hidden"):
             rf.tile_limits(H)
 

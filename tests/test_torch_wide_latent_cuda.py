@@ -1,7 +1,7 @@
 """On the card only (``cuda``-marked; skipped without one): the dense
 forwards at a 640-wide latent, the backward kernels (rows 5a / 5b) at
 latent widths 128, 640 and 1024, and the four forward kernels with their
-CODE twins (rows 1-4, 6) at d_hidden 128 and 256 against their plain
+CODE twins (rows 1-4, 6) at d_hidden 64, 128 and 256 against their plain
 versions, and the Python mirrors of the kernels' limits that the route rule
 reads against what each library reports.  No JAX here: this file runs where
 the card is.  ``chip_smoke.py`` makes the same checks at sn64's full
@@ -26,11 +26,13 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-def test_mirrored_limits_are_the_libraries(cuda_device):
-    for H in rf.HIDDEN:
-        assert rf.dense_limits(H) == rf.TILE_LIMITS[H]
-        assert rv.data_limits(H) == rv.DATA_LIMITS[H]
-        assert rv.kernel_limits(H) == rv.WEIGHT_LIMITS[H]
+@pytest.mark.parametrize("H", rf.HIDDEN)
+def test_mirrored_limits_are_the_libraries(cuda_device, H):
+    """Each width's libraries (d_hidden 64's 12-stage ring of 8 KB, 64 x 32
+    weight boxes, included) report the limits the route rule mirrors."""
+    assert rf.dense_limits(H) == rf.TILE_LIMITS[H]
+    assert rv.data_limits(H) == rv.DATA_LIMITS[H]
+    assert rv.kernel_limits(H) == rv.WEIGHT_LIMITS[H]
 
 
 @pytest.mark.cuda
@@ -135,10 +137,10 @@ def test_backward_kernels_at_other_latent_widths_match_plain_on_card(cuda_device
 @pytest.mark.parametrize("raw_code", [False, True])
 @pytest.mark.parametrize("kind", ["dense", "gather"])
 @pytest.mark.parametrize("NS,sb,B_obj", [(1, 1, 2000), (1, 1, 160), (3, 2, 333), (2, 1, 1000)])
-@pytest.mark.parametrize("H", [128, 256])
+@pytest.mark.parametrize("H", [64, 128, 256])
 def test_narrow_forward_kernels_match_plain_on_card(cuda_device, H, NS, sb, B_obj, kind,
                                                     raw_code):
-    """sn64's other widths at d_hidden 128 and 256 (C = 512 one piece, 5
+    """sn64's other widths at d_hidden 64, 128 and 256 (C = 512 one piece, 5
     blocks, the views' mean at block 3): the dense kernel or the fused gather
     (NS 1), the multi-view dense kernel or gather (the gather at SB 1), each
     encoded and as its CODE twin, against its plain version in bf16 at the
