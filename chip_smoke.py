@@ -200,7 +200,7 @@ one line each:
     (C = 128, a 4096-row map) and the nearest lookup from view 0 on the
     dense kernel; ImplicitNet heads (5 x 512) on the plain route with no
     launch, a d_hidden 256 tower on the dense kernel (its 256-wide library,
-    under ``PIXELNERF_FUSED_GATHER_MAX_ROWS=0``), and a d_hidden 384 tower
+    under ``PIXELNERF_FUSED_GATHER_MAX_ROWS=0``), and a d_hidden 320 tower
     refused under ``impl='cuda'``; every render >= 40 dB against
     the plain route and its kernel calls replayed against their plain
     versions at the bar of 3; the dense and multi-view dense kernels and
@@ -220,9 +220,10 @@ one line each:
     step at the guards of 9 (cosine per head and per encoder, the global
     encoder included; weights where both heads' sigma is live, and no
     module with a zero gradient on both routes);
-17. narrow: ``conf/exp/sn64.conf`` with both heads' d_hidden 256, then 128,
-    then 64 (each width its own library: at 64 a warpgroup's 32 columns on
-    wgmma m64n32k16 from 64 x 32 weight boxes), built in code (seeded as 16
+17. narrow: ``conf/exp/sn64.conf`` with both heads' d_hidden 384, then 256,
+    then 128, then 64 (each width its own library: at 384 a warpgroup's 192
+    columns in three m64n64k16 pieces; at 64 its 32 columns on wgmma
+    m64n32k16 from 64 x 32 weight boxes), built in code (seeded as 16
     seeds, random encoder): ring frame 0 from
     views (0) (the fused gather), (0) under
     ``PIXELNERF_FUSED_GATHER_MAX_ROWS=0`` (the dense kernel), (0, 1) (the
@@ -241,24 +242,32 @@ one line each:
     d_hidden 256 with ``PIXELNERF_DEFER_CODE=1`` on the NMR fixture (a conf
     file including sn64's, a checkpoint of the phase's weights), launching
     the gather's and the multi-view dense kernel's CODE twins;
-18. narrow backward: rows 5a / 5b at d_hidden 256, 128 and 64 (sn64's tower,
-    C = 512, seeded) from 1 and 3 views at a ragged B (SB 2 x 1000, SB 2 x
-    NS 3 x 333) and at the train step's fine pass (SB 4 x 12,288 from 1 and
-    3 views), and at d_hidden 128 also at C = 640 and 128 on the ragged
-    shapes, each against its plain version as 16 gates the wide latents
-    (``backward_gate``: the bar and corr > 0.999, relu-mask flips <= 1e-3,
-    one launch of the width's library each, bit-identical second calls);
+18. narrow and deep backward: rows 5a / 5b at d_hidden 384, 256, 128 and
+    64 (sn64's tower, C = 512, seeded) and at 7 blocks (sn64's widths) from
+    1 and 3 views at a ragged B (SB 2 x 1000, SB 2 x NS 3 x 333) and at the
+    train step's fine pass (SB 4 x 12,288 from 1 and 3 views), at 7 blocks
+    also at d_hidden 384, 256, 128 and 64 and at d_hidden 128 and 384 also
+    at C = 640 and 128 on the ragged shapes, each against its plain version
+    as 16 gates the wide latents (``backward_gate``: the bar and corr >
+    0.999, relu-mask flips <= 1e-3, one launch of the width's library each,
+    bit-identical second calls, the weights kernel's plan walked in bounds);
     both kernels at the fine pass from 1 and 3 views timed in turns beside
-    d_hidden 512 on the same inputs (512, 256, 128, 64, 64, 128, 256, 512),
+    d_hidden 512 on the same inputs (512, 384, 256, 128, 64, 64, 128, 256,
+    384, 512), and the 7-block tower beside the 5-block one (5, 7, 7, 5),
     with their plain, library and bound times, and the weights kernel on
     its SM-filled splits and the whole-view splits in turns (filled, whole,
     whole, filled, twice); ``python -m pixelnerf_tpu_torch.train``
-    with both heads at d_hidden 256, then 64 (a conf file including sn64's)
-    for 3 steps each at -V 1 on the NMR fixture and at -V 3 on the DTU one:
-    remat off, the forward kernel and both backward kernels twice a step;
-    each width's train step at -V 1 against the plain f32 step (the guards
-    of 9); and d_hidden 192 and 384 towers, which no library is built for,
-    under grad, plain under ``auto`` and refused under ``impl='cuda'``;
+    with both heads at d_hidden 384, then 256, then 64 (a conf file
+    including sn64's) for 3 steps each, and with both heads at 7 blocks for
+    2 steps, at -V 1 on the NMR fixture and at -V 3 on the DTU one: remat
+    off, the forward kernel and both backward kernels twice a step; each
+    width's train step and the 7-block tower's at -V 1 against the plain
+    f32 step (the guards of 9), the 7-block tower's at -V 3 against the
+    kernels' plain versions on the card under the same AMP (the guards of
+    9; the f32 step's loss and cosines too); and d_hidden 192, 320 and 448
+    towers, which no library is built for, and 8- and 49-block towers, past
+    the depth these gates hold, under grad, plain under ``auto`` and
+    refused under ``impl='cuda'``;
 19. visuals: ``python -m pixelnerf_tpu_torch.train --fixed_test`` with a
     conf file that includes a shipped one and sets ``train { vis_interval =
     1 }``: ``conf/exp/sn64.conf`` on the NMR fixture at -V 1 for 2 epochs,
@@ -314,6 +323,7 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
+import contextlib
 import glob
 import itertools
 import json
@@ -682,20 +692,57 @@ def profile_split(path: str, smi: str, step_kernel: str, label: str = "profile")
         + json.dumps([(round(ms, 3), n, h) for ms, n, h in sp["gaps"]]))
 
 
-def step_parity(conf, state, nviews: int, dev, label: str, note: str = "") -> dict:
+@contextlib.contextmanager
+def plain_versions_on_card():
+    """Inside it, the dense route's autograd Function runs the kernels' plain
+    versions on the card (``resnetfc_reference`` and
+    ``resnetfc_bwd_reference`` with bf16 operands, rounding where the
+    kernels round) in place of the kernels, and launches none."""
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
+
+    bf = torch.bfloat16
+    kept = rf.resnetfc_dense, rf.resnetfc_dense_mv, rv.resnetfc_bwd
+    rf.resnetfc_dense = lambda z, x, tw, nb, planar_out=True: rf.resnetfc_reference(
+        z, x, tw, nb, planar_out, bf)
+    rf.resnetfc_dense_mv = lambda z, x, tw, nb, NS, cl, sb=1, planar_out=True: \
+        rf.resnetfc_reference(z, x, tw, nb, planar_out, bf, NS=NS, sb=sb, combine_layer=cl)
+    rv.resnetfc_bwd = lambda g, z, x, tw, nb, need_dx=True, NS=1, sb=1, combine_layer=None: \
+        rv.resnetfc_bwd_reference(g, z, x, tw, nb, need_dx, bf, NS=NS, sb=sb,
+                                  combine_layer=combine_layer)
+    try:
+        yield
+    finally:
+        rf.resnetfc_dense, rf.resnetfc_dense_mv, rv.resnetfc_bwd = kept
+
+
+# step_parity's routes: (mlp_impl, AMP, the kernels' plain versions on the card)
+PARITY_ROUTES = {"kernel": ("auto", True, False), "plain": ("torch", False, False),
+                 "plain_amp": ("torch", True, False), "kernel_plain": ("auto", True, True)}
+
+
+def step_parity(conf, state, nviews: int, dev, label: str, note: str = "", seed: int = SEED,
+                yardstick: str = "plain", check: bool = True) -> dict:
     """One train step on the kernel route (AMP) and one on the plain f32
     route, both from ``state``, on one ``prepare_ray_batch`` batch of -F
-    synthetic (B 4, V ``nviews``, R 128) with shared draws and one generator
-    seed (so the same dropout masks): the guards of PERF.md section 2 (loss
-    within 1%, ``grad_norm`` within 2%, gradient cosine >= 0.99 for each
-    top-level module: each head and each encoder), the kernel route
-    launching its forward kernel (the dense one at one view, the multi-view
-    one past it), ``resnetfc_bwd_data`` and ``resnetfc_bwd_weights`` twice
-    each and nothing else, the plain route nothing.  A module whose gradient
-    is exactly zero on both routes (a head that no sample reaches: every
-    sigma at or below zero) fails: its kernels would be compared on
-    nothing.  Logs one line, exits on a failure, returns the kernel route's
-    launches."""
+    synthetic (B 4, V ``nviews``, R 128; rays drawn from ``seed``) with
+    shared draws and one generator seed (so the same dropout masks): the
+    guards of PERF.md section 2 (loss within 1%, ``grad_norm`` within 2%,
+    gradient cosine >= 0.99 for each top-level module: each head and each
+    encoder) against the ``yardstick`` route, the kernel route launching its
+    forward kernel (the dense one at one view, the multi-view one past it),
+    ``resnetfc_bwd_data`` and ``resnetfc_bwd_weights`` twice each and
+    nothing else, the other routes nothing.  The yardstick is the plain f32
+    step, or ``kernel_plain``: the same AMP step through the kernels' plain
+    versions on the card (:func:`plain_versions_on_card`), the route whose
+    rounding the kernels reproduce; then the kernel route also keeps the
+    loss and the cosines of the plain f32 step, and the plain step under AMP
+    (``plain_amp``) is run too, each route's distance from f32 logged beside
+    the kernel route's, so that what bf16 alone does on this batch shows.  A module whose gradient is
+    exactly zero on both routes (a head that no sample reaches: every sigma
+    at or below zero) fails: its kernels would be compared on nothing.  Logs
+    one line; with ``check``, exits on a failure.  Returns the kernel
+    route's launches, ``ok`` and each route's distance from the others."""
     import numpy as np
 
     from pixelnerf_tpu_torch.data import collate, get_split_dataset
@@ -710,16 +757,18 @@ def step_parity(conf, state, nviews: int, dev, label: str, note: str = "") -> di
     rcfg = NeRFRenderer.from_conf(conf["renderer"], lindisp=ds.lindisp).cfg
     n_rays, n_imp = 4 * 128, rcfg.n_fine - rcfg.n_fine_depth
     batch_np = prepare_ray_batch(collate([ds[i] for i in range(len(ds))]), nviews, 128,
-                                 ds.z_near, ds.z_far, True, np.random.default_rng(SEED))
+                                 ds.z_near, ds.z_far, True, np.random.default_rng(seed))
     batch = {k: torch.from_numpy(v).to(dev) for k, v in batch_np.items()}
-    gd = torch.Generator(device=dev).manual_seed(SEED + 3)
+    gd = torch.Generator(device=dev).manual_seed(seed + 3)
     draws = RayDraws(
         coarse=torch.rand(n_rays, rcfg.n_coarse, device=dev, generator=gd),
         fine_u=torch.rand(n_rays, n_imp, device=dev, generator=gd),
         fine_jitter=torch.rand(n_rays, n_imp, device=dev, generator=gd),
         depth=torch.randn(n_rays, rcfg.n_fine_depth, device=dev, generator=gd))
+    routes = ("kernel", "plain") + (("plain_amp", "kernel_plain") if yardstick != "plain" else ())
     steps = {}
-    for route, impl, amp in (("kernel", "auto", True), ("plain", "torch", False)):
+    for route in routes:
+        impl, amp, plain_versions = PARITY_ROUTES[route]
         tnet = make_model(conf["model"], mlp_impl=impl, device=dev, diff_mode=True)
         tnet.load_state_dict(state)
         opt = Optimizer(list(tnet.parameters()), lambda t: 1e-4)
@@ -728,8 +777,9 @@ def step_parity(conf, state, nviews: int, dev, label: str, note: str = "") -> di
                                       remat=not tnet.field_backward_in_kernel(nviews))
         rf.reset_launches()
         rv.reset_launches()
-        ld = {k: float(v) for k, v in train_step(
-            batch, torch.Generator(device=dev).manual_seed(SEED + 5), draws).items()}
+        with plain_versions_on_card() if plain_versions else contextlib.nullcontext():
+            ld = {k: float(v) for k, v in train_step(
+                batch, torch.Generator(device=dev).manual_seed(seed + 5), draws).items()}
         torch.cuda.synchronize()
         groups = {}
         for n, prm in tnet.named_parameters():
@@ -737,26 +787,50 @@ def step_parity(conf, state, nviews: int, dev, label: str, note: str = "") -> di
         steps[route] = (ld, {k: torch.cat(v) for k, v in groups.items()},
                         {k: v for k, v in dict(rf.LAUNCHES, **rv.LAUNCHES).items() if v})
         del tnet, opt
-    (lk, gk, nk), (lp, gp, np_) = steps["kernel"], steps["plain"]
-    cos = {k: cosine(gk[k], gp[k]) for k in gp}
-    dead = sorted(k for k in gp if not gk[k].any() and not gp[k].any())
-    d_loss = abs(lk["t"] - lp["t"]) / abs(lp["t"])
-    d_norm = abs(lk["grad_norm"] - lp["grad_norm"]) / lp["grad_norm"]
+
+    def gaps(a, b):
+        (la, ga, _), (lb, gb, _) = steps[a], steps[b]
+        return {"loss": abs(la["t"] - lb["t"]) / abs(lb["t"]),
+                "grad_norm": abs(la["grad_norm"] - lb["grad_norm"]) / lb["grad_norm"],
+                "cosine": {k: cosine(ga[k], gb[k]) for k in gb}}
+
+    (lk, gk, nk), (ly, gy, _) = steps["kernel"], steps[yardstick]
+    g = gaps("kernel", yardstick)
+    d_loss, d_norm, cos = g["loss"], g["grad_norm"], g["cosine"]
+    dead = sorted(k for k in gy if not gk[k].any() and not gy[k].any())
     fwd = STEP_KERNEL[nviews]
+    others = {r: steps[r][2] for r in routes if r != "kernel"}
     ok = (d_loss <= 0.01 and d_norm <= 0.02 and not dead and all(v >= 0.99 for v in cos.values())
-          and nk == {fwd: 2, "resnetfc_bwd_data": 2, "resnetfc_bwd_weights": 2} and not np_)
-    norms = {k: [float(f"{gk[k].norm().item():.6g}"), float(f"{gp[k].norm().item():.6g}")]
-             for k in gp}
-    log(f"{label + ' ' if label else ''}train-step parity -V {nviews}{note}: loss kernel "
-        f"{lk['t']:.6f} plain {lp['t']:.6f} (rel {d_loss:.3g} <= 0.01); grad_norm "
-        f"{lk['grad_norm']:.6f} vs {lp['grad_norm']:.6f} (rel {d_norm:.3g} <= 0.02); gradient "
-        f"cosine {json.dumps({k: round(v, 6) for k, v in cos.items()})} (>= 0.99); zero on "
-        f"both routes (must be none): {dead}; gradient norms "
-        f"[kernel, plain] {json.dumps(norms)}; kernel-route launches {nk}; plain-route "
-        f"launches {np_}")
-    if not ok:
+          and nk == {fwd: 2, "resnetfc_bwd_data": 2, "resnetfc_bwd_weights": 2}
+          and not any(others.values()))
+    if yardstick != "plain":  # the f32 step's loss and directions hold as well
+        f32 = gaps("kernel", "plain")
+        ok = ok and f32["loss"] <= 0.01 and all(v >= 0.99 for v in f32["cosine"].values())
+    norms = {k: [float(f"{steps[r][1][k].norm().item():.6g}") for r in routes] for k in gy}
+    extra = ""
+    if yardstick != "plain":
+        def fmt(a, b):
+            v = gaps(a, b)
+            return (f"loss {v['loss']:.3g}, grad_norm {v['grad_norm']:.3g}, least cosine "
+                    f"{min(v['cosine'].values()):.6f}")
+        extra = ("; from the plain f32 step (not gated): the kernel route " + fmt("kernel", "plain")
+                 + "; its plain versions " + fmt("kernel_plain", "plain")
+                 + "; the plain route under AMP " + fmt("plain_amp", "plain")
+                 + "; the kernel route from the plain route under AMP "
+                 + fmt("kernel", "plain_amp"))
+    log(f"{label + ' ' if label else ''}train-step parity -V {nviews}{note}"
+        f"{f' (rays of seed {seed})' if seed != SEED else ''}, against the {yardstick} route: "
+        f"loss kernel {lk['t']:.6f} {yardstick} {ly['t']:.6f} (rel {d_loss:.3g} <= 0.01); "
+        f"grad_norm {lk['grad_norm']:.6f} vs {ly['grad_norm']:.6f} (rel {d_norm:.3g} <= 0.02); "
+        f"gradient cosine {json.dumps({k: round(v, 6) for k, v in cos.items()})} (>= 0.99); "
+        f"zero on both routes (must be none): {dead}; gradient norms {list(routes)} "
+        f"{json.dumps(norms)}; kernel-route launches {nk}; the other routes' launches "
+        f"{others}" + extra)
+    if check and not ok:
         raise SystemExit(f"{label + ' ' if label else ''}train-step parity failed at -V {nviews}")
-    return nk
+    return {"launches": nk, "ok": ok,
+            "gaps": {f"{a}~{b}": gaps(a, b) for i, a in enumerate(routes) for b in routes[i + 1:]},
+            "grad_norm": {r: steps[r][0]["grad_norm"] for r in routes}}
 
 
 def train_eval_paths(nmr_root, dtu_root, net, smi, records, code_records, bwd_ms,
@@ -2034,15 +2108,15 @@ def live_state(conf, dev) -> dict:
     return net.state_dict()
 
 
-def bwd_tower(C: int, d_in: int, dev, seed: int, H: int = 512):
-    """sn64's fine tower (5 blocks x H, 512 by default, the latent in blocks
-    0-2, the views' mean at block 3) at latent width C, seeded (biases ~ N(0,
-    0.05^2), weights ~ N(0, 1 / fan_in)): the module and its packed
-    weights."""
+def bwd_tower(C: int, d_in: int, dev, seed: int, H: int = 512, nb: int = 5):
+    """sn64's fine tower (5 blocks x H, 512 by default, or ``nb`` blocks;
+    the latent in blocks 0-2, the views' mean at block 3) at latent width C,
+    seeded (biases ~ N(0, 0.05^2), weights ~ N(0, 1 / fan_in)): the module
+    and its packed weights."""
     from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
 
     g = torch.Generator().manual_seed(seed)
-    m = ResnetFC(d_in=d_in, d_out=4, n_blocks=5, d_latent=C, d_hidden=H, combine_layer=3,
+    m = ResnetFC(d_in=d_in, d_out=4, n_blocks=nb, d_latent=C, d_hidden=H, combine_layer=3,
                  impl="cuda")
     with torch.no_grad():
         for name, prm in m.named_parameters():
@@ -2066,24 +2140,31 @@ def bwd_inputs(code, gen, C: int, NS: int, sb: int, B_obj: int):
     return x, z, torch.randn(4, B, device=dev, generator=gen)
 
 
-def backward_gate(tw, x, z, g, NS: int, sb: int, n_sms: int, records: dict, label: str) -> None:
-    """Rows 5a / 5b of sn64's tower ``tw`` (5 blocks, the latent in blocks
-    0-2, the views' mean at block 3; any width H and latent C the kernels
-    take) at one shape, from the code ``x``, the bf16 latent ``z`` and the
-    cotangent ``g``: the data kernel's stashed operands against the plain
+def backward_gate(tw, x, z, g, NS: int, sb: int, n_sms: int, records: dict, label: str,
+                  check: bool = True) -> dict:
+    """Rows 5a / 5b of sn64's tower ``tw`` (5 blocks, or as many as ``tw``
+    holds; the latent in blocks 0-2, the views' mean at block 3; any width H
+    and latent C the kernels take) at one shape, from the code ``x``, the
+    bf16 latent ``z`` and the cotangent ``g``: the data kernel's stashed
+    operands against the plain
     recompute (the bar, relu-mask flips <= 1e-3), the dense forward's output
     against lin_out of the stashed t (the recompute in the primal's order),
     every gradient against the plain backward walked through the kernel's
     own operands (the bar and corr > 0.999) and against the independent
     plain backward (corr > 0.999), the weights kernel against
-    ``bwd_weights_reference`` on its own DataOut, one launch each and
-    bit-identical second calls.  Logs one line (``label``), exits on a
-    failure and keeps each kernel's largest max|d| in ``records``."""
+    ``bwd_weights_reference`` on its own DataOut, one launch each,
+    bit-identical second calls, and the weights kernel's plan walked in
+    bounds (``check_plan_image``).  Beside them, what bf16 alone does here
+    (not gated): the plain bf16 recompute's mask flips against the plain f32
+    recompute and the plain bf16 backward's least corr against the plain f32
+    backward.  Logs one line (``label``); with ``check``, exits on a failure
+    and keeps each kernel's largest max|d| in ``records``.  Returns the
+    readings and ``ok``."""
     from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
     from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
     from pixelnerf_tpu_torch.ops.replay import agree
 
-    nb, cl = 5, 3
+    nb, cl, n_lin_z = tw.w_blk.shape[0], 3, tw.w_z.shape[0]
     H, C = tw.w_in.shape[1], tw.w_z.shape[1]
     names = ("resnetfc_bwd_data", "resnetfc_bwd_weights")
     kw = dict(NS=NS, sb=sb, combine_layer=cl) if NS > 1 else {}
@@ -2104,14 +2185,21 @@ def backward_gate(tw, x, z, g, NS: int, sb: int, n_sms: int, records: dict, labe
         lin = (data.ws_act[-1, :B].double() @ tw.w_out.double()).t() + tw.b_out.double()[:, None]
         same_order = (out_f - lin).abs().max().item() <= 1e-5 * max(1.0, out_f.abs().max().item())
     ok = one_each and d <= bar and corr > 0.999 and flips <= 1e-3 and same_order
+    ops_32 = rv.forward_operands(z, x, tw, nb, torch.float32, **kw)
+    bf16_flips = ((ops_p > 0) != (ops_32 > 0)).float().mean().item()
+    del ops_32
     same = rv.resnetfc_bwd_reference(g, z, x, tw, nb, True, torch.bfloat16, operands=ops_k, **kw)
     ind = rv.resnetfc_bwd_reference(g, z, x, tw, nb, True, torch.bfloat16, **kw)
+    ind32 = rv.resnetfc_bwd_reference(g, z, x, tw, nb, True, torch.float32, **kw)
+    bf16_corr = min(agree(getattr(ind, n), getattr(ind32, n))[2] for n in rv.Grads._fields)
+    del ind32
     wref = rv.bwd_weights_reference(z, data, tw, nb)
-    err, worst = {n: 0.0 for n in names}, {}
+    err, worst, ind_corr = {n: 0.0 for n in names}, {}, 1.0
     for name in rv.Grads._fields:
         out = getattr(gr, name).float()
         d1, bar1, c1 = agree(out, getattr(same, name))
         _, _, c2 = agree(out, getattr(ind, name))
+        ind_corr = min(ind_corr, c2)
         fine = d1 <= bar1 and c1 > 0.999 and c2 > 0.999 and bool(torch.isfinite(out).all())
         owner = names[0] if name in ("dz", "dx") else names[1]
         if owner == names[1]:  # the weights kernel alone, on its own DataOut
@@ -2125,8 +2213,9 @@ def backward_gate(tw, x, z, g, NS: int, sb: int, n_sms: int, records: dict, labe
     gr2 = rv.bwd_weights(z, rv.bwd_data(g, z, x, tw, nb, True, **kw), tw, nb)
     identical = all(torch.equal(getattr(gr, n), getattr(gr2, n)) for n in rv.Grads._fields)
     ok = ok and identical
-    plan = rv.weight_plan(tw.w_in.shape[0], H, C, nb, 3, NS, data.pre, B, rv.kernel_limits(H),
-                          n_sms)
+    plan = rv.weight_plan(tw.w_in.shape[0], H, C, nb, n_lin_z, NS, data.pre, B,
+                          rv.kernel_limits(H), n_sms)
+    walked = rv.check_plan_image(plan, z, data)
     log(f"{label}, -V {NS}: {sb} x {B // sb} = {B} "
         f"points{f', {NS * B} rows' if NS > 1 else ''} ("
         + ("the last 64-point tile half full" if B % 64 else "the train step's fine pass")
@@ -2138,13 +2227,22 @@ def backward_gate(tw, x, z, g, NS: int, sb: int, n_sms: int, records: dict, labe
         f"bwd_weights_reference on its DataOut), corr, corr vs the independent plain "
         f"backward] {json.dumps(worst)}; bit-identical second calls {identical}; "
         f"{data.ws_x.shape[0] // NS} rows a view, "
-        f"{rv.data_steps(nb, 3, NS, cl if NS > 1 else nb, C, H)} stored steps, "
+        f"{rv.data_steps(nb, n_lin_z, NS, cl if NS > 1 else nb, C, H)} stored steps, "
         f"{rv.dz_pieces(C, H)} dz steps an injection; the weights kernel's {plan.tiles} "
-        f"output tiles in {max(plan.table[4::6])} splits of {plan.pts} points")
-    if not ok:
+        f"output tiles in {max(plan.table[4::6])} splits of {plan.pts} points, "
+        f"{len(plan.maps)} tensor maps, {len(plan.table) // 6} products, the plan's "
+        f"{walked['ctas']} GEMM CTAs walked in bounds; bf16 alone here (not gated): the "
+        f"plain bf16 recompute's relu-mask flips against the plain f32 recompute "
+        f"{bf16_flips:.3g}, the plain bf16 backward's least corr against the plain f32 "
+        f"backward {bf16_corr:.7f}")
+    if check and not ok:
         raise SystemExit(f"{label} failed at -V {NS}, {B} points")
-    for n in names:
-        records[n]["max_abs_err"] = max(records[n].get("max_abs_err", 0.0), err[n])
+    if check:
+        for n in names:
+            records[n]["max_abs_err"] = max(records[n].get("max_abs_err", 0.0), err[n])
+    return {"ok": ok, "flips": flips, "d_over_bar": d / bar, "ind_corr": ind_corr,
+            "bf16_flips": bf16_flips, "bf16_corr": bf16_corr,
+            "worst": max(v[0] for v in worst.values()), "identical": identical}
 
 
 def backward_yardsticks(tw, x, z, g, data, NS: int, sb: int):
@@ -2375,14 +2473,14 @@ def options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_ro
     # refuses it rather than launching
     from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
 
-    odd = ResnetFC(d_in=42, d_out=4, n_blocks=5, d_latent=512, d_hidden=384, combine_layer=3,
+    odd = ResnetFC(d_in=42, d_out=4, n_blocks=5, d_latent=512, d_hidden=320, combine_layer=3,
                    impl="cuda").to(dev)
     try:
         odd._kernel_route((1, 64), dev)
         refused = None
     except ValueError as e:
         refused = str(e)
-    log(f"options: a d_hidden 384 tower under impl='cuda' raises: {refused!r}")
+    log(f"options: a d_hidden 320 tower under impl='cuda' raises: {refused!r}")
     if refused is None:
         raise SystemExit("options: impl='cuda' took a tower outside the kernels' widths")
     del odd
@@ -2514,30 +2612,33 @@ def options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_ro
     log(f"options: phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
-# phase 17: narrow towers (d_hidden 256, 128 and 64) on the forward kernels
-NARROW_H = (256, 128, 64)
+# phase 17: narrower towers (d_hidden 384, 256, 128 and 64) on the forward
+# kernels
+NARROW_H = (384, 256, 128, 64)
 # the eval CLI's runs at d_hidden 256 with the deferred code: (-P, the
 # kernel each launches: the gather's CODE twin, row 3's)
 NARROW_EVAL = (("0", "resnetfc_fwd_gather_code"), ("0 1 2", "resnetfc_fwd_dense_mv_code"))
 
 
-def narrow_conf(base, H: int):
-    """sn64's conf (``base``) with both heads' d_hidden set to H, built in code
-    as ``option_confs`` builds its confs: sn64's other widths (5 blocks,
-    latent C = 512 in blocks 0-2, the views' mean at block 3, the 6-frequency
-    code, d_out 4)."""
+def narrow_conf(base, H: int, n_blocks: int = 5):
+    """sn64's conf (``base``) with both heads' d_hidden set to H (and their
+    blocks to ``n_blocks``), built in code as ``option_confs`` builds its
+    confs: sn64's other widths (latent C = 512 in blocks 0-2, the views'
+    mean at block 3, the 6-frequency code, d_out 4)."""
     import copy
 
     c = copy.deepcopy(base)
     for head in ("mlp_coarse", "mlp_fine"):
         c.put(f"model.{head}.d_hidden", H)
+        c.put(f"model.{head}.n_blocks", n_blocks)
     return c
 
 
 def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nmr_root) -> None:
-    """Phase 17: sn64's conf at d_hidden 256, 128 and 64 on the forward
-    kernels' narrow libraries (see the module docstring); ``net`` is the
-    render phases' sn64 model (d_hidden 512), timed beside them in turns."""
+    """Phase 17: sn64's conf at d_hidden 384, 256, 128 and 64 on the
+    forward kernels' narrower libraries (see the module docstring); ``net``
+    is the render phases' sn64 model (d_hidden 512), timed beside them in
+    turns."""
     import types
 
     from pixelnerf_tpu_torch import entry
@@ -2758,7 +2859,7 @@ def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nm
         del scene3, tables3
 
     # ---- the eval CLI at d_hidden 256, deferred code, on the NMR fixture ----
-    H = NARROW_H[0]
+    H = 256  # NARROW_EVAL's width
     restore = _env({"PIXELNERF_ALLOW_RANDOM_BACKBONE": "1", **code})  # no backbone weights here
     try:
         with tempfile.TemporaryDirectory() as tmp:
@@ -2803,27 +2904,36 @@ def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nm
     log(f"narrow: phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
-# phase 18: rows 5a / 5b at the narrow widths (d_hidden 256, 128 and 64)
+# phase 18: rows 5a / 5b at the narrower widths (d_hidden 384, 256, 128 and
+# 64) and past 5 blocks
 # the gates' shapes (NS, SB, B_obj): a ragged B from 1 and 3 views (the last
 # 64-point tile half full) and the train step's fine pass (4 x 12,288)
 NARROW_BWD_SHAPES = ((1, 2, 1000), (3, 2, 333), (1, 4, 128 * 96), (3, 4, 128 * 96))
-# the latent widths past sn64's that d_hidden 128 is also gated at, on the
-# ragged shapes: the global encoder's 640 (2 pieces, 5 dz steps an
-# injection) and the ConvEncoder's 128
+# the latent widths past sn64's that d_hidden 128 and 384 are also gated at,
+# on the ragged shapes: the global encoder's 640 (2 pieces, 5 dz steps an
+# injection at 128, 2 at 384) and the ConvEncoder's 128
 NARROW_BWD_C = (640, 128)
-# the train CLI's runs at d_hidden 256 and 64: (-V, -F)
-NARROW_TRAIN_H = (256, 64)
-NARROW_TRAIN = ((1, "dvr"), (3, "dvr_dtu"))
-NARROW_TRAIN_STEPS = 3
+# the deep tower: sn64's with both heads at 7 blocks, the deepest the route
+# rule trains on the kernels (resnetfc_vjp.GRAD_MAX_BLOCKS)
+DEEP_BLOCKS = 7
+# the train CLI's runs: (what, the heads' conf keys, their d_hidden and
+# n_blocks, -V, -F, steps)
+NARROW_TRAIN = tuple(
+    (f"d_hidden {H}", f"d_hidden = {H}", H, 5, nviews, fmt, 3)
+    for H in (384, 256, 64) for nviews, fmt in ((1, "dvr"), (3, "dvr_dtu"))) + tuple(
+    (f"{DEEP_BLOCKS} blocks", f"n_blocks = {DEEP_BLOCKS}", 512, DEEP_BLOCKS, nviews, fmt, 2)
+    for nviews, fmt in ((1, "dvr"), (3, "dvr_dtu")))
 
 
 def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
-    """Phase 18: rows 5a / 5b on the narrow libraries (see the module
-    docstring): the gates at d_hidden 256, 128 and 64, the kernels' times at
-    the train step's fine pass in turns beside d_hidden 512, the train CLI
-    at d_hidden 256 and 64 on the backward kernels, each width's train step
-    against the plain f32 step, and the widths outside the envelope kept
-    plain."""
+    """Phase 18: rows 5a / 5b on the narrower libraries and past 5 blocks
+    (see the module docstring): the gates at d_hidden 384, 256, 128 and 64
+    and at 7 blocks, the kernels' times at the train step's fine pass in
+    turns beside d_hidden 512 (and 5 blocks), the train CLI at d_hidden 384,
+    256 and 64 and at 7 blocks on the backward kernels, each one's -V 1
+    train step against the plain f32 step (the 7-block -V 3 one against the
+    kernels' plain versions), and the widths and depths outside the
+    envelope kept plain."""
     from pixelnerf_tpu_torch.models.code import PositionalEncoding
     from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
     from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
@@ -2838,10 +2948,16 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
     names = ("resnetfc_bwd_data", "resnetfc_bwd_weights")
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     towers = {(H, C): bwd_tower(C, d_in, dev, SEED + 18 + H + C, H)[1]
-              for H in (512,) + NARROW_H for C in (512,) + (NARROW_BWD_C if H == 128 else ())}
+              for H in (512,) + NARROW_H
+              for C in (512,) + (NARROW_BWD_C if H in (128, 384) else ())}
+    deep = bwd_tower(512, d_in, dev, SEED + 19, 512, DEEP_BLOCKS)[1]
+    if DEEP_BLOCKS != rv.GRAD_MAX_BLOCKS:
+        raise SystemExit(f"the deep gates ({DEEP_BLOCKS} blocks) must hold the route rule's "
+                         f"deepest tower under grad ({rv.GRAD_MAX_BLOCKS})")
 
-    # ---- gates: C = 512 at each narrow width from 1 and 3 views, ragged B
-    # and the train step's fine pass; C = 640 and 128 at d_hidden 128 ----
+    # ---- gates: C = 512 at each narrower width from 1 and 3 views, ragged
+    # B and the train step's fine pass; C = 640 and 128 at d_hidden 128 and
+    # 384; sn64's widths at 7 blocks ----
     for (H, C), tw in towers.items():
         if H == 512:
             continue
@@ -2850,6 +2966,19 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
             backward_gate(tw, x, z, g, NS, sb, n_sms, records,
                           f"narrow backward check d_hidden {H}, C = {C} (sn64's depth)")
             del x, z, g
+    for NS, sb, B_obj in NARROW_BWD_SHAPES:
+        x, z, g = bwd_inputs(code, gi, 512, NS, sb, B_obj)
+        backward_gate(deep, x, z, g, NS, sb, n_sms, records,
+                      f"deep backward check: {DEEP_BLOCKS} blocks at sn64's widths")
+        del x, z, g
+    for H in NARROW_H:  # the same depth at each narrower width, ragged B
+        tw = bwd_tower(512, d_in, dev, SEED + 19 + H, H, DEEP_BLOCKS)[1]
+        for NS, sb, B_obj in NARROW_BWD_SHAPES[:2]:
+            x, z, g = bwd_inputs(code, gi, 512, NS, sb, B_obj)
+            backward_gate(tw, x, z, g, NS, sb, n_sms, records,
+                          f"deep backward check: {DEEP_BLOCKS} blocks at d_hidden {H}")
+            del x, z, g
+        del tw
 
     # ---- times at the train step's fine pass, d_hidden in turns beside 512 ----
     widths = (512,) + NARROW_H
@@ -2913,42 +3042,69 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
                                filled_ms_in_turns=split_ms["filled"],
                                whole_view_ms_in_turns=split_ms["whole"])
                 records[n].setdefault("narrow", {})[f"h{H}" + ("" if NS == 1 else f"_ns{NS}")] = rec
-        del data, x, z, g
+        # the deep tower beside sn64's 5 blocks on the same inputs, in turns
+        data_deep = rv.bwd_data(g, z, x, deep, DEEP_BLOCKS, False, **kw)
+        runs = {5: (towers[512, 512], data[512]), DEEP_BLOCKS: (deep, data_deep)}
+        td = {k: {n: [] for n in names} for k in runs}
+        for k in (5, DEEP_BLOCKS, DEEP_BLOCKS, 5):
+            tw, dk = runs[k]
+            td[k][names[0]].append(cuda_ms(lambda: rv.bwd_data(g, z, x, tw, k, False, **kw), 5))
+            td[k][names[1]].append(cuda_ms(lambda: rv.bwd_weights(z, dk, tw, k), 5))
+        msd = {k: {n: sum(v) / len(v) for n, v in td[k].items()} for k in runs}
+        plain, lib, bounds, flops = backward_yardsticks(deep, x, z, g, data_deep, NS, sb)
+        plan = rv.weight_plan(deep.w_in.shape[0], 512, 512, DEEP_BLOCKS, 3, NS, data_deep.pre, B,
+                              rv.kernel_limits(512), n_sms)
+        for n in names:
+            b_ms, b_by = bounds[n]
+            ms_n = msd[DEEP_BLOCKS][n]
+            log(f"deep backward time: {n} at {DEEP_BLOCKS} blocks (sn64's widths), -V {NS}, {B} "
+                f"output points{f' ({rows} rows)' if NS > 1 else ''}: in turns {ms_n:.4f} ms "
+                f"beside {msd[5][n]:.4f} at 5 blocks ({ms_n / msd[5][n]:.4f}x); "
+                f"{flops[n] / ms_n / 1e9:.1f} TFLOP/s; plain_ms {plain[n]:.4f}; library_ms "
+                f"{lib[n]:.4f}; bound_ms {b_ms:.4f} ({b_by}); {b_ms / ms_n:.3f} of the bound"
+                + (f"; {len(plan.maps)} tensor maps, {len(plan.table) // 6} products, "
+                   f"{plan.tiles} output tiles" if n == names[1] else "") + f"; on {smi}")
+            records[n].setdefault("deep", {})[f"b{DEEP_BLOCKS}" + ("" if NS == 1 else f"_ns{NS}")] \
+                = dict(points=B, views=NS, ms=ms_n, b5_ms_in_turns=msd[5][n], plain_ms=plain[n],
+                       library_ms=lib[n], bound_ms=b_ms, bound_by=b_by,
+                       tflops=flops[n] / ms_n / 1e9, share_of_bound=b_ms / ms_n)
+        del data, data_deep, runs, x, z, g
 
-    # ---- the train CLI at d_hidden 256 and 64 on the backward kernels ----
+    # ---- the train CLI at d_hidden 384, 256 and 64 and at 7 blocks on the
+    # backward kernels ----
     narrow_launches = {}
     restore = _env({"PIXELNERF_ALLOW_RANDOM_BACKBONE": "1"})  # no backbone weights here
     try:
-        for H, (nviews, fmt) in itertools.product(NARROW_TRAIN_H, NARROW_TRAIN):
+        for what, keys, H, n_blocks, nviews, fmt, n_want in NARROW_TRAIN:
             fwd = STEP_KERNEL[nviews]
             with tempfile.TemporaryDirectory() as tmp:
                 cpath = os.path.join(tmp, "narrow.conf")
-                with open(cpath, "w") as fh:  # sn64's conf with the narrow heads, as a file says it
+                with open(cpath, "w") as fh:  # sn64's conf with other heads, as a file says it
                     fh.write(f'include required("{os.path.abspath("conf/exp/sn64.conf")}")\n'
-                             f"model {{ mlp_coarse {{ d_hidden = {H} }}\n"
-                             f"        mlp_fine {{ d_hidden = {H} }} }}\n")
+                             f"model {{ mlp_coarse {{ {keys} }}\n"
+                             f"        mlp_fine {{ {keys} }} }}\n")
                 rf.reset_launches()
                 rv.reset_launches()
                 t0 = time.perf_counter()
                 trainer = train_main(
-                    ["-n", f"narrow{H}_v{nviews}", "-c", cpath, "-F", fmt, "-D",
+                    ["-n", f"narrow{H}_{n_blocks}_v{nviews}", "-c", cpath, "-F", fmt, "-D",
                      nmr_root if fmt == "dvr" else dtu_root, "-B", "4", "-V", str(nviews), "-R",
-                     "128", "--epochs", str(NARROW_TRAIN_STEPS), "--checkpoints_path",
+                     "128", "--epochs", str(n_want), "--checkpoints_path",
                      os.path.join(tmp, "ck")])
                 torch.cuda.synchronize()
                 wall = time.perf_counter() - t0
             la = {k: v for k, v in dict(rf.LAUNCHES, **rv.LAUNCHES).items() if v}
             n_steps = trainer.global_step
-            widths_ok = all(m.d_hidden == H for m in (trainer.net.mlp_coarse, trainer.net.mlp_fine))
-            finite = (n_steps == NARROW_TRAIN_STEPS
-                      and all(math.isfinite(v) for v in trainer.history))
+            widths_ok = all((m.d_hidden, m.n_blocks) == (H, n_blocks)
+                            for m in (trainer.net.mlp_coarse, trainer.net.mlp_fine))
+            finite = n_steps == n_want and all(math.isfinite(v) for v in trainer.history)
             step_ms = 1e3 * sum(trainer.step_seconds[1:]) / max(1, n_steps - 1)
             ok = (finite and widths_ok and not trainer.remat and set(la) == {fwd, *names}
                   and la["resnetfc_bwd_data"] == la["resnetfc_bwd_weights"] == 2 * n_steps
                   and la[fwd] >= 2 * n_steps and la[fwd] % 2 == 0)
-            label = f"d_hidden {H} -V {nviews} on -F {fmt}"
+            label = f"{what} -V {nviews} on -F {fmt}"
             log(f"narrow train path: python -m pixelnerf_tpu_torch.train -c conf/exp/sn64.conf + "
-                f"d_hidden {H} -F {fmt} -B 4 -V {nviews} -R 128: {n_steps} steps in {wall:.3f} "
+                f"{keys} -F {fmt} -B 4 -V {nviews} -R 128: {n_steps} steps in {wall:.3f} "
                 f"s, {step_ms:.3f} ms a step after the first; remat {trainer.remat}; launches "
                 f"{la} (want {fwd} and both backward kernels twice a step, {fwd} twice more a "
                 f"validation batch); losses {[round(v, 5) for v in trainer.history]}; on {smi}")
@@ -2964,26 +3120,37 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
     for name in (STEP_KERNEL[1], STEP_KERNEL[3]):
         records[name].setdefault("narrow_launches", {}).update(narrow_launches[name])
 
-    # ---- each width's train step against the plain f32 step ----
+    # ---- each width's and the deep tower's train step against the plain f32
+    # step ----
     for H in NARROW_H:
         c = narrow_conf(conf, H)
         step_parity(c, live_state(c, dev), 1, dev, f"narrow d_hidden {H}")
+    c = narrow_conf(conf, 512, DEEP_BLOCKS)
+    state = live_state(c, dev)
+    step_parity(c, state, 1, dev, f"deep {DEEP_BLOCKS} blocks")
+    # from 3 views the bf16 arithmetic alone moves this batch's grad_norm
+    # (~1.3) 7% from the f32 step's: the kernels are held to their plain
+    # versions under the same AMP (PERF.md section 7)
+    step_parity(c, state, 3, dev, f"deep {DEEP_BLOCKS} blocks", yardstick="kernel_plain")
 
-    # ---- widths outside the envelope stay plain under grad ----
-    for H in (192, 384):
-        odd = ResnetFC(d_in=d_in, d_out=4, n_blocks=nb, d_latent=512, d_hidden=H,
+    # ---- widths outside the envelope, and towers deeper than the gates
+    # above hold, stay plain under grad (the deep ones keep the forward
+    # kernels) ----
+    for H, depth in ((192, nb), (320, nb), (448, nb), (512, rv.GRAD_MAX_BLOCKS + 1), (512, 49)):
+        odd = ResnetFC(d_in=d_in, d_out=4, n_blocks=depth, d_latent=512, d_hidden=H,
                        combine_layer=cl, impl="auto").to(dev)
         plain = odd._kernel_route((1, 64), dev, grad=True) is False
+        forward = odd._kernel_route((1, 64), dev, grad=False)
         odd.impl = "cuda"
         try:
             odd._kernel_route((1, 64), dev, grad=True)
             refused = None
         except ValueError as e:
             refused = str(e)
-        log(f"narrow: a d_hidden {H} tower under grad: plain under auto {plain}; impl='cuda' "
-            f"raises {refused!r}")
-        if not plain or refused is None:
-            raise SystemExit(f"narrow: a d_hidden {H} tower took the kernels under grad")
+        log(f"narrow: a d_hidden {H}, {depth}-block tower under grad: plain under auto {plain}; "
+            f"impl='cuda' raises {refused!r}; the forward kernels without grad {forward}")
+        if not plain or refused is None or forward != (H == 512):
+            raise SystemExit(f"narrow: a d_hidden {H}, {depth}-block tower took the wrong route")
         del odd
     del towers
     log(f"narrow backward: phase done in {time.perf_counter() - t_phase:.1f} s")

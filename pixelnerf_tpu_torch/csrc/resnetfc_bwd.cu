@@ -61,18 +61,19 @@
 //   HID columns of every layer for all 64 points (its share of the f32
 //   stream or of its cotangent in HID / 4 registers a thread: 128 at sn64's
 //   512); thread 0 also keeps the weight ring fed.  HID is the library's
-//   tower width (-DRFC_HID: 64, 128, 256 or 512, one library each, as the
-//   forward's; the numbers here are 512's).  A producer warp would cost
+//   tower width (-DRFC_HID: 64, 128, 256, 384 or 512, one library each, as
+//   the forward's; the numbers here are 512's).  A producer warp would cost
 //   registers: a ninth warp leaves three warps on one SM quarter's 16 K
 //   registers, 168 a thread, and setmaxnreg did not lift ptxas' allocation
 //   past the launch bound's 168;
 // - every product is the tile's wgmma pieces (m64n128k16; m64n64k16 at
-//   HID 128, m64n32k16 at 64): operand A a 64 x 512 bf16 tile
-//   in shared memory (act or hb), K-major with the 128-byte swizzle, written
-//   by the threads from their accumulators and published to the async proxy
-//   (fence.proxy.async + a CTA barrier); operand B 64 x 64 TMA boxes of the
-//   packed row-major weights through a 96 KB full / empty mbarrier ring (3
-//   stages of 32 KB; 6 of 16 KB at HID 128, 12 of 8 KB at 64): MN-major for
+//   HID 128 and, three a warpgroup, at 384; m64n32k16 at 64): operand A a
+//   64 x 512 bf16 tile in shared memory (act or hb), K-major with the
+//   128-byte swizzle, written by the threads from their accumulators and
+//   published to the async proxy (fence.proxy.async + a CTA barrier);
+//   operand B 64 x 64 TMA boxes of the packed row-major weights through a
+//   96 KB full / empty mbarrier ring (3 stages of 32 KB; 6 of 16 KB at HID
+//   128 and 384, 12 of 8 KB at 64): MN-major for
 //   x W, and the same boxes K-major for dh W^T, so no transposed copy of a
 //   weight exists.  At HID 64 a warpgroup's piece is 32 columns: x W reads
 //   64 x 32 boxes (64-byte swizzle), dh W^T 32 x 64 boxes of W's rows, each
@@ -103,7 +104,9 @@
 //   W_z rows TMA reads there (zeros past the array) into the plane's unused
 //   part.  At HID 512 and C <= 512 the program and the arithmetic are those
 //   of one piece; at HID 128, C = 512 takes 4 walk-back steps an injection,
-//   8 at HID 64.
+//   8 at HID 64, 2 at HID 384 (the second step's columns 384-767: W_z rows
+//   past C are the next injection's, or TMA's zeros past the array, and
+//   land in the plane's unused part, which the wrapper drops).
 // The tile, its constants and its step kinds are in tile64.cuh, which the
 // dense forwards (resnetfc_fwd_dense, and resnetfc_fwd_dense_mv at NS > 1)
 // share: their programs are this kernel's recompute, so it takes the primal's
@@ -115,8 +118,9 @@
 // step's fine pass reads its workspace once, 1.18 GB at -V 1 and 2.4 GiB at
 // -V 3 (0.35 and 0.82 ms at 3.35 TB/s), against 3.4e11 and 8.1e11 FLOP (0.34
 // and 0.81 ms at 989 TFLOP/s).  Its design: 128 x WT_N output tiles (WT_N =
-// min(256, HID)), each one m64n256k16 product per consumer warpgroup
-// (m64n128k16 at HID 128), both operands MN-major (the
+// min(256, HID), 192 at HID 384), each one m64n256k16 product per consumer
+// warpgroup (m64n192k16 at HID 384, m64n128k16 at 128), both operands
+// MN-major (the
 // planes are (points, width) row-major and the product sums over points)
 // straight from 128-byte-swizzled TMA boxes of 64 points, so no thread
 // touches an operand; a 4-stage full / empty mbarrier ring kept full by one
@@ -125,10 +129,13 @@
 // and G strips in L2; ragged edges (B rows of z read in place, kin < 64)
 // come from TMA's zero fill.  The tensor maps and the task table are encoded
 // once per set of operand addresses (resnetfc_bwd_weights_plan) and kept by
-// the wrapper, so a launch costs the host one parameter copy; they travel in
-// the 4 KB of kernel parameters, which hold up to 5 blocks (the wrapper
-// refuses deeper towers).
+// the wrapper, which copies them to device memory once, so a launch costs the
+// host one parameter copy; the kernel's producer acquires each map it reads
+// for the tensormap proxy.  They hold every tower the forward kernels take
+// (MAX_MAPS, MAX_TASKS: 62 blocks at sn64's three injections, past the 49
+// whose program the data kernel stores).
 
+#include <stddef.h>
 #include <string.h>
 
 #include "tile64.cuh"
@@ -149,7 +156,7 @@ using namespace rfc;
 // steps of one tile's stored program (data_program; sn64: 34 at one view, 36
 // at any view count: one view's recompute and walk back, the shared steps;
 // two more an injection at 512 < C <= 1024; seven more an injection at HID
-// 64, three at HID 128, one at HID 256, C = 512)
+// 64, three at HID 128, one at HID 256 and at 384, C = 512)
 constexpr int D_MAX_STEPS = 256;
 // f32 words of one CTA's view-sum slot (multi-view): every thread's share of
 // the 64 x HID stream
@@ -912,9 +919,11 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
 // ---------------------------------------------------------------------------
 
 constexpr int WT_M = 128;  // output tile: rows of dW (two warpgroups of 64)
-// output tile: columns of dW, one m64n256 product (m64n128 at HID 128,
-// m64n64 at 64: the blocks' dW is HID x HID)
-constexpr int WT_N = HID < 256 ? HID : 256;
+// output tile: columns of dW, one m64n256 product (m64n192 at HID 384, two
+// column tiles; m64n128 at HID 128, m64n64 at 64: the blocks' dW is HID x
+// HID)
+constexpr int WT_N = HID < 256 ? HID : HID % 256 == 0 ? 256 : 192;
+static_assert(HID % WT_N == 0, "dW's columns are whole output tiles");
 constexpr int WK = 64;     // points per k-step: one TMA box is 64 columns x 64 points
 constexpr int W_STAGES = 4;
 constexpr int W_THREADS = 384;  // warpgroups 0-1 consume, warpgroup 2 produces
@@ -924,11 +933,20 @@ constexpr uint32_t W_STAGE_A = 2 * W_BOX;       // A: 64 points x 128 columns
 constexpr int W_G_BOXES = WT_N / 64;            // G: 64 points x WT_N columns
 constexpr uint32_t W_STAGE = W_STAGE_A + W_G_BOXES * W_BOX;
 constexpr size_t W_SMEM = (size_t)W_STAGES * W_STAGE + 1024;  // + alignment slack
-// The tensor maps and the task table travel in the kernel's parameters, which
-// every CUDA 12 toolkit caps at 4 KB: sn64 (5 blocks) takes 23 maps and 14
-// tasks at both view counts; 6 blocks would take 27 maps.
-constexpr int MAX_MAPS = 24;
-constexpr int MAX_TASKS = 16;
+// The tensor maps and the task table of a launch lie in device memory (the
+// plan's WTable, copied there once per plan), so that the kernel's
+// parameters stay within 4 KB.  (CUDA 12.1 and later take up to 32,764
+// bytes of parameters; with the table in them this kernel faulted now and
+// then on an H100 (an illegal address at d_hidden 256 and 384; nvcc 12.9,
+// driver 580), and from device memory it did not.)  A tower of n blocks and
+// n_lin_z injections takes 4 n + 2 maps (one more with a latent) and 2 n +
+// n_lin_z + 1 tasks at every view count (sn64, 5 blocks: 23 and 14).  A
+// tile's stored forward program has at least a step a task (F_MAX_STEPS =
+// 128 in resnetfc_fwd.cu) and the maps are at most twice the tasks, so
+// these hold every tower the forward kernels take: 62 blocks at sn64's
+// three injections.
+constexpr int MAX_TASKS = 128;
+constexpr int MAX_MAPS = 2 * MAX_TASKS;
 constexpr int MAX_SPLITS = 24;
 
 struct WTask {
@@ -939,12 +957,19 @@ struct WTask {
   int m_tiles, tile0, unit0;  // M tiles; first tile and first (tile, split) slot
 };
 
-// A launch's parameters: the plan (maps, tasks, CTA order), which depends only
-// on the operands' addresses and shapes and is built once per such set by
-// resnetfc_bwd_weights_plan, and the buffers of one call.
-struct WParams {
+// A plan's tensor maps and task table, as the kernel reads them from device
+// memory.
+struct WTable {
   CUtensorMap maps[MAX_MAPS];
   WTask task[MAX_TASKS];
+};
+
+// A launch's parameters: the plan (the device copy of its table, the CTA
+// order), which depends only on the operands' addresses and shapes and is
+// built once per such set by resnetfc_bwd_weights_plan, and the buffers of
+// one call.
+struct WParams {
+  const WTable* table;  // the plan's table in device memory
   int split_cta0[MAX_SPLITS + 1];  // first GEMM CTA of each split (split-major order)
   int n_tasks, n_splits, N, pts, tiles, units;
   bf16* out;       // the weight gradients, one buffer
@@ -954,24 +979,35 @@ struct WParams {
   int n_row_tiles, R;
   float* rows_out;  // (R, N)
 };
-static_assert(sizeof(WParams) <= 4096, "kernel parameters of every CUDA 12 toolkit");
+static_assert(sizeof(WParams) <= 4096, "the parameters stay within 4 KB: the table is apart");
+
+// A plan as the host keeps it: the launch's parameters and the host image of
+// the table, which the caller copies to device memory (64-byte aligned) and
+// passes at each launch.
+struct WPlan {
+  WParams head;
+  WTable table;
+};
 
 // The GEMM CTAs, split-major (the tiles of split 0 of every task, then split
 // 1, ...), then one bias CTA per row of sums, which the last wave's idle SMs
 // take.  A GEMM CTA runs one (tile, split): warpgroup 2's first thread
 // streams the split's points through a W_STAGES ring with TMA (full / empty
 // mbarriers); warpgroups 0 and 1 each multiply one 64-row half of the A tile
-// by the whole G tile with wgmma m64n256k16 (m64n128k16 at WT_N 128,
-// m64n64k16 at 64), both
+// by the whole G tile with wgmma m64n256k16 (m64n192k16 at WT_N 192,
+// m64n128k16 at 128, m64n64k16 at 64), both
 // operands MN-major from
 // 128-byte-swizzled boxes.  A tile of one split writes bf16 directly;
 // otherwise each split writes its f32 partial and the last CTA of the tile
 // sums them in split order.
 // One k16 step of a consumer's product: m64n256k16 at 128 accumulators a
-// thread, m64n128k16 at 64 (WT_N 128), m64n64k16 at 32 (WT_N 64); both
-// operands MN-major.
+// thread, m64n192k16 at 96 (WT_N 192), m64n128k16 at 64 (WT_N 128),
+// m64n64k16 at 32 (WT_N 64); both operands MN-major.
 __device__ __forceinline__ void wt_mma(float (&d)[128], uint64_t a, uint64_t b) {
   hopper::wgmma_m64n256k16<1, 1>(d, a, b, 1);
+}
+__device__ __forceinline__ void wt_mma(float (&d)[96], uint64_t a, uint64_t b) {
+  hopper::wgmma_m64n192k16<1, 1>(d, a, b, 1);
 }
 __device__ __forceinline__ void wt_mma(float (&d)[64], uint64_t a, uint64_t b) {
   hopper::wgmma_m64n128k16<1, 1>(d, a, b, 1);
@@ -999,14 +1035,18 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   int s = 0;
   while (s + 1 < q.n_splits && bid >= q.split_cta0[s + 1]) ++s;
   const int ntn = q.N / WT_N;
+  const WTask* tasks = q.table->task;
   int local = bid - q.split_cta0[s], ti = 0;
   for (; ti < q.n_tasks; ++ti) {
-    if (q.task[ti].splits <= s) continue;
-    const int nt = q.task[ti].m_tiles * ntn;
+    if (tasks[ti].splits <= s) continue;
+    const int nt = tasks[ti].m_tiles * ntn;
     if (local < nt) break;
     local -= nt;
   }
-  const WTask& T = q.task[ti];
+  // a CTA past the plan's tiles would read past its table: fail loudly
+  // (resnetfc_bwd_weights_plan sizes the grid so that none is)
+  if (ti == q.n_tasks) __trap();
+  const WTask T = tasks[ti];
   const int mt = local / ntn, m0 = mt * WT_M, n0 = (local - mt * ntn) * WT_N;
   const int p0 = s * q.pts, p1 = min(T.P, p0 + q.pts);
   const int nk = (p1 - p0 + WK - 1) / WK;
@@ -1027,8 +1067,12 @@ __global__ void __launch_bounds__(W_THREADS, 1)
   if (wg == 2) {  // producer
     hopper::setmaxnreg_dec<40>();
     if (tid == 2 * 128) {
-      const CUtensorMap* am = &q.maps[T.a_map];
-      const CUtensorMap* gm = &q.maps[T.g_map];
+      // the maps were copied to device memory before the launch: acquire
+      // them for the tensormap proxy that TMA reads them through
+      const CUtensorMap* am = q.table->maps + T.a_map;
+      const CUtensorMap* gm = q.table->maps + T.g_map;
+      hopper::fence_tensormap(am);
+      hopper::fence_tensormap(gm);
       for (int i = 0; i < nk; ++i) {
         const int st = i % W_STAGES;
         hopper::mbar_wait(&empty[st], ((i / W_STAGES) & 1) ^ 1);
@@ -1217,16 +1261,20 @@ size_t resnetfc_bwd_data_limits(int* out) {
 // Shared memory of one weight-gradient CTA (the TMA ring).
 size_t resnetfc_bwd_weights_smem_bytes() { return W_SMEM; }
 
-// What the weights kernel fixes, for the wrapper to plan with: out[0..4] =
+// What the weights kernel fixes, for the wrapper to plan with: out[0..6] =
 // the output tile's rows and columns, the most splits of a product, the most
-// tensor maps and the most tasks of one launch.  Returns the bytes of a plan.
+// tensor maps and the most tasks of one launch, and where a plan's table
+// lies in it (offset and bytes; the wrapper copies it to device memory).
+// Returns the bytes of a plan.
 size_t resnetfc_bwd_weights_limits(int* out) {
   out[0] = WT_M;
   out[1] = WT_N;
   out[2] = MAX_SPLITS;
   out[3] = MAX_MAPS;
   out[4] = MAX_TASKS;
-  return sizeof(WParams);
+  out[5] = (int)offsetof(WPlan, table);
+  out[6] = (int)sizeof(WTable);
+  return sizeof(WPlan);
 }
 
 // Fills `plan` (resnetfc_bwd_weights_limits' bytes) for the weight-gradient
@@ -1235,21 +1283,25 @@ size_t resnetfc_bwd_weights_limits(int* out) {
 // matrix; task t is (A map, G map, M, P, splits, first element of its
 // (M, N) bf16 output) at tasks[6t..], summed over `pts`-point pieces of its P
 // points.  A plan holds addresses but no buffer of a call, so a caller keeps
-// it for as long as the operands stay where they are.
+// it (and the device copy of its table) for as long as the operands stay
+// where they are.
 int resnetfc_bwd_weights_plan(void* plan, const void* const* bases, const int* dims, int n_maps,
                               const int* tasks, int n_tasks, int N, int pts) {
   if (n_maps < 1 || n_maps > MAX_MAPS || n_tasks < 1 || n_tasks > MAX_TASKS || N % WT_N != 0 ||
       pts < WK || pts % WK != 0)
     return (int)cudaErrorInvalidValue;
-  WParams q = {};
+  // built here (the caller's buffer need not be 64-byte aligned), zeroed: the
+  // unused maps and tasks of the table copied to the card
+  WPlan w = {};
+  WParams& q = w.head;
   for (int k = 0; k < n_maps; ++k) {
-    const int err = hopper::encode_bf16_sw128(&q.maps[k], bases[k], dims[3 * k], dims[3 * k + 1],
-                                              dims[3 * k + 2], WK);
+    const int err = hopper::encode_bf16_sw128(&w.table.maps[k], bases[k], dims[3 * k],
+                                              dims[3 * k + 1], dims[3 * k + 2], WK);
     if (err != 0) return err;
   }
   int tiles = 0, units = 0, n_splits = 0;
   for (int t = 0; t < n_tasks; ++t) {
-    WTask& T = q.task[t];
+    WTask& T = w.table.task[t];
     const int* d = tasks + 6 * t;
     T.a_map = d[0];
     T.g_map = d[1];
@@ -1272,7 +1324,7 @@ int resnetfc_bwd_weights_plan(void* plan, const void* const* bases, const int* d
   for (int s = 0; s < n_splits; ++s) {
     q.split_cta0[s] = ctas;
     for (int t = 0; t < n_tasks; ++t)
-      if (q.task[t].splits > s) ctas += q.task[t].m_tiles * (N / WT_N);
+      if (w.table.task[t].splits > s) ctas += w.table.task[t].m_tiles * (N / WT_N);
   }
   q.split_cta0[n_splits] = ctas;
   q.n_tasks = n_tasks;
@@ -1281,21 +1333,24 @@ int resnetfc_bwd_weights_plan(void* plan, const void* const* bases, const int* d
   q.pts = pts;
   q.tiles = tiles;
   q.units = units;
-  memcpy(plan, &q, sizeof q);
+  memcpy(plan, &w, sizeof w);
   return (int)cudaSuccess;
 }
 
 // One launch of a plan: the products into `out` (bf16, at the plan's
 // offsets), and the R rows of per-tile sums in `rows` (n_row_tiles, R, N)
-// summed in tile order into rows_out (R, N).  partial holds one f32 tile per
-// (tile, split) of the tasks with splits > 1 and counters one zeroed int per
-// tile.
-int resnetfc_bwd_weights(const void* plan, void* out, const void* rows, void* rows_out,
-                         int n_row_tiles, int R, void* partial, void* counters, void* stream) {
+// summed in tile order into rows_out (R, N).  table is the device copy of
+// the plan's table (64-byte aligned); partial holds one f32 tile per (tile,
+// split) of the tasks with splits > 1 and counters one zeroed int per tile.
+int resnetfc_bwd_weights(const void* plan, const void* table, void* out, const void* rows,
+                         void* rows_out, int n_row_tiles, int R, void* partial, void* counters,
+                         void* stream) {
   WParams q;
   memcpy(&q, plan, sizeof q);
-  if (R < 1 || out == nullptr || counters == nullptr || (q.units > 0 && partial == nullptr))
+  if (R < 1 || out == nullptr || counters == nullptr || (q.units > 0 && partial == nullptr) ||
+      table == nullptr || reinterpret_cast<uintptr_t>(table) % 64 != 0)
     return (int)cudaErrorInvalidValue;
+  q.table = static_cast<const WTable*>(table);
   q.out = static_cast<bf16*>(out);
   q.partial = static_cast<float*>(partial);
   q.counters = static_cast<int*>(counters);

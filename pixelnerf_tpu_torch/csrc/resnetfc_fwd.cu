@@ -27,13 +27,13 @@
 // its products in this body's order, at one view and at NS views:
 // - one CTA of two warpgroups a 64-point tile, each warpgroup owning half of
 //   the tower's HID columns of the f32 stream in registers (256 of 512 at
-//   sn64); every product is wgmma pieces (m64n128k16; m64n64k16 at HID 128,
-//   m64n32k16 at 64) with operand A a 64 x 512 bf16 swizzled tile in shared
-//   memory (the code, the latent, relu(x) or relu(fc_0)) and operand B 64 x
-//   64 TMA boxes of the packed row-major weights (MN-major for x W; at HID 64
-//   each warpgroup's own 64 x 32 box, 64-byte swizzled) through a ring of
-//   96 KB (3 stages of 32 KB; 6 of 16 KB at HID 128, 12 of 8 KB at 64).
-//   Each warpgroup keeps its
+//   sn64); every product is wgmma pieces (m64n128k16; m64n64k16 at HID 128
+//   and, three a warpgroup, at 384; m64n32k16 at 64) with operand A a 64 x
+//   512 bf16 swizzled tile in shared memory (the code, the latent, relu(x)
+//   or relu(fc_0)) and operand B 64 x 64 TMA boxes of the packed row-major
+//   weights (MN-major for x W; at HID 64 each warpgroup's own 64 x 32 box,
+//   64-byte swizzled) through a ring of 96 KB (3 stages of 32 KB; 6 of 16 KB
+//   at HID 128 and 384, 12 of 8 KB at 64).  Each warpgroup keeps its
 //   own half of every stage (the boxes of its piece) fed: its first thread
 //   refills the half as soon as the warpgroup's four warps have read it (one
 //   arrival a warp), so neither warpgroup waits for the other's.  A tile
@@ -52,15 +52,15 @@
 //   its bits are those of one piece.  The gather kernels keep C <= 512;
 // - lin_out (d_out <= 4) stays on the CUDA cores, a warp a point;
 // - no atomics: two calls on the same inputs give the same bits.
-// - the tower's width HID is the library's (-DRFC_HID: 64, 128, 256 or 512,
-//   one library each); the operand tiles keep their 512 columns at every
-//   width, so the code, a latent piece and the gathers' C <= 512 do not
+// - the tower's width HID is the library's (-DRFC_HID: 64, 128, 256, 384 or
+//   512, one library each); the operand tiles keep their 512 columns at
+//   every width, so the code, a latent piece and the gathers' C <= 512 do not
 //   shrink with it.  A narrower tower streams fewer weight bytes a tile
-//   (0.31x at 256, 0.11x at 128, 0.04x at 64 at sn64's other widths) and runs
-//   its products on fewer columns, the same tile and ring otherwise.  At 64
-//   the FLOP no longer bound the dense kernels: a point's 1 KB of bf16
-//   latent (3 injections read 512 columns each) weighs more than its ~0.29
-//   MFLOP at the card's ratio of ~295 FLOP a byte.
+//   (0.61x at 384, 0.31x at 256, 0.11x at 128, 0.04x at 64 at sn64's other
+//   widths) and runs its products on fewer columns, the same tile and ring
+//   otherwise.  At 64 the FLOP no longer bound the dense kernels: a point's
+//   1 KB of bf16 latent (3 injections read 512 columns each) weighs more
+//   than its ~0.29 MFLOP at the card's ratio of ~295 FLOP a byte.
 // The weights' tensor maps are encoded once per set of weight addresses
 // (resnetfc_fwd_dense_plan) and kept by the wrapper; the latent's is encoded
 // per call.  What binds it on an H100 is the weights' stream into each SM
@@ -138,9 +138,12 @@ constexpr int F_MAX_C = MAX_C;
 // 64 x HID stream (128 KB at HID 512)
 constexpr int F_SLOT_FLOATS = TILE_STREAM * TILE_THREADS;
 // lin_out: the columns of t a lane sums (16 at HID 512), read 8 at a time
-// (16 bytes; 4 at HID 128, 2 at 64)
+// (16 bytes; 4 at HID 128 and 384, whose 12 a lane are three reads of 4; 2
+// at 64)
 constexpr int OUT_COLS = HID / 32;
-constexpr int OUT_VEC = OUT_COLS < 8 ? OUT_COLS : 8;
+constexpr int OUT_VEC = OUT_COLS % 8 == 0 ? 8 : OUT_COLS % 4 == 0 ? 4 : OUT_COLS;
+static_assert(OUT_COLS % OUT_VEC == 0 && (OUT_VEC == 8 || OUT_VEC == 4 || OUT_VEC == 2),
+              "a lane's columns of t are whole reads");
 
 // The weights' tensor maps (the boxes of tile64.cuh's encode_weights of w_in
 // (kin, H), w_z (n_lin_z C, H) and w_blk (2 n_blocks H, H)) and what they

@@ -5,13 +5,14 @@
 // resnetfc_bwd_data) share:
 // - a tile is 64 points, one wgmma M, walked by 256 threads: warpgroups 0
 //   and 1 each own half of the HID columns of every layer for all 64 points
-//   (256 of 512 at sn64, 32 of 64), their share of the f32 residual stream
-//   (or of its cotangent) in HID / 4 registers a thread;
+//   (256 of 512 at sn64, 192 of 384, 32 of 64), their share of the f32
+//   residual stream (or of its cotangent) in HID / 4 registers a thread;
 // - every product is wgmma pieces of TILE_PIECE columns (m64n128k16, two a
-//   warpgroup at HID 512, one at 256; m64n64k16, one at 128; m64n32k16, one
-//   at 64): operand A a 64 x 512 bf16 tile in shared memory, K-major with the
-//   128-byte swizzle (hopper::sw128_offset), written by the threads from
-//   their accumulators (put2) and published to the async proxy (publish);
+//   warpgroup at HID 512, one at 256; m64n64k16, three at 384, one at 128;
+//   m64n32k16, one at 64): operand A a 64 x 512 bf16 tile in shared memory,
+//   K-major with the 128-byte swizzle (hopper::sw128_offset), written by the
+//   threads from their accumulators (put2) and published to the async proxy
+//   (publish);
 //   operand B TMA boxes of 64 K rows of the packed row-major weights (64
 //   columns, 128-byte swizzle; at HID 64 a warpgroup's own 32 columns,
 //   64-byte swizzle: W_BOX_COLS) through a ring of RING_STAGES stages, 96 KB
@@ -71,8 +72,8 @@ typedef __nv_bfloat16 bf16;
 #define RFC_HID 512
 #endif
 constexpr int HID = RFC_HID;
-static_assert(HID == 64 || HID == 128 || HID == 256 || HID == 512,
-              "the tile takes d_hidden 64, 128, 256 or 512");
+static_assert(HID == 64 || HID == 128 || HID == 256 || HID == 384 || HID == 512,
+              "the tile takes d_hidden 64, 128, 256, 384 or 512");
 // The operand tile's K capacity, the same at every HID: the widest code, and
 // the widest piece of a latent (so sn64's C = 512 latent is one piece at any
 // tower width).
@@ -89,7 +90,9 @@ __host__ __device__ inline int latent_pieces(int C) { return (C + TILE_K - 1) / 
 // The steps of HID dz columns the data kernel's walk back takes for an
 // injection of a C-wide latent: a product's N is the tower's HID columns (a
 // warpgroup's half in its pieces), so each step forms HID columns of dz
-// (latent_pieces(C) at HID 512; 4 at C = 512 and HID 128, 8 at HID 64).
+// (latent_pieces(C) at HID 512; 4 at C = 512 and HID 128, 8 at HID 64, 2
+// at HID 384, the second's columns 384-767 past C = 512 formed from what
+// TMA reads there and dropped by the wrapper).
 __host__ __device__ inline int dz_pieces(int C) { return (C + HID - 1) / HID; }
 
 struct TowerParams {
@@ -170,22 +173,28 @@ constexpr int TILE_PTS = 64;        // points a tile: one wgmma M
 // three warps on one SM quarter's 16 K registers: 168 each)
 constexpr int TILE_THREADS = 256;
 // (the numbers at HID 512; at 256 one piece a warpgroup, at 128 one piece
-// of 64 columns, wgmma m64n64k16, and a ring of 6 stages of 16 KB; at 64 one
-// piece of 32 columns, wgmma m64n32k16, from one 64 x 32 box a warpgroup,
-// and a ring of 12 stages of 8 KB)
+// of 64 columns, wgmma m64n64k16, and a ring of 6 stages of 16 KB; at 384
+// three such pieces a warpgroup, the same ring; at 64 one piece of 32
+// columns, wgmma m64n32k16, from one 64 x 32 box a warpgroup, and a ring of
+// 12 stages of 8 KB)
 constexpr int TILE_HALF = HID / 2;  // columns a warpgroup owns: 256
-constexpr int TILE_PIECE = TILE_HALF < 128 ? TILE_HALF : 128;  // columns of one product: 128
+// columns of one product: 128 where they divide a warpgroup's half, else 64
+// (a half of 192 at HID 384 is three pieces of 64), or the whole half below
+// 64
+constexpr int TILE_PIECE = TILE_HALF % 128 == 0 ? 128 : TILE_HALF < 64 ? TILE_HALF : 64;
+static_assert(TILE_HALF % TILE_PIECE == 0, "a warpgroup's half is whole pieces");
 // a weight box's columns: 64 (128 bytes, the 128-byte swizzle), or a
 // warpgroup's whole 32-column piece at HID 64 (64 bytes, the 64-byte swizzle)
 constexpr int W_BOX_COLS = TILE_PIECE < 64 ? TILE_PIECE : 64;
 constexpr uint32_t W_BOX_BYTES = 64 * W_BOX_COLS * 2;  // 64 rows of K: 8 KB (4 KB at HID 64)
 constexpr int TILE_BPW = TILE_PIECE / W_BOX_COLS;  // weight boxes a warpgroup a stage: 2
-constexpr int TILE_NP = TILE_HALF / TILE_PIECE;  // pieces a warpgroup: 2
+constexpr int TILE_NP = TILE_HALF / TILE_PIECE;  // pieces a warpgroup: 2 (3 at HID 384)
 constexpr int TILE_ACC = TILE_PIECE * TILE_PTS / 128;  // f32 accumulators a thread a piece: 64
 constexpr int TILE_STREAM = TILE_NP * TILE_ACC;        // a thread's share of a 64 x HID stream: 128
 constexpr uint32_t BOX_BYTES = 64 * 128;  // a 64 x 64 bf16 box of an operand tile (latent, masks)
 constexpr uint32_t STAGE_BYTES = 2 * TILE_BPW * W_BOX_BYTES;  // 64 of K x the two warpgroups' pieces
-// 96 KB of weights in flight at every width: 3 stages, 6 at HID 128, 12 at 64
+// 96 KB of weights in flight at every width: 3 stages, 6 at HID 128 and 384,
+// 12 at 64
 constexpr int RING_STAGES = 3 * 32768 / STAGE_BYTES;
 constexpr uint32_t TILE_BYTES = TILE_PTS * TILE_K * 2;        // a 64 x 512 bf16 operand tile
 constexpr size_t TILE_SMEM = 2 * TILE_BYTES + (size_t)RING_STAGES * STAGE_BYTES + 1024;  // + alignment
@@ -193,7 +202,7 @@ constexpr size_t TILE_SMEM = 2 * TILE_BYTES + (size_t)RING_STAGES * STAGE_BYTES 
 constexpr int TILE_MAX_OUT = 4;  // outputs of lin_out the tile kernels take (d_out 4 in every config)
 
 // One k16 step of a piece's product: wgmma m64n128k16 at 64 accumulators a
-// thread, m64n64k16 at 32 (HID 128), m64n32k16 at 16 (HID 64).
+// thread, m64n64k16 at 32 (HID 128 and 384), m64n32k16 at 16 (HID 64).
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_piece(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
   hopper::wgmma_m64n128k16<TA, TB>(d, a, b, scale_d);

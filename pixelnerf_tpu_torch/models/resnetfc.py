@@ -131,13 +131,15 @@ class ResnetFC(nn.Module):
     # ------------------------------------------------------------------
     def check_kernel_widths(self, NS: int = 1, grad: bool = False) -> None:
         """Raise ValueError on widths a kernel of this call does not take:
-        the forward's at NS views (H = 64, 128, 256 or 512, a library each; kin
-        and C multiples of 16, kin <= 512, C <= 1024; the stored program's
-        steps); under ``grad`` also the backward's (the same widths H, a
-        library each; the data kernel's widths and program, the weights
-        kernel's plan: C <= 1024 as the forward's, kin <= 128, at most 5
-        blocks at sn64 widths).  Reads only the Python mirrors of the
-        width's limits."""
+        the forward's at NS views (H = 64, 128, 256, 384 or 512, a library
+        each; kin and C multiples of 16, kin <= 512, C <= 1024; the stored
+        program's steps: 62 blocks at sn64's other widths and one view);
+        under ``grad`` also the backward's (the same widths H, a library
+        each; the data kernel's widths and program: C <= 1024 as the
+        forward's, kin <= 128, 49 blocks at sn64's other widths; the weights
+        kernel's plan, which holds every tower the forward's program does;
+        and the depth the card's gates hold, ``GRAD_MAX_BLOCKS``: 7 blocks).
+        Reads only the Python mirrors of the width's limits."""
         kin = max(-(-self.d_in // 16) * 16, 16)
         C = self.d_latent if self.n_lin_z > 0 else 0
         lim = rf.tile_limits(self.d_hidden)
@@ -156,6 +158,7 @@ class ResnetFC(nn.Module):
             rfv.check_data_widths(kin, self.d_hidden, C, self.n_lin_z, self.n_blocks, self.d_out,
                                   dlim)
             rfv.check_data_program(self.n_blocks, self.n_lin_z, NS, pre, dlim, C)
+            rfv.check_grad_depth(self.n_blocks)
             # the maps and products do not depend on the split; 64 points
             # split by whole views on any card (an H100's 132 SMs here)
             rfv.weight_plan(kin, self.d_hidden, C, self.n_blocks, self.n_lin_z, NS, pre, 64,

@@ -23,8 +23,9 @@ global encoder's code before the pixel latent), each injection of a latent
 past 512 columns in pieces of :data:`TILE_K` = 512 (:func:`latent_pieces`);
 the gathers take 512 at most.  The tower's width is a compile-time constant
 of the tile: one library is built for each width in :data:`HIDDEN` (64,
-128, 256, 512; ``-DRFC_HID``), and each launch takes the library of its
-tower's width, ``w_in.shape[1]`` -- the backward's too (:mod:`.resnetfc_vjp`).
+128, 256, 384, 512; ``-DRFC_HID``), and each launch takes the library of
+its tower's width, ``w_in.shape[1]`` -- the backward's too
+(:mod:`.resnetfc_vjp`).
 :data:`TILE_LIMITS` mirrors each library's limits for the route rule, which
 must not build it.
 
@@ -84,8 +85,9 @@ NVCC_FLAGS = (
 MAX_SMEM_BYTES = 232448
 # the hidden widths the kernels are built for, one forward and one backward
 # library each (every config in conf/ uses 512; ResnetFC's default is 128; 64
-# is the width the JAX package's own kernel tests run under grad)
-HIDDEN = (64, 128, 256, 512)
+# is the width the JAX package's own kernel tests run under grad; 384 is a
+# warpgroup's 192 columns in three pieces of 64)
+HIDDEN = (64, 128, 256, 384, 512)
 # the operand tile's K capacity at every width: the widest code, and the
 # widest piece of a latent (``TILE_K`` in ``csrc/tile64.cuh``)
 TILE_K = 512
@@ -531,12 +533,20 @@ class DenseLimits(NamedTuple):
     hidden: int = 512  # the tower's width H the library is built for
 
 
+def piece_cols(H: int) -> int:
+    """Columns of one product piece at width H (``TILE_PIECE`` in
+    ``csrc/tile64.cuh``): 128 where they divide a warpgroup's H / 2 columns,
+    else 64 (three pieces of H = 384's 192), or the whole half below 64."""
+    half = H // 2
+    return 128 if half % 128 == 0 else min(half, 64)
+
+
 def ring_stage_bytes(H: int) -> int:
     """Bytes of one weight-ring stage at width H (``STAGE_BYTES`` in
-    ``csrc/tile64.cuh``): 64 K rows of both warpgroups' pieces, each of at
-    most 128 columns, in boxes of 64 columns (a piece of 32 at H = 64 is
-    one box of its own width)."""
-    piece = min(H // 2, 128)
+    ``csrc/tile64.cuh``): 64 K rows of one piece of each warpgroup
+    (:func:`piece_cols`), in boxes of 64 columns (a piece of 32 at H = 64
+    is one box of its own width)."""
+    piece = piece_cols(H)
     box_cols = min(piece, 64)
     return 2 * (piece // box_cols) * 64 * box_cols * 2
 
@@ -546,7 +556,7 @@ def _mirror(H: int) -> DenseLimits:
     (``csrc/tile64.cuh``): each warpgroup owns H / 2 columns in pieces of at
     most 128, so a thread's share of the stream (the view-sum slot) is H / 4
     f32; 96 KB of weight ring at every width (3 stages of 32 KB, 6 of 16 KB at
-    H = 128, 12 of 8 KB at 64); two 64 KB operand tiles."""
+    H = 128 and 384, 12 of 8 KB at 64); two 64 KB operand tiles."""
     stage = ring_stage_bytes(H)
     return DenseLimits(tile=64, threads=256, stages=3 * 32768 // stage, max_out=4, max_steps=128,
                        max_k=TILE_K, slot_floats=H // 4 * 256,
@@ -608,9 +618,10 @@ def dense_grid(B: int, limits: DenseLimits) -> int:
 def check_dense_widths(kin: int, H: int, C: int, n_lin_z: int, n_blocks: int, d_out: int,
                        limits: DenseLimits) -> None:
     """Raise ValueError on widths ``resnetfc_fwd_dense`` does not take: H
-    other than the library's (``limits.hidden``: 64, 128, 256 or 512, one
-    library each); kin not a multiple of 16 or past ``limits.max_k``; with
-    a latent, C not a multiple of 16 or past ``limits.max_c``; more
+    other than the library's (``limits.hidden``: 64, 128, 256, 384 or 512,
+    one library each; 192, 320 and 448 have none); kin not a multiple of 16
+    or past ``limits.max_k``; with a latent, C not a multiple of 16 or past
+    ``limits.max_c``; more
     injections than blocks; more outputs than ``limits.max_out``; a program
     past ``limits.max_steps``; a CTA past the card's shared memory."""
     if H != limits.hidden:

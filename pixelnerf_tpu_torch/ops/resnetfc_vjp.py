@@ -20,8 +20,9 @@ NS > 1 views (object-major rows, as in :mod:`.resnetfc_fused`):
   bounds them); :func:`resnetfc_bwd` runs both, or the plain backward for CPU
   tensors.  On a CUDA tensor they launch or raise; there is no fallback.
   As the forward's, the backward's library is built once for each tower
-  width of :data:`~.resnetfc_fused.HIDDEN` (64, 128, 256, 512; ``-DRFC_HID``),
-  and a launch takes the library of ``tower.w_in.shape[1]`` (:func:`_lib`);
+  width of :data:`~.resnetfc_fused.HIDDEN` (64, 128, 256, 384, 512;
+  ``-DRFC_HID``), and a launch takes the library of ``tower.w_in.shape[1]``
+  (:func:`_lib`);
   :data:`DATA_LIMITS` and :data:`WEIGHT_LIMITS` mirror each library's
   limits for the route rule.
 * :func:`weight_tasks` is the weights kernel's table of products (which
@@ -48,8 +49,9 @@ from . import resnetfc_fused as rf
 LAUNCHES = {"resnetfc_bwd_data": 0, "resnetfc_bwd_weights": 0}
 # the loaded backward libraries by hidden width
 _LIBS: dict = {}
-# launch parameters of the weights kernel kept per operand addresses, newest last
-_PARAMS: "collections.OrderedDict[tuple, ctypes.Array]" = collections.OrderedDict()
+# launch parameters of the weights kernel and the device copy of their table
+# of tensor maps and tasks, kept per operand addresses, newest last
+_PARAMS: "collections.OrderedDict[tuple, tuple]" = collections.OrderedDict()
 MAX_KEPT_PARAMS = 16
 
 
@@ -248,7 +250,7 @@ def _lib(H: int) -> ctypes.CDLL:
         lib.resnetfc_bwd_data.restype = I
         lib.resnetfc_bwd_weights_plan.argtypes = [P, P, P, I, P, I, I, I]
         lib.resnetfc_bwd_weights_plan.restype = I
-        lib.resnetfc_bwd_weights.argtypes = [P, P, P, P, I, I, P, P, P]
+        lib.resnetfc_bwd_weights.argtypes = [P, P, P, P, P, I, I, P, P, P]
         lib.resnetfc_bwd_weights.restype = I
         lib.resnetfc_bwd_weights_limits.argtypes = [P]
         lib.resnetfc_bwd_weights_limits.restype = ctypes.c_size_t
@@ -337,7 +339,8 @@ def weight_tasks(kin: int, H: int, C: int, n_blocks: int, n_lin_z: int, NS: int,
 class KernelLimits(NamedTuple):
     """What ``resnetfc_bwd_weights_kernel`` fixes (read from its library by
     :func:`kernel_limits`): its output tile and the most splits, tensor maps
-    and tasks of one launch (the maps and tasks travel in its parameters)."""
+    and tasks of one launch (the maps and tasks lie in a table in device
+    memory, one a plan)."""
 
     tile_m: int  # rows of dW a CTA forms
     tile_n: int  # columns of dW a CTA forms
@@ -346,19 +349,30 @@ class KernelLimits(NamedTuple):
     max_tasks: int
 
 
+def weight_tile_n(H: int) -> int:
+    """The weights kernel's output-tile columns at width H (``WT_N`` in
+    ``csrc/resnetfc_bwd.cu``): the blocks' dW is H x H, so H below 256, 256
+    where it divides H, else 192 (two column tiles at H = 384)."""
+    return H if H < 256 else 256 if H % 256 == 0 else 192
+
+
 # What each width's library reports (kernel_limits), mirrored for the route
 # rule (models/resnetfc.py), which must not build the library; chip_smoke.py
-# and a cuda-marked test hold the two equal.  The output tile's N is
-# min(256, H): the blocks' dW is H x H.
-WEIGHT_LIMITS = {H: KernelLimits(tile_m=128, tile_n=min(256, H), max_splits=24, max_maps=24,
-                                 max_tasks=16) for H in rf.HIDDEN}
+# and a cuda-marked test hold the two equal.  A tower of n blocks takes 4 n
+# + 2 maps (one more with a latent) and 2 n + n_lin_z + 1 products: 128
+# products and 256 maps hold every tower the forward's 128 stored steps do
+# (62 blocks at sn64's three injections).
+WEIGHT_LIMITS = {H: KernelLimits(tile_m=128, tile_n=weight_tile_n(H), max_splits=24,
+                                 max_maps=256, max_tasks=128)
+                 for H in rf.HIDDEN}
 
 
 @functools.lru_cache(maxsize=None)
 def _limits_and_bytes(H: int):
-    out = (ctypes.c_int * 5)()
+    """(limits, the bytes of a plan, (offset, bytes) of its table in it)."""
+    out = (ctypes.c_int * 7)()
     n = _lib(H).resnetfc_bwd_weights_limits(out)
-    return KernelLimits(*out), n
+    return KernelLimits(*out[:5]), n, (out[5], out[6])
 
 
 def kernel_limits(H: int) -> KernelLimits:
@@ -442,7 +456,9 @@ def weight_plan(kin: int, H: int, C: int, n_blocks: int, n_lin_z: int, NS: int, 
     (``pts`` points per split, :func:`fill_points` on ``n_sms`` SMs unless
     given) of the weight products at one shape; ``limits`` are the library
     of width H's (its output tile).  Raises ValueError when they do not fit
-    the kernel's parameters: past 5 blocks at sn64 widths."""
+    the kernel's table (``limits.max_maps`` maps, ``limits.max_tasks``
+    products): deeper than any tower the forward kernels take (62 blocks at
+    sn64's three injections)."""
     tasks = weight_tasks(kin, H, C, n_blocks, n_lin_z, NS, pre, B)
     B_pad = -(-B // 32) * 32
     arrays = ("ws_act", "ws_cot", "ws_x") + (("z" if NS == 1 else "ws_z",) if n_lin_z else ())
@@ -473,7 +489,7 @@ def weight_plan(kin: int, H: int, C: int, n_blocks: int, n_lin_z: int, NS: int, 
     if len(maps) > limits.max_maps or len(tasks) > limits.max_tasks:
         raise ValueError(
             f"resnetfc_bwd_weights takes at most {limits.max_maps} tensor maps and "
-            f"{limits.max_tasks} products in its 4 KB of kernel parameters; a {n_blocks}-block "
+            f"{limits.max_tasks} products in its table; a {n_blocks}-block "
             f"tower at NS = {NS} needs {len(maps)} maps and {len(tasks)} products")
     if -(-max(t.P for t in tasks) // pts) > limits.max_splits:
         raise ValueError(f"{pts} points per split give more than {limits.max_splits} splits")
@@ -481,31 +497,122 @@ def weight_plan(kin: int, H: int, C: int, n_blocks: int, n_lin_z: int, NS: int, 
     return WPlan(key, arrays, tuple(maps), tuple(table), pts, tiles, units)
 
 
-def _launch_params(plan: WPlan, ptrs: tuple) -> ctypes.Array:
+def _launch_params(plan: WPlan, ptrs: tuple, dev) -> tuple:
     """The kernel's parameters for ``plan`` on operands at ``ptrs`` (one
-    address per ``plan.arrays``): its tensor maps encoded once per such set
-    of addresses and kept (the last MAX_KEPT_PARAMS sets)."""
+    address per ``plan.arrays``), the pinned host image of their table of
+    tensor maps and tasks and its copy on ``dev``: encoded once per such set
+    of addresses, copied without blocking the host on the current stream
+    (which the launch then uses), and kept (the last MAX_KEPT_PARAMS sets,
+    ~37 KB each in pinned host memory and on the card)."""
     key = (plan.key, ptrs)
-    params = _PARAMS.get(key)
-    if params is not None:
+    kept = _PARAMS.get(key)
+    if kept is not None:
         _PARAMS.move_to_end(key)
-        return params
+        return kept
     n = len(plan.maps)
     bases = (ctypes.c_void_p * n)(*(ptrs[a] + 2 * row0 * cols for a, row0, _, cols in plan.maps))
     dims = (ctypes.c_int * (3 * n))(*(v for _, _, rows, cols in plan.maps
                                       for v in (rows, cols, cols)))
     H = plan.key[1]
-    params = ctypes.create_string_buffer(_limits_and_bytes(H)[1])
+    _, n_bytes, (off, size) = _limits_and_bytes(H)
+    params = ctypes.create_string_buffer(n_bytes)
     err = _lib(H).resnetfc_bwd_weights_plan(
         params, bases, dims, n, (ctypes.c_int * len(plan.table))(*plan.table),
         len(plan.table) // 6, H, plan.pts)
     if err != 0:
         raise RuntimeError(f"resnetfc_bwd_weights plan failed: "
                            f"{_lib(H).resnetfc_bwd_error_string(err).decode()} ({err})")
-    _PARAMS[key] = params
+    # the card reads the maps in place: TMA wants them 64-byte aligned, and
+    # the allocator's blocks are 512-byte aligned (the launch checks)
+    pinned = torch.empty((size,), dtype=torch.uint8, pin_memory=True)
+    pinned.copy_(torch.frombuffer(params, dtype=torch.uint8, count=size, offset=off))
+    table = torch.empty((size,), dtype=torch.uint8, device=dev)
+    table.copy_(pinned, non_blocking=True)
+    _PARAMS[key] = kept = (params, pinned, table)
     if len(_PARAMS) > MAX_KEPT_PARAMS:
         _PARAMS.popitem(last=False)
-    return params
+    return kept
+
+
+class _TaskImage(ctypes.Structure):
+    """``WTask`` of ``csrc/resnetfc_bwd.cu`` as a plan's table holds it."""
+
+    _fields_ = [("out", ctypes.c_size_t)] + [(n, ctypes.c_int) for n in (
+        "a_map", "g_map", "M", "P", "splits", "m_tiles", "tile0", "unit0")]
+
+
+def check_plan_image(plan: WPlan, z: Optional[torch.Tensor], data: DataOut) -> dict:
+    """Walk a launch of ``plan`` on these operands as the weights kernel
+    does, over the bytes its library wrote (the parameters and the table it
+    copies to the card), and raise ValueError on the first read or write out
+    of bounds: a task or map that differs from the plan's, a map past its
+    array's rows, a GEMM CTA that finds no task, a (tile, split) that no CTA
+    or two take, an output row past the products' buffer, a partial or a
+    counter past what :func:`_launch_weights` allocates.  Returns the
+    counts walked."""
+    kin, H, C, n_blocks, n_lin_z = plan.key[:5]
+    lim = kernel_limits(H)
+    ptrs = tuple((z if a == "z" else getattr(data, a)).data_ptr() for a in plan.arrays)
+    params = _launch_params(plan, ptrs, data.ws_x.device)[0]
+    _, _, (off, size) = _limits_and_bytes(H)
+
+    class Head(ctypes.Structure):  # WParams up to the per-call buffers
+        _fields_ = [("table", ctypes.c_void_p),
+                    ("split_cta0", ctypes.c_int * (lim.max_splits + 1))] + [
+            (n, ctypes.c_int) for n in ("n_tasks", "n_splits", "N", "pts", "tiles", "units")]
+
+    raw, t_size = bytes(params), ctypes.sizeof(_TaskImage)
+    head = Head.from_buffer_copy(raw)
+    t0 = off + 128 * lim.max_maps  # past the maps (a CUtensorMap is 128 bytes)
+
+    def fault(msg):
+        raise ValueError(f"resnetfc_bwd_weights plan {plan.key}: {msg}")
+
+    if t0 + t_size * lim.max_tasks > off + size:
+        fault(f"a table of {size} bytes holds no {lim.max_tasks} tasks past the maps")
+    tasks = [_TaskImage.from_buffer_copy(raw, t0 + k * t_size) for k in range(head.n_tasks)]
+    if (head.n_tasks, head.N, head.pts, head.tiles, head.units) != (
+            len(plan.table) // 6, H, plan.pts, plan.tiles, plan.units):
+        fault("the parameters differ from the plan (tasks, N, pts, tiles, units)")
+    for a, row0, rows, cols in plan.maps:
+        t = z if plan.arrays[a] == "z" else getattr(data, plan.arrays[a])
+        if t.shape[-1] != cols or row0 + rows > t.numel() // cols:
+            fault(f"a map of {plan.arrays[a]} reads rows {row0}..{row0 + rows} of "
+                  f"{t.numel() // cols}")
+    ntn = H // lim.tile_n
+    for k, T in enumerate(tasks):
+        if (T.a_map, T.g_map, T.M, T.P, T.splits, T.out) != plan.table[6 * k : 6 * k + 6]:
+            fault(f"task {k} differs from the plan")
+        a_cols, g_rows, g_cols = plan.maps[T.a_map][3], plan.maps[T.g_map][2], plan.maps[T.g_map][3]
+        if T.m_tiles != -(-T.M // lim.tile_m) or T.M > a_cols or g_cols != H or T.P > g_rows:
+            fault(f"task {k} reads past its maps")
+    n_out = kin * H + n_lin_z * C * H + 2 * n_blocks * H * H
+    ctas, seen = head.split_cta0[head.n_splits], set()
+    for bid in range(ctas):
+        s = 0
+        while s + 1 < head.n_splits and bid >= head.split_cta0[s + 1]:
+            s += 1
+        local = bid - head.split_cta0[s]
+        for ti, T in enumerate(tasks):
+            if T.splits <= s:
+                continue
+            if local < T.m_tiles * ntn:
+                break
+            local -= T.m_tiles * ntn
+        else:
+            fault(f"CTA {bid} finds no task")
+        m0, n0 = local // ntn * lim.tile_m, local % ntn * lim.tile_n
+        if m0 >= T.M or s * head.pts >= T.P:
+            fault(f"CTA {bid} takes an empty tile or split")
+        if T.splits == 1 and T.out + (min(T.M, m0 + lim.tile_m) - 1) * H + n0 + lim.tile_n > n_out:
+            fault(f"CTA {bid} writes past the products' {n_out} elements")
+        if T.splits > 1 and (T.unit0 + local * T.splits + s >= head.units
+                             or T.tile0 + local >= head.tiles):
+            fault(f"CTA {bid} writes past the partials or the counters")
+        seen.add((ti, local, s))
+    if len(seen) != ctas or ctas != sum(T.m_tiles * ntn * T.splits for T in tasks):
+        fault("the grid does not take every (tile, split) once")
+    return {"ctas": ctas, "tasks": len(tasks), "maps": len(plan.maps)}
 
 
 def bwd_weights_reference(z: Optional[torch.Tensor], data: DataOut, tower: rf.Tower,
@@ -619,7 +726,7 @@ def _data_mirror(H: int) -> DataLimits:
     constants (``csrc/tile64.cuh``), as :func:`~.resnetfc_fused._mirror`
     reads the forward's: a thread's share of the 64 x H stream is H / 4 f32
     (the slot), 96 KB of weight ring (3 stages of 32 KB, 6 of 16 KB at H =
-    128, 12 of 8 KB at 64), two 64 KB operand tiles."""
+    128 and 384, 12 of 8 KB at 64), two 64 KB operand tiles."""
     lim = rf.TILE_LIMITS[H]
     return DataLimits(tile=64, threads=256, slot_floats=lim.slot_floats, stages=lim.stages,
                       max_out=4, max_steps=256, max_c=1024, smem=2 * 65536 + 3 * 32768 + 1024,
@@ -641,8 +748,9 @@ def data_limits(H: int) -> DataLimits:
 def dz_pieces(C: int, H: int) -> int:
     """The walk-back steps an injection of a C-wide latent takes in the data
     kernel (``dz_pieces`` in ``csrc/tile64.cuh``): each forms H columns of
-    dz into a plane of its own; :func:`~.resnetfc_fused.latent_pieces` at
-    H = 512."""
+    dz into a plane of its own (at H = 384 the second of C = 512's two
+    planes holds 128 columns of dz and 256 the wrapper drops);
+    :func:`~.resnetfc_fused.latent_pieces` at H = 512."""
     return max(1, -(-C // H))
 
 
@@ -657,8 +765,8 @@ def data_steps(n_blocks: int, n_lin_z: int, NS: int, pre: int, C: int, H: int) -
     injection is one recompute step a :func:`~.resnetfc_fused.latent_pieces`
     of the C-wide latent and one walk-back step a :func:`dz_pieces` (H dz
     columns a step).  34 at sn64 and one view, 36 at any view count; 40 and
-    42 with the global encoder's C = 640; 37 / 43 / 55 at H = 256 / 128 / 64
-    and one view."""
+    42 with the global encoder's C = 640; 37 / 37 / 43 / 55 at H = 384 / 256
+    / 128 / 64 and one view."""
     mv = int(NS > 1)
     shared = n_blocks - pre
     zs = n_lin_z * rf.latent_pieces(C)
@@ -680,12 +788,33 @@ def check_data_program(n_blocks: int, n_lin_z: int, NS: int, pre: int, limits: D
                          f"{n_blocks} blocks need {steps}")
 
 
+# The deepest tower the route rule trains on the backward kernels:
+# chip_smoke.py's phase 18 holds rows 5a / 5b against their plain versions
+# at this depth (sn64's widths, 1 and 3 views, ragged and full).  The data
+# kernel's program holds 49 blocks and the weights kernel's table 62, and
+# past 7 blocks the kernels still meet the bar against their plain versions
+# on their own operands (to 49 blocks on an H100), but bf16's own drift
+# through the deeper tower takes the gate's comparison with an independent
+# plain backward (corr > 0.999) past its bar from 9 blocks at 3 views
+# (PERF.md section 7).
+GRAD_MAX_BLOCKS = 7
+
+
+def check_grad_depth(n_blocks: int) -> None:
+    """Raise ValueError on a tower deeper than :data:`GRAD_MAX_BLOCKS`."""
+    if n_blocks > GRAD_MAX_BLOCKS:
+        raise ValueError(f"the backward kernels are held against their plain versions on the "
+                         f"card to {GRAD_MAX_BLOCKS} blocks; a {n_blocks}-block tower trains "
+                         f"on the plain field")
+
+
 def check_data_widths(kin: int, H: int, C: int, n_lin_z: int, n_blocks: int, d_out: int,
                       limits: DataLimits) -> None:
     """Raise ValueError on widths ``resnetfc_bwd_data`` does not take: H other
-    than the library's (``limits.hidden``: 64, 128, 256 or 512, one library
-    each); with a latent, C not a multiple of 16 in [16, ``limits.max_c``]
-    (the forward's envelope: pieces of at most 512 columns); kin past 128 or
+    than the library's (``limits.hidden``: 64, 128, 256, 384 or 512, one
+    library each); with a latent, C not a multiple of 16 in [16,
+    ``limits.max_c``] (the forward's envelope: pieces of at most 512
+    columns); kin past 128 or
     not a multiple of 16; no block; more outputs than ``limits.max_out``; a
     CTA past the card's shared memory."""
     if H != limits.hidden:
@@ -842,15 +971,17 @@ def _launch_weights(z: Optional[torch.Tensor], data: DataOut, plan: Optional[WPl
     rows_out = torch.empty((R, H), device=dev)
     if plan is not None:
         ptrs = tuple((z if a == "z" else getattr(data, a)).data_ptr() for a in plan.arrays)
-        params = _launch_params(plan, ptrs)
+        params, _, table = _launch_params(plan, ptrs, dev)
+        stream = torch.cuda.current_stream(dev)
+        table.record_stream(stream)  # a launch on another stream than the copy's
         lim = kernel_limits(H)
         partial = (torch.empty((plan.units, lim.tile_m * lim.tile_n), device=dev)
                    if plan.units else None)
         counters = torch.zeros((plan.tiles,), device=dev, dtype=torch.int32)
         err = lib.resnetfc_bwd_weights(
-            params, out.data_ptr(), data.rows.data_ptr(), rows_out.data_ptr(),
+            params, table.data_ptr(), out.data_ptr(), data.rows.data_ptr(), rows_out.data_ptr(),
             data.rows.shape[0], R, None if partial is None else partial.data_ptr(),
-            counters.data_ptr(), torch.cuda.current_stream(dev).cuda_stream)
+            counters.data_ptr(), stream.cuda_stream)
         _launched("resnetfc_bwd_weights", err, H)
     else:
         out.zero_()

@@ -20,7 +20,9 @@ With ``--kernels`` a run times, on the sn64 fine head (seeded weights, live
 fc_1) and seeded inputs, the dense forward (``resnetfc_dense``) at a render
 fine pass (4096 rays x 96 = 393,216 points) and at the -V 1 train step's
 fine pass (4 x 128 x 96 = 49,152), the backward's data kernel
-(``resnetfc_bwd_data``) at -V 1 and -V 3 (SB 4 x NS 3 x 12,288 rows) there,
+(``resnetfc_bwd_data``) and its weights kernel (``resnetfc_bwd_weights``,
+on the data kernel's workspace) at -V 1 and -V 3 (SB 4 x NS 3 x 12,288
+rows) there,
 the fused gather (``resnetfc_gather``, 4 bilinear taps padded to 8 into a
 1024 x 512 bf16 table) at the render's fine and coarse passes (393,216 and
 262,144 points), the multi-view dense forward (``resnetfc_dense_mv``)
@@ -86,7 +88,7 @@ def child(views: int, steps: int, model: str) -> None:
 
 
 KERNEL_CASES = ("dense_393216", "dense_49152", "bwd_data_v1_49152", "bwd_data_v3_49152",
-                "gather_393216", "gather_262144", "dense_mv_v3_393216", "dense_mv_v3_49152",
+                "bwd_weights_v1_49152", "bwd_weights_v3_49152", "gather_393216", "gather_262144", "dense_mv_v3_393216", "dense_mv_v3_49152",
                 "gather_mv_v2_393216", "gather_mv_v2_262144")
 
 
@@ -137,6 +139,9 @@ def child_kernels() -> None:
             gc = torch.randn(mlp.d_out, B, device=dev, generator=gd)
             kw = dict(NS=NS, sb=sb, combine_layer=cl) if NS > 1 else {}
             out[f"bwd_data_v{NS}_{B}"] = ms(lambda: rv.bwd_data(gc, z, x, tw, nb, False, **kw))
+            data = rv.bwd_data(gc, z, x, tw, nb, False, **kw)
+            out[f"bwd_weights_v{NS}_{B}"] = ms(lambda: rv.bwd_weights(z, data, tw, nb))
+            del data
         table = torch.randn(1024, mlp.d_latent, device=dev, generator=gd).bfloat16()
         for B in (393216, 262144):
             _, x = inputs(B)

@@ -1,5 +1,6 @@
 """Whether the PyTorch port's forward kernels and its backward kernels give
-the same bits in several checkouts, at sn64's widths (d_hidden 512, C = 512).
+the same bits in several checkouts, at sn64's widths (d_hidden 512, C = 512)
+and at sn64's depth with d_hidden 256, 128 and 64.
 
     python3 scripts/torch_wide_latent_bits.py DIR_A DIR_B
 
@@ -14,9 +15,11 @@ gathers ``resnetfc_gather`` / ``resnetfc_gather_mv`` (both codes) on seeded
 ``resnetfc_bwd_data`` and ``resnetfc_bwd_weights`` (``bwd_data`` with dx,
 then ``bwd_weights``) on the same tower at 2000 and 49,152 points from one
 view and at SB 2 x NS 3 x 333 and SB 4 x NS 3 x 1536 rows with a seeded
-cotangent; and prints one JSON line of each output's SHA-256 (the first 16
-hex digits): the forwards' outputs, and of the backward the stashed
-workspace, the per-32-row sums, dz, dx and every gradient.  The script is
+cotangent; the same at d_hidden 256, 128 and 64 at 2000 points from one
+view and at SB 2 x NS 3 x 333 rows; and prints one JSON line of each
+output's SHA-256 (the first 16 hex digits): the forwards' outputs, and of
+the backward the stashed workspace, the per-32-row sums, dz, dx and every
+gradient.  The script is
 the same for every checkout; only the kernels differ.  It prints the
 hashes of each checkout and exits 1 unless they are all equal.  Needs one
 CUDA card.
@@ -38,24 +41,37 @@ def child() -> dict:
     from pixelnerf_tpu_torch.models.code import PositionalEncoding
     from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
     from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
-    from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
 
     dev = torch.device("cuda")
-    rf.build_all(("fwd", "bwd"))
-    g = torch.Generator().manual_seed(0)
+    rf.build_all(("fwd", "bwd"), WIDTHS)
     W, f, p, m = PositionalEncoding(num_freqs=6, d_in=3, freq_factor=1.5,
                                     include_input=True).flat_arrays(tail=3)
-    mod = ResnetFC(d_in=W.shape[1], d_out=4, n_blocks=5, d_latent=512, d_hidden=512,
-                   combine_layer=3, impl="cuda")
-    with torch.no_grad():
-        for name, prm in mod.named_parameters():
-            std = 0.05 if name.endswith("bias") else prm.shape[1] ** -0.5
-            prm.copy_(torch.randn(prm.shape, generator=g) * std)
-    tw = mod.to(dev).tower(dev)
     code = tuple(torch.from_numpy(a).to(dev) for a in (W, f, p, m))
     out = {}
-    for NS, sb, B in ((1, 1, 2000), (1, 1, 160), (1, 1, 49152), (2, 1, 4096), (3, 1, 2000),
-                      (3, 2, 333), (3, 4, 1536)):
+    for H in WIDTHS:
+        g = torch.Generator().manual_seed(0)
+        mod = ResnetFC(d_in=W.shape[1], d_out=4, n_blocks=5, d_latent=512, d_hidden=H,
+                       combine_layer=3, impl="cuda")
+        with torch.no_grad():
+            for name, prm in mod.named_parameters():
+                std = 0.05 if name.endswith("bias") else prm.shape[1] ** -0.5
+                prm.copy_(torch.randn(prm.shape, generator=g) * std)
+        tw = mod.to(dev).tower(dev)
+        out.update(hashes(tw, code, dev, SHAPES if H == 512 else NARROW_SHAPES,
+                          "" if H == 512 else f"d_hidden {H} "))
+    return out
+
+
+def hashes(tw, code, dev, shapes, tag: str) -> dict:
+    """The hashes of every kernel's outputs on the tower ``tw`` at ``shapes``
+    (NS, SB, B), each key prefixed with ``tag``."""
+    import torch
+
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
+
+    out = {}
+    for NS, sb, B in shapes:
         rows = NS * sb * B
         gi = torch.Generator().manual_seed(rows)
         raw = torch.cat([torch.rand(rows, 3, generator=gi) * 2.8 - 1.4,
@@ -77,7 +93,7 @@ def child() -> dict:
                     yg = (rf.resnetfc_gather(idx, w, tables[0].contiguous(), x, tw, 5, True)
                           if NS == 1 else rf.resnetfc_gather_mv(idx, w, tables, x, tw, 5, 3, True))
             torch.cuda.synchronize()
-            key = f"NS {NS} SB {sb} x {B} {label}"
+            key = f"{tag}NS {NS} SB {sb} x {B} {label}"
             out[key] = digest(y)
             if yg is not None:
                 out[key + " gather"] = digest(yg)
@@ -90,12 +106,18 @@ def child() -> dict:
         torch.cuda.synchronize()
         for name in ("ws_act", "ws_cot", "ws_x", "ws_z", "rows"):
             if getattr(data, name) is not None:
-                out[f"NS {NS} SB {sb} x {B} backward {name}"] = digest(getattr(data, name))
+                out[f"{tag}NS {NS} SB {sb} x {B} backward {name}"] = digest(getattr(data, name))
         for name in rv.Grads._fields:
-            out[f"NS {NS} SB {sb} x {B} backward {name}"] = digest(getattr(gr, name))
+            out[f"{tag}NS {NS} SB {sb} x {B} backward {name}"] = digest(getattr(gr, name))
     return out
 
 
+# the tower widths hashed: sn64's, then the narrower ones at fewer shapes
+WIDTHS = (512, 256, 128, 64)
+# (NS, SB, B): the shapes at d_hidden 512, and at the narrower widths
+SHAPES = ((1, 1, 2000), (1, 1, 160), (1, 1, 49152), (2, 1, 4096), (3, 1, 2000), (3, 2, 333),
+          (3, 4, 1536))
+NARROW_SHAPES = ((1, 1, 2000), (3, 2, 333))
 # the shapes at which the backward kernels' outputs are hashed too
 BWD_SHAPES = ((1, 1, 2000), (1, 1, 49152), (3, 2, 333), (3, 4, 1536))
 

@@ -40,10 +40,11 @@ from pixelnerf_tpu_torch.utils.jax_convert import from_jax_variables
 LIMITS = rv.DataLimits(tile=64, threads=256, slot_floats=32768, stages=3, max_out=4,
                        max_steps=256, max_c=1024, smem=2 * 65536 + 3 * 32768 + 1024,
                        hidden=512)
-# the narrow libraries' (d_hidden 256, 128 and 64): a slot of the 64 x H
-# stream (H / 4 f32 a thread), the same 96 KB ring in 3 stages of 32 KB, 6 of
-# 16 KB or 12 of 8 KB
+# the narrower libraries' (d_hidden 384, 256, 128 and 64): a slot of the 64 x
+# H stream (H / 4 f32 a thread), the same 96 KB ring in 3 stages of 32 KB, 6
+# of 16 KB or 12 of 8 KB
 LIMITS_AT = {512: LIMITS,
+             384: LIMITS._replace(slot_floats=24576, stages=6, hidden=384),
              256: LIMITS._replace(slot_floats=16384, hidden=256),
              128: LIMITS._replace(slot_floats=8192, stages=6, hidden=128),
              64: LIMITS._replace(slot_floats=4096, stages=12, hidden=64)}
@@ -220,7 +221,7 @@ def test_data_grid(B, NS, n_sms, want):
     assert B_pad % 32 == 0 and 0 <= tiles * 64 - B_pad < 64
 
 
-@pytest.mark.parametrize("H", [512, 256, 128, 64])
+@pytest.mark.parametrize("H", [512, 384, 256, 128, 64])
 def test_data_limits_fit_the_card(H):
     """Two 64 KB operand tiles and 96 KB of ring stages fit the 227 KB a
     CTA may ask for at every width; the multi-view slot holds the 64 x H
@@ -237,7 +238,7 @@ def test_data_limits_fit_the_card(H):
 
 
 @pytest.mark.parametrize("kin,H,C,n_lin_z,nb,d_out,match", [
-    (48, 384, 512, 3, 5, 4, "d_hidden 512, one library each of \\(64, 128, 256, 512\\)"),
+    (48, 320, 512, 3, 5, 4, "d_hidden 512, one library each of \\(64, 128, 256, 384, 512\\)"),
     (48, 256, 512, 3, 5, 4, "this library needs d_hidden 512"),  # another width's library
     (48, 512, 1040, 3, 5, 4, "d_latent a multiple of 16 in \\[16, 1024\\]"),
     (144, 512, 512, 3, 5, 4, "kin <= 128"),
@@ -431,7 +432,7 @@ def test_check_data_widths_takes_any_latent_width_without_a_latent():
     rv.check_data_widths(48, 512, 24, 0, 5, 4, LIMITS)
 
 
-@pytest.mark.parametrize("H", [512, 256, 128, 64])
+@pytest.mark.parametrize("H", [512, 384, 256, 128, 64])
 @pytest.mark.parametrize("C", [16, 128, 512, 528, 640, 1024])
 def test_check_data_widths_takes_the_forwards_latent_widths(C, H):
     """With a latent, C a multiple of 16 up to the forward's 1024: the
@@ -454,10 +455,10 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", [512, 256, 128, 64])
+@pytest.mark.parametrize("H", [512, 384, 256, 128, 64])
 @pytest.mark.parametrize("NS,B_obj", [(1, 1000), (1, 1008), (3, 333)])
 def test_data_kernel_matches_plain_on_card(cuda_device, NS, B_obj, H):
-    """sn64 widths (and the narrow towers' d_hidden 256, 128 and 64, a
+    """sn64 widths (and the narrower towers' d_hidden 384, 256, 128 and 64, a
     library each), ragged B (B = 2000, 2016 and 666: B_pad an odd multiple
     of 32 each): the kernel's stashed operands against the plain recompute
     (relu-mask flips <= 1e-3) and to the bar of tests/test_pallas.py; its

@@ -33,9 +33,9 @@ from pixelnerf_tpu_torch.utils.jax_convert import from_jax_variables
 
 WEIGHT_FIELDS = ("w_in", "b_in", "w_z", "b_z", "w_blk", "b_blk", "w_out", "b_out")
 # what resnetfc_bwd_weights_kernel fixes, by hand (the library reports it on
-# the card): 128 x 256 output tiles; at most 24 splits, 24 tensor maps and 16
-# products a launch
-LIMITS = rv.KernelLimits(tile_m=128, tile_n=256, max_splits=24, max_maps=24, max_tasks=16)
+# the card): 128 x 256 output tiles; at most 24 splits, 256 tensor maps and
+# 128 products a launch (62 blocks at sn64's three injections)
+LIMITS = rv.KernelLimits(tile_m=128, tile_n=256, max_splits=24, max_maps=256, max_tasks=128)
 N_SMS = 132  # an H100 SXM's SMs
 
 CASES = [
@@ -311,15 +311,17 @@ def test_weight_plan_at_sn64_widths(NS, pre):
         assert a == (plan.arrays.index(t.a), t.a_plane * B_pad, rows, t.M)
 
 
-@pytest.mark.parametrize("NS,pre", [(1, 6), (3, 4)])
+@pytest.mark.parametrize("NS,pre", [(1, 64), (3, 4)])
 def test_weight_plan_refuses_a_tower_past_the_kernel_limits(NS, pre):
-    """Six blocks need 27 tensor maps, more than the kernel's parameters
-    hold: the plan says so, naming the limit, before any launch."""
-    with pytest.raises(ValueError, match="at most 24 tensor maps and 16 products.*27 maps"):
-        rv.weight_plan(48, 512, 512, 6, 3, NS, pre, 1000, LIMITS, N_SMS)
-    # five blocks fit at every view count
-    assert len(rv.weight_plan(48, 512, 512, 5, 3, NS, min(pre, 4), 1000, LIMITS,
-                              N_SMS).maps) == 23
+    """64 blocks need 259 tensor maps and 132 products, more than the
+    kernel's table holds: the plan says so, naming the limit, before any
+    launch."""
+    with pytest.raises(ValueError, match="at most 256 tensor maps and 128 products.*259 maps "
+                                         "and 132 products"):
+        rv.weight_plan(48, 512, 512, 64, 3, NS, pre, 1000, LIMITS, N_SMS)
+    # 62 blocks, the forward's deepest at these widths, fit at every view count
+    assert len(rv.weight_plan(48, 512, 512, 62, 3, NS, min(pre, 62), 1000, LIMITS,
+                              N_SMS).maps) == 251
 
 
 def test_bwd_weights_raises_on_planes_tma_cannot_read():
@@ -365,10 +367,10 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", [512, 256, 128, 64])
+@pytest.mark.parametrize("H", [512, 384, 256, 128, 64])
 @pytest.mark.parametrize("NS,B_obj", [(1, 1000), (3, 333)])
 def test_weights_kernel_matches_plain_on_card(cuda_device, NS, B_obj, H):
-    """sn64 widths (and the narrow towers' d_hidden 256, 128 and 64, a
+    """sn64 widths (and the narrower towers' d_hidden 384, 256, 128 and 64, a
     library each), ragged B: the weights kernel against its plain version on
     the data kernel's own DataOut, to the bar of tests/test_pallas.py, and
     bit-identical on a second call."""

@@ -59,13 +59,16 @@ SAMPLES = dict(n_coarse=8, n_fine=6, n_fine_depth=3)
 jgs = importlib.import_module("pixelnerf_tpu.ops.grid_sample")
 
 
-def _conf(parse_file):
-    """sn64's conf at d_hidden 64 through one package's parser: a random
-    encoder, the test's few samples a ray."""
+def _conf(parse_file, H=H, n_blocks=None):
+    """sn64's conf at d_hidden H (64 here; other widths' slices read it
+    too), and ``n_blocks`` blocks when given, through one package's parser:
+    a random encoder, the test's few samples a ray."""
     conf = parse_file(str(SN64))
     conf.put("model.encoder.pretrained", False)
     for head in ("mlp_coarse", "mlp_fine"):
         conf.put(f"model.{head}.d_hidden", H)
+        if n_blocks is not None:
+            conf.put(f"model.{head}.n_blocks", n_blocks)
     for k, v in SAMPLES.items():
         conf.put(f"renderer.{k}", v)
     return conf
@@ -97,8 +100,12 @@ def _bump(variables, rng):
 
 @pytest.fixture(scope="module")
 def world():
+    return make_world(H)
+
+
+def make_world(H):
     """Three source views of one object, query points, rays, and JAX
-    variables of the d_hidden 64 model."""
+    variables of the d_hidden H model."""
     ds = SyntheticDataset(n_objs=1, n_views=3, image_size=IMG, seed=2)
     s = ds[0]
     rng = np.random.default_rng(9)
@@ -106,7 +113,7 @@ def world():
     xyz = (rng.normal(size=(1, B, 3)) * 0.4).astype(np.float32)
     vd = rng.normal(size=(1, B, 3)).astype(np.float32)
     vd /= np.linalg.norm(vd, axis=-1, keepdims=True)
-    conf = _conf(jhocon.parse_file)
+    conf = _conf(jhocon.parse_file, H)
     jnet = jmake_model(conf["model"], mlp_impl="xla")
     variables = jax.jit(jnet.init)(jax.random.PRNGKey(0), jnp.asarray(s["images"][None, :1]),
                                    jnp.asarray(s["poses"][None, :1]), jnp.asarray(s["focal"]),
@@ -114,7 +121,7 @@ def world():
     rays = gen_rays_np(pose_spherical(40.0, -20.0, 1.3)[None], IMG, IMG, s["focal"],
                        ds.z_near, ds.z_far).reshape(-1, 8)[::37][:48]
     return dict(images=s["images"], poses=s["poses"], focal=np.float32(s["focal"]), xyz=xyz,
-                vd=vd, conf=conf, variables=_bump(variables, rng), rays=rays)
+                vd=vd, conf=conf, variables=_bump(variables, rng), rays=rays, H=H)
 
 
 def _jax_scene(world, NS):
@@ -125,26 +132,33 @@ def _jax_scene(world, NS):
 
 
 def _port(world, NS):
-    net = make_model(_conf(hocon.parse_file)["model"], mlp_impl="cuda", device="cpu")
+    net = make_model(_conf(hocon.parse_file, world["H"])["model"], mlp_impl="cuda", device="cpu")
     net.load_state_dict(from_jax_variables(world["variables"]))
-    assert net.mlp_fine.d_hidden == net.mlp_coarse.d_hidden == H
+    assert net.mlp_fine.d_hidden == net.mlp_coarse.d_hidden == world["H"]
     assert (net.mlp_fine.n_blocks, net.mlp_fine.combine_layer, net.d_latent) == (5, 3, 512)
     scene = net.encode(torch.from_numpy(world["images"][None, :NS]),
                        torch.from_numpy(world["poses"][None, :NS]), float(world["focal"]))
     return net, scene
 
 
-def test_d_hidden_64_takes_the_kernels_on_a_card():
-    """Under ``auto`` the route rule sends this model's d_hidden 64 heads to
-    the kernels on a CUDA device, forward and under grad, from 1 and 3
-    views: the 64 library's mirrored limits take sn64's other widths."""
-    net = make_model(_conf(hocon.parse_file)["model"], mlp_impl="auto", device="meta")
+def takes_the_kernels_on_a_card(H, n_blocks=None):
+    """Under ``auto`` the route rule sends the heads of sn64's model at
+    d_hidden H to the kernels on a CUDA device, forward and under grad, from
+    1 and 3 views, reading only the width's mirrored limits."""
+    net = make_model(_conf(hocon.parse_file, H, n_blocks)["model"], mlp_impl="auto",
+                     device="meta")
     cuda = torch.device("cuda")  # compared by type only: nothing is allocated on it
     for mlp in (net.mlp_coarse, net.mlp_fine):
-        assert mlp.d_hidden == H
+        assert mlp.d_hidden == H and mlp.n_blocks == (n_blocks or 5)
         assert all(mlp._kernel_route((NS, 64), cuda, grad) for NS in (1, 3)
                    for grad in (False, True))
     assert not rf._LIBS and not rv._LIBS
+
+
+def test_d_hidden_64_takes_the_kernels_on_a_card():
+    """The d_hidden 64 heads: the 64 library's mirrored limits take sn64's
+    other widths."""
+    takes_the_kernels_on_a_card(H)
 
 
 @pytest.mark.parametrize("NS,cap", [(1, 2048), (1, 0), (3, 4096), (3, 0)])
@@ -153,6 +167,13 @@ def test_query_at_d_hidden_64_matches_jax(world, monkeypatch, NS, cap):
     the multi-view gather (row 4) or dense forward (row 3) from three, in
     their plain versions, against the JAX Pallas kernels in interpret
     mode; both heads."""
+    query_matches_jax(world, monkeypatch, NS, cap)
+
+
+def query_matches_jax(world, monkeypatch, NS, cap):
+    """``query`` of ``world``'s model from NS views at a fused-gather cap
+    of ``cap`` rows against the JAX model's Pallas kernels in interpret
+    mode, both heads."""
     monkeypatch.setenv("PIXELNERF_PALLAS_INTERPRET", "1")
     monkeypatch.setenv("PIXELNERF_FUSED_GATHER_MAX_ROWS", str(cap))
     jscene = _jax_scene(world, NS)
@@ -173,6 +194,10 @@ def test_query_at_d_hidden_64_matches_jax(world, monkeypatch, NS, cap):
 
 @pytest.fixture(scope="module")
 def jax_render(world):
+    return make_jax_render(world)
+
+
+def make_jax_render(world):
     """JAX render_rays (XLA field) from 1 and 3 source views, and the draws
     its key split gives."""
     cfg = jrenderer.RenderConfig(**SAMPLES, white_bkgd=True, depth_std=0.01, eval_batch_size=0)
@@ -207,6 +232,10 @@ def jax_render(world):
 
 @pytest.mark.parametrize("NS", [1, 3])
 def test_render_rays_at_d_hidden_64_matches_jax(world, jax_render, NS):
+    render_rays_matches_jax(world, jax_render, NS)
+
+
+def render_rays_matches_jax(world, jax_render, NS):
     """Encode, the kernel route's query (plain versions), the samplers and
     the compositing from NS views against JAX's render_rays on the same
     draws: weights, rgb and depth of both passes."""
@@ -266,10 +295,17 @@ def test_train_step_at_d_hidden_64_matches_jax_trainer(tmp_path, monkeypatch):
     version and the backward's plain transcription through the autograd
     Function; remat off, as on the card) against the JAX trainer: the same
     weights, batch, host generator and render draws."""
+    train_step_matches_jax_trainer(tmp_path, monkeypatch, H)
+
+
+def train_step_matches_jax_trainer(tmp_path, monkeypatch, H, n_blocks=None):
+    """One ``-V 1`` trainer step of sn64's conf at d_hidden H (and
+    ``n_blocks`` blocks) on the kernel route against the JAX trainer; returns
+    the port's trainer."""
     monkeypatch.setattr(jgs, "_ONEHOT_BWD_MAX_ROWS", 0)  # read when the JAX step is traced
     jds = JSyntheticDataset(n_objs=3, n_views=4, image_size=IMG)
     sample = jds[0]
-    jconf = _conf(jhocon.parse_file)
+    jconf = _conf(jhocon.parse_file, H, n_blocks)
     jnet = jmake_model(jconf["model"], mlp_impl="xla")
     variables = jax.jit(jnet.init)(
         jax.random.PRNGKey(0), jnp.asarray(sample["images"][None, :1]),
@@ -278,7 +314,7 @@ def test_train_step_at_d_hidden_64_matches_jax_trainer(tmp_path, monkeypatch):
     variables = _bump(variables, np.random.default_rng(3))
     tr_j = JTrainer(jnet, variables, jds, jds, JNeRFRenderer.from_conf(jconf["renderer"]),
                     _Args(tmp_path / "j"), jconf)
-    conf = _conf(hocon.parse_file)
+    conf = _conf(hocon.parse_file, H, n_blocks)
     net = make_model(conf["model"], mlp_impl="cuda", device="cpu", diff_mode=True)
     net.load_state_dict(from_jax_variables(variables))
     ds = SyntheticDataset(n_objs=3, n_views=4, image_size=IMG)
@@ -294,3 +330,4 @@ def test_train_step_at_d_hidden_64_matches_jax_trainer(tmp_path, monkeypatch):
     assert np.isfinite(ld_p["t"]), ld_p
     np.testing.assert_allclose(ld_p["t"], ld_j["t"], rtol=2e-3)
     np.testing.assert_allclose(ld_p["grad_norm"], ld_j["grad_norm"], rtol=5e-3)
+    return tr_p

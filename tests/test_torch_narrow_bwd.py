@@ -1,12 +1,13 @@
-"""The port's ResnetFC backward (rows 5a / 5b of PERF.md) at the narrow
-tower widths, d_hidden 256, 128 and 64, on the CPU.
+"""The port's ResnetFC backward (rows 5a / 5b of PERF.md) at the narrower
+tower widths, d_hidden 384, 256, 128 and 64, on the CPU.
 
 The backward is built once per tower width, as the forward is: its data
 kernel's walk back forms dz H columns a step (``dz_pieces``: 2 steps an
-injection of sn64's C = 512 at 256, 4 at 128, 8 at 64), each into an (NS
-B_pad, H) plane that ``_join_planes`` joins; its weights kernel's output
-tile is 128 x min(256, H), so a narrow tower has few output tiles (33 at
-256, 23 at 128 and at 64 against sn64's 106 at the -V 1 fine pass), and
+injection of sn64's C = 512 at 384 and 256, 4 at 128, 8 at 64), each into
+an (NS B_pad, H) plane that ``_join_planes`` joins; its weights kernel's
+output tile is 128 x min(256, H) (128 x 192 at 384), so a narrow tower has
+few output tiles (86 at 384, 33 at 256, 23 at 128 and at 64 against sn64's
+106 at the -V 1 fine pass), and
 ``fill_points`` splits the point axis past ``split_points``' whole views to
 fill the card's SMs in one wave.
 
@@ -83,6 +84,8 @@ def _close(b, a, what):
     # 64 columns, the last past C), the latent in all 4 blocks
     (1, 1, 64, 96, 64, 4, 4),
     (3, 2, 48, 512, 64, 5, 3),  # sn64's depth at 64 from 3 views: 8 dz steps an injection
+    (1, 1, 96, 512, 384, 5, 3),  # 384: three 64-column pieces a warpgroup, 2 dz steps
+    (3, 1, 40, 640, 384, 5, 3),  # 384 from 3 views at the global encoder's 640
 ])
 def test_narrow_function_value_and_grads_match_pallas_interpret(monkeypatch, NS, sb, B_obj, C,
                                                                 H, nb, cl):
@@ -124,7 +127,7 @@ def test_narrow_function_value_and_grads_match_pallas_interpret(monkeypatch, NS,
 
 @pytest.mark.parametrize("H,C", [(512, 512), (512, 640), (256, 512), (256, 640), (128, 128),
                                  (128, 512), (128, 640), (128, 1024), (256, 16), (64, 512),
-                                 (64, 96), (64, 640)])
+                                 (64, 96), (64, 640), (384, 512), (384, 640), (384, 1024)])
 def test_dz_steps_joined_are_the_latents_gradient(H, C):
     """The walk back's Z_BWD steps as the kernel takes them: step j of
     injection k reads the rows k C + j H .. + H of the flat (n_lin_z C, H)
@@ -157,10 +160,12 @@ def test_dz_steps_joined_are_the_latents_gradient(H, C):
     # sn64 at -V 1: 34 steps at 512; each injection's walk back takes
     # dz_pieces(512, H) steps (1, 2, 4, 8), 3 injections
     (512, 512, 1, 5, 34), (256, 512, 1, 5, 37), (128, 512, 1, 5, 43), (64, 512, 1, 5, 55),
+    (384, 512, 1, 5, 37),  # 2 steps of 384 columns, the second's last 256 past C
     # -V 3: one view's segments; the walk back's view segment holds the steps
     (512, 512, 3, 3, 36), (256, 512, 3, 3, 39), (128, 512, 3, 3, 45), (64, 512, 3, 3, 57),
-    # the global encoder's C = 640: 2 recompute pieces, 3 / 5 dz steps
-    (256, 640, 1, 5, 17 + 1 + 25), (128, 640, 1, 5, 17 + 1 + 31),
+    (384, 512, 3, 3, 39),
+    # the global encoder's C = 640: 2 recompute pieces, 2 / 3 / 5 dz steps
+    (384, 640, 1, 5, 17 + 1 + 22), (256, 640, 1, 5, 17 + 1 + 25), (128, 640, 1, 5, 17 + 1 + 31),
     # the ConvEncoder's C = 128: one step each way at every width
     (128, 128, 1, 5, 34), (256, 128, 3, 3, 36),
     # the widest latent at 128: 2 pieces, 8 dz steps an injection
@@ -174,20 +179,23 @@ def test_data_steps_with_the_split_dz_steps(H, C, NS, pre, want):
 
 @pytest.mark.parametrize("H,want", [(512, [2] + [8] * 13), (256, [1] + [4] * 3 + [2] * 10),
                                     (128, [1] + [4] * 3 + [1] * 10),
-                                    (64, [1] + [4] * 3 + [1] * 10)])
+                                    (64, [1] + [4] * 3 + [1] * 10),
+                                    (384, [2] + [8] * 3 + [6] * 10)])
 @pytest.mark.parametrize("NS,pre", [(1, 5), (3, 3)])
 def test_weight_plan_at_narrow_widths(H, want, NS, pre):
-    """sn64's 14 products at d_hidden 256, 128 and 64: lin_in (M = 48), lin_z
-    (M = C = 512) and the blocks (M = H), on 128 x min(256, H) tiles: 106
-    tiles at 512, 33 at 256 (lin_in 1, lin_z 3 x 4, blocks 10 x 2), 23 at
-    128 and at 64 (lin_in 1, lin_z 3 x 4, blocks 10 x 1); the outputs lie one after
-    another, lin_z's 512 x H and the blocks' H x H each; 23 tensor maps."""
+    """sn64's 14 products at d_hidden 384, 256, 128 and 64: lin_in (M =
+    48), lin_z (M = C = 512) and the blocks (M = H), on 128 x min(256, H)
+    tiles (128 x 192 at 384, two column tiles): 106 tiles at 512, 86 at 384
+    (lin_in 2, lin_z 3 x 8, blocks 10 x 6), 33 at 256 (lin_in 1, lin_z 3 x
+    4, blocks 10 x 2), 23 at 128 and at 64 (lin_in 1, lin_z 3 x 4, blocks 10
+    x 1); the outputs lie one after another, lin_z's 512 x H and the blocks'
+    H x H each; 23 tensor maps."""
     lim = rv.WEIGHT_LIMITS[H]
-    assert lim.tile_n == min(256, H)
+    assert lim.tile_n == rv.weight_tile_n(H) == (192 if H == 384 else min(256, H))
     tasks = rv.weight_tasks(48, H, 512, 5, 3, NS, pre, FINE)
     assert [rv.weight_tiles(t, H, lim) for t in tasks] == want
     plan = rv.weight_plan(48, H, 512, 5, 3, NS, pre, FINE, lim, N_SMS)
-    assert plan.tiles == sum(want) == {512: 106, 256: 33, 128: 23, 64: 23}[H]
+    assert plan.tiles == sum(want) == {512: 106, 384: 86, 256: 33, 128: 23, 64: 23}[H]
     assert len(plan.maps) == 23 and len(plan.table) == 6 * 14
     assert [t.M for t in tasks] == [48] + [512] * 3 + [H] * 10
     offsets = [plan.table[6 * i + 5] for i in range(14)]
@@ -206,6 +214,8 @@ def test_weight_plan_at_narrow_widths(H, want, NS, pre):
     (128, 3, 3, FINE // 2, 122),  # 6 splits below the mean, 2 above
     (64, 1, 5, 9856, 115),  # 64's 23 tiles split as 128's
     (64, 3, 3, FINE // 2, 122),
+    (384, 1, 5, FINE, 86),  # 86 tiles: more than half the card already
+    (384, 3, 3, FINE, 210),
 ])
 def test_split_points_fill_the_card_at_narrow_widths(H, NS, pre, pts, ctas):
     """On an H100's 132 SMs: a launch that would leave more than half the
@@ -227,7 +237,7 @@ def test_split_points_fill_the_card_at_narrow_widths(H, NS, pre, pts, ctas):
     assert plan.units == sum(n * s for n, s in zip(tiles, splits) if s > 1)
 
 
-@pytest.mark.parametrize("H", [256, 128, 64])
+@pytest.mark.parametrize("H", [384, 256, 128, 64])
 @pytest.mark.parametrize("NS,B", [(1, 2000), (1, 40), (3, 666), (25, FINE), (255, 1000)])
 def test_split_points_stay_within_the_kernels_limits(H, NS, B):
     """At a ragged B, a tiny B, and -V 25 / -V 255, the narrow plans keep

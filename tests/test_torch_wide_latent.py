@@ -15,8 +15,12 @@ envelope, on the CPU.
   Under grad the backward kernels take the forward's latent widths (16 to
   1024, a multiple of 16): the global encoder's 640 and the ConvEncoder's
   128 train on the kernels; 1040 and 24 stay plain.  The forward and the
-  backward kernels take d_hidden 64, 128, 256 and 512 (a library each of
-  each): narrow towers render and train on them; 192 and 384 stay plain.
+  backward kernels take d_hidden 64, 128, 256, 384 and 512 (a library each
+  of each): narrower towers render and train on them; 192, 320 and 448 stay
+  plain.  Under grad a tower trains on the kernels to the depth the card's
+  gates hold (``GRAD_MAX_BLOCKS``, 7 blocks), inside the data kernel's
+  program (49 blocks at sn64's other widths) and the weights kernel's plan;
+  deeper ones keep the forward kernels and train plain.
 * The steepened field of the eval CLIs' replay (its sigma row x 50, shifted
   to leave 1/32 of the points occupied) read past the per-kernel bar on the
   card: the JAX kernel's own bf16 arithmetic reads alike on it.
@@ -158,12 +162,14 @@ CUDA = torch.device("cuda")  # only compared by type: nothing is allocated on it
 
 
 @pytest.mark.parametrize("kw,NS,grad", [
-    (dict(d_hidden=384), 1, False),  # no library of that width
+    (dict(d_hidden=320), 1, False),  # no library of that width
     (dict(d_hidden=192), 3, False),  # no library of that width either
     (dict(d_hidden=192), 1, True),  # no library of that width, under grad
-    (dict(d_hidden=384), 3, True),
+    (dict(d_hidden=448), 3, True),
     (dict(d_in=144), 1, True),  # kin 144 > 128: the data kernel's code
-    (dict(n_blocks=6), 1, True),  # the weights kernel's plan: 5 blocks at most
+    (dict(n_blocks=50), 1, True),  # the data kernel's program: 49 blocks at most
+    (dict(n_blocks=8), 1, True),  # past the depth the card's gates hold (7 blocks)
+    (dict(n_blocks=49), 3, True),  # inside the data kernel's program, past the gates
     (dict(d_latent=1040), 1, True),  # past the kernels' 1024, under grad
     (dict(d_latent=1040), 3, True),
     (dict(d_latent=24), 1, True),  # not a multiple of 16
@@ -207,6 +213,14 @@ def test_route_sends_towers_outside_the_envelope_to_the_plain_route(kw, NS, grad
     (dict(d_hidden=64), 3, False),
     (dict(d_hidden=64), 1, True),  # and its backward, 8 dz steps an injection
     (dict(d_hidden=64), 3, True),
+    (dict(d_hidden=384), 1, False),  # d_hidden 384's forward: three 64-column pieces
+    (dict(d_hidden=384), 3, False),
+    (dict(d_hidden=384), 1, True),  # and its backward, 2 dz steps an injection
+    (dict(d_hidden=384), 3, True),
+    (dict(n_blocks=6), 1, True),  # past 5 blocks: the weights kernel's table in device memory
+    (dict(n_blocks=7), 3, True),
+    (dict(n_blocks=7), 1, True),  # the deepest tower the card's gates hold
+    (dict(n_blocks=6), 3, True),
 ])
 def test_route_takes_the_kernels_inside_the_envelope(kw, NS, grad):
     """Decided from the Python mirrors as well: no library built or loaded."""
@@ -218,15 +232,16 @@ def test_route_takes_the_kernels_inside_the_envelope(kw, NS, grad):
 
 @pytest.mark.parametrize("option,want", [("global", True), ("conv", True), ("narrow", True),
                                          ("narrow128", True), ("narrow64", True),
-                                         ("narrow192", False)])
+                                         ("narrow192", False), ("narrow384", True),
+                                         ("narrow320", False)])
 def test_option_train_steps_take_the_backward_kernels(monkeypatch, option, want):
     """sn64's conf with the global encoder (C = 640) or the ConvEncoder (C =
     128), built in code as ``chip_smoke.py``'s ``option_confs`` builds it,
-    or with both heads at d_hidden 256, 128 or 64 (``narrow_conf``): under
-    ``auto`` with card parameters ``field_backward_in_kernel`` holds at -V 1
-    and -V 3, so the trainer's remat default, which follows it and not the
-    conf, is off; a d_hidden 192 tower, which no library is built for,
-    stays plain.  The card is faked: the
+    or with both heads at d_hidden 256, 128, 64 or 384 (``narrow_conf``):
+    under ``auto`` with card parameters ``field_backward_in_kernel`` holds
+    at -V 1 and -V 3, so the trainer's remat default, which follows it and
+    not the conf, is off; d_hidden 192 and 320 towers, which no library is
+    built for, stay plain.  The card is faked: the
     rule reads only the parameters' device, and no library is built or
     loaded."""
     from types import SimpleNamespace
@@ -256,19 +271,21 @@ def test_mirrored_limits_are_the_kernels_limits_by_hand():
     64-point tile, 256 threads, 3 ring stages of 32 KB, 4 outputs, 128
     stored steps, a 512-wide code, a 1024-wide latent, two 64 KB operand
     tiles (the data kernel: 256 steps, the same 1024-wide latent); the
-    weights kernel's 128 x 256 tile, 24 splits, 24 tensor maps and 16
-    products.  The narrow libraries keep the operand tiles, the code's and
-    the latent's widths and the 96 KB ring (6 stages of 16 KB at d_hidden
-    128, where a warpgroup's piece is one 64-column box; 12 of 8 KB at 64,
-    where it is one 64 x 32 box), and a view-sum slot of the H-wide stream
-    (H / 4 f32 a thread), the data kernel's as the forward's: 32768 / 16384
-    / 8192 / 4096 f32 at 512 / 256 / 128 / 64; the weights kernel's tile is
-    128 x min(256, H).  ``chip_smoke.py`` holds them equal
-    to what the libraries report."""
+    weights kernel's 128 x 256 tile, 24 splits, 256 tensor maps and 128
+    products (every tower the forward's 128 steps take, in a table in device
+    memory).  The narrower libraries keep the operand tiles, the code's
+    and the latent's widths and the 96 KB ring (6 stages of 16 KB at
+    d_hidden 128 and 384, where a warpgroup's piece is one 64-column box; 12
+    of 8 KB at 64, where it is one 64 x 32 box), and a view-sum slot of the
+    H-wide stream (H / 4 f32 a thread), the data kernel's as the forward's:
+    32768 / 24576 / 16384 / 8192 / 4096 f32 at 512 / 384 / 256 / 128 / 64;
+    the weights kernel's tile is 128 x min(256, H), 128 x 192 at 384.
+    ``chip_smoke.py`` holds them equal to what the libraries report."""
     assert rf.TILE_LIMITS == {
         64: rf.DenseLimits(64, 256, 12, 4, 128, 512, 4096, 230400, 448, 1024, 64),
         128: rf.DenseLimits(64, 256, 6, 4, 128, 512, 8192, 230400, 448, 1024, 128),
         256: rf.DenseLimits(64, 256, 3, 4, 128, 512, 16384, 230400, 448, 1024, 256),
+        384: rf.DenseLimits(64, 256, 6, 4, 128, 512, 24576, 230400, 448, 1024, 384),
         512: rf.DenseLimits(64, 256, 3, 4, 128, 512, 32768, 230400, 448, 1024, 512),
     }
     assert tuple(rf.TILE_LIMITS) == rf.HIDDEN
@@ -276,12 +293,14 @@ def test_mirrored_limits_are_the_kernels_limits_by_hand():
         64: rv.DataLimits(64, 256, 4096, 12, 4, 256, 1024, 230400, 64),
         128: rv.DataLimits(64, 256, 8192, 6, 4, 256, 1024, 230400, 128),
         256: rv.DataLimits(64, 256, 16384, 3, 4, 256, 1024, 230400, 256),
+        384: rv.DataLimits(64, 256, 24576, 6, 4, 256, 1024, 230400, 384),
         512: rv.DataLimits(64, 256, 32768, 3, 4, 256, 1024, 230400, 512),
     }
-    assert rv.WEIGHT_LIMITS == {64: rv.KernelLimits(128, 64, 24, 24, 16),
-                                128: rv.KernelLimits(128, 128, 24, 24, 16),
-                                256: rv.KernelLimits(128, 256, 24, 24, 16),
-                                512: rv.KernelLimits(128, 256, 24, 24, 16)}
+    assert rv.WEIGHT_LIMITS == {64: rv.KernelLimits(128, 64, 24, 256, 128),
+                                128: rv.KernelLimits(128, 128, 24, 256, 128),
+                                256: rv.KernelLimits(128, 256, 24, 256, 128),
+                                384: rv.KernelLimits(128, 192, 24, 256, 128),
+                                512: rv.KernelLimits(128, 256, 24, 256, 128)}
     assert tuple(rv.DATA_LIMITS) == tuple(rv.WEIGHT_LIMITS) == rf.HIDDEN
     for H, lim in rf.TILE_LIMITS.items():
         assert lim.smem <= rf.MAX_SMEM_BYTES and lim.hidden == H
@@ -291,9 +310,9 @@ def test_mirrored_limits_are_the_kernels_limits_by_hand():
         assert dlim.slot_floats == dlim.threads * H // 4  # a thread's share of the 64 x H stream
         # a 96 KB ring: stages of 32 KB (two warpgroups x two or one 8 KB box),
         # 16 KB (x one 8 KB box) or 8 KB (x one 64 x 32 box of 4 KB)
-        stage = {64: 2 * 4096, 128: 2 * 8192}.get(H, 4 * 8192)
+        stage = {64: 2 * 4096, 128: 2 * 8192, 384: 2 * 8192}.get(H, 4 * 8192)
         assert rf.ring_stage_bytes(H) == stage and dlim.stages * stage == 3 * 32768
-    for H in (192, 384, 1024):
+    for H in (192, 320, 448, 1024):
         with pytest.raises(ValueError, match="d_hidden"):
             rf.tile_limits(H)
 
