@@ -8,7 +8,7 @@ one line each:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile every kernel from ``pixelnerf_tpu_torch/csrc``, one
    ``nvcc`` per library, all at once: the forward and the backward at each
-   hidden width (128, 256, 512; ``-DRFC_HID``), six libraries; ptxas
+   hidden width (64, 128, 256, 384, 512; ``-DRFC_HID``), ten libraries; ptxas
    registers and spills per kernel, each library's ``HGMMA`` / ``UTMALDG``
    / ``HMMA`` counts per kernel (``cuobjdump -sass``) and each weights
    kernel's shared memory; both backward kernels (the data kernel's two
@@ -236,8 +236,10 @@ one line each:
     output points; NS 2 for the multi-view gather, NS 3 for the multi-view
     dense kernel) and at a ragged B (2000; NS 3 x 333; SB 2 x NS 3 x 333)
     against its plain version at the bar of 3, one launch, bit-identical
-    second calls, and at the fine pass timed in turns beside d_hidden 512
-    on the same inputs with its plain, cuBLAS and bound times; ``python -m
+    second calls, the gathers bit for bit the dense kernels on their bf16
+    latent (``forward_check``), and at the fine pass timed in turns beside
+    d_hidden 512 on the same inputs with its plain, cuBLAS and bound times;
+    ``python -m
     pixelnerf_tpu_torch.eval.eval -F dvr -P "0"`` and ``-P "0 1 2"`` at
     d_hidden 256 with ``PIXELNERF_DEFER_CODE=1`` on the NMR fixture (a conf
     file including sn64's, a checkpoint of the phase's weights), launching
@@ -315,7 +317,41 @@ one line each:
     the bar of 3 (``ops.replay``); each leg's wall seconds and peak memory
     per rank, the step ms at 1 and 2 ranks; last the root smoke tools'
     twins (``tools.training_smoke`` on sn64, ``tools.memory_smoke`` on the
-    NMR fixture, ``tools.check_config``) once each.
+    NMR fixture, ``tools.check_config``) once each;
+21. ResNet50 (``resnet50_phase``): rows 1-4 and their CODE twins at
+    ResNet50's latent widths, C = 832, 1856 and 3904 (3, 4 and 5 encoder
+    layers: 2, 4 and 8 pieces of 512 columns an injection, the last one 320
+    wide), on sn64's tower (d_hidden 512) with seeded (3, 1024, C) tables,
+    at a ragged B (the gathers from 1, 2 and 3 views, the dense kernels from
+    1 view and SB 2 x NS 3 x 333) against their plain versions at the bar
+    of 3, one launch, bit-identical second calls and the gathers bit for bit
+    the dense kernels on their bf16 latent; at 1856 and 3904 also at the
+    fine pass (393,216 output points, NS 2 for the multi-view gather, NS 3
+    for the multi-view dense kernel: 131,072 output points at 3904) timed in
+    turns beside C = 512 with their plain, cuBLAS and bound times; rows 5a /
+    5b at each width from 1 and 3 views through ``backward_gate`` (ragged,
+    and the train step's fine pass at 1856), both timed at the fine pass
+    at 1856 and 3904 beside C = 512 in turns (512, 1856, 3904, 3904, 1856,
+    512) with their plain, library and bound times; the narrower libraries
+    at a ResNet50 width (d_hidden 384 and 256 at 1856, 128 and 64 at 3904:
+    61 dz steps an injection) on the ragged shapes, forward and backward;
+    then ``conf/exp/sn64.conf`` with ``model.encoder.backbone = resnet50``
+    (4 layers, no first pool: a 32 x 32 x 1856 map; seeded, random encoder)
+    renders ring frame 0 from views (0) (the fused gather), (0) under
+    ``PIXELNERF_FUSED_GATHER_MAX_ROWS=0`` (the dense kernel), (0, 1) (the
+    multi-view gather) and (0, 1, 2) (the multi-view dense kernel), each
+    also with ``PIXELNERF_DEFER_CODE=1``, each launching its kernel and >=
+    40 dB against the plain f32 route, its kernel calls replayed against
+    their plain versions, the encoded routes timed in turns beside sn64's
+    ResNet34 model; ResNet50 at 3 layers (C = 832) and ResNet34 at 5 (C =
+    1024) render frame 0 from view 0 on the fused gather (the route that
+    raised before the gathers took pieces), >= 40 dB; ``eval -P "0"`` on the
+    NMR fixture through the fused gather; ``python -m
+    pixelnerf_tpu_torch.train`` with ResNet50 (a conf file including
+    sn64's) for 3 steps at -V 1 on the NMR fixture and at -V 3 on the DTU
+    one, remat off, the forward kernel and both backward kernels twice a
+    step; and the train step from 1 and 3 views against the plain f32 step
+    at the guards of 9.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``.
@@ -2620,6 +2656,153 @@ NARROW_H = (384, 256, 128, 64)
 NARROW_EVAL = (("0", "resnetfc_fwd_gather_code"), ("0 1 2", "resnetfc_fwd_dense_mv_code"))
 
 
+def forward_check(tw, tables, code_arrays, gen, case, records, code_records, smi, label,
+                  twin=None) -> None:
+    """Rows 1-4 and their CODE twins (row 6) of the tower ``tw`` (sn64's:
+    the latent in blocks 0-2, the views' mean at block 3; any width H and
+    latent C the kernels take) on (NS, T, C) ``tables`` at one shape
+    ``case`` = (kind, NS, SB, B): each against its plain version at the bar
+    of 3 (max|d| <= 0.015 max(1, max|ref|), corr > 0.999), one launch,
+    bit-identical on a second call, the gathers bit for bit the dense
+    kernels on their bf16 latent; with ``twin`` = (its name, the record key
+    under which the times are kept, e.g. ("d_hidden 512", ("narrow",
+    "h384"), "h512"), its tower, its tables), timed in turns beside it (the
+    twin, this, this, the twin) with their plain, cuBLAS and bound times.
+    Logs a line a variant and exits on a failure."""
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.ops.grid_sample import bilinear_taps
+    from pixelnerf_tpu_torch.ops.replay import agree
+
+    kind, NS, sb, B = case
+    dev = tables.device
+    H, (n_lin_z, C) = tw.w_in.shape[1], tw.w_z.shape[:2]
+    nb, cl, d_in, d_out = tw.w_blk.shape[0], 3, tw.d_in, tw.w_out.shape[1]
+    T = tables.shape[1]
+    side = int(math.isqrt(T))
+    rows = NS * sb * B if NS > 1 else B
+    B_out = sb * B
+    pts = torch.rand(rows, 3, device=dev, generator=gen) * 2 - 1
+    vd = torch.nn.functional.normalize(torch.randn(rows, 3, device=dev, generator=gen), dim=-1)
+    rc = rf.RawCode(torch.cat([pts, vd], dim=-1).contiguous(), *code_arrays)
+    x = rf.materialize_code(rc._replace(cd=torch.float32)).contiguous()
+    idx, w = bilinear_taps(torch.rand(rows, 2, device=dev, generator=gen) * 2 - 1, side, side,
+                           pad_taps_to=8)
+    idx[0::32, 0] = -1  # taps outside the table contribute nothing
+    idx[16::32, 3] = T
+    idx, w = idx.contiguous(), w.contiguous()
+    gather = kind.startswith("gather")
+    name = "resnetfc_fwd_" + kind
+    shape = f"NS {NS}" + (f" x SB {sb}" if sb > 1 else "") + f" x {B} = {B_out} output points"
+
+    def lookup(tabs):
+        return (mv_latent(tabs, idx, w, sb) if NS > 1
+                else rf.gather_reference(idx, w, tabs[0], torch.bfloat16).to(torch.bfloat16))
+
+    def call(t, tabs, z, xi):
+        if kind == "gather":
+            return rf.resnetfc_gather(idx, w, tabs[0], xi, t, nb)
+        if kind == "dense":
+            return rf.resnetfc_dense(z, xi, t, nb)
+        if kind == "gather_mv":
+            return rf.resnetfc_gather_mv(idx, w, tabs, xi, t, nb, cl)
+        return rf.resnetfc_dense_mv(z, xi, t, nb, NS, cl, sb)
+
+    tabs = tables[:NS].contiguous()
+    with torch.no_grad():
+        z = lookup(tabs)
+        for variant, xi in ((name, x), (name + "_code", rc)):
+            before = dict(rf.LAUNCHES)
+            out = call(tw, tabs, z, xi)
+            torch.cuda.synchronize()
+            launched = {k: v - before[k] for k, v in rf.LAUNCHES.items() if v != before[k]}
+
+            def plain(xi=xi):
+                return rf.resnetfc_reference(z, xi, tw, nb, compute_dtype=torch.bfloat16, NS=NS,
+                                             sb=sb, combine_layer=cl if NS > 1 else None)
+
+            ref = plain()
+            d, bar, corr = agree(out, ref)
+            del ref
+            identical = torch.equal(out, call(tw, tabs, z, xi))
+            same = None
+            if gather:  # the dense kernels on gather_reference's bf16 latent
+                same = torch.equal(out, rf.resnetfc_dense(z, xi, tw, nb) if NS == 1
+                                   else rf.resnetfc_dense_mv(z, xi, tw, nb, NS, cl, 1))
+            ok = (d <= bar and corr > 0.999 and bool(torch.isfinite(out).all()) and identical
+                  and out.shape == (d_out, B_out) and launched == {variant: 1}
+                  and same is not False)
+            line = (f"{label}: {variant} at d_hidden {H}, C = {C} ({rf.latent_pieces(C)} "
+                    f"piece{'s' if C > rf.TILE_K else ''} an injection), {shape}: max|d| {d:.6g} "
+                    f"(bar {bar:.6g}), corr {corr:.7f}, bit-identical second call {identical}, "
+                    f"launches {launched}"
+                    + (f", bit-identical to the dense kernel on its bf16 latent {same}"
+                       if gather else ""))
+            rec = records[variant] if variant in records else code_records[variant]
+            rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), d)
+            if twin is not None:
+                twin_name, (section, key), twin_key, tw2, tables2 = twin
+                tabs2 = tables2[:NS].contiguous()
+                z2 = lookup(tabs2)
+                t = {"twin": [], "this": []}
+                for which in ("twin", "this", "this", "twin"):
+                    t[which].append(cuda_ms(lambda: call(tw2, tabs2, z2, xi) if which == "twin"
+                                            else call(tw, tabs, z, xi), 3))
+                del z2
+                ms, ms2 = (sum(t[k]) / 2 for k in ("this", "twin"))
+                plain_ms = cuda_ms(plain, 2)
+                xl = rf.materialize_code(rc) if xi is rc else x
+                b16 = torch.bfloat16
+                if gather:  # the lookup in torch, a tap at a time (rows clamped)
+                    i4 = idx[:, :4].long().clamp(0, T - 1)
+                    if NS > 1:
+                        views = torch.arange(NS, device=dev)[:, None]
+                        i4, w4 = i4.reshape(NS, B, 4), w[:, :4].reshape(NS, B, 4)
+
+                    def zl():
+                        if NS > 1:
+                            return sum(tabs[views, i4[..., j]] * w4[..., j, None].to(b16)
+                                       for j in range(4))
+                        return sum(tabs[0][i4[:, j]] * w[:, j, None].to(b16) for j in range(4))
+                else:
+                    zv = z if NS == 1 else by_view(z, NS, sb)
+
+                    def zl():
+                        return zv
+                if NS == 1:
+                    library_ms = cuda_ms(lambda: library_tower(zl(), xl, tw, nb), 3)
+                else:
+                    xv = by_view(xl, NS, sb)
+                    library_ms = cuda_ms(lambda: library_tower_mv(zl(), xv, tw, nb, NS, cl), 3)
+                raw_d = rc.x.shape[1]
+                coded = xi is rc
+                w_bytes = sum(tt.numel() * tt.element_size() for tt in tw[:8])
+                x_bytes = rows * (raw_d if coded else d_in) * 4
+                lat_bytes = (rows * (idx.shape[1] + w.shape[1]) * 4 + NS * T * C * 2
+                             if gather else rows * C * 2)
+                pre = cl if NS > 1 else nb  # blocks each view runs on its own
+                flops = B_out * 2 * H * (NS * (d_in + n_lin_z * C + 2 * pre * H)
+                                         + 2 * (nb - pre) * H + d_out)
+                extra = (rows * 2 * raw_d * d_in if coded else 0) + (rows * 8 * C if gather else 0)
+                b_ms, b_by = bound(flops + extra, x_bytes + lat_bytes + B_out * d_out * 4 + w_bytes)
+                line += (f"; in turns ({twin_name}, this, this, {twin_name}) {ms:.4f} ms beside "
+                         f"{twin_name}'s {ms2:.4f} ({ms / ms2:.4f}x), {flops / ms / 1e9:.1f} "
+                         f"TFLOP/s, {b_ms / ms:.3f} of the bound; plain_ms {plain_ms:.4f}; "
+                         f"library_ms {library_ms:.4f} (cuBLAS bf16 chain"
+                         f"{', the lookup in torch' if gather else ''}); bound_ms {b_ms:.4f} "
+                         f"({b_by})")
+                rec.setdefault(section, {})[key] = {
+                    "ms": ms, f"{twin_key}_ms_in_turns": ms2, "plain_ms": plain_ms,
+                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+                    "tflops": flops / ms / 1e9, "share_of_bound": b_ms / ms, "points": B_out,
+                    "views": NS, "max_abs_err": d, "corr": corr}
+            log(line + f"; on {smi}")
+            if not ok:
+                raise SystemExit(f"{label}: {variant} at d_hidden {H}, C = {C}, {shape} "
+                                 "disagrees with its plain version or missed its launch")
+            del out
+        del z
+
+
 def narrow_conf(base, H: int, n_blocks: int = 5):
     """sn64's conf (``base``) with both heads' d_hidden set to H (and their
     blocks to ``n_blocks``), built in code as ``option_confs`` builds its
@@ -2644,8 +2827,7 @@ def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nm
     from pixelnerf_tpu_torch import entry
     from pixelnerf_tpu_torch.eval.eval import main as eval_main
     from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
-    from pixelnerf_tpu_torch.ops.grid_sample import bilinear_taps
-    from pixelnerf_tpu_torch.ops.replay import KernelCalls, agree
+    from pixelnerf_tpu_torch.ops.replay import KernelCalls
     from pixelnerf_tpu_torch.train import checkpoints
 
     t_phase = time.perf_counter()
@@ -2724,138 +2906,24 @@ def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nm
                 f"runs {json.dumps({str(k): v for k, v in t.items()})}; on {smi}")
 
     # ---- every forward kernel and twin: the fine pass and a ragged B ----
-    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     gi = torch.Generator(device=dev).manual_seed(SEED + 17)
     tw512 = net.mlp_fine.tower(dev)
+    fine = RAYS_PER_STEP * 96
     for H in NARROW_H:
         m = models[H, "auto"]
         tw = m.mlp_fine.tower(dev)
-        nb, cl, C, d_in, d_out = m.mlp_fine.n_blocks, m.mlp_fine.combine_layer, m.d_latent, \
-            tw.d_in, tw.w_out.shape[1]
-        n_lin_z = tw.w_z.shape[0]
-        w_bytes = sum(t.numel() * t.element_size() for t in tw[:8])
         code_arrays = tuple(torch.from_numpy(a).to(dev) for a in m.code.flat_arrays(tail=3))
         with torch.no_grad():
             scene3 = m.encode(torch.as_tensor(src3["images"], device=dev),
                               torch.as_tensor(src3["poses"], device=dev), float(src3["focal"]))
-        tables3 = scene3.latents.reshape(3, -1, C).to(torch.bfloat16).contiguous()
-        T = tables3.shape[1]
-        side = int(math.isqrt(T))
-        lim = rf.dense_limits(H)
-
-        def flops_mv(NS):  # a point of NS views (one view: every block per view)
-            return 2 * H * (NS * (d_in + n_lin_z * C + 2 * cl * H) + 2 * (nb - cl) * H + d_out)
-
-        fine = RAYS_PER_STEP * 96
-        for kind, NS, sb, B in (("gather", 1, 1, fine), ("gather", 1, 1, 2000),
-                                ("dense", 1, 1, fine), ("dense", 1, 1, 2000),
-                                ("gather_mv", 2, 1, fine), ("gather_mv", 3, 1, 333),
-                                ("dense_mv", 3, 1, fine), ("dense_mv", 3, 2, 333)):
-            name = "resnetfc_fwd_" + kind
-            rows = NS * sb * B if NS > 1 else B
-            B_out = sb * B
-            gather = kind.startswith("gather")
-            pts = torch.rand(rows, 3, device=dev, generator=gi) * 2 - 1
-            vd = torch.nn.functional.normalize(torch.randn(rows, 3, device=dev, generator=gi),
-                                               dim=-1)
-            rc = rf.RawCode(torch.cat([pts, vd], dim=-1).contiguous(), *code_arrays)
-            x = rf.materialize_code(rc._replace(cd=torch.float32)).contiguous()
-            idx, w = bilinear_taps(torch.rand(rows, 2, device=dev, generator=gi) * 2 - 1, side,
-                                   side, pad_taps_to=8)
-            idx[0::32, 0] = -1  # taps outside the table contribute nothing
-            idx[16::32, 3] = T
-            idx, w = idx.contiguous(), w.contiguous()
-            tabs = tables3[:NS].contiguous()
-            timed = B == fine
-            with torch.no_grad():
-                z = (mv_latent(tabs, idx, w, sb) if NS > 1
-                     else rf.gather_reference(idx, w, tabs[0], torch.bfloat16).to(torch.bfloat16))
-                for variant, xi in ((name, x), (name + "_code", rc)):
-                    def kern(t=tw, xi=xi):
-                        if kind == "gather":
-                            return rf.resnetfc_gather(idx, w, tabs[0], xi, t, nb)
-                        if kind == "dense":
-                            return rf.resnetfc_dense(z, xi, t, nb)
-                        if kind == "gather_mv":
-                            return rf.resnetfc_gather_mv(idx, w, tabs, xi, t, nb, cl)
-                        return rf.resnetfc_dense_mv(z, xi, t, nb, NS, cl, sb)
-
-                    def plain(xi=xi):
-                        return rf.resnetfc_reference(
-                            z, xi, tw, nb, compute_dtype=torch.bfloat16, NS=NS, sb=sb,
-                            combine_layer=cl if NS > 1 else None)
-
-                    before = dict(rf.LAUNCHES)
-                    out = kern()
-                    torch.cuda.synchronize()
-                    launched = {k: v - before[k] for k, v in rf.LAUNCHES.items() if v != before[k]}
-                    ref = plain()
-                    d, bar, corr = agree(out, ref)
-                    identical = torch.equal(out, kern())
-                    ok = (d <= bar and corr > 0.999 and bool(torch.isfinite(out).all())
-                          and out.shape == (d_out, B_out) and identical
-                          and launched == {variant: 1})
-                    shape = (f"NS {NS}" + (f" x SB {sb}" if sb > 1 else "")
-                             + f" x {B} = {B_out} output points")
-                    line = (f"narrow kernel check: {variant} at d_hidden {H}, {shape}: max|d| "
-                            f"{d:.6g} (bar {bar:.6g}), corr {corr:.7f}, bit-identical second "
-                            f"call {identical}, launches {launched}")
-                    del ref
-                    rec = records[variant] if variant in records else code_records[variant]
-                    rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), d)
-                    if timed:
-                        t = {512: [], H: []}
-                        for h in (512, H, H, 512):
-                            t[h].append(cuda_ms(lambda: kern(tw512 if h == 512 else tw), 3))
-                        ms, ms512 = (sum(t[h]) / 2 for h in (H, 512))
-                        plain_ms = cuda_ms(plain, 2)
-                        xl = rf.materialize_code(rc) if xi is rc else x
-                        if NS == 1:
-                            zl = ((lambda: (tabs[0][idx[:, :4].long().clamp(0, T - 1)]
-                                            * w[:, :4, None].bfloat16()).sum(1))
-                                  if gather else (lambda: z))
-                            library_ms = cuda_ms(lambda: library_tower(zl(), xl, tw, nb), 3)
-                        else:
-                            xv = by_view(xl, NS, sb)
-                            if gather:
-                                views = torch.arange(NS, device=dev)[:, None, None]
-                                zl = lambda: (tabs[views, idx[:, :4].reshape(NS, B, 4).long()  # noqa: E731
-                                                   .clamp(0, T - 1)]
-                                              * w[:, :4].reshape(NS, B, 4, 1).bfloat16()).sum(2)
-                            else:
-                                zv = by_view(z, NS, sb)
-                                zl = lambda: zv  # noqa: E731
-                            library_ms = cuda_ms(
-                                lambda: library_tower_mv(zl(), xv, tw, nb, NS, cl), 3)
-                        raw_d = rc.x.shape[1]
-                        coded = xi is rc
-                        x_bytes = rows * (raw_d if coded else d_in) * 4
-                        lat_bytes = (rows * (idx.shape[1] + w.shape[1]) * 4 + NS * T * C * 2
-                                     if gather else rows * C * 2)
-                        extra = (rows * 2 * raw_d * d_in if coded else 0) + (
-                            rows * 8 * C if gather else 0)
-                        flops = B_out * flops_mv(NS)
-                        b_ms, b_by = bound(flops + extra,
-                                           x_bytes + lat_bytes + B_out * d_out * 4 + w_bytes)
-                        grid = (rf.dense_mv_grid(B_out, n_sm, lim) if NS > 1
-                                else rf.dense_grid(B_out, lim))
-                        line += (f"; in turns (d_hidden 512, {H}, {H}, 512) {ms:.4f} ms beside "
-                                 f"d_hidden 512's {ms512:.4f} ({ms / ms512:.4f}x), "
-                                 f"{flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the bound; "
-                                 f"plain_ms {plain_ms:.4f}; library_ms {library_ms:.4f} (cuBLAS "
-                                 f"bf16 chain{', the lookup in torch' if gather else ''}); "
-                                 f"bound_ms {b_ms:.4f} ({b_by}); grid {grid}")
-                        rec.setdefault("narrow", {})[f"h{H}"] = dict(
-                            ms=ms, h512_ms_in_turns=ms512, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=library_ms, tflops=flops / ms / 1e9,
-                            share_of_bound=b_ms / ms, points=B_out, views=NS, max_abs_err=d,
-                            corr=corr)
-                    log(line + f"; on {smi}")
-                    if not ok:
-                        raise SystemExit(f"narrow: {variant} at d_hidden {H}, {shape} disagrees "
-                                         "with its plain version or missed its launch")
-                    del out
-            del z, x, rc, idx, w, pts, vd, tabs
+        tables3 = scene3.latents.reshape(3, -1, m.d_latent).to(torch.bfloat16).contiguous()
+        for case in (("gather", 1, 1, fine), ("gather", 1, 1, 2000), ("dense", 1, 1, fine),
+                     ("dense", 1, 1, 2000), ("gather_mv", 2, 1, fine), ("gather_mv", 3, 1, 333),
+                     ("dense_mv", 3, 1, fine), ("dense_mv", 3, 2, 333)):
+            twin = (("d_hidden 512", ("narrow", f"h{H}"), "h512", tw512, tables3)
+                    if case[3] == fine else None)
+            forward_check(tw, tables3, code_arrays, gi, case, records, code_records, smi,
+                          "narrow kernel check", twin)
         del scene3, tables3
 
     # ---- the eval CLI at d_hidden 256, deferred code, on the NMR fixture ----
@@ -3600,6 +3668,337 @@ def multichip_phase(smi, records, code_records, nmr_root) -> None:
             rec["multichip_launches"] = paths
     log(f"multichip: launches by path, summed over the ranks {json.dumps(by_path)}; phase "
         f"{time.perf_counter() - t_phase:.1f} s")
+
+
+# phase 21: ResNet50's latent (C = 832 / 1856 / 3904 at 3 / 4 / 5 layers) on
+# the kernels, pieces of 512 columns in every row
+R50_C = (832, 1856, 3904)
+# the widths timed at the fine pass beside C = 512, in turns
+R50_TIMED = (1856, 3904)
+# the narrower libraries gated at a ResNet50 width (ragged B): d_hidden -> C
+R50_NARROW = {384: 1856, 256: 1856, 128: 3904, 64: 3904}
+# the train CLI's runs: (-V, -F); steps a run
+R50_TRAIN = ((1, "dvr"), (3, "dvr_dtu"))
+R50_TRAIN_STEPS = 3
+# the repaired one-view renders: (backbone, encoder layers, C)
+R50_REPAIRED = (("resnet50", 3, 832), ("resnet34", 5, 1024))
+
+
+def r50_conf(base, num_layers: int = 4, backbone: str = "resnet50"):
+    """sn64's conf (``base``) with the encoder's backbone and layers set, built
+    in code as ``narrow_conf`` builds its confs: at 4 layers ResNet50's
+    unified map is 1856 channels (64 + 256 + 512 + 1024) on sn64's 32 x 32
+    grid; the heads keep sn64's widths (512 x 5, the latent in blocks 0-2,
+    the views' mean at block 3)."""
+    import copy
+
+    c = copy.deepcopy(base)
+    c.put("model.encoder.backbone", backbone)
+    c.put("model.encoder.num_layers", num_layers)
+    return c
+
+
+def resnet50_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nmr_root,
+                   dtu_root) -> None:
+    """Phase 21: ResNet50's latent on the kernels (see the module
+    docstring); ``net`` is the render phases' sn64 model (ResNet34, C =
+    512), timed beside the ResNet50 one in turns."""
+    import types
+
+    from pixelnerf_tpu_torch import entry
+    from pixelnerf_tpu_torch.eval.eval import main as eval_main
+    from pixelnerf_tpu_torch.models.code import PositionalEncoding
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
+    from pixelnerf_tpu_torch.ops.replay import KernelCalls
+    from pixelnerf_tpu_torch.train import checkpoints
+    from pixelnerf_tpu_torch.train import main as train_main
+
+    t_phase = time.perf_counter()
+    code = PositionalEncoding.from_conf(conf["model.code"], d_in=3)
+    code_arrays = [torch.from_numpy(a).to(dev) for a in code.flat_arrays(tail=3)]
+    d_in = code.d_out + 3
+    gi = torch.Generator(device=dev).manual_seed(SEED + 21)
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    T = 1024  # sn64's 32 x 32 map
+    fine = RAYS_PER_STEP * 96
+    ragged = (("gather", 1, 1, 2000), ("gather_mv", 2, 1, 1000), ("gather_mv", 3, 1, 333),
+              ("dense", 1, 1, 2000), ("dense_mv", 3, 2, 333))
+
+    def tables_of(C):  # seeded stand-ins of three views' (T, C) unified maps
+        return (torch.randn(3, T, C, device=dev, generator=gi) * 0.5).to(torch.bfloat16)
+
+    # ---- rows 1-4 and 6 at each ResNet50 width (d_hidden 512): gates at a
+    # ragged B, then the fine pass timed beside C = 512 ----
+    tw512 = bwd_tower(512, d_in, dev, SEED + 21)[1]
+    tables512 = tables_of(512)
+    for C in R50_C:
+        tw = bwd_tower(C, d_in, dev, SEED + 21 + C)[1]
+        tables = tables_of(C)
+        for case in ragged:
+            forward_check(tw, tables, code_arrays, gi, case, records, code_records, smi,
+                          "resnet50 kernel check")
+        if C in R50_TIMED:
+            # the fine pass: 4096 rays x 96 samples (from 3 views at C = 3904
+            # the dense kernel's rows are 393,216 in all: 131,072 a view)
+            for kind, NS in (("gather", 1), ("dense", 1), ("gather_mv", 2), ("dense_mv", 3)):
+                B = fine // 3 if (kind, C) == ("dense_mv", 3904) else fine
+                forward_check(tw, tables, code_arrays, gi, (kind, NS, 1, B), records,
+                              code_records, smi, "resnet50 kernel time",
+                              ("C = 512", ("resnet50", f"c{C}"), "c512", tw512, tables512))
+        del tw, tables
+        torch.cuda.empty_cache()
+
+    # ---- rows 5a / 5b at each width from 1 and 3 views (ragged, and the
+    # train step's fine pass at 1856), then timed beside C = 512 ----
+    names = ("resnetfc_bwd_data", "resnetfc_bwd_weights")
+    towers = {C: bwd_tower(C, d_in, dev, SEED + 22 + C)[1] for C in (512,) + R50_C}
+    for C in R50_C:
+        shapes = NARROW_BWD_SHAPES if C == 1856 else NARROW_BWD_SHAPES[:2]
+        for NS, sb, B_obj in shapes:
+            x, z, g = bwd_inputs(code, gi, C, NS, sb, B_obj)
+            backward_gate(towers[C], x, z, g, NS, sb, n_sms, records,
+                          f"resnet50 backward check C = {C} (sn64's tower)")
+            del x, z, g
+    widths = (512,) + R50_TIMED
+    for NS in (1, 3):
+        sb, B_obj = 4, 128 * 96
+        kw = dict(NS=NS, sb=sb, combine_layer=3) if NS > 1 else {}
+        B, rows = sb * B_obj, NS * sb * B_obj
+        case = {}
+        for C in widths:
+            x, z, g = bwd_inputs(code, gi, C, NS, sb, B_obj)
+            case[C] = (x, z, g, rv.bwd_data(g, z, x, towers[C], 5, False, **kw))
+        t = {C: {n: [] for n in names} for C in widths}
+        for C in widths + widths[::-1]:  # in turns
+            x, z, g, data = case[C]
+            tw = towers[C]
+            t[C][names[0]].append(cuda_ms(lambda: rv.bwd_data(g, z, x, tw, 5, False, **kw), 3))
+            t[C][names[1]].append(cuda_ms(lambda: rv.bwd_weights(z, data, tw, 5), 3))
+        ms = {C: {n: sum(v) / len(v) for n, v in t[C].items()} for C in widths}
+        for C in R50_TIMED:
+            x, z, g, data = case[C]
+            plain, lib, bounds, flops = backward_yardsticks(towers[C], x, z, g, data, NS, sb)
+            ws = sum(tt.numel() * tt.element_size()
+                     for tt in (data.ws_act, data.ws_cot, data.ws_x, data.ws_z) if tt is not None)
+            for n in names:
+                b_ms, b_by = bounds[n]
+                log(f"resnet50 backward time: {n} at C = {C} ({rv.dz_pieces(C, 512)} dz steps an "
+                    f"injection), -V {NS}, {B} output points{f' ({rows} rows)' if NS > 1 else ''}"
+                    f": in turns {ms[C][n]:.4f} ms beside {ms[512][n]:.4f} at C = 512 "
+                    f"({ms[C][n] / ms[512][n]:.4f}x); {flops[n] / ms[C][n] / 1e9:.1f} TFLOP/s; "
+                    f"plain_ms {plain[n]:.4f}; library_ms {lib[n]:.4f} ("
+                    + ("autograd backward of the cuBLAS chain" if n == names[0]
+                       else "cuBLAS bf16 A^T G a product")
+                    + f"); bound_ms {b_ms:.4f} ({b_by}); {b_ms / ms[C][n]:.3f} of the bound; "
+                    f"workspace {ws / 2**30:.3f} GiB, dz planes "
+                    f"{rv.dz_pieces(C, 512) * rows * 512 * 4 / 2**30:.3f} GiB; on {smi}")
+                records[n].setdefault("resnet50", {})[
+                    f"c{C}" + ("" if NS == 1 else f"_ns{NS}")] = dict(
+                    points=B, views=NS, ms=ms[C][n], c512_ms_in_turns=ms[512][n],
+                    plain_ms=plain[n], library_ms=lib[n], bound_ms=b_ms, bound_by=b_by,
+                    tflops=flops[n] / ms[C][n] / 1e9, share_of_bound=b_ms / ms[C][n])
+        del case
+    del towers
+    torch.cuda.empty_cache()
+
+    # ---- the narrower libraries at a ResNet50 width, ragged B ----
+    for H, C in R50_NARROW.items():
+        tw = bwd_tower(C, d_in, dev, SEED + 23 + H, H)[1]
+        tables = tables_of(C)
+        for case in ragged:
+            forward_check(tw, tables, code_arrays, gi, case, records, code_records, smi,
+                          "resnet50 narrow kernel check")
+        for NS, sb, B_obj in NARROW_BWD_SHAPES[:2]:
+            x, z, g = bwd_inputs(code, gi, C, NS, sb, B_obj)
+            backward_gate(tw, x, z, g, NS, sb, n_sms, records,
+                          f"resnet50 narrow backward check d_hidden {H}, C = {C} "
+                          f"({rv.dz_pieces(C, H)} dz steps an injection)")
+            del x, z, g
+        del tw, tables
+
+    # ---- the ResNet50 model: ring frame 0 on every route from 1, 2 and 3
+    # views, and the repaired one-view renders ----
+    code_env = {"PIXELNERF_DEFER_CODE": "1"}
+    dense = {"PIXELNERF_FUSED_GATHER_MAX_ROWS": "0"}
+    frame_rays = rays[:RAYS_PER_STEP]
+
+    def frame0(model, c, s, views, env):
+        restore = _env(env)
+        try:
+            rf.reset_launches()
+            rv.reset_launches()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out, _ = entry.render_ring(model, c, s, frame_rays,
+                                       torch.Generator(device=dev).manual_seed(SEED),
+                                       RAYS_PER_STEP, views=views)
+            torch.cuda.synchronize()
+            return (out, time.perf_counter() - t0,
+                    {k: v for k, v in dict(rf.LAUNCHES, **rv.LAUNCHES).items() if v})
+        finally:
+            restore()
+
+    def models_of(c):
+        m = {impl: entry.build_model(c, dev, mlp_impl=impl, seed=SEED) for impl in ("auto", "torch")}
+        g = torch.Generator().manual_seed(SEED + 1)
+        with torch.no_grad():  # every block live, as the render phases' model
+            for mlp in (m["auto"].mlp_coarse, m["auto"].mlp_fine):
+                for blk in mlp.blocks:
+                    blk.fc_1.weight.copy_(0.02 * torch.randn(blk.fc_1.weight.shape, generator=g))
+        m["torch"].load_state_dict(m["auto"].state_dict())
+        return m
+
+    c50 = r50_conf(conf)
+    m50 = models_of(c50)
+    log(f"resnet50: conf/exp/sn64.conf with model.encoder.backbone = resnet50 (4 layers, no first "
+        f"pool): a {tuple(m50['auto'].encoder.latent_sizes)} unified map of C = "
+        f"{m50['auto'].d_latent} channels, {sum(p.numel() for p in m50['auto'].encoder.parameters())} "
+        f"encoder parameters; ResnetFC 512 x 5 heads; seeded, random encoder, fc_1 ~ N(0, 0.02^2)")
+    if m50["auto"].d_latent != 1856:
+        raise SystemExit(f"resnet50: the unified map is {m50['auto'].d_latent} wide, not 1856")
+    routes = [(src, (0,), {}, "resnetfc_fwd_gather"), (src, (0,), dense, "resnetfc_fwd_dense"),
+              (src3, (0, 1), {}, "resnetfc_fwd_gather_mv"),
+              (src3, (0, 1, 2), {}, "resnetfc_fwd_dense_mv")]
+    routes += [(s, v, dict(e, **code_env), k + "_code") for s, v, e, k in routes]
+
+    def label_of(views, env):
+        return (f"views {list(views)}" + (", dense route" if dense.keys() & env.keys() else "")
+                + (", deferred code" if code_env.keys() & env.keys() else ""))
+
+    r50_launches = {}
+    calls = KernelCalls()
+    with calls:
+        for s, views, env, kname in routes:
+            ref, _, la_ref = frame0(m50["torch"], c50, s, views, env)
+            out, sec, la = frame0(m50["auto"], c50, s, views, env)
+            p = psnr(out, ref)
+            label = label_of(views, env)
+            ok = set(la) == {kname} and not la_ref and bool(torch.isfinite(out).all()) and p >= 40
+            r50_launches.setdefault(kname, {})[f"ResNet50 frame 0, {label}"] = la.get(kname, 0)
+            log(f"resnet50 render: {label}: frame 0 {sec:.4f} s (encode included); launches {la} "
+                f"(want {kname}); vs the plain f32 route {p:.3f} dB (need >= 40); on {smi}")
+            if not ok:
+                raise SystemExit(f"resnet50 render {label} missed {kname} or disagrees with the "
+                                 "plain route")
+        for backbone, layers, C in R50_REPAIRED:
+            c = r50_conf(conf, layers, backbone)
+            m = models_of(c)
+            if m["auto"].d_latent != C:
+                raise SystemExit(f"resnet50: {backbone} at {layers} layers is {m['auto'].d_latent} "
+                                 f"wide, not {C}")
+            ref, _, _ = frame0(m["torch"], c, src, (0,), {})
+            out, sec, la = frame0(m["auto"], c, src, (0,), {})
+            p = psnr(out, ref)
+            ok = set(la) == {"resnetfc_fwd_gather"} and p >= 40 and bool(torch.isfinite(out).all())
+            r50_launches.setdefault("resnetfc_fwd_gather", {})[
+                f"{backbone} {layers} layers (C = {C}) frame 0, views [0]"] = la.get(
+                "resnetfc_fwd_gather", 0)
+            white = (out > 0.999).all(-1).float().mean().item()
+            log(f"resnet50 repaired render: {backbone} at {layers} layers (C = {C}), views [0]: "
+                f"frame 0 on the fused gather, no ValueError: launches {la} (want "
+                f"resnetfc_fwd_gather); vs the plain f32 route {p:.3f} dB (need >= 40; inf where "
+                f"a random trunk's latent saturates the field on both routes: the kernel calls' "
+                f"replay below holds the raw field); the frame's rgb std {out.std().item():.4g}, "
+                f"white pixels {white:.3f}; on {smi}")
+            if not ok:
+                raise SystemExit(f"resnet50: the {backbone} {layers}-layer one-view render left "
+                                 "the fused gather or disagrees with the plain route")
+            del m
+    replayed(calls.check(), "resnet50", records, code_records)
+    del calls
+
+    # ---- frame 0 beside sn64's ResNet34 model, in turns (sn64, R50, R50, sn64) ----
+    for s, views, env, kname in routes[:4]:
+        t = {"sn64": [], "resnet50": []}
+        for which in ("sn64", "resnet50", "resnet50", "sn64"):
+            model, c = (net, conf) if which == "sn64" else (m50["auto"], c50)
+            t[which].append(frame0(model, c, s, views, env)[1])
+        s34, s50 = (sum(t[k]) / 2 for k in ("sn64", "resnet50"))
+        log(f"resnet50 render: {label_of(views, env)}: frame 0 (encode included) {s50:.4f} s = "
+            f"{RAYS_PER_STEP / s50:.1f} rays/s beside sn64's (ResNet34, C = 512) {s34:.4f} s = "
+            f"{RAYS_PER_STEP / s34:.1f} rays/s in turns ({s50 / s34:.3f}x); on {smi}")
+        records[kname].setdefault("resnet50", {})["frame0_rays_per_s"] = RAYS_PER_STEP / s50
+
+    # ---- the eval CLI and the train CLI on the ResNet50 conf ----
+    restore = _env({"PIXELNERF_ALLOW_RANDOM_BACKBONE": "1"})  # no backbone weights here
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = os.path.join(tmp, "ck")
+            checkpoints.save_weights(types.SimpleNamespace(checkpoints_path=ck, name="r50"),
+                                     m50["auto"])
+            cpath = os.path.join(tmp, "r50.conf")
+            with open(cpath, "w") as fh:  # sn64's conf with ResNet50, as a file says it
+                fh.write(f'include required("{os.path.abspath("conf/exp/sn64.conf")}")\n'
+                         "model { encoder { backbone = resnet50 } }\n")
+            out_dir = os.path.join(tmp, "eval0")
+            torch.cuda.synchronize()
+            rf.reset_launches()
+            t0 = time.perf_counter()
+            res = eval_main(["-n", "r50", "-c", cpath, "-F", "dvr", "-D", nmr_root, "--split",
+                             "test", "-P", "0", "--max_objs", "1", "-O", out_dir,
+                             "--checkpoints_path", ck, "-R", str(EVAL_RAYS)])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            la = {k: v for k, v in rf.LAUNCHES.items() if v}
+            n_rays = (NMR_VIEWS - 1) * FRAME * FRAME
+            ok = (res["cnt"] == 1 and len(res["objects"]) == 1
+                  and all(math.isfinite(v) for _, p_, s_ in res["objects"] for v in (p_, s_))
+                  and set(la) == {"resnetfc_fwd_gather"})
+            log(f"resnet50 eval: python -m pixelnerf_tpu_torch.eval.eval -c conf/exp/sn64.conf + "
+                f"backbone resnet50 -F dvr --split test -P \"0\": "
+                f"{[(n, round(p_, 4), round(s_, 4)) for n, p_, s_ in res['objects']]}; launches "
+                f"{la} (want resnetfc_fwd_gather); {dt:.3f} s wall, {n_rays} rays = "
+                f"{n_rays / dt:.1f} rays/s (model build and load included); on {smi}")
+            if not ok:
+                raise SystemExit("resnet50 eval -P '0' failed or did not run through "
+                                 "resnetfc_fwd_gather")
+            r50_launches.setdefault("resnetfc_fwd_gather", {})["ResNet50 eval -P \"0\""] = la[
+                "resnetfc_fwd_gather"]
+            for nviews, fmt in R50_TRAIN:
+                fwd = STEP_KERNEL[nviews]
+                rf.reset_launches()
+                rv.reset_launches()
+                t0 = time.perf_counter()
+                trainer = train_main(
+                    ["-n", f"r50_v{nviews}", "-c", cpath, "-F", fmt, "-D",
+                     nmr_root if fmt == "dvr" else dtu_root, "-B", "4", "-V", str(nviews), "-R",
+                     "128", "--epochs", str(R50_TRAIN_STEPS), "--checkpoints_path",
+                     os.path.join(tmp, f"ck_train{nviews}")])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                la = {k: v for k, v in dict(rf.LAUNCHES, **rv.LAUNCHES).items() if v}
+                n_steps = trainer.global_step
+                finite = (n_steps == R50_TRAIN_STEPS
+                          and all(math.isfinite(v) for v in trainer.history))
+                step_ms = 1e3 * sum(trainer.step_seconds[1:]) / max(1, n_steps - 1)
+                ok = (finite and trainer.net.d_latent == 1856 and not trainer.remat
+                      and set(la) == {fwd, *names}
+                      and la["resnetfc_bwd_data"] == la["resnetfc_bwd_weights"] == 2 * n_steps
+                      and la[fwd] >= 2 * n_steps and la[fwd] % 2 == 0)
+                log(f"resnet50 train path: python -m pixelnerf_tpu_torch.train -c "
+                    f"conf/exp/sn64.conf + backbone resnet50 -F {fmt} -B 4 -V {nviews} -R 128: "
+                    f"{n_steps} steps in {wall:.3f} s, {step_ms:.3f} ms a step after the first; "
+                    f"remat {trainer.remat}; launches {la} (want {fwd} and both backward kernels "
+                    f"twice a step); losses {[round(v, 5) for v in trainer.history]}; on {smi}")
+                if not ok:
+                    raise SystemExit(f"resnet50: the -V {nviews} train steps failed or left the "
+                                     "kernels")
+                for n in (fwd, *names):
+                    r50_launches.setdefault(n, {})[f"ResNet50 train CLI, -V {nviews} on -F {fmt}"] \
+                        = la[n]
+                del trainer
+    finally:
+        restore()
+    for name, by_path in r50_launches.items():
+        (records[name] if name in records else code_records[name])["resnet50_launches"] = by_path
+    del m50
+
+    # ---- the train step from 1 and 3 views against the plain f32 step ----
+    state = live_state(c50, dev)
+    for nviews in (1, 3):
+        step_parity(c50, state, nviews, dev, "resnet50 (C = 1856)")
+    log(f"resnet50: phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
 def main() -> None:
@@ -4526,6 +4925,10 @@ def main() -> None:
 
         # ---- several ranks on the card (reads the NMR fixture) ----
         multichip_phase(smi, records, code_records, nmr_root)
+
+        # ---- ResNet50's latent on the kernels (reads both fixtures) ----
+        resnet50_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nmr_root,
+                       dtu_root)
     finally:
         data_dir.cleanup()
 

@@ -91,22 +91,26 @@
 //   (B_pad = B rounded up to 32) is the weights kernel's as before; a last
 //   tile half past B_pad reads zeros and writes nothing there;
 // - no atomics: two calls on the same inputs give the same bits;
-// - a latent of any width the forward takes (16 <= C <= 1024, a multiple of
-//   16: the ConvEncoder's 128, the global encoder's 640) in the forward's
-//   pieces (tile64.cuh, latent_pieces): the recompute injects each piece of
-//   at most 512 columns as a step of its own (its rows of W_z as K, the bias
-//   with the first), and the walk back forms dz HID columns a step
+// - a latent of any width the forward takes (16 <= C <= 4096, a multiple of
+//   16: the ConvEncoder's 128, the global encoder's 640, ResNet50's 832,
+//   1856 and 3904) in the forward's pieces (tile64.cuh, latent_pieces, 8 at
+//   most): the recompute injects each piece of at most 512 columns as a step
+//   of its own (its rows of W_z as K, the bias with the first; the last
+//   piece's K stops at C), and the walk back forms dz HID columns a step
 //   (dz_pieces: its rows of W_z as the product's HID columns) into a
 //   (NS B_pad, HID) f32 plane of its own, which the wrapper joins into dz's
 //   C columns: so each step's epilogue is the one-piece epilogue (no column
 //   test, constant row stride: a stride-C epilogue spilled the multi-view
 //   kernel's registers).  Columns at or past C are computed from whatever
 //   W_z rows TMA reads there (zeros past the array) into the plane's unused
-//   part.  At HID 512 and C <= 512 the program and the arithmetic are those
-//   of one piece; at HID 128, C = 512 takes 4 walk-back steps an injection,
-//   8 at HID 64, 2 at HID 384 (the second step's columns 384-767: W_z rows
-//   past C are the next injection's, or TMA's zeros past the array, and
-//   land in the plane's unused part, which the wrapper drops).
+//   part, whether or not C is a multiple of HID.  At HID 512 and C <= 512
+//   the program and the arithmetic are those of one piece; at HID 128, C =
+//   512 takes 4 walk-back steps an injection, 8 at HID 64, 2 at HID 384 (the
+//   second step's columns 384-767: W_z rows past C are the next
+//   injection's, or TMA's zeros past the array, and land in the plane's
+//   unused part, which the wrapper drops); C = 1856 takes 4 at HID 512 (the
+//   fourth's columns 1856-2047 dropped) and 3904 takes 61 at HID 64, within
+//   the stored program at sn64's three injections (235 steps).
 // The tile, its constants and its step kinds are in tile64.cuh, which the
 // dense forwards (resnetfc_fwd_dense, and resnetfc_fwd_dense_mv at NS > 1)
 // share: their programs are this kernel's recompute, so it takes the primal's
@@ -155,8 +159,9 @@ using namespace rfc;
 
 // steps of one tile's stored program (data_program; sn64: 34 at one view, 36
 // at any view count: one view's recompute and walk back, the shared steps;
-// two more an injection at 512 < C <= 1024; seven more an injection at HID
-// 64, three at HID 128, one at HID 256 and at 384, C = 512)
+// two more an injection at 512 < C <= 1024, fourteen at 3584 < C <= 4096
+// (8 pieces each way); seven more an injection at HID 64, three at HID 128,
+// one at HID 256 and at 384, C = 512; 235 at HID 64 and C = 3904)
 constexpr int D_MAX_STEPS = 256;
 // f32 words of one CTA's view-sum slot (multi-view): every thread's share of
 // the 64 x HID stream

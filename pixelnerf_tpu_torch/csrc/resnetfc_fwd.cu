@@ -44,23 +44,25 @@
 //   in the gather kernels, as the 4-tap lookup z[g] = sum_{j<4} w[g, j] *
 //   table[idx[g, j]] that the threads build straight into the operand tile
 //   (gather_fill);
-// - a dense latent wider than one operand tile (512 < C <= 1024: the global
-//   encoder's code before the pixel latent, 640 at sn64) is injected in
-//   pieces of at most 512 columns, each a step of the stored program whose
-//   product adds to the f32 stream (the bias with the first piece), as the
-//   TPU kernel's one K = C product is split; at C <= 512 the program and
-//   its bits are those of one piece.  The gather kernels keep C <= 512;
+// - a latent wider than one operand tile (512 < C <= 4096: the global
+//   encoder's code before the pixel latent, 640 at sn64; ResNet50's unified
+//   map, 832 / 1856 / 3904 at 3 / 4 / 5 layers) is injected in pieces of at
+//   most 512 columns, each a step of the stored program whose product adds
+//   to the f32 stream (the bias with the first piece), as the TPU kernel's
+//   one K = C product is split; the last piece's K stops at C.  The dense
+//   kernels take each piece by TMA, the gathers build each one's lookup;
+//   at C <= 512 the program and its bits are those of one piece;
 // - lin_out (d_out <= 4) stays on the CUDA cores, a warp a point;
 // - no atomics: two calls on the same inputs give the same bits.
 // - the tower's width HID is the library's (-DRFC_HID: 64, 128, 256, 384 or
 //   512, one library each); the operand tiles keep their 512 columns at
-//   every width, so the code, a latent piece and the gathers' C <= 512 do not
-//   shrink with it.  A narrower tower streams fewer weight bytes a tile
-//   (0.61x at 384, 0.31x at 256, 0.11x at 128, 0.04x at 64 at sn64's other
-//   widths) and runs its products on fewer columns, the same tile and ring
-//   otherwise.  At 64 the FLOP no longer bound the dense kernels: a point's
-//   1 KB of bf16 latent (3 injections read 512 columns each) weighs more
-//   than its ~0.29 MFLOP at the card's ratio of ~295 FLOP a byte.
+//   every width, so the code and a latent piece do not shrink with it.  A
+//   narrower tower streams fewer weight bytes a tile (0.61x at 384, 0.31x
+//   at 256, 0.11x at 128, 0.04x at 64 at sn64's other widths) and runs its
+//   products on fewer columns, the same tile and ring otherwise.  At 64 the
+//   FLOP no longer bound the dense kernels: a point's 1 KB of bf16 latent
+//   (3 injections read 512 columns each) weighs more than its ~0.29 MFLOP
+//   at the card's ratio of ~295 FLOP a byte.
 // The weights' tensor maps are encoded once per set of weight addresses
 // (resnetfc_fwd_dense_plan) and kept by the wrapper; the latent's is encoded
 // per call.  What binds it on an H100 is the weights' stream into each SM
@@ -71,9 +73,13 @@
 // not wait.
 //
 // The gather kernels' lookup reads the (T, C) bf16 table (L2-resident: 1 MB
-// at sn64) once an injection, since the two operand tiles and the ring leave
-// no room to keep the latent: 64 points x 4 taps x 1 KB, 0.75 MB a tile at
-// sn64 beside its 6.55 MB of weights.  The TPU kernel builds the lookup as a
+// at sn64, 3.6 MB at ResNet50's 1856) once an injection, piece by piece,
+// since the two operand tiles and the ring leave no room to keep the latent:
+// 64 points x 4 taps x 1 KB, 0.75 MB a tile at sn64 beside its 6.55 MB of
+// weights (2.7 MB beside 8.6 MB at 1856).  A piece's fill reads its points'
+// taps and weights again (32 bytes a point beside its 4 x 1 KB of table
+// rows): shared memory has no 2 KB left to keep them across the product
+// between two pieces.  The TPU kernel builds the lookup as a
 // one-hot matmul and so rounds the tap weights to bf16; here they stay f32,
 // a difference the on-card tolerance covers.  The taps are taken in the
 // plain version's order and rounding (gather_reference: from +0, w_j t_j
@@ -129,11 +135,14 @@ int attach_code(TowerParams& p, const void* code_w, const void* code_f, const vo
 // ---------------------------------------------------------------------------
 
 // steps of a tile's stored program (fwd_program; sn64: 14 at one view, 15 at
-// any view count: one view's segment and the shared blocks)
+// any view count: one view's segment and the shared blocks; an injection of
+// C = 4096 adds 7 pieces: 35 and 36)
 constexpr int F_MAX_STEPS = 128;
 constexpr int F_MAX_K = TILE_K;  // the widest code, and a latent's widest piece: one 64 x 512 operand tile
-// the widest latent (tile64.cuh's MAX_C, in pieces of at most TILE_K columns)
+// the widest latent of the dense kernels and of the gathers (tile64.cuh's
+// MAX_C, in pieces of at most TILE_K columns)
 constexpr int F_MAX_C = MAX_C;
+constexpr int F_MAX_GATHER_C = MAX_C;
 // f32 words of a multi-view CTA's view-sum slot: every thread's share of the
 // 64 x HID stream (128 KB at HID 512)
 constexpr int F_SLOT_FLOATS = TILE_STREAM * TILE_THREADS;
@@ -195,15 +204,6 @@ __host__ __device__ inline int fwd_program(int* out, int n_blocks, int n_lin_z, 
   return n;
 }
 
-// The weight operand of a forward product step: the dense kernels (WIDE)
-// decode the latent's pieces (tile64.cuh's piece_gemm_of); the gather kernels'
-// latent is one piece, and they take gemm_of (the decoding costs the
-// multi-view gather's CODE twin a spill).
-template <bool WIDE>
-__device__ __forceinline__ Gemm fwd_gemm_of(int s, int kin, int C) {
-  return WIDE ? piece_gemm_of<false>(s, kin, C) : gemm_of(s, kin, C);
-}
-
 // A feeding state, which only a warpgroup's first thread keeps (in shared
 // memory, so that no other thread holds registers for it): the next stage is
 // step g, piece pc, K rows ks * 64...  Multi-view, g indexes the program's
@@ -240,11 +240,11 @@ __shared__ int f_left[2], f_vleft[2], f_row0, f_lat_n;
 // Thread 128 h: warpgroup h's half of the next stage into ring slot `slot`
 // -- the weight boxes of its piece pc, K rows rowbase + ks * 64.. -- on
 // full[h].
-template <bool MV, bool WIDE>
+template <bool MV>
 __device__ __forceinline__ void dense_feed(const DenseParams& q, unsigned char* ring, int slot, int h) {
   DenseFeed f = f_feed[h];
   if (MV ? f_left[h] == 0 : f.g >= f_n_steps) return;  // the CTA's last stage is in
-  const Gemm op = fwd_gemm_of<WIDE>(MV ? f_gprog[f.g] : f_prog[f.g], q.t.kin, q.t.C);
+  const Gemm op = piece_gemm_of<false>(MV ? f_gprog[f.g] : f_prog[f.g], q.t.kin, q.t.C);
   const CUtensorMap* m = op.map == 0 ? &q.m_in : op.map == 1 ? &q.m_z : &q.m_blk;
   hopper::mbar_arrive_expect_tx(&f_full[h][slot], HALF_BYTES);
   unsigned char* dst = ring + slot * STAGE_BYTES + h * HALF_BYTES;
@@ -277,20 +277,20 @@ __device__ __forceinline__ void dense_feed(const DenseParams& q, unsigned char* 
 // and loads the warpgroup's half of stage u + RING_STAGES into the slot.  So
 // each warpgroup keeps its own half of the ring fed, and neither waits for
 // the other's warps.
-template <bool MV, bool WIDE>
+template <bool MV>
 __device__ __forceinline__ void dense_release(const DenseParams& q, unsigned char* ring, uint32_t u) {
   const int slot = u % RING_STAGES, h = threadIdx.x >> 7;
   if ((threadIdx.x & 31) == 0) hopper::mbar_arrive(&f_empty[h][slot]);
   if ((threadIdx.x & 127) == 0) {
     hopper::mbar_wait(&f_empty[h][slot], (u / RING_STAGES) & 1);
-    dense_feed<MV, WIDE>(q, ring, slot, h);
+    dense_feed<MV>(q, ring, slot, h);
   }
 }
 
 // For each piece of this warpgroup's columns, acc = A . B over K (A a
 // swizzled (64, K) tile, B the ring's MN-major boxes), then epi(piece, acc):
 // the pieces, k16 steps and stages of the data kernel's forward products.
-template <bool MV, bool WIDE, typename Epi>
+template <bool MV, typename Epi>
 __device__ __forceinline__ void dense_gemm(const DenseParams& q, unsigned char* ring, uint32_t& it,
                                            const unsigned char* A, int K, Epi epi) {
   const int wg = threadIdx.x >> 7;
@@ -312,11 +312,11 @@ __device__ __forceinline__ void dense_gemm(const DenseParams& q, unsigned char* 
           wgmma_piece<0, 1>(acc, hopper::desc_kmajor_sw128(A + ks * 8192 + kk * 32), w_desc(b, kk), 1);
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();  // stage ks - 1's products have read it
-      if (ks > 0) dense_release<MV, WIDE>(q, ring, it - 1);
+      if (ks > 0) dense_release<MV>(q, ring, it - 1);
       ++it;
     }
     hopper::wgmma_wait<0>();
-    dense_release<MV, WIDE>(q, ring, it - 1);
+    dense_release<MV>(q, ring, it - 1);
     epi(pc, acc);
   }
 }
@@ -379,15 +379,18 @@ __device__ __forceinline__ void view_latent(const TowerParams& p, unsigned char*
   }
 }
 
-// The tile's latent into `tile` (bf16, zeros past B): row r, channels
-// 8q..8q+7 of z[g] = sum_{j<4} w[g, j] * table[idx[g, j]], g = row0 + r, a
-// tap with idx outside [0, T) contributing nothing; at NS views (MV), view
-// v's: idx / w row src_row(g, v) into table v (the tap's row v T + idx of
-// the (NS T, C) stack).  Warp w takes rows w,
-// w + 8, ..; lane l chunks l and l + 32 of a row (C <= 512), so a warp reads
-// a tap's table row whole, 16 bytes a lane, and writes the tile 128 bytes a
-// phase.  Lane 4 i + j reads tap j of the warp's row i once, for the warp to
-// share by shuffles.  Each sum starts from +0 and adds w_j t_j in tap order,
+// The piece of the tile's latent at column `off` (kp columns, at most
+// TILE_K) into `tile` (bf16, zeros past B): row r, channels off + 8q..
+// off + 8q + 7 of z[g] = sum_{j<4} w[g, j] * table[idx[g, j]], g = row0 + r,
+// at tile column 8q, a tap with idx outside [0, T) contributing nothing; at
+// NS views (MV), view v's: idx / w row src_row(g, v) into table v (the tap's
+// row v T + idx of the (NS T, C) stack).  Warp w takes rows w, w + 8, ..;
+// lane l chunks l and l + 32 of the piece's row, so a warp reads a tap's
+// piece of a table row whole, 16 bytes a lane, and writes the tile 128 bytes
+// a phase; the tile's columns past kp stay as they were, and the product's
+// K stops at kp.  Lane 4 i + j reads tap j of the warp's row i once (again
+// for each piece), for the warp to share by shuffles.  Each sum starts from
+// +0 and adds w_j t_j in tap order,
 // the product and the sum each rounded (no contraction into an FMA), as
 // gather_reference sums.  A tap outside [0, T) reads a zero row here and a
 // zero weight on the clamped row there: either product is +-0, which leaves
@@ -395,9 +398,9 @@ __device__ __forceinline__ void view_latent(const TowerParams& p, unsigned char*
 // the tile holds gather_reference's bf16 latent bit for bit.
 template <bool MV>
 __device__ __forceinline__ void gather_fill(const TowerParams& p, unsigned char* tile, int row0,
-                                            int v) {
+                                            int v, int off, int kp) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int nq = p.C >> 3;  // 16-byte chunks of a table row
+  const int nq = kp >> 3;  // 16-byte chunks of the piece's row
   const int gl = row0 + warp + 8 * (lane >> 2);
   int tap = -1;
   float wt = 0.0f;
@@ -415,7 +418,8 @@ __device__ __forceinline__ void gather_fill(const TowerParams& p, unsigned char*
     for (int j = 0; j < 4; ++j) {
       const int ri = __shfl_sync(0xffffffffu, tap, 4 * i + j);
       wj[j] = __shfl_sync(0xffffffffu, wt, 4 * i + j);
-      const uint4* row = reinterpret_cast<const uint4*>(p.table + (size_t)(ri < 0 ? 0 : ri) * p.C);
+      const uint4* row =
+          reinterpret_cast<const uint4*>(p.table + (size_t)(ri < 0 ? 0 : ri) * p.C + off);
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
         v[h][j] = make_uint4(0u, 0u, 0u, 0u);
@@ -522,7 +526,7 @@ __device__ __forceinline__ void fwd_body(const DenseParams& q, unsigned char* ac
       const int off = step_aux(s) * TILE_K, kp = min(TILE_K, p.C - off);
       __syncthreads();  // hb's last readers (lin_in, the previous fc_1 or piece) are done
       if (GATHER) {
-        gather_fill<MV>(p, hb, row0(), MV ? walk_view(si) : 0);
+        gather_fill<MV>(p, hb, row0(), MV ? walk_view(si) : 0, off, kp);
         publish();
       } else if (MV && row0() % p.B_obj + TILE_PTS > p.B_obj) {
         view_latent(p, hb, row0(), walk_view(si), off, kp);  // two runs of rows: by the threads
@@ -545,10 +549,10 @@ __device__ __forceinline__ void fwd_body(const DenseParams& q, unsigned char* ac
       publish();  // act = r_k (fc_0) or hb = s_k (fc_1)
       if (kind == B1_FWD) A = hb;
     }
-    const Gemm op = fwd_gemm_of<!GATHER>(s, p.kin, p.C);
+    const Gemm op = piece_gemm_of<false>(s, p.kin, p.C);
     // one product site, the epilogue chosen inside: so ptxas keeps the stream
     // and the accumulators where they are (a site per epilogue kind spilled)
-    dense_gemm<MV, !GATHER>(q, ring, it, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
+    dense_gemm<MV>(q, ring, it, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
       if (step_kind(s) == B0_FWD) {
         const int c0 = piece_col(pc);
         const float* bias = p.b_blk + (size_t)(2 * step_k(s)) * HID;
@@ -569,7 +573,7 @@ __device__ __forceinline__ void fwd_body(const DenseParams& q, unsigned char* ac
                             : kind == Z_FWD ? p.b_z + (size_t)k * HID
                                             : p.b_blk + (size_t)(2 * k + 1) * HID;
         // an injection's bias comes with its first piece only
-        const bool biased = GATHER || kind != Z_FWD || aux == 0;
+        const bool biased = kind != Z_FWD || aux == 0;
 #pragma unroll
         for (int j = 0; j < TILE_ACC / 4; ++j) {  // one bias pair serves rows r and r + 8
           float2 bj = make_float2(0.0f, 0.0f);
@@ -658,7 +662,7 @@ __device__ __forceinline__ void fwd_tile(const DenseParams& q) {
     hopper::mbar_init(&f_lat_full, 1);
     hopper::mbar_fence_init();
     f_n_steps = fwd_program(f_prog, p.n_blocks, p.n_lin_z, MV, MV ? p.pre : p.n_blocks,
-                            GATHER ? 1 : latent_pieces(p.C));
+                            latent_pieces(p.C));
     if (MV) {
       f_n_gemms = 0;
       for (int i = 0; i < f_n_steps; ++i) {
@@ -675,7 +679,7 @@ __device__ __forceinline__ void fwd_tile(const DenseParams& q) {
   }
   __syncthreads();
   if ((threadIdx.x & 127) == 0)
-    for (int st = 0; st < RING_STAGES; ++st) dense_feed<MV, !GATHER>(q, ring, st, threadIdx.x >> 7);
+    for (int st = 0; st < RING_STAGES; ++st) dense_feed<MV>(q, ring, st, threadIdx.x >> 7);
 
   uint32_t it = 0;  // stages taken
   if (MV) {
@@ -783,12 +787,12 @@ bool mv_params(DenseParams& q, int NS, int B_obj, int pre, void* vsum, int n_cta
 // The lookup's operands of a gather launch: idx (rows, taps) int32 and w
 // (rows, taps) f32 (taps >= 4, columns 0..3 used), T table rows of C bf16
 // each (a table per view, multi-view), 16-byte aligned; false for what the
-// kernels do not take.
+// kernels do not take.  The lookup builds one piece of at most TILE_K
+// columns at a time into the operand tile: any C the dense kernels take.
 bool gather_params(DenseParams& q, const void* idx, const void* w, int taps, const void* table,
                    int T) {
-  // the lookup builds the whole latent into one operand tile: C <= TILE_K
-  if (taps < 4 || T < 1 || q.t.C % 8 != 0 || q.t.C > TILE_K || idx == nullptr || w == nullptr ||
-      table == nullptr || reinterpret_cast<uintptr_t>(table) % 16 != 0)
+  if (taps < 4 || T < 1 || q.t.C % 8 != 0 || q.t.C > F_MAX_GATHER_C || idx == nullptr ||
+      w == nullptr || table == nullptr || reinterpret_cast<uintptr_t>(table) % 16 != 0)
     return false;
   q.t.idx = static_cast<const int*>(idx);
   q.t.w = static_cast<const float*>(w);
@@ -804,12 +808,13 @@ extern "C" {
 
 const char* resnetfc_fwd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// What the tile kernels fix, for the wrapper to plan with: out[0..8] =
+// What the tile kernels fix, for the wrapper to plan with: out[0..9] =
 // points a tile, threads a CTA, weight-ring stages, the most outputs of
 // lin_out, the most steps of a tile's stored program (one view's segment and
 // the shared blocks), the widest code (and latent piece), the f32 words of
 // a multi-view CTA's view-sum slot, the widest latent of the dense kernels,
-// the tower's width this library is built for.
+// the tower's width this library is built for, the widest latent of the
+// gather kernels' table.
 // Returns the bytes of a plan; *smem gets the shared memory a CTA.
 size_t resnetfc_fwd_dense_limits(int* out, size_t* smem) {
   out[0] = TILE_PTS;
@@ -821,6 +826,7 @@ size_t resnetfc_fwd_dense_limits(int* out, size_t* smem) {
   out[6] = F_SLOT_FLOATS;
   out[7] = F_MAX_C;
   out[8] = HID;
+  out[9] = F_MAX_GATHER_C;
   *smem = TILE_SMEM;
   return sizeof(DensePlan);
 }

@@ -78,21 +78,26 @@ static_assert(HID == 64 || HID == 128 || HID == 256 || HID == 384 || HID == 512,
 // the widest piece of a latent (so sn64's C = 512 latent is one piece at any
 // tower width).
 constexpr int TILE_K = 512;
-// The widest latent: an injection of a latent wider than one operand tile
-// runs as pieces of at most TILE_K columns (latent_pieces), each a step of
-// its own -- in the recompute a product that adds to the f32 stream, in the
-// walk back a product that writes its own columns of dz.
-constexpr int MAX_C = 2 * TILE_K;
+// The widest latent, 4096 columns (ResNet50's unified map at 5 layers is
+// 3904): an injection of a latent wider than one operand tile runs as pieces
+// of at most TILE_K columns (latent_pieces: 8 at most), each a step of its
+// own -- in the forward and the recompute a product that adds to the f32
+// stream (the dense kernels' piece by TMA, the gathers' built by the
+// threads), in the walk back a product that writes its own columns of dz.
+constexpr int MAX_C = 8 * TILE_K;
 
 // The pieces of TILE_K columns an injection of a C-wide latent takes (1 up
-// to C = 512; 0 without a latent).
+// to C = 512, 4 at ResNet50's 1856, 8 at 3904; 0 without a latent).  The
+// last piece is ragged when C is not a multiple of 512 (320 columns at 1856
+// and 3904): its product's K stops at C.
 __host__ __device__ inline int latent_pieces(int C) { return (C + TILE_K - 1) / TILE_K; }
 // The steps of HID dz columns the data kernel's walk back takes for an
 // injection of a C-wide latent: a product's N is the tower's HID columns (a
 // warpgroup's half in its pieces), so each step forms HID columns of dz
 // (latent_pieces(C) at HID 512; 4 at C = 512 and HID 128, 8 at HID 64, 2
-// at HID 384, the second's columns 384-767 past C = 512 formed from what
-// TMA reads there and dropped by the wrapper).
+// at HID 384, 61 at C = 3904 and HID 64).  Columns at or past C (the second
+// step's 384-767 at C = 512 and HID 384; the fourth's 1856-2047 at 1856 and
+// HID 512) are formed from what TMA reads there and dropped by the wrapper.
 __host__ __device__ inline int dz_pieces(int C) { return (C + HID - 1) / HID; }
 
 struct TowerParams {
@@ -319,12 +324,11 @@ __device__ __forceinline__ Gemm gemm_of(int s, int kin, int C) {
 }
 
 // The weight operand of a product step with the latent in pieces: gemm_of,
-// but the recompute's piece j (Z_FWD, aux j) reads rows j TILE_K.. of
-// W_z[k], at most TILE_K of them as K, and in the data kernel (WALK_BACK)
-// the walk back's step j (Z_BWD, aux >> 1 = j; dz_pieces) rows j HID.. as
-// the product's HID columns.  The dense forwards and the data kernel call it; not gemm_of,
-// which every tile kernel inlines (a decode there spilled one).  The gather
-// kernels' latent is one piece, and they call gemm_of.
+// but the forward's (and the recompute's) piece j (Z_FWD, aux j) reads rows
+// j TILE_K.. of W_z[k], at most TILE_K of them as K, and in the data kernel
+// (WALK_BACK) the walk back's step j (Z_BWD, aux >> 1 = j; dz_pieces) rows
+// j HID.. as the product's HID columns.  Every tile kernel's products and
+// feeders call it.
 template <bool WALK_BACK>
 __device__ __forceinline__ Gemm piece_gemm_of(int s, int kin, int C) {
   const int kind = step_kind(s);

@@ -40,7 +40,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config.hocon import ConfigTree
-from ..ops.resnetfc_fused import LatentGather, RawCode, supports
+from ..ops.resnetfc_fused import TILE_LIMITS, LatentGather, RawCode, supports
 from ..utils.geometry import invert_poses, repeat_interleave
 from .code import PositionalEncoding
 from .custom_encoder import ConvEncoder
@@ -301,6 +301,12 @@ class PixelNeRFNet(nn.Module):
             if not isinstance(mlp, ResnetFC):  # the lookup is a ResnetFC kernel's input
                 return False
             if NS > 1 and not (0 <= mlp.combine_layer < mlp.n_blocks):
+                return False
+            # a table wider than the gathers take (the mirror of the width's
+            # library) is looked up densely, so the field never reaches a
+            # gather that refuses it; the JAX rule everywhere else
+            lim = TILE_LIMITS.get(mlp.d_hidden)
+            if lim is not None and mlp.n_lin_z > 0 and mlp.d_latent > lim.max_gather_c:
                 return False
         if self.encoder.index_interp != "bilinear":
             return False

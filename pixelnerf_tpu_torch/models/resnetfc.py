@@ -129,21 +129,26 @@ class ResnetFC(nn.Module):
                     p.copy_(torch.randn(p.shape, generator=generator) * std)
 
     # ------------------------------------------------------------------
-    def check_kernel_widths(self, NS: int = 1, grad: bool = False) -> None:
+    def check_kernel_widths(self, NS: int = 1, grad: bool = False, gather: bool = False) -> None:
         """Raise ValueError on widths a kernel of this call does not take:
         the forward's at NS views (H = 64, 128, 256, 384 or 512, a library
-        each; kin and C multiples of 16, kin <= 512, C <= 1024; the stored
-        program's steps: 62 blocks at sn64's other widths and one view);
-        under ``grad`` also the backward's (the same widths H, a library
-        each; the data kernel's widths and program: C <= 1024 as the
-        forward's, kin <= 128, 49 blocks at sn64's other widths; the weights
-        kernel's plan, which holds every tower the forward's program does;
-        and the depth the card's gates hold, ``GRAD_MAX_BLOCKS``: 7 blocks).
-        Reads only the Python mirrors of the width's limits."""
+        each; kin and C multiples of 16, kin <= 512, C <= 4096 in pieces of
+        512; the stored program's steps: 62 blocks at sn64's other widths
+        and one view); with ``gather`` (a LatentGather latent) also the
+        gathers' table width (C <= 4096); under ``grad`` also the
+        backward's (the same widths H, a library each; the data kernel's
+        widths and program: C <= 4096 as the forward's, kin <= 128, 49
+        blocks at sn64's other widths, and at H = 64 the walk back's H dz
+        columns a step: 3904 fits sn64's three injections, not four; the
+        weights kernel's plan, which holds every tower the forward's program
+        does; and the depth the card's gates hold, ``GRAD_MAX_BLOCKS``: 7
+        blocks).  Reads only the Python mirrors of the width's limits."""
         kin = max(-(-self.d_in // 16) * 16, 16)
         C = self.d_latent if self.n_lin_z > 0 else 0
         lim = rf.tile_limits(self.d_hidden)
         rf.check_dense_widths(kin, self.d_hidden, C, self.n_lin_z, self.n_blocks, self.d_out, lim)
+        if gather and self.n_lin_z > 0:
+            rf._check_gather_width(C, lim)
         pre = self.n_blocks
         if NS > 1:
             pre = rf.blocks_per_view(self.n_blocks, NS, self.combine_layer)
@@ -164,11 +169,14 @@ class ResnetFC(nn.Module):
             rfv.weight_plan(kin, self.d_hidden, C, self.n_blocks, self.n_lin_z, NS, pre, 64,
                             rfv.WEIGHT_LIMITS[self.d_hidden], 132)
 
-    def _kernel_route(self, combine_inner_dims, device: torch.device, grad: bool = False) -> bool:
+    def _kernel_route(self, combine_inner_dims, device: torch.device, grad: bool = False,
+                      gather: bool = False) -> bool:
         """Whether this call takes the kernels (on the CPU, their plain
         versions): under ``auto`` a CUDA tensor inside the envelope, under
         ``cuda`` always -- raising, on a CUDA tensor, for a tower outside
-        it.  ``grad``: the call will be differentiated."""
+        it, before any wrapper is reached.  ``grad``: the call will be
+        differentiated; ``gather``: its latent is a LatentGather, so the
+        gathers' widths count too."""
         if self.impl == "torch":
             return False
         if not rf.supports(self.beta, self.use_spade, self.combine_type):
@@ -187,7 +195,7 @@ class ResnetFC(nn.Module):
         if device.type != "cuda":
             return self.impl == "cuda"  # the kernels' plain versions take any width
         try:
-            self.check_kernel_widths(NS, grad)
+            self.check_kernel_widths(NS, grad, gather)
         except ValueError:
             if self.impl == "cuda":
                 raise
@@ -292,7 +300,8 @@ class ResnetFC(nn.Module):
             any(p.requires_grad for p in self.parameters())
             or any(torch.is_tensor(t) and t.requires_grad
                    for t in ((parts[0], rf.coords(parts[1])) if parts is not None else (zx,))))
-        if self._kernel_route(combine_inner_dims, device, grad):
+        gather = parts is not None and isinstance(parts[0], rf.LatentGather)
+        if self._kernel_route(combine_inner_dims, device, grad, gather):
             return self._kernel_forward(zx, tuple(combine_inner_dims), planar_out)
 
         dt = self.lin_out.weight.dtype

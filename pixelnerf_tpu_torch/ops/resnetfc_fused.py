@@ -18,10 +18,12 @@ Counterpart of ``pixelnerf_tpu/ops/resnetfc_pallas.py``:
   ``_kernel_2d_mv_gather``: the same with view v's lookup into table v of an
   ``(NS, T, C)`` stack, on the same tile and plan, built as the gather's.
 
-The dense kernels take a latent up to ``max_c`` = 1024 columns wide (the
-global encoder's code before the pixel latent), each injection of a latent
-past 512 columns in pieces of :data:`TILE_K` = 512 (:func:`latent_pieces`);
-the gathers take 512 at most.  The tower's width is a compile-time constant
+The dense kernels take a latent up to ``max_c`` = 4096 columns wide (the
+global encoder's code before the pixel latent, 640; ResNet50's unified map,
+832 / 1856 / 3904 at 3 / 4 / 5 layers), each injection of a latent past 512
+columns in pieces of :data:`TILE_K` = 512 (:func:`latent_pieces`), the last
+one ragged; the gathers build the same pieces from their table, to
+``max_gather_c`` = 4096.  The tower's width is a compile-time constant
 of the tile: one library is built for each width in :data:`HIDDEN` (64,
 128, 256, 384, 512; ``-DRFC_HID``), and each launch takes the library of
 its tower's width, ``w_in.shape[1]`` -- the backward's too
@@ -260,7 +262,9 @@ def pack_tower(params: dict, d_in: int, d_latent: int, n_blocks: int, n_lin_z: i
 def gather_reference(idx, w, table, compute_dtype=torch.float32) -> torch.Tensor:
     """Plain 4-tap lookup ``sum_{j<4} w[:, j] * table[idx[:, j]]`` in f32,
     rounded to ``compute_dtype``.  Out-of-range rows contribute nothing.  An
-    ``(NS, T, C)`` table takes view-major idx/w: view v's rows read table v."""
+    ``(NS, T, C)`` table takes view-major idx/w: view v's rows read table v.
+    Each column's sum is its own, so the kernels' pieces of 512 columns (at
+    any C) give these bits as they are."""
     if table.ndim == 3:
         NS = table.shape[0]
         return torch.cat([gather_reference(i, ww, t, compute_dtype)
@@ -299,6 +303,17 @@ def view_mean(h: torch.Tensor, NS: int, sb: int) -> torch.Tensor:
     return (acc * (1.0 / NS)).reshape(-1, h.shape[-1])
 
 
+def inject(h: torch.Tensor, z: torch.Tensor, w_z: torch.Tensor, b_z: torch.Tensor) -> torch.Tensor:
+    """One injection ``h + (z w_z + b_z)`` of a C-wide latent in the kernels'
+    pieces of :data:`TILE_K` columns (:func:`latent_pieces`), each product
+    added to the stream on its own, the bias with the first: the sum order
+    of the kernels' pieces (one piece up to C = 512, 4 at 1856)."""
+    for j in range(0, z.shape[1], TILE_K):
+        t = z[:, j : j + TILE_K] @ w_z[j : j + TILE_K]
+        h = h + (t + b_z if j == 0 else t)
+    return h
+
+
 def resnetfc_reference(z, x, tower: Tower, n_blocks: int, planar_out: bool = True,
                        compute_dtype=torch.float32, NS: int = 1, sb: int = 1,
                        combine_layer: Optional[int] = None) -> torch.Tensor:
@@ -325,11 +340,7 @@ def resnetfc_reference(z, x, tower: Tower, n_blocks: int, planar_out: bool = Tru
         if NS > 1 and k == pre:
             h = view_mean(h, NS, sb)
         if k < n_lin_z:
-            # a latent past TILE_K columns in the kernels' pieces, the bias
-            # with the first
-            for j in range(0, zc.shape[1], TILE_K):
-                t = zc[:, j : j + TILE_K] @ rnd(tower.w_z[k, j : j + TILE_K])
-                h = h + (t + tower.b_z[k] if j == 0 else t)
+            h = inject(h, zc, rnd(tower.w_z[k]), tower.b_z[k])
         t = rnd(torch.relu(h)) @ rnd(tower.w_blk[k, 0]) + tower.b_blk[k, 0]
         h = h + (rnd(torch.relu(t)) @ rnd(tower.w_blk[k, 1]) + tower.b_blk[k, 1])
     res = rnd(torch.relu(h)) @ rnd(tower.w_out)
@@ -528,9 +539,12 @@ class DenseLimits(NamedTuple):
     smem: int  # dynamic shared memory a CTA
     plan_bytes: int  # bytes of a plan (the weights' tensor maps)
     # the widest latent (C) of the dense kernels: an injection past max_k
-    # columns runs as pieces of max_k (latent_pieces); the gathers take max_k
-    max_c: int = 2 * TILE_K
+    # columns runs as pieces of max_k (latent_pieces)
+    max_c: int = 8 * TILE_K
     hidden: int = 512  # the tower's width H the library is built for
+    # the widest table (C) of the gather kernels, whose lookup builds the
+    # same pieces
+    max_gather_c: int = 8 * TILE_K
 
 
 def piece_cols(H: int) -> int:
@@ -560,8 +574,8 @@ def _mirror(H: int) -> DenseLimits:
     stage = ring_stage_bytes(H)
     return DenseLimits(tile=64, threads=256, stages=3 * 32768 // stage, max_out=4, max_steps=128,
                        max_k=TILE_K, slot_floats=H // 4 * 256,
-                       smem=2 * 65536 + 3 * 32768 + 1024, plan_bytes=448, max_c=2 * TILE_K,
-                       hidden=H)
+                       smem=2 * 65536 + 3 * 32768 + 1024, plan_bytes=448, max_c=8 * TILE_K,
+                       hidden=H, max_gather_c=8 * TILE_K)
 
 
 # What each width's library reports (dense_limits), mirrored so that the
@@ -582,16 +596,16 @@ def tile_limits(H: int) -> DenseLimits:
 @functools.lru_cache(maxsize=None)
 def dense_limits(H: int = 512) -> DenseLimits:
     """What the library of width H reports."""
-    out, smem = (ctypes.c_int * 9)(), ctypes.c_size_t()
+    out, smem = (ctypes.c_int * 10)(), ctypes.c_size_t()
     n = _lib(H).resnetfc_fwd_dense_limits(out, ctypes.byref(smem))
-    return DenseLimits(*out[:7], smem.value, n, out[7], out[8])
+    return DenseLimits(*out[:7], smem.value, n, out[7], out[8], out[9])
 
 
 def latent_pieces(C: int) -> int:
     """The steps an injection of a C-wide latent takes in the tile kernels,
     each way in the data kernel: pieces of at most TILE_K columns
     (``latent_pieces`` in ``csrc/tile64.cuh``); 1 up to C = 512 at every
-    tower width."""
+    tower width, 4 at ResNet50's 1856, 8 at 3904."""
     return max(1, -(-C // TILE_K))
 
 
@@ -604,7 +618,8 @@ def dense_steps(n_blocks: int, n_lin_z: int, NS: int = 1, pre: Optional[int] = N
     :func:`latent_pieces` of the C-wide latent), fc_0 and fc_1, and at NS > 1
     the fold into the view mean -- which the tile walks once for each view;
     then fc_0 and fc_1 of each shared block.  14 at sn64 and one view, 15 at
-    any view count; 17 at one view with the global encoder's C = 640."""
+    any view count; 17 at one view with the global encoder's C = 640, 23
+    with ResNet50's 1856 (24 from NS = 2 up), 35 with its 3904."""
     pre = n_blocks if NS == 1 or pre is None else pre
     return 1 + n_lin_z * latent_pieces(C) + 2 * pre + int(NS > 1) + 2 * (n_blocks - pre)
 
@@ -668,9 +683,10 @@ def check_gather(idx: torch.Tensor, w: torch.Tensor, table: torch.Tensor, rows: 
                  tower: Tower, n_blocks: int, limits: DenseLimits) -> None:
     """Raise ValueError on what ``resnetfc_fwd_gather`` does not take, on any
     device: weights the tile does not take (:func:`check_tile_tower`); fewer
-    than 4 taps; idx / w other than ``(rows, taps)``; a table other than
-    ``(T, C)`` or whose rows are not 16-byte aligned (:func:`check_tma`: the
-    lookup reads 16-byte chunks of a row)."""
+    than 4 taps; idx / w other than ``(rows, taps)``; a table wider than
+    the gathers take (:func:`_check_gather_width`), other than ``(T, C)`` or
+    whose rows are not 16-byte aligned (:func:`check_tma`: the lookup reads
+    16-byte chunks of a row)."""
     check_tile_tower(tower, n_blocks, limits)
     _check_taps(idx, w, rows)
     C = tower.w_z.shape[1]
@@ -681,10 +697,12 @@ def check_gather(idx: torch.Tensor, w: torch.Tensor, table: torch.Tensor, rows: 
 
 
 def _check_gather_width(C: int, limits: DenseLimits) -> None:
-    """The gathers build the whole latent into one operand tile: C <= max_k."""
-    if C > limits.max_k:
-        raise ValueError(f"the gather kernels take a latent of at most {limits.max_k} "
-                         f"columns (C={C})")
+    """The gathers build the latent into the operand tile a piece of at most
+    ``max_k`` columns at a time: C <= ``max_gather_c``, a multiple of 8 (a
+    table row is read in 16-byte chunks)."""
+    if C % 8 or C > limits.max_gather_c:
+        raise ValueError(f"the gather kernels take a latent of at most {limits.max_gather_c} "
+                         f"columns, a multiple of 8 (C={C})")
 
 
 def _check_taps(idx: torch.Tensor, w: torch.Tensor, rows: int) -> None:

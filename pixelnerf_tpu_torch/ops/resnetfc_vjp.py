@@ -118,8 +118,8 @@ def forward_operands(z: Optional[torch.Tensor], x: torch.Tensor, tower: rf.Tower
     hs = [xv @ w_in + tower.b_in for xv in split_views(rnd(x.float()), NS, sb)]
 
     def block(k, h, zc):
-        if k < n_lin_z:
-            h = h + (zc @ w_z[k] + tower.b_z[k])
+        if k < n_lin_z:  # in the kernels' pieces of 512 columns
+            h = rf.inject(h, zc, w_z[k], tower.b_z[k])
         r = rnd(torch.relu(h))
         s = rnd(torch.relu(r @ w_blk[k, 0] + tower.b_blk[k, 0]))
         return h + (s @ w_blk[k, 1] + tower.b_blk[k, 1]), r, s
@@ -716,7 +716,7 @@ class DataLimits(NamedTuple):
     stages: int  # weight-ring stages
     max_out: int  # the most outputs of lin_out
     max_steps: int  # the most steps of one tile's stored program (one view's segments)
-    max_c: int  # the widest latent (injected in pieces of at most 512 columns)
+    max_c: int  # the widest latent (injected in pieces of at most 512 columns, 8 at most)
     smem: int  # dynamic shared memory a CTA
     hidden: int  # the tower's width H the library is built for
 
@@ -729,7 +729,7 @@ def _data_mirror(H: int) -> DataLimits:
     128 and 384, 12 of 8 KB at 64), two 64 KB operand tiles."""
     lim = rf.TILE_LIMITS[H]
     return DataLimits(tile=64, threads=256, slot_floats=lim.slot_floats, stages=lim.stages,
-                      max_out=4, max_steps=256, max_c=1024, smem=2 * 65536 + 3 * 32768 + 1024,
+                      max_out=4, max_steps=256, max_c=4096, smem=2 * 65536 + 3 * 32768 + 1024,
                       hidden=H)
 
 
@@ -765,8 +765,9 @@ def data_steps(n_blocks: int, n_lin_z: int, NS: int, pre: int, C: int, H: int) -
     injection is one recompute step a :func:`~.resnetfc_fused.latent_pieces`
     of the C-wide latent and one walk-back step a :func:`dz_pieces` (H dz
     columns a step).  34 at sn64 and one view, 36 at any view count; 40 and
-    42 with the global encoder's C = 640; 37 / 37 / 43 / 55 at H = 384 / 256
-    / 128 / 64 and one view."""
+    42 with the global encoder's C = 640, 52 and 54 with ResNet50's 1856;
+    37 / 37 / 43 / 55 at H = 384 / 256 / 128 / 64 and one view, 235 at H =
+    64 with ResNet50's 3904 (61 walk-back steps an injection)."""
     mv = int(NS > 1)
     shared = n_blocks - pre
     zs = n_lin_z * rf.latent_pieces(C)
@@ -813,7 +814,7 @@ def check_data_widths(kin: int, H: int, C: int, n_lin_z: int, n_blocks: int, d_o
     """Raise ValueError on widths ``resnetfc_bwd_data`` does not take: H other
     than the library's (``limits.hidden``: 64, 128, 256, 384 or 512, one
     library each); with a latent, C not a multiple of 16 in [16,
-    ``limits.max_c``] (the forward's envelope: pieces of at most 512
+    ``limits.max_c``] (the forward's envelope, 4096: pieces of at most 512
     columns); kin past 128 or
     not a multiple of 16; no block; more outputs than ``limits.max_out``; a
     CTA past the card's shared memory."""

@@ -35,10 +35,10 @@ from pixelnerf_tpu_torch.utils.jax_convert import from_jax_variables
 
 # what resnetfc_bwd_data_kernel fixes, by hand (the library reports it on the
 # card): 64-point tiles, 256 threads, a 128 KB multi-view slot, 3 stages of
-# 32 KB, at most 4 outputs and 256 steps a tile, a latent up to 1024 wide;
+# 32 KB, at most 4 outputs and 256 steps a tile, a latent up to 4096 wide;
 # two 64 KB operand tiles + the ring + 1 KB slack
 LIMITS = rv.DataLimits(tile=64, threads=256, slot_floats=32768, stages=3, max_out=4,
-                       max_steps=256, max_c=1024, smem=2 * 65536 + 3 * 32768 + 1024,
+                       max_steps=256, max_c=4096, smem=2 * 65536 + 3 * 32768 + 1024,
                        hidden=512)
 # the narrower libraries' (d_hidden 384, 256, 128 and 64): a slot of the 64 x
 # H stream (H / 4 f32 a thread), the same 96 KB ring in 3 stages of 32 KB, 6
@@ -240,7 +240,7 @@ def test_data_limits_fit_the_card(H):
 @pytest.mark.parametrize("kin,H,C,n_lin_z,nb,d_out,match", [
     (48, 320, 512, 3, 5, 4, "d_hidden 512, one library each of \\(64, 128, 256, 384, 512\\)"),
     (48, 256, 512, 3, 5, 4, "this library needs d_hidden 512"),  # another width's library
-    (48, 512, 1040, 3, 5, 4, "d_latent a multiple of 16 in \\[16, 1024\\]"),
+    (48, 512, 4112, 3, 5, 4, "d_latent a multiple of 16 in \\[16, 4096\\]"),
     (144, 512, 512, 3, 5, 4, "kin <= 128"),
     (40, 512, 512, 3, 5, 4, "multiple of 16"),
     (48, 512, 512, 0, 0, 4, "n_blocks >= 1"),
@@ -433,13 +433,14 @@ def test_check_data_widths_takes_any_latent_width_without_a_latent():
 
 
 @pytest.mark.parametrize("H", [512, 384, 256, 128, 64])
-@pytest.mark.parametrize("C", [16, 128, 512, 528, 640, 1024])
+@pytest.mark.parametrize("C", [16, 128, 512, 528, 640, 1024, 832, 1856, 3904, 4096])
 def test_check_data_widths_takes_the_forwards_latent_widths(C, H):
-    """With a latent, C a multiple of 16 up to the forward's 1024: the
+    """With a latent, C a multiple of 16 up to the forward's 4096: the
     ConvEncoder's 128 (one piece of K = 128), sn64's 512, the global
-    encoder's 640 (two pieces), the widest; at sn64's depth the program
-    fits at every tower width (at d_hidden 128 and C = 1024, 8 dz steps an
-    injection; 16 at d_hidden 64)."""
+    encoder's 640 (two pieces), ResNet50's 832, 1856 and 3904 (2, 4 and 8
+    pieces), the widest; at sn64's depth the program fits at every tower
+    width (at d_hidden 128 and C = 1024, 8 dz steps an injection; 16 at
+    d_hidden 64, 61 at 64 and C = 3904: 235 steps of 256, 64 at 4096)."""
     rv.check_data_widths(48, H, C, 3, 5, 4, LIMITS_AT[H])
     for NS, pre in ((1, 5), (3, 3), (255, 3)):
         rv.check_data_program(5, 3, NS, pre, LIMITS_AT[H], C)

@@ -189,12 +189,13 @@ def test_weights_reference_matches_pallas_interpret(NS, sb, B_obj, d_in, d_laten
                                        err_msg=f"{what}: {k}")
 
 
-@pytest.mark.parametrize("C", [128, 640, 1024])
+@pytest.mark.parametrize("C", [128, 640, 1024, 1856, 3904, 4096])
 @pytest.mark.parametrize("NS,pre", [(1, 5), (3, 3)])
 def test_weight_plan_at_other_latent_widths(C, NS, pre):
-    """lin_z's products at the ConvEncoder's 128, the global encoder's 640
-    and the widest 1024 stay one task each, of M = C (ceil(C / 128) x 2
-    output tiles): the table keeps its 14 products and 23 maps, the latent's
+    """lin_z's products at the ConvEncoder's 128, the global encoder's 640,
+    1024, ResNet50's 1856 and 3904 and the widest 4096 stay one task each,
+    of M = C (ceil(C / 128) x 2 output tiles: 15 x 2 at 1856): the table
+    keeps its 14 products and 23 maps, the latent's
     map (z in place, or ws_z) is C wide, and the outputs lie one after
     another in the buffer, lin_z's C x 512 each."""
     B = 4 * 128 * 96

@@ -2,9 +2,9 @@
 envelope, on the CPU.
 
 * ``resnetfc_dense`` / ``resnetfc_dense_mv`` (rows 2 and 3 of PERF.md, and
-  row 6's deferred code) take a latent up to 1024 wide, injected in pieces
+  row 6's deferred code) take a latent up to 4096 wide, injected in pieces
   of 512 columns (the global encoder's code before the pixel latent: 128 +
-  512 = 640 at sn64).  Their plain versions on CPU tensors are held against
+  512 = 640 at sn64; ResNet50's unified map, 832 / 1856 / 3904).  Their plain versions on CPU tensors are held against
   the JAX ``_kernel_2d`` / ``_kernel_2d_mv`` through ``resnetfc_pallas`` in
   interpret mode at C = 640, to 1e-4 of max(1, max|ref|) (f32 sums
   reassociated), as ``tests/test_torch_fwd_dense*.py`` hold them at 32;
@@ -13,8 +13,10 @@ envelope, on the CPU.
   the plain route under ``auto`` and raises under ``cuda``, reading only the
   Python mirrors of the kernels' limits (no library is built or loaded).
   Under grad the backward kernels take the forward's latent widths (16 to
-  1024, a multiple of 16): the global encoder's 640 and the ConvEncoder's
-  128 train on the kernels; 1040 and 24 stay plain.  The forward and the
+  4096, a multiple of 16): the global encoder's 640, the ConvEncoder's 128,
+  1040 and ResNet50's 1856 train on the kernels; 4112 and 24 stay plain, and
+  so does 3904 at d_hidden 64 with a fourth injection (the data kernel's
+  program: 61 walk-back steps an injection).  The forward and the
   backward kernels take d_hidden 64, 128, 256, 384 and 512 (a library each
   of each): narrower towers render and train on them; 192, 320 and 448 stay
   plain.  Under grad a tower trains on the kernels to the depth the card's
@@ -127,26 +129,31 @@ def test_dense_mv_plain_at_a_640_wide_latent_matches_pallas_interpret(NS, sb, B_
 
 
 def test_dense_steps_and_widths_count_the_latent_pieces():
-    """An injection of a latent past 512 columns is two steps of the stored
-    program: sn64 (5 blocks, 3 injections) is 14 steps at C = 512, 17 at 640
-    and at 1024, and 18 from NS = 2 up; ``check_dense_widths`` takes C to
-    1024 and refuses 1040, and the gathers keep C <= 512."""
+    """An injection of a latent past 512 columns is a step of the stored
+    program a piece of 512 columns: sn64 (5 blocks, 3 injections) is 14
+    steps at C = 512, 17 at 640 and at 1024, 23 at ResNet50's 1856 and 35 at
+    its 3904, and 18 from NS = 2 up at 640; ``check_dense_widths`` takes C
+    to 4096 and refuses 4112, and the gathers build the same pieces to 4096."""
     lim = rf.TILE_LIMITS[512]
-    assert [rf.latent_pieces(c) for c in (16, 512, 528, 640, 1024)] == [1, 1, 2, 2, 2]
+    assert ([rf.latent_pieces(c) for c in (16, 512, 528, 640, 1024, 832, 1856, 3904, 4096)]
+            == [1, 1, 2, 2, 2, 2, 4, 8, 8])
     assert rf.dense_steps(5, 3, C=512) == rf.dense_steps(5, 3) == 14
     assert rf.dense_steps(5, 3, C=640) == rf.dense_steps(5, 3, C=1024) == 17
+    assert rf.dense_steps(5, 3, C=1856) == 23 and rf.dense_steps(5, 3, C=3904) == 35
     assert rf.dense_steps(5, 3, 3, 3, C=640) == rf.dense_steps(5, 3, 255, 3, C=640) == 18
-    for C in (640, 1024):
+    for C in (640, 1024, 832, 1856, 3904, 4096):
         rf.check_dense_widths(48, 512, C, 3, 5, 4, lim)
-    for C, what in ((1040, "C"), (648, "C")):
+        rf._check_gather_width(C, lim)
+    for C, what in ((4112, "C"), (648, "C")):
         with pytest.raises(ValueError, match=what):
             rf.check_dense_widths(48, 512, C, 3, 5, 4, lim)
     with pytest.raises(ValueError, match="kin"):  # the code stays one operand tile
         rf.check_dense_widths(528, 512, 640, 3, 5, 4, lim)
     with pytest.raises(ValueError, match="steps"):  # 2 pieces a block: 63 blocks overflow
         rf.check_dense_widths(48, 512, 640, 42, 42, 4, lim)
-    with pytest.raises(ValueError, match="gather"):
-        rf._check_gather_width(640, lim)
+    for C in (4112, 516):  # past the widest table; a row not of whole 16-byte chunks
+        with pytest.raises(ValueError, match="gather"):
+            rf._check_gather_width(C, lim)
     rf._check_gather_width(512, lim)
 
 
@@ -170,10 +177,13 @@ CUDA = torch.device("cuda")  # only compared by type: nothing is allocated on it
     (dict(n_blocks=50), 1, True),  # the data kernel's program: 49 blocks at most
     (dict(n_blocks=8), 1, True),  # past the depth the card's gates hold (7 blocks)
     (dict(n_blocks=49), 3, True),  # inside the data kernel's program, past the gates
-    (dict(d_latent=1040), 1, True),  # past the kernels' 1024, under grad
-    (dict(d_latent=1040), 3, True),
+    (dict(d_latent=4112), 1, True),  # past the kernels' 4096, under grad
+    (dict(d_latent=4112), 3, True),
     (dict(d_latent=24), 1, True),  # not a multiple of 16
-    (dict(d_latent=1040), 1, False),  # past the forward's 1024
+    (dict(d_latent=4112), 1, False),  # past the forward's 4096
+    # ResNet50's 3904 at d_hidden 64 with a fourth injection: 61 walk-back
+    # steps each, the data kernel's program 304 steps of 256 (three fit)
+    (dict(d_latent=3904, d_hidden=64, combine_layer=4), 1, True),
 ])
 def test_route_sends_towers_outside_the_envelope_to_the_plain_route(kw, NS, grad):
     """Under ``auto`` on a CUDA device a tower the kernels do not take is
@@ -200,6 +210,14 @@ def test_route_sends_towers_outside_the_envelope_to_the_plain_route(kw, NS, grad
     (dict(d_latent=WIDE), 3, True),
     (dict(d_latent=128), 1, True),  # the ConvEncoder's train step
     (dict(d_latent=1024), 1, True),
+    (dict(d_latent=1040), 1, True),  # past 1024 since ResNet50's widths: 3 pieces
+    (dict(d_latent=1040), 3, True),
+    (dict(d_latent=1040), 1, False),
+    (dict(d_latent=1856), 1, True),  # ResNet50's 4 layers, 4 pieces each way
+    (dict(d_latent=1856), 3, True),
+    (dict(d_latent=3904), 2, False),  # its 5 layers, 8 pieces
+    (dict(d_latent=3904, d_hidden=64), 1, True),  # 61 dz steps an injection: 235 steps
+    (dict(d_latent=4096, d_hidden=64), 3, True),
     (dict(d_hidden=128), 1, False),  # the narrow towers' forward: a library each
     (dict(d_hidden=256), 3, False),
     (dict(d_hidden=128), 2, False),
@@ -269,8 +287,9 @@ def test_option_train_steps_take_the_backward_kernels(monkeypatch, option, want)
 def test_mirrored_limits_are_the_kernels_limits_by_hand():
     """The mirrors the route reads, by hand from the sources' constants: the
     64-point tile, 256 threads, 3 ring stages of 32 KB, 4 outputs, 128
-    stored steps, a 512-wide code, a 1024-wide latent, two 64 KB operand
-    tiles (the data kernel: 256 steps, the same 1024-wide latent); the
+    stored steps, a 512-wide code, a 4096-wide latent in the dense kernels
+    and in the gathers' tables, two 64 KB operand tiles (the data kernel:
+    256 steps, the same 4096-wide latent); the
     weights kernel's 128 x 256 tile, 24 splits, 256 tensor maps and 128
     products (every tower the forward's 128 steps take, in a table in device
     memory).  The narrower libraries keep the operand tiles, the code's
@@ -282,19 +301,19 @@ def test_mirrored_limits_are_the_kernels_limits_by_hand():
     the weights kernel's tile is 128 x min(256, H), 128 x 192 at 384.
     ``chip_smoke.py`` holds them equal to what the libraries report."""
     assert rf.TILE_LIMITS == {
-        64: rf.DenseLimits(64, 256, 12, 4, 128, 512, 4096, 230400, 448, 1024, 64),
-        128: rf.DenseLimits(64, 256, 6, 4, 128, 512, 8192, 230400, 448, 1024, 128),
-        256: rf.DenseLimits(64, 256, 3, 4, 128, 512, 16384, 230400, 448, 1024, 256),
-        384: rf.DenseLimits(64, 256, 6, 4, 128, 512, 24576, 230400, 448, 1024, 384),
-        512: rf.DenseLimits(64, 256, 3, 4, 128, 512, 32768, 230400, 448, 1024, 512),
+        64: rf.DenseLimits(64, 256, 12, 4, 128, 512, 4096, 230400, 448, 4096, 64, 4096),
+        128: rf.DenseLimits(64, 256, 6, 4, 128, 512, 8192, 230400, 448, 4096, 128, 4096),
+        256: rf.DenseLimits(64, 256, 3, 4, 128, 512, 16384, 230400, 448, 4096, 256, 4096),
+        384: rf.DenseLimits(64, 256, 6, 4, 128, 512, 24576, 230400, 448, 4096, 384, 4096),
+        512: rf.DenseLimits(64, 256, 3, 4, 128, 512, 32768, 230400, 448, 4096, 512, 4096),
     }
     assert tuple(rf.TILE_LIMITS) == rf.HIDDEN
     assert rv.DATA_LIMITS == {
-        64: rv.DataLimits(64, 256, 4096, 12, 4, 256, 1024, 230400, 64),
-        128: rv.DataLimits(64, 256, 8192, 6, 4, 256, 1024, 230400, 128),
-        256: rv.DataLimits(64, 256, 16384, 3, 4, 256, 1024, 230400, 256),
-        384: rv.DataLimits(64, 256, 24576, 6, 4, 256, 1024, 230400, 384),
-        512: rv.DataLimits(64, 256, 32768, 3, 4, 256, 1024, 230400, 512),
+        64: rv.DataLimits(64, 256, 4096, 12, 4, 256, 4096, 230400, 64),
+        128: rv.DataLimits(64, 256, 8192, 6, 4, 256, 4096, 230400, 128),
+        256: rv.DataLimits(64, 256, 16384, 3, 4, 256, 4096, 230400, 256),
+        384: rv.DataLimits(64, 256, 24576, 6, 4, 256, 4096, 230400, 384),
+        512: rv.DataLimits(64, 256, 32768, 3, 4, 256, 4096, 230400, 512),
     }
     assert rv.WEIGHT_LIMITS == {64: rv.KernelLimits(128, 64, 24, 256, 128),
                                 128: rv.KernelLimits(128, 128, 24, 256, 128),
@@ -306,7 +325,8 @@ def test_mirrored_limits_are_the_kernels_limits_by_hand():
         assert lim.smem <= rf.MAX_SMEM_BYTES and lim.hidden == H
         assert rf.tile_limits(H) is lim
         dlim = rv.DATA_LIMITS[H]
-        assert dlim.max_c == lim.max_c and dlim.hidden == H and dlim.smem <= rf.MAX_SMEM_BYTES
+        assert dlim.max_c == lim.max_c == lim.max_gather_c and dlim.hidden == H
+        assert dlim.smem <= rf.MAX_SMEM_BYTES
         assert dlim.slot_floats == dlim.threads * H // 4  # a thread's share of the 64 x H stream
         # a 96 KB ring: stages of 32 KB (two warpgroups x two or one 8 KB box),
         # 16 KB (x one 8 KB box) or 8 KB (x one 64 x 32 box of 4 KB)

@@ -29,8 +29,12 @@ def cuda_device():
 @pytest.mark.parametrize("H", rf.HIDDEN)
 def test_mirrored_limits_are_the_libraries(cuda_device, H):
     """Each width's libraries (d_hidden 64's 12-stage ring of 8 KB, 64 x 32
-    weight boxes, included) report the limits the route rule mirrors."""
+    weight boxes, included) report the limits the route rule mirrors: a
+    latent to 4096 columns in the dense kernels, the gathers' tables and the
+    data kernel."""
     assert rf.dense_limits(H) == rf.TILE_LIMITS[H]
+    assert rf.dense_limits(H).max_c == rf.dense_limits(H).max_gather_c == 4096
+    assert rv.data_limits(H).max_c == 4096
     assert rv.data_limits(H) == rv.DATA_LIMITS[H]
     assert rv.kernel_limits(H) == rv.WEIGHT_LIMITS[H]
 
