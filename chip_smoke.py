@@ -8,7 +8,7 @@ one line each:
 1. device: the card's name and power limit (nvidia-smi);
 2. build: compile every kernel from ``pixelnerf_tpu_torch/csrc``, one
    ``nvcc`` per library, all at once: the forward and the backward at each
-   hidden width (64, 128, 256, 384, 512; ``-DRFC_HID``), ten libraries; ptxas
+   hidden width (every multiple of 64 up to 512 but 448; ``-DRFC_HID``), fourteen libraries; ptxas
    registers and spills per kernel, each library's ``HGMMA`` / ``UTMALDG``
    / ``HMMA`` counts per kernel (``cuobjdump -sass``) and each weights
    kernel's shared memory; both backward kernels (the data kernel's two
@@ -200,8 +200,8 @@ one line each:
     (C = 128, a 4096-row map) and the nearest lookup from view 0 on the
     dense kernel; ImplicitNet heads (5 x 512) on the plain route with no
     launch, a d_hidden 256 tower on the dense kernel (its 256-wide library,
-    under ``PIXELNERF_FUSED_GATHER_MAX_ROWS=0``), and a d_hidden 320 tower
-    refused under ``impl='cuda'``; every render >= 40 dB against
+    under ``PIXELNERF_FUSED_GATHER_MAX_ROWS=0``), and a d_hidden 576 tower
+    (past the widest library) refused under ``impl='cuda'``; every render >= 40 dB against
     the plain route and its kernel calls replayed against their plain
     versions at the bar of 3; the dense and multi-view dense kernels and
     their code variants at C = 640 (393,216 output points from 1 and 3
@@ -221,53 +221,67 @@ one line each:
     encoder included; weights where both heads' sigma is live, and no
     module with a zero gradient on both routes);
 17. narrow: ``conf/exp/sn64.conf`` with both heads' d_hidden 384, then 256,
-    then 128, then 64 (each width its own library: at 384 a warpgroup's 192
-    columns in three m64n64k16 pieces; at 64 its 32 columns on wgmma
-    m64n32k16 from 64 x 32 weight boxes), built in code (seeded as 16
-    seeds, random encoder): ring frame 0 from
+    then 128, then 64, then 320 and 192, then 200 (each its own library:
+    at 384 a warpgroup's 192 columns in three m64n64k16 pieces; at 64 its
+    32 columns on wgmma m64n32k16 from 64 x 32 weight boxes; at 192 its 96
+    in one m64n96k16 piece on three such boxes; at 320 its 160 in two
+    m64n80k16 pieces on 64 x 16 boxes; but 200 on the 256 library, its
+    weights zero-padded), built in code
+    (seeded as 16 seeds, random encoder): ring frame 0 from
     views (0) (the fused gather), (0) under
     ``PIXELNERF_FUSED_GATHER_MAX_ROWS=0`` (the dense kernel), (0, 1) (the
     multi-view gather) and (0, 1, 2) (the multi-view dense kernel), each
     also with ``PIXELNERF_DEFER_CODE=1`` (its CODE twin), each launching
     its kernel from the width's library and >= 40 dB against the plain f32
-    route on the same draws, its kernel calls replayed against their plain
-    versions, then timed in turns beside sn64's d_hidden 512 model (rays/s);
+    route on the same draws, every one-view frame and at least one
+    multi-view frame a width not blank (each head's density shifted so that
+    1/4 of frame 0's points from view 0 are occupied, ``shape_density``),
+    its kernel calls replayed against their plain versions, then timed in
+    turns beside sn64's d_hidden 512 model (rays/s; at 320, 192 and 200 the
+    encoded code's four routes);
     every forward kernel and twin at the fine pass (4096 rays x 96 = 393,216
     output points; NS 2 for the multi-view gather, NS 3 for the multi-view
     dense kernel) and at a ragged B (2000; NS 3 x 333; SB 2 x NS 3 x 333)
     against its plain version at the bar of 3, one launch, bit-identical
     second calls, the gathers bit for bit the dense kernels on their bf16
     latent (``forward_check``), and at the fine pass timed in turns beside
-    d_hidden 512 on the same inputs with its plain, cuBLAS and bound times;
+    d_hidden 512 on the same inputs (at 320 and 192 also beside the same
+    tower zero-padded onto the next library: 384, 256) with its plain,
+    cuBLAS and bound times;
     ``python -m
     pixelnerf_tpu_torch.eval.eval -F dvr -P "0"`` and ``-P "0 1 2"`` at
     d_hidden 256 with ``PIXELNERF_DEFER_CODE=1`` on the NMR fixture (a conf
     file including sn64's, a checkpoint of the phase's weights), launching
     the gather's and the multi-view dense kernel's CODE twins;
-18. narrow and deep backward: rows 5a / 5b at d_hidden 384, 256, 128 and
-    64 (sn64's tower, C = 512, seeded) and at 7 blocks (sn64's widths) from
+18. narrow and deep backward: rows 5a / 5b at d_hidden 384, 256, 128, 64,
+    320, 192 and 200 (sn64's tower, C = 512, seeded) and at 6 blocks
+    (sn64's widths) from
     1 and 3 views at a ragged B (SB 2 x 1000, SB 2 x NS 3 x 333) and at the
-    train step's fine pass (SB 4 x 12,288 from 1 and 3 views), at 7 blocks
-    also at d_hidden 384, 256, 128 and 64 and at d_hidden 128 and 384 also
+    train step's fine pass (SB 4 x 12,288 from 1 and 3 views; 200, on the
+    256 library, at the ragged B only), at 6 blocks also at each width with
+    a library of its own, and at d_hidden 128 and 384 also
     at C = 640 and 128 on the ragged shapes, each against its plain version
     as 16 gates the wide latents (``backward_gate``: the bar and corr >
     0.999, relu-mask flips <= 1e-3, one launch of the width's library each,
     bit-identical second calls, the weights kernel's plan walked in bounds);
     both kernels at the fine pass from 1 and 3 views timed in turns beside
-    d_hidden 512 on the same inputs (512, 384, 256, 128, 64, 64, 128, 256,
-    384, 512), and the 7-block tower beside the 5-block one (5, 7, 7, 5),
+    d_hidden 512 on the same inputs (512, 384, ..., 200, 320 padded onto
+    384, 192 onto 256, then back), and the 6-block tower
+    beside the 5-block one (5, 6, 6, 5),
     with their plain, library and bound times, and the weights kernel on
     its SM-filled splits and the whole-view splits in turns (filled, whole,
     whole, filled, twice); ``python -m pixelnerf_tpu_torch.train``
     with both heads at d_hidden 384, then 256, then 64 (a conf file
-    including sn64's) for 3 steps each, and with both heads at 7 blocks for
-    2 steps, at -V 1 on the NMR fixture and at -V 3 on the DTU one: remat
+    including sn64's) for 3 steps each, and with both heads at 6 blocks
+    for 2 steps, at -V 1 on the NMR fixture and at -V 3 on the DTU one, at
+    320 and 200 for 2 at -V 1 and at 192 for 2 at -V 3: remat
     off, the forward kernel and both backward kernels twice a step; each
-    width's train step and the 7-block tower's at -V 1 against the plain
-    f32 step (the guards of 9), the 7-block tower's at -V 3 against the
+    width's train step and the 6-block tower's at -V 1 against the plain
+    f32 step (the guards of 9; 320's at -V 3 too), the 6-block
+    tower's at -V 3 against the
     kernels' plain versions on the card under the same AMP (the guards of
-    9; the f32 step's loss and cosines too); and d_hidden 192, 320 and 448
-    towers, which no library is built for, and 8- and 49-block towers, past
+    9; the f32 step's loss and cosines too); and d_hidden 576 and 1024
+    towers, past the widest library, and 7- and 49-block towers, past
     the depth these gates hold, under grad, plain under ``auto`` and
     refused under ``impl='cuda'``;
 19. visuals: ``python -m pixelnerf_tpu_torch.train --fixed_test`` with a
@@ -432,7 +446,7 @@ def replayed(rows, what: str, records=None, code_records=None) -> None:
 def library_tower(z, x, tw, n_blocks):
     """The tower as a chain of cuBLAS bf16 products (bf16 in and out): the
     yardstick for ``library_ms``; the port never calls it."""
-    tw = type(tw)(*(t.bfloat16() for t in tw[:8]), tw.d_in)
+    tw = type(tw)(*(t.bfloat16() for t in tw[:8]), tw.d_in, tw.d_hidden)
     h = torch.addmm(tw.b_in, x.bfloat16(), tw.w_in[: tw.d_in])
     for k in range(n_blocks):
         if k < tw.w_z.shape[0]:
@@ -446,7 +460,7 @@ def library_tower_mv(z, x, tw, n_blocks, NS, combine_layer):
     """The multi-view tower (rows 3-4 of PERF.md) as a cuBLAS bf16 chain:
     per-view rows (NS, B, .) up to ``combine_layer``, their mean, the shared
     tail: the yardstick for ``library_ms``; the port never calls it."""
-    tw = type(tw)(*(t.bfloat16() for t in tw[:8]), tw.d_in)
+    tw = type(tw)(*(t.bfloat16() for t in tw[:8]), tw.d_in, tw.d_hidden)
     h = torch.matmul(x.bfloat16(), tw.w_in[: tw.d_in]) + tw.b_in
     for k in range(n_blocks):
         if k == combine_layer:
@@ -2162,6 +2176,25 @@ def bwd_tower(C: int, d_in: int, dev, seed: int, H: int = 512, nb: int = 5):
     return m, m.tower(dev)
 
 
+@torch.no_grad()
+def padded_twin(mlp, L: int, dev):
+    """The packed tower of ResnetFC ``mlp`` zero-padded to the wider
+    library width L: the same module at d_hidden L, ``mlp``'s parameters in
+    its leading rows and columns and zeros past them, packed as any tower
+    is.  The same function as ``mlp``'s own tower, on L's library."""
+    from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
+
+    wide = ResnetFC(d_in=mlp.d_in, d_out=mlp.d_out, n_blocks=mlp.n_blocks,
+                    d_latent=mlp.d_latent, d_hidden=L, beta=mlp.beta,
+                    combine_layer=mlp.combine_layer, combine_type=mlp.combine_type,
+                    use_spade=mlp.use_spade, impl="cuda").to(dev)
+    own = dict(mlp.named_parameters())
+    for name, prm in wide.named_parameters():
+        prm.zero_()
+        prm[tuple(slice(0, n) for n in own[name].shape)] = own[name]
+    return wide.tower(dev)
+
+
 def bwd_inputs(code, gen, C: int, NS: int, sb: int, B_obj: int):
     """Seeded inputs of the backward kernels at one shape (``gen`` on the
     card): the code ``code`` of points in [-1, 1]^3 and unit view
@@ -2316,15 +2349,17 @@ def backward_yardsticks(tw, x, z, g, data, NS: int, sb: int):
     with torch.enable_grad():
         if NS == 1:
             zl = z.detach().requires_grad_()
-            lout = library_tower(zl, x, rf.Tower(*leaves, d_in), nb)
+            lout = library_tower(zl, x, rf.Tower(*leaves, d_in, tw.d_hidden), nb)
         else:
             zl = by_view(z, NS, sb).detach().requires_grad_()
-            lout = library_tower_mv(zl, by_view(x, NS, sb), rf.Tower(*leaves, d_in), nb, NS, cl)
+            lout = library_tower_mv(zl, by_view(x, NS, sb),
+                                    rf.Tower(*leaves, d_in, tw.d_hidden), nb, NS, cl)
     lib[names[0]] = cuda_ms(lambda: torch.autograd.grad(lout, [zl, *leaves], g, retain_graph=True),
                             5)
     del lout, leaves, zl
     # forward FLOP per output point, the bf16 workspace (written once, read once)
-    f_pt = 2 * H * (NS * (d_in + n_lin_z * C + 2 * pre * H) + 2 * (nb - pre) * H + d_out)
+    Hw = tw.d_hidden  # the tower's own width: below H when zero-padded onto H's library
+    f_pt = 2 * Hw * (NS * (d_in + n_lin_z * C + 2 * pre * Hw) + 2 * (nb - pre) * Hw + d_out)
     ws = sum(tt.numel() * tt.element_size()
              for tt in (data.ws_act, data.ws_cot, data.ws_x, data.ws_z) if tt is not None)
     w_bytes = sum(tt.numel() * tt.element_size() for tt in tw[:8])
@@ -2505,18 +2540,18 @@ def options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_ro
     replayed(calls.check(), "options")
     del calls
 
-    # a tower of a width no library is built for, under cuda: the route
-    # refuses it rather than launching
+    # a tower wider than the widest library, under cuda: the route refuses
+    # it rather than launching
     from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
 
-    odd = ResnetFC(d_in=42, d_out=4, n_blocks=5, d_latent=512, d_hidden=320, combine_layer=3,
+    odd = ResnetFC(d_in=42, d_out=4, n_blocks=5, d_latent=512, d_hidden=576, combine_layer=3,
                    impl="cuda").to(dev)
     try:
         odd._kernel_route((1, 64), dev)
         refused = None
     except ValueError as e:
         refused = str(e)
-    log(f"options: a d_hidden 320 tower under impl='cuda' raises: {refused!r}")
+    log(f"options: a d_hidden 576 tower under impl='cuda' raises: {refused!r}")
     if refused is None:
         raise SystemExit("options: impl='cuda' took a tower outside the kernels' widths")
     del odd
@@ -2648,9 +2683,15 @@ def options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_ro
     log(f"options: phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
-# phase 17: narrower towers (d_hidden 384, 256, 128 and 64) on the forward
-# kernels
+# phase 17: narrower towers (d_hidden 384, 256, 128 and 64), the widths whose
+# warpgroup halves are no whole 64-column pieces (320, 192), each on its
+# own library, and d_hidden 200, zero-padded onto the 256 library, on the
+# forward kernels
 NARROW_H = (384, 256, 128, 64)
+NARROW_KEEP = 1 / 4  # the share of frame 0's points the narrow fields occupy
+NATIVE_H = (320, 192)  # two pieces of 80 columns a warpgroup, one of 96
+PADDED_H = 200  # no library of its own: the next one's (256), its weights zero-padded
+NEW_H = NATIVE_H + (PADDED_H,)
 # the eval CLI's runs at d_hidden 256 with the deferred code: (-P, the
 # kernel each launches: the gather's CODE twin, row 3's)
 NARROW_EVAL = (("0", "resnetfc_fwd_gather_code"), ("0 1 2", "resnetfc_fwd_dense_mv_code"))
@@ -2667,15 +2708,21 @@ def forward_check(tw, tables, code_arrays, gen, case, records, code_records, smi
     kernels on their bf16 latent; with ``twin`` = (its name, the record key
     under which the times are kept, e.g. ("d_hidden 512", ("narrow",
     "h384"), "h512"), its tower, its tables), timed in turns beside it (the
-    twin, this, this, the twin) with their plain, cuBLAS and bound times.
-    Logs a line a variant and exits on a failure."""
+    twin, this, this, the twin) with their plain, cuBLAS and bound times;
+    or a list of such twins, each timed in turns beside it (a native width
+    beside d_hidden 512 and beside itself zero-padded to the next library's
+    width).  A padded tower's FLOP and bound are its own width's
+    (``tw.d_hidden``).  Logs a line a variant and exits on a failure."""
     from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
     from pixelnerf_tpu_torch.ops.grid_sample import bilinear_taps
     from pixelnerf_tpu_torch.ops.replay import agree
 
     kind, NS, sb, B = case
+    twins = [] if twin is None else [twin] if isinstance(twin[0], str) else list(twin)
     dev = tables.device
     H, (n_lin_z, C) = tw.w_in.shape[1], tw.w_z.shape[:2]
+    Hw = tw.d_hidden  # the tower's own width: below H when zero-padded onto H's library
+    width = f"d_hidden {Hw}" + (f" (zero-padded onto the {H} library)" if Hw != H else "")
     nb, cl, d_in, d_out = tw.w_blk.shape[0], 3, tw.d_in, tw.w_out.shape[1]
     T = tables.shape[1]
     side = int(math.isqrt(T))
@@ -2731,7 +2778,7 @@ def forward_check(tw, tables, code_arrays, gen, case, records, code_records, smi
             ok = (d <= bar and corr > 0.999 and bool(torch.isfinite(out).all()) and identical
                   and out.shape == (d_out, B_out) and launched == {variant: 1}
                   and same is not False)
-            line = (f"{label}: {variant} at d_hidden {H}, C = {C} ({rf.latent_pieces(C)} "
+            line = (f"{label}: {variant} at {width}, C = {C} ({rf.latent_pieces(C)} "
                     f"piece{'s' if C > rf.TILE_K else ''} an injection), {shape}: max|d| {d:.6g} "
                     f"(bar {bar:.6g}), corr {corr:.7f}, bit-identical second call {identical}, "
                     f"launches {launched}"
@@ -2739,16 +2786,18 @@ def forward_check(tw, tables, code_arrays, gen, case, records, code_records, smi
                        if gather else ""))
             rec = records[variant] if variant in records else code_records[variant]
             rec["max_abs_err"] = max(rec.get("max_abs_err", 0.0), d)
-            if twin is not None:
-                twin_name, (section, key), twin_key, tw2, tables2 = twin
-                tabs2 = tables2[:NS].contiguous()
-                z2 = lookup(tabs2)
-                t = {"twin": [], "this": []}
-                for which in ("twin", "this", "this", "twin"):
-                    t[which].append(cuda_ms(lambda: call(tw2, tabs2, z2, xi) if which == "twin"
-                                            else call(tw, tabs, z, xi), 3))
-                del z2
-                ms, ms2 = (sum(t[k]) / 2 for k in ("this", "twin"))
+            if twins:
+                ms_turns = []
+                for twin_name, (section, key), twin_key, tw2, tables2 in twins:
+                    tabs2 = tables2[:NS].contiguous()
+                    z2 = lookup(tabs2)
+                    t = {"twin": [], "this": []}
+                    for which in ("twin", "this", "this", "twin"):
+                        t[which].append(cuda_ms(lambda: call(tw2, tabs2, z2, xi) if which == "twin"
+                                                else call(tw, tabs, z, xi), 3))
+                    del z2
+                    ms_turns.append(tuple(sum(t[k]) / 2 for k in ("this", "twin")))
+                ms = sum(m for m, _ in ms_turns) / len(ms_turns)
                 plain_ms = cuda_ms(plain, 2)
                 xl = rf.materialize_code(rc) if xi is rc else x
                 b16 = torch.bfloat16
@@ -2780,24 +2829,25 @@ def forward_check(tw, tables, code_arrays, gen, case, records, code_records, smi
                 lat_bytes = (rows * (idx.shape[1] + w.shape[1]) * 4 + NS * T * C * 2
                              if gather else rows * C * 2)
                 pre = cl if NS > 1 else nb  # blocks each view runs on its own
-                flops = B_out * 2 * H * (NS * (d_in + n_lin_z * C + 2 * pre * H)
-                                         + 2 * (nb - pre) * H + d_out)
+                flops = B_out * 2 * Hw * (NS * (d_in + n_lin_z * C + 2 * pre * Hw)
+                                          + 2 * (nb - pre) * Hw + d_out)
                 extra = (rows * 2 * raw_d * d_in if coded else 0) + (rows * 8 * C if gather else 0)
                 b_ms, b_by = bound(flops + extra, x_bytes + lat_bytes + B_out * d_out * 4 + w_bytes)
-                line += (f"; in turns ({twin_name}, this, this, {twin_name}) {ms:.4f} ms beside "
-                         f"{twin_name}'s {ms2:.4f} ({ms / ms2:.4f}x), {flops / ms / 1e9:.1f} "
-                         f"TFLOP/s, {b_ms / ms:.3f} of the bound; plain_ms {plain_ms:.4f}; "
-                         f"library_ms {library_ms:.4f} (cuBLAS bf16 chain"
-                         f"{', the lookup in torch' if gather else ''}); bound_ms {b_ms:.4f} "
-                         f"({b_by})")
-                rec.setdefault(section, {})[key] = {
-                    "ms": ms, f"{twin_key}_ms_in_turns": ms2, "plain_ms": plain_ms,
-                    "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
-                    "tflops": flops / ms / 1e9, "share_of_bound": b_ms / ms, "points": B_out,
-                    "views": NS, "max_abs_err": d, "corr": corr}
+                for (twin_name, (section, key), twin_key, _, _), (ms1, ms2) in zip(twins, ms_turns):
+                    line += (f"; in turns ({twin_name}, this, this, {twin_name}) {ms1:.4f} ms "
+                             f"beside {twin_name}'s {ms2:.4f} ({ms1 / ms2:.4f}x)")
+                    rec.setdefault(section, {})[key] = {
+                        "ms": ms1, f"{twin_key}_ms_in_turns": ms2, "plain_ms": plain_ms,
+                        "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
+                        "tflops": flops / ms1 / 1e9, "share_of_bound": b_ms / ms1,
+                        "points": B_out, "views": NS, "max_abs_err": d, "corr": corr}
+                line += (f"; {flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the bound; "
+                         f"plain_ms {plain_ms:.4f}; library_ms {library_ms:.4f} (cuBLAS bf16 "
+                         f"chain{', the lookup in torch' if gather else ''}); bound_ms "
+                         f"{b_ms:.4f} ({b_by})")
             log(line + f"; on {smi}")
             if not ok:
-                raise SystemExit(f"{label}: {variant} at d_hidden {H}, C = {C}, {shape} "
+                raise SystemExit(f"{label}: {variant} at {width}, C = {C}, {shape} "
                                  "disagrees with its plain version or missed its launch")
             del out
         del z
@@ -2818,10 +2868,12 @@ def narrow_conf(base, H: int, n_blocks: int = 5):
 
 
 def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nmr_root) -> None:
-    """Phase 17: sn64's conf at d_hidden 384, 256, 128 and 64 on the
-    forward kernels' narrower libraries (see the module docstring); ``net``
-    is the render phases' sn64 model (d_hidden 512), timed beside them in
-    turns."""
+    """Phase 17: sn64's conf at d_hidden 384, 256, 128 and 64, 320 and
+    192, and 200 (zero-padded onto the 256 library) on the forward kernels'
+    narrower libraries (see the module docstring); ``net`` is the render
+    phases' sn64 model (d_hidden 512), timed beside them in turns, and 320
+    and 192 are also timed beside themselves zero-padded onto the next
+    library."""
     import types
 
     from pixelnerf_tpu_torch import entry
@@ -2860,47 +2912,72 @@ def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nm
         return (f"views {list(views)}" + (", dense route" if dense.keys() & env.keys() else "")
                 + (", deferred code" if code.keys() & env.keys() else ""))
 
+    def width(H):  # a padded width names the library the route packs it onto
+        L = rf.library_width(H)
+        return f"{H}" + (f" (on the {L} library, zero-padded)" if L != H else "")
+
     # ---- frame 0 on every route at each width, against the plain route ----
-    confs, models, narrow_launches = {}, {}, {}
+    confs, models, narrow_launches, mv_fg = {}, {}, {}, {}
+    for H in NARROW_H + NEW_H:
+        c = confs[H] = narrow_conf(conf, H)
+        for impl in ("auto", "torch"):
+            models[H, impl] = entry.build_model(c, dev, mlp_impl=impl, seed=SEED)
+        g = torch.Generator().manual_seed(SEED + 1)
+        with torch.no_grad():  # every block live, as the render phases' model
+            for mlp in (models[H, "auto"].mlp_coarse, models[H, "auto"].mlp_fine):
+                for blk in mlp.blocks:
+                    blk.fc_1.weight.copy_(0.02 * torch.randn(blk.fc_1.weight.shape, generator=g))
+            # each head's density shifted so that NARROW_KEEP of frame 0's
+            # points from view 0 are occupied, as the eval CLIs' shaped
+            # field: a seeded head's density can be <= 0 at every point, and
+            # a blank frame is the same on both routes whatever the kernels
+            m = models[H, "auto"]
+            shape_density(m, m.encode(torch.as_tensor(src["images"], device=dev),
+                                      torch.as_tensor(src["poses"], device=dev),
+                                      float(src["focal"])), torch.as_tensor(rays, device=dev),
+                          NARROW_KEEP)
+        models[H, "torch"].load_state_dict(models[H, "auto"].state_dict())
     calls = KernelCalls()
     with calls:
-        for H in NARROW_H:
-            c = confs[H] = narrow_conf(conf, H)
-            for impl in ("auto", "torch"):
-                models[H, impl] = entry.build_model(c, dev, mlp_impl=impl, seed=SEED)
-            g = torch.Generator().manual_seed(SEED + 1)
-            with torch.no_grad():  # every block live, as the render phases' model
-                for mlp in (models[H, "auto"].mlp_coarse, models[H, "auto"].mlp_fine):
-                    for blk in mlp.blocks:
-                        blk.fc_1.weight.copy_(0.02 * torch.randn(blk.fc_1.weight.shape,
-                                                                 generator=g))
-            models[H, "torch"].load_state_dict(models[H, "auto"].state_dict())
+        for H in NARROW_H + NEW_H:
+            c = confs[H]
             for s, views, env, kname in routes:
                 ref, _, la_ref = frame0(models[H, "torch"], c, s, views, env)
                 out, _, la = frame0(models[H, "auto"], c, s, views, env)
-                p = psnr(out, ref)
+                p, fg = psnr(out, ref), foreground(out)
+                # every one-view frame holds the object; from more views the
+                # field is fainter (at d_hidden 192 three views leave no
+                # pixel off white), so one multi-view frame a width must
                 ok = (set(la) == {kname} and not la_ref and bool(torch.isfinite(out).all())
-                      and p >= 40.0)
+                      and p >= 40.0 and (fg > 0 or len(views) > 1))
+                if len(views) > 1:
+                    mv_fg[H] = max(mv_fg.get(H, 0.0), fg)
                 label = label_of(views, env)
                 narrow_launches.setdefault(kname, {})[f"d_hidden {H}, frame 0, {label}"] = la.get(
                     kname, 0)
-                log(f"narrow render: d_hidden {H}, {label}: launches {la} (want {kname}); vs the "
-                    f"plain f32 route {p:.3f} dB (need >= 40); on {smi}")
+                log(f"narrow render: d_hidden {width(H)}, {label}: launches {la} (want {kname}); vs the "
+                    f"plain f32 route {p:.3f} dB (need >= 40); foreground {fg:.4f}"
+                    f"{' (need > 0)' if len(views) == 1 else ''}; on {smi}")
                 if not ok:
-                    raise SystemExit(f"narrow render at d_hidden {H}, {label} missed {kname} or "
-                                     "disagrees with the plain route")
+                    raise SystemExit(f"narrow render at d_hidden {H}, {label} missed {kname}, "
+                                     "disagrees with the plain route or is blank")
+            log(f"narrow render: d_hidden {width(H)}: the most foreground of a multi-view frame "
+                f"{mv_fg[H]:.4f} (need > 0)")
+            if not mv_fg[H] > 0:
+                raise SystemExit(f"narrow render at d_hidden {H}: every multi-view frame is blank")
     replayed(calls.check(), "narrow")
     del calls
 
-    # ---- frame 0 rays/s beside d_hidden 512, in turns (512, H, H, 512) ----
-    for H in NARROW_H:
-        for s, views, env, kname in routes:
+    # ---- frame 0 rays/s beside d_hidden 512, in turns (512, H, H, 512); the
+    # new widths on the encoded code's routes only ----
+    for H in NARROW_H + NEW_H:
+        for s, views, env, kname in routes if H in NARROW_H else routes[:4]:
             t = {512: [], H: []}
             for h in (512, H, H, 512):
                 model, c = (net, conf) if h == 512 else (models[H, "auto"], confs[H])
                 t[h].append(frame0(model, c, s, views, env)[1])
             s512, sH = (sum(t[h]) / 2 for h in (512, H))
-            log(f"narrow render: d_hidden {H}, {label_of(views, env)}: frame 0 (encode "
+            log(f"narrow render: d_hidden {width(H)}, {label_of(views, env)}: frame 0 (encode "
                 f"included) {sH:.4f} s = {RAYS_PER_STEP / sH:.1f} rays/s beside d_hidden 512's "
                 f"{s512:.4f} s = {RAYS_PER_STEP / s512:.1f} rays/s in turns ({s512 / sH:.3f}x); "
                 f"runs {json.dumps({str(k): v for k, v in t.items()})}; on {smi}")
@@ -2909,9 +2986,14 @@ def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nm
     gi = torch.Generator(device=dev).manual_seed(SEED + 17)
     tw512 = net.mlp_fine.tower(dev)
     fine = RAYS_PER_STEP * 96
-    for H in NARROW_H:
+    for H in NARROW_H + NEW_H:
         m = models[H, "auto"]
-        tw = m.mlp_fine.tower(dev)
+        mf = m.mlp_fine
+        tw = mf.tower(dev)
+        padded = None
+        if H in NATIVE_H:  # the same tower zero-padded onto the next library
+            L = rf.HIDDEN[rf.HIDDEN.index(H) + 1]
+            padded = padded_twin(mf, L, dev)
         code_arrays = tuple(torch.from_numpy(a).to(dev) for a in m.code.flat_arrays(tail=3))
         with torch.no_grad():
             scene3 = m.encode(torch.as_tensor(src3["images"], device=dev),
@@ -2920,11 +3002,15 @@ def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nm
         for case in (("gather", 1, 1, fine), ("gather", 1, 1, 2000), ("dense", 1, 1, fine),
                      ("dense", 1, 1, 2000), ("gather_mv", 2, 1, fine), ("gather_mv", 3, 1, 333),
                      ("dense_mv", 3, 1, fine), ("dense_mv", 3, 2, 333)):
-            twin = (("d_hidden 512", ("narrow", f"h{H}"), "h512", tw512, tables3)
-                    if case[3] == fine else None)
+            twin = None
+            if case[3] == fine:
+                twin = [("d_hidden 512", ("narrow", f"h{H}"), "h512", tw512, tables3)]
+                if padded is not None:
+                    twin.append((f"itself padded to {L}", ("narrow", f"h{H}_vs_padded"),
+                                 f"padded{L}", padded, tables3))
             forward_check(tw, tables3, code_arrays, gi, case, records, code_records, smi,
                           "narrow kernel check", twin)
-        del scene3, tables3
+        del scene3, tables3, padded
 
     # ---- the eval CLI at d_hidden 256, deferred code, on the NMR fixture ----
     H = 256  # NARROW_EVAL's width
@@ -2973,7 +3059,8 @@ def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nm
 
 
 # phase 18: rows 5a / 5b at the narrower widths (d_hidden 384, 256, 128 and
-# 64) and past 5 blocks
+# 64; 320 and 192; 200, zero-padded onto the 256 library) and past 5
+# blocks
 # the gates' shapes (NS, SB, B_obj): a ragged B from 1 and 3 views (the last
 # 64-point tile half full) and the train step's fine pass (4 x 12,288)
 NARROW_BWD_SHAPES = ((1, 2, 1000), (3, 2, 333), (1, 4, 128 * 96), (3, 4, 128 * 96))
@@ -2981,27 +3068,31 @@ NARROW_BWD_SHAPES = ((1, 2, 1000), (3, 2, 333), (1, 4, 128 * 96), (3, 4, 128 * 9
 # on the ragged shapes: the global encoder's 640 (2 pieces, 5 dz steps an
 # injection at 128, 2 at 384) and the ConvEncoder's 128
 NARROW_BWD_C = (640, 128)
-# the deep tower: sn64's with both heads at 7 blocks, the deepest the route
+# the deep tower: sn64's with both heads at 6 blocks, the deepest the route
 # rule trains on the kernels (resnetfc_vjp.GRAD_MAX_BLOCKS)
-DEEP_BLOCKS = 7
+DEEP_BLOCKS = 6
 # the train CLI's runs: (what, the heads' conf keys, their d_hidden and
 # n_blocks, -V, -F, steps)
 NARROW_TRAIN = tuple(
     (f"d_hidden {H}", f"d_hidden = {H}", H, 5, nviews, fmt, 3)
     for H in (384, 256, 64) for nviews, fmt in ((1, "dvr"), (3, "dvr_dtu"))) + tuple(
+    (f"d_hidden {H}", f"d_hidden = {H}", H, 5, nviews, fmt, 2)
+    for H, nviews, fmt in ((320, 1, "dvr"), (192, 3, "dvr_dtu"), (PADDED_H, 1, "dvr"))) + tuple(
     (f"{DEEP_BLOCKS} blocks", f"n_blocks = {DEEP_BLOCKS}", 512, DEEP_BLOCKS, nviews, fmt, 2)
     for nviews, fmt in ((1, "dvr"), (3, "dvr_dtu")))
 
 
 def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
     """Phase 18: rows 5a / 5b on the narrower libraries and past 5 blocks
-    (see the module docstring): the gates at d_hidden 384, 256, 128 and 64
-    and at 7 blocks, the kernels' times at the train step's fine pass in
-    turns beside d_hidden 512 (and 5 blocks), the train CLI at d_hidden 384,
-    256 and 64 and at 7 blocks on the backward kernels, each one's -V 1
-    train step against the plain f32 step (the 7-block -V 3 one against the
-    kernels' plain versions), and the widths and depths outside the
-    envelope kept plain."""
+    (see the module docstring): the gates at d_hidden 384, 256, 128 and 64,
+    320 and 192 and 200 (zero-padded onto the 256 library), and at 6
+    blocks, the kernels' times at the train step's fine pass in turns beside
+    d_hidden 512 (and 5 blocks; 320 and 192 also beside themselves
+    zero-padded onto the next library), the train CLI at d_hidden 384, 256,
+    64, 320, 192 and 200 and at 6 blocks on the backward kernels, each
+    width's -V 1 train step against the plain f32 step (320's at -V 3 too;
+    the 6-block -V 3 one against the kernels' plain versions), and
+    the widths and depths outside the envelope kept plain."""
     from pixelnerf_tpu_torch.models.code import PositionalEncoding
     from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
     from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
@@ -3015,9 +3106,15 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
     gi = torch.Generator(device=dev).manual_seed(SEED + 18)
     names = ("resnetfc_bwd_data", "resnetfc_bwd_weights")
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    towers = {(H, C): bwd_tower(C, d_in, dev, SEED + 18 + H + C, H)[1]
-              for H in (512,) + NARROW_H
-              for C in (512,) + (NARROW_BWD_C if H in (128, 384) else ())}
+    mods = {(H, C): bwd_tower(C, d_in, dev, SEED + 18 + H + C, H)
+            for H in (512,) + NARROW_H + NEW_H
+            for C in (512,) + (NARROW_BWD_C if H in (128, 384) else ())}
+    towers = {k: tw for k, (_, tw) in mods.items()}
+    # each of those widths zero-padded onto the next library
+    padded = {}
+    for H in NATIVE_H:
+        padded[H] = padded_twin(mods[H, 512][0], rf.HIDDEN[rf.HIDDEN.index(H) + 1], dev)
+    del mods
     deep = bwd_tower(512, d_in, dev, SEED + 19, 512, DEEP_BLOCKS)[1]
     if DEEP_BLOCKS != rv.GRAD_MAX_BLOCKS:
         raise SystemExit(f"the deep gates ({DEEP_BLOCKS} blocks) must hold the route rule's "
@@ -3025,11 +3122,12 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
 
     # ---- gates: C = 512 at each narrower width from 1 and 3 views, ragged
     # B and the train step's fine pass; C = 640 and 128 at d_hidden 128 and
-    # 384; sn64's widths at 7 blocks ----
+    # 384; sn64's widths at 6 blocks ----
     for (H, C), tw in towers.items():
         if H == 512:
             continue
-        for NS, sb, B_obj in NARROW_BWD_SHAPES[: 4 if C == 512 else 2]:
+        # the padded width on the ragged shapes: its library is 256's
+        for NS, sb, B_obj in NARROW_BWD_SHAPES[: 4 if C == 512 and H != PADDED_H else 2]:
             x, z, g = bwd_inputs(code, gi, C, NS, sb, B_obj)
             backward_gate(tw, x, z, g, NS, sb, n_sms, records,
                           f"narrow backward check d_hidden {H}, C = {C} (sn64's depth)")
@@ -3039,7 +3137,7 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
         backward_gate(deep, x, z, g, NS, sb, n_sms, records,
                       f"deep backward check: {DEEP_BLOCKS} blocks at sn64's widths")
         del x, z, g
-    for H in NARROW_H:  # the same depth at each narrower width, ragged B
+    for H in NARROW_H + NATIVE_H:  # the same depth at each narrower library, ragged B
         tw = bwd_tower(512, d_in, dev, SEED + 19 + H, H, DEEP_BLOCKS)[1]
         for NS, sb, B_obj in NARROW_BWD_SHAPES[:2]:
             x, z, g = bwd_inputs(code, gi, 512, NS, sb, B_obj)
@@ -3049,52 +3147,59 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
         del tw
 
     # ---- times at the train step's fine pass, d_hidden in turns beside 512 ----
-    widths = (512,) + NARROW_H
+    # every width, and each native one's padded twin ("<H>p")
+    runs_w = {H: towers[H, 512] for H in (512,) + NARROW_H + NEW_H}
+    runs_w.update({f"{H}p": tw for H, tw in padded.items()})
+    widths = tuple(runs_w)
     for NS in (1, 3):
         sb, B_obj = 4, 128 * 96
         kw = dict(NS=NS, sb=sb, combine_layer=cl) if NS > 1 else {}
         B, rows = sb * B_obj, NS * sb * B_obj
         x, z, g = bwd_inputs(code, gi, 512, NS, sb, B_obj)  # the same inputs at every width
-        data = {H: rv.bwd_data(g, z, x, towers[H, 512], nb, False, **kw) for H in widths}
+        data = {H: rv.bwd_data(g, z, x, runs_w[H], nb, False, **kw) for H in widths}
         t = {H: {n: [] for n in names} for H in widths}
         for H in widths + widths[::-1]:  # in turns
-            tw, dH = towers[H, 512], data[H]
+            tw, dH = runs_w[H], data[H]
             t[H][names[0]].append(cuda_ms(lambda: rv.bwd_data(g, z, x, tw, nb, False, **kw), 5))
             t[H][names[1]].append(cuda_ms(lambda: rv.bwd_weights(z, dH, tw, nb), 5))
         ms = {H: {n: sum(v) / len(v) for n, v in t[H].items()} for H in widths}
-        for H in NARROW_H:
+        for H in NARROW_H + NEW_H:
             tw, dH = towers[H, 512], data[H]
-            kin = tw.w_in.shape[0]
+            (kin, Hl), L = tw.w_in.shape, f"{H}p"  # Hl: the library's width (256 at 200)
             plain, lib, bounds, flops = backward_yardsticks(tw, x, z, g, dH, NS, sb)
             # the weights kernel on the SM-filled splits and on the whole-view
             # splits (the split rule's choice before narrow towers), in turns
             # through the same launch
-            lim = rv.kernel_limits(H)
-            tasks = rv.weight_tasks(kin, H, 512, nb, 3, NS, dH.pre, B)
-            plans = {"filled": rv.weight_plan(kin, H, 512, nb, 3, NS, dH.pre, B, lim, n_sms),
-                     "whole": rv.weight_plan(kin, H, 512, nb, 3, NS, dH.pre, B, lim, n_sms,
+            lim = rv.kernel_limits(Hl)
+            tasks = rv.weight_tasks(kin, Hl, 512, nb, 3, NS, dH.pre, B)
+            plans = {"filled": rv.weight_plan(kin, Hl, 512, nb, 3, NS, dH.pre, B, lim, n_sms),
+                     "whole": rv.weight_plan(kin, Hl, 512, nb, 3, NS, dH.pre, B, lim, n_sms,
                                              pts=rv.split_points(tasks, lim.max_splits))}
             split_ms = {k: [] for k in plans}
             for k in ("filled", "whole", "whole", "filled") * 2:
                 split_ms[k].append(cuda_ms(lambda: rv._launch_weights(
-                    z, dH, plans[k], kin, H, 512, nb, 3, d_out), 5))
+                    z, dH, plans[k], kin, Hl, 512, nb, 3, d_out), 5))
             split_ms = {k: sum(v) / len(v) for k, v in split_ms.items()}
             filled, whole = plans["filled"], plans["whole"]
             for n in names:
                 b_ms, b_by = bounds[n]
                 extra = ""
                 if n == names[1]:
-                    ctas = sum(sp * rv.weight_tiles(tk, H, lim)
+                    ctas = sum(sp * rv.weight_tiles(tk, Hl, lim)
                                for sp, tk in zip(filled.table[4::6], tasks))
                     extra = (f"; {filled.tiles} output tiles in splits of {filled.pts} points "
                              f"({ctas} CTAs on {n_sms} SMs); in turns {split_ms['filled']:.4f} "
                              f"ms on these splits, {split_ms['whole']:.4f} on the whole-view "
                              f"splits of {whole.pts} points "
                              f"({split_ms['whole'] / split_ms['filled']:.3f}x)")
-                log(f"narrow backward time: {n} at d_hidden {H}, C = 512, -V {NS}, {B} output "
+                log(f"narrow backward time: {n} at d_hidden {H}"
+                    + (f" (zero-padded onto the {Hl} library)" if Hl != H else "")
+                    + f", C = 512, -V {NS}, {B} output "
                     f"points{f' ({rows} rows)' if NS > 1 else ''}: in turns {ms[H][n]:.4f} ms "
                     f"beside {ms[512][n]:.4f} at d_hidden 512 ({ms[H][n] / ms[512][n]:.4f}x)"
                     + (f", {ms[128][n]:.4f} at d_hidden 128" if H == 256 else "")
+                    + (f", {ms[L][n]:.4f} zero-padded onto the {padded[H].w_in.shape[1]} "
+                       f"library ({ms[H][n] / ms[L][n]:.4f}x)" if L in ms else "")
                     + f"; {flops[n] / ms[H][n] / 1e9:.1f} TFLOP/s; "
                     f"plain_ms {plain[n]:.4f}; library_ms {lib[n]:.4f} ("
                     + ("autograd backward of the cuBLAS chain" if n == names[0]
@@ -3105,6 +3210,8 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
                            plain_ms=plain[n], library_ms=lib[n], bound_ms=b_ms, bound_by=b_by,
                            tflops=flops[n] / ms[H][n] / 1e9,
                            share_of_bound=b_ms / ms[H][n])
+                if L in ms:
+                    rec[f"padded{padded[H].w_in.shape[1]}_ms_in_turns"] = ms[L][n]
                 if n == names[1]:
                     rec.update(pts=filled.pts, whole_view_pts=whole.pts,
                                filled_ms_in_turns=split_ms["filled"],
@@ -3138,7 +3245,7 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
                        tflops=flops[n] / ms_n / 1e9, share_of_bound=b_ms / ms_n)
         del data, data_deep, runs, x, z, g
 
-    # ---- the train CLI at d_hidden 384, 256 and 64 and at 7 blocks on the
+    # ---- the train CLI at d_hidden 384, 256 and 64 and at 6 blocks on the
     # backward kernels ----
     narrow_launches = {}
     restore = _env({"PIXELNERF_ALLOW_RANDOM_BACKBONE": "1"})  # no backbone weights here
@@ -3172,7 +3279,8 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
                   and la[fwd] >= 2 * n_steps and la[fwd] % 2 == 0)
             label = f"{what} -V {nviews} on -F {fmt}"
             log(f"narrow train path: python -m pixelnerf_tpu_torch.train -c conf/exp/sn64.conf + "
-                f"{keys} -F {fmt} -B 4 -V {nviews} -R 128: {n_steps} steps in {wall:.3f} "
+                f"{keys} -F {fmt} -B 4 -V {nviews} -R 128 (the {rf.library_width(H)} library): "
+                f"{n_steps} steps in {wall:.3f} "
                 f"s, {step_ms:.3f} ms a step after the first; remat {trainer.remat}; launches "
                 f"{la} (want {fwd} and both backward kernels twice a step, {fwd} twice more a "
                 f"validation batch); losses {[round(v, 5) for v in trainer.history]}; on {smi}")
@@ -3190,9 +3298,12 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
 
     # ---- each width's and the deep tower's train step against the plain f32
     # step ----
-    for H in NARROW_H:
+    for H in NARROW_H + NEW_H:
         c = narrow_conf(conf, H)
-        step_parity(c, live_state(c, dev), 1, dev, f"narrow d_hidden {H}")
+        state = live_state(c, dev)
+        step_parity(c, state, 1, dev, f"narrow d_hidden {H}")
+        if H == NATIVE_H[0]:
+            step_parity(c, state, 3, dev, f"narrow d_hidden {H}")
     c = narrow_conf(conf, 512, DEEP_BLOCKS)
     state = live_state(c, dev)
     step_parity(c, state, 1, dev, f"deep {DEEP_BLOCKS} blocks")
@@ -3204,7 +3315,7 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
     # ---- widths outside the envelope, and towers deeper than the gates
     # above hold, stay plain under grad (the deep ones keep the forward
     # kernels) ----
-    for H, depth in ((192, nb), (320, nb), (448, nb), (512, rv.GRAD_MAX_BLOCKS + 1), (512, 49)):
+    for H, depth in ((576, nb), (1024, nb), (512, rv.GRAD_MAX_BLOCKS + 1), (512, 49)):
         odd = ResnetFC(d_in=d_in, d_out=4, n_blocks=depth, d_latent=512, d_hidden=H,
                        combine_layer=cl, impl="auto").to(dev)
         plain = odd._kernel_route((1, 64), dev, grad=True) is False
@@ -4809,11 +4920,11 @@ def main() -> None:
         with torch.enable_grad():
             if NS == 1:
                 zl = z.detach().requires_grad_()
-                lout = library_tower(zl, x, rf.Tower(*leaves, tw.d_in), nb)
+                lout = library_tower(zl, x, rf.Tower(*leaves, tw.d_in, tw.d_hidden), nb)
             else:
                 zl = by_view(z, NS, sb).detach().requires_grad_()
-                lout = library_tower_mv(zl, by_view(x, NS, sb), rf.Tower(*leaves, tw.d_in), nb,
-                                        NS, cl)
+                lout = library_tower_mv(zl, by_view(x, NS, sb),
+                                        rf.Tower(*leaves, tw.d_in, tw.d_hidden), nb, NS, cl)
         library_ms = cuda_ms(
             lambda: torch.autograd.grad(lout, [zl, *leaves], g, retain_graph=True), 5)
         del lout, leaves, zl

@@ -3,7 +3,8 @@
 // shared-memory matrix descriptors for 128-byte-swizzled bf16 tiles
 // (MN-major and K-major) and 64-byte-swizzled ones (MN-major), the
 // async-proxy fence, and warpgroup matrix multiplies (wgmma m64n256k16,
-// m64n192k16, m64n128k16, m64n64k16 and m64n32k16) with f32 accumulators.
+// m64n192k16, m64n160k16, m64n128k16, m64n96k16, m64n80k16,
+// m64n64k16 and m64n32k16) with f32 accumulators.
 //
 // Self-contained (no CUTLASS, no other header of this package), so that any
 // kernel of the port can take it as it is.  The host side builds a TMA
@@ -30,7 +31,13 @@
 //   so such a box starts at a 512-byte-aligned address.  Read MN-major, one
 //   swizzle atom is 32 elements of M/N x 8 of K: the stride byte offset is
 //   the step between 8-row groups along K (512 B), and a k16 step advances
-//   the start address by 16 rows (1024 B).
+//   the start address by 16 rows (1024 B);
+// - a TMA box of 16 bf16 columns (32 B) x R rows, loaded with
+//   CU_TENSOR_MAP_SWIZZLE_32B, lands as R rows of 32 B, the two 16-byte
+//   chunks of row r swapped when (r / 4) % 2 = 1; the pattern repeats every
+//   256 B.  Read MN-major, one swizzle atom is 16 elements of M/N x 8 of K:
+//   the stride byte offset is 256 B, and a k16 step advances the start
+//   address by 16 rows (512 B).
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums only: no driver function is linked
@@ -122,6 +129,15 @@ __device__ __forceinline__ uint64_t desc_sw64(const void* p, uint32_t lbo_bytes,
   const uint64_t a = smem_u32(p);
   return ((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16) |
          ((uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32) | (2ull << 62);
+}
+
+// descriptor of a 32-byte-swizzled operand tile at `p` (256-byte aligned up
+// to the k16 offset), byte offsets as in the notes above
+__device__ __forceinline__ uint64_t desc_sw32(const void* p, uint32_t lbo_bytes,
+                                              uint32_t sbo_bytes) {
+  const uint64_t a = smem_u32(p);
+  return ((a & 0x3FFFF) >> 4) | ((uint64_t)((lbo_bytes >> 4) & 0x3FFF) << 16) |
+         ((uint64_t)((sbo_bytes >> 4) & 0x3FFF) << 32) | (3ull << 62);
 }
 
 __device__ __forceinline__ void wgmma_fence() {
@@ -233,6 +249,36 @@ __device__ __forceinline__ void wgmma_m64n192k16(float (&d)[96], uint64_t desc_a
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
+// d (64 x 160 f32, 80 a thread) = A (64 x 16) . B (16 x 160) + (scale_d ? d :
+// 0), both operands bf16 in shared memory; TA / TB = 1 for MN-major
+// operands.  Accumulator i of thread t of the warpgroup holds row
+// 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (t % 4) + i % 2.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n160k16(float (&d)[80], uint64_t desc_a,
+                                                 uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %82, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63,"
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79"
+      "}, %80, %81, p, 1, 1, %83, %84;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63]),
+        "+f"(d[64]), "+f"(d[65]), "+f"(d[66]), "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]),
+        "+f"(d[72]), "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]), "+f"(d[79])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
 // d (64 x 128 f32, 64 a thread) = A (64 x 16) . B (16 x 128) + (scale_d ? d :
 // 0), both operands bf16 in shared memory; TA / TB = 1 for MN-major
 // operands.  Accumulator i of thread t of the warpgroup holds row
@@ -257,6 +303,53 @@ __device__ __forceinline__ void wgmma_m64n128k16(float (&d)[64], uint64_t desc_a
         "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (64 x 96 f32, 48 a thread) = A (64 x 16) . B (16 x 96) + (scale_d ? d :
+// 0), both operands bf16 in shared memory; TA / TB = 1 for MN-major
+// operands.  Accumulator i of thread t of the warpgroup holds row
+// 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (t % 4) + i % 2.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n96k16(float (&d)[48], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %50, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n96k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47"
+      "}, %48, %49, p, 1, 1, %51, %52;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// d (64 x 80 f32, 40 a thread) = A (64 x 16) . B (16 x 80) + (scale_d ? d :
+// 0), both operands bf16 in shared memory; TA / TB = 1 for MN-major
+// operands.  Accumulator i of thread t of the warpgroup holds row
+// 16 (t / 32) + (t % 32) / 4 + 8 ((i / 2) % 2), column 8 (i / 4) + 2 (t % 4) + i % 2.
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_m64n80k16(float (&d)[40], uint64_t desc_a,
+                                                uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %42, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39"
+      "}, %40, %41, p, 1, 1, %43, %44;\n"
+      "}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
 }
 
@@ -343,7 +436,8 @@ inline EncodeTiledFn encode_tiled_fn() {
 
 // A row-major bf16 matrix (rows x cols, row stride ld elements) read in
 // boxes of box_rows x box_cols columns, box_cols 64 (a 128-byte row, the
-// 128-byte swizzle) or 32 (a 64-byte row, the 64-byte swizzle); rows and
+// 128-byte swizzle), 32 (a 64-byte row, the 64-byte swizzle) or 16 (a
+// 32-byte row, the 32-byte swizzle); rows and
 // columns past the extent read as zeros.  base must be 16-byte aligned and
 // ld a multiple of 8.  Returns a cudaError_t.
 inline int encode_bf16(CUtensorMap* map, const void* base, uint64_t rows, uint64_t cols,
@@ -351,7 +445,7 @@ inline int encode_bf16(CUtensorMap* map, const void* base, uint64_t rows, uint64
   EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   if ((reinterpret_cast<uintptr_t>(base) & 15) != 0 || ld % 8 != 0 || rows == 0 || cols == 0 ||
-      (box_cols != 64 && box_cols != 32))
+      (box_cols != 64 && box_cols != 32 && box_cols != 16))
     return (int)cudaErrorInvalidValue;
   const cuuint64_t dims[2] = {cols, rows};
   const cuuint64_t strides[1] = {ld * 2};
@@ -359,7 +453,9 @@ inline int encode_bf16(CUtensorMap* map, const void* base, uint64_t rows, uint64
   const cuuint32_t estr[2] = {1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 2, const_cast<void*>(base), dims,
                         strides, box, estr, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        box_cols == 64 ? CU_TENSOR_MAP_SWIZZLE_128B : CU_TENSOR_MAP_SWIZZLE_64B,
+                        box_cols == 64   ? CU_TENSOR_MAP_SWIZZLE_128B
+                        : box_cols == 32 ? CU_TENSOR_MAP_SWIZZLE_64B
+                                         : CU_TENSOR_MAP_SWIZZLE_32B,
                         CU_TENSOR_MAP_L2_PROMOTION_L2_256B, CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? (int)cudaSuccess : (int)cudaErrorInvalidValue;
 }

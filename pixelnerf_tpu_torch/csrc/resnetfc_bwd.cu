@@ -61,23 +61,26 @@
 //   HID columns of every layer for all 64 points (its share of the f32
 //   stream or of its cotangent in HID / 4 registers a thread: 128 at sn64's
 //   512); thread 0 also keeps the weight ring fed.  HID is the library's
-//   tower width (-DRFC_HID: 64, 128, 256, 384 or 512, one library each, as
+//   tower width (-DRFC_HID: every multiple of 64 up to 512 but 448, one library each, as
 //   the forward's; the numbers here are 512's).  A producer warp would cost
 //   registers: a ninth warp leaves three warps on one SM quarter's 16 K
 //   registers, 168 a thread, and setmaxnreg did not lift ptxas' allocation
 //   past the launch bound's 168;
 // - every product is the tile's wgmma pieces (m64n128k16; m64n64k16 at
-//   HID 128 and, three a warpgroup, at 384; m64n32k16 at 64): operand A a
+//   HID 128 and, three a warpgroup, at 384; m64n32k16 at 64; m64n96k16 at
+//   192; two m64n80k16 at 320): operand A a
 //   64 x 512 bf16 tile in shared memory (act or hb), K-major with the
 //   128-byte swizzle, written by the threads from their accumulators and
 //   published to the async proxy (fence.proxy.async + a CTA barrier);
 //   operand B 64 x 64 TMA boxes of the packed row-major weights through a
 //   96 KB full / empty mbarrier ring (3 stages of 32 KB; 6 of 16 KB at HID
-//   128 and 384, 12 of 8 KB at 64): MN-major for
+//   128 and 384, 12 of 8 KB at 64, 4 of 24 KB at 192, 4 of 20 KB at 320):
+//   MN-major for
 //   x W, and the same boxes K-major for dh W^T, so no transposed copy of a
-//   weight exists.  At HID 64 a warpgroup's piece is 32 columns: x W reads
-//   64 x 32 boxes (64-byte swizzle), dh W^T 32 x 64 boxes of W's rows, each
-//   through a tensor map of its own (m_zt, m_blkt);
+//   weight exists.  Where a piece is not whole 64-column boxes (HID 64,
+//   192, 320) x W reads 64 x 32 boxes (64-byte swizzle; 64 x 16, the
+//   32-byte swizzle, at 320), dh W^T 32 x 64 (16 x 64) boxes of W's
+//   rows, each through a tensor map of its own (m_zt, m_blkt);
 // - the tile's work is a program of steps (data_program) that every thread
 //   walks and thread 0 also walks ahead to feed the ring;
 // - the walk back's relu masks, the r_k and s_k planes just stashed, come
@@ -122,8 +125,10 @@
 // step's fine pass reads its workspace once, 1.18 GB at -V 1 and 2.4 GiB at
 // -V 3 (0.35 and 0.82 ms at 3.35 TB/s), against 3.4e11 and 8.1e11 FLOP (0.34
 // and 0.81 ms at 989 TFLOP/s).  Its design: 128 x WT_N output tiles (WT_N =
-// min(256, HID), 192 at HID 384), each one m64n256k16 product per consumer
-// warpgroup (m64n192k16 at HID 384, m64n128k16 at 128), both operands
+// min(256, HID), 192 at HID 384, 160 at 320), each one m64n256k16 product
+// per consumer warpgroup (m64n192k16 at HID 384 and 192, m64n160k16 at 320,
+// m64n128k16 at 128, m64n64k16 at 64),
+// both operands
 // MN-major (the
 // planes are (points, width) row-major and the product sums over points)
 // straight from 128-byte-swizzled TMA boxes of 64 points, so no thread
@@ -161,7 +166,8 @@ using namespace rfc;
 // at any view count: one view's recompute and walk back, the shared steps;
 // two more an injection at 512 < C <= 1024, fourteen at 3584 < C <= 4096
 // (8 pieces each way); seven more an injection at HID 64, three at HID 128,
-// one at HID 256 and at 384, C = 512; 235 at HID 64 and C = 3904)
+// one at HID 256 and at 384, two at 192, C = 512; 235 at HID 64 and C =
+// 3904)
 constexpr int D_MAX_STEPS = 256;
 // f32 words of one CTA's view-sum slot (multi-view): every thread's share of
 // the 64 x HID stream
@@ -473,7 +479,7 @@ __device__ __forceinline__ void feed(const BwdParams& q, Ring& rg, int slot) {
   if (f.tile < n_tiles) {
     const Gemm op = piece_gemm_of<true>(d_prog[f.g], q.t.kin, q.t.C);
     const CUtensorMap* m = op.map == 0 ? &q.m_in : op.map == 1 ? &q.m_z : &q.m_blk;
-    // at HID 64 the walk back reads 32 x 64 boxes, through maps of their own
+    // below 64-column boxes the walk back reads W_BOX_COLS x 64 boxes, through maps of their own
     if (W_BOX_COLS < 64 && op.trans) m = op.map == 1 ? &q.m_zt : &q.m_blkt;
     hopper::mbar_arrive_expect_tx(&d_full[slot], STAGE_BYTES);
     unsigned char* dst = rg.base + slot * STAGE_BYTES;
@@ -925,18 +931,22 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
 
 constexpr int WT_M = 128;  // output tile: rows of dW (two warpgroups of 64)
 // output tile: columns of dW, one m64n256 product (m64n192 at HID 384, two
-// column tiles; m64n128 at HID 128, m64n64 at 64: the blocks' dW is HID x
-// HID)
-constexpr int WT_N = HID < 256 ? HID : HID % 256 == 0 ? 256 : 192;
-static_assert(HID % WT_N == 0, "dW's columns are whole output tiles");
+// column tiles; m64n192 at 192, m64n128 at 128, m64n64 at 64: the blocks' dW
+// is HID x HID; m64n160 at 320, two column tiles)
+constexpr int WT_N = HID <= 256 ? HID : HID % 256 == 0 ? 256 : HID % 192 == 0 ? 192 : HID / 2;
+static_assert(HID % WT_N == 0 && WT_N % 32 == 0, "dW's columns are whole output tiles");
 constexpr int WK = 64;     // points per k-step: one TMA box is 64 columns x 64 points
 constexpr int W_STAGES = 4;
 constexpr int W_THREADS = 384;  // warpgroups 0-1 consume, warpgroup 2 produces
 constexpr int W_CONSUMERS = 256;
 constexpr uint32_t W_BOX = WK * 128;            // bytes of one 64 x 64 bf16 box
 constexpr uint32_t W_STAGE_A = 2 * W_BOX;       // A: 64 points x 128 columns
-constexpr int W_G_BOXES = WT_N / 64;            // G: 64 points x WT_N columns
-constexpr uint32_t W_STAGE = W_STAGE_A + W_G_BOXES * W_BOX;
+// G: 64 points x WT_N columns, in boxes of 64 columns (128-byte swizzle), or
+// of 32 (64-byte swizzle) where 64 does not divide WT_N (160)
+constexpr int W_G_COLS = WT_N % 64 == 0 ? 64 : 32;
+constexpr uint32_t W_G_BOX = WK * W_G_COLS * 2;
+constexpr int W_G_BOXES = WT_N / W_G_COLS;
+constexpr uint32_t W_STAGE = W_STAGE_A + W_G_BOXES * W_G_BOX;
 constexpr size_t W_SMEM = (size_t)W_STAGES * W_STAGE + 1024;  // + alignment slack
 // The tensor maps and the task table of a launch lie in device memory (the
 // plan's WTable, copied there once per plan), so that the kernel's
@@ -999,20 +1009,23 @@ struct WPlan {
 // take.  A GEMM CTA runs one (tile, split): warpgroup 2's first thread
 // streams the split's points through a W_STAGES ring with TMA (full / empty
 // mbarriers); warpgroups 0 and 1 each multiply one 64-row half of the A tile
-// by the whole G tile with wgmma m64n256k16 (m64n192k16 at WT_N 192,
-// m64n128k16 at 128, m64n64k16 at 64), both
-// operands MN-major from
-// 128-byte-swizzled boxes.  A tile of one split writes bf16 directly;
+// by the whole G tile with wgmma m64n256k16 (m64n192k16, m64n160k16,
+// m64n128k16 or m64n64k16 at those WT_N), both operands MN-major from
+// 128-byte-swizzled boxes (G's 64-byte-swizzled at WT_N 160).  A tile of one split writes bf16 directly;
 // otherwise each split writes its f32 partial and the last CTA of the tile
 // sums them in split order.
 // One k16 step of a consumer's product: m64n256k16 at 128 accumulators a
-// thread, m64n192k16 at 96 (WT_N 192), m64n128k16 at 64 (WT_N 128),
-// m64n64k16 at 32 (WT_N 64); both operands MN-major.
+// thread, m64n192k16 at 96 (WT_N 192),
+// m64n160k16 at 80 (WT_N 160), m64n128k16 at 64 (WT_N 128), m64n64k16 at 32
+// (WT_N 64); both operands MN-major.
 __device__ __forceinline__ void wt_mma(float (&d)[128], uint64_t a, uint64_t b) {
   hopper::wgmma_m64n256k16<1, 1>(d, a, b, 1);
 }
 __device__ __forceinline__ void wt_mma(float (&d)[96], uint64_t a, uint64_t b) {
   hopper::wgmma_m64n192k16<1, 1>(d, a, b, 1);
+}
+__device__ __forceinline__ void wt_mma(float (&d)[80], uint64_t a, uint64_t b) {
+  hopper::wgmma_m64n160k16<1, 1>(d, a, b, 1);
 }
 __device__ __forceinline__ void wt_mma(float (&d)[64], uint64_t a, uint64_t b) {
   hopper::wgmma_m64n128k16<1, 1>(d, a, b, 1);
@@ -1088,7 +1101,7 @@ __global__ void __launch_bounds__(W_THREADS, 1)
         hopper::tma_load_2d(a + W_BOX, am, &full[st], m0 + 64, p);
 #pragma unroll
         for (int j = 0; j < W_G_BOXES; ++j)
-          hopper::tma_load_2d(a + W_STAGE_A + j * W_BOX, gm, &full[st], n0 + 64 * j, p);
+          hopper::tma_load_2d(a + W_STAGE_A + j * W_G_BOX, gm, &full[st], n0 + W_G_COLS * j, p);
       }
     }
   } else {  // consumers: rows 64 wg .. 64 wg + 63 of the tile
@@ -1103,9 +1116,10 @@ __global__ void __launch_bounds__(W_THREADS, 1)
       const unsigned char* g = ring + st * W_STAGE + W_STAGE_A;
       hopper::wgmma_fence();
 #pragma unroll
-      for (int kk = 0; kk < WK / 16; ++kk)  // 16 points = 16 rows of 128 B
+      for (int kk = 0; kk < WK / 16; ++kk)  // 16 points = 16 rows of 128 B (G: of 64 B at 32 columns)
         wt_mma(acc, hopper::desc_sw128(a + kk * 2048, W_BOX, 1024),
-               hopper::desc_sw128(g + kk * 2048, W_BOX, 1024));
+               W_G_COLS == 64 ? hopper::desc_sw128(g + kk * 2048, W_G_BOX, 1024)
+                              : hopper::desc_sw64(g + kk * 1024, W_G_BOX, 512));
       hopper::wgmma_commit();
       hopper::wgmma_wait<1>();  // step i - 1's products have read their stage
       if (i > 0) hopper::mbar_arrive(&empty[(i - 1) % W_STAGES]);
@@ -1299,9 +1313,19 @@ int resnetfc_bwd_weights_plan(void* plan, const void* const* bases, const int* d
   // unused maps and tasks of the table copied to the card
   WPlan w = {};
   WParams& q = w.head;
+  // a map read as G takes G's boxes (W_G_COLS columns), one read as A 64
+  // columns; at W_G_COLS 32 no map may be both
+  uint8_t role[MAX_MAPS] = {};  // bit 0: read as A, bit 1: read as G
+  for (int t = 0; t < n_tasks; ++t) {
+    const int* d = tasks + 6 * t;
+    if (d[0] < 0 || d[0] >= n_maps || d[1] < 0 || d[1] >= n_maps) return (int)cudaErrorInvalidValue;
+    role[d[0]] |= 1;
+    role[d[1]] |= 2;
+  }
   for (int k = 0; k < n_maps; ++k) {
-    const int err = hopper::encode_bf16_sw128(&w.table.maps[k], bases[k], dims[3 * k],
-                                              dims[3 * k + 1], dims[3 * k + 2], WK);
+    if (W_G_COLS != 64 && role[k] == 3) return (int)cudaErrorInvalidValue;
+    const int err = hopper::encode_bf16(&w.table.maps[k], bases[k], dims[3 * k], dims[3 * k + 1],
+                                        dims[3 * k + 2], WK, role[k] == 2 ? W_G_COLS : 64);
     if (err != 0) return err;
   }
   int tiles = 0, units = 0, n_splits = 0;

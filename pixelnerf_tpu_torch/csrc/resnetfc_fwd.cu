@@ -28,12 +28,15 @@
 // - one CTA of two warpgroups a 64-point tile, each warpgroup owning half of
 //   the tower's HID columns of the f32 stream in registers (256 of 512 at
 //   sn64); every product is wgmma pieces (m64n128k16; m64n64k16 at HID 128
-//   and, three a warpgroup, at 384; m64n32k16 at 64) with operand A a 64 x
+//   and, three a warpgroup, at 384; m64n32k16 at 64; m64n96k16 at 192; two
+//   m64n80k16 at 320) with operand A a 64 x
 //   512 bf16 swizzled tile in shared memory (the code, the latent, relu(x)
 //   or relu(fc_0)) and operand B 64 x 64 TMA boxes of the packed row-major
-//   weights (MN-major for x W; at HID 64 each warpgroup's own 64 x 32 box,
-//   64-byte swizzled) through a ring of 96 KB (3 stages of 32 KB; 6 of 16 KB
-//   at HID 128 and 384, 12 of 8 KB at 64).  Each warpgroup keeps its
+//   weights (MN-major for x W; where a piece is not whole 64-column boxes,
+//   each warpgroup's 64 x 32 boxes, 64-byte swizzled, or 64 x 16, 32-byte
+//   swizzled, at 320) through a ring of 96 KB (3 stages of 32 KB; 6 of 16
+//   KB at HID 128 and 384, 12 of 8 KB at 64, 4 of 24 KB at 192, 4 of 20 KB
+//   at 320).  Each warpgroup keeps its
 //   own half of every stage (the boxes of its piece) fed: its first thread
 //   refills the half as soon as the warpgroup's four warps have read it (one
 //   arrival a warp), so neither warpgroup waits for the other's.  A tile
@@ -54,8 +57,8 @@
 //   at C <= 512 the program and its bits are those of one piece;
 // - lin_out (d_out <= 4) stays on the CUDA cores, a warp a point;
 // - no atomics: two calls on the same inputs give the same bits.
-// - the tower's width HID is the library's (-DRFC_HID: 64, 128, 256, 384 or
-//   512, one library each); the operand tiles keep their 512 columns at
+// - the tower's width HID is the library's (-DRFC_HID: every multiple of 64
+//   up to 512 but 448, one library each); the operand tiles keep their 512 columns at
 //   every width, so the code and a latent piece do not shrink with it.  A
 //   narrower tower streams fewer weight bytes a tile (0.61x at 384, 0.31x
 //   at 256, 0.11x at 128, 0.04x at 64 at sn64's other widths) and runs its
@@ -148,9 +151,9 @@ constexpr int F_MAX_GATHER_C = MAX_C;
 constexpr int F_SLOT_FLOATS = TILE_STREAM * TILE_THREADS;
 // lin_out: the columns of t a lane sums (16 at HID 512), read 8 at a time
 // (16 bytes; 4 at HID 128 and 384, whose 12 a lane are three reads of 4; 2
-// at 64)
+// at 64, 192 and 320: 1, 3 and 5 reads of 2)
 constexpr int OUT_COLS = HID / 32;
-constexpr int OUT_VEC = OUT_COLS % 8 == 0 ? 8 : OUT_COLS % 4 == 0 ? 4 : OUT_COLS;
+constexpr int OUT_VEC = OUT_COLS % 8 == 0 ? 8 : OUT_COLS % 4 == 0 ? 4 : 2;
 static_assert(OUT_COLS % OUT_VEC == 0 && (OUT_VEC == 8 || OUT_VEC == 4 || OUT_VEC == 2),
               "a lane's columns of t are whole reads");
 

@@ -9,14 +9,16 @@
 //   residual stream (or of its cotangent) in HID / 4 registers a thread;
 // - every product is wgmma pieces of TILE_PIECE columns (m64n128k16, two a
 //   warpgroup at HID 512, one at 256; m64n64k16, three at 384, one at 128;
-//   m64n32k16, one at 64): operand A a 64 x 512 bf16 tile in shared memory,
+//   m64n32k16, one at 64; at 192 and 320, whose halves of 96 and 160
+//   columns are no whole 64-column pieces, one m64n96k16 and two
+//   m64n80k16): operand A a 64 x 512 bf16 tile in shared memory,
 //   K-major with the 128-byte swizzle (hopper::sw128_offset), written by the
 //   threads from their accumulators (put2) and published to the async proxy
 //   (publish);
 //   operand B TMA boxes of 64 K rows of the packed row-major weights (64
-//   columns, 128-byte swizzle; at HID 64 a warpgroup's own 32 columns,
-//   64-byte swizzle: W_BOX_COLS) through a ring of RING_STAGES stages, 96 KB
-//   in all at every width;
+//   columns, 128-byte swizzle; where a piece is not whole 64-column boxes,
+//   32 columns, 64-byte swizzle, or 16, 32-byte swizzle: W_BOX_COLS)
+//   through a ring of RING_STAGES stages, at most 96 KB in all;
 // - a tile's work is a program of steps (Kind, step) whose products read
 //   their weights as gemm_of says.  At NS views the steps of one view are
 //   stored once and walked NS times, the walk position carrying the view
@@ -66,14 +68,19 @@ typedef __nv_bfloat16 bf16;
 
 // The tower's width (d_hidden): the N of every product, the f32 stream, the
 // bias strides and the weights' rows.  One library is built for each width,
-// with -DRFC_HID=<width>; every config in conf/ uses 512, ResnetFC's default
-// is 128.
+// with -DRFC_HID=<width>: every multiple of 64 up to 512 but 448 (every
+// config in conf/ uses 512, ResnetFC's default is 128).  A tower of any
+// other width up to 512 runs on the next library's, its weights zero-padded
+// to that width (ops/resnetfc_fused.py, library_width).  448 has no library
+// of its own: its pieces (seven of 32 columns a warpgroup; two of 112
+// spilled) ran slower than the same tower padded onto 512's.
 #ifndef RFC_HID
 #define RFC_HID 512
 #endif
 constexpr int HID = RFC_HID;
-static_assert(HID == 64 || HID == 128 || HID == 256 || HID == 384 || HID == 512,
-              "the tile takes d_hidden 64, 128, 256, 384 or 512");
+static_assert(HID == 64 || HID == 128 || HID == 192 || HID == 256 || HID == 320 || HID == 384 ||
+                  HID == 512,
+              "the tile takes d_hidden 64, 128, 192, 256, 320, 384 or 512");
 // The operand tile's K capacity, the same at every HID: the widest code, and
 // the widest piece of a latent (so sn64's C = 512 latent is one piece at any
 // tower width).
@@ -181,36 +188,58 @@ constexpr int TILE_THREADS = 256;
 // of 64 columns, wgmma m64n64k16, and a ring of 6 stages of 16 KB; at 384
 // three such pieces a warpgroup, the same ring; at 64 one piece of 32
 // columns, wgmma m64n32k16, from one 64 x 32 box a warpgroup, and a ring of
-// 12 stages of 8 KB)
+// 12 stages of 8 KB; at 192 one
+// piece of 96 columns, wgmma m64n96k16, from three 64 x 32 boxes a
+// warpgroup, and a ring of 4 stages of 24 KB; at 320 two pieces of 80,
+// m64n80k16, each five 64 x 16 boxes (the 32-byte swizzle), and a ring of
+// 4 stages of 20 KB)
 constexpr int TILE_HALF = HID / 2;  // columns a warpgroup owns: 256
 // columns of one product: 128 where they divide a warpgroup's half, else 64
-// (a half of 192 at HID 384 is three pieces of 64), or the whole half below
-// 64
-constexpr int TILE_PIECE = TILE_HALF % 128 == 0 ? 128 : TILE_HALF < 64 ? TILE_HALF : 64;
-static_assert(TILE_HALF % TILE_PIECE == 0, "a warpgroup's half is whole pieces");
-// a weight box's columns: 64 (128 bytes, the 128-byte swizzle), or a
-// warpgroup's whole 32-column piece at HID 64 (64 bytes, the 64-byte swizzle)
-constexpr int W_BOX_COLS = TILE_PIECE < 64 ? TILE_PIECE : 64;
-constexpr uint32_t W_BOX_BYTES = 64 * W_BOX_COLS * 2;  // 64 rows of K: 8 KB (4 KB at HID 64)
-constexpr int TILE_BPW = TILE_PIECE / W_BOX_COLS;  // weight boxes a warpgroup a stage: 2
-constexpr int TILE_NP = TILE_HALF / TILE_PIECE;  // pieces a warpgroup: 2 (3 at HID 384)
+// (a half of 192 at HID 384 is three pieces of 64), else the whole half up
+// to 128 (32 at HID 64, 96 at 192), else half of it (80 at 320).  Fewer
+// and larger stages than pieces of 32 (the per-stage waits, not the FLOP,
+// set a narrow tile's time) where the registers allow: a piece of 160 at
+// 320 spilled the multi-view data kernel (its 255 registers)
+constexpr int TILE_PIECE = TILE_HALF % 128 == 0 ? 128
+                           : TILE_HALF % 64 == 0 ? 64
+                           : TILE_HALF <= 128    ? TILE_HALF
+                                                 : TILE_HALF / 2;
+static_assert(TILE_HALF % TILE_PIECE == 0 && TILE_PIECE % 16 == 0,
+              "a warpgroup's half is whole pieces of whole boxes");
+// a weight box's columns: 64 (128 bytes, the 128-byte swizzle) where they
+// divide a piece, else 32 (64 bytes, the 64-byte swizzle), else 16 (32
+// bytes, the 32-byte swizzle)
+constexpr int W_BOX_COLS = TILE_PIECE % 64 == 0 ? 64 : TILE_PIECE % 32 == 0 ? 32 : 16;
+constexpr uint32_t W_BOX_BYTES = 64 * W_BOX_COLS * 2;  // 64 rows of K: 8 KB (4 / 2 KB at 32 / 16 columns)
+constexpr int TILE_BPW = TILE_PIECE / W_BOX_COLS;  // weight boxes a warpgroup a stage: 2 (3 at 192, 5 at 320)
+constexpr int TILE_NP = TILE_HALF / TILE_PIECE;  // pieces a warpgroup: 2 (3 at HID 384; 1 at 256, 128, 64, 192)
 constexpr int TILE_ACC = TILE_PIECE * TILE_PTS / 128;  // f32 accumulators a thread a piece: 64
 constexpr int TILE_STREAM = TILE_NP * TILE_ACC;        // a thread's share of a 64 x HID stream: 128
 constexpr uint32_t BOX_BYTES = 64 * 128;  // a 64 x 64 bf16 box of an operand tile (latent, masks)
 constexpr uint32_t STAGE_BYTES = 2 * TILE_BPW * W_BOX_BYTES;  // 64 of K x the two warpgroups' pieces
-// 96 KB of weights in flight at every width: 3 stages, 6 at HID 128 and 384,
-// 12 at 64
+// 96 KB of weights in flight: 3 stages, 6 at HID 128 and 384, 12 at 64, 4
+// at 192 and 320
 constexpr int RING_STAGES = 3 * 32768 / STAGE_BYTES;
+static_assert(RING_STAGES >= 2, "the ring holds a stage being read and one being loaded");
 constexpr uint32_t TILE_BYTES = TILE_PTS * TILE_K * 2;        // a 64 x 512 bf16 operand tile
 constexpr size_t TILE_SMEM = 2 * TILE_BYTES + (size_t)RING_STAGES * STAGE_BYTES + 1024;  // + alignment
 
 constexpr int TILE_MAX_OUT = 4;  // outputs of lin_out the tile kernels take (d_out 4 in every config)
 
 // One k16 step of a piece's product: wgmma m64n128k16 at 64 accumulators a
-// thread, m64n64k16 at 32 (HID 128 and 384), m64n32k16 at 16 (HID 64).
+// thread, m64n64k16 at 32 (HID 128 and 384), m64n32k16 at 16 (HID 64),
+// m64n96k16 at 48 (HID 192), m64n80k16 at 40 (HID 320).
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_piece(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
   hopper::wgmma_m64n128k16<TA, TB>(d, a, b, scale_d);
+}
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_piece(float (&d)[48], uint64_t a, uint64_t b, int scale_d) {
+  hopper::wgmma_m64n96k16<TA, TB>(d, a, b, scale_d);
+}
+template <int TA, int TB>
+__device__ __forceinline__ void wgmma_piece(float (&d)[40], uint64_t a, uint64_t b, int scale_d) {
+  hopper::wgmma_m64n80k16<TA, TB>(d, a, b, scale_d);
 }
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_piece(float (&d)[32], uint64_t a, uint64_t b, int scale_d) {
@@ -222,17 +251,19 @@ __device__ __forceinline__ void wgmma_piece(float (&d)[16], uint64_t a, uint64_t
 }
 
 // Operand B of k16 step kk of a stage, x W: a warpgroup's weight boxes of
-// the stage at `b`, read MN-major (64 K rows of W_BOX_COLS columns each; at
-// TILE_BPW 2 the second box is the piece's next 64 columns).
+// the stage at `b`, read MN-major (64 K rows of W_BOX_COLS columns each; box
+// j holds the piece's columns j W_BOX_COLS.., the leading byte offset).
 __device__ __forceinline__ uint64_t w_desc(const unsigned char* b, int kk) {
   if (W_BOX_COLS == 64) return hopper::desc_sw128(b + kk * 2048, W_BOX_BYTES, 1024);
-  return hopper::desc_sw64(b + kk * 1024, W_BOX_BYTES, 512);
+  if (W_BOX_COLS == 32) return hopper::desc_sw64(b + kk * 1024, W_BOX_BYTES, 512);
+  return hopper::desc_sw32(b + kk * 512, W_BOX_BYTES, 256);
 }
 
 // The tensor map of a packed (rows, HID) row-major weight array as the
 // products read it: boxes of 64 K rows x W_BOX_COLS columns (x W), or, walked
 // back (B = W^T, read K-major), W_BOX_COLS rows (the product's columns) x 64
-// K columns, 128-byte swizzled.  At HID >= 128 both are 64 x 64 boxes.
+// K columns, 128-byte swizzled, a piece's boxes one after another (its rows
+// in order).  At 64-column boxes both are 64 x 64 boxes.
 inline int encode_weights(CUtensorMap* map, const void* w, uint64_t rows, bool walk_back) {
   return walk_back ? hopper::encode_bf16(map, w, rows, HID, HID, W_BOX_COLS, 64)
                    : hopper::encode_bf16(map, w, rows, HID, HID, 64, W_BOX_COLS);

@@ -131,22 +131,24 @@ class ResnetFC(nn.Module):
     # ------------------------------------------------------------------
     def check_kernel_widths(self, NS: int = 1, grad: bool = False, gather: bool = False) -> None:
         """Raise ValueError on widths a kernel of this call does not take:
-        the forward's at NS views (H = 64, 128, 256, 384 or 512, a library
-        each; kin and C multiples of 16, kin <= 512, C <= 4096 in pieces of
-        512; the stored program's steps: 62 blocks at sn64's other widths
-        and one view); with ``gather`` (a LatentGather latent) also the
-        gathers' table width (C <= 4096); under ``grad`` also the
-        backward's (the same widths H, a library each; the data kernel's
-        widths and program: C <= 4096 as the forward's, kin <= 128, 49
-        blocks at sn64's other widths, and at H = 64 the walk back's H dz
-        columns a step: 3904 fits sn64's three injections, not four; the
+        the forward's at NS views (H from 1 to 512 on the library of
+        ``rf.library_width(H)``: every multiple of 64 but 448 has its own,
+        any other width runs zero-padded on the next one's; kin and C multiples of 16,
+        kin <= 512, C <= 4096 in pieces of 512; the stored program's steps:
+        62 blocks at sn64's other widths and one view); with ``gather`` (a
+        LatentGather latent) also the gathers' table width (C <= 4096);
+        under ``grad`` also the backward's (the same library; the data
+        kernel's widths and program: C <= 4096 as the forward's, kin <= 128,
+        49 blocks at sn64's other widths, and at H = 64 the walk back's H
+        dz columns a step: 3904 fits sn64's three injections, not four; the
         weights kernel's plan, which holds every tower the forward's program
         does; and the depth the card's gates hold, ``GRAD_MAX_BLOCKS``: 7
-        blocks).  Reads only the Python mirrors of the width's limits."""
+        blocks).  Reads only the Python mirrors of the library's limits."""
         kin = max(-(-self.d_in // 16) * 16, 16)
         C = self.d_latent if self.n_lin_z > 0 else 0
-        lim = rf.tile_limits(self.d_hidden)
-        rf.check_dense_widths(kin, self.d_hidden, C, self.n_lin_z, self.n_blocks, self.d_out, lim)
+        H = rf.library_width(self.d_hidden)  # the packed width (pack_tower)
+        lim = rf.tile_limits(H)
+        rf.check_dense_widths(kin, H, C, self.n_lin_z, self.n_blocks, self.d_out, lim)
         if gather and self.n_lin_z > 0:
             rf._check_gather_width(C, lim)
         pre = self.n_blocks
@@ -159,15 +161,14 @@ class ResnetFC(nn.Module):
             if rf.dense_steps(self.n_blocks, self.n_lin_z, NS, pre, C) > lim.max_steps:
                 raise ValueError(f"the multi-view kernels store at most {lim.max_steps} steps")
         if grad:
-            dlim = rfv.DATA_LIMITS[self.d_hidden]
-            rfv.check_data_widths(kin, self.d_hidden, C, self.n_lin_z, self.n_blocks, self.d_out,
-                                  dlim)
+            dlim = rfv.DATA_LIMITS[H]
+            rfv.check_data_widths(kin, H, C, self.n_lin_z, self.n_blocks, self.d_out, dlim)
             rfv.check_data_program(self.n_blocks, self.n_lin_z, NS, pre, dlim, C)
             rfv.check_grad_depth(self.n_blocks)
             # the maps and products do not depend on the split; 64 points
             # split by whole views on any card (an H100's 132 SMs here)
-            rfv.weight_plan(kin, self.d_hidden, C, self.n_blocks, self.n_lin_z, NS, pre, 64,
-                            rfv.WEIGHT_LIMITS[self.d_hidden], 132)
+            rfv.weight_plan(kin, H, C, self.n_blocks, self.n_lin_z, NS, pre, 64,
+                            rfv.WEIGHT_LIMITS[H], 132)
 
     def _kernel_route(self, combine_inner_dims, device: torch.device, grad: bool = False,
                       gather: bool = False) -> bool:

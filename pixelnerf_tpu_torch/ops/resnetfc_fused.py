@@ -24,10 +24,12 @@ global encoder's code before the pixel latent, 640; ResNet50's unified map,
 columns in pieces of :data:`TILE_K` = 512 (:func:`latent_pieces`), the last
 one ragged; the gathers build the same pieces from their table, to
 ``max_gather_c`` = 4096.  The tower's width is a compile-time constant
-of the tile: one library is built for each width in :data:`HIDDEN` (64,
-128, 256, 384, 512; ``-DRFC_HID``), and each launch takes the library of
-its tower's width, ``w_in.shape[1]`` -- the backward's too
-(:mod:`.resnetfc_vjp`).
+of the tile: one library is built for each width in :data:`HIDDEN` (every
+multiple of 64 up to 512 but 448; ``-DRFC_HID``), and each launch takes the library
+of its packed width, ``w_in.shape[1]`` -- the backward's too
+(:mod:`.resnetfc_vjp`).  A tower of any other width up to 512 is packed at
+the next library's width (:func:`library_width`), its weights zero past its
+own columns, which computes the same function (:func:`pack_tower`).
 :data:`TILE_LIMITS` mirrors each library's limits for the route rule, which
 must not build it.
 
@@ -86,10 +88,14 @@ NVCC_FLAGS = (
 # what one CTA may ask for on Hopper (227 KB of the SM's 256 KB)
 MAX_SMEM_BYTES = 232448
 # the hidden widths the kernels are built for, one forward and one backward
-# library each (every config in conf/ uses 512; ResnetFC's default is 128; 64
-# is the width the JAX package's own kernel tests run under grad; 384 is a
-# warpgroup's 192 columns in three pieces of 64)
-HIDDEN = (64, 128, 256, 384, 512)
+# library each: every multiple of 64 up to 512 but 448 (every config in
+# conf/ uses 512; ResnetFC's default is 128; 64 is the width the JAX
+# package's own kernel tests run under grad; 384 is a warpgroup's 192
+# columns in three pieces of 64; 192 and 320 are a warpgroup's 96 and 160 in
+# one piece and two of 80).  Any other width up to 512 runs on the next
+# one's library, zero-padded (library_width): 448 on 512's, which ran faster
+# than a library of its own (pieces of 32 columns)
+HIDDEN = (64, 128, 192, 256, 320, 384, 512)
 # the operand tile's K capacity at every width: the widest code, and the
 # widest piece of a latent (``TILE_K`` in ``csrc/tile64.cuh``)
 TILE_K = 512
@@ -188,7 +194,9 @@ def coords(x) -> torch.Tensor:
 
 class Tower(NamedTuple):
     """ResnetFC weights packed for the kernels: (in, out) row-major matrices,
-    bf16 on the card and f32 on the CPU; biases f32."""
+    bf16 on the card and f32 on the CPU; biases f32.  H is the packed width,
+    a library's (:func:`library_width` of the module's ``d_hidden``): every
+    entry past ``d_hidden`` columns (and rows) is zero."""
 
     w_in: torch.Tensor  # (kin, H), rows >= d_in zero
     b_in: torch.Tensor  # (H,)
@@ -199,6 +207,7 @@ class Tower(NamedTuple):
     w_out: torch.Tensor  # (H, d_out)
     b_out: torch.Tensor  # (d_out,)
     d_in: int
+    d_hidden: int  # the module's width (H, or less when zero-padded)
 
 
 def supports(beta: float, use_spade: bool, combine_type: str) -> bool:
@@ -210,47 +219,69 @@ def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
 
 
+def library_width(H: int) -> int:
+    """The width of the library a tower of width H runs on: the narrowest
+    in :data:`HIDDEN` that is at least H (H itself at a multiple of 64).
+    Raises ValueError past 512, the widest library, and below 1."""
+    for L in HIDDEN:
+        if 1 <= H <= L:
+            return L
+    raise ValueError(f"the tile kernels take d_hidden 1 to {HIDDEN[-1]}, on the libraries of "
+                     f"{HIDDEN} (H={H})")
+
+
 def pack_tower(params: dict, d_in: int, d_latent: int, n_blocks: int, n_lin_z: int,
                device) -> Tower:
     """Pack torch-layout ResnetFC parameters (``lin_in.weight`` (O, I) ...)
-    for the kernels.  ``params`` maps state-dict names to tensors."""
+    for the kernels.  ``params`` maps state-dict names to tensors.
+
+    A tower of width H is packed at ``L = library_width(H)``, every entry
+    past H zero: the columns of w_in, b_in, w_z and b_z, the
+    rows and columns of w_blk and b_blk's entries, the rows of w_out.  That
+    is the same function: the padded columns of the stream start at relu(+0)
+    = +0 and only ever add products with zero weights, and zero rows of
+    w_out and of every W read them; in the backward their cotangent is zero,
+    so dz, dx and the first H rows and columns of every dW are the unpadded
+    ones (:class:`.resnetfc_vjp.ResnetFCFunction` hands back those)."""
     device = torch.device(device)
     wdt = torch.bfloat16 if device.type == "cuda" else torch.float32
 
-    def mat(name):  # (O, I) -> (I, O)
-        return params[name].detach().to(device=device, dtype=torch.float32).t()
+    def packed(name, *shape):  # f32, (O, I) -> (I, O), zero-padded to ``shape``
+        t = params[name].detach().to(device=device, dtype=torch.float32)
+        t = t.t() if t.ndim == 2 else t
+        out = torch.zeros(shape, device=device)
+        out[tuple(slice(0, n) for n in t.shape)] = t
+        return out
 
-    def vec(name):
-        return params[name].detach().to(device=device, dtype=torch.float32)
-
-    H = params["lin_out.weight"].shape[1]
+    H, d_out = params["lin_out.weight"].shape[1], params["lin_out.weight"].shape[0]
+    L = library_width(H)
     kin = max(_round_up(d_in, 16), 16)
-    w_in = torch.zeros(kin, H, device=device, dtype=torch.float32)
-    b_in = torch.zeros(H, device=device, dtype=torch.float32)
+    w_in = torch.zeros(kin, L, device=device, dtype=torch.float32)
+    b_in = torch.zeros(L, device=device, dtype=torch.float32)
     if d_in > 0:
-        w_in[:d_in] = mat("lin_in.weight")
-        b_in = vec("lin_in.bias")
+        w_in[:d_in] = packed("lin_in.weight", d_in, L)
+        b_in = packed("lin_in.bias", L)
     C = max(d_latent, 0)
     if n_lin_z > 0:
-        w_z = torch.stack([mat(f"lin_z.{k}.weight") for k in range(n_lin_z)])
-        b_z = torch.stack([vec(f"lin_z.{k}.bias") for k in range(n_lin_z)])
+        w_z = torch.stack([packed(f"lin_z.{k}.weight", C, L) for k in range(n_lin_z)])
+        b_z = torch.stack([packed(f"lin_z.{k}.bias", L) for k in range(n_lin_z)])
     else:
-        w_z = torch.zeros(0, C, H, device=device)
-        b_z = torch.zeros(0, H, device=device)
+        w_z = torch.zeros(0, C, L, device=device)
+        b_z = torch.zeros(0, L, device=device)
     w_blk = torch.stack([
-        torch.stack([mat(f"blocks.{k}.fc_0.weight"), mat(f"blocks.{k}.fc_1.weight")])
+        torch.stack([packed(f"blocks.{k}.fc_{i}.weight", L, L) for i in (0, 1)])
         for k in range(n_blocks)
     ])
     b_blk = torch.stack([
-        torch.stack([vec(f"blocks.{k}.fc_0.bias"), vec(f"blocks.{k}.fc_1.bias")])
+        torch.stack([packed(f"blocks.{k}.fc_{i}.bias", L) for i in (0, 1)])
         for k in range(n_blocks)
     ])
     return Tower(
         w_in=w_in.to(wdt).contiguous(), b_in=b_in.contiguous(),
         w_z=w_z.to(wdt).contiguous(), b_z=b_z.contiguous(),
         w_blk=w_blk.to(wdt).contiguous(), b_blk=b_blk.contiguous(),
-        w_out=mat("lin_out.weight").to(wdt).contiguous(), b_out=vec("lin_out.bias"),
-        d_in=d_in,
+        w_out=packed("lin_out.weight", L, d_out).to(wdt).contiguous(),
+        b_out=packed("lin_out.bias", d_out), d_in=d_in, d_hidden=H,
     )
 
 
@@ -550,31 +581,31 @@ class DenseLimits(NamedTuple):
 def piece_cols(H: int) -> int:
     """Columns of one product piece at width H (``TILE_PIECE`` in
     ``csrc/tile64.cuh``): 128 where they divide a warpgroup's H / 2 columns,
-    else 64 (three pieces of H = 384's 192), or the whole half below 64."""
+    else 64 (three pieces of H = 384's 192), else the whole half up to 128
+    (32 at 64, 96 at 192), else half of it (80 at 320)."""
     half = H // 2
-    return 128 if half % 128 == 0 else min(half, 64)
+    return 128 if half % 128 == 0 else 64 if half % 64 == 0 else half if half <= 128 else half // 2
 
 
 def ring_stage_bytes(H: int) -> int:
     """Bytes of one weight-ring stage at width H (``STAGE_BYTES`` in
     ``csrc/tile64.cuh``): 64 K rows of one piece of each warpgroup
-    (:func:`piece_cols`), in boxes of 64 columns (a piece of 32 at H = 64
-    is one box of its own width)."""
-    piece = piece_cols(H)
-    box_cols = min(piece, 64)
-    return 2 * (piece // box_cols) * 64 * box_cols * 2
+    (:func:`piece_cols`), bf16."""
+    return 2 * piece_cols(H) * 64 * 2
 
 
 def _mirror(H: int) -> DenseLimits:
     """The limits of the library built at width H, from the tile's constants
     (``csrc/tile64.cuh``): each warpgroup owns H / 2 columns in pieces of at
     most 128, so a thread's share of the stream (the view-sum slot) is H / 4
-    f32; 96 KB of weight ring at every width (3 stages of 32 KB, 6 of 16 KB at
-    H = 128 and 384, 12 of 8 KB at 64); two 64 KB operand tiles."""
+    f32; the stages that a 96 KB weight ring holds (3 of 32 KB, 6 of 16 KB at
+    H = 128 and 384, 12 of 8 KB at 64, 4 of 24 KB at 192, 4 of 20 KB at
+    320); two 64 KB operand tiles."""
     stage = ring_stage_bytes(H)
-    return DenseLimits(tile=64, threads=256, stages=3 * 32768 // stage, max_out=4, max_steps=128,
+    stages = 3 * 32768 // stage
+    return DenseLimits(tile=64, threads=256, stages=stages, max_out=4, max_steps=128,
                        max_k=TILE_K, slot_floats=H // 4 * 256,
-                       smem=2 * 65536 + 3 * 32768 + 1024, plan_bytes=448, max_c=8 * TILE_K,
+                       smem=2 * 65536 + stages * stage + 1024, plan_bytes=448, max_c=8 * TILE_K,
                        hidden=H, max_gather_c=8 * TILE_K)
 
 
@@ -586,11 +617,9 @@ TILE_LIMITS = {H: _mirror(H) for H in HIDDEN}
 
 
 def tile_limits(H: int) -> DenseLimits:
-    """The mirrored limits of the library of width H; raises ValueError for
-    a width no library is built for."""
-    if H not in TILE_LIMITS:
-        raise ValueError(f"the tile kernels take d_hidden {HIDDEN} (H={H})")
-    return TILE_LIMITS[H]
+    """The mirrored limits of the library a tower of width H runs on
+    (:func:`library_width`); raises ValueError past 512."""
+    return TILE_LIMITS[library_width(H)]
 
 
 @functools.lru_cache(maxsize=None)
@@ -633,8 +662,8 @@ def dense_grid(B: int, limits: DenseLimits) -> int:
 def check_dense_widths(kin: int, H: int, C: int, n_lin_z: int, n_blocks: int, d_out: int,
                        limits: DenseLimits) -> None:
     """Raise ValueError on widths ``resnetfc_fwd_dense`` does not take: H
-    other than the library's (``limits.hidden``: 64, 128, 256, 384 or 512,
-    one library each; 192, 320 and 448 have none); kin not a multiple of 16
+    (the packed width) other than the library's (``limits.hidden``: every
+    multiple of 64 up to 512 but 448, one library each); kin not a multiple of 16
     or past ``limits.max_k``; with a latent, C not a multiple of 16 or past
     ``limits.max_c``; more
     injections than blocks; more outputs than ``limits.max_out``; a program

@@ -20,9 +20,11 @@ NS > 1 views (object-major rows, as in :mod:`.resnetfc_fused`):
   bounds them); :func:`resnetfc_bwd` runs both, or the plain backward for CPU
   tensors.  On a CUDA tensor they launch or raise; there is no fallback.
   As the forward's, the backward's library is built once for each tower
-  width of :data:`~.resnetfc_fused.HIDDEN` (64, 128, 256, 384, 512;
+  width of :data:`~.resnetfc_fused.HIDDEN` (every multiple of 64 up to 512
+  but 448;
   ``-DRFC_HID``), and a launch takes the library of ``tower.w_in.shape[1]``
-  (:func:`_lib`);
+  (:func:`_lib`), the packed width: a tower of another width runs zero-padded
+  on the next library's (:func:`~.resnetfc_fused.pack_tower`);
   :data:`DATA_LIMITS` and :data:`WEIGHT_LIMITS` mirror each library's
   limits for the route rule.
 * :func:`weight_tasks` is the weights kernel's table of products (which
@@ -351,9 +353,11 @@ class KernelLimits(NamedTuple):
 
 def weight_tile_n(H: int) -> int:
     """The weights kernel's output-tile columns at width H (``WT_N`` in
-    ``csrc/resnetfc_bwd.cu``): the blocks' dW is H x H, so H below 256, 256
-    where it divides H, else 192 (two column tiles at H = 384)."""
-    return H if H < 256 else 256 if H % 256 == 0 else 192
+    ``csrc/resnetfc_bwd.cu``): the blocks' dW is H x H, so H up to 256, 256
+    where it divides H, else 192 where it does (two column tiles at H =
+    384), else H / 2 (two column tiles of 160 at 320, whose G boxes are 32
+    columns)."""
+    return H if H <= 256 else 256 if H % 256 == 0 else 192 if H % 192 == 0 else H // 2
 
 
 # What each width's library reports (kernel_limits), mirrored for the route
@@ -725,12 +729,11 @@ def _data_mirror(H: int) -> DataLimits:
     """The data kernel's limits in the library of width H, from the tile's
     constants (``csrc/tile64.cuh``), as :func:`~.resnetfc_fused._mirror`
     reads the forward's: a thread's share of the 64 x H stream is H / 4 f32
-    (the slot), 96 KB of weight ring (3 stages of 32 KB, 6 of 16 KB at H =
-    128 and 384, 12 of 8 KB at 64), two 64 KB operand tiles."""
+    (the slot), the forward's weight ring (:func:`~.resnetfc_fused._mirror`),
+    two 64 KB operand tiles."""
     lim = rf.TILE_LIMITS[H]
     return DataLimits(tile=64, threads=256, slot_floats=lim.slot_floats, stages=lim.stages,
-                      max_out=4, max_steps=256, max_c=4096, smem=2 * 65536 + 3 * 32768 + 1024,
-                      hidden=H)
+                      max_out=4, max_steps=256, max_c=4096, smem=lim.smem, hidden=H)
 
 
 # What each width's library reports (data_limits), mirrored as WEIGHT_LIMITS is.
@@ -793,12 +796,13 @@ def check_data_program(n_blocks: int, n_lin_z: int, NS: int, pre: int, limits: D
 # chip_smoke.py's phase 18 holds rows 5a / 5b against their plain versions
 # at this depth (sn64's widths, 1 and 3 views, ragged and full).  The data
 # kernel's program holds 49 blocks and the weights kernel's table 62, and
-# past 7 blocks the kernels still meet the bar against their plain versions
-# on their own operands (to 49 blocks on an H100), but bf16's own drift
-# through the deeper tower takes the gate's comparison with an independent
-# plain backward (corr > 0.999) past its bar from 9 blocks at 3 views
-# (PERF.md section 7).
-GRAD_MAX_BLOCKS = 7
+# deeper towers still meet the bar against their plain versions on their own
+# operands (to 49 blocks on an H100), but bf16's own drift through the deeper
+# tower takes the gate's comparison with an independent plain backward (corr
+# > 0.999) past its bar: at 7 blocks and 3 views in 2 of 24 seeded towers and
+# inputs, at 6 in none (scripts/torch_deep_checks.py --draws; PERF.md
+# section 7).
+GRAD_MAX_BLOCKS = 6
 
 
 def check_grad_depth(n_blocks: int) -> None:
@@ -811,9 +815,10 @@ def check_grad_depth(n_blocks: int) -> None:
 
 def check_data_widths(kin: int, H: int, C: int, n_lin_z: int, n_blocks: int, d_out: int,
                       limits: DataLimits) -> None:
-    """Raise ValueError on widths ``resnetfc_bwd_data`` does not take: H other
-    than the library's (``limits.hidden``: 64, 128, 256, 384 or 512, one
-    library each); with a latent, C not a multiple of 16 in [16,
+    """Raise ValueError on widths ``resnetfc_bwd_data`` does not take: H (the
+    packed width) other than the library's (``limits.hidden``: every
+    multiple of 64 up to 512 but 448, one library each); with a latent, C not a
+    multiple of 16 in [16,
     ``limits.max_c``] (the forward's envelope, 4096: pieces of at most 512
     columns); kin past 128 or
     not a multiple of 16; no block; more outputs than ``limits.max_out``; a
@@ -1066,15 +1071,18 @@ class ResnetFCFunction(torch.autograd.Function):
         gr = resnetfc_bwd(g, z, x, tower, n_blocks, need_dx=ctx.needs_input_grad[3], NS=NS,
                           sb=sb, combine_layer=combine_layer)
         wdt = tower.w_in.dtype  # the packed weights' dtype: bf16 on the card
+        # the module's own columns (and rows) of a tower packed zero-padded
+        # to a wider library's width: the padded ones' gradients are zero
+        H = params[-2].shape[1]
         grads = []
         if d_in > 0:
-            grads += [gr.w_in[:d_in].to(wdt).t(), gr.b_in]
+            grads += [gr.w_in[:d_in, :H].to(wdt).t(), gr.b_in[:H]]
         for k in range(n_lin_z):
-            grads += [gr.w_z[k].to(wdt).t(), gr.b_z[k]]
+            grads += [gr.w_z[k, :, :H].to(wdt).t(), gr.b_z[k, :H]]
         for k in range(n_blocks):
             for i in (0, 1):
-                grads += [gr.w_blk[k, i].to(wdt).t(), gr.b_blk[k, i]]
-        grads += [gr.w_out.to(wdt).t(), gr.b_out]
+                grads += [gr.w_blk[k, i, :H, :H].to(wdt).t(), gr.b_blk[k, i, :H]]
+        grads += [gr.w_out[:H].to(wdt).t(), gr.b_out]
         grads = [d.to(p.dtype) for d, p in zip(grads, params)]
         dz = gr.dz.to(z.dtype) if z is not None and ctx.needs_input_grad[2] else None
         dx = gr.dx.to(wdt).to(x.dtype) if gr.dx is not None else None

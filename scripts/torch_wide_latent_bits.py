@@ -1,6 +1,6 @@
 """Whether the PyTorch port's forward kernels and its backward kernels give
 the same bits in several checkouts, at sn64's widths (d_hidden 512, C = 512)
-and at sn64's depth with d_hidden 256, 128 and 64.
+and at sn64's depth with d_hidden 384, 256, 128 and 64.
 
     python3 scripts/torch_wide_latent_bits.py DIR_A DIR_B
 
@@ -15,7 +15,7 @@ gathers ``resnetfc_gather`` / ``resnetfc_gather_mv`` (both codes) on seeded
 ``resnetfc_bwd_data`` and ``resnetfc_bwd_weights`` (``bwd_data`` with dx,
 then ``bwd_weights``) on the same tower at 2000 and 49,152 points from one
 view and at SB 2 x NS 3 x 333 and SB 4 x NS 3 x 1536 rows with a seeded
-cotangent; the same at d_hidden 256, 128 and 64 at 2000 points from one
+cotangent; the same at d_hidden 384, 256, 128 and 64 at 2000 points from one
 view and at SB 2 x NS 3 x 333 rows; and prints one JSON line of each
 output's SHA-256 (the first 16 hex digits): the forwards' outputs, and of
 the backward the stashed workspace, the per-32-row sums, dz, dx and every
@@ -113,7 +113,7 @@ def hashes(tw, code, dev, shapes, tag: str) -> dict:
 
 
 # the tower widths hashed: sn64's, then the narrower ones at fewer shapes
-WIDTHS = (512, 256, 128, 64)
+WIDTHS = (512, 384, 256, 128, 64)
 # (NS, SB, B): the shapes at d_hidden 512, and at the narrower widths
 SHAPES = ((1, 1, 2000), (1, 1, 160), (1, 1, 49152), (2, 1, 4096), (3, 1, 2000), (3, 2, 333),
           (3, 4, 1536))

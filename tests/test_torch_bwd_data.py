@@ -140,8 +140,12 @@ def test_workspace_matches_pallas_interpret(NS, sb, B_obj, d_in, d_latent, H, nb
     # the stashed operand t, through lin_out, is the forward's value
     t = data.ws_act[-1, :B]
     _close((t @ tw.w_out + tw.b_out).numpy(), np.asarray(out).reshape(B, 4), "t W_out + b_out")
-    # rows: the bias gradients and dW_out, summed over the 32-row tiles
+    # rows: the bias gradients and dW_out, summed over the 32-row tiles; a
+    # tower packed zero-padded onto a wider library's width (H = 32 on the 64
+    # library) has its own H columns there, and zeros past them
     s = data.rows.sum(0)
+    assert tw.w_in.shape[1] == rf.library_width(H) and not s[:, H:].any()
+    s = s[:, :H]
     n_lin_z = tw.w_z.shape[0]
     r_out = 1 + n_lin_z + 2 * nb
     got = {"lin_in.bias": s[0], "lin_out.bias": s[r_out, :4], "lin_out.weight": s[r_out + 1:]}
@@ -238,7 +242,8 @@ def test_data_limits_fit_the_card(H):
 
 
 @pytest.mark.parametrize("kin,H,C,n_lin_z,nb,d_out,match", [
-    (48, 320, 512, 3, 5, 4, "d_hidden 512, one library each of \\(64, 128, 256, 384, 512\\)"),
+    (48, 576, 512, 3, 5, 4,
+     "d_hidden 512, one library each of \\(64, 128, 192, 256, 320, 384, 512\\)"),
     (48, 256, 512, 3, 5, 4, "this library needs d_hidden 512"),  # another width's library
     (48, 512, 4112, 3, 5, 4, "d_latent a multiple of 16 in \\[16, 4096\\]"),
     (144, 512, 512, 3, 5, 4, "kin <= 128"),

@@ -92,8 +92,10 @@ def _relu_edge_points(tw, Z, X, nb, NS, sb, cl, tol=1e-6):
     """The output points that have a relu input within ``tol`` of 0 in an
     f64 forward of the tower: a few f32 roundings of the sums that form it
     (eps 6e-8 of terms of magnitude ~1-10), so two f32 forwards may put it on
-    either side of the relu, which moves the point's whole gradient."""
-    n_lin_z = tw.w_z.shape[0]
+    either side of the relu, which moves the point's whole gradient.  Only
+    the tower's own columns count: those of a tower zero-padded onto a wider
+    library are exactly 0 and meet only zero weights."""
+    n_lin_z, Hw = tw.w_z.shape[0], tw.d_hidden
     pre = rf.blocks_per_view(nb, NS, cl)
     w = {k: getattr(tw, k).double() for k in ("w_in", "b_in", "w_z", "b_z", "w_blk", "b_blk")}
     hs = [xv.double() @ w["w_in"][: tw.d_in] + w["b_in"] for xv in rv.split_views(X, NS, sb)]
@@ -105,7 +107,7 @@ def _relu_edge_points(tw, Z, X, nb, NS, sb, cl, tol=1e-6):
         if k < n_lin_z:
             h = h + zc @ w["w_z"][k] + w["b_z"][k]
         a = torch.relu(h) @ w["w_blk"][k, 0] + w["b_blk"][k, 0]
-        near = near | (h.abs() < tol).any(1) | (a.abs() < tol).any(1)
+        near = near | (h[:, :Hw].abs() < tol).any(1) | (a[:, :Hw].abs() < tol).any(1)
         return h + torch.relu(a) @ w["w_blk"][k, 1] + w["b_blk"][k, 1]
 
     for k in range(pre):
@@ -113,7 +115,7 @@ def _relu_edge_points(tw, Z, X, nb, NS, sb, cl, tol=1e-6):
     h = hs[0] if NS == 1 else rf.view_mean(rv.join_views(hs, sb), NS, sb)
     for k in range(pre, nb):
         h = block(k, h, None)
-    return near | (h.abs() < tol).any(1)
+    return near | (h[:, :Hw].abs() < tol).any(1)
 
 
 @pytest.mark.parametrize("NS,sb,B_obj,d_in,d_latent,H,nb,cl", CASES + NARROW_CASES[::3])
@@ -166,15 +168,16 @@ def test_weights_reference_matches_pallas_interpret(NS, sb, B_obj, d_in, d_laten
                                   tw, nb)
     plain = rv.resnetfc_bwd_reference(g, Z, X, tw, nb, True, **kw)
 
-    def named(gr):
-        got = {"lin_in.weight": gr.w_in[:d_in].t(), "lin_in.bias": gr.b_in,
-               "lin_out.weight": gr.w_out.t(), "lin_out.bias": gr.b_out}
+    def named(gr):  # the module's own columns of a tower packed zero-padded
+        got = {"lin_in.weight": gr.w_in[:d_in, :H].t(), "lin_in.bias": gr.b_in[:H],
+               "lin_out.weight": gr.w_out[:H].t(), "lin_out.bias": gr.b_out}
         for k in range(gr.w_z.shape[0]):
-            got[f"lin_z.{k}.weight"], got[f"lin_z.{k}.bias"] = gr.w_z[k].t(), gr.b_z[k]
+            got[f"lin_z.{k}.weight"] = gr.w_z[k, :, :H].t()
+            got[f"lin_z.{k}.bias"] = gr.b_z[k, :H]
         for k in range(nb):
             for i in (0, 1):
-                got[f"blocks.{k}.fc_{i}.weight"] = gr.w_blk[k, i].t()
-                got[f"blocks.{k}.fc_{i}.bias"] = gr.b_blk[k, i]
+                got[f"blocks.{k}.fc_{i}.weight"] = gr.w_blk[k, i, :H, :H].t()
+                got[f"blocks.{k}.fc_{i}.bias"] = gr.b_blk[k, i, :H]
         return got
 
     weights = sorted(ref)

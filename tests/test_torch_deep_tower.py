@@ -7,8 +7,8 @@ product per weight (4 n + 3 maps and 2 n + 4 products at n blocks and three
 injections) from a table in device memory of 256 maps and 128 products,
 which holds every tower the forward takes.  The route rule trains a tower
 on the kernels to the depth ``chip_smoke.py``'s gates hold on the card
-(``GRAD_MAX_BLOCKS``, 7 blocks); deeper ones render on the forward kernels
-and train plain.
+(``GRAD_MAX_BLOCKS``, 6 blocks); deeper ones render on the forward kernels
+and train plain, as a 7-block tower does.
 
 * The plain backward of a 7-block tower (``workspace_reference`` and
   ``bwd_weights_reference``, and ``resnetfc_bwd_reference``) against the JAX
@@ -24,8 +24,8 @@ and train plain.
   on the kernel route (its autograd Function, the backward's plain
   transcription) against the JAX ``Trainer``: loss rtol 2e-3, grad norm
   rtol 5e-3, the bars of ``tests/test_torch_train_step.py``.
-* The route rule sends a 6- or 7-block tower to the kernels under grad, and
-  an 8- to 49-block one to the plain field (raising under ``cuda``).
+* The route rule sends a 6-block tower to the kernels under grad, and a 7-
+  to 49-block one to the plain field (raising under ``cuda``).
 """
 
 import pytest
@@ -38,6 +38,7 @@ from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
 from test_torch_hidden64 import takes_the_kernels_on_a_card, train_step_matches_jax_trainer
 
 NB = 7
+GATED = 6  # the deepest tower the route trains on the kernels (GRAD_MAX_BLOCKS)
 N_SMS = 132  # an H100 SXM's SMs
 
 
@@ -108,19 +109,21 @@ def test_every_tower_the_forward_takes_fits_the_weights_kernel(H):
 
 
 def test_deep_tower_takes_the_kernels_under_grad():
-    """Under ``auto`` on a CUDA device a 6- or 7-block tower takes the
-    kernels forward and under grad, from 1 and 3 views, at every width a
-    library is built for; d_hidden 320 stays plain.  Decided from the
-    Python mirrors: no library is built or loaded."""
+    """Under ``auto`` on a CUDA device a 6-block tower takes the kernels
+    forward and under grad, and a 7-block one forward only, from 1 and 3
+    views, at every width a library is built for and at d_hidden 200
+    (zero-padded onto the 256 library); d_hidden 576 stays plain.  Decided
+    from the Python mirrors: no library is built or loaded."""
     cuda = torch.device("cuda")  # compared by type only: nothing is allocated on it
-    for H in rf.HIDDEN + (320,):
+    for H in rf.HIDDEN + (200, 576):
         for nb in (6, NB):
             with torch.device("meta"):
                 t = ResnetFC(d_in=42, d_out=4, n_blocks=nb, d_latent=512, d_hidden=H,
                              combine_layer=3, impl="auto")
-            assert all(t._kernel_route((NS, 64), cuda, grad) is (H != 320)
+            assert all(t._kernel_route((NS, 64), cuda, grad)
+                       is (H <= 512 and (not grad or nb <= GATED))
                        for NS in (1, 3) for grad in (False, True)), (H, nb)
-    takes_the_kernels_on_a_card(64, NB)  # sn64's conf with 7-block heads
+    takes_the_kernels_on_a_card(64, GATED)  # sn64's conf with 6-block heads
     assert not rf._LIBS and not rv._LIBS
 
 
@@ -130,7 +133,7 @@ def test_tower_past_the_gated_depth_trains_plain(nb):
     the weights kernel's plan keeps the forward kernels and trains on the
     plain field under ``auto``, from 1 and 3 views; under ``cuda`` the grad
     route raises.  Decided from the Python mirrors: no library is built."""
-    assert rv.GRAD_MAX_BLOCKS == NB
+    assert rv.GRAD_MAX_BLOCKS == GATED
     cuda = torch.device("cuda")  # compared by type only: nothing is allocated on it
     rv.check_data_program(nb, 3, 3, 3, rv.DATA_LIMITS[512], 512)
     with torch.device("meta"):
@@ -139,7 +142,7 @@ def test_tower_past_the_gated_depth_trains_plain(nb):
     for NS in (1, 3):
         assert t._kernel_route((NS, 64), cuda, False) and not t._kernel_route((NS, 64), cuda, True)
     t.impl = "cuda"
-    with pytest.raises(ValueError, match=f"to {NB} blocks"):
+    with pytest.raises(ValueError, match=f"to {GATED} blocks"):
         t._kernel_route((1, 64), cuda, True)
     assert not rf._LIBS and not rv._LIBS
 

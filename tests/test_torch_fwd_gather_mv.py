@@ -128,7 +128,9 @@ def test_gather_mv_plain_matches_pallas_interpret(NS, B, raw_code, planar):
     assert err <= 1e-4 * max(1.0, np.abs(ref).max()), err
 
 
-@pytest.mark.parametrize("H", [h for h in rf.HIDDEN if h < 512])
+# the narrower widths these checks were written for; tests/test_torch_hidden_widths.py
+# holds the plain versions at 192 and at a padded width against the JAX kernels
+@pytest.mark.parametrize("H", [64, 128, 256, 384])
 @pytest.mark.parametrize("shape,NS,B,raw_code,planar", [
     ("small", 2, 150, False, True),
     ("sn64", 2, 160, True, False),
@@ -221,7 +223,7 @@ def _tower(kin=48, H=512, C=512, n_lin_z=3, nb=5, d_out=4):
     f = lambda *s: torch.zeros(*s)  # noqa: E731
     return rf.Tower(w_in=z(kin, H), b_in=f(H), w_z=z(n_lin_z, C, H), b_z=f(n_lin_z, H),
                     w_blk=z(nb, 2, H, H), b_blk=f(nb, 2, H), w_out=z(H, d_out), b_out=f(d_out),
-                    d_in=42)
+                    d_in=42, d_hidden=H)
 
 
 def _operands(NS=2, B=100, T=1024, C=512):

@@ -206,7 +206,8 @@ def _tower(C, H=512, nb=5, n_lin_z=3):
     z = lambda *s: torch.zeros(*s, dtype=torch.bfloat16)  # noqa: E731
     f = lambda *s: torch.zeros(*s)  # noqa: E731
     return rf.Tower(w_in=z(48, H), b_in=f(H), w_z=z(n_lin_z, C, H), b_z=f(n_lin_z, H),
-                    w_blk=z(nb, 2, H, H), b_blk=f(nb, 2, H), w_out=z(H, 4), b_out=f(4), d_in=42)
+                    w_blk=z(nb, 2, H, H), b_blk=f(nb, 2, H), w_out=z(H, 4), b_out=f(4), d_in=42,
+                    d_hidden=H)
 
 
 @pytest.mark.parametrize("H", rf.HIDDEN)

@@ -17,10 +17,11 @@ envelope, on the CPU.
   1040 and ResNet50's 1856 train on the kernels; 4112 and 24 stay plain, and
   so does 3904 at d_hidden 64 with a fourth injection (the data kernel's
   program: 61 walk-back steps an injection).  The forward and the
-  backward kernels take d_hidden 64, 128, 256, 384 and 512 (a library each
-  of each): narrower towers render and train on them; 192, 320 and 448 stay
-  plain.  Under grad a tower trains on the kernels to the depth the card's
-  gates hold (``GRAD_MAX_BLOCKS``, 7 blocks), inside the data kernel's
+  backward kernels take every multiple of 64 up to 512 but 448 (a library
+  each of each) and any other width up to 512 zero-padded on the next one's:
+  narrower towers render and train on them; 576 and 1024 stay plain.  Under
+  grad a tower trains on the kernels to the depth the card's
+  gates hold (``GRAD_MAX_BLOCKS``, 6 blocks), inside the data kernel's
   program (49 blocks at sn64's other widths) and the weights kernel's plan;
   deeper ones keep the forward kernels and train plain.
 * The steepened field of the eval CLIs' replay (its sigma row x 50, shifted
@@ -169,13 +170,13 @@ CUDA = torch.device("cuda")  # only compared by type: nothing is allocated on it
 
 
 @pytest.mark.parametrize("kw,NS,grad", [
-    (dict(d_hidden=320), 1, False),  # no library of that width
-    (dict(d_hidden=192), 3, False),  # no library of that width either
-    (dict(d_hidden=192), 1, True),  # no library of that width, under grad
-    (dict(d_hidden=448), 3, True),
+    (dict(d_hidden=576), 1, False),  # past the widest library, 512
+    (dict(d_hidden=1024), 3, False),  # past it too
+    (dict(d_hidden=576), 1, True),  # past the widest library, under grad
+    (dict(d_hidden=1024), 3, True),
     (dict(d_in=144), 1, True),  # kin 144 > 128: the data kernel's code
     (dict(n_blocks=50), 1, True),  # the data kernel's program: 49 blocks at most
-    (dict(n_blocks=8), 1, True),  # past the depth the card's gates hold (7 blocks)
+    (dict(n_blocks=7), 1, True),  # past the depth the card's gates hold (6 blocks)
     (dict(n_blocks=49), 3, True),  # inside the data kernel's program, past the gates
     (dict(d_latent=4112), 1, True),  # past the kernels' 4096, under grad
     (dict(d_latent=4112), 3, True),
@@ -235,9 +236,15 @@ def test_route_sends_towers_outside_the_envelope_to_the_plain_route(kw, NS, grad
     (dict(d_hidden=384), 3, False),
     (dict(d_hidden=384), 1, True),  # and its backward, 2 dz steps an injection
     (dict(d_hidden=384), 3, True),
+    (dict(d_hidden=192), 1, False),  # d_hidden 192 / 320: a library each
+    (dict(d_hidden=320), 3, False),
+    (dict(d_hidden=448), 1, True),  # zero-padded onto the 512 library
+    (dict(d_hidden=192), 3, True),
+    (dict(d_hidden=200), 1, True),  # zero-padded onto the 256 library
+    (dict(d_hidden=100), 3, True),
     (dict(n_blocks=6), 1, True),  # past 5 blocks: the weights kernel's table in device memory
-    (dict(n_blocks=7), 3, True),
-    (dict(n_blocks=7), 1, True),  # the deepest tower the card's gates hold
+    (dict(n_blocks=6, d_hidden=192), 3, True),  # the deepest tower the card's gates
+    (dict(n_blocks=6, d_hidden=200), 1, True),  # hold, at other widths
     (dict(n_blocks=6), 3, True),
 ])
 def test_route_takes_the_kernels_inside_the_envelope(kw, NS, grad):
@@ -250,16 +257,17 @@ def test_route_takes_the_kernels_inside_the_envelope(kw, NS, grad):
 
 @pytest.mark.parametrize("option,want", [("global", True), ("conv", True), ("narrow", True),
                                          ("narrow128", True), ("narrow64", True),
-                                         ("narrow192", False), ("narrow384", True),
-                                         ("narrow320", False)])
+                                         ("narrow192", True), ("narrow384", True),
+                                         ("narrow576", False), ("narrow200", True)])
 def test_option_train_steps_take_the_backward_kernels(monkeypatch, option, want):
     """sn64's conf with the global encoder (C = 640) or the ConvEncoder (C =
     128), built in code as ``chip_smoke.py``'s ``option_confs`` builds it,
-    or with both heads at d_hidden 256, 128, 64 or 384 (``narrow_conf``):
-    under ``auto`` with card parameters ``field_backward_in_kernel`` holds
-    at -V 1 and -V 3, so the trainer's remat default, which follows it and
-    not the conf, is off; d_hidden 192 and 320 towers, which no library is
-    built for, stay plain.  The card is faked: the
+    or with both heads at d_hidden 256, 128, 64, 192, 384 or 200 (zero-padded
+    onto the 256 library; ``narrow_conf``): under ``auto`` with card
+    parameters ``field_backward_in_kernel`` holds at -V 1 and -V 3, so the
+    trainer's remat default, which follows it and not the conf, is off; a
+    d_hidden 576 tower, past the widest library, stays plain.  The card is
+    faked: the
     rule reads only the parameters' device, and no library is built or
     loaded."""
     from types import SimpleNamespace
@@ -295,15 +303,22 @@ def test_mirrored_limits_are_the_kernels_limits_by_hand():
     memory).  The narrower libraries keep the operand tiles, the code's
     and the latent's widths and the 96 KB ring (6 stages of 16 KB at
     d_hidden 128 and 384, where a warpgroup's piece is one 64-column box; 12
-    of 8 KB at 64, where it is one 64 x 32 box), and a view-sum slot of the
-    H-wide stream (H / 4 f32 a thread), the data kernel's as the forward's:
-    32768 / 24576 / 16384 / 8192 / 4096 f32 at 512 / 384 / 256 / 128 / 64;
-    the weights kernel's tile is 128 x min(256, H), 128 x 192 at 384.
-    ``chip_smoke.py`` holds them equal to what the libraries report."""
+    of 8 KB at 64, where it is one 64 x 32 box; 4 of 24 KB at 192,
+    where it is a warpgroup's whole half in three such boxes; 4 of 20 KB at
+    320, where it is half a warpgroup's half in five 64 x 16 boxes), and a
+    view-sum slot of the H-wide stream (H / 4 f32 a thread), the data
+    kernel's as the forward's: 32768 / 24576 / 20480 / 16384 / 12288 /
+    8192 / 4096 f32 at 512 / 384 / 320 / 256 / 192 / 128 / 64; the weights
+    kernel's tile is 128 x min(256, H), 128 x 192 at 384, 128 x 160 at
+    320.  Any other width (448 too) reads the next library's, and past 512
+    none.  ``chip_smoke.py`` holds them
+    equal to what the libraries report."""
     assert rf.TILE_LIMITS == {
         64: rf.DenseLimits(64, 256, 12, 4, 128, 512, 4096, 230400, 448, 4096, 64, 4096),
         128: rf.DenseLimits(64, 256, 6, 4, 128, 512, 8192, 230400, 448, 4096, 128, 4096),
+        192: rf.DenseLimits(64, 256, 4, 4, 128, 512, 12288, 230400, 448, 4096, 192, 4096),
         256: rf.DenseLimits(64, 256, 3, 4, 128, 512, 16384, 230400, 448, 4096, 256, 4096),
+        320: rf.DenseLimits(64, 256, 4, 4, 128, 512, 20480, 214016, 448, 4096, 320, 4096),
         384: rf.DenseLimits(64, 256, 6, 4, 128, 512, 24576, 230400, 448, 4096, 384, 4096),
         512: rf.DenseLimits(64, 256, 3, 4, 128, 512, 32768, 230400, 448, 4096, 512, 4096),
     }
@@ -311,13 +326,17 @@ def test_mirrored_limits_are_the_kernels_limits_by_hand():
     assert rv.DATA_LIMITS == {
         64: rv.DataLimits(64, 256, 4096, 12, 4, 256, 4096, 230400, 64),
         128: rv.DataLimits(64, 256, 8192, 6, 4, 256, 4096, 230400, 128),
+        192: rv.DataLimits(64, 256, 12288, 4, 4, 256, 4096, 230400, 192),
         256: rv.DataLimits(64, 256, 16384, 3, 4, 256, 4096, 230400, 256),
+        320: rv.DataLimits(64, 256, 20480, 4, 4, 256, 4096, 214016, 320),
         384: rv.DataLimits(64, 256, 24576, 6, 4, 256, 4096, 230400, 384),
         512: rv.DataLimits(64, 256, 32768, 3, 4, 256, 4096, 230400, 512),
     }
     assert rv.WEIGHT_LIMITS == {64: rv.KernelLimits(128, 64, 24, 256, 128),
                                 128: rv.KernelLimits(128, 128, 24, 256, 128),
+                                192: rv.KernelLimits(128, 192, 24, 256, 128),
                                 256: rv.KernelLimits(128, 256, 24, 256, 128),
+                                320: rv.KernelLimits(128, 160, 24, 256, 128),
                                 384: rv.KernelLimits(128, 192, 24, 256, 128),
                                 512: rv.KernelLimits(128, 256, 24, 256, 128)}
     assert tuple(rv.DATA_LIMITS) == tuple(rv.WEIGHT_LIMITS) == rf.HIDDEN
@@ -328,11 +347,17 @@ def test_mirrored_limits_are_the_kernels_limits_by_hand():
         assert dlim.max_c == lim.max_c == lim.max_gather_c and dlim.hidden == H
         assert dlim.smem <= rf.MAX_SMEM_BYTES
         assert dlim.slot_floats == dlim.threads * H // 4  # a thread's share of the 64 x H stream
-        # a 96 KB ring: stages of 32 KB (two warpgroups x two or one 8 KB box),
-        # 16 KB (x one 8 KB box) or 8 KB (x one 64 x 32 box of 4 KB)
-        stage = {64: 2 * 4096, 128: 2 * 8192, 384: 2 * 8192}.get(H, 4 * 8192)
-        assert rf.ring_stage_bytes(H) == stage and dlim.stages * stage == 3 * 32768
-    for H in (192, 320, 448, 1024):
+        # a ring of the stages that 96 KB holds: 32 KB (two warpgroups x two or
+        # one 8 KB box), 16 KB (x one 8 KB box), 8 KB or 24 KB (x one or three
+        # 64 x 32 boxes of 4 KB), 20 KB (x five 64 x 16 boxes of 2 KB)
+        stage = {128: 2 * 8192, 384: 2 * 8192, 256: 4 * 8192, 512: 4 * 8192, 192: 6 * 4096,
+                 320: 10 * 2048}.get(H, 2 * 4096)
+        assert rf.ring_stage_bytes(H) == stage
+        assert dlim.stages * stage <= 3 * 32768 < (dlim.stages + 1) * stage
+        assert dlim.smem == lim.smem == 2 * 65536 + dlim.stages * stage + 1024
+    for H, L in ((1, 64), (100, 128), (200, 256), (448, 512), (500, 512)):  # zero-padded
+        assert rf.library_width(H) == L and rf.tile_limits(H) is rf.TILE_LIMITS[L]
+    for H in (576, 1024, 0):
         with pytest.raises(ValueError, match="d_hidden"):
             rf.tile_limits(H)
 
