@@ -233,9 +233,9 @@ one line each:
     multi-view gather) and (0, 1, 2) (the multi-view dense kernel), each
     also with ``PIXELNERF_DEFER_CODE=1`` (its CODE twin), each launching
     its kernel from the width's library and >= 40 dB against the plain f32
-    route on the same draws, every one-view frame and at least one
-    multi-view frame a width not blank (each head's density shifted so that
-    1/4 of frame 0's points from view 0 are occupied, ``shape_density``),
+    route on the same draws, every frame showing the object (each head's
+    density shaped on each view set's scene, ``show_object``: 1/4 of frame
+    0's points occupied, or more until the plain route's frame shows it),
     its kernel calls replayed against their plain versions, then timed in
     turns beside sn64's d_hidden 512 model (rays/s; at 320, 192 and 200 the
     encoded code's four routes);
@@ -254,36 +254,47 @@ one line each:
     file including sn64's, a checkpoint of the phase's weights), launching
     the gather's and the multi-view dense kernel's CODE twins;
 18. narrow and deep backward: rows 5a / 5b at d_hidden 384, 256, 128, 64,
-    320, 192 and 200 (sn64's tower, C = 512, seeded) and at 6 blocks
-    (sn64's widths) from
-    1 and 3 views at a ragged B (SB 2 x 1000, SB 2 x NS 3 x 333) and at the
-    train step's fine pass (SB 4 x 12,288 from 1 and 3 views; 200, on the
-    256 library, at the ragged B only), at 6 blocks also at each width with
-    a library of its own, and at d_hidden 128 and 384 also
-    at C = 640 and 128 on the ragged shapes, each against its plain version
-    as 16 gates the wide latents (``backward_gate``: the bar and corr >
-    0.999, relu-mask flips <= 1e-3, one launch of the width's library each,
-    bit-identical second calls, the weights kernel's plan walked in bounds);
-    both kernels at the fine pass from 1 and 3 views timed in turns beside
-    d_hidden 512 on the same inputs (512, 384, ..., 200, 320 padded onto
-    384, 192 onto 256, then back), and the 6-block tower
-    beside the 5-block one (5, 6, 6, 5),
-    with their plain, library and bound times, and the weights kernel on
-    its SM-filled splits and the whole-view splits in turns (filled, whole,
-    whole, filled, twice); ``python -m pixelnerf_tpu_torch.train``
-    with both heads at d_hidden 384, then 256, then 64 (a conf file
-    including sn64's) for 3 steps each, and with both heads at 6 blocks
-    for 2 steps, at -V 1 on the NMR fixture and at -V 3 on the DTU one, at
-    320 and 200 for 2 at -V 1 and at 192 for 2 at -V 3: remat
-    off, the forward kernel and both backward kernels twice a step; each
-    width's train step and the 6-block tower's at -V 1 against the plain
-    f32 step (the guards of 9; 320's at -V 3 too), the 6-block
-    tower's at -V 3 against the
-    kernels' plain versions on the card under the same AMP (the guards of
-    9; the f32 step's loss and cosines too); and d_hidden 576 and 1024
-    towers, past the widest library, and 7- and 49-block towers, past
-    the depth these gates hold, under grad, plain under ``auto`` and
-    refused under ``impl='cuda'``;
+    320, 192 and 200 (sn64's tower, C = 512, seeded) from 1 and 3 views at
+    a ragged B (SB 2 x 1000, SB 2 x NS 3 x 333) and at the train step's
+    fine pass (SB 4 x 12,288 from 1 and 3 views; 200, on the 256 library,
+    at the ragged B only), and at d_hidden 128 and 384 also at C = 640 and
+    128 on the ragged shapes, each against its plain version as 16 gates
+    the wide latents (``backward_gate``); sn64's widths at 8, 16 and 32
+    blocks (``resnetfc_vjp.GRAD_MAX_BLOCKS``, the deepest the route rule
+    trains on the kernels) on a 144-wide code at the ragged shapes (8: the
+    fine pass too), each gate also handed four planted faults as the
+    kernels' output (``planted_faults``: block 4's fc_1 product dropped,
+    dx past column 128 zeroed, two blocks' dW swapped, and a stash
+    recomputed without that fc_1 with the gradients walked back through
+    it), each of which it must fail; 8 blocks at each width with a library of its own; kin 144
+    and 512 (d_in 144 and 510) at sn64's depth on every shape; both kernels
+    at the fine pass from 1 and 3 views timed in turns beside d_hidden 512
+    on the same inputs (512, 384, ..., 200, 320 padded onto 384, 192 onto
+    256, then back), the 8-, 16- and 32-block towers and kin 144 and 512
+    beside sn64's 5 blocks and kin 48 on the same points (and the data
+    kernel with dx asked beside kin 48's), with their plain, library and
+    bound times, and the weights kernel on its SM-filled splits and the
+    whole-view splits in turns (filled, whole, whole, filled, twice);
+    ``python -m pixelnerf_tpu_torch.train`` with both heads at d_hidden
+    384, then 256, then 64 (a conf file including sn64's) for 3 steps each,
+    with both heads at 8 blocks and with a 138-wide code (11 frequencies
+    over xyz and the view direction: kin 144) for 2 steps, at -V 1 on the
+    NMR fixture and at -V 3 on the DTU one, at 320 and 200 for 2 at -V 1
+    and at 192 for 2 at -V 3: remat off, the forward kernel and both
+    backward kernels twice a step; the 8-block tower and the 138-wide code
+    at -V 1 for 5 steps on the kernels beside the same conf on the plain
+    field (``--mlp_impl torch``, the route the parent took for them) in
+    turns (ms a step); each width's train step at -V 1 against the plain
+    f32 step (the guards of 9; 320's at -V 3 too), and the 8- and 32-block
+    towers' (32: on the batches of 4 ray seeds) and the 138-wide code's at
+    -V 1 and -V 3 against it where the
+    plain step under AMP meets the guards itself, else within
+    ``PARITY_MARGIN`` of its readings (``step_parity``'s ``plain_amp``); and
+    d_hidden 576 and 1024 towers, past the widest library, a 520-wide code,
+    49- and 62-block towers, past the depth these gates hold, and a d_hidden
+    64 tower with four 4096-wide injections at 45 blocks, past the data
+    kernel's program, under grad, plain under ``auto`` and refused under
+    ``impl='cuda'``;
 19. visuals: ``python -m pixelnerf_tpu_torch.train --fixed_test`` with a
     conf file that includes a shipped one and sets ``train { vis_interval =
     1 }``: ``conf/exp/sn64.conf`` on the NMR fixture at -V 1 for 2 epochs,
@@ -359,7 +370,9 @@ one line each:
     their plain versions, the encoded routes timed in turns beside sn64's
     ResNet34 model; ResNet50 at 3 layers (C = 832) and ResNet34 at 5 (C =
     1024) render frame 0 from view 0 on the fused gather (the route that
-    raised before the gathers took pieces), >= 40 dB; ``eval -P "0"`` on the
+    raised before the gathers took pieces), >= 40 dB, each frame showing
+    the object (the density shaped on the view's scene, ``show_object``);
+    ``eval -P "0"`` on the
     NMR fixture through the fused gather; ``python -m
     pixelnerf_tpu_torch.train`` with ResNet50 (a conf file including
     sn64's) for 3 steps at -V 1 on the NMR fixture and at -V 3 on the DTU
@@ -373,7 +386,6 @@ The line before the last is the kernels' JSON record; the last line is
 
 from __future__ import annotations
 
-import contextlib
 import glob
 import itertools
 import json
@@ -384,6 +396,7 @@ import subprocess
 import sys
 import tempfile
 import time
+from typing import Optional
 
 import torch
 
@@ -742,33 +755,16 @@ def profile_split(path: str, smi: str, step_kernel: str, label: str = "profile")
         + json.dumps([(round(ms, 3), n, h) for ms, n, h in sp["gaps"]]))
 
 
-@contextlib.contextmanager
-def plain_versions_on_card():
-    """Inside it, the dense route's autograd Function runs the kernels' plain
-    versions on the card (``resnetfc_reference`` and
-    ``resnetfc_bwd_reference`` with bf16 operands, rounding where the
-    kernels round) in place of the kernels, and launches none."""
-    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
-    from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
-
-    bf = torch.bfloat16
-    kept = rf.resnetfc_dense, rf.resnetfc_dense_mv, rv.resnetfc_bwd
-    rf.resnetfc_dense = lambda z, x, tw, nb, planar_out=True: rf.resnetfc_reference(
-        z, x, tw, nb, planar_out, bf)
-    rf.resnetfc_dense_mv = lambda z, x, tw, nb, NS, cl, sb=1, planar_out=True: \
-        rf.resnetfc_reference(z, x, tw, nb, planar_out, bf, NS=NS, sb=sb, combine_layer=cl)
-    rv.resnetfc_bwd = lambda g, z, x, tw, nb, need_dx=True, NS=1, sb=1, combine_layer=None: \
-        rv.resnetfc_bwd_reference(g, z, x, tw, nb, need_dx, bf, NS=NS, sb=sb,
-                                  combine_layer=combine_layer)
-    try:
-        yield
-    finally:
-        rf.resnetfc_dense, rf.resnetfc_dense_mv, rv.resnetfc_bwd = kept
-
-
-# step_parity's routes: (mlp_impl, AMP, the kernels' plain versions on the card)
-PARITY_ROUTES = {"kernel": ("auto", True, False), "plain": ("torch", False, False),
-                 "plain_amp": ("torch", True, False), "kernel_plain": ("auto", True, True)}
+# step_parity's "plain_amp" yardstick: where the plain step under AMP itself
+# misses a guard against the plain f32 step, the kernel route's reading may
+# be this many times the plain AMP step's (PERF.md section 6)
+PARITY_MARGIN = 2.0
+# the ray seeds of the batches on which the deepest routed tower's train
+# step is held, batch by batch (seeds 4-7 set its depth with
+# scripts/torch_deep_checks.py: PERF.md section 6)
+PARITY_SEEDS = (0, 1, 2, 3)
+# step_parity's routes: (mlp_impl, AMP)
+PARITY_ROUTES = {"kernel": ("auto", True), "plain": ("torch", False), "plain_amp": ("torch", True)}
 
 
 def step_parity(conf, state, nviews: int, dev, label: str, note: str = "", seed: int = SEED,
@@ -783,12 +779,12 @@ def step_parity(conf, state, nviews: int, dev, label: str, note: str = "", seed:
     forward kernel (the dense one at one view, the multi-view one past it),
     ``resnetfc_bwd_data`` and ``resnetfc_bwd_weights`` twice each and
     nothing else, the other routes nothing.  The yardstick is the plain f32
-    step, or ``kernel_plain``: the same AMP step through the kernels' plain
-    versions on the card (:func:`plain_versions_on_card`), the route whose
-    rounding the kernels reproduce; then the kernel route also keeps the
-    loss and the cosines of the plain f32 step, and the plain step under AMP
-    (``plain_amp``) is run too, each route's distance from f32 logged beside
-    the kernel route's, so that what bf16 alone does on this batch shows.  A module whose gradient is
+    step, or ``plain_amp``: the plain step under AMP is run too, and each
+    guard against the plain f32 step holds where the plain AMP step meets it
+    itself, and where it does not, the kernel route's reading stays within
+    PARITY_MARGIN times the plain AMP step's (1 - cosine for a cosine; both
+    logged, so that what bf16 alone does on this batch shows).  A module
+    whose gradient is
     exactly zero on both routes (a head that no sample reaches: every sigma
     at or below zero) fails: its kernels would be compared on nothing.  Logs
     one line; with ``check``, exits on a failure.  Returns the kernel
@@ -815,10 +811,10 @@ def step_parity(conf, state, nviews: int, dev, label: str, note: str = "", seed:
         fine_u=torch.rand(n_rays, n_imp, device=dev, generator=gd),
         fine_jitter=torch.rand(n_rays, n_imp, device=dev, generator=gd),
         depth=torch.randn(n_rays, rcfg.n_fine_depth, device=dev, generator=gd))
-    routes = ("kernel", "plain") + (("plain_amp", "kernel_plain") if yardstick != "plain" else ())
+    routes = ("kernel", "plain") + (("plain_amp",) if yardstick == "plain_amp" else ())
     steps = {}
     for route in routes:
-        impl, amp, plain_versions = PARITY_ROUTES[route]
+        impl, amp = PARITY_ROUTES[route]
         tnet = make_model(conf["model"], mlp_impl=impl, device=dev, diff_mode=True)
         tnet.load_state_dict(state)
         opt = Optimizer(list(tnet.parameters()), lambda t: 1e-4)
@@ -827,9 +823,8 @@ def step_parity(conf, state, nviews: int, dev, label: str, note: str = "", seed:
                                       remat=not tnet.field_backward_in_kernel(nviews))
         rf.reset_launches()
         rv.reset_launches()
-        with plain_versions_on_card() if plain_versions else contextlib.nullcontext():
-            ld = {k: float(v) for k, v in train_step(
-                batch, torch.Generator(device=dev).manual_seed(seed + 5), draws).items()}
+        ld = {k: float(v) for k, v in train_step(
+            batch, torch.Generator(device=dev).manual_seed(seed + 5), draws).items()}
         torch.cuda.synchronize()
         groups = {}
         for n, prm in tnet.named_parameters():
@@ -844,43 +839,53 @@ def step_parity(conf, state, nviews: int, dev, label: str, note: str = "", seed:
                 "grad_norm": abs(la["grad_norm"] - lb["grad_norm"]) / lb["grad_norm"],
                 "cosine": {k: cosine(ga[k], gb[k]) for k in gb}}
 
-    (lk, gk, nk), (ly, gy, _) = steps["kernel"], steps[yardstick]
-    g = gaps("kernel", yardstick)
-    d_loss, d_norm, cos = g["loss"], g["grad_norm"], g["cosine"]
+    (lk, gk, nk), (ly, gy, _) = steps["kernel"], steps["plain"]
+    k32 = gaps("kernel", "plain")
+    a32 = gaps("plain_amp", "plain") if yardstick == "plain_amp" else None
     dead = sorted(k for k in gy if not gk[k].any() and not gy[k].any())
     fwd = STEP_KERNEL[nviews]
     others = {r: steps[r][2] for r in routes if r != "kernel"}
-    ok = (d_loss <= 0.01 and d_norm <= 0.02 and not dead and all(v >= 0.99 for v in cos.values())
-          and nk == {fwd: 2, "resnetfc_bwd_data": 2, "resnetfc_bwd_weights": 2}
-          and not any(others.values()))
-    if yardstick != "plain":  # the f32 step's loss and directions hold as well
-        f32 = gaps("kernel", "plain")
-        ok = ok and f32["loss"] <= 0.01 and all(v >= 0.99 for v in f32["cosine"].values())
+    sound = (not dead and nk == {fwd: 2, "resnetfc_bwd_data": 2, "resnetfc_bwd_weights": 2}
+             and not any(others.values()))
+    ok = sound and held_to_amp(k32, a32)
     norms = {k: [float(f"{steps[r][1][k].norm().item():.6g}") for r in routes] for k in gy}
     extra = ""
-    if yardstick != "plain":
-        def fmt(a, b):
-            v = gaps(a, b)
-            return (f"loss {v['loss']:.3g}, grad_norm {v['grad_norm']:.3g}, least cosine "
-                    f"{min(v['cosine'].values()):.6f}")
-        extra = ("; from the plain f32 step (not gated): the kernel route " + fmt("kernel", "plain")
-                 + "; its plain versions " + fmt("kernel_plain", "plain")
-                 + "; the plain route under AMP " + fmt("plain_amp", "plain")
-                 + "; the kernel route from the plain route under AMP "
-                 + fmt("kernel", "plain_amp"))
+    if a32 is not None:
+        def fmt(v):
+            return (f"loss {v['loss']:.3g}, grad_norm {v['grad_norm']:.3g}, cosine "
+                    f"{json.dumps({k: round(c, 6) for k, c in v['cosine'].items()})}")
+        extra = (f"; the plain route under AMP from the plain f32 step (where it misses a guard, "
+                 f"the kernel route may read {PARITY_MARGIN} x it) {fmt(a32)}; the kernel route "
+                 f"from the plain route under AMP {fmt(gaps('kernel', 'plain_amp'))}")
     log(f"{label + ' ' if label else ''}train-step parity -V {nviews}{note}"
-        f"{f' (rays of seed {seed})' if seed != SEED else ''}, against the {yardstick} route: "
-        f"loss kernel {lk['t']:.6f} {yardstick} {ly['t']:.6f} (rel {d_loss:.3g} <= 0.01); "
-        f"grad_norm {lk['grad_norm']:.6f} vs {ly['grad_norm']:.6f} (rel {d_norm:.3g} <= 0.02); "
-        f"gradient cosine {json.dumps({k: round(v, 6) for k, v in cos.items()})} (>= 0.99); "
-        f"zero on both routes (must be none): {dead}; gradient norms {list(routes)} "
+        f"{f' (rays of seed {seed})' if seed != SEED else ''}, against the plain f32 route: "
+        f"loss kernel {lk['t']:.6f} plain {ly['t']:.6f} (rel {k32['loss']:.3g} <= 0.01); "
+        f"grad_norm {lk['grad_norm']:.6f} vs {ly['grad_norm']:.6f} (rel {k32['grad_norm']:.3g} "
+        f"<= 0.02); gradient cosine {json.dumps({k: round(v, 6) for k, v in k32['cosine'].items()})}"
+        f" (>= 0.99); zero on both routes (must be none): {dead}; gradient norms {list(routes)} "
         f"{json.dumps(norms)}; kernel-route launches {nk}; the other routes' launches "
-        f"{others}" + extra)
+        f"{others}" + extra + f"; passed {ok}")
     if check and not ok:
         raise SystemExit(f"{label + ' ' if label else ''}train-step parity failed at -V {nviews}")
     return {"launches": nk, "ok": ok,
             "gaps": {f"{a}~{b}": gaps(a, b) for i, a in enumerate(routes) for b in routes[i + 1:]},
             "grad_norm": {r: steps[r][0]["grad_norm"] for r in routes}}
+
+
+def held_to_amp(kernel: dict, amp: Optional[dict]) -> bool:
+    """PERF.md section 2's guards on the kernel route's distances from the
+    plain f32 step (``gaps``: loss, grad_norm, each module's cosine) where
+    the plain step under AMP (its distances ``amp``; None: every guard)
+    meets them itself, else PARITY_MARGIN times the AMP step's distance (1 -
+    cosine for a cosine)."""
+
+    def held(k, a, guard):
+        return k <= guard if a is None or a <= guard else k <= PARITY_MARGIN * a
+
+    return (held(kernel["loss"], amp and amp["loss"], 0.01)
+            and held(kernel["grad_norm"], amp and amp["grad_norm"], 0.02)
+            and all(held(1 - kernel["cosine"][m], amp and 1 - amp["cosine"][m], 0.01)
+                    for m in kernel["cosine"]))
 
 
 def train_eval_paths(nmr_root, dtu_root, net, smi, records, code_records, bwd_ms,
@@ -1883,6 +1888,32 @@ def shape_density(net, scene, rays: torch.Tensor, keep: float, n_samples: int = 
     return thresh
 
 
+# the occupied shares show_object tries in turn: the shaped fields' quarter,
+# then more, until the plain route's frame shows the object
+SHOW_KEEPS = (1 / 4, 1 / 2, 3 / 4, 0.95)
+
+
+@torch.no_grad()
+def show_object(models: dict, src: dict, views, rays, plain_frame) -> float:
+    """Shape the density of ``models["auto"]`` (:func:`shape_density`) on
+    the scene of ``src``'s ``views``, occupying each share of SHOW_KEEPS in
+    turn until ``plain_frame(models["torch"])`` -- the plain route's frame 0
+    after the weights are copied to it -- shows the object (a pixel off the
+    white background): from more views, or with a random trunk's latent,
+    the field at one share can stay too faint for any pixel.  Returns the
+    share taken."""
+    m = models["auto"]
+    dev = next(m.parameters()).device
+    scene = m.encode(torch.as_tensor(src["images"][:, list(views)], device=dev),
+                     torch.as_tensor(src["poses"][:, list(views)], device=dev), float(src["focal"]))
+    for keep in SHOW_KEEPS:
+        shape_density(m, scene, torch.as_tensor(rays, device=dev), keep)
+        models["torch"].load_state_dict(m.state_dict())
+        if foreground(plain_frame(models["torch"])) > 0:
+            break
+    return keep
+
+
 def eval_cli_phase(net, dev, smi: str, records: dict, code_records: dict, nmr_root: str,
                    dtu_root: str) -> None:
     """Phase 15: ``eval_approx``, ``eval_real``, the DTU eval at full size,
@@ -2138,14 +2169,18 @@ def option_confs(base):
     return out
 
 
-def live_state(conf, dev) -> dict:
+def live_state(conf, dev, keep: Optional[float] = None) -> dict:
     """The weights of an option's train-step parity: ``conf`` seeded at
     SEED + 1, every ResnetFC block's fc_1 ~ N(0, 0.02^2) (seeded SEED + 2)
     and each head's sigma bias raised by 1, as the accel trainer's heads
     are, so that both heads' sigma is positive at some of the parity batch's
     points in each option's run (the render weights, seeded SEED, give the
     global encoder's fine head sigma <= 0 at every point of the -V 3 batch:
-    a zero gradient on both routes)."""
+    a zero gradient on both routes).  With ``keep``, each head's density is
+    shaped instead (:func:`shape_density`) to occupy that share of the points
+    along ring frame 0's rays from the synthetic object's view 0: through a
+    48-block tower the raised bias left the coarse head's sigma <= 0 at
+    every point of the batch."""
     from pixelnerf_tpu_torch import entry
 
     net = entry.build_model(conf, dev, seed=SEED + 1)
@@ -2155,6 +2190,12 @@ def live_state(conf, dev) -> dict:
             for blk in mlp.blocks:
                 blk.fc_1.weight.copy_(0.02 * torch.randn(blk.fc_1.weight.shape, generator=g))
             mlp.lin_out.bias[3] += 1.0
+        if keep is not None:
+            src = entry.source_view(FRAME, SEED)
+            scene = net.encode(torch.as_tensor(src["images"], device=dev),
+                               torch.as_tensor(src["poses"], device=dev), float(src["focal"]))
+            rays = torch.as_tensor(entry.ring_rays(src, 1)[:RAYS_PER_STEP], device=dev)
+            shape_density(net, scene, rays, keep)
     return net.state_dict()
 
 
@@ -2174,6 +2215,18 @@ def bwd_tower(C: int, d_in: int, dev, seed: int, H: int = 512, nb: int = 5):
             prm.copy_(torch.randn(prm.shape, generator=g) * std)
     m = m.to(dev)
     return m, m.tower(dev)
+
+
+def wide_code(d_in: int):
+    """A positional code of (x, y, z) whose d_in - 3 columns and the 3 view
+    directions after it make a ``d_in``-wide code: F = (d_in - 6) / 6
+    frequencies at sn64's factor (6 at sn64's 42; 23 give kin 144, 84 give
+    510, kin 512)."""
+    from pixelnerf_tpu_torch.models.code import PositionalEncoding
+
+    if (d_in - 6) % 6:
+        raise ValueError(f"a code of 6 + 6 F columns, not {d_in}")
+    return PositionalEncoding(num_freqs=(d_in - 6) // 6, d_in=3, freq_factor=1.5)
 
 
 @torch.no_grad()
@@ -2209,26 +2262,94 @@ def bwd_inputs(code, gen, C: int, NS: int, sb: int, B_obj: int):
     return x, z, torch.randn(4, B, device=dev, generator=gen)
 
 
+# The gates' bar against an independent plain route (PERF.md section 6, PR
+# 26): the data kernel's recompute and the plain bf16 one sum in different
+# orders, so through a deep tower they part as bf16 parts from f32.  A
+# reading r (1 - corr, the relu-mask flips, max|d|) of the kernel against the
+# independent plain bf16 route passes at r <= max(FLOOR, DRIFT_K * r_bf16),
+# r_bf16 the same reading of the plain bf16 route against the plain f32 one
+# on the same draw; FLOOR is the fixed bar the gates held before (1e-3 of
+# corr, 1e-3 of flips, the Pallas tests' max|d| bar).
+DRIFT_K = 3.0
+
+
+def drift_bar(fixed: float, bf16_reading: float) -> float:
+    """The bar of a reading against the independent plain route: the fixed
+    bar, or DRIFT_K times what bf16 alone reads, whichever is larger."""
+    return max(fixed, DRIFT_K * bf16_reading)
+
+
+def planted_faults(tw, x, z, g, nb: int, kw: dict) -> dict:
+    """Four faults of rows 5a / 5b, each a function of the kernels' Grads
+    and stashed operands returning what a faulty pair of kernels would hand
+    back, (Grads, stashed operands, the plain backward on those operands or
+    None where they are the kernels'): (a) the gradients of the tower with
+    block nb // 2's fc_1 product dropped (the plain bf16 backward of that
+    tower); (b) dx with its columns past 128 zeroed (a code tile of 128
+    columns; only where d_in > 128); (c) the dW of block nb // 2 swapped
+    with its neighbour's; (d) the stash recomputed with that block's fc_1
+    dropped and the gradients walked back through it with the tower's own
+    weights: a recompute fault that the plain backward on the kernels' own
+    operands follows, so that only the stash's readings and those against
+    the independent plain route can see it.  Built here, never in the
+    package."""
+    from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
+
+    k, bf = nb // 2, torch.bfloat16
+    w_blk, b_blk = tw.w_blk.clone(), tw.b_blk.clone()
+    w_blk[k, 1], b_blk[k, 1] = 0, 0
+    cut = tw._replace(w_blk=w_blk, b_blk=b_blk)
+
+    def like(bad, gr):
+        return bad._replace(**{n: getattr(bad, n).to(getattr(gr, n).dtype)
+                               for n in rv.Grads._fields})
+
+    def dropped(gr, ops):
+        return like(rv.resnetfc_bwd_reference(g, z, x, cut, nb, True, bf, **kw), gr), ops, None
+
+    def dx_cut(gr, ops):
+        dx = gr.dx.clone()
+        dx[:, 128:] = 0
+        return gr._replace(dx=dx), ops, None
+
+    def swapped(gr, ops):
+        w_blk = gr.w_blk.clone()
+        j = k + 1 if k + 1 < nb else k - 1
+        w_blk[[k, j]] = w_blk[[j, k]]
+        return gr._replace(w_blk=w_blk), ops, None
+
+    def stash(gr, ops):
+        bad = rv.forward_operands(z, x, cut, nb, bf, **kw)
+        back = rv.resnetfc_bwd_reference(g, z, x, tw, nb, True, bf, operands=bad, **kw)
+        return like(back, gr), bad, back
+
+    faults = {"fc_1 dropped": dropped, "dW swapped": swapped, "stash without fc_1": stash}
+    if tw.d_in > 128:
+        faults["dx past 128 zeroed"] = dx_cut
+    return faults
+
+
 def backward_gate(tw, x, z, g, NS: int, sb: int, n_sms: int, records: dict, label: str,
-                  check: bool = True) -> dict:
+                  check: bool = True, faults: bool = False) -> dict:
     """Rows 5a / 5b of sn64's tower ``tw`` (5 blocks, or as many as ``tw``
-    holds; the latent in blocks 0-2, the views' mean at block 3; any width H
-    and latent C the kernels take) at one shape, from the code ``x``, the
-    bf16 latent ``z`` and the cotangent ``g``: the data kernel's stashed
-    operands against the plain
-    recompute (the bar, relu-mask flips <= 1e-3), the dense forward's output
-    against lin_out of the stashed t (the recompute in the primal's order),
-    every gradient against the plain backward walked through the kernel's
-    own operands (the bar and corr > 0.999) and against the independent
-    plain backward (corr > 0.999), the weights kernel against
-    ``bwd_weights_reference`` on its own DataOut, one launch each,
-    bit-identical second calls, and the weights kernel's plan walked in
-    bounds (``check_plan_image``).  Beside them, what bf16 alone does here
-    (not gated): the plain bf16 recompute's mask flips against the plain f32
-    recompute and the plain bf16 backward's least corr against the plain f32
-    backward.  Logs one line (``label``); with ``check``, exits on a failure
-    and keeps each kernel's largest max|d| in ``records``.  Returns the
-    readings and ``ok``."""
+    holds; the latent in blocks 0-2, the views' mean at block 3; any width H,
+    code width kin and latent C the kernels take) at one shape, from the
+    code ``x``, the bf16 latent ``z`` and the cotangent ``g``.  Against the
+    plain backward walked through the kernel's own operands (the fault
+    detector): every gradient to the bar and corr > 0.999; the weights
+    kernel also against ``bwd_weights_reference`` on its own DataOut; the
+    dense forward's output against lin_out of the stashed t (the recompute
+    in the primal's order).  Against the independent plain bf16 route, each
+    reading held to :func:`drift_bar` beside the same reading of the plain
+    bf16 route against the plain f32 one on these inputs: the stashed
+    operands against the plain recompute (max|d|, corr, relu-mask flips) and
+    every gradient's corr.  One launch each, bit-identical second calls, the
+    weights kernel's plan walked in bounds (``check_plan_image``).  With
+    ``faults``, each of :func:`planted_faults` handed in as the kernels'
+    output (a stash fault as their stash too) must fail the same gate.  Logs one line (``label``); with
+    ``check``, exits on a failure (or a fault that passes) and keeps each
+    kernel's largest max|d| in ``records``.  Returns the readings, ``ok``
+    and, with ``faults``, which faults the gate caught."""
     from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
     from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
     from pixelnerf_tpu_torch.ops.replay import agree
@@ -2246,84 +2367,136 @@ def backward_gate(tw, x, z, g, NS: int, sb: int, n_sms: int, records: dict, labe
     one_each = rv.LAUNCHES == {n: 1 for n in names}
     ops_k = data.ws_act[:, :B].float()
     ops_p = rv.forward_operands(z, x, tw, nb, torch.bfloat16, **kw)
-    d, bar, corr = agree(ops_k, ops_p)
-    flips = ((ops_k > 0) != (ops_p > 0)).float().mean().item()
+    ops_32 = rv.forward_operands(z, x, tw, nb, torch.float32, **kw)
+    d_b, _, corr_b = agree(ops_p, ops_32)
+    bf16_flips = ((ops_p > 0) != (ops_32 > 0)).float().mean().item()
+    del ops_32
+
+    def stash_readings(ops):
+        """(max|d|, its bar, corr, relu-mask flips, the largest share of a
+        drift bar) of stashed operands against the plain recompute."""
+        d, bar, corr = agree(ops, ops_p)
+        flips = ((ops > 0) != (ops_p > 0)).float().mean().item()
+        return d, bar, corr, flips, max(d / drift_bar(bar, d_b),
+                                        (1 - corr) / drift_bar(1e-3, 1 - corr_b),
+                                        flips / drift_bar(1e-3, bf16_flips))
+
+    d, bar, corr, flips, stash_share = stash_readings(ops_k)
+    stash_ok = stash_share <= 1
     with torch.no_grad():
         out_f = (rf.resnetfc_dense(z, x, tw, nb) if NS == 1
                  else rf.resnetfc_dense_mv(z, x, tw, nb, NS, cl, sb)).double()
         lin = (data.ws_act[-1, :B].double() @ tw.w_out.double()).t() + tw.b_out.double()[:, None]
         same_order = (out_f - lin).abs().max().item() <= 1e-5 * max(1.0, out_f.abs().max().item())
-    ok = one_each and d <= bar and corr > 0.999 and flips <= 1e-3 and same_order
-    ops_32 = rv.forward_operands(z, x, tw, nb, torch.float32, **kw)
-    bf16_flips = ((ops_p > 0) != (ops_32 > 0)).float().mean().item()
-    del ops_32
     same = rv.resnetfc_bwd_reference(g, z, x, tw, nb, True, torch.bfloat16, operands=ops_k, **kw)
     ind = rv.resnetfc_bwd_reference(g, z, x, tw, nb, True, torch.bfloat16, **kw)
     ind32 = rv.resnetfc_bwd_reference(g, z, x, tw, nb, True, torch.float32, **kw)
-    bf16_corr = min(agree(getattr(ind, n), getattr(ind32, n))[2] for n in rv.Grads._fields)
+    # what bf16 alone does to each gradient's corr here
+    drift = {n: 1 - agree(getattr(ind, n), getattr(ind32, n))[2] for n in rv.Grads._fields}
     del ind32
     wref = rv.bwd_weights_reference(z, data, tw, nb)
-    err, worst, ind_corr = {n: 0.0 for n in names}, {}, 1.0
-    for name in rv.Grads._fields:
-        out = getattr(gr, name).float()
-        d1, bar1, c1 = agree(out, getattr(same, name))
-        _, _, c2 = agree(out, getattr(ind, name))
-        ind_corr = min(ind_corr, c2)
-        fine = d1 <= bar1 and c1 > 0.999 and c2 > 0.999 and bool(torch.isfinite(out).all())
-        owner = names[0] if name in ("dz", "dx") else names[1]
-        if owner == names[1]:  # the weights kernel alone, on its own DataOut
-            d3, bar3, c3 = agree(out, getattr(wref, name))
-            fine = fine and d3 <= bar3 and c3 > 0.999
-            d1 = max(d1, d3)
-        ok = ok and fine
-        err[owner] = max(err[owner], d1)
-        worst[name] = [float(f"{d1 / bar1:.4g}"), round(c1, 7), round(c2, 7)]
-    del same, ind, wref, ops_k, ops_p, out_f
+
+    def judge(grads, same=same, wref=wref):
+        """(every gradient passes, per-gradient readings, each kernel's max|d|):
+        against ``same``, the plain backward on the stashed operands, and the
+        weights against ``wref``, their plain version on the kernel's DataOut."""
+        fine_all, err, worst = True, {n: 0.0 for n in names}, {}
+        for name in rv.Grads._fields:
+            out = getattr(grads, name).float()
+            d1, bar1, c1 = agree(out, getattr(same, name))
+            _, _, c2 = agree(out, getattr(ind, name))
+            fine = (d1 <= bar1 and c1 > 0.999 and 1 - c2 <= drift_bar(1e-3, drift[name])
+                    and bool(torch.isfinite(out).all()))
+            owner = names[0] if name in ("dz", "dx") else names[1]
+            if owner == names[1]:  # the weights kernel alone, on its own DataOut
+                d3, bar3, c3 = agree(out, getattr(wref, name))
+                fine = fine and d3 <= bar3 and c3 > 0.999
+                d1 = max(d1, d3)
+            fine_all = fine_all and fine
+            err[owner] = max(err[owner], d1)
+            worst[name] = [float(f"{d1 / bar1:.4g}"), round(c1, 7), round(c2, 7),
+                           float(f"{drift[name]:.4g}")]
+        return fine_all, worst, err
+
+    grads_ok, worst, err = judge(gr)
+    ind_corr = min(v[2] for v in worst.values())
+    # the largest share of its bar any reading against the independent route takes
+    drift_share = max([stash_share] + [(1 - v[2]) / drift_bar(1e-3, v[3]) for v in worst.values()])
     gr2 = rv.bwd_weights(z, rv.bwd_data(g, z, x, tw, nb, True, **kw), tw, nb)
     identical = all(torch.equal(getattr(gr, n), getattr(gr2, n)) for n in rv.Grads._fields)
-    ok = ok and identical
+    del gr2
     plan = rv.weight_plan(tw.w_in.shape[0], H, C, nb, n_lin_z, NS, data.pre, B,
                           rv.kernel_limits(H), n_sms)
     walked = rv.check_plan_image(plan, z, data)
+    ok = one_each and same_order and stash_ok and grads_ok and identical
+    caught, stash_fault = {}, {}
+    if faults:
+        for what, fault in planted_faults(tw, x, z, g, nb, kw).items():
+            grads, ops, back = fault(gr, ops_k)
+            if back is None:
+                caught[what] = not judge(grads)[0]
+            else:  # a stash fault: the weights follow the stash, as c1 does
+                f_share = stash_readings(ops)[4]
+                f_ok, f_worst, _ = judge(grads, back, back)
+                caught[what] = not (f_share <= 1 and f_ok)
+                # how far past its drift bars the fault lands
+                stash_fault = {"stash": f_share, "gradients": max(
+                    (1 - v[2]) / drift_bar(1e-3, v[3]) for v in f_worst.values())}
+            del grads, ops, back
+    del same, ind, wref, ops_k, ops_p, out_f
     log(f"{label}, -V {NS}: {sb} x {B // sb} = {B} "
         f"points{f', {NS * B} rows' if NS > 1 else ''} ("
         + ("the last 64-point tile half full" if B % 64 else "the train step's fine pass")
-        + f", {grid[1]} tiles on {grid[2]} CTAs): one launch each {one_each}; stashed "
-        f"operands vs plain recompute max|d| {d:.6g} <= {bar:.6g}, corr {corr:.7f}, "
-        f"relu-mask flips {flips:.3g} (<= 1e-3); "
-        f"the dense forward is lin_out of the stashed t {same_order}; per gradient "
-        f"[max|d| / bar vs plain on the kernel's operands (the weights: also vs "
-        f"bwd_weights_reference on its DataOut), corr, corr vs the independent plain "
-        f"backward] {json.dumps(worst)}; bit-identical second calls {identical}; "
-        f"{data.ws_x.shape[0] // NS} rows a view, "
+        + f", {grid[1]} tiles on {grid[2]} CTAs; kin {tw.w_in.shape[0]}): one launch each "
+        f"{one_each}; stashed operands vs plain recompute max|d| {d:.6g} <= "
+        f"{drift_bar(bar, d_b):.6g}, corr {corr:.7f}, relu-mask flips {flips:.3g} (<= "
+        f"{drift_bar(1e-3, bf16_flips):.3g}; bf16 alone: max|d| {d_b:.6g}, corr "
+        f"{corr_b:.7f}, flips {bf16_flips:.3g}); the dense forward is lin_out of the stashed "
+        f"t {same_order}; per gradient [max|d| / bar vs plain on the kernel's operands (the "
+        f"weights: also vs bwd_weights_reference on its DataOut), corr, corr vs the "
+        f"independent plain backward, bf16 alone's 1 - corr (its bar: max(1e-3, {DRIFT_K} x "
+        f"that))] {json.dumps(worst)}; the largest share of a drift bar {drift_share:.4f}; "
+        f"bit-identical second calls {identical}; {data.ws_x.shape[0] // NS} rows a view, "
         f"{rv.data_steps(nb, n_lin_z, NS, cl if NS > 1 else nb, C, H)} stored steps, "
         f"{rv.dz_pieces(C, H)} dz steps an injection; the weights kernel's {plan.tiles} "
         f"output tiles in {max(plan.table[4::6])} splits of {plan.pts} points, "
         f"{len(plan.maps)} tensor maps, {len(plan.table) // 6} products, the plan's "
-        f"{walked['ctas']} GEMM CTAs walked in bounds; bf16 alone here (not gated): the "
-        f"plain bf16 recompute's relu-mask flips against the plain f32 recompute "
-        f"{bf16_flips:.3g}, the plain bf16 backward's least corr against the plain f32 "
-        f"backward {bf16_corr:.7f}")
-    if check and not ok:
-        raise SystemExit(f"{label} failed at -V {NS}, {B} points")
+        f"{walked['ctas']} GEMM CTAs walked in bounds"
+        + (f"; planted faults caught {json.dumps(caught)} (the stash fault's largest share "
+           f"of a drift bar: {json.dumps({k: float(f'{v:.4g}') for k, v in stash_fault.items()})})"
+           if faults else ""))
+    if check and not (ok and all(caught.values())):
+        raise SystemExit(f"{label} failed at -V {NS}, {B} points (gate passed {ok}"
+                         + (f", faults caught {caught})" if caught else ")"))
     if check:
         for n in names:
             records[n]["max_abs_err"] = max(records[n].get("max_abs_err", 0.0), err[n])
     return {"ok": ok, "flips": flips, "d_over_bar": d / bar, "ind_corr": ind_corr,
-            "bf16_flips": bf16_flips, "bf16_corr": bf16_corr,
-            "worst": max(v[0] for v in worst.values()), "identical": identical}
+            "bf16_flips": bf16_flips, "bf16_corr": 1 - max(drift.values()),
+            "worst": max(v[0] for v in worst.values()), "identical": identical,
+            "drift_share": drift_share, "caught": caught, "stash_fault": stash_fault,
+            "per_grad": worst,
+            "stash": {"d": d, "bar": bar, "corr": corr, "d_bf16": d_b, "corr_bf16": corr_b}}
+
+
+def data_flops_pt(f_pt: float, Hw: int, NS: int, d_in: int, need_dx: bool) -> float:
+    """The data kernel's FLOP per output point, ``f_pt`` the forward's: the
+    recompute and the data gradients, two forwards' less dx's product
+    (2 Hw d_in a row, NS rows a point) where dx is not asked."""
+    return 2 * f_pt - (0 if need_dx else 2 * Hw * NS * d_in)
 
 
 def backward_yardsticks(tw, x, z, g, data, NS: int, sb: int):
     """What rows 5a / 5b of sn64's tower ``tw`` (5 blocks, the latent in
     blocks 0-2, the views' mean at block 3) are timed against at one shape,
-    ``data`` the data kernel's DataOut on these inputs: each kernel's plain
-    version (``workspace_reference``; ``bwd_weights_reference`` on
-    ``data``), its library call (the autograd backward of the cuBLAS bf16
-    chain; one cuBLAS ``A^T G`` a product, over the same planes), never
-    called by the port, and its bound (the data kernel: the recompute and
-    the data gradients, two forwards' FLOP, against its inputs, the bf16
-    workspace written once and dz, dx written; the weights kernel: one
+    ``data`` the data kernel's DataOut on these inputs, the data kernel
+    timed without dx (as the train step asks it): each kernel's plain version
+    (``workspace_reference``; ``bwd_weights_reference`` on ``data``), its
+    library call (the autograd backward of the cuBLAS bf16 chain; one cuBLAS
+    ``A^T G`` a product, over the same planes), never called by the port,
+    and its bound (the data kernel: the recompute and the data gradients
+    (:func:`data_flops_pt`) against its inputs, the bf16 workspace written
+    once and dz written; the weights kernel: one
     forward's FLOP against the workspace read once, z too at one view (from
     several it reads the workspace's ws_z), and the weight gradients
     written).  Returns ({kernel: plain ms}, {kernel: library
@@ -2365,8 +2538,8 @@ def backward_yardsticks(tw, x, z, g, data, NS: int, sb: int):
     w_bytes = sum(tt.numel() * tt.element_size() for tt in tw[:8])
     io = rows * (C * 2 + d_in * 4) + B * d_out * 4 + w_bytes
     z_read = rows * C * 2 if data.ws_z is None else 0  # z in place at NS = 1, else ws_z
-    flops = {names[0]: B * 2 * f_pt, names[1]: B * f_pt}
-    bounds = {names[0]: bound(flops[names[0]], io + ws + rows * (C * 4 + d_in * 4)),
+    flops = {names[0]: B * data_flops_pt(f_pt, Hw, NS, d_in, False), names[1]: B * f_pt}
+    bounds = {names[0]: bound(flops[names[0]], io + ws + rows * C * 4),
               names[1]: bound(flops[names[1]], ws + z_read + 2 * w_bytes)}
     return plain, lib, bounds, flops
 
@@ -2688,7 +2861,6 @@ def options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_ro
 # own library, and d_hidden 200, zero-padded onto the 256 library, on the
 # forward kernels
 NARROW_H = (384, 256, 128, 64)
-NARROW_KEEP = 1 / 4  # the share of frame 0's points the narrow fields occupy
 NATIVE_H = (320, 192)  # two pieces of 80 columns a warpgroup, one of 96
 PADDED_H = 200  # no library of its own: the next one's (256), its weights zero-padded
 NEW_H = NATIVE_H + (PADDED_H,)
@@ -2917,7 +3089,7 @@ def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nm
         return f"{H}" + (f" (on the {L} library, zero-padded)" if L != H else "")
 
     # ---- frame 0 on every route at each width, against the plain route ----
-    confs, models, narrow_launches, mv_fg = {}, {}, {}, {}
+    confs, models, narrow_launches = {}, {}, {}
     for H in NARROW_H + NEW_H:
         c = confs[H] = narrow_conf(conf, H)
         for impl in ("auto", "torch"):
@@ -2927,44 +3099,35 @@ def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nm
             for mlp in (models[H, "auto"].mlp_coarse, models[H, "auto"].mlp_fine):
                 for blk in mlp.blocks:
                     blk.fc_1.weight.copy_(0.02 * torch.randn(blk.fc_1.weight.shape, generator=g))
-            # each head's density shifted so that NARROW_KEEP of frame 0's
-            # points from view 0 are occupied, as the eval CLIs' shaped
-            # field: a seeded head's density can be <= 0 at every point, and
-            # a blank frame is the same on both routes whatever the kernels
-            m = models[H, "auto"]
-            shape_density(m, m.encode(torch.as_tensor(src["images"], device=dev),
-                                      torch.as_tensor(src["poses"], device=dev),
-                                      float(src["focal"])), torch.as_tensor(rays, device=dev),
-                          NARROW_KEEP)
         models[H, "torch"].load_state_dict(models[H, "auto"].state_dict())
     calls = KernelCalls()
     with calls:
         for H in NARROW_H + NEW_H:
             c = confs[H]
-            for s, views, env, kname in routes:
-                ref, _, la_ref = frame0(models[H, "torch"], c, s, views, env)
-                out, _, la = frame0(models[H, "auto"], c, s, views, env)
-                p, fg = psnr(out, ref), foreground(out)
-                # every one-view frame holds the object; from more views the
-                # field is fainter (at d_hidden 192 three views leave no
-                # pixel off white), so one multi-view frame a width must
-                ok = (set(la) == {kname} and not la_ref and bool(torch.isfinite(out).all())
-                      and p >= 40.0 and (fg > 0 or len(views) > 1))
-                if len(views) > 1:
-                    mv_fg[H] = max(mv_fg.get(H, 0.0), fg)
-                label = label_of(views, env)
-                narrow_launches.setdefault(kname, {})[f"d_hidden {H}, frame 0, {label}"] = la.get(
-                    kname, 0)
-                log(f"narrow render: d_hidden {width(H)}, {label}: launches {la} (want {kname}); vs the "
-                    f"plain f32 route {p:.3f} dB (need >= 40); foreground {fg:.4f}"
-                    f"{' (need > 0)' if len(views) == 1 else ''}; on {smi}")
-                if not ok:
-                    raise SystemExit(f"narrow render at d_hidden {H}, {label} missed {kname}, "
-                                     "disagrees with the plain route or is blank")
-            log(f"narrow render: d_hidden {width(H)}: the most foreground of a multi-view frame "
-                f"{mv_fg[H]:.4f} (need > 0)")
-            if not mv_fg[H] > 0:
-                raise SystemExit(f"narrow render at d_hidden {H}: every multi-view frame is blank")
+            for s0, views0 in {(id(s), v): (s, v) for s, v, _, _ in routes}.values():
+                # each head's density shaped on this view set's scene, so
+                # that its plain frame 0 shows the object (show_object): a
+                # blank frame is the same on both routes whatever the kernels
+                keep = show_object({"auto": models[H, "auto"], "torch": models[H, "torch"]}, s0,
+                                   views0, rays, lambda m: frame0(m, c, s0, views0, {})[0])
+                for s, views, env, kname in routes:
+                    if s is not s0 or views != views0:
+                        continue
+                    ref, _, la_ref = frame0(models[H, "torch"], c, s, views, env)
+                    out, _, la = frame0(models[H, "auto"], c, s, views, env)
+                    p, fg = psnr(out, ref), foreground(out)
+                    ok = (set(la) == {kname} and not la_ref and bool(torch.isfinite(out).all())
+                          and p >= 40.0 and fg > 0)
+                    label = label_of(views, env)
+                    narrow_launches.setdefault(kname, {})[f"d_hidden {H}, frame 0, {label}"] = \
+                        la.get(kname, 0)
+                    log(f"narrow render: d_hidden {width(H)}, {label}: launches {la} (want "
+                        f"{kname}); vs the plain f32 route {p:.3f} dB (need >= 40); foreground "
+                        f"{fg:.4f} (need > 0; the density shaped on these views to occupy "
+                        f"{keep:.3g} of frame 0's points); on {smi}")
+                    if not ok:
+                        raise SystemExit(f"narrow render at d_hidden {H}, {label} missed {kname}, "
+                                         "disagrees with the plain route or is blank")
     replayed(calls.check(), "narrow")
     del calls
 
@@ -3068,31 +3231,47 @@ NARROW_BWD_SHAPES = ((1, 2, 1000), (3, 2, 333), (1, 4, 128 * 96), (3, 4, 128 * 9
 # on the ragged shapes: the global encoder's 640 (2 pieces, 5 dz steps an
 # injection at 128, 2 at 384) and the ConvEncoder's 128
 NARROW_BWD_C = (640, 128)
-# the deep tower: sn64's with both heads at 6 blocks, the deepest the route
-# rule trains on the kernels (resnetfc_vjp.GRAD_MAX_BLOCKS)
-DEEP_BLOCKS = 6
-# the train CLI's runs: (what, the heads' conf keys, their d_hidden and
-# n_blocks, -V, -F, steps)
+# the deep towers: sn64's past 5 blocks, to the deepest the route rule
+# trains on the kernels (resnetfc_vjp.GRAD_MAX_BLOCKS), through the gate with
+# the planted faults on a 144-wide code (kin 144: all four faults apply)
+DEEP_DEPTHS = (8, 16, 32)
+# the wide codes at sn64's other widths (d_in 144 and 510: kin 144 and 512)
+WIDE_CODES = (144, 510)
+# the train CLI's runs: (what, the conf's model keys, d_hidden, n_blocks,
+# the code's width d_in, -V, -F, steps); sn64's code is 42 wide, 11
+# frequencies over (xyz, viewdir) make it 138 (kin 144)
+CODE144 = "use_code_viewdirs = true\ncode { num_freqs = 11 }"
 NARROW_TRAIN = tuple(
-    (f"d_hidden {H}", f"d_hidden = {H}", H, 5, nviews, fmt, 3)
+    (f"d_hidden {H}", f"mlp_coarse {{ d_hidden = {H} }}\nmlp_fine {{ d_hidden = {H} }}", H, 5, 42,
+     nviews, fmt, 3)
     for H in (384, 256, 64) for nviews, fmt in ((1, "dvr"), (3, "dvr_dtu"))) + tuple(
-    (f"d_hidden {H}", f"d_hidden = {H}", H, 5, nviews, fmt, 2)
+    (f"d_hidden {H}", f"mlp_coarse {{ d_hidden = {H} }}\nmlp_fine {{ d_hidden = {H} }}", H, 5, 42,
+     nviews, fmt, 2)
     for H, nviews, fmt in ((320, 1, "dvr"), (192, 3, "dvr_dtu"), (PADDED_H, 1, "dvr"))) + tuple(
-    (f"{DEEP_BLOCKS} blocks", f"n_blocks = {DEEP_BLOCKS}", 512, DEEP_BLOCKS, nviews, fmt, 2)
+    (what, keys, 512, nb, d_in, nviews, fmt, 2)
+    for what, keys, nb, d_in in (
+        ("8 blocks", "mlp_coarse { n_blocks = 8 }\nmlp_fine { n_blocks = 8 }", 8, 42),
+        ("a 138-wide code", CODE144, 5, 138))
     for nviews, fmt in ((1, "dvr"), (3, "dvr_dtu")))
+# the train CLI at -V 1 on the kernels beside the same conf on the plain
+# field (--mlp_impl torch: the route the parent took for these towers), in
+# turns: (what, the model keys, steps a run)
+TRAIN_TURNS = (("8 blocks", "mlp_coarse { n_blocks = 8 }\nmlp_fine { n_blocks = 8 }", 5),
+               ("a 138-wide code", CODE144, 5))
 
 
 def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
-    """Phase 18: rows 5a / 5b on the narrower libraries and past 5 blocks
-    (see the module docstring): the gates at d_hidden 384, 256, 128 and 64,
-    320 and 192 and 200 (zero-padded onto the 256 library), and at 6
-    blocks, the kernels' times at the train step's fine pass in turns beside
-    d_hidden 512 (and 5 blocks; 320 and 192 also beside themselves
-    zero-padded onto the next library), the train CLI at d_hidden 384, 256,
-    64, 320, 192 and 200 and at 6 blocks on the backward kernels, each
-    width's -V 1 train step against the plain f32 step (320's at -V 3 too;
-    the 6-block -V 3 one against the kernels' plain versions), and
-    the widths and depths outside the envelope kept plain."""
+    """Phase 18: rows 5a / 5b on the narrower libraries, past 5 blocks and
+    past a 128-wide code (see the module docstring): the gates at d_hidden
+    384, 256, 128 and 64, 320 and 192 and 200 (zero-padded onto the 256
+    library), at 8, 16 and 32 blocks with the planted faults and at kin 144
+    and 512, the kernels' times at the train step's fine pass in turns
+    beside d_hidden 512 (320 and 192 also beside themselves zero-padded onto
+    the next library) and beside 5 blocks and kin 48, the train CLI at
+    d_hidden 384, 256, 64, 320, 192 and 200, at 8 blocks and on a 138-wide
+    code on the backward kernels (the last two also beside the plain field
+    in turns), the train steps against the plain f32 step, and the widths,
+    codes and depths outside the envelope kept plain."""
     from pixelnerf_tpu_torch.models.code import PositionalEncoding
     from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
     from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
@@ -3115,14 +3294,17 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
     for H in NATIVE_H:
         padded[H] = padded_twin(mods[H, 512][0], rf.HIDDEN[rf.HIDDEN.index(H) + 1], dev)
     del mods
-    deep = bwd_tower(512, d_in, dev, SEED + 19, 512, DEEP_BLOCKS)[1]
-    if DEEP_BLOCKS != rv.GRAD_MAX_BLOCKS:
-        raise SystemExit(f"the deep gates ({DEEP_BLOCKS} blocks) must hold the route rule's "
-                         f"deepest tower under grad ({rv.GRAD_MAX_BLOCKS})")
+    # the deep towers on a 144-wide code (the gates' planted faults all
+    # apply) and sn64's widths on the wide codes
+    if DEEP_DEPTHS[-1] != rv.GRAD_MAX_BLOCKS:
+        raise SystemExit(f"the deep gates ({DEEP_DEPTHS}) must hold the route rule's deepest "
+                         f"tower under grad ({rv.GRAD_MAX_BLOCKS})")
+    deep = {nb_d: bwd_tower(512, 144, dev, SEED + 19 + nb_d, 512, nb_d)[1] for nb_d in DEEP_DEPTHS}
+    wide = {d: bwd_tower(512, d, dev, SEED + 20 + d, 512, nb)[1] for d in WIDE_CODES}
 
     # ---- gates: C = 512 at each narrower width from 1 and 3 views, ragged
     # B and the train step's fine pass; C = 640 and 128 at d_hidden 128 and
-    # 384; sn64's widths at 6 blocks ----
+    # 384 ----
     for (H, C), tw in towers.items():
         if H == 512:
             continue
@@ -3132,19 +3314,32 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
             backward_gate(tw, x, z, g, NS, sb, n_sms, records,
                           f"narrow backward check d_hidden {H}, C = {C} (sn64's depth)")
             del x, z, g
-    for NS, sb, B_obj in NARROW_BWD_SHAPES:
-        x, z, g = bwd_inputs(code, gi, 512, NS, sb, B_obj)
-        backward_gate(deep, x, z, g, NS, sb, n_sms, records,
-                      f"deep backward check: {DEEP_BLOCKS} blocks at sn64's widths")
-        del x, z, g
-    for H in NARROW_H + NATIVE_H:  # the same depth at each narrower library, ragged B
-        tw = bwd_tower(512, d_in, dev, SEED + 19 + H, H, DEEP_BLOCKS)[1]
+    # ---- the deep gates at sn64's widths, 8, 16 and 32 blocks (the deepest
+    # the route trains, GRAD_MAX_BLOCKS), ragged B (8 blocks: the fine pass
+    # too), each with the planted faults, which must fail; 8 blocks at the
+    # narrower widths; the wide codes at sn64's depth, every shape ----
+    for nb_d, tw in deep.items():
+        for NS, sb, B_obj in NARROW_BWD_SHAPES[: 4 if nb_d == DEEP_DEPTHS[0] else 2]:
+            x, z, g = bwd_inputs(wide_code(144), gi, 512, NS, sb, B_obj)
+            backward_gate(tw, x, z, g, NS, sb, n_sms, records,
+                          f"deep backward check: {nb_d} blocks at sn64's widths, kin 144",
+                          faults=True)
+            del x, z, g
+    for H in NARROW_H + NATIVE_H:  # 8 blocks at each narrower library, ragged B
+        tw = bwd_tower(512, d_in, dev, SEED + 19 + H, H, DEEP_DEPTHS[0])[1]
         for NS, sb, B_obj in NARROW_BWD_SHAPES[:2]:
             x, z, g = bwd_inputs(code, gi, 512, NS, sb, B_obj)
             backward_gate(tw, x, z, g, NS, sb, n_sms, records,
-                          f"deep backward check: {DEEP_BLOCKS} blocks at d_hidden {H}")
+                          f"deep backward check: {DEEP_DEPTHS[0]} blocks at d_hidden {H}")
             del x, z, g
         del tw
+    for d, tw in wide.items():
+        for NS, sb, B_obj in NARROW_BWD_SHAPES:
+            x, z, g = bwd_inputs(wide_code(d), gi, 512, NS, sb, B_obj)
+            backward_gate(tw, x, z, g, NS, sb, n_sms, records,
+                          f"wide code backward check: kin {tw.w_in.shape[0]} (d_in {d}) at "
+                          f"sn64's widths")
+            del x, z, g
 
     # ---- times at the train step's fine pass, d_hidden in turns beside 512 ----
     # every width, and each native one's padded twin ("<H>p")
@@ -3217,78 +3412,135 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
                                filled_ms_in_turns=split_ms["filled"],
                                whole_view_ms_in_turns=split_ms["whole"])
                 records[n].setdefault("narrow", {})[f"h{H}" + ("" if NS == 1 else f"_ns{NS}")] = rec
-        # the deep tower beside sn64's 5 blocks on the same inputs, in turns
-        data_deep = rv.bwd_data(g, z, x, deep, DEEP_BLOCKS, False, **kw)
-        runs = {5: (towers[512, 512], data[512]), DEEP_BLOCKS: (deep, data_deep)}
-        td = {k: {n: [] for n in names} for k in runs}
-        for k in (5, DEEP_BLOCKS, DEEP_BLOCKS, 5):
-            tw, dk = runs[k]
-            td[k][names[0]].append(cuda_ms(lambda: rv.bwd_data(g, z, x, tw, k, False, **kw), 5))
-            td[k][names[1]].append(cuda_ms(lambda: rv.bwd_weights(z, dk, tw, k), 5))
-        msd = {k: {n: sum(v) / len(v) for n, v in td[k].items()} for k in runs}
-        plain, lib, bounds, flops = backward_yardsticks(deep, x, z, g, data_deep, NS, sb)
-        plan = rv.weight_plan(deep.w_in.shape[0], 512, 512, DEEP_BLOCKS, 3, NS, data_deep.pre, B,
-                              rv.kernel_limits(512), n_sms)
-        for n in names:
-            b_ms, b_by = bounds[n]
-            ms_n = msd[DEEP_BLOCKS][n]
-            log(f"deep backward time: {n} at {DEEP_BLOCKS} blocks (sn64's widths), -V {NS}, {B} "
-                f"output points{f' ({rows} rows)' if NS > 1 else ''}: in turns {ms_n:.4f} ms "
-                f"beside {msd[5][n]:.4f} at 5 blocks ({ms_n / msd[5][n]:.4f}x); "
-                f"{flops[n] / ms_n / 1e9:.1f} TFLOP/s; plain_ms {plain[n]:.4f}; library_ms "
-                f"{lib[n]:.4f}; bound_ms {b_ms:.4f} ({b_by}); {b_ms / ms_n:.3f} of the bound"
-                + (f"; {len(plan.maps)} tensor maps, {len(plan.table) // 6} products, "
-                   f"{plan.tiles} output tiles" if n == names[1] else "") + f"; on {smi}")
-            records[n].setdefault("deep", {})[f"b{DEEP_BLOCKS}" + ("" if NS == 1 else f"_ns{NS}")] \
-                = dict(points=B, views=NS, ms=ms_n, b5_ms_in_turns=msd[5][n], plain_ms=plain[n],
-                       library_ms=lib[n], bound_ms=b_ms, bound_by=b_by,
-                       tflops=flops[n] / ms_n / 1e9, share_of_bound=b_ms / ms_n)
-        del data, data_deep, runs, x, z, g
+        del data, x, z, g
+        # the deep towers (8, 16 and 32 blocks) and the
+        # wide codes (kin 144, 512) beside sn64's tower (5 blocks, kin 48)
+        # on the same points, latent and cotangent, in turns
+        cases = {}
+        for label, d, nb_c in ([("5 blocks, kin 48", d_in, nb)]
+                               + [(f"{k} blocks", d_in, k) for k in DEEP_DEPTHS]
+                               + [(f"kin {-(-k // 16) * 16}", k, nb) for k in WIDE_CODES]):
+            tw = (towers[512, 512] if (d, nb_c) == (d_in, nb) else wide[d] if nb_c == nb
+                  else bwd_tower(512, d, dev, SEED + 21 + nb_c, 512, nb_c)[1])
+            x, z, g = bwd_inputs(wide_code(d), torch.Generator(device=dev).manual_seed(SEED + 31),
+                                 512, NS, sb, B_obj)
+            cases[label] = (tw, x, z, g, nb_c, rv.bwd_data(g, z, x, tw, nb_c, False, **kw))
+        labels = tuple(cases)
+        t = {k: {n: [] for n in names} for k in labels}
+        for k in labels + labels[::-1]:  # in turns
+            tw, x, z, g, nb_c, dk = cases[k]
+            t[k][names[0]].append(cuda_ms(lambda: rv.bwd_data(g, z, x, tw, nb_c, False, **kw), 5))
+            t[k][names[1]].append(cuda_ms(lambda: rv.bwd_weights(z, dk, tw, nb_c), 5))
+        msd = {k: {n: sum(v) / len(v) for n, v in t[k].items()} for k in labels}
+        base = labels[0]
+        # the data kernel with dx asked (the code's gradient, on the CUDA
+        # cores: 2 kin H FLOP a point), sn64's code and the wide ones, in turns
+        with_dx = (base,) + tuple(k for k in labels if k.startswith("kin"))
+        tdx = {k: [] for k in with_dx}
+        for k in with_dx + with_dx[::-1]:
+            tw, x, z, g, nb_c, _ = cases[k]
+            tdx[k].append(cuda_ms(lambda: rv.bwd_data(g, z, x, tw, nb_c, True, **kw), 5))
+        for k in with_dx:
+            ms_dx = sum(tdx[k]) / len(tdx[k])
+            log(f"deep backward time: resnetfc_bwd_data with dx at {k}, -V {NS}, {B} output "
+                f"points: in turns {ms_dx:.4f} ms, {ms_dx / msd[k][names[0]]:.4f}x its time "
+                f"without dx ({msd[k][names[0]]:.4f}); {ms_dx / (sum(tdx[base]) / len(tdx[base])):.4f}x "
+                f"{base}'s with dx; on {smi}")
+            records[names[0]].setdefault("dx", {})[k + ("" if NS == 1 else f", -V {NS}")] = dict(
+                ms=ms_dx, without_dx_ms=msd[k][names[0]])
+        for k in labels[1:]:  # the deepest last: the rest freed before its plain version
+            tw, x, z, g, nb_c, dk = cases.pop(k)
+            torch.cuda.empty_cache()
+            plain, lib, bounds, flops = backward_yardsticks(tw, x, z, g, dk, NS, sb)
+            plan = rv.weight_plan(tw.w_in.shape[0], 512, 512, nb_c, 3, NS, dk.pre, B,
+                                  rv.kernel_limits(512), n_sms)
+            for n in names:
+                b_ms, b_by = bounds[n]
+                ms_n = msd[k][n]
+                log(f"deep backward time: {n} at {k} (sn64's widths), -V {NS}, {B} output "
+                    f"points{f' ({rows} rows)' if NS > 1 else ''}: in turns {ms_n:.4f} ms beside "
+                    f"{msd[base][n]:.4f} at {base} ({ms_n / msd[base][n]:.4f}x); "
+                    f"{flops[n] / ms_n / 1e9:.1f} TFLOP/s; plain_ms {plain[n]:.4f}; library_ms "
+                    f"{lib[n]:.4f}; bound_ms {b_ms:.4f} ({b_by}); {b_ms / ms_n:.3f} of the bound"
+                    + (f"; {len(plan.maps)} tensor maps, {len(plan.table) // 6} products, "
+                       f"{plan.tiles} output tiles" if n == names[1] else "") + f"; on {smi}")
+                key = k.replace(" blocks", "").replace(", ", "_").replace(" ", "")
+                records[n].setdefault("deep", {})[
+                    ("b" if "kin" not in k else "") + key + ("" if NS == 1 else f"_ns{NS}")] = dict(
+                    points=B, views=NS, ms=ms_n, base_ms_in_turns=msd[base][n], base=base,
+                    plain_ms=plain[n], library_ms=lib[n], bound_ms=b_ms, bound_by=b_by,
+                    tflops=flops[n] / ms_n / 1e9, share_of_bound=b_ms / ms_n)
+            del tw, x, z, g, dk, plain, lib
+        del cases
 
-    # ---- the train CLI at d_hidden 384, 256 and 64 and at 6 blocks on the
-    # backward kernels ----
+    # ---- the train CLI at d_hidden 384, 256, 64, 320, 192 and 200, at 8
+    # blocks and on a 144-wide code, on the backward kernels; then at 8
+    # blocks and on the 144-wide code beside the plain field in turns ----
     narrow_launches = {}
     restore = _env({"PIXELNERF_ALLOW_RANDOM_BACKBONE": "1"})  # no backbone weights here
+
+    def train_cli(tag, keys, nviews, fmt, n_want, impl="auto"):
+        with tempfile.TemporaryDirectory() as tmp:
+            cpath = os.path.join(tmp, "narrow.conf")
+            with open(cpath, "w") as fh:  # sn64's conf with other heads, as a file says it
+                fh.write(f'include required("{os.path.abspath("conf/exp/sn64.conf")}")\n'
+                         f"model {{ {keys} }}\n")
+            rf.reset_launches()
+            rv.reset_launches()
+            t0 = time.perf_counter()
+            trainer = train_main(
+                ["-n", tag, "-c", cpath, "-F", fmt, "-D", nmr_root if fmt == "dvr" else dtu_root,
+                 "-B", "4", "-V", str(nviews), "-R", "128", "--epochs", str(n_want),
+                 "--checkpoints_path", os.path.join(tmp, "ck"), "--mlp_impl", impl])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        la = {k: v for k, v in dict(rf.LAUNCHES, **rv.LAUNCHES).items() if v}
+        step_ms = 1e3 * sum(trainer.step_seconds[1:]) / max(1, trainer.global_step - 1)
+        return trainer, la, wall, step_ms
+
     try:
-        for what, keys, H, n_blocks, nviews, fmt, n_want in NARROW_TRAIN:
+        for what, keys, H, n_blocks, d_in_t, nviews, fmt, n_want in NARROW_TRAIN:
             fwd = STEP_KERNEL[nviews]
-            with tempfile.TemporaryDirectory() as tmp:
-                cpath = os.path.join(tmp, "narrow.conf")
-                with open(cpath, "w") as fh:  # sn64's conf with other heads, as a file says it
-                    fh.write(f'include required("{os.path.abspath("conf/exp/sn64.conf")}")\n'
-                             f"model {{ mlp_coarse {{ {keys} }}\n"
-                             f"        mlp_fine {{ {keys} }} }}\n")
-                rf.reset_launches()
-                rv.reset_launches()
-                t0 = time.perf_counter()
-                trainer = train_main(
-                    ["-n", f"narrow{H}_{n_blocks}_v{nviews}", "-c", cpath, "-F", fmt, "-D",
-                     nmr_root if fmt == "dvr" else dtu_root, "-B", "4", "-V", str(nviews), "-R",
-                     "128", "--epochs", str(n_want), "--checkpoints_path",
-                     os.path.join(tmp, "ck")])
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-            la = {k: v for k, v in dict(rf.LAUNCHES, **rv.LAUNCHES).items() if v}
+            trainer, la, wall, step_ms = train_cli(f"narrow{H}_{n_blocks}_{d_in_t}_v{nviews}", keys,
+                                                   nviews, fmt, n_want)
             n_steps = trainer.global_step
-            widths_ok = all((m.d_hidden, m.n_blocks) == (H, n_blocks)
+            widths_ok = all((m.d_hidden, m.n_blocks, m.d_in) == (H, n_blocks, d_in_t)
                             for m in (trainer.net.mlp_coarse, trainer.net.mlp_fine))
             finite = n_steps == n_want and all(math.isfinite(v) for v in trainer.history)
-            step_ms = 1e3 * sum(trainer.step_seconds[1:]) / max(1, n_steps - 1)
             ok = (finite and widths_ok and not trainer.remat and set(la) == {fwd, *names}
                   and la["resnetfc_bwd_data"] == la["resnetfc_bwd_weights"] == 2 * n_steps
                   and la[fwd] >= 2 * n_steps and la[fwd] % 2 == 0)
             label = f"{what} -V {nviews} on -F {fmt}"
             log(f"narrow train path: python -m pixelnerf_tpu_torch.train -c conf/exp/sn64.conf + "
-                f"{keys} -F {fmt} -B 4 -V {nviews} -R 128 (the {rf.library_width(H)} library): "
-                f"{n_steps} steps in {wall:.3f} "
-                f"s, {step_ms:.3f} ms a step after the first; remat {trainer.remat}; launches "
-                f"{la} (want {fwd} and both backward kernels twice a step, {fwd} twice more a "
-                f"validation batch); losses {[round(v, 5) for v in trainer.history]}; on {smi}")
+                f"model {{ {'; '.join(keys.splitlines())} }} -F {fmt} -B 4 -V {nviews} -R 128 (the "
+                f"{rf.library_width(H)} library, kin {-(-d_in_t // 16) * 16}): {n_steps} steps "
+                f"in {wall:.3f} s, {step_ms:.3f} ms a step after the first; remat "
+                f"{trainer.remat}; launches {la} (want {fwd} and both backward kernels twice a "
+                f"step, {fwd} twice more a validation batch); losses "
+                f"{[round(v, 5) for v in trainer.history]}; on {smi}")
             if not ok:
                 raise SystemExit(f"narrow: the {label} train steps failed or left the kernels")
             for name in (fwd, *names):
                 narrow_launches.setdefault(name, {})[f"train CLI, {label}"] = la[name]
             del trainer
+        for what, keys, n_want in TRAIN_TURNS:
+            ms = {"auto": [], "torch": []}
+            for impl in ("auto", "torch", "torch", "auto"):
+                trainer, la, wall, step_ms = train_cli(f"turns_{impl}", keys, 1, "dvr", n_want, impl)
+                kernels = {"resnetfc_bwd_data", "resnetfc_bwd_weights"} <= set(la)
+                if (trainer.global_step != n_want or kernels != (impl == "auto")
+                        or not all(math.isfinite(v) for v in trainer.history)):
+                    raise SystemExit(f"narrow: the {what} train CLI with --mlp_impl {impl} failed "
+                                     f"or took the wrong field ({la})")
+                ms[impl].append(step_ms)
+                del trainer
+            mk, mp = (sum(v) / len(v) for v in (ms["auto"], ms["torch"]))
+            log(f"narrow train turns: {what}, -V 1 on -F dvr, {n_want} steps a run (auto, torch, "
+                f"torch, auto): {mk:.3f} ms a step after the first on the kernels {ms['auto']}, "
+                f"{mp:.3f} on the plain field (--mlp_impl torch, the route these towers took "
+                f"under grad before) {ms['torch']}: {mk / mp:.4f}x; on {smi}")
+            records["resnetfc_bwd_data"].setdefault("train_turns", {})[what] = dict(
+                kernel_ms=mk, plain_field_ms=mp, runs=ms)
     finally:
         restore()
     for name in names:
@@ -3296,28 +3548,46 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
     for name in (STEP_KERNEL[1], STEP_KERNEL[3]):
         records[name].setdefault("narrow_launches", {}).update(narrow_launches[name])
 
-    # ---- each width's and the deep tower's train step against the plain f32
-    # step ----
+    # ---- each width's train step against the plain f32 step; the deep
+    # towers' and the wide code's against the plain f32 step where the
+    # plain step under AMP meets its guards, else within PARITY_MARGIN of
+    # the AMP step's readings ----
     for H in NARROW_H + NEW_H:
         c = narrow_conf(conf, H)
         state = live_state(c, dev)
         step_parity(c, state, 1, dev, f"narrow d_hidden {H}")
         if H == NATIVE_H[0]:
             step_parity(c, state, 3, dev, f"narrow d_hidden {H}")
-    c = narrow_conf(conf, 512, DEEP_BLOCKS)
-    state = live_state(c, dev)
-    step_parity(c, state, 1, dev, f"deep {DEEP_BLOCKS} blocks")
-    # from 3 views the bf16 arithmetic alone moves this batch's grad_norm
-    # (~1.3) 7% from the f32 step's: the kernels are held to their plain
-    # versions under the same AMP (PERF.md section 7)
-    step_parity(c, state, 3, dev, f"deep {DEEP_BLOCKS} blocks", yardstick="kernel_plain")
+    c = narrow_conf(conf, 512, DEEP_DEPTHS[0])
+    state = live_state(c, dev, keep=SHOW_KEEPS[1])
+    for nviews in (1, 3):
+        step_parity(c, state, nviews, dev, f"deep {DEEP_DEPTHS[0]} blocks", yardstick="plain_amp")
+    c = narrow_conf(conf, 512, DEEP_DEPTHS[-1])
+    state = live_state(c, dev, keep=SHOW_KEEPS[1])
+    for nviews in (1, 3):
+        for seed in PARITY_SEEDS:
+            step_parity(c, state, nviews, dev, f"deep {DEEP_DEPTHS[-1]} blocks", seed=seed,
+                        yardstick="plain_amp")
+    c = narrow_conf(conf, 512)
+    c.put("model.use_code_viewdirs", True)
+    c.put("model.code.num_freqs", 11)
+    # shaped to occupy half the points, this conf's coarse head kept sigma
+    # <= 0 at every point of the parity batch (a zero gradient on every
+    # route): 0.95 of them
+    state = live_state(c, dev, keep=SHOW_KEEPS[-1])
+    for nviews in (1, 3):
+        step_parity(c, state, nviews, dev, "a 138-wide code (kin 144)", yardstick="plain_amp")
 
-    # ---- widths outside the envelope, and towers deeper than the gates
-    # above hold, stay plain under grad (the deep ones keep the forward
-    # kernels) ----
-    for H, depth in ((576, nb), (1024, nb), (512, rv.GRAD_MAX_BLOCKS + 1), (512, 49)):
-        odd = ResnetFC(d_in=d_in, d_out=4, n_blocks=depth, d_latent=512, d_hidden=H,
-                       combine_layer=cl, impl="auto").to(dev)
+    # ---- widths, codes and depths outside the envelope stay plain under
+    # grad (those the forward takes keep the forward kernels: past the gated
+    # depth, and past the data kernel's program) ----
+    for H, depth, d_in_o, C, cl_o, fwd_k in (
+            (576, nb, d_in, 512, cl, False), (1024, nb, d_in, 512, cl, False),
+            (512, nb, 520, 512, cl, False), (512, rv.GRAD_MAX_BLOCKS + 1, d_in, 512, cl, True),
+            (512, 62, d_in, 512, cl, True), (64, 45, d_in, 4096, 4, True)):
+        with torch.device("meta"):
+            odd = ResnetFC(d_in=d_in_o, d_out=4, n_blocks=depth, d_latent=C, d_hidden=H,
+                           combine_layer=cl_o, impl="auto")
         plain = odd._kernel_route((1, 64), dev, grad=True) is False
         forward = odd._kernel_route((1, 64), dev, grad=False)
         odd.impl = "cuda"
@@ -3326,10 +3596,11 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
             refused = None
         except ValueError as e:
             refused = str(e)
-        log(f"narrow: a d_hidden {H}, {depth}-block tower under grad: plain under auto {plain}; "
-            f"impl='cuda' raises {refused!r}; the forward kernels without grad {forward}")
-        if not plain or refused is None or forward != (H == 512):
-            raise SystemExit(f"narrow: a d_hidden {H}, {depth}-block tower took the wrong route")
+        what = f"a d_hidden {H}, {depth}-block tower (d_in {d_in_o}, C = {C})"
+        log(f"narrow: {what} under grad: plain under auto {plain}; impl='cuda' raises "
+            f"{refused!r}; the forward kernels without grad {forward}")
+        if not plain or refused is None or forward != fwd_k:
+            raise SystemExit(f"narrow: {what} took the wrong route")
         del odd
     del towers
     log(f"narrow backward: phase done in {time.perf_counter() - t_phase:.1f} s")
@@ -3998,20 +4269,23 @@ def resnet50_phase(conf, net, src, src3, rays, dev, smi, records, code_records, 
             if m["auto"].d_latent != C:
                 raise SystemExit(f"resnet50: {backbone} at {layers} layers is {m['auto'].d_latent} "
                                  f"wide, not {C}")
+            # each head's density shaped on the view's scene, so that the
+            # frame shows the object (a random trunk's latent left it blank)
+            keep = show_object(m, src, (0,), frame_rays,
+                               lambda mt: frame0(mt, c, src, (0,), {})[0])
             ref, _, _ = frame0(m["torch"], c, src, (0,), {})
             out, sec, la = frame0(m["auto"], c, src, (0,), {})
-            p = psnr(out, ref)
-            ok = set(la) == {"resnetfc_fwd_gather"} and p >= 40 and bool(torch.isfinite(out).all())
+            p, fg = psnr(out, ref), foreground(out)
+            ok = (set(la) == {"resnetfc_fwd_gather"} and p >= 40 and fg > 0
+                  and bool(torch.isfinite(out).all()))
             r50_launches.setdefault("resnetfc_fwd_gather", {})[
                 f"{backbone} {layers} layers (C = {C}) frame 0, views [0]"] = la.get(
                 "resnetfc_fwd_gather", 0)
-            white = (out > 0.999).all(-1).float().mean().item()
             log(f"resnet50 repaired render: {backbone} at {layers} layers (C = {C}), views [0]: "
                 f"frame 0 on the fused gather, no ValueError: launches {la} (want "
-                f"resnetfc_fwd_gather); vs the plain f32 route {p:.3f} dB (need >= 40; inf where "
-                f"a random trunk's latent saturates the field on both routes: the kernel calls' "
-                f"replay below holds the raw field); the frame's rgb std {out.std().item():.4g}, "
-                f"white pixels {white:.3f}; on {smi}")
+                f"resnetfc_fwd_gather); vs the plain f32 route {p:.3f} dB (need >= 40); "
+                f"foreground {fg:.4f} (need > 0; the density shaped to occupy {keep:.3g} of frame "
+                f"0's points); the frame's rgb std {out.std().item():.4g}; on {smi}")
             if not ok:
                 raise SystemExit(f"resnet50: the {backbone} {layers}-layer one-view render left "
                                  "the fused gather or disagrees with the plain route")
@@ -4932,10 +5206,12 @@ def main() -> None:
         ws = sum(t.numel() * t.element_size()  # the bf16 workspace, written once, read once
                  for t in (data.ws_act, data.ws_cot, data.ws_x, data.ws_z) if t is not None)
         io_bytes = rows * (C * 2 + d_in * 4) + B * d_out * 4 + w_bytes
-        b_data = bound(B * 2 * f_pt, io_bytes + ws + rows * (C * 4 + d_in * 4))
+        # timed without dx (as the train step asks the data kernel)
+        d_pt = data_flops_pt(f_pt, H, NS, d_in, False)
+        b_data = bound(B * d_pt, io_bytes + ws + rows * C * 4)
         z_read = rows * C * 2 if data.ws_z is None else 0  # z in place at NS = 1, else ws_z
         b_weights = bound(B * f_pt, ws + z_read + 2 * w_bytes)
-        b_fn, b_fn_by = bound(B * 3 * f_pt, io_bytes + rows * (C * 2 + d_in * 4) + 2 * w_bytes)
+        b_fn, b_fn_by = bound(B * (d_pt + f_pt), io_bytes + rows * C * 2 + 2 * w_bytes)
         bwd_ms[(NS, K)] = data_ms + weights_ms
         weights_ms_at[(NS, K)] = weights_ms
         with torch.no_grad():
@@ -4954,7 +5230,7 @@ def main() -> None:
             f"plain_ms {plain_weights_ms:.4f}; library_ms {library_weights_ms:.4f} (cuBLAS bf16 "
             f"A^T G per product over the same planes); host {weights_host_ms:.4f} ms a call "
             f"({weights_host_new_ms:.4f} with its tensor maps encoded anew)")
-        d_tflops = B * 2 * f_pt / data_ms / 1e9  # the recompute and the data gradients
+        d_tflops = B * d_pt / data_ms / 1e9  # the recompute and the data gradients
         # the weight bytes the data kernel streams from L2: every 64-point tile
         # reads each weight matrix of its products once forward and once back
         kin = tw.w_in.shape[0]

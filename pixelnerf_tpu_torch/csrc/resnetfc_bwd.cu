@@ -86,7 +86,8 @@
 // - the walk back's relu masks, the r_k and s_k planes just stashed, come
 //   back by TMA into the operand tile that the product does not read;
 // - the thin parts stay on the CUDA cores: lin_out's d_out = 4 product and
-//   its column sums, dx (kin <= 128 columns), the per-32-row bias sums
+//   its column sums, dx (d_in <= kin <= 512 columns: a thread forms one
+//   point's column, a dot product over HID), the per-32-row bias sums
 //   (shuffles within a warp, then the half's second warp adds to the
 //   first's after a warpgroup barrier), dz's f32 read-modify-write in
 //   injection order by the thread that wrote it;
@@ -136,13 +137,15 @@
 // producer thread; the point axis split so that the CTAs fill the SMs in
 // whole waves, numbered split-major so that the CTAs in flight share their A
 // and G strips in L2; ragged edges (B rows of z read in place, kin < 64)
-// come from TMA's zero fill.  The tensor maps and the task table are encoded
+// come from TMA's zero fill, and a ragged last M tile (lin_in's at kin 144:
+// rows 128-143) reads zeros past the operand's columns and writes only its
+// rows.  The tensor maps and the task table are encoded
 // once per set of operand addresses (resnetfc_bwd_weights_plan) and kept by
 // the wrapper, which copies them to device memory once, so a launch costs the
 // host one parameter copy; the kernel's producer acquires each map it reads
 // for the tensormap proxy.  They hold every tower the forward kernels take
-// (MAX_MAPS, MAX_TASKS: 62 blocks at sn64's three injections, past the 49
-// whose program the data kernel stores).
+// (MAX_MAPS, MAX_TASKS: 62 blocks at sn64's three injections; the data
+// kernel's program holds them too).
 
 #include <stddef.h>
 #include <string.h>
@@ -164,11 +167,14 @@ using namespace rfc;
 
 // steps of one tile's stored program (data_program; sn64: 34 at one view, 36
 // at any view count: one view's recompute and walk back, the shared steps;
-// two more an injection at 512 < C <= 1024, fourteen at 3584 < C <= 4096
-// (8 pieces each way); seven more an injection at HID 64, three at HID 128,
-// one at HID 256 and at 384, two at 192, C = 512; 235 at HID 64 and C =
-// 3904)
-constexpr int D_MAX_STEPS = 256;
+// five more a block; two more an injection at 512 < C <= 1024, fourteen at
+// 3584 < C <= 4096 (8 pieces each way); seven more an injection at HID 64,
+// three at HID 128, one at HID 256 and at 384, two at 192, C = 512; 235 at
+// HID 64 and C = 3904), as 16-bit step words (tile64.cuh): 1 KB, which
+// holds every tower the forward's program does at sn64's other widths (62
+// blocks, 319 steps at one view; 61 at NS > 1, 316), and 64 blocks (the
+// step's k) at most
+constexpr int D_MAX_STEPS = 512;
 // f32 words of one CTA's view-sum slot (multi-view): every thread's share of
 // the 64 x HID stream
 constexpr int D_SLOT_FLOATS = TILE_STREAM * TILE_THREADS;
@@ -356,12 +362,13 @@ __device__ __forceinline__ void load_latent(const BwdParams& q, unsigned char* t
 // n_blocks): the three parts walked once, in order.  Each injection is
 // `pieces` steps in the recompute (latent_pieces(C)), Z_FWD with the piece
 // in aux, and `dz_steps` in the walk back (dz_pieces(C)), Z_BWD with the
-// step in aux >> 1.
-__host__ __device__ inline int data_program(int* out, int n_blocks, int n_lin_z, bool mv, int pre,
-                                            int pieces, int dz_steps) {
+// step in aux (the view's first injection walked back, k = n_lin_z - 1,
+// writes dz, the later ones add to it).
+__host__ __device__ inline int data_program(uint16_t* out, int n_blocks, int n_lin_z, bool mv,
+                                            int pre, int pieces, int dz_steps) {
   int n = 0;
   auto put = [&](int s) {
-    if (out != nullptr) out[n] = s;
+    if (out != nullptr) out[n] = (uint16_t)s;
     ++n;
   };
   // block 0 reads relu(x) directly when no latent is injected first
@@ -386,19 +393,16 @@ __host__ __device__ inline int data_program(int* out, int n_blocks, int n_lin_z,
     put(step(B0_BWD, k, 0));
   }
   if (mv) put(step(DVIEW, 0, 0));
-  bool first_z = true;
   for (int k = pre - 1; k >= 0; --k) {
     put(step(GB, k, 0));
-    if (k + 1 < n_lin_z) {
-      for (int j = 0; j < dz_steps; ++j) put(step(Z_BWD, k + 1, (first_z ? 1 : 0) | (j << 1)));
-      first_z = false;
-    }
+    if (k + 1 < n_lin_z)
+      for (int j = 0; j < dz_steps; ++j) put(step(Z_BWD, k + 1, j));
     put(step(B1_BWD, k, 0));
     put(step(B0_BWD, k, 0));
   }
   put(step(G_IN, 0, 0));
   if (n_lin_z > 0)
-    for (int j = 0; j < dz_steps; ++j) put(step(Z_BWD, 0, (first_z ? 1 : 0) | (j << 1)));
+    for (int j = 0; j < dz_steps; ++j) put(step(Z_BWD, 0, j));
   return n;
 }
 
@@ -418,7 +422,7 @@ struct Feed {
 // recompute segment ends at d_seg1, its walk-back segment starts at d_seg3)
 // and thread 0's feeding state.
 __shared__ __align__(8) uint64_t d_full[RING_STAGES], d_empty[RING_STAGES], d_mask_full;
-__shared__ int d_prog[D_MAX_STEPS];
+__shared__ uint16_t d_prog[D_MAX_STEPS];
 __shared__ int d_n_steps, d_seg1, d_seg3, d_feed_v, d_bound, d_end;
 // the current tile's first row and its rows inside B_pad (64, or 32 at a
 // ragged end), read where used rather than kept in registers
@@ -773,7 +777,7 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
         publish();
         stash(act, q.ws_cot + (size_t)(2 * NP + v) * plane, d_row0, d_valid);
         if (q.dx != nullptr) {
-          // dx = bf16(dv) W_in^T on the CUDA cores: d_in <= 128 columns
+          // dx = bf16(dv) W_in^T on the CUDA cores: a thread a (point, column), d_in <= 512
           for (int e = threadIdx.x; e < TILE_PTS * p.d_in; e += TILE_THREADS) {
             const int r = e / p.d_in, c = e - r * p.d_in, gi = d_row0 + r;
             if (gi >= p.B) continue;
@@ -861,22 +865,24 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
           }
         });
       } else if (kind == Z_BWD) {
-        // summed in f32 in dz in injection order; each thread reads back only
-        // what it wrote.  dz's columns HID j.. are plane j (aux >> 1) of
+        // summed in f32 in dz in injection order (the view's first, k =
+        // n_lin_z - 1, writes); each thread reads back only what it wrote.
+        // dz's columns HID j.. are plane j (aux) of
         // (NS B_pad, HID) rows, view v's at v B_pad, so that every step is a
         // whole HID-column product written as at C = HID; its columns at or
         // past C land in the plane's unused part
         gemm<MV, 0>(q, rg, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
           const int c0 = piece_col(pc);
           const int v = MV ? walk_view(si) : 0, aux = step_aux(s);
-          float* dzt = q.dz + ((size_t)((aux >> 1) * NS + v) * q.B_pad + d_row0) * HID + c0;
+          const bool first = step_k(s) == p.n_lin_z - 1;
+          float* dzt = q.dz + ((size_t)(aux * NS + v) * q.B_pad + d_row0) * HID + c0;
 #pragma unroll
           for (int i0 = 0; i0 < TILE_ACC; i0 += 4) {  // two pairs at a time, their reads together
             float2 o[2];
 #pragma unroll
             for (int u = 0; u < 2; ++u) {
               const int i = i0 + 2 * u, r = min(acc_row(i), d_valid - 1);
-              o[u] = (aux & 1) ? make_float2(0.0f, 0.0f)
+              o[u] = first ? make_float2(0.0f, 0.0f)
                                : *reinterpret_cast<const float2*>(dzt + r * HID + acc_col(i));
             }
 #pragma unroll
@@ -1198,14 +1204,14 @@ int resnetfc_bwd_data(const void* g, const void* z, const void* x, const void* w
                       int d_in, int kin, int H, int C, int n_blocks, int n_lin_z, int d_out,
                       int NS, int B_obj, int pre, int n_ctas, void* stream) {
   if (H != HID || (n_lin_z > 0 && (C < 16 || C > MAX_C || C % 16 != 0)) || kin < 16 ||
-      kin > 128 || kin % 16 != 0 || d_in > kin || n_blocks < 1 || d_out < 1 ||
+      kin > TILE_K || kin % 16 != 0 || d_in > kin || n_blocks < 1 || d_out < 1 ||
       d_out > TILE_MAX_OUT)
     return (int)cudaErrorInvalidValue;
   const bool mv = NS > 1;
   if (mv && (pre < 0 || pre >= n_blocks || n_lin_z > pre || B_obj < 1 || B % B_obj != 0 ||
              vsum == nullptr || n_ctas < 1 || (n_lin_z > 0 && ws_z == nullptr)))
     return (int)cudaErrorInvalidValue;
-  if (n_blocks > 255 || NS > 255 ||
+  if (n_blocks > STEP_MAX_K || NS > 255 ||
       data_program(nullptr, n_blocks, n_lin_z, mv, mv ? pre : n_blocks, latent_pieces(C),
                    dz_pieces(C)) > D_MAX_STEPS)
     return (int)cudaErrorInvalidValue;
@@ -1261,10 +1267,11 @@ int resnetfc_bwd_data(const void* g, const void* z, const void* x, const void* w
   return (int)cudaGetLastError();
 }
 
-// What the data kernel fixes, for the wrapper to plan with: out[0..7] =
+// What the data kernel fixes, for the wrapper to plan with: out[0..9] =
 // points a tile, threads a CTA, f32 words of a multi-view slot, weight-ring
 // stages, the most outputs of lin_out, the most steps of a tile, the widest
-// latent, the tower width HID.  Returns its shared memory a CTA.
+// latent, the tower width HID, the widest code (kin), the most blocks (a
+// step's k).  Returns its shared memory a CTA.
 size_t resnetfc_bwd_data_limits(int* out) {
   out[0] = TILE_PTS;
   out[1] = TILE_THREADS;
@@ -1274,6 +1281,8 @@ size_t resnetfc_bwd_data_limits(int* out) {
   out[5] = D_MAX_STEPS;
   out[6] = MAX_C;
   out[7] = HID;
+  out[8] = TILE_K;
+  out[9] = STEP_MAX_K;
   return TILE_SMEM;
 }
 

@@ -312,18 +312,24 @@ enum Kind {
   FOLD,    // the view's x into the view mean (multi-view)
   T_OUT,   // t stashed; lin_out's sums; the cotangent of t
   GB,      // gb = bf16(cotangent of block k's output) into act, stashed, summed
-  Z_BWD,   // dz_v (+)= gb W_z[k]^T (aux bit 0: the view's first, which writes; aux >> 1: dz's HID-column step)
+  Z_BWD,   // dz_v (+)= gb W_z[k]^T (aux: dz's HID-column step; the view's first injection, k = n_lin_z - 1, writes)
   B1_BWD,  // dh = gb W1^T [s_k > 0] into hb, summed
   B0_BWD,  // cotangent += bf16(dh) W0^T [r_k > 0], dh stashed
   DVIEW,   // the view's walk starts from dview = cotangent / NS (multi-view)
   G_IN,    // the cotangent of lin_in's output into act, stashed, summed; dx
 };
+// A step word is 16 bits: the kind, the block k (< 64: the forward's program
+// holds 62 blocks, the data kernel checks its towers) and aux (< 64: a
+// latent's piece, or the walk back's dz step, at most 64 of HID >= 64
+// columns in a 4096-wide latent), so that the data kernel stores 512 steps
+// where 256 words of 32 bits would fit.
 __host__ __device__ constexpr int step(int kind, int k, int aux) {
-  return kind | (k << 4) | (aux << 12);
+  return kind | (k << 4) | (aux << 10);
 }
+constexpr int STEP_MAX_K = 64;
 __device__ __forceinline__ int step_kind(int s) { return s & 15; }
-__device__ __forceinline__ int step_k(int s) { return (s >> 4) & 255; }
-__device__ __forceinline__ int step_aux(int s) { return s >> 12; }
+__device__ __forceinline__ int step_k(int s) { return (s >> 4) & 63; }
+__device__ __forceinline__ int step_aux(int s) { return s >> 10; }
 // A walk position: the index of a stored step in the low 12 bits and the
 // view above them, so that one register walks a segment of the program once
 // for each view.  The step word itself stays the stored one: its users read
@@ -357,9 +363,9 @@ __device__ __forceinline__ Gemm gemm_of(int s, int kin, int C) {
 // The weight operand of a product step with the latent in pieces: gemm_of,
 // but the forward's (and the recompute's) piece j (Z_FWD, aux j) reads rows
 // j TILE_K.. of W_z[k], at most TILE_K of them as K, and in the data kernel
-// (WALK_BACK) the walk back's step j (Z_BWD, aux >> 1 = j; dz_pieces) rows
-// j HID.. as the product's HID columns.  Every tile kernel's products and
-// feeders call it.
+// (WALK_BACK) the walk back's step j (Z_BWD, aux j; dz_pieces) rows j HID..
+// as the product's HID columns.  Every tile kernel's products and feeders
+// call it.
 template <bool WALK_BACK>
 __device__ __forceinline__ Gemm piece_gemm_of(int s, int kin, int C) {
   const int kind = step_kind(s);
@@ -368,7 +374,7 @@ __device__ __forceinline__ Gemm piece_gemm_of(int s, int kin, int C) {
     return Gemm{1, 0, step_k(s) * C + off, min(TILE_K, C - off)};
   }
   if (WALK_BACK && kind == Z_BWD)
-    return Gemm{1, 1, step_k(s) * C + (step_aux(s) >> 1) * HID, HID};
+    return Gemm{1, 1, step_k(s) * C + step_aux(s) * HID, HID};
   return gemm_of(s, kin, C);
 }
 

@@ -138,11 +138,13 @@ class ResnetFC(nn.Module):
         62 blocks at sn64's other widths and one view); with ``gather`` (a
         LatentGather latent) also the gathers' table width (C <= 4096);
         under ``grad`` also the backward's (the same library; the data
-        kernel's widths and program: C <= 4096 as the forward's, kin <= 128,
-        49 blocks at sn64's other widths, and at H = 64 the walk back's H
-        dz columns a step: 3904 fits sn64's three injections, not four; the
-        weights kernel's plan, which holds every tower the forward's program
-        does; and the depth the card's gates hold, ``GRAD_MAX_BLOCKS``: 7
+        kernel's widths and program: C <= 4096 and kin <= 512 as the
+        forward's, 512 16-bit steps and 64 blocks, which hold every tower
+        the forward's program does at sn64's other widths, while at H = 64
+        the walk back's H dz columns a step make it the shorter with a wide
+        latent: four 4096-wide injections fit 44 blocks; the weights
+        kernel's plan, which holds every tower the forward's program does;
+        and the depth the card's gates hold, ``GRAD_MAX_BLOCKS``: 32
         blocks).  Reads only the Python mirrors of the library's limits."""
         kin = max(-(-self.d_in // 16) * 16, 16)
         C = self.d_latent if self.n_lin_z > 0 else 0

@@ -551,9 +551,10 @@ def check_plan_image(plan: WPlan, z: Optional[torch.Tensor], data: DataOut) -> d
     copies to the card), and raise ValueError on the first read or write out
     of bounds: a task or map that differs from the plan's, a map past its
     array's rows, a GEMM CTA that finds no task, a (tile, split) that no CTA
-    or two take, an output row past the products' buffer, a partial or a
-    counter past what :func:`_launch_weights` allocates.  Returns the
-    counts walked."""
+    or two take, an output row past the products' buffer (a ragged last M
+    tile writes only its rows: lin_in's second at kin 144), a partial or a
+    counter past what :func:`_launch_weights` allocates.  Returns the counts
+    walked."""
     kin, H, C, n_blocks, n_lin_z = plan.key[:5]
     lim = kernel_limits(H)
     ptrs = tuple((z if a == "z" else getattr(data, a)).data_ptr() for a in plan.arrays)
@@ -701,8 +702,8 @@ def workspace_reference(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.Ten
         dz = torch.cat([pad(d) for d in split_views(gr.dz, NS, sb)])
     return DataOut(
         dz=dz, dx=gr.dx,
-        ws_act=torch.stack([pad(o) for o in ops]).to(dt),
-        ws_cot=torch.stack([pad(c.to(dt)) for c in planes]).to(dt),
+        ws_act=torch.stack([pad(o).to(dt) for o in ops]),
+        ws_cot=torch.stack([pad(c.to(dt)).to(dt) for c in planes]),
         ws_x=torch.cat([pad(xv.to(dt), kin) for xv in split_views(x, NS, sb)]).to(dt),
         ws_z=(torch.cat([pad(zv.to(dt)) for zv in split_views(z, NS, sb)]).to(dt)
               if NS > 1 and n_lin_z > 0 else None),
@@ -723,6 +724,8 @@ class DataLimits(NamedTuple):
     max_c: int  # the widest latent (injected in pieces of at most 512 columns, 8 at most)
     smem: int  # dynamic shared memory a CTA
     hidden: int  # the tower's width H the library is built for
+    max_k: int = rf.TILE_K  # the widest code (kin): the operand tile's 512 columns
+    max_blocks: int = 64  # the most blocks: a 16-bit step word's k
 
 
 def _data_mirror(H: int) -> DataLimits:
@@ -733,7 +736,7 @@ def _data_mirror(H: int) -> DataLimits:
     two 64 KB operand tiles."""
     lim = rf.TILE_LIMITS[H]
     return DataLimits(tile=64, threads=256, slot_floats=lim.slot_floats, stages=lim.stages,
-                      max_out=4, max_steps=256, max_c=4096, smem=lim.smem, hidden=H)
+                      max_out=4, max_steps=512, max_c=4096, smem=lim.smem, hidden=H)
 
 
 # What each width's library reports (data_limits), mirrored as WEIGHT_LIMITS is.
@@ -743,9 +746,9 @@ DATA_LIMITS = {H: _data_mirror(H) for H in rf.HIDDEN}
 @functools.lru_cache(maxsize=None)
 def data_limits(H: int) -> DataLimits:
     """What the data kernel of width H's library reports."""
-    out = (ctypes.c_int * 8)()
+    out = (ctypes.c_int * 10)()
     smem = _lib(H).resnetfc_bwd_data_limits(out)
-    return DataLimits(*out[:7], smem, out[7])
+    return DataLimits(*out[:7], smem, *out[7:])
 
 
 def dz_pieces(C: int, H: int) -> int:
@@ -770,7 +773,9 @@ def data_steps(n_blocks: int, n_lin_z: int, NS: int, pre: int, C: int, H: int) -
     columns a step).  34 at sn64 and one view, 36 at any view count; 40 and
     42 with the global encoder's C = 640, 52 and 54 with ResNet50's 1856;
     37 / 37 / 43 / 55 at H = 384 / 256 / 128 / 64 and one view, 235 at H =
-    64 with ResNet50's 3904 (61 walk-back steps an injection)."""
+    64 with ResNet50's 3904 (61 walk-back steps an injection); five more a
+    block: 319 at sn64's other widths and 62 blocks, 316 at 61 blocks and
+    NS > 1."""
     mv = int(NS > 1)
     shared = n_blocks - pre
     zs = n_lin_z * rf.latent_pieces(C)
@@ -782,10 +787,14 @@ def check_data_program(n_blocks: int, n_lin_z: int, NS: int, pre: int, limits: D
                        C: int) -> None:
     """Raise ValueError on a view count or a tower whose program
     ``resnetfc_bwd_data`` does not take: more than MAX_VIEWS views (a step's
-    view is 8 bits), or a stored program (:func:`data_steps`, the same at
-    every view count; at the width of ``limits``) past ``limits.max_steps``."""
+    view is 8 bits), more than ``limits.max_blocks`` blocks (a 16-bit step
+    word's k), or a stored program (:func:`data_steps`, the same at every
+    view count; at the width of ``limits``) past ``limits.max_steps``."""
     if NS > rf.MAX_VIEWS:
         raise ValueError(f"resnetfc_bwd_data takes at most {rf.MAX_VIEWS} views (NS = {NS})")
+    if n_blocks > limits.max_blocks:
+        raise ValueError(f"resnetfc_bwd_data takes at most {limits.max_blocks} blocks "
+                         f"(n_blocks = {n_blocks})")
     steps = data_steps(n_blocks, n_lin_z, NS, pre, C, limits.hidden)
     if steps > limits.max_steps:
         raise ValueError(f"resnetfc_bwd_data stores at most {limits.max_steps} steps a tile; "
@@ -794,15 +803,16 @@ def check_data_program(n_blocks: int, n_lin_z: int, NS: int, pre: int, limits: D
 
 # The deepest tower the route rule trains on the backward kernels:
 # chip_smoke.py's phase 18 holds rows 5a / 5b against their plain versions
-# at this depth (sn64's widths, 1 and 3 views, ragged and full).  The data
-# kernel's program holds 49 blocks and the weights kernel's table 62, and
-# deeper towers still meet the bar against their plain versions on their own
-# operands (to 49 blocks on an H100), but bf16's own drift through the deeper
-# tower takes the gate's comparison with an independent plain backward (corr
-# > 0.999) past its bar: at 7 blocks and 3 views in 2 of 24 seeded towers and
-# inputs, at 6 in none (scripts/torch_deep_checks.py --draws; PERF.md
-# section 7).
-GRAD_MAX_BLOCKS = 6
+# at this depth (sn64's widths, 1 and 3 views) with its planted faults, and
+# a train step on them against the plain f32 step batch by batch.  The data
+# kernel's program and the weights kernel's table hold every tower the
+# forward takes (62 blocks at sn64's widths), but deeper towers drift: at 48
+# blocks the kernels' step held the plain AMP step's own distance from the
+# f32 step on 5 of 8 batches (grad_norm up to 5.7% off), and past 48 their
+# max|d| against the plain backward on their own operands crossed its fixed
+# bar in 1-2 of 24 seeded towers (scripts/torch_deep_checks.py; PERF.md
+# section 6).  At 32 blocks every batch met the f32 step's guards.
+GRAD_MAX_BLOCKS = 32
 
 
 def check_grad_depth(n_blocks: int) -> None:
@@ -820,18 +830,18 @@ def check_data_widths(kin: int, H: int, C: int, n_lin_z: int, n_blocks: int, d_o
     multiple of 64 up to 512 but 448, one library each); with a latent, C not a
     multiple of 16 in [16,
     ``limits.max_c``] (the forward's envelope, 4096: pieces of at most 512
-    columns); kin past 128 or
-    not a multiple of 16; no block; more outputs than ``limits.max_out``; a
-    CTA past the card's shared memory."""
+    columns); kin past ``limits.max_k`` (512, the forward's) or not a
+    multiple of 16; no block; more outputs than ``limits.max_out``; a CTA
+    past the card's shared memory."""
     if H != limits.hidden:
         raise ValueError(f"the backward kernel of this library needs d_hidden {limits.hidden}, "
                          f"one library each of {rf.HIDDEN} (H={H})")
     if n_lin_z > 0 and (C % 16 or not 16 <= C <= limits.max_c):
         raise ValueError(f"the backward kernel needs d_latent a multiple of 16 in "
                          f"[16, {limits.max_c}] with a latent (C={C})")
-    if kin > 128 or kin % 16 or n_blocks < 1:
-        raise ValueError(f"backward kernel widths: kin <= 128, a multiple of 16, and n_blocks >= 1 "
-                         f"(kin={kin}, n_blocks={n_blocks})")
+    if not 16 <= kin <= limits.max_k or kin % 16 or n_blocks < 1:
+        raise ValueError(f"backward kernel widths: kin a multiple of 16 in [16, {limits.max_k}], "
+                         f"and n_blocks >= 1 (kin={kin}, n_blocks={n_blocks})")
     if not 1 <= d_out <= limits.max_out:
         raise ValueError(f"the backward kernel takes 1 to {limits.max_out} outputs (d_out={d_out})")
     if limits.smem > rf.MAX_SMEM_BYTES:

@@ -1,6 +1,7 @@
 """Whether the PyTorch port's forward kernels and its backward kernels give
 the same bits in several checkouts, at sn64's widths (d_hidden 512, C = 512)
-and at sn64's depth with d_hidden 384, 256, 128 and 64.
+and at sn64's depth with d_hidden 384, 256, 128 and 64, and at d_hidden 512
+with 6 blocks and with a 128-wide code (20 frequencies: kin 128).
 
     python3 scripts/torch_wide_latent_bits.py DIR_A DIR_B
 
@@ -15,8 +16,9 @@ gathers ``resnetfc_gather`` / ``resnetfc_gather_mv`` (both codes) on seeded
 ``resnetfc_bwd_data`` and ``resnetfc_bwd_weights`` (``bwd_data`` with dx,
 then ``bwd_weights``) on the same tower at 2000 and 49,152 points from one
 view and at SB 2 x NS 3 x 333 and SB 4 x NS 3 x 1536 rows with a seeded
-cotangent; the same at d_hidden 384, 256, 128 and 64 at 2000 points from one
-view and at SB 2 x NS 3 x 333 rows; and prints one JSON line of each
+cotangent; the same at d_hidden 384, 256, 128 and 64, and with 6 blocks and
+with the 128-wide code, at 2000 points from one view and at SB 2 x NS 3 x
+333 rows; and prints one JSON line of each
 output's SHA-256 (the first 16 hex digits): the forwards' outputs, and of
 the backward the stashed workspace, the per-32-row sums, dz, dx and every
 gradient.  The script is
@@ -44,27 +46,26 @@ def child() -> dict:
 
     dev = torch.device("cuda")
     rf.build_all(("fwd", "bwd"), WIDTHS)
-    W, f, p, m = PositionalEncoding(num_freqs=6, d_in=3, freq_factor=1.5,
-                                    include_input=True).flat_arrays(tail=3)
-    code = tuple(torch.from_numpy(a).to(dev) for a in (W, f, p, m))
     out = {}
-    for H in WIDTHS:
+    for H, nb, freqs, tag in TOWERS:
+        W, f, p, m = PositionalEncoding(num_freqs=freqs, d_in=3, freq_factor=1.5,
+                                        include_input=True).flat_arrays(tail=3)
+        code = tuple(torch.from_numpy(a).to(dev) for a in (W, f, p, m))
         g = torch.Generator().manual_seed(0)
-        mod = ResnetFC(d_in=W.shape[1], d_out=4, n_blocks=5, d_latent=512, d_hidden=H,
+        mod = ResnetFC(d_in=W.shape[1], d_out=4, n_blocks=nb, d_latent=512, d_hidden=H,
                        combine_layer=3, impl="cuda")
         with torch.no_grad():
             for name, prm in mod.named_parameters():
                 std = 0.05 if name.endswith("bias") else prm.shape[1] ** -0.5
                 prm.copy_(torch.randn(prm.shape, generator=g) * std)
         tw = mod.to(dev).tower(dev)
-        out.update(hashes(tw, code, dev, SHAPES if H == 512 else NARROW_SHAPES,
-                          "" if H == 512 else f"d_hidden {H} "))
+        out.update(hashes(tw, nb, code, dev, SHAPES if not tag else NARROW_SHAPES, tag))
     return out
 
 
-def hashes(tw, code, dev, shapes, tag: str) -> dict:
-    """The hashes of every kernel's outputs on the tower ``tw`` at ``shapes``
-    (NS, SB, B), each key prefixed with ``tag``."""
+def hashes(tw, nb, code, dev, shapes, tag: str) -> dict:
+    """The hashes of every kernel's outputs on the ``nb``-block tower ``tw``
+    at ``shapes`` (NS, SB, B), each key prefixed with ``tag``."""
     import torch
 
     from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
@@ -86,12 +87,13 @@ def hashes(tw, code, dev, shapes, tag: str) -> dict:
         w[:, 4:] = 0.0
         for label, x in (("encoded", enc), ("code", rc)):
             with torch.no_grad():
-                y = (rf.resnetfc_dense(z, x, tw, 5, True) if NS == 1
-                     else rf.resnetfc_dense_mv(z, x, tw, 5, NS, 3, sb, True))
+                y = (rf.resnetfc_dense(z, x, tw, nb, True) if NS == 1
+                     else rf.resnetfc_dense_mv(z, x, tw, nb, NS, 3, sb, True))
                 yg = None
                 if sb == 1:  # the fused gathers take one object
-                    yg = (rf.resnetfc_gather(idx, w, tables[0].contiguous(), x, tw, 5, True)
-                          if NS == 1 else rf.resnetfc_gather_mv(idx, w, tables, x, tw, 5, 3, True))
+                    yg = (rf.resnetfc_gather(idx, w, tables[0].contiguous(), x, tw, nb, True)
+                          if NS == 1 else rf.resnetfc_gather_mv(idx, w, tables, x, tw, nb, 3,
+                                                                True))
             torch.cuda.synchronize()
             key = f"{tag}NS {NS} SB {sb} x {B} {label}"
             out[key] = digest(y)
@@ -101,8 +103,8 @@ def hashes(tw, code, dev, shapes, tag: str) -> dict:
             continue
         kw = dict(NS=NS, sb=sb, combine_layer=3) if NS > 1 else {}
         g = torch.randn(4, sb * B, generator=gi).to(dev)
-        data = rv.bwd_data(g, z, enc, tw, 5, True, **kw)
-        gr = rv.bwd_weights(z, data, tw, 5)
+        data = rv.bwd_data(g, z, enc, tw, nb, True, **kw)
+        gr = rv.bwd_weights(z, data, tw, nb)
         torch.cuda.synchronize()
         for name in ("ws_act", "ws_cot", "ws_x", "ws_z", "rows"):
             if getattr(data, name) is not None:
@@ -114,6 +116,10 @@ def hashes(tw, code, dev, shapes, tag: str) -> dict:
 
 # the tower widths hashed: sn64's, then the narrower ones at fewer shapes
 WIDTHS = (512, 384, 256, 128, 64)
+# the towers: (d_hidden, blocks, code frequencies, key prefix): sn64's, the
+# narrower widths, 6 blocks and a 128-wide code (kin 128) at sn64's width
+TOWERS = tuple((H, 5, 6, "" if H == 512 else f"d_hidden {H} ") for H in WIDTHS) + (
+    (512, 6, 6, "6 blocks "), (512, 5, 20, "kin 128 "))
 # (NS, SB, B): the shapes at d_hidden 512, and at the narrower widths
 SHAPES = ((1, 1, 2000), (1, 1, 160), (1, 1, 49152), (2, 1, 4096), (3, 1, 2000), (3, 2, 333),
           (3, 4, 1536))

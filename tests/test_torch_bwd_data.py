@@ -35,11 +35,12 @@ from pixelnerf_tpu_torch.utils.jax_convert import from_jax_variables
 
 # what resnetfc_bwd_data_kernel fixes, by hand (the library reports it on the
 # card): 64-point tiles, 256 threads, a 128 KB multi-view slot, 3 stages of
-# 32 KB, at most 4 outputs and 256 steps a tile, a latent up to 4096 wide;
-# two 64 KB operand tiles + the ring + 1 KB slack
+# 32 KB, at most 4 outputs and 512 (16-bit) steps a tile, a latent up to
+# 4096 wide, a code up to 512, 64 blocks; two 64 KB operand tiles + the ring
+# + 1 KB slack
 LIMITS = rv.DataLimits(tile=64, threads=256, slot_floats=32768, stages=3, max_out=4,
-                       max_steps=256, max_c=4096, smem=2 * 65536 + 3 * 32768 + 1024,
-                       hidden=512)
+                       max_steps=512, max_c=4096, smem=2 * 65536 + 3 * 32768 + 1024,
+                       hidden=512, max_k=512, max_blocks=64)
 # the narrower libraries' (d_hidden 384, 256, 128 and 64): a slot of the 64 x
 # H stream (H / 4 f32 a thread), the same 96 KB ring in 3 stages of 32 KB, 6
 # of 16 KB or 12 of 8 KB
@@ -246,7 +247,7 @@ def test_data_limits_fit_the_card(H):
      "d_hidden 512, one library each of \\(64, 128, 192, 256, 320, 384, 512\\)"),
     (48, 256, 512, 3, 5, 4, "this library needs d_hidden 512"),  # another width's library
     (48, 512, 4112, 3, 5, 4, "d_latent a multiple of 16 in \\[16, 4096\\]"),
-    (144, 512, 512, 3, 5, 4, "kin <= 128"),
+    (528, 512, 512, 3, 5, 4, "kin a multiple of 16 in \\[16, 512\\]"),
     (40, 512, 512, 3, 5, 4, "multiple of 16"),
     (48, 512, 512, 0, 0, 4, "n_blocks >= 1"),
     (48, 512, 512, 3, 5, 5, "1 to 4 outputs"),
@@ -299,14 +300,14 @@ NOT_PRODUCTS = (FOLD, T_OUT, GB, DVIEW, G_IN)
 
 
 def _step(kind, k, aux):
-    return kind | (k << 4) | (aux << 12)
+    return kind | (k << 4) | (aux << 10)
 
 
 def _flat_program(nb, nlz, NS, pre, pieces=1, dz_steps=None):
     """The flat program: every view's recompute, the shared steps, every
     view's walk back, written out in turn; each injection ``pieces`` steps
     in the recompute (Z_FWD's aux the piece) and ``dz_steps`` (default
-    ``pieces``) in the walk back (Z_BWD's step above its first bit)."""
+    ``pieces``) in the walk back (Z_BWD's aux the dz step)."""
     dz_steps = pieces if dz_steps is None else dz_steps
     mv, out = NS > 1, []
     for v in range(NS):
@@ -326,16 +327,14 @@ def _flat_program(nb, nlz, NS, pre, pieces=1, dz_steps=None):
     for v in range(NS):
         if mv:
             out.append((_step(DVIEW, 0, 0), v))
-        first_z = True
         for k in range(pre - 1, -1, -1):
             out.append((_step(GB, k, 0), v))
             if k + 1 < nlz:
-                out += [(_step(Z_BWD, k + 1, int(first_z) | j << 1), v) for j in range(dz_steps)]
-                first_z = False
+                out += [(_step(Z_BWD, k + 1, j), v) for j in range(dz_steps)]
             out += [(_step(B1_BWD, k, 0), v), (_step(B0_BWD, k, 0), v)]
         out.append((_step(G_IN, 0, 0), v))
         if nlz > 0:
-            out += [(_step(Z_BWD, 0, int(first_z) | j << 1), v) for j in range(dz_steps)]
+            out += [(_step(Z_BWD, 0, j), v) for j in range(dz_steps)]
     return out
 
 
@@ -445,7 +444,7 @@ def test_check_data_widths_takes_the_forwards_latent_widths(C, H):
     encoder's 640 (two pieces), ResNet50's 832, 1856 and 3904 (2, 4 and 8
     pieces), the widest; at sn64's depth the program fits at every tower
     width (at d_hidden 128 and C = 1024, 8 dz steps an injection; 16 at
-    d_hidden 64, 61 at 64 and C = 3904: 235 steps of 256, 64 at 4096)."""
+    d_hidden 64, 61 at 64 and C = 3904: 235 steps of 512, 64 at 4096)."""
     rv.check_data_widths(48, H, C, 3, 5, 4, LIMITS_AT[H])
     for NS, pre in ((1, 5), (3, 3), (255, 3)):
         rv.check_data_program(5, 3, NS, pre, LIMITS_AT[H], C)

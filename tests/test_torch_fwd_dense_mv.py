@@ -196,7 +196,7 @@ IN_FWD, Z_FWD, B0_FWD, B1_FWD, FOLD = range(5)
 
 
 def _step(kind, k, aux):
-    return kind | (k << 4) | (aux << 12)
+    return kind | (k << 4) | (aux << 10)
 
 
 def _flat_program(nb, nlz, NS, pre):
@@ -230,7 +230,7 @@ def _body_walk(prog, NS, pre):
     out, si, end = [], 0, len(prog) | ((NS - 1) << 12)
     while si < end:
         s = prog[si & 0xFFF]
-        shared = s & 15 in (B0_FWD, B1_FWD) and (s >> 4) & 255 >= pre
+        shared = s & 15 in (B0_FWD, B1_FWD) and (s >> 4) & 63 >= pre
         out.append((s, None if shared else si >> 12))
         if s & 15 == FOLD and (si >> 12) + 1 < NS:
             si = (((si >> 12) + 1) << 12) - 1

@@ -59,16 +59,20 @@ SAMPLES = dict(n_coarse=8, n_fine=6, n_fine_depth=3)
 jgs = importlib.import_module("pixelnerf_tpu.ops.grid_sample")
 
 
-def _conf(parse_file, H=H, n_blocks=None):
+def _conf(parse_file, H=H, n_blocks=None, num_freqs=None):
     """sn64's conf at d_hidden H (64 here; other widths' slices read it
-    too), and ``n_blocks`` blocks when given, through one package's parser:
-    a random encoder, the test's few samples a ray."""
+    too), and ``n_blocks`` blocks and a code of ``num_freqs`` frequencies
+    over (xyz, viewdir) (``use_code_viewdirs``) when given, through one
+    package's parser: a random encoder, the test's few samples a ray."""
     conf = parse_file(str(SN64))
     conf.put("model.encoder.pretrained", False)
     for head in ("mlp_coarse", "mlp_fine"):
         conf.put(f"model.{head}.d_hidden", H)
         if n_blocks is not None:
             conf.put(f"model.{head}.n_blocks", n_blocks)
+    if num_freqs is not None:
+        conf.put("model.use_code_viewdirs", True)
+        conf.put("model.code.num_freqs", num_freqs)
     for k, v in SAMPLES.items():
         conf.put(f"renderer.{k}", v)
     return conf
@@ -298,14 +302,15 @@ def test_train_step_at_d_hidden_64_matches_jax_trainer(tmp_path, monkeypatch):
     train_step_matches_jax_trainer(tmp_path, monkeypatch, H)
 
 
-def train_step_matches_jax_trainer(tmp_path, monkeypatch, H, n_blocks=None):
+def train_step_matches_jax_trainer(tmp_path, monkeypatch, H, n_blocks=None, num_freqs=None):
     """One ``-V 1`` trainer step of sn64's conf at d_hidden H (and
-    ``n_blocks`` blocks) on the kernel route against the JAX trainer; returns
-    the port's trainer."""
+    ``n_blocks`` blocks, a code of ``num_freqs`` frequencies over (xyz,
+    viewdir)) on the kernel route against the JAX trainer; returns the
+    port's trainer."""
     monkeypatch.setattr(jgs, "_ONEHOT_BWD_MAX_ROWS", 0)  # read when the JAX step is traced
     jds = JSyntheticDataset(n_objs=3, n_views=4, image_size=IMG)
     sample = jds[0]
-    jconf = _conf(jhocon.parse_file, H, n_blocks)
+    jconf = _conf(jhocon.parse_file, H, n_blocks, num_freqs)
     jnet = jmake_model(jconf["model"], mlp_impl="xla")
     variables = jax.jit(jnet.init)(
         jax.random.PRNGKey(0), jnp.asarray(sample["images"][None, :1]),
@@ -314,7 +319,7 @@ def train_step_matches_jax_trainer(tmp_path, monkeypatch, H, n_blocks=None):
     variables = _bump(variables, np.random.default_rng(3))
     tr_j = JTrainer(jnet, variables, jds, jds, JNeRFRenderer.from_conf(jconf["renderer"]),
                     _Args(tmp_path / "j"), jconf)
-    conf = _conf(hocon.parse_file, H, n_blocks)
+    conf = _conf(hocon.parse_file, H, n_blocks, num_freqs)
     net = make_model(conf["model"], mlp_impl="cuda", device="cpu", diff_mode=True)
     net.load_state_dict(from_jax_variables(variables))
     ds = SyntheticDataset(n_objs=3, n_views=4, image_size=IMG)

@@ -60,7 +60,8 @@ def _tower(H, nb=5, impl="auto"):
 def test_route_takes_every_width_up_to_512(H):
     """sn64's other widths (the 512-wide latent in blocks 0-2, the views'
     mean at block 3) at d_hidden H take the kernels under ``auto`` on a card,
-    forward and under grad, from 1 and 3 views, and at 6 blocks under grad:
+    forward and under grad, from 1 and 3 views, and at the gated depth
+    (``GRAD_MAX_BLOCKS``) under grad:
     192 and 320 on their own libraries' mirrors, any other width (448 too)
     on the next library's.  No library is built or loaded."""
     for nb in (5, rv.GRAD_MAX_BLOCKS):

@@ -15,15 +15,15 @@ envelope, on the CPU.
   Under grad the backward kernels take the forward's latent widths (16 to
   4096, a multiple of 16): the global encoder's 640, the ConvEncoder's 128,
   1040 and ResNet50's 1856 train on the kernels; 4112 and 24 stay plain, and
-  so does 3904 at d_hidden 64 with a fourth injection (the data kernel's
-  program: 61 walk-back steps an injection).  The forward and the
+  so does 3904 at d_hidden 64 with a fourth injection and 47 blocks (the
+  data kernel's program: 61 walk-back steps an injection).  The forward and the
   backward kernels take every multiple of 64 up to 512 but 448 (a library
   each of each) and any other width up to 512 zero-padded on the next one's:
   narrower towers render and train on them; 576 and 1024 stay plain.  Under
-  grad a tower trains on the kernels to the depth the card's
-  gates hold (``GRAD_MAX_BLOCKS``, 6 blocks), inside the data kernel's
-  program (49 blocks at sn64's other widths) and the weights kernel's plan;
-  deeper ones keep the forward kernels and train plain.
+  grad a tower trains on the kernels to the depth the card's gates hold
+  (``GRAD_MAX_BLOCKS``, 32 blocks), inside the data kernel's program (512
+  16-bit steps) and the weights kernel's plan; deeper ones, and a tower past
+  the data kernel's program, keep the forward kernels and train plain.
 * The steepened field of the eval CLIs' replay (its sigma row x 50, shifted
   to leave 1/32 of the points occupied) read past the per-kernel bar on the
   card: the JAX kernel's own bf16 arithmetic reads alike on it.
@@ -174,17 +174,19 @@ CUDA = torch.device("cuda")  # only compared by type: nothing is allocated on it
     (dict(d_hidden=1024), 3, False),  # past it too
     (dict(d_hidden=576), 1, True),  # past the widest library, under grad
     (dict(d_hidden=1024), 3, True),
-    (dict(d_in=144), 1, True),  # kin 144 > 128: the data kernel's code
-    (dict(n_blocks=50), 1, True),  # the data kernel's program: 49 blocks at most
-    (dict(n_blocks=7), 1, True),  # past the depth the card's gates hold (6 blocks)
-    (dict(n_blocks=49), 3, True),  # inside the data kernel's program, past the gates
+    (dict(d_in=520), 1, True),  # kin 528 > 512: past the operand tile, forward and backward
+    # the data kernel's program: 516 steps of 512 at d_hidden 64, four
+    # 4096-wide injections and 45 blocks
+    (dict(d_latent=4096, d_hidden=64, combine_layer=4, n_blocks=45), 1, True),
+    (dict(n_blocks=33), 1, True),  # past the depth the card's gates hold (32 blocks)
+    (dict(n_blocks=61), 3, True),  # inside the forward's programs, past the gates
     (dict(d_latent=4112), 1, True),  # past the kernels' 4096, under grad
     (dict(d_latent=4112), 3, True),
     (dict(d_latent=24), 1, True),  # not a multiple of 16
     (dict(d_latent=4112), 1, False),  # past the forward's 4096
     # ResNet50's 3904 at d_hidden 64 with a fourth injection: 61 walk-back
-    # steps each, the data kernel's program 304 steps of 256 (three fit)
-    (dict(d_latent=3904, d_hidden=64, combine_layer=4), 1, True),
+    # steps each, the data kernel's program 514 steps of 512 at 47 blocks
+    (dict(d_latent=3904, d_hidden=64, combine_layer=4, n_blocks=47), 1, True),
 ])
 def test_route_sends_towers_outside_the_envelope_to_the_plain_route(kw, NS, grad):
     """Under ``auto`` on a CUDA device a tower the kernels do not take is
@@ -297,7 +299,8 @@ def test_mirrored_limits_are_the_kernels_limits_by_hand():
     64-point tile, 256 threads, 3 ring stages of 32 KB, 4 outputs, 128
     stored steps, a 512-wide code, a 4096-wide latent in the dense kernels
     and in the gathers' tables, two 64 KB operand tiles (the data kernel:
-    256 steps, the same 4096-wide latent); the
+    512 16-bit steps, the same 4096-wide latent and 512-wide code, 64
+    blocks: a step's k); the
     weights kernel's 128 x 256 tile, 24 splits, 256 tensor maps and 128
     products (every tower the forward's 128 steps take, in a table in device
     memory).  The narrower libraries keep the operand tiles, the code's
@@ -324,13 +327,13 @@ def test_mirrored_limits_are_the_kernels_limits_by_hand():
     }
     assert tuple(rf.TILE_LIMITS) == rf.HIDDEN
     assert rv.DATA_LIMITS == {
-        64: rv.DataLimits(64, 256, 4096, 12, 4, 256, 4096, 230400, 64),
-        128: rv.DataLimits(64, 256, 8192, 6, 4, 256, 4096, 230400, 128),
-        192: rv.DataLimits(64, 256, 12288, 4, 4, 256, 4096, 230400, 192),
-        256: rv.DataLimits(64, 256, 16384, 3, 4, 256, 4096, 230400, 256),
-        320: rv.DataLimits(64, 256, 20480, 4, 4, 256, 4096, 214016, 320),
-        384: rv.DataLimits(64, 256, 24576, 6, 4, 256, 4096, 230400, 384),
-        512: rv.DataLimits(64, 256, 32768, 3, 4, 256, 4096, 230400, 512),
+        64: rv.DataLimits(64, 256, 4096, 12, 4, 512, 4096, 230400, 64, 512, 64),
+        128: rv.DataLimits(64, 256, 8192, 6, 4, 512, 4096, 230400, 128, 512, 64),
+        192: rv.DataLimits(64, 256, 12288, 4, 4, 512, 4096, 230400, 192, 512, 64),
+        256: rv.DataLimits(64, 256, 16384, 3, 4, 512, 4096, 230400, 256, 512, 64),
+        320: rv.DataLimits(64, 256, 20480, 4, 4, 512, 4096, 214016, 320, 512, 64),
+        384: rv.DataLimits(64, 256, 24576, 6, 4, 512, 4096, 230400, 384, 512, 64),
+        512: rv.DataLimits(64, 256, 32768, 3, 4, 512, 4096, 230400, 512, 512, 64),
     }
     assert rv.WEIGHT_LIMITS == {64: rv.KernelLimits(128, 64, 24, 256, 128),
                                 128: rv.KernelLimits(128, 128, 24, 256, 128),
