@@ -200,7 +200,7 @@ one line each:
     (C = 128, a 4096-row map) and the nearest lookup from view 0 on the
     dense kernel; ImplicitNet heads (5 x 512) on the plain route with no
     launch, a d_hidden 256 tower on the dense kernel (its 256-wide library,
-    under ``PIXELNERF_FUSED_GATHER_MAX_ROWS=0``), and a d_hidden 576 tower
+    under ``PIXELNERF_FUSED_GATHER_MAX_ROWS=0``), and a d_hidden 1040 tower
     (past the widest library) refused under ``impl='cuda'``; every render >= 40 dB against
     the plain route and its kernel calls replayed against their plain
     versions at the bar of 3; the dense and multi-view dense kernels and
@@ -233,7 +233,11 @@ one line each:
     multi-view gather) and (0, 1, 2) (the multi-view dense kernel), each
     also with ``PIXELNERF_DEFER_CODE=1`` (its CODE twin), each launching
     its kernel from the width's library and >= 40 dB against the plain f32
-    route on the same draws, every frame showing the object (each head's
+    route on the same draws -- or, where the kernels' plain versions (bf16
+    operands, "bf16 alone") on the same weights themselves read below 40
+    dB against it, >= 40 dB against that bf16-alone frame and no more than
+    FRAME_ALONE_SLACK_DB below bf16 alone's reading (``frame_gate``) --
+    every frame showing the object (each head's
     density shaped on each view set's scene, ``show_object``: 1/4 of frame
     0's points occupied, or more until the plain route's frame shows it),
     its kernel calls replayed against their plain versions, then timed in
@@ -252,7 +256,14 @@ one line each:
     pixelnerf_tpu_torch.eval.eval -F dvr -P "0"`` and ``-P "0 1 2"`` at
     d_hidden 256 with ``PIXELNERF_DEFER_CODE=1`` on the NMR fixture (a conf
     file including sn64's, a checkpoint of the phase's weights), launching
-    the gather's and the multi-view dense kernel's CODE twins;
+    the gather's and the multi-view dense kernel's CODE twins; then its
+    wide part (``wide_phase``): the same frames, kernel checks and times at
+    d_hidden 1024 (the forward's 1024 library: a 64-point tile on a
+    cluster of two CTAs) and 640 (zero-padded onto it: the encoded routes'
+    frames, the fine pass, also timed beside its own unpadded plain
+    version), ``eval -P "0"`` at 1024 on the fused
+    gather, and one ``-V 1`` train CLI step at 1024 on the plain field (no
+    backward library past 512: no ``resnetfc_bwd_*`` launch);
 18. narrow and deep backward: rows 5a / 5b at d_hidden 384, 256, 128, 64,
     320, 192 and 200 (sn64's tower, C = 512, seeded) from 1 and 3 views at
     a ragged B (SB 2 x 1000, SB 2 x NS 3 x 333) and at the train step's
@@ -290,7 +301,8 @@ one line each:
     -V 1 and -V 3 against it where the
     plain step under AMP meets the guards itself, else within
     ``PARITY_MARGIN`` of its readings (``step_parity``'s ``plain_amp``); and
-    d_hidden 576 and 1024 towers, past the widest library, a 520-wide code,
+    d_hidden 576 and 1024 towers, past the widest backward library (512;
+    both keep the forward's 1024 library), a 520-wide code,
     49- and 62-block towers, past the depth these gates hold, and a d_hidden
     64 tower with four 4096-wide injections at 45 blocks, past the data
     kernel's program, under grad, plain under ``auto`` and refused under
@@ -2634,11 +2646,11 @@ def options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_ro
 
     t_phase = time.perf_counter()
     mirrors = {**{f"dense (d_hidden {H})": (rf.dense_limits(H), rf.TILE_LIMITS[H])
-                  for H in rf.HIDDEN},
+                  for H in rf.FWD_HIDDEN},
                **{f"data (d_hidden {H})": (rv.data_limits(H), rv.DATA_LIMITS[H])
-                  for H in rf.HIDDEN},
+                  for H in rf.BWD_HIDDEN},
                **{f"weights (d_hidden {H})": (rv.kernel_limits(H), rv.WEIGHT_LIMITS[H])
-                  for H in rf.HIDDEN}}
+                  for H in rf.BWD_HIDDEN}}
     log("options: the route rule's mirrors of the kernels' limits against the libraries' "
         + json.dumps({k: [list(a), a == b] for k, (a, b) in mirrors.items()}))
     if any(a != b for a, b in mirrors.values()):
@@ -2717,14 +2729,14 @@ def options_phase(conf, src, src3, rays, dev, smi, records, code_records, nmr_ro
     # it rather than launching
     from pixelnerf_tpu_torch.models.resnetfc import ResnetFC
 
-    odd = ResnetFC(d_in=42, d_out=4, n_blocks=5, d_latent=512, d_hidden=576, combine_layer=3,
+    odd = ResnetFC(d_in=42, d_out=4, n_blocks=5, d_latent=512, d_hidden=1040, combine_layer=3,
                    impl="cuda").to(dev)
     try:
         odd._kernel_route((1, 64), dev)
         refused = None
     except ValueError as e:
         refused = str(e)
-    log(f"options: a d_hidden 576 tower under impl='cuda' raises: {refused!r}")
+    log(f"options: a d_hidden 1040 tower under impl='cuda' raises: {refused!r}")
     if refused is None:
         raise SystemExit("options: impl='cuda' took a tower outside the kernels' widths")
     del odd
@@ -2870,7 +2882,7 @@ NARROW_EVAL = (("0", "resnetfc_fwd_gather_code"), ("0 1 2", "resnetfc_fwd_dense_
 
 
 def forward_check(tw, tables, code_arrays, gen, case, records, code_records, smi, label,
-                  twin=None) -> None:
+                  twin=None, plain_twin=None) -> None:
     """Rows 1-4 and their CODE twins (row 6) of the tower ``tw`` (sn64's:
     the latent in blocks 0-2, the views' mean at block 3; any width H and
     latent C the kernels take) on (NS, T, C) ``tables`` at one shape
@@ -2883,8 +2895,11 @@ def forward_check(tw, tables, code_arrays, gen, case, records, code_records, smi
     twin, this, this, the twin) with their plain, cuBLAS and bound times;
     or a list of such twins, each timed in turns beside it (a native width
     beside d_hidden 512 and beside itself zero-padded to the next library's
-    width).  A padded tower's FLOP and bound are its own width's
-    (``tw.d_hidden``).  Logs a line a variant and exits on a failure."""
+    width); with ``plain_twin`` (a zero-padded ``tw``'s own tower,
+    unpadded) also beside that tower's plain version in turns (the plain
+    version, this, this, the plain version).  A padded tower's FLOP and
+    bound are its own width's (``tw.d_hidden``).  Logs a line a variant and
+    exits on a failure."""
     from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
     from pixelnerf_tpu_torch.ops.grid_sample import bilinear_taps
     from pixelnerf_tpu_torch.ops.replay import agree
@@ -3013,6 +3028,20 @@ def forward_check(tw, tables, code_arrays, gen, case, records, code_records, smi
                         "bound_ms": b_ms, "bound_by": b_by, "library_ms": library_ms,
                         "tflops": flops / ms1 / 1e9, "share_of_bound": b_ms / ms1,
                         "points": B_out, "views": NS, "max_abs_err": d, "corr": corr}
+                if plain_twin is not None:
+                    t = {"plain": [], "this": []}
+                    for which in ("plain", "this", "this", "plain"):
+                        t[which].append(cuda_ms(
+                            lambda: rf.resnetfc_reference(
+                                z, xi, plain_twin, nb, compute_dtype=torch.bfloat16, NS=NS, sb=sb,
+                                combine_layer=cl if NS > 1 else None) if which == "plain"
+                            else call(tw, tabs, z, xi), 2))
+                    ms1, ms2 = (sum(t[k]) / 2 for k in ("this", "plain"))
+                    line += (f"; in turns beside its own unpadded plain version (d_hidden "
+                             f"{plain_twin.d_hidden}) {ms1:.4f} ms beside {ms2:.4f} "
+                             f"({ms1 / ms2:.4f}x)")
+                    rec[twins[0][1][0]][twins[0][1][1]].update(
+                        ms_beside_unpadded_plain=ms1, unpadded_plain_ms_in_turns=ms2)
                 line += (f"; {flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.3f} of the bound; "
                          f"plain_ms {plain_ms:.4f}; library_ms {library_ms:.4f} (cuBLAS bf16 "
                          f"chain{', the lookup in torch' if gather else ''}); bound_ms "
@@ -3039,6 +3068,174 @@ def narrow_conf(base, H: int, n_blocks: int = 5):
     return c
 
 
+# frame 0's routes: the dense route (no fused gather), the deferred code
+FRAME_DENSE = {"PIXELNERF_FUSED_GATHER_MAX_ROWS": "0"}
+FRAME_CODE = {"PIXELNERF_DEFER_CODE": "1"}
+
+
+def frame_routes(src, src3):
+    """Frame 0's routes, (source, views, env, the kernel its render must
+    launch): the fused gather (NS 1), the dense route, the multi-view gather
+    (NS 2) and the multi-view dense kernel (NS 3), then each with the
+    deferred code."""
+    routes = [(src, (0,), {}, "resnetfc_fwd_gather"),
+              (src, (0,), FRAME_DENSE, "resnetfc_fwd_dense"),
+              (src3, (0, 1), {}, "resnetfc_fwd_gather_mv"),
+              (src3, (0, 1, 2), {}, "resnetfc_fwd_dense_mv")]
+    return routes + [(s, v, dict(e, **FRAME_CODE), k + "_code") for s, v, e, k in routes]
+
+
+def render_frame0(model, c, s, views, env, rays, dev):
+    """Frame 0 of ``model`` (conf ``c``) from source ``s``'s ``views`` under
+    the environment ``env``: (the frame, its seconds, the forward kernels'
+    launches)."""
+    from pixelnerf_tpu_torch import entry
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+
+    restore = _env(env)
+    try:
+        rf.reset_launches()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out, _ = entry.render_ring(model, c, s, rays, torch.Generator(device=dev).manual_seed(SEED),
+                                   RAYS_PER_STEP, views=views)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0, {k: v for k, v in rf.LAUNCHES.items() if v}
+    finally:
+        restore()
+
+
+def route_label(views, env) -> str:
+    return (f"views {list(views)}" + (", dense route" if FRAME_DENSE.keys() & env.keys() else "")
+            + (", deferred code" if FRAME_CODE.keys() & env.keys() else ""))
+
+
+def width_label(H: int) -> str:
+    """A width, and the library a padded width is packed onto."""
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+
+    L = rf.library_width(H)
+    return f"{H}" + (f" (on the {L} library, zero-padded)" if L != H else "")
+
+
+def live_heads(conf, c, dev):
+    """sn64's model at conf ``c`` on the kernel route (``auto``) and the
+    plain route (``torch``), the same seeded weights, every block live (fc_1
+    ~ N(0, 0.02^2)), as the render phases' model."""
+    from pixelnerf_tpu_torch import entry
+
+    models = {impl: entry.build_model(c, dev, mlp_impl=impl, seed=SEED) for impl in ("auto", "torch")}
+    g = torch.Generator().manual_seed(SEED + 1)
+    with torch.no_grad():
+        for mlp in (models["auto"].mlp_coarse, models["auto"].mlp_fine):
+            for blk in mlp.blocks:
+                blk.fc_1.weight.copy_(0.02 * torch.randn(blk.fc_1.weight.shape, generator=g))
+    models["torch"].load_state_dict(models["auto"].state_dict())
+    return models
+
+
+# A kernel frame's reading against the plain f32 route may fall this far
+# below what bf16 alone reads there (the most seen: 0.055 dB, at d_hidden
+# 1024), where bf16 alone misses 40 dB (frame_gate)
+FRAME_ALONE_SLACK_DB = 0.5
+
+
+class bf16_alone:
+    """Within it, the four forward wrappers of ``resnetfc_fused`` compute
+    their plain versions at bf16 operands (as ``forward_check``'s plain
+    version: the latent looked up and rounded to bf16, then
+    ``resnetfc_reference`` at ``compute_dtype=bf16``) on the card, launching
+    nothing: the kernels' rounding without the kernels."""
+
+    def __enter__(self):
+        from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+
+        b16 = torch.bfloat16
+        self.rf = rf
+        self.saved = {n: getattr(rf, n) for n in ("resnetfc_dense", "resnetfc_gather",
+                                                 "resnetfc_dense_mv", "resnetfc_gather_mv")}
+        rf.resnetfc_dense = lambda z, x, t, nb, planar_out=True: rf.resnetfc_reference(
+            z, x, t, nb, planar_out, compute_dtype=b16)
+        rf.resnetfc_gather = lambda idx, w, table, x, t, nb, planar_out=True: (
+            rf.resnetfc_reference(rf.gather_reference(idx, w, table, b16), x, t, nb, planar_out,
+                                  compute_dtype=b16))
+        rf.resnetfc_dense_mv = lambda z, x, t, nb, NS, cl, sb=1, planar_out=True: (
+            rf.resnetfc_reference(z, x, t, nb, planar_out, compute_dtype=b16, NS=NS, sb=sb,
+                                  combine_layer=cl))
+        rf.resnetfc_gather_mv = lambda idx, w, tables, x, t, nb, cl, planar_out=True: (
+            rf.resnetfc_reference(rf.gather_reference(idx, w, tables, b16), x, t, nb,
+                                  planar_out, compute_dtype=b16, NS=tables.shape[0],
+                                  combine_layer=cl))
+        return self
+
+    def __exit__(self, *exc):
+        for n, f in self.saved.items():
+            setattr(self.rf, n, f)
+
+
+def frame_gate(p: float, p_alone: float, p_kernel: float) -> bool:
+    """Whether a kernel frame reading ``p`` dB against the plain f32 route
+    passes: >= 40 dB; or, where bf16 alone (the kernels' plain versions on
+    the same weights) reads ``p_alone`` < 40 dB there -- a reading no bf16
+    tower can reach on these weights -- the kernel frame ``p_kernel`` >= 40
+    dB against the bf16-alone frame and ``p`` no more than
+    FRAME_ALONE_SLACK_DB below ``p_alone``."""
+    return p >= 40.0 or (p_alone < 40.0 and p_kernel >= 40.0
+                         and p >= p_alone - FRAME_ALONE_SLACK_DB)
+
+
+def frames_on_every_route(H, c, models, routes, rays, dev, smi, launches, tag) -> None:
+    """Frame 0 of the d_hidden H model on every route of ``routes``, each
+    view set's scene shaped first so that the plain frame shows the object
+    (show_object): the kernel route launching its kernel only, against the
+    plain f32 route and against bf16 alone at ``frame_gate``, not blank;
+    the launches kept in ``launches`` by kernel.  Exits on a failure."""
+    for s0, views0 in {(id(s), v): (s, v) for s, v, _, _ in routes}.values():
+        # each head's density shaped on this view set's scene, so that its
+        # plain frame 0 shows the object: a blank frame is the same on both
+        # routes whatever the kernels
+        keep = show_object(models, s0, views0, rays,
+                           lambda m: render_frame0(m, c, s0, views0, {}, rays, dev)[0])
+        for s, views, env, kname in routes:
+            if s is not s0 or views != views0:
+                continue
+            ref, _, la_ref = render_frame0(models["torch"], c, s, views, env, rays, dev)
+            out, _, la = render_frame0(models["auto"], c, s, views, env, rays, dev)
+            with bf16_alone():
+                alone = render_frame0(models["auto"], c, s, views, env, rays, dev)[0]
+            p, fg = psnr(out, ref), foreground(out)
+            p_alone, p_kernel = psnr(alone, ref), psnr(out, alone)
+            ok = (set(la) == {kname} and not la_ref and bool(torch.isfinite(out).all())
+                  and frame_gate(p, p_alone, p_kernel) and fg > 0)
+            label = route_label(views, env)
+            launches.setdefault(kname, {})[f"d_hidden {H}, frame 0, {label}"] = la.get(kname, 0)
+            log(f"{tag} render: d_hidden {width_label(H)}, {label}: launches {la} (want "
+                f"{kname}); vs the plain f32 route {p:.3f} dB (need >= 40, or where bf16 alone "
+                f"reads below 40: >= 40 against bf16 alone and within {FRAME_ALONE_SLACK_DB} dB "
+                f"of its reading); bf16 alone (the kernels' plain versions) vs the plain f32 "
+                f"route {p_alone:.3f} dB; vs bf16 alone {p_kernel:.3f} dB; foreground "
+                f"{fg:.4f} (need > 0; the density shaped on these views to occupy "
+                f"{keep:.3g} of frame 0's points); on {smi}")
+            if not ok:
+                raise SystemExit(f"{tag} render at d_hidden {H}, {label} missed {kname}, "
+                                 "disagrees with the plain route or is blank")
+
+
+def frame0_beside_512(H, c, model, net, conf, routes, rays, dev, smi, tag) -> None:
+    """Frame 0 rays/s of the d_hidden H model on each route beside sn64's
+    (d_hidden 512) ``net``, in turns (512, H, H, 512)."""
+    for s, views, env, kname in routes:
+        t = {512: [], H: []}
+        for h in (512, H, H, 512):
+            m, cc = (net, conf) if h == 512 else (model, c)
+            t[h].append(render_frame0(m, cc, s, views, env, rays, dev)[1])
+        s512, sH = (sum(t[h]) / 2 for h in (512, H))
+        log(f"{tag} render: d_hidden {width_label(H)}, {route_label(views, env)}: frame 0 (encode "
+            f"included) {sH:.4f} s = {RAYS_PER_STEP / sH:.1f} rays/s beside d_hidden 512's "
+            f"{s512:.4f} s = {RAYS_PER_STEP / s512:.1f} rays/s in turns ({s512 / sH:.3f}x); "
+            f"runs {json.dumps({str(k): v for k, v in t.items()})}; on {smi}")
+
+
 def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nmr_root) -> None:
     """Phase 17: sn64's conf at d_hidden 384, 256, 128 and 64, 320 and
     192, and 200 (zero-padded onto the 256 library) on the forward kernels'
@@ -3048,7 +3245,6 @@ def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nm
     library."""
     import types
 
-    from pixelnerf_tpu_torch import entry
     from pixelnerf_tpu_torch.eval.eval import main as eval_main
     from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
     from pixelnerf_tpu_torch.ops.replay import KernelCalls
@@ -3056,94 +3252,29 @@ def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nm
 
     t_phase = time.perf_counter()
     rays = rays[:RAYS_PER_STEP]  # ring frame 0, as the other phases render it
-    code = {"PIXELNERF_DEFER_CODE": "1"}
-    dense = {"PIXELNERF_FUSED_GATHER_MAX_ROWS": "0"}
-    # (source, views, env, the kernel its render must launch): the fused
-    # gather (NS 1), the dense route, the multi-view gather (NS 2) and the
-    # multi-view dense kernel (NS 3), then each with the deferred code
-    routes = [(src, (0,), {}, "resnetfc_fwd_gather"), (src, (0,), dense, "resnetfc_fwd_dense"),
-              (src3, (0, 1), {}, "resnetfc_fwd_gather_mv"),
-              (src3, (0, 1, 2), {}, "resnetfc_fwd_dense_mv")]
-    routes += [(s, v, dict(e, **code), k + "_code") for s, v, e, k in routes]
-
-    def frame0(model, c, s, views, env):
-        restore = _env(env)
-        try:
-            rf.reset_launches()
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            out, _ = entry.render_ring(model, c, s, rays,
-                                       torch.Generator(device=dev).manual_seed(SEED),
-                                       RAYS_PER_STEP, views=views)
-            torch.cuda.synchronize()
-            return out, time.perf_counter() - t0, {k: v for k, v in rf.LAUNCHES.items() if v}
-        finally:
-            restore()
-
-    def label_of(views, env):
-        return (f"views {list(views)}" + (", dense route" if dense.keys() & env.keys() else "")
-                + (", deferred code" if code.keys() & env.keys() else ""))
-
-    def width(H):  # a padded width names the library the route packs it onto
-        L = rf.library_width(H)
-        return f"{H}" + (f" (on the {L} library, zero-padded)" if L != H else "")
+    code = FRAME_CODE
+    routes = frame_routes(src, src3)
 
     # ---- frame 0 on every route at each width, against the plain route ----
     confs, models, narrow_launches = {}, {}, {}
     for H in NARROW_H + NEW_H:
         c = confs[H] = narrow_conf(conf, H)
-        for impl in ("auto", "torch"):
-            models[H, impl] = entry.build_model(c, dev, mlp_impl=impl, seed=SEED)
-        g = torch.Generator().manual_seed(SEED + 1)
-        with torch.no_grad():  # every block live, as the render phases' model
-            for mlp in (models[H, "auto"].mlp_coarse, models[H, "auto"].mlp_fine):
-                for blk in mlp.blocks:
-                    blk.fc_1.weight.copy_(0.02 * torch.randn(blk.fc_1.weight.shape, generator=g))
-        models[H, "torch"].load_state_dict(models[H, "auto"].state_dict())
+        for impl, m in live_heads(conf, c, dev).items():
+            models[H, impl] = m
     calls = KernelCalls()
     with calls:
         for H in NARROW_H + NEW_H:
-            c = confs[H]
-            for s0, views0 in {(id(s), v): (s, v) for s, v, _, _ in routes}.values():
-                # each head's density shaped on this view set's scene, so
-                # that its plain frame 0 shows the object (show_object): a
-                # blank frame is the same on both routes whatever the kernels
-                keep = show_object({"auto": models[H, "auto"], "torch": models[H, "torch"]}, s0,
-                                   views0, rays, lambda m: frame0(m, c, s0, views0, {})[0])
-                for s, views, env, kname in routes:
-                    if s is not s0 or views != views0:
-                        continue
-                    ref, _, la_ref = frame0(models[H, "torch"], c, s, views, env)
-                    out, _, la = frame0(models[H, "auto"], c, s, views, env)
-                    p, fg = psnr(out, ref), foreground(out)
-                    ok = (set(la) == {kname} and not la_ref and bool(torch.isfinite(out).all())
-                          and p >= 40.0 and fg > 0)
-                    label = label_of(views, env)
-                    narrow_launches.setdefault(kname, {})[f"d_hidden {H}, frame 0, {label}"] = \
-                        la.get(kname, 0)
-                    log(f"narrow render: d_hidden {width(H)}, {label}: launches {la} (want "
-                        f"{kname}); vs the plain f32 route {p:.3f} dB (need >= 40); foreground "
-                        f"{fg:.4f} (need > 0; the density shaped on these views to occupy "
-                        f"{keep:.3g} of frame 0's points); on {smi}")
-                    if not ok:
-                        raise SystemExit(f"narrow render at d_hidden {H}, {label} missed {kname}, "
-                                         "disagrees with the plain route or is blank")
+            frames_on_every_route(H, confs[H], {"auto": models[H, "auto"],
+                                                "torch": models[H, "torch"]},
+                                  routes, rays, dev, smi, narrow_launches, "narrow")
     replayed(calls.check(), "narrow")
     del calls
 
     # ---- frame 0 rays/s beside d_hidden 512, in turns (512, H, H, 512); the
     # new widths on the encoded code's routes only ----
     for H in NARROW_H + NEW_H:
-        for s, views, env, kname in routes if H in NARROW_H else routes[:4]:
-            t = {512: [], H: []}
-            for h in (512, H, H, 512):
-                model, c = (net, conf) if h == 512 else (models[H, "auto"], confs[H])
-                t[h].append(frame0(model, c, s, views, env)[1])
-            s512, sH = (sum(t[h]) / 2 for h in (512, H))
-            log(f"narrow render: d_hidden {width(H)}, {label_of(views, env)}: frame 0 (encode "
-                f"included) {sH:.4f} s = {RAYS_PER_STEP / sH:.1f} rays/s beside d_hidden 512's "
-                f"{s512:.4f} s = {RAYS_PER_STEP / s512:.1f} rays/s in turns ({s512 / sH:.3f}x); "
-                f"runs {json.dumps({str(k): v for k, v in t.items()})}; on {smi}")
+        frame0_beside_512(H, confs[H], models[H, "auto"], net, conf,
+                          routes if H in NARROW_H else routes[:4], rays, dev, smi, "narrow")
 
     # ---- every forward kernel and twin: the fine pass and a ragged B ----
     gi = torch.Generator(device=dev).manual_seed(SEED + 17)
@@ -3155,7 +3286,7 @@ def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nm
         tw = mf.tower(dev)
         padded = None
         if H in NATIVE_H:  # the same tower zero-padded onto the next library
-            L = rf.HIDDEN[rf.HIDDEN.index(H) + 1]
+            L = rf.BWD_HIDDEN[rf.BWD_HIDDEN.index(H) + 1]
             padded = padded_twin(mf, L, dev)
         code_arrays = tuple(torch.from_numpy(a).to(dev) for a in m.code.flat_arrays(tail=3))
         with torch.no_grad():
@@ -3219,6 +3350,160 @@ def narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nm
         (records[name] if name in records else code_records[name])["narrow_launches"] = by_path
     del models
     log(f"narrow: phase done in {time.perf_counter() - t_phase:.1f} s")
+
+
+# phase 17's wide part: the forward kernels' d_hidden 1024 library (a
+# 64-point tile on a cluster of two CTAs) at its own width and a width
+# zero-padded onto it
+WIDE_H = 1024
+WIDE_PADDED_H = 640
+
+
+def unpadded_tower(tw):
+    """A zero-padded tower at its own width: the padded weights sliced off."""
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+
+    H = tw.d_hidden
+    return rf.Tower(tw.w_in[:, :H], tw.b_in[:H], tw.w_z[..., :H], tw.b_z[:, :H],
+                    tw.w_blk[:, :, :H, :H], tw.b_blk[:, :, :H], tw.w_out[:H], tw.b_out,
+                    tw.d_in, H)
+
+
+def wide_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nmr_root) -> None:
+    """Phase 17's wide part: sn64's conf at d_hidden 1024 and 640 (zero-padded
+    onto the 1024 library), both heads (``narrow_conf``): frame 0 against
+    the plain f32 route and bf16 alone (``frame_gate``, showing the object, the width's
+    launches, the calls replayed) on every route and CODE twin at 1024, on
+    the encoded routes at 640, and at 1024 beside ``net`` (d_hidden 512) in
+    turns on the encoded routes; rows 1-4 and their CODE twins at the
+    render's fine pass (and at 1024 a ragged B) against their plain
+    versions (``forward_check``: one launch, bit-identical second calls, the
+    gathers bit for bit the dense kernels), timed at the fine pass beside
+    d_hidden 512 in turns, 640 also beside its own unpadded plain version;
+    ``eval -P "0"`` at 1024 on the NMR fixture on the kernels; one train CLI
+    step at -V 1 at 1024, on the plain field (no backward library past
+    512): no backward-kernel launch."""
+    import types
+
+    from pixelnerf_tpu_torch.eval.eval import main as eval_main
+    from pixelnerf_tpu_torch.ops import resnetfc_fused as rf
+    from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
+    from pixelnerf_tpu_torch.ops.replay import KernelCalls
+    from pixelnerf_tpu_torch.train import checkpoints
+    from pixelnerf_tpu_torch.train import main as train_main
+
+    t_phase = time.perf_counter()
+    rays = rays[:RAYS_PER_STEP]
+    routes = frame_routes(src, src3)
+    widths = (WIDE_H, WIDE_PADDED_H)
+    confs = {H: narrow_conf(conf, H) for H in widths}
+    models = {H: live_heads(conf, confs[H], dev) for H in widths}
+    launches = {}
+    calls = KernelCalls()
+    with calls:
+        for H in widths:
+            frames_on_every_route(H, confs[H], models[H], routes if H == WIDE_H else routes[:4],
+                                  rays, dev, smi, launches, "wide")
+    replayed(calls.check(), "wide")
+    del calls
+    frame0_beside_512(WIDE_H, confs[WIDE_H], models[WIDE_H]["auto"], net, conf, routes[:4], rays,
+                      dev, smi, "wide")
+
+    # ---- every forward kernel and twin: the fine pass and a ragged B ----
+    gi = torch.Generator(device=dev).manual_seed(SEED + 27)
+    tw512 = net.mlp_fine.tower(dev)
+    fine = RAYS_PER_STEP * 96
+    for H in widths:
+        m = models[H]["auto"]
+        tw = m.mlp_fine.tower(dev)
+        code_arrays = tuple(torch.from_numpy(a).to(dev) for a in m.code.flat_arrays(tail=3))
+        with torch.no_grad():
+            scene3 = m.encode(torch.as_tensor(src3["images"], device=dev),
+                              torch.as_tensor(src3["poses"], device=dev), float(src3["focal"]))
+        tables3 = scene3.latents.reshape(3, -1, m.d_latent).to(torch.bfloat16).contiguous()
+        cases = [("gather", 1, 1, fine), ("dense", 1, 1, fine), ("gather_mv", 2, 1, fine),
+                 ("dense_mv", 3, 1, fine)]
+        if H == WIDE_H:  # a ragged last tile at each kernel
+            cases += [("gather", 1, 1, 2000), ("dense", 1, 1, 2000), ("gather_mv", 3, 1, 333),
+                      ("dense_mv", 3, 2, 333)]
+        for case in cases:
+            twin = plain_twin = None
+            if case[3] == fine:
+                twin = ("d_hidden 512", ("wide", f"h{H}"), "h512", tw512, tables3)
+                if H != WIDE_H:
+                    plain_twin = unpadded_tower(tw)
+            forward_check(tw, tables3, code_arrays, gi, case, records, code_records, smi,
+                          "wide kernel check", twin, plain_twin)
+        del scene3, tables3
+
+    # ---- the eval CLI at d_hidden 1024 on the NMR fixture; one train CLI
+    # step at -V 1, on the plain field ----
+    restore = _env({"PIXELNERF_ALLOW_RANDOM_BACKBONE": "1"})  # no backbone weights here
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            ck = os.path.join(tmp, "ck")
+            checkpoints.save_weights(types.SimpleNamespace(checkpoints_path=ck, name="wide"),
+                                     models[WIDE_H]["auto"])
+            cpath = os.path.join(tmp, "wide.conf")
+            with open(cpath, "w") as fh:  # sn64's conf with the wide heads, as a file says it
+                fh.write(f'include required("{os.path.abspath("conf/exp/sn64.conf")}")\n'
+                         f"model {{ mlp_coarse {{ d_hidden = {WIDE_H} }}\n"
+                         f"        mlp_fine {{ d_hidden = {WIDE_H} }} }}\n")
+            want = "resnetfc_fwd_gather"
+            torch.cuda.synchronize()
+            rf.reset_launches()
+            t0 = time.perf_counter()
+            res = eval_main(["-n", "wide", "-c", cpath, "-F", "dvr", "-D", nmr_root, "--split",
+                             "test", "-P", "0", "--max_objs", "1", "-O",
+                             os.path.join(tmp, "eval"), "--checkpoints_path", ck, "-R",
+                             str(EVAL_RAYS)])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            la = {k: v for k, v in rf.LAUNCHES.items() if v}
+            n_rays = (NMR_VIEWS - 1) * FRAME * FRAME
+            ok = (res["cnt"] == 1 and len(res["objects"]) == 1
+                  and all(math.isfinite(v) for _, p_, s_ in res["objects"] for v in (p_, s_))
+                  and set(la) == {want})
+            log(f"wide eval: python -m pixelnerf_tpu_torch.eval.eval -c conf/exp/sn64.conf + "
+                f"d_hidden {WIDE_H} -F dvr --split test -P \"0\": "
+                f"{[(n, round(p_, 4), round(s_, 4)) for n, p_, s_ in res['objects']]}; launches "
+                f"{la} (want {want}); {dt:.3f} s wall, {n_rays} rays = {n_rays / dt:.1f} rays/s "
+                f"(model build and load included); on {smi}")
+            if not ok:
+                raise SystemExit(f"wide eval -P '0' failed or did not run through {want}")
+            launches.setdefault(want, {})[f"d_hidden {WIDE_H}, eval -P \"0\""] = la[want]
+
+            rf.reset_launches()
+            rv.reset_launches()
+            t0 = time.perf_counter()
+            trainer = train_main(["-n", "wide_train", "-c", cpath, "-F", "dvr", "-D", nmr_root,
+                                  "-B", "4", "-V", "1", "-R", "128", "--epochs", "1",
+                                  "--checkpoints_path", os.path.join(tmp, "ck_train")])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            la = {k: v for k, v in dict(rf.LAUNCHES, **rv.LAUNCHES).items() if v}
+            ok = (trainer.global_step == 1 and all(math.isfinite(v) for v in trainer.history)
+                  and not any(k.startswith("resnetfc_bwd") for k in la)
+                  and not trainer.net.field_backward_in_kernel(1)
+                  and all(mm.d_hidden == WIDE_H
+                          for mm in (trainer.net.mlp_coarse, trainer.net.mlp_fine)))
+            log(f"wide train path: python -m pixelnerf_tpu_torch.train -c conf/exp/sn64.conf + "
+                f"d_hidden {WIDE_H} -F dvr -B 4 -V 1 -R 128, one step: {trainer.global_step} "
+                f"step in {wall:.3f} s (build and validation included); remat {trainer.remat}; "
+                f"launches {la} (want no resnetfc_bwd_*: the field trains plain past 512; the "
+                f"forward kernels only in the validation render); losses "
+                f"{[round(v, 5) for v in trainer.history]}; on {smi}")
+            if not ok:
+                raise SystemExit("wide: the d_hidden 1024 train step failed or reached a "
+                                 "backward kernel")
+            del trainer
+    finally:
+        restore()
+    for name, by_path in launches.items():
+        (records[name] if name in records else code_records[name]).setdefault(
+            "wide_launches", {}).update(by_path)
+    del models
+    log(f"wide: phase done in {time.perf_counter() - t_phase:.1f} s")
 
 
 # phase 18: rows 5a / 5b at the narrower widths (d_hidden 384, 256, 128 and
@@ -3292,7 +3577,7 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
     # each of those widths zero-padded onto the next library
     padded = {}
     for H in NATIVE_H:
-        padded[H] = padded_twin(mods[H, 512][0], rf.HIDDEN[rf.HIDDEN.index(H) + 1], dev)
+        padded[H] = padded_twin(mods[H, 512][0], rf.BWD_HIDDEN[rf.BWD_HIDDEN.index(H) + 1], dev)
     del mods
     # the deep towers on a 144-wide code (the gates' planted faults all
     # apply) and sn64's widths on the wide codes
@@ -3582,7 +3867,7 @@ def narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root) -> None:
     # grad (those the forward takes keep the forward kernels: past the gated
     # depth, and past the data kernel's program) ----
     for H, depth, d_in_o, C, cl_o, fwd_k in (
-            (576, nb, d_in, 512, cl, False), (1024, nb, d_in, 512, cl, False),
+            (576, nb, d_in, 512, cl, True), (1024, nb, d_in, 512, cl, True),
             (512, nb, 520, 512, cl, False), (512, rv.GRAD_MAX_BLOCKS + 1, d_in, 512, cl, True),
             (512, 62, d_in, 512, cl, True), (64, 45, d_in, 4096, 4, True)):
         with torch.device("meta"):
@@ -4413,8 +4698,8 @@ def main() -> None:
     builds = rf.build_all()  # one nvcc a library, all at once
     from pixelnerf_tpu_torch.ops import resnetfc_vjp as rv
 
-    bwd_sass_at = {H: sass_counts(builds["bwd", H].library) for H in rf.HIDDEN}
-    fwd_sass_at = {H: sass_counts(builds["fwd", H].library) for H in rf.HIDDEN}
+    bwd_sass_at = {H: sass_counts(builds["bwd", H].library) for H in rf.BWD_HIDDEN}
+    fwd_sass_at = {H: sass_counts(builds["fwd", H].library) for H in rf.FWD_HIDDEN}
     label = {k: f"{k[0]} (d_hidden {k[1]})" for k in builds}
     log("build: " + json.dumps({
         "kernels": list(rf.LAUNCHES) + ["resnetfc_bwd_data", "resnetfc_bwd_weights"],
@@ -4427,11 +4712,11 @@ def main() -> None:
         "sass": {**{f"bwd (d_hidden {H})": c for H, c in bwd_sass_at.items()},
                  **{f"fwd (d_hidden {H})": c for H, c in fwd_sass_at.items()}},
         "resnetfc_bwd_weights_kernel smem bytes": {
-            H: rv._lib(H).resnetfc_bwd_weights_smem_bytes() for H in rf.HIDDEN},
+            H: rv._lib(H).resnetfc_bwd_weights_smem_bytes() for H in rf.BWD_HIDDEN},
     }))
     # in each width's backward library, the weights kernel and the data kernel
     # (both instantiations) are wgmma kernels fed by TMA, with no wmma product
-    bwd_ptxas_at = {H: ptxas_summary(builds["bwd", H].log) for H in rf.HIDDEN}
+    bwd_ptxas_at = {H: ptxas_summary(builds["bwd", H].log) for H in rf.BWD_HIDDEN}
     checked = []
     for H, bs in bwd_sass_at.items():
         for name in ("resnetfc_bwd_weights_kernel", "resnetfc_bwd_data_kernel<MV=0>",
@@ -4443,7 +4728,7 @@ def main() -> None:
     # so are both instantiations of every forward kernel (the 64-point tile)
     # in each width's library, and no kernel of a forward library holds a
     # wmma product; no kernel of any library spills
-    fwd_ptxas_at = {H: ptxas_summary(builds["fwd", H].log) for H in rf.HIDDEN}
+    fwd_ptxas_at = {H: ptxas_summary(builds["fwd", H].log) for H in rf.FWD_HIDDEN}
     dense_names = tuple(f"resnetfc_fwd_{k}_kernel<CODE={c}>"
                         for k in ("dense", "gather", "dense_mv", "gather_mv") for c in (0, 1))
     for H, fs in fwd_sass_at.items():
@@ -4459,12 +4744,16 @@ def main() -> None:
         spills = re.findall(r"(\d+) B spill", line)
         if len(spills) != 2 or any(int(v) for v in spills):
             raise SystemExit(f"{name} spills or ptxas gave no spill line: {line}")
-    for H in rf.HIDDEN:
+    for H in rf.FWD_HIDDEN:
+        lim = rf.dense_limits(H)
         log(f"build: forward kernels' registers at d_hidden {H} (the dense forward, the fused "
             f"gather, the multi-view dense forward and the multi-view gather, all on the "
             f"64-point tile; library {builds['fwd', H].library.name}): "
-            + json.dumps(fwd_ptxas_at[H]))
-    for H in rf.HIDDEN:
+            + json.dumps(fwd_ptxas_at[H]) + f"; SASS {json.dumps(fwd_sass_at[H])}; shared "
+            f"memory {lim.smem} B a CTA (dynamic; at most {rf.MAX_SMEM_BYTES}), cluster "
+            f"{lim.cluster} CTA{'s' if lim.cluster > 1 else ''} a tile, {lim.stages} ring "
+            f"stages, on {smi}")
+    for H in rf.BWD_HIDDEN:
         log(f"build: backward kernels' registers at d_hidden {H} (library "
             f"{builds['bwd', H].library.name}): " + json.dumps(bwd_ptxas_at[H])
             + f"; SASS {json.dumps(bwd_sass_at[H])}; resnetfc_bwd_data shared memory "
@@ -5303,6 +5592,7 @@ def main() -> None:
 
         # ---- narrow towers on the forward kernels (reads the NMR fixture) ----
         narrow_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nmr_root)
+        wide_phase(conf, net, src, src3, rays, dev, smi, records, code_records, nmr_root)
 
         # ---- narrow towers on the backward kernels (reads both fixtures) ----
         narrow_backward_phase(conf, dev, smi, records, nmr_root, dtu_root)

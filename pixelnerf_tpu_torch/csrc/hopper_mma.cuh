@@ -2,9 +2,11 @@
 // loads (and the fence that acquires a tensor map copied to device memory),
 // shared-memory matrix descriptors for 128-byte-swizzled bf16 tiles
 // (MN-major and K-major) and 64-byte-swizzled ones (MN-major), the
-// async-proxy fence, and warpgroup matrix multiplies (wgmma m64n256k16,
+// async-proxy fence, warpgroup matrix multiplies (wgmma m64n256k16,
 // m64n192k16, m64n160k16, m64n128k16, m64n96k16, m64n80k16,
-// m64n64k16 and m64n32k16) with f32 accumulators.
+// m64n64k16 and m64n32k16) with f32 accumulators, and thread-block
+// clusters (the launch attribute, %cluster_ctarank, mapa and distributed
+// shared-memory loads and stores, the cluster barrier).
 //
 // Self-contained (no CUTLASS, no other header of this package), so that any
 // kernel of the port can take it as it is.  The host side builds a TMA
@@ -390,6 +392,103 @@ __device__ __forceinline__ void wgmma_m64n32k16(float (&d)[16], uint64_t desc_a,
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
         "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d), "n"(TA), "n"(TB));
+}
+
+// ---- thread-block clusters ----
+//
+// A kernel launched with launch_cluster runs its CTAs in clusters of
+// `cluster` on neighbouring SMs of one GPC; a CTA reads and writes its
+// partners' shared memory through shared::cluster addresses (mapa), and
+// barrier.cluster orders what each CTA did before it for every CTA of the
+// cluster after it.
+
+// this CTA's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// the shared::cluster address, in CTA `rank` of the cluster, of this CTA's
+// shared::cta address `addr` (the same offset in that CTA's shared memory)
+__device__ __forceinline__ uint32_t mapa(uint32_t addr, uint32_t rank) {
+  uint32_t out;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(out) : "r"(addr), "r"(rank));
+  return out;
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, uint32_t v) {
+  asm volatile("st.shared::cluster.u32 [%0], %1;\n" ::"r"(addr), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void st_cluster(uint32_t addr, uint4 v) {
+  asm volatile("st.shared::cluster.v4.u32 [%0], {%1, %2, %3, %4};\n" ::"r"(addr), "r"(v.x),
+               "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+__device__ __forceinline__ float ld_cluster_f32(uint32_t addr) {
+  float v;
+  asm volatile("ld.shared::cluster.f32 %0, [%1];\n" : "=f"(v) : "r"(addr) : "memory");
+  return v;
+}
+
+// Generic-proxy writes to the shared memory of any CTA of the cluster made
+// visible to the async proxy (wgmma) that reads them next; before the
+// cluster barrier that publishes them.
+__device__ __forceinline__ void fence_proxy_async_cluster() {
+  asm volatile("fence.proxy.async.shared::cluster;\n" ::: "memory");
+}
+
+// every thread of every CTA of the cluster: arrive (release), then wait
+// (acquire) until all have arrived
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// A launch of `grid` CTAs (a multiple of `cluster`) of `threads` threads
+// with `smem` bytes of dynamic shared memory on `stream`, in clusters of
+// `cluster` CTAs: the cluster dimension launch attribute, kept in `attr`.
+inline cudaLaunchConfig_t cluster_config(int grid, int threads, size_t smem, cudaStream_t stream,
+                                         int cluster, cudaLaunchAttribute* attr) {
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(grid, 1, 1);
+  cfg.blockDim = dim3(threads, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = cluster;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cfg;
+}
+
+// Launch `kernel` as cluster_config says.  A launch the card refuses (no
+// cluster of this size fits its SMs' shared memory, say) returns its
+// error: there is no launch without the cluster.
+template <typename... Args>
+inline cudaError_t launch_cluster(void (*kernel)(Args...), int grid, int threads, size_t smem,
+                                  cudaStream_t stream, int cluster, Args... args) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(grid, threads, smem, stream, cluster, &attr);
+  const cudaError_t err = cudaLaunchKernelEx(&cfg, kernel, args...);
+  return err != cudaSuccess ? err : cudaGetLastError();
+}
+
+// The most clusters of `cluster` CTAs of `kernel` (at `threads` threads and
+// `smem` bytes of dynamic shared memory a CTA) the card holds at once, or a
+// negative cudaError_t.
+template <typename... Args>
+inline int max_active_clusters(void (*kernel)(Args...), int threads, size_t smem, int cluster) {
+  cudaLaunchAttribute attr;
+  const cudaLaunchConfig_t cfg = cluster_config(cluster, threads, smem, 0, cluster, &attr);
+  int n = 0;
+  const cudaError_t err =
+      cudaOccupancyMaxActiveClusters(&n, reinterpret_cast<const void*>(kernel), &cfg);
+  return err != cudaSuccess ? -(int)err : n;
 }
 
 // ---- warp specialisation ----

@@ -152,6 +152,10 @@
 
 #include "tile64.cuh"
 
+// The backward is built at the widths up to 512 only: its tile has no
+// cluster layout (tile64.cuh, CLUSTER).
+static_assert(rfc::CLUSTER == 1, "the backward kernels take d_hidden up to 512");
+
 namespace {
 
 using namespace rfc;

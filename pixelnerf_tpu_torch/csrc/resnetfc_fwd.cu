@@ -58,7 +58,7 @@
 // - lin_out (d_out <= 4) stays on the CUDA cores, a warp a point;
 // - no atomics: two calls on the same inputs give the same bits.
 // - the tower's width HID is the library's (-DRFC_HID: every multiple of 64
-//   up to 512 but 448, one library each); the operand tiles keep their 512 columns at
+//   up to 512 but 448, and 1024, one library each); the operand tiles keep their 512 columns at
 //   every width, so the code and a latent piece do not shrink with it.  A
 //   narrower tower streams fewer weight bytes a tile (0.61x at 384, 0.31x
 //   at 256, 0.11x at 128, 0.04x at 64 at sn64's other widths) and runs its
@@ -110,6 +110,28 @@
 // mean NS times (15.6 MiB of weights at sn64 and NS = 3, 2.4x the one-view
 // tile's 6.55 MiB); that stream binds it as it binds the one-view kernels
 // (~29 GB/s an SM on an H100), and the latent fills add ~7%.
+//
+// At d_hidden 1024 (the one library past 512; tile64.cuh's CLUSTER 2) a
+// tile is a cluster of two CTAs on neighbouring SMs, CTA r owning columns
+// [512 r, 512 r + 512) with the 512-wide layout inside it: its half of the
+// f32 stream in registers, its half of every product's N, its half of
+// each weight matrix's columns through its own ring.  A block product's
+// operand A is the whole 1024-wide activation (act, 128 KB in each CTA),
+// which each CTA writes half of into both copies between the products
+// (share_relu, share_stage: distributed shared memory, two cluster
+// barriers each); the code and the latent's pieces come into each CTA's own
+// 64 KB tile as at 512, each CTA building the same one.  The two operand
+// tiles leave 32 KB of the 227 KB for the ring: 2 stages of 16 KB, a
+// third of the 512 tile's weights in flight; each warpgroup's 256 columns
+// run as four m64n64k16 pieces.  sn64's tower at 1024
+// streams 24.2 MB of weights a tile (12.1 MB into each SM) for 24.2 MFLOP
+// a point, 3.5x 512's 6.86: the weights' stream binds it as it binds 512,
+// and harder with less in flight.  lin_out: each CTA sums its 512 columns
+// a point; CTA c writes points 32 c.. of the tile as CTA 0's sum plus CTA
+// 1's, then the bias, so a second call gives the same bits.  Every 1024
+// kernel walks its tiles on persistent pairs, the one-view ones as the
+// multi-view walk of a single view; each multi-view CTA's view-sum slot
+// holds its half of the stream (128 KB, as at 512).
 
 #include <string.h>
 
@@ -147,12 +169,13 @@ constexpr int F_MAX_K = TILE_K;  // the widest code, and a latent's widest piece
 constexpr int F_MAX_C = MAX_C;
 constexpr int F_MAX_GATHER_C = MAX_C;
 // f32 words of a multi-view CTA's view-sum slot: every thread's share of the
-// 64 x HID stream (128 KB at HID 512)
+// 64 x CTA_HID stream (128 KB at HID 512 and 1024)
 constexpr int F_SLOT_FLOATS = TILE_STREAM * TILE_THREADS;
-// lin_out: the columns of t a lane sums (16 at HID 512), read 8 at a time
+// lin_out: the columns of t a lane sums (16 at HID 512, and of a CTA's 512
+// at 1024), read 8 at a time
 // (16 bytes; 4 at HID 128 and 384, whose 12 a lane are three reads of 4; 2
 // at 64, 192 and 320: 1, 3 and 5 reads of 2)
-constexpr int OUT_COLS = HID / 32;
+constexpr int OUT_COLS = CTA_HID / 32;
 constexpr int OUT_VEC = OUT_COLS % 8 == 0 ? 8 : OUT_COLS % 4 == 0 ? 4 : 2;
 static_assert(OUT_COLS % OUT_VEC == 0 && (OUT_VEC == 8 || OUT_VEC == 4 || OUT_VEC == 2),
               "a lane's columns of t are whole reads");
@@ -241,8 +264,8 @@ __shared__ DenseFeed f_feed[2];
 __shared__ int f_left[2], f_vleft[2], f_row0, f_lat_n;
 
 // Thread 128 h: warpgroup h's half of the next stage into ring slot `slot`
-// -- the weight boxes of its piece pc, K rows rowbase + ks * 64.. -- on
-// full[h].
+// -- the weight boxes of its piece pc (among this CTA's columns), K rows
+// rowbase + ks * 64.. -- on full[h].
 template <bool MV>
 __device__ __forceinline__ void dense_feed(const DenseParams& q, unsigned char* ring, int slot, int h) {
   DenseFeed f = f_feed[h];
@@ -254,7 +277,8 @@ __device__ __forceinline__ void dense_feed(const DenseParams& q, unsigned char* 
 #pragma unroll
   for (int b = 0; b < TILE_BPW; ++b)
     hopper::tma_load_2d(dst + b * W_BOX_BYTES, m, &f_full[h][slot],
-                        h * TILE_HALF + f.pc * TILE_PIECE + b * W_BOX_COLS, op.rowbase + f.ks * 64);
+                        cta_col0() + h * TILE_HALF + f.pc * TILE_PIECE + b * W_BOX_COLS,
+                        op.rowbase + f.ks * 64);
   if (++f.ks * 64 >= op.K) {
     f.ks = 0;
     if (++f.pc == TILE_NP) {
@@ -453,6 +477,60 @@ __device__ __forceinline__ void gather_fill(const TowerParams& p, unsigned char*
   }
 }
 
+// ---------------------------------------------------------------------------
+// HID 1024: the pair of CTAs of a cluster shares each block product's operand
+// ---------------------------------------------------------------------------
+//
+// Each CTA keeps its own copy of a block product's K = HID operand in `act`
+// (128 KB) and writes its own CTA_HID columns of it into both copies, its
+// partner's through distributed shared memory.  An epilogue cannot write a
+// copy while a product reads it, so a block product's operand is shared
+// between the products, after a cluster barrier that marks both CTAs' last
+// readers done and before one that publishes the writes:
+// - before fc_0 (share_relu): relu(x) from the stream's registers, whether
+//   lin_in, an injection, fc_1 or the view mean was the stream's last writer;
+// - before fc_1 (share_stage): fc_0's output, which its epilogue left in the
+//   CTA's `hb` at the CTA's own columns (fc_0 reads act, not hb).
+// lin_in and the latent's pieces read `hb` (K <= TILE_K) as at the narrower
+// widths, each CTA filling its own.
+
+// This CTA's columns of act (whole 64-column atoms of the swizzled tile, so
+// the bytes move as they lie) from `src` into its partner's copy of act,
+// and into its own when `local`; then the pair meets, both copies whole.
+__device__ __forceinline__ void send_own(unsigned char* act, const unsigned char* src, bool local) {
+  const uint32_t own = (uint32_t)(cta_col0() / 64) * 8192;  // this CTA's atoms of act
+  const uint32_t remote = hopper::mapa(hopper::smem_u32(act), hopper::cluster_ctarank() ^ 1) + own;
+#pragma unroll 1
+  for (int e = threadIdx.x; e < (int)(TILE_PTS * CTA_HID * 2 / 16); e += TILE_THREADS) {
+    const uint4 v = reinterpret_cast<const uint4*>(src)[e];
+    if (local) *reinterpret_cast<uint4*>(act + own + 16 * e) = v;
+    hopper::st_cluster(remote + 16 * e, v);
+  }
+  hopper::fence_proxy_async_cluster();
+  hopper::cluster_sync();
+}
+
+// relu(x) of this CTA's columns, bf16, into act at those columns, in this
+// CTA's copy and in its partner's.
+__device__ __forceinline__ void share_relu(unsigned char* act, const float (&sv)[TILE_STREAM]) {
+  hopper::cluster_sync();  // both CTAs' last readers of act (the last fc_1) are done
+#pragma unroll
+  for (int pc = 0; pc < TILE_NP; ++pc)
+#pragma unroll
+    for (int i = 0; i < TILE_ACC; i += 2)
+      put2(act, acc_row(i), cta_col0() + piece_col(pc) + acc_col(i),
+           fmaxf(sv[pc * TILE_ACC + i], 0.0f), fmaxf(sv[pc * TILE_ACC + i + 1], 0.0f));
+  __syncthreads();  // this CTA's columns of its own copy whole
+  send_own(act, act + (cta_col0() / 64) * 8192, false);
+}
+
+// fc_0's output of this CTA's columns (hb, the CTA's columns from 0) into act
+// at those columns, in this CTA's copy and in its partner's.
+__device__ __forceinline__ void share_stage(unsigned char* act, const unsigned char* hb) {
+  hopper::cluster_sync();  // hb whole; both CTAs' fc_0 products are done with act
+  send_own(act, hb, true);
+}
+
 // One 64-point tile (tile64.cuh's tile) of 256 threads: the body of the
 // four tile kernels, which differ only in where each injection's latent
 // comes from (GATHER: gather_fill; else TMA, or at NS views (MV) by the
@@ -460,13 +538,16 @@ __device__ __forceinline__ void gather_fill(const TowerParams& p, unsigned char*
 // view's layers below the mean, folded, then the shared blocks).  `sv`
 // holds this thread's share of the f32 residual stream; `act` and `hb` are
 // the two operand tiles (a product reads one and its epilogue writes the
-// other); `it` counts the ring's stages taken.
+// other); `it` counts the ring's stages taken.  At HID 1024 (CLUSTER 2)
+// the stream and every product's N are this CTA's columns, and the block
+// products read `act` whole, shared by the pair as above.
 template <bool GATHER, bool CODE, bool MV>
 __device__ __forceinline__ void fwd_body(const DenseParams& q, unsigned char* act, unsigned char* hb,
                                          unsigned char* ring, uint32_t& it) {
   const TowerParams& p = q.t;
-  // the tile's first row (read where used, not kept in a register)
-  auto row0 = [] { return MV ? f_row0 : (int)blockIdx.x * TILE_PTS; };
+  // the tile's first row (read where used, not kept in a register): one
+  // tile a CTA, or a cluster's pair of CTAs
+  auto row0 = [] { return MV ? f_row0 : (int)blockIdx.x / CLUSTER * TILE_PTS; };
   if (!MV) {
     // lin_in's operand, before the stream is live
     dense_code<CODE, false>(p, hb, row0(), 0);
@@ -509,7 +590,7 @@ __device__ __forceinline__ void fwd_body(const DenseParams& q, unsigned char* ac
         }
         if (i % 16 == 15) group_fence();
       }
-      if (v + 1 == NS)
+      if (CLUSTER == 1 && v + 1 == NS)  // (CLUSTER 2: share_relu before the first shared fc_0)
 #pragma unroll
         for (int pc = 0; pc < TILE_NP; ++pc) emit_relu(pc);
       if (v + 1 < NS) si = walk_at(0, v + 1) - 1;  // the next view's segment
@@ -536,6 +617,8 @@ __device__ __forceinline__ void fwd_body(const DenseParams& q, unsigned char* ac
         publish();
       } else {
         if (threadIdx.x == 0) {
+          // (CLUSTER 2: hb's last readers were the threads' share_stage loads)
+          if (CLUSTER > 1) hopper::fence_proxy_async();
           const int boxes = (kp + 63) / 64;
           const int r = MV ? (int)src_row(p, row0(), walk_view(si)) : row0();
           hopper::mbar_arrive_expect_tx(&f_lat_full, boxes * BOX_BYTES);
@@ -548,6 +631,11 @@ __device__ __forceinline__ void fwd_body(const DenseParams& q, unsigned char* ac
                           (MV ? lat_n : step_k(s) * latent_pieces(p.C) + step_aux(s)) & 1);
       }
       A = hb;
+    } else if (CLUSTER > 1) {
+      if (kind == B0_FWD)
+        share_relu(act, sv);  // act = r_k, both CTAs' columns
+      else
+        share_stage(act, hb);  // act = s_k, both CTAs' columns
     } else {
       publish();  // act = r_k (fc_0) or hb = s_k (fc_1)
       if (kind == B1_FWD) A = hb;
@@ -558,7 +646,7 @@ __device__ __forceinline__ void fwd_body(const DenseParams& q, unsigned char* ac
     dense_gemm<MV>(q, ring, it, A, op.K, [&](int pc, float(&acc)[TILE_ACC]) {
       if (step_kind(s) == B0_FWD) {
         const int c0 = piece_col(pc);
-        const float* bias = p.b_blk + (size_t)(2 * step_k(s)) * HID;
+        const float* bias = p.b_blk + (size_t)(2 * step_k(s)) * HID + cta_col0();
 #pragma unroll
         for (int j = 0; j < TILE_ACC / 4; ++j) {
           const int c = c0 + acc_col(4 * j);
@@ -572,9 +660,10 @@ __device__ __forceinline__ void fwd_body(const DenseParams& q, unsigned char* ac
       } else {
         const int c0 = piece_col(pc);
         const int kind = step_kind(s), k = step_k(s), aux = step_aux(s);  // from s: fewer live registers
-        const float* bias = kind == IN_FWD  ? p.b_in
-                            : kind == Z_FWD ? p.b_z + (size_t)k * HID
-                                            : p.b_blk + (size_t)(2 * k + 1) * HID;
+        const float* bias = (kind == IN_FWD  ? p.b_in
+                             : kind == Z_FWD ? p.b_z + (size_t)k * HID
+                                             : p.b_blk + (size_t)(2 * k + 1) * HID) +
+                            cta_col0();
         // an injection's bias comes with its first piece only
         const bool biased = kind != Z_FWD || aux == 0;
 #pragma unroll
@@ -589,27 +678,48 @@ __device__ __forceinline__ void fwd_body(const DenseParams& q, unsigned char* ac
           }
           if ((j & 3) == 3) group_fence();
         }
-        if (kind == Z_FWD || aux) emit_relu(pc);
+        if (CLUSTER == 1 && (kind == Z_FWD || aux)) emit_relu(pc);
       }
     });
   }
-  __syncthreads();  // act = t = bf16(relu(x)) of the last block
+  // t = bf16(relu(x)) of the last block: in act, or (CLUSTER 2) this CTA's
+  // columns of it in hb
+  unsigned char* t_tile = act;
+  if (CLUSTER > 1) {
+    t_tile = hb;
+#pragma unroll
+    for (int pc = 0; pc < TILE_NP; ++pc)
+#pragma unroll
+      for (int i = 0; i < TILE_ACC; i += 2)
+        put2(hb, acc_row(i), piece_col(pc) + acc_col(i), fmaxf(sv[pc * TILE_ACC + i], 0.0f),
+             fmaxf(sv[pc * TILE_ACC + i + 1], 0.0f));
+  }
+  __syncthreads();
 
   // lin_out on the CUDA cores: warp w takes points w, w + 8, ..; lane l the
-  // OUT_COLS columns OUT_COLS l.. of t, summed in order, then across the warp
+  // OUT_COLS columns OUT_COLS l.. of t (of this CTA's), summed in order,
+  // then across the warp
   const int lane = threadIdx.x & 31, d_out = p.d_out;
-  float wo[OUT_COLS][TILE_MAX_OUT];
+  // (w_out's bf16 rows i, i + 1 a register: its f32 values exactly, in half
+  // the registers)
+  uint32_t wo[OUT_COLS / 2][TILE_MAX_OUT];
 #pragma unroll
-  for (int i = 0; i < OUT_COLS; ++i)
+  for (int i = 0; i < OUT_COLS / 2; ++i)
 #pragma unroll
-    for (int o = 0; o < TILE_MAX_OUT; ++o)
-      wo[i][o] =
-          o < d_out ? __bfloat162float(p.w_out[(size_t)(OUT_COLS * lane + i) * d_out + o]) : 0.0f;
+    for (int o = 0; o < TILE_MAX_OUT; ++o) {
+      const size_t r = (size_t)(cta_col0() + OUT_COLS * lane + 2 * i) * d_out + o;
+      wo[i][o] = o < d_out ? (uint32_t)__bfloat16_as_ushort(p.w_out[r]) |
+                                 ((uint32_t)__bfloat16_as_ushort(p.w_out[r + d_out]) << 16)
+                           : 0u;
+    }
+  // (CLUSTER 2) each CTA's sums over its columns go to the start of its act,
+  // dead since the last fc_1: point r's output o at float r TILE_MAX_OUT + o
+  float* part = reinterpret_cast<float*>(act);
   for (int r = threadIdx.x >> 5; r < TILE_PTS && row0() + r < p.B; r += TILE_THREADS / 32) {
     float acc[TILE_MAX_OUT] = {};
 #pragma unroll
     for (int h = 0; h < OUT_COLS / OUT_VEC; ++h) {
-      const unsigned char* a = act + hopper::sw128_offset(r, OUT_COLS * lane + OUT_VEC * h);
+      const unsigned char* a = t_tile + hopper::sw128_offset(r, OUT_COLS * lane + OUT_VEC * h);
       uint32_t words[4];
       if (OUT_VEC == 8) {
         const uint4 v = *reinterpret_cast<const uint4*>(a);
@@ -624,8 +734,8 @@ __device__ __forceinline__ void fwd_body(const DenseParams& q, unsigned char* ac
       for (int u = 0; u < OUT_VEC / 2; ++u)
 #pragma unroll
         for (int o = 0; o < TILE_MAX_OUT; ++o) {
-          acc[o] = fmaf(bf16_lo(words[u]), wo[OUT_VEC * h + 2 * u][o], acc[o]);
-          acc[o] = fmaf(bf16_hi(words[u]), wo[OUT_VEC * h + 2 * u + 1][o], acc[o]);
+          acc[o] = fmaf(bf16_lo(words[u]), bf16_lo(wo[OUT_VEC * h / 2 + u][o]), acc[o]);
+          acc[o] = fmaf(bf16_hi(words[u]), bf16_hi(wo[OUT_VEC * h / 2 + u][o]), acc[o]);
         }
     }
     float mine = 0.0f;  // lane o writes output o
@@ -635,7 +745,9 @@ __device__ __forceinline__ void fwd_body(const DenseParams& q, unsigned char* ac
       for (int off = 16; off > 0; off >>= 1) acc[o] += __shfl_xor_sync(0xffffffffu, acc[o], off);
       if (lane == o) mine = acc[o];
     }
-    if (lane < d_out) {
+    if (CLUSTER > 1) {
+      if (lane < d_out) part[r * TILE_MAX_OUT + lane] = mine;
+    } else if (lane < d_out) {
       const int g = row0() + r;
       const float v = mine + p.b_out[lane];
       if (p.planar)
@@ -643,6 +755,25 @@ __device__ __forceinline__ void fwd_body(const DenseParams& q, unsigned char* ac
       else
         p.out[(size_t)g * d_out + lane] = v;
     }
+  }
+  if (CLUSTER > 1) {
+    // CTA c writes points [32 c, 32 c + 32) of the tile: CTA 0's sum, plus
+    // CTA 1's, then the bias, in this order in both
+    hopper::cluster_sync();  // both CTAs' sums are in
+    const int e = threadIdx.x, n_own = TILE_PTS / CLUSTER;
+    const int r = n_own * (int)hopper::cluster_ctarank() + e / TILE_MAX_OUT, o = e % TILE_MAX_OUT;
+    if (e < n_own * TILE_MAX_OUT && o < d_out && row0() + r < p.B) {
+      const uint32_t a = hopper::smem_u32(part + r * TILE_MAX_OUT + o);
+      const float v =
+          (hopper::ld_cluster_f32(hopper::mapa(a, 0)) + hopper::ld_cluster_f32(hopper::mapa(a, 1))) +
+          p.b_out[o];
+      const int g = row0() + r;
+      if (p.planar)
+        p.out[(size_t)o * p.B + g] = v;
+      else
+        p.out[(size_t)g * d_out + o] = v;
+    }
+    hopper::cluster_sync();  // the partner's reads of these sums are done
   }
 }
 
@@ -652,9 +783,11 @@ __device__ __forceinline__ void fwd_tile(const DenseParams& q) {
   const TowerParams& p = q.t;
   const uint32_t raw = hopper::smem_u32(f_smem_raw);
   unsigned char* act = f_smem_raw + (((raw + 1023) & ~1023u) - raw);
-  unsigned char* hb = act + TILE_BYTES;
+  unsigned char* hb = act + ACT_BYTES;
   unsigned char* ring = hb + TILE_BYTES;
   const int n_tiles = (p.B + TILE_PTS - 1) / TILE_PTS;
+  // a tile a CTA, or (CLUSTER 2) a tile a cluster's pair of CTAs
+  const int unit = (int)blockIdx.x / CLUSTER, n_units = (int)gridDim.x / CLUSTER;
 
   if (threadIdx.x == 0) {
     for (int h = 0; h < 2; ++h)
@@ -664,16 +797,17 @@ __device__ __forceinline__ void fwd_tile(const DenseParams& q) {
       }
     hopper::mbar_init(&f_lat_full, 1);
     hopper::mbar_fence_init();
-    f_n_steps = fwd_program(f_prog, p.n_blocks, p.n_lin_z, MV, MV ? p.pre : p.n_blocks,
-                            latent_pieces(p.C));
+    // (one view on the walk of NS views: no fold)
+    f_n_steps = fwd_program(f_prog, p.n_blocks, p.n_lin_z, MV && p.NS > 1,
+                            MV ? p.pre : p.n_blocks, latent_pieces(p.C));
     if (MV) {
-      f_n_gemms = 0;
+      f_n_gemms = f_seg_gemms = 0;
       for (int i = 0; i < f_n_steps; ++i) {
         if (step_kind(f_prog[i]) == FOLD) f_seg_gemms = f_n_gemms;  // the view segment's products
         else f_gprog[f_n_gemms++] = f_prog[i];
       }
-      // the CTA's tiles are blockIdx.x, + gridDim.x, ..
-      f_left[0] = f_left[1] = (n_tiles - (int)blockIdx.x + (int)gridDim.x - 1) / (int)gridDim.x;
+      // the CTA's tiles are unit, + n_units, ..
+      f_left[0] = f_left[1] = (n_tiles - unit + n_units - 1) / n_units;
       f_vleft[0] = f_vleft[1] = p.NS - 1;
       f_end = walk_at(f_n_steps, p.NS - 1);
       f_lat_n = 0;
@@ -688,7 +822,7 @@ __device__ __forceinline__ void fwd_tile(const DenseParams& q) {
   if (MV) {
     // persistent CTAs walk the tiles, each with its view-sum slot; the
     // feeders run on into the next tile's stages
-    for (int tile = blockIdx.x; tile < n_tiles; tile += gridDim.x) {
+    for (int tile = unit; tile < n_tiles; tile += n_units) {
       __syncthreads();  // the previous tile's last readers of f_row0 are done
       if (threadIdx.x == 0) f_row0 = tile * TILE_PTS;
       __syncthreads();
@@ -699,16 +833,19 @@ __device__ __forceinline__ void fwd_tile(const DenseParams& q) {
   }
 }
 
+// At CLUSTER 2 the one-view kernels walk their tiles as the multi-view ones
+// do, at one view (NS 1: no fold, no slot): persistent pairs, the same code
+// as their multi-view twins (a tile a pair of its own spilled: 236-252 B).
 template <bool CODE>
 __global__ void __launch_bounds__(TILE_THREADS, 1)
     resnetfc_fwd_dense_kernel(const __grid_constant__ DenseParams q) {
-  fwd_tile<false, CODE, false>(q);
+  fwd_tile<false, CODE, (CLUSTER > 1)>(q);
 }
 
 template <bool CODE>
 __global__ void __launch_bounds__(TILE_THREADS, 1)
     resnetfc_fwd_gather_kernel(const __grid_constant__ DenseParams q) {
-  fwd_tile<true, CODE, false>(q);
+  fwd_tile<true, CODE, (CLUSTER > 1)>(q);
 }
 
 template <bool CODE>
@@ -723,17 +860,53 @@ __global__ void __launch_bounds__(TILE_THREADS, 1)
   fwd_tile<true, CODE, true>(q);
 }
 
-// A grid of `grid` tile CTAs: one a 64-point tile (one view), or persistent
-// CTAs (multi-view).
-int launch_tile(void (*kernel)(DenseParams), const DenseParams& q, int grid, cudaStream_t stream) {
+// A grid of `units` tile units -- a CTA, or (CLUSTER 2) a cluster of two --
+// one a 64-point tile (one view), or persistent (multi-view).  A cluster
+// launch the card refuses returns its error.
+int launch_tile(void (*kernel)(DenseParams), const DenseParams& q, int units, cudaStream_t stream) {
   cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)TILE_SMEM);
   if (err != cudaSuccess) return (int)err;
-  kernel<<<grid, TILE_THREADS, TILE_SMEM, stream>>>(q);
+  if (CLUSTER > 1)
+    return (int)hopper::launch_cluster(kernel, units * CLUSTER, TILE_THREADS, TILE_SMEM, stream,
+                                       CLUSTER, q);
+  kernel<<<units, TILE_THREADS, TILE_SMEM, stream>>>(q);
   return (int)cudaGetLastError();
 }
 
 int tiles_of(int B) { return (B + TILE_PTS - 1) / TILE_PTS; }
+
+// The tile units (CTAs, or clusters of CLUSTER CTAs) the card holds at once
+// (every tile kernel holds an SM alone), or a negative cudaError_t; asked
+// of the card once.
+int resident_units() {
+  static int n = 0;
+  if (n <= 0) {
+    void (*kernel)(DenseParams) = resnetfc_fwd_dense_kernel<false>;
+    const cudaError_t err = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)TILE_SMEM);
+    n = err != cudaSuccess ? -(int)err
+                           : hopper::max_active_clusters(kernel, TILE_THREADS, TILE_SMEM, CLUSTER);
+  }
+  return n;
+}
+
+// The units of a one-view launch: a CTA a tile, or at CLUSTER 2 persistent
+// pairs, at most one a tile and no more than the card holds at once.
+int one_view_units(int B) {
+  if (CLUSTER == 1) return tiles_of(B);
+  return resident_units() < tiles_of(B) ? resident_units() : tiles_of(B);
+}
+
+// The persistent units of a multi-view launch: at most one a tile, n_ctas /
+// CLUSTER (the view-sum slots hold a CTA each), and at CLUSTER 2 no more
+// clusters than the card holds at once (a persistent cluster that waited
+// for another to finish would walk its tiles after it); below 1 if the card
+// holds none.
+int mv_units(int B, int n_ctas) {
+  const int units = n_ctas / CLUSTER < tiles_of(B) ? n_ctas / CLUSTER : tiles_of(B);
+  return CLUSTER > 1 && resident_units() < units ? resident_units() : units;
+}
 
 bool dense_widths_ok(int kin, int C, int n_blocks, int n_lin_z) {
   return kin >= 16 && kin <= F_MAX_K && kin % 16 == 0 && n_blocks >= 1 && n_lin_z >= 0 &&
@@ -811,13 +984,14 @@ extern "C" {
 
 const char* resnetfc_fwd_error_string(int err) { return cudaGetErrorString((cudaError_t)err); }
 
-// What the tile kernels fix, for the wrapper to plan with: out[0..9] =
+// What the tile kernels fix, for the wrapper to plan with: out[0..10] =
 // points a tile, threads a CTA, weight-ring stages, the most outputs of
 // lin_out, the most steps of a tile's stored program (one view's segment and
 // the shared blocks), the widest code (and latent piece), the f32 words of
 // a multi-view CTA's view-sum slot, the widest latent of the dense kernels,
 // the tower's width this library is built for, the widest latent of the
-// gather kernels' table.
+// gather kernels' table, the CTAs of a tile (2: a cluster, at d_hidden
+// 1024; else 1).
 // Returns the bytes of a plan; *smem gets the shared memory a CTA.
 size_t resnetfc_fwd_dense_limits(int* out, size_t* smem) {
   out[0] = TILE_PTS;
@@ -830,6 +1004,7 @@ size_t resnetfc_fwd_dense_limits(int* out, size_t* smem) {
   out[7] = F_MAX_C;
   out[8] = HID;
   out[9] = F_MAX_GATHER_C;
+  out[10] = CLUSTER;
   *smem = TILE_SMEM;
   return sizeof(DensePlan);
 }
@@ -877,8 +1052,10 @@ int resnetfc_fwd_dense(const void* plan, const void* z, const void* x, const voi
     const int err = hopper::encode_bf16_sw128(&q.m_lat, z, B, C, C, 64);
     if (err != 0) return err;
   }
+  const int units = one_view_units(B);
+  if (units < 1) return (int)cudaErrorInvalidConfiguration;
   return launch_tile(code ? resnetfc_fwd_dense_kernel<true> : resnetfc_fwd_dense_kernel<false>, q,
-                     tiles_of(B), static_cast<cudaStream_t>(stream));
+                     units, static_cast<cudaStream_t>(stream));
 }
 
 // One view with the lookup z[g] = sum_{j<4} w[g, j] * table[idx[g, j]]
@@ -897,8 +1074,10 @@ int resnetfc_fwd_gather(const void* plan, const void* idx, const void* w, int ta
                                B, d_in, kin, H, C, n_blocks, n_lin_z, d_out, planar, code_w,
                                code_f, code_p, code_m, d_raw);
   if (code < 0 || !gather_params(q, idx, w, taps, table, T)) return (int)cudaErrorInvalidValue;
+  const int units = one_view_units(B);
+  if (units < 1) return (int)cudaErrorInvalidConfiguration;
   return launch_tile(code ? resnetfc_fwd_gather_kernel<true> : resnetfc_fwd_gather_kernel<false>,
-                     q, tiles_of(B), static_cast<cudaStream_t>(stream));
+                     q, units, static_cast<cudaStream_t>(stream));
 }
 
 // Multi-view, dense bf16 latent z (NS B, C) (null without injection): B =
@@ -906,7 +1085,8 @@ int resnetfc_fwd_gather(const void* plan, const void* idx, const void* w, int ta
 // first `pre` blocks run per view, the rest on their mean.  The plan's
 // weights as resnetfc_fwd_dense; vsum holds n_ctas slots of
 // resnetfc_fwd_dense_limits' f32 words, and the grid is at most n_ctas
-// persistent CTAs.
+// persistent CTAs (at d_hidden 1024 clusters of two, no more of them than
+// the card holds at once: mv_units).
 int resnetfc_fwd_dense_mv(const void* plan, const void* z, const void* x, const void* w_in,
                           const void* b_in, const void* w_z, const void* b_z, const void* w_blk,
                           const void* b_blk, const void* w_out, const void* b_out, void* out, int B,
@@ -926,9 +1106,10 @@ int resnetfc_fwd_dense_mv(const void* plan, const void* z, const void* x, const 
     const int err = hopper::encode_bf16_sw128(&q.m_lat, z, (uint64_t)NS * B, C, C, 64);
     if (err != 0) return err;
   }
-  const int grid = n_ctas < tiles_of(B) ? n_ctas : tiles_of(B);
+  const int units = mv_units(B, n_ctas);
+  if (units < 1) return (int)cudaErrorInvalidConfiguration;
   return launch_tile(code ? resnetfc_fwd_dense_mv_kernel<true> : resnetfc_fwd_dense_mv_kernel<false>,
-                     q, grid, static_cast<cudaStream_t>(stream));
+                     q, units, static_cast<cudaStream_t>(stream));
 }
 
 // Multi-view with view v's lookup z[g] = sum_{j<4} w[r, j] * table[v][idx[r,
@@ -950,9 +1131,10 @@ int resnetfc_fwd_gather_mv(const void* plan, const void* idx, const void* w, int
   if (code < 0 || B_obj != B || !mv_params(q, NS, B_obj, pre, vsum, n_ctas) ||
       !gather_params(q, idx, w, taps, table, T))
     return (int)cudaErrorInvalidValue;
-  const int grid = n_ctas < tiles_of(B) ? n_ctas : tiles_of(B);
+  const int units = mv_units(B, n_ctas);
+  if (units < 1) return (int)cudaErrorInvalidConfiguration;
   return launch_tile(code ? resnetfc_fwd_gather_mv_kernel<true> : resnetfc_fwd_gather_mv_kernel<false>,
-                     q, grid, static_cast<cudaStream_t>(stream));
+                     q, units, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

@@ -69,18 +69,35 @@ typedef __nv_bfloat16 bf16;
 // The tower's width (d_hidden): the N of every product, the f32 stream, the
 // bias strides and the weights' rows.  One library is built for each width,
 // with -DRFC_HID=<width>: every multiple of 64 up to 512 but 448 (every
-// config in conf/ uses 512, ResnetFC's default is 128).  A tower of any
-// other width up to 512 runs on the next library's, its weights zero-padded
-// to that width (ops/resnetfc_fused.py, library_width).  448 has no library
-// of its own: its pieces (seven of 32 columns a warpgroup; two of 112
-// spilled) ran slower than the same tower padded onto 512's.
+// config in conf/ uses 512, ResnetFC's default is 128), and 1024 for the
+// forward kernels only.  A tower of any other width up to 1024 runs on the
+// next library's, its weights zero-padded to that width
+// (ops/resnetfc_fused.py, library_width).  448 has no library of its own:
+// its pieces (seven of 32 columns a warpgroup; two of 112 spilled) ran
+// slower than the same tower padded onto 512's.
 #ifndef RFC_HID
 #define RFC_HID 512
 #endif
 constexpr int HID = RFC_HID;
 static_assert(HID == 64 || HID == 128 || HID == 192 || HID == 256 || HID == 320 || HID == 384 ||
-                  HID == 512,
-              "the tile takes d_hidden 64, 128, 192, 256, 320, 384 or 512");
+                  HID == 512 || HID == 1024,
+              "the tile takes d_hidden 64, 128, 192, 256, 320, 384, 512 or 1024");
+
+// Past 512 columns one CTA cannot hold a 64-point tile: its f32 stream (256
+// KB at 1024) alone fills an SM's registers.  At HID 1024 a tile is one
+// thread-block cluster of CLUSTER = 2 CTAs on neighbouring SMs, and CTA r
+// (%cluster_ctarank) owns columns [CTA_HID r, CTA_HID (r + 1)) of every
+// product's N, of the f32 stream and of each bias; inside a CTA the layout
+// is the 512-wide one (two warpgroups of 256 columns, 128 stream registers
+// a thread; its pieces are 64 columns wide, TILE_PIECE).  A block product's operand A is the full
+// K = HID bf16 activation (128 KB, ACT_BYTES): each CTA writes its own
+// columns of it into its own copy and into its partner's (distributed shared
+// memory), and the pair meets at a cluster barrier before either reads it.
+// Every output column's K sum runs over k = 0..HID - 1 in order, the same
+// k16 steps in both CTAs, as at the narrower widths: the order a recompute
+// of this forward has to follow to reproduce its f32 stream bit for bit.
+constexpr int CLUSTER = HID > 512 ? 2 : 1;
+constexpr int CTA_HID = HID / CLUSTER;  // the columns a CTA owns: HID up to 512, 512 at 1024
 // The operand tile's K capacity, the same at every HID: the widest code, and
 // the widest piece of a latent (so sn64's C = 512 latent is one piece at any
 // tower width).
@@ -193,17 +210,21 @@ constexpr int TILE_THREADS = 256;
 // warpgroup, and a ring of 4 stages of 24 KB; at 320 two pieces of 80,
 // m64n80k16, each five 64 x 16 boxes (the 32-byte swizzle), and a ring of
 // 4 stages of 20 KB)
-constexpr int TILE_HALF = HID / 2;  // columns a warpgroup owns: 256
+constexpr int TILE_HALF = CTA_HID / 2;  // columns a warpgroup owns: 256 (at 1024 too)
 // columns of one product: 128 where they divide a warpgroup's half, else 64
 // (a half of 192 at HID 384 is three pieces of 64), else the whole half up
 // to 128 (32 at HID 64, 96 at 192), else half of it (80 at 320).  Fewer
 // and larger stages than pieces of 32 (the per-stage waits, not the FLOP,
 // set a narrow tile's time) where the registers allow: a piece of 160 at
-// 320 spilled the multi-view data kernel (its 255 registers)
-constexpr int TILE_PIECE = TILE_HALF % 128 == 0 ? 128
-                           : TILE_HALF % 64 == 0 ? 64
-                           : TILE_HALF <= 128    ? TILE_HALF
-                                                 : TILE_HALF / 2;
+// 320 spilled the multi-view data kernel (its 255 registers).  At HID 1024
+// four pieces of 64: 32 accumulators a thread beside the stream, and whole
+// 64-row stages of 16 KB in the 32 KB ring that the 128 KB operand tile
+// leaves (two pieces of 128 need stages of 32 K rows)
+constexpr int TILE_PIECE = CLUSTER > 1             ? 64
+                           : TILE_HALF % 128 == 0 ? 128
+                           : TILE_HALF % 64 == 0  ? 64
+                           : TILE_HALF <= 128     ? TILE_HALF
+                                                  : TILE_HALF / 2;
 static_assert(TILE_HALF % TILE_PIECE == 0 && TILE_PIECE % 16 == 0,
               "a warpgroup's half is whole pieces of whole boxes");
 // a weight box's columns: 64 (128 bytes, the 128-byte swizzle) where they
@@ -212,22 +233,29 @@ static_assert(TILE_HALF % TILE_PIECE == 0 && TILE_PIECE % 16 == 0,
 constexpr int W_BOX_COLS = TILE_PIECE % 64 == 0 ? 64 : TILE_PIECE % 32 == 0 ? 32 : 16;
 constexpr uint32_t W_BOX_BYTES = 64 * W_BOX_COLS * 2;  // 64 rows of K: 8 KB (4 / 2 KB at 32 / 16 columns)
 constexpr int TILE_BPW = TILE_PIECE / W_BOX_COLS;  // weight boxes a warpgroup a stage: 2 (3 at 192, 5 at 320)
-constexpr int TILE_NP = TILE_HALF / TILE_PIECE;  // pieces a warpgroup: 2 (3 at HID 384; 1 at 256, 128, 64, 192)
+constexpr int TILE_NP = TILE_HALF / TILE_PIECE;  // pieces a warpgroup: 2 (3 at HID 384, 4 at 1024; 1 at 256, 128, 64, 192)
 constexpr int TILE_ACC = TILE_PIECE * TILE_PTS / 128;  // f32 accumulators a thread a piece: 64
-constexpr int TILE_STREAM = TILE_NP * TILE_ACC;        // a thread's share of a 64 x HID stream: 128
+constexpr int TILE_STREAM = TILE_NP * TILE_ACC;        // a thread's share of a 64 x CTA_HID stream: 128
 constexpr uint32_t BOX_BYTES = 64 * 128;  // a 64 x 64 bf16 box of an operand tile (latent, masks)
 constexpr uint32_t STAGE_BYTES = 2 * TILE_BPW * W_BOX_BYTES;  // 64 of K x the two warpgroups' pieces
 // 96 KB of weights in flight: 3 stages, 6 at HID 128 and 384, 12 at 64, 4
-// at 192 and 320
-constexpr int RING_STAGES = 3 * 32768 / STAGE_BYTES;
+// at 192 and 320; at 1024, where the 128 KB operand tile leaves 32 KB of
+// shared memory for the ring, 2 stages of 16 KB
+constexpr int RING_STAGES = (CLUSTER > 1 ? 32768 : 3 * 32768) / STAGE_BYTES;
 static_assert(RING_STAGES >= 2, "the ring holds a stage being read and one being loaded");
 constexpr uint32_t TILE_BYTES = TILE_PTS * TILE_K * 2;        // a 64 x 512 bf16 operand tile
-constexpr size_t TILE_SMEM = 2 * TILE_BYTES + (size_t)RING_STAGES * STAGE_BYTES + 1024;  // + alignment
+// the operand tile of the block products (act): K = HID columns, 128 KB at
+// 1024; the other operand tile (the code, a latent piece) stays TILE_BYTES
+constexpr uint32_t ACT_BYTES = TILE_PTS * (HID > TILE_K ? HID : TILE_K) * 2;
+constexpr size_t TILE_SMEM = ACT_BYTES + TILE_BYTES + (size_t)RING_STAGES * STAGE_BYTES + 1024;  // + alignment
+// (the card gives a CTA 232,448 B; the kernels' static shared memory, under
+// 2 KB, comes on top)
+static_assert(TILE_SMEM + 2048 <= 232448, "a CTA's shared memory");
 
 constexpr int TILE_MAX_OUT = 4;  // outputs of lin_out the tile kernels take (d_out 4 in every config)
 
 // One k16 step of a piece's product: wgmma m64n128k16 at 64 accumulators a
-// thread, m64n64k16 at 32 (HID 128 and 384), m64n32k16 at 16 (HID 64),
+// thread, m64n64k16 at 32 (HID 128, 384 and 1024), m64n32k16 at 16 (HID 64),
 // m64n96k16 at 48 (HID 192), m64n80k16 at 40 (HID 320).
 template <int TA, int TB>
 __device__ __forceinline__ void wgmma_piece(float (&d)[64], uint64_t a, uint64_t b, int scale_d) {
@@ -269,6 +297,13 @@ inline int encode_weights(CUtensorMap* map, const void* w, uint64_t rows, bool w
                    : hopper::encode_bf16(map, w, rows, HID, HID, 64, W_BOX_COLS);
 }
 
+// The first column this CTA owns: 0, or at HID 1024 CTA_HID times its rank
+// in the cluster.
+__device__ __forceinline__ int cta_col0() {
+  if (CLUSTER == 1) return 0;
+  return (int)hopper::cluster_ctarank() * CTA_HID;
+}
+
 // Where accumulator i of this thread lies in a 64 x TILE_PIECE piece: row,
 // and the first of two neighbouring columns (i even; i + 1 is the next
 // column).
@@ -283,7 +318,8 @@ __device__ __forceinline__ int acc_col(int i) { return 8 * (i >> 2) + 2 * (threa
 // reads do not all wait in registers beside the stream and the accumulators.
 __device__ __forceinline__ void group_fence() { asm volatile("" ::: "memory"); }
 
-// This warpgroup's first column of piece p.
+// This warpgroup's first column of piece p, among its CTA's (cta_col0()
+// before them in the tower).
 __device__ __forceinline__ int piece_col(int p) { return (threadIdx.x >> 7) * TILE_HALF + p * TILE_PIECE; }
 
 // Shared-memory writes by the threads made visible to the products that

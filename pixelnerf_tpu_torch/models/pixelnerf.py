@@ -40,7 +40,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..config.hocon import ConfigTree
-from ..ops.resnetfc_fused import HIDDEN, TILE_LIMITS, LatentGather, RawCode, library_width, supports
+from ..ops.resnetfc_fused import (FWD_HIDDEN, TILE_LIMITS, LatentGather, RawCode, library_width,
+                                  supports)
 from ..utils.geometry import invert_poses, repeat_interleave
 from .code import PositionalEncoding
 from .custom_encoder import ConvEncoder
@@ -306,7 +307,7 @@ class PixelNeRFNet(nn.Module):
             # the width runs on) is looked up densely, so the field never
             # reaches a gather that refuses it; the JAX rule everywhere else
             lim = (TILE_LIMITS[library_width(mlp.d_hidden)]
-                   if 1 <= mlp.d_hidden <= HIDDEN[-1] else None)
+                   if 1 <= mlp.d_hidden <= FWD_HIDDEN[-1] else None)
             if lim is not None and mlp.n_lin_z > 0 and mlp.d_latent > lim.max_gather_c:
                 return False
         if self.encoder.index_interp != "bilinear":

@@ -131,13 +131,16 @@ class ResnetFC(nn.Module):
     # ------------------------------------------------------------------
     def check_kernel_widths(self, NS: int = 1, grad: bool = False, gather: bool = False) -> None:
         """Raise ValueError on widths a kernel of this call does not take:
-        the forward's at NS views (H from 1 to 512 on the library of
-        ``rf.library_width(H)``: every multiple of 64 but 448 has its own,
-        any other width runs zero-padded on the next one's; kin and C multiples of 16,
+        the forward's at NS views (H from 1 to 1024 on the library of
+        ``rf.library_width(H)``: every multiple of 64 up to 512 but 448, and
+        1024, has its own, any other width runs zero-padded on the next
+        one's; kin and C multiples of 16,
         kin <= 512, C <= 4096 in pieces of 512; the stored program's steps:
         62 blocks at sn64's other widths and one view); with ``gather`` (a
         LatentGather latent) also the gathers' table width (C <= 4096);
-        under ``grad`` also the backward's (the same library; the data
+        under ``grad`` also the backward's (the same library, which exists
+        up to 512 (``rfv.check_backward_width``): a wider tower trains on
+        the plain field; the data
         kernel's widths and program: C <= 4096 and kin <= 512 as the
         forward's, 512 16-bit steps and 64 blocks, which hold every tower
         the forward's program does at sn64's other widths, while at H = 64
@@ -163,6 +166,7 @@ class ResnetFC(nn.Module):
             if rf.dense_steps(self.n_blocks, self.n_lin_z, NS, pre, C) > lim.max_steps:
                 raise ValueError(f"the multi-view kernels store at most {lim.max_steps} steps")
         if grad:
+            rfv.check_backward_width(H)
             dlim = rfv.DATA_LIMITS[H]
             rfv.check_data_widths(kin, H, C, self.n_lin_z, self.n_blocks, self.d_out, dlim)
             rfv.check_data_program(self.n_blocks, self.n_lin_z, NS, pre, dlim, C)

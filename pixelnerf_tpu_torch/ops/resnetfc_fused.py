@@ -24,14 +24,18 @@ global encoder's code before the pixel latent, 640; ResNet50's unified map,
 columns in pieces of :data:`TILE_K` = 512 (:func:`latent_pieces`), the last
 one ragged; the gathers build the same pieces from their table, to
 ``max_gather_c`` = 4096.  The tower's width is a compile-time constant
-of the tile: one library is built for each width in :data:`HIDDEN` (every
-multiple of 64 up to 512 but 448; ``-DRFC_HID``), and each launch takes the library
-of its packed width, ``w_in.shape[1]`` -- the backward's too
-(:mod:`.resnetfc_vjp`).  A tower of any other width up to 512 is packed at
-the next library's width (:func:`library_width`), its weights zero past its
-own columns, which computes the same function (:func:`pack_tower`).
-:data:`TILE_LIMITS` mirrors each library's limits for the route rule, which
-must not build it.
+of the tile: one forward library is built for each width in
+:data:`FWD_HIDDEN` (every multiple of 64 up to 512 but 448, and 1024;
+``-DRFC_HID``), one backward library for each in :data:`BWD_HIDDEN` (the
+same up to 512), and each launch takes the library of its packed width,
+``w_in.shape[1]`` (:mod:`.resnetfc_vjp` for the backward's).  A tower of
+any other width up to 1024 is packed at the next library's width
+(:func:`library_width`), its weights zero past its own columns, which
+computes the same function (:func:`pack_tower`).  At 1024 a 64-point tile
+is a cluster of two CTAs, each owning 512 of the columns
+(``csrc/tile64.cuh``, ``CLUSTER``); such a tower trains on the plain field
+(no backward library past 512).  :data:`TILE_LIMITS` mirrors each
+library's limits for the route rule, which must not build it.
 
 Each takes its coordinate input ``x`` either encoded (a tensor) or as a
 :class:`RawCode`, the deferred positional code: the kernel's CODE variant
@@ -87,15 +91,18 @@ NVCC_FLAGS = (
 )
 # what one CTA may ask for on Hopper (227 KB of the SM's 256 KB)
 MAX_SMEM_BYTES = 232448
-# the hidden widths the kernels are built for, one forward and one backward
-# library each: every multiple of 64 up to 512 but 448 (every config in
-# conf/ uses 512; ResnetFC's default is 128; 64 is the width the JAX
-# package's own kernel tests run under grad; 384 is a warpgroup's 192
-# columns in three pieces of 64; 192 and 320 are a warpgroup's 96 and 160 in
-# one piece and two of 80).  Any other width up to 512 runs on the next
-# one's library, zero-padded (library_width): 448 on 512's, which ran faster
-# than a library of its own (pieces of 32 columns)
-HIDDEN = (64, 128, 192, 256, 320, 384, 512)
+# the hidden widths the backward kernels are built for, a library each:
+# every multiple of 64 up to 512 but 448 (every config in conf/ uses 512;
+# ResnetFC's default is 128; 64 is the width the JAX package's own kernel
+# tests run under grad; 384 is a warpgroup's 192 columns in three pieces of
+# 64; 192 and 320 are a warpgroup's 96 and 160 in one piece and two of 80)
+BWD_HIDDEN = (64, 128, 192, 256, 320, 384, 512)
+# the widths the forward kernels are built for: the backward's and 1024 (a
+# 64-point tile on a cluster of two CTAs).  Any other width up to 1024 runs
+# on the next one's library, zero-padded (library_width): 448 on 512's,
+# which ran faster than a library of its own (pieces of 32 columns), and
+# 513-1023 on 1024's
+FWD_HIDDEN = BWD_HIDDEN + (1024,)
 # the operand tile's K capacity at every width: the widest code, and the
 # widest piece of a latent (``TILE_K`` in ``csrc/tile64.cuh``)
 TILE_K = 512
@@ -220,14 +227,15 @@ def _round_up(x: int, m: int) -> int:
 
 
 def library_width(H: int) -> int:
-    """The width of the library a tower of width H runs on: the narrowest
-    in :data:`HIDDEN` that is at least H (H itself at a multiple of 64).
-    Raises ValueError past 512, the widest library, and below 1."""
-    for L in HIDDEN:
+    """The width of the forward library a tower of width H runs on: the
+    narrowest in :data:`FWD_HIDDEN` that is at least H (H itself at a
+    multiple of 64 up to 512, 1024 for 513-1024).  Raises ValueError past
+    1024, the widest library, and below 1."""
+    for L in FWD_HIDDEN:
         if 1 <= H <= L:
             return L
-    raise ValueError(f"the tile kernels take d_hidden 1 to {HIDDEN[-1]}, on the libraries of "
-                     f"{HIDDEN} (H={H})")
+    raise ValueError(f"the tile kernels take d_hidden 1 to {FWD_HIDDEN[-1]}, on the libraries "
+                     f"of {FWD_HIDDEN} (H={H})")
 
 
 def pack_tower(params: dict, d_in: int, d_latent: int, n_blocks: int, n_lin_z: int,
@@ -414,14 +422,17 @@ def _library_path(which: str, H: int) -> Path:
     return BUILD_DIR / f"lib{src.stem}-{tag}.so"
 
 
-def build_all(which=tuple(SOURCES), widths=HIDDEN) -> dict:
-    """Compile each source in ``which`` at every width in ``widths`` that has
+def build_all(which=tuple(SOURCES), widths=FWD_HIDDEN) -> dict:
+    """Compile each source in ``which`` at every width in ``widths`` that
+    it is built for (the backward only at :data:`BWD_HIDDEN`) and that has
     no library of this source, header and flags yet: one ``nvcc`` per
     library, all started together.  Returns ``{(name, H): Build}``; raises
     if any ``nvcc`` fails."""
     builds, running = {}, {}
     for name in which:
         for H in widths:
+            if name == "bwd" and H not in BWD_HIDDEN:
+                continue
             lib = _library_path(name, H)
             log = lib.with_suffix(".log")
             if lib.exists():
@@ -451,7 +462,10 @@ def build_all(which=tuple(SOURCES), widths=HIDDEN) -> dict:
 
 def build(which: str = "fwd", H: int = 512) -> Build:
     """Compile one source (``fwd`` or ``bwd``) at width ``H`` unless its
-    library exists."""
+    library exists; raises ValueError at a width the source is not built
+    for."""
+    if H not in (BWD_HIDDEN if which == "bwd" else FWD_HIDDEN):
+        raise ValueError(f"no {which} library is built at d_hidden {H}")
     return build_all((which,), (H,))[which, H]
 
 
@@ -524,9 +538,9 @@ def _tower_args(tower: Tower, x, n_blocks: int, planar_out: bool, B: Optional[in
     d_out = tower.w_out.shape[1]
     B = x.shape[0] if B is None else B
     dev = x.device
-    if H not in HIDDEN or C % 16 or kin % 16:
+    if H not in FWD_HIDDEN or C % 16 or kin % 16:
         raise ValueError(
-            f"kernel widths: H must be one of {HIDDEN} and C, kin multiples of 16 "
+            f"kernel widths: H must be one of {FWD_HIDDEN} and C, kin multiples of 16 "
             f"(H={H}, C={C}, kin={kin})"
         )
     _check(tower.w_in, "w_in", torch.bfloat16, (kin, H))
@@ -560,13 +574,13 @@ class DenseLimits(NamedTuple):
     ``resnetfc_fwd_gather_mv_kernel``) fix (read from their library by
     :func:`dense_limits`)."""
 
-    tile: int  # points a CTA takes at a time (one wgmma M)
+    tile: int  # points a tile unit (a CTA, or a cluster of ``cluster``) takes at a time
     threads: int  # a CTA: two warpgroups (thread 0 also feeds the weight ring)
     stages: int  # weight-ring stages
     max_out: int  # the most outputs of lin_out
     max_steps: int  # the most steps of a tile's stored program: one view's segment and the tail
     max_k: int  # the widest code (kin), and a latent's widest piece: one 64 x 512 operand tile
-    slot_floats: int  # f32 words of a multi-view CTA's view-sum slot (its 64 x H stream)
+    slot_floats: int  # f32 words of a multi-view CTA's view-sum slot (its 64 x H / cluster stream)
     smem: int  # dynamic shared memory a CTA
     plan_bytes: int  # bytes of a plan (the weights' tensor maps)
     # the widest latent (C) of the dense kernels: an injection past max_k
@@ -576,13 +590,25 @@ class DenseLimits(NamedTuple):
     # the widest table (C) of the gather kernels, whose lookup builds the
     # same pieces
     max_gather_c: int = 8 * TILE_K
+    # the CTAs of a 64-point tile: 2 (a cluster, each CTA owning H / 2
+    # columns) at H = 1024, else 1
+    cluster: int = 1
+
+
+def cluster_ctas(H: int) -> int:
+    """The CTAs of one 64-point tile at library width H (``CLUSTER`` in
+    ``csrc/tile64.cuh``): a cluster of two past 512 columns, else one."""
+    return 2 if H > 512 else 1
 
 
 def piece_cols(H: int) -> int:
     """Columns of one product piece at width H (``TILE_PIECE`` in
-    ``csrc/tile64.cuh``): 128 where they divide a warpgroup's H / 2 columns,
+    ``csrc/tile64.cuh``): 64 at 1024 (four of a warpgroup's 256 columns of
+    its CTA's 512), else 128 where they divide a warpgroup's H / 2 columns,
     else 64 (three pieces of H = 384's 192), else the whole half up to 128
     (32 at 64, 96 at 192), else half of it (80 at 320)."""
+    if cluster_ctas(H) > 1:
+        return 64
     half = H // 2
     return 128 if half % 128 == 0 else 64 if half % 64 == 0 else half if half <= 128 else half // 2
 
@@ -596,38 +622,42 @@ def ring_stage_bytes(H: int) -> int:
 
 def _mirror(H: int) -> DenseLimits:
     """The limits of the library built at width H, from the tile's constants
-    (``csrc/tile64.cuh``): each warpgroup owns H / 2 columns in pieces of at
-    most 128, so a thread's share of the stream (the view-sum slot) is H / 4
-    f32; the stages that a 96 KB weight ring holds (3 of 32 KB, 6 of 16 KB at
-    H = 128 and 384, 12 of 8 KB at 64, 4 of 24 KB at 192, 4 of 20 KB at
-    320); two 64 KB operand tiles."""
+    (``csrc/tile64.cuh``): each warpgroup owns half of a CTA's H (H / 2 at
+    1024, a cluster of two CTAs) columns in pieces of at most 128, so a
+    thread's share of the stream (the view-sum slot) is a CTA's H / 4 f32;
+    the stages that a 96 KB weight ring holds (3 of 32 KB, 6 of 16 KB at H =
+    128 and 384, 12 of 8 KB at 64, 4 of 24 KB at 192, 4 of 20 KB at 320), or
+    at 1024 a 32 KB ring (2 of 16 KB); two 64 KB operand tiles, the block
+    products' 128 KB at 1024."""
+    cl = cluster_ctas(H)
     stage = ring_stage_bytes(H)
-    stages = 3 * 32768 // stage
+    stages = (32768 if cl > 1 else 3 * 32768) // stage
+    act = 64 * max(H, TILE_K) * 2
     return DenseLimits(tile=64, threads=256, stages=stages, max_out=4, max_steps=128,
-                       max_k=TILE_K, slot_floats=H // 4 * 256,
-                       smem=2 * 65536 + stages * stage + 1024, plan_bytes=448, max_c=8 * TILE_K,
-                       hidden=H, max_gather_c=8 * TILE_K)
+                       max_k=TILE_K, slot_floats=H // cl // 4 * 256,
+                       smem=act + 65536 + stages * stage + 1024, plan_bytes=448, max_c=8 * TILE_K,
+                       hidden=H, max_gather_c=8 * TILE_K, cluster=cl)
 
 
 # What each width's library reports (dense_limits), mirrored so that the
 # route rule (models/resnetfc.py) can test a tower's widths without building
 # or loading a library; chip_smoke.py and a cuda-marked test hold the two
 # equal.
-TILE_LIMITS = {H: _mirror(H) for H in HIDDEN}
+TILE_LIMITS = {H: _mirror(H) for H in FWD_HIDDEN}
 
 
 def tile_limits(H: int) -> DenseLimits:
     """The mirrored limits of the library a tower of width H runs on
-    (:func:`library_width`); raises ValueError past 512."""
+    (:func:`library_width`); raises ValueError past 1024."""
     return TILE_LIMITS[library_width(H)]
 
 
 @functools.lru_cache(maxsize=None)
 def dense_limits(H: int = 512) -> DenseLimits:
     """What the library of width H reports."""
-    out, smem = (ctypes.c_int * 10)(), ctypes.c_size_t()
+    out, smem = (ctypes.c_int * 11)(), ctypes.c_size_t()
     n = _lib(H).resnetfc_fwd_dense_limits(out, ctypes.byref(smem))
-    return DenseLimits(*out[:7], smem.value, n, out[7], out[8], out[9])
+    return DenseLimits(*out[:7], smem.value, n, out[7], out[8], out[9], out[10])
 
 
 def latent_pieces(C: int) -> int:
@@ -654,8 +684,9 @@ def dense_steps(n_blocks: int, n_lin_z: int, NS: int = 1, pre: Optional[int] = N
 
 
 def dense_grid(B: int, limits: DenseLimits) -> int:
-    """The CTAs of a ``resnetfc_fwd_dense`` launch: one a tile-point tile,
-    the last one ragged (its rows past B read zeros and write nothing)."""
+    """The tiles of a ``resnetfc_fwd_dense`` launch: one CTA each (at 1024
+    persistent pairs walk them), the last one ragged (its rows past B read
+    zeros and write nothing)."""
     return -(-B // limits.tile)
 
 
@@ -663,14 +694,14 @@ def check_dense_widths(kin: int, H: int, C: int, n_lin_z: int, n_blocks: int, d_
                        limits: DenseLimits) -> None:
     """Raise ValueError on widths ``resnetfc_fwd_dense`` does not take: H
     (the packed width) other than the library's (``limits.hidden``: every
-    multiple of 64 up to 512 but 448, one library each); kin not a multiple of 16
+    multiple of 64 up to 512 but 448, and 1024, one library each); kin not a multiple of 16
     or past ``limits.max_k``; with a latent, C not a multiple of 16 or past
     ``limits.max_c``; more
     injections than blocks; more outputs than ``limits.max_out``; a program
     past ``limits.max_steps``; a CTA past the card's shared memory."""
     if H != limits.hidden:
         raise ValueError(f"the dense kernel of this library needs d_hidden {limits.hidden}, "
-                         f"one library each of {HIDDEN} (H={H})")
+                         f"one library each of {FWD_HIDDEN} (H={H})")
     for name, v, top in (("kin", kin, limits.max_k),) + (
             (("C", C, limits.max_c),) if n_lin_z > 0 else ()):
         if v % 16 or not 16 <= v <= top:
@@ -693,8 +724,10 @@ def check_dense_widths(kin: int, H: int, C: int, n_lin_z: int, n_blocks: int, d_
 def dense_mv_grid(B: int, n_sms: int, limits: DenseLimits) -> int:
     """The CTAs of a ``resnetfc_fwd_dense_mv`` launch: persistent, one an SM
     at most (each holds a view-sum slot), walking the tile-point tiles of the
-    B output points."""
-    return min(-(-B // limits.tile), n_sms)
+    B output points; at 1024 in clusters of two, a tile each (the library
+    also keeps the clusters to those the card holds at once)."""
+    cl = limits.cluster
+    return cl * min(-(-B // limits.tile), n_sms // cl)
 
 
 def check_tile_tower(tower: Tower, n_blocks: int, limits: DenseLimits) -> None:
@@ -840,7 +873,7 @@ def dense_plan(tower: Tower, n_blocks: int) -> ctypes.Array:
 def dense_mv_slots(dev, limits: DenseLimits) -> torch.Tensor:
     """The multi-view kernels' view-sum slots, one per SM: each persistent
     CTA keeps its share of the view sum there (``limits.slot_floats`` f32,
-    a 64 x H f32 stream: 128 KB at H = 512)."""
+    a 64 x H f32 stream: 128 KB at H = 512; a CTA's half at 1024, 128 KB)."""
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     return torch.empty((n_sms, limits.slot_floats), device=dev)
 

@@ -19,14 +19,16 @@ NS > 1 views (object-major rows, as in :mod:`.resnetfc_fused`):
   ``resnetfc_bwd_weights`` from ``csrc/resnetfc_bwd.cu`` (which notes what
   bounds them); :func:`resnetfc_bwd` runs both, or the plain backward for CPU
   tensors.  On a CUDA tensor they launch or raise; there is no fallback.
-  As the forward's, the backward's library is built once for each tower
-  width of :data:`~.resnetfc_fused.HIDDEN` (every multiple of 64 up to 512
-  but 448;
-  ``-DRFC_HID``), and a launch takes the library of ``tower.w_in.shape[1]``
-  (:func:`_lib`), the packed width: a tower of another width runs zero-padded
-  on the next library's (:func:`~.resnetfc_fused.pack_tower`);
-  :data:`DATA_LIMITS` and :data:`WEIGHT_LIMITS` mirror each library's
-  limits for the route rule.
+  The backward's library is built once for each tower width of
+  :data:`~.resnetfc_fused.BWD_HIDDEN` (every multiple of 64 up to 512 but
+  448; ``-DRFC_HID``; the forward's widths but 1024, whose tile is a
+  cluster of two CTAs), and a launch takes the library of
+  ``tower.w_in.shape[1]`` (:func:`_lib`), the packed width: a tower of
+  another width up to 512 runs zero-padded on the next library's
+  (:func:`~.resnetfc_fused.pack_tower`); :data:`DATA_LIMITS` and
+  :data:`WEIGHT_LIMITS` mirror each library's limits for the route rule,
+  and :func:`check_backward_width` refuses a packed width with no library
+  (a tower wider than 512 trains on the plain field).
 * :func:`weight_tasks` is the weights kernel's table of products (which
   planes, how many points), :func:`bwd_weights_reference` its plain version
   on a :class:`DataOut`, and :func:`workspace_reference` the DataOut that
@@ -244,7 +246,7 @@ def resnetfc_bwd_reference(g: torch.Tensor, z: Optional[torch.Tensor], x: torch.
 
 def _lib(H: int) -> ctypes.CDLL:
     """The backward library built for hidden width ``H``, built and loaded
-    at first use."""
+    at first use; raises ValueError at a width with no backward library."""
     if H not in _LIBS:
         lib = ctypes.CDLL(str(rf.build("bwd", H).library))
         P, I = ctypes.c_void_p, ctypes.c_int
@@ -368,7 +370,7 @@ def weight_tile_n(H: int) -> int:
 # (62 blocks at sn64's three injections).
 WEIGHT_LIMITS = {H: KernelLimits(tile_m=128, tile_n=weight_tile_n(H), max_splits=24,
                                  max_maps=256, max_tasks=128)
-                 for H in rf.HIDDEN}
+                 for H in rf.BWD_HIDDEN}
 
 
 @functools.lru_cache(maxsize=None)
@@ -740,7 +742,17 @@ def _data_mirror(H: int) -> DataLimits:
 
 
 # What each width's library reports (data_limits), mirrored as WEIGHT_LIMITS is.
-DATA_LIMITS = {H: _data_mirror(H) for H in rf.HIDDEN}
+DATA_LIMITS = {H: _data_mirror(H) for H in rf.BWD_HIDDEN}
+
+
+def check_backward_width(H: int) -> None:
+    """Raise ValueError on a packed width (a forward library's,
+    :func:`~.resnetfc_fused.library_width`) that has no backward library:
+    1024, whose forward tile is a cluster of two CTAs."""
+    if H not in rf.BWD_HIDDEN:
+        raise ValueError(f"the backward kernels take d_hidden up to {rf.BWD_HIDDEN[-1]}, one "
+                         f"library each of {rf.BWD_HIDDEN}; a tower packed at {H} trains on the "
+                         f"plain field")
 
 
 @functools.lru_cache(maxsize=None)
@@ -835,7 +847,7 @@ def check_data_widths(kin: int, H: int, C: int, n_lin_z: int, n_blocks: int, d_o
     past the card's shared memory."""
     if H != limits.hidden:
         raise ValueError(f"the backward kernel of this library needs d_hidden {limits.hidden}, "
-                         f"one library each of {rf.HIDDEN} (H={H})")
+                         f"one library each of {rf.BWD_HIDDEN} (H={H})")
     if n_lin_z > 0 and (C % 16 or not 16 <= C <= limits.max_c):
         raise ValueError(f"the backward kernel needs d_latent a multiple of 16 in "
                          f"[16, {limits.max_c}] with a latent (C={C})")

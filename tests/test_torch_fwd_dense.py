@@ -131,22 +131,21 @@ def test_dense_plain_at_narrow_widths_matches_pallas_interpret(H, shape, B, raw_
     assert err <= 1e-4 * max(1.0, np.abs(ref).max()), err
 
 
-@pytest.mark.parametrize("H", rf.HIDDEN)
+@pytest.mark.parametrize("H", rf.FWD_HIDDEN)
 def test_sn64_latent_is_one_piece_at_every_width(H):
     """The latent's pieces follow the operand tile's 512-column capacity,
     not the tower's width: sn64's C = 512 is one piece (14 steps at one view,
     15 at any view count) at every library's width alike, 1024 two;
-    each width's limits take its own H and refuse the others' (and 576 and
-    1024, past the widest library)."""
-    lim = LIMITS._replace(stages={128: 6, 192: 4, 256: 3, 320: 4, 384: 6, 512: 3}.get(H, 12),
-                          slot_floats=H // 4 * 256, hidden=H)
+    each width's limits take its own H and refuse the others' (and 576,
+    which runs zero-padded on the 1024 library, and 1025, past it)."""
+    lim = rf.TILE_LIMITS[H]
     assert rf.latent_pieces(512) == 1 and rf.latent_pieces(1024) == 2
     assert rf.dense_steps(5, 3, C=512) == 14 and rf.dense_steps(5, 3, 3, 3, C=512) == 15
     rf.check_dense_widths(48, H, 512, 3, 5, 4, lim)  # sn64's other widths
     rf.check_dense_widths(48, H, 1024, 3, 5, 4, lim)
     rf.check_dense_widths(512, H, 16, 1, 1, 1, lim)  # the widest code: one operand tile
     rf._check_gather_width(512, lim)
-    for other in (576, 1024) + tuple(h for h in rf.HIDDEN if h != H):
+    for other in (576, 1025) + tuple(h for h in rf.FWD_HIDDEN if h != H):
         with pytest.raises(ValueError, match="d_hidden"):
             rf.check_dense_widths(48, other, 512, 3, 5, 4, lim)
 

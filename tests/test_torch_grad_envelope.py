@@ -167,7 +167,7 @@ def test_route_keeps_towers_past_the_envelope_plain_under_grad(kw, NS, match):
     assert not rf._LIBS and not rv._LIBS
 
 
-@pytest.mark.parametrize("H", rf.HIDDEN)
+@pytest.mark.parametrize("H", rf.BWD_HIDDEN)
 def test_stored_program_at_the_forwards_depth_in_16_bit_steps(H):
     """At C = 512, 62 blocks from one view and 61 from NS views: 316 steps
     and 3 walk-back steps a dz piece (1 at 512, 2 at 256-384, 3 at 192, 4 at

@@ -75,16 +75,27 @@ def test_route_takes_every_width_up_to_512(H):
 
 @pytest.mark.parametrize("H", [576, 1024])
 def test_route_keeps_towers_past_512_plain(H):
-    """Past the widest library the rule routes plain under ``auto`` and
-    raises under ``cuda``, forward and under grad."""
-    for grad in (False, True):
+    """Past 512 the forward takes the 1024 library (576 zero-padded onto
+    it) from 1 and 3 views, while under grad, where no backward library is
+    built past 512, the rule routes plain under ``auto`` and raises under
+    ``cuda``; past 1024, the widest library, both ways are plain (and raise
+    under ``cuda``)."""
+    for NS in (1, 3):
         t = _tower(H)
+        assert t._kernel_route((NS, 64), CUDA, False) is True
+        assert t._kernel_route((NS, 64), CUDA, True) is False
+        t.impl = "cuda"
+        with pytest.raises(ValueError, match="d_hidden up to 512"):
+            t._kernel_route((NS, 64), CUDA, True)
+    assert rf.library_width(H) == 1024 and rf.tile_limits(H) is rf.TILE_LIMITS[1024]
+    for grad in (False, True):
+        t = _tower(H + 1024)
         assert t._kernel_route((1, 64), CUDA, grad) is False
         t.impl = "cuda"
-        with pytest.raises(ValueError, match="d_hidden"):
+        with pytest.raises(ValueError, match="d_hidden 1 to 1024"):
             t._kernel_route((3, 64), CUDA, grad)
-    with pytest.raises(ValueError, match="d_hidden 1 to 512"):
-        rf.library_width(H)
+    with pytest.raises(ValueError, match="d_hidden 1 to 1024"):
+        rf.library_width(H + 1024)
     assert not rf._LIBS and not rv._LIBS
 
 
@@ -128,7 +139,8 @@ def _unpadded(tw: rf.Tower) -> rf.Tower:
                     tw.d_in, H)
 
 
-@pytest.mark.parametrize("H,NS", [(1, 1), (100, 3), (200, 1), (200, 3), (448, 1), (500, 3)])
+@pytest.mark.parametrize("H,NS", [(1, 1), (100, 3), (200, 1), (200, 3), (448, 1), (500, 3),
+                                  (600, 1), (960, 3)])
 def test_padded_tower_is_the_tower(H, NS):
     """The packed tower at the library's width: zeros past H; its plain
     forward and plain backward (what the CPU route runs) against the same

@@ -160,9 +160,9 @@ def test_multi_view_on_card_raises(impl):
     take the multi-view kernels under ``cuda`` and ``auto`` (no longer the
     ``NotImplementedError`` this test once pinned), at NS 2 and 3.  Without
     the view mean it is plain, as in the JAX package.  A tower outside the
-    kernels' widths (576 wide, past the widest library) is plain on the card
+    kernels' widths (1040 wide, past the widest library) is plain on the card
     under ``auto`` and raises under ``cuda``."""
-    _, _, port = _pair(6, 8, 576, 2, 1, impl=impl)
+    _, _, port = _pair(6, 8, 1040, 2, 1, impl=impl)
     for NS in (2, 3):
         assert _wide(impl=impl)._kernel_route((NS, 3), torch.device("cuda"))
         if impl == "auto":

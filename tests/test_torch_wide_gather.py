@@ -210,7 +210,7 @@ def _tower(C, H=512, nb=5, n_lin_z=3):
                     d_hidden=H)
 
 
-@pytest.mark.parametrize("H", rf.HIDDEN)
+@pytest.mark.parametrize("H", rf.FWD_HIDDEN)
 @pytest.mark.parametrize("C", [832, 1024, 1856, 3904, 4096])
 def test_check_gathers_take_tables_to_4096(C, H):
     """The gathers' wrapper checks take sn64's tower at every library's

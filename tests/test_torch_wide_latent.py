@@ -19,7 +19,8 @@ envelope, on the CPU.
   data kernel's program: 61 walk-back steps an injection).  The forward and the
   backward kernels take every multiple of 64 up to 512 but 448 (a library
   each of each) and any other width up to 512 zero-padded on the next one's:
-  narrower towers render and train on them; 576 and 1024 stay plain.  Under
+  narrower towers render and train on them; 576 and 1024 render on the
+  forward's 1024 library and train plain, 1040 and 2048 stay plain.  Under
   grad a tower trains on the kernels to the depth the card's gates hold
   (``GRAD_MAX_BLOCKS``, 32 blocks), inside the data kernel's program (512
   16-bit steps) and the weights kernel's plan; deeper ones, and a tower past
@@ -170,9 +171,9 @@ CUDA = torch.device("cuda")  # only compared by type: nothing is allocated on it
 
 
 @pytest.mark.parametrize("kw,NS,grad", [
-    (dict(d_hidden=576), 1, False),  # past the widest library, 512
-    (dict(d_hidden=1024), 3, False),  # past it too
-    (dict(d_hidden=576), 1, True),  # past the widest library, under grad
+    (dict(d_hidden=1040), 1, False),  # past the widest library, 1024
+    (dict(d_hidden=2048), 3, False),  # past it too
+    (dict(d_hidden=576), 1, True),  # past the widest backward library (512), under grad
     (dict(d_hidden=1024), 3, True),
     (dict(d_in=520), 1, True),  # kin 528 > 512: past the operand tile, forward and backward
     # the data kernel's program: 516 steps of 512 at d_hidden 64, four
@@ -324,8 +325,12 @@ def test_mirrored_limits_are_the_kernels_limits_by_hand():
         320: rf.DenseLimits(64, 256, 4, 4, 128, 512, 20480, 214016, 448, 4096, 320, 4096),
         384: rf.DenseLimits(64, 256, 6, 4, 128, 512, 24576, 230400, 448, 4096, 384, 4096),
         512: rf.DenseLimits(64, 256, 3, 4, 128, 512, 32768, 230400, 448, 4096, 512, 4096),
+        # a cluster of two CTAs, each owning 512 columns: the 512 layout
+        # (pieces of 64), a 128 KB block operand and a 32 KB ring of 2 stages
+        1024: rf.DenseLimits(64, 256, 2, 4, 128, 512, 32768, 230400, 448, 4096, 1024, 4096,
+                             cluster=2),
     }
-    assert tuple(rf.TILE_LIMITS) == rf.HIDDEN
+    assert tuple(rf.TILE_LIMITS) == rf.FWD_HIDDEN
     assert rv.DATA_LIMITS == {
         64: rv.DataLimits(64, 256, 4096, 12, 4, 512, 4096, 230400, 64, 512, 64),
         128: rv.DataLimits(64, 256, 8192, 6, 4, 512, 4096, 230400, 128, 512, 64),
@@ -342,11 +347,12 @@ def test_mirrored_limits_are_the_kernels_limits_by_hand():
                                 320: rv.KernelLimits(128, 160, 24, 256, 128),
                                 384: rv.KernelLimits(128, 192, 24, 256, 128),
                                 512: rv.KernelLimits(128, 256, 24, 256, 128)}
-    assert tuple(rv.DATA_LIMITS) == tuple(rv.WEIGHT_LIMITS) == rf.HIDDEN
+    assert tuple(rv.DATA_LIMITS) == tuple(rv.WEIGHT_LIMITS) == rf.BWD_HIDDEN
     for H, lim in rf.TILE_LIMITS.items():
         assert lim.smem <= rf.MAX_SMEM_BYTES and lim.hidden == H
         assert rf.tile_limits(H) is lim
-        dlim = rv.DATA_LIMITS[H]
+    for H in rf.BWD_HIDDEN:
+        lim, dlim = rf.TILE_LIMITS[H], rv.DATA_LIMITS[H]
         assert dlim.max_c == lim.max_c == lim.max_gather_c and dlim.hidden == H
         assert dlim.smem <= rf.MAX_SMEM_BYTES
         assert dlim.slot_floats == dlim.threads * H // 4  # a thread's share of the 64 x H stream
@@ -358,9 +364,10 @@ def test_mirrored_limits_are_the_kernels_limits_by_hand():
         assert rf.ring_stage_bytes(H) == stage
         assert dlim.stages * stage <= 3 * 32768 < (dlim.stages + 1) * stage
         assert dlim.smem == lim.smem == 2 * 65536 + dlim.stages * stage + 1024
-    for H, L in ((1, 64), (100, 128), (200, 256), (448, 512), (500, 512)):  # zero-padded
+    for H, L in ((1, 64), (100, 128), (200, 256), (448, 512), (500, 512), (576, 1024),
+                 (1024, 1024)):  # zero-padded
         assert rf.library_width(H) == L and rf.tile_limits(H) is rf.TILE_LIMITS[L]
-    for H in (576, 1024, 0):
+    for H in (1025, 2048, 0):
         with pytest.raises(ValueError, match="d_hidden"):
             rf.tile_limits(H)
 

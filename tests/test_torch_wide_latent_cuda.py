@@ -1,8 +1,9 @@
 """On the card only (``cuda``-marked; skipped without one): the dense
 forwards at a 640-wide latent, the backward kernels (rows 5a / 5b) at
 latent widths 128, 640 and 1024, and the four forward kernels with their
-CODE twins (rows 1-4, 6) at d_hidden 64, 128 and 256 against their plain
-versions, and the Python mirrors of the kernels' limits that the route rule
+CODE twins (rows 1-4, 6) at d_hidden 64, 128 and 256, and 1024 and 640
+(the 1024 library's cluster of two CTAs) against their plain versions,
+and the Python mirrors of the kernels' limits that the route rule
 reads against what each library reports.  No JAX here: this file runs where
 the card is.  ``chip_smoke.py`` makes the same checks at sn64's full
 widths."""
@@ -26,7 +27,7 @@ def cuda_device():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("H", rf.HIDDEN)
+@pytest.mark.parametrize("H", rf.BWD_HIDDEN)
 def test_mirrored_limits_are_the_libraries(cuda_device, H):
     """Each width's libraries (d_hidden 64's 12-stage ring of 8 KB, 64 x 32
     weight boxes, included) report the limits the route rule mirrors: a
@@ -37,6 +38,14 @@ def test_mirrored_limits_are_the_libraries(cuda_device, H):
     assert rv.data_limits(H).max_c == 4096
     assert rv.data_limits(H) == rv.DATA_LIMITS[H]
     assert rv.kernel_limits(H) == rv.WEIGHT_LIMITS[H]
+
+
+@pytest.mark.cuda
+def test_1024_library_reports_its_mirror(cuda_device):
+    """The forward's d_hidden 1024 library (a 64-point tile on a cluster of
+    two CTAs) reports the limits the route rule mirrors."""
+    assert rf.dense_limits(1024) == rf.TILE_LIMITS[1024]
+    assert rf.dense_limits(1024).cluster == 2
 
 
 @pytest.mark.cuda
@@ -141,11 +150,12 @@ def test_backward_kernels_at_other_latent_widths_match_plain_on_card(cuda_device
 @pytest.mark.parametrize("raw_code", [False, True])
 @pytest.mark.parametrize("kind", ["dense", "gather"])
 @pytest.mark.parametrize("NS,sb,B_obj", [(1, 1, 2000), (1, 1, 160), (3, 2, 333), (2, 1, 1000)])
-@pytest.mark.parametrize("H", [64, 128, 256])
+@pytest.mark.parametrize("H", [64, 128, 256, 1024, 640])
 def test_narrow_forward_kernels_match_plain_on_card(cuda_device, H, NS, sb, B_obj, kind,
                                                     raw_code):
-    """sn64's other widths at d_hidden 64, 128 and 256 (C = 512 one piece, 5
-    blocks, the views' mean at block 3): the dense kernel or the fused gather
+    """sn64's other widths at d_hidden 64, 128 and 256, and 1024 and 640
+    (zero-padded onto the 1024 library; C = 512 one piece, 5 blocks, the
+    views' mean at block 3): the dense kernel or the fused gather
     (NS 1), the multi-view dense kernel or gather (the gather at SB 1), each
     encoded and as its CODE twin, against its plain version in bf16 at the
     bar of tests/test_pallas.py, one launch of the width's library,
